@@ -1,0 +1,281 @@
+"""Eager Executor.
+
+Interprets a block op by op on torch tensors, the way the reference
+Executor interprets a block against device memory.  Per (program
+fingerprint, feed signature, fetch names, place) it caches the
+classified op list: which persistables the block reads (the state,
+taken from the Scope), which it writes back, and each op's registry
+entry.  Persistables an op writes go back into the Scope after the run.
+
+On a CUDA place every run holds float32 math at float32: TF32 is off for
+cuDNN and matmul while any run is in flight (``_f32_math``), so the
+library calls that the kernels leave to PyTorch (the stride-2 convs)
+round like the kernels do.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import framework
+from paddle_tpu_torch.framework import Place, Program, Variable
+from paddle_tpu_torch.ops.common import torch_dtype
+from paddle_tpu_torch.registry import LowerContext, OpRegistry
+
+
+# ---------------------------------------------------------------------------
+# Scope
+# ---------------------------------------------------------------------------
+
+
+def params_from_numpy(arrays: Dict[str, np.ndarray],
+                      device) -> Dict[str, torch.Tensor]:
+    """The port's state from parameters read as numpy (from the JAX
+    package's scope or from an export): one tensor per name on
+    ``device``, dtype kept, copied (the arrays may be read-only views of
+    another framework's buffers)."""
+    return {name: torch.tensor(np.asarray(arr), device=device)
+            for name, arr in arrays.items()}
+
+
+class Scope:
+    """Name -> tensor map with parent-chain lookup."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self.parent = parent
+        self.values: Dict[str, Any] = {}
+
+    def get(self, name: str, default=None):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s.values:
+                return s.values[name]
+            s = s.parent
+        return default
+
+    def set(self, name: str, value):
+        self.values[name] = value
+
+    def load_numpy(self, arrays: Dict[str, np.ndarray], device) -> None:
+        """Set every array as a tensor on ``device`` (``params_from_numpy``)."""
+        self.values.update(params_from_numpy(arrays, device))
+
+    def __contains__(self, name: str) -> bool:
+        return self.get(name) is not None
+
+    def keys(self):
+        return self.values.keys()
+
+
+_global_scope = Scope()
+_scope_stack = [_global_scope]
+
+
+def global_scope() -> Scope:
+    return _scope_stack[-1]
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    _scope_stack.append(scope)
+    try:
+        yield
+    finally:
+        _scope_stack.pop()
+
+
+# ---------------------------------------------------------------------------
+# float32 policy on CUDA
+# ---------------------------------------------------------------------------
+
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = None
+
+
+@contextlib.contextmanager
+def _f32_math():
+    """TF32 off for cuDNN and matmul while at least one run is inside.
+    The flags are process-global, so concurrent runs (serving replicas
+    are threads) share one save/restore: the first in sets, the last out
+    restores."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
+    try:
+        yield
+    finally:
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _f32_saved
+
+
+# ---------------------------------------------------------------------------
+# Feeds
+# ---------------------------------------------------------------------------
+
+
+def _convert_feed(value, var: Optional[Variable], device) -> torch.Tensor:
+    dtype = torch_dtype(var.dtype) if var is not None else None
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    arr = np.asarray(value)
+    if var is not None and var.dtype != "bfloat16":
+        arr = arr.astype(var.dtype, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
+                                                          dtype=dtype)
+
+
+def _feed_signature(feed_vals: Dict[str, torch.Tensor]):
+    return tuple((name, tuple(feed_vals[name].shape), str(feed_vals[name].dtype))
+                 for name in sorted(feed_vals))
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
+_RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
+
+
+class _Plan:
+    """A classified block: the state it reads, the persistables it
+    writes, and each op with its registry entry."""
+
+    __slots__ = ("ops", "state_names", "written_names", "fetch_names",
+                 "uses_rng")
+
+    def __init__(self, ops, state_names, written_names, fetch_names, uses_rng):
+        self.ops = ops
+        self.state_names = state_names
+        self.written_names = written_names
+        self.fetch_names = fetch_names
+        self.uses_rng = uses_rng
+
+
+class Executor:
+    """Eager op-by-op executor on one place: ``CUDAPlace(0)`` unless the
+    caller passes another, and a RuntimeError rather than a quiet CPU
+    run when there is no card."""
+
+    def __init__(self, place: Optional[Place] = None):
+        self.place = framework.resolve_place(place)
+        self.device = self.place.device()
+        self._cache: Dict[Any, _Plan] = {}
+        self._lock = threading.Lock()
+        self._step = 0
+
+    def run(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+    ):
+        program = program or framework.default_main_program()
+        scope = scope or global_scope()
+        feed = feed or {}
+        fetch_names = tuple(
+            v.name if isinstance(v, Variable) else str(v)
+            for v in (fetch_list or []))
+        block = program.global_block()
+        feed_vals = {name: _convert_feed(v, block.find_var(name), self.device)
+                     for name, v in feed.items()}
+
+        key = (program.cache_key(), _feed_signature(feed_vals), fetch_names,
+               self.place)
+        plan = self._cache.get(key)
+        if plan is None:
+            plan = self._classify(program, feed_vals, fetch_names)
+            self._cache[key] = plan
+
+        values: Dict[str, Any] = {}
+        missing = []
+        for n in plan.state_names:
+            v = scope.get(n)
+            if v is None:
+                missing.append(n)
+            values[n] = v
+        if missing:
+            raise RuntimeError(
+                f"persistable variables not initialized in scope: {missing}; "
+                "run the startup program first")
+        values.update(feed_vals)
+
+        generator = None
+        if plan.uses_rng:
+            with self._lock:
+                self._step += 1
+                step = self._step
+            seed = (program.seed or 0) * 1000003 + step
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        math = (_f32_math() if self.device.type == "cuda"
+                else contextlib.nullcontext())
+        with torch.no_grad(), math:
+            for op, info in plan.ops:
+                info.lower(LowerContext(op, values, self.device, generator))
+        for n in plan.written_names:
+            scope.set(n, values[n])
+        fetches = [values[n] for n in plan.fetch_names]
+        if return_numpy:
+            return [v.detach().cpu().numpy() for v in fetches]
+        return fetches
+
+    @staticmethod
+    def _classify(program: Program, feed_vals: Dict[str, Any],
+                  fetch_names: Sequence[str]) -> _Plan:
+        """Persistables an op reads before any op writes them come from
+        the scope; every other input must be fed or produced earlier."""
+        block = program.global_block()
+        read_state: List[str] = []
+        written_state: List[str] = []
+        produced: set = set(feed_vals)
+        uses_rng = False
+        ops = []
+        for op in block.ops:
+            if op.type in ("feed", "fetch"):
+                continue
+            ops.append((op, OpRegistry.get(op.type)))
+            if op.type in _RANDOM_OPS and not op.attr("is_test", False):
+                uses_rng = True
+            for n in op.input_arg_names:
+                if not n or n in produced or n in read_state:
+                    continue
+                var = block.find_var(n)
+                if var is not None and var.persistable:
+                    read_state.append(n)
+                else:
+                    raise RuntimeError(
+                        f"op {op.type} reads {n!r} which is neither fed, "
+                        "produced by an earlier op, nor persistable")
+            for n in op.output_arg_names:
+                if not n:
+                    continue
+                produced.add(n)
+                var = block.find_var(n)
+                if var is not None and var.persistable and n not in written_state:
+                    written_state.append(n)
+        for n in fetch_names:
+            if n not in produced and n not in read_state:
+                var = block.find_var(n)
+                if var is not None and var.persistable:
+                    read_state.append(n)
+                else:
+                    raise RuntimeError(f"fetch target {n!r} is never produced")
+        return _Plan(ops, tuple(read_state), tuple(written_state),
+                     tuple(fetch_names), uses_rng)

@@ -1,0 +1,126 @@
+"""Build and load the CUDA kernel libraries of ``paddle_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, into ``build/paddle_tpu_torch/`` beside
+the package; a library's file name carries a hash of its sources and
+flags, so an edited source never loads a stale build.  ``build()``
+starts one ``nvcc`` per missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Sequence, Tuple
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "paddle_tpu_torch")
+
+#: The kernel libraries, one per ``csrc/<name>.cu``.
+LIBRARIES = ("conv", "matmul", "softmax")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under $CUDA_HOME/bin): the "
+        "CUDA kernels of paddle_tpu_torch build from source at first use")
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, name + ".cu")
+
+
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name)] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def nvcc_command(name: str, out: str) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", out,
+            source_path(name)]
+
+
+def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Tuple[float, str]]:
+    """Compile every named library that is not built yet, one ``nvcc``
+    process each, all started together.  Returns ``{name: (seconds,
+    compiler log)}`` for the ones it built; raises on a failed build."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        procs[name] = (out, tmp, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    built = {}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source_path(name)} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        built[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed.  Every entry
+    in ``signatures`` (C function name -> ctypes argtypes) returns an
+    int error code."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not os.path.exists(path):
+                build([name])
+            lib = ctypes.CDLL(path)
+            lib.ptt_error_string.argtypes = [ctypes.c_int]
+            lib.ptt_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and ``torch.cuda.synchronize()`` does not report it)."""
+    if err != 0:
+        msg = lib.ptt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} (error {err})")

@@ -1,0 +1,57 @@
+"""Shared helpers for op lowerings."""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.lod import rewrap, unwrap
+
+_TORCH_DTYPES = {
+    "bool": torch.bool,
+    "int8": torch.int8,
+    "uint8": torch.uint8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _TORCH_DTYPES[name]
+
+
+def broadcast_to_x(x, y, axis: int = -1):
+    """Reference elementwise broadcast rule: Y's dims align to a
+    contiguous run of X's dims starting at ``axis`` (-1 = trailing)."""
+    x_ = unwrap(x)
+    y_ = unwrap(y)
+    if x_.shape == y_.shape:
+        return y_
+    # the default axis aligns Y's ORIGINAL rank to X's trailing dims,
+    # computed before the trailing-1 trim
+    if axis == -1:
+        axis = x_.ndim - y_.ndim
+    yshape = list(y_.shape)
+    while yshape and yshape[-1] == 1 and len(yshape) > 1:
+        yshape = yshape[:-1]
+    full = [1] * x_.ndim
+    for i, s in enumerate(yshape):
+        full[axis + i] = s
+    return torch.reshape(y_, full)
+
+
+def elementwise(ctx, fn):
+    x = ctx.input("X")
+    y = ctx.input("Y")
+    axis = ctx.attr("axis", -1)
+    out = fn(unwrap(x), broadcast_to_x(x, y, axis))
+    ctx.set_output("Out", rewrap(x, out))
+
+
+def unary(ctx, fn, slot_in="X", slot_out="Out"):
+    x = ctx.input(slot_in)
+    ctx.set_output(slot_out, rewrap(x, fn(unwrap(x))))

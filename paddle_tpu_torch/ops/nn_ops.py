@@ -1,0 +1,226 @@
+"""NN layer ops of the serving slice: conv2d, pool2d, batch_norm,
+softmax.  All NCHW, as in the JAX package's ``paddle_tpu/ops/nn_ops.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.kernels import conv as kconv
+from paddle_tpu_torch.kernels import softmax as ksoftmax
+from paddle_tpu_torch.layers.nn import pool_extra_padding, pool_out_extent
+from paddle_tpu_torch.lod import rewrap, unwrap
+from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
+                                       register_op)
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v, v)
+
+
+# ---------------------------------------------------------------------------
+# infer_shape rules: backfill missing output metadata, SkipInferShape
+# when statically unknowable, ValueError only for shapes the lowering
+# would also reject.
+# ---------------------------------------------------------------------------
+
+
+def _io_vars(op, block, in_slot, out_slot):
+    ins = op.inputs.get(in_slot, [])
+    outs = op.outputs.get(out_slot, [])
+    if len(ins) != 1 or len(outs) != 1 or not ins[0] or not outs[0]:
+        raise SkipInferShape
+    xv = block.find_var(ins[0])
+    ov = block.find_var(outs[0])
+    if xv is None or ov is None or xv.shape is None:
+        raise SkipInferShape
+    return xv, ov
+
+
+def _conv_extent(size, k, p, s, d=1):
+    if size < 0:
+        return -1
+    out = (size + 2 * p - ((k - 1) * d + 1)) // s + 1
+    if out < 1:
+        raise ValueError(
+            f"conv/pool output extent {out} < 1 (input {size}, kernel {k}, "
+            f"pad {p}, stride {s}, dilation {d})")
+    return out
+
+
+def _nd(op, name, default, n):
+    v = op.attr(name, default)
+    v = tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
+    if len(v) != n:
+        raise SkipInferShape
+    return v
+
+
+def _infer_conv2d_shape(op, block):
+    xv, ov = _io_vars(op, block, "Input", "Output")
+    if ov.shape is not None:
+        return
+    fs = op.inputs.get("Filter", [])
+    wv = block.find_var(fs[0]) if len(fs) == 1 and fs[0] else None
+    if (wv is None or wv.shape is None or len(xv.shape) != 4
+            or len(wv.shape) != 4):
+        raise SkipInferShape
+    strides = _nd(op, "strides", (1, 1), 2)
+    pads = _nd(op, "paddings", (0, 0), 2)
+    dils = _nd(op, "dilations", (1, 1), 2)
+    sp = tuple(_conv_extent(xv.shape[2 + i], wv.shape[2 + i], pads[i],
+                            strides[i], dils[i]) for i in range(2))
+    ov.shape = (xv.shape[0], wv.shape[0]) + sp
+
+
+def _infer_pool2d_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Out")
+    if len(xv.shape) != 4:
+        raise SkipInferShape
+    if ov.shape is not None:
+        return
+    if op.attr("global_pooling", False):
+        sp = (1, 1)
+    else:
+        ks = _nd(op, "ksize", (2, 2), 2)
+        st = _nd(op, "strides", (1, 1), 2)
+        pd = _nd(op, "paddings", (0, 0), 2)
+        ceil = op.attr("ceil_mode", False)
+        sp = tuple(pool_out_extent(xv.shape[2 + i], ks[i], pd[i], st[i],
+                                   ceil_mode=ceil) for i in range(2))
+    ov.shape = tuple(xv.shape[:2]) + sp
+
+
+def _infer_batch_norm_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Y")
+    if ov.shape is None:
+        ov.shape = tuple(xv.shape)
+    if len(xv.shape) < 2 or xv.shape[1] < 0:
+        return
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        outs = op.outputs.get(slot, [])
+        if len(outs) == 1 and outs[0]:
+            sv = block.find_var(outs[0])
+            if sv is not None and sv.shape is None:
+                sv.shape = (xv.shape[1],)
+
+
+# ---------------------------------------------------------------------------
+# Lowerings
+# ---------------------------------------------------------------------------
+
+
+def conv_kernel_applies(groups, dilations, strides, pads, kh, kw) -> bool:
+    """The gate of the ``conv2d`` kernel: stride 1, dilation 1, one
+    group, an odd square filter and padding k // 2 (the JAX package's
+    forced-Pallas gate, less its TPU tiling terms)."""
+    return (groups == 1 and dilations == (1, 1) and strides == (1, 1)
+            and kh == kw and kh % 2 == 1 and pads == (kh // 2, kh // 2))
+
+
+@register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
+             infer_shape=_infer_conv2d_shape)
+def _conv2d(ctx):
+    """NCHW conv, filter (O, I/groups, H, W)."""
+    x = unwrap(ctx.input("Input"))
+    w = unwrap(ctx.input("Filter"))
+    strides = _pair(ctx.attr("strides", (1, 1)))
+    pads = _pair(ctx.attr("paddings", (0, 0)))
+    dilations = _pair(ctx.attr("dilations", (1, 1)))
+    groups = ctx.attr("groups", 1)
+    out_dt = amp.out_dtype(x)
+    x, w = amp.cast_operands(x, w)
+    if conv_kernel_applies(groups, dilations, strides, pads, w.shape[2],
+                           w.shape[3]):
+        out = kconv.conv2d_nhwc(
+            x.permute(0, 2, 3, 1).contiguous(),
+            w.permute(2, 3, 1, 0).contiguous().to(x.dtype), pads[0])
+        ctx.set_output("Output", out.permute(0, 3, 1, 2).to(out_dt))
+        return
+    out = F.conv2d(x, w, stride=strides, padding=pads, dilation=dilations,
+                   groups=groups)
+    ctx.set_output("Output", out.to(out_dt))
+
+
+@register_op("pool2d", inputs=("X",), infer_shape=_infer_pool2d_shape)
+def _pool2d(ctx):
+    """Max/avg pooling with the JAX package's semantics: explicit
+    padding (ceil_mode as extra high-side padding), then a window max or
+    a window sum divided by the window size or, with ``exclusive``, by
+    the count of real cells."""
+    x = unwrap(ctx.input("X"))
+    ptype = ctx.attr("pooling_type", "max")
+    ksize = _pair(ctx.attr("ksize", (2, 2)))
+    strides = _pair(ctx.attr("strides", (1, 1)))
+    pads = _pair(ctx.attr("paddings", (0, 0)))
+    if ctx.attr("global_pooling", False):
+        ksize = tuple(x.shape[2:4])
+        strides = (1, 1)
+        pads = (0, 0)
+    extra = (0, 0)
+    if ctx.attr("ceil_mode", False):
+        extra = (pool_extra_padding(x.shape[2], ksize[0], pads[0], strides[0]),
+                 pool_extra_padding(x.shape[3], ksize[1], pads[1], strides[1]))
+    # F.pad order: (w_lo, w_hi, h_lo, h_hi)
+    padding = (pads[1], pads[1] + extra[1], pads[0], pads[0] + extra[0])
+    if ptype == "max":
+        xp = F.pad(x, padding, value=float("-inf"))
+        ctx.set_output("Out", F.max_pool2d(xp, ksize, strides))
+        return
+    xf = F.pad(x.float(), padding)
+    summed = F.avg_pool2d(xf, ksize, strides, divisor_override=1)
+    if ctx.attr("exclusive", False):
+        ones = F.pad(torch.ones_like(x, dtype=torch.float32), padding)
+        counts = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+        out = summed / counts
+    else:
+        out = summed / (ksize[0] * ksize[1])
+    ctx.set_output("Out", out.to(x.dtype))
+
+
+@register_op("batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance", "Length"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"),
+             infer_shape=_infer_batch_norm_shape)
+def _batch_norm(ctx):
+    """Inference BN over NCHW channel axis 1 from the running statistics,
+    in float32.  The training statistics come with the training slice."""
+    if not ctx.attr("is_test", False):
+        raise NotImplementedError(
+            "paddle_tpu_torch runs batch_norm with is_test only; run "
+            "program.clone(for_test=True) (training BN is a later slice)")
+    if ctx.attr("data_layout", "NCHW") != "NCHW" or ctx.has_input("Length"):
+        raise NotImplementedError(
+            "paddle_tpu_torch batch_norm takes NCHW input without Length")
+    x = unwrap(ctx.input("X"))
+    scale = unwrap(ctx.input("Scale"))
+    bias = unwrap(ctx.input("Bias"))
+    mean = unwrap(ctx.input("Mean"))
+    var = unwrap(ctx.input("Variance"))
+    eps = ctx.attr("epsilon", 1e-5)
+    bshape = [1] * x.ndim
+    bshape[1] = x.shape[1]
+    inv = torch.rsqrt(var.float() + eps)
+    y = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    ctx.set_output("Y", y.to(x.dtype))
+    ctx.set_output("MeanOut", mean)
+    ctx.set_output("VarianceOut", var)
+    ctx.set_output("SavedMean", mean)
+    ctx.set_output("SavedVariance", var)
+
+
+@register_op("softmax", inputs=("X",), infer_shape=infer_same_shape)
+def _softmax(ctx):
+    unary_in = ctx.input("X")
+    x = unwrap(unary_in)
+    if x.ndim == 2:
+        ctx.set_output("Out", rewrap(unary_in, ksoftmax.softmax(x.contiguous())))
+        return
+    out = torch.softmax(x.float(), dim=-1).to(x.dtype)
+    ctx.set_output("Out", rewrap(unary_in, out))
