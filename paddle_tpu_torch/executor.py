@@ -4,8 +4,15 @@ Interprets a block op by op on torch tensors, the way the reference
 Executor interprets a block against device memory.  Per (program
 fingerprint, feed signature, fetch names, place) it caches the
 classified op list: which persistables the block reads (the state,
-taken from the Scope), which it writes back, and each op's registry
-entry.  Persistables an op writes go back into the Scope after the run.
+taken from the Scope), which it writes back, each op's registry entry,
+and each value's last reader.  Persistables an op writes go back into
+the Scope after the run.
+
+Values die young: once the last op that reads a value has run, the run
+drops it, unless it is persistable, fed or fetched.  XLA's buffer
+liveness does this for the JAX package.  Eagerly, holding every
+activation and every activation gradient of a ResNet-50 train step to
+the end of the run would need about twice the forward's values.
 
 On a CUDA place every run holds float32 math at float32: TF32 is off for
 cuDNN and matmul while any run is in flight (``_f32_math``), so the
@@ -153,13 +160,14 @@ _RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
 
 class _Plan:
     """A classified block: the state it reads, the persistables it
-    writes, and each op with its registry entry."""
+    writes, each op with its registry entry and the values to drop once
+    it has run."""
 
     __slots__ = ("ops", "state_names", "written_names", "fetch_names",
                  "uses_rng")
 
     def __init__(self, ops, state_names, written_names, fetch_names, uses_rng):
-        self.ops = ops
+        self.ops = ops    # [(op, OpInfo, names to release after it)]
         self.state_names = state_names
         self.written_names = written_names
         self.fetch_names = fetch_names
@@ -227,8 +235,10 @@ class Executor:
         math = (_f32_math() if self.device.type == "cuda"
                 else contextlib.nullcontext())
         with torch.no_grad(), math:
-            for op, info in plan.ops:
+            for op, info, release in plan.ops:
                 info.lower(LowerContext(op, values, self.device, generator))
+                for n in release:
+                    values.pop(n, None)
         for n in plan.written_names:
             scope.set(n, values[n])
         fetches = [values[n] for n in plan.fetch_names]
@@ -277,5 +287,20 @@ class Executor:
                     read_state.append(n)
                 else:
                     raise RuntimeError(f"fetch target {n!r} is never produced")
-        return _Plan(ops, tuple(read_state), tuple(written_state),
+        # last reader (or, for a value nobody reads, the writer) of each
+        # value that is neither persistable, fed nor fetched
+        keep = set(feed_vals) | set(fetch_names)
+        last = {}
+        for i, (op, _) in enumerate(ops):
+            for n in op.input_arg_names + op.output_arg_names:
+                if n and n not in keep:
+                    last[n] = i
+        release = [[] for _ in ops]
+        for n, i in last.items():
+            var = block.find_var(n)
+            if var is None or not var.persistable:
+                release[i].append(n)
+        return _Plan([(op, info, tuple(rel))
+                      for (op, info), rel in zip(ops, release)],
+                     tuple(read_state), tuple(written_state),
                      tuple(fetch_names), uses_rng)

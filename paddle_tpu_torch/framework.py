@@ -104,6 +104,10 @@ def convert_dtype(dtype) -> str:
     return name
 
 
+def is_float_dtype(dtype) -> bool:
+    return convert_dtype(dtype) in ("float16", "bfloat16", "float32", "float64")
+
+
 # ---------------------------------------------------------------------------
 # Unique names
 # ---------------------------------------------------------------------------
@@ -124,6 +128,13 @@ _name_gen = _UniqueNameGenerator()
 
 def unique_name(key: str) -> str:
     return _name_gen(key)
+
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Model persistence, in the JAX package's export layout
 (``paddle_tpu/io.py:68-172``): a directory of one ``<var>.npy`` per
 variable plus ``MANIFEST.json``, and for an inference export the pruned
-program as ``__model__.json``.  An export written by either package
-loads in the other.
+program as ``__model__.json``.  An export or a checkpoint
+(``save_persistables``) written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -59,8 +59,47 @@ def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
         json.dump(manifest, f, indent=1)
 
 
+def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
+              predicate=_is_persistable, vars=None, scope: Scope = None):
+    """Set each selected variable of ``main_program`` from its
+    ``<name>.npy`` in ``dirname``, as a tensor on the executor's device.
+    Raises when one has no saved value."""
+    main_program = main_program or framework.default_main_program()
+    scope = scope if scope is not None else global_scope()
+    if vars is None:
+        vars = [v for v in main_program.global_block().vars.values()
+                if predicate(v)]
+    arrays = {}
+    for v in vars:
+        path = os.path.join(dirname, v.name + ".npy")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"no saved value for variable {v.name!r} in {dirname}")
+        arrays[v.name] = np.load(path)
+    scope.load_numpy(arrays, executor.device)
+
+
 def save_params(executor, dirname, main_program=None, scope: Scope = None):
     save_vars(executor, dirname, main_program, predicate=_is_parameter,
+              scope=scope)
+
+
+def load_params(executor, dirname, main_program=None, scope: Scope = None):
+    load_vars(executor, dirname, main_program, predicate=_is_parameter,
+              scope=scope)
+
+
+def save_persistables(executor, dirname, main_program=None,
+                      scope: Scope = None):
+    """Every persistable: parameters, BN running statistics, the learning
+    rate and the optimizer's accumulators (a training checkpoint)."""
+    save_vars(executor, dirname, main_program, predicate=_is_persistable,
+              scope=scope)
+
+
+def load_persistables(executor, dirname, main_program=None,
+                      scope: Scope = None):
+    load_vars(executor, dirname, main_program, predicate=_is_persistable,
               scope=scope)
 
 

@@ -6,6 +6,11 @@ The build happens at first use, into ``build/paddle_tpu_torch/`` beside
 the package; a library's file name carries a hash of its sources and
 flags, so an edited source never loads a stale build.  ``build()``
 starts one ``nvcc`` per missing library, all at once.
+
+A wrapper may drop its scratch tensors as soon as it has queued a
+launch: PyTorch's caching allocator hands that memory only to work
+queued later on the same stream, and the kernels run on the caller's
+current stream.
 """
 
 from __future__ import annotations
@@ -20,12 +25,14 @@ import threading
 import time
 from typing import Dict, Iterable, Sequence, Tuple
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "paddle_tpu_torch")
 
 #: The kernel libraries, one per ``csrc/<name>.cu``.
-LIBRARIES = ("conv", "matmul", "softmax")
+LIBRARIES = ("conv", "conv_dw", "batch_norm", "matmul", "softmax")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,6 +123,18 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def require_cuda_f32(what: str, *tensors) -> None:
+    """Raise on what the CUDA kernels do not take: another device, another
+    dtype than float32, or a non-contiguous tensor."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} kernel takes float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

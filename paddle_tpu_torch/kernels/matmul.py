@@ -6,7 +6,8 @@ Replaces the TPU kernel ``paddle_tpu/pallas/matmul.py:92``
 accumulation, output in x's dtype, any M, K, N with the ragged edge
 masked.  At the serving shape (fc 2048 -> 1000) it is bound by bytes,
 the weight read; ``csrc/matmul.cu`` says what its design does about
-that.
+that.  Its backward is two plain matmuls (``matmul_backward``), as
+``paddle_tpu/pallas/matmul.py:80-85`` leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -54,13 +55,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     _check(x, y)
     if x.device.type == "cpu":
         return matmul_plain(x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul: no kernel for device {x.device}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"matmul kernel takes float32, got {x.dtype} and "
-                        f"{y.dtype}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("matmul kernel takes contiguous tensors")
+    _build.require_cuda_f32("matmul", x, y)
     m, k = x.shape
     n = y.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -74,3 +69,26 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, "matmul")
     _count()
     return out
+
+
+def matmul_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                    need_dx: bool = True, need_dy: bool = True):
+    """(dx, dy) of ``x @ y`` from dL/dout ``g``: g @ y^T and x^T @ g with
+    ``torch.matmul``; either is None when not needed."""
+    dx = torch.matmul(g, y.t().to(g.dtype)).to(x.dtype) if need_dx else None
+    dy = torch.matmul(x.t().to(g.dtype), g).to(y.dtype) if need_dy else None
+    return dx, dy
+
+
+class Matmul(torch.autograd.Function):
+    """``matmul`` with its backward: ``Matmul.apply(x, y)``."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return matmul(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return matmul_backward(x, y, g, *ctx.needs_input_grad)

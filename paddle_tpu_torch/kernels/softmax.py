@@ -5,7 +5,8 @@ Replaces the TPU kernel ``paddle_tpu/pallas/softmax.py:68``
 ``_softmax_impl`` (``_softmax_kernel`` at :14): per row max, exp, sum
 and divide in float32, output in x's dtype, any column count.  It is
 bound by bytes (one read, one write); ``csrc/softmax.cu`` says what its
-design does about that.
+design does about that.  Its backward is the plain s * (g - sum(g * s))
+of ``paddle_tpu/pallas/softmax.py:58-61`` (``softmax_backward``).
 """
 
 from __future__ import annotations
@@ -52,12 +53,7 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     _check(x)
     if x.device.type == "cpu":
         return softmax_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"softmax: no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"softmax kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("softmax kernel takes a contiguous tensor")
+    _build.require_cuda_f32("softmax", x)
     rows, cols = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -70,3 +66,25 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, "softmax")
     _count()
     return out
+
+
+def softmax_backward(s: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dL/dx of the row softmax from its output ``s`` and dL/ds ``g``:
+    s * (g - sum(g * s)) per row, in float32."""
+    sf, gf = s.float(), g.float()
+    return (sf * (gf - (gf * sf).sum(-1, keepdim=True))).to(g.dtype)
+
+
+class Softmax(torch.autograd.Function):
+    """``softmax`` with its backward: ``Softmax.apply(x)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = softmax(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return softmax_backward(s, g)

@@ -1,5 +1,6 @@
-"""NN layers of the serving slice (``paddle_tpu/layers/nn.py``): fc,
-conv2d, pool2d and batch_norm."""
+"""NN layers (``paddle_tpu/layers/nn.py``): fc, conv2d, pool2d,
+batch_norm, and the loss and metric layers of the training slice:
+cross_entropy, topk, accuracy."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ from paddle_tpu_torch.initializer import ConstantInitializer, NormalInitializer
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
-__all__ = ["fc", "conv2d", "pool2d", "batch_norm"]
+__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
+           "accuracy"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -165,3 +167,42 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
                "data_layout": data_layout},
     )
     return helper.append_activation(out)
+
+
+def cross_entropy(input, label, soft_label: bool = False, **kwargs):
+    helper = LayerHelper("cross_entropy", **kwargs)
+    out = helper.create_tmp_variable(input.dtype,
+                                     tuple(input.shape[:-1]) + (1,),
+                                     input.lod_level)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label},
+    )
+    return out
+
+
+def topk(input, k: int = 1, **kwargs):
+    helper = LayerHelper("top_k", **kwargs)
+    vals = helper.create_tmp_variable(input.dtype,
+                                      tuple(input.shape[:-1]) + (k,))
+    idx = helper.create_tmp_variable("int64", tuple(input.shape[:-1]) + (k,))
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [vals], "Indices": [idx]},
+                     attrs={"k": k})
+    return vals, idx
+
+
+def accuracy(input, label, k: int = 1, **kwargs):
+    helper = LayerHelper("accuracy", **kwargs)
+    vals, idx = topk(input, k=k, **kwargs)
+    acc = helper.create_tmp_variable("float32", (1,))
+    correct = helper.create_tmp_variable("int32", ())
+    total = helper.create_tmp_variable("int32", ())
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [vals], "Indices": [idx], "Label": [label]},
+        outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]},
+    )
+    return acc

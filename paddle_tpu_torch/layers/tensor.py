@@ -1,9 +1,16 @@
-"""Elementwise layers with an optional activation
-(``paddle_tpu/layers/tensor.py:180-195``)."""
+"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``mean`` and the
+elementwise layers with an optional activation (:165, :180-195)."""
 
 from __future__ import annotations
 
 from paddle_tpu_torch.layer_helper import LayerHelper
+
+
+def mean(x, **kwargs):
+    helper = LayerHelper("mean", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, ())
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
 
 
 def _elementwise(op_type):

@@ -55,3 +55,20 @@ def elementwise(ctx, fn):
 def unary(ctx, fn, slot_in="X", slot_out="Out"):
     x = ctx.input(slot_in)
     ctx.set_output(slot_out, rewrap(x, fn(unwrap(x))))
+
+
+# --- explicit grad rules ---------------------------------------------------
+
+
+def grad_in(ctx, slot: str):
+    """The value of a grad op's incoming gradient slot (``Out@GRAD``),
+    or None where no gradient reached it."""
+    names = ctx.op.input(slot)
+    return ctx.values.get(names[0]) if names and names[0] else None
+
+
+def grad_out(ctx, slot: str):
+    """The name a grad op writes ``slot`` (``X@GRAD``) to, or None where
+    that gradient is not wanted."""
+    names = ctx.op.output(slot)
+    return names[0] if names and names[0] else None

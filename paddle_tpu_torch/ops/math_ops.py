@@ -1,5 +1,8 @@
-"""Dense math ops of the serving slice: ``mul`` and the elementwise
-family (``paddle_tpu/ops/math_ops.py:142/186``)."""
+"""Dense math ops: ``mul`` and the elementwise family
+(``paddle_tpu/ops/math_ops.py:142/186``), and the ops the backward pass,
+the regularizers and the gradient clips append: ``sum``, ``scale``,
+``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm`` (dense only;
+``SparseGrad`` comes with the sequences slice)."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import torch
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import elementwise
+from paddle_tpu_torch.ops.common import elementwise, grad_in, grad_out, unary
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
 
@@ -59,7 +62,28 @@ def _flatten2d(x, num_col_dims):
     return torch.reshape(x, (lead, -1))
 
 
-@register_op("mul", inputs=("X", "Y"), infer_shape=_infer_mul_shape)
+def _mul_grad(ctx):
+    """dX = dOut @ Y^T and dY = X^T @ dOut on the 2-D flattenings: two
+    plain matmuls, as ``paddle_tpu/pallas/matmul.py:80-85`` leaves the
+    backward to XLA.  Reads X, Y and dOut; no forward replay."""
+    fwd = ctx.op.attr("__fwd_attrs__")
+    xn = fwd.get("x_num_col_dims", 1)
+    yn = fwd.get("y_num_col_dims", 1)
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    x2, y2 = _flatten2d(x, xn), _flatten2d(y, yn)
+    g2 = torch.reshape(unwrap(grad_in(ctx, "Out@GRAD")), (x2.shape[0], -1))
+    gx, gy = grad_out(ctx, "X@GRAD"), grad_out(ctx, "Y@GRAD")
+    dx, dy = kmatmul.matmul_backward(x2, y2, g2, gx is not None,
+                                     gy is not None)
+    if gx is not None:
+        ctx.values[gx] = torch.reshape(dx, x.shape)
+    if gy is not None:
+        ctx.values[gy] = torch.reshape(dy, y.shape)
+
+
+@register_op("mul", inputs=("X", "Y"), infer_shape=_infer_mul_shape,
+             grad_lower=_mul_grad)
 def _mul(ctx):
     """Flattening matmul: X flattened to 2-D at x_num_col_dims, Y at
     y_num_col_dims, then the ``matmul`` kernel."""
@@ -86,3 +110,79 @@ for name, fn in [
     # Out mirrors X: Y's dims align to a run of X's
     register_op(name, inputs=("X", "Y"), infer_shape=infer_same_shape)(
         functools.partial(lambda ctx, f: elementwise(ctx, f), f=fn))
+
+
+def _infer_sum_shape(op, block):
+    """sum's Out mirrors the first X operand with a known shape."""
+    outs = op.output("Out")
+    if len(outs) != 1 or not outs[0]:
+        raise SkipInferShape
+    ov = block.find_var(outs[0])
+    if ov is None:
+        raise SkipInferShape
+    for name in op.input("X"):
+        xv = block.find_var(name) if name else None
+        if xv is not None and xv.shape is not None:
+            if ov.shape is None:
+                ov.shape = tuple(xv.shape)
+            if ov.lod_level == 0 and xv.lod_level:
+                ov.lod_level = xv.lod_level
+            return
+    raise SkipInferShape
+
+
+@register_op("sum", inputs=("X",), infer_shape=_infer_sum_shape)
+def _sum(ctx):
+    raw = ctx.inputs("X")
+    out = unwrap(raw[0])
+    for x in raw[1:]:
+        out = out + unwrap(x)
+    ctx.set_output("Out", rewrap(raw[0], out))
+
+
+@register_op("scale", inputs=("X",), infer_shape=infer_same_shape)
+def _scale(ctx):
+    s = ctx.attr("scale", 1.0)
+    b = ctx.attr("bias", 0.0)
+    unary(ctx, lambda x: x * s + b)
+
+
+@register_op("sign", inputs=("X",), stop_gradient=True,
+             infer_shape=infer_same_shape)
+def _sign(ctx):
+    unary(ctx, torch.sign)
+
+
+@register_op("clip", inputs=("X",), infer_shape=infer_same_shape)
+def _clip(ctx):
+    lo, hi = ctx.attr("min"), ctx.attr("max")
+    unary(ctx, lambda x: torch.clamp(x, lo, hi))
+
+
+@register_op("clip_by_norm", inputs=("X",), infer_shape=infer_same_shape)
+def _clip_by_norm(ctx):
+    max_norm = ctx.attr("max_norm")
+
+    def f(x):
+        norm = torch.sqrt(torch.sum(torch.square(x)))
+        return x * torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
+                               max=1.0)
+
+    unary(ctx, f)
+
+
+def _infer_squared_l2_norm_shape(op, block):
+    xs, outs = op.input("X"), op.output("Out")
+    if len(xs) != 1 or len(outs) != 1 or not xs[0] or not outs[0]:
+        raise SkipInferShape
+    xv, ov = block.find_var(xs[0]), block.find_var(outs[0])
+    if xv is None or xv.shape is None or ov is None:
+        raise SkipInferShape
+    if ov.shape is None:
+        ov.shape = (1,)
+
+
+@register_op("squared_l2_norm", inputs=("X",),
+             infer_shape=_infer_squared_l2_norm_shape)
+def _squared_l2_norm(ctx):
+    unary(ctx, lambda x: torch.sum(torch.square(x)).reshape(1))

@@ -1,5 +1,11 @@
-"""NN layer ops of the serving slice: conv2d, pool2d, batch_norm,
-softmax.  All NCHW, as in the JAX package's ``paddle_tpu/ops/nn_ops.py``.
+"""NN layer ops: conv2d, pool2d, batch_norm, softmax.  All NCHW, as in
+the JAX package's ``paddle_tpu/ops/nn_ops.py``.
+
+conv2d, batch_norm and softmax launch CUDA kernels, so they carry
+explicit grad rules that call the kernels' backwards on the values the
+forward left in the run (x, w, Out; for BN the saved batch statistics):
+no forward replay, which autograd could not see through anyway.
+pool2d takes the generic replay (``autodiff.generic_grad_lower``).
 """
 
 from __future__ import annotations
@@ -8,10 +14,13 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch import amp
+from paddle_tpu_torch.autodiff import generic_grad_lower
+from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
 from paddle_tpu_torch.kernels import softmax as ksoftmax
 from paddle_tpu_torch.layers.nn import pool_extra_padding, pool_out_extent
 from paddle_tpu_torch.lod import rewrap, unwrap
+from paddle_tpu_torch.ops.common import grad_in, grad_out
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
 
@@ -122,16 +131,53 @@ def conv_kernel_applies(groups, dilations, strides, pads, kh, kw) -> bool:
             and kh == kw and kh % 2 == 1 and pads == (kh // 2, kh // 2))
 
 
-@register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
-             infer_shape=_infer_conv2d_shape)
-def _conv2d(ctx):
-    """NCHW conv, filter (O, I/groups, H, W)."""
+def _conv_attrs(attr):
+    return (_pair(attr("strides", (1, 1))), _pair(attr("paddings", (0, 0))),
+            _pair(attr("dilations", (1, 1))), attr("groups", 1))
+
+
+def _conv2d_grad(ctx):
+    """dInput and dFilter of ``conv2d``.  On the kernel's path: the
+    backward-input launch of ``csrc/conv.cu`` and the filter-gradient
+    kernel ``csrc/conv_dw.cu``, on the NHWC views (free for the
+    channels-last tensors the kernels and BN write).  Otherwise one
+    library ``convolution_backward``, as the forward is one ``F.conv2d``."""
+    fwd = ctx.op.attr("__fwd_attrs__")
+    strides, pads, dilations, groups = _conv_attrs(fwd.get)
     x = unwrap(ctx.input("Input"))
     w = unwrap(ctx.input("Filter"))
-    strides = _pair(ctx.attr("strides", (1, 1)))
-    pads = _pair(ctx.attr("paddings", (0, 0)))
-    dilations = _pair(ctx.attr("dilations", (1, 1)))
-    groups = ctx.attr("groups", 1)
+    g = unwrap(grad_in(ctx, "Output@GRAD"))
+    gx, gw = grad_out(ctx, "Input@GRAD"), grad_out(ctx, "Filter@GRAD")
+    if conv_kernel_applies(groups, dilations, strides, pads, w.shape[2],
+                           w.shape[3]):
+        dx, dw = kconv.conv2d_nhwc_backward(
+            x.permute(0, 2, 3, 1).contiguous(),
+            w.permute(2, 3, 1, 0).contiguous(),
+            g.permute(0, 2, 3, 1), pads[0], gx is not None, gw is not None)
+        if gx is not None:
+            ctx.values[gx] = dx.permute(0, 3, 1, 2)
+        if gw is not None:
+            ctx.values[gw] = dw.permute(3, 2, 0, 1).contiguous()
+        return
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g, x.contiguous(memory_format=torch.channels_last), w, None,
+        list(strides), list(pads), list(dilations), False, [0, 0], groups,
+        [gx is not None, gw is not None, False])
+    if gx is not None:
+        ctx.values[gx] = dx
+    if gw is not None:
+        ctx.values[gw] = dw.contiguous()
+
+
+@register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
+             infer_shape=_infer_conv2d_shape, grad_lower=_conv2d_grad)
+def _conv2d(ctx):
+    """NCHW conv, filter (O, I/groups, H, W).  The output is channels-last
+    in memory on both paths (the kernel writes NHWC; ``F.conv2d`` gets a
+    channels-last input), so BN's (R, C) view of it is free."""
+    x = unwrap(ctx.input("Input"))
+    w = unwrap(ctx.input("Filter"))
+    strides, pads, dilations, groups = _conv_attrs(ctx.attr)
     out_dt = amp.out_dtype(x)
     x, w = amp.cast_operands(x, w)
     if conv_kernel_applies(groups, dilations, strides, pads, w.shape[2],
@@ -141,7 +187,8 @@ def _conv2d(ctx):
             w.permute(2, 3, 1, 0).contiguous().to(x.dtype), pads[0])
         ctx.set_output("Output", out.permute(0, 3, 1, 2).to(out_dt))
         return
-    out = F.conv2d(x, w, stride=strides, padding=pads, dilation=dilations,
+    out = F.conv2d(x.contiguous(memory_format=torch.channels_last), w,
+                   stride=strides, padding=pads, dilation=dilations,
                    groups=groups)
     ctx.set_output("Output", out.to(out_dt))
 
@@ -182,40 +229,112 @@ def _pool2d(ctx):
     ctx.set_output("Out", out.to(x.dtype))
 
 
+def _channels_minor(x):
+    """The (R, C) view of an (N, C, ...) tensor with C last in memory:
+    free for a channels-last tensor, one copy otherwise."""
+    if x.ndim == 2:
+        return x.contiguous()
+    perm = (0,) + tuple(range(2, x.ndim)) + (1,)
+    xt = x.permute(perm)
+    if not xt.is_contiguous():
+        xt = xt.contiguous()
+    return xt.reshape(-1, x.shape[1])
+
+
+def _from_channels_minor(x2d, shape):
+    """The (N, C, ...) view of an (R, C) result: channels-last memory."""
+    if len(shape) == 2:
+        return x2d
+    nd = len(shape)
+    spatial = tuple(shape[2:])
+    return x2d.reshape((shape[0],) + spatial + (shape[1],)).permute(
+        (0, nd - 1) + tuple(range(1, nd - 1)))
+
+
+def _batch_norm_grad(ctx):
+    """dX, dScale, dBias of training BN: the backward kernel on X, dY,
+    Scale, SavedMean and rsqrt(SavedVariance + eps), no forward replay.
+    An ``is_test`` BN (fixed statistics) takes the generic replay."""
+    fwd = ctx.op.attr("__fwd_attrs__")
+    if fwd.get("is_test", False):
+        generic_grad_lower(ctx)
+        return
+    x = unwrap(ctx.input("X"))
+    scale = unwrap(ctx.input("Scale"))
+    dy = unwrap(grad_in(ctx, "Y@GRAD"))
+    if dy is None:
+        dy = torch.zeros_like(x)
+    inv = torch.rsqrt(ctx.input("SavedVariance") + fwd.get("epsilon", 1e-5))
+    dx, dgamma, dbeta = kbn.batch_norm_bwd(
+        _channels_minor(x), _channels_minor(dy.to(x.dtype)), scale,
+        ctx.input("SavedMean"), inv)
+    for slot, val in (("X@GRAD", _from_channels_minor(dx, x.shape)),
+                      ("Scale@GRAD", dgamma.to(scale.dtype)),
+                      ("Bias@GRAD", dbeta.to(scale.dtype))):
+        name = grad_out(ctx, slot)
+        if name is not None:
+            ctx.values[name] = val
+
+
 @register_op("batch_norm",
              inputs=("X", "Scale", "Bias", "Mean", "Variance", "Length"),
              outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
                       "SavedVariance"),
-             infer_shape=_infer_batch_norm_shape)
+             diff_inputs=("X", "Scale", "Bias"),
+             infer_shape=_infer_batch_norm_shape,
+             grad_lower=_batch_norm_grad)
 def _batch_norm(ctx):
-    """Inference BN over NCHW channel axis 1 from the running statistics,
-    in float32.  The training statistics come with the training slice."""
-    if not ctx.attr("is_test", False):
-        raise NotImplementedError(
-            "paddle_tpu_torch runs batch_norm with is_test only; run "
-            "program.clone(for_test=True) (training BN is a later slice)")
-    if ctx.attr("data_layout", "NCHW") != "NCHW" or ctx.has_input("Length"):
-        raise NotImplementedError(
-            "paddle_tpu_torch batch_norm takes NCHW input without Length")
+    """BN over NCHW channel axis 1.  Training: batch statistics (f32,
+    biased var = E[x^2] - m^2) and Y from the BN forward kernel on the
+    (R, C) view, Y channels-last; MeanOut/VarianceOut = momentum * old +
+    (1 - momentum) * batch; SavedMean/SavedVariance = the batch
+    statistics.  ``is_test``: the running statistics, in plain float32."""
     x = unwrap(ctx.input("X"))
     scale = unwrap(ctx.input("Scale"))
     bias = unwrap(ctx.input("Bias"))
     mean = unwrap(ctx.input("Mean"))
     var = unwrap(ctx.input("Variance"))
     eps = ctx.attr("epsilon", 1e-5)
-    bshape = [1] * x.ndim
-    bshape[1] = x.shape[1]
-    inv = torch.rsqrt(var.float() + eps)
-    y = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
-    y = y * scale.reshape(bshape) + bias.reshape(bshape)
-    ctx.set_output("Y", y.to(x.dtype))
-    ctx.set_output("MeanOut", mean)
-    ctx.set_output("VarianceOut", var)
-    ctx.set_output("SavedMean", mean)
-    ctx.set_output("SavedVariance", var)
+    if ctx.attr("data_layout", "NCHW") != "NCHW" or ctx.has_input("Length"):
+        raise NotImplementedError(
+            "paddle_tpu_torch batch_norm takes NCHW input without Length "
+            "(sequence BN comes with the sequences slice)")
+    if ctx.attr("is_test", False):
+        bshape = [1] * x.ndim
+        bshape[1] = x.shape[1]
+        inv = torch.rsqrt(var.float() + eps)
+        y = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        y = y * scale.reshape(bshape) + bias.reshape(bshape)
+        ctx.set_output("Y", y.to(x.dtype))
+        ctx.set_output("MeanOut", mean)
+        ctx.set_output("VarianceOut", var)
+        ctx.set_output("SavedMean", mean)
+        ctx.set_output("SavedVariance", var)
+        return
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"paddle_tpu_torch training batch_norm takes float32, got "
+            f"{x.dtype} (the bf16 normalize comes with the AMP slice)")
+    momentum = ctx.attr("momentum", 0.9)
+    y2d, bmean, bvar = kbn.batch_norm_fwd(_channels_minor(x), scale, bias,
+                                          eps)
+    ctx.set_output("Y", _from_channels_minor(y2d, x.shape))
+    ctx.set_output("MeanOut", momentum * mean + (1 - momentum) * bmean)
+    ctx.set_output("VarianceOut", momentum * var + (1 - momentum) * bvar)
+    ctx.set_output("SavedMean", bmean)
+    ctx.set_output("SavedVariance", bvar)
 
 
-@register_op("softmax", inputs=("X",), infer_shape=infer_same_shape)
+def _softmax_grad(ctx):
+    """s * (g - sum(g * s)) from the forward's Out: no replay."""
+    name = grad_out(ctx, "X@GRAD")
+    if name is not None:
+        ctx.values[name] = ksoftmax.softmax_backward(
+            unwrap(ctx.input("Out")), unwrap(grad_in(ctx, "Out@GRAD")))
+
+
+@register_op("softmax", inputs=("X",), infer_shape=infer_same_shape,
+             grad_lower=_softmax_grad)
 def _softmax(ctx):
     unary_in = ctx.input("X")
     x = unwrap(unary_in)

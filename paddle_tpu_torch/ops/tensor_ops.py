@@ -1,5 +1,7 @@
-"""Tensor creation ops that the startup program runs: fill_constant and
-the random initializers (``paddle_tpu/ops/tensor_ops.py:218/255/266``).
+"""Tensor ops: fill_constant and the random initializers that the
+startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), and
+the copies the backward pass emits: assign, cast, fill_zeros_like
+(``:239-250``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -11,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.common import torch_dtype
-from paddle_tpu_torch.registry import SkipInferShape, register_op
+from paddle_tpu_torch.ops.common import torch_dtype, unary
+from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
+                                       register_op)
 
 
 def _infer_attr_shape(op, block):
@@ -64,3 +67,20 @@ def _gaussian_random(ctx):
     out.normal_(ctx.attr("mean", 0.0), ctx.attr("std", 1.0),
                 generator=_generator(ctx, ctx.device))
     ctx.set_output("Out", out.to(dtype))
+
+
+@register_op("fill_zeros_like", inputs=("X",), stop_gradient=True,
+             infer_shape=infer_same_shape)
+def _fill_zeros_like(ctx):
+    unary(ctx, torch.zeros_like)
+
+
+@register_op("assign", inputs=("X",), infer_shape=infer_same_shape)
+def _assign(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_op("cast", inputs=("X",), infer_shape=infer_same_shape)
+def _cast(ctx):
+    dtype = torch_dtype(ctx.attr("out_dtype", ctx.attr("dtype", "float32")))
+    unary(ctx, lambda x: x.to(dtype))

@@ -3,15 +3,19 @@
 An op is a Python function that, given a ``LowerContext`` holding the
 tensors of its inputs, computes the tensors of its outputs.  The
 Executor calls the rules eagerly, one op after another.  The registry
-has the JAX package's shape (``paddle_tpu/registry.py``) minus the
-gradient fields, which come with the training slice.
+has the JAX package's shape (``paddle_tpu/registry.py``).
+
+Gradients: an op may register an explicit ``grad_lower`` /
+``grad_maker``; otherwise ``append_backward`` emits a ``<type>_grad`` op
+whose rule replays the forward rule under autograd and pulls the
+cotangents through (``autodiff.generic_grad_lower``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 
 class SkipInferShape(Exception):
@@ -44,7 +48,14 @@ class OpInfo:
     infer_shape: Optional[Callable] = None
     input_slots: Sequence[str] = ()
     output_slots: Sequence[str] = ()
-    # ops with no gradient at all (fill, random init, ...)
+    # which input slots are differentiable (None = all float inputs)
+    diff_inputs: Optional[Sequence[str]] = None
+    # explicit grad lowering: fn(ctx) for op "<type>_grad"
+    grad_lower: Optional[Callable[["LowerContext"], None]] = None
+    # explicit grad maker: fn(op, block, no_grad_set) -> (type, inputs,
+    # outputs, attrs) or None.  None -> the default maker of backward.py.
+    grad_maker: Optional[Callable] = None
+    # ops with no gradient at all (metrics, fill, random init, ...)
     stop_gradient: bool = False
 
 
@@ -60,6 +71,10 @@ class OpRegistry:
     @classmethod
     def get(cls, type: str, none_ok: bool = False) -> Optional[OpInfo]:
         info = cls._ops.get(type)
+        if info is None and type.endswith("_grad") and type[:-5] in cls._ops:
+            from paddle_tpu_torch.autodiff import synthesize_grad_info
+
+            info = synthesize_grad_info(type)
         if info is None and not none_ok:
             msg = f"op {type!r} is not registered in paddle_tpu_torch"
             close = difflib.get_close_matches(type, list(cls._ops), n=1,
@@ -76,6 +91,9 @@ def register_op(
     inputs: Sequence[str] = (),
     outputs: Sequence[str] = ("Out",),
     infer_shape=None,
+    diff_inputs=None,
+    grad_lower=None,
+    grad_maker=None,
     stop_gradient: bool = False,
 ):
     """Decorator: ``@register_op("relu", inputs=["X"])`` on a lowering fn."""
@@ -88,6 +106,10 @@ def register_op(
                 infer_shape=infer_shape,
                 input_slots=tuple(inputs),
                 output_slots=tuple(outputs),
+                diff_inputs=(tuple(diff_inputs) if diff_inputs is not None
+                             else None),
+                grad_lower=grad_lower,
+                grad_maker=grad_maker,
                 stop_gradient=stop_gradient,
             )
         )
@@ -121,6 +143,10 @@ class LowerContext:
         if len(names) != 1:
             raise ValueError(f"op {self.op.type}: slot {slot} has {len(names)} args")
         return self.values[names[0]]
+
+    def inputs(self, slot: str) -> List[Any]:
+        """Every argument of a multi-argument slot (``sum``'s X)."""
+        return [self.values[n] for n in self.op.input(slot)]
 
     # --- outputs -----------------------------------------------------------
 

@@ -6,8 +6,11 @@ The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py).
 
 Tolerances: float32 sums of up to a few thousand terms taken in another
-order than XLA's, so rtol 1e-4 / atol 1e-4 for conv and matmul; softmax
-does no long sums, atol 1e-6."""
+order than XLA's, so rtol 1e-4 / atol 1e-4 for conv, its gradients and
+matmul; softmax does no long sums, atol 1e-6; batch norm rtol 1e-4 /
+atol 1e-4 (f32 statistics over a few hundred rows).  The autograd
+functions' gradients are held to PyTorch's own autograd of the same
+function in float32 at the same tolerances."""
 
 import os
 
@@ -17,10 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from paddle_tpu.pallas.batch_norm import _bn_bwd_impl, _bn_fwd_impl
+from paddle_tpu.pallas.conv import _conv_dw_impl
 from paddle_tpu.pallas.conv import conv2d_nhwc as pallas_conv2d_nhwc
 from paddle_tpu.pallas.matmul import matmul as pallas_matmul
 from paddle_tpu.pallas.softmax import softmax as pallas_softmax
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.kernels import softmax as ksoftmax
@@ -29,7 +37,7 @@ GEMM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
+    return torch.from_numpy(np.array(a))
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -99,14 +107,26 @@ def test_plain_versions_keep_input_dtype(rng):
     assert kconv.conv2d_nhwc(xc, wc, 1).dtype == torch.bfloat16
 
 
+def _counters():
+    return (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches,
+            kbn.launches, kbn.bwd_launches, kmatmul.launches,
+            ksoftmax.launches)
+
+
 def test_cpu_path_launches_no_kernel(rng):
-    before = (kconv.launches, kmatmul.launches, ksoftmax.launches)
-    kconv.conv2d_nhwc(_t(rng.randn(1, 4, 4, 2).astype(np.float32)),
-                      _t(rng.randn(3, 3, 2, 2).astype(np.float32)), 1)
+    before = _counters()
+    x = _t(rng.randn(1, 4, 4, 2).astype(np.float32))
+    w = _t(rng.randn(3, 3, 2, 2).astype(np.float32))
+    kconv.conv2d_nhwc(x, w, 1)
+    kconv.conv2d_nhwc_bwd_input(x, w, 1)
+    kconv.conv2d_nhwc_dw(x, x, 3, 1)
     kmatmul.matmul(_t(rng.randn(2, 3).astype(np.float32)),
                    _t(rng.randn(3, 4).astype(np.float32)))
     ksoftmax.softmax(_t(rng.randn(2, 3).astype(np.float32)))
-    assert (kconv.launches, kmatmul.launches, ksoftmax.launches) == before
+    x2 = _t(rng.randn(6, 2).astype(np.float32))
+    y, m, v = kbn.batch_norm_fwd(x2, torch.ones(2), torch.zeros(2), 1e-5)
+    kbn.batch_norm_bwd(x2, y, torch.ones(2), m, torch.rsqrt(v + 1e-5))
+    assert _counters() == before
 
 
 @pytest.mark.parametrize("call", [
@@ -118,8 +138,22 @@ def test_cpu_path_launches_no_kernel(rng):
     lambda: kmatmul.matmul(torch.zeros(2, 3), torch.zeros(4, 5)),
     lambda: kmatmul.matmul(torch.zeros(2, 3, 1), torch.zeros(3, 5)),
     lambda: ksoftmax.softmax(torch.zeros(2, 3, 4)),
+    # the gradients: dy channels vs the filter's outputs, image sizes
+    lambda: kconv.conv2d_nhwc_bwd_input(torch.zeros(1, 4, 4, 3),
+                                        torch.zeros(3, 3, 2, 2), 1),
+    lambda: kconv.conv2d_nhwc_dw(torch.zeros(1, 4, 4, 2),
+                                 torch.zeros(1, 4, 5, 2), 3, 1),
+    lambda: kconv.conv2d_nhwc_dw(torch.zeros(1, 4, 4, 2),
+                                 torch.zeros(1, 4, 4, 2), 3, 0),
+    lambda: kbn.batch_norm_fwd(torch.zeros(2, 3, 4), torch.ones(3),
+                               torch.zeros(3), 1e-5),
+    lambda: kbn.batch_norm_fwd(torch.zeros(4, 3), torch.ones(2),
+                               torch.zeros(3), 1e-5),
+    lambda: kbn.batch_norm_bwd(torch.zeros(4, 3), torch.zeros(4, 2),
+                               torch.ones(3), torch.zeros(3), torch.ones(3)),
 ], ids=["even_k", "pad", "channels", "rank", "mm_inner", "mm_rank",
-        "softmax_rank"])
+        "softmax_rank", "bwd_in_channels", "dw_sizes", "dw_pad", "bn_rank",
+        "bn_gamma", "bn_dy"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()
@@ -133,7 +167,9 @@ def test_build_targets_sm90a_and_keys_on_sources():
         assert os.path.exists(_build.source_path(name))
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 3
+    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 5
+    assert set(_build.LIBRARIES) == {"conv", "conv_dw", "batch_norm",
+                                     "matmul", "softmax"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -141,3 +177,171 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+# ---------------------------------------------------------------------------
+# the training slice's kernels: conv gradients and batch norm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv_dw_plain_matches_pallas_kernel(rng, k):
+    # inside the TPU contract: C, O % 64 == 0, N % 8 == 0
+    x = rng.randn(8, 8, 8, 64).astype(np.float32)
+    g = rng.randn(8, 8, 8, 64).astype(np.float32)
+    want = np.asarray(_conv_dw_impl(jnp.asarray(x), jnp.asarray(g), k,
+                                    k // 2, True))
+    got = kconv.conv2d_nhwc_dw(_t(x), _t(g), k, k // 2).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_conv_grads_outside_contract_match_jax_vjp(rng, k):
+    # N=3, C=16, O=24: outside every tiling term of the TPU kernels
+    x = rng.randn(3, 7, 5, 16).astype(np.float32)
+    w = (rng.randn(k, k, 16, 24) * 0.1).astype(np.float32)
+    g = rng.randn(3, 7, 5, 24).astype(np.float32)
+
+    def f(x_, w_):
+        return jax.lax.conv_general_dilated(
+            x_, w_, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+    _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    np.testing.assert_allclose(
+        kconv.conv2d_nhwc_bwd_input(_t(g), _t(w), k // 2).numpy(), want_dx,
+        **GEMM_TOL)
+    np.testing.assert_allclose(
+        kconv.conv2d_nhwc_dw(_t(x), _t(g), k, k // 2).numpy(), want_dw,
+        **GEMM_TOL)
+
+
+def test_batch_norm_plain_matches_pallas_kernels(rng):
+    # inside the TPU contract: rows % 8 == 0, C <= 8192
+    x = (rng.randn(256, 128) * 2 + 0.5).astype(np.float32)
+    gamma = rng.randn(128).astype(np.float32)
+    beta = rng.randn(128).astype(np.float32)
+    dy = rng.randn(256, 128).astype(np.float32)
+    want_y, want_m, want_v = (np.asarray(a) for a in _bn_fwd_impl(
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 1e-5, True))
+    y, m, v = kbn.batch_norm_fwd(_t(x), _t(gamma), _t(beta), 1e-5)
+    for got, want in ((y, want_y), (m, want_m), (v, want_v)):
+        np.testing.assert_allclose(got.numpy(), want, **GEMM_TOL)
+    inv = np.asarray(jax.lax.rsqrt(jnp.asarray(want_v) + 1e-5))
+    want = [np.asarray(a) for a in _bn_bwd_impl(
+        jnp.asarray(x), jnp.asarray(dy), jnp.asarray(gamma),
+        jnp.asarray(want_m), jnp.asarray(inv), True)]
+    got = kbn.batch_norm_bwd(_t(x), _t(dy), _t(gamma), _t(want_m), _t(inv))
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w_, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("n,c,h,w", [(3, 5, 7, 3), (2, 24, 1, 1)])
+def test_batch_norm_plain_outside_contract_matches_jax_op(rng, n, c, h, w):
+    """Rows and channels outside the TPU contract: the plain forward and
+    backward against ``jax.vjp`` of the JAX package's batch_norm op."""
+    from paddle_tpu.ops.nn_ops import _batch_norm
+    from paddle_tpu.registry import LowerContext
+
+    x = (rng.randn(n, c, h, w) * 1.5 - 0.3).astype(np.float32)
+    gamma = rng.randn(c).astype(np.float32)
+    beta = rng.randn(c).astype(np.float32)
+    dy = rng.randn(n, c, h, w).astype(np.float32)
+
+    class _Op:
+        type = "batch_norm"
+        inputs = {"X": ["x"], "Scale": ["s"], "Bias": ["b"], "Mean": ["m"],
+                  "Variance": ["v"]}
+        outputs = {"Y": ["y"], "SavedMean": ["sm"], "SavedVariance": ["sv"]}
+
+        def input(self, slot):
+            return self.inputs.get(slot, [])
+
+        def output(self, slot):
+            return self.outputs.get(slot, [])
+
+        def attr(self, name, default=None):
+            return {"epsilon": 1e-5}.get(name, default)
+
+    def f(x_, s_, b_):
+        vals = {"x": x_, "s": s_, "b": b_, "m": jnp.zeros(c),
+                "v": jnp.ones(c)}
+        _batch_norm(LowerContext(_Op(), vals))
+        return vals["y"], vals["sm"], vals["sv"]
+
+    (want_y, want_m, want_v), vjp = jax.vjp(
+        f, jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    want_dx, want_dg, want_db = vjp((jnp.asarray(dy), jnp.zeros(c),
+                                     jnp.zeros(c)))
+    x2d = _t(x.transpose(0, 2, 3, 1).reshape(-1, c))
+    y, m, v = kbn.batch_norm_fwd(x2d, _t(gamma), _t(beta), 1e-5)
+    np.testing.assert_allclose(
+        y.numpy().reshape(n, h, w, c).transpose(0, 3, 1, 2),
+        np.asarray(want_y), **GEMM_TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(want_m), **GEMM_TOL)
+    np.testing.assert_allclose(v.numpy(), np.asarray(want_v), **GEMM_TOL)
+    dx, dg, db = kbn.batch_norm_bwd(
+        x2d, _t(dy.transpose(0, 2, 3, 1).reshape(-1, c)), _t(gamma), m,
+        torch.rsqrt(v + 1e-5))
+    np.testing.assert_allclose(
+        dx.numpy().reshape(n, h, w, c).transpose(0, 3, 1, 2),
+        np.asarray(want_dx), **GEMM_TOL)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(want_dg), **GEMM_TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want_db), **GEMM_TOL)
+
+
+def _leaves(rng, *shapes, scale=1.0):
+    return [torch.tensor((rng.randn(*s) * scale).astype(np.float32),
+                         requires_grad=True) for s in shapes]
+
+
+def _weights(rng, shape):
+    return torch.tensor(rng.randn(*shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv_autograd_matches_torch_autograd(rng, k):
+    x, w = _leaves(rng, (2, 6, 5, 8), (k, k, 8, 4), scale=0.5)
+    r = _weights(rng, (2, 6, 5, 4))
+    (kconv.ConvNHWC.apply(x, w, k // 2) * r).sum().backward()
+    x2, w2 = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    ref = F.conv2d(x2.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1),
+                   padding=k // 2).permute(0, 2, 3, 1)
+    (ref * r).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), x2.grad.numpy(), **GEMM_TOL)
+    np.testing.assert_allclose(w.grad.numpy(), w2.grad.numpy(), **GEMM_TOL)
+
+
+def test_batch_norm_autograd_matches_torch_autograd(rng):
+    x, gamma, beta = _leaves(rng, (40, 6), (6,), (6,))
+    r = _weights(rng, (40, 6))
+    y, _, _ = kbn.BatchNormTrain.apply(x, gamma, beta, 1e-5)
+    (y * r).sum().backward()
+    x2, g2, b2 = (t.detach().clone().requires_grad_(True)
+                  for t in (x, gamma, beta))
+    ref = F.batch_norm(x2, None, None, g2, b2, training=True, eps=1e-5)
+    (ref * r).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), ref.detach().numpy(),
+                               **GEMM_TOL)
+    for got, want in ((x, x2), (gamma, g2), (beta, b2)):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   **GEMM_TOL)
+
+
+def test_matmul_and_softmax_autograd_match_torch_autograd(rng):
+    x, y = _leaves(rng, (5, 7), (7, 3))
+    r = _weights(rng, (5, 3))
+    (ksoftmax.Softmax.apply(kmatmul.Matmul.apply(x, y)) * r).sum().backward()
+    x2, y2 = (t.detach().clone().requires_grad_(True) for t in (x, y))
+    (torch.softmax(x2 @ y2, dim=-1) * r).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), x2.grad.numpy(), **GEMM_TOL)
+    np.testing.assert_allclose(y.grad.numpy(), y2.grad.numpy(), **GEMM_TOL)
+
+
+def test_dw_split_covers_the_reduction():
+    for m, o, k in ((64, 64, 256 * 56 * 56), (4608, 512, 256 * 49),
+                    (27, 1, 1), (576, 64, 17)):
+        splits, chunk = kconv.dw_splits(m, o, k)
+        assert chunk % 16 == 0 and splits * chunk >= k
+        assert (splits - 1) * chunk < k
