@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: build its kernels, hold each
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
-and check the replies, train full-width ResNet-50 and LeNet-5 and check
-the step, then measure.
+and check the replies, train full-width ResNet-50, LeNet-5 and the
+transformer LM and check their steps, then measure.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; none is skipped):
+Phases (any failure exits non-zero; none is skipped; each logs its
+seconds):
 
 1. The card (name, power limit), torch/CUDA/nvcc versions, and the
    kernels' build from ``paddle_tpu_torch/csrc`` with nvcc, one process
@@ -21,7 +22,10 @@ Phases (any failure exits non-zero; none is skipped):
    step at batch 256 (13); the BN forward and backward (F.batch_norm,
    native_batch_norm_backward) at every distinct BN shape of that step;
    matmul and softmax at 3, 32 and 256 rows (torch.matmul,
-   torch.softmax).
+   torch.softmax); the flash-attention forward, dq and dk/dv kernels at
+   the transformer step's shape and at ragged ones
+   (F.scaled_dot_product_attention and its autograd backward); the
+   matmul at the transformer step's five shapes.
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -54,7 +58,20 @@ Phases (any failure exits non-zero; none is skipped):
    share, top kernels, layout copies).
 7. LeNet-5 with Adam trains on the card to accuracy > 0.9 on the seeded
    synthetic digits of tests/test_book_convergence.py.
-8. The kernels line, the card's name and power limit, and the result.
+8. Transformer parity: the transformer LM of
+   benchmark/transformer_bench.py at full width (d_model 2048, 16 heads,
+   4 layers, vocab 32768; Adam(1e-4), f32) for one step at B 1, S 128 on
+   the card against CPUPlace(): the loss, every gradient, every
+   parameter and Adam moment after the update within TF_PARITY_TOL of
+   the CPU's largest magnitude; then every op on identical inputs.
+9. The transformer step at B 8, S 1024: the launches (flash forward 4,
+   dq 4, dk/dv 4, matmul 17, softmax 0, the program's own count),
+   tokens/s over 5 timed steps after 2 warm-up steps, peak memory, one
+   profiled step.
+10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
+    a seeded copy-the-previous-token task on the card: the loss falls
+    below CONVERGE_LOSS.
+11. The kernels line, the card's name and power limit, and the result.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -124,7 +141,38 @@ KERNELS = {
                "paddle_tpu/pallas/matmul.py:92"),
     "softmax": ("paddle_tpu_torch/csrc/softmax.cu",
                 "paddle_tpu/pallas/softmax.py:68"),
+    "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/pallas/flash_attention.py:145"),
+    "flash_attention_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                           "paddle_tpu/pallas/flash_attention.py:293"),
+    "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/pallas/flash_attention.py:313"),
 }
+
+# The transformer LM of benchmark/transformer_bench.py:45-60 at its own
+# full width (d_model 2048, 16 heads of 128, 4 layers, vocab 32768,
+# ffn_mult 4, causal), trained with Adam(1e-4) in float32 (BENCH_AMP=0).
+TF_CONFIG = dict(vocab_size=32768, d_model=2048, num_heads=16, num_layers=4,
+                 ffn_mult=4)
+TF_BATCH, TF_SEQ = 8, 1024
+TF_LR = 1e-4
+TF_PARITY_BATCH, TF_PARITY_SEQ = 1, 128
+# flash kernels against their plain versions: out and lse absolute; the
+# gradients relative to their largest magnitude (f32 sums over S keys or
+# queries and D, through exp, in another order)
+FLASH_ATOL = 1e-4
+FLASH_GRAD_TOL = 1e-3
+# transformer step, card vs CPU at full width: the loss, max abs err <=
+# TF_PARITY_TOL * max|CPU|; the gradients, parameters and Adam moments the
+# same, or FLOOR_FACTOR times the CPU's own spread under a TF_PERTURB
+# relative perturbation of the token embedding where that is larger (see
+# phase_tf_parity)
+TF_PARITY_TOL = 2e-3
+TF_PERTURB = 1e-4
+# the small model's next-token task: the loss must fall below this (it
+# starts near ln 64 = 4.16)
+CONVERGE_LOSS = 0.3
+CONVERGE_STEPS = 300
 
 
 def log(*a):
@@ -165,6 +213,7 @@ def counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import matmul as kmatmul
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
@@ -172,18 +221,22 @@ def counters():
                 conv_bwd_input=kconv.bwd_input_launches,
                 conv_dw=kconv.dw_launches, batch_norm_fwd=kbn.launches,
                 batch_norm_bwd=kbn.bwd_launches, matmul=kmatmul.launches,
-                softmax=ksoftmax.launches)
+                softmax=ksoftmax.launches, flash_attention_fwd=kfa.launches,
+                flash_attention_dq=kfa.dq_launches,
+                flash_attention_dkv=kfa.dkv_launches)
 
 
 def zero_counters():
     from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import matmul as kmatmul
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
     kconv.launches = kconv.bwd_input_launches = kconv.dw_launches = 0
     kbn.launches = kbn.bwd_launches = 0
     kmatmul.launches = ksoftmax.launches = 0
+    kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +305,8 @@ def bn_shapes_of(program, batch):
 
 def launches_implied(program):
     """The kernel launches one run of a training ``program`` implies."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
     block = program.global_block()
     want = dict.fromkeys(KERNELS, 0)
     for op in block.ops:
@@ -269,6 +324,15 @@ def launches_implied(program):
             want["matmul"] += 1
         elif op.type == "softmax":
             want["softmax"] += 1
+        elif op.type in ("scaled_dot_product_attention",
+                         "scaled_dot_product_attention_grad"):
+            _, s, _, d = block.var(op.input("Q")[0]).shape
+            applies = kfa.kernel_applies(s, s, d)
+            if op.type.endswith("_grad"):
+                want["flash_attention_dq"] += applies
+                want["flash_attention_dkv"] += applies
+            else:
+                want["flash_attention_fwd"] += applies
     return want
 
 
@@ -512,7 +576,186 @@ def phase_dense_kernels(dev, randn):
     return results
 
 
+def _qkv_views(randn, b, s, h, d):
+    """q, k, v as the strided views split + reshape leave of one fused
+    (B, S, 3 * H * D) projection, the main path's layout."""
+    qkv = randn(b, s, 3 * h * d)
+    return [t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2)]
+
+
+def phase_flash_kernels(dev, randn):
+    """The three flash kernels against their plain versions at the
+    transformer step's shape (B 8, S 1024, 16 heads of 128, causal) and
+    at ragged shapes (B*H 6, S 200, D 64, causal and not); times at the
+    step's shape, summed over its 4 launches of each.  Library:
+    F.scaled_dot_product_attention's forward, and its autograd backward
+    (dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    def check(tag, b, s, h, d, causal):
+        q, k, v = _qkv_views(randn, b, s, h, d)
+        do = randn(b, s, h, d)
+        out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+        pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal)
+        err_fwd = max(check_close(f"flash fwd out {tag}", out, pout, rtol=0,
+                                  atol=FLASH_ATOL),
+                      check_close(f"flash fwd lse {tag}", lse, plse, rtol=0,
+                                  atol=FLASH_ATOL))
+        dq, dk, dv = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        pdq, pdk, pdv = kfa.flash_attention_bwd_plain(q, k, v, pout, plse, do,
+                                                      causal)
+        err_dq = check_scaled(f"flash dq {tag}", dq, pdq, FLASH_GRAD_TOL)
+        err_dkv = max(check_scaled(f"flash dk {tag}", dk, pdk, FLASH_GRAD_TOL),
+                      check_scaled(f"flash dv {tag}", dv, pdv, FLASH_GRAD_TOL))
+        return (q, k, v, do, out, lse, pout, plse), [err_fwd, err_dq, err_dkv]
+
+    worst = [0.0, 0.0, 0.0]
+    for causal in (False, True):
+        for b, h in ((1, 6), (2, 3)):
+            _, errs = check(f"B{b} S200 H{h} D64 causal={causal}", b, 200, h,
+                            64, causal)
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+    log(f"flash kernels at ragged shapes (B*H 6, S 200, D 64, causal and "
+        f"not): max err fwd {worst[0]:.2e} (atol {FLASH_ATOL}), dq "
+        f"{worst[1]:.2e}, dk/dv {worst[2]:.2e} (<= {FLASH_GRAD_TOL} x max)")
+
+    h, d = TF_CONFIG["num_heads"], TF_CONFIG["d_model"] // TF_CONFIG["num_heads"]
+    b, s, count = TF_BATCH, TF_SEQ, TF_CONFIG["num_layers"]
+    tag = f"B{b} S{s} H{h} D{d} causal"
+    (q, k, v, do, out, lse, pout, plse), errs = check(tag, b, s, h, d, True)
+    worst = [max(w, e) for w, e in zip(worst, errs)]
+    ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_do = do.transpose(1, 2)
+    fwd_ms = time_ms(lambda: kfa.flash_attention_fwd(q, k, v, True))
+    dq_ms, dkv_ms = _time_bwd_launches(kfa, q, k, v, out, lse, do)
+    bwd_ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                     True))
+    plain_fwd = time_ms(lambda: kfa.flash_attention_fwd_plain(q, k, v, True),
+                        reps=5)
+    plain_bwd = time_ms(lambda: kfa.flash_attention_bwd_plain(
+        q, k, v, pout, plse, do, True), reps=5)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), lib_do, retain_graph=True))
+    # the work: query-key pairs the causal mask keeps, the bytes of one
+    # (B, S, H, D) tensor and of one (B*H, S) row array
+    pairs = b * h * s * (s + 1) // 2
+    tensor, rows = 4.0 * b * s * h * d, 4.0 * b * h * s
+    # (kernel ms, plain ms, library ms, FLOPs, bytes): the plain and
+    # library times of dq and dk/dv are each the whole backward
+    rows_of = {
+        "flash_attention_fwd": (fwd_ms, plain_fwd, lib_fwd, 4.0 * pairs * d,
+                                4 * tensor + rows),
+        "flash_attention_dq": (dq_ms, plain_bwd, lib_bwd, 6.0 * pairs * d,
+                               5 * tensor + 2 * rows),
+        "flash_attention_dkv": (dkv_ms, plain_bwd, lib_bwd, 8.0 * pairs * d,
+                                6 * tensor + 2 * rows),
+    }
+    results = {}
+    for (name, row), err in zip(rows_of.items(), worst):
+        sm = _Sum()
+        sm.add(count, *row, err)
+        _line(f"{name} {tag}", count, *row, err)
+        results[name] = sm.result()
+    log(f"  the backward wrapper (delta, dq, dk/dv) {bwd_ms:.4f} ms per call;"
+        f" plain and library times of dq and dk/dv are the whole backward")
+    del q, k, v, do, out, lse, pout, plse, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+    return results
+
+
+def _time_bwd_launches(kfa, q, k, v, out, lse, do, reps=10):
+    """Median ms of the dq launch and of the dk/dv launch of one backward
+    call, each bracketed by CUDA events on the current stream."""
+    import torch
+
+    lib = kfa._build.load("flash_attention", kfa._SIGNATURES)
+    marks = []
+    real = {n: getattr(lib, n) for n in ("ptt_flash_dq_f32",
+                                          "ptt_flash_dkv_f32")}
+
+    def timed_entry(fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = fn(*args)
+            end.record()
+            marks.append((start, end))
+            return err
+        return call
+
+    for n, fn in real.items():
+        setattr(lib, n, timed_entry(fn))
+    try:
+        for _ in range(2):
+            kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+        marks.clear()
+        for _ in range(reps):
+            kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(lib, n, fn)
+    dq = [a.elapsed_time(b) for a, b in marks[0::2]]
+    dkv = [a.elapsed_time(b) for a, b in marks[1::2]]
+    return statistics.median(dq), statistics.median(dkv)
+
+
+def transformer_matmul_shapes():
+    """{(m, k, n): launches per step} of the matmul kernel in the
+    transformer step: qkv, proj, ffn1, ffn2 per layer, and lm_head."""
+    m = TF_BATCH * TF_SEQ
+    d, layers = TF_CONFIG["d_model"], TF_CONFIG["num_layers"]
+    f = d * TF_CONFIG["ffn_mult"]
+    return {(m, d, 3 * d): layers, (m, d, d): layers, (m, d, f): layers,
+            (m, f, d): layers, (m, d, TF_CONFIG["vocab_size"]): 1}
+
+
+def phase_tf_matmul(dev, randn):
+    """The matmul kernel against its plain version at every shape of the
+    transformer step, summed over the step's 17 launches (torch.matmul
+    the library call, TF32 off)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    sm = _Sum()
+    log(f"matmul at the transformer step's shapes (B*S = "
+        f"{TF_BATCH * TF_SEQ}), per call:")
+    for (m, k, n), count in transformer_matmul_shapes().items():
+        x = randn(m, k)
+        y = randn(k, n, scale=k ** -0.5)
+        err = check_close(f"matmul {m}x{k}x{n}", kmatmul.matmul(x, y),
+                          kmatmul.matmul_plain(x, y), **GEMM_TOL)
+        times = (time_ms(lambda: kmatmul.matmul(x, y), reps=5),
+                 time_ms(lambda: kmatmul.matmul_plain(x, y), reps=5),
+                 time_ms(lambda: torch.matmul(x, y), reps=5))
+        flops, nbytes = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+        _line(f"{m}x{k}x{n}", count, *times, flops, nbytes, err)
+        sm.add(count, *times, flops, nbytes, err)
+        del x, y
+    torch.cuda.empty_cache()
+    r = sm.result()
+    log(f"  one transformer step's matmul launches: kernel {r['ms']:.3f} ms,"
+        f" plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}); max err "
+        f"{r['max_abs_err']:.2e} (tolerance {GEMM_TOL})")
+    return r
+
+
 def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
+    """Every kernel against its plain version.  The kernels line keeps the
+    matmul's numbers at the transformer step's shapes (its 17 launches
+    there; the ResNet shapes are logged)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -523,6 +766,8 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results = phase_conv_kernels(dev, serve_shapes, train_conv_shapes, randn)
     results.update(phase_bn_kernels(dev, train_bn_shapes, randn))
     results.update(phase_dense_kernels(dev, randn))
+    results.update(phase_flash_kernels(dev, randn))
+    results["matmul"] = phase_tf_matmul(dev, randn)
     return results
 
 
@@ -763,7 +1008,6 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
     import torch
 
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.registry import LowerContext, OpRegistry
 
     card = pt.Executor()
     scope = pt.Scope()
@@ -830,7 +1074,24 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
         fail(f"train step on the card differs from the CPU end to end: "
              f"{bad[:10]}")
 
-    # op by op, on identical inputs
+    ops_on_identical_inputs(dev, block, state, feed,
+                            f"train-step parity at batch {PARITY_BATCH}")
+    del scope, got, runs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ops_on_identical_inputs(dev, block, state, feed, what):
+    """Every op of ``block`` (forward, grad ops, sums, updates) on the card
+    and, on copies of the very same input values, on the CPU: each output
+    within OP_TOL of the CPU output's largest magnitude.  A grad op gets
+    the residual its forward left for it (the attention's logsumexp) on
+    both sides."""
+    import torch
+
+    from paddle_tpu_torch.ops.attention_ops import lse_name
+    from paddle_tpu_torch.registry import LowerContext, OpRegistry
+
     cpu_dev = torch.device("cpu")
     values = {n: torch.as_tensor(v, device=dev) for n, v in state.items()}
     values.update({k: torch.as_tensor(v, device=dev) for k, v in feed.items()})
@@ -839,8 +1100,9 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
     with torch.no_grad():
         for op in block.ops:
             info = OpRegistry.get(op.type)
-            twin = {n: values[n].cpu() for n in op.input_arg_names
-                    if n and n in values}
+            names = [n for n in op.input_arg_names if n]
+            names += [lse_name(n) for n in names if lse_name(n) in values]
+            twin = {n: values[n].cpu() for n in names if n in values}
             info.lower(LowerContext(op, values, dev))
             info.lower(LowerContext(op, twin, cpu_dev))
             for n in op.output_arg_names:
@@ -855,24 +1117,22 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
                 if not err <= OP_TOL * max(scale, 1e-30) and err > 0:
                     op_bad.append((op.type, n, err, scale))
     op_worst.sort(reverse=True)
-    log(f"train-step parity at batch {PARITY_BATCH}, op by op on identical "
-        f"inputs: {len(block.ops)} ops, {n_out} outputs in "
-        f"{time.perf_counter() - t0:.1f} s; worst max|card - CPU| / max|CPU|: "
+    log(f"{what}, op by op on identical inputs: {len(block.ops)} ops, "
+        f"{n_out} outputs in {time.perf_counter() - t0:.1f} s; worst "
+        "max|card - CPU| / max|CPU|: "
         + ", ".join(f"{t} {n} {e:.2e}" for e, t, n in op_worst[:6])
         + f" (tolerance {OP_TOL})")
     if op_bad:
         fail(f"ops on the card differ from the CPU on identical inputs: "
              f"{op_bad[:10]}")
-    del scope, got, runs, values
+    del values
     torch.cuda.empty_cache()
-    return worst
 
 
 def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
     """The step at batch 256: counted launches, throughput, peak memory
     and one profiled step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import paddle_tpu_torch as pt
 
@@ -912,17 +1172,32 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
         f" max {max(times) * 1e3:.1f}); losses {[round(x, 5) for x in losses]};"
         f" peak memory allocated {peak / 2**30:.2f} GiB on {smi}")
 
-    for _ in range(2):   # the second profiled step is the one kept
+    idle = profile_step(lambda: exe.run(main_prog, feed=feed,
+                                        fetch_list=[loss], scope=scope),
+                        "train step")
+    del exe, scope, feed
+    torch.cuda.empty_cache()
+    return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
+                launches=launches)
+
+
+def profile_step(run, what):
+    """Profile ``run()`` twice and keep the second: wall time, device busy
+    time and idle share, the top kernels by device time, the layout and
+    dtype copies.  Returns the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+            run()
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     idle = max(0.0, 1 - busy_ms / wall_ms)
-    log(f"one profiled train step: {wall_ms:.1f} ms wall, device kernels "
+    log(f"one profiled {what}: {wall_ms:.1f} ms wall, device kernels "
         f"{busy_ms:.1f} ms busy, idle share {idle:.3f}; top kernels by "
         "device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
@@ -934,10 +1209,7 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
     log(f"layout/dtype copies: {sum(e.count for e in copies)} device copy "
         f"kernels, {sum(e.self_device_time_total for e in copies) / 1e3:.2f}"
         f" ms; {copy_calls} aten::copy_ calls")
-    del exe, scope, feed
-    torch.cuda.empty_cache()
-    return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
-                launches=launches)
+    return idle
 
 
 def phase_lenet(dev):
@@ -973,6 +1245,234 @@ def phase_lenet(dev):
         f"accuracy {float(av[0]):.3f}")
     if not float(av[0]) > 0.9:
         fail(f"LeNet-5 did not converge: accuracy {float(av[0]):.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the transformer LM
+# ---------------------------------------------------------------------------
+
+
+def build_transformer_program(seq, config=TF_CONFIG, lr=TF_LR, seed=2026):
+    """transformer_lm_loss + Adam(lr).minimize in the port, as
+    benchmark/transformer_bench.py builds it.  Returns (main, startup,
+    loss, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer_lm_loss
+
+    pt.framework.reset_default_programs()
+    main_prog = pt.default_main_program()
+    startup = pt.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    tokens = pt.layers.data(name="tokens", shape=[seq, 1], dtype="int64")
+    labels = pt.layers.data(name="labels", shape=[seq, 1], dtype="int64")
+    loss = transformer_lm_loss(tokens, labels=labels, **config)
+    _, params_grads = pt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main_prog, startup, loss, params_grads
+
+
+def phase_tf_parity(dev):
+    """One full-width transformer step (B 1, S 128) on the card against
+    the same step on CPUPlace(), end to end and op by op.
+
+    End to end, from identical weights and tokens: the loss within
+    TF_PARITY_TOL of the CPU's.  The gradients, and so the Adam moments
+    and updated parameters, are ill-conditioned at 128 tokens: a
+    pre-activation of the ffn's relu within rounding of zero flips its
+    gate, which moves a column of ffn1's weight gradient by a few percent
+    of the tensor's largest element, and Adam's first step turns a
+    gradient near zero into a parameter move of up to lr of either sign
+    (a bias that starts at zero then differs by up to twice its largest
+    element).  So the CPU step also runs with the token embedding
+    perturbed by TF_PERTURB, and each of those tensors is held to
+    max(TF_PARITY_TOL * max|CPU|, FLOOR_FACTOR * the spread between the
+    two CPU steps).  Op by op: every op of the step on identical inputs
+    within OP_TOL, which holds every gradient and update without the
+    amplification."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, params_grads = build_transformer_program(
+        TF_PARITY_SEQ)
+    card = pt.Executor()
+    scope = pt.Scope()
+    card.run(startup, scope=scope)
+    state = {n: v.cpu().numpy() for n, v in scope.values.items()}
+    rng = np.random.RandomState(6)
+    v = TF_CONFIG["vocab_size"]
+    feed = {n: rng.randint(0, v, (TF_PARITY_BATCH, TF_PARITY_SEQ, 1))
+            .astype(np.int64) for n in ("tokens", "labels")}
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    names = fetch + sorted(state)
+    t0 = time.perf_counter()
+    got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
+    t_card = time.perf_counter() - t0
+    got += [scope.get(n).cpu().numpy() for n in sorted(state)]
+    del scope
+    torch.cuda.empty_cache()
+    runs = []
+    t0 = time.perf_counter()
+    for eps in (0.0, TF_PERTURB):
+        cpu_scope = pt.Scope()
+        cpu_scope.load_numpy(state, "cpu")
+        emb = cpu_scope.get("tok_emb")
+        emb.mul_(1 + eps * torch.randn(emb.shape, generator=torch.Generator()
+                                       .manual_seed(3)))
+        out = pt.Executor(pt.CPUPlace()).run(main_prog, feed=feed,
+                                             fetch_list=fetch,
+                                             scope=cpu_scope)
+        runs.append(out + [cpu_scope.get(n).numpy() for n in sorted(state)])
+        del cpu_scope
+    t_cpu = (time.perf_counter() - t0) / 2
+    params = {p.name for p, _ in params_grads}
+    worst, floor_held, bad = {}, 0, []
+    for i, name in enumerate(names):
+        kind = ("loss" if name == loss.name else
+                "gradient" if i < len(fetch) else
+                "parameter" if name in params else
+                "Adam moment" if "moment" in name else "other state")
+        want = np.asarray(runs[0][i], np.float64)
+        g = np.asarray(got[i], np.float64)
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        spread = float(np.abs(np.asarray(runs[1][i], np.float64)
+                              - want).max())
+        err = float(np.abs(g - want).max()) if np.isfinite(g).all() else np.inf
+        allowed = TF_PARITY_TOL * scale
+        if kind != "loss":
+            floor_held += FLOOR_FACTOR * spread > allowed
+            allowed = max(allowed, FLOOR_FACTOR * spread)
+        rel, rel_spread = (err / scale, spread / scale) if scale else (err,
+                                                                       spread)
+        if rel > worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (rel, rel_spread, name)
+        if not err <= allowed:
+            bad.append((name, err, allowed))
+    log(f"transformer step parity at full width, B {TF_PARITY_BATCH} S "
+        f"{TF_PARITY_SEQ}, end to end (card {t_card:.2f} s, CPU plain path "
+        f"{t_cpu:.2f} s per step): loss card {float(got[0]):.6f} vs CPU "
+        f"{float(runs[0][0]):.6f}; {len(params_grads)} gradients and "
+        f"{len(state)} state tensors, {floor_held} of them held to "
+        f"{FLOOR_FACTOR} x the CPU's own spread under a {TF_PERTURB} "
+        "perturbation of the token embedding; worst max|card - CPU| / "
+        "max|CPU| per kind (the CPU's spread beside it; tolerance "
+        f"{TF_PARITY_TOL}):")
+    for kind, (rel, rel_spread, name) in sorted(worst.items()):
+        log(f"  {kind}: {rel:.3e} (spread {rel_spread:.3e}; {name})")
+    if bad:
+        fail(f"transformer step on the card differs from the CPU end to end:"
+             f" {bad[:10]}")
+    del got, runs
+    ops_on_identical_inputs(dev, main_prog.global_block(), state, feed,
+                            f"transformer step parity at B {TF_PARITY_BATCH} "
+                            f"S {TF_PARITY_SEQ}")
+
+
+def phase_tf_train_step(dev, smi):
+    """The full-width transformer step at B 8, S 1024: counted launches
+    (flash forward 4, dq 4, dk/dv 4, matmul 17, softmax 0), tokens/s over
+    5 timed steps after 2 warm-up steps, peak memory, one profiled step."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, params_grads = build_transformer_program(TF_SEQ)
+    want_launches = launches_implied(main_prog)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(flash_attention_fwd=4, flash_attention_dq=4,
+                  flash_attention_dkv=4, matmul=17)
+    if want_launches != expect:
+        fail(f"unexpected transformer program: launches {want_launches}")
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    v = TF_CONFIG["vocab_size"]
+    feed = {n: torch.randint(0, v, (TF_BATCH, TF_SEQ, 1), device=dev,
+                             generator=gen) for n in ("tokens", "labels")}
+    tokens = TF_BATCH * TF_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    first_s = time.perf_counter() - t0
+    launches = counters()
+    log(f"transformer LM, {n_params / 1e6:.1f} M parameters: first step at "
+        f"B {TF_BATCH} S {TF_SEQ}: loss {float(first):.5f} (ln V = "
+        f"{np.log(v):.5f}) in {first_s:.2f} s; launches {launches}")
+    if launches != want_launches:
+        fail(f"transformer launch counts {launches} != {want_launches}")
+    (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    times, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        (val,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t0)   # numpy fetch: a device sync
+        losses.append(float(val))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([float(first), float(second)] + losses)):
+        fail(f"non-finite transformer loss: {first}, {second}, {losses}")
+    if not losses[-1] < float(first):
+        fail(f"the transformer's loss did not fall on a repeated batch: "
+             f"{float(first)} -> {losses}")
+    tok_s = 5 * tokens / sum(times)
+    log(f"transformer step at B {TF_BATCH} S {TF_SEQ} (f32): {tok_s:.1f} "
+        f"tokens/s over 5 timed steps after 2 warm-up steps "
+        f"({sum(times):.3f} s; median {statistics.median(times) * 1e3:.1f} "
+        f"ms, min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
+        f"losses {[round(x, 5) for x in losses]}; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB on {smi}")
+    idle = profile_step(lambda: exe.run(main_prog, feed=feed,
+                                        fetch_list=[loss], scope=scope),
+                        "transformer step")
+    del exe, scope, feed
+    torch.cuda.empty_cache()
+    return dict(tokens_per_s=tok_s, peak_bytes=peak, idle_share=idle,
+                launches=launches)
+
+
+def copy_task(rng, batch, seq, vocab):
+    """A seeded next-token task that needs attention: each label is the
+    token one position back (the first, the token itself)."""
+    tokens = rng.randint(0, vocab, (batch, seq, 1)).astype(np.int64)
+    labels = np.concatenate([tokens[:, :1], tokens[:, :-1]], axis=1)
+    return {"tokens": tokens, "labels": labels}
+
+
+def phase_tf_converge(dev):
+    """A small transformer (d_model 256, 4 heads, 2 layers, vocab 64,
+    S 128) learns copy_task on the card with Adam(3e-3): the loss must
+    fall below CONVERGE_LOSS."""
+    import paddle_tpu_torch as pt
+
+    config = dict(vocab_size=64, d_model=256, num_heads=4, num_layers=2,
+                  ffn_mult=4)
+    main_prog, startup, loss, _ = build_transformer_program(
+        128, config=config, lr=3e-3, seed=7)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(43)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(CONVERGE_STEPS):
+        (lv,) = exe.run(main_prog, feed=copy_task(rng, 8, 128, 64),
+                        fetch_list=[loss], scope=scope)
+        losses.append(float(lv))
+    log(f"small transformer + Adam, {CONVERGE_STEPS} steps of 8 x 128 "
+        f"tokens on {exe.place!r} in {time.perf_counter() - t0:.2f} s: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not losses[-1] < CONVERGE_LOSS:
+        fail(f"the small transformer did not learn the task: loss "
+             f"{losses[-1]:.4f} >= {CONVERGE_LOSS}")
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase {fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    return out
 
 
 def main():
@@ -1025,15 +1525,15 @@ def main():
              "not 46")
     want_launches = launches_implied(main_prog)
     log(f"launches the training program implies per step: {want_launches}")
-    if want_launches != dict(conv2d_nhwc=46, conv_bwd_input=46, conv_dw=46,
-                             batch_norm_fwd=53, batch_norm_bwd=53, matmul=1,
-                             softmax=1):
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(conv2d_nhwc=46, conv_bwd_input=46, conv_dw=46,
+                  batch_norm_fwd=53, batch_norm_bwd=53, matmul=1, softmax=1)
+    if want_launches != expect:
         fail(f"unexpected ResNet-50 training program: {want_launches}")
 
-    kernels = phase_kernels(dev, serve_shapes,
-                            conv_shapes_of(main_prog, TRAIN_BATCH),
-                            bn_shapes_of(main_prog, TRAIN_BATCH))
-    log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    kernels = timed(phase_kernels, dev, serve_shapes,
+                    conv_shapes_of(main_prog, TRAIN_BATCH),
+                    bn_shapes_of(main_prog, TRAIN_BATCH))
 
     exe = pt.Executor()   # CUDAPlace(0) by default
     scope = pt.Scope()
@@ -1049,29 +1549,41 @@ def main():
         pt.io.save_inference_model(model_dir, ["img"], [pred], exe,
                                    main_program=main_prog, scope=scope)
         del exe, scope
-        serve_launches = phase_serving(dev, model_dir, rng)
-        img_per_s = phase_throughput(dev, model_dir)
-    log(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
+        serve_launches = timed(phase_serving, dev, model_dir, rng)
+        img_per_s = timed(phase_throughput, dev, model_dir)
 
-    phase_train_parity(dev, main_prog, startup, loss, params_grads)
-    train = phase_train_step(dev, main_prog, startup, loss, want_launches,
-                             smi)
-    phase_lenet(dev)
-    log(f"training phases done at {time.perf_counter() - t_start:.1f} s")
+    timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
+    train = timed(phase_train_step, dev, main_prog, startup, loss,
+                  want_launches, smi)
+    timed(phase_lenet, dev)
 
+    timed(phase_tf_parity, dev)
+    tf = timed(phase_tf_train_step, dev, smi)
+    timed(phase_tf_converge, dev)
+
+    # each kernel's numbers are those of the path that runs it most: the
+    # matmul and flash kernels the transformer step, the rest the ResNet-50
+    # step; launches_by_path has every path's count
+    by_path = {"train_step": train["launches"], "serving": serve_launches,
+               "transformer_train_step": tf["launches"]}
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
-             replaces=KERNELS[name][1], launches=train["launches"][name],
-             launches_by_path={"train_step": train["launches"][name],
-                               "serving": serve_launches[name]},
+             replaces=KERNELS[name][1],
+             launches=(tf if name == "matmul" or name.startswith("flash")
+                       else train)["launches"][name],
+             launches_by_path={p: c[name] for p, c in by_path.items()},
              max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
              bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=k["library_ms"])
         for name, k in kernels.items()]}
     log(f"serving throughput: {img_per_s:.1f} images/s at bucket "
-        f"{SERVE_BATCH}; training: {train['images_per_s']:.1f} images/s at "
-        f"batch {TRAIN_BATCH} (f32), peak {train['peak_bytes'] / 2**30:.2f} "
-        f"GiB, idle share {train['idle_share']:.3f}; on {smi}; "
+        f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "
+        f"images/s at batch {TRAIN_BATCH} (f32), peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB, idle share "
+        f"{train['idle_share']:.3f}; transformer LM training: "
+        f"{tf['tokens_per_s']:.1f} tokens/s at B {TF_BATCH} S {TF_SEQ} (f32),"
+        f" peak {tf['peak_bytes'] / 2**30:.2f} GiB, idle share "
+        f"{tf['idle_share']:.3f}; on {smi}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

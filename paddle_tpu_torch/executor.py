@@ -12,7 +12,10 @@ Values die young: once the last op that reads a value has run, the run
 drops it, unless it is persistable, fed or fetched.  XLA's buffer
 liveness does this for the JAX package.  Eagerly, holding every
 activation and every activation gradient of a ResNet-50 train step to
-the end of the run would need about twice the forward's values.
+the end of the run would need about twice the forward's values.  A
+residual that an op leaves for its grad rule under a name no op declares
+(the attention forward's logsumexp) is popped by that rule, or dies with
+the run's value map; it never reaches the Scope.
 
 On a CUDA place every run holds float32 math at float32: TF32 is off for
 cuDNN and matmul while any run is in flight (``_f32_math``), so the
@@ -177,9 +180,16 @@ class _Plan:
 class Executor:
     """Eager op-by-op executor on one place: ``CUDAPlace(0)`` unless the
     caller passes another, and a RuntimeError rather than a quiet CPU
-    run when there is no card."""
+    run when there is no card.  ``strategy`` (the JAX package's
+    data/tensor/sequence-parallel mesh, through which its attention op
+    turns into ring attention) waits for the parallel slice."""
 
-    def __init__(self, place: Optional[Place] = None):
+    def __init__(self, place: Optional[Place] = None, strategy=None):
+        if strategy is not None:
+            raise NotImplementedError(
+                "paddle_tpu_torch: parallel strategies (data, tensor and "
+                "sequence parallel meshes, ring attention) come with the "
+                "parallel slice")
         self.place = framework.resolve_place(place)
         self.device = self.place.device()
         self._cache: Dict[Any, _Plan] = {}

@@ -1,6 +1,8 @@
 """NN layers (``paddle_tpu/layers/nn.py``): fc, conv2d, pool2d,
-batch_norm, and the loss and metric layers of the training slice:
-cross_entropy, topk, accuracy."""
+batch_norm, the loss and metric layers of the training slice
+(cross_entropy, topk, accuracy), and the transformer's embedding,
+layer_norm, scaled_dot_product_attention, multi_head_attention and
+softmax_with_cross_entropy."""
 
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
-           "accuracy"]
+           "accuracy", "embedding", "layer_norm",
+           "scaled_dot_product_attention", "multi_head_attention",
+           "softmax_with_cross_entropy"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -206,3 +210,130 @@ def accuracy(input, label, k: int = 1, **kwargs):
         outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]},
     )
     return acc
+
+
+def embedding(input, size, is_sparse: bool = False, padding_idx=None,
+              param_attr=None, dtype="float32", **kwargs):
+    """size = [vocab, dim]: a ``lookup_table`` of a (vocab, dim) weight.
+    ``is_sparse`` is kept in the program; its SelectedRows gradient
+    comes with the sequences slice (the grad rule raises until then)."""
+    helper = LayerHelper("embedding", param_attr=param_attr, **kwargs)
+    w = helper.create_parameter(
+        param_attr, shape=list(size), dtype=dtype,
+        default_initializer=NormalInitializer(0.0, 0.02),
+    )
+    out = helper.create_tmp_variable(
+        dtype, tuple(input.shape[:-1]) + (size[1],), input.lod_level
+    )
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [out]},
+        attrs={"is_sparse": is_sparse, "padding_idx": padding_idx},
+    )
+    return out
+
+
+def layer_norm(input, scale: bool = True, shift: bool = True,
+               begin_norm_axis: int = 1, epsilon: float = 1e-5,
+               param_attr=None, bias_attr=None, act=None, name=None,
+               **kwargs):
+    """LayerNorm over dims [begin_norm_axis:)."""
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name, **kwargs)
+    dtype = input.dtype
+    norm_shape = [int(s) for s in input.shape[begin_norm_axis:]]
+    inputs = {"X": [input]}
+    if scale:
+        g = helper.create_parameter(
+            param_attr, shape=norm_shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [g]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=norm_shape, dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    out = helper.create_tmp_variable(dtype, input.shape, input.lod_level)
+    mean = helper.create_tmp_variable("float32", input.shape[:begin_norm_axis])
+    var = helper.create_tmp_variable("float32", input.shape[:begin_norm_axis])
+    helper.append_op(
+        type="layer_norm", inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def scaled_dot_product_attention(q, k, v, causal: bool = False, name=None,
+                                 **kwargs):
+    """q, k, v: (B, S, H, D) -> (B, S, H, D)."""
+    helper = LayerHelper("sdp_attention", name=name, **kwargs)
+    out = helper.create_tmp_variable(q.dtype, q.shape, q.lod_level)
+    helper.append_op(
+        type="scaled_dot_product_attention",
+        inputs={"Q": [q], "K": [k], "V": [v]},
+        outputs={"Out": [out]},
+        attrs={"causal": causal},
+    )
+    return out
+
+
+def multi_head_attention(input, num_heads: int, causal: bool = False,
+                         param_attr=None, tp_axis: Optional[str] = None,
+                         name=None, **kwargs):
+    """Self-attention block on (B, S, d_model): one qkv projection,
+    ``split`` into q, k, v, heads by ``reshape``, attention, the heads
+    merged by ``reshape``, the output projection.  ``tp_axis`` (Megatron
+    sharding of the projections) waits for the parallel slice."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "paddle_tpu_torch: tensor-parallel sharding (tp_axis) comes with "
+            "the parallel slice")
+    B, S, d = input.shape
+    if d % num_heads:
+        raise ValueError(f"d_model {d} is not a multiple of num_heads "
+                         f"{num_heads}")
+    head_dim = d // num_heads
+    qkv = fc(input, 3 * d, num_flatten_dims=2,
+             param_attr=param_attr,
+             bias_attr=False, name=name and name + "_qkv", **kwargs)
+    helper = LayerHelper("mha", name=name, **kwargs)
+    q = helper.create_tmp_variable(input.dtype, (B, S, d))
+    k = helper.create_tmp_variable(input.dtype, (B, S, d))
+    v = helper.create_tmp_variable(input.dtype, (B, S, d))
+    helper.append_op(
+        type="split", inputs={"X": [qkv]},
+        outputs={"Out": [q, k, v]},
+        attrs={"num": 3, "axis": 2},
+    )
+    heads = []
+    for t in (q, k, v):
+        rs = helper.create_tmp_variable(input.dtype,
+                                        (B, S, num_heads, head_dim))
+        helper.append_op(type="reshape", inputs={"X": [t]},
+                         outputs={"Out": [rs]},
+                         attrs={"shape": [0, 0, num_heads, head_dim]})
+        heads.append(rs)
+    ctx_out = scaled_dot_product_attention(*heads, causal=causal, **kwargs)
+    merged = helper.create_tmp_variable(input.dtype, (B, S, d))
+    helper.append_op(type="reshape", inputs={"X": [ctx_out]},
+                     outputs={"Out": [merged]},
+                     attrs={"shape": [0, 0, d]})
+    return fc(merged, d, num_flatten_dims=2,
+              param_attr=param_attr,
+              bias_attr=False, name=name and name + "_proj", **kwargs)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
+                               **kwargs):
+    helper = LayerHelper("softmax_with_cross_entropy", **kwargs)
+    softmax = helper.create_tmp_variable(logits.dtype, logits.shape)
+    loss = helper.create_tmp_variable(logits.dtype,
+                                      tuple(logits.shape[:-1]) + (1,))
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax], "Loss": [loss]},
+        attrs={"soft_label": soft_label},
+    )
+    return loss

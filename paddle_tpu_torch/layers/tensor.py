@@ -1,9 +1,27 @@
-"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``mean`` and the
-elementwise layers with an optional activation (:165, :180-195)."""
+"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``reshape``,
+``transpose``, ``mean`` and the elementwise layers with an optional
+activation (:148-165, :180-195)."""
 
 from __future__ import annotations
 
 from paddle_tpu_torch.layer_helper import LayerHelper
+
+
+def reshape(x, shape, **kwargs):
+    helper = LayerHelper("reshape", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, tuple(shape))
+    helper.append_op(type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape)})
+    return out
+
+
+def transpose(x, perm, **kwargs):
+    helper = LayerHelper("transpose", **kwargs)
+    shape = tuple(x.shape[i] for i in perm) if x.shape else None
+    out = helper.create_tmp_variable(x.dtype, shape)
+    helper.append_op(type="transpose", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": list(perm)})
+    return out
 
 
 def mean(x, **kwargs):

@@ -2,5 +2,8 @@
 
 from paddle_tpu_torch.models.lenet import lenet5
 from paddle_tpu_torch.models.resnet import resnet_cifar10, resnet_imagenet
+from paddle_tpu_torch.models.transformer import (transformer_lm,
+                                                 transformer_lm_loss)
 
-__all__ = ["lenet5", "resnet_cifar10", "resnet_imagenet"]
+__all__ = ["lenet5", "resnet_cifar10", "resnet_imagenet", "transformer_lm",
+           "transformer_lm_loss"]

@@ -2,6 +2,7 @@
 
 from paddle_tpu_torch.ops import (  # noqa: F401
     activation_ops,
+    attention_ops,
     loss_ops,
     math_ops,
     metric_ops,

@@ -1,7 +1,8 @@
 """Tensor ops: fill_constant and the random initializers that the
-startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), and
-the copies the backward pass emits: assign, cast, fill_zeros_like
-(``:239-250``).
+startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), the
+copies the backward pass emits: assign, cast, fill_zeros_like
+(``:239-250``), and the transformer's split, reshape, transpose
+(``:291-324``) and lookup_table (``:352-406``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.common import torch_dtype, unary
+from paddle_tpu_torch.lod import rewrap, unwrap
+from paddle_tpu_torch.ops.common import grad_in, grad_out, torch_dtype, unary
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
 
@@ -84,3 +86,191 @@ def _assign(ctx):
 def _cast(ctx):
     dtype = torch_dtype(ctx.attr("out_dtype", ctx.attr("dtype", "float32")))
     unary(ctx, lambda x: x.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# shape ops and the embedding lookup
+# ---------------------------------------------------------------------------
+
+
+def _shape_var(block, name):
+    v = block.find_var(name) if name else None
+    if v is None:
+        raise SkipInferShape
+    return v
+
+
+def _one_in_out(op, block, in_slot="X", out_slot="Out"):
+    ins = op.inputs.get(in_slot, [])
+    outs = op.outputs.get(out_slot, [])
+    if len(ins) != 1 or len(outs) != 1:
+        raise SkipInferShape
+    xv, ov = _shape_var(block, ins[0]), _shape_var(block, outs[0])
+    if xv.shape is None:
+        raise SkipInferShape
+    return xv, ov
+
+
+def _infer_split_shape(op, block):
+    ins = op.inputs.get("X", [])
+    outs = op.outputs.get("Out", [])
+    if len(ins) != 1 or not outs:
+        raise SkipInferShape
+    xv = _shape_var(block, ins[0])
+    if xv.shape is None or not xv.shape:
+        raise SkipInferShape
+    axis = op.attr("axis", 0) % len(xv.shape)
+    sections = op.attr("sections", None)
+    if sections and len(sections) != len(outs):
+        raise SkipInferShape
+    for i, name in enumerate(outs):
+        ov = _shape_var(block, name)
+        if ov.shape is not None:
+            continue
+        if sections:
+            d = int(sections[i])
+        elif xv.shape[axis] >= 0:
+            d = xv.shape[axis] // max(1, len(outs))
+        else:
+            d = -1
+        shape = list(xv.shape)
+        shape[axis] = d
+        ov.shape = tuple(shape)
+
+
+def _infer_reshape_shape(op, block):
+    xv, ov = _one_in_out(op, block)
+    if ov.shape is not None:
+        return
+    shape = [int(s) for s in (op.attr("shape", ()) or ())]
+    if not shape:
+        raise SkipInferShape
+    shape = [xv.shape[i] if s == 0 and i < len(xv.shape) else s
+             for i, s in enumerate(shape)]
+    if shape.count(-1) == 1 and all(d >= 0 for d in xv.shape):
+        total = 1
+        for d in xv.shape:
+            total *= d
+        known = 1
+        for d in shape:
+            if d > 0:
+                known *= d
+        if known > 0 and total % known == 0:
+            shape[shape.index(-1)] = total // known
+    ov.shape = tuple(shape)
+
+
+def _infer_transpose_shape(op, block):
+    xv, ov = _one_in_out(op, block)
+    perm = op.attr("axis", None)
+    if not perm or len(perm) != len(xv.shape):
+        raise SkipInferShape
+    if ov.shape is None:
+        ov.shape = tuple(xv.shape[int(p)] for p in perm)
+
+
+def _infer_lookup_table_shape(op, block):
+    # Ids (..., 1) int64 against W (V, D) -> Out (..., D)
+    ws = op.inputs.get("W", [])
+    ids = op.inputs.get("Ids", [])
+    outs = op.outputs.get("Out", [])
+    if len(ws) != 1 or len(ids) != 1 or len(outs) != 1:
+        raise SkipInferShape
+    wv = _shape_var(block, ws[0])
+    iv = _shape_var(block, ids[0])
+    ov = _shape_var(block, outs[0])
+    if wv.shape is None or iv.shape is None:
+        raise SkipInferShape
+    base = tuple(iv.shape)
+    if base and base[-1] == 1:
+        base = base[:-1]
+    if ov.shape is None:
+        ov.shape = base + (wv.shape[-1],)
+    if ov.lod_level == 0 and iv.lod_level:
+        ov.lod_level = iv.lod_level
+
+
+@register_op("split", inputs=("X",), infer_shape=_infer_split_shape)
+def _split(ctx):
+    """``num`` equal parts or ``sections`` along ``axis``: views of X
+    (the fused qkv projection's q, k and v are read in place)."""
+    x = unwrap(ctx.input("X"))
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections", None)
+    if sections:
+        # cut at the running sums of all but the last section
+        sizes = [int(s) for s in sections[:-1]]
+        parts = torch.split(x, sizes + [x.shape[axis] - sum(sizes)], dim=axis)
+    else:
+        num = ctx.attr("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of {tuple(x.shape)} does "
+                             f"not divide into {num} parts")
+        parts = torch.split(x, x.shape[axis] // num, dim=axis)
+    for name, part in zip(ctx.op.output("Out"), parts):
+        ctx.values[name] = part
+
+
+@register_op("reshape", inputs=("X",), infer_shape=_infer_reshape_shape)
+def _reshape(ctx):
+    """One -1 wildcard, and 0 copies the input's dim; a view where the
+    strides allow one, as ``torch.reshape`` gives."""
+    x = unwrap(ctx.input("X"))
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(ctx.attr("shape"))]
+    ctx.set_output("Out", torch.reshape(x, shape))
+
+
+@register_op("transpose", inputs=("X",), infer_shape=_infer_transpose_shape)
+def _transpose(ctx):
+    ctx.set_output("Out", unwrap(ctx.input("X")).permute(
+        *ctx.attr("axis")))
+
+
+def _lookup_ids(ids):
+    """The row index of every lookup: Ids (..., 1) or (...,) as int64."""
+    ids = unwrap(ids).long()
+    return ids[..., 0] if ids.shape[-1] == 1 else ids
+
+
+def _lookup_table_grad(ctx):
+    """W@GRAD: a dense scatter-add of the rows' gradients, rows at
+    ``padding_idx`` masked (``paddle_tpu/ops/tensor_ops.py:352``).  On
+    CUDA ``index_add_`` adds with atomics, so the sum of a row that
+    several ids hit is not bit-stable.  ``is_sparse`` (a SelectedRows
+    gradient) waits for the sequences slice's ``sparse.py``."""
+    gname = grad_out(ctx, "W@GRAD")
+    if gname is None:
+        return
+    fwd_attrs = ctx.op.attr("__fwd_attrs__")
+    if fwd_attrs.get("is_sparse"):
+        raise NotImplementedError(
+            "paddle_tpu_torch: lookup_table with is_sparse=True needs "
+            "SparseGrad (sparse.py), which comes with the sequences slice")
+    w = unwrap(ctx.input("W"))
+    rows = _lookup_ids(ctx.input("Ids")).reshape(-1)
+    g = unwrap(grad_in(ctx, "Out@GRAD"))
+    vals = g.reshape(-1, g.shape[-1]).to(w.dtype)
+    padding_idx = fwd_attrs.get("padding_idx")
+    if padding_idx is not None and padding_idx >= 0:
+        vals = vals * (rows != padding_idx)[:, None].to(vals.dtype)
+    ctx.values[gname] = torch.zeros_like(w).index_add_(0, rows, vals)
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), diff_inputs=("W",),
+             grad_lower=_lookup_table_grad,
+             infer_shape=_infer_lookup_table_shape)
+def _lookup_table(ctx):
+    """Embedding lookup: W[ids] with Ids (..., 1) int64, rows at
+    ``padding_idx`` zero.  The JAX op runs the gather kernel only for 1-D
+    ids (LoD sequences, the sequences slice); these ids are a plain
+    ``index_select``, as ``jnp.take`` there."""
+    w = unwrap(ctx.input("W"))
+    ids = ctx.input("Ids")
+    flat = _lookup_ids(ids)
+    out = torch.index_select(w, 0, flat.reshape(-1)).reshape(
+        tuple(flat.shape) + (w.shape[1],))
+    padding_idx = ctx.attr("padding_idx", None)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (flat != padding_idx)[..., None].to(out.dtype)
+    ctx.set_output("Out", rewrap(ids, out))

@@ -9,7 +9,10 @@ Tolerances: conv, its backward-input and matmul rtol 1e-4 / atol 1e-4
 the filter gradient rtol 1e-4 / atol 1e-4 * max|dW| (sums over every
 pixel of the batch, up to 10^5-10^6 terms, in another order); batch norm
 atol 1e-4 on y and dx, rtol 1e-4 on the per-channel vectors (f32 sums
-over R rows; the kernel adds its chunk partials in double).
+over R rows; the kernel adds its chunk partials in double); flash
+attention atol 1e-4 on out and lse, and 1e-3 of max|plain| on dq, dk and
+dv (f32 sums over S keys or queries and D, in another order, through
+exp).
 """
 
 import numpy as np
@@ -250,3 +253,82 @@ def test_train_step_on_the_card_matches_cpu(dev):
     for name, v in cpu_scope.values.items():
         np.testing.assert_allclose(card_scope.get(name).cpu().numpy(),
                                    v.numpy(), rtol=1e-3, atol=1e-5)
+
+
+FLASH_SHAPES = [
+    # (B, S, H, D): ragged S and D, each head-dim tiling (64, 128, 256)
+    (2, 40, 3, 24), (1, 200, 6, 64), (2, 129, 2, 128), (1, 70, 2, 256),
+    (1, 1, 1, 8),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", FLASH_SHAPES)
+def test_flash_attention_kernels_match_plain(dev, b, s, h, d, causal):
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(8)
+    # q, k and v as the strided views a fused qkv projection leaves
+    qkv = _randn(g, b, s, 3 * h * d, device=dev)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    do = _randn(g, b, s, h, d, device=dev)
+    dlse = _randn(g, b * h, s, device=dev)
+    before = (kfa.launches, kfa.dq_launches, kfa.dkv_launches)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal, dlse=dlse)
+    assert (kfa.launches, kfa.dq_launches, kfa.dkv_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    torch.cuda.synchronize()
+    pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out, pout, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    want = kfa.flash_attention_bwd_plain(q, k, v, pout, plse, do, causal,
+                                         dlse=dlse)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-3 * float(ref.abs().max()))
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    x = torch.ones(1, 8, 2, 16, device=dev)
+    with pytest.raises(TypeError):
+        kfa.flash_attention_fwd(x.double(), x.double(), x.double())
+    with pytest.raises(ValueError):
+        t = x.transpose(2, 3).contiguous().transpose(2, 3)   # strided head dim
+        kfa.flash_attention_fwd(t, t, t)
+
+
+def test_transformer_step_on_the_card_matches_cpu(dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.models import transformer_lm_loss
+
+    pt.framework.reset_default_programs()
+    tokens = pt.layers.data(name="tokens", shape=[40, 1], dtype="int64")
+    labels = pt.layers.data(name="labels", shape=[40, 1], dtype="int64")
+    loss = transformer_lm_loss(tokens, labels=labels, vocab_size=50,
+                               d_model=64, num_heads=2, num_layers=2)
+    _, params_grads = pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cpu.run(pt.default_startup_program(), scope=cpu_scope)
+    card_scope = pt.Scope()
+    card_scope.load_numpy({n: v.numpy() for n, v in cpu_scope.values.items()},
+                          dev)
+    rng = np.random.RandomState(9)
+    feed = {n: rng.randint(0, 50, (3, 40, 1)).astype(np.int64)
+            for n in ("tokens", "labels")}
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    before = (kfa.launches, kfa.dq_launches, kfa.dkv_launches)
+    got = pt.Executor(pt.CUDAPlace(0)).run(
+        pt.default_main_program(), feed=feed, fetch_list=fetch,
+        scope=card_scope)
+    assert (kfa.launches, kfa.dq_launches, kfa.dkv_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    want = cpu.run(pt.default_main_program(), feed=feed, fetch_list=fetch,
+                   scope=cpu_scope)
+    for name, g, w in zip(fetch, got, want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-3 * np.abs(w).max(), err_msg=name)

@@ -8,9 +8,12 @@ and chip_smoke.py).
 Tolerances: float32 sums of up to a few thousand terms taken in another
 order than XLA's, so rtol 1e-4 / atol 1e-4 for conv, its gradients and
 matmul; softmax does no long sums, atol 1e-6; batch norm rtol 1e-4 /
-atol 1e-4 (f32 statistics over a few hundred rows).  The autograd
-functions' gradients are held to PyTorch's own autograd of the same
-function in float32 at the same tolerances."""
+atol 1e-4 (f32 statistics over a few hundred rows); flash attention
+rtol 1e-4 / atol 1e-4 on out, lse and the gradients (f32 sums over up to
+256 keys and 64 head dims, through exp, in another order and, in the
+Pallas kernel, another blocking).  The autograd functions' gradients are
+held to PyTorch's own autograd of the same function in float32 at the
+same tolerances."""
 
 import os
 
@@ -25,11 +28,13 @@ import torch.nn.functional as F
 from paddle_tpu.pallas.batch_norm import _bn_bwd_impl, _bn_fwd_impl
 from paddle_tpu.pallas.conv import _conv_dw_impl
 from paddle_tpu.pallas.conv import conv2d_nhwc as pallas_conv2d_nhwc
+from paddle_tpu.pallas.flash_attention import _flash_bwd_impl, _flash_fwd_impl
 from paddle_tpu.pallas.matmul import matmul as pallas_matmul
 from paddle_tpu.pallas.softmax import softmax as pallas_softmax
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
+from paddle_tpu_torch.kernels import flash_attention as kfa
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.kernels import softmax as ksoftmax
 
@@ -110,7 +115,8 @@ def test_plain_versions_keep_input_dtype(rng):
 def _counters():
     return (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches,
             kbn.launches, kbn.bwd_launches, kmatmul.launches,
-            ksoftmax.launches)
+            ksoftmax.launches, kfa.launches, kfa.dq_launches,
+            kfa.dkv_launches)
 
 
 def test_cpu_path_launches_no_kernel(rng):
@@ -126,6 +132,9 @@ def test_cpu_path_launches_no_kernel(rng):
     x2 = _t(rng.randn(6, 2).astype(np.float32))
     y, m, v = kbn.batch_norm_fwd(x2, torch.ones(2), torch.zeros(2), 1e-5)
     kbn.batch_norm_bwd(x2, y, torch.ones(2), m, torch.rsqrt(v + 1e-5))
+    q = _t(rng.randn(1, 5, 2, 8).astype(np.float32))
+    o, lse = kfa.flash_attention_fwd(q, q, q, True)
+    kfa.flash_attention_bwd(q, q, q, o, lse, q, True)
     assert _counters() == before
 
 
@@ -151,9 +160,16 @@ def test_cpu_path_launches_no_kernel(rng):
                                torch.zeros(3), 1e-5),
     lambda: kbn.batch_norm_bwd(torch.zeros(4, 3), torch.zeros(4, 2),
                                torch.ones(3), torch.zeros(3), torch.ones(3)),
+    # flash attention: (BH, S, D) rank, cross-attention lengths, head dims
+    lambda: kfa.flash_attention_fwd(*[torch.zeros(2, 8, 16)] * 3),
+    lambda: kfa.flash_attention_fwd(torch.zeros(1, 8, 2, 16),
+                                    torch.zeros(1, 9, 2, 16),
+                                    torch.zeros(1, 9, 2, 16)),
+    lambda: kfa.flash_attention_fwd(*[torch.zeros(1, 8, 2, 20)] * 3),
+    lambda: kfa.flash_attention_fwd(*[torch.zeros(1, 8, 1, 264)] * 3),
 ], ids=["even_k", "pad", "channels", "rank", "mm_inner", "mm_rank",
         "softmax_rank", "bwd_in_channels", "dw_sizes", "dw_pad", "bn_rank",
-        "bn_gamma", "bn_dy"])
+        "bn_gamma", "bn_dy", "fa_rank", "fa_cross", "fa_d20", "fa_d264"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()
@@ -167,9 +183,9 @@ def test_build_targets_sm90a_and_keys_on_sources():
         assert os.path.exists(_build.source_path(name))
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 5
+    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 6
     assert set(_build.LIBRARIES) == {"conv", "conv_dw", "batch_norm",
-                                     "matmul", "softmax"}
+                                     "matmul", "softmax", "flash_attention"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -345,3 +361,101 @@ def test_dw_split_covers_the_reduction():
         splits, chunk = kconv.dw_splits(m, o, k)
         assert chunk % 16 == 0 and splits * chunk >= k
         assert (splits - 1) * chunk < k
+
+
+# ---------------------------------------------------------------------------
+# the attention slice's kernels: flash attention forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _bhsd(a):
+    """The TPU kernel's (BH, S, D) as the port's (B, S, H, D) with H = 1."""
+    return _t(a)[:, :, None, :]
+
+
+@pytest.mark.parametrize("blk", [None, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_fwd_matches_pallas_kernel(rng, causal, blk):
+    # inside the TPU contract: S divisible by a block >= 128; blk=128
+    # makes the Pallas kernel cross two K blocks with its online softmax
+    q, k, v = (rng.randn(2, 256, 64).astype(np.float32) for _ in range(3))
+    want_o, want_l = (np.asarray(a) for a in _flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 64 ** -0.5,
+        True, blk, blk))
+    out, lse = kfa.flash_attention_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal)
+    np.testing.assert_allclose(out[:, :, 0].numpy(), want_o, **GEMM_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_l, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_bwd_matches_pallas_kernel(rng, causal, with_dlse):
+    q, k, v, do = (rng.randn(2, 256, 64).astype(np.float32)
+                   for _ in range(4))
+    dlse = rng.randn(2, 256).astype(np.float32) if with_dlse else None
+    o, lse = kfa.flash_attention_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal)
+    want = [np.asarray(a) for a in _flash_bwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(o[:, :, 0].numpy()), jnp.asarray(lse.numpy()),
+        jnp.asarray(do), causal, 64 ** -0.5, True,
+        dlse=None if dlse is None else jnp.asarray(dlse))]
+    got = kfa.flash_attention_bwd(_bhsd(q), _bhsd(k), _bhsd(v), o, lse,
+                                  _bhsd(do), causal,
+                                  dlse=None if dlse is None else _t(dlse))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[:, :, 0].numpy(), w, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_outside_contract_matches_jax_vjp(rng, causal):
+    """S = 40 and D = 24, outside every term of the TPU kernel's
+    contract: the plain forward and backward against ``jax.vjp`` of the
+    JAX package's ``local_attention``."""
+    from paddle_tpu.parallel.ring_attention import local_attention
+
+    b, h, s, d = 2, 3, 40, 24
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32)
+                   for _ in range(4))
+    want_o, vjp = jax.vjp(lambda *a: local_attention(*a, causal=causal),
+                          jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(do))]
+
+    def port(a):
+        return _t(a).permute(0, 2, 1, 3)
+
+    o, lse = kfa.flash_attention_fwd(port(q), port(k), port(v), causal)
+    np.testing.assert_allclose(o.permute(0, 2, 1, 3).numpy(),
+                               np.asarray(want_o), **GEMM_TOL)
+    got = kfa.flash_attention_bwd(port(q), port(k), port(v), o, lse,
+                                  port(do), causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.permute(0, 2, 1, 3).numpy(), w,
+                                   **GEMM_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_matches_torch_autograd(rng, causal):
+    """``FlashAttention`` (both outputs differentiable, as
+    ``flash_attention_with_lse``) against PyTorch's autograd of the plain
+    math, on strided q, k, v views of one fused projection."""
+    qkv = _leaves(rng, (2, 12, 3 * 2 * 8))[0]
+    r_o, r_l = _weights(rng, (2, 12, 2, 8)), _weights(rng, (4, 12))
+
+    def split(t):
+        return [x.reshape(2, 12, 2, 8) for x in t.split(16, dim=2)]
+
+    out, lse = kfa.FlashAttention.apply(*split(qkv), causal, None)
+    ((out * r_o).sum() + (lse * r_l).sum()).backward()
+    qkv2 = qkv.detach().clone().requires_grad_(True)
+    q, k, v = (x.permute(0, 2, 1, 3) for x in split(qkv2))
+    s = q @ k.transpose(-1, -2) * 8 ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(12, 12, dtype=torch.bool).tril(),
+                          float("-inf"))
+    ref = (torch.softmax(s, -1) @ v).permute(0, 2, 1, 3)
+    ref_l = torch.logsumexp(s, -1).reshape(4, 12)
+    ((ref * r_o).sum() + (ref_l * r_l).sum()).backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               **GEMM_TOL)
+    np.testing.assert_allclose(qkv.grad.numpy(), qkv2.grad.numpy(),
+                               **GEMM_TOL)
