@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: build its kernels, hold each
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
-and check the replies, train full-width ResNet-50, LeNet-5 and the
-transformer LM and check their steps, then measure.
+and check the replies, train full-width ResNet-50, LeNet-5, the
+transformer LM and the LSTM text classifier (padded and over LoD ids)
+and check their steps, then measure.
 
     python3 chip_smoke.py
 
@@ -25,7 +26,11 @@ seconds):
    torch.softmax); the flash-attention forward, dq and dk/dv kernels at
    the transformer step's shape and at ragged ones
    (F.scaled_dot_product_attention and its autograd backward); the
-   matmul at the transformer step's five shapes.
+   matmul at the transformer step's five shapes; the LSTM kernel
+   (hs, cs, gates) and LSTMSeq's backward at T 100, B 64, H 256, 512 and
+   1280 and at T 7, B 5, H 100 (torch.nn.LSTM on cuDNN); the gather at
+   the LoD step's ids on the 30000 x 512 table, on a 510-wide table and
+   with ids out of range (torch.index_select).
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -71,11 +76,32 @@ seconds):
 10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
     a seeded copy-the-previous-token task on the card: the loss falls
     below CONVERGE_LOSS.
-11. The kernels line, the card's name and power limit, and the result.
+11. LSTM classifier parity: lstm_text_classifier as benchmark/run.py
+    trains its `lstm` cell (B 64, T 100, vocab 30000 with ids < 10000,
+    emb 512, hidden 256, 2 layers, 2 classes, Momentum(0.01, 0.9), f32)
+    at full width for one step at B 2 on the card against CPUPlace():
+    end to end (SEQ_PARITY_TOL, or the CPU's own spread under a
+    perturbation of the embedding table) and op by op on identical
+    inputs, the LSTM's gates handed to its grad op on both sides.
+12. The LSTM classifier step at B 64, T 100: launches (lstm 2, matmul 3,
+    softmax 1, gather 0), samples/s and tokens/s over 5 timed steps
+    after 2 warm-up steps, peak memory, one profiled step split into the
+    LSTM kernel, its plain backward loop, the matmul kernel, the mul
+    backward products, the rest and the host.
+13. A small LSTM classifier (T 20, emb 32, hidden 64, Adam(1e-2)) learns
+    whether token 0 occurs: held-out accuracy above SEQ_CONVERGE_ACC.
+14. LoD classifier parity: LoD ids of 64 sequences with seeded lengths
+    in 1-100 -> embedding([30000, 512]) -> fc(256, tanh) ->
+    sequence_pool(average) -> fc(2, softmax), Momentum(0.01, 0.9): card
+    vs CPU end to end and op by op.
+15. The LoD classifier step: launches (gather 1, matmul 2, softmax 1,
+    lstm 0), steps/s and rows/s, peak memory, one profiled step.
+16. The kernels line, the card's name and power limit, and the result.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -147,6 +173,9 @@ KERNELS = {
                            "paddle_tpu/pallas/flash_attention.py:293"),
     "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/pallas/flash_attention.py:313"),
+    "lstm": ("paddle_tpu_torch/csrc/lstm.cu", "paddle_tpu/pallas/lstm.py:112"),
+    "embedding": ("paddle_tpu_torch/csrc/embedding.cu",
+                  "paddle_tpu/pallas/embedding.py:47"),
 }
 
 # The transformer LM of benchmark/transformer_bench.py:45-60 at its own
@@ -173,6 +202,35 @@ TF_PERTURB = 1e-4
 # starts near ln 64 = 4.16)
 CONVERGE_LOSS = 0.3
 CONVERGE_STEPS = 300
+
+# The LSTM text classifier of benchmark/run.py's `lstm` cell
+# (benchmark/run.py:47-68, the reference's benchmark/paddle/rnn/rnn.py):
+# B 64, T 100, vocab 30000 with ids < 10000, emb 512, hidden 256, 2
+# layers, 2 classes, Momentum(0.01, 0.9), f32 (BENCH_AMP=0); not cut.
+# `lstm_h512` and `lstm_h1280` differ only in the hidden width, which the
+# kernel phase covers.
+LSTM_BATCH, LSTM_SEQ, LSTM_EMB, LSTM_HIDDEN = 64, 100, 512, 256
+LSTM_VOCAB, LSTM_IDS = 30000, 10000
+LSTM_WIDTHS = (256, 512, 1280)
+LSTM_PARITY_BATCH = 2
+# LSTM kernel against its plain version: hs, cs and gates elementwise (f32
+# recurrences through sigmoid and tanh, products of H terms in another
+# order); LSTMSeq's gradients relative to their largest magnitude
+LSTM_TOL = dict(rtol=1e-4, atol=1e-5)
+LSTM_GRAD_TOL = 1e-4
+# the LoD path: 64 sequences of seeded lengths in 1-100 (about 3.2 k rows)
+LOD_SEQS, LOD_MAX_LEN, LOD_FC = 64, 100, 256
+# both sequence steps, card vs CPU: max abs err <= SEQ_PARITY_TOL * max|CPU|
+# per tensor, or FLOOR_FACTOR times the CPU's own spread under a
+# SEQ_PERTURB relative perturbation of the embedding table where larger
+SEQ_PARITY_TOL = 2e-3
+SEQ_PERTURB = 1e-4
+# the small classifier's seeded "does token 0 occur" task: held-out
+# accuracy must pass this
+SEQ_CONVERGE_ACC = 0.9
+# the spin before each timed kernel wrapper call (about 2 ms): longer than
+# the host takes to queue the launch
+SPIN_CYCLES = 4_000_000
 
 
 def log(*a):
@@ -213,7 +271,9 @@ def counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import embedding as kemb
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
@@ -223,13 +283,16 @@ def counters():
                 batch_norm_bwd=kbn.bwd_launches, matmul=kmatmul.launches,
                 softmax=ksoftmax.launches, flash_attention_fwd=kfa.launches,
                 flash_attention_dq=kfa.dq_launches,
-                flash_attention_dkv=kfa.dkv_launches)
+                flash_attention_dkv=kfa.dkv_launches, lstm=klstm.launches,
+                embedding=kemb.launches)
 
 
 def zero_counters():
     from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import embedding as kemb
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
@@ -237,6 +300,7 @@ def zero_counters():
     kbn.launches = kbn.bwd_launches = 0
     kmatmul.launches = ksoftmax.launches = 0
     kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
+    klstm.launches = kemb.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +397,25 @@ def launches_implied(program):
                 want["flash_attention_dkv"] += applies
             else:
                 want["flash_attention_fwd"] += applies
+        elif op.type == "lstm":
+            want["lstm"] += lstm_kernel_op(op, block)
+        elif op.type == "lookup_table":
+            # the gather kernel takes the lookups whose ids are 1-D once
+            # their trailing 1 is squeezed: (N, 1) LoD ids
+            ids = block.var(op.input("Ids")[0]).shape
+            want["embedding"] += len(ids) - (ids[-1] == 1) == 1
     return want
+
+
+def lstm_kernel_op(op, block):
+    """Whether an lstm op runs the LSTM kernel (default activations, no
+    peepholes)."""
+    from paddle_tpu_torch.ops.sequence_ops import _kernel_path
+
+    bias = op.input("Bias")
+    bias_var = block.var(bias[0]) if bias and bias[0] else None
+    h = block.var(op.input("Weight")[0]).shape[0]
+    return _kernel_path(op.attr, bias_var, h)
 
 
 class _Sum:
@@ -768,6 +850,8 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results.update(phase_dense_kernels(dev, randn))
     results.update(phase_flash_kernels(dev, randn))
     results["matmul"] = phase_tf_matmul(dev, randn)
+    results["lstm"] = phase_lstm_kernels(dev, randn)
+    results["embedding"] = phase_gather_kernel(dev, randn)
     return results
 
 
@@ -1081,35 +1165,56 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
     return worst
 
 
+def _moved(v, device):
+    """A run value on ``device``: a tensor, a LoD value (its rows and
+    offsets), or a residual tuple (the LSTM's hs, cs and gates); a LoD
+    feed given as (array, [offsets]) becomes a LoD value."""
+    import torch
+
+    from paddle_tpu_torch.lod import LoDArray, create_lod_array
+
+    if isinstance(v, tuple) and len(v) == 2 and isinstance(v[1], list):
+        v = create_lod_array(v[0], v[1])
+    if isinstance(v, LoDArray):
+        return LoDArray(v.data.to(device), [o.to(device) for o in v.lod])
+    if isinstance(v, tuple):
+        return tuple(t.to(device) for t in v)
+    return torch.as_tensor(v, device=device)
+
+
 def ops_on_identical_inputs(dev, block, state, feed, what):
     """Every op of ``block`` (forward, grad ops, sums, updates) on the card
     and, on copies of the very same input values, on the CPU: each output
     within OP_TOL of the CPU output's largest magnitude.  A grad op gets
-    the residual its forward left for it (the attention's logsumexp) on
-    both sides."""
+    the residual its forward left for it (the attention's logsumexp, the
+    LSTM's gates) on both sides."""
     import torch
 
+    from paddle_tpu_torch.lod import unwrap
     from paddle_tpu_torch.ops.attention_ops import lse_name
+    from paddle_tpu_torch.ops.sequence_ops import gates_name
     from paddle_tpu_torch.registry import LowerContext, OpRegistry
 
     cpu_dev = torch.device("cpu")
-    values = {n: torch.as_tensor(v, device=dev) for n, v in state.items()}
-    values.update({k: torch.as_tensor(v, device=dev) for k, v in feed.items()})
+    values = {n: _moved(v, dev) for n, v in state.items()}
+    values.update({k: _moved(v, dev) for k, v in feed.items()})
     op_worst, op_bad, n_out = [], [], 0
     t0 = time.perf_counter()
     with torch.no_grad():
         for op in block.ops:
             info = OpRegistry.get(op.type)
             names = [n for n in op.input_arg_names if n]
-            names += [lse_name(n) for n in names if lse_name(n) in values]
-            twin = {n: values[n].cpu() for n in names if n in values}
+            names += [r(n) for n in names for r in (lse_name, gates_name)
+                      if r(n) in values]
+            twin = {n: _moved(values[n], cpu_dev) for n in names
+                    if n in values}
             info.lower(LowerContext(op, values, dev))
             info.lower(LowerContext(op, twin, cpu_dev))
             for n in op.output_arg_names:
                 if not n or n not in twin:
                     continue
-                want = twin[n].double()
-                g = values[n].cpu().double()
+                want = unwrap(twin[n]).double()
+                g = unwrap(values[n]).cpu().double()
                 scale = float(want.abs().max()) if want.numel() else 0.0
                 err = float((g - want).abs().max()) if want.numel() else 0.0
                 n_out += 1
@@ -1181,12 +1286,22 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
                 launches=launches)
 
 
-def profile_step(run, what):
+def profile_step(run, what, split=None, port=None):
     """Profile ``run()`` twice and keep the second: wall time, device busy
     time and idle share, the top kernels by device time, the layout and
-    dtype copies.  Returns the idle share."""
+    dtype copies.  ``split`` ({part: kernel-name substrings, or the name
+    of a ``record_function`` range}) logs the device time of each part
+    beside the host's.  ``port`` (a ``timed_calls`` in force over the
+    port's kernel wrappers) takes those kernels' device time from CUDA
+    events around each wrapper call in one more run instead of the
+    profiler: late in a long process, torch.profiler leaves out the
+    ctypes launches that start soon after they are queued (on every try
+    alike; a fresh process keeps them).  Returns the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    # a range also shows on the device timeline as an annotation spanning
+    # its kernels and the gaps between them: not a kernel
+    ranges = {v for v in (split or {}).values() if isinstance(v, str)}
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1194,21 +1309,44 @@ def profile_step(run, what):
             run()
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # (device ms, count, name) of every kernel
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in events
+            if str(e.device_type).endswith("CUDA") and e.key not in ranges]
+    if port:
+        timed = port.time_calls(run)
+        rows = [r for r in rows if not any(k in r[2] for k in timed)]
+        rows += [(ms, n, f"{k} (CUDA events, next run)")
+                 for k, (ms, n) in timed.items()]
+    busy_ms = sum(r[0] for r in rows)
     idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"one profiled {what}: {wall_ms:.1f} ms wall, device kernels "
         f"{busy_ms:.1f} ms busy, idle share {idle:.3f}; top kernels by "
         "device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-        ms = e.self_device_time_total / 1e3
-        log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count:4d} "
-            f"{e.key[:100]}")
-    copies = [e for e in kernels if "copy" in e.key.lower()]
+    for ms, n, key in sorted(rows, key=lambda r: -r[0])[:16]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:4d} {key[:100]}")
+    copies = [r for r in rows if "copy" in r[2].lower()]
     copy_calls = sum(e.count for e in events if e.key == "aten::copy_")
-    log(f"layout/dtype copies: {sum(e.count for e in copies)} device copy "
-        f"kernels, {sum(e.self_device_time_total for e in copies) / 1e3:.2f}"
-        f" ms; {copy_calls} aten::copy_ calls")
+    log(f"layout/dtype copies: {sum(r[1] for r in copies)} device copy "
+        f"kernels, {sum(r[0] for r in copies):.2f} ms; {copy_calls} "
+        "aten::copy_ calls")
+    if split:
+        parts, host = {}, {}
+        for part, pats in split.items():
+            if isinstance(pats, str):   # a range: the kernels launched in it
+                spans = [e for e in events if e.key == pats
+                         and not str(e.device_type).endswith("CUDA")]
+                parts[part] = sum(e.device_time_total for e in spans) / 1e3
+                host[part] = sum(e.cpu_time_total for e in spans) / 1e3
+            else:
+                parts[part] = sum(r[0] for r in rows
+                                  if any(p in r[2] for p in pats))
+        parts["other device kernels"] = busy_ms - sum(parts.values())
+        log(f"where the {what}'s {wall_ms:.1f} ms go, by device time: "
+            + "; ".join(f"{k} {v:.2f} ms ({100 * v / wall_ms:.1f}%)"
+                        for k, v in parts.items())
+            + f"; host, device idle {wall_ms - busy_ms:.2f} ms "
+            f"({100 * (wall_ms - busy_ms) / wall_ms:.1f}%); host time inside "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in host.items()))
     return idle
 
 
@@ -1468,6 +1606,517 @@ def phase_tf_converge(dev):
              f"{losses[-1]:.4f} >= {CONVERGE_LOSS}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-16: the LSTM text classifier, padded and over LoD ids
+# ---------------------------------------------------------------------------
+
+
+def lstm_work(b, t, h):
+    """(FLOPs, bytes) of one whole-sequence LSTM forward: the T recurrent
+    products, and xproj, W, bias, h0, c0 read once, hs, cs and the gates
+    written once."""
+    return (2.0 * t * b * h * 4 * h,
+            4.0 * (2 * b * t * 4 * h + 4 * h * h + 4 * h + 2 * b * h
+                   + 2 * b * t * h))
+
+
+def phase_lstm_kernels(dev, randn):
+    """The LSTM kernel against its plain version (hs, cs, gates) and
+    LSTMSeq's backward against autograd of the plain version, at the
+    three benchmark/run.py widths (T 100, B 64, H 256, 512, 1280) and a
+    ragged shape (T 7, B 5, H 100), all with non-zero h0/c0, xproj the
+    (B, T, 4H) view of a projection.  Library: torch.nn.LSTM(4H, H) on
+    cuDNN (TF32 off) with W_ih = I, W_hh = W^T, b_ih = bias, b_hh = 0,
+    the same function plus an identity product of 2 T B (4H)^2 FLOPs.
+    The kernels line keeps H 256, the padded step's 2 launches."""
+    import torch
+
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    def inputs(b, t, h):
+        xp = randn(b * t, 4 * h, scale=0.5).reshape(b, t, 4 * h)
+        return (xp, randn(h, 4 * h, scale=h ** -0.5), randn(4 * h, scale=0.1),
+                randn(b, h, scale=0.5), randn(b, h, scale=0.5))
+
+    def check(tag, args):
+        got = klstm.lstm_seq(*args)
+        want = klstm.lstm_seq_plain(*args)
+        err = max(check_close(f"lstm {n} {tag}", g, w, **LSTM_TOL)
+                  for n, g, w in zip(("hs", "cs", "gates"), got, want))
+        r_h, r_c = randn(*got[0].shape), randn(*got[0].shape)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        torch.autograd.backward(klstm.LSTMSeq.apply(*leaves), [r_h, r_c])
+        plain = [a.detach().clone().requires_grad_(True) for a in args]
+        torch.autograd.backward(klstm.lstm_seq_plain(*plain)[:2], [r_h, r_c])
+        for name, a, p in zip(("dxproj", "dW", "dbias", "dh0", "dc0"),
+                              leaves, plain):
+            check_scaled(f"lstm {name} {tag}", a.grad, p.grad, LSTM_GRAD_TOL)
+        return got, err, (r_h, r_c)
+
+    _, ragged_err, _ = check("T7 B5 H100", inputs(5, 7, 100))
+    log(f"lstm at T 7, B 5, H 100 (h0, c0 non-zero): max err {ragged_err:.2e}"
+        f" (tolerance {LSTM_TOL}); LSTMSeq gradients within {LSTM_GRAD_TOL} x"
+        f" max of autograd of the plain version")
+    b, t = LSTM_BATCH, LSTM_SEQ
+    result = None
+    for h in LSTM_WIDTHS:
+        args = inputs(b, t, h)
+        tag = f"T{t} B{b} H{h}"
+        (hs, cs, gates), err, (r_h, r_c) = check(tag, args)
+        lib = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+            lib.weight_hh_l0.copy_(args[1].t())
+            lib.bias_ih_l0.copy_(args[2])
+            lib.bias_hh_l0.zero_()
+            state = (args[3][None], args[4][None])
+            lib_err = float((lib(args[0], state)[0] - hs).abs().max())
+            ms = time_ms(lambda: klstm.lstm_seq(*args))
+            plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
+            lib_ms = time_ms(lambda: lib(args[0], state))
+            bwd = time_ms(lambda: klstm.lstm_seq_bwd(
+                gates, hs, cs, args[1], args[3], args[4], r_h, r_c), reps=3)
+        flops, nbytes = lstm_work(b, t, h)
+        count = 2 if h == LSTM_HIDDEN else 1
+        _line(f"lstm {tag} ({klstm.last_grid_blocks} blocks)", count, ms,
+              plain, lib_ms, flops, nbytes, err)
+        log(f"  LSTMSeq's plain backward {bwd:.4f} ms per call; cuDNN's hs "
+            f"vs the kernel's: max diff {lib_err:.2e}; {t} dependent steps, "
+            f"each a grid-wide barrier, are a latency floor the bound does "
+            f"not count ({1e3 * ms / t:.2f} us per step)")
+        if h == LSTM_HIDDEN:
+            sm = _Sum()
+            sm.add(count, ms, plain, lib_ms, flops, nbytes,
+                   max(err, ragged_err))
+            result = sm.result()
+        del args, hs, cs, gates, lib
+    torch.cuda.empty_cache()
+    return result
+
+
+def lod_feed(rng, device=None):
+    """Path B's feed: LOD_SEQS sequences of seeded lengths in 1..LOD_MAX_LEN,
+    ids < LSTM_IDS as (N, 1) int64 with their offsets, labels (S, 1); on
+    ``device`` as a LoDArray, else as numpy."""
+    from paddle_tpu_torch.lod import create_lod_array
+
+    lens = rng.randint(1, LOD_MAX_LEN + 1, LOD_SEQS)
+    off = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    ids = rng.randint(0, LSTM_IDS, (off[-1], 1)).astype(np.int64)
+    label = rng.randint(0, 2, (LOD_SEQS, 1)).astype(np.int64)
+    if device is None:
+        return {"ids": (ids, [off]), "label": label}
+    import torch
+
+    return {"ids": create_lod_array(torch.from_numpy(ids).to(device), [off]),
+            "label": torch.from_numpy(label).to(device)}
+
+
+def phase_gather_kernel(dev, randn):
+    """The gather kernel against its plain version (exactly: a copy) on
+    the 30000 x 512 table with path B's ids (int64 and int32), on a
+    30000 x 510 table (the scalar path), and on a 9 x 5 table with ids
+    out of range both ways (NaN rows, ids from the end).  Times at path
+    B's shape; library: torch.index_select."""
+    import torch
+
+    from paddle_tpu_torch.kernels import embedding as kemb
+
+    def same(tag, got, want):
+        if not torch.equal(got.isnan(), want.isnan()) or not torch.equal(
+                torch.nan_to_num(got), torch.nan_to_num(want)):
+            fail(f"gather {tag}: kernel disagrees with its plain version")
+
+    ids_np = lod_feed(np.random.RandomState(8))["ids"][0][:, 0]
+    ids = torch.from_numpy(ids_np).to(dev)
+    w = randn(LSTM_VOCAB, LSTM_EMB)
+    for tag, table, idx in (("30000x512 int64", w, ids),
+                            ("30000x512 int32", w, ids.int()),
+                            ("30000x510", randn(LSTM_VOCAB, 510), ids)):
+        same(tag, kemb.gather_rows(table, idx), kemb.gather_rows_plain(table, idx))
+    small = randn(9, 5)
+    odd = torch.tensor([0, 8, 9, -1, -9, -10, 100, 4], device=dev)
+    got = kemb.gather_rows(small, odd)
+    same("9x5 out of range", got, kemb.gather_rows_plain(small, odd))
+    if not (got[[2, 5, 6]].isnan().all() and got[[0, 1, 3, 4, 7]].isfinite().all()):
+        fail(f"gather: out-of-range ids do not give NaN rows: {got}")
+    n, d = ids.shape[0], LSTM_EMB
+    ms = time_ms(lambda: kemb.gather_rows(w, ids))
+    plain = time_ms(lambda: kemb.gather_rows_plain(w, ids))
+    lib = time_ms(lambda: torch.index_select(w, 0, ids))
+    flops, nbytes = 0.0, 8.0 * n * d + 8.0 * n
+    _line(f"gather {n} rows of 30000x{d}", 1, ms, plain, lib, flops, nbytes,
+          0.0)
+    log("  exact at every shape, NaN rows for ids outside [-V, V)")
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0)
+
+
+def build_lstm_program(seq=LSTM_SEQ, emb=LSTM_EMB, hidden=LSTM_HIDDEN,
+                       seed=2026, optimizer=None):
+    """Path A: lstm_text_classifier + Momentum(0.01, 0.9), as
+    benchmark/run.py builds its `lstm` cell.  Returns (main, startup,
+    pred, loss, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import lstm_text_classifier
+
+    pt.framework.reset_default_programs()
+    main_prog = pt.default_main_program()
+    startup = pt.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    ids = pt.layers.data(name="ids", shape=[seq, 1], dtype="int64")
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    pred = lstm_text_classifier(ids, class_dim=2, emb_dim=emb, hidden=hidden)
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    opt = optimizer or pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+    _, params_grads = opt.minimize(loss)
+    return main_prog, startup, pred, loss, params_grads
+
+
+def build_lod_program(seed=2026):
+    """Path B: LoD ids -> embedding([30000, 512]) -> fc(256, tanh) ->
+    sequence_pool('average') -> fc(2, softmax) -> cross_entropy -> mean,
+    Momentum(0.01, 0.9).  Returns (main, startup, loss, params_grads)."""
+    import paddle_tpu_torch as pt
+
+    pt.framework.reset_default_programs()
+    main_prog = pt.default_main_program()
+    startup = pt.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    ids = pt.layers.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    emb = pt.layers.embedding(input=ids, size=[LSTM_VOCAB, LSTM_EMB])
+    hid = pt.layers.fc(input=emb, size=LOD_FC, act="tanh")
+    pooled = pt.layers.sequence_pool(hid, "average")
+    pred = pt.layers.fc(input=pooled, size=2, act="softmax")
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    _, params_grads = pt.optimizer.Momentum(
+        learning_rate=0.01, momentum=0.9).minimize(loss)
+    return main_prog, startup, loss, params_grads
+
+
+def seq_step_parity(dev, main_prog, startup, loss, params_grads, feed, what):
+    """One step on the card against the same step on CPUPlace(), end to end
+    and op by op.  End to end from identical weights and feeds: the loss
+    within SEQ_PARITY_TOL of the CPU's largest magnitude; every gradient,
+    parameter and velocity within max(SEQ_PARITY_TOL * max|CPU|,
+    FLOOR_FACTOR * the spread of the CPU step with the embedding table
+    perturbed by SEQ_PERTURB).  Op by op: every op on identical inputs
+    within OP_TOL (the lstm grad ops get the forward's gates)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    card = pt.Executor()
+    scope = pt.Scope()
+    card.run(startup, scope=scope)
+    state = {n: v.cpu().numpy() for n, v in scope.values.items()}
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    names = fetch + sorted(state)
+    t0 = time.perf_counter()
+    got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
+    t_card = time.perf_counter() - t0
+    got += [scope.get(n).cpu().numpy() for n in sorted(state)]
+    del scope
+    table = next(op for op in main_prog.global_block().ops
+                 if op.type == "lookup_table").input("W")[0]
+    runs = []
+    t0 = time.perf_counter()
+    for eps in (0.0, SEQ_PERTURB):
+        cpu_scope = pt.Scope()
+        cpu_scope.load_numpy(state, "cpu")
+        emb = cpu_scope.get(table)
+        emb.mul_(1 + eps * torch.randn(emb.shape, generator=torch.Generator()
+                                       .manual_seed(3)))
+        out = pt.Executor(pt.CPUPlace()).run(main_prog, feed=feed,
+                                             fetch_list=fetch, scope=cpu_scope)
+        runs.append(out + [cpu_scope.get(n).numpy() for n in sorted(state)])
+    t_cpu = (time.perf_counter() - t0) / 2
+    params = {p.name for p, _ in params_grads}
+    worst, floor_held, bad = {}, 0, []
+    for i, name in enumerate(names):
+        kind = ("loss" if name == loss.name else
+                "gradient" if i < len(fetch) else
+                "parameter" if name in params else
+                "velocity" if "velocity" in name else "other state")
+        want = np.asarray(runs[0][i], np.float64)
+        g = np.asarray(got[i], np.float64)
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        spread = float(np.abs(np.asarray(runs[1][i], np.float64)
+                              - want).max())
+        err = float(np.abs(g - want).max()) if np.isfinite(g).all() else np.inf
+        allowed = SEQ_PARITY_TOL * scale
+        if kind != "loss":
+            floor_held += FLOOR_FACTOR * spread > allowed
+            allowed = max(allowed, FLOOR_FACTOR * spread)
+        rel, rel_spread = (err / scale, spread / scale) if scale else (err,
+                                                                       spread)
+        if rel > worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (rel, rel_spread, name)
+        if not err <= allowed:
+            bad.append((name, err, allowed))
+    log(f"{what}, end to end (card {t_card:.2f} s, CPU plain path "
+        f"{t_cpu:.2f} s per step): loss card {float(got[0]):.6f} vs CPU "
+        f"{float(runs[0][0]):.6f}; {len(params_grads)} gradients and "
+        f"{len(state)} state tensors, {floor_held} of them held to "
+        f"{FLOOR_FACTOR} x the CPU's own spread under a {SEQ_PERTURB} "
+        "perturbation of the embedding table; worst max|card - CPU| / "
+        f"max|CPU| per kind (the CPU's spread beside it; tolerance "
+        f"{SEQ_PARITY_TOL}):")
+    for kind, (rel, rel_spread, name) in sorted(worst.items()):
+        log(f"  {kind}: {rel:.3e} (spread {rel_spread:.3e}; {name})")
+    if bad:
+        fail(f"{what}: the card differs from the CPU end to end: {bad[:10]}")
+    del got, runs
+    ops_on_identical_inputs(dev, main_prog.global_block(), state, feed, what)
+
+
+def phase_lstm_parity(dev):
+    """Path A at full width, B 2: card vs CPU."""
+    main_prog, startup, _, loss, params_grads = build_lstm_program()
+    rng = np.random.RandomState(9)
+    feed = {"ids": rng.randint(0, LSTM_IDS, (LSTM_PARITY_BATCH, LSTM_SEQ, 1))
+            .astype(np.int64),
+            "label": rng.randint(0, 2, (LSTM_PARITY_BATCH, 1)).astype(np.int64)}
+    seq_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                    f"LSTM classifier step parity at full width, B "
+                    f"{LSTM_PARITY_BATCH} T {LSTM_SEQ}")
+
+
+class record_ranges:
+    """While inside, wrap module functions: each call of ``ranges``
+    ({module: [function names]}) in a torch.profiler.record_function range
+    of its own name, and each call of ``timed`` ({module: {function name:
+    kernel name}}), inside ``time_calls``, between two CUDA events on the
+    current stream after SPIN_CYCLES of torch.cuda._sleep: the device
+    spins while the host queues the launch, so the events bracket the
+    kernel and not the host's launch time."""
+
+    def __init__(self, ranges, timed=None):
+        self.ranges, self.timed = ranges, timed or {}
+        self.saved, self.calls, self.timing = [], [], False
+
+    def _patch(self, mod, name, make):
+        fn = getattr(mod, name)
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, functools.wraps(fn)(make(fn)))
+
+    def __enter__(self):
+        import torch
+
+        def ranged(fn, name):
+            def call(*a, **k):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **k)
+            return call
+
+        def timed(fn, kernel):
+            def call(*a, **k):
+                if not self.timing:
+                    return fn(*a, **k)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SPIN_CYCLES)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                self.calls.append((kernel, start, end))
+                return out
+            return call
+
+        for mod, names in self.ranges.items():
+            for n in names:
+                self._patch(mod, n, lambda fn, n=n: ranged(fn, n))
+        for mod, names in self.timed.items():
+            for n, kernel in names.items():
+                self._patch(mod, n, lambda fn, k=kernel: timed(fn, k))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in reversed(self.saved):
+            setattr(mod, n, fn)
+
+    def time_calls(self, run):
+        """{kernel name: (ms, calls)} of the timed calls of one ``run()``."""
+        import torch
+
+        self.calls, self.timing = [], True
+        try:
+            run()
+        finally:
+            self.timing = False
+        torch.cuda.synchronize()
+        out = {}
+        for kernel, start, end in self.calls:
+            ms, n = out.get(kernel, (0.0, 0))
+            out[kernel] = (ms + start.elapsed_time(end), n + 1)
+        return out
+
+
+def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
+                   split):
+    """A step of a sequence path on the card: the counters zeroed just
+    before the first step and read just after must equal ``expect``;
+    then 5 timed steps after 2 warm-up steps, peak memory, one profiled
+    step split by part.  Returns (seconds of the 5 steps, peak bytes,
+    idle share, launches)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expect)
+    if launches_implied(main_prog) != want:
+        fail(f"{what}: the program implies {launches_implied(main_prog)}, "
+             f"not {want}")
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    first_s = time.perf_counter() - t0
+    launches = counters()
+    log(f"{what}: first step loss {float(first):.5f} in {first_s:.2f} s; "
+        f"launches {launches}")
+    if launches != want:
+        fail(f"{what}: launch counts {launches} != {want}")
+    (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    times, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        (val,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t0)   # numpy fetch: a device sync
+        losses.append(float(val))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([float(first), float(second)] + losses)):
+        fail(f"{what}: non-finite loss: {first}, {second}, {losses}")
+    log(f"{what}: 5 timed steps after 2 warm-up steps {sum(times):.4f} s "
+        f"(median {statistics.median(times) * 1e3:.2f} ms, min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); losses "
+        f"{[round(x, 5) for x in losses]}; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB on {smi}")
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    with record_ranges({klstm: ["lstm_seq_bwd"],
+                        kmatmul: ["matmul_backward"]},
+                       {klstm: {"lstm_seq": "lstm_seq_kernel"},
+                        kmatmul: {"matmul": "matmul_f32_kernel"},
+                        ksoftmax: {"softmax": "softmax_f32_kernel"},
+                        kemb: {"gather_rows": "gather_rows_kernel"}}) as port:
+        idle = profile_step(lambda: exe.run(main_prog, feed=feed,
+                                            fetch_list=[loss], scope=scope),
+                            what, split, port)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return sum(times), peak, idle, launches
+
+
+def phase_lstm_train_step(dev, smi):
+    """Path A at full width, B 64 T 100: launches 2 lstm / 3 matmul / 1
+    softmax / 0 gather, samples/s and tokens/s, peak memory, one profiled
+    step split into the LSTM kernel, its plain backward loop, the matmul
+    kernel, the mul backward products and the rest."""
+    import torch
+
+    main_prog, startup, _, loss, _ = build_lstm_program()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, t = LSTM_BATCH, LSTM_SEQ
+    feed = {"ids": torch.randint(0, LSTM_IDS, (b, t, 1), device=dev,
+                                 generator=gen),
+            "label": torch.randint(0, 2, (b, 1), device=dev, generator=gen)}
+    secs, peak, idle, launches = seq_train_step(
+        dev, main_prog, startup, loss, feed,
+        dict(lstm=2, matmul=3, softmax=1, embedding=0),
+        f"LSTM classifier step at B {b} T {t} (f32)", smi,
+        {"LSTM kernel": ["lstm_seq_kernel"],
+         "LSTM backward loop (plain)": "lstm_seq_bwd",
+         "matmul kernel": ["matmul_f32_kernel"],
+         "mul backward products": "matmul_backward"})
+    sps = 5 * b / secs
+    log(f"LSTM classifier step: {sps:.1f} samples/s, {sps * t:.1f} tokens/s "
+        f"({1e3 * secs / 5:.2f} ms per step) on {smi}")
+    return dict(samples_per_s=sps, tokens_per_s=sps * t, peak_bytes=peak,
+                idle_share=idle, launches=launches)
+
+
+def token_task(rng, batch, seq, vocab):
+    """A seeded separable task: label 1 iff token 0 occurs (placed at a
+    random step in half the rows; the others draw from 1..vocab-1)."""
+    ids = rng.randint(1, vocab, (batch, seq, 1)).astype(np.int64)
+    label = rng.randint(0, 2, batch)
+    for i in np.nonzero(label)[0]:
+        ids[i, rng.randint(0, seq), 0] = 0
+    return {"ids": ids, "label": label.reshape(-1, 1).astype(np.int64)}
+
+
+def phase_lstm_converge(dev):
+    """lstm_text_classifier at small widths (T 20, emb 32, hidden 64)
+    learns token_task on the card with Adam(1e-2), 200 steps of 32:
+    held-out accuracy over 256 rows must pass SEQ_CONVERGE_ACC."""
+    import paddle_tpu_torch as pt
+
+    seq, vocab = 20, 50
+    main_prog, startup, pred, loss, _ = build_lstm_program(
+        seq=seq, emb=32, hidden=64, seed=7,
+        optimizer=pt.optimizer.Adam(learning_rate=1e-2))
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(44)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(200):
+        (lv,) = exe.run(main_prog, feed=token_task(rng, 32, seq, vocab),
+                        fetch_list=[loss], scope=scope)
+        losses.append(float(lv))
+    test = main_prog.clone(for_test=True)
+    held = token_task(rng, 256, seq, vocab)
+    (probs,) = exe.run(test, feed=held, fetch_list=[pred], scope=scope)
+    acc = float((probs.argmax(1) == held["label"][:, 0]).mean())
+    log(f"small LSTM classifier + Adam, 200 steps of 32 x {seq} tokens on "
+        f"{exe.place!r} in {time.perf_counter() - t0:.2f} s: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, held-out accuracy {acc:.3f}")
+    if not acc > SEQ_CONVERGE_ACC:
+        fail(f"the small LSTM classifier did not learn the task: accuracy "
+             f"{acc:.3f} <= {SEQ_CONVERGE_ACC}")
+
+
+def phase_lod_parity(dev):
+    """Path B at its full size (64 sequences, about 3.2 k rows): card vs
+    CPU."""
+    main_prog, startup, loss, params_grads = build_lod_program()
+    feed = lod_feed(np.random.RandomState(10))
+    seq_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                    f"LoD classifier step parity, {LOD_SEQS} sequences of "
+                    f"{feed['ids'][1][0][-1]} rows")
+
+
+def phase_lod_train_step(dev, smi):
+    """Path B: launches 1 gather / 2 matmul / 1 softmax / 0 lstm, steps/s,
+    rows/s, peak memory, one profiled step."""
+    main_prog, startup, loss, _ = build_lod_program()
+    feed = lod_feed(np.random.RandomState(8), dev)
+    rows = int(feed["ids"].data.shape[0])
+    secs, peak, idle, launches = seq_train_step(
+        dev, main_prog, startup, loss, feed,
+        dict(embedding=1, matmul=2, softmax=1, lstm=0),
+        f"LoD classifier step, {LOD_SEQS} sequences of {rows} rows (f32)",
+        smi, {"gather kernel": ["gather_rows_kernel"],
+              "matmul kernel": ["matmul_f32_kernel"],
+              "mul backward products": "matmul_backward"})
+    log(f"LoD classifier step: {5 / secs:.2f} steps/s, {5 * rows / secs:.1f}"
+        f" rows/s ({1e3 * secs / 5:.2f} ms per step) on {smi}")
+    return dict(steps_per_s=5 / secs, rows_per_s=5 * rows / secs,
+                peak_bytes=peak, idle_share=idle, launches=launches)
+
+
 def timed(fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1561,16 +2210,26 @@ def main():
     tf = timed(phase_tf_train_step, dev, smi)
     timed(phase_tf_converge, dev)
 
+    timed(phase_lstm_parity, dev)
+    lstm = timed(phase_lstm_train_step, dev, smi)
+    timed(phase_lstm_converge, dev)
+    timed(phase_lod_parity, dev)
+    lod = timed(phase_lod_train_step, dev, smi)
+
     # each kernel's numbers are those of the path that runs it most: the
-    # matmul and flash kernels the transformer step, the rest the ResNet-50
-    # step; launches_by_path has every path's count
+    # matmul and flash kernels the transformer step, the LSTM kernel the
+    # padded classifier's step, the gather the LoD classifier's, the rest
+    # the ResNet-50 step; launches_by_path has every path's count
     by_path = {"train_step": train["launches"], "serving": serve_launches,
-               "transformer_train_step": tf["launches"]}
+               "transformer_train_step": tf["launches"],
+               "lstm_train_step": lstm["launches"],
+               "lod_train_step": lod["launches"]}
+    main_path = dict(matmul=tf, lstm=lstm, embedding=lod)
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
-             launches=(tf if name == "matmul" or name.startswith("flash")
-                       else train)["launches"][name],
+             launches=main_path.get(name, tf if name.startswith("flash")
+                                    else train)["launches"][name],
              launches_by_path={p: c[name] for p, c in by_path.items()},
              max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
              bound_ms=k["bound_ms"], bound_by=k["bound_by"],
@@ -1583,7 +2242,14 @@ def main():
         f"{train['idle_share']:.3f}; transformer LM training: "
         f"{tf['tokens_per_s']:.1f} tokens/s at B {TF_BATCH} S {TF_SEQ} (f32),"
         f" peak {tf['peak_bytes'] / 2**30:.2f} GiB, idle share "
-        f"{tf['idle_share']:.3f}; on {smi}; "
+        f"{tf['idle_share']:.3f}; LSTM classifier training: "
+        f"{lstm['samples_per_s']:.1f} samples/s = "
+        f"{lstm['tokens_per_s']:.1f} tokens/s at B {LSTM_BATCH} T {LSTM_SEQ}"
+        f" (f32), peak {lstm['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{lstm['idle_share']:.3f}; LoD classifier training: "
+        f"{lod['steps_per_s']:.2f} steps/s, peak "
+        f"{lod['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{lod['idle_share']:.3f}; on {smi}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

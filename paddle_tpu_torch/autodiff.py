@@ -13,7 +13,15 @@ The replay is a second forward of the op, which XLA's CSE removes in the
 JAX package but eager PyTorch pays for.  The ops whose forward launches
 a CUDA kernel (conv2d, batch_norm, mul, softmax) therefore register
 explicit grad rules: a ctypes launch is opaque to autograd, and the
-replay must never reach one.
+replay must never reach one.  An op that keeps a kernel's residual for
+its backward (the LSTM's gates) passes its own ``lower``: the replay
+then differentiates the op's plain tensor code around a residual-fed
+autograd function instead of launching the kernel again.
+
+A LoDArray primal is differentiated through its ``data``: the leaf is
+the packed rows, rewrapped with the primal's offsets for the replay, and
+its gradient comes back as a LoDArray with those offsets, as
+``paddle_tpu/autodiff.py:54-56, 127-128`` has it.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from paddle_tpu_torch.lod import rewrap, unwrap
 from paddle_tpu_torch.registry import LowerContext, OpInfo, OpRegistry
 
 
@@ -55,7 +64,9 @@ class _OpProxy:
         return [n for ns in self.outputs.values() for n in ns]
 
 
-def generic_grad_lower(ctx: LowerContext):
+def generic_grad_lower(ctx: LowerContext, lower=None):
+    """The grad op's outputs by replaying the forward rule (or ``lower``,
+    a stand-in with the forward rule's contract) under autograd."""
     gop = ctx.op
     # the forward op this grad op was made from, rebuilt from its attrs
     fwd = _OpProxy(gop.attr("__fwd_type__"), gop.attr("__fwd_inputs__"),
@@ -83,15 +94,15 @@ def generic_grad_lower(ctx: LowerContext):
     # one leaf per target; a var in two slots keeps the last one, and the
     # earlier target's grad comes out zero (the two sum to the whole, as
     # the JAX package's replay has it)
-    leaves = [ctx.values[fn].detach().requires_grad_(True)
+    leaves = [unwrap(ctx.values[fn]).detach().requires_grad_(True)
               for fn, _ in targets]
     for (fn, _), leaf in zip(targets, leaves):
-        local[fn] = leaf
+        local[fn] = rewrap(ctx.values[fn], leaf)
     with torch.enable_grad():
-        base.lower(LowerContext(fwd, local, ctx.device, None))
+        (lower or base.lower)(LowerContext(fwd, local, ctx.device, None))
     outs, cts = [], []
     for slot, i, n in out_names:
-        out = local[n]
+        out = unwrap(local[n])
         if not (isinstance(out, torch.Tensor) and out.requires_grad):
             continue
         gnames = gop.inputs.get(slot + "@GRAD", [])
@@ -100,13 +111,14 @@ def generic_grad_lower(ctx: LowerContext):
         if g is None:
             continue  # a zero cotangent adds nothing
         outs.append(out)
-        cts.append(g.to(out.dtype))
+        cts.append(unwrap(g).to(out.dtype))
     grads = (torch.autograd.grad(outs, leaves, cts, allow_unused=True)
              if outs else [None] * len(leaves))
     for (fn, gn), g in zip(targets, grads):
+        primal = ctx.values[fn]
         if g is None:
-            g = torch.zeros_like(ctx.values[fn])
-        ctx.values[gn] = g.detach()
+            g = torch.zeros_like(unwrap(primal))
+        ctx.values[gn] = rewrap(primal, g.detach())
 
 
 def synthesize_grad_info(grad_type: str) -> OpInfo:

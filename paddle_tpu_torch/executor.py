@@ -34,6 +34,7 @@ import torch
 
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import Place, Program, Variable
+from paddle_tpu_torch.lod import LoDArray, create_lod_array
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import LowerContext, OpRegistry
 
@@ -137,7 +138,7 @@ def _f32_math():
 # ---------------------------------------------------------------------------
 
 
-def _convert_feed(value, var: Optional[Variable], device) -> torch.Tensor:
+def _convert_tensor(value, var: Optional[Variable], device) -> torch.Tensor:
     dtype = torch_dtype(var.dtype) if var is not None else None
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=dtype)
@@ -148,9 +149,36 @@ def _convert_feed(value, var: Optional[Variable], device) -> torch.Tensor:
                                                           dtype=dtype)
 
 
-def _feed_signature(feed_vals: Dict[str, torch.Tensor]):
-    return tuple((name, tuple(feed_vals[name].shape), str(feed_vals[name].dtype))
-                 for name in sorted(feed_vals))
+def _convert_feed(value, var: Optional[Variable], device):
+    """A feed as a tensor on ``device``; a LoD feed (a ``LoDArray`` or an
+    ``(array, [offsets, ...])`` tuple, as ``paddle_tpu/executor.py:203-209``
+    takes it) as a LoDArray with int32 offsets there."""
+    if isinstance(value, tuple) and len(value) == 2 and isinstance(
+            value[1], (list, tuple)):
+        value = create_lod_array(np.asarray(value[0]), value[1])
+    if isinstance(value, LoDArray):
+        return LoDArray(_convert_tensor(value.data, var, device),
+                        tuple(torch.as_tensor(o, device=device).to(torch.int32)
+                              for o in value.lod))
+    return _convert_tensor(value, var, device)
+
+
+def _feed_signature(feed_vals: Dict[str, Any]):
+    sig = []
+    for name in sorted(feed_vals):
+        v = feed_vals[name]
+        if isinstance(v, LoDArray):
+            sig.append((name, "lod", tuple(v.data.shape), str(v.data.dtype),
+                        tuple(tuple(o.shape) for o in v.lod)))
+        else:
+            sig.append((name, tuple(v.shape), str(v.dtype)))
+    return tuple(sig)
+
+
+def _to_numpy(v):
+    if isinstance(v, LoDArray):
+        return LoDArray(_to_numpy(v.data), tuple(_to_numpy(o) for o in v.lod))
+    return v.detach().cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +281,7 @@ class Executor:
             scope.set(n, values[n])
         fetches = [values[n] for n in plan.fetch_names]
         if return_numpy:
-            return [v.detach().cpu().numpy() for v in fetches]
+            return [_to_numpy(v) for v in fetches]
         return fetches
 
     @staticmethod

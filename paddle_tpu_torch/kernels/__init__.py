@@ -8,11 +8,14 @@ forward), and ``conv`` and ``batch_norm`` count their gradient kernels
 beside it (``bwd_input_launches``, ``dw_launches``, ``bwd_launches``,
 ``dq_launches``, ``dkv_launches``).
 A kernel with a backward has a ``torch.autograd.Function`` whose
-backward is a kernel too where the TPU kernel had one.  Sources live in
-``paddle_tpu_torch/csrc``; ``_build`` compiles them at first use.
+backward is a kernel too where the TPU kernel had one (the LSTM's
+backward is plain PyTorch, as the JAX package's is a ``lax.scan``).
+Sources live in ``paddle_tpu_torch/csrc``; ``_build`` compiles them at
+first use.
 """
 
-from paddle_tpu_torch.kernels import (batch_norm, conv, flash_attention,
-                                      matmul, softmax)
+from paddle_tpu_torch.kernels import (batch_norm, conv, embedding,
+                                      flash_attention, lstm, matmul, softmax)
 
-__all__ = ["batch_norm", "conv", "flash_attention", "matmul", "softmax"]
+__all__ = ["batch_norm", "conv", "embedding", "flash_attention", "lstm",
+           "matmul", "softmax"]

@@ -2,7 +2,8 @@
 batch_norm, the loss and metric layers of the training slice
 (cross_entropy, topk, accuracy), and the transformer's embedding,
 layer_norm, scaled_dot_product_attention, multi_head_attention and
-softmax_with_cross_entropy."""
+softmax_with_cross_entropy, and the sequence slice's fused ``lstm``
+(``dynamic_lstm``)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from paddle_tpu_torch.param_attr import ParamAttr
 __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "accuracy", "embedding", "layer_norm",
            "scaled_dot_product_attention", "multi_head_attention",
-           "softmax_with_cross_entropy"]
+           "softmax_with_cross_entropy", "lstm", "dynamic_lstm"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -337,3 +338,52 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
         attrs={"soft_label": soft_label},
     )
     return loss
+
+
+def lstm(input, size: int, h0=None, c0=None, param_attr=None, bias_attr=None,
+         use_peepholes: bool = False, is_reverse: bool = False,
+         gate_activation="sigmoid", cell_activation="tanh",
+         candidate_activation="tanh", lengths=None, **kwargs):
+    """Fused LSTM over padded (B, T, 4*size) gate projections; pair with
+    an fc(num_flatten_dims=2) for the input projection.  The outputs get
+    the JAX layer's shapes (``paddle_tpu/layers/nn.py:544-584``), which
+    read "time" from Input's second dim: for a LoD input (N, 4*size)
+    that is 4*size, not a time axis (a fault of the reference's layer,
+    kept so that the programs stay equal; the op itself takes LoD input
+    correctly)."""
+    helper = LayerHelper("lstm", param_attr=param_attr, bias_attr=bias_attr,
+                         **kwargs)
+    dtype = input.dtype
+    w = helper.create_parameter(param_attr, shape=[size, 4 * size],
+                                dtype=dtype)
+    bias_size = 7 * size if use_peepholes else 4 * size
+    b = helper.create_parameter(bias_attr, shape=[1, bias_size], dtype=dtype,
+                                is_bias=True)
+    batch = input.shape[0]
+    time = input.shape[1]
+    hidden = helper.create_tmp_variable(dtype, (batch, time, size))
+    cell = helper.create_tmp_variable(dtype, (batch, time, size))
+    bg = helper.create_tmp_variable(dtype, input.shape)
+    bc = helper.create_tmp_variable(dtype, (batch, time, size))
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h0 is not None:
+        inputs["H0"] = [h0]
+    if c0 is not None:
+        inputs["C0"] = [c0]
+    if lengths is not None:
+        # with is_reverse, the op reverses inside each row's valid window
+        inputs["Length"] = [lengths]
+    helper.append_op(
+        type="lstm",
+        inputs=inputs,
+        outputs={"Hidden": [hidden], "Cell": [cell], "BatchGate": [bg],
+                 "BatchCellPreAct": [bc]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation},
+    )
+    return hidden, cell
+
+
+dynamic_lstm = lstm

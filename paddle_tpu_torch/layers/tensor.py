@@ -1,6 +1,7 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``reshape``,
-``transpose``, ``mean`` and the elementwise layers with an optional
-activation (:148-165, :180-195)."""
+``transpose``, ``mean``, the elementwise layers with an optional
+activation (:148-165, :180-195) and ``reduce_sum/mean/max/min``
+(:198-223)."""
 
 from __future__ import annotations
 
@@ -47,3 +48,33 @@ elementwise_add = _elementwise("elementwise_add")
 elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
+
+
+def _reduce(op_type):
+    def layer(input, dim=0, keep_dim=False, reduce_all=False, **kwargs):
+        helper = LayerHelper(op_type, **kwargs)
+        shape = None
+        if input.shape is not None:
+            if reduce_all:
+                shape = (1,) * len(input.shape) if keep_dim else ()
+            elif keep_dim:
+                shape = tuple(1 if i == dim else s
+                              for i, s in enumerate(input.shape))
+            else:
+                shape = tuple(s for i, s in enumerate(input.shape)
+                              if i != dim)
+        out = helper.create_tmp_variable(input.dtype, shape)
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]},
+                         attrs={"dim": dim, "keep_dim": keep_dim,
+                                "reduce_all": reduce_all})
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")

@@ -9,5 +9,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     nn_ops,
     optimizer_ops,
     reduce_ops,
+    sequence_ops,
     tensor_ops,
 )

@@ -65,7 +65,8 @@ def _flatten2d(x, num_col_dims):
 def _mul_grad(ctx):
     """dX = dOut @ Y^T and dY = X^T @ dOut on the 2-D flattenings: two
     plain matmuls, as ``paddle_tpu/pallas/matmul.py:80-85`` leaves the
-    backward to XLA.  Reads X, Y and dOut; no forward replay."""
+    backward to XLA.  Reads X, Y and dOut; no forward replay.  dX keeps a
+    LoD X's offsets."""
     fwd = ctx.op.attr("__fwd_attrs__")
     xn = fwd.get("x_num_col_dims", 1)
     yn = fwd.get("y_num_col_dims", 1)
@@ -77,7 +78,7 @@ def _mul_grad(ctx):
     dx, dy = kmatmul.matmul_backward(x2, y2, g2, gx is not None,
                                      gy is not None)
     if gx is not None:
-        ctx.values[gx] = torch.reshape(dx, x.shape)
+        ctx.values[gx] = rewrap(ctx.input("X"), torch.reshape(dx, x.shape))
     if gy is not None:
         ctx.values[gy] = torch.reshape(dy, y.shape)
 

@@ -2,7 +2,8 @@
 startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), the
 copies the backward pass emits: assign, cast, fill_zeros_like
 (``:239-250``), and the transformer's split, reshape, transpose
-(``:291-324``) and lookup_table (``:352-406``).
+(``:291-324``) and lookup_table (``:352-406``), whose 1-D ids go through
+the gather kernel (``kernels/embedding.py``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.kernels import embedding as kembedding
 from paddle_tpu_torch.lod import rewrap, unwrap
 from paddle_tpu_torch.ops.common import grad_in, grad_out, torch_dtype, unary
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
@@ -238,7 +240,7 @@ def _lookup_table_grad(ctx):
     ``padding_idx`` masked (``paddle_tpu/ops/tensor_ops.py:352``).  On
     CUDA ``index_add_`` adds with atomics, so the sum of a row that
     several ids hit is not bit-stable.  ``is_sparse`` (a SelectedRows
-    gradient) waits for the sequences slice's ``sparse.py``."""
+    gradient) waits for the port of ``sparse.py``."""
     gname = grad_out(ctx, "W@GRAD")
     if gname is None:
         return
@@ -246,7 +248,7 @@ def _lookup_table_grad(ctx):
     if fwd_attrs.get("is_sparse"):
         raise NotImplementedError(
             "paddle_tpu_torch: lookup_table with is_sparse=True needs "
-            "SparseGrad (sparse.py), which comes with the sequences slice")
+            "SparseGrad (sparse.py), which is not ported yet")
     w = unwrap(ctx.input("W"))
     rows = _lookup_ids(ctx.input("Ids")).reshape(-1)
     g = unwrap(grad_in(ctx, "Out@GRAD"))
@@ -262,14 +264,19 @@ def _lookup_table_grad(ctx):
              infer_shape=_infer_lookup_table_shape)
 def _lookup_table(ctx):
     """Embedding lookup: W[ids] with Ids (..., 1) int64, rows at
-    ``padding_idx`` zero.  The JAX op runs the gather kernel only for 1-D
-    ids (LoD sequences, the sequences slice); these ids are a plain
-    ``index_select``, as ``jnp.take`` there."""
+    ``padding_idx`` zero.  As in the JAX op (``:396-402``), flat 1-D ids
+    (the (N, 1) ids of a LoD sequence batch) go to the gather kernel and
+    any other ids to ``index_select`` (``jnp.take`` there); the TPU tiling
+    term ``fits`` (D % 128) has no counterpart, as the kernel takes any D.
+    A LoD Ids gives a LoD Out with its offsets."""
     w = unwrap(ctx.input("W"))
     ids = ctx.input("Ids")
     flat = _lookup_ids(ids)
-    out = torch.index_select(w, 0, flat.reshape(-1)).reshape(
-        tuple(flat.shape) + (w.shape[1],))
+    if flat.ndim == 1:
+        out = kembedding.gather_rows(w, flat)
+    else:
+        out = torch.index_select(w, 0, flat.reshape(-1)).reshape(
+            tuple(flat.shape) + (w.shape[1],))
     padding_idx = ctx.attr("padding_idx", None)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (flat != padding_idx)[..., None].to(out.dtype)

@@ -12,7 +12,9 @@ atol 1e-4 on y and dx, rtol 1e-4 on the per-channel vectors (f32 sums
 over R rows; the kernel adds its chunk partials in double); flash
 attention atol 1e-4 on out and lse, and 1e-3 of max|plain| on dq, dk and
 dv (f32 sums over S keys or queries and D, in another order, through
-exp).
+exp); the LSTM rtol 1e-4 / atol 1e-5 on hs, cs and the gates (f32
+recurrences, products of H terms in another order) and 1e-4 of max on
+the gradients; the gather exactly (a copy).
 """
 
 import numpy as np
@@ -332,3 +334,112 @@ def test_transformer_step_on_the_card_matches_cpu(dev):
     for name, g, w in zip(fetch, got, want):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=1e-3 * np.abs(w).max(), err_msg=name)
+
+
+LSTM_SHAPES = [(5, 7, 100), (64, 100, 256), (3, 4, 1), (2, 3, 1280),
+               (200, 3, 8)]
+
+
+@pytest.mark.parametrize("b,t,h", LSTM_SHAPES)
+def test_lstm_kernel_matches_plain(dev, b, t, h):
+    """Forward hs, cs and gates on a strided xproj view with non-zero
+    h0/c0, and ``LSTMSeq``'s backward against autograd of the plain
+    version."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(10)
+    proj = _randn(g, b, t, 8 * h, scale=0.5, device=dev)
+    xp = proj[:, :, 2 * h:6 * h]
+    w = _randn(g, h, 4 * h, scale=h ** -0.5, device=dev)
+    bias = _randn(g, 4 * h, scale=0.1, device=dev)
+    h0, c0 = (_randn(g, b, h, scale=0.5, device=dev) for _ in range(2))
+    before = klstm.launches
+    got = klstm.lstm_seq(xp, w, bias, h0, c0)
+    assert klstm.launches == before + 1
+    torch.cuda.synchronize()
+    want = klstm.lstm_seq_plain(xp, w, bias, h0, c0)
+    for a, ref in zip(got, want):
+        torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-5)
+
+    r_h, r_c = (_randn(g, b, t, h, device=dev) for _ in range(2))
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in (xp, w, bias, h0, c0)]
+    hs, cs = klstm.LSTMSeq.apply(*leaves)
+    ((hs * r_h).sum() + (cs * r_c).sum()).backward()
+    plain = [a.detach().clone().requires_grad_(True)
+             for a in (xp, w, bias, h0, c0)]
+    phs, pcs, _ = klstm.lstm_seq_plain(*plain)
+    ((phs * r_h).sum() + (pcs * r_c).sum()).backward()
+    for a, ref in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, ref.grad, rtol=0,
+                                   atol=1e-4 * float(ref.grad.abs().max()))
+
+
+@pytest.mark.parametrize("n,v,d,dtype", [
+    (3200, 30000, 512, torch.int64), (37, 9, 5, torch.int64),
+    (64, 100, 128, torch.int32), (1, 1, 1, torch.int64)])
+def test_gather_kernel_matches_plain(dev, n, v, d, dtype):
+    from paddle_tpu_torch.kernels import embedding as kemb
+
+    g = torch.Generator().manual_seed(11)
+    w = _randn(g, v, d, device=dev)
+    ids = torch.randint(-v - 3, v + 3, (n,), generator=g).to(dtype).to(dev)
+    ids[0] = v          # out of range: NaN row
+    before = kemb.launches
+    got = kemb.gather_rows(w, ids)
+    assert kemb.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kemb.gather_rows_plain(w, ids), rtol=0,
+                               atol=0, equal_nan=True)
+    assert torch.isnan(got[0]).all()
+
+
+def test_sequence_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    with pytest.raises(TypeError):
+        kemb.gather_rows(torch.ones(4, 6, device=dev).double(),
+                         torch.zeros(2, dtype=torch.long, device=dev))
+    x = torch.ones(2, 3, 8, device=dev)
+    z = torch.zeros(2, 2, device=dev)
+    with pytest.raises(ValueError):   # strided gate dim
+        klstm.lstm_seq(torch.ones(2, 3, 16, device=dev)[:, :, ::2],
+                       torch.ones(2, 8, device=dev), torch.ones(8, device=dev),
+                       z, z)
+    with pytest.raises(TypeError):
+        klstm.lstm_seq(x.double(), torch.ones(2, 8, device=dev),
+                       torch.ones(8, device=dev), z, z)
+
+
+def test_lstm_classifier_step_on_the_card_matches_cpu(dev):
+    """One Momentum step of a small padded lstm_text_classifier, card
+    against CPU: 2 lstm and 3 matmul launches, loss and parameters."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.models import lstm_text_classifier
+
+    pt.framework.reset_default_programs()
+    ids = pt.layers.data(name="ids", shape=[12, 1], dtype="int64")
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    pred = lstm_text_classifier(ids, emb_dim=32, hidden=48)
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(loss)
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cpu.run(pt.default_startup_program(), scope=cpu_scope)
+    state = {n: v.numpy() for n, v in cpu_scope.values.items()}
+    card_scope = pt.Scope()
+    card_scope.load_numpy(state, dev)
+    rng = np.random.RandomState(12)
+    feed = {"ids": rng.randint(0, 500, (6, 12, 1)).astype(np.int64),
+            "label": rng.randint(0, 2, (6, 1)).astype(np.int64)}
+    before = klstm.launches
+    (got,) = pt.Executor().run(feed=feed, fetch_list=[loss], scope=card_scope)
+    assert klstm.launches == before + 2
+    (want,) = cpu.run(feed=feed, fetch_list=[loss], scope=cpu_scope)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for n in state:
+        a, ref = card_scope.get(n).cpu().numpy(), cpu_scope.get(n).numpy()
+        np.testing.assert_allclose(a, ref, rtol=0,
+                                   atol=1e-4 * max(np.abs(ref).max(), 1e-30))

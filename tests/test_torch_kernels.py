@@ -11,7 +11,10 @@ matmul; softmax does no long sums, atol 1e-6; batch norm rtol 1e-4 /
 atol 1e-4 (f32 statistics over a few hundred rows); flash attention
 rtol 1e-4 / atol 1e-4 on out, lse and the gradients (f32 sums over up to
 256 keys and 64 head dims, through exp, in another order and, in the
-Pallas kernel, another blocking).  The autograd functions' gradients are
+Pallas kernel, another blocking); the LSTM rtol 1e-4 / atol 1e-5 on hs,
+cs and the gates and rtol 1e-4 / atol 1e-4 on the gradients (f32
+recurrences over a few steps, products of up to 128 terms in another
+order); the gather exactly (a copy).  The autograd functions' gradients are
 held to PyTorch's own autograd of the same function in float32 at the
 same tolerances."""
 
@@ -28,13 +31,18 @@ import torch.nn.functional as F
 from paddle_tpu.pallas.batch_norm import _bn_bwd_impl, _bn_fwd_impl
 from paddle_tpu.pallas.conv import _conv_dw_impl
 from paddle_tpu.pallas.conv import conv2d_nhwc as pallas_conv2d_nhwc
+from paddle_tpu.pallas.embedding import _gather_impl
 from paddle_tpu.pallas.flash_attention import _flash_bwd_impl, _flash_fwd_impl
+from paddle_tpu.pallas.lstm import _lstm_seq_impl
+from paddle_tpu.pallas.lstm import lstm_seq as pallas_lstm_seq
 from paddle_tpu.pallas.matmul import matmul as pallas_matmul
 from paddle_tpu.pallas.softmax import softmax as pallas_softmax
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
+from paddle_tpu_torch.kernels import embedding as kemb
 from paddle_tpu_torch.kernels import flash_attention as kfa
+from paddle_tpu_torch.kernels import lstm as klstm
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.kernels import softmax as ksoftmax
 
@@ -116,7 +124,7 @@ def _counters():
     return (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches,
             kbn.launches, kbn.bwd_launches, kmatmul.launches,
             ksoftmax.launches, kfa.launches, kfa.dq_launches,
-            kfa.dkv_launches)
+            kfa.dkv_launches, klstm.launches, kemb.launches)
 
 
 def test_cpu_path_launches_no_kernel(rng):
@@ -135,6 +143,10 @@ def test_cpu_path_launches_no_kernel(rng):
     q = _t(rng.randn(1, 5, 2, 8).astype(np.float32))
     o, lse = kfa.flash_attention_fwd(q, q, q, True)
     kfa.flash_attention_bwd(q, q, q, o, lse, q, True)
+    xp = _t(rng.randn(2, 3, 8).astype(np.float32))
+    klstm.lstm_seq(xp, torch.zeros(2, 8), torch.zeros(8), torch.zeros(2, 2),
+                   torch.zeros(2, 2))
+    kemb.gather_rows(x2, torch.tensor([1, 0, 5]))
     assert _counters() == before
 
 
@@ -167,9 +179,28 @@ def test_cpu_path_launches_no_kernel(rng):
                                     torch.zeros(1, 9, 2, 16)),
     lambda: kfa.flash_attention_fwd(*[torch.zeros(1, 8, 2, 20)] * 3),
     lambda: kfa.flash_attention_fwd(*[torch.zeros(1, 8, 1, 264)] * 3),
+    # lstm: 4H not a multiple of 4, W, bias and h0 that do not fit
+    lambda: klstm.lstm_seq(torch.zeros(2, 3, 6), torch.zeros(1, 6),
+                           torch.zeros(6), torch.zeros(2, 1),
+                           torch.zeros(2, 1)),
+    lambda: klstm.lstm_seq(torch.zeros(2, 3, 8), torch.zeros(2, 4),
+                           torch.zeros(8), torch.zeros(2, 2),
+                           torch.zeros(2, 2)),
+    lambda: klstm.lstm_seq(torch.zeros(2, 3, 8), torch.zeros(2, 8),
+                           torch.zeros(4), torch.zeros(2, 2),
+                           torch.zeros(2, 2)),
+    lambda: klstm.lstm_seq(torch.zeros(2, 3, 8), torch.zeros(2, 8),
+                           torch.zeros(8), torch.zeros(3, 2),
+                           torch.zeros(2, 2)),
+    # gather: a 1-D table, 2-D ids
+    lambda: kemb.gather_rows(torch.zeros(5), torch.zeros(3, dtype=torch.long)),
+    lambda: kemb.gather_rows(torch.zeros(5, 2),
+                             torch.zeros(3, 1, dtype=torch.long)),
 ], ids=["even_k", "pad", "channels", "rank", "mm_inner", "mm_rank",
         "softmax_rank", "bwd_in_channels", "dw_sizes", "dw_pad", "bn_rank",
-        "bn_gamma", "bn_dy", "fa_rank", "fa_cross", "fa_d20", "fa_d264"])
+        "bn_gamma", "bn_dy", "fa_rank", "fa_cross", "fa_d20", "fa_d264",
+        "lstm_4h", "lstm_w", "lstm_bias", "lstm_h0", "gather_w",
+        "gather_ids"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()
@@ -183,9 +214,10 @@ def test_build_targets_sm90a_and_keys_on_sources():
         assert os.path.exists(_build.source_path(name))
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 6
+    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 8
     assert set(_build.LIBRARIES) == {"conv", "conv_dw", "batch_norm",
-                                     "matmul", "softmax", "flash_attention"}
+                                     "matmul", "softmax", "flash_attention",
+                                     "lstm", "embedding"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -459,3 +491,132 @@ def test_flash_autograd_matches_torch_autograd(rng, causal):
                                **GEMM_TOL)
     np.testing.assert_allclose(qkv.grad.numpy(), qkv2.grad.numpy(),
                                **GEMM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the sequence slice's kernels: the whole-sequence LSTM and the gather
+# ---------------------------------------------------------------------------
+
+LSTM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _lstm_inputs(rng, b, t, h, state=True):
+    xp = (rng.randn(b, t, 4 * h) * 0.5).astype(np.float32)
+    w = (rng.randn(h, 4 * h) * h ** -0.5).astype(np.float32)
+    bias = (rng.randn(4 * h) * 0.1).astype(np.float32)
+    h0, c0 = ((rng.randn(b, h) * 0.5 if state else np.zeros((b, h)))
+              .astype(np.float32) for _ in range(2))
+    return xp, w, bias, h0, c0
+
+
+def _lstm_scan_ref(xp, w, bias, h0, c0):
+    """A ``lax.scan`` oracle of ``_lstm_step_body`` on (B, T, 4H)."""
+    hdim = w.shape[0]
+
+    def step(carry, xt):
+        hp, cp = carry
+        g = xt + hp @ w + bias
+        i, f, cand, o = (g[:, k * hdim:(k + 1) * hdim] for k in range(4))
+        i, f, o = jax.nn.sigmoid(i), jax.nn.sigmoid(f), jax.nn.sigmoid(o)
+        cand = jnp.tanh(cand)
+        c = f * cp + i * cand
+        hn = o * jnp.tanh(c)
+        return (hn, c), (hn, c, jnp.concatenate([i, f, cand, o], -1))
+
+    _, (hs, cs, gates) = jax.lax.scan(step, (jnp.asarray(h0), jnp.asarray(c0)),
+                                      jnp.swapaxes(jnp.asarray(xp), 0, 1))
+    return [np.swapaxes(np.asarray(a), 0, 1) for a in (hs, cs, gates)]
+
+
+@pytest.mark.parametrize("b,block_b", [(8, None), (16, 8)])
+def test_lstm_plain_matches_pallas_kernel(rng, b, block_b):
+    """Inside the TPU contract (B % 8 == 0, H % 128 == 0): the plain
+    version against both pallas_calls, the (T,) grid and the (B/bb, T)
+    blocked one, all three outputs."""
+    xp, w, bias, h0, c0 = _lstm_inputs(rng, b, 5, 128)
+    want = _lstm_seq_impl(jnp.swapaxes(jnp.asarray(xp), 0, 1),
+                          jnp.asarray(w), jnp.asarray(bias), jnp.asarray(h0),
+                          jnp.asarray(c0), interpret=True, block_b=block_b)
+    got = klstm.lstm_seq(*(_t(a) for a in (xp, w, bias, h0, c0)))
+    for g, wv in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(wv), 0, 1),
+                                   **LSTM_TOL)
+
+
+def test_lstm_plain_outside_contract_matches_scan(rng):
+    """B 5, T 7, H 100 with non-zero h0/c0, outside the TPU contract:
+    against a ``lax.scan`` oracle of the kernel's step body."""
+    args = _lstm_inputs(rng, 5, 7, 100)
+    got = klstm.lstm_seq(*(_t(a) for a in args))
+    for g, wv in zip(got, _lstm_scan_ref(*args)):
+        np.testing.assert_allclose(g.numpy(), wv, **LSTM_TOL)
+
+
+def test_lstm_autograd_matches_jax_grad(rng):
+    """``LSTMSeq`` (the plain backward on the forward's gates) against
+    ``jax.grad`` of the Pallas ``lstm_seq`` custom_vjp (interpret mode),
+    cotangents on both hs and cs, all five gradients."""
+    xp, w, bias, h0, c0 = _lstm_inputs(rng, 8, 4, 128)
+    r_h, r_c = (_weights(rng, (8, 4, 128)) for _ in range(2))
+
+    def loss(*a):
+        hs, cs = pallas_lstm_seq(jnp.swapaxes(a[0], 0, 1), a[1],
+                                 a[2].reshape(1, -1), a[3], a[4], True)
+        return (jnp.sum(jnp.swapaxes(hs, 0, 1) * r_h.numpy())
+                + jnp.sum(jnp.swapaxes(cs, 0, 1) * r_c.numpy()))
+
+    want = jax.grad(loss, argnums=range(5))(
+        *(jnp.asarray(a) for a in (xp, w, bias, h0, c0)))
+    leaves = [_t(a).requires_grad_(True) for a in (xp, w, bias, h0, c0)]
+    hs, cs = klstm.LSTMSeq.apply(*leaves)
+    ((hs * r_h).sum() + (cs * r_c).sum()).backward()
+    for leaf, wv in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(wv),
+                                   **GEMM_TOL)
+
+
+def test_lstm_autograd_matches_torch_autograd(rng):
+    """``LSTMSeq`` on a strided xproj view (the op's (B, T, 4H) view of a
+    projection) and on a residual of an earlier call, against PyTorch's
+    autograd of the plain step loop."""
+    xp, w, bias, h0, c0 = _lstm_inputs(rng, 3, 4, 6)
+    base = _t(np.concatenate([xp, xp], axis=2))
+    r_h = _weights(rng, (3, 4, 6))
+    grads = []
+    for residual in (None, klstm.lstm_seq(base[:, :, :24], _t(w), _t(bias),
+                                          _t(h0), _t(c0))):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (base, _t(w), _t(bias), _t(h0), _t(c0))]
+        hs, _ = klstm.LSTMSeq.apply(leaves[0][:, :, :24], *leaves[1:],
+                                    residual)
+        (hs * r_h).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    leaves = [t.clone().requires_grad_(True)
+              for t in (base, _t(w), _t(bias), _t(h0), _t(c0))]
+    hs, _, _ = klstm.lstm_seq_plain(leaves[0][:, :, :24], *leaves[1:])
+    (hs * r_h).sum().backward()
+    for got in grads:
+        for g, leaf in zip(got, leaves):
+            np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(),
+                                       **GEMM_TOL)
+
+
+def test_gather_plain_matches_pallas_kernel(rng):
+    w = rng.randn(50, 128).astype(np.float32)
+    ids = rng.randint(0, 50, 37).astype(np.int32)
+    want = np.asarray(_gather_impl(jnp.asarray(w), jnp.asarray(ids),
+                                   interpret=True))
+    np.testing.assert_array_equal(kemb.gather_rows(_t(w), _t(ids)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_gather_plain_outside_contract_matches_jnp_take(rng, dtype):
+    """D 5 (not a multiple of 4 or 128), ids out of range both ways and
+    negative ones: ``jnp.take``'s answer (from the end, else NaN)."""
+    w = rng.randn(9, 5).astype(np.float32)
+    ids = np.array([0, 8, 9, -1, -9, -10, 100, 4], dtype)
+    want = np.asarray(jnp.take(jnp.asarray(w), jnp.asarray(ids), axis=0))
+    got = kemb.gather_rows(_t(w), _t(ids)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[[2, 5, 6]]).all() and np.isfinite(got[[0, 1, 3, 4, 7]]).all()
