@@ -26,9 +26,12 @@ seconds):
    torch.softmax); the flash-attention forward, dq and dk/dv kernels at
    the transformer step's shape and at ragged ones
    (F.scaled_dot_product_attention and its autograd backward); the
-   matmul at the transformer step's five shapes; the LSTM kernel
+   matmul at the transformer step's five shapes; the matmul at the LSTM
+   classifier step's three shapes (B 64, T 100) and the LoD step's two,
+   the softmax at their 64 x 2 head; the LSTM kernel
    (hs, cs, gates) and LSTMSeq's backward at T 100, B 64, H 256, 512 and
-   1280 and at T 7, B 5, H 100 (torch.nn.LSTM on cuDNN); the gather at
+   1280 and at T 7, B 5, H 100 (torch.nn.LSTM on cuDNN, timed with the
+   kernel in LSTM_ROUNDS alternating rounds); the gather at
    the LoD step's ids on the 30000 x 512 table, on a 510-wide table and
    with ids out of range (torch.index_select).
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
@@ -85,9 +88,7 @@ seconds):
     inputs, the LSTM's gates handed to its grad op on both sides.
 12. The LSTM classifier step at B 64, T 100: launches (lstm 2, matmul 3,
     softmax 1, gather 0), samples/s and tokens/s over 5 timed steps
-    after 2 warm-up steps, peak memory, one profiled step split into the
-    LSTM kernel, its plain backward loop, the matmul kernel, the mul
-    backward products, the rest and the host.
+    after 2 warm-up steps, peak memory.
 13. A small LSTM classifier (T 20, emb 32, hidden 64, Adam(1e-2)) learns
     whether token 0 occurs: held-out accuracy above SEQ_CONVERGE_ACC.
 14. LoD classifier parity: LoD ids of 64 sequences with seeded lengths
@@ -95,14 +96,18 @@ seconds):
     sequence_pool(average) -> fc(2, softmax), Momentum(0.01, 0.9): card
     vs CPU end to end and op by op.
 15. The LoD classifier step: launches (gather 1, matmul 2, softmax 1,
-    lstm 0), steps/s and rows/s, peak memory, one profiled step.
-16. The kernels line, the card's name and power limit, and the result.
+    lstm 0), steps/s and rows/s, peak memory.
+16. One profiled step of each sequence path in a fresh process
+    (``chip_smoke.py --profile-sequence-steps``): idle share, top
+    kernels, and the split into the port's kernels, the plain LSTM
+    backward loop, the mul backward products, the rest and the host.
+17. The kernels line, the card's name and power limit, and the result.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
-import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -218,6 +223,7 @@ LSTM_PARITY_BATCH = 2
 # order); LSTMSeq's gradients relative to their largest magnitude
 LSTM_TOL = dict(rtol=1e-4, atol=1e-5)
 LSTM_GRAD_TOL = 1e-4
+LSTM_ROUNDS = 5
 # the LoD path: 64 sequences of seeded lengths in 1-100 (about 3.2 k rows)
 LOD_SEQS, LOD_MAX_LEN, LOD_FC = 64, 100, 256
 # both sequence steps, card vs CPU: max abs err <= SEQ_PARITY_TOL * max|CPU|
@@ -228,9 +234,9 @@ SEQ_PERTURB = 1e-4
 # the small classifier's seeded "does token 0 occur" task: held-out
 # accuracy must pass this
 SEQ_CONVERGE_ACC = 0.9
-# the spin before each timed kernel wrapper call (about 2 ms): longer than
-# the host takes to queue the launch
-SPIN_CYCLES = 4_000_000
+# the argument that makes the script profile the two sequence steps in a
+# process of their own (see phase_seq_profile)
+PROFILE_SEQ = "--profile-sequence-steps"
 
 
 def log(*a):
@@ -834,10 +840,74 @@ def phase_tf_matmul(dev, randn):
     return r
 
 
+def mul_shapes_of(program, batch):
+    """{(m, k, n): count} of the matmul kernel's launches in one run of
+    ``program`` (one per ``mul`` op), ``batch`` in every -1 dim."""
+    block = program.global_block()
+    shapes = {}
+    for op in block.ops:
+        if op.type != "mul":
+            continue
+        x = [batch if d < 0 else d for d in block.var(op.input("X")[0]).shape]
+        y = block.var(op.input("Y")[0]).shape
+        xc, yc = op.attr("x_num_col_dims", 1), op.attr("y_num_col_dims", 1)
+        key = (math.prod(x[:xc]), math.prod(x[xc:]), math.prod(y[yc:]))
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def phase_seq_dense(dev, randn):
+    """The matmul and softmax kernels against their plain versions at the
+    sequence steps' own shapes: the padded classifier's three products at
+    B 64, T 100 (from its program) and its 64 x 2 softmax; the LoD
+    classifier's two products at the step's 3,435 rows and 64 sequences.
+    Logged; the kernels line keeps the transformer's and ResNet's."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    rows = lod_feed(np.random.RandomState(8))["ids"][1][0][-1]
+    paths = {
+        f"LSTM classifier step, B {LSTM_BATCH} T {LSTM_SEQ}": mul_shapes_of(
+            build_lstm_program()[0], LSTM_BATCH),
+        f"LoD classifier step, {rows} rows": {(rows, LSTM_EMB, LOD_FC): 1,
+                                               (LOD_SEQS, LOD_FC, 2): 1},
+    }
+    for what, shapes in paths.items():
+        sm = _Sum()
+        log(f"matmul at the {what}'s shapes, per call:")
+        for (m, k, n), count in shapes.items():
+            x = randn(m, k)
+            y = randn(k, n, scale=k ** -0.5)
+            err = check_close(f"matmul {m}x{k}x{n}", kmatmul.matmul(x, y),
+                              kmatmul.matmul_plain(x, y), **GEMM_TOL)
+            times = (time_ms(lambda: kmatmul.matmul(x, y)),
+                     time_ms(lambda: kmatmul.matmul_plain(x, y)),
+                     time_ms(lambda: torch.matmul(x, y)))
+            flops, nbytes = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+            _line(f"{m}x{k}x{n}", count, *times, flops, nbytes, err)
+            sm.add(count, *times, flops, nbytes, err)
+        r = sm.result()
+        log(f"  the {what}'s matmul launches: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max err "
+            f"{r['max_abs_err']:.2e} (tolerance {GEMM_TOL})")
+    x = randn(LSTM_BATCH, 2, scale=4.0)   # both steps' head: 64 rows, 2 classes
+    err = check_close(f"softmax {LSTM_BATCH}x2", ksoftmax.softmax(x),
+                      ksoftmax.softmax_plain(x), rtol=0, atol=SOFTMAX_ATOL)
+    times = (time_ms(lambda: ksoftmax.softmax(x)),
+             time_ms(lambda: ksoftmax.softmax_plain(x)),
+             time_ms(lambda: torch.softmax(x, dim=-1)))
+    _line(f"softmax {LSTM_BATCH}x2", 1, *times, 5.0 * x.numel(),
+          8.0 * x.numel(), err)
+    log(f"  (tolerance atol {SOFTMAX_ATOL})")
+
+
 def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     """Every kernel against its plain version.  The kernels line keeps the
     matmul's numbers at the transformer step's shapes (its 17 launches
-    there; the ResNet shapes are logged)."""
+    there; the ResNet and sequence shapes are logged)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -850,6 +920,7 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results.update(phase_dense_kernels(dev, randn))
     results.update(phase_flash_kernels(dev, randn))
     results["matmul"] = phase_tf_matmul(dev, randn)
+    phase_seq_dense(dev, randn)
     results["lstm"] = phase_lstm_kernels(dev, randn)
     results["embedding"] = phase_gather_kernel(dev, randn)
     return results
@@ -1286,17 +1357,14 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
                 launches=launches)
 
 
-def profile_step(run, what, split=None, port=None):
+def profile_step(run, what, split=None, want=None):
     """Profile ``run()`` twice and keep the second: wall time, device busy
     time and idle share, the top kernels by device time, the layout and
     dtype copies.  ``split`` ({part: kernel-name substrings, or the name
     of a ``record_function`` range}) logs the device time of each part
-    beside the host's.  ``port`` (a ``timed_calls`` in force over the
-    port's kernel wrappers) takes those kernels' device time from CUDA
-    events around each wrapper call in one more run instead of the
-    profiler: late in a long process, torch.profiler leaves out the
-    ctypes launches that start soon after they are queued (on every try
-    alike; a fresh process keeps them).  Returns the idle share."""
+    beside the host's.  ``want`` ({kernel name: launches}) fails the run
+    if the profiler saw fewer launches of a kernel.  Returns the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     # a range also shows on the device timeline as an annotation spanning
@@ -1312,11 +1380,11 @@ def profile_step(run, what, split=None, port=None):
     # (device ms, count, name) of every kernel
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in events
             if str(e.device_type).endswith("CUDA") and e.key not in ranges]
-    if port:
-        timed = port.time_calls(run)
-        rows = [r for r in rows if not any(k in r[2] for k in timed)]
-        rows += [(ms, n, f"{k} (CUDA events, next run)")
-                 for k, (ms, n) in timed.items()]
+    for kernel, n in (want or {}).items():
+        seen = sum(r[1] for r in rows if kernel in r[2])
+        if seen < n:
+            fail(f"profiled {what}: the profiler saw {seen} launches of "
+                 f"{kernel}, not {n}")
     busy_ms = sum(r[0] for r in rows)
     idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"one profiled {what}: {wall_ms:.1f} ms wall, device kernels "
@@ -1671,15 +1739,26 @@ def phase_lstm_kernels(dev, randn):
             lib.bias_hh_l0.zero_()
             state = (args[3][None], args[4][None])
             lib_err = float((lib(args[0], state)[0] - hs).abs().max())
-            ms = time_ms(lambda: klstm.lstm_seq(*args))
+            # kernel and cuDNN timed in alternating rounds: the spread
+            # says how far apart two calls of either can land
+            rounds = [(time_ms(lambda: klstm.lstm_seq(*args)),
+                       time_ms(lambda: lib(args[0], state)))
+                      for _ in range(LSTM_ROUNDS)]
+            ms = statistics.median(r[0] for r in rounds)
+            lib_ms = statistics.median(r[1] for r in rounds)
             plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
-            lib_ms = time_ms(lambda: lib(args[0], state))
             bwd = time_ms(lambda: klstm.lstm_seq_bwd(
                 gates, hs, cs, args[1], args[3], args[4], r_h, r_c), reps=3)
         flops, nbytes = lstm_work(b, t, h)
         count = 2 if h == LSTM_HIDDEN else 1
         _line(f"lstm {tag} ({klstm.last_grid_blocks} blocks)", count, ms,
               plain, lib_ms, flops, nbytes, err)
+        log(f"  over {LSTM_ROUNDS} alternating rounds (median of 10 calls "
+            f"each): kernel {min(r[0] for r in rounds):.4f}-"
+            f"{max(r[0] for r in rounds):.4f} ms, cuDNN "
+            f"{min(r[1] for r in rounds):.4f}-{max(r[1] for r in rounds):.4f}"
+            f" ms, kernel/cuDNN per round "
+            + ", ".join(f"{k / c:.3f}" for k, c in rounds))
         log(f"  LSTMSeq's plain backward {bwd:.4f} ms per call; cuDNN's hs "
             f"vs the kernel's: max diff {lib_err:.2e}; {t} dependent steps, "
             f"each a grid-wide barrier, are a latency floor the bound does "
@@ -1884,83 +1963,11 @@ def phase_lstm_parity(dev):
                     f"{LSTM_PARITY_BATCH} T {LSTM_SEQ}")
 
 
-class record_ranges:
-    """While inside, wrap module functions: each call of ``ranges``
-    ({module: [function names]}) in a torch.profiler.record_function range
-    of its own name, and each call of ``timed`` ({module: {function name:
-    kernel name}}), inside ``time_calls``, between two CUDA events on the
-    current stream after SPIN_CYCLES of torch.cuda._sleep: the device
-    spins while the host queues the launch, so the events bracket the
-    kernel and not the host's launch time."""
-
-    def __init__(self, ranges, timed=None):
-        self.ranges, self.timed = ranges, timed or {}
-        self.saved, self.calls, self.timing = [], [], False
-
-    def _patch(self, mod, name, make):
-        fn = getattr(mod, name)
-        self.saved.append((mod, name, fn))
-        setattr(mod, name, functools.wraps(fn)(make(fn)))
-
-    def __enter__(self):
-        import torch
-
-        def ranged(fn, name):
-            def call(*a, **k):
-                with torch.profiler.record_function(name):
-                    return fn(*a, **k)
-            return call
-
-        def timed(fn, kernel):
-            def call(*a, **k):
-                if not self.timing:
-                    return fn(*a, **k)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(SPIN_CYCLES)
-                start.record()
-                out = fn(*a, **k)
-                end.record()
-                self.calls.append((kernel, start, end))
-                return out
-            return call
-
-        for mod, names in self.ranges.items():
-            for n in names:
-                self._patch(mod, n, lambda fn, n=n: ranged(fn, n))
-        for mod, names in self.timed.items():
-            for n, kernel in names.items():
-                self._patch(mod, n, lambda fn, k=kernel: timed(fn, k))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, n, fn in reversed(self.saved):
-            setattr(mod, n, fn)
-
-    def time_calls(self, run):
-        """{kernel name: (ms, calls)} of the timed calls of one ``run()``."""
-        import torch
-
-        self.calls, self.timing = [], True
-        try:
-            run()
-        finally:
-            self.timing = False
-        torch.cuda.synchronize()
-        out = {}
-        for kernel, start, end in self.calls:
-            ms, n = out.get(kernel, (0.0, 0))
-            out[kernel] = (ms + start.elapsed_time(end), n + 1)
-        return out
-
-
-def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
-                   split):
+def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi):
     """A step of a sequence path on the card: the counters zeroed just
     before the first step and read just after must equal ``expect``;
-    then 5 timed steps after 2 warm-up steps, peak memory, one profiled
-    step split by part.  Returns (seconds of the 5 steps, peak bytes,
-    idle share, launches)."""
+    then 5 timed steps after 2 warm-up steps and peak memory.  Returns
+    (seconds of the 5 steps, peak bytes, launches)."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -1999,51 +2006,36 @@ def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
         f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); losses "
         f"{[round(x, 5) for x in losses]}; peak memory allocated "
         f"{peak / 2**30:.3f} GiB on {smi}")
-    from paddle_tpu_torch.kernels import embedding as kemb
-    from paddle_tpu_torch.kernels import lstm as klstm
-    from paddle_tpu_torch.kernels import matmul as kmatmul
-    from paddle_tpu_torch.kernels import softmax as ksoftmax
-
-    with record_ranges({klstm: ["lstm_seq_bwd"],
-                        kmatmul: ["matmul_backward"]},
-                       {klstm: {"lstm_seq": "lstm_seq_kernel"},
-                        kmatmul: {"matmul": "matmul_f32_kernel"},
-                        ksoftmax: {"softmax": "softmax_f32_kernel"},
-                        kemb: {"gather_rows": "gather_rows_kernel"}}) as port:
-        idle = profile_step(lambda: exe.run(main_prog, feed=feed,
-                                            fetch_list=[loss], scope=scope),
-                            what, split, port)
     del exe, scope
     torch.cuda.empty_cache()
-    return sum(times), peak, idle, launches
+    return sum(times), peak, launches
+
+
+def lstm_step_feed(dev):
+    """Path A's step feed, B 64 T 100, made on the card from a seed."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    return {"ids": torch.randint(0, LSTM_IDS, (LSTM_BATCH, LSTM_SEQ, 1),
+                                 device=dev, generator=gen),
+            "label": torch.randint(0, 2, (LSTM_BATCH, 1), device=dev,
+                                   generator=gen)}
 
 
 def phase_lstm_train_step(dev, smi):
     """Path A at full width, B 64 T 100: launches 2 lstm / 3 matmul / 1
-    softmax / 0 gather, samples/s and tokens/s, peak memory, one profiled
-    step split into the LSTM kernel, its plain backward loop, the matmul
-    kernel, the mul backward products and the rest."""
-    import torch
-
+    softmax / 0 gather, samples/s and tokens/s, peak memory."""
     main_prog, startup, _, loss, _ = build_lstm_program()
-    gen = torch.Generator(device=dev).manual_seed(13)
     b, t = LSTM_BATCH, LSTM_SEQ
-    feed = {"ids": torch.randint(0, LSTM_IDS, (b, t, 1), device=dev,
-                                 generator=gen),
-            "label": torch.randint(0, 2, (b, 1), device=dev, generator=gen)}
-    secs, peak, idle, launches = seq_train_step(
-        dev, main_prog, startup, loss, feed,
+    secs, peak, launches = seq_train_step(
+        dev, main_prog, startup, loss, lstm_step_feed(dev),
         dict(lstm=2, matmul=3, softmax=1, embedding=0),
-        f"LSTM classifier step at B {b} T {t} (f32)", smi,
-        {"LSTM kernel": ["lstm_seq_kernel"],
-         "LSTM backward loop (plain)": "lstm_seq_bwd",
-         "matmul kernel": ["matmul_f32_kernel"],
-         "mul backward products": "matmul_backward"})
+        f"LSTM classifier step at B {b} T {t} (f32)", smi)
     sps = 5 * b / secs
     log(f"LSTM classifier step: {sps:.1f} samples/s, {sps * t:.1f} tokens/s "
         f"({1e3 * secs / 5:.2f} ms per step) on {smi}")
     return dict(samples_per_s=sps, tokens_per_s=sps * t, peak_bytes=peak,
-                idle_share=idle, launches=launches)
+                launches=launches)
 
 
 def token_task(rng, batch, seq, vocab):
@@ -2100,21 +2092,98 @@ def phase_lod_parity(dev):
 
 def phase_lod_train_step(dev, smi):
     """Path B: launches 1 gather / 2 matmul / 1 softmax / 0 lstm, steps/s,
-    rows/s, peak memory, one profiled step."""
+    rows/s, peak memory."""
     main_prog, startup, loss, _ = build_lod_program()
     feed = lod_feed(np.random.RandomState(8), dev)
     rows = int(feed["ids"].data.shape[0])
-    secs, peak, idle, launches = seq_train_step(
+    secs, peak, launches = seq_train_step(
         dev, main_prog, startup, loss, feed,
         dict(embedding=1, matmul=2, softmax=1, lstm=0),
         f"LoD classifier step, {LOD_SEQS} sequences of {rows} rows (f32)",
-        smi, {"gather kernel": ["gather_rows_kernel"],
-              "matmul kernel": ["matmul_f32_kernel"],
-              "mul backward products": "matmul_backward"})
+        smi)
     log(f"LoD classifier step: {5 / secs:.2f} steps/s, {5 * rows / secs:.1f}"
         f" rows/s ({1e3 * secs / 5:.2f} ms per step) on {smi}")
     return dict(steps_per_s=5 / secs, rows_per_s=5 * rows / secs,
-                peak_bytes=peak, idle_share=idle, launches=launches)
+                peak_bytes=peak, launches=launches)
+
+
+def range_calls(mod, name):
+    """Wrap every later call of ``mod.name`` in a torch.profiler
+    record_function range of that name (for the profiled split)."""
+    import torch
+
+    fn = getattr(mod, name)
+
+    def call(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+
+    setattr(mod, name, call)
+
+
+def profile_sequence_steps():
+    """The body of ``chip_smoke.py --profile-sequence-steps``: one profiled
+    step of each sequence path, from the same seeds as phases 12 and 15,
+    after 2 warm-up steps, split into the port's kernels, the plain LSTM
+    backward loop and the mul backward products.  Prints the idle shares
+    as the last line, a JSON object."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    dev = torch.device("cuda", 0)
+    range_calls(klstm, "lstm_seq_bwd")
+    range_calls(kmatmul, "matmul_backward")
+    lstm_prog, lstm_startup, _, lstm_loss, _ = build_lstm_program()
+    lod_prog, lod_startup, lod_loss, _ = build_lod_program()
+    paths = {
+        "lstm": (lstm_prog, lstm_startup, lstm_loss, lstm_step_feed(dev),
+                 f"LSTM classifier step at B {LSTM_BATCH} T {LSTM_SEQ}",
+                 {"LSTM kernel": ["lstm_seq_kernel"],
+                  "LSTM backward loop (plain)": "lstm_seq_bwd",
+                  "matmul kernel": ["matmul_f32_kernel"],
+                  "mul backward products": "matmul_backward"},
+                 {"lstm_seq_kernel": 2, "matmul_f32_kernel": 3,
+                  "softmax_f32_kernel": 1}),
+        "lod": (lod_prog, lod_startup, lod_loss,
+                lod_feed(np.random.RandomState(8), dev),
+                f"LoD classifier step, {LOD_SEQS} sequences",
+                {"gather kernel": ["gather_rows_kernel"],
+                 "matmul kernel": ["matmul_f32_kernel"],
+                 "mul backward products": "matmul_backward"},
+                {"gather_rows_kernel": 1, "matmul_f32_kernel": 2,
+                 "softmax_f32_kernel": 1}),
+    }
+    idle = {}
+    for key, (prog, startup, loss, feed, what, split, want) in paths.items():
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        for _ in range(2):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        idle[key] = profile_step(
+            lambda: exe.run(prog, feed=feed, fetch_list=[loss], scope=scope),
+            what, split, want)
+    print(json.dumps(idle), flush=True)
+
+
+def phase_seq_profile():
+    """One profiled step of each sequence path, in a fresh process (this
+    script with PROFILE_SEQ): late in a long process, torch.profiler
+    leaves out ctypes launches that start soon after they are queued,
+    and a fresh process records them all (the profile fails if it sees
+    fewer launches than the step makes).  Returns {path: idle share}."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           PROFILE_SEQ], capture_output=True, text=True,
+                          timeout=600, cwd=HERE)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        fail(f"the profiled sequence steps failed (exit {proc.returncode}):"
+             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
 
 
 def timed(fn, *args):
@@ -2134,6 +2203,9 @@ def main():
     sys.path.insert(0, HERE)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:] == [PROFILE_SEQ]:
+        profile_sequence_steps()
+        return
     t_start = time.perf_counter()
 
     smi = subprocess.run(
@@ -2215,6 +2287,8 @@ def main():
     timed(phase_lstm_converge, dev)
     timed(phase_lod_parity, dev)
     lod = timed(phase_lod_train_step, dev, smi)
+    idle = timed(phase_seq_profile)
+    lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
 
     # each kernel's numbers are those of the path that runs it most: the
     # matmul and flash kernels the transformer step, the LSTM kernel the

@@ -77,11 +77,21 @@ def _split(g, h):
     return g[..., :h], g[..., h:2 * h], g[..., 2 * h:3 * h], g[..., 3 * h:]
 
 
-def lstm_seq_plain(xproj, w, bias, h0, c0):
+def lstm_seq_plain(xproj, w, bias, h0, c0, acts=None, peepholes=None):
     """(hs, cs, gates): a step loop of ``_lstm_step_body`` in float32,
-    outputs in xproj's dtype."""
+    outputs in xproj's dtype.
+
+    ``acts`` (the gate, candidate and cell activations; sigmoid, tanh,
+    tanh by default) and ``peepholes`` (w_ic, w_fc, w_oc, H values each)
+    make it the ``lstm`` op's general step (``paddle_tpu/ops/
+    sequence_ops.py:621-639``), which the op runs for the configurations
+    the kernel does not take."""
     _check(xproj, w, bias, h0, c0)
     h = xproj.shape[2] // 4
+    gate_act, cand_act, cell_act = acts or (torch.sigmoid, torch.tanh,
+                                            torch.tanh)
+    if peepholes is not None:
+        w_ic, w_fc, w_oc = (p.reshape(1, h).float() for p in peepholes)
     wf = w.float()
     bf = bias.reshape(1, 4 * h).float()
     hp, cp = h0.float(), c0.float()
@@ -89,10 +99,12 @@ def lstm_seq_plain(xproj, w, bias, h0, c0):
     for t in range(xproj.shape[1]):
         g = (xproj[:, t].float() + hp @ wf) + bf
         i, f, cand, o = _split(g, h)
-        i, f, cand, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(cand),
-                         torch.sigmoid(o))
+        if peepholes is not None:
+            i, f = i + w_ic * cp, f + w_fc * cp
+        i, f, cand = gate_act(i), gate_act(f), cand_act(cand)
         cp = f * cp + i * cand
-        hp = o * torch.tanh(cp)
+        o = gate_act(o + w_oc * cp if peepholes is not None else o)
+        hp = o * cell_act(cp)
         hs.append(hp)
         cs.append(cp)
         gates.append(torch.cat([i, f, cand, o], dim=-1))

@@ -216,39 +216,6 @@ def _kernel_path(attr, bias, h) -> bool:
             and not _peepholes(attr, bias, h))
 
 
-def _step_loop(ctx, x, w, bias, h0, c0):
-    """The plain step loop of ``:621-639`` (any activations, peepholes)."""
-    b, t_len, h4 = x.shape
-    h = h4 // 4
-    gate_act = _ACTS[ctx.attr("gate_activation", "sigmoid")]
-    cell_act = _ACTS[ctx.attr("cell_activation", "tanh")]
-    cand_act = _ACTS[ctx.attr("candidate_activation", "tanh")]
-    peep = _peepholes(ctx.attr, bias, h)
-    b_gate = bias[..., :4 * h].reshape(1, 4 * h) if bias is not None else 0.0
-    if peep:
-        w_ic, w_fc, w_oc = (bias[..., k * h:(k + 1) * h].reshape(1, h)
-                            for k in (4, 5, 6))
-    hp, cp = h0, c0
-    hs, cs = [], []
-    for t in range(t_len):
-        gates = x[:, t] + (hp.float() @ w.float()).to(x.dtype) + b_gate
-        i, f, ct, o = torch.split(gates, h, dim=-1)
-        if peep:
-            i, f = gate_act(i + w_ic * cp), gate_act(f + w_fc * cp)
-        else:
-            i, f = gate_act(i), gate_act(f)
-        c_new = f * cp + i * cand_act(ct)
-        o = gate_act(o + w_oc * c_new) if peep else gate_act(o)
-        hp = (o * cell_act(c_new)).to(x.dtype)
-        cp = c_new.to(x.dtype)
-        hs.append(hp)
-        cs.append(cp)
-    if not hs:
-        z = x.new_zeros(b, 0, h)
-        return z, z
-    return torch.stack(hs, 1), torch.stack(cs, 1)
-
-
 def _lstm_run(ctx, residual=None):
     """The lstm op (``:546-694``).  ``residual`` is the (hs, cs, gates) a
     forward run left: given it, the kernel's part is the residual-fed
@@ -292,10 +259,9 @@ def _lstm_run(ctx, residual=None):
     whole_reverse = reverse and not is_lod and lens_arr is None
     xs = x.flip(1) if whole_reverse else x
 
+    bias_vec = (bias[..., :4 * h].reshape(1, 4 * h) if bias is not None
+                else torch.zeros((1, 4 * h), dtype=x.dtype, device=x.device))
     if _kernel_path(ctx.attr, bias, h):
-        bias_vec = (bias[..., :4 * h].reshape(1, 4 * h) if bias is not None
-                    else torch.zeros((1, 4 * h), dtype=x.dtype,
-                                     device=x.device))
         if residual is None:
             residual = klstm.lstm_seq(xs, w.contiguous(), bias_vec.contiguous(),
                                       h0.contiguous(), c0.contiguous())
@@ -304,7 +270,14 @@ def _lstm_run(ctx, residual=None):
         else:
             hs, cs = klstm.LSTMSeq.apply(xs, w, bias_vec, h0, c0, residual)
     else:
-        hs, cs = _step_loop(ctx, xs, w, bias, h0, c0)
+        # peepholes or other activations: the plain step loop, as
+        # lax.scan in the JAX op (``:621-639``)
+        acts = tuple(_ACTS[ctx.attr(name, default)] for name, default in (
+            ("gate_activation", "sigmoid"), ("candidate_activation", "tanh"),
+            ("cell_activation", "tanh")))
+        peep = (tuple(bias[..., k * h:(k + 1) * h] for k in (4, 5, 6))
+                if _peepholes(ctx.attr, bias, h) else None)
+        hs, cs, _ = klstm.lstm_seq_plain(xs, w, bias_vec, h0, c0, acts, peep)
     if whole_reverse:
         hs, cs = hs.flip(1), cs.flip(1)
     hidden, cell = hs, cs
