@@ -3,7 +3,8 @@
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
 and check the replies, train full-width ResNet-50, LeNet-5, the
 transformer LM and the LSTM text classifier (padded and over LoD ids)
-and check their steps, then measure.
+and check their steps, serve the paged-KV decoder LM over /generate and
+check its generations, then measure.
 
     python3 chip_smoke.py
 
@@ -101,7 +102,35 @@ seconds):
     (``chip_smoke.py --profile-sequence-steps``): idle share, top
     kernels, and the split into the port's kernels, the plain LSTM
     backward loop, the mul backward products, the rest and the host.
-17. The kernels line, the card's name and power limit, and the result.
+17. (A, in phase 2) The paged-attention kernels against their plain
+    versions, atol PAGED_ATOL: the decode kernel at the slice's shape
+    (S 16, H 16, D 128, page 16, P 128) with seeded ragged lens in 1-2048
+    and with every lens 2048, and at S 5, H 2, D 16, page 8; the chunk
+    kernel at S 16, T 4 and at S 1, T 88 over 512 cached rows; the
+    kernel, plain and gather + F.scaled_dot_product_attention (two
+    calls) times beside the bound.
+18. (B, E) The decoder LM of /generate (TinyDecoderLM at the
+    transformer's widths, DEC_CONFIG) on the card against the port's CPU
+    path from the same weights: a cold prefill of 4 ragged prompts, 8
+    teacher-forced decode steps, a verify step, a prefix-hit prefill;
+    logits within DEC_PARITY_TOL of max|CPU|, ids equal up to near-ties;
+    launches per call: cold prefill flash forward 4, decode step paged 4,
+    verify step and prefix-hit prefill chunk 4, nothing else.
+19. (C) /generate over HTTP at full width: 32 concurrent requests
+    (prompts of 16-1024 tokens, 8 sharing a 512-token prefix, 64 new
+    tokens, streamed and not, a beam of 2, one seeded sample) to
+    InferenceServer(None, generator=GenerationEngine(model, max_slots=16,
+    prefix_cache=True, beam_max=2)): streamed tokens equal the final ids,
+    greedy ids equal each request decoded alone up to near-ties, no page
+    leaks, a 503 too_long and a 504; tokens/s, time to first token and
+    latency p50/p99, the decode step at 16 slots, prefix hits, peak
+    memory.  The counters zeroed around the burst show its kernels.
+20. (D) Speculative decoding (n-gram draft, k 4) on the same model: ids
+    equal the greedy ones up to near-ties; acceptance ratio, tokens/s.
+21. (F) One profiled decode step at 16 slots in a fresh process
+    (``chip_smoke.py --profile-decode-step``): idle share, top kernels,
+    the cost of the logits' copy to the host.
+22. The kernels line, the card's name and power limit, and the result.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -181,6 +210,10 @@ KERNELS = {
     "lstm": ("paddle_tpu_torch/csrc/lstm.cu", "paddle_tpu/pallas/lstm.py:112"),
     "embedding": ("paddle_tpu_torch/csrc/embedding.cu",
                   "paddle_tpu/pallas/embedding.py:47"),
+    "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                        "paddle_tpu/decode/attention.py:222"),
+    "paged_attention_chunk": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                              "paddle_tpu/decode/attention.py:382"),
 }
 
 # The transformer LM of benchmark/transformer_bench.py:45-60 at its own
@@ -238,6 +271,33 @@ SEQ_CONVERGE_ACC = 0.9
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
 
+# The decoder LM that /generate serves (paddle_tpu/decode/model.py
+# TinyDecoderLM) at the widths of the transformer LM of phases 8-9
+# (benchmark/transformer_bench.py:45-60): vocab 32768, d_model 2048, 16
+# heads of 128, 4 layers, max_len 2048; 4096 pages of 16 rows, 128 pages
+# a sequence (2048 rows), 16 slots; float32, random weights from a seed.
+DEC_CONFIG = dict(vocab=32768, d_model=2048, num_heads=16, num_layers=4,
+                  max_len=2048, num_pages=4096, page_size=16,
+                  pages_per_seq=128)
+DEC_SLOTS = 16
+DEC_SEED = 2027
+# the paged kernels against their plain versions, absolute (f32 softmax
+# sums over up to 2048 positions through exp, in another order)
+PAGED_ATOL = 1e-4
+# logits, card vs the port's CPU path (and batched vs one at a time):
+# max abs err <= DEC_PARITY_TOL * max|reference logits| at every step; a
+# generated id may differ only where the reference's top-2 logit gap is
+# below DEC_PARITY_TOL * max|logits| there (a near-tie of random weights)
+DEC_PARITY_TOL = 1e-3
+# phase B: the prompts' lengths, the teacher-forced decode steps
+DEC_PARITY_PROMPTS = (37, 300, 600, 1000)
+DEC_PARITY_STEPS = 8
+# phase C: the burst over HTTP
+GEN_REQUESTS, GEN_NEW_TOKENS, GEN_SHARED_PREFIX = 32, 64, 512
+# the argument that makes the script profile one decode step in a process
+# of its own (see phase_decode_profile)
+PROFILE_DEC = "--profile-decode-step"
+
 
 def log(*a):
     print(*a, flush=True)
@@ -281,6 +341,7 @@ def counters():
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import paged_attention as kpa
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
     return dict(conv2d_nhwc=kconv.launches,
@@ -290,7 +351,8 @@ def counters():
                 softmax=ksoftmax.launches, flash_attention_fwd=kfa.launches,
                 flash_attention_dq=kfa.dq_launches,
                 flash_attention_dkv=kfa.dkv_launches, lstm=klstm.launches,
-                embedding=kemb.launches)
+                embedding=kemb.launches, paged_attention=kpa.launches,
+                paged_attention_chunk=kpa.chunk_launches)
 
 
 def zero_counters():
@@ -300,6 +362,7 @@ def zero_counters():
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import paged_attention as kpa
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
     kconv.launches = kconv.bwd_input_launches = kconv.dw_launches = 0
@@ -307,6 +370,7 @@ def zero_counters():
     kmatmul.launches = ksoftmax.launches = 0
     kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
     klstm.launches = kemb.launches = 0
+    kpa.launches = kpa.chunk_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +987,7 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     phase_seq_dense(dev, randn)
     results["lstm"] = phase_lstm_kernels(dev, randn)
     results["embedding"] = phase_gather_kernel(dev, randn)
+    results.update(phase_paged_kernels(dev, randn))
     return results
 
 
@@ -2186,6 +2251,703 @@ def phase_seq_profile():
     return json.loads(proc.stdout.splitlines()[-1])
 
 
+# ---------------------------------------------------------------------------
+# generation serving: the paged kernels, the decoder LM, /generate
+# ---------------------------------------------------------------------------
+
+
+def paged_case(randn, rng, s, h, d, page, p, n, lens, t=None):
+    """Seeded q and pools on the card; a table of distinct random pages
+    for each slot, null page 0 as the padding past the pages its rows
+    reach; int32 lens."""
+    import torch
+
+    dev = randn(1).device
+    q = randn(s, h, d) if t is None else randn(s, t, h, d)
+    kp, vp = randn(n, page, h, d), randn(n, page, h, d)
+    tables = (rng.permutation(n - 1)[:s * p].reshape(s, p) + 1).astype(
+        np.int32)
+    for i, ln in enumerate(lens):
+        tables[i, min(p, -(-(ln + (t or 0)) // page)):] = 0
+    return (q, kp, vp, torch.as_tensor(tables, device=dev),
+            torch.as_tensor(np.asarray(lens, np.int32), device=dev))
+
+
+def paged_work(lens, t, h, d, page, p, chunk):
+    """(FLOPs, bytes) of one launch: the K and V rows up to each slot's
+    longest row limit read once, q read and out written once, the tables
+    and lens read; 4 FLOPs per (query row, position, head, d)."""
+    cap, rows, pairs = p * page, 0, 0
+    for ln in lens:
+        lims = [min(max(ln + j + int(chunk), 0), cap) for j in range(t)]
+        rows += max(lims)
+        pairs += sum(lims)
+    s = len(lens)
+    return (4.0 * pairs * h * d,
+            4.0 * (2 * rows * h * d + 2 * s * t * h * d + s * p + s))
+
+
+def gather_sdpa(q4, kp, vp, tables, lens, row_offset):
+    """The comparison: gather every page of the table (``k_pages[tables]``)
+    and F.scaled_dot_product_attention with the length mask: two calls."""
+    import torch
+    import torch.nn.functional as F
+
+    s, t, h, d = q4.shape
+    page, p = kp.shape[1], tables.shape[1]
+    k = kp[tables.long()].reshape(s, p * page, h, d).transpose(1, 2)
+    v = vp[tables.long()].reshape(s, p * page, h, d).transpose(1, 2)
+    limit = (lens.long()[:, None] + row_offset
+             + torch.arange(t, device=q4.device)[None, :])
+    mask = torch.arange(p * page, device=q4.device)[None, None] < limit[
+        ..., None]
+    return F.scaled_dot_product_attention(q4.transpose(1, 2), k, v,
+                                          attn_mask=mask[:, None]
+                                          ).transpose(1, 2)
+
+
+def phase_paged_kernels(dev, randn):
+    """A. The paged kernels against their plain versions (PAGED_ATOL): the
+    decode kernel at the slice's shape (S 16, H 16, D 128, page 16, P 128)
+    with seeded ragged lens in 1-2048 (1, 16, 17 and 2048 among them) and
+    at a small ragged shape (S 5, H 2, D 16, page 8); the chunk kernel at
+    S 16, T 4 (the speculative verify) and at S 1, T 88 over 512 cached
+    rows (a prefix-hit suffix).  CUDA-event medians of each kernel, its
+    plain version and the gather + SDPA comparison, beside the bound; the
+    kernels line carries them per decode (verify) step, 4 launches."""
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    rng = np.random.RandomState(51)
+    cfg = DEC_CONFIG
+    h, page, p = cfg["num_heads"], cfg["page_size"], cfg["pages_per_seq"]
+    d = cfg["d_model"] // h
+    n, count = cfg["num_pages"], cfg["num_layers"]
+    results = {}
+
+    def run(name, tag, s, hh, dd, pg, pp, nn, lens, t=None, time_it=False):
+        chunk = t is not None
+        q, kp, vp, tables, lens_t = paged_case(randn, rng, s, hh, dd, pg, pp,
+                                               nn, lens, t)
+        kernel = kpa.paged_attention_chunk if chunk else kpa.paged_attention
+        plain = (kpa.paged_attention_chunk_plain if chunk
+                 else kpa.paged_attention_plain)
+        q4 = q if chunk else q[:, None]
+        got = kernel(q, kp, vp, tables, lens_t)
+        want = plain(q, kp, vp, tables, lens_t)
+        err = check_close(f"{name} {tag}", got, want, rtol=0, atol=PAGED_ATOL)
+        cmp_out = gather_sdpa(q4, kp, vp, tables, lens_t, int(chunk))
+        cmp_err = check_close(f"gather + SDPA {tag}",
+                              cmp_out if chunk else cmp_out[:, 0], want,
+                              rtol=0, atol=PAGED_ATOL)
+        if not time_it:
+            log(f"  {name} {tag}: max err {err:.2e} (atol {PAGED_ATOL}); "
+                f"gather + SDPA {cmp_err:.2e}")
+            return None
+        ms = time_ms(lambda: kernel(q, kp, vp, tables, lens_t))
+        plain_ms = time_ms(lambda: plain(q, kp, vp, tables, lens_t), reps=5)
+        cmp_ms = time_ms(lambda: gather_sdpa(q4, kp, vp, tables, lens_t,
+                                             int(chunk)), reps=5)
+        flops, nbytes = paged_work(lens, t or 1, hh, dd, pg, pp, chunk)
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"  {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"gather + SDPA (two calls) {cmp_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
+            f"max err {err:.2e}, gather + SDPA err {cmp_err:.2e}")
+        return dict(ms=ms, plain_ms=plain_ms, gather_sdpa_ms=cmp_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                    flops=flops, nbytes=nbytes)
+
+    lens = rng.randint(1, p * page + 1, DEC_SLOTS)
+    lens[:4] = (1, 16, 17, p * page)
+    lens = [int(x) for x in lens]
+    log(f"paged kernels, pool {n} pages of {page} x {h} x {d}, tables of "
+        f"{p} pages; decode lens {lens}")
+    dec = run("paged_attention", f"S{DEC_SLOTS} H{h} D{d} ragged",
+              DEC_SLOTS, h, d, page, p, n, lens, time_it=True)
+    full = run("paged_attention", f"S{DEC_SLOTS} every lens {p * page}",
+               DEC_SLOTS, h, d, page, p, n, [p * page] * DEC_SLOTS,
+               time_it=True)
+    run("paged_attention", "S5 H2 D16 page 8 ragged", 5, 2, 16, 8, 3, 16,
+        [3, 8, 17, 1, 24])
+    vlens = [int(x) for x in rng.randint(1, p * page - 4, DEC_SLOTS)]
+    ver = run("paged_attention_chunk", f"S{DEC_SLOTS} T4 ragged", DEC_SLOTS,
+              h, d, page, p, n, vlens, t=4, time_it=True)
+    suffix = run("paged_attention_chunk", "S1 T88 over 512 cached rows", 1,
+                 h, d, page, p, n, [GEN_SHARED_PREFIX], t=88, time_it=True)
+    log(f"  the bound at every lens {p * page} is {full['bound_ms']:.4f} ms "
+        f"({full['nbytes'] / 1e6:.0f} MB at {PEAK_BYTES / 1e12} TB/s); the "
+        f"kernel takes {full['ms'] / full['bound_ms']:.2f}x it there, "
+        f"{dec['ms'] / dec['bound_ms']:.2f}x at the ragged lens; the chunk "
+        f"kernel {ver['ms'] / ver['bound_ms']:.2f}x at S16 T4, "
+        f"{suffix['ms'] / suffix['bound_ms']:.2f}x at S1 T88")
+    for name, r in (("paged_attention", dec), ("paged_attention_chunk", ver)):
+        b_ms, b_by = bound(count * r["flops"], count * r["nbytes"])
+        results[name] = dict(
+            ms=count * r["ms"], plain_ms=count * r["plain_ms"],
+            library_ms=None, gather_sdpa_ms=count * r["gather_sdpa_ms"],
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"])
+    return results
+
+
+def _scaled_check(what, got, want):
+    """max|got - want| <= DEC_PARITY_TOL * max|want|; returns the ratio."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: shape {got.shape} vs {want.shape}, or non-finite")
+    ratio = float(np.abs(got - want).max() / np.abs(want).max())
+    if ratio > DEC_PARITY_TOL:
+        fail(f"{what}: max abs err {ratio:.2e} x max|reference| > "
+             f"{DEC_PARITY_TOL}")
+    return ratio
+
+
+def _near_tie(row, tol):
+    top2 = np.partition(np.asarray(row, np.float64), -2)[-2:]
+    return top2[1] - top2[0] < tol * np.abs(row).max()
+
+
+def _same_ids(what, got, want):
+    """Rows' argmax equal, except where the reference's top-2 gap is a
+    near-tie.  Returns the number of near-tie flips."""
+    got = np.asarray(got).reshape(-1, np.asarray(got).shape[-1])
+    want = np.asarray(want).reshape(got.shape)
+    flips = 0
+    for g, w in zip(got, want):
+        if int(np.argmax(g)) != int(np.argmax(w)):
+            if not _near_tie(w, DEC_PARITY_TOL):
+                fail(f"{what}: argmax {int(np.argmax(g))} vs "
+                     f"{int(np.argmax(w))} without a near-tie")
+            flips += 1
+    return flips
+
+
+def decode_model(place=None, params=None, **overrides):
+    from paddle_tpu_torch.decode.model import TinyDecoderLM
+
+    return TinyDecoderLM(**dict(DEC_CONFIG, **overrides), seed=DEC_SEED,
+                         place=place, params=params)
+
+
+def phase_decode_parity(dev):
+    """B and E. The full-width decoder LM on the card against the port's
+    CPU path from the same weights: a cold prefill of 4 ragged prompts,
+    DEC_PARITY_STEPS decode steps teacher-forced with the CPU's tokens,
+    one verify step of 4 tokens a slot and one prefix-hit prefill (512
+    cached rows); logits within DEC_PARITY_TOL of max|CPU| at every step,
+    ids equal up to near-ties.  The launch counters, zeroed around each
+    card call, must read: cold prefill flash forward 4; decode step paged
+    4; verify step chunk 4; prefix-hit prefill chunk 4; nothing else.
+    Returns the card model and {call: launches}."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    card = decode_model()
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(x.shape)) for x in (
+        [card.params["emb"], card.params["pos"], card.params["ln_f"]]
+        + [t for lp in card.params["layers"] for t in lp.values()]))
+    cpu = decode_model(pt.CPUPlace(), card.to_numpy(), num_pages=256)
+    log(f"decoder LM: {n_params / 1e6:.1f} M parameters "
+        f"({4 * n_params / 2**30:.2f} GiB f32), K/V pools "
+        f"{2 * card.k_pool.numel() * 4 / 2**30:.2f} GiB on {card.place!r}; "
+        f"a CPU copy from the same weights ({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.RandomState(61)
+    v = DEC_CONFIG["vocab"]
+    prompts = [[int(x) for x in rng.randint(2, v, n)]
+               for n in DEC_PARITY_PROMPTS]
+    counts, ratios, flips = {}, [], 0
+
+    def both(call, what, want_launches):
+        zero_counters()
+        got = call(card)
+        torch.cuda.synchronize()
+        launches = counters()
+        expect = dict.fromkeys(KERNELS, 0)
+        expect.update(want_launches)
+        if launches != expect:
+            fail(f"{what}: launches {launches}, want {want_launches}")
+        counts[what] = launches
+        return got, call(cpu)
+
+    pages, first = [], []
+    for prompt in prompts:
+        need = card.context_pages(prompt, DEC_PARITY_STEPS + 4)
+        pg = card.allocator.alloc(need)
+        if cpu.allocator.alloc(need) != pg:
+            fail("the two allocators handed out different pages")
+        pages.append(pg)
+        (_, _, got), (_, _, want) = both(
+            lambda m: m.prefill(prompt, pg), "cold_prefill",
+            dict(flash_attention_fwd=DEC_CONFIG["num_layers"]))
+        ratios.append(_scaled_check(f"cold prefill of {len(prompt)} tokens",
+                                    got, want))
+        flips += _same_ids("cold prefill", got[None], want[None])
+        first.append(int(np.argmax(want)))
+    tables = np.stack([card.pool_table(pg) for pg in pages])
+    lens = np.array([len(x) for x in prompts], np.int64)
+    toks = np.array(first, np.int64)[:, None]
+    for step in range(DEC_PARITY_STEPS):
+        (got, _), (want, _) = both(
+            lambda m: m.decode(toks, [], tables, lens), "decode_step",
+            dict(paged_attention=DEC_CONFIG["num_layers"]))
+        ratios.append(_scaled_check(f"decode step {step}", got, want))
+        flips += _same_ids(f"decode step {step}", got, want)
+        toks = np.argmax(want, axis=-1)[:, None]      # teacher-forced
+        lens = lens + 1
+    chunk = np.concatenate([toks, rng.randint(2, v, (len(prompts), 3))], 1)
+    (got, _), (want, _) = both(
+        lambda m: m.verify_chunk(chunk, [], tables, lens), "verify_step",
+        dict(paged_attention_chunk=DEC_CONFIG["num_layers"]))
+    ratios.append(_scaled_check("verify step", got, want))
+    flips += _same_ids("verify step", got, want)
+    ps = DEC_CONFIG["page_size"]
+    hit = prompts[2][:GEN_SHARED_PREFIX] + [int(x) for x in
+                                            rng.randint(2, v, 40)]
+    hit_pages = []
+    for m in (card, cpu):
+        hp = m.allocator.fork(pages[2][:GEN_SHARED_PREFIX // ps])
+        hit_pages.append(hp + m.allocator.alloc(
+            m.context_pages(hit, 0) - len(hp)))
+    if hit_pages[0] != hit_pages[1]:
+        fail("the two allocators handed out different pages")
+    (_, _, got), (_, _, want) = both(
+        lambda m: m.prefill(hit, hit_pages[0],
+                            cached_len=GEN_SHARED_PREFIX),
+        "prefix_prefill",
+        dict(paged_attention_chunk=DEC_CONFIG["num_layers"]))
+    ratios.append(_scaled_check("prefix-hit prefill", got, want))
+    flips += _same_ids("prefix-hit prefill", got[None], want[None])
+    for m in (card, cpu):   # both allocators hold the same page lists
+        for pg in pages + hit_pages[:1]:
+            m.allocator.free(pg)
+    if card.allocator.pages_in_use:
+        fail(f"{card.allocator.pages_in_use} pages leaked")
+    log(f"decoder LM card vs CPU: prompts {list(DEC_PARITY_PROMPTS)}, "
+        f"{DEC_PARITY_STEPS} teacher-forced decode steps, a verify step, a "
+        f"prefix-hit prefill ({GEN_SHARED_PREFIX} cached rows + 40): "
+        f"logits max abs err {max(ratios):.2e} x max|CPU| (tolerance "
+        f"{DEC_PARITY_TOL}), {flips} near-tie argmax flips; launches per "
+        "call " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {c}" for n, c in v.items() if c)
+            for k, v in counts.items()))
+    del cpu
+    return card, counts
+
+
+def gen_call(addr, payload, timeout=600):
+    """POST /generate: (status, body, seconds to the first streamed line
+    or None, seconds to the end).  A streamed 200 body is its list of
+    ndjson lines."""
+    import http.client
+
+    host, port = addr.split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/generate", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        ttft = None
+        if resp.status == 200 and payload.get("stream", True) and (
+                "beam" not in payload):
+            body = []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                if line.strip():
+                    body.append(json.loads(line))
+        else:
+            body = json.loads(resp.read() or b"null")
+        return resp.status, body, ttft, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def solo_greedy(model, prompt, n):
+    """The request decoded alone (one slot, no prefix cache): (ids, the
+    top-2 logit gap at each step, max|logits|)."""
+    pages = model.allocator.alloc(model.context_pages(prompt, n))
+    try:
+        _, _, logits = model.prefill(prompt, pages)
+        table = model.pool_table(pages)[None]
+        ids, gaps, scale, length = [], [], 0.0, len(prompt)
+        while True:
+            top2 = np.partition(np.asarray(logits, np.float64), -2)[-2:]
+            gaps.append(top2[1] - top2[0])
+            scale = max(scale, float(np.abs(logits).max()))
+            ids.append(int(np.argmax(logits)))
+            if ids[-1] == model.eos_id or len(ids) == n:
+                return ids, gaps, scale
+            logits = model.decode(np.array([[ids[-1]]]), [], table,
+                                  np.array([length]))[0][0]
+            length += 1
+    finally:
+        model.allocator.free(pages)
+
+
+def agrees(got, ref):
+    """Greedy ids equal to the solo reference, or equal up to a first
+    divergence at a near-tie of the reference (later ids then follow
+    another context).  Returns None, or the divergence index."""
+    ids, gaps, scale = ref
+    for i, (a, b) in enumerate(zip(got, ids)):
+        if a != b:
+            if gaps[i] < DEC_PARITY_TOL * scale:
+                return i
+            fail(f"generated ids diverge at {i} ({a} vs {b}) without a "
+                 f"near-tie (gap {gaps[i]:.3e}, tolerance "
+                 f"{DEC_PARITY_TOL * scale:.3e})")
+    if len(got) != len(ids):
+        fail(f"{len(got)} generated ids, the solo reference has {len(ids)}")
+    return None
+
+
+def gen_requests():
+    """GEN_REQUESTS seeded requests: prompts of 16-1024 tokens, the first
+    8 sharing a GEN_SHARED_PREFIX-token prefix; every other one streamed;
+    request 5 a beam of 2, request 6 sampled with a seed."""
+    rng = np.random.RandomState(71)
+    v = DEC_CONFIG["vocab"]
+    shared = [int(x) for x in rng.randint(2, v, GEN_SHARED_PREFIX)]
+    out = []
+    for i in range(GEN_REQUESTS):
+        if i < 8:
+            prompt = shared + [int(x) for x in rng.randint(
+                2, v, rng.randint(16, 1024 - GEN_SHARED_PREFIX))]
+        else:
+            prompt = [int(x) for x in rng.randint(2, v, rng.randint(16,
+                                                                    1025))]
+        payload = {"src": prompt, "max_new_tokens": GEN_NEW_TOKENS,
+                   "stream": i % 2 == 0}
+        if i == 5:
+            payload["beam"] = 2
+            del payload["stream"]
+        if i == 6:
+            payload.update(temperature=0.8, top_k=50, seed=7)
+        out.append(payload)
+    return out
+
+
+def stepper_time():
+    """{"steps": (count, seconds), "prefills": (count, seconds)}: the
+    session's own histograms of its model.decode / verify_chunk calls and
+    of its prefills."""
+    from paddle_tpu_torch.observability import metrics
+
+    snap = metrics.snapshot()
+    out = {}
+    for key, name in (("steps", "decode_step_seconds"),
+                      ("prefills", "decode_prefill_seconds")):
+        vals = snap.get(name, {"values": []})["values"]
+        out[key] = (vals[0]["count"], vals[0]["sum"]) if vals else (0, 0.0)
+    return out
+
+
+def stepper_split(before, secs):
+    """The wall time of a burst split into the session's model calls, its
+    prefills and the rest (host bookkeeping, HTTP, waiting)."""
+    after = stepper_time()
+    (ns, ts), (np_, tp) = ((after[k][0] - before[k][0],
+                            after[k][1] - before[k][1])
+                           for k in ("steps", "prefills"))
+    return (f"{ns} steps {1e3 * ts:.1f} ms ({1e3 * ts / max(ns, 1):.2f} ms "
+            f"each), {np_} prefills {1e3 * tp:.1f} ms "
+            f"({1e3 * tp / max(np_, 1):.2f} ms each), the rest "
+            f"{1e3 * (secs - ts - tp):.1f} ms of {1e3 * secs:.1f}")
+
+
+def step_ms(model, lens, reps=20):
+    """Median host ms of model.decode at len(lens) active slots (the
+    logits come back to the host: a device sync)."""
+    pages = [model.allocator.alloc(model.context_pages([0] * n, 1))
+             for n in lens]
+    try:
+        tables = np.stack([model.pool_table(pg) for pg in pages])
+        toks = np.full((len(lens), 1), 5, np.int64)
+        lens = np.asarray(lens, np.int64)
+        times = []
+        for i in range(reps + 3):
+            t0 = time.perf_counter()
+            model.decode(toks, [], tables, lens)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    finally:
+        for pg in pages:
+            model.allocator.free(pg)
+
+
+def phase_generate(dev, model, smi):
+    """C. /generate over HTTP at full width: InferenceServer(None,
+    generator=GenerationEngine(model, max_slots=16, max_new_tokens=64,
+    prefix_cache=True, beam_max=2)) on CUDAPlace(0), GEN_REQUESTS
+    concurrent requests (gen_requests).  Each streamed reply's tokens
+    equal its final ids; greedy ids equal the same request decoded alone
+    (solo_greedy) up to near-ties; the beam is best-first; no page leaks
+    (pages_in_use == the cache's cached_pages); a too-long prompt is a
+    503 too_long and an expired deadline a 504.  The counters, zeroed
+    just before the burst, show every kernel of the path launched.
+    Logs tokens/s, time to first token and latency (p50/p99), the median
+    decode-step ms at 16 slots, prefix-cache hits and peak memory.
+    Returns the numbers, the launches and the solo references."""
+    import torch
+
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.serving import InferenceServer
+
+    engine = GenerationEngine(model, max_slots=DEC_SLOTS,
+                              max_new_tokens=GEN_NEW_TOKENS,
+                              prefix_cache=True, beam_max=2)
+    srv = InferenceServer(None, generator=engine)
+    cache = engine.session.prefix_cache
+    reqs = gen_requests()
+    results = [None] * len(reqs)
+
+    def one(i):
+        results[i] = gen_call(srv.address, reqs[i])
+
+    warm = gen_call(srv.address, {"src": [3, 4, 5], "max_new_tokens": 2,
+                                  "stream": False})
+    if warm[0] != 200:
+        fail(f"/generate warm-up: {warm[0]} {warm[1]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = stepper_time()
+    zero_counters()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    burst_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    split = stepper_split(before, burst_s)
+    for name in ("paged_attention", "paged_attention_chunk",
+                 "flash_attention_fwd"):
+        if not launches[name]:
+            fail(f"the /generate burst launched no {name}: {launches}")
+    if any(c for n, c in launches.items() if n not in (
+            "paged_attention", "paged_attention_chunk",
+            "flash_attention_fwd")):
+        fail(f"the /generate burst launched other kernels: {launches}")
+    tokens, ttfts, latencies, greedy = 0, [], [], {}
+    for i, (payload, res) in enumerate(zip(reqs, results)):
+        if res is None or res[0] != 200:
+            fail(f"/generate request {i}: {res and res[:2]}")
+        status, body, ttft, latency = res
+        latencies.append(latency)
+        if payload.get("stream", True) and "beam" not in payload:
+            final = body[-1]
+            streamed = [x["token"] for x in body[:-1]]
+            if not final.get("done") or streamed != final["ids"]:
+                fail(f"request {i}: streamed tokens {streamed[:8]}... != "
+                     f"final ids {final.get('ids', [])[:8]}...")
+            ids = final["ids"]
+            ttfts.append(ttft)
+        else:
+            ids = body["ids"]
+        if "beam" in payload:
+            scores = [b["score"] for b in body["beams"]]
+            if (scores != sorted(scores, reverse=True)
+                    or body["beams"][0]["ids"] != ids):
+                fail(f"beam reply not best-first: {body}")
+        tokens += len(ids)
+        if not (0 < len(ids) <= GEN_NEW_TOKENS) or not all(
+                0 <= x < DEC_CONFIG["vocab"] for x in ids):
+            fail(f"request {i}: {len(ids)} ids out of range")
+        if "beam" not in payload and "temperature" not in payload:
+            greedy[i] = ids
+    stats = cache.stats()
+    if stats["hits"] < 7:
+        fail(f"the 8 requests sharing a {GEN_SHARED_PREFIX}-token prefix "
+             f"hit the prefix cache {stats['hits']} times")
+    refs, diverged = {}, 0
+    for i, ids in greedy.items():
+        refs[i] = solo_greedy(model, reqs[i]["src"], GEN_NEW_TOKENS)
+        diverged += agrees(ids, refs[i]) is not None
+    code, body, _, _ = gen_call(srv.address, {"src": [5] * 2000,
+                                              "stream": False})
+    if code != 503 or body.get("reason") != "too_long":
+        fail(f"a 2000-token prompt: {code} {body}, want 503 too_long")
+    late = InferenceServer(None, generator=engine, request_timeout=1e-6)
+    try:
+        code, body, _, _ = gen_call(late.address, {"src": [5, 6],
+                                                   "stream": False})
+    finally:
+        late._httpd.shutdown()
+        late._httpd.server_close()
+    if code != 504:
+        fail(f"an expired deadline: {code} {body}, want 504")
+    ms16 = step_ms(model, [len(r["src"]) + GEN_NEW_TOKENS // 2
+                           for r in reqs[:DEC_SLOTS]])
+    if model.allocator.pages_in_use != cache.cached_pages:
+        fail(f"pages leaked: {model.allocator.pages_in_use} in use, the "
+             f"prefix cache holds {cache.cached_pages}")
+    srv.stop()
+    cache.clear()
+    if model.allocator.pages_in_use:
+        fail(f"{model.allocator.pages_in_use} pages in use after the cache "
+             "was cleared")
+    pct = lambda xs, q: float(np.percentile(xs, q))   # noqa: E731
+    out = dict(tokens_per_s=tokens / burst_s, tokens=tokens, burst_s=burst_s,
+               ttft_p50_ms=1e3 * pct(ttfts, 50),
+               ttft_p99_ms=1e3 * pct(ttfts, 99),
+               latency_p50_ms=1e3 * pct(latencies, 50),
+               latency_p99_ms=1e3 * pct(latencies, 99), step_ms_16=ms16,
+               prefix_hits=stats["hits"], peak_bytes=peak)
+    log(f"/generate at full width: {len(reqs)} concurrent requests "
+        f"(prompts {min(len(r['src']) for r in reqs)}-"
+        f"{max(len(r['src']) for r in reqs)} tokens, 8 sharing "
+        f"{GEN_SHARED_PREFIX}), {tokens} tokens in {burst_s:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; time to first token p50 "
+        f"{out['ttft_p50_ms']:.1f} ms p99 {out['ttft_p99_ms']:.1f} ms "
+        f"(streamed); latency p50 {out['latency_p50_ms']:.1f} ms p99 "
+        f"{out['latency_p99_ms']:.1f} ms; decode step at {DEC_SLOTS} slots "
+        f"{ms16:.2f} ms median; prefix cache {stats}; peak memory "
+        f"{peak / 2**30:.2f} GiB; {len(greedy)} greedy replies equal their "
+        f"solo decode ({diverged} diverge at a near-tie); launches "
+        f"{ {k: c for k, c in launches.items() if c} }; the stepper: "
+        f"{split}; on {smi}")
+    return out, launches, refs, reqs
+
+
+def phase_spec(dev, model, refs, reqs, smi):
+    """D. Speculative decoding on the same model: GenerationEngine(model,
+    max_slots=16, spec_draft=NgramDraft(), spec_k=4) over the greedy
+    requests of phase C; ids equal the solo references up to near-ties.
+    Logs the acceptance ratio and tokens/s."""
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.decode.spec import NgramDraft
+    from paddle_tpu_torch.observability import metrics
+
+    proposed = metrics.counter("decode_spec_proposed_total")
+    accepted = metrics.counter("decode_spec_accepted_total")
+    p0, a0 = proposed.value(), accepted.value()
+    engine = GenerationEngine(model, max_slots=DEC_SLOTS,
+                              max_new_tokens=GEN_NEW_TOKENS,
+                              spec_draft=NgramDraft(), spec_k=4)
+    before = stepper_time()
+    try:
+        t0 = time.perf_counter()
+        handles = {i: engine.submit(reqs[i]["src"], GEN_NEW_TOKENS)
+                   for i in refs}
+        got = {i: h.result(timeout=900) for i, h in handles.items()}
+        secs = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    diverged = sum(agrees(got[i], refs[i]) is not None for i in refs)
+    if model.allocator.pages_in_use:
+        fail(f"speculative decoding leaked {model.allocator.pages_in_use} "
+             "pages")
+    tokens = sum(len(x) for x in got.values())
+    ratio = (accepted.value() - a0) / max(1.0, proposed.value() - p0)
+    log(f"speculative decoding (n-gram draft, k 4): {len(got)} requests, "
+        f"{tokens} tokens in {secs:.3f} s = {tokens / secs:.1f} tokens/s; "
+        f"{int(accepted.value() - a0)} of {int(proposed.value() - p0)} "
+        f"drafted tokens accepted (ratio {ratio:.3f}); ids equal the solo "
+        f"greedy decode ({diverged} diverge at a near-tie); the stepper: "
+        f"{stepper_split(before, secs)}; on {smi}")
+    return dict(tokens_per_s=tokens / secs, accept_ratio=ratio)
+
+
+def profile_decode_step():
+    """The body of ``chip_smoke.py --profile-decode-step``: one profiled
+    decode step of the full-width model at 16 active slots (seeded lens
+    of 48-1056 rows, pools of seeded values), after 3 warm-up steps; one
+    profiled cold prefill of a 600-token prompt and one prefix-hit
+    prefill of it (512 cached rows); the cost of bringing the step's
+    logits (16 x 32768 f32) to the host.  Prints {"idle_share",
+    "step_ms", "d2h_ms"} as the last line."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    model = decode_model()
+    gen = torch.Generator(device=dev).manual_seed(81)
+    model.k_pool.normal_(generator=gen)
+    model.v_pool.normal_(generator=gen)
+    rng = np.random.RandomState(82)
+    lens = [int(x) for x in rng.randint(16, 1025, DEC_SLOTS) + 32]
+    pages = [model.allocator.alloc(model.context_pages([0] * n, 1))
+             for n in lens]
+    tables = np.stack([model.pool_table(pg) for pg in pages])
+    toks = rng.randint(2, DEC_CONFIG["vocab"], (DEC_SLOTS, 1))
+    lens = np.asarray(lens, np.int64)
+
+    def step():
+        model.decode(toks, [], tables, lens)
+
+    for _ in range(3):
+        step()
+    idle = profile_step(step, f"decode step at {DEC_SLOTS} slots",
+                        want={"paged_attention_kernel":
+                              DEC_CONFIG["num_layers"]})
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    prompt = [int(x) for x in rng.randint(2, DEC_CONFIG["vocab"],
+                                          GEN_SHARED_PREFIX + 88)]
+    cold = model.allocator.alloc(model.context_pages(prompt, 0))
+    hit = model.allocator.fork(cold[:GEN_SHARED_PREFIX //
+                                    DEC_CONFIG["page_size"]])
+    hit += model.allocator.alloc(len(cold) - len(hit))
+    layers = DEC_CONFIG["num_layers"]
+    for what, run, want in (
+            (f"cold prefill of {len(prompt)} tokens",
+             lambda: model.prefill(prompt, cold),
+             {"flash_fwd_kernel": layers}),
+            (f"prefix-hit prefill ({GEN_SHARED_PREFIX} cached + 88)",
+             lambda: model.prefill(prompt, hit, cached_len=GEN_SHARED_PREFIX),
+             {"paged_attention_chunk_kernel": layers})):
+        run()
+        profile_step(run, what, want=want)
+        ptimes = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            ptimes.append((time.perf_counter() - t0) * 1e3)
+        log(f"{what}: {statistics.median(ptimes):.3f} ms median over 5 "
+            "(host clock, the last row's logits on the host)")
+    logits = torch.randn(DEC_SLOTS, DEC_CONFIG["vocab"], device=dev)
+    d2h = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits.cpu().numpy()
+        d2h.append((time.perf_counter() - t0) * 1e3)
+    mib = DEC_SLOTS * DEC_CONFIG["vocab"] * 4 / 2**20
+    log(f"decode step at {DEC_SLOTS} slots: {step_ms:.3f} ms median over "
+        f"10 (host clock, logits on the host); the logits' copy to the host "
+        f"({mib:.0f} MiB) {statistics.median(d2h):.3f} ms median")
+    print(json.dumps({"idle_share": idle, "step_ms": step_ms,
+                      "d2h_ms": statistics.median(d2h)}), flush=True)
+
+
+def phase_decode_profile():
+    """F. One profiled decode step in a fresh process (this script with
+    PROFILE_DEC), as phase 16 profiles the sequence steps."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           PROFILE_DEC], capture_output=True, text=True,
+                          timeout=600, cwd=HERE)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        fail(f"the profiled decode step failed (exit {proc.returncode}):"
+             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 def timed(fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2205,6 +2967,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:] == [PROFILE_SEQ]:
         profile_sequence_steps()
+        return
+    if sys.argv[1:] == [PROFILE_DEC]:
+        profile_decode_step()
         return
     t_start = time.perf_counter()
 
@@ -2290,24 +3055,39 @@ def main():
     idle = timed(phase_seq_profile)
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
 
+    model, dec_counts = timed(phase_decode_parity, dev)
+    gen, gen_launches, refs, reqs = timed(phase_generate, dev, model, smi)
+    spec = timed(phase_spec, dev, model, refs, reqs, smi)
+    del model
+    torch.cuda.empty_cache()
+    gen.update(timed(phase_decode_profile))
+
     # each kernel's numbers are those of the path that runs it most: the
     # matmul and flash kernels the transformer step, the LSTM kernel the
-    # padded classifier's step, the gather the LoD classifier's, the rest
-    # the ResNet-50 step; launches_by_path has every path's count
+    # padded classifier's step, the gather the LoD classifier's, the paged
+    # kernels the decode step and the verify step, the rest the ResNet-50
+    # step; launches_by_path has every path's count
     by_path = {"train_step": train["launches"], "serving": serve_launches,
                "transformer_train_step": tf["launches"],
                "lstm_train_step": lstm["launches"],
-               "lod_train_step": lod["launches"]}
-    main_path = dict(matmul=tf, lstm=lstm, embedding=lod)
+               "lod_train_step": lod["launches"],
+               "generate": gen_launches, **dec_counts}
+    main_path = dict(matmul=tf["launches"], lstm=lstm["launches"],
+                     embedding=lod["launches"],
+                     paged_attention=dec_counts["decode_step"],
+                     paged_attention_chunk=dec_counts["verify_step"])
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
-             launches=main_path.get(name, tf if name.startswith("flash")
-                                    else train)["launches"][name],
+             launches=main_path.get(name, tf["launches"]
+                                    if name.startswith("flash")
+                                    else train["launches"])[name],
              launches_by_path={p: c[name] for p, c in by_path.items()},
              max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
              bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-             library_ms=k["library_ms"])
+             library_ms=k["library_ms"],
+             **({"gather_sdpa_ms": k["gather_sdpa_ms"]}
+                if "gather_sdpa_ms" in k else {}))
         for name, k in kernels.items()]}
     log(f"serving throughput: {img_per_s:.1f} images/s at bucket "
         f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "
@@ -2323,7 +3103,13 @@ def main():
         f"{lstm['idle_share']:.3f}; LoD classifier training: "
         f"{lod['steps_per_s']:.2f} steps/s, peak "
         f"{lod['peak_bytes'] / 2**30:.3f} GiB, idle share "
-        f"{lod['idle_share']:.3f}; on {smi}; "
+        f"{lod['idle_share']:.3f}; /generate (decoder LM, d_model 2048, "
+        f"16 slots): {gen['tokens_per_s']:.1f} tokens/s over the burst, "
+        f"time to first token p50 {gen['ttft_p50_ms']:.1f} ms p99 "
+        f"{gen['ttft_p99_ms']:.1f} ms, decode step {gen['step_ms_16']:.2f} "
+        f"ms at 16 slots, peak {gen['peak_bytes'] / 2**30:.2f} GiB, idle "
+        f"share {gen['idle_share']:.3f}; speculative {spec['tokens_per_s']:.1f}"
+        f" tokens/s, acceptance {spec['accept_ratio']:.3f}; on {smi}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

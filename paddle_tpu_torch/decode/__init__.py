@@ -1,0 +1,52 @@
+"""Paged-KV decode engine: ragged batched generation
+(``paddle_tpu/decode``).
+
+Sequences of different lengths share one preallocated device pool of
+fixed-size *pages*; a per-sequence page table names which pages hold
+its context; and the decode step is one fixed-shape step over
+``(pools, page_tables, lengths, tokens)`` for every slot, whatever
+joins and finishes.
+
+Pieces:
+
+- ``paged_kv``    — host-side refcounted page allocator (free-list
+                    reuse, pool exhaustion -> admission refusal,
+                    copy-on-write splits) + a torch page pool.
+- ``attention``   — the ragged paged-attention decode and chunk calls
+                    (the CUDA kernels of ``kernels/paged_attention.py``
+                    on the card) and the dense prefill through the
+                    flash-attention forward.
+- ``model``       — ``TinyDecoderLM``: a decoder-only transformer over
+                    paged K/V pools (growing KV: each step appends one
+                    K/V row into the sequence's pages).
+- ``session``     — ``DecodeSession``: continuous batching at token
+                    granularity, beam groups over copy-on-write sibling
+                    slots, seeded sampling, speculative steps.
+- ``prefix``      — ``PrefixCache``: prompt-page trie over the
+                    refcounted allocator.
+- ``spec``        — speculative decoding: drafts, the greedy acceptance
+                    rule, ``SpeculativeDecoder``.
+- ``engine``      — ``GenerationEngine``: the serving front (background
+                    stepper thread, admission control, token streaming)
+                    that ``InferenceServer`` mounts at ``POST /generate``.
+
+The v1 ``beam_search`` adapter ``PagedSeq2SeqModel`` comes with the
+port's sequence tail.
+"""
+
+from paddle_tpu_torch.decode.paged_kv import (
+    PageAllocator,
+    PagedPool,
+    PoolExhausted,
+)
+from paddle_tpu_torch.decode.session import (
+    AdmissionRefused,
+    DecodeRequest,
+    DecodeSession,
+)
+from paddle_tpu_torch.decode.engine import GenerationEngine
+
+__all__ = [
+    "AdmissionRefused", "DecodeRequest", "DecodeSession",
+    "GenerationEngine", "PageAllocator", "PagedPool", "PoolExhausted",
+]

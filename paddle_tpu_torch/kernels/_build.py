@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "paddle_tpu_torch")
 
 #: The kernel libraries, one per ``csrc/<name>.cu``.
 LIBRARIES = ("conv", "conv_dw", "batch_norm", "matmul", "softmax",
-             "flash_attention", "lstm", "embedding")
+             "flash_attention", "lstm", "embedding", "paged_attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,12 +1,23 @@
-"""Serve a save_inference_model export over HTTP:
+"""Serve a save_inference_model export and/or a paged-KV decoder over
+HTTP:
 
     python -m paddle_tpu_torch.serving --model_dir=DIR [--port=N]
         [--replicas=N] [--max_batch=N] [--batch_timeout_ms=MS] [--warmup]
         [--request_timeout=SECONDS] [--max_inflight=N] [--cpu]
+    python -m paddle_tpu_torch.serving --gen_config=SCRIPT [--port=N]
+        [--gen_slots=N] [--gen_queue=N] [--gen_max_tokens=N]
+        [--prefix_cache] [--prefix_cache_pages=N] [--spec_draft=ngram]
+        [--spec_k=K] [--beam_max=K] [--request_timeout=SECONDS]
 
-The counterpart of ``paddle serve``.  Runs on CUDA card 0 unless
-``--cpu`` is given.  Prints one line ``serving on http://HOST:PORT``
-once it accepts requests, then serves until interrupted.
+The counterpart of ``paddle serve``.  ``--model_dir`` mounts
+``/predict``, on CUDA card 0 unless ``--cpu`` is given.
+``--gen_config`` mounts ``/generate``: SCRIPT is executed and must
+define ``make_decode_model()`` returning a paged decoder LM (a
+``paddle_tpu_torch.decode.model.TinyDecoderLM``, which picks its own
+place); a ``make_draft_model()`` in it, or ``--spec_draft=ngram``,
+turns on speculative decoding.  Prints one line
+``serving on http://HOST:PORT`` once it accepts requests, then serves
+until interrupted.
 """
 
 from __future__ import annotations
@@ -18,9 +29,40 @@ from paddle_tpu_torch.framework import CPUPlace
 from paddle_tpu_torch.serving import InferenceServer
 
 
+def load_generator(args):
+    """A GenerationEngine from ``--gen_config`` and the ``--gen_*``
+    flags (``paddle_tpu/cli.py`` ``_load_generator``)."""
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.decode.spec import NgramDraft
+
+    path = args.gen_config
+    glb = {"__file__": path, "__name__": "__paddle_serve_gen__"}
+    with open(path) as f:
+        exec(compile(f.read(), path, "exec"), glb)
+    if "make_decode_model" not in glb:
+        if "make_generator" in glb:
+            raise NotImplementedError(
+                f"{path} defines make_generator() -> (beam_gen, parameters),"
+                " a v1 beam_search spec: the port serves it with slice 6, "
+                "the sequence tail; define make_decode_model() instead")
+        raise RuntimeError(f"{path} defines no make_decode_model() -> paged "
+                           "decoder model")
+    spec_draft = None
+    if "make_draft_model" in glb:
+        spec_draft = glb["make_draft_model"]()
+    elif args.spec_draft == "ngram":
+        spec_draft = NgramDraft()
+    return GenerationEngine(
+        glb["make_decode_model"](), max_slots=args.gen_slots,
+        max_waiting=args.gen_queue, max_new_tokens=args.gen_max_tokens,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_pages=args.prefix_cache_pages, spec_draft=spec_draft,
+        spec_k=args.spec_k, beam_max=args.beam_max)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.serving")
-    ap.add_argument("--model_dir", required=True)
+    ap.add_argument("--model_dir", default=None)
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--replicas", type=int, default=1)
@@ -30,14 +72,29 @@ def main(argv=None) -> int:
     ap.add_argument("--request_timeout", type=float, default=None)
     ap.add_argument("--max_inflight", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",
-                    help="run on the CPU instead of CUDA card 0")
+                    help="run /predict on the CPU instead of CUDA card 0")
+    ap.add_argument("--gen_config", default=None,
+                    help="script defining make_decode_model(): mounts "
+                    "POST /generate")
+    ap.add_argument("--gen_slots", type=int, default=8)
+    ap.add_argument("--gen_queue", type=int, default=64)
+    ap.add_argument("--gen_max_tokens", type=int, default=32)
+    ap.add_argument("--prefix_cache", action="store_true")
+    ap.add_argument("--prefix_cache_pages", type=int, default=None)
+    ap.add_argument("--spec_draft", choices=("ngram",), default=None)
+    ap.add_argument("--spec_k", type=int, default=4)
+    ap.add_argument("--beam_max", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.model_dir is None and args.gen_config is None:
+        ap.error("give --model_dir and/or --gen_config")
+    generator = load_generator(args) if args.gen_config else None
     srv = InferenceServer(
         args.model_dir, port=args.port, host=args.host,
         request_timeout=args.request_timeout,
         max_inflight=args.max_inflight, replicas=args.replicas,
         max_batch=args.max_batch, batch_timeout_ms=args.batch_timeout_ms,
-        warmup=args.warmup, place=CPUPlace() if args.cpu else None)
+        warmup=args.warmup, place=CPUPlace() if args.cpu else None,
+        generator=generator)
     print(f"serving on http://{srv.address}", flush=True)
     try:
         threading.Event().wait()

@@ -443,3 +443,164 @@ def test_lstm_classifier_step_on_the_card_matches_cpu(dev):
         a, ref = card_scope.get(n).cpu().numpy(), cpu_scope.get(n).numpy()
         np.testing.assert_allclose(a, ref, rtol=0,
                                    atol=1e-4 * max(np.abs(ref).max(), 1e-30))
+
+
+def _paged_inputs(g, s, h, d, page, p, n, lens, t=None, dev="cuda"):
+    """Seeded pools, a table of distinct random pages per slot (page 0, the
+    null page, only as padding past each slot's pages) and int32 lens."""
+    q = _randn(g, *((s, h, d) if t is None else (s, t, h, d)), device=dev)
+    k_pages = _randn(g, n, page, h, d, device=dev)
+    v_pages = _randn(g, n, page, h, d, device=dev)
+    perm = torch.randperm(n - 1, generator=g)[:s * p].reshape(s, p) + 1
+    reach = [-(-(int(x) + (t or 0)) // page) for x in lens]
+    for i, r in enumerate(reach):
+        perm[i, min(r, p):] = 0
+    tables = perm.to(torch.int32).to(dev)
+    return q, k_pages, v_pages, tables, torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev)
+
+
+PAGED_SHAPES = [
+    # (S, H, D, page, P, N, lens): the decode step at the slice's width,
+    # a small ragged shape, and odd page sizes and head dims
+    (16, 16, 128, 16, 128, 2100,
+     [1, 16, 17, 2048, 5, 100, 1000, 2047, 33, 64, 255, 256, 1500, 900, 2,
+      31]),
+    (5, 2, 16, 8, 3, 16, [3, 8, 17, 1, 24]),
+    (3, 3, 40, 5, 7, 30, [35, 1, 12]),
+    (2, 1, 256, 16, 4, 10, [64, 7]),
+]
+
+
+@pytest.mark.parametrize("s,h,d,page,p,n,lens", PAGED_SHAPES)
+def test_paged_attention_kernel_matches_plain(dev, s, h, d, page, p, n, lens):
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(21)
+    q, kp, vp, tables, lens_t = _paged_inputs(g, s, h, d, page, p, n, lens,
+                                              dev=dev)
+    before = kpa.launches
+    got = kpa.paged_attention(q, kp, vp, tables, lens_t)
+    assert kpa.launches == before + 1
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,t,cached", [(16, 4, None), (1, 88, [512]),
+                                        (3, 5, [0, 9, 30])])
+def test_paged_attention_chunk_kernel_matches_plain(dev, s, t, cached):
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    h, d, page, p = (16, 128, 16, 128) if s != 3 else (2, 24, 8, 6)
+    n = s * p + 1
+    if cached is None:   # the speculative verify: ragged lens below 2044
+        cached = [int(x) for x in np.random.RandomState(3).randint(
+            1, page * p - t, s)]
+    g = torch.Generator().manual_seed(22)
+    q, kp, vp, tables, lens_t = _paged_inputs(g, s, h, d, page, p, n, cached,
+                                              t=t, dev=dev)
+    before = kpa.chunk_launches
+    got = kpa.paged_attention_chunk(q, kp, vp, tables, lens_t)
+    assert kpa.chunk_launches == before + 1
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_chunk_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_paged_attention_never_reads_past_the_limit(dev):
+    """Pages past each slot's limit (the null page the padding names
+    included) hold NaN: the kernels never read them.  An empty context
+    gives zeros."""
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(23)
+    s, h, d, page, p, n = 4, 2, 32, 8, 5, 24
+    lens = [9, 1, 0, 40]
+    q, kp, vp, tables, lens_t = _paged_inputs(g, s, h, d, page, p, n, lens,
+                                              dev=dev)
+    used = set()
+    for i, ln in enumerate(lens):
+        used |= {int(x) for x in tables[i, :-(-ln // page)].tolist()}
+    unused = torch.tensor(sorted(set(range(n)) - used), device=dev)
+    kn, vn = kp.clone(), vp.clone()
+    kn[unused] = float("nan")
+    vn[unused] = float("nan")
+    got = kpa.paged_attention(q, kn, vn, tables, lens_t)
+    chunk = kpa.paged_attention_chunk(q[:, None], kn, vn, tables,
+                                      lens_t - 1)
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(chunk[:, 0], want, rtol=0, atol=1e-4)
+    assert float(got[2].abs().max()) == 0.0
+
+
+def test_paged_attention_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    q = torch.ones(2, 2, 16, device=dev)
+    kp = torch.ones(4, 8, 2, 16, device=dev)
+    tables = torch.ones(2, 3, dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kpa.paged_attention(q.double(), kp.double(), kp.double(), tables, lens)
+    with pytest.raises(TypeError):
+        kpa.paged_attention(q, kp, kp, tables.long(), lens)
+    with pytest.raises(TypeError):
+        kpa.paged_attention_chunk(q[:, None], kp, kp, tables, lens.long())
+    with pytest.raises(ValueError):
+        kpa.paged_attention(q, kp, kp.cpu(), tables, lens)
+    big = torch.ones(2, 2, 512, device=dev)
+    with pytest.raises(ValueError):   # head dim past the kernel's 256
+        kpa.paged_attention(big, torch.ones(4, 8, 2, 512, device=dev),
+                            torch.ones(4, 8, 2, 512, device=dev), tables, lens)
+
+
+def test_decoder_lm_on_the_card_matches_cpu(dev):
+    """A small TinyDecoderLM on the card against the CPU from the same
+    weights: cold prefill, decode, verify and prefix-hit prefill logits
+    within 1e-4 of max, each call one launch a layer of the flash
+    forward, paged, chunk and chunk kernel."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.decode.model import TinyDecoderLM
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    geo = dict(vocab=128, d_model=64, num_heads=4, num_layers=2,
+               max_len=128, num_pages=40, page_size=8, pages_per_seq=16)
+    card = TinyDecoderLM(**geo, seed=3)
+    cpu = TinyDecoderLM(**geo, place=pt.CPUPlace(), params=card.to_numpy())
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(2, 128, n)) for n in (5, 19, 40)]
+    pages = [card.allocator.alloc(card.context_pages(p, 8)) for p in prompts]
+    for p in pages:
+        assert cpu.allocator.alloc(len(p)) == p
+
+    def close(got, want):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+    def count(call, counter, mod):
+        before = getattr(mod, counter)
+        out = call(card)
+        assert getattr(mod, counter) == before + 2
+        close(out, call(cpu))
+        return out
+
+    first = [count(lambda m: m.prefill(p, pg)[2], "launches", kfa)
+             for p, pg in zip(prompts, pages)]
+    tables = np.stack([card.pool_table(p) for p in pages])
+    lens = np.array([len(p) for p in prompts])
+    toks = np.argmax(np.stack(first), -1)[:, None]
+    for _ in range(3):
+        logits = count(lambda m: m.decode(toks, [], tables, lens)[0],
+                       "launches", kpa)
+        toks, lens = np.argmax(logits, -1)[:, None], lens + 1
+    chunk = np.concatenate([toks, rng.randint(2, 128, (3, 3))], 1)
+    count(lambda m: m.verify_chunk(chunk, [], tables, lens)[0],
+          "chunk_launches", kpa)
+    hit = prompts[2][:32] + [7, 8, 9]
+    hit_pages = card.allocator.fork(pages[2][:4]) + card.allocator.alloc(1)
+    count(lambda m: m.prefill(hit, hit_pages, cached_len=32)[2],
+          "chunk_launches", kpa)

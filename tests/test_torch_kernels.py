@@ -214,10 +214,10 @@ def test_build_targets_sm90a_and_keys_on_sources():
         assert os.path.exists(_build.source_path(name))
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 8
+    assert len({_build.library_path(n) for n in _build.LIBRARIES}) == 9
     assert set(_build.LIBRARIES) == {"conv", "conv_dw", "batch_norm",
                                      "matmul", "softmax", "flash_attention",
-                                     "lstm", "embedding"}
+                                     "lstm", "embedding", "paged_attention"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
