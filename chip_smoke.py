@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: build its kernels, hold each
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
-and check the replies, train full-width ResNet-50, LeNet-5, the
-transformer LM and the LSTM text classifier (padded and over LoD ids)
-and check their steps, serve the paged-KV decoder LM over /generate and
-check its generations, then measure.
+and check the replies, train full-width ResNet-50 (float32 and under
+bf16 AMP), LeNet-5, the transformer LM and the LSTM text classifier
+(padded and over LoD ids) and check their steps, serve the paged-KV
+decoder LM over /generate and check its generations, then measure.
 
     python3 chip_smoke.py
 
@@ -65,8 +65,34 @@ seconds):
    then images/s over 5 timed steps after 2 warm-up steps, the peak of
    torch.cuda.max_memory_allocated(), and one profiled step (device idle
    share, top kernels, layout copies).
+6a. (AMP) The bf16 instances against their plain versions (in phase 2):
+   conv forward, backward-input and filter gradient at the 13 distinct
+   stride-1 conv shapes of the step at batch 256, BN forward and backward
+   at its distinct BN shapes, the matmul at the fc's 256 x 2048 x 1000,
+   each within BF16_RTOL / BF16_ATOL; the fused conv + BN statistics
+   (conv2d_bn_stats_nhwc, no op calls it) at benchmark/
+   pallas_convbn_bench.py's two shapes in float32 and bf16; medians of
+   the kernel, the plain version and the library (F.conv2d on
+   channels-last input, conv2d_input, conv2d_weight, F.batch_norm and its
+   backward, torch.matmul; for the fused conv F.conv2d plus
+   torch.var_mean), bound at 989 TFLOP/s bf16.
+6b. AMP parity: one AMP step (paddle_tpu_torch.amp on: bf16 conv, mul
+   and BN, f32 master weights) of the ResNet-50 program at batch 2 on
+   the card against the same step on CPUPlace() from identical weights:
+   the loss within AMP_PARITY_TOL of its value, each BN running
+   statistic within AMP_PARITY_TOL of max|CPU| or FLOOR_FACTOR times the
+   CPU's own bf16 effect on it (its AMP step against its f32 step)
+   where that is larger; then every op on identical inputs within
+   AMP_OP_TOL.
+6c. The AMP step at batch 256: the counters must show the bf16
+   instances the program implies (conv forward 46, backward-input 46,
+   filter gradient 46, BN forward 53, BN backward 53, matmul 1) and 1
+   float32 softmax, no float32 conv, BN or matmul launch; images/s over
+   5 timed steps after 2 warm-up steps beside the f32 step's, peak
+   memory, one profiled step.
 7. LeNet-5 with Adam trains on the card to accuracy > 0.9 on the seeded
-   synthetic digits of tests/test_book_convergence.py.
+   synthetic digits of tests/test_book_convergence.py, in float32 and
+   under AMP.
 8. Transformer parity: the transformer LM of
    benchmark/transformer_bench.py at full width (d_model 2048, 16 heads,
    4 layers, vocab 32768; Adam(1e-4), f32) for one step at B 1, S 128 on
@@ -150,9 +176,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores and
-# HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
+# dense on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)   # f32 sums of <= 4608 terms, reordered
@@ -166,6 +193,32 @@ BN_TOL = dict(rtol=1e-4, atol=1e-4)
 BN_VEC_TOL = 1e-4
 SOFTMAX_ATOL = 1e-6
 PROBS_TOL = dict(rtol=1e-4, atol=1e-5)
+# bf16 kernels against their plain versions: |kernel - plain| <= BF16_RTOL
+# * |plain| + BF16_ATOL * max|plain| per bf16 output (both sum in f32 in
+# other orders and round once: a sum near a rounding boundary lands one
+# bf16 ulp, at most 2^-7 relative, apart; atol for sums that cancel near
+# zero).  Their f32 outputs (filter gradient, BN statistics and vectors)
+# keep the f32 tolerances: the operands are the same bf16 values.
+BF16_RTOL = 1e-2
+BF16_ATOL = 1e-3
+# the fused conv's mean and variance: max abs err <= STATS_TOL * max|plain|
+# (f32 sums over up to 50,176 rows, the kernel's tiles added in double)
+STATS_TOL = 1e-4
+# the fused conv's shapes (benchmark/pallas_convbn_bench.py:45-49)
+STATS_SHAPES = ((256, 14, 14, 256, 256, 3), (256, 7, 7, 512, 512, 3))
+# AMP step at batch 2, card vs CPU: the loss within AMP_PARITY_TOL of its
+# value; each BN running statistic within AMP_PARITY_TOL of max|CPU| or
+# FLOOR_FACTOR times the CPU's own bf16 effect on it (its AMP step against
+# its f32 step from the same start) where that is larger: bf16 activations
+# that differ by an ulp where a kernel and its plain version round a sum
+# near a boundary move the last stage's statistics over 2 x 7 x 7 rows by a
+# few percent, as bf16 itself does; each op on identical inputs within
+# AMP_OP_TOL of max|CPU| (an
+# output rounded once to bf16 from f32 sums of identical inputs may land
+# one ulp of its largest element, 2^-8 = 3.9e-3, away; two for the library
+# convs, which cuDNN and the CPU each round their own way)
+AMP_PARITY_TOL = 1e-2
+AMP_OP_TOL = 8e-3
 # train-step parity, card vs CPU: max abs err <= PARITY_TOL * max|CPU| per
 # tensor (f32 through 53 conv+BN layers forward and back, sums in other
 # orders on the two devices)
@@ -214,7 +267,28 @@ KERNELS = {
                         "paddle_tpu/decode/attention.py:222"),
     "paged_attention_chunk": ("paddle_tpu_torch/csrc/paged_attention.cu",
                               "paddle_tpu/decode/attention.py:382"),
+    # the AMP slice's bf16 instances and the fused conv + BN statistics
+    "conv2d_nhwc_bf16": ("paddle_tpu_torch/csrc/conv.cu",
+                         "paddle_tpu/pallas/conv.py:161"),
+    "conv_bwd_input_bf16": ("paddle_tpu_torch/csrc/conv.cu",
+                            "paddle_tpu/pallas/conv.py:313"),
+    "conv_dw_bf16": ("paddle_tpu_torch/csrc/conv_dw.cu",
+                     "paddle_tpu/pallas/conv.py:252"),
+    "batch_norm_fwd_bf16": ("paddle_tpu_torch/csrc/batch_norm.cu",
+                            "paddle_tpu/pallas/batch_norm.py:124"),
+    "batch_norm_bwd_bf16": ("paddle_tpu_torch/csrc/batch_norm.cu",
+                            "paddle_tpu/pallas/batch_norm.py:197"),
+    "matmul_bf16": ("paddle_tpu_torch/csrc/matmul.cu",
+                    "paddle_tpu/pallas/matmul.py:92"),
+    "conv2d_bn_stats": ("paddle_tpu_torch/csrc/conv.cu",
+                        "paddle_tpu/pallas/conv.py:288"),
+    "conv2d_bn_stats_bf16": ("paddle_tpu_torch/csrc/conv.cu",
+                             "paddle_tpu/pallas/conv.py:288"),
 }
+# the bf16 instance of each kernel the AMP step runs in bf16
+BF16_OF = {name: name + "_bf16" for name in (
+    "conv2d_nhwc", "conv_bwd_input", "conv_dw", "batch_norm_fwd",
+    "batch_norm_bwd", "matmul")}
 
 # The transformer LM of benchmark/transformer_bench.py:45-60 at its own
 # full width (d_model 2048, 16 heads of 128, 4 layers, vocab 32768,
@@ -308,8 +382,8 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -352,7 +426,15 @@ def counters():
                 flash_attention_dq=kfa.dq_launches,
                 flash_attention_dkv=kfa.dkv_launches, lstm=klstm.launches,
                 embedding=kemb.launches, paged_attention=kpa.launches,
-                paged_attention_chunk=kpa.chunk_launches)
+                paged_attention_chunk=kpa.chunk_launches,
+                conv2d_nhwc_bf16=kconv.launches_bf16,
+                conv_bwd_input_bf16=kconv.bwd_input_launches_bf16,
+                conv_dw_bf16=kconv.dw_launches_bf16,
+                batch_norm_fwd_bf16=kbn.launches_bf16,
+                batch_norm_bwd_bf16=kbn.bwd_launches_bf16,
+                matmul_bf16=kmatmul.launches_bf16,
+                conv2d_bn_stats=kconv.stats_launches,
+                conv2d_bn_stats_bf16=kconv.stats_launches_bf16)
 
 
 def zero_counters():
@@ -366,8 +448,12 @@ def zero_counters():
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
     kconv.launches = kconv.bwd_input_launches = kconv.dw_launches = 0
+    kconv.launches_bf16 = kconv.bwd_input_launches_bf16 = 0
+    kconv.dw_launches_bf16 = 0
+    kconv.stats_launches = kconv.stats_launches_bf16 = 0
     kbn.launches = kbn.bwd_launches = 0
-    kmatmul.launches = ksoftmax.launches = 0
+    kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
+    kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
     kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
     klstm.launches = kemb.launches = 0
     kpa.launches = kpa.chunk_launches = 0
@@ -437,8 +523,10 @@ def bn_shapes_of(program, batch):
     return shapes
 
 
-def launches_implied(program):
-    """The kernel launches one run of a training ``program`` implies."""
+def launches_implied(program, amp=False):
+    """The kernel launches one run of a training ``program`` implies; with
+    ``amp``, the conv, BN and matmul launches are their bf16 instances'
+    (every activation of the ResNet step is bf16 under AMP)."""
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     block = program.global_block()
@@ -474,6 +562,9 @@ def launches_implied(program):
             # their trailing 1 is squeezed: (N, 1) LoD ids
             ids = block.var(op.input("Ids")[0]).shape
             want["embedding"] += len(ids) - (ids[-1] == 1) == 1
+    if amp:
+        for name, bf16 in BF16_OF.items():
+            want[bf16], want[name] = want[name], 0
     return want
 
 
@@ -491,7 +582,8 @@ def lstm_kernel_op(op, block):
 class _Sum:
     """A kernel's times, bound and error summed over one run's launches."""
 
-    def __init__(self):
+    def __init__(self, peak=PEAK_F32_FLOPS):
+        self.peak = peak
         self.ms = self.plain_ms = self.library_ms = 0.0
         self.flops = self.nbytes = 0.0
         self.max_abs_err = 0.0
@@ -505,14 +597,15 @@ class _Sum:
         self.max_abs_err = max(self.max_abs_err, err)
 
     def result(self):
-        b_ms, b_by = bound(self.flops, self.nbytes)
+        b_ms, b_by = bound(self.flops, self.nbytes, self.peak)
         return dict(ms=self.ms, plain_ms=self.plain_ms,
                     library_ms=self.library_ms, bound_ms=b_ms, bound_by=b_by,
                     max_abs_err=self.max_abs_err)
 
 
-def _line(what, count, ms, plain, lib, flops, nbytes, err):
-    b_ms, b_by = bound(flops, nbytes)
+def _line(what, count, ms, plain, lib, flops, nbytes, err,
+          peak=PEAK_F32_FLOPS):
+    b_ms, b_by = bound(flops, nbytes, peak)
     log(f"  {what} x{count}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"library {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s, "
@@ -725,6 +818,198 @@ def phase_dense_kernels(dev, randn):
             f"{err:.2e} (tolerance atol {SOFTMAX_ATOL})")
     results["softmax"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err)
+    return results
+
+
+def check_bf16(name, got, want):
+    """|kernel - plain| <= BF16_RTOL * |plain| + BF16_ATOL * max|plain|
+    for a bf16 output; returns the max abs err."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        fail(f"{name}: dtypes {got.dtype} and {want.dtype}, want bf16")
+    g, w = got.double(), want.double()
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    atol = BF16_ATOL * float(w.abs().max()) if w.numel() else 0.0
+    if not bool(((g - w).abs() <= BF16_RTOL * w.abs() + atol).all()):
+        fail(f"{name}: kernel disagrees with its plain version (max abs err "
+             f"{err:.3e}, tolerance rtol {BF16_RTOL} + {BF16_ATOL} x max)")
+    return err
+
+
+def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
+    """The AMP step's bf16 instances at every distinct shape the ResNet-50
+    step at batch 256 gives them, and the fused conv + BN statistics at
+    its two shapes in float32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    bf = torch.bfloat16
+    sums = {k: _Sum(PEAK_BF16_FLOPS) for k in (
+        "conv2d_nhwc_bf16", "conv_bwd_input_bf16", "conv_dw_bf16",
+        "batch_norm_fwd_bf16", "batch_norm_bwd_bf16")}
+    log(f"bf16 conv kernels of the AMP step at batch {TRAIN_BATCH} (fwd: "
+        "F.conv2d on channels-last bf16; bwd-input: conv2d_input; filter "
+        "grad: conv2d_weight; bound at 989 TFLOP/s bf16), per call:")
+    for (n, h, w, c, o, k), count in sorted(train_shapes.items()):
+        p = k // 2
+        x = randn(n, h, w, c).to(bf)
+        wt = randn(k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5).to(bf)
+        g = randn(n, h, w, o).to(bf)
+        x_lib, g_lib = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        flops = 2.0 * n * h * w * o * k * k * c
+        nbytes = 2.0 * (n * h * w * c + k * k * c * o + n * h * w * o)
+        tag = f"N{n} {h}x{w} {c}->{o} k{k}"
+
+        err = check_bf16(f"bf16 conv {tag}", kconv.conv2d_nhwc(x, wt, p),
+                         kconv.conv2d_nhwc_plain(x, wt, p))
+        times = (time_ms(lambda: kconv.conv2d_nhwc(x, wt, p)),
+                 time_ms(lambda: kconv.conv2d_nhwc_plain(x, wt, p), reps=5),
+                 time_ms(lambda: F.conv2d(x_lib, w_lib, padding=p)))
+        _line(f"bf16 fwd {tag}", count, *times, flops, nbytes, err,
+              PEAK_BF16_FLOPS)
+        sums["conv2d_nhwc_bf16"].add(count, *times, flops, nbytes, err)
+
+        err = check_bf16(f"bf16 conv bwd-input {tag}",
+                         kconv.conv2d_nhwc_bwd_input(g, wt, p),
+                         kconv.conv2d_nhwc_bwd_input_plain(g, wt, p))
+        times = (time_ms(lambda: kconv.conv2d_nhwc_bwd_input(g, wt, p)),
+                 time_ms(lambda: kconv.conv2d_nhwc_bwd_input_plain(g, wt, p),
+                         reps=5),
+                 time_ms(lambda: conv2d_input(x_lib.shape, w_lib, g_lib,
+                                              padding=p)))
+        _line(f"bf16 bwd-input {tag}", count, *times, flops, nbytes, err,
+              PEAK_BF16_FLOPS)
+        sums["conv_bwd_input_bf16"].add(count, *times, flops, nbytes, err)
+
+        # the filter gradient is f32 (KH, KW, C, O): 4 bytes an element
+        dw_bytes = 2.0 * (n * h * w * c + n * h * w * o) + 4.0 * k * k * c * o
+        err = check_scaled(f"bf16 conv filter grad {tag}",
+                           kconv.conv2d_nhwc_dw(x, g, k, p),
+                           kconv.conv2d_nhwc_dw_plain(x, g, k, p), DW_TOL)
+        times = (time_ms(lambda: kconv.conv2d_nhwc_dw(x, g, k, p)),
+                 time_ms(lambda: kconv.conv2d_nhwc_dw_plain(x, g, k, p),
+                         reps=5),
+                 time_ms(lambda: conv2d_weight(x_lib, w_lib.shape, g_lib,
+                                               padding=p)))
+        _line(f"bf16 filter grad {tag}", count, *times, flops, dw_bytes, err,
+              PEAK_BF16_FLOPS)
+        sums["conv_dw_bf16"].add(count, *times, flops, dw_bytes, err)
+        del x, wt, g, x_lib, g_lib, w_lib
+
+    log(f"bf16 batch-norm kernels of the AMP step at batch {TRAIN_BATCH} "
+        "(F.batch_norm and native_batch_norm_backward on channels-last bf16 "
+        "with f32 gamma and beta), per call:")
+    for (n, h, w, c), count in sorted(bn_shapes.items()):
+        rows = n * h * w
+        x = (randn(rows, c, scale=2.0) + 0.5).to(bf)
+        gamma, beta = randn(c), randn(c)
+        dy = randn(rows, c).to(bf)
+        x4 = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        dy4 = dy.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        tag = f"R{rows} C{c}"
+        y, m, v = kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)
+        py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, BN_EPS)
+        err = check_bf16(f"bf16 bn fwd {tag}", y, py)
+        check_scaled(f"bf16 bn mean {tag}", m, pm, BN_VEC_TOL)
+        check_scaled(f"bf16 bn var {tag}", v, pv, BN_VEC_TOL)
+        times = (time_ms(lambda: kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)),
+                 time_ms(lambda: kbn.batch_norm_fwd_plain(x, gamma, beta,
+                                                          BN_EPS), reps=5),
+                 time_ms(lambda: F.batch_norm(x4, None, None, gamma, beta,
+                                              training=True, eps=BN_EPS)))
+        flops, nbytes = 5.0 * rows * c, 2.0 * rows * c * 2
+        _line(f"bf16 fwd {tag}", count, *times, flops, nbytes, err,
+              PEAK_BF16_FLOPS)
+        sums["batch_norm_fwd_bf16"].add(count, *times, flops, nbytes, err)
+
+        inv = torch.rsqrt(v + BN_EPS)
+        dx, dg, db = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
+        pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
+        err = check_bf16(f"bf16 bn bwd {tag}", dx, pdx)
+        check_scaled(f"bf16 bn dgamma {tag}", dg, pdg, BN_VEC_TOL)
+        check_scaled(f"bf16 bn dbeta {tag}", db, pdb, BN_VEC_TOL)
+        times = (time_ms(lambda: kbn.batch_norm_bwd(x, dy, gamma, m, inv)),
+                 time_ms(lambda: kbn.batch_norm_bwd_plain(x, dy, gamma, m,
+                                                          inv), reps=5),
+                 time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+                     dy4, x4, gamma, None, None, m, inv, True, BN_EPS,
+                     [True, True, True])))
+        flops, nbytes = 8.0 * rows * c, 3.0 * rows * c * 2
+        _line(f"bf16 bwd {tag}", count, *times, flops, nbytes, err,
+              PEAK_BF16_FLOPS)
+        sums["batch_norm_bwd_bf16"].add(count, *times, flops, nbytes, err)
+        del x, dy, x4, dy4, y, py, dx, pdx
+    torch.cuda.empty_cache()
+    results = {name: s.result() for name, s in sums.items()}
+
+    x = randn(TRAIN_BATCH, 2048).to(bf)
+    y = randn(2048, 1000, scale=0.03).to(bf)
+    err = check_bf16(f"bf16 matmul {TRAIN_BATCH}x2048x1000",
+                     kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y))
+    times = (time_ms(lambda: kmatmul.matmul(x, y)),
+             time_ms(lambda: kmatmul.matmul_plain(x, y)),
+             time_ms(lambda: torch.matmul(x, y)))
+    flops = 2.0 * TRAIN_BATCH * 2048 * 1000
+    nbytes = 2.0 * (TRAIN_BATCH * 2048 + 2048 * 1000 + TRAIN_BATCH * 1000)
+    _line(f"bf16 matmul {TRAIN_BATCH}x2048x1000", 1, *times, flops, nbytes,
+          err, PEAK_BF16_FLOPS)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    results["matmul_bf16"] = dict(ms=times[0], plain_ms=times[1],
+                                  library_ms=times[2], bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=err)
+
+    # the fused conv + BN statistics (row 1b): no op calls it; its
+    # numbers are per call at each shape, summed over the two
+    for dtype, name in ((torch.float32, "conv2d_bn_stats"),
+                        (bf, "conv2d_bn_stats_bf16")):
+        total = _Sum(PEAK_BF16_FLOPS if dtype == bf else PEAK_F32_FLOPS)
+        size = 2 if dtype == bf else 4
+        log(f"{name} (conv + BN statistics; library F.conv2d + "
+            "torch.var_mean of its output), per call:")
+        for (n, h, w, c, o, k) in STATS_SHAPES:
+            p = k // 2
+            x = (randn(n, h, w, c) + 0.2).to(dtype)
+            wt = randn(k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5).to(dtype)
+            x_lib = x.permute(0, 3, 1, 2)
+            w_lib = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            out, mean, var = kconv.conv2d_bn_stats_nhwc(x, wt, p)
+            pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, p)
+            tag = f"N{n} {h}x{w} {c}->{o} k{k}"
+            err = (check_bf16(f"{name} {tag}", out, pout) if dtype == bf
+                   else check_close(f"{name} {tag}", out, pout, **GEMM_TOL))
+            check_scaled(f"{name} mean {tag}", mean, pmean, STATS_TOL)
+            check_scaled(f"{name} var {tag}", var, pvar, STATS_TOL)
+
+            def library():
+                o_ = F.conv2d(x_lib, w_lib, padding=p)
+                return torch.var_mean(o_.float(), dim=(0, 2, 3),
+                                      unbiased=False)
+
+            times = (time_ms(lambda: kconv.conv2d_bn_stats_nhwc(x, wt, p)),
+                     time_ms(lambda: kconv.conv2d_bn_stats_nhwc_plain(
+                         x, wt, p), reps=5),
+                     time_ms(library))
+            flops = 2.0 * n * h * w * o * k * k * c + 3.0 * n * h * w * o
+            nbytes = (size * (n * h * w * c + k * k * c * o + n * h * w * o)
+                      + 8.0 * o)
+            _line(f"{name} {tag}", 1, *times, flops, nbytes, err, total.peak)
+            total.add(1, *times, flops, nbytes, err)
+            del x, wt, x_lib, w_lib, out, pout
+        results[name] = total.result()
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms,"
+            f" library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
     return results
 
 
@@ -982,6 +1267,8 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results = phase_conv_kernels(dev, serve_shapes, train_conv_shapes, randn)
     results.update(phase_bn_kernels(dev, train_bn_shapes, randn))
     results.update(phase_dense_kernels(dev, randn))
+    results.update(phase_bf16_kernels(dev, train_conv_shapes,
+                                      train_bn_shapes, randn))
     results.update(phase_flash_kernels(dev, randn))
     results["matmul"] = phase_tf_matmul(dev, randn)
     phase_seq_dense(dev, randn)
@@ -1301,6 +1588,84 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
     return worst
 
 
+def phase_amp_parity(dev, main_prog, startup, loss):
+    """One AMP step on the card against the same AMP step on the CPU (the
+    kernels' plain versions), from identical weights and feeds, end to
+    end: the loss within AMP_PARITY_TOL of its value, each BN running
+    statistic within max(AMP_PARITY_TOL * max|CPU|, FLOOR_FACTOR * the
+    CPU's bf16 effect), the effect being max|CPU AMP step - CPU f32 step|
+    from the same start; then every op on identical inputs within
+    AMP_OP_TOL.  The gradients are held op by op only: at batch 2 they are
+    ill-conditioned (phase_train_parity), and bf16 rounding at other
+    places moves them by tens of percent end to end."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    card = pt.Executor()
+    scope = pt.Scope()
+    card.run(startup, scope=scope)
+    state = {n: v.cpu().numpy() for n, v in scope.values.items()}
+    rng = np.random.RandomState(6)
+    feed = {"img": rng.randn(PARITY_BATCH, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, 1000, (PARITY_BATCH, 1)).astype(np.int64)}
+    block = main_prog.global_block()
+    stats = sorted({n for op in block.ops if op.type == "batch_norm"
+                    for n in op.input("Mean") + op.input("Variance")})
+    with pt.amp.amp_guard(True):
+        zero_counters()
+        t0 = time.perf_counter()
+        (got,) = card.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        t_card = time.perf_counter() - t0
+        launches = counters()
+        cpu = pt.Executor(pt.CPUPlace())
+        scopes, losses = {}, {}
+        t0 = time.perf_counter()
+        for amp in (True, False):
+            scopes[amp] = pt.Scope()
+            scopes[amp].load_numpy(state, "cpu")
+            with pt.amp.amp_guard(amp):
+                (losses[amp],) = cpu.run(main_prog, feed=feed,
+                                         fetch_list=[loss],
+                                         scope=scopes[amp])
+        t_cpu = (time.perf_counter() - t0) / 2
+    if launches != launches_implied(main_prog, amp=True):
+        fail(f"AMP step at batch {PARITY_BATCH}: launches {launches}")
+    want = losses[True]
+    rel_loss = abs(float(got) - float(want)) / abs(float(want))
+    bad = [(loss.name, rel_loss)] if not rel_loss <= AMP_PARITY_TOL else []
+    worst, floor_held = (0.0, 0.0, ""), 0
+    for name in stats:
+        g = scope.get(name).cpu().numpy().astype(np.float64)
+        w = scopes[True].get(name).numpy().astype(np.float64)
+        f = scopes[False].get(name).numpy().astype(np.float64)
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max()) if np.isfinite(g).all() else np.inf
+        effect = float(np.abs(w - f).max())
+        allowed = max(AMP_PARITY_TOL * scale, FLOOR_FACTOR * effect)
+        floor_held += FLOOR_FACTOR * effect > AMP_PARITY_TOL * scale
+        worst = max(worst, (err / scale, effect / scale, name))
+        if not err <= allowed:
+            bad.append((name, err, allowed))
+    log(f"AMP step parity at batch {PARITY_BATCH}, end to end (card "
+        f"{t_card:.2f} s, CPU plain path {t_cpu:.2f} s a step): loss card "
+        f"{float(got):.6f} vs CPU {float(want):.6f} (rel {rel_loss:.2e}; the "
+        f"CPU's f32 step {float(losses[False]):.6f}); {len(stats)} BN "
+        f"running statistics, {floor_held} of them held to {FLOOR_FACTOR} x "
+        f"the CPU's own bf16 effect; worst max|card - CPU| / max|CPU| "
+        f"{worst[0]:.3e} ({worst[2]}; its bf16 effect {worst[1]:.3e}; "
+        f"tolerance {AMP_PARITY_TOL})")
+    if bad:
+        fail(f"AMP step on the card differs from the CPU end to end: "
+             f"{bad[:10]}")
+    with pt.amp.amp_guard(True):
+        ops_on_identical_inputs(dev, block, state, feed,
+                                f"AMP step parity at batch {PARITY_BATCH}",
+                                tol=AMP_OP_TOL)
+    del scope, scopes
+    torch.cuda.empty_cache()
+
+
 def _moved(v, device):
     """A run value on ``device``: a tensor, a LoD value (its rows and
     offsets), or a residual tuple (the LSTM's hs, cs and gates); a LoD
@@ -1318,10 +1683,10 @@ def _moved(v, device):
     return torch.as_tensor(v, device=device)
 
 
-def ops_on_identical_inputs(dev, block, state, feed, what):
+def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL):
     """Every op of ``block`` (forward, grad ops, sums, updates) on the card
     and, on copies of the very same input values, on the CPU: each output
-    within OP_TOL of the CPU output's largest magnitude.  A grad op gets
+    within ``tol`` of the CPU output's largest magnitude.  A grad op gets
     the residual its forward left for it (the attention's logsumexp, the
     LSTM's gates) on both sides."""
     import torch
@@ -1355,14 +1720,14 @@ def ops_on_identical_inputs(dev, block, state, feed, what):
                 err = float((g - want).abs().max()) if want.numel() else 0.0
                 n_out += 1
                 op_worst.append((err / scale if scale else err, op.type, n))
-                if not err <= OP_TOL * max(scale, 1e-30) and err > 0:
+                if not err <= tol * max(scale, 1e-30) and err > 0:
                     op_bad.append((op.type, n, err, scale))
     op_worst.sort(reverse=True)
     log(f"{what}, op by op on identical inputs: {len(block.ops)} ops, "
         f"{n_out} outputs in {time.perf_counter() - t0:.1f} s; worst "
         "max|card - CPU| / max|CPU|: "
         + ", ".join(f"{t} {n} {e:.2e}" for e, t, n in op_worst[:6])
-        + f" (tolerance {OP_TOL})")
+        + f" (tolerance {tol})")
     if op_bad:
         fail(f"ops on the card differ from the CPU on identical inputs: "
              f"{op_bad[:10]}")
@@ -1370,9 +1735,18 @@ def ops_on_identical_inputs(dev, block, state, feed, what):
     torch.cuda.empty_cache()
 
 
-def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
-    """The step at batch 256: counted launches, throughput, peak memory
-    and one profiled step."""
+def phase_train_step(dev, main_prog, startup, loss, want_launches, smi,
+                     amp=False):
+    """The step at batch 256 (under AMP with ``amp``): counted launches,
+    throughput, peak memory and one profiled step."""
+    import paddle_tpu_torch as pt
+
+    with pt.amp.amp_guard(amp):
+        return _train_step(dev, main_prog, startup, loss, want_launches, smi,
+                           "AMP bf16" if amp else "f32")
+
+
+def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
     import torch
 
     import paddle_tpu_torch as pt
@@ -1392,8 +1766,9 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
     (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     first_s = time.perf_counter() - t0
     launches = counters()
-    log(f"first train step at batch {TRAIN_BATCH}: loss {float(first):.5f} in "
-        f"{first_s:.2f} s; launches {launches}")
+    log(f"first {kind} train step at batch {TRAIN_BATCH}: loss "
+        f"{float(first):.5f} in {first_s:.2f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
     if launches != want_launches:
         fail(f"train-step launch counts {launches} != {want_launches}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -1407,7 +1782,7 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
     if not all(np.isfinite([float(first), float(second)] + losses)):
         fail(f"non-finite training loss: {first}, {second}, {losses}")
     img_s = 5 * TRAIN_BATCH / sum(times)
-    log(f"train step at batch {TRAIN_BATCH} (f32): {img_s:.1f} images/s over 5 "
+    log(f"train step at batch {TRAIN_BATCH} ({kind}): {img_s:.1f} images/s over 5 "
         f"timed steps after 2 warm-up steps ({sum(times):.3f} s; median "
         f"{statistics.median(times) * 1e3:.1f} ms, min {min(times) * 1e3:.1f},"
         f" max {max(times) * 1e3:.1f}); losses {[round(x, 5) for x in losses]};"
@@ -1415,7 +1790,7 @@ def phase_train_step(dev, main_prog, startup, loss, want_launches, smi):
 
     idle = profile_step(lambda: exe.run(main_prog, feed=feed,
                                         fetch_list=[loss], scope=scope),
-                        "train step")
+                        f"{kind} train step")
     del exe, scope, feed
     torch.cuda.empty_cache()
     return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
@@ -1483,9 +1858,18 @@ def profile_step(run, what, split=None, want=None):
     return idle
 
 
-def phase_lenet(dev):
+def phase_lenet(dev, amp=False):
     """LeNet-5 with Adam on the card, the mirror of
-    tests/test_book_convergence.py::test_recognize_digits_conv."""
+    tests/test_book_convergence.py::test_recognize_digits_conv; under AMP
+    with ``amp`` (its 5x5 unpadded convs on the library in bf16, its fc
+    products on the bf16 matmul kernel)."""
+    import paddle_tpu_torch as pt
+
+    with pt.amp.amp_guard(amp):
+        _lenet(dev, "AMP bf16" if amp else "f32")
+
+
+def _lenet(dev, kind):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import lenet5
 
@@ -1511,11 +1895,12 @@ def phase_lenet(dev):
         lv, av = exe.run(main_prog, feed={"img": xs,
                                           "label": ys.reshape(-1, 1)},
                          fetch_list=[loss, acc], scope=scope)
-    log(f"LeNet-5 + Adam, 40 steps of 64 on {exe.place!r} in "
+    log(f"LeNet-5 + Adam ({kind}), 40 steps of 64 on {exe.place!r} in "
         f"{time.perf_counter() - t0:.2f} s: final loss {float(lv):.4f}, "
         f"accuracy {float(av[0]):.3f}")
     if not float(av[0]) > 0.9:
-        fail(f"LeNet-5 did not converge: accuracy {float(av[0]):.3f}")
+        fail(f"LeNet-5 ({kind}) did not converge: accuracy "
+             f"{float(av[0]):.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2948,10 +3333,11 @@ def phase_decode_profile():
     return json.loads(proc.stdout.splitlines()[-1])
 
 
-def timed(fn, *args):
+def timed(fn, *args, **kwargs):
     t0 = time.perf_counter()
-    out = fn(*args)
-    log(f"[phase {fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    out = fn(*args, **kwargs)
+    tag = "".join(f", {k}={v}" for k, v in kwargs.items())
+    log(f"[phase {fn.__name__}{tag}: {time.perf_counter() - t0:.1f} s]")
     return out
 
 
@@ -3016,6 +3402,13 @@ def main():
                   batch_norm_fwd=53, batch_norm_bwd=53, matmul=1, softmax=1)
     if want_launches != expect:
         fail(f"unexpected ResNet-50 training program: {want_launches}")
+    want_amp = launches_implied(main_prog, amp=True)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(conv2d_nhwc_bf16=46, conv_bwd_input_bf16=46,
+                  conv_dw_bf16=46, batch_norm_fwd_bf16=53,
+                  batch_norm_bwd_bf16=53, matmul_bf16=1, softmax=1)
+    if want_amp != expect:
+        fail(f"unexpected ResNet-50 AMP training program: {want_amp}")
 
     kernels = timed(phase_kernels, dev, serve_shapes,
                     conv_shapes_of(main_prog, TRAIN_BATCH),
@@ -3041,7 +3434,11 @@ def main():
     timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
     train = timed(phase_train_step, dev, main_prog, startup, loss,
                   want_launches, smi)
+    timed(phase_amp_parity, dev, main_prog, startup, loss)
+    amp_train = timed(phase_train_step, dev, main_prog, startup, loss,
+                      want_amp, smi, amp=True)
     timed(phase_lenet, dev)
+    timed(phase_lenet, dev, amp=True)
 
     timed(phase_tf_parity, dev)
     tf = timed(phase_tf_train_step, dev, smi)
@@ -3065,9 +3462,13 @@ def main():
     # each kernel's numbers are those of the path that runs it most: the
     # matmul and flash kernels the transformer step, the LSTM kernel the
     # padded classifier's step, the gather the LoD classifier's, the paged
-    # kernels the decode step and the verify step, the rest the ResNet-50
-    # step; launches_by_path has every path's count
-    by_path = {"train_step": train["launches"], "serving": serve_launches,
+    # kernels the decode step and the verify step, the bf16 instances the
+    # AMP ResNet-50 step (which the fused conv + BN statistics is counted
+    # beside: no op calls it), the rest the f32 ResNet-50 step;
+    # launches_by_path has every path's count
+    by_path = {"train_step": train["launches"],
+               "amp_train_step": amp_train["launches"],
+               "serving": serve_launches,
                "transformer_train_step": tf["launches"],
                "lstm_train_step": lstm["launches"],
                "lod_train_step": lod["launches"],
@@ -3075,7 +3476,10 @@ def main():
     main_path = dict(matmul=tf["launches"], lstm=lstm["launches"],
                      embedding=lod["launches"],
                      paged_attention=dec_counts["decode_step"],
-                     paged_attention_chunk=dec_counts["verify_step"])
+                     paged_attention_chunk=dec_counts["verify_step"],
+                     **{n: amp_train["launches"] for n in
+                        list(BF16_OF.values()) + ["conv2d_bn_stats",
+                                                  "conv2d_bn_stats_bf16"]})
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
@@ -3093,7 +3497,10 @@ def main():
         f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "
         f"images/s at batch {TRAIN_BATCH} (f32), peak "
         f"{train['peak_bytes'] / 2**30:.2f} GiB, idle share "
-        f"{train['idle_share']:.3f}; transformer LM training: "
+        f"{train['idle_share']:.3f}; under AMP (bf16) "
+        f"{amp_train['images_per_s']:.1f} images/s, peak "
+        f"{amp_train['peak_bytes'] / 2**30:.2f} GiB, idle share "
+        f"{amp_train['idle_share']:.3f}; transformer LM training: "
         f"{tf['tokens_per_s']:.1f} tokens/s at B {TF_BATCH} S {TF_SEQ} (f32),"
         f" peak {tf['peak_bytes'] / 2**30:.2f} GiB, idle share "
         f"{tf['idle_share']:.3f}; LSTM classifier training: "

@@ -14,8 +14,8 @@ formats unchanged.
 """
 
 from paddle_tpu_torch import ops  # noqa: F401  (registers the op lowerings)
-from paddle_tpu_torch import (clip, framework, initializer, io, layers,
-                              models, nets, optimizer, param_attr,
+from paddle_tpu_torch import (amp, clip, framework, initializer, io,
+                              layers, models, nets, optimizer, param_attr,
                               regularizer)
 from paddle_tpu_torch.backward import append_backward
 from paddle_tpu_torch.executor import (Executor, Scope, global_scope,
@@ -28,7 +28,7 @@ from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program", "Scope",
-    "append_backward", "clip", "default_main_program",
+    "amp", "append_backward", "clip", "default_main_program",
     "default_startup_program", "framework", "global_scope", "initializer",
     "io", "layers", "models", "nets", "optimizer", "param_attr",
     "params_from_numpy", "program_guard", "regularizer", "scope_guard",

@@ -21,6 +21,10 @@ On a CUDA place every run holds float32 math at float32: TF32 is off for
 cuDNN and matmul while any run is in flight (``_f32_math``), so the
 library calls that the kernels leave to PyTorch (the stride-2 convs)
 round like the kernels do.
+
+AMP (``paddle_tpu_torch.amp``) is read once per run: the forward ops and
+the grad ops of one run see the same state, and the plan cache is keyed
+on it, as the JAX Executor's compile cache is.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch import framework
+from paddle_tpu_torch import amp, framework
 from paddle_tpu_torch.framework import Place, Program, Variable
 from paddle_tpu_torch.lod import LoDArray, create_lod_array
 from paddle_tpu_torch.ops.common import torch_dtype
@@ -44,13 +48,23 @@ from paddle_tpu_torch.registry import LowerContext, OpRegistry
 # ---------------------------------------------------------------------------
 
 
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A copy of ``arr`` on ``device``, dtype kept; a bf16 array (the
+    ``ml_dtypes`` bfloat16 the JAX package hands out) through its bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device=device, copy=True)
+    return torch.tensor(arr, device=device)
+
+
 def params_from_numpy(arrays: Dict[str, np.ndarray],
                       device) -> Dict[str, torch.Tensor]:
     """The port's state from parameters read as numpy (from the JAX
     package's scope or from an export): one tensor per name on
     ``device``, dtype kept, copied (the arrays may be read-only views of
     another framework's buffers)."""
-    return {name: torch.tensor(np.asarray(arr), device=device)
+    return {name: tensor_from_numpy(arr, device)
             for name, arr in arrays.items()}
 
 
@@ -145,8 +159,7 @@ def _convert_tensor(value, var: Optional[Variable], device) -> torch.Tensor:
     arr = np.asarray(value)
     if var is not None and var.dtype != "bfloat16":
         arr = arr.astype(var.dtype, copy=False)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
-                                                          dtype=dtype)
+    return tensor_from_numpy(arr, device).to(dtype=dtype)
 
 
 def _convert_feed(value, var: Optional[Variable], device):
@@ -176,8 +189,12 @@ def _feed_signature(feed_vals: Dict[str, Any]):
 
 
 def _to_numpy(v):
+    """A fetch as numpy; a bf16 tensor (numpy has no bf16) as the float32
+    array of the same values."""
     if isinstance(v, LoDArray):
         return LoDArray(_to_numpy(v.data), tuple(_to_numpy(o) for o in v.lod))
+    if v.dtype == torch.bfloat16:
+        v = v.float()
     return v.detach().cpu().numpy()
 
 
@@ -242,8 +259,9 @@ class Executor:
         feed_vals = {name: _convert_feed(v, block.find_var(name), self.device)
                      for name, v in feed.items()}
 
+        amp_on = amp.is_enabled()
         key = (program.cache_key(), _feed_signature(feed_vals), fetch_names,
-               self.place)
+               self.place, amp_on)
         plan = self._cache.get(key)
         if plan is None:
             plan = self._classify(program, feed_vals, fetch_names)
@@ -272,7 +290,7 @@ class Executor:
 
         math = (_f32_math() if self.device.type == "cuda"
                 else contextlib.nullcontext())
-        with torch.no_grad(), math:
+        with torch.no_grad(), math, amp.amp_guard(amp_on):
             for op, info, release in plan.ops:
                 info.lower(LowerContext(op, values, self.device, generator))
                 for n in release:

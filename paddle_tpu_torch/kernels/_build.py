@@ -126,14 +126,26 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         return lib
 
 
-def require_cuda_f32(what: str, *tensors) -> None:
-    """Raise on what the CUDA kernels do not take: another device, another
-    dtype than float32, or a non-contiguous tensor."""
+#: The dtypes a kernel takes: float32 only, or float32 and bf16 (a
+#: ``_bf16`` instance beside the ``_f32`` one, picked by the dtype).
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+#: The suffix of a kernel's C symbol for each dtype it takes.
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def require_cuda(what: str, dtypes, *tensors) -> None:
+    """Raise on what a CUDA kernel does not take: tensors of another
+    dtype than one of ``dtypes``, or of two dtypes (TypeError); another
+    device, or a non-contiguous tensor (ValueError).  A bf16 tensor given
+    to a float32-only kernel raises: the wrappers never upcast."""
+    got = [t.dtype for t in tensors]
+    if len(set(got)) != 1 or got[0] not in dtypes:
+        raise TypeError(f"{what} kernel takes one dtype of "
+                        f"{[str(d) for d in dtypes]}, got {got}")
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what} kernel takes float32, got "
-                        f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} kernel takes contiguous tensors")
 

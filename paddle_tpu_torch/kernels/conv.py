@@ -1,12 +1,19 @@
-"""Stride-1 SAME convolution over NHWC images and its two gradients: the
-CUDA kernels ``csrc/conv.cu`` and ``csrc/conv_dw.cu``, their plain
-PyTorch versions, and the autograd function that joins them.
+"""Stride-1 SAME convolution over NHWC images, its two gradients and the
+fused conv + BN-statistics forward: the CUDA kernels ``csrc/conv.cu``
+and ``csrc/conv_dw.cu``, their plain PyTorch versions, and the autograd
+function that joins them.  Each kernel has a float32 and a bf16 instance
+(bf16 operands, float32 sums); the wrappers pick one by the operands'
+dtype and raise on any other.
 
 Replaces the TPU kernels of ``paddle_tpu/pallas/conv.py``:
 
 - ``_conv_fwd_impl`` (:161, ``_fwd_kernel`` :103): x (N, H, W, C) and
-  w (KH, KW, C, O) give (N, H, W, O), summed over (kh, kw, c) in float32,
-  padding = KH // 2 for an odd square KH.
+  w (KH, KW, C, O) give (N, H, W, O) in x's dtype, summed over
+  (kh, kw, c) in float32, padding = KH // 2 for an odd square KH.
+- its ``with_stats`` form, ``conv2d_bn_stats_nhwc`` (:288, epilogue
+  :149-155): the same out, and the per-channel mean and biased variance
+  over (N, H, W) of the float32 sums before rounding.  No op calls it,
+  in the JAX package or here.
 - its backward-input (``_conv_bwd_rule`` :308-316): the same forward
   kernel run on the output gradient with the spatially flipped,
   channel-swapped filter and padding KH - 1 - p (= p here).  No new
@@ -14,11 +21,12 @@ Replaces the TPU kernels of ``paddle_tpu/pallas/conv.py``:
   under its own counter.
 - ``_conv_dw_impl`` (:252, ``_dw_kernel`` :224): the filter gradient
   dW[kh, kw, c, o] = sum over (n, h, w) of
-  xpad[n, h + kh, w + kw, c] * g[n, h, w, o], float32 (KH, KW, C, O).
+  xpad[n, h + kh, w + kw, c] * g[n, h, w, o], float32 (KH, KW, C, O)
+  for float32 or bf16 x and g.
 
-All three are bound by operations on the H100 (f32 FMA on the SIMT
-units); ``csrc/conv.cu`` and ``csrc/conv_dw.cu`` say what their designs
-do about that.
+All are bound by operations on the H100 (f32 FMA on the SIMT units,
+bf16 on the tensor cores); ``csrc/conv.cu`` and ``csrc/conv_dw.cu`` say
+what their designs do about that.
 """
 
 from __future__ import annotations
@@ -33,20 +41,28 @@ import torch.nn.functional as F
 from paddle_tpu_torch.kernels import _build
 
 _SIGNATURES = {
-    "ptt_conv2d_nhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p],
+    **{f"ptt_conv2d_nhwc_{s}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+       + [ctypes.c_void_p] for s in ("f32", "bf16")},
+    **{f"ptt_conv2d_bn_stats_nhwc_{s}": [ctypes.c_void_p] * 6
+       + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
 }
 _DW_SIGNATURES = {
-    "ptt_conv_dw_nhwc_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-    + [ctypes.c_void_p],
+    f"ptt_conv_dw_nhwc_{s}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p] for s in ("f32", "bf16")
 }
 
-#: Launches of the CUDA kernels (the CPU path does not count): the
-#: forward, the backward-input (the forward kernel on the flipped
-#: filter) and the filter gradient.
+#: Launches of the CUDA kernels (the CPU path does not count), float32
+#: and bf16 instances apart: the forward, the backward-input (the forward
+#: kernel on the flipped filter), the filter gradient and the fused
+#: conv + BN statistics.
 launches = 0
 bwd_input_launches = 0
 dw_launches = 0
+stats_launches = 0
+launches_bf16 = 0
+bwd_input_launches_bf16 = 0
+dw_launches_bf16 = 0
+stats_launches_bf16 = 0
 _count_lock = threading.Lock()
 
 # Split-K of the filter gradient: aim for this many blocks in flight
@@ -54,13 +70,17 @@ _count_lock = threading.Lock()
 # least _DW_MIN_CHUNK pixels of the reduction.
 _DW_TARGET_BLOCKS = 8 * 132
 _DW_MIN_CHUNK = 256
-_TILE = 64       # tile_gemm.cuh's kBM = kBN
+_TILE = 64       # tile_gemm.cuh's kBM = kBN (and kHN)
 _KSTEP = 16      # tile_gemm.cuh's kBK
+_TILE_BF16 = 128  # tile_gemm.cuh's kHM: the bf16 instances' tile rows
+_KSTEP_BF16 = 32  # tile_gemm.cuh's kHK
 
 
-def _count(counter: str) -> None:
+def _count(counter: str, dtype: torch.dtype) -> None:
+    """Add one to ``counter``, or to its ``_bf16`` twin for a bf16 launch."""
+    name = counter + ("_bf16" if dtype == torch.bfloat16 else "")
     with _count_lock:
-        globals()[counter] += 1
+        globals()[name] += 1
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, padding: int,
@@ -105,11 +125,10 @@ def flip_filter(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor,
-                      padding: int) -> torch.Tensor:
-    """The TPU kernel's arithmetic in plain PyTorch: the KH * KW shifted
-    (N*H*W, C) @ (C, O) products of the padded image, summed in f32."""
-    _check(x, w, padding)
+def _conv_sums(x: torch.Tensor, w: torch.Tensor,
+               padding: int) -> torch.Tensor:
+    """The KH * KW shifted (N*H*W, C) @ (C, O) products of the padded
+    image, summed in float32."""
     n, h, wd, _ = x.shape
     kh, kw, _, o = w.shape
     p = padding
@@ -119,7 +138,28 @@ def conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor,
     for i in range(kh):
         for j in range(kw):
             out += xp[:, i:i + h, j:j + wd, :] @ wf[i, j]
-    return out.to(x.dtype)
+    return out
+
+
+def conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor,
+                      padding: int) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain PyTorch: float32 sums, rounded
+    once to x's dtype."""
+    _check(x, w, padding)
+    return _conv_sums(x, w, padding).to(x.dtype)
+
+
+def conv2d_bn_stats_nhwc_plain(x: torch.Tensor, w: torch.Tensor,
+                               padding: int):
+    """(out, mean, var) as ``conv2d_bn_stats_nhwc`` (pallas/conv.py:288)
+    computes them: the statistics over (N, H, W) of the float32 sums
+    before rounding, var = E[s^2] - mean^2."""
+    _check(x, w, padding, what="conv2d_bn_stats_nhwc")
+    acc = _conv_sums(x, w, padding)
+    cnt = acc.shape[0] * acc.shape[1] * acc.shape[2]
+    mean = acc.sum((0, 1, 2)) / cnt
+    var = (acc * acc).sum((0, 1, 2)) / cnt - mean * mean
+    return acc.to(x.dtype), mean, var
 
 
 def conv2d_nhwc_bwd_input_plain(g: torch.Tensor, w: torch.Tensor,
@@ -154,69 +194,98 @@ def conv2d_nhwc_dw_plain(x: torch.Tensor, g: torch.Tensor, kernel: int,
 
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
-                 what: str) -> torch.Tensor:
-    _build.require_cuda_f32(what, x, w)
+                 what: str, stats: bool = False):
+    """out, or (out, mean, var) with ``stats``: the float32 or bf16
+    instance of ``csrc/conv.cu`` by x's dtype."""
+    _build.require_cuda(what, _build.F32_BF16, x, w)
     n, h, wd, c = x.shape
     kh, kw, _, o = w.shape
+    sfx = _build.SUFFIX[x.dtype]
     out = torch.empty((n, h, wd, o), dtype=x.dtype, device=x.device)
+    mv = torch.empty((2, o), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out
+        return (out, *mv.fill_(float("nan"))) if stats else out
     lib = _build.load("conv", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ptt_conv2d_nhwc_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh, kw,
-            o, padding, stream)
+        if stats:
+            tiles = math.ceil(n * h * wd / _TILE)
+            part = torch.empty((2, tiles, o), dtype=torch.float32,
+                               device=x.device)
+            err = getattr(lib, f"ptt_conv2d_bn_stats_nhwc_{sfx}")(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
+                mv[0].data_ptr(), mv[1].data_ptr(), n, h, wd, c, kh, kw, o,
+                padding, stream)
+        else:
+            err = getattr(lib, f"ptt_conv2d_nhwc_{sfx}")(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
+                kw, o, padding, stream)
     _build.check(lib, err, what)
-    return out
+    return (out, mv[0], mv[1]) if stats else out
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
                 padding: int) -> torch.Tensor:
-    """Launches ``csrc/conv.cu`` on a CUDA tensor (float32, contiguous);
-    runs the plain version on a CPU tensor."""
+    """Launches ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16, both
+    operands one dtype, contiguous); runs the plain version on a CPU
+    tensor."""
     _check(x, w, padding)
     if x.device.type == "cpu":
         return conv2d_nhwc_plain(x, w, padding)
     out = _launch_conv(x, w, padding, "conv2d_nhwc")
-    _count("launches")
+    _count("launches", x.dtype)
+    return out
+
+
+def conv2d_bn_stats_nhwc(x: torch.Tensor, w: torch.Tensor, padding: int):
+    """(out, mean, var): the conv in x's dtype and the per-channel batch
+    mean and biased variance (float32) of its float32 sums.  Launches the
+    fused kernel of ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16);
+    runs the plain version on a CPU tensor."""
+    _check(x, w, padding, what="conv2d_bn_stats_nhwc")
+    if x.device.type == "cpu":
+        return conv2d_bn_stats_nhwc_plain(x, w, padding)
+    out = _launch_conv(x, w, padding, "conv2d_bn_stats_nhwc", stats=True)
+    _count("stats_launches", x.dtype)
     return out
 
 
 def conv2d_nhwc_bwd_input(g: torch.Tensor, w: torch.Tensor,
                           padding: int) -> torch.Tensor:
-    """dL/dx from dL/dout: launches ``csrc/conv.cu`` on ``g`` with the
-    flipped filter (a small copy per call) on a CUDA tensor; the plain
-    version on a CPU tensor."""
+    """dL/dx from dL/dout, in g's dtype: launches ``csrc/conv.cu`` on
+    ``g`` with the flipped filter (a small copy per call) on a CUDA
+    tensor; the plain version on a CPU tensor."""
     _check(g, w, padding, channel_dim=3, what="conv2d_nhwc_bwd_input")
     if g.device.type == "cpu":
         return conv2d_nhwc_bwd_input_plain(g, w, padding)
     out = _launch_conv(g, flip_filter(w), w.shape[0] - 1 - padding,
                        "conv2d_nhwc_bwd_input")
-    _count("bwd_input_launches")
+    _count("bwd_input_launches", g.dtype)
     return out
 
 
-def dw_splits(m: int, o: int, k: int):
+def dw_splits(m: int, o: int, k: int, tile: int = _TILE,
+              kstep: int = _KSTEP):
     """(splits, chunk) of the filter gradient's reduction over k pixels:
-    enough splits to fill the card at the (m, o) output tiles, each split
-    a multiple of the 16-pixel K step and at least _DW_MIN_CHUNK long."""
-    tiles = math.ceil(m / _TILE) * math.ceil(o / _TILE)
+    enough splits to fill the card at the (m, o) output tiles (``tile``
+    rows by 64 columns), each split a multiple of the ``kstep``-pixel K
+    step and at least _DW_MIN_CHUNK long."""
+    tiles = math.ceil(m / tile) * math.ceil(o / _TILE)
     splits = max(1, min(math.ceil(_DW_TARGET_BLOCKS / tiles),
                         math.ceil(k / _DW_MIN_CHUNK)))
-    chunk = math.ceil(math.ceil(k / splits) / _KSTEP) * _KSTEP
+    chunk = math.ceil(math.ceil(k / splits) / kstep) * kstep
     return math.ceil(k / chunk), chunk
 
 
 def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
                    padding: int) -> torch.Tensor:
     """The filter gradient (KH, KW, C, O) in float32: launches
-    ``csrc/conv_dw.cu`` on CUDA tensors (float32, contiguous); runs the
-    plain version on CPU tensors."""
+    ``csrc/conv_dw.cu`` on CUDA tensors (float32 or bf16 x and g of one
+    dtype, contiguous); runs the plain version on CPU tensors."""
     _check_dw(x, g, kernel, padding)
     if x.device.type == "cpu":
         return conv2d_nhwc_dw_plain(x, g, kernel, padding)
-    _build.require_cuda_f32("conv2d_nhwc_dw", x, g)
+    _build.require_cuda("conv2d_nhwc_dw", _build.F32_BF16, x, g)
     n, h, wd, c = x.shape
     o = g.shape[3]
     out = torch.empty((kernel, kernel, c, o), dtype=torch.float32,
@@ -224,17 +293,18 @@ def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
     m, k = kernel * kernel * c, n * h * wd
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    splits, chunk = dw_splits(m, o, k)
+    splits, chunk = (dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
+                     if x.dtype == torch.bfloat16 else dw_splits(m, o, k))
     part = out if splits == 1 else torch.empty(
         (splits, m, o), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_dw", _DW_SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ptt_conv_dw_nhwc_f32(
+        err = getattr(lib, f"ptt_conv_dw_nhwc_{_build.SUFFIX[x.dtype]}")(
             x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), n,
             h, wd, c, kernel, kernel, o, padding, splits, chunk, stream)
     _build.check(lib, err, "conv2d_nhwc_dw")
-    _count("dw_launches")
+    _count("dw_launches", x.dtype)
     return out
 
 
@@ -248,9 +318,12 @@ def conv2d_nhwc_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                          need_dw: bool = True):
     """(dx, dw) of ``conv2d_nhwc`` from the values the forward had: the
     backward-input launch and the filter-gradient kernel, no forward
-    replay.  Either is None when not needed."""
-    g = g.contiguous()
-    dx = conv2d_nhwc_bwd_input(g, w, padding) if need_dx else None
+    replay.  Either is None when not needed.  dx comes back in x's dtype;
+    dw is summed in float32 and rounded to w's dtype, as
+    ``_conv_bwd_rule`` (pallas/conv.py:308-316) rounds it."""
+    g = g.to(x.dtype).contiguous()
+    dx = (conv2d_nhwc_bwd_input(g, w.to(g.dtype), padding)
+          if need_dx else None)
     dw = (conv2d_nhwc_dw(x, g, w.shape[0], padding).to(w.dtype)
           if need_dw else None)
     return dx, dw

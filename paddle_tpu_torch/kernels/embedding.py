@@ -65,7 +65,7 @@ def gather_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     _check(w, ids)
     if w.device.type == "cpu":
         return gather_rows_plain(w, ids)
-    _build.require_cuda_f32("gather_rows", w)
+    _build.require_cuda("gather_rows", _build.F32, w)
     if not ids.is_contiguous():
         raise ValueError("gather_rows kernel takes contiguous ids")
     n, (v, d) = ids.shape[0], w.shape

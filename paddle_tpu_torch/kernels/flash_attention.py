@@ -88,13 +88,14 @@ def _scale(q, scale):
 
 
 def _strided_f32(what, *tensors):
-    """Raise on what the kernels do not take: another device or dtype, or
-    a head dim that is not contiguous."""
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
+    """Raise on what the kernels do not take: another dtype than float32
+    (TypeError: bf16 instances wait for the transformer's AMP slice),
+    another device, or a head dim that is not contiguous."""
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"{what} kernel takes float32, got "
                         f"{[t.dtype for t in tensors]}")
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError(f"{what} kernel takes a contiguous head dim")
 
@@ -197,7 +198,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     if lse.shape != (b * h, n) or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} on "
                          f"{lse.device}, want ({b * h}, {n}) on {q.device}")
-    _build.require_cuda_f32("flash_attention_bwd", lse)
+    _build.require_cuda("flash_attention_bwd", _build.F32, lse)
     # rowsum(do * o), (B, S, H) -> the kernels' contiguous (B*H, S)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(
         b * h, n).contiguous()

@@ -124,7 +124,7 @@ def lstm_seq(xproj, w, bias, h0, c0):
     if xproj.device.type == "cpu":
         return lstm_seq_plain(xproj, w, bias, h0, c0)
     bias = bias.reshape(-1)
-    _build.require_cuda_f32("lstm_seq", w, bias, h0, c0)
+    _build.require_cuda("lstm_seq", _build.F32, w, bias, h0, c0)
     if xproj.dtype != torch.float32:
         raise TypeError(f"lstm_seq kernel takes float32, got {xproj.dtype}")
     if xproj.stride(2) != 1:

@@ -1,5 +1,6 @@
-"""Dense matmul: the CUDA kernel ``csrc/matmul.cu`` and its plain
-PyTorch version.
+"""Dense matmul: the CUDA kernel ``csrc/matmul.cu`` (a float32 and a
+bf16 instance, picked by the operands' dtype) and its plain PyTorch
+version.
 
 Replaces the TPU kernel ``paddle_tpu/pallas/matmul.py:92``
 ``_matmul_impl`` (``_mm_kernel`` at :47): (M, K) @ (K, N) with float32
@@ -20,19 +21,24 @@ import torch
 from paddle_tpu_torch.kernels import _build
 
 _SIGNATURES = {
-    "ptt_matmul_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p],
+    f"ptt_matmul_{s}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] for s in ("f32", "bf16")
 }
 
-#: Launches of the CUDA kernel (the CPU path does not count).
+#: Launches of the CUDA kernel (the CPU path does not count), float32 and
+#: bf16 instances apart.
 launches = 0
+launches_bf16 = 0
 _count_lock = threading.Lock()
 
 
-def _count():
-    global launches
+def _count(dtype: torch.dtype):
+    global launches, launches_bf16
     with _count_lock:
-        launches += 1
+        if dtype == torch.bfloat16:
+            launches_bf16 += 1
+        else:
+            launches += 1
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -50,12 +56,12 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Launches ``csrc/matmul.cu`` on CUDA tensors (float32, contiguous);
-    runs the plain version on CPU tensors."""
+    """Launches ``csrc/matmul.cu`` on CUDA tensors (float32 or bf16, both
+    one dtype, contiguous); runs the plain version on CPU tensors."""
     _check(x, y)
     if x.device.type == "cpu":
         return matmul_plain(x, y)
-    _build.require_cuda_f32("matmul", x, y)
+    _build.require_cuda("matmul", _build.F32_BF16, x, y)
     m, k = x.shape
     n = y.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -64,19 +70,22 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     lib = _build.load("matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ptt_matmul_f32(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                 m, n, k, stream)
+        err = getattr(lib, f"ptt_matmul_{_build.SUFFIX[x.dtype]}")(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, stream)
     _build.check(lib, err, "matmul")
-    _count()
+    _count(x.dtype)
     return out
 
 
 def matmul_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                     need_dx: bool = True, need_dy: bool = True):
     """(dx, dy) of ``x @ y`` from dL/dout ``g``: g @ y^T and x^T @ g with
-    ``torch.matmul``; either is None when not needed."""
-    dx = torch.matmul(g, y.t().to(g.dtype)).to(x.dtype) if need_dx else None
-    dy = torch.matmul(x.t().to(g.dtype), g).to(y.dtype) if need_dy else None
+    ``torch.matmul`` in float32, each rounded once to its operand's dtype
+    (``paddle_tpu/pallas/matmul.py:80-85``); either is None when not
+    needed."""
+    gf = g.float()
+    dx = torch.matmul(gf, y.float().t()).to(x.dtype) if need_dx else None
+    dy = torch.matmul(x.float().t(), gf).to(y.dtype) if need_dy else None
     return dx, dy
 
 

@@ -142,7 +142,7 @@ def paged_attention_chunk_plain(q, k_pages, v_pages, tables, lens,
 
 def _launch(q, k_pages, v_pages, tables, lens, scale, chunk: bool):
     what = "paged_attention_chunk" if chunk else "paged_attention"
-    _build.require_cuda_f32(what, q, k_pages, v_pages)
+    _build.require_cuda(what, _build.F32, q, k_pages, v_pages)
     if tables.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError(f"{what} kernel takes int32 tables and lens, got "
                         f"{tables.dtype} and {lens.dtype}")

@@ -53,7 +53,7 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     _check(x)
     if x.device.type == "cpu":
         return softmax_plain(x)
-    _build.require_cuda_f32("softmax", x)
+    _build.require_cuda("softmax", _build.F32, x)
     rows, cols = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:

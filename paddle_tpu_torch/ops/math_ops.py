@@ -65,29 +65,33 @@ def _flatten2d(x, num_col_dims):
 def _mul_grad(ctx):
     """dX = dOut @ Y^T and dY = X^T @ dOut on the 2-D flattenings: two
     plain matmuls, as ``paddle_tpu/pallas/matmul.py:80-85`` leaves the
-    backward to XLA.  Reads X, Y and dOut; no forward replay.  dX keeps a
-    LoD X's offsets."""
+    backward to XLA.  Reads X, Y and dOut; no forward replay.  Under AMP
+    each product is taken on the bf16 operands, summed in f32, rounded to
+    bf16 and then brought back to its operand's dtype, as the JAX op's
+    cast vjp gives it.  dX keeps a LoD X's offsets."""
     fwd = ctx.op.attr("__fwd_attrs__")
     xn = fwd.get("x_num_col_dims", 1)
     yn = fwd.get("y_num_col_dims", 1)
     x = unwrap(ctx.input("X"))
     y = unwrap(ctx.input("Y"))
-    x2, y2 = _flatten2d(x, xn), _flatten2d(y, yn)
+    x2, y2 = amp.cast_operands(_flatten2d(x, xn), _flatten2d(y, yn))
     g2 = torch.reshape(unwrap(grad_in(ctx, "Out@GRAD")), (x2.shape[0], -1))
     gx, gy = grad_out(ctx, "X@GRAD"), grad_out(ctx, "Y@GRAD")
     dx, dy = kmatmul.matmul_backward(x2, y2, g2, gx is not None,
                                      gy is not None)
     if gx is not None:
-        ctx.values[gx] = rewrap(ctx.input("X"), torch.reshape(dx, x.shape))
+        ctx.values[gx] = rewrap(ctx.input("X"),
+                                torch.reshape(dx, x.shape).to(x.dtype))
     if gy is not None:
-        ctx.values[gy] = torch.reshape(dy, y.shape)
+        ctx.values[gy] = torch.reshape(dy, y.shape).to(y.dtype)
 
 
 @register_op("mul", inputs=("X", "Y"), infer_shape=_infer_mul_shape,
              grad_lower=_mul_grad)
 def _mul(ctx):
     """Flattening matmul: X flattened to 2-D at x_num_col_dims, Y at
-    y_num_col_dims, then the ``matmul`` kernel."""
+    y_num_col_dims, then the ``matmul`` kernel; under AMP on bf16
+    operands, with a bf16 Out."""
     x = unwrap(ctx.input("X"))
     y = unwrap(ctx.input("Y"))
     xn = ctx.attr("x_num_col_dims", 1)

@@ -1,6 +1,12 @@
 """NN layer ops: conv2d, pool2d, batch_norm, softmax.  All NCHW, as in
 the JAX package's ``paddle_tpu/ops/nn_ops.py``.
 
+Under AMP (``paddle_tpu_torch.amp``) conv2d casts its float32 operands
+to bf16 and writes bf16, and its grad brings each gradient back to its
+operand's dtype, the filter's rounded through bf16 first; batch_norm
+keeps f32 statistics over bf16 activations; max pooling keeps bf16, the
+average pool sums in f32 and rounds.
+
 conv2d, batch_norm and softmax launch CUDA kernels, so they carry
 explicit grad rules that call the kernels' backwards on the values the
 forward left in the run (x, w, Out; for BN the saved batch statistics):
@@ -137,36 +143,42 @@ def _conv_attrs(attr):
 
 
 def _conv2d_grad(ctx):
-    """dInput and dFilter of ``conv2d``.  On the kernel's path: the
-    backward-input launch of ``csrc/conv.cu`` and the filter-gradient
-    kernel ``csrc/conv_dw.cu``, on the NHWC views (free for the
-    channels-last tensors the kernels and BN write).  Otherwise one
-    library ``convolution_backward``, as the forward is one ``F.conv2d``."""
+    """dInput and dFilter of ``conv2d``, on the operands the forward
+    multiplied (cast to bf16 under AMP) and dOutput in their dtype.  On
+    the kernel's path: the backward-input launch of ``csrc/conv.cu`` and
+    the filter-gradient kernel ``csrc/conv_dw.cu``, on the NHWC views
+    (free for the channels-last tensors the kernels and BN write).
+    Otherwise one library ``convolution_backward``, as the forward is one
+    ``F.conv2d``.  Each gradient then goes back to its operand's dtype:
+    the filter's is rounded to the cast filter's bf16 first (summed in
+    f32 by the kernel, in bf16 by the library), as the JAX op's cast
+    vjp gives it (``paddle_tpu/pallas/conv.py:315-316``)."""
     fwd = ctx.op.attr("__fwd_attrs__")
     strides, pads, dilations, groups = _conv_attrs(fwd.get)
     x = unwrap(ctx.input("Input"))
     w = unwrap(ctx.input("Filter"))
-    g = unwrap(grad_in(ctx, "Output@GRAD"))
+    xc, wc = amp.cast_operands(x, w)
+    g = unwrap(grad_in(ctx, "Output@GRAD")).to(xc.dtype)
     gx, gw = grad_out(ctx, "Input@GRAD"), grad_out(ctx, "Filter@GRAD")
     if conv_kernel_applies(groups, dilations, strides, pads, w.shape[2],
                            w.shape[3]):
         dx, dw = kconv.conv2d_nhwc_backward(
-            x.permute(0, 2, 3, 1).contiguous(),
-            w.permute(2, 3, 1, 0).contiguous(),
+            xc.permute(0, 2, 3, 1).contiguous(),
+            wc.permute(2, 3, 1, 0).contiguous(),
             g.permute(0, 2, 3, 1), pads[0], gx is not None, gw is not None)
         if gx is not None:
-            ctx.values[gx] = dx.permute(0, 3, 1, 2)
+            ctx.values[gx] = dx.permute(0, 3, 1, 2).to(x.dtype)
         if gw is not None:
-            ctx.values[gw] = dw.permute(3, 2, 0, 1).contiguous()
+            ctx.values[gw] = dw.permute(3, 2, 0, 1).contiguous().to(w.dtype)
         return
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        g, x.contiguous(memory_format=torch.channels_last), w, None,
+        g, xc.contiguous(memory_format=torch.channels_last), wc, None,
         list(strides), list(pads), list(dilations), False, [0, 0], groups,
         [gx is not None, gw is not None, False])
     if gx is not None:
-        ctx.values[gx] = dx
+        ctx.values[gx] = dx.to(x.dtype)
     if gw is not None:
-        ctx.values[gw] = dw.contiguous()
+        ctx.values[gw] = dw.contiguous().to(w.dtype)
 
 
 @register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
@@ -174,7 +186,8 @@ def _conv2d_grad(ctx):
 def _conv2d(ctx):
     """NCHW conv, filter (O, I/groups, H, W).  The output is channels-last
     in memory on both paths (the kernel writes NHWC; ``F.conv2d`` gets a
-    channels-last input), so BN's (R, C) view of it is free."""
+    channels-last input), so BN's (R, C) view of it is free.  Under AMP
+    both operands are cast to bf16 and the output is bf16."""
     x = unwrap(ctx.input("Input"))
     w = unwrap(ctx.input("Filter"))
     strides, pads, dilations, groups = _conv_attrs(ctx.attr)
@@ -266,7 +279,7 @@ def _batch_norm_grad(ctx):
         dy = torch.zeros_like(x)
     inv = torch.rsqrt(ctx.input("SavedVariance") + fwd.get("epsilon", 1e-5))
     dx, dgamma, dbeta = kbn.batch_norm_bwd(
-        _channels_minor(x), _channels_minor(dy.to(x.dtype)), scale,
+        _channels_minor(x), _channels_minor(dy.to(x.dtype)), scale.float(),
         ctx.input("SavedMean"), inv)
     for slot, val in (("X@GRAD", _from_channels_minor(dx, x.shape)),
                       ("Scale@GRAD", dgamma.to(scale.dtype)),
@@ -288,7 +301,10 @@ def _batch_norm(ctx):
     biased var = E[x^2] - m^2) and Y from the BN forward kernel on the
     (R, C) view, Y channels-last; MeanOut/VarianceOut = momentum * old +
     (1 - momentum) * batch; SavedMean/SavedVariance = the batch
-    statistics.  ``is_test``: the running statistics, in plain float32."""
+    statistics.  ``is_test``: the running statistics, in plain float32.
+    A training BN on a bf16 X (under AMP) keeps f32 statistics and gets a
+    bf16 Y from the affine folded in f32 and rounded to bf16, as the JAX
+    op computes it (``paddle_tpu/ops/nn_ops.py:464-472``)."""
     x = unwrap(ctx.input("X"))
     scale = unwrap(ctx.input("Scale"))
     bias = unwrap(ctx.input("Bias"))
@@ -311,13 +327,9 @@ def _batch_norm(ctx):
         ctx.set_output("SavedMean", mean)
         ctx.set_output("SavedVariance", var)
         return
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"paddle_tpu_torch training batch_norm takes float32, got "
-            f"{x.dtype} (the bf16 normalize comes with the AMP slice)")
     momentum = ctx.attr("momentum", 0.9)
-    y2d, bmean, bvar = kbn.batch_norm_fwd(_channels_minor(x), scale, bias,
-                                          eps)
+    y2d, bmean, bvar = kbn.batch_norm_fwd(_channels_minor(x), scale.float(),
+                                          bias.float(), eps)
     ctx.set_output("Y", _from_channels_minor(y2d, x.shape))
     ctx.set_output("MeanOut", momentum * mean + (1 - momentum) * bmean)
     ctx.set_output("VarianceOut", momentum * var + (1 - momentum) * bvar)

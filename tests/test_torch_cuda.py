@@ -14,8 +14,18 @@ attention atol 1e-4 on out and lse, and 1e-3 of max|plain| on dq, dk and
 dv (f32 sums over S keys or queries and D, in another order, through
 exp); the LSTM rtol 1e-4 / atol 1e-5 on hs, cs and the gates (f32
 recurrences, products of H terms in another order) and 1e-4 of max on
-the gradients; the gather exactly (a copy).
+the gradients; the gather exactly (a copy).  The bf16 instances (the
+AMP slice): each bf16 output within rtol 1e-2 of the plain version (the
+kernel and the plain version each sum in f32, in other orders, and
+round once: a sum near a rounding boundary lands one bf16 ulp, at most
+2^-7 relative, apart) plus atol 1e-3 * max|plain| (sums that cancel to
+near zero); f32 outputs of bf16 operands (the filter gradient, BN's
+statistics and vectors, the fused conv's mean and variance) as their
+float32 counterparts, since the operands are the same bf16 values on
+both sides.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -604,3 +614,293 @@ def test_decoder_lm_on_the_card_matches_cpu(dev):
     hit_pages = card.allocator.fork(pages[2][:4]) + card.allocator.alloc(1)
     count(lambda m: m.prefill(hit, hit_pages, cached_len=32)[2],
           "chunk_launches", kpa)
+
+
+# ---------------------------------------------------------------------------
+# the AMP slice: the bf16 instances and the fused conv + BN statistics
+# ---------------------------------------------------------------------------
+
+
+def _close_bf16(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3 * float(want.float().abs().max()))
+
+
+def _bf16(gen, *shape, scale=1.0, device="cuda"):
+    return _randn(gen, *shape, scale=scale, device=device).to(torch.bfloat16)
+
+
+BF16_CONV_SHAPES = [
+    (3, 7, 5, 16, 24, 1), (3, 7, 5, 16, 24, 3), (3, 7, 5, 16, 24, 5),
+    (1, 1, 1, 3, 1, 3), (2, 9, 11, 20, 70, 3), (2, 14, 14, 256, 256, 3),
+    (2, 7, 7, 2048, 512, 1), (2, 56, 56, 64, 64, 3),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", BF16_CONV_SHAPES)
+def test_conv_bf16_kernels_match_plain(dev, n, h, w, c, o, k):
+    """The bf16 forward, backward-input and filter gradient at ragged
+    shapes (M, K, N not multiples of 64 or 16), counted as bf16 launches."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(31)
+    x = _bf16(g, n, h, w, c, device=dev)
+    wt = _bf16(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5, device=dev)
+    dy = _bf16(g, n, h, w, o, device=dev)
+    f32 = (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches)
+    before = (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
+              kconv.dw_launches_bf16)
+    out = kconv.conv2d_nhwc(x, wt, k // 2)
+    dx = kconv.conv2d_nhwc_bwd_input(dy, wt, k // 2)
+    dw = kconv.conv2d_nhwc_dw(x, dy, k, k // 2)
+    assert (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
+            kconv.dw_launches_bf16) == tuple(b + 1 for b in before)
+    assert (kconv.launches, kconv.bwd_input_launches,
+            kconv.dw_launches) == f32
+    torch.cuda.synchronize()
+    _close_bf16(out, kconv.conv2d_nhwc_plain(x, wt, k // 2))
+    _close_bf16(dx, kconv.conv2d_nhwc_bwd_input_plain(dy, wt, k // 2))
+    want = kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2)
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (3, 2048, 1000), (256, 2048, 1000), (33, 17, 65), (1, 1, 1), (65, 100, 129),
+])
+def test_matmul_bf16_kernel_matches_plain(dev, m, k, n):
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(32)
+    x = _bf16(g, m, k, device=dev)
+    y = _bf16(g, k, n, scale=0.05, device=dev)
+    before = (kmatmul.launches, kmatmul.launches_bf16)
+    got = kmatmul.matmul(x, y)
+    assert (kmatmul.launches, kmatmul.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+    torch.cuda.synchronize()
+    _close_bf16(got, kmatmul.matmul_plain(x, y))
+
+
+@pytest.mark.parametrize("rows,cols", [
+    (105, 24), (8 * 56 * 56, 64), (2 * 7 * 7, 2048), (5, 3), (1000, 1),
+    (64 * 14 * 14, 1024),
+])
+def test_batch_norm_bf16_kernels_match_plain(dev, rows, cols):
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    g = torch.Generator().manual_seed(33)
+    x = (_randn(g, rows, cols, scale=2.0, device=dev) + 0.5).to(
+        torch.bfloat16)
+    gamma = _randn(g, cols, device=dev)
+    beta = _randn(g, cols, device=dev)
+    dy = _bf16(g, rows, cols, device=dev)
+    before = (kbn.launches_bf16, kbn.bwd_launches_bf16)
+    y, m, v = kbn.batch_norm_fwd(x, gamma, beta, 1e-5)
+    inv = torch.rsqrt(v + 1e-5)
+    dx, dgamma, dbeta = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
+    assert (kbn.launches_bf16, kbn.bwd_launches_bf16) == (before[0] + 1,
+                                                          before[1] + 1)
+    torch.cuda.synchronize()
+    py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, 1e-5)
+    pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
+    torch.testing.assert_close(m, pm, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+    _close_bf16(y, py)
+    torch.testing.assert_close(dbeta, pdb, rtol=1e-4,
+                               atol=1e-4 * float(pdb.abs().max()))
+    torch.testing.assert_close(dgamma, pdg, rtol=1e-4,
+                               atol=1e-4 * float(pdg.abs().max()))
+    _close_bf16(dx, pdx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,o,k", [
+    (3, 7, 5, 16, 24, 3), (2, 9, 11, 20, 70, 1), (4, 14, 14, 256, 256, 3),
+    (2, 7, 7, 512, 512, 3),
+])
+def test_conv_bn_stats_kernel_matches_plain(dev, dtype, n, h, w, c, o, k):
+    """The fused conv + BN statistics: out as the conv kernel's, mean and
+    variance of the f32 sums within 1e-4 of max|mean| and max|var|."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(34)
+    x = (_randn(g, n, h, w, c, device=dev) + 0.2).to(dtype)
+    wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5,
+                device=dev).to(dtype)
+    name = "stats_launches" + ("_bf16" if dtype == torch.bfloat16 else "")
+    before = getattr(kconv, name)
+    out, mean, var = kconv.conv2d_bn_stats_nhwc(x, wt, k // 2)
+    assert getattr(kconv, name) == before + 1
+    torch.cuda.synchronize()
+    pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, k // 2)
+    if dtype == torch.bfloat16:
+        _close_bf16(out, pout)
+    else:
+        torch.testing.assert_close(out, pout, **GEMM_TOL)
+    for got, want in ((mean, pmean), (var, pvar)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def _guarded(shape, dtype, dev, pad=4096):
+    """A NaN-filled buffer and the contiguous ``shape`` view in its middle,
+    ``pad`` elements of NaN on either side."""
+    numel = math.prod(shape)
+    buf = torch.full((numel + 2 * pad,), float("nan"), dtype=dtype,
+                     device=dev)
+    return buf, buf[pad:pad + numel].view(shape)
+
+
+def test_bf16_kernels_store_nothing_out_of_bounds(dev):
+    """Launch the bf16 conv, fused conv, filter-gradient, matmul and BN
+    symbols straight into outputs with NaN guard regions on both sides, at
+    ragged shapes: the guards stay NaN and the outputs match the plain
+    versions."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(35)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n, h, w, c, o, k = 3, 7, 5, 20, 70, 3
+    x = _bf16(g, n, h, w, c, device=dev)
+    wt = _bf16(g, k, k, c, o, scale=0.2, device=dev)
+    dy = _bf16(g, n, h, w, o, device=dev)
+    bufs = []
+
+    lib = _build.load("conv", kconv._SIGNATURES)
+    buf, out = _guarded((n, h, w, o), torch.bfloat16, dev)
+    bufs.append((buf, out))
+    _build.check(lib, lib.ptt_conv2d_nhwc_bf16(
+        x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, h, w, c, k, k, o,
+        k // 2, stream), "conv")
+    buf2, out2 = _guarded((n, h, w, o), torch.bfloat16, dev)
+    bufs.append((buf2, out2))
+    tiles = math.ceil(n * h * w / 64)
+    part = torch.empty((2, tiles, o), device=dev)
+    mv = torch.empty((2, o), device=dev)
+    _build.check(lib, lib.ptt_conv2d_bn_stats_nhwc_bf16(
+        x.data_ptr(), wt.data_ptr(), out2.data_ptr(), part.data_ptr(),
+        mv[0].data_ptr(), mv[1].data_ptr(), n, h, w, c, k, k, o, k // 2,
+        stream), "conv stats")
+
+    dlib = _build.load("conv_dw", kconv._DW_SIGNATURES)
+    buf3, dw = _guarded((k, k, c, o), torch.float32, dev)
+    bufs.append((buf3, dw))
+    _build.check(dlib, dlib.ptt_conv_dw_nhwc_bf16(
+        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), dw.data_ptr(), n, h, w,
+        c, k, k, o, k // 2, 1, n * h * w, stream), "conv dw")
+
+    mlib = _build.load("matmul", kmatmul._SIGNATURES)
+    a = _bf16(g, 33, 17, device=dev)
+    b = _bf16(g, 17, 65, device=dev)
+    buf4, mm = _guarded((33, 65), torch.bfloat16, dev)
+    bufs.append((buf4, mm))
+    _build.check(mlib, mlib.ptt_matmul_bf16(
+        a.data_ptr(), b.data_ptr(), mm.data_ptr(), 33, 65, 17, stream), "mm")
+
+    blib = _build.load("batch_norm", kbn._SIGNATURES)
+    xb = _bf16(g, 105, 24, device=dev)
+    gamma, beta = _randn(g, 24, device=dev), _randn(g, 24, device=dev)
+    buf5, y = _guarded((105, 24), torch.bfloat16, dev)
+    bufs.append((buf5, y))
+    chunks, per = kbn.row_chunks(105, 24)
+    stats = torch.empty((2, 24), device=dev)
+    bpart = torch.empty((2, chunks, 24), device=dev)
+    ab = torch.empty((2, 24), device=dev)
+    _build.check(blib, blib.ptt_bn_fwd_bf16(
+        xb.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), bpart.data_ptr(),
+        ab.data_ptr(), 105, 24, chunks, per, 1e-5, stream), "bn")
+    torch.cuda.synchronize()
+
+    for buf, view in bufs:
+        guard = torch.cat([buf[:4096], buf[-4096:]])
+        assert bool(torch.isnan(guard).all())
+        assert not bool(torch.isnan(view).any())
+    _close_bf16(out, kconv.conv2d_nhwc_plain(x, wt, k // 2))
+    _close_bf16(out2, kconv.conv2d_nhwc_plain(x, wt, k // 2))
+    want = kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2)
+    torch.testing.assert_close(dw, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    _close_bf16(mm, kmatmul.matmul_plain(a, b))
+    _close_bf16(y, kbn.batch_norm_fwd_plain(xb, gamma, beta, 1e-5)[0])
+
+
+def test_bf16_wrappers_refuse_what_they_do_not_take(dev):
+    """No fallback: the float32-only kernels raise TypeError on bf16 (the
+    transformer's AMP path waits for bf16 flash kernels), and the bf16
+    ones on mixed or other dtypes."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    b = torch.ones(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        kfa.flash_attention_fwd(b, b, b)
+    with pytest.raises(TypeError):
+        ksoftmax.softmax(torch.ones(4, 6, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        kemb.gather_rows(torch.ones(5, 2, device=dev, dtype=torch.bfloat16),
+                         torch.zeros(3, dtype=torch.long, device=dev))
+    with pytest.raises(TypeError):
+        kmatmul.matmul(torch.ones(2, 3, device=dev, dtype=torch.bfloat16),
+                       torch.ones(3, 4, device=dev))
+    with pytest.raises(TypeError):
+        kconv.conv2d_nhwc(torch.ones(1, 4, 4, 2, device=dev).half(),
+                          torch.ones(3, 3, 2, 2, device=dev).half(), 1)
+
+
+def test_amp_train_step_on_the_card_matches_cpu(dev):
+    """One AMP step of ResNet-8 at 16x16, batch 4, on the card against the
+    CPU's plain versions: the loss within 5e-3 of its value (bf16 ulps
+    through 8 layers), the BN running statistics within 1e-2 of max (the
+    batch statistics of bf16 activations that differ by an ulp), and the
+    step ran the bf16 conv, BN and matmul instances."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.models import resnet_cifar10
+
+    pt.framework.reset_default_programs()
+    img = pt.layers.data(name="img", shape=[3, 16, 16])
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    pred = resnet_cifar10(img, depth=8)
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(loss)
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cpu.run(pt.default_startup_program(), scope=cpu_scope)
+    card_scope = pt.Scope()
+    card_scope.load_numpy({n: v.numpy() for n, v in cpu_scope.values.items()},
+                          dev)
+    rng = np.random.RandomState(7)
+    feed = {"img": rng.randn(4, 3, 16, 16).astype(np.float32),
+            "label": rng.randint(0, 10, (4, 1)).astype(np.int64)}
+    before = (kconv.launches_bf16, kconv.dw_launches_bf16, kbn.launches_bf16,
+              kbn.bwd_launches_bf16, kmatmul.launches_bf16)
+    with pt.amp.amp_guard(True):
+        (got,) = pt.Executor(pt.CUDAPlace(0)).run(
+            pt.default_main_program(), feed=feed, fetch_list=[loss],
+            scope=card_scope)
+        (want,) = cpu.run(pt.default_main_program(), feed=feed,
+                          fetch_list=[loss], scope=cpu_scope)
+    after = (kconv.launches_bf16, kconv.dw_launches_bf16, kbn.launches_bf16,
+             kbn.bwd_launches_bf16, kmatmul.launches_bf16)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert abs(float(got) - float(want)) <= 5e-3 * abs(float(want))
+    for name, v in cpu_scope.values.items():
+        assert card_scope.get(name).dtype == v.dtype, name
+        if "batch_norm" in name and name.endswith(("w_1", "w_2")):
+            want_v = v.numpy()
+            np.testing.assert_allclose(card_scope.get(name).cpu().numpy(),
+                                       want_v, rtol=0,
+                                       atol=1e-2 * np.abs(want_v).max())
