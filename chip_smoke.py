@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: build its kernels, hold each
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
-and check the replies, train full-width ResNet-50 (float32 and under
-bf16 AMP), LeNet-5, the transformer LM and the LSTM text classifier
-(padded and over LoD ids) and check their steps, serve the paged-KV
-decoder LM over /generate and check its generations, then measure.
+and check the replies, train full-width ResNet-50, LeNet-5, the
+transformer LM and the LSTM text classifier (padded, float32 and under
+bf16 AMP each; and over LoD ids) and check their steps, serve the
+paged-KV decoder LM over /generate and check its generations, then
+measure.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,14 @@ seconds):
    1280 and at T 7, B 5, H 100 (torch.nn.LSTM on cuDNN, timed with the
    kernel in LSTM_ROUNDS alternating rounds); the gather at
    the LoD step's ids on the 30000 x 512 table, on a 510-wide table and
-   with ids out of range (torch.index_select).
+   with ids out of range (torch.index_select).  For the transformer's
+   and the LSTM classifier's AMP steps: the bf16 flash forward, dq
+   and dk/dv at the step's shape and at S 200, D 64 and 72 (the plain
+   forward walking the kernel's key tiles), the bf16 matmul at the
+   transformer's five shapes (torch.matmul in bf16), the bf16 LSTM at
+   T 100, B 64, H 256 and T 7, B 5, H 100 (torch.nn.LSTM in bf16 on
+   cuDNN), each within BF16_RTOL / BF16_ATOL, bound at 989 TFLOP/s bf16
+   (the LSTM's f32 recurrence at 67).
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -106,6 +114,17 @@ seconds):
 10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
     a seeded copy-the-previous-token task on the card: the loss falls
     below CONVERGE_LOSS.
+10a. Transformer AMP parity: the step of phase 8 under AMP (bf16 mul,
+    flash attention and lm_head logits; f32 masters and moments), card
+    against CPUPlace() from identical weights (amp_step_parity): the
+    loss within AMP_PARITY_TOL of its value, every gradient and state
+    tensor within AMP_PARITY_TOL of max|CPU| or FLOOR_FACTOR times the
+    CPU's own bf16 effect on it; every op on identical inputs within
+    AMP_OP_TOL.
+10b. The transformer AMP step at B 8, S 1024: launches bf16 flash
+    forward 4, dq 4, dk/dv 4, bf16 matmul 17 and no f32 flash or matmul
+    launch; tokens/s beside phase 9's f32 step, peak memory, one profiled
+    step.  10c. The small model of phase 10 learns under AMP.
 11. LSTM classifier parity: lstm_text_classifier as benchmark/run.py
     trains its `lstm` cell (B 64, T 100, vocab 30000 with ids < 10000,
     emb 512, hidden 256, 2 layers, 2 classes, Momentum(0.01, 0.9), f32)
@@ -118,6 +137,10 @@ seconds):
     after 2 warm-up steps, peak memory.
 13. A small LSTM classifier (T 20, emb 32, hidden 64, Adam(1e-2)) learns
     whether token 0 occurs: held-out accuracy above SEQ_CONVERGE_ACC.
+13a. The LSTM classifier under AMP: parity at B 2 (amp_step_parity);
+    the step at B 64, T 100 with launches bf16 lstm 2, bf16 matmul 3,
+    f32 softmax 1 and no f32 lstm or matmul launch, samples/s beside
+    phase 12's; the small classifier of phase 13 learns under AMP.
 14. LoD classifier parity: LoD ids of 64 sequences with seeded lengths
     in 1-100 -> embedding([30000, 512]) -> fc(256, tanh) ->
     sequence_pool(average) -> fc(2, softmax), Momentum(0.01, 0.9): card
@@ -125,9 +148,10 @@ seconds):
 15. The LoD classifier step: launches (gather 1, matmul 2, softmax 1,
     lstm 0), steps/s and rows/s, peak memory.
 16. One profiled step of each sequence path in a fresh process
-    (``chip_smoke.py --profile-sequence-steps``): idle share, top
-    kernels, and the split into the port's kernels, the plain LSTM
-    backward loop, the mul backward products, the rest and the host.
+    (``chip_smoke.py --profile-sequence-steps``; the LSTM classifier in
+    f32 and under AMP): idle share, top kernels, and the split into the
+    port's kernels, the plain LSTM backward loop, the mul backward
+    products, the rest and the host.
 17. (A, in phase 2) The paged-attention kernels against their plain
     versions, atol PAGED_ATOL: the decode kernel at the slice's shape
     (S 16, H 16, D 128, page 16, P 128) with seeded ragged lens in 1-2048
@@ -284,11 +308,22 @@ KERNELS = {
                         "paddle_tpu/pallas/conv.py:288"),
     "conv2d_bn_stats_bf16": ("paddle_tpu_torch/csrc/conv.cu",
                              "paddle_tpu/pallas/conv.py:288"),
+    # the transformer's and the LSTM classifier's AMP steps
+    "flash_attention_fwd_bf16": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                 "paddle_tpu/pallas/flash_attention.py:145"),
+    "flash_attention_dq_bf16": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                "paddle_tpu/pallas/flash_attention.py:293"),
+    "flash_attention_dkv_bf16": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                 "paddle_tpu/pallas/flash_attention.py:313"),
+    "lstm_bf16": ("paddle_tpu_torch/csrc/lstm.cu",
+                  "paddle_tpu/pallas/lstm.py:112"),
 }
-# the bf16 instance of each kernel the AMP step runs in bf16
+# the bf16 instance of each kernel an AMP step runs in bf16 (the softmax
+# takes the f32 sum of a bf16 product and an f32 bias)
 BF16_OF = {name: name + "_bf16" for name in (
     "conv2d_nhwc", "conv_bwd_input", "conv_dw", "batch_norm_fwd",
-    "batch_norm_bwd", "matmul")}
+    "batch_norm_bwd", "matmul", "flash_attention_fwd", "flash_attention_dq",
+    "flash_attention_dkv", "lstm")}
 
 # The transformer LM of benchmark/transformer_bench.py:45-60 at its own
 # full width (d_model 2048, 16 heads of 128, 4 layers, vocab 32768,
@@ -434,7 +469,11 @@ def counters():
                 batch_norm_bwd_bf16=kbn.bwd_launches_bf16,
                 matmul_bf16=kmatmul.launches_bf16,
                 conv2d_bn_stats=kconv.stats_launches,
-                conv2d_bn_stats_bf16=kconv.stats_launches_bf16)
+                conv2d_bn_stats_bf16=kconv.stats_launches_bf16,
+                flash_attention_fwd_bf16=kfa.launches_bf16,
+                flash_attention_dq_bf16=kfa.dq_launches_bf16,
+                flash_attention_dkv_bf16=kfa.dkv_launches_bf16,
+                lstm_bf16=klstm.launches_bf16)
 
 
 def zero_counters():
@@ -455,7 +494,8 @@ def zero_counters():
     kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
     kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
     kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
-    klstm.launches = kemb.launches = 0
+    kfa.launches_bf16 = kfa.dq_launches_bf16 = kfa.dkv_launches_bf16 = 0
+    klstm.launches = klstm.launches_bf16 = kemb.launches = 0
     kpa.launches = kpa.chunk_launches = 0
 
 
@@ -525,8 +565,9 @@ def bn_shapes_of(program, batch):
 
 def launches_implied(program, amp=False):
     """The kernel launches one run of a training ``program`` implies; with
-    ``amp``, the conv, BN and matmul launches are their bf16 instances'
-    (every activation of the ResNet step is bf16 under AMP)."""
+    ``amp``, the conv, BN, matmul, flash attention and LSTM launches are
+    their bf16 instances' (under AMP every activation those kernels see
+    on the ResNet, transformer and LSTM steps is bf16)."""
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     block = program.global_block()
@@ -1020,49 +1061,63 @@ def _qkv_views(randn, b, s, h, d):
     return [t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2)]
 
 
-def phase_flash_kernels(dev, randn):
-    """The three flash kernels against their plain versions at the
-    transformer step's shape (B 8, S 1024, 16 heads of 128, causal) and
-    at ragged shapes (B*H 6, S 200, D 64, causal and not); times at the
-    step's shape, summed over its 4 launches of each.  Library:
-    F.scaled_dot_product_attention's forward, and its autograd backward
-    (dq, dk and dv together)."""
+def phase_flash_kernels(dev, randn, bf16=False):
+    """The three flash kernels (their bf16 instances with ``bf16``)
+    against their plain versions at the transformer step's shape (B 8,
+    S 1024, 16 heads of 128, causal) and at ragged shapes (S 200, D 64
+    and 72, causal and not), on strided q, k, v views of a fused qkv; the
+    plain forward walks the kernel's key tiles, the plain backward takes
+    the kernel's own out and lse.  f32: out and lse within FLASH_ATOL,
+    the gradients within FLASH_GRAD_TOL of max; bf16: out and the
+    gradients within BF16_RTOL / BF16_ATOL, lse within FLASH_ATOL.  Times
+    at the step's shape, summed over its 4 launches of each, bound at 67
+    TFLOP/s f32 or 989 bf16.  Library: F.scaled_dot_product_attention's
+    forward, and its autograd backward (dq, dk and dv together)."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
+    dt = torch.bfloat16 if bf16 else torch.float32
+    sfx = "_bf16" if bf16 else ""
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+
+    def close(what, got, want, grad):
+        if bf16:
+            return check_bf16(what, got, want)
+        if grad:
+            return check_scaled(what, got, want, FLASH_GRAD_TOL)
+        return check_close(what, got, want, rtol=0, atol=FLASH_ATOL)
+
     def check(tag, b, s, h, d, causal):
-        q, k, v = _qkv_views(randn, b, s, h, d)
-        do = randn(b, s, h, d)
+        q, k, v = (t.to(dt) for t in _qkv_views(randn, b, s, h, d))
+        do = randn(b, s, h, d).to(dt)
         out, lse = kfa.flash_attention_fwd(q, k, v, causal)
-        pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal)
-        err_fwd = max(check_close(f"flash fwd out {tag}", out, pout, rtol=0,
-                                  atol=FLASH_ATOL),
-                      check_close(f"flash fwd lse {tag}", lse, plse, rtol=0,
-                                  atol=FLASH_ATOL))
-        dq, dk, dv = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
-        pdq, pdk, pdv = kfa.flash_attention_bwd_plain(q, k, v, pout, plse, do,
-                                                      causal)
-        err_dq = check_scaled(f"flash dq {tag}", dq, pdq, FLASH_GRAD_TOL)
-        err_dkv = max(check_scaled(f"flash dk {tag}", dk, pdk, FLASH_GRAD_TOL),
-                      check_scaled(f"flash dv {tag}", dv, pdv, FLASH_GRAD_TOL))
-        return (q, k, v, do, out, lse, pout, plse), [err_fwd, err_dq, err_dkv]
+        pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal,
+                                                   tile=kfa.key_tile(d))
+        err_fwd = max(close(f"flash{sfx} fwd out {tag}", out, pout, False),
+                      check_close(f"flash{sfx} fwd lse {tag}", lse, plse,
+                                  rtol=0, atol=FLASH_ATOL))
+        grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = kfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        errs = [close(f"flash{sfx} {n} {tag}", g, w, True)
+                for n, g, w in zip(("dq", "dk", "dv"), grads, want)]
+        return (q, k, v, do, out, lse), [err_fwd, errs[0], max(errs[1:])]
 
     worst = [0.0, 0.0, 0.0]
     for causal in (False, True):
-        for b, h in ((1, 6), (2, 3)):
-            _, errs = check(f"B{b} S200 H{h} D64 causal={causal}", b, 200, h,
-                            64, causal)
+        for b, h, d in ((1, 6, 64), (2, 3, 72)):
+            _, errs = check(f"B{b} S200 H{h} D{d} causal={causal}", b, 200,
+                            h, d, causal)
             worst = [max(w, e) for w, e in zip(worst, errs)]
-    log(f"flash kernels at ragged shapes (B*H 6, S 200, D 64, causal and "
-        f"not): max err fwd {worst[0]:.2e} (atol {FLASH_ATOL}), dq "
-        f"{worst[1]:.2e}, dk/dv {worst[2]:.2e} (<= {FLASH_GRAD_TOL} x max)")
+    log(f"flash{sfx} kernels at ragged shapes (S 200, D 64 and 72, causal "
+        f"and not): max err fwd {worst[0]:.2e}, dq {worst[1]:.2e}, dk/dv "
+        f"{worst[2]:.2e}")
 
     h, d = TF_CONFIG["num_heads"], TF_CONFIG["d_model"] // TF_CONFIG["num_heads"]
     b, s, count = TF_BATCH, TF_SEQ, TF_CONFIG["num_layers"]
-    tag = f"B{b} S{s} H{h} D{d} causal"
-    (q, k, v, do, out, lse, pout, plse), errs = check(tag, b, s, h, d, True)
+    tag = f"B{b} S{s} H{h} D{d} causal {dt}"
+    (q, k, v, do, out, lse), errs = check(tag, b, s, h, d, True)
     worst = [max(w, e) for w, e in zip(worst, errs)]
     ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
@@ -1072,38 +1127,38 @@ def phase_flash_kernels(dev, randn):
     dq_ms, dkv_ms = _time_bwd_launches(kfa, q, k, v, out, lse, do)
     bwd_ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, lse, do,
                                                      True))
-    plain_fwd = time_ms(lambda: kfa.flash_attention_fwd_plain(q, k, v, True),
-                        reps=5)
+    plain_fwd = time_ms(lambda: kfa.flash_attention_fwd_plain(
+        q, k, v, True, tile=kfa.key_tile(d)), reps=5)
     plain_bwd = time_ms(lambda: kfa.flash_attention_bwd_plain(
-        q, k, v, pout, plse, do, True), reps=5)
+        q, k, v, out, lse, do, True), reps=5)
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True))
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), lib_do, retain_graph=True))
     # the work: query-key pairs the causal mask keeps, the bytes of one
-    # (B, S, H, D) tensor and of one (B*H, S) row array
+    # (B, S, H, D) tensor and of one f32 (B*H, S) row array
     pairs = b * h * s * (s + 1) // 2
-    tensor, rows = 4.0 * b * s * h * d, 4.0 * b * h * s
+    tensor, rows = q.element_size() * b * s * h * d, 4.0 * b * h * s
     # (kernel ms, plain ms, library ms, FLOPs, bytes): the plain and
     # library times of dq and dk/dv are each the whole backward
     rows_of = {
-        "flash_attention_fwd": (fwd_ms, plain_fwd, lib_fwd, 4.0 * pairs * d,
-                                4 * tensor + rows),
-        "flash_attention_dq": (dq_ms, plain_bwd, lib_bwd, 6.0 * pairs * d,
-                               5 * tensor + 2 * rows),
-        "flash_attention_dkv": (dkv_ms, plain_bwd, lib_bwd, 8.0 * pairs * d,
-                                6 * tensor + 2 * rows),
+        f"flash_attention_fwd{sfx}": (fwd_ms, plain_fwd, lib_fwd,
+                                      4.0 * pairs * d, 4 * tensor + rows),
+        f"flash_attention_dq{sfx}": (dq_ms, plain_bwd, lib_bwd,
+                                     6.0 * pairs * d, 5 * tensor + 2 * rows),
+        f"flash_attention_dkv{sfx}": (dkv_ms, plain_bwd, lib_bwd,
+                                      8.0 * pairs * d, 6 * tensor + 2 * rows),
     }
     results = {}
     for (name, row), err in zip(rows_of.items(), worst):
-        sm = _Sum()
+        sm = _Sum(peak)
         sm.add(count, *row, err)
-        _line(f"{name} {tag}", count, *row, err)
+        _line(f"{name} {tag}", count, *row, err, peak)
         results[name] = sm.result()
     log(f"  the backward wrapper (delta, dq, dk/dv) {bwd_ms:.4f} ms per call;"
         f" plain and library times of dq and dk/dv are the whole backward")
-    del q, k, v, do, out, lse, pout, plse, ql, kl, vl, lib_out
+    del q, k, v, do, out, lse, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
     return results
 
@@ -1115,8 +1170,9 @@ def _time_bwd_launches(kfa, q, k, v, out, lse, do, reps=10):
 
     lib = kfa._build.load("flash_attention", kfa._SIGNATURES)
     marks = []
-    real = {n: getattr(lib, n) for n in ("ptt_flash_dq_f32",
-                                          "ptt_flash_dkv_f32")}
+    sfx = kfa._build.SUFFIX[q.dtype]
+    real = {n: getattr(lib, n) for n in (f"ptt_flash_dq_{sfx}",
+                                          f"ptt_flash_dkv_{sfx}")}
 
     def timed_entry(fn):
         def call(*args):
@@ -1157,35 +1213,40 @@ def transformer_matmul_shapes():
             (m, f, d): layers, (m, d, TF_CONFIG["vocab_size"]): 1}
 
 
-def phase_tf_matmul(dev, randn):
-    """The matmul kernel against its plain version at every shape of the
-    transformer step, summed over the step's 17 launches (torch.matmul
-    the library call, TF32 off)."""
+def phase_tf_matmul(dev, randn, bf16=False):
+    """The matmul kernel (its bf16 instance with ``bf16``) against its
+    plain version at every shape of the transformer step, summed over the
+    step's 17 launches (torch.matmul the library call, TF32 off; bound at
+    67 TFLOP/s f32 or 989 bf16)."""
     import torch
 
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
-    sm = _Sum()
-    log(f"matmul at the transformer step's shapes (B*S = "
+    dt = torch.bfloat16 if bf16 else torch.float32
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    sm = _Sum(peak)
+    log(f"{dt} matmul at the transformer step's shapes (B*S = "
         f"{TF_BATCH * TF_SEQ}), per call:")
     for (m, k, n), count in transformer_matmul_shapes().items():
-        x = randn(m, k)
-        y = randn(k, n, scale=k ** -0.5)
-        err = check_close(f"matmul {m}x{k}x{n}", kmatmul.matmul(x, y),
-                          kmatmul.matmul_plain(x, y), **GEMM_TOL)
+        x = randn(m, k).to(dt)
+        y = randn(k, n, scale=k ** -0.5).to(dt)
+        got, want = kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y)
+        err = (check_bf16(f"bf16 matmul {m}x{k}x{n}", got, want) if bf16
+               else check_close(f"matmul {m}x{k}x{n}", got, want, **GEMM_TOL))
         times = (time_ms(lambda: kmatmul.matmul(x, y), reps=5),
                  time_ms(lambda: kmatmul.matmul_plain(x, y), reps=5),
                  time_ms(lambda: torch.matmul(x, y), reps=5))
-        flops, nbytes = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
-        _line(f"{m}x{k}x{n}", count, *times, flops, nbytes, err)
+        flops = 2.0 * m * k * n
+        nbytes = x.element_size() * (m * k + k * n + m * n)
+        _line(f"{m}x{k}x{n}", count, *times, flops, nbytes, err, peak)
         sm.add(count, *times, flops, nbytes, err)
-        del x, y
+        del x, y, got, want
     torch.cuda.empty_cache()
     r = sm.result()
-    log(f"  one transformer step's matmul launches: kernel {r['ms']:.3f} ms,"
-        f" plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}); max err "
-        f"{r['max_abs_err']:.2e} (tolerance {GEMM_TOL})")
+    log(f"  one transformer step's {dt} matmul launches: kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
     return r
 
 
@@ -1255,8 +1316,8 @@ def phase_seq_dense(dev, randn):
 
 def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     """Every kernel against its plain version.  The kernels line keeps the
-    matmul's numbers at the transformer step's shapes (its 17 launches
-    there; the ResNet and sequence shapes are logged)."""
+    matmul's numbers at the transformer step's shapes, f32 and bf16 (its
+    17 launches there; the ResNet and sequence shapes are logged)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -1270,9 +1331,12 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results.update(phase_bf16_kernels(dev, train_conv_shapes,
                                       train_bn_shapes, randn))
     results.update(phase_flash_kernels(dev, randn))
+    results.update(phase_flash_kernels(dev, randn, bf16=True))
     results["matmul"] = phase_tf_matmul(dev, randn)
+    results["matmul_bf16"] = phase_tf_matmul(dev, randn, bf16=True)
     phase_seq_dense(dev, randn)
     results["lstm"] = phase_lstm_kernels(dev, randn)
+    results["lstm_bf16"] = phase_lstm_bf16_kernel(dev, randn)
     results["embedding"] = phase_gather_kernel(dev, randn)
     results.update(phase_paged_kernels(dev, randn))
     return results
@@ -1903,6 +1967,85 @@ def _lenet(dev, kind):
              f"{float(av[0]):.3f}")
 
 
+def amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                    what):
+    """One AMP step on the card against the same AMP step on CPUPlace()
+    from identical weights and feeds, end to end: the loss within
+    AMP_PARITY_TOL of its value; every gradient, and every persistable
+    after the update, within max(AMP_PARITY_TOL * max|CPU|, FLOOR_FACTOR *
+    the CPU's own bf16 effect on it), the effect being max|CPU AMP step -
+    CPU f32 step| from the same start (bf16 sums that a kernel and its
+    plain version round an ulp apart move a tensor by about what bf16
+    itself moves it); then every op on identical inputs within
+    AMP_OP_TOL."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    card = pt.Executor()
+    scope = pt.Scope()
+    card.run(startup, scope=scope)
+    state = {n: v.cpu().numpy() for n, v in scope.values.items()}
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    names = fetch + sorted(state)
+    t0 = time.perf_counter()
+    with pt.amp.amp_guard(True):
+        got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
+    t_card = time.perf_counter() - t0
+    got += [scope.get(n).cpu().numpy() for n in sorted(state)]
+    del scope
+    torch.cuda.empty_cache()
+    runs = {}
+    t0 = time.perf_counter()
+    for amp in (True, False):
+        cpu_scope = pt.Scope()
+        cpu_scope.load_numpy(state, "cpu")
+        with pt.amp.amp_guard(amp):
+            out = pt.Executor(pt.CPUPlace()).run(
+                main_prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        runs[amp] = out + [cpu_scope.get(n).numpy() for n in sorted(state)]
+        del cpu_scope
+    t_cpu = (time.perf_counter() - t0) / 2
+    want_loss = float(runs[True][0])
+    rel_loss = abs(float(got[0]) - want_loss) / abs(want_loss)
+    bad = [(loss.name, rel_loss)] if not rel_loss <= AMP_PARITY_TOL else []
+    worst, floor_held = {}, 0
+    params = {p.name for p, _ in params_grads}
+    for i, name in enumerate(names[1:], 1):
+        kind = ("gradient" if i < len(fetch) else
+                "parameter" if name in params else "optimizer state")
+        w = np.asarray(runs[True][i], np.float64)
+        f = np.asarray(runs[False][i], np.float64)
+        g = np.asarray(got[i], np.float64)
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        effect = float(np.abs(w - f).max()) if w.size else 0.0
+        err = (float(np.abs(g - w).max()) if np.isfinite(g).all() else np.inf
+               ) if w.size else 0.0
+        allowed = max(AMP_PARITY_TOL * scale, FLOOR_FACTOR * effect)
+        floor_held += FLOOR_FACTOR * effect > AMP_PARITY_TOL * scale
+        rel = (err / scale, effect / scale) if scale else (err, effect)
+        if rel > worst.get(kind, (-1.0,)):
+            worst[kind] = rel + (name,)
+        if not err <= allowed:
+            bad.append((name, err, allowed))
+    log(f"{what}, AMP step end to end (card {t_card:.2f} s, CPU plain path "
+        f"{t_cpu:.2f} s a step): loss card {float(got[0]):.6f} vs CPU "
+        f"{want_loss:.6f} (rel {rel_loss:.2e}, tolerance {AMP_PARITY_TOL}; "
+        f"the CPU's f32 step {float(runs[False][0]):.6f}); "
+        f"{len(names) - 1} gradients and state tensors, {floor_held} of them "
+        f"held to {FLOOR_FACTOR} x the CPU's own bf16 effect; worst "
+        "max|card - CPU| / max|CPU| per kind (the bf16 effect beside it):")
+    for kind, (rel, eff, name) in sorted(worst.items()):
+        log(f"  {kind}: {rel:.3e} (bf16 effect {eff:.3e}; {name})")
+    if bad:
+        fail(f"{what}: the AMP step on the card differs from the CPU end to "
+             f"end: {bad[:10]}")
+    del got, runs
+    with pt.amp.amp_guard(True):
+        ops_on_identical_inputs(dev, main_prog.global_block(), state, feed,
+                                f"{what}, AMP", tol=AMP_OP_TOL)
+
+
 # ---------------------------------------------------------------------------
 # phases 8-10: the transformer LM
 # ---------------------------------------------------------------------------
@@ -2023,19 +2166,45 @@ def phase_tf_parity(dev):
                             f"S {TF_PARITY_SEQ}")
 
 
-def phase_tf_train_step(dev, smi):
-    """The full-width transformer step at B 8, S 1024: counted launches
-    (flash forward 4, dq 4, dk/dv 4, matmul 17, softmax 0), tokens/s over
-    5 timed steps after 2 warm-up steps, peak memory, one profiled step."""
+def phase_tf_amp_parity(dev):
+    """One full-width transformer AMP step (B 1, S 128) on the card against
+    the same step on CPUPlace(), end to end and op by op
+    (amp_step_parity)."""
+    main_prog, startup, loss, params_grads = build_transformer_program(
+        TF_PARITY_SEQ)
+    rng = np.random.RandomState(6)
+    v = TF_CONFIG["vocab_size"]
+    feed = {n: rng.randint(0, v, (TF_PARITY_BATCH, TF_PARITY_SEQ, 1))
+            .astype(np.int64) for n in ("tokens", "labels")}
+    amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                    f"transformer step parity at full width, B "
+                    f"{TF_PARITY_BATCH} S {TF_PARITY_SEQ}")
+
+
+def phase_tf_train_step(dev, smi, amp=False):
+    """The full-width transformer step at B 8, S 1024 (under AMP with
+    ``amp``): counted launches (flash forward 4, dq 4, dk/dv 4, matmul 17,
+    softmax 0; under AMP the bf16 instances, and no f32 flash or matmul
+    launch), tokens/s over 5 timed steps after 2 warm-up steps, peak
+    memory, one profiled step."""
+    import paddle_tpu_torch as pt
+
+    with pt.amp.amp_guard(amp):
+        return _tf_train_step(dev, smi, "AMP bf16" if amp else "f32", amp)
+
+
+def _tf_train_step(dev, smi, kind, amp):
     import torch
 
     import paddle_tpu_torch as pt
 
     main_prog, startup, loss, params_grads = build_transformer_program(TF_SEQ)
-    want_launches = launches_implied(main_prog)
+    want_launches = launches_implied(main_prog, amp)
     expect = dict.fromkeys(KERNELS, 0)
-    expect.update(flash_attention_fwd=4, flash_attention_dq=4,
-                  flash_attention_dkv=4, matmul=17)
+    sfx = "_bf16" if amp else ""
+    expect.update({f"flash_attention_fwd{sfx}": 4,
+                   f"flash_attention_dq{sfx}": 4,
+                   f"flash_attention_dkv{sfx}": 4, f"matmul{sfx}": 17})
     if want_launches != expect:
         fail(f"unexpected transformer program: launches {want_launches}")
     n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
@@ -2054,8 +2223,8 @@ def phase_tf_train_step(dev, smi):
     (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     first_s = time.perf_counter() - t0
     launches = counters()
-    log(f"transformer LM, {n_params / 1e6:.1f} M parameters: first step at "
-        f"B {TF_BATCH} S {TF_SEQ}: loss {float(first):.5f} (ln V = "
+    log(f"transformer LM, {n_params / 1e6:.1f} M parameters: first {kind} "
+        f"step at B {TF_BATCH} S {TF_SEQ}: loss {float(first):.5f} (ln V = "
         f"{np.log(v):.5f}) in {first_s:.2f} s; launches {launches}")
     if launches != want_launches:
         fail(f"transformer launch counts {launches} != {want_launches}")
@@ -2073,7 +2242,7 @@ def phase_tf_train_step(dev, smi):
         fail(f"the transformer's loss did not fall on a repeated batch: "
              f"{float(first)} -> {losses}")
     tok_s = 5 * tokens / sum(times)
-    log(f"transformer step at B {TF_BATCH} S {TF_SEQ} (f32): {tok_s:.1f} "
+    log(f"transformer step at B {TF_BATCH} S {TF_SEQ} ({kind}): {tok_s:.1f} "
         f"tokens/s over 5 timed steps after 2 warm-up steps "
         f"({sum(times):.3f} s; median {statistics.median(times) * 1e3:.1f} "
         f"ms, min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
@@ -2081,7 +2250,7 @@ def phase_tf_train_step(dev, smi):
         f"{peak / 2**30:.2f} GiB on {smi}")
     idle = profile_step(lambda: exe.run(main_prog, feed=feed,
                                         fetch_list=[loss], scope=scope),
-                        "transformer step")
+                        f"transformer step ({kind})")
     del exe, scope, feed
     torch.cuda.empty_cache()
     return dict(tokens_per_s=tok_s, peak_bytes=peak, idle_share=idle,
@@ -2096,10 +2265,17 @@ def copy_task(rng, batch, seq, vocab):
     return {"tokens": tokens, "labels": labels}
 
 
-def phase_tf_converge(dev):
+def phase_tf_converge(dev, amp=False):
     """A small transformer (d_model 256, 4 heads, 2 layers, vocab 64,
-    S 128) learns copy_task on the card with Adam(3e-3): the loss must
-    fall below CONVERGE_LOSS."""
+    S 128) learns copy_task on the card with Adam(3e-3), under AMP with
+    ``amp``: the loss must fall below CONVERGE_LOSS."""
+    import paddle_tpu_torch as pt
+
+    with pt.amp.amp_guard(amp):
+        _tf_converge("AMP bf16" if amp else "f32")
+
+
+def _tf_converge(kind):
     import paddle_tpu_torch as pt
 
     config = dict(vocab_size=64, d_model=256, num_heads=4, num_layers=2,
@@ -2116,11 +2292,11 @@ def phase_tf_converge(dev):
         (lv,) = exe.run(main_prog, feed=copy_task(rng, 8, 128, 64),
                         fetch_list=[loss], scope=scope)
         losses.append(float(lv))
-    log(f"small transformer + Adam, {CONVERGE_STEPS} steps of 8 x 128 "
-        f"tokens on {exe.place!r} in {time.perf_counter() - t0:.2f} s: "
+    log(f"small transformer + Adam ({kind}), {CONVERGE_STEPS} steps of 8 x "
+        f"128 tokens on {exe.place!r} in {time.perf_counter() - t0:.2f} s: "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if not losses[-1] < CONVERGE_LOSS:
-        fail(f"the small transformer did not learn the task: loss "
+        fail(f"the small transformer ({kind}) did not learn the task: loss "
              f"{losses[-1]:.4f} >= {CONVERGE_LOSS}")
 
 
@@ -2221,6 +2397,72 @@ def phase_lstm_kernels(dev, randn):
         del args, hs, cs, gates, lib
     torch.cuda.empty_cache()
     return result
+
+
+def phase_lstm_bf16_kernel(dev, randn):
+    """The bf16 LSTM instance (bf16 xproj view, h0 and c0; f32 W and
+    bias; f32 carry) against its plain version at the AMP step's T 100,
+    B 64, H 256 and at T 7, B 5, H 100: hs, cs and gates within the bf16
+    tolerance.  Library: torch.nn.LSTM in bf16 on cuDNN (W_ih = I, W_hh =
+    W^T and b_ih = bias rounded to bf16, b_hh = 0), timed with the kernel
+    in LSTM_ROUNDS alternating rounds.  Bound: the recurrence's products
+    at 67 TFLOP/s (f32 products, as the TPU kernel takes h W on the f32
+    master W), the bf16 and f32 bytes at 3.35 TB/s."""
+    import torch
+
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    bf = torch.bfloat16
+
+    def inputs(b, t, h):
+        xp = randn(b * t, 8 * h, scale=0.5).to(bf).reshape(b, t, 8 * h)
+        return (xp[:, :, 2 * h:6 * h], randn(h, 4 * h, scale=h ** -0.5),
+                randn(4 * h, scale=0.1), randn(b, h, scale=0.5).to(bf),
+                randn(b, h, scale=0.5).to(bf))
+
+    def check(tag, args):
+        got = klstm.lstm_seq(*args)
+        want = klstm.lstm_seq_plain(*args)
+        return got, max(check_bf16(f"lstm bf16 {n} {tag}", g, w)
+                        for n, g, w in zip(("hs", "cs", "gates"), got, want))
+
+    _, ragged_err = check("T7 B5 H100", inputs(5, 7, 100))
+    b, t, h = LSTM_BATCH, LSTM_SEQ, LSTM_HIDDEN
+    args = inputs(b, t, h)
+    tag = f"T{t} B{b} H{h} bf16"
+    (hs, _, _), err = check(tag, args)
+    lib = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev, bf)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+        lib.weight_hh_l0.copy_(args[1].t())
+        lib.bias_ih_l0.copy_(args[2])
+        lib.bias_hh_l0.zero_()
+        state = (args[3][None], args[4][None])
+        lib_err = float((lib(args[0], state)[0].float() - hs.float())
+                        .abs().max())
+        rounds = [(time_ms(lambda: klstm.lstm_seq(*args)),
+                   time_ms(lambda: lib(args[0], state)))
+                  for _ in range(LSTM_ROUNDS)]
+        ms = statistics.median(r[0] for r in rounds)
+        lib_ms = statistics.median(r[1] for r in rounds)
+        plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
+    flops = 2.0 * t * b * h * 4 * h
+    # bf16 xproj, h0, c0, hs, cs and gates; f32 W and bias
+    nbytes = (2.0 * (2 * b * t * 4 * h + 2 * b * h + 2 * b * t * h)
+              + 4.0 * (4 * h * h + 4 * h))
+    _line(f"lstm {tag} ({klstm.last_grid_blocks} blocks)", 2, ms, plain,
+          lib_ms, flops, nbytes, err)
+    log(f"  at T 7, B 5, H 100: max err {ragged_err:.2e}; over "
+        f"{LSTM_ROUNDS} alternating rounds: kernel "
+        f"{min(r[0] for r in rounds):.4f}-{max(r[0] for r in rounds):.4f} "
+        f"ms, cuDNN bf16 {min(r[1] for r in rounds):.4f}-"
+        f"{max(r[1] for r in rounds):.4f} ms; cuDNN's hs (bf16 W) vs the "
+        f"kernel's: max diff {lib_err:.2e}")
+    sm = _Sum()
+    sm.add(2, ms, plain, lib_ms, flops, nbytes, max(err, ragged_err))
+    del args, hs, lib
+    torch.cuda.empty_cache()
+    return sm.result()
 
 
 def lod_feed(rng, device=None):
@@ -2401,32 +2643,39 @@ def seq_step_parity(dev, main_prog, startup, loss, params_grads, feed, what):
     ops_on_identical_inputs(dev, main_prog.global_block(), state, feed, what)
 
 
-def phase_lstm_parity(dev):
-    """Path A at full width, B 2: card vs CPU."""
+def phase_lstm_parity(dev, amp=False):
+    """Path A at full width, B 2: card vs CPU (under AMP with ``amp``:
+    amp_step_parity)."""
     main_prog, startup, _, loss, params_grads = build_lstm_program()
     rng = np.random.RandomState(9)
     feed = {"ids": rng.randint(0, LSTM_IDS, (LSTM_PARITY_BATCH, LSTM_SEQ, 1))
             .astype(np.int64),
             "label": rng.randint(0, 2, (LSTM_PARITY_BATCH, 1)).astype(np.int64)}
-    seq_step_parity(dev, main_prog, startup, loss, params_grads, feed,
-                    f"LSTM classifier step parity at full width, B "
-                    f"{LSTM_PARITY_BATCH} T {LSTM_SEQ}")
+    what = (f"LSTM classifier step parity at full width, B "
+            f"{LSTM_PARITY_BATCH} T {LSTM_SEQ}")
+    if amp:
+        amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                        what)
+    else:
+        seq_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                        what)
 
 
-def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi):
-    """A step of a sequence path on the card: the counters zeroed just
-    before the first step and read just after must equal ``expect``;
-    then 5 timed steps after 2 warm-up steps and peak memory.  Returns
-    (seconds of the 5 steps, peak bytes, launches)."""
+def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
+                   amp=False):
+    """A step of a sequence path on the card (under AMP with ``amp``): the
+    counters zeroed just before the first step and read just after must
+    equal ``expect``; then 5 timed steps after 2 warm-up steps and peak
+    memory.  Returns (seconds of the 5 steps, peak bytes, launches)."""
     import torch
 
     import paddle_tpu_torch as pt
 
     want = dict.fromkeys(KERNELS, 0)
     want.update(expect)
-    if launches_implied(main_prog) != want:
-        fail(f"{what}: the program implies {launches_implied(main_prog)}, "
-             f"not {want}")
+    if launches_implied(main_prog, amp) != want:
+        fail(f"{what}: the program implies "
+             f"{launches_implied(main_prog, amp)}, not {want}")
     exe = pt.Executor()
     scope = pt.Scope()
     exe.run(startup, scope=scope)
@@ -2472,18 +2721,27 @@ def lstm_step_feed(dev):
                                    generator=gen)}
 
 
-def phase_lstm_train_step(dev, smi):
+def phase_lstm_train_step(dev, smi, amp=False):
     """Path A at full width, B 64 T 100: launches 2 lstm / 3 matmul / 1
-    softmax / 0 gather, samples/s and tokens/s, peak memory."""
+    softmax / 0 gather (under AMP with ``amp``: 2 bf16 lstm / 3 bf16
+    matmul / 1 f32 softmax, no f32 lstm or matmul launch), samples/s and
+    tokens/s, peak memory."""
+    import paddle_tpu_torch as pt
+
     main_prog, startup, _, loss, _ = build_lstm_program()
     b, t = LSTM_BATCH, LSTM_SEQ
-    secs, peak, launches = seq_train_step(
-        dev, main_prog, startup, loss, lstm_step_feed(dev),
-        dict(lstm=2, matmul=3, softmax=1, embedding=0),
-        f"LSTM classifier step at B {b} T {t} (f32)", smi)
+    kind = "AMP bf16" if amp else "f32"
+    sfx = "_bf16" if amp else ""
+    with pt.amp.amp_guard(amp):
+        secs, peak, launches = seq_train_step(
+            dev, main_prog, startup, loss, lstm_step_feed(dev),
+            {f"lstm{sfx}": 2, f"matmul{sfx}": 3, "softmax": 1,
+             "embedding": 0},
+            f"LSTM classifier step at B {b} T {t} ({kind})", smi, amp)
     sps = 5 * b / secs
-    log(f"LSTM classifier step: {sps:.1f} samples/s, {sps * t:.1f} tokens/s "
-        f"({1e3 * secs / 5:.2f} ms per step) on {smi}")
+    log(f"LSTM classifier step ({kind}): {sps:.1f} samples/s, "
+        f"{sps * t:.1f} tokens/s ({1e3 * secs / 5:.2f} ms per step) on "
+        f"{smi}")
     return dict(samples_per_s=sps, tokens_per_s=sps * t, peak_bytes=peak,
                 launches=launches)
 
@@ -2498,10 +2756,18 @@ def token_task(rng, batch, seq, vocab):
     return {"ids": ids, "label": label.reshape(-1, 1).astype(np.int64)}
 
 
-def phase_lstm_converge(dev):
+def phase_lstm_converge(dev, amp=False):
     """lstm_text_classifier at small widths (T 20, emb 32, hidden 64)
-    learns token_task on the card with Adam(1e-2), 200 steps of 32:
-    held-out accuracy over 256 rows must pass SEQ_CONVERGE_ACC."""
+    learns token_task on the card with Adam(1e-2), 200 steps of 32, under
+    AMP with ``amp``: held-out accuracy over 256 rows must pass
+    SEQ_CONVERGE_ACC."""
+    import paddle_tpu_torch as pt
+
+    with pt.amp.amp_guard(amp):
+        _lstm_converge("AMP bf16" if amp else "f32")
+
+
+def _lstm_converge(kind):
     import paddle_tpu_torch as pt
 
     seq, vocab = 20, 50
@@ -2522,12 +2788,12 @@ def phase_lstm_converge(dev):
     held = token_task(rng, 256, seq, vocab)
     (probs,) = exe.run(test, feed=held, fetch_list=[pred], scope=scope)
     acc = float((probs.argmax(1) == held["label"][:, 0]).mean())
-    log(f"small LSTM classifier + Adam, 200 steps of 32 x {seq} tokens on "
-        f"{exe.place!r} in {time.perf_counter() - t0:.2f} s: loss "
+    log(f"small LSTM classifier + Adam ({kind}), 200 steps of 32 x {seq} "
+        f"tokens on {exe.place!r} in {time.perf_counter() - t0:.2f} s: loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, held-out accuracy {acc:.3f}")
     if not acc > SEQ_CONVERGE_ACC:
-        fail(f"the small LSTM classifier did not learn the task: accuracy "
-             f"{acc:.3f} <= {SEQ_CONVERGE_ACC}")
+        fail(f"the small LSTM classifier ({kind}) did not learn the task: "
+             f"accuracy {acc:.3f} <= {SEQ_CONVERGE_ACC}")
 
 
 def phase_lod_parity(dev):
@@ -2588,34 +2854,41 @@ def profile_sequence_steps():
     range_calls(kmatmul, "matmul_backward")
     lstm_prog, lstm_startup, _, lstm_loss, _ = build_lstm_program()
     lod_prog, lod_startup, lod_loss, _ = build_lod_program()
-    paths = {
-        "lstm": (lstm_prog, lstm_startup, lstm_loss, lstm_step_feed(dev),
-                 f"LSTM classifier step at B {LSTM_BATCH} T {LSTM_SEQ}",
-                 {"LSTM kernel": ["lstm_seq_kernel"],
-                  "LSTM backward loop (plain)": "lstm_seq_bwd",
-                  "matmul kernel": ["matmul_f32_kernel"],
-                  "mul backward products": "matmul_backward"},
-                 {"lstm_seq_kernel": 2, "matmul_f32_kernel": 3,
-                  "softmax_f32_kernel": 1}),
-        "lod": (lod_prog, lod_startup, lod_loss,
-                lod_feed(np.random.RandomState(8), dev),
-                f"LoD classifier step, {LOD_SEQS} sequences",
-                {"gather kernel": ["gather_rows_kernel"],
-                 "matmul kernel": ["matmul_f32_kernel"],
+
+    def lstm_path(mm, kind):
+        return (lstm_prog, lstm_startup, lstm_loss, lstm_step_feed(dev),
+                f"LSTM classifier step at B {LSTM_BATCH} T {LSTM_SEQ} "
+                f"({kind})",
+                {"LSTM kernel": ["lstm_seq_kernel"],
+                 "LSTM backward loop (plain)": "lstm_seq_bwd",
+                 "matmul kernel": [mm],
                  "mul backward products": "matmul_backward"},
-                {"gather_rows_kernel": 1, "matmul_f32_kernel": 2,
-                 "softmax_f32_kernel": 1}),
+                {"lstm_seq_kernel": 2, mm: 3, "softmax_f32_kernel": 1})
+
+    paths = {
+        "lstm": (False, lstm_path("matmul_f32_kernel", "f32")),
+        "lstm_amp": (True, lstm_path("matmul_bf16_kernel", "AMP bf16")),
+        "lod": (False, (lod_prog, lod_startup, lod_loss,
+                        lod_feed(np.random.RandomState(8), dev),
+                        f"LoD classifier step, {LOD_SEQS} sequences",
+                        {"gather kernel": ["gather_rows_kernel"],
+                         "matmul kernel": ["matmul_f32_kernel"],
+                         "mul backward products": "matmul_backward"},
+                        {"gather_rows_kernel": 1, "matmul_f32_kernel": 2,
+                         "softmax_f32_kernel": 1})),
     }
     idle = {}
-    for key, (prog, startup, loss, feed, what, split, want) in paths.items():
-        exe = pt.Executor()
-        scope = pt.Scope()
-        exe.run(startup, scope=scope)
-        for _ in range(2):
-            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
-        idle[key] = profile_step(
-            lambda: exe.run(prog, feed=feed, fetch_list=[loss], scope=scope),
-            what, split, want)
+    for key, (amp, (prog, startup, loss, feed, what, split,
+                    want)) in paths.items():
+        with pt.amp.amp_guard(amp):
+            exe = pt.Executor()
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+            for _ in range(2):
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            idle[key] = profile_step(
+                lambda: exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope), what, split, want)
     print(json.dumps(idle), flush=True)
 
 
@@ -3443,14 +3716,21 @@ def main():
     timed(phase_tf_parity, dev)
     tf = timed(phase_tf_train_step, dev, smi)
     timed(phase_tf_converge, dev)
+    timed(phase_tf_amp_parity, dev)
+    tf_amp = timed(phase_tf_train_step, dev, smi, amp=True)
+    timed(phase_tf_converge, dev, amp=True)
 
     timed(phase_lstm_parity, dev)
     lstm = timed(phase_lstm_train_step, dev, smi)
     timed(phase_lstm_converge, dev)
+    timed(phase_lstm_parity, dev, amp=True)
+    lstm_amp = timed(phase_lstm_train_step, dev, smi, amp=True)
+    timed(phase_lstm_converge, dev, amp=True)
     timed(phase_lod_parity, dev)
     lod = timed(phase_lod_train_step, dev, smi)
     idle = timed(phase_seq_profile)
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
+    lstm_amp["idle_share"] = idle["lstm_amp"]
 
     model, dec_counts = timed(phase_decode_parity, dev)
     gen, gen_launches, refs, reqs = timed(phase_generate, dev, model, smi)
@@ -3460,9 +3740,10 @@ def main():
     gen.update(timed(phase_decode_profile))
 
     # each kernel's numbers are those of the path that runs it most: the
-    # matmul and flash kernels the transformer step, the LSTM kernel the
-    # padded classifier's step, the gather the LoD classifier's, the paged
-    # kernels the decode step and the verify step, the bf16 instances the
+    # matmul and flash kernels the transformer step (their bf16 instances
+    # its AMP step), the LSTM kernel the padded classifier's step (bf16:
+    # its AMP step), the gather the LoD classifier's, the paged kernels the
+    # decode step and the verify step, the conv and BN bf16 instances the
     # AMP ResNet-50 step (which the fused conv + BN statistics is counted
     # beside: no op calls it), the rest the f32 ResNet-50 step;
     # launches_by_path has every path's count
@@ -3470,16 +3751,22 @@ def main():
                "amp_train_step": amp_train["launches"],
                "serving": serve_launches,
                "transformer_train_step": tf["launches"],
+               "transformer_amp_train_step": tf_amp["launches"],
                "lstm_train_step": lstm["launches"],
+               "lstm_amp_train_step": lstm_amp["launches"],
                "lod_train_step": lod["launches"],
                "generate": gen_launches, **dec_counts}
-    main_path = dict(matmul=tf["launches"], lstm=lstm["launches"],
+    main_path = {n: amp_train["launches"] for n in
+                 list(BF16_OF.values()) + ["conv2d_bn_stats",
+                                           "conv2d_bn_stats_bf16"]}
+    main_path.update(matmul=tf["launches"], lstm=lstm["launches"],
                      embedding=lod["launches"],
                      paged_attention=dec_counts["decode_step"],
                      paged_attention_chunk=dec_counts["verify_step"],
-                     **{n: amp_train["launches"] for n in
-                        list(BF16_OF.values()) + ["conv2d_bn_stats",
-                                                  "conv2d_bn_stats_bf16"]})
+                     matmul_bf16=tf_amp["launches"],
+                     lstm_bf16=lstm_amp["launches"],
+                     **{f"flash_attention_{k}_bf16": tf_amp["launches"]
+                        for k in ("fwd", "dq", "dkv")})
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
@@ -3503,11 +3790,17 @@ def main():
         f"{amp_train['idle_share']:.3f}; transformer LM training: "
         f"{tf['tokens_per_s']:.1f} tokens/s at B {TF_BATCH} S {TF_SEQ} (f32),"
         f" peak {tf['peak_bytes'] / 2**30:.2f} GiB, idle share "
-        f"{tf['idle_share']:.3f}; LSTM classifier training: "
+        f"{tf['idle_share']:.3f}; under AMP (bf16) "
+        f"{tf_amp['tokens_per_s']:.1f} tokens/s, peak "
+        f"{tf_amp['peak_bytes'] / 2**30:.2f} GiB, idle share "
+        f"{tf_amp['idle_share']:.3f}; LSTM classifier training: "
         f"{lstm['samples_per_s']:.1f} samples/s = "
         f"{lstm['tokens_per_s']:.1f} tokens/s at B {LSTM_BATCH} T {LSTM_SEQ}"
         f" (f32), peak {lstm['peak_bytes'] / 2**30:.3f} GiB, idle share "
-        f"{lstm['idle_share']:.3f}; LoD classifier training: "
+        f"{lstm['idle_share']:.3f}; under AMP (bf16) "
+        f"{lstm_amp['samples_per_s']:.1f} samples/s, peak "
+        f"{lstm_amp['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{lstm_amp['idle_share']:.3f}; LoD classifier training: "
         f"{lod['steps_per_s']:.2f} steps/s, peak "
         f"{lod['peak_bytes'] / 2**30:.3f} GiB, idle share "
         f"{lod['idle_share']:.3f}; /generate (decoder LM, d_model 2048, "

@@ -4,8 +4,24 @@ When enabled, the matmul and conv rules (``mul``, ``conv2d``) cast their
 float32 or float64 operands to bfloat16, sum in float32 inside the
 kernels, and keep bf16 activations; parameters, optimizer state and
 gradients stay float32 (master weights), because each rule's grad brings
-a cast operand's gradient back to the operand's own dtype.  Training
-batch norm then normalizes bf16 activations with float32 statistics.
+a cast operand's gradient back to the operand's own dtype.  The ops
+downstream of a bf16 activation then run on it as the JAX ops do:
+
+- training ``batch_norm`` normalizes it with float32 statistics;
+- ``relu``, max pooling, ``reshape``, ``split`` and ``transpose`` keep
+  bf16; an add of a float32 operand (a bias, a residual) promotes to
+  float32;
+- ``scaled_dot_product_attention`` on bf16 Q, K and V (the bias-free qkv
+  ``mul``) runs the bf16 flash kernels: out and dQ, dK, dV bf16, the
+  logsumexp float32;
+- ``layer_norm`` takes float32 statistics and returns Y in X's dtype;
+- ``softmax_with_cross_entropy`` on bf16 logits (the bias-free
+  ``lm_head``) computes in float32 and hands the logits a bf16 gradient;
+- ``lstm`` on a bf16 input projection (a bias-free ``fc``) runs the bf16
+  LSTM kernel with the float32 master W and bias and a float32 carry:
+  Hidden and Cell bf16; ``reduce_mean`` of them stays bf16;
+- ``lookup_table`` reads the float32 table (not an AMP op).
+
 bf16 keeps float32's exponent range, so no loss scaling is needed.
 
 The state is module-global, as in the JAX package; ``Executor.run``

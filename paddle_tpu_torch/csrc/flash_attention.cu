@@ -1,6 +1,8 @@
-// Flash attention in float32: the forward (out and the per-row
-// logsumexp) and the two backward kernels (dq; dk and dv), on
-// (B, S, H, D) tensors read through their strides.
+// Flash attention: the forward (out and the per-row logsumexp) and the
+// two backward kernels (dq; dk and dv), on (B, S, H, D) tensors read
+// through their strides, in a float32 and a bf16 instance (the element
+// type of q, k, v, do, out, dq, dk and dv; lse and delta are float32 in
+// both).
 //
 // Replaces the TPU kernels of paddle_tpu/pallas/flash_attention.py:
 //   - _flash_fwd_impl (:145, _fwd_kernel :96): online softmax over the
@@ -31,18 +33,47 @@
 // Q and dO in dk/dv) have a row pitch of DPAD + 1, so a warp's 16 rows
 // fall in 16 banks.
 //
+// The bf16 instance rounds where the TPU kernel rounds on bf16 inputs,
+// and nowhere else: scores, the online-softmax state and every
+// accumulator stay float32 (tiles are widened to float32 in shared
+// memory); the forward rounds p to bf16 before the PV product
+// (flash_attention.py:130-132; l sums the unrounded p) and writes out in
+// bf16; dq rounds ds to bf16 before ds K (:222-224) and writes dq in
+// bf16; dk/dv rounds nothing until dk and dv are written (:258-269).
+//
 // What bounds it on the H100: operations.  At the transformer's shape
 // (B*H = 128, S = 1024, D = 128, causal) the forward does 2 products of
 // 2 * BH * S(S+1)/2 * D FLOPs (34.4 GFLOP, 0.51 ms at 67 TFLOP/s f32),
 // dq 3 and dk/dv 4 such products, while the bytes (q, k, v, o, do at
 // 67 MB each) take 0.1 ms at 3.35 TB/s.  This is a simple f32 SIMT
-// kernel (fmaf from shared memory, one block per SM); wgmma tiles, TMA
-// and bf16 are later work.
+// kernel (fmaf from shared memory, one block per SM); in bf16 the same
+// products run on the same f32 tiles, bytes halved at the edges only:
+// wgmma tiles and TMA are later work.
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// v rounded to E and widened back: the identity for float.
+template <class E>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the TPU kernel
 
@@ -64,17 +95,17 @@ struct Tile {
 
 // Rows [row0, row0 + BT) of the (b, h) slice of `src` into shared memory
 // with row pitch `pitch`; rows past S and columns past D read as zero.
-template <int BT, int DPAD, int NT>
+template <int BT, int DPAD, int NT, class E>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int pitch,
-                                          const float* __restrict__ src,
+                                          const E* __restrict__ src,
                                           Strides st, int b, int h, int row0,
                                           int S, int D) {
-  const float* base = src + b * st.b + h * st.h;
+  const E* base = src + b * st.b + h * st.h;
   for (int idx = threadIdx.x; idx < BT * DPAD; idx += NT) {
     const int r = idx / DPAD;
     const int d = idx % DPAD;
     const int s = row0 + r;
-    dst[r * pitch + d] = (s < S && d < D) ? base[s * st.s + d] : 0.f;
+    dst[r * pitch + d] = (s < S && d < D) ? to_f32(base[s * st.s + d]) : 0.f;
   }
 }
 
@@ -103,9 +134,9 @@ __device__ __forceinline__ float row_sum16(float v) {
 }
 
 // Store one thread's 4 x RD tile of a contiguous (B, S, H, D) output.
-template <int BT, int DPAD>
+template <int BT, int DPAD, class E>
 __device__ __forceinline__ void store_tile(
-    float* __restrict__ dst, const float (&acc)[4][Tile<BT, DPAD>::kRD],
+    E* __restrict__ dst, const float (&acc)[4][Tile<BT, DPAD>::kRD],
     int b, int h, int row0, int H, int S, int D) {
   using T = Tile<BT, DPAD>;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -113,11 +144,11 @@ __device__ __forceinline__ void store_tile(
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + T::kTY * i;
     if (row >= S) continue;
-    float* o = dst + ((static_cast<long long>(b) * S + row) * H + h) * D;
+    E* o = dst + ((static_cast<long long>(b) * S + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < T::kRD; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) o[d] = acc[i][j];
+      if (d < D) put(o + d, acc[i][j]);
     }
   }
 }
@@ -126,10 +157,10 @@ __device__ __forceinline__ void store_tile(
 // forward: out and lse
 // ---------------------------------------------------------------------------
 
-template <int BT, int DPAD>
+template <int BT, int DPAD, class E>
 __global__ void __launch_bounds__(4 * BT)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
+    flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v, E* __restrict__ out,
                      float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, int H, int S, int D, float scale,
                      int causal) {
@@ -205,7 +236,7 @@ __global__ void __launch_bounds__(4 * BT)
       for (int j = 0; j < RS; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        Ps[r * PP + tx + 16 * j] = p;
+        Ps[r * PP + tx + 16 * j] = round_to<E>(p);  // PV takes v's dtype
       }
       l[i] = l[i] * corr + row_sum16(rs);
       m[i] = m_new;
@@ -244,12 +275,12 @@ __global__ void __launch_bounds__(4 * BT)
 // backward: dq
 // ---------------------------------------------------------------------------
 
-template <int BT, int DPAD>
+template <int BT, int DPAD, class E>
 __global__ void __launch_bounds__(4 * BT)
-    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+    flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, E* __restrict__ dq,
                     Strides sq, Strides sk, Strides sv, Strides sdo, int H,
                     int S, int D, float scale, int causal) {
   using T = Tile<BT, DPAD>;
@@ -326,7 +357,8 @@ __global__ void __launch_bounds__(4 * BT)
         const int col = k0 + tx + 16 * j;
         const bool ok = col < S && (!causal || col <= row);
         const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-        dSs[r * PP + tx + 16 * j] = p * (dp[i][j] - Ds[r]) * scale;
+        // ds K takes k's dtype
+        dSs[r * PP + tx + 16 * j] = round_to<E>(p * (dp[i][j] - Ds[r]) * scale);
       }
     }
     __syncthreads();
@@ -351,14 +383,14 @@ __global__ void __launch_bounds__(4 * BT)
 // backward: dk and dv
 // ---------------------------------------------------------------------------
 
-template <int BT, int DPAD>
+template <int BT, int DPAD, class E>
 __global__ void __launch_bounds__(4 * BT)
-    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+    flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v,
+                     const E* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, Strides sq, Strides sk,
+                     const float* __restrict__ delta, E* __restrict__ dk,
+                     E* __restrict__ dv, Strides sq, Strides sk,
                      Strides sv, Strides sdo, int H, int S, int D, float scale,
                      int causal) {
   using T = Tile<BT, DPAD>;
@@ -493,71 +525,63 @@ constexpr size_t dkv_smem() {
          (2 * BT * DPAD + 2 * BT * T::kPitch + 2 * BT * T::kPPitch + 2 * BT);
 }
 
-template <int BT, int DPAD>
-int fwd(const float* q, const float* k, const float* v, float* out, float* lse,
-        int B, int H, int S, int D, Strides sq, Strides sk, Strides sv,
-        float scale, int causal, cudaStream_t stream) {
+template <int BT, int DPAD, class E>
+int fwd(const E* q, const E* k, const E* v, E* out, float* lse, int B, int H,
+        int S, int D, Strides sq, Strides sk, Strides sv, float scale,
+        int causal, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<BT, DPAD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<BT, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<BT, DPAD, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BT - 1) / BT);
-  flash_fwd_kernel<BT, DPAD><<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
-      q, k, v, out, lse, sq, sk, sv, H, S, D, scale, causal);
+  flash_fwd_kernel<BT, DPAD, E>
+      <<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
+          q, k, v, out, lse, sq, sk, sv, H, S, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BT, int DPAD>
-int dq(const float* q, const float* k, const float* v, const float* dout,
-       const float* lse, const float* delta, float* dqo, int B, int H, int S,
-       int D, Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
-       int causal, cudaStream_t stream) {
+template <int BT, int DPAD, class E>
+int dq(const E* q, const E* k, const E* v, const E* dout, const float* lse,
+       const float* delta, E* dqo, int B, int H, int S, int D, Strides sq,
+       Strides sk, Strides sv, Strides sdo, float scale, int causal,
+       cudaStream_t stream) {
   constexpr size_t smem = dq_smem<BT, DPAD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<BT, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_dq_kernel<BT, DPAD, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BT - 1) / BT);
-  flash_dq_kernel<BT, DPAD><<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dqo, sq, sk, sv, sdo, H, S, D, scale, causal);
+  flash_dq_kernel<BT, DPAD, E>
+      <<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, dqo, sq, sk, sv, sdo, H, S, D, scale,
+          causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BT, int DPAD>
-int dkv(const float* q, const float* k, const float* v, const float* dout,
-        const float* lse, const float* delta, float* dko, float* dvo, int B,
-        int H, int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
-        float scale, int causal, cudaStream_t stream) {
+template <int BT, int DPAD, class E>
+int dkv(const E* q, const E* k, const E* v, const E* dout, const float* lse,
+        const float* delta, E* dko, E* dvo, int B, int H, int S, int D,
+        Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
+        int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<BT, DPAD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<BT, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_dkv_kernel<BT, DPAD, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BT - 1) / BT);
-  flash_dkv_kernel<BT, DPAD><<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dko, dvo, sq, sk, sv, sdo, H, S, D, scale,
-      causal);
+  flash_dkv_kernel<BT, DPAD, E>
+      <<<grid, Tile<BT, DPAD>::kThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, dko, dvo, sq, sk, sv, sdo, H, S, D,
+          scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Each entry launches on `stream` and returns the CUDA error of the
-// launch (cudaErrorInvalidValue for D > 256).  q, k, v and do are
-// (B, S, H, D) with the given element strides of dims 0-2 and a
-// contiguous head dim; out, dq, dk and dv are contiguous (B, S, H, D);
-// lse and delta are contiguous (B*H, S).
-PTT_EXPORT int ptt_flash_fwd_f32(const float* q, const float* k,
-                                 const float* v, float* out, float* lse, int B,
-                                 int H, int S, int D, long long q_sb,
-                                 long long q_ss, long long q_sh,
-                                 long long k_sb, long long k_ss,
-                                 long long k_sh, long long v_sb,
-                                 long long v_ss, long long v_sh, float scale,
-                                 int causal, cudaStream_t stream) {
-  const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
-      sv{v_sb, v_ss, v_sh};
+// The tile for head dim D: 64 rows to D 128, 32 rows to D 256.
+template <class E>
+int fwd_any(const E* q, const E* k, const E* v, E* out, float* lse, int B,
+            int H, int S, int D, Strides sq, Strides sk, Strides sv,
+            float scale, int causal, cudaStream_t stream) {
   if (D <= 64)
     return fwd<64, 64>(q, k, v, out, lse, B, H, S, D, sq, sk, sv, scale,
                        causal, stream);
@@ -570,15 +594,11 @@ PTT_EXPORT int ptt_flash_fwd_f32(const float* q, const float* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-PTT_EXPORT int ptt_flash_dq_f32(
-    const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, float* dqo, int B, int H, int S,
-    int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, cudaStream_t stream) {
-  const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
-      sv{v_sb, v_ss, v_sh}, sdo{do_sb, do_ss, do_sh};
+template <class E>
+int dq_any(const E* q, const E* k, const E* v, const E* dout,
+           const float* lse, const float* delta, E* dqo, int B, int H, int S,
+           int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+           float scale, int causal, cudaStream_t stream) {
   if (D <= 64)
     return dq<64, 64>(q, k, v, dout, lse, delta, dqo, B, H, S, D, sq, sk, sv,
                       sdo, scale, causal, stream);
@@ -591,15 +611,11 @@ PTT_EXPORT int ptt_flash_dq_f32(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-PTT_EXPORT int ptt_flash_dkv_f32(
-    const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, float* dko, float* dvo, int B,
-    int H, int S, int D, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, float scale, int causal, cudaStream_t stream) {
-  const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
-      sv{v_sb, v_ss, v_sh}, sdo{do_sb, do_ss, do_sh};
+template <class E>
+int dkv_any(const E* q, const E* k, const E* v, const E* dout,
+            const float* lse, const float* delta, E* dko, E* dvo, int B,
+            int H, int S, int D, Strides sq, Strides sk, Strides sv,
+            Strides sdo, float scale, int causal, cudaStream_t stream) {
   if (D <= 64)
     return dkv<64, 64>(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D, sq,
                        sk, sv, sdo, scale, causal, stream);
@@ -611,3 +627,50 @@ PTT_EXPORT int ptt_flash_dkv_f32(
                         sk, sv, sdo, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace
+
+// Each entry launches on `stream` and returns the CUDA error of the
+// launch (cudaErrorInvalidValue for D > 256).  q, k, v and do are
+// (B, S, H, D) with the given element strides of dims 0-2 and a
+// contiguous head dim; out, dq, dk and dv are contiguous (B, S, H, D);
+// lse and delta are contiguous (B*H, S) float32.  The _f32 entries take
+// float32 tensors, the _bf16 entries bf16 ones.
+#define PTT_FLASH_ENTRIES(SUFFIX, E)                                          \
+  PTT_EXPORT int ptt_flash_fwd_##SUFFIX(                                      \
+      const E* q, const E* k, const E* v, E* out, float* lse, int B, int H,   \
+      int S, int D, long long q_sb, long long q_ss, long long q_sh,           \
+      long long k_sb, long long k_ss, long long k_sh, long long v_sb,         \
+      long long v_ss, long long v_sh, float scale, int causal,                \
+      cudaStream_t stream) {                                                  \
+    return fwd_any<E>(q, k, v, out, lse, B, H, S, D, {q_sb, q_ss, q_sh},      \
+                      {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, scale, causal,  \
+                      stream);                                                \
+  }                                                                           \
+  PTT_EXPORT int ptt_flash_dq_##SUFFIX(                                       \
+      const E* q, const E* k, const E* v, const E* dout, const float* lse,    \
+      const float* delta, E* dqo, int B, int H, int S, int D, long long q_sb, \
+      long long q_ss, long long q_sh, long long k_sb, long long k_ss,         \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh,         \
+      long long do_sb, long long do_ss, long long do_sh, float scale,         \
+      int causal, cudaStream_t stream) {                                      \
+    return dq_any<E>(q, k, v, dout, lse, delta, dqo, B, H, S, D,              \
+                     {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                  \
+                     {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,        \
+                     causal, stream);                                         \
+  }                                                                           \
+  PTT_EXPORT int ptt_flash_dkv_##SUFFIX(                                      \
+      const E* q, const E* k, const E* v, const E* dout, const float* lse,    \
+      const float* delta, E* dko, E* dvo, int B, int H, int S, int D,         \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,         \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,         \
+      long long v_sh, long long do_sb, long long do_ss, long long do_sh,      \
+      float scale, int causal, cudaStream_t stream) {                         \
+    return dkv_any<E>(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D,        \
+                      {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                 \
+                      {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,       \
+                      causal, stream);                                        \
+  }
+
+PTT_FLASH_ENTRIES(f32, float)
+PTT_FLASH_ENTRIES(bf16, bf16)

@@ -18,9 +18,10 @@ residual that an op leaves for its grad rule under a name no op declares
 the run's value map; it never reaches the Scope.
 
 On a CUDA place every run holds float32 math at float32: TF32 is off for
-cuDNN and matmul while any run is in flight (``_f32_math``), so the
-library calls that the kernels leave to PyTorch (the stride-2 convs)
-round like the kernels do.
+cuDNN and matmul, and so are bf16 matmuls' reduced-precision
+reductions, while any run is in flight (``_f32_math``), so the library
+calls that the kernels leave to PyTorch (the stride-2 convs, the mul
+backward's products) round like the kernels do.
 
 AMP (``paddle_tpu_torch.amp``) is read once per run: the forward ops and
 the grad ops of one run see the same state, and the plan cache is keyed
@@ -125,17 +126,20 @@ _f32_saved = None
 
 @contextlib.contextmanager
 def _f32_math():
-    """TF32 off for cuDNN and matmul while at least one run is inside.
-    The flags are process-global, so concurrent runs (serving replicas
-    are threads) share one save/restore: the first in sets, the last out
-    restores."""
+    """TF32 off for cuDNN and matmul, and bf16 matmuls' reduced-precision
+    reductions off (cuBLAS then sums bf16 products in float32 throughout),
+    while at least one run is inside.  The flags are process-global, so
+    concurrent runs (serving replicas are threads) share one
+    save/restore: the first in sets, the last out restores."""
     global _f32_depth, _f32_saved
+    matmul = torch.backends.cuda.matmul
     with _f32_lock:
         if _f32_depth == 0:
-            _f32_saved = (torch.backends.cudnn.allow_tf32,
-                          torch.backends.cuda.matmul.allow_tf32)
+            _f32_saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                          matmul.allow_bf16_reduced_precision_reduction)
             torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+            matmul.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
         _f32_depth += 1
     try:
         yield
@@ -143,8 +147,8 @@ def _f32_math():
         with _f32_lock:
             _f32_depth -= 1
             if _f32_depth == 0:
-                (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32) = _f32_saved
+                (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+                 matmul.allow_bf16_reduced_precision_reduction) = _f32_saved
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,14 @@ head merge after attention is a free reshape.  lse and delta are
 (B*H, S), row b*H + h.  Callers with the TPU kernel's (BH, S, D) pass
 ``x[:, :, None]`` (H = 1).
 
+Each kernel has a float32 and a bf16 instance (``ptt_flash_*_f32`` and
+``ptt_flash_*_bf16``), picked by the dtype of q, k, v (and do), which
+must be one; lse and delta are float32 in both.  The bf16 instances, and
+the plain versions on bf16 inputs, round where the TPU kernel rounds on
+bf16 inputs: p to v's dtype before the PV product (``:130-132``), ds to
+k's dtype before ds K (``:222-224``), nothing in dk/dv (``:258-269``)
+until its outputs are written; everything else is float32.
+
 Every kernel is bound by operations on the H100 (two to four S x S x D
 products against 5-6 reads of an S x D tile); ``csrc/flash_attention.cu``
 says what its design does about that.
@@ -33,29 +41,36 @@ import torch
 from paddle_tpu_torch.kernels import _build
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "ptt_flash_fwd_f32": [_PTR] * 5 + [_INT] * 4 + [_LL] * 9
-    + [ctypes.c_float, _INT, _PTR],
-    "ptt_flash_dq_f32": [_PTR] * 7 + [_INT] * 4 + [_LL] * 12
-    + [ctypes.c_float, _INT, _PTR],
-    "ptt_flash_dkv_f32": [_PTR] * 8 + [_INT] * 4 + [_LL] * 12
-    + [ctypes.c_float, _INT, _PTR],
-}
+_SIGNATURES = {}
+for _s in ("f32", "bf16"):
+    _SIGNATURES.update({
+        f"ptt_flash_fwd_{_s}": [_PTR] * 5 + [_INT] * 4 + [_LL] * 9
+        + [ctypes.c_float, _INT, _PTR],
+        f"ptt_flash_dq_{_s}": [_PTR] * 7 + [_INT] * 4 + [_LL] * 12
+        + [ctypes.c_float, _INT, _PTR],
+        f"ptt_flash_dkv_{_s}": [_PTR] * 8 + [_INT] * 4 + [_LL] * 12
+        + [ctypes.c_float, _INT, _PTR],
+    })
 
 #: Largest head dim the kernels take (the TPU kernel's ``fits``).
 MAX_HEAD_DIM = 256
 
 #: Launches of the CUDA kernels (the CPU path does not count): the
-#: forward, and the two backward kernels (one each per backward call).
+#: forward, and the two backward kernels (one each per backward call),
+#: float32 and bf16 instances apart.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+launches_bf16 = 0
+dq_launches_bf16 = 0
+dkv_launches_bf16 = 0
 _count_lock = threading.Lock()
 
 
-def _count(counter: str) -> None:
+def _count(counter: str, suffix: str) -> None:
+    name = counter + ("_bf16" if suffix == "bf16" else "")
     with _count_lock:
-        globals()[counter] += 1
+        globals()[name] += 1
 
 
 def kernel_applies(s_q: int, s_k: int, d: int) -> bool:
@@ -87,17 +102,20 @@ def _scale(q, scale):
     return q.shape[3] ** -0.5 if scale is None else float(scale)
 
 
-def _strided_f32(what, *tensors):
-    """Raise on what the kernels do not take: another dtype than float32
-    (TypeError: bf16 instances wait for the transformer's AMP slice),
-    another device, or a head dim that is not contiguous."""
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what} kernel takes float32, got "
-                        f"{[t.dtype for t in tensors]}")
+def _strided(what, *tensors) -> str:
+    """The C symbol suffix of the instance for these tensors; raises on
+    what the kernels do not take: mixed dtypes, or another dtype than
+    float32 or bf16 (TypeError: the wrappers never cast), another
+    device, or a head dim that is not contiguous."""
+    got = {t.dtype for t in tensors}
+    if len(got) != 1 or not got <= set(_build.F32_BF16):
+        raise TypeError(f"{what} kernel takes one dtype of float32 or "
+                        f"bfloat16, got {[t.dtype for t in tensors]}")
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError(f"{what} kernel takes a contiguous head dim")
+    return _build.SUFFIX[tensors[0].dtype]
 
 
 def _strides(t):
@@ -119,21 +137,58 @@ def _scores(q, k, causal, scale):
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool = False, scale=None):
-    """(out (B, S, H, D) in q's dtype, lse (B*H, S) float32)."""
+def _rounded(x, dtype):
+    """float32 ``x`` rounded to ``dtype`` and widened back (the identity
+    for float32): where the TPU kernel casts an operand of a product."""
+    return x.to(dtype).float()
+
+
+def key_tile(d: int) -> int:
+    """The key tile of the CUDA kernels for head dim ``d``: the rows of
+    each key block the forward walks with its running maximum."""
+    return 64 if d <= 128 else 32
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool = False, scale=None,
+                              tile=None):
+    """(out (B, S, H, D) in q's dtype, lse (B*H, S) float32): the online
+    softmax over key tiles of ``tile`` columns (None: one tile, the whole
+    row).  p = exp(s - m), m the running maximum, is rounded to v's dtype
+    before the PV product and the normaliser sums it unrounded, as the
+    kernels do: with ``tile=None`` as the TPU kernel with one key block,
+    with ``tile=key_tile(D)`` as the CUDA kernels.  In float32 the tile
+    changes only the order of the sums."""
     _check(q, k, v)
     b, n, h, _ = q.shape
-    s = _scores(q, k, causal, _scale(q, scale))
-    lse = torch.logsumexp(s, dim=-1)                      # (B, H, S)
-    p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    s = _scores(q, k, causal, _scale(q, scale))           # (B, H, S, S)
+    vf = v.float()
+    tile = tile or max(n, 1)
+    m = s.new_full(s.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = s.new_zeros(b, h, n, q.shape[3])
+    for k0 in range(0, n, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        corr = torch.exp(m - m_safe)
+        p = torch.exp(st - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bhqk,bkhd->bhqd", _rounded(p, v.dtype), vf[:, k0:k0 + tile])
+        m = m_new
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / l).permute(0, 2, 1, 3)
+    lse = (m + torch.log(l))[..., 0]                      # (B, H, S)
     return out.to(q.dtype).contiguous(), lse.reshape(b * h, n)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
                               scale=None, dlse=None):
     """(dq, dk, dv), contiguous (B, S, H, D), from the forward's out and
-    lse and the cotangents of out (``do``) and of lse (``dlse``)."""
+    lse and the cotangents of out (``do``) and of lse (``dlse``).  ds is
+    rounded to k's dtype before the ds K product of dq, as the kernels
+    do; dk and dv take p and ds unrounded."""
     _check(q, k, v, o, do)
     b, n, h, _ = q.shape
     sc = _scale(q, scale)
@@ -146,7 +201,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     ds = p * (dp - delta[..., None]) * sc
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, k.dtype), k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
             dv.to(v.dtype).contiguous())
@@ -159,12 +214,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     """(out, lse).  Launches the forward of ``csrc/flash_attention.cu`` on
-    CUDA tensors (float32, head dim contiguous, any other strides); runs
-    the plain version on CPU tensors."""
+    CUDA tensors (float32 or bf16, one dtype, head dim contiguous, any
+    other strides); runs the plain version on CPU tensors."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
-    _strided_f32("flash_attention_fwd", q, k, v)
+    sfx = _strided("flash_attention_fwd", q, k, v)
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
@@ -173,12 +228,12 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ptt_flash_fwd_f32(
+        err = getattr(lib, f"ptt_flash_fwd_{sfx}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, n, d, *_strides(q), *_strides(k),
             *_strides(v), _scale(q, scale), int(causal), stream)
     _build.check(lib, err, "flash_attention_fwd")
-    _count("launches")
+    _count("launches", sfx)
     return out, lse
 
 
@@ -193,7 +248,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                          dlse)
-    _strided_f32("flash_attention_bwd", q, k, v, o, do)
+    sfx = _strided("flash_attention_bwd", q, k, v, o, do)
     b, n, h, d = q.shape
     if lse.shape != (b * h, n) or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} on "
@@ -213,18 +268,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
               *_strides(do))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ptt_flash_dq_f32(
+        err = getattr(lib, f"ptt_flash_dq_{sfx}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
             _scale(q, scale), int(causal), stream)
         _build.check(lib, err, "flash_attention_dq")
-        _count("dq_launches")
-        err = lib.ptt_flash_dkv_f32(
+        _count("dq_launches", sfx)
+        err = getattr(lib, f"ptt_flash_dkv_{sfx}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *common, _scale(q, scale), int(causal), stream)
         _build.check(lib, err, "flash_attention_dkv")
-        _count("dkv_launches")
+        _count("dkv_launches", sfx)
     return dq, dk, dv
 
 

@@ -9,7 +9,12 @@ gates xproj, recurrent weight W (H, 4H), bias (4H), h0 and c0 (B, H) ->
 hidden and cell states and the activated gates, gate order i, f,
 candidate, o, sigmoid/tanh, f32 state.  One CUDA kernel covers both
 ``pallas_call`` sites (the blocked one is only a VMEM tiling): one
-cooperative launch per sequence, any B and H.
+cooperative launch per sequence, any B and H.  It has a float32 and a
+bf16 instance, picked by the dtype of xproj, h0 and c0 (one dtype);
+W is float32 in both (the AMP master weight: the ``lstm`` op is not an
+AMP op), the bias float32 or of xproj's dtype.  Both carry h and c in
+float32 across the steps and write hs, cs and the gates in xproj's
+dtype, as the TPU kernel does on bf16 inputs (``pallas/lstm.py:41-65``).
 
 The port keeps the op's batch-major layout at this interface: xproj is
 (B, T, 4H), read through its batch and time strides (the ``lstm`` op's
@@ -35,21 +40,26 @@ from paddle_tpu_torch.kernels import _build
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ptt_lstm_seq_f32": [_PTR, _LL, _LL] + [_PTR] * 7 + [_INT] * 3
-    + [ctypes.POINTER(ctypes.c_int), _PTR],
+    f"ptt_lstm_seq_{s}": [_PTR, _LL, _LL] + [_PTR] * 9 + [_INT] * 3
+    + [ctypes.POINTER(ctypes.c_int), _PTR] for s in ("f32", "bf16")
 }
 
-#: Launches of the CUDA kernel (the CPU path does not count).
+#: Launches of the CUDA kernel (the CPU path does not count), float32 and
+#: bf16 instances apart.
 launches = 0
+launches_bf16 = 0
 #: Blocks of the last launch's cooperative grid.
 last_grid_blocks = 0
 _count_lock = threading.Lock()
 
 
-def _count(blocks):
-    global launches, last_grid_blocks
+def _count(dtype, blocks):
+    global launches, launches_bf16, last_grid_blocks
     with _count_lock:
-        launches += 1
+        if dtype == torch.bfloat16:
+            launches_bf16 += 1
+        else:
+            launches += 1
         last_grid_blocks = blocks
 
 
@@ -117,16 +127,23 @@ def lstm_seq_plain(xproj, w, bias, h0, c0, acts=None, peepholes=None):
 
 
 def lstm_seq(xproj, w, bias, h0, c0):
-    """(hs, cs, gates).  Launches ``csrc/lstm.cu`` on CUDA tensors (float32;
-    xproj's last dim contiguous, W, bias, h0 and c0 contiguous); runs the
+    """(hs, cs, gates).  Launches ``csrc/lstm.cu`` on CUDA tensors: xproj,
+    h0 and c0 float32 or bf16 (one dtype; xproj's last dim contiguous, h0
+    and c0 contiguous), W float32 and contiguous, the bias float32 or of
+    xproj's dtype (a bf16 bias is widened to float32, exactly); runs the
     plain version on CPU tensors.  A refused launch raises."""
     _check(xproj, w, bias, h0, c0)
     if xproj.device.type == "cpu":
         return lstm_seq_plain(xproj, w, bias, h0, c0)
-    bias = bias.reshape(-1)
-    _build.require_cuda("lstm_seq", _build.F32, w, bias, h0, c0)
-    if xproj.dtype != torch.float32:
-        raise TypeError(f"lstm_seq kernel takes float32, got {xproj.dtype}")
+    _build.require_cuda("lstm_seq", _build.F32, w)
+    if bias.dtype not in (torch.float32, xproj.dtype):
+        raise TypeError(f"lstm_seq kernel takes a float32 bias or one of "
+                        f"xproj's dtype {xproj.dtype}, got {bias.dtype}")
+    bias = bias.reshape(-1).float().contiguous()
+    _build.require_cuda("lstm_seq", _build.F32_BF16, h0, c0)
+    if xproj.dtype != h0.dtype:
+        raise TypeError(f"lstm_seq kernel takes xproj, h0 and c0 of one "
+                        f"dtype, got {xproj.dtype} and {h0.dtype}")
     if xproj.stride(2) != 1:
         raise ValueError("lstm_seq kernel takes xproj with a contiguous last "
                          "dim")
@@ -137,17 +154,19 @@ def lstm_seq(xproj, w, bias, h0, c0):
     gates = torch.empty((b, t, h4), dtype=xproj.dtype, device=xproj.device)
     if hs.numel() == 0:
         return hs, cs, gates
+    # the float32 carry: h in slots 0 and 1 (step t writes t % 2), c in 2
+    state = torch.empty((3, b, h), dtype=torch.float32, device=xproj.device)
     lib = _build.load("lstm", _SIGNATURES)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(xproj.device):
         stream = torch.cuda.current_stream(xproj.device).cuda_stream
-        err = lib.ptt_lstm_seq_f32(
+        err = getattr(lib, f"ptt_lstm_seq_{_build.SUFFIX[xproj.dtype]}")(
             xproj.data_ptr(), xproj.stride(0), xproj.stride(1), w.data_ptr(),
             bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), gates.data_ptr(), b, t, h, ctypes.byref(blocks),
-            stream)
+            cs.data_ptr(), gates.data_ptr(), state[0].data_ptr(),
+            state[2].data_ptr(), b, t, h, ctypes.byref(blocks), stream)
     _build.check(lib, err, "lstm_seq")
-    _count(blocks.value)
+    _count(xproj.dtype, blocks.value)
     return hs, cs, gates
 
 
@@ -172,11 +191,14 @@ def lstm_seq_bwd(gates, hs, cs, w, h0, c0, dhs=None, dcs=None):
     dgates = torch.empty((b, t_len, 4 * h), dtype=f32, device=hs.device)
     dh = torch.zeros((b, h), dtype=f32, device=hs.device)
     dc = torch.zeros_like(dh)
+    # bf16 cotangents widened once, not once a step
+    dhs = None if dhs is None else dhs.to(f32)
+    dcs = None if dcs is None else dcs.to(f32)
     for t in reversed(range(t_len)):
         if dhs is not None:
-            dh = dh + dhs[:, t].to(f32)
+            dh = dh + dhs[:, t]
         if dcs is not None:
-            dc = dc + dcs[:, t].to(f32)
+            dc = dc + dcs[:, t]
         dc = torch.addcmul(dc, dh, dc_per_dh[:, t])
         dg4 = dgates[:, t]
         torch.mul(torch.cat([dc, dc, dc, dh], dim=-1), fac[:, t], out=dg4)

@@ -80,9 +80,18 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def matmul_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                     need_dx: bool = True, need_dy: bool = True):
     """(dx, dy) of ``x @ y`` from dL/dout ``g``: g @ y^T and x^T @ g with
-    ``torch.matmul`` in float32, each rounded once to its operand's dtype
-    (``paddle_tpu/pallas/matmul.py:80-85``); either is None when not
-    needed."""
+    ``torch.matmul``, each summed in float32 and rounded once to its
+    operand's dtype (``paddle_tpu/pallas/matmul.py:80-85``); either is
+    None when not needed.  When x, y and g are all bf16 on the card, the
+    products run on the bf16 operands (cuBLAS multiplies two bf16 values
+    exactly in float32, sums in float32 with reduced-precision reductions
+    off, ``Executor.run``, and rounds once: the same function); otherwise
+    on float32 copies."""
+    bf16 = torch.bfloat16
+    if x.device.type == "cuda" and x.dtype == y.dtype == g.dtype == bf16:
+        dx = torch.matmul(g, y.t()) if need_dx else None
+        dy = torch.matmul(x.t(), g) if need_dy else None
+        return dx, dy
     gf = g.float()
     dx = torch.matmul(gf, y.float().t()).to(x.dtype) if need_dx else None
     dy = torch.matmul(x.float().t(), gf).to(y.dtype) if need_dy else None

@@ -1,13 +1,21 @@
-"""The port's AMP slice (paddle_tpu_torch.amp: bf16 conv, mul and batch
-norm with float32 master weights) against the JAX package, on the CPU.
+"""The port's AMP slices (paddle_tpu_torch.amp: bf16 conv, mul and batch
+norm with float32 master weights; bf16 attention, layer norm, softmax
+cross entropy and LSTM downstream of a bf16 mul) against the JAX
+package, on the CPU.
 
 Kernels: each bf16 plain version against the Pallas kernel it stands
 beside, in interpret mode, at shapes inside the TPU kernel's contract.
 Ops: one-op programs built with paddle_tpu.layers, their backward
 appended, run by the JAX Executor under ``paddle_tpu.amp.amp_guard`` and
 by the port's Executor under ``paddle_tpu_torch.amp.amp_guard`` from the
-same weights and feeds.  (The ResNet-8 AMP steps are
-tests/test_torch_training.py::test_resnet8_momentum_steps_match_jax.)
+same weights and feeds; the attention and LSTM ones with the JAX
+package's Pallas kernels forced on in interpret mode (its other paths,
+``local_attention`` and the ``lax.scan`` LSTM, round elsewhere: p kept
+in float32, the LSTM carry rounded to bf16 every step).  (The ResNet-8
+AMP steps are
+tests/test_torch_training.py::test_resnet8_momentum_steps_match_jax; the
+transformer's and the LSTM classifier's are in test_torch_attention.py
+and test_torch_sequences.py.)
 
 Tolerances.  A bf16 output of a sum: both sides sum in float32 (XLA's
 CPU bf16 convs and dots too) in other orders and round once, so a sum
@@ -22,6 +30,8 @@ max, a few ulps of the largest element (CHAIN).  BN's forward against
 the Pallas kernel: the port rounds the folded a and b to bf16 before the
 normalize (as the JAX op does), the Pallas kernel does not: y within
 2^-7 of max|x * a| + max|b| beside the rounding of y itself (BN_AFFINE).
+Flash attention's logsumexp (float32 from bf16 scores): 1e-4 of max
+(LSE).  The LSTM's float32 outputs from bf16 operands (dW, dbias): SUMS.
 """
 
 import jax  # noqa: F401  (keep jax on the CPU before paddle_tpu loads)
@@ -33,27 +43,66 @@ import torch
 import paddle_tpu as fluid
 import paddle_tpu_torch as pt
 from paddle_tpu import amp as jax_amp
+from paddle_tpu import pallas as pk
 from paddle_tpu.backward import append_backward
 from paddle_tpu.layer_helper import LayerHelper
 from paddle_tpu.pallas.batch_norm import _bn_bwd_impl, _bn_fwd_impl
 from paddle_tpu.pallas.conv import _conv_dw_impl
 from paddle_tpu.pallas.conv import conv2d_bn_stats_nhwc as pallas_conv_stats
 from paddle_tpu.pallas.conv import conv2d_nhwc as pallas_conv2d_nhwc
+from paddle_tpu.pallas.flash_attention import _flash_bwd_impl, _flash_fwd_impl
+from paddle_tpu.pallas.lstm import _lstm_seq_impl
+from paddle_tpu.pallas.lstm import lstm_seq as pallas_lstm_seq
 from paddle_tpu.pallas.matmul import matmul as pallas_matmul
 from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
 from paddle_tpu_torch.kernels import flash_attention as kfa
+from paddle_tpu_torch.kernels import lstm as klstm
 from paddle_tpu_torch.kernels import matmul as kmatmul
 
 BF16 = dict(rtol=1e-2, atol=1e-3)      # atol times max|reference|
 SUMS = 1e-4                            # times max|reference|
 CHAIN = 2e-2                           # times max|reference|
+LSE = 1e-4                             # times max|reference|
+
+# Whole-model AMP steps (amp_steps_match_jax: ResNet-8 in
+# test_torch_training.py, the transformer in test_torch_attention.py, the
+# LSTM classifier in test_torch_sequences.py).  The two packages round a
+# bf16 sum an ulp apart here and there (XLA's CPU bf16 normalization may,
+# for one, fold a convert into a conv or a dot), and random weights at a
+# small batch amplify that: at ResNet-8, batch 4, BN over a few hundred
+# rows removes nearly all of the incoming gradient and leaves a small
+# difference of large terms (the JAX package's own AMP step is up to 45%
+# of max away from its f32 step on BN bias gradients).  So the loss is
+# held to AMP_LOSS_TOL of its value (a bf16 ulp is 2^-8 = 3.9e-3
+# relative) and every gradient and persistable to max(AMP_TOL *
+# max|jax|, AMP_FLOOR * max|jax AMP - jax f32|): the JAX package's own
+# bf16 effect on that tensor, over the same steps, is the noise floor;
+# two roundings that each move a tensor by that much differ by up to
+# twice it, and AMP_FLOOR = 4 leaves a factor of 2 for the spread of
+# that distance between tensors.
+AMP_LOSS_TOL = 5e-3
+AMP_TOL = 2e-3
+AMP_FLOOR = 4.0
+
+
+@pytest.fixture
+def pallas_interpret():
+    pk.enable(True, interpret=True)
+    yield
+    pk.enable("auto", interpret=False)
 
 
 def _bf16_pair(a):
     """The same bf16 values as a JAX array and a torch tensor."""
     j = jnp.asarray(a).astype(jnp.bfloat16)
     return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+def _torch_bf16(a):
+    """A JAX bf16 array as the same bf16 values in a torch tensor."""
+    return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
         torch.bfloat16)
 
 
@@ -71,6 +120,52 @@ def _close(got, want, rtol=0.0, atol=0.0, what=""):
     err = np.abs(g - w)
     assert (err <= rtol * np.abs(w) + atol * scale).all(), \
         (what, float(err.max()), float(scale))
+
+
+def _close_amp(got, want, base, what):
+    """The whole-model AMP tolerance: ``base`` is the JAX package's
+    float32 value of the same tensor."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all(), what
+    scale = np.abs(want).max() if want.size else 0.0
+    err = np.abs(got - want).max() if want.size else 0.0
+    floor = np.abs(want - np.asarray(base, np.float64)).max() \
+        if want.size else 0.0
+    assert err <= max(AMP_TOL * scale, AMP_FLOOR * floor), \
+        (what, err, scale, floor)
+
+
+def amp_steps_match_jax(exe, port, scope, fetch, feeds):
+    """One AMP step of both packages per feed, from the state both hold
+    now (the JAX package's global scope, the port's ``scope``), beside
+    the JAX package's float32 steps from that start (the floor): the
+    loss and every fetched gradient (float32 masters) of each step, then
+    every persistable, which stays float32."""
+    main_j, main_p = fluid.default_main_program(), pt.default_main_program()
+    f32_scope = fluid.executor.Scope()
+    f32_scope.values.update(fluid.global_scope().values)
+    for step, feed in enumerate(feeds):
+        with jax_amp.amp_guard(False):
+            base = exe.run(main_j, feed=feed, fetch_list=fetch,
+                           scope=f32_scope)
+        with jax_amp.amp_guard(True):
+            want = exe.run(main_j, feed=feed, fetch_list=fetch)
+        with pt.amp.amp_guard(True):
+            got = port.run(main_p, feed=feed, fetch_list=fetch, scope=scope)
+        assert not pt.amp.is_enabled()
+        # the step really ran in bf16: its loss is not the f32 step's
+        assert float(got[0]) != float(base[0])
+        assert abs(float(got[0]) - float(want[0])) <= \
+            AMP_LOSS_TOL * abs(float(want[0])), (step, got[0], want[0])
+        for name, g, w, b in zip(fetch[1:], got[1:], want[1:], base[1:]):
+            assert g.dtype == np.float32, name
+            _close_amp(g, w, b, f"step {step}: {name}")
+    jscope = fluid.global_scope()
+    assert set(scope.keys()) == set(jscope.values)
+    for name in jscope.values:
+        _close_amp(scope.get(name).numpy(), np.asarray(jscope.get(name)),
+                   np.asarray(f32_scope.get(name)), f"after the steps: {name}")
+        assert scope.get(name).dtype != torch.bfloat16, name
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +268,108 @@ def test_conv_bn_stats_plain_matches_pallas_kernel(rng, dtype):
         assert not torch.equal(m, out.float().mean((0, 1, 2)))
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,s,d", [(2, 128, 64), (3, 256, 32)])
+def test_flash_bf16_plain_matches_pallas_kernels(rng, bh, s, d, causal):
+    """The bf16 forward against ``_flash_fwd_impl`` (out bf16: p rounded
+    to bf16 before PV; lse f32), then dq, dk and dv against
+    ``_flash_bwd_impl`` from the Pallas forward's out and lse (dq: ds
+    rounded to bf16 before ds K; dk, dv: nothing rounded before their
+    own rounding), all in interpret mode."""
+    (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
+        _bf16_pair(rng.randn(bh, s, d)) for _ in range(4))
+    want_o, want_l = _flash_fwd_impl(qj, kj, vj, causal, d ** -0.5, True)
+    out, lse = kfa.flash_attention_fwd(qt[:, :, None], kt[:, :, None],
+                                       vt[:, :, None], causal)
+    assert out.dtype == torch.bfloat16 and want_o.dtype == jnp.bfloat16
+    assert lse.dtype == torch.float32 and want_l.dtype == jnp.float32
+    _close(out[:, :, 0], want_o, BF16["rtol"], BF16["atol"], "out")
+    _close(lse, want_l, atol=LSE, what="lse")
+    want = _flash_bwd_impl(qj, kj, vj, want_o, want_l, gj, causal,
+                           d ** -0.5, True)
+    got = kfa.flash_attention_bwd(
+        qt[:, :, None], kt[:, :, None], vt[:, :, None],
+        _torch_bf16(want_o)[:, :, None],
+        torch.from_numpy(np.asarray(want_l)), gt[:, :, None], causal)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, what
+        _close(g[:, :, 0], w, BF16["rtol"], BF16["atol"], what)
+
+
+def test_flash_plain_rounds_only_in_bf16(rng):
+    """The plain versions' roundings change nothing in float32, and in
+    bf16 they are where the kernels round: the forward's out differs
+    from the unrounded p's."""
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 64, 2, 16).astype(
+        np.float32)) for _ in range(4))
+    out, lse = kfa.flash_attention_fwd_plain(q, k, v, True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 16 ** -0.5
+    s = s.masked_fill(~torch.ones(64, 64, dtype=torch.bool).tril(),
+                      float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(2, 64))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    outb, _ = kfa.flash_attention_fwd_plain(qb, kb, vb, True)
+    sb = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) * 16 ** -0.5
+    sb = sb.masked_fill(~torch.ones(64, 64, dtype=torch.bool).tril(),
+                        float("-inf"))
+    unrounded = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sb, -1),
+                             vb.float()).to(torch.bfloat16)
+    assert not torch.equal(outb, unrounded)
+    _close(outb, unrounded, BF16["rtol"], BF16["atol"])
+
+
+@pytest.mark.parametrize("t,b,h", [(6, 4, 16), (5, 3, 24)])
+def test_lstm_bf16_plain_and_backward_match_pallas_kernel(rng, t, b, h):
+    """bf16 xproj, h0 and c0 with the float32 master W and bias: the
+    plain version against ``_lstm_seq_impl`` (hs, cs, gates bf16 from a
+    float32 carry), and ``lstm_seq_bwd`` against the Pallas custom_vjp's
+    backward (dxproj, dh0, dc0 bf16; dW, dbias float32), interpret
+    mode."""
+    xj, xt = _bf16_pair(rng.randn(t, b, 4 * h) * 0.5)
+    w = (rng.randn(h, 4 * h) * h ** -0.5).astype(np.float32)
+    bias = (rng.randn(4 * h) * 0.1).astype(np.float32)
+    (h0j, h0t), (c0j, c0t) = (_bf16_pair(rng.randn(b, h) * 0.5)
+                              for _ in range(2))
+    want = _lstm_seq_impl(xj, jnp.asarray(w), jnp.asarray(bias), h0j, c0j,
+                          interpret=True)
+    got = klstm.lstm_seq(xt.transpose(0, 1), torch.from_numpy(w),
+                         torch.from_numpy(bias), h0t, c0t)
+    for g, wv, what in zip(got, want, ("hs", "cs", "gates")):
+        assert g.dtype == torch.bfloat16 and wv.dtype == jnp.bfloat16, what
+        _close(g.transpose(0, 1), wv, BF16["rtol"], BF16["atol"], what)
+
+    (dhj, dht), (dcj, dct) = (_bf16_pair(rng.randn(t, b, h))
+                              for _ in range(2))
+    _, vjp = jax.vjp(lambda *a: pallas_lstm_seq(*a, True), xj,
+                     jnp.asarray(w), jnp.asarray(bias).reshape(1, -1), h0j,
+                     c0j)
+    want = vjp((dhj, dcj))
+    hs, cs, gates = got
+    dx, dw, db, dh0, dc0 = klstm.lstm_seq_bwd(
+        gates, hs, cs, torch.from_numpy(w), h0t, c0t,
+        dht.transpose(0, 1), dct.transpose(0, 1))
+    for g, wv, what in ((dx.transpose(0, 1), want[0], "dxproj"),
+                        (dh0, want[3], "dh0"), (dc0, want[4], "dc0")):
+        assert g.dtype == torch.bfloat16 and wv.dtype == jnp.bfloat16, what
+        _close(g, wv, BF16["rtol"], BF16["atol"], what)
+    for g, wv, what in ((dw, want[1], "dW"), (db, want[2].reshape(-1),
+                                              "dbias")):
+        assert g.dtype == torch.float32 and wv.dtype == jnp.float32, what
+        _close(g, wv, atol=SUMS, what=what)
+
+
 def test_bf16_plain_versions_launch_nothing(rng):
-    before = (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
-              kconv.dw_launches_bf16, kconv.stats_launches,
-              kconv.stats_launches_bf16, kbn.launches_bf16,
-              kbn.bwd_launches_bf16, kmatmul.launches_bf16)
+    def count():
+        return (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
+                kconv.dw_launches_bf16, kconv.stats_launches,
+                kconv.stats_launches_bf16, kbn.launches_bf16,
+                kbn.bwd_launches_bf16, kmatmul.launches_bf16,
+                kfa.launches_bf16, kfa.dq_launches_bf16,
+                kfa.dkv_launches_bf16, klstm.launches_bf16)
+
+    before = count()
     x = torch.randn(1, 4, 4, 2).to(torch.bfloat16)
     w = torch.randn(3, 3, 2, 2).to(torch.bfloat16)
     kconv.conv2d_nhwc(x, w, 1)
@@ -189,20 +381,34 @@ def test_bf16_plain_versions_launch_nothing(rng):
     x2 = x.reshape(16, 2)
     y, m, v = kbn.batch_norm_fwd(x2, torch.ones(2), torch.zeros(2), 1e-5)
     kbn.batch_norm_bwd(x2, y, torch.ones(2), m, torch.rsqrt(v + 1e-5))
-    assert (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
-            kconv.dw_launches_bf16, kconv.stats_launches,
-            kconv.stats_launches_bf16, kbn.launches_bf16,
-            kbn.bwd_launches_bf16, kmatmul.launches_bf16) == before
+    q = torch.randn(1, 8, 2, 16).to(torch.bfloat16)
+    o, lse = kfa.flash_attention_fwd(q, q, q, True)
+    kfa.flash_attention_bwd(q, q, q, o, lse, q, True)
+    xp = torch.randn(2, 3, 8).to(torch.bfloat16)
+    h0 = torch.zeros(2, 2, dtype=torch.bfloat16)
+    klstm.lstm_seq(xp, torch.zeros(2, 8), torch.zeros(8), h0, h0)
+    assert count() == before
 
 
 def test_kernel_route_checks_dtype_before_anything_else():
     """A tensor off the CPU takes the kernel route, whose dtype check
-    comes first: the f32-only flash kernels refuse bf16 with TypeError
-    (the transformer's AMP path waits for their bf16 instances), the
-    conv refuses mixed and other dtypes; no wrapper upcasts."""
+    comes first: the flash kernels refuse mixed and other dtypes with
+    TypeError and take bf16 (then refuse the meta device), the LSTM
+    refuses a bf16 W, the conv refuses mixed and other dtypes; no wrapper
+    upcasts."""
     b = torch.empty(1, 8, 2, 16, dtype=torch.bfloat16, device="meta")
     with pytest.raises(TypeError, match="float32"):
+        kfa.flash_attention_fwd(b, b.float(), b)
+    with pytest.raises(TypeError):
+        kfa.flash_attention_fwd(b.half(), b.half(), b.half())
+    with pytest.raises(ValueError, match="no kernel for device"):
         kfa.flash_attention_fwd(b, b, b)
+    xp = torch.empty(2, 3, 8, dtype=torch.bfloat16, device="meta")
+    h0 = torch.empty(2, 2, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(TypeError):
+        klstm.lstm_seq(xp, torch.empty(2, 8, dtype=torch.bfloat16,
+                                       device="meta"),
+                       torch.empty(8, device="meta"), h0, h0)
     x = torch.empty(1, 4, 4, 2, dtype=torch.bfloat16, device="meta")
     with pytest.raises(TypeError):
         kconv.conv2d_nhwc(x, torch.empty(3, 3, 2, 2, device="meta"), 1)
@@ -451,3 +657,151 @@ def test_executor_plan_cache_keys_on_amp(rng):
     np.testing.assert_array_equal(as_numpy, bf.float().numpy())
     # x and the filter rounded to bf16 (2^-9 each) under 36-term sums
     _close(bf, f32, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the transformer's and the LSTM classifier's ops on bf16 activations
+# ---------------------------------------------------------------------------
+
+
+def _cast_f32(v):
+    return fluid.layers.cast(v, "float32")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_amp_attention_op_and_grads(rng, pallas_interpret, causal):
+    """scaled_dot_product_attention on bf16 Q, K, V (what the bias-free
+    qkv mul gives it under AMP): Out and dQ, dK, dV bf16, the JAX side
+    on the Pallas flash kernels in interpret mode."""
+    b, s, h, d = 2, 128, 2, 32
+    feeds = {n: rng.randn(b, s, h, d).astype(np.float32)
+             for n in ("q", "k", "v")}
+
+    def build():
+        q, k, v = (_data(n, (b, s, h, d), dtype="bfloat16")
+                   for n in ("q", "k", "v"))
+        helper = LayerHelper("sdpa")
+        out = helper.create_tmp_variable("bfloat16", (b, s, h, d))
+        helper.append_op(type="scaled_dot_product_attention",
+                         inputs={"Q": [q], "K": [k], "V": [v]},
+                         outputs={"Out": [out]}, attrs={"causal": causal})
+        return [out], _weighted_mean(_cast_f32(out))
+
+    res = _run_both(build, feeds, grads_of=["q", "k", "v"])
+    for name, (g, w) in res.items():
+        _same_dtype(g, w, name)
+        if "@GRAD" in name and "probe" not in name:
+            assert g.dtype == torch.bfloat16, name
+        _close(g, w, BF16["rtol"], BF16["atol"], name)
+
+
+def test_amp_layer_norm_op_and_grads(rng):
+    """layer_norm on a bf16 X: float32 statistics, Y in X's dtype; dX
+    bf16, dScale and dBias float32."""
+    x = (rng.randn(2, 6, 16) * 2 + 0.5).astype(np.float32)
+
+    def build():
+        xv = _data("x", x.shape, dtype="bfloat16")
+        y = fluid.layers.layer_norm(xv, begin_norm_axis=2)
+        block = fluid.default_main_program().global_block()
+        op = block.ops[-1]
+        extra = [block.var(op.output(s)[0]) for s in ("Mean", "Variance")]
+        return [y] + extra, _weighted_mean(_cast_f32(y))
+
+    res = _run_both(build, {"x": x}, grads_of=["x"])
+    names = list(res)
+    assert res[names[0]][0].dtype == torch.bfloat16
+    assert res["x@GRAD"][0].dtype == torch.bfloat16
+    for name, (g, w) in res.items():
+        _same_dtype(g, w, name)
+        if g.dtype == torch.bfloat16:
+            _close(g, w, BF16["rtol"], BF16["atol"], name)
+        elif "@GRAD" in name:
+            _close(g, w, atol=CHAIN, what=name)
+        else:
+            _close(g, w, atol=SUMS, what=name)
+
+
+def test_amp_softmax_with_cross_entropy_on_bf16_logits(rng):
+    """The bias-free lm_head's bf16 logits (a bias-free fc under AMP):
+    Softmax and Loss float32, the logits' gradient bf16, the head's
+    weight gradient float32."""
+    x = rng.randn(16, 32).astype(np.float32)
+    label = rng.randint(0, 96, (16, 1)).astype(np.int64)
+
+    def build():
+        xv = _data("x", x.shape)
+        lab = _data("label", label.shape, dtype="int64")
+        logits = fluid.layers.fc(xv, size=96, bias_attr=False,
+                                 name="lm_head")
+        loss = fluid.layers.softmax_with_cross_entropy(logits, lab)
+        op = fluid.default_main_program().global_block().ops[-1]
+        soft = op.block.var(op.output("Softmax")[0])
+        return [logits, soft, loss], fluid.layers.mean(loss)
+
+    res = _run_both(build, {"x": x, "label": label},
+                    grads_of=["x", "lm_head.tmp_0"])
+    logits, soft, loss = list(res)[:3]
+    assert logits == "lm_head.tmp_0"
+    assert res[logits][0].dtype == torch.bfloat16
+    assert res[soft][0].dtype == res[loss][0].dtype == torch.float32
+    assert res[logits + "@GRAD"][0].dtype == torch.bfloat16
+    # the two packages' bf16 logits may sit an ulp apart (f32 sums in
+    # other orders, rounded once); everything after them is a float32
+    # function of them, held to CHAIN of max, and the logits' bf16
+    # gradient to BF16's rtol beside it
+    for name, (g, w) in res.items():
+        _same_dtype(g, w, name)
+        if name == logits:
+            _close(g, w, BF16["rtol"], BF16["atol"], name)
+        elif g.dtype == torch.bfloat16:
+            _close(g, w, BF16["rtol"], CHAIN, name)
+        else:
+            _close(g, w, atol=CHAIN, what=name)
+
+
+def test_amp_lstm_op_and_reduce_mean(rng, pallas_interpret):
+    """The lstm op on a bf16 input projection with the float32 master
+    weight and bias (B 8, H 128: the JAX side on its Pallas kernel in
+    interpret mode): Hidden and Cell bf16 from a float32 carry, their
+    reduce_mean over time bf16; dInput bf16, dWeight and dBias float32."""
+    b, t, h = 8, 5, 128
+    x = (rng.randn(b, t, 4 * h) * 0.5).astype(np.float32)
+
+    def build():
+        xv = _data("x", x.shape, dtype="bfloat16")
+        helper = LayerHelper("lstm")
+        w = helper.create_parameter(
+            fluid.ParamAttr(name="lstm.w", initializer=fluid.initializer.
+                            Uniform(-0.1, 0.1, seed=1)),
+            shape=[h, 4 * h], dtype="float32")
+        bias = helper.create_parameter(
+            fluid.ParamAttr(name="lstm.b", initializer=fluid.initializer.
+                            Uniform(-0.5, 0.5, seed=2)),
+            shape=[1, 4 * h], dtype="float32")
+        outs = {sl: [helper.create_tmp_variable("bfloat16", (b, t, h))]
+                for sl in ("Hidden", "Cell", "BatchCellPreAct")}
+        outs["BatchGate"] = [helper.create_tmp_variable("bfloat16",
+                                                        x.shape)]
+        helper.append_op(type="lstm", inputs={"Input": [xv], "Weight": [w],
+                                              "Bias": [bias]},
+                         outputs=outs, attrs={})
+        hid, cell = outs["Hidden"][0], outs["Cell"][0]
+        pooled = fluid.layers.reduce_mean(hid, dim=1)
+        loss = fluid.layers.elementwise_add(
+            _weighted_mean(_cast_f32(pooled)),
+            _weighted_mean(_cast_f32(cell)))
+        return [hid, cell, pooled], loss
+
+    res = _run_both(build, {"x": x}, grads_of=["x"])
+    names = list(res)
+    for name in names[:3] + ["x@GRAD"]:
+        assert res[name][0].dtype == torch.bfloat16, name
+    for name in ("lstm.w@GRAD", "lstm.b@GRAD"):
+        assert res[name][0].dtype == torch.float32, name
+    for name, (g, w) in res.items():
+        _same_dtype(g, w, name)
+        if g.dtype == torch.bfloat16:
+            _close(g, w, BF16["rtol"], BF16["atol"], name)
+        else:
+            _close(g, w, atol=SUMS, what=name)

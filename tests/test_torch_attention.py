@@ -18,6 +18,12 @@ order (layer_norm, the cross-entropy's log-sum-exp, attention).  The
 model: every fetched tensor and every persistable within 1e-4 of the
 JAX tensor's largest magnitude (float32 through two transformer blocks
 and two Adam steps).  Programs must be equal exactly.
+
+Under AMP (bf16 mul operands and activations, the bf16 flash kernels,
+f32 master weights and Adam moments; the JAX side on its Pallas kernels
+in interpret mode, which round where the port's kernels round) two
+steps are held to the whole-model AMP tolerance of
+tests/test_torch_amp.py (``amp_steps_match_jax``).
 """
 
 import jax  # noqa: F401  (keep jax on the CPU before paddle_tpu loads)
@@ -33,10 +39,18 @@ from paddle_tpu.layer_helper import LayerHelper
 from paddle_tpu.models import transformer as jax_transformer
 from paddle_tpu_torch.models import transformer as port_transformer
 from paddle_tpu_torch.ops.attention_ops import lse_name
+from test_torch_amp import amp_steps_match_jax
 
 POINTWISE = dict(rtol=1e-5, atol=1e-5)
 SUMS = dict(rtol=1e-4, atol=1e-4)
 TOL = 1e-4
+
+
+@pytest.fixture
+def pallas_interpret():
+    pk.enable(True, interpret=True)
+    yield
+    pk.enable("auto", interpret=False)
 
 
 def _run_both(build, feeds, tol, grads_of=()):
@@ -194,27 +208,28 @@ def test_scaled_dot_product_attention_op(rng, causal, s, d):
 
 CONFIG = dict(vocab_size=96, d_model=64, num_heads=2, num_layers=2)
 B, S = 2, 32
+AMP_S = 128   # the Pallas flash kernel's blocks are at least 128 rows
 
 
-def _transformer(lib, models):
-    tokens = lib.layers.data(name="tokens", shape=[S, 1], dtype="int64")
-    labels = lib.layers.data(name="labels", shape=[S, 1], dtype="int64")
+def _transformer(lib, models, seq=S):
+    tokens = lib.layers.data(name="tokens", shape=[seq, 1], dtype="int64")
+    labels = lib.layers.data(name="labels", shape=[seq, 1], dtype="int64")
     loss = models.transformer_lm_loss(tokens, labels=labels, **CONFIG)
     _, params_grads = lib.optimizer.Adam(learning_rate=1e-4).minimize(loss)
     return loss, params_grads
 
 
-def _build_both():
+def _build_both(seq=S):
     fluid.framework.reset_default_programs()
-    j = _transformer(fluid, jax_transformer)
+    j = _transformer(fluid, jax_transformer, seq)
     pt.framework.reset_default_programs()
-    p = _transformer(pt, port_transformer)
+    p = _transformer(pt, port_transformer, seq)
     return j, p
 
 
-def _feed(rng):
-    return {n: rng.randint(0, CONFIG["vocab_size"], (B, S, 1)).astype(np.int64)
-            for n in ("tokens", "labels")}
+def _feed(rng, seq=S):
+    return {n: rng.randint(0, CONFIG["vocab_size"], (B, seq, 1))
+            .astype(np.int64) for n in ("tokens", "labels")}
 
 
 def _start():
@@ -272,6 +287,20 @@ def test_transformer_adam_steps_match_jax(rng):
         _close(scope.get(name).numpy(), np.asarray(jscope.get(name)),
                f"after 2 steps: {name}")
     assert not any(n.endswith("@LSE") for n in scope.keys())
+
+
+def test_transformer_amp_adam_steps_match_jax(rng, pallas_interpret):
+    """Two AMP Adam steps of the 2-layer transformer LM at B 2, S 128
+    (bf16 qkv, attention, ffn and lm_head products; f32 masters and
+    moments), beside the JAX package's f32 steps from the same start:
+    the loss, every parameter gradient (f32) of each step, then every
+    persistable."""
+    (jloss, jpg), (ploss, ppg) = _build_both(AMP_S)
+    exe, scope = _start()
+    fetch = [jloss.name] + [g.name for _, g in jpg]
+    assert fetch == [ploss.name] + [g.name for _, g in ppg]
+    amp_steps_match_jax(exe, pt.Executor(pt.CPUPlace()), scope, fetch,
+                        [_feed(rng, AMP_S) for _ in range(2)])
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

@@ -22,9 +22,14 @@ round once: a sum near a rounding boundary lands one bf16 ulp, at most
 near zero); f32 outputs of bf16 operands (the filter gradient, BN's
 statistics and vectors, the fused conv's mean and variance) as their
 float32 counterparts, since the operands are the same bf16 values on
-both sides.
+both sides.  The bf16 flash and LSTM instances: out, dq, dk, dv, hs, cs
+and the gates within the same bf16 tolerance (the plain forward walks
+the kernel's key tiles, ``tile=key_tile(D)``, so p is rounded to bf16
+against the same running maximum on both sides), lse within 1e-4
+(float32 from the same bf16 scores).
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -833,18 +838,32 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
 
 
 def test_bf16_wrappers_refuse_what_they_do_not_take(dev):
-    """No fallback: the float32-only kernels raise TypeError on bf16 (the
-    transformer's AMP path waits for bf16 flash kernels), and the bf16
-    ones on mixed or other dtypes."""
+    """No fallback: the float32-only kernels raise TypeError on bf16, the
+    bf16 ones on mixed or other dtypes (flash attention on bf16 q with a
+    float32 k or do, the LSTM on a bf16 W)."""
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import embedding as kemb
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
     from paddle_tpu_torch.kernels import softmax as ksoftmax
 
     b = torch.ones(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        kfa.flash_attention_fwd(b, b, b)
+        kfa.flash_attention_fwd(b, b.float(), b)
+    with pytest.raises(TypeError):
+        kfa.flash_attention_fwd(b.half(), b.half(), b.half())
+    out, lse = kfa.flash_attention_fwd(b, b, b)
+    with pytest.raises(TypeError):
+        kfa.flash_attention_bwd(b, b, b, out, lse, b.float())
+    xp = torch.ones(2, 3, 8, device=dev, dtype=torch.bfloat16)
+    z = torch.zeros(2, 2, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        klstm.lstm_seq(xp, torch.ones(2, 8, device=dev, dtype=torch.bfloat16),
+                       torch.ones(8, device=dev), z, z)
+    with pytest.raises(TypeError):
+        klstm.lstm_seq(xp, torch.ones(2, 8, device=dev),
+                       torch.ones(8, device=dev), z.float(), z.float())
     with pytest.raises(TypeError):
         ksoftmax.softmax(torch.ones(4, 6, device=dev, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
@@ -856,6 +875,173 @@ def test_bf16_wrappers_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         kconv.conv2d_nhwc(torch.ones(1, 4, 4, 2, device=dev).half(),
                           torch.ones(3, 3, 2, 2, device=dev).half(), 1)
+
+
+BF16_FLASH_SHAPES = [(2, 100, 3, d) for d in (64, 72, 128)] + [
+    (1, 1024, 2, d) for d in (64, 72, 128)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", BF16_FLASH_SHAPES)
+def test_flash_attention_bf16_kernels_match_plain(dev, b, s, h, d, causal):
+    """The bf16 forward, dq and dk/dv on strided q, k, v views of a fused
+    bf16 qkv at ragged S and D, counted as bf16 launches: out within the
+    bf16 tolerance, lse within 1e-4 (float32 from the same bf16 scores);
+    the backward kernels and the plain backward from the kernel's own out
+    and lse, each gradient within the bf16 tolerance."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(36)
+    qkv = _bf16(g, b, s, 3 * h * d, device=dev)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    do = _bf16(g, b, s, h, d, device=dev)
+    f32 = (kfa.launches, kfa.dq_launches, kfa.dkv_launches)
+    before = (kfa.launches_bf16, kfa.dq_launches_bf16, kfa.dkv_launches_bf16)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert (kfa.launches_bf16, kfa.dq_launches_bf16,
+            kfa.dkv_launches_bf16) == tuple(x + 1 for x in before)
+    assert (kfa.launches, kfa.dq_launches, kfa.dkv_launches) == f32
+    torch.cuda.synchronize()
+    pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal,
+                                               tile=kfa.key_tile(d))
+    _close_bf16(out, pout)
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    want = kfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for got, ref in zip(grads, want):
+        _close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("b,t,h", [(5, 7, 100), (64, 100, 256)])
+def test_lstm_bf16_kernel_matches_plain(dev, b, t, h):
+    """The bf16 instance on a strided bf16 xproj view, bf16 h0 and c0, the
+    float32 W and bias: hs, cs and gates bf16 within the bf16 tolerance
+    (both carry float32 and round what they write), one bf16 launch; a
+    bf16 bias gives the same outputs as its float32 widening; LSTMSeq's
+    backward returns the reference's dtypes."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(37)
+    proj = _bf16(g, b, t, 8 * h, scale=0.5, device=dev)
+    xp = proj[:, :, 2 * h:6 * h]
+    w = _randn(g, h, 4 * h, scale=h ** -0.5, device=dev)
+    bias = _randn(g, 4 * h, scale=0.1, device=dev)
+    h0, c0 = (_bf16(g, b, h, scale=0.5, device=dev) for _ in range(2))
+    before = (klstm.launches, klstm.launches_bf16)
+    got = klstm.lstm_seq(xp, w, bias, h0, c0)
+    assert (klstm.launches, klstm.launches_bf16) == (before[0],
+                                                     before[1] + 1)
+    torch.cuda.synchronize()
+    for a, ref in zip(got, klstm.lstm_seq_plain(xp, w, bias, h0, c0)):
+        _close_bf16(a, ref)
+    bias16 = bias.to(torch.bfloat16)
+    for a, ref in zip(klstm.lstm_seq(xp, w, bias16, h0, c0),
+                      klstm.lstm_seq(xp, w, bias16.float(), h0, c0)):
+        assert torch.equal(a, ref)
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in (xp, w, bias, h0, c0)]
+    hs, cs = klstm.LSTMSeq.apply(*leaves)
+    (hs.float().sum() + cs.float().sum()).backward()
+    assert [a.grad.dtype for a in leaves] == [
+        torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+        torch.bfloat16]
+
+
+def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
+    """Launch the bf16 flash forward, dq, dk/dv and LSTM symbols straight
+    into outputs with NaN guard regions on both sides, at ragged shapes
+    (S 100, D 72; B 5, T 7, H 100): the guards stay NaN, the outputs are
+    finite and match the wrappers' outputs."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(38)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf = torch.bfloat16
+    b, s, h, d = 2, 100, 3, 72
+    q, k, v, do = (_bf16(g, b, s, h, d, device=dev) for _ in range(4))
+    want_out, want_lse = kfa.flash_attention_fwd(q, k, v, True)
+    want = kfa.flash_attention_bwd(q, k, v, want_out, want_lse, do, True)
+    delta = (do.float() * want_out.float()).sum(-1).permute(0, 2, 1).reshape(
+        b * h, s).contiguous()
+    strides = [t.stride()[:3] for t in (q, k, v, do)]
+    lib = _build.load("flash_attention", kfa._SIGNATURES)
+    bufs = [_guarded((b, s, h, d), bf, dev) for _ in range(4)]
+    lse_buf = _guarded((b * h, s), torch.float32, dev)
+    out, dq, dk, dv = (view for _, view in bufs)
+    lse = lse_buf[1]
+    scale = d ** -0.5
+    _build.check(lib, lib.ptt_flash_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, s, d, *strides[0], *strides[1], *strides[2],
+        scale, 1, stream), "fwd")
+    common = (b, h, s, d, *strides[0], *strides[1], *strides[2], *strides[3])
+    _build.check(lib, lib.ptt_flash_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        want_lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common, scale,
+        1, stream), "dq")
+    _build.check(lib, lib.ptt_flash_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        want_lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *common, scale, 1, stream), "dkv")
+
+    lb, lt, lh = 5, 7, 100
+    xp = _bf16(g, lb, lt, 4 * lh, scale=0.5, device=dev)
+    w = _randn(g, lh, 4 * lh, scale=lh ** -0.5, device=dev)
+    bias = _randn(g, 4 * lh, scale=0.1, device=dev)
+    h0, c0 = (_bf16(g, lb, lh, scale=0.5, device=dev) for _ in range(2))
+    want_seq = klstm.lstm_seq(xp, w, bias, h0, c0)
+    seq_bufs = [_guarded((lb, lt, lh), bf, dev), _guarded((lb, lt, lh), bf, dev),
+                _guarded((lb, lt, 4 * lh), bf, dev)]
+    hs, cs, gates = (view for _, view in seq_bufs)
+    state = torch.empty((3, lb, lh), device=dev)
+    blocks = ctypes.c_int(0)
+    llib = _build.load("lstm", klstm._SIGNATURES)
+    _build.check(llib, llib.ptt_lstm_seq_bf16(
+        xp.data_ptr(), xp.stride(0), xp.stride(1), w.data_ptr(),
+        bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), gates.data_ptr(), state[0].data_ptr(),
+        state[2].data_ptr(), lb, lt, lh, ctypes.byref(blocks), stream),
+        "lstm")
+    torch.cuda.synchronize()
+
+    for buf, view in bufs + [lse_buf] + seq_bufs:
+        guard = torch.cat([buf[:4096], buf[-4096:]])
+        assert bool(torch.isnan(guard).all())
+        assert bool(torch.isfinite(view).all())
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    for got, ref in zip((dq, dk, dv) + (hs, cs, gates), want + want_seq):
+        assert torch.equal(got, ref)
+
+
+def test_bf16_matmul_backward_on_the_card_matches_its_f32_route(dev):
+    """``matmul_backward`` on bf16 x, y and dOut takes the bf16 cuBLAS
+    products (reduced-precision reductions off, as ``Executor.run`` sets
+    them) and equals the float32 route on the same values rounded once to
+    bf16, within one bf16 ulp (at most 2^-7 of the element) plus 1e-3 of
+    max for sums that cancel."""
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(39)
+    x = _bf16(g, 384, 512, device=dev)
+    y = _bf16(g, 512, 320, scale=0.05, device=dev)
+    dout = _bf16(g, 384, 320, device=dev)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        dx, dy = kmatmul.matmul_backward(x, y, dout)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    assert dx.dtype == dy.dtype == torch.bfloat16
+    want_dx = (dout.float() @ y.float().t()).to(torch.bfloat16)
+    want_dy = (x.float().t() @ dout.float()).to(torch.bfloat16)
+    for got, want in ((dx, want_dx), (dy, want_dy)):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2.0 ** -7,
+            atol=1e-3 * float(want.float().abs().max()))
 
 
 def test_amp_train_step_on_the_card_matches_cpu(dev):

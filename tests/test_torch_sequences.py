@@ -17,7 +17,12 @@ reduces; rtol 1e-4 / atol 1e-5 for the lstm op (float32 recurrences
 through sigmoid and tanh, its products summed in another order).  The
 models: every fetched tensor and every persistable within 1e-4 of the
 JAX tensor's largest magnitude after two Momentum steps.  Programs must
-be equal exactly.
+be equal exactly.  Under AMP (the bias-free projections' bf16 outputs into the bf16 LSTM
+kernel with the f32 master W and bias; the JAX side on its Pallas LSTM
+kernel, whose carry stays f32 as the port's does, not its ``lax.scan``
+that rounds it to bf16 every step) two steps are held to the
+whole-model AMP tolerance of tests/test_torch_amp.py
+(``amp_steps_match_jax``).
 """
 
 import jax  # noqa: F401  (keep jax on the CPU before paddle_tpu loads)
@@ -36,6 +41,7 @@ from paddle_tpu.models.lstm_text import \
 from paddle_tpu_torch.lod import LoDArray, create_lod_array
 from paddle_tpu_torch.models import lstm_text_classifier
 from paddle_tpu_torch.ops.sequence_ops import gates_name
+from test_torch_amp import amp_steps_match_jax
 
 POINTWISE = dict(rtol=1e-5, atol=1e-5)
 RECURRENT = dict(rtol=1e-4, atol=1e-5)
@@ -446,6 +452,20 @@ def test_momentum_steps_match_jax(rng, pallas_interpret, path):
     for name in jscope.values:
         _close(scope.get(name).numpy(), np.asarray(jscope.get(name)),
                f"after 2 steps: {name}")
+
+
+def test_padded_classifier_amp_momentum_steps_match_jax(rng,
+                                                        pallas_interpret):
+    """Two AMP Momentum(0.01, 0.9) steps of the padded LSTM classifier
+    (bf16 projections and LSTM states, f32 masters and velocities),
+    beside the JAX package's f32 steps from the same start: the loss,
+    every parameter gradient (f32) of each step, then every persistable."""
+    (jloss, jpg), (ploss, ppg) = _build_both("padded")
+    exe, scope = _start()
+    fetch = [jloss.name] + [g.name for _, g in jpg]
+    assert fetch == [ploss.name] + [g.name for _, g in ppg]
+    amp_steps_match_jax(exe, pt.Executor(pt.CPUPlace()), scope, fetch,
+                        [_feed(rng, "padded") for _ in range(2)])
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
