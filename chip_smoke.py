@@ -109,8 +109,8 @@ seconds):
    the CPU's largest magnitude; then every op on identical inputs.
 9. The transformer step at B 8, S 1024: the launches (flash forward 4,
    dq 4, dk/dv 4, matmul 17, softmax 0, the program's own count),
-   tokens/s over 5 timed steps after 2 warm-up steps, peak memory, one
-   profiled step.
+   tokens/s over 5 timed steps after 2 warm-up steps, peak memory (its
+   profiled step comes after phase 10b's).
 10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
     a seeded copy-the-previous-token task on the card: the loss falls
     below CONVERGE_LOSS.
@@ -123,8 +123,12 @@ seconds):
     AMP_OP_TOL.
 10b. The transformer AMP step at B 8, S 1024: launches bf16 flash
     forward 4, dq 4, dk/dv 4, bf16 matmul 17 and no f32 flash or matmul
-    launch; tokens/s beside phase 9's f32 step, peak memory, one profiled
-    step.  10c. The small model of phase 10 learns under AMP.
+    launch; tokens/s beside phase 9's f32 step, peak memory; then one
+    profiled step of each, f32 and AMP, in a fresh process
+    (PROFILE_TF), the device time split into the flash kernels, the
+    matmul kernel, the mul backward products and the rest, failing if
+    the profiler saw fewer flash or matmul launches than the step makes.
+    10c. The small model of phase 10 learns under AMP.
 11. LSTM classifier parity: lstm_text_classifier as benchmark/run.py
     trains its `lstm` cell (B 64, T 100, vocab 30000 with ids < 10000,
     emb 512, hidden 256, 2 layers, 2 classes, Momentum(0.01, 0.9), f32)
@@ -188,6 +192,7 @@ The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -379,6 +384,8 @@ SEQ_CONVERGE_ACC = 0.9
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
+# the same for the two transformer steps (see phase_tf_profile)
+PROFILE_TF = "--profile-transformer-steps"
 
 # The decoder LM that /generate serves (paddle_tpu/decode/model.py
 # TinyDecoderLM) at the widths of the transformer LM of phases 8-9
@@ -415,6 +422,21 @@ def log(*a):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def ptxas_entry(line):
+    """``kernel<template args>`` from the mangled name in a ptxas
+    "Compiling entry function" line (integer and bool arguments; type
+    arguments left out)."""
+    mangled = line.split("'")[1] if "'" in line else line
+    for m in re.finditer(r"\d+", mangled):   # <length><identifier>
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel") and name.isidentifier():
+            rest = mangled[m.end() + len(name):]
+            targs = rest[:rest.find("EE") + 1] if rest.startswith("I") else ""
+            args = re.findall(r"L[ib](\d+)E", targs)
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
 
 
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -2181,19 +2203,22 @@ def phase_tf_amp_parity(dev):
                     f"{TF_PARITY_BATCH} S {TF_PARITY_SEQ}")
 
 
-def phase_tf_train_step(dev, smi, amp=False):
+def phase_tf_train_step(dev, smi, amp=False, f32=None):
     """The full-width transformer step at B 8, S 1024 (under AMP with
     ``amp``): counted launches (flash forward 4, dq 4, dk/dv 4, matmul 17,
     softmax 0; under AMP the bf16 instances, and no f32 flash or matmul
     launch), tokens/s over 5 timed steps after 2 warm-up steps, peak
-    memory, one profiled step."""
+    memory.  With ``f32`` (the f32 step's result of the same run): the
+    tokens/s beside it, then both steps profiled (phase_tf_profile),
+    their idle shares set in both results."""
     import paddle_tpu_torch as pt
 
     with pt.amp.amp_guard(amp):
-        return _tf_train_step(dev, smi, "AMP bf16" if amp else "f32", amp)
+        return _tf_train_step(dev, smi, "AMP bf16" if amp else "f32", amp,
+                              f32)
 
 
-def _tf_train_step(dev, smi, kind, amp):
+def _tf_train_step(dev, smi, kind, amp, f32):
     import torch
 
     import paddle_tpu_torch as pt
@@ -2211,10 +2236,8 @@ def _tf_train_step(dev, smi, kind, amp):
     exe = pt.Executor()
     scope = pt.Scope()
     exe.run(startup, scope=scope)
-    gen = torch.Generator(device=dev).manual_seed(12)
+    feed = transformer_step_feed(dev)
     v = TF_CONFIG["vocab_size"]
-    feed = {n: torch.randint(0, v, (TF_BATCH, TF_SEQ, 1), device=dev,
-                             generator=gen) for n in ("tokens", "labels")}
     tokens = TF_BATCH * TF_SEQ
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2248,13 +2271,34 @@ def _tf_train_step(dev, smi, kind, amp):
         f"ms, min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
         f"losses {[round(x, 5) for x in losses]}; peak memory allocated "
         f"{peak / 2**30:.2f} GiB on {smi}")
-    idle = profile_step(lambda: exe.run(main_prog, feed=feed,
-                                        fetch_list=[loss], scope=scope),
-                        f"transformer step ({kind})")
+    result = dict(tokens_per_s=tok_s, peak_bytes=peak, launches=launches)
     del exe, scope, feed
     torch.cuda.empty_cache()
-    return dict(tokens_per_s=tok_s, peak_bytes=peak, idle_share=idle,
-                launches=launches)
+    if f32 is not None:
+        log(f"transformer step tokens/s, {kind} beside f32 in this run: "
+            f"{tok_s:.1f} vs {f32['tokens_per_s']:.1f} "
+            f"({tok_s / f32['tokens_per_s']:.2f}x)")
+        idle = phase_tf_profile()
+        f32["idle_share"], result["idle_share"] = idle["tf"], idle["tf_amp"]
+    return result
+
+
+def transformer_step_feed(dev):
+    """The seeded tokens and labels of the B 8, S 1024 transformer step."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    return {n: torch.randint(0, TF_CONFIG["vocab_size"], (TF_BATCH, TF_SEQ, 1),
+                             device=dev, generator=gen)
+            for n in ("tokens", "labels")}
+
+
+def phase_tf_profile():
+    """One profiled transformer step in f32 and one under AMP, in a fresh
+    process (this script with PROFILE_TF), split into the flash kernels,
+    the matmul kernel, the mul backward products and the rest.  Returns
+    {"tf": idle share, "tf_amp": idle share}."""
+    return profile_in_child(PROFILE_TF, "transformer steps")
 
 
 def copy_task(rng, batch, seq, vocab):
@@ -2845,7 +2889,6 @@ def profile_sequence_steps():
     as the last line, a JSON object."""
     import torch
 
-    import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
@@ -2877,6 +2920,15 @@ def profile_sequence_steps():
                         {"gather_rows_kernel": 1, "matmul_f32_kernel": 2,
                          "softmax_f32_kernel": 1})),
     }
+    profile_paths(paths)
+
+
+def profile_paths(paths):
+    """{key: (amp, (program, startup, loss, feed, what, split, want))}:
+    one profiled step of each after 2 warm-up steps (profile_step);
+    prints {key: idle share} as the last line, a JSON object."""
+    import paddle_tpu_torch as pt
+
     idle = {}
     for key, (amp, (prog, startup, loss, feed, what, split,
                     want)) in paths.items():
@@ -2889,24 +2941,60 @@ def profile_sequence_steps():
             idle[key] = profile_step(
                 lambda: exe.run(prog, feed=feed, fetch_list=[loss],
                                 scope=scope), what, split, want)
+        del exe, scope
     print(json.dumps(idle), flush=True)
+
+
+def profile_transformer_steps():
+    """The body of ``chip_smoke.py --profile-transformer-steps``: one
+    profiled transformer step at B 8, S 1024 in f32 and under AMP, from
+    the seeds of phases 9 and 10b, split into the flash kernels, the
+    matmul kernel and the mul backward products (cuBLAS).  Prints the
+    idle shares as the last line, a JSON object."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    dev = torch.device("cuda", 0)
+    range_calls(kmatmul, "matmul_backward")
+    prog, startup, loss, _ = build_transformer_program(TF_SEQ)
+    feed = transformer_step_feed(dev)
+    layers = TF_CONFIG["num_layers"]
+
+    def path(amp):
+        sfx, kind = ("_bf16", "AMP bf16") if amp else ("", "f32")
+        mm = f"matmul{sfx or '_f32'}_kernel"
+        return amp, (prog, startup, loss, feed,
+                     f"transformer step at B {TF_BATCH} S {TF_SEQ} ({kind})",
+                     {"flash kernels": ["flash_"], "matmul kernel": [mm],
+                      "mul backward products": "matmul_backward"},
+                     {f"flash_{k}{sfx}_kernel": layers
+                      for k in ("fwd", "dq", "dkv")} | {mm: 4 * layers + 1})
+
+    profile_paths({"tf": path(False), "tf_amp": path(True)})
+
+
+def profile_in_child(flag, what):
+    """Run this script with ``flag`` in a fresh process and log its
+    output: late in a long process, torch.profiler leaves out ctypes
+    launches that start soon after they are queued, and a fresh process
+    records them all (each profile fails if it sees fewer launches than
+    its step makes).  Returns the JSON object of the child's last line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=HERE)
+    for line in proc.stdout.splitlines()[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        fail(f"the profiled {what} failed (exit {proc.returncode}):"
+             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
 
 
 def phase_seq_profile():
     """One profiled step of each sequence path, in a fresh process (this
-    script with PROFILE_SEQ): late in a long process, torch.profiler
-    leaves out ctypes launches that start soon after they are queued,
-    and a fresh process records them all (the profile fails if it sees
-    fewer launches than the step makes).  Returns {path: idle share}."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           PROFILE_SEQ], capture_output=True, text=True,
-                          timeout=600, cwd=HERE)
-    for line in proc.stdout.splitlines()[:-1]:
-        log(line)
-    if proc.returncode != 0:
-        fail(f"the profiled sequence steps failed (exit {proc.returncode}):"
-             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.splitlines()[-1])
+    script with PROFILE_SEQ).  Returns {path: idle share}."""
+    return profile_in_child(PROFILE_SEQ, "sequence steps")
 
 
 # ---------------------------------------------------------------------------
@@ -3595,15 +3683,7 @@ def profile_decode_step():
 def phase_decode_profile():
     """F. One profiled decode step in a fresh process (this script with
     PROFILE_DEC), as phase 16 profiles the sequence steps."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           PROFILE_DEC], capture_output=True, text=True,
-                          timeout=600, cwd=HERE)
-    for line in proc.stdout.splitlines()[:-1]:
-        log(line)
-    if proc.returncode != 0:
-        fail(f"the profiled decode step failed (exit {proc.returncode}):"
-             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.splitlines()[-1])
+    return profile_in_child(PROFILE_DEC, "decode step")
 
 
 def timed(fn, *args, **kwargs):
@@ -3626,6 +3706,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:] == [PROFILE_SEQ]:
         profile_sequence_steps()
+        return
+    if sys.argv[1:] == [PROFILE_TF]:
+        profile_transformer_steps()
         return
     if sys.argv[1:] == [PROFILE_DEC]:
         profile_decode_step()
@@ -3651,9 +3734,12 @@ def main():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s wall: " + ", ".join(
         f"{n} {s:.2f} s" for n, (s, _) in built.items()))
     for name, (_, text) in built.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = ptxas_entry(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.strip()}")
 
     import paddle_tpu_torch as pt
 
@@ -3717,7 +3803,7 @@ def main():
     tf = timed(phase_tf_train_step, dev, smi)
     timed(phase_tf_converge, dev)
     timed(phase_tf_amp_parity, dev)
-    tf_amp = timed(phase_tf_train_step, dev, smi, amp=True)
+    tf_amp = timed(phase_tf_train_step, dev, smi, amp=True, f32=tf)
     timed(phase_tf_converge, dev, amp=True)
 
     timed(phase_lstm_parity, dev)

@@ -15,65 +15,86 @@
 // tile and loops over the other axis itself: the forward and dq one
 // block per (b*h, query tile) looping over the key tiles, dk/dv one
 // block per (b*h, key tile) looping over the query tiles.  Each output
-// tile has one owner, so there are no atomics.  Causal blocks stop at
-// (forward, dq) or start from (dk/dv) the diagonal tile, as the TPU
-// kernel skips the strictly-upper blocks, and the longest blocks are
-// scheduled first.  Rows past S and columns past D are read as zero and
-// masked, so any S and any D <= 256 work (the TPU kernel needs S
-// divisible by a block of at least 128).
+// tile has one owner, so there are no atomics and every sum has a fixed
+// order.  Causal blocks stop at (forward, dq) or start from (dk/dv) the
+// diagonal tile, as the TPU kernel skips the strictly-upper blocks, the
+// longest blocks are scheduled first, and only the diagonal and ragged
+// tiles are masked.  Rows past S and columns past D are read as zero, so
+// any S and any D <= 256 work (the TPU kernel needs S divisible by a
+// block of at least 128).
 //
-// A tile is BT query or key rows: 64 for D <= 128, 32 for D <= 256, so
-// that the tiles fit the 227 KB of dynamic shared memory a block may
-// have (the dk/dv kernel holds six tiles: 165 KB at D = 128).  A block
-// of 4 * BT threads computes each BT x BT score tile as 4 x (BT / 16)
-// sub-tiles per thread, rows ty + (BT / 4) i and columns tx + 16 j, so a
-// row's max and sum are shuffles over 16 lanes; the products with V, K,
-// Q and dO give each thread the same 4 rows and the head-dim columns
-// tx + 16 j.  Tiles read across rows at one d (K in the forward and dq,
-// Q and dO in dk/dv) have a row pitch of DPAD + 1, so a warp's 16 rows
-// fall in 16 banks.
-//
-// The bf16 instance rounds where the TPU kernel rounds on bf16 inputs,
-// and nowhere else: scores, the online-softmax state and every
-// accumulator stay float32 (tiles are widened to float32 in shared
-// memory); the forward rounds p to bf16 before the PV product
-// (flash_attention.py:130-132; l sums the unrounded p) and writes out in
-// bf16; dq rounds ds to bf16 before ds K (:222-224) and writes dq in
-// bf16; dk/dv rounds nothing until dk and dv are written (:258-269).
-//
-// What bounds it on the H100: operations.  At the transformer's shape
+// What bounds them on the H100: operations.  At the transformer's shape
 // (B*H = 128, S = 1024, D = 128, causal) the forward does 2 products of
-// 2 * BH * S(S+1)/2 * D FLOPs (34.4 GFLOP, 0.51 ms at 67 TFLOP/s f32),
-// dq 3 and dk/dv 4 such products, while the bytes (q, k, v, o, do at
-// 67 MB each) take 0.1 ms at 3.35 TB/s.  This is a simple f32 SIMT
-// kernel (fmaf from shared memory, one block per SM); in bf16 the same
-// products run on the same f32 tiles, bytes halved at the edges only:
-// wgmma tiles and TMA are later work.
+// 2 * BH * S(S+1)/2 * D FLOPs (34.4 GFLOP: 0.035 ms at 989 TFLOP/s bf16,
+// 0.51 ms at 67 TFLOP/s f32), dq 3 and dk/dv 4 such products, while the
+// bytes (q, k, v, o, do at 34 MB each in bf16) take 0.05 ms at 3.35 TB/s.
+//
+// float32 (ptt_flash_*_f32): a simple SIMT kernel.  A tile is BT query or
+// key rows, 64 for D <= 128 and 32 for D <= 256, so that the f32 tiles
+// fit the 227 KB of shared memory a block may have (dk/dv holds six:
+// 165 KB at D 128, one block per SM).  A block of 4 * BT threads computes
+// each BT x BT score tile as 4 x (BT / 16) sub-tiles per thread with
+// fmaf, rows ty + (BT / 4) i and columns tx + 16 j, so a row's max and
+// sum are shuffles over 16 lanes; the products with V, K, Q and dO give
+// each thread the same 4 rows and the head-dim columns tx + 16 j.  Tiles
+// read across rows at one d have a row pitch of DPAD + 1.
+//
+// bf16 (ptt_flash_*_bf16, namespace tc): the tensor cores.  Each product
+// is mma.sync.m16n8k16 with bf16 operands and f32 sums, and rounds where
+// the TPU kernel rounds on bf16 inputs and nowhere else:
+//   - q k^T, do v^T (and k q^T, v do^T in dk/dv): the TPU kernel widens
+//     bf16 q, k, v, do to f32 and multiplies (:113-116, :218-220); bf16 x
+//     bf16 products are exact in f32, so a bf16 mma with f32 sums is the
+//     same product;
+//   - p v in the forward: p rounded to v's dtype (:130-132), a bf16 mma;
+//     l sums the unrounded p; m, l and the accumulator stay f32;
+//   - ds k in dq: ds rounded to k's dtype (:222-224), a bf16 mma;
+//   - p^T do and ds^T q in dk/dv: the TPU kernel takes p and ds in f32,
+//     unrounded (:259-268).  Each is a split pair, hi = bf16(x) and lo =
+//     bf16(x - hi), and two bf16 mmas into one f32 accumulator.  x - hi
+//     is exact in f32 and |x - hi| <= 2^-8 |x|, so lo misses it by at
+//     most 2^-8 |x - hi| <= 2^-16 |x|: a per-term error 2^8 below the one
+//     bf16 rounding of dk and dv (2^-8).  No TF32, no rounding of p or ds.
+// Scores never leave registers: the f32 C fragments of s = q k^T are
+// scaled, masked, exponentiated and re-packed as the bf16x2 A fragments
+// of the next product (p v, ds k, or, in dk/dv, which forms S^T = k q^T
+// and dP^T = v do^T, the A operands of p^T do and ds^T q); a row's max
+// and sum are shuffles over the 4 lanes of a quad.  Fragments come from
+// shared memory through ldmatrix (.trans for the B[k][n] operands v, k,
+// do and q of the second products).
+// Tiles stay bf16 in shared memory, rows padded by 16 bytes so every
+// ldmatrix hits 8 distinct banks.  A block is 4 warps.  The forward walks
+// 64-key tiles to D 128 and 32-key tiles to D 256 (key_tile() in
+// kernels/flash_attention.py: the forward's tile is part of the function,
+// since p is rounded against the running max of each tile) for 128 query
+// rows to D 128, each warp two m16 row blocks that share every K and V
+// fragment, and 64 rows (one block a warp) at D 256, where a second f32
+// 16 x 256 accumulator would not fit a thread's registers.  dq: 64 query
+// rows, 16 a warp, over the same key tiles.  dk/dv: 64 key rows over
+// 64-query tiles to D 128, and at D 256 32 key rows over 32-query tiles
+// with the head dim split between warp pairs.  K/V (forward, dq) and
+// Q/dO/lse/delta (dk/dv) come through a two-stage ring of 16-byte
+// cp.async copies: the next tile's copies are issued before the current
+// tile's products.  Shared memory at D 128: forward, dq and dk/dv 102-103
+// KB, so two blocks share an SM.  Out, dq, dk and dv are staged through
+// shared memory and stored as 16-byte vectors.  Where a base pointer or
+// stride is not 16-byte aligned (or D % 8 != 0), the launcher picks the
+// same kernel with element-wise loads and stores (kVec false).
+// Left for later: wgmma over TMA-fed shared tiles with a producer warp
+// (the FlashAttention-3 shape), two row blocks a warp in dq and dk/dv,
+// exp2 with the scale folded in.
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// v rounded to E and widened back: the identity for float.
-template <class E>
-__device__ __forceinline__ float round_to(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<bf16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the TPU kernel
 
@@ -105,7 +126,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, int pitch,
     const int r = idx / DPAD;
     const int d = idx % DPAD;
     const int s = row0 + r;
-    dst[r * pitch + d] = (s < S && d < D) ? to_f32(base[s * st.s + d]) : 0.f;
+    dst[r * pitch + d] = (s < S && d < D) ? base[s * st.s + d] : 0.f;
   }
 }
 
@@ -148,7 +169,7 @@ __device__ __forceinline__ void store_tile(
 #pragma unroll
     for (int j = 0; j < T::kRD; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) put(o + d, acc[i][j]);
+      if (d < D) o[d] = acc[i][j];
     }
   }
 }
@@ -236,7 +257,7 @@ __global__ void __launch_bounds__(4 * BT)
       for (int j = 0; j < RS; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        Ps[r * PP + tx + 16 * j] = round_to<E>(p);  // PV takes v's dtype
+        Ps[r * PP + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + row_sum16(rs);
       m[i] = m_new;
@@ -357,8 +378,7 @@ __global__ void __launch_bounds__(4 * BT)
         const int col = k0 + tx + 16 * j;
         const bool ok = col < S && (!causal || col <= row);
         const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-        // ds K takes k's dtype
-        dSs[r * PP + tx + 16 * j] = round_to<E>(p * (dp[i][j] - Ds[r]) * scale);
+        dSs[r * PP + tx + 16 * j] = p * (dp[i][j] - Ds[r]) * scale;
       }
     }
     __syncthreads();
@@ -628,6 +648,727 @@ int dkv_any(const E* q, const E* k, const E* v, const E* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using ptt::cp_async16;
+using ptt::cp_async4;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
+using ptt::ldsm_x4;
+using ptt::mma_16816;
+using ptt::pack_bf16x2;
+
+constexpr int kThreads = 128;  // 4 warps
+
+// bf16 elements per shared row of a DPAD-wide tile: 16 bytes of padding
+// put the 8 rows of every ldmatrix in distinct banks.
+template <int DPAD>
+constexpr int kPitch = DPAD + 8;
+
+// Rows [row0, row0 + R) x columns [0, DPAD) of a (b, h) slice (`base`,
+// row stride `rs`) into `dst`, all 128 threads: 16-byte cp.async chunks
+// (kVec: base and rs 16-byte aligned, D % 8 == 0), or element loads and
+// stores.  Rows past S and columns past D are zero.
+template <int R, int DPAD, bool kVec>
+__device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
+                                          const bf16* __restrict__ base,
+                                          long long rs, int row0, int S,
+                                          int D) {
+  constexpr int P = kPitch<DPAD>, CH = DPAD / 8, RS = kThreads / CH;
+  static_assert(kThreads % CH == 0 && R % RS == 0, "tile shape");
+  // this thread's chunks: column c of rows r, r + RS, ...
+  const int r = threadIdx.x / CH, c = 8 * (threadIdx.x % CH);
+  const bf16* src = base + (row0 + r) * rs + c;
+  bf16* d = dst + r * P + c;
+#pragma unroll
+  for (int i = 0; i < R / RS; ++i, src += RS * rs, d += RS * P) {
+    const bool row_ok = row0 + r + RS * i < S;
+    if constexpr (kVec) {
+      const bool ok = row_ok && c < D;
+      cp_async16(d, ok ? src : base, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = row_ok && c + e < D ? src[e] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Entries [row0, row0 + R) of one (b*h) row of a float (BH, S) array.
+template <int R>
+__device__ __forceinline__ void load_vec(float* __restrict__ dst,
+                                         const float* __restrict__ src,
+                                         int row0, int S) {
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const bool ok = row0 + r < S;
+    cp_async4(dst + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// Rows [row0, row0 + R) of a shared tile to the contiguous (B, S, H, D)
+// output at (b, h), all 128 threads; rows past S and columns past D are
+// not stored.
+template <int R, int DPAD, bool kVec>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ dst,
+                                           const bf16* __restrict__ src,
+                                           int b, int h, int row0, int H,
+                                           int S, int D) {
+  constexpr int P = kPitch<DPAD>, CH = DPAD / 8;
+  for (int idx = threadIdx.x; idx < R * CH; idx += kThreads) {
+    const int r = idx / CH, c = 8 * (idx % CH), s = row0 + r;
+    if (s >= S || c >= D) continue;
+    bf16* o = dst + ((static_cast<long long>(b) * S + s) * H + h) * D + c;
+    const bf16* in = src + r * P + c;
+    if constexpr (kVec) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < D) o[e] = in[e];
+    }
+  }
+}
+
+// One warp's f32 accumulator rows (16 x 8N, m16n8 C fragments), the
+// lane's two rows divided by l0 and l1, rounded into rows [0, 16) and
+// columns [c0, c0 + 8N) of a shared tile.
+template <int N, int DPAD>
+__device__ __forceinline__ void put_rows(bf16* dst, const float (&acc)[N][4],
+                                         int c0, float l0 = 1.f,
+                                         float l1 = 1.f) {
+  constexpr int P = kPitch<DPAD>;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int c = c0 + 8 * n + 2 * t;
+    *reinterpret_cast<uint32_t*>(dst + g * P + c) =
+        pack_bf16x2(acc[n][0] / l0, acc[n][1] / l0);
+    *reinterpret_cast<uint32_t*>(dst + (g + 8) * P + c) =
+        pack_bf16x2(acc[n][2] / l1, acc[n][3] / l1);
+  }
+}
+
+// acc[i] (16 x 8N) += A_i (16 x 16K, fragments from rows [16 i, 16 i +
+// 16) of tile `a`) times B^T, B the rows [0, 8N) of tile `b` (both
+// row-major over the head dim): a QK^T-shaped product over the first 16K
+// head-dim columns, for MT row blocks that share each B fragment.
+template <int MT, int N, int K, int DPAD>
+__device__ __forceinline__ void mma_abt(float (&acc)[MT][N][4],
+                                        const bf16* __restrict__ a,
+                                        const bf16* __restrict__ b) {
+  constexpr int P = kPitch<DPAD>;
+  const int lane = threadIdx.x % 32, r8 = lane % 8, mq = lane / 8;
+#pragma unroll
+  for (int kd = 0; kd < K; ++kd) {
+    uint32_t fa[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4<false>(fa[i], a + (16 * i + r8 + 8 * (mq % 2)) * P + 16 * kd +
+                                8 * (mq / 2));
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      uint32_t fb[4];
+      ldsm_x4<false>(
+          fb, b + (8 * j + r8 + 8 * (mq / 2)) * P + 16 * kd + 8 * (mq % 2));
+      const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_16816(acc[i][j], fa[i], b0);
+        mma_16816(acc[i][j + 1], fa[i], b1);
+      }
+    }
+  }
+}
+
+// The same for one row block.
+template <int N, int K, int DPAD>
+__device__ __forceinline__ void mma_abt(float (&acc)[N][4],
+                                        const bf16* __restrict__ a,
+                                        const bf16* __restrict__ b) {
+  mma_abt<1, N, K, DPAD>(reinterpret_cast<float(&)[1][N][4]>(acc), a, b);
+}
+
+// The B fragments (n8 tiles 2 n2 and 2 n2 + 1) of rows [16 kk, 16 kk +
+// 16) x columns [c0 + 16 n2, + 16) of a row-major tile read as B[k][n]:
+// the PV-shaped product's right operand.
+template <int DPAD>
+__device__ __forceinline__ void ldsm_b_kn(uint32_t (&b0)[2], uint32_t (&b1)[2],
+                                          const bf16* __restrict__ tile,
+                                          int kk, int col) {
+  constexpr int P = kPitch<DPAD>;
+  const int lane = threadIdx.x % 32, r8 = lane % 8, mq = lane / 8;
+  uint32_t f[4];
+  ldsm_x4<true>(
+      f, tile + (16 * kk + r8 + 8 * (mq % 2)) * P + col + 8 * (mq / 2));
+  b0[0] = f[0];
+  b0[1] = f[1];
+  b1[0] = f[2];
+  b1[1] = f[3];
+}
+
+// The A fragment of k16 step kk of a 16-row score block held as m16n8 C
+// fragments s[2 kk] and s[2 kk + 1], rounded to bf16 (the product's
+// operand dtype): the scores never leave registers.
+template <int N>
+__device__ __forceinline__ void a_of(uint32_t (&a)[4], const float (&s)[N][4],
+                                     int kk) {
+  a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// The same fragment of unrounded float32 values as a split pair: hi =
+// bf16(x), lo = bf16(x - hi), so hi + lo is x to within 2^-16 |x| and two
+// products into one f32 accumulator take x unrounded (see the header).
+template <int N>
+__device__ __forceinline__ void a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&s)[N][4], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = s[2 * kk + i / 2][2 * (i % 2)];
+    const float x1 = s[2 * kk + i / 2][2 * (i % 2) + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16x2(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
+// Max and sum over the 4 lanes of a quad, which share a C-fragment row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// forward: a block owns 64 MT query rows (warp w rows 16 MT w .. 16 MT
+// (w + 1) - 1, MT m16 row blocks sharing each K and V fragment) and walks
+// BK-key tiles of K and V through a two-stage ring.
+template <int MT, int BK, int DPAD, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ out,
+                          float* __restrict__ lse, Strides sq, Strides sk,
+                          Strides sv, int H, int S, int D, float scale,
+                          int causal) {
+  constexpr int P = kPitch<DPAD>, NS = BK / 8, ND = DPAD / 8;
+  constexpr int WR = 16 * MT, BQ = 4 * WR;  // rows of a warp, of the block
+  extern __shared__ __align__(16) unsigned char flash_tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(flash_tc_smem);  // BQ x P
+  bf16* Ks = Qs + BQ * P;                              // 2 x BK x P
+  bf16* Vs = Ks + 2 * BK * P;                          // 2 x BK x P
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = WR * warp;  // the warp's first row in the block
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int nk = (S + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+
+  load_tile<BQ, DPAD, kVec>(Qs, qb, sq.s, q0, S, D);
+  load_tile<BK, DPAD, kVec>(Ks, kb, sk.s, 0, S, D);
+  load_tile<BK, DPAD, kVec>(Vs, vb, sv.s, 0, S, D);
+  cp_async_commit();
+
+  // row (i, r): the lane's row g + 8 r of m16 block i
+  float o[MT][ND][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[i][r] = kNegInf;
+      l[i][r] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const int k0 = kt * BK;
+    // tile kt has landed, and every warp is done with tile kt - 1, whose
+    // stage takes tile kt + 1 while tile kt's products run
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < kend) {
+      const int nst = (kt + 1) & 1;
+      load_tile<BK, DPAD, kVec>(Ks + nst * BK * P, kb, sk.s, k0 + BK, S, D);
+      load_tile<BK, DPAD, kVec>(Vs + nst * BK * P, vb, sv.s, k0 + BK, S, D);
+      cp_async_commit();
+    }
+    const bf16* Kt = Ks + (kt & 1) * BK * P;
+    const bf16* Vt = Vs + (kt & 1) * BK * P;
+    // a warp whose rows all precede the tile's keys has nothing to add
+    if (!causal || k0 <= q0 + wr + WR - 1) {
+      float s[MT][NS][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
+      mma_abt<MT, NS, DPAD / 16, DPAD>(s, Qs + wr * P, Kt);
+
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0 + wr);
+      uint32_t pa[MT][BK / 16][4];  // bf16(p) as the A fragments of p V
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float mx[2] = {m[i][0], m[i][1]};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = q0 + wr + 16 * i + g + 8 * (e / 2);
+            const bool ok = !edge || (col < S && (!causal || col <= row));
+            s[i][j][e] = ok ? s[i][j][e] * scale : kNegInf;
+            mx[e / 2] = fmaxf(mx[e / 2], s[i][j][e]);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = quad_max(mx[r]);
+          const float corr = expf(m[i][r] - mx[r]);
+          m[i][r] = mx[r];
+          l[i][r] *= corr;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            o[i][n][2 * r] *= corr;
+            o[i][n][2 * r + 1] *= corr;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // masked entries hold kNegInf: exp underflows to exactly 0
+            s[i][j][e] = expf(s[i][j][e] - m[i][e / 2]);
+            l[i][e / 2] += s[i][j][e];  // the unrounded p
+          }
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) a_of(pa[i][kk], s[i], kk);
+      }
+      // o += bf16(p) V
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t b0[2], b1[2];
+          ldsm_b_kn<DPAD>(b0, b1, Vt, kk, 16 * n2);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_16816(o[i][2 * n2], pa[i][kk], b0);
+            mma_16816(o[i][2 * n2 + 1], pa[i][kk], b1);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float li[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + 16 * i + g + 8 * r;
+      li[r] = quad_sum(l[i][r]);
+      li[r] = li[r] == 0.f ? 1.f : li[r];
+      if (t == 0 && row < S)
+        lse[static_cast<long long>(bh) * S + row] = m[i][r] + logf(li[r]);
+    }
+    put_rows<ND, DPAD>(Qs + (wr + 16 * i) * P, o[i], 0, li[0], li[1]);
+  }
+  __syncthreads();
+  store_tile<BQ, DPAD, kVec>(out, Qs, b, h, q0, H, S, D);
+}
+
+// dq: a block owns BQ = 64 query rows (warp w rows 16 w ..) and walks
+// BK-key tiles of K and V through a two-stage ring.
+template <int BQ, int BK, int DPAD, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, Strides sq, Strides sk,
+                         Strides sv, Strides sdo, int H, int S, int D,
+                         float scale, int causal) {
+  constexpr int P = kPitch<DPAD>, NS = BK / 8, ND = DPAD / 8;
+  extern __shared__ __align__(16) unsigned char flash_tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(flash_tc_smem);  // BQ x P
+  bf16* dOs = Qs + BQ * P;                             // BQ x P
+  bf16* Ks = dOs + BQ * P;                             // 2 x BK x P
+  bf16* Vs = Ks + 2 * BK * P;                          // 2 x BK x P
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const long long row_base = static_cast<long long>(bh) * S;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int nk = (S + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+
+  load_tile<BQ, DPAD, kVec>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+  load_tile<BQ, DPAD, kVec>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S,
+                            D);
+  load_tile<BK, DPAD, kVec>(Ks, kb, sk.s, 0, S, D);
+  load_tile<BK, DPAD, kVec>(Vs, vb, sv.s, 0, S, D);
+  cp_async_commit();
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lr[i] = row[i] < S ? lse[row_base + row[i]] : 0.f;
+    dr[i] = row[i] < S ? delta[row_base + row[i]] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const int k0 = kt * BK;
+    // tile kt has landed, and every warp is done with tile kt - 1, whose
+    // stage takes tile kt + 1 while tile kt's products run
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < kend) {
+      const int nst = (kt + 1) & 1;
+      load_tile<BK, DPAD, kVec>(Ks + nst * BK * P, kb, sk.s, k0 + BK, S, D);
+      load_tile<BK, DPAD, kVec>(Vs + nst * BK * P, vb, sv.s, k0 + BK, S, D);
+      cp_async_commit();
+    }
+    const bf16* Kt = Ks + (kt & 1) * BK * P;
+    const bf16* Vt = Vs + (kt & 1) * BK * P;
+    if (!causal || k0 <= q0 + wr + 15) {
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<NS, DPAD / 16, DPAD>(s, Qs + wr * P, Kt);
+      mma_abt<NS, DPAD / 16, DPAD>(dp, dOs + wr * P, Vt);
+
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0 + wr);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok =
+              !edge || (col < S && (!causal || col <= row[e / 2]));
+          const float p = ok ? expf(s[j][e] * scale - lr[e / 2]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dr[e / 2]) * scale;  // ds
+        }
+      // acc += bf16(ds) K
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        a_of(a, s, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t b0[2], b1[2];
+          ldsm_b_kn<DPAD>(b0, b1, Kt, kk, 16 * n2);
+          mma_16816(acc[2 * n2], a, b0);
+          mma_16816(acc[2 * n2 + 1], a, b1);
+        }
+      }
+    }
+  }
+
+  put_rows<ND, DPAD>(Qs + wr * P, acc, 0);  // the warp's own rows
+  __syncthreads();
+  store_tile<BQ, DPAD, kVec>(dq, Qs, b, h, q0, H, S, D);
+}
+
+// dk and dv: a block owns BKV key rows and walks BQ-query tiles of Q, dO,
+// lse and delta through a two-stage ring, QC queries at a time.  The 4
+// warps split the block's rows 16 apiece, and at D 256 also its head dim
+// in two halves of 128 (the two f32 accumulators of 16 rows x 256 would
+// not fit a thread's registers): warp w owns key rows 16 (w % RW) and
+// columns DW (w / RW) of dk and dv, and both warps of a row block form
+// the whole S^T and dP^T for it.
+template <int BKV, int BQ, int DPAD, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Strides sq, Strides sk, Strides sv, Strides sdo,
+                          int H, int S, int D, float scale, int causal) {
+  constexpr int P = kPitch<DPAD>;
+  constexpr int RW = BKV / 16;           // warps along the key rows
+  constexpr int DW = DPAD / (4 / RW);    // head-dim columns per warp
+  constexpr int QC = 32, NQ = QC / 8, NDW = DW / 8;
+  static_assert(RW * 16 == BKV && (4 / RW) * DW == DPAD && BQ % QC == 0,
+                "tile shape");
+  extern __shared__ __align__(16) unsigned char flash_tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(flash_tc_smem);  // BKV x P
+  bf16* Vs = Ks + BKV * P;                             // BKV x P
+  bf16* Qs = Vs + BKV * P;                             // 2 x BQ x P
+  bf16* dOs = Qs + 2 * BQ * P;                         // 2 x BQ x P
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * P);  // 2 x BQ
+  float* Ds = Ls + 2 * BQ;                                 // 2 x BQ
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BKV;  // causal: the low key tiles loop longest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * (warp % RW), dc = DW * (warp / RW);
+  const int krow[2] = {k0 + wr + g, k0 + wr + g + 8};
+  const long long row_base = static_cast<long long>(bh) * S;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* db = dout + b * sdo.b + h * sdo.h;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+
+  load_tile<BKV, DPAD, kVec>(Ks, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
+  load_tile<BKV, DPAD, kVec>(Vs, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
+  load_tile<BQ, DPAD, kVec>(Qs, qb, sq.s, qt0 * BQ, S, D);
+  load_tile<BQ, DPAD, kVec>(dOs, db, sdo.s, qt0 * BQ, S, D);
+  load_vec<BQ>(Ls, lse + row_base, qt0 * BQ, S);
+  load_vec<BQ>(Ds, delta + row_base, qt0 * BQ, S);
+  cp_async_commit();
+
+  float adk[NDW][4], adv[NDW][4];
+#pragma unroll
+  for (int n = 0; n < NDW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * BQ, st = (qt - qt0) & 1;
+    cp_async_wait<0>();  // as in the forward's ring
+    __syncthreads();
+    if (qt + 1 < nq) {
+      const int n0 = q0 + BQ, nst = st ^ 1;
+      load_tile<BQ, DPAD, kVec>(Qs + nst * BQ * P, qb, sq.s, n0, S, D);
+      load_tile<BQ, DPAD, kVec>(dOs + nst * BQ * P, db, sdo.s, n0, S, D);
+      load_vec<BQ>(Ls + nst * BQ, lse + row_base, n0, S);
+      load_vec<BQ>(Ds + nst * BQ, delta + row_base, n0, S);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += QC) {
+      const int qc0 = q0 + c0;  // this chunk's first query
+      // past S, or every query of the chunk precedes the warp's keys
+      if (qc0 >= S || (causal && qc0 + QC - 1 < k0 + wr)) continue;
+      const bf16* Qc = Qs + st * BQ * P + c0 * P;
+      const bf16* dOc = dOs + st * BQ * P + c0 * P;
+      const float* Lc = Ls + st * BQ + c0;
+      const float* Dc = Ds + st * BQ + c0;
+      // S^T = K Q^T and dP^T = V dO^T, key rows x query columns
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<NQ, DPAD / 16, DPAD>(s, Ks + wr * P, Qc);
+      mma_abt<NQ, DPAD / 16, DPAD>(dp, Vs + wr * P, dOc);
+
+      const bool edge = qc0 + QC > S || (causal && qc0 < k0 + wr + 15);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qcol = 8 * j + 2 * t + (e & 1);
+          const int qrow = qc0 + qcol;
+          const bool ok =
+              !edge || (qrow < S && (!causal || qrow >= krow[e / 2]));
+          const float p = ok ? expf(s[j][e] * scale - Lc[qcol]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Dc[qcol]) * scale;  // ds
+        }
+      // dv += p^T dO and dk += ds^T Q, p and ds unrounded: split pairs
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        a_split(hi, lo, s, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < NDW / 2; ++n2) {
+          uint32_t b0[2], b1[2];
+          ldsm_b_kn<DPAD>(b0, b1, dOc, kk, dc + 16 * n2);
+          mma_16816(adv[2 * n2], hi, b0);
+          mma_16816(adv[2 * n2], lo, b0);
+          mma_16816(adv[2 * n2 + 1], hi, b1);
+          mma_16816(adv[2 * n2 + 1], lo, b1);
+        }
+        a_split(hi, lo, dp, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < NDW / 2; ++n2) {
+          uint32_t b0[2], b1[2];
+          ldsm_b_kn<DPAD>(b0, b1, Qc, kk, dc + 16 * n2);
+          mma_16816(adk[2 * n2], hi, b0);
+          mma_16816(adk[2 * n2], lo, b0);
+          mma_16816(adk[2 * n2 + 1], hi, b1);
+          mma_16816(adk[2 * n2 + 1], lo, b1);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // the partner warp of a row block still reads K, V
+  put_rows<NDW, DPAD>(Ks + wr * P, adk, dc);
+  put_rows<NDW, DPAD>(Vs + wr * P, adv, dc);
+  __syncthreads();
+  store_tile<BKV, DPAD, kVec>(dk, Ks, b, h, k0, H, S, D);
+  store_tile<BKV, DPAD, kVec>(dv, Vs, b, h, k0, H, S, D);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 launches
+// ---------------------------------------------------------------------------
+
+// Whether every tensor allows the 16-byte path: D % 8 == 0 and each base
+// pointer and element stride 16-byte aligned (8 bf16).
+inline bool vec_ok(int D, std::initializer_list<const void*> ptrs,
+                   std::initializer_list<Strides> strides) {
+  if (D % 8) return false;
+  for (const void* p : ptrs)
+    if (!ptt::aligned16(p)) return false;
+  for (const Strides& s : strides)
+    if (s.b % 8 || s.s % 8 || s.h % 8) return false;
+  return true;
+}
+
+template <class Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <int MT, int BK, int DPAD, bool kVec>
+int fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+        int B, int H, int S, int D, Strides sq, Strides sk, Strides sv,
+        float scale, int causal, cudaStream_t stream) {
+  constexpr int BQ = 64 * MT;
+  constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * kPitch<DPAD>;
+  auto kernel = flash_fwd_bf16_kernel<MT, BK, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BQ - 1) / BQ), kThreads, smem, stream>>>(
+      q, k, v, out, lse, sq, sk, sv, H, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BQ, int BK, int DPAD, bool kVec>
+int dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+       const float* lse, const float* delta, bf16* dqo, int B, int H, int S,
+       int D, Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
+       int causal, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(bf16) * (2 * BQ + 4 * BK) * kPitch<DPAD>;
+  auto kernel = flash_dq_bf16_kernel<BQ, BK, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BQ - 1) / BQ), kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dqo, sq, sk, sv, sdo, H, S, D, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BKV, int BQ, int DPAD, bool kVec>
+int dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+        const float* lse, const float* delta, bf16* dko, bf16* dvo, int B,
+        int H, int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+        float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(bf16) * (2 * BKV + 4 * BQ) * kPitch<DPAD> +
+                          sizeof(float) * 4 * BQ;
+  auto kernel = flash_dkv_bf16_kernel<BKV, BQ, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BKV - 1) / BKV), kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dko, dvo, sq, sk, sv, sdo, H, S, D, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles for a padded head dim: 64-key tiles to D 128 and 32 to D 256
+// (key_tile() in kernels/flash_attention.py names the forward's: the
+// rounded p depends on it); the forward's m16 row blocks a warp (2, then
+// 1); dq's 64 query rows; dk/dv's key rows a block and queries a tile.
+constexpr int key_tile(int dpad) { return dpad <= 128 ? 64 : 32; }
+constexpr int fwd_row_blocks(int dpad) { return dpad <= 128 ? 2 : 1; }
+constexpr int kDqRows = 64;
+
+// f(DPAD, kVec) for the smallest padded head dim of 64, 128 or 256 that
+// holds D, as compile-time constants; kVec picks the 16-byte cp.async
+// loads and stores, else the element-wise variant of the same kernel.
+template <class F>
+int by_head_dim(int D, bool vec, F&& f) {
+  using Vec = std::true_type;
+  using Elem = std::false_type;
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  using D256 = std::integral_constant<int, 256>;
+  if (D <= 64) return vec ? f(D64{}, Vec{}) : f(D64{}, Elem{});
+  if (D <= 128) return vec ? f(D128{}, Vec{}) : f(D128{}, Elem{});
+  if (D <= 256) return vec ? f(D256{}, Vec{}) : f(D256{}, Elem{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int fwd_any(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+            float* lse, int B, int H, int S, int D, Strides sq, Strides sk,
+            Strides sv, float scale, int causal, cudaStream_t stream) {
+  const bool vec = vec_ok(D, {q, k, v, out}, {sq, sk, sv});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    constexpr bool V = decltype(kvec)::value;
+    return fwd<fwd_row_blocks(DP), key_tile(DP), DP, V>(
+        q, k, v, out, lse, B, H, S, D, sq, sk, sv, scale, causal, stream);
+  });
+}
+
+int dq_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+           const float* lse, const float* delta, bf16* dqo, int B, int H,
+           int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+           float scale, int causal, cudaStream_t stream) {
+  const bool vec = vec_ok(D, {q, k, v, dout, dqo}, {sq, sk, sv, sdo});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    return dq<kDqRows, key_tile(DP), DP, decltype(kvec)::value>(
+        q, k, v, dout, lse, delta, dqo, B, H, S, D, sq, sk, sv, sdo, scale,
+        causal, stream);
+  });
+}
+
+int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+            const float* lse, const float* delta, bf16* dko, bf16* dvo,
+            int B, int H, int S, int D, Strides sq, Strides sk, Strides sv,
+            Strides sdo, float scale, int causal, cudaStream_t stream) {
+  const bool vec = vec_ok(D, {q, k, v, dout, dko, dvo}, {sq, sk, sv, sdo});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    return dkv<key_tile(DP), key_tile(DP), DP, decltype(kvec)::value>(
+        q, k, v, dout, lse, delta, dko, dvo, B, H, S, D, sq, sk, sv, sdo,
+        scale, causal, stream);
+  });
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Each entry launches on `stream` and returns the CUDA error of the
@@ -636,14 +1377,14 @@ int dkv_any(const E* q, const E* k, const E* v, const E* dout,
 // contiguous head dim; out, dq, dk and dv are contiguous (B, S, H, D);
 // lse and delta are contiguous (B*H, S) float32.  The _f32 entries take
 // float32 tensors, the _bf16 entries bf16 ones.
-#define PTT_FLASH_ENTRIES(SUFFIX, E)                                          \
+#define PTT_FLASH_ENTRIES(SUFFIX, E, FWD, DQ, DKV)                            \
   PTT_EXPORT int ptt_flash_fwd_##SUFFIX(                                      \
       const E* q, const E* k, const E* v, E* out, float* lse, int B, int H,   \
       int S, int D, long long q_sb, long long q_ss, long long q_sh,           \
       long long k_sb, long long k_ss, long long k_sh, long long v_sb,         \
       long long v_ss, long long v_sh, float scale, int causal,                \
       cudaStream_t stream) {                                                  \
-    return fwd_any<E>(q, k, v, out, lse, B, H, S, D, {q_sb, q_ss, q_sh},      \
+    return FWD(q, k, v, out, lse, B, H, S, D, {q_sb, q_ss, q_sh},             \
                       {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, scale, causal,  \
                       stream);                                                \
   }                                                                           \
@@ -654,7 +1395,7 @@ int dkv_any(const E* q, const E* k, const E* v, const E* dout,
       long long k_sh, long long v_sb, long long v_ss, long long v_sh,         \
       long long do_sb, long long do_ss, long long do_sh, float scale,         \
       int causal, cudaStream_t stream) {                                      \
-    return dq_any<E>(q, k, v, dout, lse, delta, dqo, B, H, S, D,              \
+    return DQ(q, k, v, dout, lse, delta, dqo, B, H, S, D,                     \
                      {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                  \
                      {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,        \
                      causal, stream);                                         \
@@ -666,11 +1407,11 @@ int dkv_any(const E* q, const E* k, const E* v, const E* dout,
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,         \
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,      \
       float scale, int causal, cudaStream_t stream) {                         \
-    return dkv_any<E>(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D,        \
+    return DKV(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D,               \
                       {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                 \
                       {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,       \
                       causal, stream);                                        \
   }
 
-PTT_FLASH_ENTRIES(f32, float)
-PTT_FLASH_ENTRIES(bf16, bf16)
+PTT_FLASH_ENTRIES(f32, float, fwd_any<float>, dq_any<float>, dkv_any<float>)
+PTT_FLASH_ENTRIES(bf16, bf16, tc::fwd_any, tc::dq_any, tc::dkv_any)

@@ -46,6 +46,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ptt {
 
@@ -176,35 +177,6 @@ constexpr int kHK = 32;         // K step
 constexpr int kLdA = kHK + 8;   // As[m][k] row: 40 bf16 (80 bytes)
 constexpr int kLdAT = kHM + 8;  // AsT[k][m] row: 136 bf16 (272 bytes)
 constexpr int kLdB = kHN + 8;   // Bs[k][n] row: 72 bf16 (144 bytes)
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address
-// of row l % 8 of matrix l / 8; register i gets matrix i's (row l / 4,
-// columns 2 (l % 4), 2 (l % 4) + 1), or with kTrans its transpose's.
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  }
-}
 
 // 8 bf16 values (as their bits), the unit every bf16 slab is loaded and
 // stored in.
@@ -434,11 +406,6 @@ inline dim3 gemm_grid(int M, int N) {
 }
 inline dim3 gemm_grid_bf16(int M, int N) {
   return dim3((M + kHM - 1) / kHM, (N + kHN - 1) / kHN);
-}
-
-// Whether a pointer allows the 16-byte vector path.
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace ptt

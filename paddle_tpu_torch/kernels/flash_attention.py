@@ -20,11 +20,17 @@ head merge after attention is a free reshape.  lse and delta are
 
 Each kernel has a float32 and a bf16 instance (``ptt_flash_*_f32`` and
 ``ptt_flash_*_bf16``), picked by the dtype of q, k, v (and do), which
-must be one; lse and delta are float32 in both.  The bf16 instances, and
-the plain versions on bf16 inputs, round where the TPU kernel rounds on
-bf16 inputs: p to v's dtype before the PV product (``:130-132``), ds to
+must be one; lse and delta are float32 in both.  The float32 instances
+are SIMT kernels (``fmaf`` on f32 tiles).  The bf16 instances run every
+product on the tensor cores (``mma.sync`` bf16 with f32 sums, bf16 tiles
+fed by a two-stage ``cp.async`` ring) and, like the plain versions on
+bf16 inputs, round where the TPU kernel rounds on bf16 inputs and
+nowhere else: p to v's dtype before the PV product (``:130-132``), ds to
 k's dtype before ds K (``:222-224``), nothing in dk/dv (``:258-269``)
-until its outputs are written; everything else is float32.
+until its outputs are written -- there p and ds enter their products
+unrounded, as a split pair of bf16 terms each.  Everything else is
+float32.  q, k and v whose base pointers or strides are not 16-byte
+aligned take the same kernels with element-wise loads.
 
 Every kernel is bound by operations on the H100 (two to four S x S x D
 products against 5-6 reads of an S x D tile); ``csrc/flash_attention.cu``
@@ -144,8 +150,10 @@ def _rounded(x, dtype):
 
 
 def key_tile(d: int) -> int:
-    """The key tile of the CUDA kernels for head dim ``d``: the rows of
-    each key block the forward walks with its running maximum."""
+    """The key tile of the CUDA forward for head dim ``d``, in both
+    instances: the rows of each key block it walks with its running
+    maximum (in bf16 part of the function, since p is rounded against
+    that maximum)."""
     return 64 if d <= 128 else 32
 
 

@@ -31,8 +31,10 @@ generation request the session refuses (with its ``reason``:
 other failure.  Requests coalesce into power-of-two buckets
 (``batching.py``) and run on replica workers (``replica.py``) on
 ``CUDAPlace(0)`` unless ``place`` says otherwise; the generation engine
-runs on its model's place.  Tenants, ``/metrics`` and ``/stats`` are not
-ported yet.
+runs on its model's place.  Both endpoints take a tenant id (the
+``"tenant"`` key or the ``X-Tenant`` header) and admit every request, as
+the reference does without a ``--tenants`` spec; quotas, ``/metrics``
+and ``/stats`` are not ported yet.
 
 Launch: ``python -m paddle_tpu_torch.serving --model_dir=DIR --port=N``,
 or ``--gen_config=SCRIPT`` for ``/generate``.
@@ -57,6 +59,16 @@ from paddle_tpu_torch.serving.replica import ModelBundle, Replica, ReplicaPool
 
 _GENERATE_KEYS = frozenset({"src", "max_new_tokens", "stream", "beam",
                             "temperature", "top_k", "seed"})
+
+
+
+def _drop_tenant(payload: dict) -> None:
+    """Take the ``"tenant"`` key out of a request body.  The reference
+    admits a request under its tenant's quota (this key, or the
+    ``X-Tenant`` header), and without a ``--tenants`` spec every tenant
+    is unmetered; quotas are not ported, so every request is admitted."""
+    payload.pop("tenant", None)
+
 
 __all__ = ["BatchSpec", "InferenceServer", "ModelBundle", "PendingRequest",
            "Replica", "ReplicaPool", "RequestQueue", "bucket_ladder",
@@ -159,6 +171,7 @@ class InferenceServer:
                     payload = json.loads(raw_body or b"{}")
                     if not isinstance(payload, dict):
                         raise ValueError("request body must be a JSON object")
+                    _drop_tenant(payload)
                     deadline = (time.monotonic() + server._request_timeout
                                 if server._request_timeout else None)
                     outs = server.predict(payload, deadline=deadline)
@@ -193,6 +206,7 @@ class InferenceServer:
                     if not isinstance(payload, dict):
                         raise ValueError(
                             "request body must be a JSON object")
+                    _drop_tenant(payload)
                     src = payload.get("src")
                     if (not isinstance(src, list) or not src
                             or not all(isinstance(t, int) for t in src)):
@@ -203,7 +217,7 @@ class InferenceServer:
                         raise ValueError(
                             f"unknown payload key {sorted(unknown)[0]!r}; "
                             "expected src / max_new_tokens / stream / "
-                            "beam / temperature / top_k / seed")
+                            "beam / temperature / top_k / seed / tenant")
                     budget = payload.get("max_new_tokens")
                     beam = payload.get("beam")
                     deadline = (time.monotonic() + server._request_timeout

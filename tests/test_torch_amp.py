@@ -269,7 +269,8 @@ def test_conv_bn_stats_plain_matches_pallas_kernel(rng, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("bh,s,d", [(2, 128, 64), (3, 256, 32)])
+@pytest.mark.parametrize("bh,s,d", [(2, 128, 64), (3, 256, 32),
+                                    (1, 256, 128)])
 def test_flash_bf16_plain_matches_pallas_kernels(rng, bh, s, d, causal):
     """The bf16 forward against ``_flash_fwd_impl`` (out bf16: p rounded
     to bf16 before PV; lse f32), then dq, dk and dv against

@@ -878,7 +878,11 @@ def test_bf16_wrappers_refuse_what_they_do_not_take(dev):
 
 
 BF16_FLASH_SHAPES = [(2, 100, 3, d) for d in (64, 72, 128)] + [
-    (1, 1024, 2, d) for d in (64, 72, 128)]
+    (1, 1024, 2, d) for d in (64, 72, 128)] + [
+    # D 256 (the gate's largest: 32-key tiles, the head dim split between
+    # dk/dv warps) at an S that no tile divides; B*H = 1, far below one
+    # wave of 132 SMs, at an S no 64-row tile divides
+    (2, 77, 2, 256), (1, 333, 2, 256), (1, 1000, 1, 128)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -910,6 +914,46 @@ def test_flash_attention_bf16_kernels_match_plain(dev, b, s, h, d, causal):
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
     want = kfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
     for got, ref in zip(grads, want):
+        _close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("d", [24, 128, 256])
+def test_flash_attention_bf16_unaligned_views_take_the_element_loads(dev, d):
+    """q, k, v and do as views of buffers one element in (base pointers
+    off 16-byte alignment): the launchers pick the element-wise load and
+    store variant of the same kernels, counted as bf16 launches, with out,
+    lse and the gradients bit for bit those of 16-byte aligned copies of
+    the same values (the same products in the same order), and within
+    the bf16 tolerance of the plain versions."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(39)
+    b, s, h = 2, 150, 2
+    bufs = [_bf16(g, 1 + b * s * n, device=dev) for n in (3 * h * d, h * d)]
+    qkv = bufs[0][1:].view(b, s, 3 * h * d)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    do = bufs[1][1:].view(b, s, h, d)
+    assert all(t.data_ptr() % 16 for t in (q, k, v, do))
+    before = (kfa.launches_bf16, kfa.dq_launches_bf16, kfa.dkv_launches_bf16)
+    out, lse = kfa.flash_attention_fwd(q, k, v, True)
+    grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    assert (kfa.launches_bf16, kfa.dq_launches_bf16,
+            kfa.dkv_launches_bf16) == tuple(x + 1 for x in before)
+    aligned = [t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v, do)]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    want_out, want_lse = kfa.flash_attention_fwd(*aligned[:3], True)
+    want = kfa.flash_attention_bwd(*aligned[:3], out, lse, aligned[3], True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    for got, ref in zip(grads, want):
+        assert torch.equal(got, ref)
+    pout, plse = kfa.flash_attention_fwd_plain(q, k, v, True,
+                                               tile=kfa.key_tile(d))
+    _close_bf16(out, pout)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    for got, ref in zip(grads, kfa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True)):
         _close_bf16(got, ref)
 
 
@@ -948,19 +992,16 @@ def test_lstm_bf16_kernel_matches_plain(dev, b, t, h):
         torch.bfloat16]
 
 
-def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
-    """Launch the bf16 flash forward, dq, dk/dv and LSTM symbols straight
-    into outputs with NaN guard regions on both sides, at ragged shapes
-    (S 100, D 72; B 5, T 7, H 100): the guards stay NaN, the outputs are
-    finite and match the wrappers' outputs."""
+def _flash_bf16_into_guards(dev, g, b, s, h, d, pad):
+    """The bf16 flash forward, dq and dk/dv symbols launched straight into
+    outputs with ``pad`` NaN guard elements on both sides (an odd pad
+    leaves them off 16-byte alignment: the element-store variant), and
+    the wrappers' outputs for the same inputs; [(guard buffer, view)],
+    the launched (out, lse, dq, dk, dv) and the wanted ones."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as kfa
-    from paddle_tpu_torch.kernels import lstm as klstm
 
-    g = torch.Generator().manual_seed(38)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf = torch.bfloat16
-    b, s, h, d = 2, 100, 3, 72
     q, k, v, do = (_bf16(g, b, s, h, d, device=dev) for _ in range(4))
     want_out, want_lse = kfa.flash_attention_fwd(q, k, v, True)
     want = kfa.flash_attention_bwd(q, k, v, want_out, want_lse, do, True)
@@ -968,7 +1009,8 @@ def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
         b * h, s).contiguous()
     strides = [t.stride()[:3] for t in (q, k, v, do)]
     lib = _build.load("flash_attention", kfa._SIGNATURES)
-    bufs = [_guarded((b, s, h, d), bf, dev) for _ in range(4)]
+    bufs = [_guarded((b, s, h, d), torch.bfloat16, dev, pad)
+            for _ in range(4)]
     lse_buf = _guarded((b * h, s), torch.float32, dev)
     out, dq, dk, dv = (view for _, view in bufs)
     lse = lse_buf[1]
@@ -986,6 +1028,32 @@ def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         want_lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *common, scale, 1, stream), "dkv")
+    return (bufs + [lse_buf], (out, lse, dq, dk, dv),
+            (want_out, want_lse) + tuple(want))
+
+
+def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
+    """Launch the bf16 flash forward, dq, dk/dv and LSTM symbols straight
+    into outputs with NaN guard regions on both sides, at ragged shapes:
+    flash at S 100 and every launcher variant (D 24, 72 and 256: padded
+    head dims 64, 128 and 256; outputs 16-byte aligned, and one element
+    off, which takes the element-store variant), the LSTM at B 5, T 7, H
+    100.  The guards stay NaN, the outputs are finite and match the
+    wrappers' outputs bit for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(38)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf = torch.bfloat16
+    bufs, launched, wanted = [], [], []
+    for d in (24, 72, 256):
+        for pad in (4096, 4097):
+            more, got, want = _flash_bf16_into_guards(dev, g, 2, 100, 3, d,
+                                                      pad)
+            bufs += more
+            launched += got
+            wanted += want
 
     lb, lt, lh = 5, 7, 100
     xp = _bf16(g, lb, lt, 4 * lh, scale=0.5, device=dev)
@@ -1007,12 +1075,12 @@ def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
         "lstm")
     torch.cuda.synchronize()
 
-    for buf, view in bufs + [lse_buf] + seq_bufs:
+    for buf, view in bufs + seq_bufs:
         guard = torch.cat([buf[:4096], buf[-4096:]])
         assert bool(torch.isnan(guard).all())
         assert bool(torch.isfinite(view).all())
-    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
-    for got, ref in zip((dq, dk, dv) + (hs, cs, gates), want + want_seq):
+    for got, ref in zip(launched + [hs, cs, gates],
+                        wanted + list(want_seq)):
         assert torch.equal(got, ref)
 
 

@@ -289,6 +289,80 @@ def test_inference_server_deadline_and_overload(tmp_path, rng):
         srv.stop()
 
 
+def _request(base, path, payload, tenant=None):
+    """(status, parsed body) of one POST; streamed ndjson as a list."""
+    headers = {"Content-Type": "application/json"}
+    if tenant is not None:
+        headers["X-Tenant"] = tenant
+    req = urllib.request.Request(f"{base}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    lines = [json.loads(x) for x in body.splitlines() if x.strip()]
+    return code, lines[0] if len(lines) == 1 else lines
+
+
+def test_tenant_key_and_header_answer_as_the_reference(tmp_path, rng):
+    """``/predict`` and ``/generate`` requests carrying a ``"tenant"`` key,
+    an ``X-Tenant`` header or both get the reference server's status and
+    body (the reference without ``--tenants`` admits every tenant):
+    outputs within 1e-5, generated ids and error replies equal."""
+    from paddle_tpu.decode.engine import GenerationEngine as JaxEngine
+    from paddle_tpu.decode.model import TinyDecoderLM as JaxLM
+    from paddle_tpu.serving import InferenceServer as JaxServer
+    from paddle_tpu_torch.decode.engine import GenerationEngine
+    from paddle_tpu_torch.decode.model import TinyDecoderLM
+
+    d, _, _, _ = _small_export(tmp_path)
+    jm = JaxLM(seed=3, num_pages=32)
+    pm = TinyDecoderLM(vocab=jm.vocab, d_model=jm.d, num_heads=jm.heads,
+                       num_layers=jm.layers, max_len=jm.max_len,
+                       num_pages=jm.allocator.num_pages,
+                       page_size=jm.page_size,
+                       pages_per_seq=jm.pages_per_seq, place=pt.CPUPlace(),
+                       params=jax.tree_util.tree_map(np.asarray, jm.params))
+    servers = [JaxServer(d, generator=JaxEngine(jm, max_slots=2,
+                                                max_new_tokens=4)),
+               InferenceServer(d, place=pt.CPUPlace(),
+                               generator=GenerationEngine(
+                                   pm, max_slots=2, max_new_tokens=4))]
+    xs = rng.randn(3, 6).astype(np.float32).tolist()
+    src = [2, 3, 4, 5, 6]
+    requests = [
+        ("/predict", {"x": xs, "tenant": "A"}, "B"),
+        ("/predict", {"x": xs}, "B"),
+        ("/predict", {"x": xs, "tenant": ""}, None),
+        ("/predict", {"x": xs, "tenant": "A", "y": [1]}, "B"),
+        ("/generate", {"src": src, "stream": False, "tenant": "A"}, "B"),
+        ("/generate", {"src": src, "tenant": "B"}, None),
+        ("/generate", {"src": src, "stream": False}, "A"),
+        ("/generate", {"src": [1], "tenant": "A", "nucleus": 2}, "A"),
+    ]
+    try:
+        for path, payload, tenant in requests:
+            (jcode, want), (pcode, got) = (
+                _request(f"http://{s.address}", path, dict(payload), tenant)
+                for s in servers)
+            assert pcode == jcode, (path, payload, got, want)
+            if path == "/predict" and jcode == 200:
+                np.testing.assert_allclose(got["outputs"][0],
+                                           want["outputs"][0],
+                                           rtol=1e-5, atol=1e-5)
+            elif path == "/generate":
+                assert got == want, (payload, got, want)
+        assert [c for c, _ in (_request(f"http://{servers[1].address}", p,
+                                        dict(b), t)
+                               for p, b, t in requests)] == [
+            200, 200, 200, 400, 200, 200, 200, 400]
+    finally:
+        for s in servers:
+            s.stop()
+
+
 def test_entry_points_default_to_the_card(tmp_path):
     d, _, _, _ = _small_export(tmp_path)
     if torch.cuda.is_available():
