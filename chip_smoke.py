@@ -14,7 +14,10 @@ seconds):
 
 1. The card (name, power limit), torch/CUDA/nvcc versions, and the
    kernels' build from ``paddle_tpu_torch/csrc`` with nvcc, one process
-   per source, all started together.
+   per source, all started together; each kernel's ``ptxas -v`` lines
+   (and any ptxas warning), and the bf16 wgmma engine's instances as the
+   card reports them (registers, spills, static and dynamic shared
+   memory).
 2. Each kernel against its plain version on the card, TF32 off, with
    medians of CUDA-event timings of the kernel, the plain version and
    the one PyTorch call that computes the same function, beside the
@@ -42,7 +45,13 @@ seconds):
    transformer's five shapes (torch.matmul in bf16), the bf16 LSTM at
    T 100, B 64, H 256 and T 7, B 5, H 100 (torch.nn.LSTM in bf16 on
    cuDNN), each within BF16_RTOL / BF16_ATOL, bound at 989 TFLOP/s bf16
-   (the LSTM's f32 recurrence at 67).
+   (the LSTM's f32 recurrence at 67).  Where the bf16 matmul and conv
+   run on the wgmma engine (csrc/wgmma_gemm.cuh: the transformer's
+   products, every ResNet-50 conv forward and backward-input), the
+   mma.sync tile it replaced is held to the same plain result and timed
+   beside it at each shape (``mma_sync_ms`` in the kernels line); the
+   LSTM classifier's three products are checked in bf16 too, each on
+   the engine the rule picks.
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -95,7 +104,9 @@ seconds):
 6c. The AMP step at batch 256: the counters must show the bf16
    instances the program implies (conv forward 46, backward-input 46,
    filter gradient 46, BN forward 53, BN backward 53, matmul 1) and 1
-   float32 softmax, no float32 conv, BN or matmul launch; images/s over
+   float32 softmax, no float32 conv, BN or matmul launch, and every bf16
+   conv forward and backward-input launch on the wgmma engine (46, 46;
+   the fc's 256 rows on the mma.sync tile); images/s over
    5 timed steps after 2 warm-up steps beside the f32 step's, peak
    memory, one profiled step.
 7. LeNet-5 with Adam trains on the card to accuracy > 0.9 on the seeded
@@ -122,8 +133,9 @@ seconds):
     CPU's own bf16 effect on it; every op on identical inputs within
     AMP_OP_TOL.
 10b. The transformer AMP step at B 8, S 1024: launches bf16 flash
-    forward 4, dq 4, dk/dv 4, bf16 matmul 17 and no f32 flash or matmul
-    launch; tokens/s beside phase 9's f32 step, peak memory; then one
+    forward 4, dq 4, dk/dv 4, bf16 matmul 17, all 17 on the wgmma
+    engine, and no f32 flash or matmul launch; tokens/s beside phase 9's
+    f32 step, peak memory; then one
     profiled step of each, f32 and AMP, in a fresh process
     (PROFILE_TF), the device time split into the flash kernels, the
     matmul kernel, the mul backward products and the rest, failing if
@@ -142,9 +154,11 @@ seconds):
 13. A small LSTM classifier (T 20, emb 32, hidden 64, Adam(1e-2)) learns
     whether token 0 occurs: held-out accuracy above SEQ_CONVERGE_ACC.
 13a. The LSTM classifier under AMP: parity at B 2 (amp_step_parity);
-    the step at B 64, T 100 with launches bf16 lstm 2, bf16 matmul 3,
-    f32 softmax 1 and no f32 lstm or matmul launch, samples/s beside
-    phase 12's; the small classifier of phase 13 learns under AMP.
+    the step at B 64, T 100 with launches bf16 lstm 2, bf16 matmul 3
+    (the engine of each logged: the two 6,400-row projections on wgmma,
+    the 64-row head on the mma.sync tile), f32 softmax 1 and no f32 lstm
+    or matmul launch, samples/s beside phase 12's; the small classifier
+    of phase 13 learns under AMP.
 14. LoD classifier parity: LoD ids of 64 sequences with seeded lengths
     in 1-100 -> embedding([30000, 512]) -> fc(256, tanh) ->
     sequence_pool(average) -> fc(2, softmax), Momentum(0.01, 0.9): card
@@ -184,7 +198,9 @@ seconds):
 21. (F) One profiled decode step at 16 slots in a fresh process
     (``chip_smoke.py --profile-decode-step``): idle share, top kernels,
     the cost of the logits' copy to the host.
-22. The kernels line, the card's name and power limit, and the result.
+22. The kernels line (for the bf16 matmul, conv forward and
+    backward-input also ``launches_wgmma``, its count by path and
+    ``mma_sync_ms``), the card's name and power limit, and the result.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -498,6 +514,17 @@ def counters():
                 lstm_bf16=klstm.launches_bf16)
 
 
+def wgmma_counters():
+    """The bf16 launches that ran on the wgmma engine (they count in the
+    bf16 counters of ``counters()`` too)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    return dict(matmul_bf16=kmatmul.launches_bf16_wgmma,
+                conv2d_nhwc_bf16=kconv.launches_bf16_wgmma,
+                conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma)
+
+
 def zero_counters():
     from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
@@ -512,6 +539,8 @@ def zero_counters():
     kconv.launches_bf16 = kconv.bwd_input_launches_bf16 = 0
     kconv.dw_launches_bf16 = 0
     kconv.stats_launches = kconv.stats_launches_bf16 = 0
+    kconv.launches_bf16_wgmma = kconv.bwd_input_launches_bf16_wgmma = 0
+    kmatmul.launches_bf16_wgmma = 0
     kbn.launches = kbn.bwd_launches = 0
     kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
     kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
@@ -900,6 +929,18 @@ def check_bf16(name, got, want):
     return err
 
 
+def _old_tile(what, want, ms, flops, launch_tile, engine):
+    """The mma.sync tile beside the kernel the wrapper launched (``engine``)
+    at one shape: held against the same plain result, timed alone;
+    returns its ms."""
+    err = check_bf16(f"{what} (mma.sync tile)", launch_tile(), want)
+    tile = time_ms(launch_tile, reps=5)
+    log(f"    {engine} engine {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
+        f"the mma.sync tile {tile:.4f} ms ({flops / tile / 1e9:.1f} "
+        f"TFLOP/s, max err {err:.2e}): {tile / ms:.2f}x")
+    return tile
+
+
 def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
     """The AMP step's bf16 instances at every distinct shape the ResNet-50
     step at batch 256 gives them, and the fused conv + BN statistics at
@@ -916,6 +957,8 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
     sums = {k: _Sum(PEAK_BF16_FLOPS) for k in (
         "conv2d_nhwc_bf16", "conv_bwd_input_bf16", "conv_dw_bf16",
         "batch_norm_fwd_bf16", "batch_norm_bwd_bf16")}
+    # the same launches on the mma.sync tile, for the wgmma engine's gain
+    tile_ms = dict(conv2d_nhwc_bf16=0.0, conv_bwd_input_bf16=0.0)
     log(f"bf16 conv kernels of the AMP step at batch {TRAIN_BATCH} (fwd: "
         "F.conv2d on channels-last bf16; bwd-input: conv2d_input; filter "
         "grad: conv2d_weight; bound at 989 TFLOP/s bf16), per call:")
@@ -931,18 +974,23 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
         nbytes = 2.0 * (n * h * w * c + k * k * c * o + n * h * w * o)
         tag = f"N{n} {h}x{w} {c}->{o} k{k}"
 
+        want = kconv.conv2d_nhwc_plain(x, wt, p)
         err = check_bf16(f"bf16 conv {tag}", kconv.conv2d_nhwc(x, wt, p),
-                         kconv.conv2d_nhwc_plain(x, wt, p))
+                         want)
         times = (time_ms(lambda: kconv.conv2d_nhwc(x, wt, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_plain(x, wt, p), reps=5),
                  time_ms(lambda: F.conv2d(x_lib, w_lib, padding=p)))
         _line(f"bf16 fwd {tag}", count, *times, flops, nbytes, err,
               PEAK_BF16_FLOPS)
         sums["conv2d_nhwc_bf16"].add(count, *times, flops, nbytes, err)
+        tile_ms["conv2d_nhwc_bf16"] += count * _old_tile(
+            f"bf16 conv {tag}", want, times[0], flops,
+            lambda: kconv._launch_conv(x, wt, p, "conv", engine="mma.sync"),
+            kconv.bf16_engine(c, o, x.data_ptr(), wt.data_ptr()))
 
+        want = kconv.conv2d_nhwc_bwd_input_plain(g, wt, p)
         err = check_bf16(f"bf16 conv bwd-input {tag}",
-                         kconv.conv2d_nhwc_bwd_input(g, wt, p),
-                         kconv.conv2d_nhwc_bwd_input_plain(g, wt, p))
+                         kconv.conv2d_nhwc_bwd_input(g, wt, p), want)
         times = (time_ms(lambda: kconv.conv2d_nhwc_bwd_input(g, wt, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_bwd_input_plain(g, wt, p),
                          reps=5),
@@ -951,6 +999,13 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
         _line(f"bf16 bwd-input {tag}", count, *times, flops, nbytes, err,
               PEAK_BF16_FLOPS)
         sums["conv_bwd_input_bf16"].add(count, *times, flops, nbytes, err)
+        # the wrapper's own work on the tile: the filter's flip, a launch
+        tile_ms["conv_bwd_input_bf16"] += count * _old_tile(
+            f"bf16 conv bwd-input {tag}", want, times[0], flops,
+            lambda: kconv._launch_conv(g, kconv.flip_filter(wt), p, "conv",
+                                       engine="mma.sync"),
+            kconv.bf16_engine(o, c, g.data_ptr(), wt.data_ptr()))
+        del want
 
         # the filter gradient is f32 (KH, KW, C, O): 4 bytes an element
         dw_bytes = 2.0 * (n * h * w * c + n * h * w * o) + 4.0 * k * k * c * o
@@ -1012,6 +1067,8 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
         del x, dy, x4, dy4, y, py, dx, pdx
     torch.cuda.empty_cache()
     results = {name: s.result() for name, s in sums.items()}
+    for name, ms in tile_ms.items():
+        results[name]["mma_sync_ms"] = ms
 
     x = randn(TRAIN_BATCH, 2048).to(bf)
     y = randn(2048, 1000, scale=0.03).to(bf)
@@ -1247,6 +1304,7 @@ def phase_tf_matmul(dev, randn, bf16=False):
     dt = torch.bfloat16 if bf16 else torch.float32
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     sm = _Sum(peak)
+    tile_ms = 0.0
     log(f"{dt} matmul at the transformer step's shapes (B*S = "
         f"{TF_BATCH * TF_SEQ}), per call:")
     for (m, k, n), count in transformer_matmul_shapes().items():
@@ -1262,13 +1320,21 @@ def phase_tf_matmul(dev, randn, bf16=False):
         nbytes = x.element_size() * (m * k + k * n + m * n)
         _line(f"{m}x{k}x{n}", count, *times, flops, nbytes, err, peak)
         sm.add(count, *times, flops, nbytes, err)
+        if bf16:
+            tile_ms += count * _old_tile(
+                f"bf16 matmul {m}x{k}x{n}", want, times[0], flops,
+                lambda: kmatmul._launch(x, y, "mma.sync"),
+                kmatmul.bf16_engine(m, k, n, x.data_ptr(), y.data_ptr()))
         del x, y, got, want
     torch.cuda.empty_cache()
     r = sm.result()
     log(f"  one transformer step's {dt} matmul launches: kernel "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
         f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
+        f"({r['bound_by']}); max err {r['max_abs_err']:.2e}"
+        + (f"; the mma.sync tile {tile_ms:.3f} ms" if bf16 else ""))
+    if bf16:
+        r["mma_sync_ms"] = tile_ms
     return r
 
 
@@ -1291,7 +1357,8 @@ def mul_shapes_of(program, batch):
 def phase_seq_dense(dev, randn):
     """The matmul and softmax kernels against their plain versions at the
     sequence steps' own shapes: the padded classifier's three products at
-    B 64, T 100 (from its program) and its 64 x 2 softmax; the LoD
+    B 64, T 100 (from its program), in f32 and in bf16 (its AMP step, each
+    on the engine the rule picks), and its 64 x 2 softmax; the LoD
     classifier's two products at the step's 3,435 rows and 64 sequences.
     Logged; the kernels line keeps the transformer's and ResNet's."""
     import torch
@@ -1325,6 +1392,29 @@ def phase_seq_dense(dev, randn):
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max err "
             f"{r['max_abs_err']:.2e} (tolerance {GEMM_TOL})")
+    # the classifier's AMP step multiplies the same shapes in bf16, on the
+    # engine the rule picks for each
+    bf = torch.bfloat16
+    sm = _Sum(PEAK_BF16_FLOPS)
+    log("bf16 matmul at the LSTM classifier's AMP step's shapes, per call:")
+    for (m, k, n), count in paths[next(iter(paths))].items():
+        x = randn(m, k).to(bf)
+        y = randn(k, n, scale=k ** -0.5).to(bf)
+        engine = kmatmul.bf16_engine(m, k, n, x.data_ptr(), y.data_ptr())
+        err = check_bf16(f"bf16 matmul {m}x{k}x{n}", kmatmul.matmul(x, y),
+                         kmatmul.matmul_plain(x, y))
+        times = (time_ms(lambda: kmatmul.matmul(x, y)),
+                 time_ms(lambda: kmatmul.matmul_plain(x, y)),
+                 time_ms(lambda: torch.matmul(x, y)))
+        flops, nbytes = 2.0 * m * k * n, 2.0 * (m * k + k * n + m * n)
+        _line(f"{m}x{k}x{n} ({engine} engine)", count, *times, flops, nbytes,
+              err, PEAK_BF16_FLOPS)
+        sm.add(count, *times, flops, nbytes, err)
+    r = sm.result()
+    log(f"  the LSTM classifier's AMP step's matmul launches: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
     x = randn(LSTM_BATCH, 2, scale=4.0)   # both steps' head: 64 rows, 2 classes
     err = check_close(f"softmax {LSTM_BATCH}x2", ksoftmax.softmax(x),
                       ksoftmax.softmax_plain(x), rtol=0, atol=SOFTMAX_ATOL)
@@ -1852,11 +1942,20 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
     (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     first_s = time.perf_counter() - t0
     launches = counters()
+    wgmma = wgmma_counters()
     log(f"first {kind} train step at batch {TRAIN_BATCH}: loss "
         f"{float(first):.5f} in {first_s:.2f} s; launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
+        f"{ {k: v for k, v in launches.items() if v} }; on the wgmma "
+        f"engine {wgmma}")
     if launches != want_launches:
         fail(f"train-step launch counts {launches} != {want_launches}")
+    # every bf16 conv launch (C, O multiples of 64) on the wgmma engine;
+    # the fc (256 rows) on the mma.sync tile
+    want_wgmma = dict(matmul_bf16=0, **{
+        k: want_launches[k] for k in ("conv2d_nhwc_bf16",
+                                      "conv_bwd_input_bf16")})
+    if wgmma != want_wgmma:
+        fail(f"train-step wgmma launch counts {wgmma} != {want_wgmma}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     times, losses = [], []
     for _ in range(5):
@@ -1880,7 +1979,7 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
     del exe, scope, feed
     torch.cuda.empty_cache()
     return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
-                launches=launches)
+                launches=launches, wgmma=wgmma)
 
 
 def profile_step(run, what, split=None, want=None):
@@ -2246,11 +2345,17 @@ def _tf_train_step(dev, smi, kind, amp, f32):
     (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     first_s = time.perf_counter() - t0
     launches = counters()
+    wgmma = wgmma_counters()
     log(f"transformer LM, {n_params / 1e6:.1f} M parameters: first {kind} "
         f"step at B {TF_BATCH} S {TF_SEQ}: loss {float(first):.5f} (ln V = "
-        f"{np.log(v):.5f}) in {first_s:.2f} s; launches {launches}")
+        f"{np.log(v):.5f}) in {first_s:.2f} s; launches {launches}; on the "
+        f"wgmma engine {wgmma}")
     if launches != want_launches:
         fail(f"transformer launch counts {launches} != {want_launches}")
+    want_wgmma = dict(matmul_bf16=want_launches["matmul_bf16"],
+                      conv2d_nhwc_bf16=0, conv_bwd_input_bf16=0)
+    if wgmma != want_wgmma:
+        fail(f"transformer wgmma launch counts {wgmma} != {want_wgmma}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     times, losses = [], []
     for _ in range(5):
@@ -2271,7 +2376,8 @@ def _tf_train_step(dev, smi, kind, amp, f32):
         f"ms, min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); "
         f"losses {[round(x, 5) for x in losses]}; peak memory allocated "
         f"{peak / 2**30:.2f} GiB on {smi}")
-    result = dict(tokens_per_s=tok_s, peak_bytes=peak, launches=launches)
+    result = dict(tokens_per_s=tok_s, peak_bytes=peak, launches=launches,
+                  wgmma=wgmma)
     del exe, scope, feed
     torch.cuda.empty_cache()
     if f32 is not None:
@@ -2710,7 +2816,8 @@ def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
     """A step of a sequence path on the card (under AMP with ``amp``): the
     counters zeroed just before the first step and read just after must
     equal ``expect``; then 5 timed steps after 2 warm-up steps and peak
-    memory.  Returns (seconds of the 5 steps, peak bytes, launches)."""
+    memory.  Returns (seconds of the 5 steps, peak bytes, launches, the
+    launches on the wgmma engine)."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -2730,8 +2837,9 @@ def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
     (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     first_s = time.perf_counter() - t0
     launches = counters()
+    wgmma = wgmma_counters()
     log(f"{what}: first step loss {float(first):.5f} in {first_s:.2f} s; "
-        f"launches {launches}")
+        f"launches {launches}; on the wgmma engine {wgmma}")
     if launches != want:
         fail(f"{what}: launch counts {launches} != {want}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -2751,7 +2859,7 @@ def seq_train_step(dev, main_prog, startup, loss, feed, expect, what, smi,
         f"{peak / 2**30:.3f} GiB on {smi}")
     del exe, scope
     torch.cuda.empty_cache()
-    return sum(times), peak, launches
+    return sum(times), peak, launches, wgmma
 
 
 def lstm_step_feed(dev):
@@ -2777,7 +2885,7 @@ def phase_lstm_train_step(dev, smi, amp=False):
     kind = "AMP bf16" if amp else "f32"
     sfx = "_bf16" if amp else ""
     with pt.amp.amp_guard(amp):
-        secs, peak, launches = seq_train_step(
+        secs, peak, launches, wgmma = seq_train_step(
             dev, main_prog, startup, loss, lstm_step_feed(dev),
             {f"lstm{sfx}": 2, f"matmul{sfx}": 3, "softmax": 1,
              "embedding": 0},
@@ -2787,7 +2895,7 @@ def phase_lstm_train_step(dev, smi, amp=False):
         f"{sps * t:.1f} tokens/s ({1e3 * secs / 5:.2f} ms per step) on "
         f"{smi}")
     return dict(samples_per_s=sps, tokens_per_s=sps * t, peak_bytes=peak,
-                launches=launches)
+                launches=launches, wgmma=wgmma)
 
 
 def token_task(rng, batch, seq, vocab):
@@ -2856,7 +2964,7 @@ def phase_lod_train_step(dev, smi):
     main_prog, startup, loss, _ = build_lod_program()
     feed = lod_feed(np.random.RandomState(8), dev)
     rows = int(feed["ids"].data.shape[0])
-    secs, peak, launches = seq_train_step(
+    secs, peak, launches, wgmma = seq_train_step(
         dev, main_prog, startup, loss, feed,
         dict(embedding=1, matmul=2, softmax=1, lstm=0),
         f"LoD classifier step, {LOD_SEQS} sequences of {rows} rows (f32)",
@@ -2864,7 +2972,7 @@ def phase_lod_train_step(dev, smi):
     log(f"LoD classifier step: {5 / secs:.2f} steps/s, {5 * rows / secs:.1f}"
         f" rows/s ({1e3 * secs / 5:.2f} ms per step) on {smi}")
     return dict(steps_per_s=5 / secs, rows_per_s=5 * rows / secs,
-                peak_bytes=peak, launches=launches)
+                peak_bytes=peak, launches=launches, wgmma=wgmma)
 
 
 def range_calls(mod, name):
@@ -2904,13 +3012,17 @@ def profile_sequence_steps():
                 f"({kind})",
                 {"LSTM kernel": ["lstm_seq_kernel"],
                  "LSTM backward loop (plain)": "lstm_seq_bwd",
-                 "matmul kernel": [mm],
+                 "matmul kernel": list(mm),
                  "mul backward products": "matmul_backward"},
-                {"lstm_seq_kernel": 2, mm: 3, "softmax_f32_kernel": 1})
+                {"lstm_seq_kernel": 2, **mm, "softmax_f32_kernel": 1})
 
     paths = {
-        "lstm": (False, lstm_path("matmul_f32_kernel", "f32")),
-        "lstm_amp": (True, lstm_path("matmul_bf16_kernel", "AMP bf16")),
+        "lstm": (False, lstm_path({"matmul_f32_kernel": 3}, "f32")),
+        # the two 6400-row projections on the wgmma engine, the 64-row
+        # head on the mma.sync tile
+        "lstm_amp": (True, lstm_path({"wgmma_gemm_kernel": 2,
+                                      "matmul_bf16_kernel": 1},
+                                     "AMP bf16")),
         "lod": (False, (lod_prog, lod_startup, lod_loss,
                         lod_feed(np.random.RandomState(8), dev),
                         f"LoD classifier step, {LOD_SEQS} sequences",
@@ -2963,7 +3075,8 @@ def profile_transformer_steps():
 
     def path(amp):
         sfx, kind = ("_bf16", "AMP bf16") if amp else ("", "f32")
-        mm = f"matmul{sfx or '_f32'}_kernel"
+        # every bf16 product of the step (8192 rows) on the wgmma engine
+        mm = "wgmma_gemm_kernel" if amp else "matmul_f32_kernel"
         return amp, (prog, startup, loss, feed,
                      f"transformer step at B {TF_BATCH} S {TF_SEQ} ({kind})",
                      {"flash kernels": ["flash_"], "matmul kernel": [mm],
@@ -3738,8 +3851,21 @@ def main():
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = ptxas_entry(line)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance" in line or "warning" in line):
                 log(f"  {name} {entry}: {line.strip()}")
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    # the wgmma engine's instances as the card holds them (ptxas counts
+    # a setmaxnreg kernel's registers before its warpgroups rebalance)
+    for bn in (64, 128, 256):
+        for what, attrs in (("matmul", kmatmul.wgmma_attributes(bn)),
+                            ("conv, A by TMA", kconv.wgmma_attributes(
+                                bn, False)),
+                            ("conv, A gathered", kconv.wgmma_attributes(
+                                bn, True))):
+            log(f"  wgmma engine, tile 128 x {bn} ({what}): {attrs}")
 
     import paddle_tpu_torch as pt
 
@@ -3853,6 +3979,18 @@ def main():
                      lstm_bf16=lstm_amp["launches"],
                      **{f"flash_attention_{k}_bf16": tf_amp["launches"]
                         for k in ("fwd", "dq", "dkv")})
+    # the bf16 matmul and conv launches on the wgmma engine, per training
+    # path (the rest of each path's bf16 launches ran on the mma.sync tile)
+    wgmma_by_path = {"train_step": train["wgmma"],
+                     "amp_train_step": amp_train["wgmma"],
+                     "transformer_train_step": tf["wgmma"],
+                     "transformer_amp_train_step": tf_amp["wgmma"],
+                     "lstm_train_step": lstm["wgmma"],
+                     "lstm_amp_train_step": lstm_amp["wgmma"],
+                     "lod_train_step": lod["wgmma"]}
+    main_wgmma = dict(matmul_bf16=tf_amp["wgmma"],
+                      conv2d_nhwc_bf16=amp_train["wgmma"],
+                      conv_bwd_input_bf16=amp_train["wgmma"])
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],
@@ -3864,7 +4002,12 @@ def main():
              bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=k["library_ms"],
              **({"gather_sdpa_ms": k["gather_sdpa_ms"]}
-                if "gather_sdpa_ms" in k else {}))
+                if "gather_sdpa_ms" in k else {}),
+             **({"launches_wgmma": main_wgmma[name][name],
+                 "launches_wgmma_by_path": {p: c[name] for p, c in
+                                            wgmma_by_path.items()},
+                 "mma_sync_ms": k["mma_sync_ms"]}
+                if name in main_wgmma else {}))
         for name, k in kernels.items()]}
     log(f"serving throughput: {img_per_s:.1f} images/s at bucket "
         f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "

@@ -27,18 +27,34 @@
 // (M tiles) x O, and a second launch adds the rows in a fixed order in
 // double: no atomics, the same statistics from run to run.
 //
-// What bounds it on the H100: at the ResNet-50 shapes each conv does
-// 2 * M * O * K flops on a few MB of data, so the bound is operations
-// (989 TFLOP/s bf16 dense on the tensor cores, 67 TFLOP/s f32 on the
-// SIMT units).  The f32 kernel stages every K step of 16 through shared
-// memory with scalar gathers and two barriers; the bf16 one reaches about
-// 100 TFLOP/s at the 3x3 shapes (register-staged loads, one barrier a
-// step, mma.sync issued by every warp): wgmma from TMA-fed shared rings
-// is the way to the rest.  The statistics scratch is (M tiles) * O * 8
-// bytes, small beside out.
+// The bf16 instance has two engines, by shape (kernels/conv.py
+// bf16_engine, mirrored in ptt_conv2d_nhwc_bf16):
+// - wgmma (wgmma_gemm.cuh): C % 64 == 0, O % 8 == 0, 16-byte-aligned x
+//   and w, any M.  A 128 x BN tile (BN = O rounded up to 64, at most
+//   256), wgmma products from a shared ring that a producer warpgroup
+//   keeps full: w by TMA; A by TMA for a 1 x 1 conv (x is then a dense
+//   (M, C) matrix), else gathered with 16-byte cp.async copies, a 64-wide
+//   K step inside one tap, halo pixels zero-filled.  Every stride-1 conv
+//   of ResNet-50 takes it, forward and backward-input (C, O in {64, ...,
+//   2048}).
+// - mma.sync (tile_gemm.cuh gemm_tile_bf16): everything else (C = 3, C =
+//   20, views off alignment) and the fused conv + BN statistics.
+//
+// What bounds it on the H100 (bf16: 989 TFLOP/s on the tensor cores,
+// 3.35 TB/s): operations for the 3 x 3 convs at 7 x 7 to 28 x 28 and
+// the 1 x 1 convs at 7 x 7; bytes for the 1 x 1 convs at 14 x 14 and
+// larger and the 3 x 3 conv at 56 x 56, where each conv does 2 * M * O * K flops on a few MB of data
+// and K is 64-1024.  The wgmma engine issues the asynchronous warpgroup
+// products the card's rate needs, spends no consumer register on loads,
+// and keeps up to 8 stages in flight so the byte-bound shapes stream;
+// the 1 x 1 convs at 56 x 56 (K 64: one stage a tile) gain least.  The
+// f32 kernel stages every K step of 16 through shared memory with
+// scalar gathers and two barriers.  The statistics scratch is (M tiles)
+// * O * 8 bytes, small beside out.
 #include <type_traits>
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -212,6 +228,26 @@ void launch_bf16(dim3 grid, cudaStream_t stream, const ptt::bf16* x,
       x, w, out, psum, psq, N, H, W, C, KH, KW, O, pad, OH, OW);
 }
 
+// The bf16 conv on the wgmma engine (C % 64 == 0): a 1 x 1 conv as the
+// dense (N * H * W, C) @ (C, O) product, A by TMA; any other filter as
+// out[N * OH * OW, O] with A gathered from x.
+int wgmma_conv(const ptt::bf16* x, const ptt::bf16* w, ptt::bf16* out, int N,
+               int H, int W, int C, int KH, int KW, int O, int pad,
+               cudaStream_t stream) {
+  namespace wg = ptt::wg;
+  if (KH == 1 && KW == 1 && pad == 0)
+    return wg::gemm_dense(x, w, out, N * H * W, O, C, stream);
+  const int OH = H + 2 * pad - KH + 1;
+  const int OW = W + 2 * pad - KW + 1;
+  const int K = KH * KW * C;
+  CUtensorMap tb;
+  const int err = wg::encode_bf16(&tb, w, O, K, 64, wg::kBK);
+  if (err != 0) return err;
+  const wg::ConvGeom g{x, H, W, C, KW, pad, OH, OW};
+  return wg::launch_bn<true>(wg::tile_n(O), tb, tb, g, out, N * OH * OW, O,
+                             K, stream);
+}
+
 template <class T>
 int launch_conv(const T* x, const T* w, T* out, float* part, float* mean,
                 float* var, int N, int H, int W, int C, int KH, int KW, int O,
@@ -269,12 +305,28 @@ PTT_EXPORT int ptt_conv2d_nhwc_f32(const float* x, const float* w, float* out,
                      KW, O, pad, stream);
 }
 
+// engine: 0 the mma.sync tile (any shape), 1 the wgmma engine (refused
+// with cudaErrorInvalidValue where the shape or alignment rule fails).
 PTT_EXPORT int ptt_conv2d_nhwc_bf16(const ptt::bf16* x, const ptt::bf16* w,
                                     ptt::bf16* out, int N, int H, int W,
                                     int C, int KH, int KW, int O, int pad,
-                                    cudaStream_t stream) {
+                                    int engine, cudaStream_t stream) {
+  if (engine == 1) {
+    if (C % 64 != 0 || !ptt::wg::takes(KH * KW * C, O, x, w, out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return wgmma_conv(x, w, out, N, H, W, C, KH, KW, O, pad, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv(x, w, out, nullptr, nullptr, nullptr, N, H, W, C, KH,
                      KW, O, pad, stream);
+}
+
+// The wgmma instance for tile width bn (64, 128, 256), with A gathered
+// (gather 1) or by TMA (0): registers, spill bytes, static and dynamic
+// shared memory into out[0..4).
+PTT_EXPORT int ptt_conv_wgmma_attributes(int bn, int gather, int* out) {
+  return gather ? ptt::wg::attributes_bn<true>(bn, out)
+                : ptt::wg::attributes_bn<false>(bn, out);
 }
 
 // The fused conv + BN statistics: out, and mean / var (O floats each);

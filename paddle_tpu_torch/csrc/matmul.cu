@@ -5,19 +5,36 @@
 // (_mm_kernel :47), which walks a (M/bm, N/bn, K/bk) grid with a VMEM
 // accumulator carried across the K steps and writes out in x's dtype.
 // On Hopper the blocks run in parallel, so each block owns one output
-// tile and loops over K itself (tile_gemm.cuh), accumulating in
-// registers: 64 x 64 with f32 FMA for float32, 128 x 64 with mma.sync
-// bf16 tensor-core products for bf16.
+// tile and loops over K itself, accumulating in registers.  Three
+// engines: float32, a 64 x 64 tile with f32 FMA (tile_gemm.cuh); bf16,
+// by shape (kernels/matmul.py bf16_engine, mirrored in ptt_matmul_bf16):
+// - wgmma (wgmma_gemm.cuh): M >= kWgmmaMinRows, K % 8 == 0, N % 8 == 0,
+//   16-byte-aligned x and y.  A 128 x 256 tile (narrower for N <= 128),
+//   x and y fed by TMA through a 4-stage shared ring by a producer
+//   warpgroup, two consumer warpgroups on wgmma.  The transformer's
+//   products (8192 rows) take it.
+// - mma.sync (tile_gemm.cuh gemm_tile_bf16): everything else, a 128 x 64
+//   tile; the small-batch products (the ResNet fc at 256 rows, the
+//   serving fc at 32 or fewer), where a 128 x 256 grid would hold a few
+//   blocks for 132 SMs, and the ragged shapes TMA does not take.
 //
-// What bounds it on the H100: at the serving and ResNet-50 shapes (the
-// fc 2048 -> 1000 at batch 32 or 256) the weight read dominates, so the
-// bound is bytes (3.35 TB/s; half of them in bf16), but a 256-row
-// problem runs only 32-64 blocks on 132 SMs, each walking all of K, so
-// this kernel is latency-bound far above that.  Split-K and wgmma/TMA
-// tiles are later work.
+// What bounds it on the H100: at the transformer's shapes (K 2048-8192)
+// operations, 989 TFLOP/s bf16 on the tensor cores: the wgmma engine
+// issues the card's asynchronous warpgroup products from shared memory,
+// spends no consumer register or issue slot on loads, and brings x and y
+// on chip in 128 x 256 tiles (85 flops per byte read, against 43 for the
+// 128 x 64 tile).  At the serving and
+// ResNet-50 fc (2048 -> 1000 at batch 32 or 256) the weight read
+// dominates, so the bound is bytes (3.35 TB/s), but a 256-row problem
+// runs only 32-64 blocks on 132 SMs, each walking all of K, so the
+// mma.sync tile is latency-bound far above that; split-K is later work.
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
+
+// The least M the wgmma engine takes (kernels/matmul.py WGMMA_MIN_ROWS).
+constexpr int kWgmmaMinRows = 1024;
 
 struct DenseA {
   const float* __restrict__ a;
@@ -87,9 +104,17 @@ PTT_EXPORT int ptt_matmul_f32(const float* x, const float* y, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// engine: 0 the mma.sync tile (any shape), 1 the wgmma engine (refused
+// with cudaErrorInvalidValue where the shape or alignment rule fails).
 PTT_EXPORT int ptt_matmul_bf16(const ptt::bf16* x, const ptt::bf16* y,
                                ptt::bf16* out, int M, int N, int K,
-                               cudaStream_t stream) {
+                               int engine, cudaStream_t stream) {
+  if (engine == 1) {
+    if (M < kWgmmaMinRows || !ptt::wg::takes(K, N, x, y, out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return ptt::wg::gemm_dense(x, y, out, M, N, K, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = ptt::gemm_grid_bf16(M, N);
   if (K % 8 == 0 && N % 8 == 0 && ptt::aligned16(x) && ptt::aligned16(y))
     matmul_bf16_kernel<true><<<grid, ptt::kThreads, 0, stream>>>(x, y, out,
@@ -98,4 +123,10 @@ PTT_EXPORT int ptt_matmul_bf16(const ptt::bf16* x, const ptt::bf16* y,
     matmul_bf16_kernel<false><<<grid, ptt::kThreads, 0, stream>>>(x, y, out,
                                                                   M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma instance for tile width bn (64, 128, 256): registers, spill
+// bytes, static and dynamic shared memory into out[0..4).
+PTT_EXPORT int ptt_matmul_wgmma_attributes(int bn, int* out) {
+  return ptt::wg::attributes_bn<false>(bn, out);
 }

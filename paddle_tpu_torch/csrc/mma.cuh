@@ -1,5 +1,6 @@
 // The warp-level tensor-core and copy primitives that the bf16 kernels
-// share (tile_gemm.cuh's engine, flash_attention.cu): the m16n8k16 bf16
+// share (tile_gemm.cuh's engine, flash_attention.cu, and the bf16 packing
+// and alignment test of wgmma_gemm.cuh): the m16n8k16 bf16
 // product, ldmatrix, bf16x2 packing, cp.async and the 16-byte alignment
 // test that picks a kernel's vector path.
 #pragma once

@@ -9,17 +9,22 @@
 // shared-memory reads are broadcasts (A) or 16 consecutive words (B).
 //
 // bf16 (__nv_bfloat16 A and B, float sums, C stored as bf16;
-// gemm_tile_bf16): a block of 256 threads owns a 128 x 64 tile of C and
-// walks K in steps of 32 on the tensor cores.  Each step's slabs (A 128 x
-// 32, B 32 x 64) are loaded as vectors of 8 bf16, one 16-byte load each
-// where the shape and alignment allow (kVec), into registers while the
-// previous step's products run, then stored to the other of two shared
-// buffers: one barrier a step.  The 8 warps each own a 32 x 32 piece of C
-// (warp w: rows 32 (w % 4), columns 32 (w / 4)) and issue eight
-// mma.sync.m16n8k16 bf16 products with f32 accumulators per 16 of K,
-// their fragments read with ldmatrix (B, and the filter gradient's A,
-// transposed on the way).  Slab rows are padded by 8 bf16 (16 bytes), so
-// the 8 row addresses of each ldmatrix fall in distinct banks.
+// gemm_tile_bf16) runs what the wgmma engine (wgmma_gemm.cuh) does not
+// take: the matmul below 1024 rows (the ResNet and serving fc), K or N
+// not a multiple of 8, the conv at C % 64 != 0 (C = 3, 20), operands off
+// 16-byte alignment and the fused conv + BN statistics; its MmaTile is
+// also the filter gradient's (conv_dw.cu).  A block of 256 threads owns
+// a 128 x 64 tile of C and walks K in steps of 32 on the tensor cores.
+// Each step's slabs (A 128 x 32, B 32 x 64) are loaded as vectors of 8
+// bf16, one 16-byte load each where the shape and alignment allow
+// (kVec), into registers while the previous step's products run, then
+// stored to the other of two shared buffers: one barrier a step.  The 8
+// warps each own a 32 x 32 piece of C (warp w: rows 32 (w % 4), columns
+// 32 (w / 4)) and issue eight mma.sync.m16n8k16 bf16 products with f32
+// accumulators per 16 of K, their fragments read with ldmatrix (B, and
+// the filter gradient's A, transposed on the way).  Slab rows are padded
+// by 8 bf16 (16 bytes), so the 8 row addresses of each ldmatrix fall in
+// distinct banks.
 //
 // Everything outside [0, M) x [0, K) x [0, N) is read as zero and never
 // stored: any M, K, N works, the ragged edge is masked.

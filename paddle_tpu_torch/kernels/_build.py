@@ -134,6 +134,10 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 #: The suffix of a kernel's C symbol for each dtype it takes.
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+#: The bf16 GEMM engines of the matmul and conv, as their C entries
+#: number them (``engine`` argument).
+ENGINES = {"mma.sync": 0, "wgmma": 1}
+
 
 def require_cuda(what: str, dtypes, *tensors) -> None:
     """Raise on what a CUDA kernel does not take: tensors of another
@@ -148,6 +152,16 @@ def require_cuda(what: str, dtypes, *tensors) -> None:
         raise ValueError(f"{what}: no kernel for device {tensors[0].device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} kernel takes contiguous tensors")
+
+
+def wgmma_attributes(lib: ctypes.CDLL, fn: str, *args) -> dict:
+    """What ``fn`` (a library's ``ptt_*_wgmma_attributes`` entry) reports
+    of one wgmma engine instance: registers a thread, spill (local) bytes,
+    static and dynamic shared memory a block."""
+    out = (ctypes.c_int * 4)()
+    check(lib, getattr(lib, fn)(*args, out), fn)
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem"), out))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -24,9 +24,14 @@ Replaces the TPU kernels of ``paddle_tpu/pallas/conv.py``:
   xpad[n, h + kh, w + kw, c] * g[n, h, w, o], float32 (KH, KW, C, O)
   for float32 or bf16 x and g.
 
-All are bound by operations on the H100 (f32 FMA on the SIMT units,
-bf16 on the tensor cores); ``csrc/conv.cu`` and ``csrc/conv_dw.cu`` say
-what their designs do about that.
+The bf16 forward and backward-input run on one of two engines, by shape
+(``bf16_engine``): the wgmma engine (``csrc/wgmma_gemm.cuh``) for every
+stride-1 conv of ResNet-50, the ``mma.sync`` tile (``csrc/tile_gemm.cuh``)
+for the rest.  The 3 x 3 convs at 7 x 7 to 28 x 28 and the matmul-like
+1 x 1 convs at 7 x 7 are bound by operations on the H100, the other
+1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
+kernels by operations on the SIMT units.  ``csrc/conv.cu`` and
+``csrc/conv_dw.cu`` say what their designs do about that.
 """
 
 from __future__ import annotations
@@ -41,8 +46,13 @@ import torch.nn.functional as F
 from paddle_tpu_torch.kernels import _build
 
 _SIGNATURES = {
-    **{f"ptt_conv2d_nhwc_{s}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-       + [ctypes.c_void_p] for s in ("f32", "bf16")},
+    "ptt_conv2d_nhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    # ... and the engine (_build.ENGINES)
+    "ptt_conv2d_nhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "ptt_conv_wgmma_attributes": [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p],
     **{f"ptt_conv2d_bn_stats_nhwc_{s}": [ctypes.c_void_p] * 6
        + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
 }
@@ -54,7 +64,9 @@ _DW_SIGNATURES = {
 #: Launches of the CUDA kernels (the CPU path does not count), float32
 #: and bf16 instances apart: the forward, the backward-input (the forward
 #: kernel on the flipped filter), the filter gradient and the fused
-#: conv + BN statistics.
+#: conv + BN statistics; the ``_wgmma`` counters count the bf16 forward
+#: and backward-input launches that ran on the wgmma engine (they count
+#: in ``launches_bf16`` and ``bwd_input_launches_bf16`` too).
 launches = 0
 bwd_input_launches = 0
 dw_launches = 0
@@ -63,6 +75,8 @@ launches_bf16 = 0
 bwd_input_launches_bf16 = 0
 dw_launches_bf16 = 0
 stats_launches_bf16 = 0
+launches_bf16_wgmma = 0
+bwd_input_launches_bf16_wgmma = 0
 _count_lock = threading.Lock()
 
 # Split-K of the filter gradient: aim for this many blocks in flight
@@ -76,11 +90,44 @@ _TILE_BF16 = 128  # tile_gemm.cuh's kHM: the bf16 instances' tile rows
 _KSTEP_BF16 = 32  # tile_gemm.cuh's kHK
 
 
-def _count(counter: str, dtype: torch.dtype) -> None:
-    """Add one to ``counter``, or to its ``_bf16`` twin for a bf16 launch."""
+def _count(counter: str, dtype: torch.dtype, engine: str = "mma.sync"):
+    """Add one to ``counter``, or to its ``_bf16`` twin for a bf16 launch
+    (and to its ``_bf16_wgmma`` twin for one on the wgmma engine)."""
     name = counter + ("_bf16" if dtype == torch.bfloat16 else "")
     with _count_lock:
         globals()[name] += 1
+        if engine == "wgmma":
+            globals()[name + "_wgmma"] += 1
+
+
+def bf16_engine(c: int, o: int, x: int, w: int) -> str:
+    """The engine of a bf16 conv launch with ``c`` input and ``o`` output
+    channels (the backward-input's: the flipped filter's, O and C of the
+    forward swapped) whose x and filter start at device addresses ``x``
+    and ``w``: "wgmma" for c % 64 == 0 (a 64-wide K step inside one tap),
+    o % 8 == 0 and both addresses 16-byte aligned (TMA's stride and
+    address rules), at any batch and image size; else "mma.sync".  A
+    dispatch by shape, never a fallback: ``ptt_conv2d_nhwc_bf16`` checks
+    the same rule and refuses a wgmma launch it does not allow."""
+    if c % 64 == 0 and o % 8 == 0 and x % 16 == 0 and w % 16 == 0:
+        return "wgmma"
+    return "mma.sync"
+
+
+def _engine(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The engine of a launch on x and the (KH, KW, C, O) filter w."""
+    if x.dtype != torch.bfloat16:
+        return "mma.sync"
+    return bf16_engine(w.shape[2], w.shape[3], x.data_ptr(), w.data_ptr())
+
+
+def wgmma_attributes(bn: int, gather: bool) -> dict:
+    """Registers, spill bytes and shared memory of the wgmma instance for
+    tile width ``bn`` (64, 128, 256), A gathered or loaded by TMA, as the
+    card reports them."""
+    lib = _build.load("conv", _SIGNATURES)
+    return _build.wgmma_attributes(lib, "ptt_conv_wgmma_attributes", bn,
+                                   int(gather))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, padding: int,
@@ -194,9 +241,11 @@ def conv2d_nhwc_dw_plain(x: torch.Tensor, g: torch.Tensor, kernel: int,
 
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
-                 what: str, stats: bool = False):
+                 what: str, stats: bool = False, engine: str = "mma.sync"):
     """out, or (out, mean, var) with ``stats``: the float32 or bf16
-    instance of ``csrc/conv.cu`` by x's dtype."""
+    instance of ``csrc/conv.cu`` by x's dtype, the bf16 forward on the
+    named engine (``chip_smoke.py`` times both engines through it).  Not
+    counted: the public wrappers count their own launches."""
     _build.require_cuda(what, _build.F32_BF16, x, w)
     n, h, wd, c = x.shape
     kh, kw, _, o = w.shape
@@ -216,24 +265,29 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
                 mv[0].data_ptr(), mv[1].data_ptr(), n, h, wd, c, kh, kw, o,
                 padding, stream)
+        elif x.dtype == torch.bfloat16:
+            err = lib.ptt_conv2d_nhwc_bf16(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
+                kw, o, padding, _build.ENGINES[engine], stream)
         else:
-            err = getattr(lib, f"ptt_conv2d_nhwc_{sfx}")(
+            err = lib.ptt_conv2d_nhwc_f32(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
                 kw, o, padding, stream)
-    _build.check(lib, err, what)
+    _build.check(lib, err, f"{what} ({engine})")
     return (out, mv[0], mv[1]) if stats else out
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
                 padding: int) -> torch.Tensor:
     """Launches ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16, both
-    operands one dtype, contiguous); runs the plain version on a CPU
-    tensor."""
+    operands one dtype, contiguous; bf16 on the engine ``bf16_engine``
+    picks); runs the plain version on a CPU tensor."""
     _check(x, w, padding)
     if x.device.type == "cpu":
         return conv2d_nhwc_plain(x, w, padding)
-    out = _launch_conv(x, w, padding, "conv2d_nhwc")
-    _count("launches", x.dtype)
+    engine = _engine(x, w)
+    out = _launch_conv(x, w, padding, "conv2d_nhwc", engine=engine)
+    _count("launches", x.dtype, engine)
     return out
 
 
@@ -258,9 +312,11 @@ def conv2d_nhwc_bwd_input(g: torch.Tensor, w: torch.Tensor,
     _check(g, w, padding, channel_dim=3, what="conv2d_nhwc_bwd_input")
     if g.device.type == "cpu":
         return conv2d_nhwc_bwd_input_plain(g, w, padding)
-    out = _launch_conv(g, flip_filter(w), w.shape[0] - 1 - padding,
-                       "conv2d_nhwc_bwd_input")
-    _count("bwd_input_launches", g.dtype)
+    wf = flip_filter(w)
+    engine = _engine(g, wf)
+    out = _launch_conv(g, wf, w.shape[0] - 1 - padding,
+                       "conv2d_nhwc_bwd_input", engine=engine)
+    _count("bwd_input_launches", g.dtype, engine)
     return out
 
 

@@ -783,7 +783,7 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
     bufs.append((buf, out))
     _build.check(lib, lib.ptt_conv2d_nhwc_bf16(
         x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, h, w, c, k, k, o,
-        k // 2, stream), "conv")
+        k // 2, _build.ENGINES["mma.sync"], stream), "conv")
     buf2, out2 = _guarded((n, h, w, o), torch.bfloat16, dev)
     bufs.append((buf2, out2))
     tiles = math.ceil(n * h * w / 64)
@@ -807,7 +807,8 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
     buf4, mm = _guarded((33, 65), torch.bfloat16, dev)
     bufs.append((buf4, mm))
     _build.check(mlib, mlib.ptt_matmul_bf16(
-        a.data_ptr(), b.data_ptr(), mm.data_ptr(), 33, 65, 17, stream), "mm")
+        a.data_ptr(), b.data_ptr(), mm.data_ptr(), 33, 65, 17,
+        _build.ENGINES["mma.sync"], stream), "mm")
 
     blib = _build.load("batch_norm", kbn._SIGNATURES)
     xb = _bf16(g, 105, 24, device=dev)
@@ -1158,3 +1159,224 @@ def test_amp_train_step_on_the_card_matches_cpu(dev):
             np.testing.assert_allclose(card_scope.get(name).cpu().numpy(),
                                        want_v, rtol=0,
                                        atol=1e-2 * np.abs(want_v).max())
+
+
+# ---------------------------------------------------------------------------
+# the wgmma engine of the bf16 matmul and conv (csrc/wgmma_gemm.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _probe_operands(pattern, m, k, n, dev):
+    """x (m, k), y (k, n) in bf16 and the exact product: one-hot rows or
+    columns against an integer ramp (every value below 256, so exact in
+    bf16 and in one f32 term), so that an output element names the row,
+    column or K index it was read from."""
+    mi = torch.arange(m).view(m, 1)
+    ki = torch.arange(k).view(1, k)
+    kj = torch.arange(k).view(k, 1)
+    nj = torch.arange(n).view(1, n)
+    if pattern == "a_rows":    # out[i, j] = y[i % 64, j] = i % 64
+        x, y = (ki == mi % 64), kj.expand(k, n)
+    elif pattern == "b_cols":  # out[i, j] = j % 256: B's columns (LBO)
+        x, y = (ki == mi % 64), (nj % 256).expand(k, n)
+    elif pattern == "a_m":     # out[i, j] = x[i, j % 64] = i % 128
+        x, y = (mi % 128).expand(m, k), (kj == nj % 64)
+    else:                      # "a_k": out[i, j] = j % 64: A's K chunks
+        x, y = ki.expand(m, k), (kj == nj % 64)
+    x = x.to(torch.bfloat16).contiguous().to(dev)
+    y = y.to(torch.bfloat16).contiguous().to(dev)
+    return x, y, (x.float() @ y.float())
+
+
+def _name_permutation(got, want, what):
+    """Fail with the first indices where got != want and what they hold:
+    under these patterns a wrong swizzle, leading or stride offset reads
+    as a permutation of rows or columns, not as noise."""
+    bad = (got.float() != want).nonzero()
+    if bad.numel():
+        rows = [(int(i), int(j), float(got[i, j]), float(want[i, j]))
+                for i, j in bad[:8].tolist()]
+        pytest.fail(f"{what}: {bad.shape[0]} of {want.numel()} elements "
+                    f"wrong; (row, col, got, want) {rows}")
+
+
+@pytest.mark.parametrize("pattern", ["a_rows", "b_cols", "a_m", "a_k"])
+@pytest.mark.parametrize("route", ["matmul", "conv1x1", "conv3x3"])
+def test_wgmma_descriptor_probe(dev, route, pattern):
+    """One 128 x 256 x 64 tile through each route of the engine: the
+    matmul (A by TMA; M cut to its least 1024, the probe in the first
+    tile), a 1 x 1 conv (A by TMA, any M) and a 3 x 3 conv whose filter is
+    zero but for its centre tap (A gathered with cp.async, the same
+    product in K steps 4 of 9).  Exact: one nonzero term a sum."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    m, k, n = (1024 if route == "matmul" else 128), 64, 256
+    x, y, want = _probe_operands(pattern, m, k, n, dev)
+    before = (kmatmul.launches_bf16_wgmma, kconv.launches_bf16_wgmma)
+    if route == "matmul":
+        got = kmatmul.matmul(x, y)
+        counted = (before[0] + 1, before[1])
+    else:
+        xi = x.view(1, 8, 16, 64)
+        if route == "conv1x1":
+            w = y.view(1, 1, 64, 256)
+        else:
+            w = torch.zeros(3, 3, 64, 256, dtype=torch.bfloat16, device=dev)
+            w[1, 1] = y
+        got = kconv.conv2d_nhwc(xi, w, w.shape[0] // 2).view(m, n)
+        counted = (before[0], before[1] + 1)
+    assert (kmatmul.launches_bf16_wgmma, kconv.launches_bf16_wgmma) == counted
+    torch.cuda.synchronize()
+    _name_permutation(got, want, f"{route} {pattern}")
+
+
+def test_wgmma_conv_repeated_launches_read_no_stale_tile(dev):
+    """200 launches of the gathered conv at a halo-heavy shape (7 x 7
+    images: 24 of 49 pixels touch the border), each compared with the
+    first bit for bit and the first with the plain version: a stage read
+    before its cp.async copies are visible to wgmma (a missing proxy
+    fence, a barrier arrived too early) shows as a launch that differs."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(40)
+    x = _bf16(g, 32, 7, 7, 128, device=dev)
+    w = _bf16(g, 3, 3, 128, 128, scale=0.04, device=dev)
+    before = kconv.launches_bf16_wgmma
+    first = kconv.conv2d_nhwc(x, w, 1)
+    torch.cuda.synchronize()
+    _close_bf16(first, kconv.conv2d_nhwc_plain(x, w, 1))
+    differ = []
+    for i in range(200):
+        out = kconv.conv2d_nhwc(x, w, 1)
+        if not torch.equal(out, first):
+            differ.append(i)
+    torch.cuda.synchronize()
+    assert kconv.launches_bf16_wgmma == before + 201
+    assert not differ, f"launches {differ[:10]} differ from the first"
+
+
+@pytest.mark.parametrize("m,k,n", [
+    # ragged: K % 64 != 0, K < 64, N not a multiple of the tile width,
+    # M not a multiple of 128 (each with K % 8 == 0, N % 8 == 0)
+    (1031, 200, 264), (1031, 40, 72), (1024, 8, 8), (2053, 136, 520),
+    (1100, 64, 136),
+    # the transformer step's five products with M cut to 1024
+    (1024, 2048, 6144), (1024, 2048, 2048), (1024, 2048, 8192),
+    (1024, 8192, 2048), (1024, 2048, 32768),
+])
+def test_wgmma_matmul_matches_plain(dev, m, k, n):
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(41)
+    x = _bf16(g, m, k, device=dev)
+    y = _bf16(g, k, n, scale=k ** -0.5, device=dev)
+    before = (kmatmul.launches_bf16, kmatmul.launches_bf16_wgmma)
+    got = kmatmul.matmul(x, y)
+    assert (kmatmul.launches_bf16,
+            kmatmul.launches_bf16_wgmma) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _close_bf16(got, kmatmul.matmul_plain(x, y))
+
+
+WGMMA_CONV_SHAPES = [(2, h, h, c, o, k) for h, c, o, k in [
+    (56, 64, 64, 1), (56, 64, 64, 3), (56, 64, 256, 1), (56, 256, 64, 1),
+    (28, 128, 128, 3), (28, 128, 512, 1), (28, 512, 128, 1),
+    (14, 256, 256, 3), (14, 256, 1024, 1), (14, 1024, 256, 1),
+    (7, 512, 512, 3), (7, 512, 2048, 1), (7, 2048, 512, 1),
+]] + [
+    # 128-row tiles spanning several images, a ragged last tile, O off
+    # the tile widths (the backward-input of O % 64 != 0 on the mma.sync
+    # tile), a 5 x 5 filter
+    (5, 7, 7, 64, 64, 3), (3, 14, 14, 64, 128, 3), (4, 7, 7, 128, 72, 1),
+    (3, 7, 5, 64, 192, 3), (3, 7, 5, 64, 200, 3), (2, 9, 11, 128, 64, 5),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", WGMMA_CONV_SHAPES)
+def test_wgmma_conv_forward_and_backward_input_match_plain(dev, n, h, w, c,
+                                                           o, k):
+    """Every stride-1 conv shape of ResNet-50 at batch 2, forward and
+    backward-input, and small images where one 128-row tile spans several
+    images: the forward on the wgmma engine, and the backward-input too
+    where its C (the forward's O) is a multiple of 64, as at every
+    ResNet-50 shape."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(42)
+    x = _bf16(g, n, h, w, c, device=dev)
+    wt = _bf16(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5, device=dev)
+    dy = _bf16(g, n, h, w, o, device=dev)
+    before = (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
+              kconv.launches_bf16_wgmma, kconv.bwd_input_launches_bf16_wgmma)
+    out = kconv.conv2d_nhwc(x, wt, k // 2)
+    dx = kconv.conv2d_nhwc_bwd_input(dy, wt, k // 2)
+    after = (kconv.launches_bf16, kconv.bwd_input_launches_bf16,
+             kconv.launches_bf16_wgmma, kconv.bwd_input_launches_bf16_wgmma)
+    assert after == tuple(
+        b + d for b, d in zip(before, (1, 1, 1, o % 64 == 0)))
+    torch.cuda.synchronize()
+    _close_bf16(out, kconv.conv2d_nhwc_plain(x, wt, k // 2))
+    _close_bf16(dx, kconv.conv2d_nhwc_bwd_input_plain(dy, wt, k // 2))
+
+
+def test_wgmma_stores_nothing_out_of_bounds(dev):
+    """The wgmma symbols launched straight into outputs with NaN guards on
+    both sides, at ragged shapes (M, N and K off every tile): the guards
+    stay NaN and the outputs match the plain versions."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(43)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wgmma = _build.ENGINES["wgmma"]
+    mlib = _build.load("matmul", kmatmul._SIGNATURES)
+    clib = _build.load("conv", kconv._SIGNATURES)
+    checks = []
+    a = _bf16(g, 1031, 200, device=dev)
+    b = _bf16(g, 200, 264, scale=0.07, device=dev)
+    buf, mm = _guarded((1031, 264), torch.bfloat16, dev)
+    _build.check(mlib, mlib.ptt_matmul_bf16(
+        a.data_ptr(), b.data_ptr(), mm.data_ptr(), 1031, 264, 200, wgmma,
+        stream), "matmul wgmma")
+    checks.append((buf, mm, kmatmul.matmul_plain(a, b)))
+    for n, h, w, c, o, k in ((3, 7, 5, 64, 72, 3), (3, 7, 5, 64, 72, 1)):
+        x = _bf16(g, n, h, w, c, device=dev)
+        wt = _bf16(g, k, k, c, o, scale=0.1, device=dev)
+        buf, out = _guarded((n, h, w, o), torch.bfloat16, dev)
+        _build.check(clib, clib.ptt_conv2d_nhwc_bf16(
+            x.data_ptr(), wt.data_ptr(), out.data_ptr(), n, h, w, c, k, k, o,
+            k // 2, wgmma, stream), "conv wgmma")
+        checks.append((buf, out, kconv.conv2d_nhwc_plain(x, wt, k // 2)))
+    torch.cuda.synchronize()
+    for buf, view, want in checks:
+        guard = torch.cat([buf[:4096], buf[-4096:]])
+        assert bool(torch.isnan(guard).all())
+        assert not bool(torch.isnan(view).any())
+        _close_bf16(view, want)
+
+
+def test_wgmma_refuses_what_its_rule_does_not_allow(dev):
+    """No fallback: a wgmma launch at a shape or alignment the rule does
+    not allow is refused by the C entry and raises; the wrappers never
+    ask for one."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    bf = torch.bfloat16
+    x = torch.ones(256, 64, device=dev, dtype=bf)
+    y = torch.ones(64, 64, device=dev, dtype=bf)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kmatmul._launch(x, y, "wgmma")              # M < 1024
+    big = torch.ones(1024 * 64 + 8, device=dev, dtype=bf)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kmatmul._launch(big[1:1 + 64 * 1024].view(1024, 64), y,
+                        "wgmma")                    # x off 16 bytes
+    xi = torch.ones(2, 7, 7, 20, device=dev, dtype=bf)
+    wi = torch.ones(3, 3, 20, 64, device=dev, dtype=bf)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_conv(xi, wi, 1, "conv", engine="wgmma")   # C % 64
+    before = kmatmul.launches_bf16_wgmma
+    kmatmul.matmul(x, y)                           # the rule picks mma.sync
+    assert kmatmul.launches_bf16_wgmma == before
