@@ -15,9 +15,9 @@ seconds):
 1. The card (name, power limit), torch/CUDA/nvcc versions, and the
    kernels' build from ``paddle_tpu_torch/csrc`` with nvcc, one process
    per source, all started together; each kernel's ``ptxas -v`` lines
-   (and any ptxas warning), and the bf16 wgmma engine's instances as the
-   card reports them (registers, spills, static and dynamic shared
-   memory).
+   (and any ptxas warning), and the bf16 wgmma engine's instances and the
+   wgmma filter gradient's as the card reports them (registers, spills,
+   static and dynamic shared memory).
 2. Each kernel against its plain version on the card, TF32 off, with
    medians of CUDA-event timings of the kernel, the plain version and
    the one PyTorch call that computes the same function, beside the
@@ -47,9 +47,10 @@ seconds):
    cuDNN), each within BF16_RTOL / BF16_ATOL, bound at 989 TFLOP/s bf16
    (the LSTM's f32 recurrence at 67).  Where the bf16 matmul and conv
    run on the wgmma engine (csrc/wgmma_gemm.cuh: the transformer's
-   products, every ResNet-50 conv forward and backward-input), the
-   mma.sync tile it replaced is held to the same plain result and timed
-   beside it at each shape (``mma_sync_ms`` in the kernels line); the
+   products, every ResNet-50 conv forward, backward-input and, in
+   csrc/conv_dw.cu, filter gradient), the mma.sync tile it replaced is
+   held to the same plain result and timed beside it at each shape
+   (``mma_sync_ms`` in the kernels line); the
    LSTM classifier's three products are checked in bf16 too, each on
    the engine the rule picks.
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
@@ -105,10 +106,11 @@ seconds):
    instances the program implies (conv forward 46, backward-input 46,
    filter gradient 46, BN forward 53, BN backward 53, matmul 1) and 1
    float32 softmax, no float32 conv, BN or matmul launch, and every bf16
-   conv forward and backward-input launch on the wgmma engine (46, 46;
-   the fc's 256 rows on the mma.sync tile); images/s over
-   5 timed steps after 2 warm-up steps beside the f32 step's, peak
-   memory, one profiled step.
+   conv forward, backward-input and filter-gradient launch on the wgmma
+   engine (46, 46, 46; the fc's 256 rows on the mma.sync tile); images/s
+   over 5 timed steps after 2 warm-up steps beside the f32 step's, peak
+   memory, one profiled step (which must see the 46 wgmma filter-gradient
+   launches).
 7. LeNet-5 with Adam trains on the card to accuracy > 0.9 on the seeded
    synthetic digits of tests/test_book_convergence.py, in float32 and
    under AMP.
@@ -198,9 +200,11 @@ seconds):
 21. (F) One profiled decode step at 16 slots in a fresh process
     (``chip_smoke.py --profile-decode-step``): idle share, top kernels,
     the cost of the logits' copy to the host.
-22. The kernels line (for the bf16 matmul, conv forward and
-    backward-input also ``launches_wgmma``, its count by path and
-    ``mma_sync_ms``), the card's name and power limit, and the result.
+22. The kernels line (for the bf16 matmul, conv forward,
+    backward-input and filter gradient also ``launches_wgmma``, its count
+    by path and ``mma_sync_ms``), the card's name and power limit, and
+    the result.  A row's ``bound_ms`` is the sum of its launches' own
+    bounds, each the larger of its operations and its bytes.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -522,7 +526,8 @@ def wgmma_counters():
 
     return dict(matmul_bf16=kmatmul.launches_bf16_wgmma,
                 conv2d_nhwc_bf16=kconv.launches_bf16_wgmma,
-                conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma)
+                conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma,
+                conv_dw_bf16=kconv.dw_launches_bf16_wgmma)
 
 
 def zero_counters():
@@ -540,7 +545,7 @@ def zero_counters():
     kconv.dw_launches_bf16 = 0
     kconv.stats_launches = kconv.stats_launches_bf16 = 0
     kconv.launches_bf16_wgmma = kconv.bwd_input_launches_bf16_wgmma = 0
-    kmatmul.launches_bf16_wgmma = 0
+    kconv.dw_launches_bf16_wgmma = kmatmul.launches_bf16_wgmma = 0
     kbn.launches = kbn.bwd_launches = 0
     kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
     kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
@@ -672,26 +677,31 @@ def lstm_kernel_op(op, block):
 
 
 class _Sum:
-    """A kernel's times, bound and error summed over one run's launches."""
+    """A kernel's times, bound and error summed over one run's launches.
+    The bound is the sum of each launch's own bound (the larger of its
+    operations and its bytes), not the bound of the summed operations and
+    bytes, which understates a row whose launches are bound by different
+    things; ``bound_by`` names what bounds the larger share of it."""
 
     def __init__(self, peak=PEAK_F32_FLOPS):
         self.peak = peak
         self.ms = self.plain_ms = self.library_ms = 0.0
-        self.flops = self.nbytes = 0.0
+        self.bound_ms = {"operations": 0.0, "bytes": 0.0}
         self.max_abs_err = 0.0
 
     def add(self, count, ms, plain, lib, flops, nbytes, err):
         self.ms += ms * count
         self.plain_ms += plain * count
         self.library_ms += lib * count
-        self.flops += flops * count
-        self.nbytes += nbytes * count
+        b_ms, b_by = bound(flops, nbytes, self.peak)
+        self.bound_ms[b_by] += b_ms * count
         self.max_abs_err = max(self.max_abs_err, err)
 
     def result(self):
-        b_ms, b_by = bound(self.flops, self.nbytes, self.peak)
+        b_by = max(self.bound_ms, key=self.bound_ms.get)
         return dict(ms=self.ms, plain_ms=self.plain_ms,
-                    library_ms=self.library_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=self.library_ms,
+                    bound_ms=sum(self.bound_ms.values()), bound_by=b_by,
                     max_abs_err=self.max_abs_err)
 
 
@@ -929,11 +939,11 @@ def check_bf16(name, got, want):
     return err
 
 
-def _old_tile(what, want, ms, flops, launch_tile, engine):
+def _old_tile(what, want, ms, flops, launch_tile, engine, check=check_bf16):
     """The mma.sync tile beside the kernel the wrapper launched (``engine``)
-    at one shape: held against the same plain result, timed alone;
-    returns its ms."""
-    err = check_bf16(f"{what} (mma.sync tile)", launch_tile(), want)
+    at one shape: held against the same plain result by ``check`` (name,
+    got, want), timed alone; returns its ms."""
+    err = check(f"{what} (mma.sync tile)", launch_tile(), want)
     tile = time_ms(launch_tile, reps=5)
     log(f"    {engine} engine {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
         f"the mma.sync tile {tile:.4f} ms ({flops / tile / 1e9:.1f} "
@@ -958,7 +968,8 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
         "conv2d_nhwc_bf16", "conv_bwd_input_bf16", "conv_dw_bf16",
         "batch_norm_fwd_bf16", "batch_norm_bwd_bf16")}
     # the same launches on the mma.sync tile, for the wgmma engine's gain
-    tile_ms = dict(conv2d_nhwc_bf16=0.0, conv_bwd_input_bf16=0.0)
+    tile_ms = dict(conv2d_nhwc_bf16=0.0, conv_bwd_input_bf16=0.0,
+                   conv_dw_bf16=0.0)
     log(f"bf16 conv kernels of the AMP step at batch {TRAIN_BATCH} (fwd: "
         "F.conv2d on channels-last bf16; bwd-input: conv2d_input; filter "
         "grad: conv2d_weight; bound at 989 TFLOP/s bf16), per call:")
@@ -1009,18 +1020,25 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
 
         # the filter gradient is f32 (KH, KW, C, O): 4 bytes an element
         dw_bytes = 2.0 * (n * h * w * c + n * h * w * o) + 4.0 * k * k * c * o
+        want = kconv.conv2d_nhwc_dw_plain(x, g, k, p)
         err = check_scaled(f"bf16 conv filter grad {tag}",
-                           kconv.conv2d_nhwc_dw(x, g, k, p),
-                           kconv.conv2d_nhwc_dw_plain(x, g, k, p), DW_TOL)
+                           kconv.conv2d_nhwc_dw(x, g, k, p), want, DW_TOL)
         times = (time_ms(lambda: kconv.conv2d_nhwc_dw(x, g, k, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_dw_plain(x, g, k, p),
                          reps=5),
                  time_ms(lambda: conv2d_weight(x_lib, w_lib.shape, g_lib,
                                                padding=p)))
-        _line(f"bf16 filter grad {tag}", count, *times, flops, dw_bytes, err,
-              PEAK_BF16_FLOPS)
+        engine = kconv.bf16_engine(c, o, x.data_ptr(), g.data_ptr())
+        splits, chunk = (kconv.dw_splits_wgmma(k * k * c, o, n * h * w)
+                         if engine == "wgmma" else (0, 0))
+        _line(f"bf16 filter grad {tag} ({splits} splits of {chunk} pixels)",
+              count, *times, flops, dw_bytes, err, PEAK_BF16_FLOPS)
         sums["conv_dw_bf16"].add(count, *times, flops, dw_bytes, err)
-        del x, wt, g, x_lib, g_lib, w_lib
+        tile_ms["conv_dw_bf16"] += count * _old_tile(
+            f"bf16 conv filter grad {tag}", want, times[0], flops,
+            lambda: kconv._launch_dw(x, g, k, p, "mma.sync"), engine,
+            lambda name, got, want: check_scaled(name, got, want, DW_TOL))
+        del x, wt, g, x_lib, g_lib, w_lib, want
 
     log(f"bf16 batch-norm kernels of the AMP step at batch {TRAIN_BATCH} "
         "(F.batch_norm and native_batch_norm_backward on channels-last bf16 "
@@ -1949,11 +1967,13 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
         f"engine {wgmma}")
     if launches != want_launches:
         fail(f"train-step launch counts {launches} != {want_launches}")
-    # every bf16 conv launch (C, O multiples of 64) on the wgmma engine;
-    # the fc (256 rows) on the mma.sync tile
+    # every bf16 conv launch (C, O multiples of 64) on the wgmma engine,
+    # forward, backward-input and filter gradient; the fc (256 rows) on
+    # the mma.sync tile
     want_wgmma = dict(matmul_bf16=0, **{
         k: want_launches[k] for k in ("conv2d_nhwc_bf16",
-                                      "conv_bwd_input_bf16")})
+                                      "conv_bwd_input_bf16",
+                                      "conv_dw_bf16")})
     if wgmma != want_wgmma:
         fail(f"train-step wgmma launch counts {wgmma} != {want_wgmma}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -1973,9 +1993,11 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
         f" max {max(times) * 1e3:.1f}); losses {[round(x, 5) for x in losses]};"
         f" peak memory allocated {peak / 2**30:.2f} GiB on {smi}")
 
+    # the profiler must see every wgmma filter-gradient launch of the step
     idle = profile_step(lambda: exe.run(main_prog, feed=feed,
                                         fetch_list=[loss], scope=scope),
-                        f"{kind} train step")
+                        f"{kind} train step",
+                        want={"wgmma_dw_kernel": want_wgmma["conv_dw_bf16"]})
     del exe, scope, feed
     torch.cuda.empty_cache()
     return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
@@ -2010,6 +2032,10 @@ def profile_step(run, what, split=None, want=None):
         if seen < n:
             fail(f"profiled {what}: the profiler saw {seen} launches of "
                  f"{kernel}, not {n}")
+        if n:
+            log(f"profiled {what}: {kernel} x{seen}, "
+                f"{sum(r[0] for r in rows if kernel in r[2]):.3f} ms on the "
+                "device")
     busy_ms = sum(r[0] for r in rows)
     idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"one profiled {what}: {wall_ms:.1f} ms wall, device kernels "
@@ -2353,7 +2379,8 @@ def _tf_train_step(dev, smi, kind, amp, f32):
     if launches != want_launches:
         fail(f"transformer launch counts {launches} != {want_launches}")
     want_wgmma = dict(matmul_bf16=want_launches["matmul_bf16"],
-                      conv2d_nhwc_bf16=0, conv_bwd_input_bf16=0)
+                      conv2d_nhwc_bf16=0, conv_bwd_input_bf16=0,
+                      conv_dw_bf16=0)
     if wgmma != want_wgmma:
         fail(f"transformer wgmma launch counts {wgmma} != {want_wgmma}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -3864,7 +3891,11 @@ def main():
                             ("conv, A by TMA", kconv.wgmma_attributes(
                                 bn, False)),
                             ("conv, A gathered", kconv.wgmma_attributes(
-                                bn, True))):
+                                bn, True)),
+                            ("filter grad, A by TMA",
+                             kconv.wgmma_attributes(bn, False, dw=True)),
+                            ("filter grad, A gathered",
+                             kconv.wgmma_attributes(bn, True, dw=True))):
             log(f"  wgmma engine, tile 128 x {bn} ({what}): {attrs}")
 
     import paddle_tpu_torch as pt
@@ -3990,7 +4021,8 @@ def main():
                      "lod_train_step": lod["wgmma"]}
     main_wgmma = dict(matmul_bf16=tf_amp["wgmma"],
                       conv2d_nhwc_bf16=amp_train["wgmma"],
-                      conv_bwd_input_bf16=amp_train["wgmma"])
+                      conv_bwd_input_bf16=amp_train["wgmma"],
+                      conv_dw_bf16=amp_train["wgmma"])
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1],

@@ -1,6 +1,8 @@
 // The bf16 GEMM engine on Hopper's warpgroup products (wgmma), shared by
 // the matmul (matmul.cu) and the stride-1 NHWC implicit-GEMM convolution
-// (conv.cu, forward and backward-input):
+// (conv.cu, forward and backward-input); the filter gradient (conv_dw.cu)
+// builds its own kernel from this file's products, barriers, copies and
+// descriptors, with A MN-major (wgmma_tile's kTransA):
 //
 //   C[M, N] = A[M, K] @ B[K, N], bf16 A and B, f32 sums, C stored as bf16.
 //
@@ -236,12 +238,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x n f32, the warpgroup's fragment) = A (64 x 16, K-major, desc
-// da) @ B (16 x n, MN-major: the transpose bit, desc db), plus d when
-// acc != 0.  Thread t of the
+// d (64 x n f32, the warpgroup's fragment) = A (64 x 16, desc da: K-major,
+// or MN-major with the transpose bit when kTransA == 1) @ B (16 x n,
+// MN-major: the transpose bit, desc db), plus d when acc != 0.  Thread t
+// of the
 // warpgroup holds, for each 8 columns j, d[4j .. 4j + 1] at row 16 (t / 32)
 // + (t % 32) / 4, columns 8j + 2 (t % 4) and the next, and d[4j + 2 ..
 // 4j + 3] eight rows below.
+template <int kTransA>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
                                              uint64_t db, uint32_t acc) {
   asm volatile(
@@ -252,7 +256,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -260,9 +264,10 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTransA));
 }
 
+template <int kTransA>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                              uint64_t db, uint32_t acc) {
   asm volatile(
@@ -277,7 +282,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -291,9 +296,10 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTransA));
 }
 
+template <int kTransA>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
                                              uint64_t db, uint32_t acc) {
   asm volatile(
@@ -316,7 +322,7 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -343,18 +349,21 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTransA));
 }
 
-template <int BN>
+// kTransA 0: A K-major (the matmul's x, the conv's gathered pixels, rows
+// of 64 K values); 1: A MN-major, read with the transpose bit (the filter
+// gradient's x, rows of 64 M values, laid out as B is).
+template <int BN, int kTransA = 0>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
                                            uint64_t db, uint32_t acc) {
   if constexpr (BN == 256)
-    wgmma_m64n256(d, da, db, acc);
+    wgmma_m64n256<kTransA>(d, da, db, acc);
   else if constexpr (BN == 128)
-    wgmma_m64n128(d, da, db, acc);
+    wgmma_m64n128<kTransA>(d, da, db, acc);
   else
-    wgmma_m64n64(d, da, db, acc);
+    wgmma_m64n64<kTransA>(d, da, db, acc);
 }
 
 // Pin the accumulators in their registers around the asynchronous

@@ -192,14 +192,30 @@ def _feed_signature(feed_vals: Dict[str, Any]):
     return tuple(sig)
 
 
+def _numpy_bf16():
+    """``ml_dtypes``' bfloat16, numpy's bf16 dtype where that package is
+    installed (the JAX package's fetches use it), else None."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def _to_numpy(v):
-    """A fetch as numpy; a bf16 tensor (numpy has no bf16) as the float32
-    array of the same values."""
+    """A fetch as numpy; a bf16 tensor as an ``ml_dtypes`` bfloat16 array
+    of its bits, the dtype the reference fetches (``np.asarray`` of a
+    bf16 jax array), or, without ``ml_dtypes``, as the float32 array of
+    the same values."""
     if isinstance(v, LoDArray):
         return LoDArray(_to_numpy(v.data), tuple(_to_numpy(o) for o in v.lod))
+    v = v.detach()
     if v.dtype == torch.bfloat16:
-        v = v.float()
-    return v.detach().cpu().numpy()
+        bf16 = _numpy_bf16()
+        if bf16 is None:
+            return v.float().cpu().numpy()
+        return v.cpu().view(torch.int16).numpy().view(bf16)
+    return v.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,13 @@ Replaces the TPU kernels of ``paddle_tpu/pallas/conv.py``:
   xpad[n, h + kh, w + kw, c] * g[n, h, w, o], float32 (KH, KW, C, O)
   for float32 or bf16 x and g.
 
-The bf16 forward and backward-input run on one of two engines, by shape
-(``bf16_engine``): the wgmma engine (``csrc/wgmma_gemm.cuh``) for every
-stride-1 conv of ResNet-50, the ``mma.sync`` tile (``csrc/tile_gemm.cuh``)
-for the rest.  The 3 x 3 convs at 7 x 7 to 28 x 28 and the matmul-like
+The bf16 forward, backward-input and filter gradient run on one of two
+engines, by shape (``bf16_engine``): the wgmma engine
+(``csrc/wgmma_gemm.cuh``; the filter gradient's kernel in
+``csrc/conv_dw.cu`` on its parts, pixels as the reduction, split over
+pixels by ``dw_splits_wgmma``) for every stride-1 conv of ResNet-50, the
+``mma.sync`` tile (``csrc/tile_gemm.cuh``) for the rest.  The 3 x 3
+convs at 7 x 7 to 28 x 28 and the matmul-like
 1 x 1 convs at 7 x 7 are bound by operations on the H100, the other
 1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
 kernels by operations on the SIMT units.  ``csrc/conv.cu`` and
@@ -37,6 +40,7 @@ kernels by operations on the SIMT units.  ``csrc/conv.cu`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -57,16 +61,22 @@ _SIGNATURES = {
        + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
 }
 _DW_SIGNATURES = {
-    f"ptt_conv_dw_nhwc_{s}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-    + [ctypes.c_void_p] for s in ("f32", "bf16")
+    "ptt_conv_dw_nhwc_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    # ... and the engine (_build.ENGINES)
+    "ptt_conv_dw_nhwc_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    "ptt_conv_dw_wgmma_attributes": [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p],
 }
 
 #: Launches of the CUDA kernels (the CPU path does not count), float32
 #: and bf16 instances apart: the forward, the backward-input (the forward
 #: kernel on the flipped filter), the filter gradient and the fused
-#: conv + BN statistics; the ``_wgmma`` counters count the bf16 forward
-#: and backward-input launches that ran on the wgmma engine (they count
-#: in ``launches_bf16`` and ``bwd_input_launches_bf16`` too).
+#: conv + BN statistics; the ``_wgmma`` counters count the bf16 forward,
+#: backward-input and filter-gradient launches that ran on the wgmma
+#: engine (they count in ``launches_bf16``, ``bwd_input_launches_bf16``
+#: and ``dw_launches_bf16`` too).
 launches = 0
 bwd_input_launches = 0
 dw_launches = 0
@@ -77,6 +87,7 @@ dw_launches_bf16 = 0
 stats_launches_bf16 = 0
 launches_bf16_wgmma = 0
 bwd_input_launches_bf16_wgmma = 0
+dw_launches_bf16_wgmma = 0
 _count_lock = threading.Lock()
 
 # Split-K of the filter gradient: aim for this many blocks in flight
@@ -84,6 +95,20 @@ _count_lock = threading.Lock()
 # least _DW_MIN_CHUNK pixels of the reduction.
 _DW_TARGET_BLOCKS = 8 * 132
 _DW_MIN_CHUNK = 256
+# ... and on the wgmma engine (one block of 384 threads an SM): at most
+# _WG_WAVES waves of _SMS blocks, each split at least _WG_MIN_STEPS K
+# steps of _WG_KSTEP pixels (enough to fill and drain an 8-stage ring),
+# picked by _dw_wgmma_cost.
+_SMS = 132
+_WG_WAVES = 2
+_WG_KSTEP = 64        # wgmma_gemm.cuh's kBK
+_WG_MIN_STEPS = 16
+_WG_TILE_M = 128      # wgmma_gemm.cuh's kBM
+# a block's fixed cost (the ring's fill and drain, the epilogue), in K
+# steps; the card's rates (bf16 tensor cores, memory) for the rest
+_WG_FIXED_STEPS = 8
+_PEAK_BF16_FLOPS = 989e12
+_PEAK_BYTES = 3.35e12
 _TILE = 64       # tile_gemm.cuh's kBM = kBN (and kHN)
 _KSTEP = 16      # tile_gemm.cuh's kBK
 _TILE_BF16 = 128  # tile_gemm.cuh's kHM: the bf16 instances' tile rows
@@ -106,9 +131,13 @@ def bf16_engine(c: int, o: int, x: int, w: int) -> str:
     forward swapped) whose x and filter start at device addresses ``x``
     and ``w``: "wgmma" for c % 64 == 0 (a 64-wide K step inside one tap),
     o % 8 == 0 and both addresses 16-byte aligned (TMA's stride and
-    address rules), at any batch and image size; else "mma.sync".  A
-    dispatch by shape, never a fallback: ``ptt_conv2d_nhwc_bf16`` checks
-    the same rule and refuses a wgmma launch it does not allow."""
+    address rules), at any batch and image size; else "mma.sync".  The
+    filter gradient's rule has the same terms, with g's address for the
+    filter's (64 channels of one tap are a 64-row M slab; O % 8 == 0 and
+    the alignments are g's TMA rules and the f32 epilogue's groups).  A
+    dispatch by shape, never a fallback: ``ptt_conv2d_nhwc_bf16`` and
+    ``ptt_conv_dw_nhwc_bf16`` check the same rule and refuse a wgmma
+    launch it does not allow."""
     if c % 64 == 0 and o % 8 == 0 and x % 16 == 0 and w % 16 == 0:
         return "wgmma"
     return "mma.sync"
@@ -121,10 +150,23 @@ def _engine(x: torch.Tensor, w: torch.Tensor) -> str:
     return bf16_engine(w.shape[2], w.shape[3], x.data_ptr(), w.data_ptr())
 
 
-def wgmma_attributes(bn: int, gather: bool) -> dict:
+def _dw_engine(x: torch.Tensor, g: torch.Tensor) -> str:
+    """The engine of a filter-gradient launch on x (N, H, W, C) and g
+    (N, H, W, O)."""
+    if x.dtype != torch.bfloat16:
+        return "mma.sync"
+    return bf16_engine(x.shape[3], g.shape[3], x.data_ptr(), g.data_ptr())
+
+
+def wgmma_attributes(bn: int, gather: bool, dw: bool = False) -> dict:
     """Registers, spill bytes and shared memory of the wgmma instance for
     tile width ``bn`` (64, 128, 256), A gathered or loaded by TMA, as the
-    card reports them."""
+    card reports them: the forward's (``csrc/conv.cu``), or with ``dw``
+    the filter gradient's (``csrc/conv_dw.cu``)."""
+    if dw:
+        lib = _build.load("conv_dw", _DW_SIGNATURES)
+        return _build.wgmma_attributes(lib, "ptt_conv_dw_wgmma_attributes",
+                                       bn, int(gather))
     lib = _build.load("conv", _SIGNATURES)
     return _build.wgmma_attributes(lib, "ptt_conv_wgmma_attributes", bn,
                                    int(gather))
@@ -333,15 +375,55 @@ def dw_splits(m: int, o: int, k: int, tile: int = _TILE,
     return math.ceil(k / chunk), chunk
 
 
-def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
-                   padding: int) -> torch.Tensor:
-    """The filter gradient (KH, KW, C, O) in float32: launches
-    ``csrc/conv_dw.cu`` on CUDA tensors (float32 or bf16 x and g of one
-    dtype, contiguous); runs the plain version on CPU tensors."""
-    _check_dw(x, g, kernel, padding)
-    if x.device.type == "cpu":
-        return conv2d_nhwc_dw_plain(x, g, kernel, padding)
+def wgmma_tile_n(o: int) -> int:
+    """The wgmma engine's tile width for o columns (wgmma_gemm.cuh
+    ``tile_n``): 64, 128 or 256."""
+    return 256 if o > 128 else (128 if o > 64 else 64)
+
+
+def _dw_wgmma_cost(m: int, o: int, steps: int, splits: int) -> float:
+    """The time of the wgmma filter gradient at ``splits`` splits of its
+    ``steps`` K steps, in the time of one block's K step at the tensor
+    cores' rate: the waves of one-block-an-SM launches times a block's
+    steps and fixed cost, plus the partial buffer's write and read (none
+    for one split) at the memory's rate."""
+    bn = wgmma_tile_n(o)
+    tiles = math.ceil(m / _WG_TILE_M) * math.ceil(o / bn)
+    step_s = 2.0 * _WG_TILE_M * bn * _WG_KSTEP / (_PEAK_BF16_FLOPS / _SMS)
+    waves = math.ceil(tiles * splits / _SMS)
+    partial = 8.0 * splits * m * o / _PEAK_BYTES if splits > 1 else 0.0
+    return (waves * (math.ceil(steps / splits) + _WG_FIXED_STEPS)
+            + partial / step_s)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_splits_wgmma(m: int, o: int, k: int):
+    """(splits, chunk) of the wgmma filter gradient over k pixels: chunk a
+    multiple of the 64-pixel K step (only the last split's last step is
+    ragged), at most _WG_WAVES waves of one block an SM, each split at
+    least _WG_MIN_STEPS steps (one split if k is shorter), the count of
+    least ``_dw_wgmma_cost``.  ``ptt_conv_dw_nhwc_bf16`` refuses a split
+    that breaks the first rule or leaves a split empty.  Cached: the
+    search costs more host time than a short launch takes on the card."""
+    steps = math.ceil(k / _WG_KSTEP)
+    tiles = (math.ceil(m / _WG_TILE_M)
+             * math.ceil(o / wgmma_tile_n(o)))
+    most = max(1, min(_WG_WAVES * _SMS // tiles, steps // _WG_MIN_STEPS))
+    splits = min(range(1, most + 1),
+                 key=lambda s: _dw_wgmma_cost(m, o, steps, s))
+    chunk = math.ceil(steps / splits) * _WG_KSTEP
+    return math.ceil(k / chunk), chunk
+
+
+def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
+               engine: str = "mma.sync") -> torch.Tensor:
+    """The filter gradient by ``csrc/conv_dw.cu``: the float32 or bf16
+    instance by x's dtype, the bf16 one on the named engine
+    (``chip_smoke.py`` times both engines through it).  Not counted:
+    ``conv2d_nhwc_dw`` counts its own launches."""
     _build.require_cuda("conv2d_nhwc_dw", _build.F32_BF16, x, g)
+    if engine == "wgmma" and x.dtype != torch.bfloat16:
+        raise TypeError("conv2d_nhwc_dw: the wgmma engine takes bf16")
     n, h, wd, c = x.shape
     o = g.shape[3]
     out = torch.empty((kernel, kernel, c, o), dtype=torch.float32,
@@ -349,18 +431,41 @@ def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
     m, k = kernel * kernel * c, n * h * wd
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    splits, chunk = (dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
-                     if x.dtype == torch.bfloat16 else dw_splits(m, o, k))
+    if engine == "wgmma":
+        splits, chunk = dw_splits_wgmma(m, o, k)
+    elif x.dtype == torch.bfloat16:
+        splits, chunk = dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
+    else:
+        splits, chunk = dw_splits(m, o, k)
     part = out if splits == 1 else torch.empty(
         (splits, m, o), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_dw", _DW_SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, f"ptt_conv_dw_nhwc_{_build.SUFFIX[x.dtype]}")(
-            x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), n,
-            h, wd, c, kernel, kernel, o, padding, splits, chunk, stream)
-    _build.check(lib, err, "conv2d_nhwc_dw")
-    _count("dw_launches", x.dtype)
+        args = (x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
+                n, h, wd, c, kernel, kernel, o, padding, splits, chunk)
+        if x.dtype == torch.bfloat16:
+            err = lib.ptt_conv_dw_nhwc_bf16(*args, _build.ENGINES[engine],
+                                            stream)
+        else:
+            err = lib.ptt_conv_dw_nhwc_f32(*args, stream)
+    _build.check(lib, err, f"conv2d_nhwc_dw ({engine})")
+    return out
+
+
+def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
+                   padding: int) -> torch.Tensor:
+    """The filter gradient (KH, KW, C, O) in float32: launches
+    ``csrc/conv_dw.cu`` on CUDA tensors (float32 or bf16 x and g of one
+    dtype, contiguous; bf16 on the engine ``bf16_engine`` picks from C, O
+    and the addresses of x and g); runs the plain version on CPU
+    tensors."""
+    _check_dw(x, g, kernel, padding)
+    if x.device.type == "cpu":
+        return conv2d_nhwc_dw_plain(x, g, kernel, padding)
+    engine = _dw_engine(x, g)
+    out = _launch_dw(x, g, kernel, padding, engine)
+    _count("dw_launches", x.dtype, engine)
     return out
 
 

@@ -654,10 +654,53 @@ def test_executor_plan_cache_keys_on_amp(rng):
         (as_numpy,) = exe.run(feed=feed, fetch_list=[out], scope=scope)
     assert f32.dtype == torch.float32 and bf.dtype == torch.bfloat16
     assert len(exe._cache) == 3    # startup, main f32, main AMP
-    assert as_numpy.dtype == np.float32     # numpy has no bf16
-    np.testing.assert_array_equal(as_numpy, bf.float().numpy())
+    assert as_numpy.dtype.name == "bfloat16"    # ml_dtypes', as JAX's
+    np.testing.assert_array_equal(as_numpy.astype(np.float32),
+                                  bf.float().numpy())
     # x and the filter rounded to bf16 (2^-9 each) under 36-term sums
     _close(bf, f32, atol=1e-2)
+
+
+def test_amp_bf16_fetch_has_the_references_dtype_and_values(rng):
+    """A bf16 value fetched as numpy under AMP on CPUPlace(): the JAX
+    Executor hands out ``np.asarray`` of its bf16 array, an ml_dtypes
+    bfloat16 array; the port hands out the same dtype, its bits read
+    straight from the tensor, and the same values (a bias-free fc, whose
+    output AMP keeps in bf16).  An f32 fetch of the same run stays f32."""
+    x = rng.randn(5, 12).astype(np.float32)
+
+    def build():
+        img = _data("x", x.shape)
+        out = fluid.layers.fc(img, size=7, bias_attr=False)
+        return [out], _weighted_mean(_cast_f32(out))
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        outs, loss = build()
+    fetch = [outs[0].name, loss.name]
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    state = {n: np.asarray(v) for n, v in fluid.global_scope().values.items()}
+    with jax_amp.amp_guard(True):
+        want = exe.run(main, feed={"x": x}, fetch_list=fetch)
+    scope = pt.Scope()
+    scope.load_numpy(state, "cpu")
+    with pt.amp.amp_guard(True):
+        got = pt.Executor(pt.CPUPlace()).run(
+            pt.Program.from_dict(main.to_dict()), feed={"x": x},
+            fetch_list=fetch, scope=scope)
+    assert isinstance(got[0], np.ndarray)
+    assert want[0].dtype.name == "bfloat16"
+    assert got[0].dtype == want[0].dtype
+    assert got[0].shape == want[0].shape == (5, 7)
+    # both sides sum 12 bf16 products in f32 and round once
+    np.testing.assert_allclose(got[0].astype(np.float32),
+                               want[0].astype(np.float32), rtol=1e-2,
+                               atol=1e-3 * float(np.abs(
+                                   want[0].astype(np.float32)).max()))
+    assert got[1].dtype == want[1].dtype == np.float32
+    # the reply of the HTTP server: a bf16 array as JSON numbers
+    assert all(isinstance(v, float) for v in got[0].tolist()[0])
 
 
 # ---------------------------------------------------------------------------

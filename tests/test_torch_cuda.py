@@ -799,7 +799,8 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
     bufs.append((buf3, dw))
     _build.check(dlib, dlib.ptt_conv_dw_nhwc_bf16(
         x.data_ptr(), dy.data_ptr(), dw.data_ptr(), dw.data_ptr(), n, h, w,
-        c, k, k, o, k // 2, 1, n * h * w, stream), "conv dw")
+        c, k, k, o, k // 2, 1, n * h * w, _build.ENGINES["mma.sync"],
+        stream), "conv dw")
 
     mlib = _build.load("matmul", kmatmul._SIGNATURES)
     a = _bf16(g, 33, 17, device=dev)
@@ -1380,3 +1381,209 @@ def test_wgmma_refuses_what_its_rule_does_not_allow(dev):
     before = kmatmul.launches_bf16_wgmma
     kmatmul.matmul(x, y)                           # the rule picks mma.sync
     assert kmatmul.launches_bf16_wgmma == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 filter gradient on the wgmma engine (csrc/conv_dw.cu)
+# ---------------------------------------------------------------------------
+
+DW_TOL = 1e-4   # rtol, and atol as a share of max|plain|
+
+
+def _close_dw(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=DW_TOL,
+                               atol=DW_TOL * float(want.abs().max()))
+
+
+def _dw_probe_operands(pattern, c, o, dev):
+    """x (1, 8, 8, c) and g (1, 8, 8, o) in bf16 over 64 pixels: one-hot
+    rows or columns against an integer ramp (below 256, exact in bf16 and
+    in f32 sums of up to 64 terms), so that an element of dw at the centre
+    tap names the pixel, channel or column it was read from."""
+    k = torch.arange(64).view(64, 1)
+    ci = torch.arange(c).view(1, c)
+    oj = torch.arange(o).view(1, o)
+    if pattern == "a_rows":    # dw[c, o] = c % 64: A's K rows (pixels)
+        x, g = (k == ci % 64), k.expand(64, o)
+    elif pattern == "b_cols":  # dw[c, o] = o % 256: B's columns
+        x, g = (k == ci % 64), (oj % 256).expand(64, o)
+    elif pattern == "a_m":     # dw[c, o] = c % 128: A's M (channels)
+        x, g = (ci % 128).expand(64, c), (k == oj % 64)
+    else:                      # "a_k": dw[c, o] = o % 64: A's K chunks
+        x, g = k.expand(64, c), (k == oj % 64)
+    x = x.to(torch.bfloat16).contiguous().view(1, 8, 8, c).to(dev)
+    g = g.to(torch.bfloat16).contiguous().view(1, 8, 8, o).to(dev)
+    return x, g
+
+
+@pytest.mark.parametrize("pattern", ["a_rows", "b_cols", "a_m", "a_k"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_wgmma_dw_descriptor_probe(dev, k, pattern):
+    """The MN-major A (the transpose bit) through both routes, 1 x 1 (A by
+    TMA) and 3 x 3 (A gathered): one 128 x 256 tile over one 64-pixel
+    step, exact against the plain version (integer sums below 2^24)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    x, g = _dw_probe_operands(pattern, 128, 256, dev)
+    before = kconv.dw_launches_bf16_wgmma
+    got = kconv.conv2d_nhwc_dw(x, g, k, k // 2)
+    assert kconv.dw_launches_bf16_wgmma == before + 1
+    torch.cuda.synchronize()
+    want = kconv.conv2d_nhwc_dw_plain(x, g, k, k // 2)
+    _name_permutation(got.view(-1, 256), want.view(-1, 256),
+                      f"dw {k}x{k} {pattern}")
+
+
+WGMMA_DW_SHAPES = [(n, h, h, c, o, k) for n, h, c, o, k in [
+    (2, 56, 64, 64, 1), (2, 56, 64, 64, 3), (2, 56, 64, 256, 1),
+    (2, 56, 256, 64, 1), (3, 28, 128, 128, 3), (3, 28, 128, 512, 1),
+    (3, 28, 512, 128, 1), (4, 14, 256, 256, 3), (4, 14, 256, 1024, 1),
+    (4, 14, 1024, 256, 1), (2, 7, 512, 512, 3), (2, 7, 512, 2048, 1),
+    (2, 7, 2048, 512, 1),
+]] + [
+    # a 5 x 5 filter at C 128, O off the tile widths (BN 128 over 72
+    # columns), a 3 x 3 at C 64 whose last tile has one live slab, many
+    # splits over small images
+    (2, 9, 11, 128, 64, 5), (3, 7, 5, 64, 72, 3), (64, 7, 7, 64, 64, 3),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", WGMMA_DW_SHAPES)
+def test_wgmma_filter_gradient_matches_plain(dev, n, h, w, c, o, k):
+    """Every stride-1 conv shape of ResNet-50 at batch 2-4 (98 pixels at
+    7 x 7, batch 2; one split at 7 x 7 to 28 x 28, six at 56 x 56; C = 64
+    where a tile spans two taps; O 64 to 2048, tile widths 64 to 256):
+    the filter gradient on the wgmma engine, counted as a bf16 launch and
+    a wgmma one, within the filter gradient's tolerance of the plain
+    version."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(44)
+    x = _bf16(g, n, h, w, c, device=dev)
+    dy = _bf16(g, n, h, w, o, device=dev)
+    assert kconv.bf16_engine(c, o, x.data_ptr(), dy.data_ptr()) == "wgmma"
+    before = (kconv.dw_launches, kconv.dw_launches_bf16,
+              kconv.dw_launches_bf16_wgmma)
+    got = kconv.conv2d_nhwc_dw(x, dy, k, k // 2)
+    assert (kconv.dw_launches, kconv.dw_launches_bf16,
+            kconv.dw_launches_bf16_wgmma) == (before[0], before[1] + 1,
+                                              before[2] + 1)
+    torch.cuda.synchronize()
+    _close_dw(got, kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
+
+
+def test_wgmma_filter_gradient_repeated_launches_agree_bit_for_bit(dev):
+    """200 launches at a halo-heavy shape (7 x 7 images: 24 of 49 pixels
+    touch the border) over several splits, each equal to the first bit for
+    bit, the first within tolerance of the plain version: a stage read
+    before its gathered copies are visible to wgmma, or a sum in another
+    order, shows as a launch that differs."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(45)
+    x = _bf16(g, 128, 7, 7, 128, device=dev)
+    dy = _bf16(g, 128, 7, 7, 128, device=dev)
+    splits, _ = kconv.dw_splits_wgmma(9 * 128, 128, 128 * 49)
+    assert splits > 1
+    before = kconv.dw_launches_bf16_wgmma
+    first = kconv.conv2d_nhwc_dw(x, dy, 3, 1)
+    torch.cuda.synchronize()
+    _close_dw(first, kconv.conv2d_nhwc_dw_plain(x, dy, 3, 1))
+    differ = []
+    for i in range(200):
+        if not torch.equal(kconv.conv2d_nhwc_dw(x, dy, 3, 1), first):
+            differ.append(i)
+    torch.cuda.synchronize()
+    assert kconv.dw_launches_bf16_wgmma == before + 201
+    assert not differ, f"launches {differ[:10]} differ from the first"
+
+
+def test_wgmma_filter_gradient_counts_as_the_rule_implies(dev):
+    """A bf16 launch counts in ``dw_launches_bf16``, and in
+    ``dw_launches_bf16_wgmma`` exactly where the rule picks the wgmma
+    engine; the tile, at C 20 or a misaligned view, agrees with the plain
+    version too."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(46)
+    buf = _bf16(g, 2 * 9 * 9 * 64 + 8, device=dev)
+    cases = [
+        (_bf16(g, 2, 9, 9, 64, device=dev), _bf16(g, 2, 9, 9, 64,
+                                                   device=dev), True),
+        (_bf16(g, 2, 9, 9, 20, device=dev), _bf16(g, 2, 9, 9, 64,
+                                                   device=dev), False),
+        (buf[1:1 + 2 * 9 * 9 * 64].view(2, 9, 9, 64),
+         _bf16(g, 2, 9, 9, 64, device=dev), False),
+    ]
+    for x, dy, wgmma in cases:
+        before = (kconv.dw_launches_bf16, kconv.dw_launches_bf16_wgmma)
+        got = kconv.conv2d_nhwc_dw(x, dy, 3, 1)
+        assert (kconv.dw_launches_bf16, kconv.dw_launches_bf16_wgmma) == (
+            before[0] + 1, before[1] + wgmma)
+        torch.cuda.synchronize()
+        _close_dw(got, kconv.conv2d_nhwc_dw_plain(x, dy, 3, 1))
+
+
+def test_wgmma_filter_gradient_refuses_what_its_rule_does_not_allow(dev):
+    """No fallback: the C entry refuses a wgmma launch at a shape,
+    alignment or split the rule does not allow, and the wrapper raises."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    bf = torch.bfloat16
+    xi = torch.ones(2, 7, 7, 20, device=dev, dtype=bf)
+    gi = torch.ones(2, 7, 7, 64, device=dev, dtype=bf)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(xi, gi, 3, 1, "wgmma")                 # C % 64
+    big = torch.ones(2 * 7 * 7 * 64 + 8, device=dev, dtype=bf)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(big[1:1 + 2 * 7 * 7 * 64].view(2, 7, 7, 64), gi, 3,
+                         1, "wgmma")                            # x off 16
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(gi, torch.ones(2, 7, 7, 70, device=dev, dtype=bf),
+                         1, 0, "wgmma")                         # O % 8
+    lib = _build.load("conv_dw", kconv._DW_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(3, 3, 64, 64, device=dev)
+    for splits, chunk in ((1, 96), (1, 64), (3, 64)):
+        # 98 pixels: a chunk off the 64-pixel step, splits that leave
+        # pixels out, a split with none
+        err = lib.ptt_conv_dw_nhwc_bf16(
+            gi.data_ptr(), gi.data_ptr(), out.data_ptr(), out.data_ptr(), 2,
+            7, 7, 64, 3, 3, 64, 1, splits, chunk, _build.ENGINES["wgmma"],
+            stream)
+        assert err != 0, (splits, chunk)
+    before = kconv.dw_launches_bf16_wgmma
+    kconv.conv2d_nhwc_dw(xi, gi, 3, 1)              # the rule picks the tile
+    assert kconv.dw_launches_bf16_wgmma == before
+
+
+def test_wgmma_filter_gradient_stores_nothing_out_of_bounds(dev):
+    """The wgmma symbol launched straight into outputs with NaN guards on
+    both sides, one split (the kernel writes dw itself) and several (the
+    reduce writes it), at a ragged shape (O 72 in a 128-wide tile, a last
+    tile with one live slab): the guards stay NaN, the outputs match."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(47)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("conv_dw", kconv._DW_SIGNATURES)
+    n, h, w, c, o, k = 24, 7, 5, 64, 72, 3
+    x = _bf16(g, n, h, w, c, device=dev)
+    dy = _bf16(g, n, h, w, o, device=dev)
+    want = kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2)
+    for splits, chunk in ((1, 896), (4, 256)):
+        buf, dw = _guarded((k, k, c, o), torch.float32, dev)
+        pbuf, part = _guarded((splits, k * k * c, o), torch.float32, dev)
+        _build.check(lib, lib.ptt_conv_dw_nhwc_bf16(
+            x.data_ptr(), dy.data_ptr(),
+            (dw if splits == 1 else part).data_ptr(), dw.data_ptr(), n, h, w,
+            c, k, k, o, k // 2, splits, chunk, _build.ENGINES["wgmma"],
+            stream), "conv dw wgmma")
+        torch.cuda.synchronize()
+        for b in (buf, pbuf):
+            assert bool(torch.isnan(torch.cat([b[:4096], b[-4096:]])).all())
+        assert not bool(torch.isnan(dw).any())
+        _close_dw(dw, want)

@@ -10,8 +10,12 @@ of the AMP ResNet-50 step, forward and backward-input (read off the
 port's ResNet-50 program).  The small-batch and ragged ones must keep
 the tile.  The card tests (``tests/test_torch_cuda.py -k wgmma``) launch
 both engines; here a CPU tensor still runs the plain version whatever
-the rule would pick.
+the rule would pick.  The bf16 filter gradient takes the same rule on
+x's channels, g's channels and their addresses, and splits its pixels by
+``dw_splits_wgmma``.
 """
+
+import math
 
 import os
 import re
@@ -161,3 +165,96 @@ def test_cpu_tensors_run_the_plain_version_at_wgmma_shapes():
     assert (kmatmul.launches_bf16, kmatmul.launches_bf16_wgmma,
             kconv.launches_bf16_wgmma,
             kconv.bwd_input_launches_bf16_wgmma) == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 filter gradient (csrc/conv_dw.cu's wgmma route)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,c,o,k", RESNET50_CONVS)
+def test_resnet50_filter_gradients_take_wgmma(h, c, o, k):
+    """The filter gradient of each of the 46 convs at batch 256, as the
+    wrapper reads it: C from x, O from g (meta tensors: shapes and an
+    aligned address, no memory); in f32 always the tile."""
+    x = torch.empty(256, h, h, c, dtype=torch.bfloat16, device="meta")
+    g = torch.empty(256, h, h, o, dtype=torch.bfloat16, device="meta")
+    assert kconv._dw_engine(x, g) == "wgmma"
+    assert kconv._dw_engine(x.float(), g.float()) == "mma.sync"
+
+
+@pytest.mark.parametrize("c,o,why", [
+    (3, 64, "C = 3: a 64-row slab spans taps"),
+    (20, 70, "C = 20 (and O % 8 != 0)"),
+    (64, 70, "O % 8 != 0: a row of g is not 16-byte strided"),
+    (96, 64, "C % 64 != 0"),
+    (64, 20, "O = 20: x's C and g's O are not swapped"),
+])
+def test_ragged_filter_gradients_keep_the_mma_sync_tile(c, o, why):
+    x = torch.empty(2, 7, 7, c, dtype=torch.bfloat16, device="meta")
+    g = torch.empty(2, 7, 7, o, dtype=torch.bfloat16, device="meta")
+    assert kconv._dw_engine(x, g) == "mma.sync", why
+
+
+def test_misaligned_filter_gradient_operands_keep_the_mma_sync_tile():
+    buf = torch.zeros(2 * 7 * 7 * 64 + 8, dtype=torch.bfloat16)
+    x = buf[1:1 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    g = buf[8:8 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    assert x.data_ptr() % 16 == 2 and g.data_ptr() % 16 == 0
+    assert kconv._dw_engine(x, g) == "mma.sync"
+    assert kconv._dw_engine(g, x) == "mma.sync"
+    assert kconv._dw_engine(g, g) == "wgmma"
+
+
+def test_the_filter_gradient_c_entry_mirrors_the_rule():
+    """``ptt_conv_dw_nhwc_bf16`` refuses a wgmma launch by the same rule
+    (C % 64, O % 8, x and g aligned) and takes only splits of whole
+    64-pixel steps, the step ``dw_splits_wgmma`` cuts by."""
+    csrc = os.path.join(os.path.dirname(kconv.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "conv_dw.cu")) as f:
+        dw = f.read()
+    assert ("C % 64 != 0 || O % 8 != 0 || !ptt::aligned16(x) || "
+            "!ptt::aligned16(g)") in dw
+    assert "chunk % 64 == 0" in dw and kconv._WG_KSTEP == 64
+    assert "if (!wgmma_dw_takes(" in dw
+    with open(os.path.join(csrc, "wgmma_gemm.cuh")) as f:
+        engine = f.read()
+    assert "constexpr int kBK = 64;" in engine
+    assert "constexpr int kBM = 128;" in engine and kconv._WG_TILE_M == 128
+
+
+@pytest.mark.parametrize("batch", [256, 2])
+@pytest.mark.parametrize("h,c,o,k", RESNET50_CONVS)
+def test_wgmma_filter_gradient_splits_cover_the_pixels(batch, h, c, o, k):
+    """Whole 64-pixel steps in every split but the last one's last step,
+    no split empty, at most two waves of one block an SM, and each split
+    at least 16 steps long unless there is one."""
+    m, pixels = k * k * c, batch * h * h
+    splits, chunk = kconv.dw_splits_wgmma(m, o, pixels)
+    assert chunk % 64 == 0
+    assert splits * chunk >= pixels > (splits - 1) * chunk
+    tiles = math.ceil(m / 128) * math.ceil(o / kconv.wgmma_tile_n(o))
+    assert tiles * splits <= 2 * 132 or splits == 1
+    assert splits == 1 or chunk >= 16 * 64
+    if batch == 256:   # the AMP step: the card filled, within two waves
+        assert tiles * splits >= 0.9 * 132 or tiles > 132
+
+
+def test_ragged_pixel_counts_take_one_split():
+    """98 pixels (2 x 7 x 7): one split of two steps, the second ragged."""
+    assert kconv.dw_splits_wgmma(4608, 512, 98) == (1, 128)
+    assert kconv.dw_splits_wgmma(64, 64, 1) == (1, 64)
+
+
+def test_cpu_filter_gradient_runs_the_plain_version_at_wgmma_shapes():
+    """A bf16 CPU tensor at a shape the wgmma route takes gets the plain
+    version, and no launch is counted."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 7, 7, 64, generator=g).to(torch.bfloat16)
+    dy = torch.randn(2, 7, 7, 128, generator=g).to(torch.bfloat16)
+    before = (kconv.dw_launches_bf16, kconv.dw_launches_bf16_wgmma)
+    for k in (1, 3):
+        got = kconv.conv2d_nhwc_dw(x, dy, k, k // 2)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
+    assert (kconv.dw_launches_bf16, kconv.dw_launches_bf16_wgmma) == before
