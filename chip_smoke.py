@@ -230,6 +230,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# dense TF32 on the tensor cores: a split-TF32 product (the f32 flash
+# backward) is three of them, so its least time is 3 x FLOPs over this
+PEAK_TF32_FLOPS = 495e12
 
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)   # f32 sums of <= 4608 terms, reordered
 # the filter gradient sums over every pixel of the batch (up to 802,816
@@ -363,6 +366,10 @@ TF_PARITY_BATCH, TF_PARITY_SEQ = 1, 128
 # queries and D, through exp, in another order)
 FLASH_ATOL = 1e-4
 FLASH_GRAD_TOL = 1e-3
+# the f32 backward's split-TF32 kernels against a float64 backward: their
+# largest error at most this many times the SIMT kernels' on the same
+# inputs (the split keeps float32 accuracy)
+FLASH_F64_FACTOR = 2.0
 # transformer step, card vs CPU at full width: the loss, max abs err <=
 # TF_PARITY_TOL * max|CPU|; the gradients, parameters and Adam moments the
 # same, or FLOOR_FACTOR times the CPU's own spread under a TF_PERTURB
@@ -1169,7 +1176,13 @@ def phase_flash_kernels(dev, randn, bf16=False):
     gradients within BF16_RTOL / BF16_ATOL, lse within FLASH_ATOL.  Times
     at the step's shape, summed over its 4 launches of each, bound at 67
     TFLOP/s f32 or 989 bf16.  Library: F.scaled_dot_product_attention's
-    forward, and its autograd backward (dq, dk and dv together)."""
+    forward, and its autograd backward (dq, dk and dv together), whose
+    kernels one profiled call names.  f32 also: the SIMT backward kernels
+    that the split-TF32 ones replaced, checked and timed beside them
+    (``simt_ms``), both pairs' largest error against a float64 backward
+    at the step's shape (the split-TF32 one at most FLASH_F64_FACTOR
+    times the SIMT one), and the split-TF32 bound, 3 x FLOPs at 495
+    TFLOP/s (``bound_tf32_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1199,6 +1212,11 @@ def phase_flash_kernels(dev, randn, bf16=False):
         want = kfa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
         errs = [close(f"flash{sfx} {n} {tag}", g, w, True)
                 for n, g, w in zip(("dq", "dk", "dv"), grads, want)]
+        if not bf16:
+            simt = kfa._launch_bwd(q, k, v, out, lse, do, causal, None, None,
+                                   simt=True)
+            for n, g, w in zip(("dq", "dk", "dv"), simt, want):
+                close(f"flash SIMT {n} {tag}", g, w, True)
         return (q, k, v, do, out, lse), [err_fwd, errs[0], max(errs[1:])]
 
     worst = [0.0, 0.0, 0.0]
@@ -1209,7 +1227,8 @@ def phase_flash_kernels(dev, randn, bf16=False):
             worst = [max(w, e) for w, e in zip(worst, errs)]
     log(f"flash{sfx} kernels at ragged shapes (S 200, D 64 and 72, causal "
         f"and not): max err fwd {worst[0]:.2e}, dq {worst[1]:.2e}, dk/dv "
-        f"{worst[2]:.2e}")
+        f"{worst[2]:.2e}" + ("" if bf16 else "; the SIMT dq and dk/dv "
+                             "within the same tolerance"))
 
     h, d = TF_CONFIG["num_heads"], TF_CONFIG["d_model"] // TF_CONFIG["num_heads"]
     b, s, count = TF_BATCH, TF_SEQ, TF_CONFIG["num_layers"]
@@ -1221,7 +1240,10 @@ def phase_flash_kernels(dev, randn, bf16=False):
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     lib_do = do.transpose(1, 2)
     fwd_ms = time_ms(lambda: kfa.flash_attention_fwd(q, k, v, True))
-    dq_ms, dkv_ms = _time_bwd_launches(kfa, q, k, v, out, lse, do)
+    sym = "bf16" if bf16 else "f32"
+    dq_ms, dkv_ms = _time_bwd_launches(
+        kfa, f"ptt_flash_dq_{sym}", f"ptt_flash_dkv_{sym}",
+        lambda: kfa.flash_attention_bwd(q, k, v, out, lse, do, True))
     bwd_ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, lse, do,
                                                      True))
     plain_fwd = time_ms(lambda: kfa.flash_attention_fwd_plain(
@@ -1233,6 +1255,10 @@ def phase_flash_kernels(dev, randn, bf16=False):
         is_causal=True))
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), lib_do, retain_graph=True))
+    lib_names = _library_kernels(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), lib_do, retain_graph=True))
+    log(f"  the library backward ({dt} autograd of F.sdpa) ran: "
+        + "; ".join(f"{n} x{c}" for n, c in lib_names))
     # the work: query-key pairs the causal mask keeps, the bytes of one
     # (B, S, H, D) tensor and of one f32 (B*H, S) row array
     pairs = b * h * s * (s + 1) // 2
@@ -1255,21 +1281,101 @@ def phase_flash_kernels(dev, randn, bf16=False):
         results[name] = sm.result()
     log(f"  the backward wrapper (delta, dq, dk/dv) {bwd_ms:.4f} ms per call;"
         f" plain and library times of dq and dk/dv are the whole backward")
+    if not bf16:
+        simt_dq, simt_dkv = _time_bwd_launches(
+            kfa, "ptt_flash_dq_f32_simt", "ptt_flash_dkv_f32_simt",
+            lambda: kfa._launch_bwd(q, k, v, out, lse, do, True, None, None,
+                                    simt=True))
+        for name, simt_ms in (("flash_attention_dq", simt_dq),
+                              ("flash_attention_dkv", simt_dkv)):
+            r = results[name]
+            flops = rows_of[name][3]
+            r["simt_ms"] = count * simt_ms
+            r["bound_tf32_ms"] = count * 3 * flops / PEAK_TF32_FLOPS * 1e3
+            log(f"  {name}: split-TF32 {r['ms']:.3f} ms, the SIMT kernel it "
+                f"replaced {r['simt_ms']:.3f} ms "
+                f"({r['simt_ms'] / r['ms']:.2f}x) over {count} launches; "
+                f"bound {r['bound_ms']:.3f} ms at 67 "
+                f"TFLOP/s f32, {r['bound_tf32_ms']:.3f} ms as split TF32 (3 x "
+                f"FLOPs at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s)")
+        pair = results["flash_attention_dq"], results["flash_attention_dkv"]
+        log(f"  dq + dk/dv: split-TF32 {pair[0]['ms'] + pair[1]['ms']:.3f} ms,"
+            f" SIMT {pair[0]['simt_ms'] + pair[1]['simt_ms']:.3f} ms, library "
+            f"{lib_bwd * count:.3f} ms (whole backward), bound "
+            f"{pair[0]['bound_ms'] + pair[1]['bound_ms']:.3f} ms at 67 TFLOP/s"
+            f" f32, {pair[0]['bound_tf32_ms'] + pair[1]['bound_tf32_ms']:.3f} "
+            "ms as split TF32")
+        _flash_f64_precision(kfa, q, k, v, out, lse, do, tag)
     del q, k, v, do, out, lse, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
     return results
 
 
-def _time_bwd_launches(kfa, q, k, v, out, lse, do, reps=10):
+def _flash_f64_precision(kfa, q, k, v, out, lse, do, tag):
+    """The split-TF32 and the SIMT backward's largest errors against dq,
+    dk and dv in float64 (einsum on ``.double()`` copies of the same
+    inputs, the kernel's own out and lse among them; causal); fails if
+    the split-TF32 one passes FLASH_F64_FACTOR times the SIMT one."""
+    import torch
+
+    b, s, h, d = q.shape
+    new = kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    old = kfa._launch_bwd(q, k, v, out, lse, do, True, None, None, simt=True)
+    qd, kd, vd, od, dod = (t.double() for t in (q, k, v, out, do))
+    scale = d ** -0.5
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(sc.masked_fill(~keep, float("-inf"))
+                  - lse.double().reshape(b, h, s)[..., None])
+    del sc
+    delta = (dod * od).sum(-1).permute(0, 2, 1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+              - delta[..., None]) * scale
+    exact = (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+             torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+             torch.einsum("bhqk,bqhd->bkhd", p, dod))
+    del p, ds
+    parts = []
+    for name, a, o, x in zip(("dq", "dk", "dv"), new, old, exact):
+        e_new = float((a.double() - x).abs().max())
+        e_old = float((o.double() - x).abs().max())
+        parts.append(f"{name} {e_new:.3e} vs {e_old:.3e} "
+                     f"({e_new / e_old:.2f}x; max|grad| "
+                     f"{float(x.abs().max()):.3e})")
+        if not e_new <= FLASH_F64_FACTOR * e_old:
+            fail(f"flash {name} {tag}: split-TF32 error {e_new:.3e} against "
+                 f"float64 passes {FLASH_F64_FACTOR}x the SIMT kernel's "
+                 f"{e_old:.3e}")
+    log(f"  against a float64 backward at {tag}, largest error split-TF32 "
+        "vs SIMT: " + "; ".join(parts))
+    del new, old, exact
+    torch.cuda.empty_cache()
+
+
+def _library_kernels(fn):
+    """[(kernel name, launches)] of the CUDA kernels one profiled call of
+    ``fn`` ran, after one unprofiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:90], e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def _time_bwd_launches(kfa, dq_name, dkv_name, run, reps=10):
     """Median ms of the dq launch and of the dk/dv launch of one backward
-    call, each bracketed by CUDA events on the current stream."""
+    call ``run()``, each bracketed by CUDA events on the current stream
+    around the library's entries ``dq_name`` and ``dkv_name``."""
     import torch
 
     lib = kfa._build.load("flash_attention", kfa._SIGNATURES)
     marks = []
-    sfx = kfa._build.SUFFIX[q.dtype]
-    real = {n: getattr(lib, n) for n in (f"ptt_flash_dq_{sfx}",
-                                          f"ptt_flash_dkv_{sfx}")}
+    real = {n: getattr(lib, n) for n in (dq_name, dkv_name)}
 
     def timed_entry(fn):
         def call(*args):
@@ -1286,11 +1392,11 @@ def _time_bwd_launches(kfa, q, k, v, out, lse, do, reps=10):
         setattr(lib, n, timed_entry(fn))
     try:
         for _ in range(2):
-            kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+            run()
         torch.cuda.synchronize()
         marks.clear()
         for _ in range(reps):
-            kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+            run()
         torch.cuda.synchronize()
     finally:
         for n, fn in real.items():
@@ -3102,14 +3208,17 @@ def profile_transformer_steps():
 
     def path(amp):
         sfx, kind = ("_bf16", "AMP bf16") if amp else ("", "f32")
+        # the f32 backward runs the split-TF32 kernels
+        bwd = "_bf16" if amp else "_tf32"
         # every bf16 product of the step (8192 rows) on the wgmma engine
         mm = "wgmma_gemm_kernel" if amp else "matmul_f32_kernel"
         return amp, (prog, startup, loss, feed,
                      f"transformer step at B {TF_BATCH} S {TF_SEQ} ({kind})",
                      {"flash kernels": ["flash_"], "matmul kernel": [mm],
                       "mul backward products": "matmul_backward"},
-                     {f"flash_{k}{sfx}_kernel": layers
-                      for k in ("fwd", "dq", "dkv")} | {mm: 4 * layers + 1})
+                     {f"flash_fwd{sfx}_kernel": layers,
+                      f"flash_dq{bwd}_kernel": layers,
+                      f"flash_dkv{bwd}_kernel": layers, mm: 4 * layers + 1})
 
     profile_paths({"tf": path(False), "tf_amp": path(True)})
 
@@ -3881,6 +3990,15 @@ def main():
             elif ("registers" in line or "spill" in line
                   or "Performance" in line or "warning" in line):
                 log(f"  {name} {entry}: {line.strip()}")
+    # the f32 flash backward's instruction mix at the transformer's D 128
+    for kern in ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"):
+        for fn, ops in _build.sass_opcodes("flash_attention", kern,
+                                           "Li128ELb1E").items():
+            n, mma = sum(ops.values()), ops.get("HMMA", 0)
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+            log(f"  {kern}<D 128, 16-byte loads> SASS: {n} instructions, "
+                f"{mma} HMMA ({n / max(mma, 1):.1f} a product); "
+                + ", ".join(f"{op} {c}" for op, c in top))
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
@@ -4035,6 +4153,8 @@ def main():
              library_ms=k["library_ms"],
              **({"gather_sdpa_ms": k["gather_sdpa_ms"]}
                 if "gather_sdpa_ms" in k else {}),
+             **({"simt_ms": k["simt_ms"], "bound_tf32_ms": k["bound_tf32_ms"]}
+                if "simt_ms" in k else {}),
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
                                             wgmma_by_path.items()},

@@ -29,15 +29,63 @@
 // 0.51 ms at 67 TFLOP/s f32), dq 3 and dk/dv 4 such products, while the
 // bytes (q, k, v, o, do at 34 MB each in bf16) take 0.05 ms at 3.35 TB/s.
 //
-// float32 (ptt_flash_*_f32): a simple SIMT kernel.  A tile is BT query or
-// key rows, 64 for D <= 128 and 32 for D <= 256, so that the f32 tiles
-// fit the 227 KB of shared memory a block may have (dk/dv holds six:
-// 165 KB at D 128, one block per SM).  A block of 4 * BT threads computes
-// each BT x BT score tile as 4 x (BT / 16) sub-tiles per thread with
-// fmaf, rows ty + (BT / 4) i and columns tx + 16 j, so a row's max and
-// sum are shuffles over 16 lanes; the products with V, K, Q and dO give
-// each thread the same 4 rows and the head-dim columns tx + 16 j.  Tiles
-// read across rows at one d have a row pitch of DPAD + 1.
+// float32 forward (ptt_flash_fwd_f32), and the float32 backward's earlier
+// kernels (ptt_flash_{dq,dkv}_f32_simt, which the wrapper no longer
+// launches: they stay to be timed and checked beside the new ones): simple
+// SIMT kernels.  A tile is BT query or key rows, 64 for D <= 128 and 32
+// for D <= 256, so that the f32 tiles fit the 227 KB of shared memory a
+// block may have (dk/dv holds six: 165 KB at D 128, one block per SM).  A
+// block of 4 * BT threads computes each BT x BT score tile as 4 x (BT /
+// 16) sub-tiles per thread with fmaf, rows ty + (BT / 4) i and columns
+// tx + 16 j, so a row's max and sum are shuffles over 16 lanes; the
+// products with V, K, Q and dO give each thread the same 4 rows and the
+// head-dim columns tx + 16 j.  Tiles read across rows at one d have a row
+// pitch of DPAD + 1.  Bound by shared-memory loads (two FMAs a load).
+//
+// float32 backward (ptt_flash_{dq,dkv}_f32, namespace tf32): the tensor cores
+// in split TF32.  Each f32 operand x is hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna.tf32.f32; x - hi is exact), and each product is three
+// mma.sync.m16n8k8 tf32 with f32 sums, lo hi + hi lo + hi hi; lo lo (at most
+// 2^-22 |a b|) is dropped.  hi + lo holds x to 2^-22 |x|, so a product keeps
+// float32 accuracy, and nothing else is rounded (the f32 function rounds
+// nothing, unlike the bf16 instance).  The tensor cores truncate their sums, so
+// no long sum runs through them: in a product over the head dim the hi hi terms
+// of each 4 k8 steps (32 terms) go into a fresh accumulator, which an f32 add
+// (round to nearest) takes into the running one, while lo hi and hi lo, 2^-10
+// of it, run in an accumulator of their own; in a product over keys or queries
+// each 2 k8 steps (16 terms, all three products, the small ones first) go into
+// a fresh accumulator.  Summed in one accumulator, or in 32-term chunks of all
+// three products, the error against float64 passed twice the SIMT kernels' at S
+// 200 (kStepsD, kStepsS).  cvt.rna.tf32.f32 compiles to four instructions (an
+// add, an inf/NaN test, a select, a mask), so a split costs nine, and split at
+// every fragment load the conversions took most of the issue slots
+// (chip_smoke.py's phase 1 prints the opcode counts).  So the streaming operand
+// (k and v in dq; q and do in dk/dv) is split once a tile, by all the block's
+// threads, into hi and lo tiles that every warp reads as they are; the resident
+// operand (q and do in dq; k and v in dk/dv), each warp's own rows, is split as
+// its fragments load, once a k8 step for 2-4 n8 tiles; p and ds, made in
+// registers, are split there.  Scores never leave registers: m16n8k8's f32 C
+// fragment gives a lane columns 2t and 2t + 1 where the tf32 A fragment wants
+// columns t and t + 4, so the second products (ds k; in dk/dv, which forms S^T
+// = k q^T and dP^T = v do^T, p^T do and ds^T q) take the reduction index
+// permuted: A's k index t is key (query) 2t and t + 4 is 2t + 1, and the B
+// fragment reads rows 2t and 2t + 1 to match.  The [row][d] fragments (both
+// operands of q k^T and do v^T) come by ldmatrix, whose b16 pairs are f32
+// elements; ldmatrix .trans moves 16-bit elements, so the permuted [key][d] B
+// fragments of the second products come by 32-bit shared loads.  f32 tiles are
+// unpadded, DPAD floats a row, with the 16-byte chunk c of row r at c ^ (r %
+// 8), which makes both conflict-free: ldmatrix's 8 rows of 16 bytes, and the
+// 32-bit loads of rows 2t, 2t + 1 at column g.  A block is 8 warps of 16 rows:
+// dq 128 query rows over 32-key tiles of K and V, dk/dv 128 key rows over
+// 32-query tiles of Q, dO, lse and delta.  Each tile lands raw by 16-byte
+// cp.async copies while the previous tile's products run, and is split after
+// the next barrier (shared memory at D 128: dq 229,376 bytes, dk/dv 229,888, of
+// the 232,448 a block may have; one block an SM); at D 256 dq takes 64 rows
+// over 16-key tiles and dk/dv 64 key rows over 16-query tiles with the head dim
+// split between warp pairs.  dq, dk and dv are stored from the accumulators as
+// float2 (element-wise stores where the load variant is, below).  A split-TF32
+// product costs three TF32 products (495 TFLOP/s dense), so its least time is 3
+// x FLOPs / 495e12: under the 67 TFLOP/s f32 bound it is held to.
 //
 // bf16 (ptt_flash_*_bf16, namespace tc): the tensor cores.  Each product
 // is mma.sync.m16n8k16 with bf16 operands and f32 sums, and rounds where
@@ -82,7 +130,9 @@
 // same kernel with element-wise loads and stores (kVec false).
 // Left for later: wgmma over TMA-fed shared tiles with a producer warp
 // (the FlashAttention-3 shape), two row blocks a warp in dq and dk/dv,
-// exp2 with the scale folded in.
+// exp2 with the scale folded in; for the split-TF32 backward, hi/lo tiles
+// split once a stage in shared memory instead of at every fragment load,
+// and the f32 forward on the same fragments.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -645,6 +695,48 @@ int dkv_any(const E* q, const E* k, const E* v, const E* dout,
   if (D <= 256)
     return dkv<32, 256>(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D, sq,
                         sk, sv, sdo, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// launch helpers of the tensor-core kernels (bf16, and the float32 backward)
+// ---------------------------------------------------------------------------
+
+// Whether every tensor of element type E allows the 16-byte path: D a
+// multiple of the elements in 16 bytes, and each base pointer and element
+// stride 16-byte aligned.
+template <class E>
+bool vec_ok(int D, std::initializer_list<const void*> ptrs,
+            std::initializer_list<Strides> strides) {
+  constexpr int n = 16 / sizeof(E);
+  if (D % n) return false;
+  for (const void* p : ptrs)
+    if (!ptt::aligned16(p)) return false;
+  for (const Strides& s : strides)
+    if (s.b % n || s.s % n || s.h % n) return false;
+  return true;
+}
+
+template <class Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// f(DPAD, kVec) for the smallest padded head dim of 64, 128 or 256 that
+// holds D, as compile-time constants; kVec picks the 16-byte cp.async
+// loads and stores, else the element-wise variant of the same kernel.
+template <class F>
+int by_head_dim(int D, bool vec, F&& f) {
+  using Vec = std::true_type;
+  using Elem = std::false_type;
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  using D256 = std::integral_constant<int, 256>;
+  if (D <= 64) return vec ? f(D64{}, Vec{}) : f(D64{}, Elem{});
+  if (D <= 128) return vec ? f(D128{}, Vec{}) : f(D128{}, Elem{});
+  if (D <= 256) return vec ? f(D256{}, Vec{}) : f(D256{}, Elem{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1244,25 +1336,6 @@ __global__ void __launch_bounds__(kThreads)
 // bf16 launches
 // ---------------------------------------------------------------------------
 
-// Whether every tensor allows the 16-byte path: D % 8 == 0 and each base
-// pointer and element stride 16-byte aligned (8 bf16).
-inline bool vec_ok(int D, std::initializer_list<const void*> ptrs,
-                   std::initializer_list<Strides> strides) {
-  if (D % 8) return false;
-  for (const void* p : ptrs)
-    if (!ptt::aligned16(p)) return false;
-  for (const Strides& s : strides)
-    if (s.b % 8 || s.s % 8 || s.h % 8) return false;
-  return true;
-}
-
-template <class Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
 template <int MT, int BK, int DPAD, bool kVec>
 int fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
         int B, int H, int S, int D, Strides sq, Strides sk, Strides sv,
@@ -1313,26 +1386,10 @@ constexpr int key_tile(int dpad) { return dpad <= 128 ? 64 : 32; }
 constexpr int fwd_row_blocks(int dpad) { return dpad <= 128 ? 2 : 1; }
 constexpr int kDqRows = 64;
 
-// f(DPAD, kVec) for the smallest padded head dim of 64, 128 or 256 that
-// holds D, as compile-time constants; kVec picks the 16-byte cp.async
-// loads and stores, else the element-wise variant of the same kernel.
-template <class F>
-int by_head_dim(int D, bool vec, F&& f) {
-  using Vec = std::true_type;
-  using Elem = std::false_type;
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  using D256 = std::integral_constant<int, 256>;
-  if (D <= 64) return vec ? f(D64{}, Vec{}) : f(D64{}, Elem{});
-  if (D <= 128) return vec ? f(D128{}, Vec{}) : f(D128{}, Elem{});
-  if (D <= 256) return vec ? f(D256{}, Vec{}) : f(D256{}, Elem{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 int fwd_any(const bf16* q, const bf16* k, const bf16* v, bf16* out,
             float* lse, int B, int H, int S, int D, Strides sq, Strides sk,
             Strides sv, float scale, int causal, cudaStream_t stream) {
-  const bool vec = vec_ok(D, {q, k, v, out}, {sq, sk, sv});
+  const bool vec = vec_ok<bf16>(D, {q, k, v, out}, {sq, sk, sv});
   return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
     constexpr int DP = decltype(dpad)::value;
     constexpr bool V = decltype(kvec)::value;
@@ -1345,7 +1402,7 @@ int dq_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
            const float* lse, const float* delta, bf16* dqo, int B, int H,
            int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
            float scale, int causal, cudaStream_t stream) {
-  const bool vec = vec_ok(D, {q, k, v, dout, dqo}, {sq, sk, sv, sdo});
+  const bool vec = vec_ok<bf16>(D, {q, k, v, dout, dqo}, {sq, sk, sv, sdo});
   return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
     constexpr int DP = decltype(dpad)::value;
     return dq<kDqRows, key_tile(DP), DP, decltype(kvec)::value>(
@@ -1358,7 +1415,8 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
             const float* lse, const float* delta, bf16* dko, bf16* dvo,
             int B, int H, int S, int D, Strides sq, Strides sk, Strides sv,
             Strides sdo, float scale, int causal, cudaStream_t stream) {
-  const bool vec = vec_ok(D, {q, k, v, dout, dko, dvo}, {sq, sk, sv, sdo});
+  const bool vec =
+      vec_ok<bf16>(D, {q, k, v, dout, dko, dvo}, {sq, sk, sv, sdo});
   return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
     constexpr int DP = decltype(dpad)::value;
     return dkv<key_tile(DP), key_tile(DP), DP, decltype(kvec)::value>(
@@ -1369,6 +1427,609 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32 backward: split-TF32 products on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tf32 {
+
+using ptt::cp_async16;
+using ptt::cp_async4;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
+
+// k8 steps summed in a fresh accumulator before it is added to the
+// running one (see the header): 4 over the head dim (q k^T, do v^T: the
+// hi hi terms; lo hi and hi lo run in a sum of their own), 2 over keys
+// or queries (ds k, p^T do, ds^T q: all three terms).
+constexpr int kStepsD = 4;
+constexpr int kStepsS = 2;
+
+// Element (row, col) of a shared f32 tile DPAD floats wide, unpadded: the
+// 16-byte chunk col / 4 of a row sits at chunk (col / 4) ^ (row % 8), so
+// the 8 rows of an ldmatrix block and the rows 2t, 2t + 1 of a permuted B
+// fragment fall in distinct banks (see the header).
+template <int DPAD>
+__device__ __forceinline__ int at(int row, int col) {
+  return row * DPAD + ((col >> 2) ^ (row & 7)) * 4 + (col & 3);
+}
+
+// tf32(x): round to nearest, ties away from zero, to 10 mantissa bits (the
+// f32 bits with the low 13 cleared).
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi + lo: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+
+// A split operand fragment: hi and lo.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+using FragA = Frag<4>;
+using FragB = Frag<2>;
+
+// d += a b on the tensor cores, m16n8k8, tf32 operands and f32 sums.
+// Lane (g = lane / 4, t = lane % 4) holds a[0] (row g, k t), a[1] (row
+// g + 8, k t), a[2] (row g, k t + 4), a[3] (row g + 8, k t + 4); b[0]
+// (k t, column g), b[1] (k t + 4, column g); d[0..1] (row g, columns 2t,
+// 2t + 1), d[2..3] (row g + 8, the same columns).
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b of split operands: lo hi + hi lo + hi hi, the small terms
+// first; lo lo (at most 2^-22 |a b|) is dropped.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_1688(d, a.lo, b.hi);
+  mma_1688(d, a.hi, b.lo);
+  mma_1688(d, a.hi, b.hi);
+}
+
+// Four 8 x 4 f32 blocks from shared memory with one ldmatrix: read as b16
+// pairs, lane (g, t) gets row g, f32 column t of block i in r[i], which
+// is where the tf32 A and B fragments want them.  Lane l gives the
+// address of row l % 8 of block l / 8.
+__device__ __forceinline__ void ldsm_f32(uint32_t (&r)[4], const float* p) {
+  ptt::ldsm_x4<false>(r, reinterpret_cast<const bf16*>(p));
+}
+
+// This lane's offsets (in floats, from a tile's start) of the fragments it
+// loads, for at()'s layout: the XOR of a chunk with the row takes only the
+// chunk's low 3 bits, so with the row's low 3 bits fixed by the lane, the
+// offset of k8 step kk (or n8 tile n) is off[kk % 4] + 32 (kk / 4), and
+// each load below is one register plus an immediate.
+struct Lane {
+  int a[4];      // A fragments, rows [ar0, ar0 + 16), columns 8 kk
+  int b[4];      // B pairs of an A B^T product, rows [0, 16), columns 8 kk
+  int kn[4][2];  // permuted B of a C B product, rows 2t and 2t + 1,
+                 // columns bc0 + 8 n + g
+};
+
+template <int DPAD>
+__device__ __forceinline__ Lane lane_offsets(int ar0, int bc0) {
+  const int lane = threadIdx.x % 32, m = lane / 8, x = lane % 8;
+  const int g = lane / 4, t = lane % 4;
+  Lane o;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o.a[i] = (ar0 + 8 * (m % 2) + x) * DPAD + ((2 * i + m / 2) ^ x) * 4;
+    o.b[i] = (8 * (m / 2) + x) * DPAD + ((2 * i + m % 2) ^ x) * 4;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      o.kn[i][e] = (2 * t + e) * DPAD + bc0 +
+                   ((2 * i + g / 4) ^ (2 * t + e)) * 4 + g % 4;
+  }
+  return o;
+}
+
+// The A fragment of 16 rows x 8 columns of a raw shared tile at this
+// lane's ldmatrix address p (blocks: rows 0-7 | 8-15 x columns 0-3 |
+// 4-7), split.
+__device__ __forceinline__ void ld_a(FragA& f, const float* p) {
+  uint32_t r[4];
+  ldsm_f32(r, p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), f.hi[i], f.lo[i]);
+}
+
+// The B fragments of B[k][n] = tile[n][k] for n rows 0-7 (f0) and 8-15
+// (f1) x 8 k columns, from the hi and lo tiles of a split shared tile at
+// this lane's ldmatrix offset: the right operand of an A B^T product, two
+// n8 tiles.
+__device__ __forceinline__ void ld_b_nk2(FragB& f0, FragB& f1,
+                                         const float* hi, const float* lo,
+                                         int off) {
+  uint32_t h[4], l[4];
+  ldsm_f32(h, hi + off);
+  ldsm_f32(l, lo + off);
+  f0 = {{h[0], h[1]}, {l[0], l[1]}};
+  f1 = {{h[2], h[3]}, {l[2], l[3]}};
+}
+
+// The B fragment of B[k][n] = tile[k][n], 8 k rows x 8 n columns of a
+// split shared tile, with k in the order a_of_c gives A's (k index t is
+// row 2t, t + 4 is row 2t + 1): this lane's elements at offsets o0, o1.
+__device__ __forceinline__ void ld_b_kn(FragB& f, const float* hi,
+                                        const float* lo, int o0, int o1) {
+  f = {{__float_as_uint(hi[o0]), __float_as_uint(hi[o1])},
+       {__float_as_uint(lo[o0]), __float_as_uint(lo[o1])}};
+}
+
+// The A fragment of a 16 x 8 block held in registers as one m16n8 C
+// fragment c, its columns taken as k in the permuted order (k index t is
+// column 2t, t + 4 is column 2t + 1): the lane holds exactly those.
+__device__ __forceinline__ void a_of_c(FragA& f, const float (&c)[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// acc[j] (16 x 8N) += A B^T over the head-dim columns [0, 8K): A the rows
+// [ar0, ar0 + 16) of the raw tile a (ar0 in ln), B the rows [0, 8N) of
+// the split tile (bh, bl), both row-major over the head dim (a
+// QK^T-shaped product).  The small terms (lo hi, hi lo) run in one sum
+// over all 8K columns, at most 2^-10 of the product, so its truncation is
+// negligible; the hi hi terms go into fresh sums of kStepsD k8 steps,
+// each added to acc in f32.
+template <int N, int K, int DPAD>
+__device__ __forceinline__ void mma_abt(float (&acc)[N][4], const float* a,
+                                        const float* bh, const float* bl,
+                                        const Lane& ln) {
+  static_assert(K % kStepsD == 0 && N % 2 == 0, "k8 chunks, n8 pairs");
+  float small[N][4], part[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) small[j][e] = part[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    FragA fa;
+    ld_a(fa, a + ln.a[kk % 4] + 32 * (kk / 4));
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      FragB fb[2];
+      ld_b_nk2(fb[0], fb[1], bh, bl,
+               ln.b[kk % 4] + 32 * (kk / 4) + 8 * j * DPAD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_1688(small[j + i], fa.lo, fb[i].hi);
+        mma_1688(small[j + i], fa.hi, fb[i].lo);
+        mma_1688(part[j + i], fa.hi, fb[i].hi);
+      }
+    }
+    if ((kk + 1) % kStepsD == 0) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += part[j][e];
+          part[j][e] = 0.f;
+        }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+}
+
+// acc[n] (16 x 8N) += C B: C the 16 x 8NK block held as the C fragments
+// c (scores, never stored), B the rows [0, 8NK) x columns [bc0, bc0 + 8N)
+// of the split tile (bh, bl) (bc0 in ln; a PV-shaped product).  Each
+// kStepsS k8 steps of an n8 tile go into a fresh accumulator, added to
+// acc in f32.
+template <int N, int NK, int DPAD>
+__device__ __forceinline__ void mma_cb(float (&acc)[N][4],
+                                       const float (&c)[NK][4],
+                                       const float* bh, const float* bl,
+                                       const Lane& ln) {
+  static_assert(NK % kStepsS == 0, "key or query chunks");
+  FragA fa[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) a_of_c(fa[j], c[j]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int j0 = 0; j0 < NK; j0 += kStepsS) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = j0; j < j0 + kStepsS; ++j) {
+        const int o = 32 * (n / 4) + 8 * j * DPAD;
+        FragB fb;
+        ld_b_kn(fb, bh, bl, ln.kn[n % 4][0] + o, ln.kn[n % 4][1] + o);
+        mma3(part, fa[j], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+}
+
+// Rows [row0, row0 + R) x columns [0, DPAD) of a (b, h) slice (`base`,
+// row stride `rs`) into the shared tile `dst` (at()'s layout), all NT
+// threads: 16-byte cp.async chunks (kVec: base and rs 16-byte aligned,
+// D % 4 == 0), or element loads and stores.  Rows past S and columns
+// past D are zero.
+template <int R, int DPAD, int NT, bool kVec>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const float* __restrict__ base,
+                                          long long rs, int row0, int S,
+                                          int D) {
+  constexpr int CH = DPAD / 4;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < R * CH; idx += NT) {
+    const int r = idx / CH, c = 4 * (idx % CH);
+    const float* src = base + (row0 + r) * rs + c;
+    float* d = dst + at<DPAD>(r, c);
+    const bool row_ok = row0 + r < S;
+    if constexpr (kVec) {
+      const bool ok = row_ok && c < D;
+      cp_async16(d, ok ? src : base, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[e] = row_ok && c + e < D ? src[e] : 0.f;
+    }
+  }
+}
+
+// The R x DPAD raw tile `raw` split into the tiles hi and lo of the same
+// layout, all NT threads.
+template <int R, int DPAD, int NT>
+__device__ __forceinline__ void split_tile(float* __restrict__ hi,
+                                           float* __restrict__ lo,
+                                           const float* __restrict__ raw) {
+#pragma unroll
+  for (int i = 4 * threadIdx.x; i < R * DPAD; i += 4 * NT) {
+    const float4 x = *reinterpret_cast<const float4*>(raw + i);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// Entries [row0, row0 + R) of one (b*h) row of a float (BH, S) array.
+template <int R, int NT>
+__device__ __forceinline__ void load_vec(float* __restrict__ dst,
+                                         const float* __restrict__ src,
+                                         int row0, int S) {
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool ok = row0 + r < S;
+    cp_async4(dst + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// One warp's f32 accumulator rows (16 x 8N, m16n8 C fragments) to rows
+// row0 + g, row0 + g + 8 and columns [c0, c0 + 8N) of the contiguous
+// (B, S, H, D) output at (b, h); rows past S and columns past D are not
+// stored.  kVec: D % 4 == 0 and dst 16-byte aligned, so float2 stores.
+template <int N, bool kVec>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[N][4], int b,
+                                           int h, int row0, int c0, int H,
+                                           int S, int D) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + g + 8 * r;
+    if (s >= S) continue;
+    float* o = dst + ((static_cast<long long>(b) * S + s) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int c = c0 + 8 * n + 2 * t;
+      if constexpr (kVec) {
+        if (c < D)
+          *reinterpret_cast<float2*>(o + c) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      } else {
+        if (c < D) o[c] = acc[n][2 * r];
+        if (c + 1 < D) o[c + 1] = acc[n][2 * r + 1];
+      }
+    }
+  }
+}
+
+// dq: a block of NW warps owns BQ = 16 NW query rows (warp w rows 16 w ..
+// 16 w + 15) and walks BK-key tiles of K and V: each lands raw by
+// cp.async while the previous one's products run, and is split into hi
+// and lo tiles once for all warps.
+template <int NW, int BK, int DPAD, bool kVec>
+__global__ void __launch_bounds__(32 * NW)
+    flash_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, Strides sq, Strides sk,
+                         Strides sv, Strides sdo, int H, int S, int D,
+                         float scale, int causal) {
+  constexpr int NT = 32 * NW, BQ = 16 * NW, T = BK * DPAD;
+  constexpr int NS = BK / 8, ND = DPAD / 8;
+  extern __shared__ __align__(16) float flash_tf32_smem[];
+  float* Qs = flash_tf32_smem;  // BQ x DPAD, raw
+  float* dOs = Qs + BQ * DPAD;  // BQ x DPAD, raw
+  float* Kr = dOs + BQ * DPAD;  // BK x DPAD each: K and V raw, then
+  float* Vr = Kr + T;           // split into hi and lo
+  float* Kh = Vr + T;
+  float* Kl = Kh + T;
+  float* Vh = Kl + T;
+  float* Vl = Vh + T;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const long long row_base = static_cast<long long>(bh) * S;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int nk = (S + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  const Lane ln = lane_offsets<DPAD>(wr, 0);
+
+  load_tile<BQ, DPAD, NT, kVec>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+  load_tile<BQ, DPAD, NT, kVec>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s,
+                                q0, S, D);
+  load_tile<BK, DPAD, NT, kVec>(Kr, kb, sk.s, 0, S, D);
+  load_tile<BK, DPAD, NT, kVec>(Vr, vb, sv.s, 0, S, D);
+  cp_async_commit();
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lr[i] = row[i] < S ? lse[row_base + row[i]] : 0.f;
+    dr[i] = row[i] < S ? delta[row_base + row[i]] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const int k0 = kt * BK;
+    // tile kt has landed raw, and every warp is done with tile kt - 1's
+    // split tiles; split tile kt, then take tile kt + 1 while it runs
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile<BK, DPAD, NT>(Kh, Kl, Kr);
+    split_tile<BK, DPAD, NT>(Vh, Vl, Vr);
+    __syncthreads();
+    if (kt + 1 < kend) {
+      load_tile<BK, DPAD, NT, kVec>(Kr, kb, sk.s, k0 + BK, S, D);
+      load_tile<BK, DPAD, NT, kVec>(Vr, vb, sv.s, k0 + BK, S, D);
+      cp_async_commit();
+    }
+    // a warp whose rows all precede the tile's keys has nothing to add
+    if (causal && k0 > q0 + wr + 15) continue;
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<NS, ND, DPAD>(s, Qs, Kh, Kl, ln);
+    mma_abt<NS, ND, DPAD>(dp, dOs, Vh, Vl, ln);
+
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0 + wr);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = !edge || (col < S && (!causal || col <= row[e / 2]));
+        const float p = ok ? expf(s[j][e] * scale - lr[e / 2]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dr[e / 2]) * scale;  // ds
+      }
+    mma_cb<ND, NS, DPAD>(acc, s, Kh, Kl, ln);  // acc += ds K
+  }
+  store_rows<ND, kVec>(dq, acc, b, h, q0 + wr, 0, H, S, D);
+}
+
+// dk and dv: a block of NW warps owns BKV = 16 RW key rows and walks
+// BQ-query tiles of Q, dO, lse and delta, each landing raw by cp.async
+// while the previous one's products run, Q and dO split into hi and lo
+// tiles once for all warps.  Warp w owns key rows 16 (w % RW) and
+// head-dim columns DW (w / RW) of dk and dv (to D 128 every warp its own
+// rows, all columns; at D 256 the columns split between warp pairs, each
+// forming the whole S^T and dP^T of its rows: two f32 accumulators of
+// 16 x 256 would not fit a thread's registers).
+template <int NW, int RW, int BQ, int DPAD, bool kVec>
+__global__ void __launch_bounds__(32 * NW)
+    flash_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Strides sq, Strides sk, Strides sv, Strides sdo,
+                          int H, int S, int D, float scale, int causal) {
+  constexpr int NT = 32 * NW, BKV = 16 * RW, T = BQ * DPAD;
+  constexpr int DW = DPAD / (NW / RW), NQ = BQ / 8, NDW = DW / 8;
+  static_assert(NW % RW == 0 && (NW / RW) * DW == DPAD, "tile shape");
+  extern __shared__ __align__(16) float flash_tf32_smem[];
+  float* Ks = flash_tf32_smem;   // BKV x DPAD, raw
+  float* Vs = Ks + BKV * DPAD;   // BKV x DPAD, raw
+  float* Qr = Vs + BKV * DPAD;   // BQ x DPAD each: Q and dO raw, then
+  float* dOr = Qr + T;           // split into hi and lo
+  float* Qh = dOr + T;
+  float* Ql = Qh + T;
+  float* dOh = Ql + T;
+  float* dOl = dOh + T;
+  float* Lr = dOl + T;           // BQ each: lse and delta as they land,
+  float* Dr = Lr + BQ;           // and as the split tiles' products read
+  float* Lc = Dr + BQ;           // them
+  float* Dc = Lc + BQ;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BKV;  // causal: the low key tiles loop longest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int wr = 16 * (warp % RW), dc = DW * (warp / RW);
+  const int krow[2] = {k0 + wr + lane / 4, k0 + wr + lane / 4 + 8};
+  const long long row_base = static_cast<long long>(bh) * S;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* db = dout + b * sdo.b + h * sdo.h;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const Lane ln = lane_offsets<DPAD>(wr, dc);
+
+  load_tile<BKV, DPAD, NT, kVec>(Ks, k + b * sk.b + h * sk.h, sk.s, k0, S, D);
+  load_tile<BKV, DPAD, NT, kVec>(Vs, v + b * sv.b + h * sv.h, sv.s, k0, S, D);
+  load_tile<BQ, DPAD, NT, kVec>(Qr, qb, sq.s, qt0 * BQ, S, D);
+  load_tile<BQ, DPAD, NT, kVec>(dOr, db, sdo.s, qt0 * BQ, S, D);
+  load_vec<BQ, NT>(Lr, lse + row_base, qt0 * BQ, S);
+  load_vec<BQ, NT>(Dr, delta + row_base, qt0 * BQ, S);
+  cp_async_commit();
+
+  float adk[NDW][4], adv[NDW][4];
+#pragma unroll
+  for (int n = 0; n < NDW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * BQ;
+    cp_async_wait<0>();  // as in dq
+    __syncthreads();
+    split_tile<BQ, DPAD, NT>(Qh, Ql, Qr);
+    split_tile<BQ, DPAD, NT>(dOh, dOl, dOr);
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      Lc[r] = Lr[r];
+      Dc[r] = Dr[r];
+    }
+    __syncthreads();
+    if (qt + 1 < nq) {
+      const int n0 = q0 + BQ;
+      load_tile<BQ, DPAD, NT, kVec>(Qr, qb, sq.s, n0, S, D);
+      load_tile<BQ, DPAD, NT, kVec>(dOr, db, sdo.s, n0, S, D);
+      load_vec<BQ, NT>(Lr, lse + row_base, n0, S);
+      load_vec<BQ, NT>(Dr, delta + row_base, n0, S);
+      cp_async_commit();
+    }
+    // every query of the tile precedes the warp's keys
+    if (causal && q0 + BQ - 1 < k0 + wr) continue;
+    // S^T = K Q^T and dP^T = V dO^T, key rows x query columns
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<NQ, DPAD / 8, DPAD>(s, Ks, Qh, Ql, ln);
+    mma_abt<NQ, DPAD / 8, DPAD>(dp, Vs, dOh, dOl, ln);
+
+    const bool edge = q0 + BQ > S || (causal && q0 < k0 + wr + 15);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qcol = 8 * j + 2 * t + (e & 1);
+        const int qrow = q0 + qcol;
+        const bool ok =
+            !edge || (qrow < S && (!causal || qrow >= krow[e / 2]));
+        const float p = ok ? expf(s[j][e] * scale - Lc[qcol]) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - Dc[qcol]) * scale;  // ds
+      }
+    mma_cb<NDW, NQ, DPAD>(adv, s, dOh, dOl, ln);  // dv += p^T dO
+    mma_cb<NDW, NQ, DPAD>(adk, dp, Qh, Ql, ln);   // dk += ds^T Q
+  }
+  store_rows<NDW, kVec>(dk, adk, b, h, k0 + wr, dc, H, S, D);
+  store_rows<NDW, kVec>(dv, adv, b, h, k0 + wr, dc, H, S, D);
+}
+
+template <int NW, int BK, int DPAD, bool kVec>
+int dq(const float* q, const float* k, const float* v, const float* dout,
+       const float* lse, const float* delta, float* dqo, int B, int H, int S,
+       int D, Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
+       int causal, cudaStream_t stream) {
+  constexpr int BQ = 16 * NW;
+  constexpr size_t smem = sizeof(float) * (2 * BQ + 6 * BK) * DPAD;
+  auto kernel = flash_dq_tf32_kernel<NW, BK, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BQ - 1) / BQ), 32 * NW, smem, stream>>>(
+      q, k, v, dout, lse, delta, dqo, sq, sk, sv, sdo, H, S, D, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NW, int RW, int BQ, int DPAD, bool kVec>
+int dkv(const float* q, const float* k, const float* v, const float* dout,
+        const float* lse, const float* delta, float* dko, float* dvo, int B,
+        int H, int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+        float scale, int causal, cudaStream_t stream) {
+  constexpr int BKV = 16 * RW;
+  constexpr size_t smem =
+      sizeof(float) * ((2 * BKV + 6 * BQ) * DPAD + 4 * BQ);
+  auto kernel = flash_dkv_tf32_kernel<NW, RW, BQ, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BKV - 1) / BKV), 32 * NW, smem, stream>>>(
+      q, k, v, dout, lse, delta, dko, dvo, sq, sk, sv, sdo, H, S, D, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles for a padded head dim (shared memory at D 128: dq 229,376
+// bytes, dk/dv 229,888, one block an SM): dq's warps (16 query rows each)
+// and key tile; dk/dv's warps along the key rows (of 8) and query tile.
+constexpr int dq_warps(int dpad) { return dpad <= 128 ? 8 : 4; }
+constexpr int dq_keys(int dpad) { return dpad <= 128 ? 32 : 16; }
+constexpr int kDkvWarps = 8;
+constexpr int dkv_row_warps(int dpad) { return dpad <= 128 ? 8 : 4; }
+constexpr int dkv_queries(int dpad) { return dpad <= 128 ? 32 : 16; }
+
+int dq_any(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, const float* delta, float* dqo, int B, int H,
+           int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+           float scale, int causal, cudaStream_t stream) {
+  const bool vec =
+      vec_ok<float>(D, {q, k, v, dout, dqo}, {sq, sk, sv, sdo});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    return dq<dq_warps(DP), dq_keys(DP), DP, decltype(kvec)::value>(
+        q, k, v, dout, lse, delta, dqo, B, H, S, D, sq, sk, sv, sdo, scale,
+        causal, stream);
+  });
+}
+
+int dkv_any(const float* q, const float* k, const float* v,
+            const float* dout, const float* lse, const float* delta,
+            float* dko, float* dvo, int B, int H, int S, int D, Strides sq,
+            Strides sk, Strides sv, Strides sdo, float scale, int causal,
+            cudaStream_t stream) {
+  const bool vec =
+      vec_ok<float>(D, {q, k, v, dout, dko, dvo}, {sq, sk, sv, sdo});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    return dkv<kDkvWarps, dkv_row_warps(DP), dkv_queries(DP), DP,
+               decltype(kvec)::value>(q, k, v, dout, lse, delta, dko, dvo,
+                                      B, H, S, D, sq, sk, sv, sdo, scale,
+                                      causal, stream);
+  });
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // Each entry launches on `stream` and returns the CUDA error of the
@@ -1376,8 +2037,11 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 // (B, S, H, D) with the given element strides of dims 0-2 and a
 // contiguous head dim; out, dq, dk and dv are contiguous (B, S, H, D);
 // lse and delta are contiguous (B*H, S) float32.  The _f32 entries take
-// float32 tensors, the _bf16 entries bf16 ones.
-#define PTT_FLASH_ENTRIES(SUFFIX, E, FWD, DQ, DKV)                            \
+// float32 tensors, the _bf16 entries bf16 ones.  The _f32_simt entries
+// are the float32 backward's SIMT kernels, which the wrapper never
+// launches: they are kept to be timed and checked beside the split-TF32
+// kernels of the _f32 entries.
+#define PTT_FLASH_FWD(SUFFIX, E, FWD)                                         \
   PTT_EXPORT int ptt_flash_fwd_##SUFFIX(                                      \
       const E* q, const E* k, const E* v, E* out, float* lse, int B, int H,   \
       int S, int D, long long q_sb, long long q_ss, long long q_sh,           \
@@ -1385,9 +2049,10 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
       long long v_ss, long long v_sh, float scale, int causal,                \
       cudaStream_t stream) {                                                  \
     return FWD(q, k, v, out, lse, B, H, S, D, {q_sb, q_ss, q_sh},             \
-                      {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, scale, causal,  \
-                      stream);                                                \
-  }                                                                           \
+               {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, scale, causal,         \
+               stream);                                                       \
+  }
+#define PTT_FLASH_BWD(SUFFIX, E, DQ, DKV)                                     \
   PTT_EXPORT int ptt_flash_dq_##SUFFIX(                                       \
       const E* q, const E* k, const E* v, const E* dout, const float* lse,    \
       const float* delta, E* dqo, int B, int H, int S, int D, long long q_sb, \
@@ -1396,9 +2061,8 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
       long long do_sb, long long do_ss, long long do_sh, float scale,         \
       int causal, cudaStream_t stream) {                                      \
     return DQ(q, k, v, dout, lse, delta, dqo, B, H, S, D,                     \
-                     {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                  \
-                     {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,        \
-                     causal, stream);                                         \
+              {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},     \
+              {do_sb, do_ss, do_sh}, scale, causal, stream);                  \
   }                                                                           \
   PTT_EXPORT int ptt_flash_dkv_##SUFFIX(                                      \
       const E* q, const E* k, const E* v, const E* dout, const float* lse,    \
@@ -1408,10 +2072,12 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,      \
       float scale, int causal, cudaStream_t stream) {                         \
     return DKV(q, k, v, dout, lse, delta, dko, dvo, B, H, S, D,               \
-                      {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},                 \
-                      {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}, scale,       \
-                      causal, stream);                                        \
+               {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},    \
+               {do_sb, do_ss, do_sh}, scale, causal, stream);                 \
   }
 
-PTT_FLASH_ENTRIES(f32, float, fwd_any<float>, dq_any<float>, dkv_any<float>)
-PTT_FLASH_ENTRIES(bf16, bf16, tc::fwd_any, tc::dq_any, tc::dkv_any)
+PTT_FLASH_FWD(f32, float, fwd_any<float>)
+PTT_FLASH_BWD(f32, float, tf32::dq_any, tf32::dkv_any)
+PTT_FLASH_BWD(f32_simt, float, dq_any<float>, dkv_any<float>)
+PTT_FLASH_FWD(bf16, bf16, tc::fwd_any)
+PTT_FLASH_BWD(bf16, bf16, tc::dq_any, tc::dkv_any)

@@ -19,6 +19,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -162,6 +163,25 @@ def wgmma_attributes(lib: ctypes.CDLL, fn: str, *args) -> dict:
     check(lib, getattr(lib, fn)(*args, out), fn)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem"), out))
+
+
+def sass_opcodes(name: str, *parts: str) -> Dict[str, Dict[str, int]]:
+    """{mangled function name: {opcode: count}} of the built library
+    ``name``'s kernels whose mangled names contain every one of ``parts``,
+    from ``cuobjdump -sass`` beside nvcc: static counts, so an unrolled
+    loop's instructions count once each."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in text.split("Function : ")[1:]:
+        fn = body.split("\n", 1)[0].strip()
+        if all(p in fn for p in parts):
+            ops = out.setdefault(fn, {})
+            for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                                 r"([A-Z][A-Z0-9_]*)", body):
+                ops[op] = ops.get(op, 0) + 1
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

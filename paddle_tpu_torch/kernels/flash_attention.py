@@ -20,8 +20,15 @@ head merge after attention is a free reshape.  lse and delta are
 
 Each kernel has a float32 and a bf16 instance (``ptt_flash_*_f32`` and
 ``ptt_flash_*_bf16``), picked by the dtype of q, k, v (and do), which
-must be one; lse and delta are float32 in both.  The float32 instances
-are SIMT kernels (``fmaf`` on f32 tiles).  The bf16 instances run every
+must be one; lse and delta are float32 in both.  The float32 forward is
+a SIMT kernel (``fmaf`` on f32 tiles).  The float32 backward runs every
+product on the tensor cores as split TF32: each f32 operand x is hi =
+tf32(x) plus lo = tf32(x - hi), and a product is lo*hi + hi*lo + hi*hi
+(three ``mma.sync`` m16n8k8 tf32 into f32 sums), which keeps float32
+accuracy and rounds nothing else.  Its earlier SIMT kernels stay in the
+library as ``ptt_flash_{dq,dkv}_f32_simt``, which the wrapper never
+launches (``_launch_bwd(..., simt=True)`` reaches them uncounted, for
+timing and checking beside the new ones).  The bf16 instances run every
 product on the tensor cores (``mma.sync`` bf16 with f32 sums, bf16 tiles
 fed by a two-stage ``cp.async`` ring) and, like the plain versions on
 bf16 inputs, round where the TPU kernel rounds on bf16 inputs and
@@ -30,11 +37,13 @@ k's dtype before ds K (``:222-224``), nothing in dk/dv (``:258-269``)
 until its outputs are written -- there p and ds enter their products
 unrounded, as a split pair of bf16 terms each.  Everything else is
 float32.  q, k and v whose base pointers or strides are not 16-byte
-aligned take the same kernels with element-wise loads.
+aligned take the tensor-core kernels with element-wise loads.
 
 Every kernel is bound by operations on the H100 (two to four S x S x D
 products against 5-6 reads of an S x D tile); ``csrc/flash_attention.cu``
-says what its design does about that.
+says what its design does about that.  A split-TF32 product costs three
+tensor-core products at 495 TFLOP/s, so its least time is 3 x FLOPs /
+495e12, below the 67 TFLOP/s float32 bound it is held to.
 """
 
 from __future__ import annotations
@@ -49,9 +58,10 @@ from paddle_tpu_torch.kernels import _build
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {}
 for _s in ("f32", "bf16"):
+    _SIGNATURES[f"ptt_flash_fwd_{_s}"] = (
+        [_PTR] * 5 + [_INT] * 4 + [_LL] * 9 + [ctypes.c_float, _INT, _PTR])
+for _s in ("f32", "f32_simt", "bf16"):
     _SIGNATURES.update({
-        f"ptt_flash_fwd_{_s}": [_PTR] * 5 + [_INT] * 4 + [_LL] * 9
-        + [ctypes.c_float, _INT, _PTR],
         f"ptt_flash_dq_{_s}": [_PTR] * 7 + [_INT] * 4 + [_LL] * 12
         + [ctypes.c_float, _INT, _PTR],
         f"ptt_flash_dkv_{_s}": [_PTR] * 8 + [_INT] * 4 + [_LL] * 12
@@ -245,23 +255,21 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
-                        scale=None, dlse=None):
-    """(dq, dk, dv).  Launches the dq and the dk/dv kernels of
-    ``csrc/flash_attention.cu`` on CUDA tensors; runs the plain version
-    on CPU tensors.  ``dlse`` (B*H, S) is the cotangent of lse, which
-    folds into delta (ring attention's merge differentiates through
-    it); None is a zero cotangent."""
-    _check(q, k, v, o, do)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
-                                         dlse)
+def _launch_bwd(q, k, v, o, lse, do, causal, scale, dlse, simt=False):
+    """(dq, dk, dv) from the dq and the dk/dv kernels, not counted (the
+    public wrapper counts).  ``simt``: the float32 backward's SIMT
+    kernels instead of the split-TF32 ones (``chip_smoke.py`` times and
+    checks them beside each other; the wrapper never routes there)."""
     sfx = _strided("flash_attention_bwd", q, k, v, o, do)
     b, n, h, d = q.shape
     if lse.shape != (b * h, n) or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} on "
                          f"{lse.device}, want ({b * h}, {n}) on {q.device}")
     _build.require_cuda("flash_attention_bwd", _build.F32, lse)
+    if simt:
+        if sfx != "f32":
+            raise TypeError("the SIMT backward kernels take float32")
+        sfx = "f32_simt"
     # rowsum(do * o), (B, S, H) -> the kernels' contiguous (B*H, S)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(
         b * h, n).contiguous()
@@ -281,14 +289,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
             _scale(q, scale), int(causal), stream)
         _build.check(lib, err, "flash_attention_dq")
-        _count("dq_launches", sfx)
         err = getattr(lib, f"ptt_flash_dkv_{sfx}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *common, _scale(q, scale), int(causal), stream)
         _build.check(lib, err, "flash_attention_dkv")
-        _count("dkv_launches", sfx)
     return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        scale=None, dlse=None):
+    """(dq, dk, dv).  Launches the dq and the dk/dv kernels of
+    ``csrc/flash_attention.cu`` on CUDA tensors; runs the plain version
+    on CPU tensors.  ``dlse`` (B*H, S) is the cotangent of lse, which
+    folds into delta (ring attention's merge differentiates through
+    it); None is a zero cotangent."""
+    _check(q, k, v, o, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         dlse)
+    grads = _launch_bwd(q, k, v, o, lse, do, causal, scale, dlse)
+    if grads[0].numel():
+        sfx = _build.SUFFIX[q.dtype]
+        _count("dq_launches", sfx)
+        _count("dkv_launches", sfx)
+    return grads
 
 
 # ---------------------------------------------------------------------------

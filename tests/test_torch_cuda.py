@@ -12,7 +12,9 @@ atol 1e-4 on y and dx, rtol 1e-4 on the per-channel vectors (f32 sums
 over R rows; the kernel adds its chunk partials in double); flash
 attention atol 1e-4 on out and lse, and 1e-3 of max|plain| on dq, dk and
 dv (f32 sums over S keys or queries and D, in another order, through
-exp); the LSTM rtol 1e-4 / atol 1e-5 on hs, cs and the gates (f32
+exp), the float32 backward's split-TF32 kernels also within 1e-3 of max
+of the SIMT kernels they replaced and, against a float64 backward, at
+most twice the SIMT kernels' largest error; the LSTM rtol 1e-4 / atol 1e-5 on hs, cs and the gates (f32
 recurrences, products of H terms in another order) and 1e-4 of max on
 the gradients; the gather exactly (a copy).  The bf16 instances (the
 AMP slice): each bf16 output within rtol 1e-2 of the plain version (the
@@ -315,6 +317,161 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         t = x.transpose(2, 3).contiguous().transpose(2, 3)   # strided head dim
         kfa.flash_attention_fwd(t, t, t)
+
+
+def _flash_bwd_f64(q, k, v, o, lse, do, causal):
+    """dq, dk and dv in float64 from ``.double()`` copies of the inputs
+    (the kernels' own out and lse among them): the exact backward of the
+    values the kernels get, written here with einsum."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - lse.double().reshape(b, h, s)[..., None])
+    delta = (do * o).sum(-1).permute(0, 2, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+def _flash_f32_inputs(g, b, s, h, d, dev):
+    qkv = _randn(g, b, s, 3 * h * d, device=dev)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    return q, k, v, _randn(g, b, s, h, d, device=dev)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", FLASH_SHAPES)
+def test_flash_attention_f32_backward_matches_its_simt_kernels(dev, b, s, h,
+                                                               d, causal):
+    """The split-TF32 dq and dk/dv (what the wrapper launches on float32)
+    and the SIMT kernels they replaced (``_launch_bwd(simt=True)``, not
+    counted) on the same inputs, with a dlse: the same gradients within
+    1e-3 of max (two f32 sums in other orders)."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(40)
+    q, k, v, do = _flash_f32_inputs(g, b, s, h, d, dev)
+    dlse = _randn(g, b * h, s, device=dev)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    counts = (kfa.dq_launches, kfa.dkv_launches)
+    simt = kfa._launch_bwd(q, k, v, out, lse, do, causal, None, dlse,
+                           simt=True)
+    assert (kfa.dq_launches, kfa.dkv_launches) == counts
+    grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal, dlse=dlse)
+    assert (kfa.dq_launches, kfa.dkv_launches) == (counts[0] + 1,
+                                                   counts[1] + 1)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, simt):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("d", [24, 128, 256])
+def test_flash_attention_f32_unaligned_views_take_the_element_loads(dev, d):
+    """float32 q, k, v and do as views of buffers one element in (base
+    pointers off 16-byte alignment): the split-TF32 backward takes the
+    element-wise load and store variant of the same kernels, counted as
+    float32 launches, with dq, dk and dv bit for bit those of 16-byte
+    aligned copies of the same values (the same products in the same
+    order), and within 1e-3 of max of the plain backward."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(41)
+    b, s, h = 2, 150, 2
+    bufs = [_randn(g, 1 + b * s * n, device=dev) for n in (3 * h * d, h * d)]
+    qkv = bufs[0][1:].view(b, s, 3 * h * d)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    do = bufs[1][1:].view(b, s, h, d)
+    assert all(t.data_ptr() % 16 for t in (q, k, v, do))
+    out, lse = kfa.flash_attention_fwd(q, k, v, True)
+    before = (kfa.dq_launches, kfa.dkv_launches)
+    grads = kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    assert (kfa.dq_launches, kfa.dkv_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    aligned = [t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v, do)]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    want = kfa.flash_attention_bwd(*aligned[:3], out, lse, aligned[3], True)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, want):
+        assert torch.equal(got, ref)
+    for got, ref in zip(grads, kfa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True)):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [
+    (1, 200, 3, 64, False), (1, 200, 3, 64, True), (2, 200, 2, 24, True),
+    (2, 200, 2, 128, True), (1, 1024, 2, 128, True)])
+def test_flash_attention_f32_backward_is_as_precise_as_simt(dev, b, s, h, d,
+                                                            causal):
+    """Against dq, dk and dv in float64 (``_flash_bwd_f64``, from the same
+    f32 inputs and the kernel's own out and lse), the split-TF32 kernels'
+    largest error is at most 2x the SIMT kernels' largest error on the
+    same inputs, for each gradient: the split keeps float32 accuracy."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(42)
+    q, k, v, do = _flash_f32_inputs(g, b, s, h, d, dev)
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    new = kfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    old = kfa._launch_bwd(q, k, v, out, lse, do, causal, None, None,
+                          simt=True)
+    exact = _flash_bwd_f64(q, k, v, out, lse, do, causal)
+    for name, a, o, x in zip(("dq", "dk", "dv"), new, old, exact):
+        err_new = float((a.double() - x).abs().max())
+        err_old = float((o.double() - x).abs().max())
+        assert err_new <= 2 * err_old, (name, err_new, err_old)
+
+
+def test_f32_flash_backward_stores_nothing_out_of_bounds(dev):
+    """The float32 dq and dk/dv symbols launched straight into outputs
+    with NaN guard regions on both sides, at S 100 and each padded head
+    dim (D 24, 72 and 256), the outputs 16-byte aligned and one element
+    off (the element-store variant): the guards stay NaN, the outputs are
+    finite and equal the wrapper's bit for bit."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(43)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("flash_attention", kfa._SIGNATURES)
+    b, s, h = 2, 100, 3
+    for d in (24, 72, 256):
+        q, k, v, do = (_randn(g, b, s, h, d, device=dev) for _ in range(4))
+        out, lse = kfa.flash_attention_fwd(q, k, v, True)
+        want = kfa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        delta = (do * out).sum(-1).permute(0, 2, 1).reshape(
+            b * h, s).contiguous()
+        strides = [t.stride()[:3] for t in (q, k, v, do)]
+        common = (b, h, s, d, *strides[0], *strides[1], *strides[2],
+                  *strides[3], d ** -0.5, 1, stream)
+        for pad in (4096, 4097):
+            bufs = [_guarded((b, s, h, d), torch.float32, dev, pad)
+                    for _ in range(3)]
+            dq, dk, dv = (view for _, view in bufs)
+            _build.check(lib, lib.ptt_flash_dq_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common),
+                "dq")
+            _build.check(lib, lib.ptt_flash_dkv_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *common), "dkv")
+            torch.cuda.synchronize()
+            for buf, view in bufs:
+                guard = torch.cat([buf[:pad], buf[-pad:]])
+                assert bool(torch.isnan(guard).all())
+                assert bool(torch.isfinite(view).all())
+            for got, ref in zip((dq, dk, dv), want):
+                assert torch.equal(got, ref)
 
 
 def test_transformer_step_on_the_card_matches_cpu(dev):
