@@ -15,9 +15,10 @@ seconds):
 1. The card (name, power limit), torch/CUDA/nvcc versions, and the
    kernels' build from ``paddle_tpu_torch/csrc`` with nvcc, one process
    per source, all started together; each kernel's ``ptxas -v`` lines
-   (and any ptxas warning), and the bf16 wgmma engine's instances and the
-   wgmma filter gradient's as the card reports them (registers, spills,
-   static and dynamic shared memory).
+   (and any ptxas warning), and the bf16 wgmma engine's instances, the
+   wgmma filter gradient's and the split-TF32 engine's (the f32 matmul
+   and conv) as the card reports them (registers, spills, static and
+   dynamic shared memory).
 2. Each kernel against its plain version on the card, TF32 off, with
    medians of CUDA-event timings of the kernel, the plain version and
    the one PyTorch call that computes the same function, beside the
@@ -52,7 +53,16 @@ seconds):
    held to the same plain result and timed beside it at each shape
    (``mma_sync_ms`` in the kernels line); the
    LSTM classifier's three products are checked in bf16 too, each on
-   the engine the rule picks.
+   the engine the rule picks.  Where the f32 matmul and conv run on the
+   split-TF32 wgmma engine (csrc/wgmma_tf32.cuh: the transformer's
+   products, every ResNet-50 conv forward and backward-input, training
+   and serving), the SIMT tile it replaced is held to the same plain
+   result and timed beside it (``simt_ms``), the bound as split TF32 is
+   3 x FLOPs at 495 TFLOP/s (``bound_tf32_ms``), and both are held to a
+   float64 result: the engine's largest error at most GEMM_F64_FACTOR
+   times the SIMT tile's at the transformer's five products (at
+   GEMM_F64_ROWS rows), a 3 x 3 conv at C 512 and a 1 x 1 at C 2048,
+   forward and backward-input.
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -62,7 +72,8 @@ seconds):
    port's Executor on CPUPlace() (the kernels' plain versions): rtol 1e-4,
    atol 1e-5 on the probabilities and the same argmax.  The kernels'
    launch counters, zeroed just before the requests, must read 46 conv,
-   1 matmul and 1 softmax launches per forward batch served.
+   1 matmul and 1 softmax launches per forward batch served, every conv
+   launch on the split-TF32 wgmma engine.
 4. Throughput of Executor.run at bucket 32 in-process, and where one
    forward's time goes (torch.profiler device time by kernel).
 5. Training parity: one step of the ResNet-50 training program
@@ -79,7 +90,9 @@ seconds):
 6. The training step at batch 256 on the card: the counters, zeroed just
    before the first step and read just after, must show the launches
    the program implies (conv forward 46, backward-input 46, filter
-   gradient 46, BN forward 53, BN backward 53, matmul 1, softmax 1);
+   gradient 46, BN forward 53, BN backward 53, matmul 1, softmax 1; the
+   46 + 46 conv forward and backward-input launches on the split-TF32
+   wgmma engine, the fc on the SIMT tile);
    then images/s over 5 timed steps after 2 warm-up steps, the peak of
    torch.cuda.max_memory_allocated(), and one profiled step (device idle
    share, top kernels, layout copies).
@@ -119,9 +132,13 @@ seconds):
    4 layers, vocab 32768; Adam(1e-4), f32) for one step at B 1, S 128 on
    the card against CPUPlace(): the loss, every gradient, every
    parameter and Adam moment after the update within TF_PARITY_TOL of
-   the CPU's largest magnitude; then every op on identical inputs.
+   the CPU's largest magnitude; then every op on identical inputs; then
+   the step at B 1, S TF_ENGINE_SEQ (1,024 rows: the products on the
+   split-TF32 wgmma engine), every mul op on identical inputs against the
+   CPU within OP_TOL, its 17 launches all on the engine.
 9. The transformer step at B 8, S 1024: the launches (flash forward 4,
-   dq 4, dk/dv 4, matmul 17, softmax 0, the program's own count),
+   dq 4, dk/dv 4, matmul 17 all on the split-TF32 wgmma engine, softmax
+   0, the program's own count),
    tokens/s over 5 timed steps after 2 warm-up steps, peak memory (its
    profiled step comes after phase 10b's).
 10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
@@ -202,9 +219,11 @@ seconds):
     the cost of the logits' copy to the host.
 22. The kernels line (for the bf16 matmul, conv forward,
     backward-input and filter gradient also ``launches_wgmma``, its count
-    by path and ``mma_sync_ms``), the card's name and power limit, and
-    the result.  A row's ``bound_ms`` is the sum of its launches' own
-    bounds, each the larger of its operations and its bytes.
+    by path and ``mma_sync_ms``; for the f32 matmul, conv forward and
+    backward-input ``launches_wgmma``, its count by path, ``simt_ms`` and
+    ``bound_tf32_ms``), the card's name and power limit, and the result.
+    A row's ``bound_ms`` is the sum of its launches' own bounds, each the
+    larger of its operations and its bytes.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -361,6 +380,8 @@ TF_CONFIG = dict(vocab_size=32768, d_model=2048, num_heads=16, num_layers=4,
 TF_BATCH, TF_SEQ = 8, 1024
 TF_LR = 1e-4
 TF_PARITY_BATCH, TF_PARITY_SEQ = 1, 128
+# the products' check on the split-TF32 engine (phase 8): B 1 at this S
+TF_ENGINE_SEQ = 1024
 # flash kernels against their plain versions: out and lse absolute; the
 # gradients relative to their largest magnitude (f32 sums over S keys or
 # queries and D, through exp, in another order)
@@ -370,6 +391,12 @@ FLASH_GRAD_TOL = 1e-3
 # largest error at most this many times the SIMT kernels' on the same
 # inputs (the split keeps float32 accuracy)
 FLASH_F64_FACTOR = 2.0
+# the same gate for the f32 matmul and conv on the split-TF32 wgmma engine
+# against the SIMT tile they replaced (phase 2)
+GEMM_F64_FACTOR = 2.0
+# rows of the transformer's products in that gate (the reduction, K up to
+# 8192, is the step's; fewer rows keep the float64 products short)
+GEMM_F64_ROWS = 1024
 # transformer step, card vs CPU at full width: the loss, max abs err <=
 # TF_PARITY_TOL * max|CPU|; the gradients, parameters and Adam moments the
 # same, or FLOOR_FACTOR times the CPU's own spread under a TF_PERTURB
@@ -456,10 +483,13 @@ def ptxas_entry(line):
     "Compiling entry function" line (integer and bool arguments; type
     arguments left out)."""
     mangled = line.split("'")[1] if "'" in line else line
-    for m in re.finditer(r"\d+", mangled):   # <length><identifier>
-        name = mangled[m.end():m.end() + int(m.group())]
+    # <length><identifier>, tried at every digit: a name's own digits may
+    # run into the next length (4tf3217wgmma_tf32_kernel)
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
         if name.endswith("_kernel") and name.isidentifier():
-            rest = mangled[m.end() + len(name):]
+            rest = mangled[end + len(name):]
             targs = rest[:rest.find("EE") + 1] if rest.startswith("I") else ""
             args = re.findall(r"L[ib](\d+)E", targs)
             return f"{name}<{','.join(args)}>" if args else name
@@ -526,12 +556,17 @@ def counters():
 
 
 def wgmma_counters():
-    """The bf16 launches that ran on the wgmma engine (they count in the
-    bf16 counters of ``counters()`` too)."""
+    """The launches that ran on a wgmma engine (they count in
+    ``counters()`` too): the f32 matmul, conv forward and backward-input
+    in split TF32, the bf16 matmul, conv forward, backward-input and
+    filter gradient."""
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
-    return dict(matmul_bf16=kmatmul.launches_bf16_wgmma,
+    return dict(matmul=kmatmul.launches_wgmma,
+                conv2d_nhwc=kconv.launches_wgmma,
+                conv_bwd_input=kconv.bwd_input_launches_wgmma,
+                matmul_bf16=kmatmul.launches_bf16_wgmma,
                 conv2d_nhwc_bf16=kconv.launches_bf16_wgmma,
                 conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma,
                 conv_dw_bf16=kconv.dw_launches_bf16_wgmma)
@@ -553,6 +588,8 @@ def zero_counters():
     kconv.stats_launches = kconv.stats_launches_bf16 = 0
     kconv.launches_bf16_wgmma = kconv.bwd_input_launches_bf16_wgmma = 0
     kconv.dw_launches_bf16_wgmma = kmatmul.launches_bf16_wgmma = 0
+    kconv.launches_wgmma = kconv.bwd_input_launches_wgmma = 0
+    kmatmul.launches_wgmma = 0
     kbn.launches = kbn.bwd_launches = 0
     kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
     kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
@@ -731,14 +768,15 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
     # the serving path's check: the forward at the serving bucket and at ragged
     # batches
     serve = _Sum()
+    serve_simt = 0.0
     log("conv2d_nhwc at the serving bucket (kernel vs plain vs F.conv2d, "
-        "TF32 off), per call:")
+        "TF32 off; the SIMT tile beside the split-TF32 engine), per call:")
     for (n, h, w, c, o, k), count in sorted(serve_shapes.items()):
         x = randn(n, h, w, c)
         wt = randn(k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5)
+        want = kconv.conv2d_nhwc_plain(x, wt, k // 2)
         err = check_close(f"conv {(n, h, w, c, o, k)}",
-                          kconv.conv2d_nhwc(x, wt, k // 2),
-                          kconv.conv2d_nhwc_plain(x, wt, k // 2), **GEMM_TOL)
+                          kconv.conv2d_nhwc(x, wt, k // 2), want, **GEMM_TOL)
         w_lib = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         ms = time_ms(lambda: kconv.conv2d_nhwc(x, wt, k // 2))
@@ -750,6 +788,12 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
         _line(f"N{n} {h}x{w} {c}->{o} k{k}", count, ms, plain, lib, flops,
               nbytes, err)
         serve.add(count, ms, plain, lib, flops, nbytes, err)
+        serve_simt += count * _old_tile(
+            f"conv {(n, h, w, c, o, k)}", want, ms, flops,
+            lambda: kconv._launch_conv(x, wt, k // 2, "conv", engine="simt"),
+            kconv.f32_engine(c, o, x.data_ptr(), wt.data_ptr()),
+            lambda name, got, want: check_close(name, got, want, **GEMM_TOL),
+            "SIMT")
     for n in (1, 3):
         for (h, c, o, k) in ((56, 64, 64, 3), (28, 128, 128, 3),
                              (14, 256, 256, 3), (7, 512, 512, 3),
@@ -762,12 +806,17 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
     r = serve.result()
     log(f"  one serving forward's conv launches: kernel {r['ms']:.3f} ms, "
         f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}); max err "
-        f"{r['max_abs_err']:.2e} (tolerance {GEMM_TOL})")
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}); the SIMT tile "
+        f"{serve_simt:.3f} ms; max err {r['max_abs_err']:.2e} (tolerance "
+        f"{GEMM_TOL})")
 
     # the training step: forward, backward-input and filter gradient of
     # every kernel conv at batch 256
     sums = {k: _Sum() for k in ("conv2d_nhwc", "conv_bwd_input", "conv_dw")}
+    # the forward's and backward-input's SIMT tile (what the split-TF32
+    # engine replaced) and their bound as split TF32
+    simt = dict(conv2d_nhwc=0.0, conv_bwd_input=0.0)
+    bound_tf32 = 0.0
     log(f"conv kernels of the training step at batch {TRAIN_BATCH} (fwd: "
         "F.conv2d; bwd-input: conv2d_input; filter grad: conv2d_weight; "
         "TF32 off), per call:")
@@ -783,17 +832,26 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
         nbytes = 4.0 * (n * h * w * c + k * k * c * o + n * h * w * o)
         tag = f"N{n} {h}x{w} {c}->{o} k{k}"
 
-        err = check_close(f"conv {tag}", kconv.conv2d_nhwc(x, wt, p),
-                          kconv.conv2d_nhwc_plain(x, wt, p), **GEMM_TOL)
+        close = (lambda name, got, want:
+                 check_close(name, got, want, **GEMM_TOL))
+        bound_tf32 += count * 3 * flops / PEAK_TF32_FLOPS * 1e3
+        want = kconv.conv2d_nhwc_plain(x, wt, p)
+        err = check_close(f"conv {tag}", kconv.conv2d_nhwc(x, wt, p), want,
+                          **GEMM_TOL)
         times = (time_ms(lambda: kconv.conv2d_nhwc(x, wt, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_plain(x, wt, p)),
                  time_ms(lambda: F.conv2d(x_lib, w_lib, padding=p)))
         _line(f"fwd {tag}", count, *times, flops, nbytes, err)
         sums["conv2d_nhwc"].add(count, *times, flops, nbytes, err)
+        simt["conv2d_nhwc"] += count * _old_tile(
+            f"conv {tag}", want, times[0], flops,
+            lambda: kconv._launch_conv(x, wt, p, "conv", engine="simt"),
+            kconv.f32_engine(c, o, x.data_ptr(), wt.data_ptr()), close,
+            "SIMT")
 
+        want = kconv.conv2d_nhwc_bwd_input_plain(g, wt, p)
         err = check_close(f"conv bwd-input {tag}",
-                          kconv.conv2d_nhwc_bwd_input(g, wt, p),
-                          kconv.conv2d_nhwc_bwd_input_plain(g, wt, p),
+                          kconv.conv2d_nhwc_bwd_input(g, wt, p), want,
                           **GEMM_TOL)
         times = (time_ms(lambda: kconv.conv2d_nhwc_bwd_input(g, wt, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_bwd_input_plain(g, wt, p)),
@@ -801,6 +859,31 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
                                               padding=p)))
         _line(f"bwd-input {tag}", count, *times, flops, nbytes, err)
         sums["conv_bwd_input"].add(count, *times, flops, nbytes, err)
+        # the wrapper's own work on the SIMT tile: the filter's flip, a
+        # launch
+        simt["conv_bwd_input"] += count * _old_tile(
+            f"conv bwd-input {tag}", want, times[0], flops,
+            lambda: kconv._launch_conv(g, kconv.flip_filter(wt), p, "conv",
+                                       engine="simt"),
+            kconv.f32_engine(o, c, g.data_ptr(), wt.data_ptr()), close,
+            "SIMT")
+        del want
+        if (h, c, k) in ((7, 512, 3), (7, 2048, 1)):
+            # the float64 gate: a 3 x 3 conv with K 4608 and a 1 x 1 with
+            # C 2048, forward and backward-input
+            _gemm_f64_precision(
+                f"conv {tag}",
+                kconv._launch_conv(x, wt, p, "conv", engine="wgmma"),
+                kconv._launch_conv(x, wt, p, "conv", engine="simt"),
+                _conv_f64(x, wt, p))
+            wf = kconv.flip_filter(wt)
+            _gemm_f64_precision(
+                f"conv bwd-input {tag}",
+                kconv._launch_conv(g, wt, p, "conv", engine="wgmma",
+                                   flip=True),
+                kconv._launch_conv(g, wf, p, "conv", engine="simt"),
+                _conv_f64(g, wf, p))
+            del wf
 
         err = check_scaled(f"conv filter grad {tag}",
                            kconv.conv2d_nhwc_dw(x, g, k, p),
@@ -816,11 +899,15 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
         del x, wt, g, x_lib, g_lib, w_lib
     torch.cuda.empty_cache()
     results = {name: s.result() for name, s in sums.items()}
+    for name, ms in simt.items():
+        results[name].update(simt_ms=ms, bound_tf32_ms=bound_tf32)
     for name, r in results.items():
         log(f"  one training step's {name} launches: kernel {r['ms']:.3f} ms,"
             f" plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms,"
-            f" bound {r['bound_ms']:.3f} ms ({r['bound_by']}); max err "
-            f"{r['max_abs_err']:.2e}")
+            f" bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
+            + (f", {r['bound_tf32_ms']:.3f} ms as split TF32; the SIMT tile "
+               f"{r['simt_ms']:.3f} ms" if "simt_ms" in r else "")
+            + f"; max err {r['max_abs_err']:.2e}")
     return results
 
 
@@ -946,14 +1033,16 @@ def check_bf16(name, got, want):
     return err
 
 
-def _old_tile(what, want, ms, flops, launch_tile, engine, check=check_bf16):
-    """The mma.sync tile beside the kernel the wrapper launched (``engine``)
-    at one shape: held against the same plain result by ``check`` (name,
-    got, want), timed alone; returns its ms."""
-    err = check(f"{what} (mma.sync tile)", launch_tile(), want)
+def _old_tile(what, want, ms, flops, launch_tile, engine, check=check_bf16,
+              name="mma.sync"):
+    """The ``name`` tile (the bf16 mma.sync or the f32 SIMT one) beside the
+    kernel the wrapper launched (``engine``) at one shape: held against
+    the same plain result by ``check`` (name, got, want), timed alone;
+    returns its ms."""
+    err = check(f"{what} ({name} tile)", launch_tile(), want)
     tile = time_ms(launch_tile, reps=5)
     log(f"    {engine} engine {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
-        f"the mma.sync tile {tile:.4f} ms ({flops / tile / 1e9:.1f} "
+        f"the {name} tile {tile:.4f} ms ({flops / tile / 1e9:.1f} "
         f"TFLOP/s, max err {err:.2e}): {tile / ms:.2f}x")
     return tile
 
@@ -1352,6 +1441,35 @@ def _flash_f64_precision(kfa, q, k, v, out, lse, do, tag):
     torch.cuda.empty_cache()
 
 
+def _gemm_f64_precision(what, new, simt, exact):
+    """The split-TF32 engine's and the SIMT tile's largest errors against
+    a float64 result ``exact`` of the same inputs; fails if the first
+    passes GEMM_F64_FACTOR times the second.  Returns the ratio."""
+    e_new = float((new.double() - exact).abs().max())
+    e_old = float((simt.double() - exact).abs().max())
+    log(f"    against float64 at {what}: split TF32 {e_new:.3e}, SIMT "
+        f"{e_old:.3e} ({e_new / e_old:.2f}x; max|exact| "
+        f"{float(exact.abs().max()):.3e})")
+    if not e_new <= GEMM_F64_FACTOR * e_old:
+        fail(f"{what}: split-TF32 error {e_new:.3e} against float64 passes "
+             f"{GEMM_F64_FACTOR}x the SIMT tile's {e_old:.3e}")
+    return e_new / e_old
+
+
+def _conv_f64(x, w, p):
+    """The SAME conv of x (N, H, W, C) and w (KH, KW, C, O) in float64:
+    the shifted products of the padded image."""
+    import torch.nn.functional as F
+
+    n, h, wd, _ = x.shape
+    xp = F.pad(x.double(), (0, 0, p, p, p, p))
+    out = 0
+    for i in range(w.shape[0]):
+        for j in range(w.shape[1]):
+            out = out + xp[:, i:i + h, j:j + wd, :] @ w[i, j].double()
+    return out
+
+
 def _library_kernels(fn):
     """[(kernel name, launches)] of the CUDA kernels one profiled call of
     ``fn`` ran, after one unprofiled call."""
@@ -1429,6 +1547,7 @@ def phase_tf_matmul(dev, randn, bf16=False):
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     sm = _Sum(peak)
     tile_ms = 0.0
+    bound_tf32 = 0.0
     log(f"{dt} matmul at the transformer step's shapes (B*S = "
         f"{TF_BATCH * TF_SEQ}), per call:")
     for (m, k, n), count in transformer_matmul_shapes().items():
@@ -1449,6 +1568,21 @@ def phase_tf_matmul(dev, randn, bf16=False):
                 f"bf16 matmul {m}x{k}x{n}", want, times[0], flops,
                 lambda: kmatmul._launch(x, y, "mma.sync"),
                 kmatmul.bf16_engine(m, k, n, x.data_ptr(), y.data_ptr()))
+        else:
+            # the SIMT tile the split-TF32 engine replaced, and both held
+            # to a float64 product over the step's K at fewer rows
+            engine = kmatmul.f32_engine(m, k, n, x.data_ptr(), y.data_ptr())
+            tile_ms += count * _old_tile(
+                f"matmul {m}x{k}x{n}", want, times[0], flops,
+                lambda: kmatmul._launch(x, y, "simt"), engine,
+                lambda name, got, want: check_close(name, got, want,
+                                                    **GEMM_TOL), "SIMT")
+            bound_tf32 += count * 3 * flops / PEAK_TF32_FLOPS * 1e3
+            xr = x[:GEMM_F64_ROWS]
+            _gemm_f64_precision(
+                f"matmul {GEMM_F64_ROWS}x{k}x{n}",
+                kmatmul._launch(xr, y, "wgmma"), kmatmul._launch(xr, y, "simt"),
+                xr.double() @ y.double())
         del x, y, got, want
     torch.cuda.empty_cache()
     r = sm.result()
@@ -1456,9 +1590,12 @@ def phase_tf_matmul(dev, randn, bf16=False):
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
         f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
         f"({r['bound_by']}); max err {r['max_abs_err']:.2e}"
-        + (f"; the mma.sync tile {tile_ms:.3f} ms" if bf16 else ""))
-    if bf16:
-        r["mma_sync_ms"] = tile_ms
+        + (f"; the mma.sync tile {tile_ms:.3f} ms" if bf16 else
+           f"; the SIMT tile {tile_ms:.3f} ms, bound {bound_tf32:.3f} ms as "
+           "split TF32"))
+    r["mma_sync_ms" if bf16 else "simt_ms"] = tile_ms
+    if not bf16:
+        r["bound_tf32_ms"] = bound_tf32
     return r
 
 
@@ -1678,6 +1815,7 @@ def phase_serving(dev, model_dir, rng):
             t.join(timeout=900)
         wall = time.perf_counter() - t0
         launches = counters()
+        wgmma = wgmma_counters()
         if errors or any(t.is_alive() for t in threads):
             fail(f"requests failed: {errors or 'timed out'}")
     finally:
@@ -1690,6 +1828,13 @@ def phase_serving(dev, model_dir, rng):
     want.update(conv2d_nhwc=46 * batches, matmul=batches, softmax=batches)
     if launches != want:
         fail(f"launch counts {launches} != {want} for {batches} forwards")
+    # every conv launch on the split-TF32 wgmma engine, the fc on the SIMT
+    # tile (at most 32 rows)
+    want = dict.fromkeys(wgmma, 0)
+    want.update(conv2d_nhwc=46 * batches)
+    if wgmma != want:
+        fail(f"wgmma launch counts {wgmma} != {want} for {batches} forwards")
+    log(f"on the wgmma engine: {wgmma}")
 
     # the same export on the CPU, through the kernels' plain versions
     ref = Replica(ModelBundle(model_dir), 0, pt.CPUPlace())
@@ -1710,7 +1855,7 @@ def phase_serving(dev, model_dir, rng):
     log(f"replies match the CPU plain path: max abs err {worst:.3e} "
         f"(tolerance {PROBS_TOL}), argmax equal; max prob "
         f"{max(float(np.max(r['outputs'][0])) for r in replies):.4f}")
-    return launches
+    return launches, wgmma
 
 
 def phase_throughput(dev, model_dir):
@@ -1983,12 +2128,14 @@ def _moved(v, device):
     return torch.as_tensor(v, device=device)
 
 
-def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL):
+def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
+                            only=None):
     """Every op of ``block`` (forward, grad ops, sums, updates) on the card
     and, on copies of the very same input values, on the CPU: each output
     within ``tol`` of the CPU output's largest magnitude.  A grad op gets
     the residual its forward left for it (the attention's logsumexp, the
-    LSTM's gates) on both sides."""
+    LSTM's gates) on both sides.  With ``only`` (a set of op types), the
+    other ops run on the card alone, to make the compared ops' inputs."""
     import torch
 
     from paddle_tpu_torch.lod import unwrap
@@ -2004,6 +2151,9 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL):
     with torch.no_grad():
         for op in block.ops:
             info = OpRegistry.get(op.type)
+            if only is not None and op.type not in only:
+                info.lower(LowerContext(op, values, dev))
+                continue
             names = [n for n in op.input_arg_names if n]
             names += [r(n) for n in names for r in (lse_name, gates_name)
                       if r(n) in values]
@@ -2023,8 +2173,9 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL):
                 if not err <= tol * max(scale, 1e-30) and err > 0:
                     op_bad.append((op.type, n, err, scale))
     op_worst.sort(reverse=True)
-    log(f"{what}, op by op on identical inputs: {len(block.ops)} ops, "
-        f"{n_out} outputs in {time.perf_counter() - t0:.1f} s; worst "
+    log(f"{what}, op by op on identical inputs: {len(block.ops)} ops"
+        + (f" ({', '.join(sorted(only))} compared)" if only else "")
+        + f", {n_out} outputs in {time.perf_counter() - t0:.1f} s; worst "
         "max|card - CPU| / max|CPU|: "
         + ", ".join(f"{t} {n} {e:.2e}" for e, t, n in op_worst[:6])
         + f" (tolerance {tol})")
@@ -2073,11 +2224,13 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
         f"engine {wgmma}")
     if launches != want_launches:
         fail(f"train-step launch counts {launches} != {want_launches}")
-    # every bf16 conv launch (C, O multiples of 64) on the wgmma engine,
-    # forward, backward-input and filter gradient; the fc (256 rows) on
-    # the mma.sync tile
-    want_wgmma = dict(matmul_bf16=0, **{
-        k: want_launches[k] for k in ("conv2d_nhwc_bf16",
+    # every conv launch (C, O multiples of 64) on a wgmma engine: the f32
+    # forward and backward-input in split TF32, the bf16 forward,
+    # backward-input and filter gradient; the fc (256 rows) on the SIMT or
+    # mma.sync tile
+    want_wgmma = dict(matmul=0, matmul_bf16=0, **{
+        k: want_launches[k] for k in ("conv2d_nhwc", "conv_bwd_input",
+                                      "conv2d_nhwc_bf16",
                                       "conv_bwd_input_bf16",
                                       "conv_dw_bf16")})
     if wgmma != want_wgmma:
@@ -2417,6 +2570,44 @@ def phase_tf_parity(dev):
     ops_on_identical_inputs(dev, main_prog.global_block(), state, feed,
                             f"transformer step parity at B {TF_PARITY_BATCH} "
                             f"S {TF_PARITY_SEQ}")
+    del state
+    phase_tf_engine_parity(dev)
+
+
+def phase_tf_engine_parity(dev):
+    """The f32 step's products on the split-TF32 wgmma engine against the
+    CPU: at B 1, S TF_ENGINE_SEQ (B * S rows, at least WGMMA_MIN_ROWS) every
+    op of the full-width step runs on the card, and each mul op also on the
+    CPU on copies of its very inputs, within OP_TOL; the counters must
+    show its 17 launches, all on the wgmma engine."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    if TF_ENGINE_SEQ < kmatmul.WGMMA_MIN_ROWS:
+        fail(f"B 1 S {TF_ENGINE_SEQ} does not reach the wgmma engine")
+    main_prog, startup, _, _ = build_transformer_program(TF_ENGINE_SEQ)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    state = dict(scope.values)
+    rng = np.random.RandomState(7)
+    v = TF_CONFIG["vocab_size"]
+    feed = {n: rng.randint(0, v, (1, TF_ENGINE_SEQ, 1)).astype(np.int64)
+            for n in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    zero_counters()
+    ops_on_identical_inputs(dev, main_prog.global_block(), state, feed,
+                            f"transformer step at B 1 S {TF_ENGINE_SEQ} "
+                            "(products on the split-TF32 engine)",
+                            only={"mul"})
+    launches, wgmma = counters()["matmul"], wgmma_counters()["matmul"]
+    log(f"  f32 matmul launches {launches}, on the wgmma engine {wgmma}")
+    if not launches == wgmma == 17:
+        fail(f"the step's products: {launches} f32 matmul launches, {wgmma} "
+             "on the wgmma engine, not 17 and 17")
+    del scope, state
+    torch.cuda.empty_cache()
 
 
 def phase_tf_amp_parity(dev):
@@ -2484,9 +2675,10 @@ def _tf_train_step(dev, smi, kind, amp, f32):
         f"wgmma engine {wgmma}")
     if launches != want_launches:
         fail(f"transformer launch counts {launches} != {want_launches}")
-    want_wgmma = dict(matmul_bf16=want_launches["matmul_bf16"],
-                      conv2d_nhwc_bf16=0, conv_bwd_input_bf16=0,
-                      conv_dw_bf16=0)
+    # every product (8192 rows) on a wgmma engine: split TF32 in f32
+    want_wgmma = dict.fromkeys(wgmma, 0)
+    want_wgmma.update(matmul=want_launches["matmul"],
+                      matmul_bf16=want_launches["matmul_bf16"])
     if wgmma != want_wgmma:
         fail(f"transformer wgmma launch counts {wgmma} != {want_wgmma}")
     (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -3145,12 +3337,16 @@ def profile_sequence_steps():
                 f"({kind})",
                 {"LSTM kernel": ["lstm_seq_kernel"],
                  "LSTM backward loop (plain)": "lstm_seq_bwd",
-                 "matmul kernel": list(mm),
+                 # with the split passes of the f32 wgmma engine
+                 "matmul kernel": list(mm) + ["wgmma_tf32_split"],
                  "mul backward products": "matmul_backward"},
                 {"lstm_seq_kernel": 2, **mm, "softmax_f32_kernel": 1})
 
     paths = {
-        "lstm": (False, lstm_path({"matmul_f32_kernel": 3}, "f32")),
+        # the two 6400-row projections on the split-TF32 wgmma engine, the
+        # 64-row head (N 2) on the SIMT tile
+        "lstm": (False, lstm_path({"wgmma_tf32_kernel": 2,
+                                   "matmul_f32_kernel": 1}, "f32")),
         # the two 6400-row projections on the wgmma engine, the 64-row
         # head on the mma.sync tile
         "lstm_amp": (True, lstm_path({"wgmma_gemm_kernel": 2,
@@ -3160,10 +3356,10 @@ def profile_sequence_steps():
                         lod_feed(np.random.RandomState(8), dev),
                         f"LoD classifier step, {LOD_SEQS} sequences",
                         {"gather kernel": ["gather_rows_kernel"],
-                         "matmul kernel": ["matmul_f32_kernel"],
+                         "matmul kernel": ["wgmma_tf32", "matmul_f32_kernel"],
                          "mul backward products": "matmul_backward"},
-                        {"gather_rows_kernel": 1, "matmul_f32_kernel": 2,
-                         "softmax_f32_kernel": 1})),
+                        {"gather_rows_kernel": 1, "wgmma_tf32_kernel": 1,
+                         "matmul_f32_kernel": 1, "softmax_f32_kernel": 1})),
     }
     profile_paths(paths)
 
@@ -3210,11 +3406,13 @@ def profile_transformer_steps():
         sfx, kind = ("_bf16", "AMP bf16") if amp else ("", "f32")
         # the f32 backward runs the split-TF32 kernels
         bwd = "_bf16" if amp else "_tf32"
-        # every bf16 product of the step (8192 rows) on the wgmma engine
-        mm = "wgmma_gemm_kernel" if amp else "matmul_f32_kernel"
+        # every product of the step (8192 rows) on a wgmma engine, in f32
+        # the split-TF32 one (its split passes beside it)
+        mm = "wgmma_gemm_kernel" if amp else "wgmma_tf32_kernel"
         return amp, (prog, startup, loss, feed,
                      f"transformer step at B {TF_BATCH} S {TF_SEQ} ({kind})",
-                     {"flash kernels": ["flash_"], "matmul kernel": [mm],
+                     {"flash kernels": ["flash_"],
+                      "matmul kernel": [mm, "wgmma_tf32_split"],
                       "mul backward products": "matmul_backward"},
                      {f"flash_fwd{sfx}_kernel": layers,
                       f"flash_dq{bwd}_kernel": layers,
@@ -4015,6 +4213,15 @@ def main():
                             ("filter grad, A gathered",
                              kconv.wgmma_attributes(bn, True, dw=True))):
             log(f"  wgmma engine, tile 128 x {bn} ({what}): {attrs}")
+    # ... and the f32 matmul's and conv's split-TF32 instances
+    for bn in (64, 128):
+        for what, attrs in (("matmul", kmatmul.wgmma_attributes(bn, True)),
+                            ("conv, A by TMA", kconv.wgmma_attributes(
+                                bn, False, tf32=True)),
+                            ("conv, A gathered", kconv.wgmma_attributes(
+                                bn, True, tf32=True))):
+            log(f"  split-TF32 wgmma engine, tile 128 x {bn} ({what}): "
+                f"{attrs}")
 
     import paddle_tpu_torch as pt
 
@@ -4062,7 +4269,8 @@ def main():
         pt.io.save_inference_model(model_dir, ["img"], [pred], exe,
                                    main_program=main_prog, scope=scope)
         del exe, scope
-        serve_launches = timed(phase_serving, dev, model_dir, rng)
+        serve_launches, serve_wgmma = timed(phase_serving, dev, model_dir,
+                                            rng)
         img_per_s = timed(phase_throughput, dev, model_dir)
 
     timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
@@ -4128,16 +4336,19 @@ def main():
                      lstm_bf16=lstm_amp["launches"],
                      **{f"flash_attention_{k}_bf16": tf_amp["launches"]
                         for k in ("fwd", "dq", "dkv")})
-    # the bf16 matmul and conv launches on the wgmma engine, per training
-    # path (the rest of each path's bf16 launches ran on the mma.sync tile)
-    wgmma_by_path = {"train_step": train["wgmma"],
+    # the matmul and conv launches on a wgmma engine, per path (the rest of
+    # each path's launches ran on the SIMT or the mma.sync tile)
+    wgmma_by_path = {"serving": serve_wgmma,
+                     "train_step": train["wgmma"],
                      "amp_train_step": amp_train["wgmma"],
                      "transformer_train_step": tf["wgmma"],
                      "transformer_amp_train_step": tf_amp["wgmma"],
                      "lstm_train_step": lstm["wgmma"],
                      "lstm_amp_train_step": lstm_amp["wgmma"],
                      "lod_train_step": lod["wgmma"]}
-    main_wgmma = dict(matmul_bf16=tf_amp["wgmma"],
+    main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
+                      conv_bwd_input=train["wgmma"],
+                      matmul_bf16=tf_amp["wgmma"],
                       conv2d_nhwc_bf16=amp_train["wgmma"],
                       conv_bwd_input_bf16=amp_train["wgmma"],
                       conv_dw_bf16=amp_train["wgmma"])
@@ -4157,9 +4368,10 @@ def main():
                 if "simt_ms" in k else {}),
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
-                                            wgmma_by_path.items()},
-                 "mma_sync_ms": k["mma_sync_ms"]}
-                if name in main_wgmma else {}))
+                                            wgmma_by_path.items()}}
+                if name in main_wgmma else {}),
+             **({"mma_sync_ms": k["mma_sync_ms"]}
+                if "mma_sync_ms" in k else {}))
         for name, k in kernels.items()]}
     log(f"serving throughput: {img_per_s:.1f} images/s at bucket "
         f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "

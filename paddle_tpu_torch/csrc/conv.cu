@@ -27,6 +27,17 @@
 // (M tiles) x O, and a second launch adds the rows in a fixed order in
 // double: no atomics, the same statistics from run to run.
 //
+// The float32 instance has two engines, by shape (kernels/conv.py
+// f32_engine, mirrored in ptt_conv2d_nhwc_f32):
+// - wgmma in split TF32 (wgmma_tf32.cuh): C % 32 == 0, O % 4 == 0,
+//   16-byte-aligned x and w, any M.  x split into hi and lo copies and w
+//   split and transposed to (O, KH * KW * C) by a pass before the launch
+//   (for the backward-input the pass also flips the forward's filter and
+//   swaps its channels, so the wrapper makes no flipped copy); A by TMA
+//   for a 1 x 1 conv, else gathered, a 32-wide K step inside one tap.
+//   Every stride-1 conv of ResNet-50 takes it, forward and backward-input.
+// - SIMT (tile_gemm.cuh gemm_tile): everything else (C = 1, 3, 20, views
+//   off alignment) and the fused conv + BN statistics.
 // The bf16 instance has two engines, by shape (kernels/conv.py
 // bf16_engine, mirrored in ptt_conv2d_nhwc_bf16):
 // - wgmma (wgmma_gemm.cuh): C % 64 == 0, O % 8 == 0, 16-byte-aligned x
@@ -43,18 +54,21 @@
 // What bounds it on the H100 (bf16: 989 TFLOP/s on the tensor cores,
 // 3.35 TB/s): operations for the 3 x 3 convs at 7 x 7 to 28 x 28 and
 // the 1 x 1 convs at 7 x 7; bytes for the 1 x 1 convs at 14 x 14 and
-// larger and the 3 x 3 conv at 56 x 56, where each conv does 2 * M * O * K flops on a few MB of data
-// and K is 64-1024.  The wgmma engine issues the asynchronous warpgroup
+// larger and the 3 x 3 conv at 56 x 56, where each conv does 2 * M * O * K
+// flops on a few MB of data and K is 64-1024; float32 by operations (67
+// TFLOP/s on the SIMT units, 495 / 3 in split TF32) but for the 1 x 1
+// convs at 56 x 56.  The wgmma engine issues the asynchronous warpgroup
 // products the card's rate needs, spends no consumer register on loads,
 // and keeps up to 8 stages in flight so the byte-bound shapes stream;
 // the 1 x 1 convs at 56 x 56 (K 64: one stage a tile) gain least.  The
-// f32 kernel stages every K step of 16 through shared memory with
+// f32 SIMT kernel stages every K step of 16 through shared memory with
 // scalar gathers and two barriers.  The statistics scratch is (M tiles)
 // * O * 8 bytes, small beside out.
 #include <type_traits>
 
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -297,10 +311,57 @@ int launch_conv(const T* x, const T* w, T* out, float* part, float* mean,
 
 }  // namespace
 
-// Launch on `stream`; return cudaGetLastError() of the launch.
+// The f32 conv on the split-TF32 wgmma engine (C % 32 == 0): x split into
+// xs (2 N H W C floats), w split into ws (2 KH KW C O floats) as the
+// transposed (O, KH * KW * C) weight, or with flip from the forward's
+// filter (KH, KW, O, C) flipped; then a 1 x 1 conv as the dense
+// (N * H * W, C) @ (C, O) product, A by TMA, any other filter with A
+// gathered from the split image.
+int wgmma_conv_f32(const float* x, const float* w, float* xs, float* ws,
+                   float* out, int N, int H, int W, int C, int KH, int KW,
+                   int O, int pad, bool flip, cudaStream_t stream) {
+  namespace tf = ptt::wg::tf32;
+  const long long nx = static_cast<long long>(N) * H * W * C;
+  const int T = KH * KW;
+  const int K = T * C;
+  int err = tf::split_rows(x, xs, nx, stream);
+  if (err == 0)
+    err = flip ? tf::split_flip(w, ws, T, O, C, stream)
+               : tf::split_t(w, ws, T, C, O, stream);
+  if (err != 0) return err;
+  if (KH == 1 && KW == 1 && pad == 0) {
+    const tf::Geom g{nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0};
+    return tf::launch_split<false>(xs, N * H * W, ws, g, out, N * H * W, O, C,
+                                   stream);
+  }
+  const int OH = H + 2 * pad - KH + 1;
+  const int OW = W + 2 * pad - KW + 1;
+  const tf::Geom g{xs, xs + nx, H, W, C, KW, pad, OH, OW};
+  return tf::launch_split<true>(nullptr, 0, ws, g, out, N * OH * OW, O, K,
+                                stream);
+}
+
+// Launch on `stream`; return cudaGetLastError() of the launch.  engine: 0
+// the SIMT tile (any shape; xs, ws unused, flip refused), 1 the
+// split-TF32 wgmma engine, xs (2 N H W C floats) and ws (2 KH KW C O
+// floats) its scratch (refused with cudaErrorInvalidValue where the shape
+// or alignment rule fails).  flip (wgmma only): w is the forward's filter
+// (KH, KW, O, C) of the backward-input, flipped and channel-swapped by the
+// split pass.
 PTT_EXPORT int ptt_conv2d_nhwc_f32(const float* x, const float* w, float* out,
-                                   int N, int H, int W, int C, int KH, int KW,
-                                   int O, int pad, cudaStream_t stream) {
+                                   float* xs, float* ws, int N, int H, int W,
+                                   int C, int KH, int KW, int O, int pad,
+                                   int flip, int engine,
+                                   cudaStream_t stream) {
+  if (engine == 1) {
+    if (C % 32 != 0 ||
+        !ptt::wg::tf32::takes(KH * KW * C, O, x, w, out, xs, ws))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return wgmma_conv_f32(x, w, xs, ws, out, N, H, W, C, KH, KW, O, pad,
+                          flip != 0, stream);
+  }
+  if (engine != 0 || flip != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv(x, w, out, nullptr, nullptr, nullptr, N, H, W, C, KH,
                      KW, O, pad, stream);
 }
@@ -327,6 +388,12 @@ PTT_EXPORT int ptt_conv2d_nhwc_bf16(const ptt::bf16* x, const ptt::bf16* w,
 PTT_EXPORT int ptt_conv_wgmma_attributes(int bn, int gather, int* out) {
   return gather ? ptt::wg::attributes_bn<true>(bn, out)
                 : ptt::wg::attributes_bn<false>(bn, out);
+}
+
+// The same for the split-TF32 instances (bn 64, 128).
+PTT_EXPORT int ptt_conv_wgmma_tf32_attributes(int bn, int gather, int* out) {
+  return gather ? ptt::wg::tf32::attributes_bn<true>(bn, out)
+                : ptt::wg::tf32::attributes_bn<false>(bn, out);
 }
 
 // The fused conv + BN statistics: out, and mean / var (O floats each);

@@ -5,9 +5,17 @@
 // (_mm_kernel :47), which walks a (M/bm, N/bn, K/bk) grid with a VMEM
 // accumulator carried across the K steps and writes out in x's dtype.
 // On Hopper the blocks run in parallel, so each block owns one output
-// tile and loops over K itself, accumulating in registers.  Three
-// engines: float32, a 64 x 64 tile with f32 FMA (tile_gemm.cuh); bf16,
-// by shape (kernels/matmul.py bf16_engine, mirrored in ptt_matmul_bf16):
+// tile and loops over K itself, accumulating in registers.  Each instance
+// has two engines, picked by shape.  float32 (kernels/matmul.py
+// f32_engine, mirrored in ptt_matmul_f32):
+// - wgmma in split TF32 (wgmma_tf32.cuh): M >= kWgmmaMinRows, K % 4 == 0,
+//   N % 4 == 0, 16-byte-aligned x and y.  x split into hi and lo copies
+//   and y split and transposed to (N, K) by a pass before the launch; a
+//   128 x 128 tile (128 x 64 for N <= 64), three TF32 products a product
+//   in fresh sums.  The transformer's products take it.
+// - SIMT (tile_gemm.cuh gemm_tile): everything else, a 64 x 64 tile with
+//   f32 FMA: the ResNet and serving fc, ragged and misaligned operands.
+// bf16 (kernels/matmul.py bf16_engine, mirrored in ptt_matmul_bf16):
 // - wgmma (wgmma_gemm.cuh): M >= kWgmmaMinRows, K % 8 == 0, N % 8 == 0,
 //   16-byte-aligned x and y.  A 128 x 256 tile (narrower for N <= 128),
 //   x and y fed by TMA through a 4-stage shared ring by a producer
@@ -19,9 +27,10 @@
 //   blocks for 132 SMs, and the ragged shapes TMA does not take.
 //
 // What bounds it on the H100: at the transformer's shapes (K 2048-8192)
-// operations, 989 TFLOP/s bf16 on the tensor cores: the wgmma engine
-// issues the card's asynchronous warpgroup products from shared memory,
-// spends no consumer register or issue slot on loads, and brings x and y
+// operations, 989 TFLOP/s bf16 on the tensor cores (f32: 67 TFLOP/s on
+// the SIMT units, 495 / 3 in split TF32): the wgmma engines
+// issue the card's asynchronous warpgroup products from shared memory,
+// spend no consumer register or issue slot on loads, and bring x and y
 // on chip in 128 x 256 tiles (85 flops per byte read, against 43 for the
 // 128 x 64 tile).  At the serving and
 // ResNet-50 fc (2048 -> 1000 at batch 32 or 256) the weight read
@@ -30,10 +39,11 @@
 // mma.sync tile is latency-bound far above that; split-K is later work.
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-// The least M the wgmma engine takes (kernels/matmul.py WGMMA_MIN_ROWS).
+// The least M the wgmma engines take (kernels/matmul.py WGMMA_MIN_ROWS).
 constexpr int kWgmmaMinRows = 1024;
 
 struct DenseA {
@@ -96,9 +106,20 @@ __global__ void __launch_bounds__(ptt::kThreads)
 
 }  // namespace
 
-// Launch on `stream`; return cudaGetLastError() of the launch.
+// Launch on `stream`; return cudaGetLastError() of the launch.  engine:
+// 0 the SIMT tile (any shape; xs and ys unused), 1 the split-TF32 wgmma
+// engine, with xs (2 M K floats) and ys (2 K N floats) its scratch for
+// the split operands (refused with cudaErrorInvalidValue where the shape
+// or alignment rule fails).
 PTT_EXPORT int ptt_matmul_f32(const float* x, const float* y, float* out,
-                              int M, int N, int K, cudaStream_t stream) {
+                              float* xs, float* ys, int M, int N, int K,
+                              int engine, cudaStream_t stream) {
+  if (engine == 1) {
+    if (M < kWgmmaMinRows || !ptt::wg::tf32::takes(K, N, x, y, out, xs, ys))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return ptt::wg::tf32::gemm_dense(x, y, xs, ys, out, M, N, K, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   matmul_f32_kernel<<<ptt::gemm_grid(M, N), ptt::kThreads, 0, stream>>>(
       x, y, out, M, N, K);
   return static_cast<int>(cudaGetLastError());
@@ -129,4 +150,9 @@ PTT_EXPORT int ptt_matmul_bf16(const ptt::bf16* x, const ptt::bf16* y,
 // bytes, static and dynamic shared memory into out[0..4).
 PTT_EXPORT int ptt_matmul_wgmma_attributes(int bn, int* out) {
   return ptt::wg::attributes_bn<false>(bn, out);
+}
+
+// The same for the split-TF32 instance for tile width bn (64, 128).
+PTT_EXPORT int ptt_matmul_wgmma_tf32_attributes(int bn, int* out) {
+  return ptt::wg::tf32::attributes_bn<false>(bn, out);
 }

@@ -135,9 +135,25 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 #: The suffix of a kernel's C symbol for each dtype it takes.
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: The bf16 GEMM engines of the matmul and conv, as their C entries
-#: number them (``engine`` argument).
-ENGINES = {"mma.sync": 0, "wgmma": 1}
+#: The GEMM engines of the matmul and conv, as their C entries number
+#: them (``engine`` argument): the SIMT tile (float32) or the mma.sync
+#: tile (bf16), and the wgmma engine (split TF32 in float32).
+ENGINES = {"mma.sync": 0, "simt": 0, "wgmma": 1}
+
+
+def split_scratch(engine: str, *operands: torch.Tensor):
+    """The float32 wgmma engine's scratch: a hi and a lo float32 copy of
+    each operand, one tensor of twice its size each (None for the other
+    engines).  The caller keeps them until its launch is queued."""
+    if engine != "wgmma":
+        return (None,) * len(operands)
+    return tuple(torch.empty(2 * t.numel(), dtype=torch.float32,
+                             device=t.device) for t in operands)
+
+
+def address(t) -> int:
+    """A tensor's device address, or 0 (a null pointer) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def require_cuda(what: str, dtypes, *tensors) -> None:

@@ -29,11 +29,15 @@ engines, by shape (``bf16_engine``): the wgmma engine
 (``csrc/wgmma_gemm.cuh``; the filter gradient's kernel in
 ``csrc/conv_dw.cu`` on its parts, pixels as the reduction, split over
 pixels by ``dw_splits_wgmma``) for every stride-1 conv of ResNet-50, the
-``mma.sync`` tile (``csrc/tile_gemm.cuh``) for the rest.  The 3 x 3
-convs at 7 x 7 to 28 x 28 and the matmul-like
-1 x 1 convs at 7 x 7 are bound by operations on the H100, the other
-1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
-kernels by operations on the SIMT units.  ``csrc/conv.cu`` and
+``mma.sync`` tile (``csrc/tile_gemm.cuh``) for the rest.  The float32
+forward and backward-input the same way (``f32_engine``): the wgmma
+engine in split TF32 (``csrc/wgmma_tf32.cuh``; the backward-input's
+filter flipped by its split pass, not by ``flip_filter``) or the SIMT
+tile; the float32 filter gradient and fused conv + BN statistics stay on
+their SIMT kernels.  The 3 x 3 convs at 7 x 7 to 28 x 28 and the
+matmul-like 1 x 1 convs at 7 x 7 are bound by operations on the H100, the
+other 1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
+kernels by operations.  ``csrc/conv.cu`` and
 ``csrc/conv_dw.cu`` say what their designs do about that.
 """
 
@@ -50,13 +54,16 @@ import torch.nn.functional as F
 from paddle_tpu_torch.kernels import _build
 
 _SIGNATURES = {
-    "ptt_conv2d_nhwc_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    # x, w, out, the split scratch of x and w; N, H, W, C, KH, KW, O, pad,
+    # flip, the engine (_build.ENGINES)
+    "ptt_conv2d_nhwc_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     # ... and the engine (_build.ENGINES)
     "ptt_conv2d_nhwc_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "ptt_conv_wgmma_attributes": [ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p],
+    **{f"ptt_conv_wgmma{t}_attributes": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+       for t in ("", "_tf32")},
     **{f"ptt_conv2d_bn_stats_nhwc_{s}": [ctypes.c_void_p] * 6
        + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
 }
@@ -73,12 +80,14 @@ _DW_SIGNATURES = {
 #: Launches of the CUDA kernels (the CPU path does not count), float32
 #: and bf16 instances apart: the forward, the backward-input (the forward
 #: kernel on the flipped filter), the filter gradient and the fused
-#: conv + BN statistics; the ``_wgmma`` counters count the bf16 forward,
-#: backward-input and filter-gradient launches that ran on the wgmma
-#: engine (they count in ``launches_bf16``, ``bwd_input_launches_bf16``
-#: and ``dw_launches_bf16`` too).
+#: conv + BN statistics; the ``_wgmma`` counters count the launches that
+#: ran on a wgmma engine: the float32 forward and backward-input (split
+#: TF32), the bf16 forward, backward-input and filter gradient (they count
+#: in their plain counters too).
 launches = 0
+launches_wgmma = 0
 bwd_input_launches = 0
+bwd_input_launches_wgmma = 0
 dw_launches = 0
 stats_launches = 0
 launches_bf16 = 0
@@ -117,7 +126,7 @@ _KSTEP_BF16 = 32  # tile_gemm.cuh's kHK
 
 def _count(counter: str, dtype: torch.dtype, engine: str = "mma.sync"):
     """Add one to ``counter``, or to its ``_bf16`` twin for a bf16 launch
-    (and to its ``_bf16_wgmma`` twin for one on the wgmma engine)."""
+    (and to its ``_wgmma`` twin for one on a wgmma engine)."""
     name = counter + ("_bf16" if dtype == torch.bfloat16 else "")
     with _count_lock:
         globals()[name] += 1
@@ -143,11 +152,27 @@ def bf16_engine(c: int, o: int, x: int, w: int) -> str:
     return "mma.sync"
 
 
-def _engine(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The engine of a launch on x and the (KH, KW, C, O) filter w."""
-    if x.dtype != torch.bfloat16:
-        return "mma.sync"
-    return bf16_engine(w.shape[2], w.shape[3], x.data_ptr(), w.data_ptr())
+def f32_engine(c: int, o: int, x: int, w: int) -> str:
+    """The engine of a float32 conv launch with ``c`` input and ``o``
+    output channels (the backward-input's: O and C of the forward swapped)
+    whose x and filter start at device addresses ``x`` and ``w``: "wgmma"
+    (split TF32, ``csrc/wgmma_tf32.cuh``) for c % 32 == 0 (a 32-wide K
+    step inside one tap), o % 4 == 0 and both addresses 16-byte aligned
+    (TMA's stride rule and the split pass's 16-byte loads), at any batch
+    and image size; else "simt".  A dispatch by shape, never a fallback:
+    ``ptt_conv2d_nhwc_f32`` checks the same rule and refuses a wgmma launch
+    it does not allow."""
+    if c % 32 == 0 and o % 4 == 0 and x % 16 == 0 and w % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def _engine(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> str:
+    """The engine of a launch on x and the (KH, KW, C, O) filter w (with
+    ``flip``, the forward's (KH, KW, O, C) filter of a backward-input)."""
+    c, o = (w.shape[3], w.shape[2]) if flip else (w.shape[2], w.shape[3])
+    rule = bf16_engine if x.dtype == torch.bfloat16 else f32_engine
+    return rule(c, o, x.data_ptr(), w.data_ptr())
 
 
 def _dw_engine(x: torch.Tensor, g: torch.Tensor) -> str:
@@ -158,18 +183,20 @@ def _dw_engine(x: torch.Tensor, g: torch.Tensor) -> str:
     return bf16_engine(x.shape[3], g.shape[3], x.data_ptr(), g.data_ptr())
 
 
-def wgmma_attributes(bn: int, gather: bool, dw: bool = False) -> dict:
+def wgmma_attributes(bn: int, gather: bool, dw: bool = False,
+                     tf32: bool = False) -> dict:
     """Registers, spill bytes and shared memory of the wgmma instance for
     tile width ``bn`` (64, 128, 256), A gathered or loaded by TMA, as the
-    card reports them: the forward's (``csrc/conv.cu``), or with ``dw``
-    the filter gradient's (``csrc/conv_dw.cu``)."""
+    card reports them: the forward's (``csrc/conv.cu``; the split-TF32 one
+    with ``tf32``, bn 64 or 128), or with ``dw`` the filter gradient's
+    (``csrc/conv_dw.cu``)."""
     if dw:
         lib = _build.load("conv_dw", _DW_SIGNATURES)
         return _build.wgmma_attributes(lib, "ptt_conv_dw_wgmma_attributes",
                                        bn, int(gather))
     lib = _build.load("conv", _SIGNATURES)
-    return _build.wgmma_attributes(lib, "ptt_conv_wgmma_attributes", bn,
-                                   int(gather))
+    fn = f"ptt_conv_wgmma{'_tf32' if tf32 else ''}_attributes"
+    return _build.wgmma_attributes(lib, fn, bn, int(gather))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, padding: int,
@@ -283,14 +310,20 @@ def conv2d_nhwc_dw_plain(x: torch.Tensor, g: torch.Tensor, kernel: int,
 
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
-                 what: str, stats: bool = False, engine: str = "mma.sync"):
+                 what: str, stats: bool = False, engine: str = "mma.sync",
+                 flip: bool = False):
     """out, or (out, mean, var) with ``stats``: the float32 or bf16
-    instance of ``csrc/conv.cu`` by x's dtype, the bf16 forward on the
-    named engine (``chip_smoke.py`` times both engines through it).  Not
-    counted: the public wrappers count their own launches."""
+    instance of ``csrc/conv.cu`` by x's dtype, the forward on the named
+    engine (``chip_smoke.py`` times both engines through it).  With
+    ``flip`` (float32 on the wgmma engine only) w is the forward's
+    (KH, KW, O, C) filter of a backward-input, flipped by the split pass.
+    Not counted: the public wrappers count their own launches."""
     _build.require_cuda(what, _build.F32_BF16, x, w)
+    if flip and x.dtype != torch.float32:
+        raise TypeError(f"{what}: only the float32 instance flips w")
     n, h, wd, c = x.shape
-    kh, kw, _, o = w.shape
+    kh, kw = w.shape[:2]
+    o = w.shape[2] if flip else w.shape[3]
     sfx = _build.SUFFIX[x.dtype]
     out = torch.empty((n, h, wd, o), dtype=x.dtype, device=x.device)
     mv = torch.empty((2, o), dtype=torch.float32, device=x.device)
@@ -312,9 +345,11 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
                 kw, o, padding, _build.ENGINES[engine], stream)
         else:
+            xs, ws = _build.split_scratch(engine, x, w)
             err = lib.ptt_conv2d_nhwc_f32(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
-                kw, o, padding, stream)
+                x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                _build.address(xs), _build.address(ws), n, h, wd, c, kh, kw,
+                o, padding, int(flip), _build.ENGINES[engine], stream)
     _build.check(lib, err, f"{what} ({engine})")
     return (out, mv[0], mv[1]) if stats else out
 
@@ -322,8 +357,8 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
                 padding: int) -> torch.Tensor:
     """Launches ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16, both
-    operands one dtype, contiguous; bf16 on the engine ``bf16_engine``
-    picks); runs the plain version on a CPU tensor."""
+    operands one dtype, contiguous; on the engine ``f32_engine`` or
+    ``bf16_engine`` picks); runs the plain version on a CPU tensor."""
     _check(x, w, padding)
     if x.device.type == "cpu":
         return conv2d_nhwc_plain(x, w, padding)
@@ -349,15 +384,18 @@ def conv2d_bn_stats_nhwc(x: torch.Tensor, w: torch.Tensor, padding: int):
 def conv2d_nhwc_bwd_input(g: torch.Tensor, w: torch.Tensor,
                           padding: int) -> torch.Tensor:
     """dL/dx from dL/dout, in g's dtype: launches ``csrc/conv.cu`` on
-    ``g`` with the flipped filter (a small copy per call) on a CUDA
-    tensor; the plain version on a CPU tensor."""
+    ``g`` with the flipped filter on a CUDA tensor (float32 on the wgmma
+    engine: flipped by the kernel's split pass; otherwise a small copy per
+    call); the plain version on a CPU tensor."""
     _check(g, w, padding, channel_dim=3, what="conv2d_nhwc_bwd_input")
     if g.device.type == "cpu":
         return conv2d_nhwc_bwd_input_plain(g, w, padding)
-    wf = flip_filter(w)
-    engine = _engine(g, wf)
-    out = _launch_conv(g, wf, w.shape[0] - 1 - padding,
-                       "conv2d_nhwc_bwd_input", engine=engine)
+    pad = w.shape[0] - 1 - padding
+    flip = g.dtype == torch.float32 and _engine(g, w, flip=True) == "wgmma"
+    wf = w if flip else flip_filter(w)
+    engine = _engine(g, wf, flip=flip)
+    out = _launch_conv(g, wf, pad, "conv2d_nhwc_bwd_input", engine=engine,
+                       flip=flip)
     _count("bwd_input_launches", g.dtype, engine)
     return out
 

@@ -28,7 +28,11 @@ both sides.  The bf16 flash and LSTM instances: out, dq, dk, dv, hs, cs
 and the gates within the same bf16 tolerance (the plain forward walks
 the kernel's key tiles, ``tile=key_tile(D)``, so p is rounded to bf16
 against the same running maximum on both sides), lse within 1e-4
-(float32 from the same bf16 scores).
+(float32 from the same bf16 scores).  The float32 matmul and conv on the
+split-TF32 wgmma engine (``-k tf32``): GEMM_TOL against the plain
+versions, bit for bit across repeated launches and between the fused
+and the copied filter flip, and against float64 at most twice the SIMT
+tile's largest error.
 """
 
 import ctypes
@@ -1744,3 +1748,263 @@ def test_wgmma_filter_gradient_stores_nothing_out_of_bounds(dev):
             assert bool(torch.isnan(torch.cat([b[:4096], b[-4096:]])).all())
         assert not bool(torch.isnan(dw).any())
         _close_dw(dw, want)
+
+
+# ---------------------------------------------------------------------------
+# the float32 matmul and conv on the split-TF32 wgmma engine
+# (csrc/wgmma_tf32.cuh); ``-k tf32`` selects them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pattern", ["a_rows", "b_cols", "a_m", "a_k"])
+@pytest.mark.parametrize("route", ["matmul", "conv1x1", "conv3x3"])
+def test_tf32_descriptor_probe(dev, route, pattern):
+    """The probes of ``test_wgmma_descriptor_probe`` in float32 (integers
+    below 256: hi holds them exactly, lo is zero, every sum exact): two
+    32-wide K steps and two 128-wide column tiles through each route."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    m, k, n = (1024 if route == "matmul" else 128), 64, 256
+    x, y, want = (t.float() for t in _probe_operands(pattern, m, k, n, dev))
+    before = (kmatmul.launches_wgmma, kconv.launches_wgmma)
+    if route == "matmul":
+        got = kmatmul.matmul(x, y)
+        counted = (before[0] + 1, before[1])
+    else:
+        xi = x.view(1, 8, 16, 64)
+        if route == "conv1x1":
+            w = y.view(1, 1, 64, 256)
+        else:
+            w = torch.zeros(3, 3, 64, 256, device=dev)
+            w[1, 1] = y
+        got = kconv.conv2d_nhwc(xi, w, w.shape[0] // 2).view(m, n)
+        counted = (before[0], before[1] + 1)
+    assert (kmatmul.launches_wgmma, kconv.launches_wgmma) == counted
+    torch.cuda.synchronize()
+    _name_permutation(got, want, f"tf32 {route} {pattern}")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    # ragged: M off 128, K off 32 (and below it), N = 4 mod 8, N <= 64
+    (1031, 200, 260), (1031, 36, 68), (1024, 4, 4), (2053, 132, 516),
+    (1100, 64, 132), (1500, 1000, 60),
+    # the transformer step's five products with M cut to 1024
+    (1024, 2048, 6144), (1024, 2048, 2048), (1024, 2048, 8192),
+    (1024, 8192, 2048), (1024, 2048, 32768),
+])
+def test_tf32_matmul_matches_plain(dev, m, k, n):
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(51)
+    x = _randn(g, m, k, device=dev)
+    y = _randn(g, k, n, scale=k ** -0.5, device=dev)
+    before = (kmatmul.launches, kmatmul.launches_wgmma)
+    got = kmatmul.matmul(x, y)
+    assert (kmatmul.launches, kmatmul.launches_wgmma) == (before[0] + 1,
+                                                          before[1] + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kmatmul.matmul_plain(x, y), **GEMM_TOL)
+
+
+TF32_CONV_SHAPES = [
+    # 1 x 1, 3 x 3 and 5 x 5 with halos at C 32 and 128, O off the tile
+    # widths (36 = 4 mod 8, 200) and on them
+    (3, 7, 5, 32, 36, 1), (3, 7, 5, 32, 36, 3), (3, 7, 5, 32, 64, 5),
+    (2, 9, 11, 128, 200, 3), (2, 9, 11, 128, 128, 5), (4, 7, 7, 128, 72, 1),
+    (5, 7, 7, 32, 32, 3), (1, 1, 1, 32, 4, 3),
+    # ResNet-50 shapes at batch 2
+    (2, 56, 56, 64, 64, 3), (2, 56, 56, 64, 256, 1), (2, 28, 28, 128, 128, 3),
+    (2, 14, 14, 256, 1024, 1), (2, 7, 7, 512, 512, 3), (2, 7, 7, 2048, 512, 1),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", TF32_CONV_SHAPES)
+def test_tf32_conv_forward_and_backward_input_match_plain(dev, n, h, w, c,
+                                                          o, k):
+    """The forward on the engine, and the backward-input too where its C
+    (the forward's O) is a multiple of 32, the filter flipped by the split
+    pass."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(52)
+    x = _randn(g, n, h, w, c, device=dev)
+    wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5, device=dev)
+    dy = _randn(g, n, h, w, o, device=dev)
+    before = (kconv.launches, kconv.bwd_input_launches, kconv.launches_wgmma,
+              kconv.bwd_input_launches_wgmma)
+    out = kconv.conv2d_nhwc(x, wt, k // 2)
+    dx = kconv.conv2d_nhwc_bwd_input(dy, wt, k // 2)
+    after = (kconv.launches, kconv.bwd_input_launches, kconv.launches_wgmma,
+             kconv.bwd_input_launches_wgmma)
+    assert after == tuple(
+        b + d for b, d in zip(before, (1, 1, 1, o % 32 == 0)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kconv.conv2d_nhwc_plain(x, wt, k // 2),
+                               **GEMM_TOL)
+    torch.testing.assert_close(
+        dx, kconv.conv2d_nhwc_bwd_input_plain(dy, wt, k // 2), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_tf32_backward_input_flips_in_its_split_pass(dev, k):
+    """The fused flip (the forward's filter, flipped and channel-swapped by
+    the split pass) gives bit for bit what the same engine gives on
+    ``flip_filter``'s copy: the same split values, summed in one order."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(53)
+    dy = _randn(g, 2, 9, 7, 96, device=dev)
+    wt = _randn(g, k, k, 64, 96, scale=0.1, device=dev)
+    fused = kconv._launch_conv(dy, wt, k // 2, "conv", engine="wgmma",
+                               flip=True)
+    copied = kconv._launch_conv(dy, kconv.flip_filter(wt), k // 2, "conv",
+                                engine="wgmma")
+    torch.cuda.synchronize()
+    assert torch.equal(fused, copied)
+    torch.testing.assert_close(
+        fused, kconv.conv2d_nhwc_bwd_input_plain(dy, wt, k // 2), **GEMM_TOL)
+
+
+def test_tf32_conv_repeated_launches_read_no_stale_tile(dev):
+    """200 launches of the gathered conv at a halo-heavy shape, each
+    compared with the first bit for bit (a stage read before its copies
+    are visible to wgmma shows as a launch that differs)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(54)
+    x = _randn(g, 32, 7, 7, 128, device=dev)
+    w = _randn(g, 3, 3, 128, 128, scale=0.04, device=dev)
+    before = kconv.launches_wgmma
+    first = kconv.conv2d_nhwc(x, w, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, kconv.conv2d_nhwc_plain(x, w, 1),
+                               **GEMM_TOL)
+    differ = []
+    for i in range(200):
+        if not torch.equal(kconv.conv2d_nhwc(x, w, 1), first):
+            differ.append(i)
+    torch.cuda.synchronize()
+    assert kconv.launches_wgmma == before + 201
+    assert not differ, f"launches {differ[:10]} differ from the first"
+
+
+def _f64_errors(got, simt, exact):
+    return (float((got.double() - exact).abs().max()),
+            float((simt.double() - exact).abs().max()))
+
+
+def _conv_f64(x, w, p):
+    """The SAME conv of x (N, H, W, C) and w (KH, KW, C, O) in float64."""
+    n, h, wd, _ = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0, p, p, p, p))
+    out = 0
+    for i in range(w.shape[0]):
+        for j in range(w.shape[1]):
+            out = out + xp[:, i:i + h, j:j + wd, :] @ w[i, j].double()
+    return out
+
+
+def test_tf32_engine_is_as_precise_as_the_simt_tile(dev):
+    """Against a float64 product, the split-TF32 engine's largest error is
+    at most twice the SIMT tile's on the same inputs: a matmul at the
+    transformer's longest reduction (K 8192) and a 3 x 3 conv at C 512 (K
+    4608), forward and backward-input."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(55)
+    x = _randn(g, 1024, 8192, device=dev)
+    y = _randn(g, 8192, 512, scale=8192 ** -0.5, device=dev)
+    err, simt = _f64_errors(kmatmul._launch(x, y, "wgmma"),
+                            kmatmul._launch(x, y, "simt"),
+                            x.double() @ y.double())
+    assert err <= 2 * simt, ("matmul", err, simt)
+    xi = _randn(g, 2, 7, 7, 512, device=dev)
+    wt = _randn(g, 3, 3, 512, 512, scale=(2.0 / 4608) ** 0.5, device=dev)
+    exact = _conv_f64(xi, wt, 1)
+    err, simt = _f64_errors(kconv._launch_conv(xi, wt, 1, "c", engine="wgmma"),
+                            kconv._launch_conv(xi, wt, 1, "c", engine="simt"),
+                            exact)
+    assert err <= 2 * simt, ("conv", err, simt)
+    exact = _conv_f64(xi, kconv.flip_filter(wt), 1)
+    err, simt = _f64_errors(
+        kconv._launch_conv(xi, wt, 1, "c", engine="wgmma", flip=True),
+        kconv._launch_conv(xi, kconv.flip_filter(wt), 1, "c", engine="simt"),
+        exact)
+    assert err <= 2 * simt, ("backward-input", err, simt)
+
+
+def test_tf32_stores_nothing_out_of_bounds(dev):
+    """The split-TF32 symbols launched straight into outputs with NaN
+    guards on both sides at ragged shapes: the guards stay NaN and the
+    outputs match the plain versions."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(56)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wgmma = _build.ENGINES["wgmma"]
+    mlib = _build.load("matmul", kmatmul._SIGNATURES)
+    clib = _build.load("conv", kconv._SIGNATURES)
+    checks = []
+    a = _randn(g, 1031, 200, device=dev)
+    b = _randn(g, 200, 260, scale=0.07, device=dev)
+    buf, mm = _guarded((1031, 260), torch.float32, dev)
+    sa, sb = _build.split_scratch("wgmma", a, b)
+    _build.check(mlib, mlib.ptt_matmul_f32(
+        a.data_ptr(), b.data_ptr(), mm.data_ptr(), sa.data_ptr(),
+        sb.data_ptr(), 1031, 260, 200, wgmma, stream), "matmul wgmma")
+    checks.append((buf, mm, kmatmul.matmul_plain(a, b)))
+    for n, h, w, c, o, k in ((3, 7, 5, 32, 68, 3), (3, 7, 5, 64, 68, 1)):
+        x = _randn(g, n, h, w, c, device=dev)
+        wt = _randn(g, k, k, c, o, scale=0.1, device=dev)
+        buf, out = _guarded((n, h, w, o), torch.float32, dev)
+        sx, sw = _build.split_scratch("wgmma", x, wt)
+        _build.check(clib, clib.ptt_conv2d_nhwc_f32(
+            x.data_ptr(), wt.data_ptr(), out.data_ptr(), sx.data_ptr(),
+            sw.data_ptr(), n, h, w, c, k, k, o, k // 2, 0, wgmma, stream),
+            "conv wgmma")
+        checks.append((buf, out, kconv.conv2d_nhwc_plain(x, wt, k // 2)))
+    torch.cuda.synchronize()
+    for buf, view, want in checks:
+        guard = torch.cat([buf[:4096], buf[-4096:]])
+        assert bool(torch.isnan(guard).all())
+        assert not bool(torch.isnan(view).any())
+        torch.testing.assert_close(view, want, **GEMM_TOL)
+
+
+def test_tf32_refuses_what_its_rule_does_not_allow(dev):
+    """No fallback: a float32 wgmma launch at a shape or alignment the rule
+    does not allow, or a flip off the wgmma engine, is refused by the C
+    entry and raises; the wrappers never ask for one."""
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    x = torch.ones(256, 64, device=dev)
+    y = torch.ones(64, 64, device=dev)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kmatmul._launch(x, y, "wgmma")              # M < 1024
+    big = torch.ones(1024 * 64 + 4, device=dev)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kmatmul._launch(big[1:1 + 64 * 1024].view(1024, 64), y,
+                        "wgmma")                    # x off 16 bytes
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kmatmul._launch(torch.ones(1024, 62, device=dev),
+                        torch.ones(62, 64, device=dev), "wgmma")   # K % 4
+    xi = torch.ones(2, 7, 7, 20, device=dev)
+    wi = torch.ones(3, 3, 20, 64, device=dev)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_conv(xi, wi, 1, "conv", engine="wgmma")   # C % 32
+    xo = torch.ones(2, 7, 7, 64, device=dev)
+    with pytest.raises(RuntimeError, match="simt"):
+        kconv._launch_conv(xo, torch.ones(3, 3, 64, 64, device=dev), 1,
+                           "conv", engine="simt", flip=True)
+    before = (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
+              kconv.launches_wgmma)
+    kmatmul.matmul(x, y)                            # the rule picks simt
+    kconv.conv2d_nhwc(xi, wi, 1)
+    assert (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
+            kconv.launches_wgmma) == (before[0] + 1, before[1],
+                                      before[2] + 1, before[3])

@@ -258,3 +258,122 @@ def test_cpu_filter_gradient_runs_the_plain_version_at_wgmma_shapes():
         assert got.dtype == torch.float32
         assert torch.equal(got, kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
     assert (kconv.dw_launches_bf16, kconv.dw_launches_bf16_wgmma) == before
+
+
+# ---------------------------------------------------------------------------
+# the float32 matmul and conv (csrc/wgmma_tf32.cuh: split TF32)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", TRANSFORMER_PRODUCTS)
+def test_f32_transformer_products_take_wgmma(m, k, n):
+    assert kmatmul.f32_engine(m, k, n, ALIGNED, ALIGNED) == "wgmma"
+
+
+@pytest.mark.parametrize("m,k,n,why", [
+    (256, 2048, 1000, "the ResNet fc: 2 row tiles"),
+    (32, 2048, 1000, "the serving fc"),
+    (3, 2048, 1000, "a ragged serving batch"),
+    (1023, 2048, 2048, "one row short of the least M"),
+    (8192, 2046, 2048, "K % 4 != 0: a row of x is not 16-byte strided"),
+    (8192, 2048, 1002, "N % 4 != 0"),
+    (3435, 256, 2, "the LoD classifier's head: N = 2"),
+    (8192, 0, 2048, "K == 0"),
+])
+def test_f32_small_and_ragged_products_keep_the_simt_tile(m, k, n, why):
+    assert kmatmul.f32_engine(m, k, n, ALIGNED, ALIGNED) == "simt", why
+
+
+def test_f32_misaligned_matmul_operands_keep_the_simt_tile():
+    """A float32 view one element into its storage starts 4 bytes off a
+    16-byte boundary."""
+    buf = torch.zeros(1025 * 64, dtype=torch.float32)
+    x = buf[1:1 + 1024 * 64].view(1024, 64)
+    y = buf[: 64 * 64].view(64, 64)
+    assert y.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 4
+    assert kmatmul.f32_engine(1024, 64, 64, x.data_ptr(),
+                              y.data_ptr()) == "simt"
+    assert kmatmul.f32_engine(1024, 64, 64, y.data_ptr(),
+                              x.data_ptr()) == "simt"
+    assert kmatmul.f32_engine(1024, 64, 64, y.data_ptr(),
+                              y.data_ptr()) == "wgmma"
+
+
+@pytest.mark.parametrize("h,c,o,k", RESNET50_CONVS)
+def test_f32_resnet50_convs_take_wgmma_forward_and_backward_input(h, c, o, k):
+    """As read by the wrappers: the forward on x (C) and w (KH, KW, C, O),
+    the backward-input on g (O) and the forward's w, whose split pass
+    flips it (meta tensors: shapes and an aligned address, no memory)."""
+    x = torch.empty(2, h, h, c, device="meta")
+    g = torch.empty(2, h, h, o, device="meta")
+    w = torch.empty(k, k, c, o, device="meta")
+    assert kconv.f32_engine(c, o, ALIGNED, ALIGNED) == "wgmma"
+    assert kconv.f32_engine(o, c, ALIGNED, ALIGNED) == "wgmma"
+    assert kconv._engine(x, w) == "wgmma"
+    assert kconv._engine(g, w, flip=True) == "wgmma"
+
+
+@pytest.mark.parametrize("c,o,why", [
+    (1, 20, "LeNet's first conv: C = 1"),
+    (20, 50, "LeNet's second conv: C = 20"),
+    (3, 64, "C = 3: a K step of 32 spans taps"),
+    (64, 70, "O % 4 != 0: a filter row is not 16-byte strided"),
+    (48, 64, "C % 32 != 0"),
+])
+def test_f32_ragged_convs_keep_the_simt_tile(c, o, why):
+    assert kconv.f32_engine(c, o, ALIGNED, ALIGNED) == "simt", why
+
+
+def test_f32_misaligned_conv_operands_keep_the_simt_tile():
+    buf = torch.zeros(2 * 7 * 7 * 64 + 8, dtype=torch.float32)
+    x = buf[1:1 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    assert x.data_ptr() % 16 == 4
+    assert kconv.f32_engine(64, 64, x.data_ptr(), ALIGNED) == "simt"
+    assert kconv.f32_engine(64, 64, ALIGNED, x.data_ptr()) == "simt"
+
+
+def test_the_f32_c_entries_mirror_the_rules():
+    """``ptt_matmul_f32`` and ``ptt_conv2d_nhwc_f32`` refuse a wgmma launch
+    by the same rule (the least M, K % 4 and N % 4 in ``takes``, the
+    conv's channel test 32), a flip off the wgmma engine, and the engine
+    numbers are ``_build.ENGINES``'s."""
+    from paddle_tpu_torch.kernels import _build
+
+    csrc = os.path.join(os.path.dirname(kmatmul.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "matmul.cu")) as f:
+        mm = f.read()
+    with open(os.path.join(csrc, "conv.cu")) as f:
+        cv = f.read()
+    with open(os.path.join(csrc, "wgmma_tf32.cuh")) as f:
+        engine = f.read()
+    assert ("M < kWgmmaMinRows || !ptt::wg::tf32::takes(K, N, x, y, out, "
+            "xs, ys)") in mm
+    assert "C % 32 != 0 ||" in cv
+    assert "!ptt::wg::tf32::takes(KH * KW * C, O, x, w, out, xs, ws)" in cv
+    assert "if (engine != 0 || flip != 0)" in cv
+    assert ("return K > 0 && K % 4 == 0 && N > 0 && N % 4 == 0 && "
+            "aligned16(a) &&") in engine
+    assert "constexpr int kBK = 32;" in engine
+    assert _build.ENGINES["simt"] == 0 and _build.ENGINES["wgmma"] == 1
+
+
+def test_f32_cpu_tensors_run_the_plain_version_at_wgmma_shapes():
+    """A float32 CPU tensor at a shape the split-TF32 engine would take
+    gets the plain version, and no launch is counted."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1024, 64, generator=g)
+    y = torch.randn(64, 72, generator=g)
+    xi = torch.randn(2, 7, 7, 64, generator=g)
+    w = torch.randn(3, 3, 64, 64, generator=g) * 0.05
+    assert kmatmul.f32_engine(1024, 64, 72, ALIGNED, ALIGNED) == "wgmma"
+    before = (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
+              kconv.launches_wgmma, kconv.bwd_input_launches,
+              kconv.bwd_input_launches_wgmma)
+    assert torch.equal(kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y))
+    assert torch.equal(kconv.conv2d_nhwc(xi, w, 1),
+                       kconv.conv2d_nhwc_plain(xi, w, 1))
+    assert torch.equal(kconv.conv2d_nhwc_bwd_input(xi, w, 1),
+                       kconv.conv2d_nhwc_bwd_input_plain(xi, w, 1))
+    assert (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
+            kconv.launches_wgmma, kconv.bwd_input_launches,
+            kconv.bwd_input_launches_wgmma) == before
