@@ -15,10 +15,11 @@ seconds):
 1. The card (name, power limit), torch/CUDA/nvcc versions, and the
    kernels' build from ``paddle_tpu_torch/csrc`` with nvcc, one process
    per source, all started together; each kernel's ``ptxas -v`` lines
-   (and any ptxas warning), and the bf16 wgmma engine's instances, the
-   wgmma filter gradient's and the split-TF32 engine's (the f32 matmul
-   and conv) as the card reports them (registers, spills, static and
-   dynamic shared memory).
+   (and any ptxas warning), the f32 flash kernels' SASS opcode counts,
+   and the bf16 wgmma engine's instances, the wgmma filter gradient's and
+   the split-TF32 engine's (the f32 matmul, conv and filter gradient) as
+   the card reports them (registers, spills, static and dynamic shared
+   memory).
 2. Each kernel against its plain version on the card, TF32 off, with
    medians of CUDA-event timings of the kernel, the plain version and
    the one PyTorch call that computes the same function, beside the
@@ -55,14 +56,23 @@ seconds):
    LSTM classifier's three products are checked in bf16 too, each on
    the engine the rule picks.  Where the f32 matmul and conv run on the
    split-TF32 wgmma engine (csrc/wgmma_tf32.cuh: the transformer's
-   products, every ResNet-50 conv forward and backward-input, training
-   and serving), the SIMT tile it replaced is held to the same plain
-   result and timed beside it (``simt_ms``), the bound as split TF32 is
-   3 x FLOPs at 495 TFLOP/s (``bound_tf32_ms``), and both are held to a
-   float64 result: the engine's largest error at most GEMM_F64_FACTOR
-   times the SIMT tile's at the transformer's five products (at
-   GEMM_F64_ROWS rows), a 3 x 3 conv at C 512 and a 1 x 1 at C 2048,
-   forward and backward-input.
+   products, every ResNet-50 conv forward, backward-input and filter
+   gradient, training and serving), the SIMT tile it replaced is held to
+   the same plain result and timed beside it (``simt_ms``), the bound as
+   split TF32 is 3 x FLOPs at 495 TFLOP/s (``bound_tf32_ms``), and both
+   are held to a float64 result: the engine's largest error at most
+   GEMM_F64_FACTOR times the SIMT tile's at the transformer's five
+   products (at GEMM_F64_ROWS rows), a 3 x 3 conv at C 512 and a 1 x 1 at
+   C 2048, forward and backward-input, and the filter gradient of a 3 x 3
+   at C 512 on 7 x 7 and of the 1 x 1 at 56 x 56 (64 -> 256); the filter
+   gradient's device time is split into its split pass
+   (``split_pass_ms``), products and reduce by one profiled call a shape.
+   The f32 flash forward (split TF32 too) beside the SIMT forward it
+   replaced the same way, its float64 gate (FLASH_F64_FACTOR) at the
+   step's shape and at S 200, D 64.  The softmax, gather and paged rows,
+   whose event-timed calls are under 0.1 ms, also carry the profiler's
+   device-only time of the kernel and of the library call
+   (``device_ms``, ``library_device_ms``).
 3. Serving: ResNet-50 at full width (3x224x224, 1000 classes) built with
    the port's layers, initialised on the card from a seed, BN running
    statistics overwritten with seeded values, exported with
@@ -91,11 +101,12 @@ seconds):
    before the first step and read just after, must show the launches
    the program implies (conv forward 46, backward-input 46, filter
    gradient 46, BN forward 53, BN backward 53, matmul 1, softmax 1; the
-   46 + 46 conv forward and backward-input launches on the split-TF32
-   wgmma engine, the fc on the SIMT tile);
+   46 + 46 + 46 conv forward, backward-input and filter-gradient launches
+   on the split-TF32 wgmma engine, the fc on the SIMT tile);
    then images/s over 5 timed steps after 2 warm-up steps, the peak of
    torch.cuda.max_memory_allocated(), and one profiled step (device idle
-   share, top kernels, layout copies).
+   share, top kernels, layout copies; it must see the 46
+   wgmma_tf32_dw_kernel launches).
 6a. (AMP) The bf16 instances against their plain versions (in phase 2):
    conv forward, backward-input and filter gradient at the 13 distinct
    stride-1 conv shapes of the step at batch 256, BN forward and backward
@@ -137,8 +148,8 @@ seconds):
    split-TF32 wgmma engine), every mul op on identical inputs against the
    CPU within OP_TOL, its 17 launches all on the engine.
 9. The transformer step at B 8, S 1024: the launches (flash forward 4,
-   dq 4, dk/dv 4, matmul 17 all on the split-TF32 wgmma engine, softmax
-   0, the program's own count),
+   dq 4, dk/dv 4, all three split-TF32 kernels; matmul 17 all on the
+   split-TF32 wgmma engine, softmax 0, the program's own count),
    tokens/s over 5 timed steps after 2 warm-up steps, peak memory (its
    profiled step comes after phase 10b's).
 10. A small transformer (d_model 256, 2 layers, vocab 64, S 128) learns
@@ -219,9 +230,12 @@ seconds):
     the cost of the logits' copy to the host.
 22. The kernels line (for the bf16 matmul, conv forward,
     backward-input and filter gradient also ``launches_wgmma``, its count
-    by path and ``mma_sync_ms``; for the f32 matmul, conv forward and
-    backward-input ``launches_wgmma``, its count by path, ``simt_ms`` and
-    ``bound_tf32_ms``), the card's name and power limit, and the result.
+    by path and ``mma_sync_ms``; for the f32 matmul, conv forward,
+    backward-input and filter gradient ``launches_wgmma``, its count by
+    path, ``simt_ms`` and ``bound_tf32_ms``, the filter gradient's
+    ``split_pass_ms``; for the f32 flash kernels ``simt_ms`` and
+    ``bound_tf32_ms``; ``device_ms`` and ``library_device_ms`` where phase
+    2 took them), the card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
 
@@ -521,6 +535,24 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=5):
+    """{CUDA kernel name: device ms per call} of ``fn``, from one profiled
+    window of ``reps`` calls after one unprofiled call: the kernels' own
+    time, without the wrapper's host work that ``time_ms`` brackets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
 def counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from paddle_tpu_torch.kernels import batch_norm as kbn
@@ -557,15 +589,16 @@ def counters():
 
 def wgmma_counters():
     """The launches that ran on a wgmma engine (they count in
-    ``counters()`` too): the f32 matmul, conv forward and backward-input
-    in split TF32, the bf16 matmul, conv forward, backward-input and
-    filter gradient."""
+    ``counters()`` too): the f32 matmul, conv forward, backward-input and
+    filter gradient in split TF32, the bf16 matmul, conv forward,
+    backward-input and filter gradient."""
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
     return dict(matmul=kmatmul.launches_wgmma,
                 conv2d_nhwc=kconv.launches_wgmma,
                 conv_bwd_input=kconv.bwd_input_launches_wgmma,
+                conv_dw=kconv.dw_launches_wgmma,
                 matmul_bf16=kmatmul.launches_bf16_wgmma,
                 conv2d_nhwc_bf16=kconv.launches_bf16_wgmma,
                 conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma,
@@ -589,7 +622,7 @@ def zero_counters():
     kconv.launches_bf16_wgmma = kconv.bwd_input_launches_bf16_wgmma = 0
     kconv.dw_launches_bf16_wgmma = kmatmul.launches_bf16_wgmma = 0
     kconv.launches_wgmma = kconv.bwd_input_launches_wgmma = 0
-    kmatmul.launches_wgmma = 0
+    kconv.dw_launches_wgmma = kmatmul.launches_wgmma = 0
     kbn.launches = kbn.bwd_launches = 0
     kbn.launches_bf16 = kbn.bwd_launches_bf16 = 0
     kmatmul.launches = kmatmul.launches_bf16 = ksoftmax.launches = 0
@@ -813,10 +846,11 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
     # the training step: forward, backward-input and filter gradient of
     # every kernel conv at batch 256
     sums = {k: _Sum() for k in ("conv2d_nhwc", "conv_bwd_input", "conv_dw")}
-    # the forward's and backward-input's SIMT tile (what the split-TF32
-    # engine replaced) and their bound as split TF32
-    simt = dict(conv2d_nhwc=0.0, conv_bwd_input=0.0)
-    bound_tf32 = 0.0
+    # the SIMT tile of the forward, backward-input and filter gradient
+    # (what the split-TF32 engine replaced), their bound as split TF32, the
+    # filter gradient's split pass
+    simt = dict(conv2d_nhwc=0.0, conv_bwd_input=0.0, conv_dw=0.0)
+    bound_tf32 = dw_pass = 0.0
     log(f"conv kernels of the training step at batch {TRAIN_BATCH} (fwd: "
         "F.conv2d; bwd-input: conv2d_input; filter grad: conv2d_weight; "
         "TF32 off), per call:")
@@ -885,28 +919,55 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
                 _conv_f64(g, wf, p))
             del wf
 
+        want = kconv.conv2d_nhwc_dw_plain(x, g, k, p)
         err = check_scaled(f"conv filter grad {tag}",
-                           kconv.conv2d_nhwc_dw(x, g, k, p),
-                           kconv.conv2d_nhwc_dw_plain(x, g, k, p), DW_TOL)
+                           kconv.conv2d_nhwc_dw(x, g, k, p), want, DW_TOL)
         times = (time_ms(lambda: kconv.conv2d_nhwc_dw(x, g, k, p)),
                  time_ms(lambda: kconv.conv2d_nhwc_dw_plain(x, g, k, p)),
                  time_ms(lambda: conv2d_weight(x_lib, w_lib.shape, g_lib,
                                                padding=p)))
-        splits, chunk = kconv.dw_splits(k * k * c, o, n * h * w)
-        _line(f"filter grad {tag} ({splits} splits of {chunk} pixels)",
+        engine = kconv.f32_dw_engine(c, o, x.data_ptr(), g.data_ptr())
+        splits, chunk = (
+            kconv.dw_splits_tf32(k * k * c, o, kconv.dw_pixels(n, h, w, p))
+            if engine == "wgmma" else kconv.dw_splits(k * k * c, o, n * h * w))
+        _line(f"filter grad {tag} ({splits} splits of {chunk} positions)",
               count, *times, flops, nbytes, err)
         sums["conv_dw"].add(count, *times, flops, nbytes, err)
-        del x, wt, g, x_lib, g_lib, w_lib
+        # the SIMT tile the split-TF32 engine replaced; the engine's device
+        # time split into its split pass, products and reduce
+        simt["conv_dw"] += count * _old_tile(
+            f"conv filter grad {tag}", want, times[0], flops,
+            lambda: kconv._launch_dw(x, g, k, p, "simt"), engine,
+            lambda name, got, want: check_scaled(name, got, want, DW_TOL),
+            "SIMT")
+        parts = device_ms(lambda: kconv.conv2d_nhwc_dw(x, g, k, p), reps=3)
+        split_ms = sum(v for n_, v in parts.items() if "split_dw" in n_)
+        prod_ms = sum(v for n_, v in parts.items() if "tf32_dw_kernel" in n_)
+        rest_ms = sum(parts.values()) - split_ms - prod_ms
+        dw_pass += count * split_ms
+        log(f"    device time a call: split pass {split_ms:.4f} ms, products"
+            f" {prod_ms:.4f} ms, the rest {rest_ms:.4f} ms")
+        if (h, c, o, k) in ((7, 512, 512, 3), (56, 64, 256, 1)):
+            # the float64 gate: the longest filter-gradient K (1 x 1 at
+            # 56 x 56) and a 3 x 3 at C 512
+            _gemm_f64_precision(
+                f"conv filter grad {tag}",
+                kconv._launch_dw(x, g, k, p, "wgmma"),
+                kconv._launch_dw(x, g, k, p, "simt"), _dw_f64(x, g, k, p))
+        del x, wt, g, x_lib, g_lib, w_lib, want
     torch.cuda.empty_cache()
     results = {name: s.result() for name, s in sums.items()}
     for name, ms in simt.items():
         results[name].update(simt_ms=ms, bound_tf32_ms=bound_tf32)
+    results["conv_dw"]["split_pass_ms"] = dw_pass
     for name, r in results.items():
         log(f"  one training step's {name} launches: kernel {r['ms']:.3f} ms,"
             f" plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms,"
             f" bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
             + (f", {r['bound_tf32_ms']:.3f} ms as split TF32; the SIMT tile "
                f"{r['simt_ms']:.3f} ms" if "simt_ms" in r else "")
+            + (f"; the split pass {r['split_pass_ms']:.3f} ms of device time"
+               if "split_pass_ms" in r else "")
             + f"; max err {r['max_abs_err']:.2e}")
     return results
 
@@ -1012,9 +1073,23 @@ def phase_dense_kernels(dev, randn):
         log(f"softmax {rows}x1000: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"library {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}), max err "
             f"{err:.2e} (tolerance atol {SOFTMAX_ATOL})")
-    results["softmax"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err)
+    results["softmax"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max_err, **_device_times(
+            "softmax", ms, lib, lambda: ksoftmax.softmax(x),
+            lambda: torch.softmax(x, dim=-1)))
     return results
+
+
+def _device_times(what, ms, lib, kernel, library):
+    """A short kernel's device-only time beside its event time (which
+    brackets the wrapper's host work too), and the library call's:
+    {"device_ms", "library_device_ms"}, summed over each call's kernels
+    (``device_ms``; None where the profiler saw none)."""
+    got = [sum(device_ms(fn).values()) or None for fn in (kernel, library)]
+    log(f"  {what}: device time {got[0]} ms (event time {ms:.4f}), library "
+        f"{got[1]} ms (event time {lib:.4f})")
+    return dict(device_ms=got[0], library_device_ms=got[1])
 
 
 def check_bf16(name, got, want):
@@ -1266,12 +1341,13 @@ def phase_flash_kernels(dev, randn, bf16=False):
     at the step's shape, summed over its 4 launches of each, bound at 67
     TFLOP/s f32 or 989 bf16.  Library: F.scaled_dot_product_attention's
     forward, and its autograd backward (dq, dk and dv together), whose
-    kernels one profiled call names.  f32 also: the SIMT backward kernels
-    that the split-TF32 ones replaced, checked and timed beside them
-    (``simt_ms``), both pairs' largest error against a float64 backward
-    at the step's shape (the split-TF32 one at most FLASH_F64_FACTOR
-    times the SIMT one), and the split-TF32 bound, 3 x FLOPs at 495
-    TFLOP/s (``bound_tf32_ms``)."""
+    kernels one profiled call names.  f32 also: the SIMT forward and
+    backward kernels that the split-TF32 ones replaced, checked and timed
+    beside them (``simt_ms``), their largest errors against a float64
+    forward (at the step's shape and at S 200, D 64) and backward (at the
+    step's shape), the split-TF32 one at most FLASH_F64_FACTOR times the
+    SIMT one, and the split-TF32 bound, 3 x FLOPs at 495 TFLOP/s
+    (``bound_tf32_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1302,6 +1378,10 @@ def phase_flash_kernels(dev, randn, bf16=False):
         errs = [close(f"flash{sfx} {n} {tag}", g, w, True)
                 for n, g, w in zip(("dq", "dk", "dv"), grads, want)]
         if not bf16:
+            so, sl = kfa._launch_fwd(q, k, v, causal, None, simt=True)
+            close(f"flash SIMT fwd out {tag}", so, pout, False)
+            check_close(f"flash SIMT fwd lse {tag}", sl, plse, rtol=0,
+                        atol=FLASH_ATOL)
             simt = kfa._launch_bwd(q, k, v, out, lse, do, causal, None, None,
                                    simt=True)
             for n, g, w in zip(("dq", "dk", "dv"), simt, want):
@@ -1316,8 +1396,8 @@ def phase_flash_kernels(dev, randn, bf16=False):
             worst = [max(w, e) for w, e in zip(worst, errs)]
     log(f"flash{sfx} kernels at ragged shapes (S 200, D 64 and 72, causal "
         f"and not): max err fwd {worst[0]:.2e}, dq {worst[1]:.2e}, dk/dv "
-        f"{worst[2]:.2e}" + ("" if bf16 else "; the SIMT dq and dk/dv "
-                             "within the same tolerance"))
+        f"{worst[2]:.2e}" + ("" if bf16 else "; the SIMT forward, dq and "
+                             "dk/dv within the same tolerance"))
 
     h, d = TF_CONFIG["num_heads"], TF_CONFIG["d_model"] // TF_CONFIG["num_heads"]
     b, s, count = TF_BATCH, TF_SEQ, TF_CONFIG["num_layers"]
@@ -1371,11 +1451,14 @@ def phase_flash_kernels(dev, randn, bf16=False):
     log(f"  the backward wrapper (delta, dq, dk/dv) {bwd_ms:.4f} ms per call;"
         f" plain and library times of dq and dk/dv are the whole backward")
     if not bf16:
+        simt_fwd = time_ms(lambda: kfa._launch_fwd(q, k, v, True, None,
+                                                   simt=True), reps=5)
         simt_dq, simt_dkv = _time_bwd_launches(
             kfa, "ptt_flash_dq_f32_simt", "ptt_flash_dkv_f32_simt",
             lambda: kfa._launch_bwd(q, k, v, out, lse, do, True, None, None,
                                     simt=True))
-        for name, simt_ms in (("flash_attention_dq", simt_dq),
+        for name, simt_ms in (("flash_attention_fwd", simt_fwd),
+                              ("flash_attention_dq", simt_dq),
                               ("flash_attention_dkv", simt_dkv)):
             r = results[name]
             flops = rows_of[name][3]
@@ -1395,6 +1478,9 @@ def phase_flash_kernels(dev, randn, bf16=False):
             f" f32, {pair[0]['bound_tf32_ms'] + pair[1]['bound_tf32_ms']:.3f} "
             "ms as split TF32")
         _flash_f64_precision(kfa, q, k, v, out, lse, do, tag)
+        _flash_fwd_f64_precision(kfa, q, k, v, tag)
+        q2, k2, v2 = _qkv_views(randn, 2, 200, 4, 64)
+        _flash_fwd_f64_precision(kfa, q2, k2, v2, "B2 S200 H4 D64 causal")
     del q, k, v, do, out, lse, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
     return results
@@ -1441,6 +1527,33 @@ def _flash_f64_precision(kfa, q, k, v, out, lse, do, tag):
     torch.cuda.empty_cache()
 
 
+def _flash_fwd_f64_precision(kfa, q, k, v, tag):
+    """The split-TF32 and the SIMT forward's largest errors against out in
+    float64 (a softmax of ``.double()`` scores; causal); fails if the
+    split-TF32 one passes FLASH_F64_FACTOR times the SIMT one."""
+    import torch
+
+    b, s, h, d = q.shape
+    new, _ = kfa._launch_fwd(q, k, v, True, None)
+    old, _ = kfa._launch_fwd(q, k, v, True, None, simt=True)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * d ** -0.5
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(sc.masked_fill(~keep, float("-inf")), -1)
+    del sc
+    exact = torch.einsum("bhqk,bkhd->bqhd", p, v.double())
+    del p
+    e_new = float((new.double() - exact).abs().max())
+    e_old = float((old.double() - exact).abs().max())
+    log(f"  against a float64 forward at {tag}, largest error split-TF32 "
+        f"{e_new:.3e} vs SIMT {e_old:.3e} ({e_new / e_old:.2f}x; max|out| "
+        f"{float(exact.abs().max()):.3e})")
+    if not e_new <= FLASH_F64_FACTOR * e_old:
+        fail(f"flash fwd {tag}: split-TF32 error {e_new:.3e} against float64 "
+             f"passes {FLASH_F64_FACTOR}x the SIMT kernel's {e_old:.3e}")
+    del new, old, exact
+    torch.cuda.empty_cache()
+
+
 def _gemm_f64_precision(what, new, simt, exact):
     """The split-TF32 engine's and the SIMT tile's largest errors against
     a float64 result ``exact`` of the same inputs; fails if the first
@@ -1467,6 +1580,23 @@ def _conv_f64(x, w, p):
     for i in range(w.shape[0]):
         for j in range(w.shape[1]):
             out = out + xp[:, i:i + h, j:j + wd, :] @ w[i, j].double()
+    return out
+
+
+def _dw_f64(x, g, k, p):
+    """The filter gradient of x (N, H, W, C) and g (N, H, W, O) in float64:
+    each tap's shifted padded image times g."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, wd, c = x.shape
+    xp = F.pad(x.double(), (0, 0, p, p, p, p))
+    gd = g.double().reshape(-1, g.shape[3])
+    out = torch.empty(k, k, c, g.shape[3], dtype=torch.float64,
+                      device=x.device)
+    for i in range(k):
+        for j in range(k):
+            out[i, j] = xp[:, i:i + h, j:j + wd, :].reshape(-1, c).t() @ gd
     return out
 
 
@@ -2225,12 +2355,12 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
     if launches != want_launches:
         fail(f"train-step launch counts {launches} != {want_launches}")
     # every conv launch (C, O multiples of 64) on a wgmma engine: the f32
-    # forward and backward-input in split TF32, the bf16 forward,
-    # backward-input and filter gradient; the fc (256 rows) on the SIMT or
-    # mma.sync tile
+    # forward, backward-input and filter gradient in split TF32, the bf16
+    # forward, backward-input and filter gradient; the fc (256 rows) on the
+    # SIMT or mma.sync tile
     want_wgmma = dict(matmul=0, matmul_bf16=0, **{
         k: want_launches[k] for k in ("conv2d_nhwc", "conv_bwd_input",
-                                      "conv2d_nhwc_bf16",
+                                      "conv_dw", "conv2d_nhwc_bf16",
                                       "conv_bwd_input_bf16",
                                       "conv_dw_bf16")})
     if wgmma != want_wgmma:
@@ -2253,10 +2383,12 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
         f" peak memory allocated {peak / 2**30:.2f} GiB on {smi}")
 
     # the profiler must see every wgmma filter-gradient launch of the step
+    # (bf16, or split TF32 in f32)
     idle = profile_step(lambda: exe.run(main_prog, feed=feed,
                                         fetch_list=[loss], scope=scope),
                         f"{kind} train step",
-                        want={"wgmma_dw_kernel": want_wgmma["conv_dw_bf16"]})
+                        want={"wgmma_dw_kernel": want_wgmma["conv_dw_bf16"],
+                              "wgmma_tf32_dw_kernel": want_wgmma["conv_dw"]})
     del exe, scope, feed
     torch.cuda.empty_cache()
     return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
@@ -2996,7 +3128,9 @@ def phase_gather_kernel(dev, randn):
     log("  exact at every shape, NaN rows for ids outside [-V, V)")
     b_ms, b_by = bound(flops, nbytes)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0)
+                bound_by=b_by, max_abs_err=0.0, **_device_times(
+                    "gather", ms, lib, lambda: kemb.gather_rows(w, ids),
+                    lambda: torch.index_select(w, 0, ids)))
 
 
 def build_lstm_program(seq=LSTM_SEQ, emb=LSTM_EMB, hidden=LSTM_HIDDEN,
@@ -3403,9 +3537,9 @@ def profile_transformer_steps():
     layers = TF_CONFIG["num_layers"]
 
     def path(amp):
-        sfx, kind = ("_bf16", "AMP bf16") if amp else ("", "f32")
-        # the f32 backward runs the split-TF32 kernels
-        bwd = "_bf16" if amp else "_tf32"
+        kind = "AMP bf16" if amp else "f32"
+        # the f32 forward and backward run the split-TF32 kernels
+        sfx = "_bf16" if amp else "_tf32"
         # every product of the step (8192 rows) on a wgmma engine, in f32
         # the split-TF32 one (its split passes beside it)
         mm = "wgmma_gemm_kernel" if amp else "wgmma_tf32_kernel"
@@ -3415,8 +3549,8 @@ def profile_transformer_steps():
                       "matmul kernel": [mm, "wgmma_tf32_split"],
                       "mul backward products": "matmul_backward"},
                      {f"flash_fwd{sfx}_kernel": layers,
-                      f"flash_dq{bwd}_kernel": layers,
-                      f"flash_dkv{bwd}_kernel": layers, mm: 4 * layers + 1})
+                      f"flash_dq{sfx}_kernel": layers,
+                      f"flash_dkv{sfx}_kernel": layers, mm: 4 * layers + 1})
 
     profile_paths({"tf": path(False), "tf_amp": path(True)})
 
@@ -3546,9 +3680,12 @@ def phase_paged_kernels(dev, randn):
             f"gather + SDPA (two calls) {cmp_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}, {nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
             f"max err {err:.2e}, gather + SDPA err {cmp_err:.2e}")
+        dev = sum(device_ms(lambda: kernel(q, kp, vp, tables,
+                                           lens_t)).values()) or None
+        log(f"  {name} {tag}: device time {dev} ms")
         return dict(ms=ms, plain_ms=plain_ms, gather_sdpa_ms=cmp_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    flops=flops, nbytes=nbytes)
+                    flops=flops, nbytes=nbytes, device_ms=dev)
 
     lens = rng.randint(1, p * page + 1, DEC_SLOTS)
     lens[:4] = (1, 16, 17, p * page)
@@ -3578,7 +3715,8 @@ def phase_paged_kernels(dev, randn):
         results[name] = dict(
             ms=count * r["ms"], plain_ms=count * r["plain_ms"],
             library_ms=None, gather_sdpa_ms=count * r["gather_sdpa_ms"],
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"])
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
+            device_ms=r["device_ms"] and count * r["device_ms"])
     return results
 
 
@@ -4099,7 +4237,7 @@ def profile_decode_step():
     for what, run, want in (
             (f"cold prefill of {len(prompt)} tokens",
              lambda: model.prefill(prompt, cold),
-             {"flash_fwd_kernel": layers}),
+             {"flash_fwd_tf32_kernel": layers}),
             (f"prefix-hit prefill ({GEN_SHARED_PREFIX} cached + 88)",
              lambda: model.prefill(prompt, hit, cached_len=GEN_SHARED_PREFIX),
              {"paged_attention_chunk_kernel": layers})):
@@ -4188,8 +4326,9 @@ def main():
             elif ("registers" in line or "spill" in line
                   or "Performance" in line or "warning" in line):
                 log(f"  {name} {entry}: {line.strip()}")
-    # the f32 flash backward's instruction mix at the transformer's D 128
-    for kern in ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"):
+    # the f32 flash kernels' instruction mix at the transformer's D 128
+    for kern in ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel",
+                 "flash_dkv_tf32_kernel"):
         for fn, ops in _build.sass_opcodes("flash_attention", kern,
                                            "Li128ELb1E").items():
             n, mma = sum(ops.values()), ops.get("HMMA", 0)
@@ -4213,13 +4352,17 @@ def main():
                             ("filter grad, A gathered",
                              kconv.wgmma_attributes(bn, True, dw=True))):
             log(f"  wgmma engine, tile 128 x {bn} ({what}): {attrs}")
-    # ... and the f32 matmul's and conv's split-TF32 instances
+    # ... and the f32 matmul's, conv's and filter gradient's split-TF32
+    # instances
     for bn in (64, 128):
         for what, attrs in (("matmul", kmatmul.wgmma_attributes(bn, True)),
                             ("conv, A by TMA", kconv.wgmma_attributes(
                                 bn, False, tf32=True)),
                             ("conv, A gathered", kconv.wgmma_attributes(
-                                bn, True, tf32=True))):
+                                bn, True, tf32=True)),
+                            ("filter grad, A and B by TMA",
+                             kconv.wgmma_attributes(bn, False, dw=True,
+                                                    tf32=True))):
             log(f"  split-TF32 wgmma engine, tile 128 x {bn} ({what}): "
                 f"{attrs}")
 
@@ -4347,7 +4490,7 @@ def main():
                      "lstm_amp_train_step": lstm_amp["wgmma"],
                      "lod_train_step": lod["wgmma"]}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
-                      conv_bwd_input=train["wgmma"],
+                      conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
                       matmul_bf16=tf_amp["wgmma"],
                       conv2d_nhwc_bf16=amp_train["wgmma"],
                       conv_bwd_input_bf16=amp_train["wgmma"],
@@ -4366,6 +4509,8 @@ def main():
                 if "gather_sdpa_ms" in k else {}),
              **({"simt_ms": k["simt_ms"], "bound_tf32_ms": k["bound_tf32_ms"]}
                 if "simt_ms" in k else {}),
+             **{f: k[f] for f in ("split_pass_ms", "device_ms",
+                                  "library_device_ms") if f in k},
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
                                             wgmma_by_path.items()}}

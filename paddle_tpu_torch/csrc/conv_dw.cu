@@ -55,20 +55,47 @@
 //   transposed by ldmatrix into tile_gemm.cuh's MmaTile (mma.sync bf16,
 //   f32 accumulators, f32 partials).
 //
+// The float32 instance has two engines too, by shape (kernels/conv.py
+// f32_dw_engine, mirrored in ptt_conv_dw_nhwc_f32's tf32_dw_takes):
+// - wgmma in split TF32 (wgmma_tf32.cuh's block: products, barriers, fresh,
+//   mid and running sums, epilogue), for C % 64 == 0, O % 4 == 0 and
+//   16-byte-aligned x and g: every stride-1 conv of ResNet-50.  wgmma reads
+//   .tf32 operands K-major only, and both x and g are contiguous along an M
+//   or N index (c, o), so both are transposed: a split pass on the caller's
+//   stream writes each as hi and lo copies, channel-major, over the pixel
+//   layout of wgmma_tf32.cuh dw_pixels, in which each image row is followed
+//   by at least pad zero columns (rows of WP = W + pad rounded up to 4) and
+//   each image by pad zero rows.  There a tap (kh, kw) is a constant offset
+//   (kh - pad) WP + kw - pad along the positions, its halo reads the zeros,
+//   and the zeros of g make every separator position add nothing.  x comes
+//   in KW copies, copy kw shifted by kw - pad, so that each tap's offset
+//   into its copy is a multiple of 16 bytes: each stage's A (two 64-channel
+//   slabs,
+//   one tap each, 32 positions) and B (BN outputs x 32 positions) are dense
+//   2-D TMA boxes at shifted, 16-byte-aligned coordinates, no gather.  The
+//   separators cost 9%, 18%, 22% and 31% more positions at 56^2, 28^2, 14^2
+//   and 7^2 (3 x 3); a 1 x 1 filter (pad 0, no copies) has none but the
+//   rounding of its positions to 4.  Split over positions as the bf16 route
+//   (dw_splits_tf32), each consumer's epilogue into its split's slice.
+// - the SIMT tile above (the rest: LeNet's C 1 and 20, misaligned views).
+//
 // What bounds it on the H100: operations, 2 * N * H * W * KH * KW * C * O
-// flops (67 TFLOP/s on the f32 FMA units, 989 TFLOP/s bf16 on the tensor
-// cores), for the 3 x 3 filters at 7 x 7 to 28 x 28 and the 1 x 1 ones at
-// 7 x 7; bytes (x and g read once, 3.35 TB/s) for the rest, where M x O is
-// small against K.  The f32 kernel and the mma.sync tile do not overlap
-// loads and math beyond one register-staged step; the wgmma route issues
-// asynchronous warpgroup products from shared memory with every consumer
-// register an accumulator, and keeps 4-8 stages of loads in flight.  The
-// partial buffer adds splits * M * O * 8 bytes (write + read), at most a
-// few tens of MB at the ResNet-50 shapes.
+// flops (67 TFLOP/s on the f32 FMA units, 495 TFLOP/s TF32 and 989 bf16 on
+// the tensor cores; split TF32 does three TF32 products a product), for
+// the 3 x 3 filters at 7 x 7 to 28 x 28 and the 1 x 1 ones at 7 x 7; bytes
+// (x and g read once, 3.35 TB/s) for the rest, where M x O is small against
+// K.  The SIMT and mma.sync tiles do not overlap loads and math beyond one
+// register-staged step; the wgmma routes issue asynchronous warpgroup
+// products from shared memory with every consumer register an accumulator,
+// and keep 3-8 stages of loads in flight.  The split pass moves 12 bytes an
+// element of x and g (read, hi and lo written) before the products read hi
+// and lo.  The partial buffer adds splits * M * O * 8 bytes (write + read),
+// at most a few tens of MB at the ResNet-50 shapes.
+#include <climits>
 #include <type_traits>
 
 #include "tile_gemm.cuh"
-#include "wgmma_gemm.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -471,10 +498,9 @@ __device__ __forceinline__ void dw_produce_gather(const CUtensorMap* tb,
 
 // A consumer warpgroup whose slab lies past M (M % 128 == 64): it only
 // frees the stages, one arrival a warp, as the live one reads them.
-template <int BN>
+template <int S>
 __device__ __forceinline__ void dw_idle(uint32_t full0, uint32_t empty0,
                                         int KT) {
-  constexpr int S = wg::kStages<BN>;
   for (int kt = 0; kt < KT; ++kt) {
     const int s = kt % S;
     wg::mbar_wait(full0 + 8 * s, (kt / S) & 1);
@@ -591,7 +617,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                      part + static_cast<long long>(blockIdx.z) * M * O, m0,
                      n0, O, KT);
     else
-      dw_idle<BN>(full0, empty0, KT);
+      dw_idle<S>(full0, empty0, KT);
   }
 }
 
@@ -696,6 +722,213 @@ bool wgmma_dw_takes(const void* x, const void* g, const void* part,
          static_cast<long long>(splits - 1) * chunk < K;
 }
 
+// ---------------------------------------------------------------------------
+// the float32 filter gradient on the split-TF32 wgmma engine
+// (wgmma_tf32.cuh)
+// ---------------------------------------------------------------------------
+
+namespace wt = ptt::wg::tf32;
+
+// One A box: 32 positions (K) x 64 channels of one tap (M), 128-byte rows
+// in the 128-byte swizzle; a stage's A hi (and A lo) holds two, one per
+// consumer slab, which is the engine's 128-row A tile.
+constexpr int kDwTf32Box = 64 * wt::kBK * 4;
+
+// The split images' geometry: channels, the filter's width, the padding,
+// the layout's row (dw_row) and x's lead (dw_lead), the positions K
+// (dw_pixels) and a split's chunk.
+struct DwTf32Geom {
+  int C, KW, pad, wp, lead, K, chunk;
+};
+
+// The producer (one thread): each stage's A hi and lo boxes of the live
+// slabs (slab s: filter rows m0 + 64 s .., 64 channels c of one tap (kh,
+// kw), C % 64 == 0), each from x's copy kw, rows kw C + c, at the tap's
+// offset along the positions, and B's hi and lo boxes (g's BN outputs x
+// 32 positions), all by TMA.  Nothing is gathered: the zero separators of
+// the layout are the halo.
+template <int BN>
+__device__ __forceinline__ void dw_tf32_produce(
+    const CUtensorMap* xh, const CUtensorMap* xl, const CUtensorMap* gh,
+    const CUtensorMap* gl, const DwTf32Geom& g, uint32_t base, uint32_t full0,
+    uint32_t empty0, int m0, int slabs, int n0, int kbeg, int KT) {
+  constexpr int S = wt::kStages<BN>;
+  int row[2], off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + 64 * i;
+    const int tap = m / g.C;
+    row[i] = tap % g.KW * g.C + m - tap * g.C;
+    off[i] = g.lead + (tap / g.KW - g.pad) * g.wp;
+  }
+  const uint32_t bytes = 2 * slabs * kDwTf32Box + 2 * wt::kBTile<BN>;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % S;
+    wg::mbar_wait(empty0 + 8 * s, ((kt / S) & 1) ^ 1);
+    const uint32_t full = full0 + 8 * s;
+    const uint32_t a = base + s * wt::kStageBytes<BN>;
+    const uint32_t b = a + 2 * wt::kATile;
+    const int k = kbeg + kt * wt::kBK;
+    wg::mbar_expect_tx(full, bytes);
+    for (int i = 0; i < slabs; ++i) {
+      wg::tma_load_2d(a + i * kDwTf32Box, xh, k + off[i], row[i], full);
+      wg::tma_load_2d(a + wt::kATile + i * kDwTf32Box, xl, k + off[i],
+                      row[i], full);
+    }
+    wg::tma_load_2d(b, gh, k, n0, full);
+    wg::tma_load_2d(b + wt::kBTile<BN>, gl, k, n0, full);
+  }
+}
+
+// Block (x, y, z): the 128 x BN tile of dw that the engine's grouped order
+// gives (x, y), summed over split z's positions [z chunk, (z + 1) chunk)
+// into part[z] (M x O f32) by the engine's consumers (fresh, mid and
+// running sums; the epilogue through the staging tile).  One block an SM.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    wgmma_tf32_dw_kernel(const __grid_constant__ CUtensorMap tm_xh,
+                         const __grid_constant__ CUtensorMap tm_xl,
+                         const __grid_constant__ CUtensorMap tm_gh,
+                         const __grid_constant__ CUtensorMap tm_gl,
+                         const DwTf32Geom geom, float* __restrict__ part,
+                         int M, int O) {
+  constexpr int S = wt::kStages<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + S * wt::kStageBytes<BN>;
+  const uint32_t empty0 = full0 + 8 * S;
+  // the engine's layout: the ring, its barriers, an unused gather table,
+  // the consumers' staging tiles
+  float* staging = reinterpret_cast<float*>(
+      smem_raw + (base - raw) + S * wt::kStageBytes<BN> + 16 * S +
+      16 * wg::kBM);
+  int m0, n0;
+  {
+    const int id = blockIdx.y * gridDim.x + blockIdx.x;
+    const int per = wg::kGroupM * gridDim.y;
+    const int first = id / per * wg::kGroupM;
+    const int left = static_cast<int>(gridDim.x) - first;
+    const int rows_in = left < wg::kGroupM ? left : wg::kGroupM;
+    m0 = (first + id % per % rows_in) * wg::kBM;
+    n0 = id % per / rows_in * BN;
+  }
+  const int kbeg = blockIdx.z * geom.chunk;
+  const int kend = min(kbeg + geom.chunk, geom.K);
+  const int KT = (kend - kbeg + wt::kBK - 1) / wt::kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      wg::mbar_init(full0 + 8 * s, 1);
+      wg::mbar_init(empty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        wt::kProducerRegs));
+    if (threadIdx.x == 0)
+      dw_tf32_produce<BN>(&tm_xh, &tm_xl, &tm_gh, &tm_gl, geom, base, full0,
+                          empty0, m0, m0 + 64 < M ? 2 : 1, n0, kbeg, KT);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        wt::kConsumerRegs));
+    const int cw = threadIdx.x / 128 - 1;
+    if (m0 + 64 * cw < M)
+      wt::consume<BN>(base, full0, empty0, staging + cw * (wt::kOutTile / 4),
+                      part + static_cast<long long>(blockIdx.z) * M * O, m0,
+                      n0, M, O, KT);
+    else
+      dw_idle<S>(full0, empty0, KT);
+  }
+}
+
+template <int BN>
+int launch_tf32_dw(const CUtensorMap (&maps)[4], const DwTf32Geom& g,
+                   float* part, int M, int O, int splits,
+                   cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory only once allowed, per instance
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      wgmma_tf32_dw_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wt::kSmemBytes<BN>);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  const dim3 grid((M + wg::kBM - 1) / wg::kBM, (O + BN - 1) / BN, splits);
+  wgmma_tf32_dw_kernel<BN><<<grid, wg::kThreads, wt::kSmemBytes<BN>,
+                             stream>>>(maps[0], maps[1], maps[2], maps[3], g,
+                                       part, M, O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the split-TF32 route takes this launch (kernels/conv.py
+// f32_dw_engine and dw_splits_tf32): 64-channel slabs inside one tap,
+// O % 4 == 0 (TMA's 16-byte strides of the split g, the epilogue's 16-byte
+// stores), 16-byte-aligned operands and scratch, a SAME stride-1 image,
+// at most INT_MAX positions in x's layout, and splits of whole
+// 32-position steps that cover g's (dw_pixels), none empty.
+bool tf32_dw_takes(const void* x, const void* g, const void* part,
+                   const void* out, const void* xs, const void* gs, int N,
+                   int H, int W, int C, int KH, int KW, int O, int pad,
+                   int splits, int chunk) {
+  if (C % 64 != 0 || O % 4 != 0 || !ptt::aligned16(x) || !ptt::aligned16(g))
+    return false;
+  const long long K = wt::dw_pixels(N, H, W, pad);
+  return ptt::aligned16(part) && ptt::aligned16(out) && ptt::aligned16(xs) &&
+         ptt::aligned16(gs) && N > 0 && H > 0 && W > 0 &&
+         wt::dw_pixels_x(N, H, W, pad) <= INT_MAX &&
+         H + 2 * pad - KH + 1 == H && W + 2 * pad - KW + 1 == W &&
+         chunk > 0 && chunk % wt::kBK == 0 && splits >= 1 &&
+         static_cast<long long>(splits) * chunk >= K &&
+         static_cast<long long>(splits - 1) * chunk < K;
+}
+
+// The split-TF32 route: the split pass writes x and g as hi and lo in the
+// filter gradient's layout, channel-major (xs: 2 KW C KX floats, x's KW
+// shifted copies, KX = dw_pixels_x; gs: 2 O K, K = dw_pixels), then the
+// products by TMA, then the splits' fixed-order sum.
+int tf32_dw(const float* x, const float* g, float* part, float* out,
+            float* xs, float* gs, int N, int H, int W, int C, int KH, int KW,
+            int O, int pad, int splits, int chunk, cudaStream_t stream) {
+  const int M = KH * KW * C;
+  const int K = static_cast<int>(wt::dw_pixels(N, H, W, pad));
+  const int KX = static_cast<int>(wt::dw_pixels_x(N, H, W, pad));
+  const int lead = wt::dw_lead(W, pad);
+  int err = wt::split_dw(x, xs, N, H, W, C, pad, lead, -pad, KW, KX, stream);
+  if (err == 0) err = wt::split_dw(g, gs, N, H, W, O, pad, 0, 0, 1, K, stream);
+  if (err != 0) return err;
+  const int bn = wt::tile_n(O);
+  CUtensorMap maps[4];
+  err = wt::encode_f32(&maps[0], xs, KX, KW * C, 64);
+  if (err == 0)
+    err = wt::encode_f32(&maps[1], xs + static_cast<long long>(KW) * C * KX,
+                         KX, KW * C, 64);
+  if (err == 0) err = wt::encode_f32(&maps[2], gs, K, O, bn);
+  if (err == 0)
+    err = wt::encode_f32(&maps[3], gs + static_cast<long long>(O) * K, K, O,
+                         bn);
+  if (err != 0) return err;
+  const DwTf32Geom geo{C, KW, pad, wt::dw_row(W, pad), lead, K, chunk};
+  err = bn == 64 ? launch_tf32_dw<64>(maps, geo, part, M, O, splits, stream)
+                 : launch_tf32_dw<128>(maps, geo, part, M, O, splits, stream);
+  if (err != 0) return err;
+  return reduce_splits(part, out, M, O, splits, stream);
+}
+
+// out[0..4): registers, spill bytes, static and dynamic shared memory of
+// the split-TF32 instance for tile width bn; 0 or a cudaError_t.
+template <int BN>
+int tf32_dw_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, wgmma_tf32_dw_kernel<BN>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = wt::kSmemBytes<BN>;
+  return 0;
+}
+
 template <class T>
 int launch_dw(const T* x, const T* g, float* part, float* out, int N, int H,
               int W, int C, int KH, int KW, int O, int pad, int splits,
@@ -728,11 +961,25 @@ int launch_dw(const T* x, const T* g, float* part, float* out, int N, int H,
 // Launch on `stream`: the partial GEMMs into `part` (splits x M x O;
 // `part` may be `out` when splits == 1), then, for splits > 1, the
 // reduce into `out`.  Return the first cudaGetLastError() that is not 0.
+// engine: 0 the SIMT tile (any shape; xs and gs unused), 1 the split-TF32
+// wgmma engine (refused with cudaErrorInvalidValue where tf32_dw_takes
+// fails), with xs and gs the split pass's scratch of 2 KW C KX and 2 O K
+// floats, KX = dw_pixels_x(N, H, W, pad), K = dw_pixels(N, H, W, pad),
+// and splits of that K.
 PTT_EXPORT int ptt_conv_dw_nhwc_f32(const float* x, const float* g,
-                                    float* part, float* out, int N, int H,
-                                    int W, int C, int KH, int KW, int O,
-                                    int pad, int splits, int chunk,
+                                    float* part, float* out, float* xs,
+                                    float* gs, int N, int H, int W, int C,
+                                    int KH, int KW, int O, int pad,
+                                    int splits, int chunk, int engine,
                                     cudaStream_t stream) {
+  if (engine == 1) {
+    if (!tf32_dw_takes(x, g, part, out, xs, gs, N, H, W, C, KH, KW, O, pad,
+                       splits, chunk))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tf32_dw(x, g, part, out, xs, gs, N, H, W, C, KH, KW, O, pad,
+                   splits, chunk, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_dw(x, g, part, out, N, H, W, C, KH, KW, O, pad, splits, chunk,
                    stream);
 }
@@ -762,4 +1009,10 @@ PTT_EXPORT int ptt_conv_dw_nhwc_bf16(const ptt::bf16* x, const ptt::bf16* g,
 PTT_EXPORT int ptt_conv_dw_wgmma_attributes(int bn, int gather, int* out) {
   return gather ? wgmma_dw_attributes_bn<true>(bn, out)
                 : wgmma_dw_attributes_bn<false>(bn, out);
+}
+
+// The split-TF32 filter gradient's instance for tile width bn (64, 128):
+// registers, spill bytes, static and dynamic shared memory into out[0..4).
+PTT_EXPORT int ptt_conv_dw_tf32_attributes(int bn, int* out) {
+  return bn == 64 ? tf32_dw_attributes<64>(out) : tf32_dw_attributes<128>(out);
 }

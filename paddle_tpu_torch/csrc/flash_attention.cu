@@ -29,11 +29,10 @@
 // 0.51 ms at 67 TFLOP/s f32), dq 3 and dk/dv 4 such products, while the
 // bytes (q, k, v, o, do at 34 MB each in bf16) take 0.05 ms at 3.35 TB/s.
 //
-// float32 forward (ptt_flash_fwd_f32), and the float32 backward's earlier
-// kernels (ptt_flash_{dq,dkv}_f32_simt, which the wrapper no longer
-// launches: they stay to be timed and checked beside the new ones): simple
-// SIMT kernels.  A tile is BT query or key rows, 64 for D <= 128 and 32
-// for D <= 256, so that the f32 tiles fit the 227 KB of shared memory a
+// The float32 SIMT kernels (ptt_flash_{fwd,dq,dkv}_f32_simt, which the
+// wrapper no longer launches: they stay to be timed and checked beside the
+// split-TF32 ones).  A tile is BT query or key rows, 64 for D <= 128 and
+// 32 for D <= 256, so that the f32 tiles fit the 227 KB of shared memory a
 // block may have (dk/dv holds six: 165 KB at D 128, one block per SM).  A
 // block of 4 * BT threads computes each BT x BT score tile as 4 x (BT /
 // 16) sub-tiles per thread with fmaf, rows ty + (BT / 4) i and columns
@@ -42,8 +41,8 @@
 // head-dim columns tx + 16 j.  Tiles read across rows at one d have a row
 // pitch of DPAD + 1.  Bound by shared-memory loads (two FMAs a load).
 //
-// float32 backward (ptt_flash_{dq,dkv}_f32, namespace tf32): the tensor cores
-// in split TF32.  Each f32 operand x is hi = tf32(x) and lo = tf32(x - hi)
+// float32 (ptt_flash_{fwd,dq,dkv}_f32, namespace tf32): the tensor cores in
+// split TF32.  Each f32 operand x is hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna.tf32.f32; x - hi is exact), and each product is three
 // mma.sync.m16n8k8 tf32 with f32 sums, lo hi + hi lo + hi hi; lo lo (at most
 // 2^-22 |a b|) is dropped.  hi + lo holds x to 2^-22 |x|, so a product keeps
@@ -80,10 +79,16 @@
 // 32-query tiles of Q, dO, lse and delta.  Each tile lands raw by 16-byte
 // cp.async copies while the previous tile's products run, and is split after
 // the next barrier (shared memory at D 128: dq 229,376 bytes, dk/dv 229,888, of
-// the 232,448 a block may have; one block an SM); at D 256 dq takes 64 rows
-// over 16-key tiles and dk/dv 64 key rows over 16-query tiles with the head dim
-// split between warp pairs.  dq, dk and dv are stored from the accumulators as
-// float2 (element-wise stores where the load variant is, below).  A split-TF32
+// the 232,448 a block may have; one block an SM); the forward is dq's block
+// without dP and ds (163,840 bytes): s = q k^T, the online softmax in the C
+// fragments, p split in registers for p V, whose fresh sums join the running
+// accumulator after it is rescaled by exp(m_old - m_new).  (Splitting the
+// forward's resident q once a block, into hi and lo tiles in dO's room,
+// instead of at each fragment load, left its time unchanged on the card.)  At D 256 dq and the
+// forward take 64 rows over 16-key tiles and dk/dv 64 key rows over 16-query
+// tiles with the head dim split between warp pairs.  out, dq, dk and dv are
+// stored from the accumulators as float2 (element-wise stores where the load
+// variant is, below).  A split-TF32
 // product costs three TF32 products (495 TFLOP/s dense), so its least time is 3
 // x FLOPs / 495e12: under the 67 TFLOP/s f32 bound it is held to.
 //
@@ -130,9 +135,9 @@
 // same kernel with element-wise loads and stores (kVec false).
 // Left for later: wgmma over TMA-fed shared tiles with a producer warp
 // (the FlashAttention-3 shape), two row blocks a warp in dq and dk/dv,
-// exp2 with the scale folded in; for the split-TF32 backward, hi/lo tiles
-// split once a stage in shared memory instead of at every fragment load,
-// and the f32 forward on the same fragments.
+// exp2 with the scale folded in; for the split-TF32 kernels, wgmma over
+// hi/lo tiles, and the resident operand split once instead of at every
+// fragment load.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -1428,7 +1433,7 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// float32 backward: split-TF32 products on the tensor cores
+// float32: split-TF32 products on the tensor cores
 // ---------------------------------------------------------------------------
 
 namespace tf32 {
@@ -1998,6 +2003,157 @@ constexpr int kDkvWarps = 8;
 constexpr int dkv_row_warps(int dpad) { return dpad <= 128 ? 8 : 4; }
 constexpr int dkv_queries(int dpad) { return dpad <= 128 ? 32 : 16; }
 
+// The forward: dq's blocks (NW warps of 16 query rows over BK-key tiles of
+// K and V, each landing raw by cp.async while the previous one's products
+// run and split once for all warps) without dP and ds.  s = q k^T as in
+// dq; the online softmax in the C fragments (m and l f32, a row's max and
+// sum over the quad); p split in registers as the A operand of p V, whose
+// fresh sums of kStepsS k8 steps go into the running accumulator after it
+// is rescaled by exp(m_old - m_new).
+template <int NW, int BK, int DPAD, bool kVec>
+__global__ void __launch_bounds__(32 * NW)
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          Strides sq, Strides sk, Strides sv, int H, int S,
+                          int D, float scale, int causal) {
+  constexpr int NT = 32 * NW, BQ = 16 * NW, T = BK * DPAD;
+  constexpr int NS = BK / 8, ND = DPAD / 8;
+  extern __shared__ __align__(16) float flash_tf32_smem[];
+  float* Qs = flash_tf32_smem;  // BQ x DPAD, raw
+  float* Kr = Qs + BQ * DPAD;   // BK x DPAD each: K and V raw, then
+  float* Vr = Kr + T;           // split into hi and lo
+  float* Kh = Vr + T;
+  float* Kl = Kh + T;
+  float* Vh = Kl + T;
+  float* Vl = Vh + T;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int nk = (S + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  const Lane ln = lane_offsets<DPAD>(wr, 0);
+
+  load_tile<BQ, DPAD, NT, kVec>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
+  load_tile<BK, DPAD, NT, kVec>(Kr, kb, sk.s, 0, S, D);
+  load_tile<BK, DPAD, NT, kVec>(Vr, vb, sv.s, 0, S, D);
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();  // as in dq
+    __syncthreads();
+    split_tile<BK, DPAD, NT>(Kh, Kl, Kr);
+    split_tile<BK, DPAD, NT>(Vh, Vl, Vr);
+    __syncthreads();
+    if (kt + 1 < kend) {
+      load_tile<BK, DPAD, NT, kVec>(Kr, kb, sk.s, k0 + BK, S, D);
+      load_tile<BK, DPAD, NT, kVec>(Vr, vb, sv.s, k0 + BK, S, D);
+      cp_async_commit();
+    }
+    // a warp whose rows all precede the tile's keys has nothing to add
+    if (causal && k0 > q0 + wr + 15) continue;
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_abt<NS, ND, DPAD>(s, Qs, Kh, Kl, ln);
+
+    // scaled and masked scores (kNegInf where masked), each row's max
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0 + wr);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = !edge || (col < S && (!causal || col <= row[e / 2]));
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], tc::quad_max(mx[i]));
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+    // p = exp(s - m) in place of s; a masked entry is 0 (its row's m may
+    // still be kNegInf)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[j][e] == kNegInf ? 0.f : expf(s[j][e] - m[e / 2]);
+        rs[e / 2] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + tc::quad_sum(rs[i]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+    mma_cb<ND, NS, DPAD>(acc, s, Vh, Vl, ln);  // acc += p V
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = l[i] == 0.f ? 1.f : l[i];
+    inv[i] = 1.f / li;
+    if (t == 0 && row[i] < S)
+      lse[static_cast<long long>(bh) * S + row[i]] = m[i] + logf(li);
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e / 2];
+  store_rows<ND, kVec>(out, acc, b, h, q0 + wr, 0, H, S, D);
+}
+
+template <int NW, int BK, int DPAD, bool kVec>
+int fwd(const float* q, const float* k, const float* v, float* out,
+        float* lse, int B, int H, int S, int D, Strides sq, Strides sk,
+        Strides sv, float scale, int causal, cudaStream_t stream) {
+  constexpr int BQ = 16 * NW;
+  constexpr size_t smem = sizeof(float) * (BQ + 6 * BK) * DPAD;
+  auto kernel = flash_fwd_tf32_kernel<NW, BK, DPAD, kVec>;
+  if (int err = prepare(kernel, smem)) return err;
+  kernel<<<dim3(B * H, (S + BQ - 1) / BQ), 32 * NW, smem, stream>>>(
+      q, k, v, out, lse, sq, sk, sv, H, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward takes dq's tiles (shared memory at D 128: 163,840 bytes).
+int fwd_any(const float* q, const float* k, const float* v, float* out,
+            float* lse, int B, int H, int S, int D, Strides sq, Strides sk,
+            Strides sv, float scale, int causal, cudaStream_t stream) {
+  const bool vec = vec_ok<float>(D, {q, k, v, out}, {sq, sk, sv});
+  return by_head_dim(D, vec, [&](auto dpad, auto kvec) {
+    constexpr int DP = decltype(dpad)::value;
+    return fwd<dq_warps(DP), dq_keys(DP), DP, decltype(kvec)::value>(
+        q, k, v, out, lse, B, H, S, D, sq, sk, sv, scale, causal, stream);
+  });
+}
+
 int dq_any(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* delta, float* dqo, int B, int H,
            int S, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
@@ -2038,9 +2194,9 @@ int dkv_any(const float* q, const float* k, const float* v,
 // contiguous head dim; out, dq, dk and dv are contiguous (B, S, H, D);
 // lse and delta are contiguous (B*H, S) float32.  The _f32 entries take
 // float32 tensors, the _bf16 entries bf16 ones.  The _f32_simt entries
-// are the float32 backward's SIMT kernels, which the wrapper never
-// launches: they are kept to be timed and checked beside the split-TF32
-// kernels of the _f32 entries.
+// are the float32 SIMT kernels, which the wrapper never launches: they
+// are kept to be timed and checked beside the split-TF32 kernels of the
+// _f32 entries.
 #define PTT_FLASH_FWD(SUFFIX, E, FWD)                                         \
   PTT_EXPORT int ptt_flash_fwd_##SUFFIX(                                      \
       const E* q, const E* k, const E* v, E* out, float* lse, int B, int H,   \
@@ -2076,7 +2232,8 @@ int dkv_any(const float* q, const float* k, const float* v,
                {do_sb, do_ss, do_sh}, scale, causal, stream);                 \
   }
 
-PTT_FLASH_FWD(f32, float, fwd_any<float>)
+PTT_FLASH_FWD(f32, float, tf32::fwd_any)
+PTT_FLASH_FWD(f32_simt, float, fwd_any<float>)
 PTT_FLASH_BWD(f32, float, tf32::dq_any, tf32::dkv_any)
 PTT_FLASH_BWD(f32_simt, float, dq_any<float>, dkv_any<float>)
 PTT_FLASH_FWD(bf16, bf16, tc::fwd_any)

@@ -1,6 +1,8 @@
 // The float32 GEMM engine on Hopper's warpgroup products in split TF32,
-// shared by the matmul (matmul.cu) and the stride-1 NHWC implicit-GEMM
-// convolution (conv.cu, forward and backward-input):
+// shared by the matmul (matmul.cu), the stride-1 NHWC implicit-GEMM
+// convolution (conv.cu, forward and backward-input) and its filter
+// gradient (conv_dw.cu: this block's consumers, its own producer over the
+// split pass wgmma_tf32_split_dw_kernel's layout):
 //
 //   C[M, N] = A[M, K] @ B[K, N], float32 A, B and C, float32 accuracy.
 //
@@ -258,6 +260,86 @@ __global__ void __launch_bounds__(256)
     split4(in[((T - 1 - t) * R + r) * S4 + s], h, l);
     hi[i] = h;
     lo[i] = l;
+  }
+}
+
+// The filter gradient's pixel layout (conv_dw.cu): pixel (n, h, w) of an
+// (N, H, W) batch at position lead + n (H + pad) WP + h WP + w, WP =
+// dw_row (W + pad rounded up to 4; W for pad 0), every other position
+// zero: each image row is followed by WP - W >= pad zero columns and each
+// image by pad zero rows, so that a tap (kh, kw) of a SAME stride-1 filter
+// is the offset (kh - pad) WP + kw - pad along it, and its halo reads
+// zeros.  g takes lead 0: its dw_pixels positions are the reduction's.  x
+// comes in KW copies, copy j shifted by j - pad positions, each with
+// dw_lead zeros at both ends (dw_pixels_x positions): tap (kh, kw) reads
+// copy kw at k + dw_lead + (kh - pad) WP for g's position k, a multiple of
+// 4 (16 bytes) when k is, and never before the copy's first position.  So
+// every TMA box of the products starts 16-byte aligned inside its tensor
+// (TMA zero-fills only past the end).  Lengths are multiples of 4 (TMA's
+// 16-byte row strides).
+inline int dw_row(int W, int pad) { return pad ? (W + pad + 3) / 4 * 4 : W; }
+
+inline int dw_lead(int W, int pad) {
+  return (pad * dw_row(W, pad) + pad + 3) / 4 * 4;
+}
+
+inline long long dw_pixels(int N, int H, int W, int pad) {
+  const long long n = static_cast<long long>(N) * (H + pad) * dw_row(W, pad);
+  return (n + 3) / 4 * 4;
+}
+
+inline long long dw_pixels_x(int N, int H, int W, int pad) {
+  return dw_pixels(N, H, W, pad) + 2 * dw_lead(W, pad);
+}
+
+// hi and lo of an NHWC image in (N, H, W, R) transposed into that layout
+// with `lead` zeros first, in `copies` copies of R rows, copy j shifted
+// by shift0 + j positions: out[j R + r][p] for p < P holds the pixel at
+// position p + shift0 + j - lead of the unshifted layout, zero where no
+// pixel is (R % 4 == 0 and `in` 16-byte aligned; R % 32 == 0 when copies
+// > 1, so that a tile of 32 rows lies in one copy).  32 x 32 tiles
+// through shared memory, a block each, position tiles fastest: thread t
+// reads channels 4 (t % 8) .. + 3 of position t / 8 as one float4 (one
+// pixel lookup for four channels), then each warp writes 32 neighbouring
+// positions of a row.
+__global__ void __launch_bounds__(256)
+    wgmma_tf32_split_dw_kernel(const float* __restrict__ in,
+                               float* __restrict__ hi, float* __restrict__ lo,
+                               int N, int H, int W, int R, int wp, int pad,
+                               int lead, int shift0, int copies, int P) {
+  __shared__ float tile[32][33];
+  const int np = (P + 31) / 32;
+  const int p0 = static_cast<int>(blockIdx.x % np) * 32;
+  const int r0 = static_cast<int>(blockIdx.x / np) * 32;
+  const int copy = r0 / R;
+  const int img = (H + pad) * wp;
+  {
+    // position p0 + i: pixel (n, h, w) if h < H and w < W
+    const int i = threadIdx.x / 8, c = 4 * (threadIdx.x % 8);
+    const int q = p0 + i + shift0 + copy - lead;
+    const int n = q >= 0 ? q / img : N;
+    const int rem = q - n * img;
+    const int h = rem / wp;
+    const int w = rem - h * wp;
+    const int r = r0 - copy * R + c;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n < N && h < H && w < W && r < R)
+      v = *reinterpret_cast<const float4*>(
+          in + ((static_cast<long long>(n) * H + h) * W + w) * R + r);
+    tile[c][i] = v.x;
+    tile[c + 1][i] = v.y;
+    tile[c + 2][i] = v.z;
+    tile[c + 3][i] = v.w;
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int row = r0 + i, p = p0 + tx;
+    if (row < copies * R && p < P) {
+      const long long o = static_cast<long long>(row) * P + p;
+      split(tile[i][tx], hi[o], lo[o]);
+    }
   }
 }
 
@@ -552,6 +634,22 @@ inline int split_t(const float* in, float* s, int T, int R, int S,
                            ((S + 31) / 32);
   wgmma_tf32_split_t_kernel<<<static_cast<unsigned>(blocks), 256, 0,
                               stream>>>(in, s, s + n, T, R, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hi at s, lo at s + copies R P: the split of the NHWC image in (N, H, W,
+// R) in the filter gradient's layout (wgmma_tf32_split_dw_kernel), P
+// positions (dw_pixels or dw_pixels_x, <= INT_MAX).
+inline int split_dw(const float* in, float* s, int N, int H, int W, int R,
+                    int pad, int lead, int shift0, int copies, int P,
+                    cudaStream_t stream) {
+  const long long rows = static_cast<long long>(copies) * R;
+  const long long blocks =
+      static_cast<long long>((P + 31) / 32) * ((rows + 31) / 32);
+  wgmma_tf32_split_dw_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                               stream>>>(in, s, s + rows * P, N, H, W, R,
+                                         dw_row(W, pad), pad, lead, shift0,
+                                         copies, P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,8 +33,11 @@ pixels by ``dw_splits_wgmma``) for every stride-1 conv of ResNet-50, the
 forward and backward-input the same way (``f32_engine``): the wgmma
 engine in split TF32 (``csrc/wgmma_tf32.cuh``; the backward-input's
 filter flipped by its split pass, not by ``flip_filter``) or the SIMT
-tile; the float32 filter gradient and fused conv + BN statistics stay on
-their SIMT kernels.  The 3 x 3 convs at 7 x 7 to 28 x 28 and the
+tile; the float32 filter gradient by ``f32_dw_engine``: the same engine's
+products in ``csrc/conv_dw.cu`` over x and g transposed by a split pass
+into a zero-separated pixel layout (``dw_pixels``, ``dw_separated``), or
+the SIMT tile.  The fused conv + BN statistics stays on its SIMT kernel.
+The 3 x 3 convs at 7 x 7 to 28 x 28 and the
 matmul-like 1 x 1 convs at 7 x 7 are bound by operations on the H100, the
 other 1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
 kernels by operations.  ``csrc/conv.cu`` and
@@ -68,27 +71,31 @@ _SIGNATURES = {
        + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
 }
 _DW_SIGNATURES = {
-    "ptt_conv_dw_nhwc_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    # x, g, part, out, the split scratch of x and g; N, H, W, C, KH, KW, O,
+    # pad, splits, chunk, the engine (_build.ENGINES)
+    "ptt_conv_dw_nhwc_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     # ... and the engine (_build.ENGINES)
     "ptt_conv_dw_nhwc_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     "ptt_conv_dw_wgmma_attributes": [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p],
+    "ptt_conv_dw_tf32_attributes": [ctypes.c_int, ctypes.c_void_p],
 }
 
 #: Launches of the CUDA kernels (the CPU path does not count), float32
 #: and bf16 instances apart: the forward, the backward-input (the forward
 #: kernel on the flipped filter), the filter gradient and the fused
 #: conv + BN statistics; the ``_wgmma`` counters count the launches that
-#: ran on a wgmma engine: the float32 forward and backward-input (split
-#: TF32), the bf16 forward, backward-input and filter gradient (they count
-#: in their plain counters too).
+#: ran on a wgmma engine: the float32 forward, backward-input and filter
+#: gradient (split TF32), the bf16 forward, backward-input and filter
+#: gradient (they count in their plain counters too).
 launches = 0
 launches_wgmma = 0
 bwd_input_launches = 0
 bwd_input_launches_wgmma = 0
 dw_launches = 0
+dw_launches_wgmma = 0
 stats_launches = 0
 launches_bf16 = 0
 bwd_input_launches_bf16 = 0
@@ -107,7 +114,7 @@ _DW_MIN_CHUNK = 256
 # ... and on the wgmma engine (one block of 384 threads an SM): at most
 # _WG_WAVES waves of _SMS blocks, each split at least _WG_MIN_STEPS K
 # steps of _WG_KSTEP pixels (enough to fill and drain an 8-stage ring),
-# picked by _dw_wgmma_cost.
+# picked by _wgmma_dw_splits.
 _SMS = 132
 _WG_WAVES = 2
 _WG_KSTEP = 64        # wgmma_gemm.cuh's kBK
@@ -118,13 +125,20 @@ _WG_TILE_M = 128      # wgmma_gemm.cuh's kBM
 _WG_FIXED_STEPS = 8
 _PEAK_BF16_FLOPS = 989e12
 _PEAK_BYTES = 3.35e12
+# ... and the float32 filter gradient on the split-TF32 engine: 32-pixel
+# K steps (wgmma_tf32.cuh's kBK), three TF32 products a product, up to
+# _TF32_WAVES waves (the 7 x 7 3 x 3 conv at C 512 has 144 tiles: one
+# split is a second wave of 12 blocks, three splits cost less)
+_TF32_KSTEP = 32
+_TF32_WAVES = 4
+_PEAK_TF32_FLOPS = 495e12
 _TILE = 64       # tile_gemm.cuh's kBM = kBN (and kHN)
 _KSTEP = 16      # tile_gemm.cuh's kBK
 _TILE_BF16 = 128  # tile_gemm.cuh's kHM: the bf16 instances' tile rows
 _KSTEP_BF16 = 32  # tile_gemm.cuh's kHK
 
 
-def _count(counter: str, dtype: torch.dtype, engine: str = "mma.sync"):
+def _count(counter: str, dtype: torch.dtype, engine: str = ""):
     """Add one to ``counter``, or to its ``_bf16`` twin for a bf16 launch
     (and to its ``_wgmma`` twin for one on a wgmma engine)."""
     name = counter + ("_bf16" if dtype == torch.bfloat16 else "")
@@ -175,12 +189,26 @@ def _engine(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> str:
     return rule(c, o, x.data_ptr(), w.data_ptr())
 
 
+def f32_dw_engine(c: int, o: int, x: int, g: int) -> str:
+    """The engine of a float32 filter-gradient launch on x with ``c`` and
+    g with ``o`` channels at device addresses ``x`` and ``g``: "wgmma"
+    (split TF32, ``csrc/conv_dw.cu`` on ``csrc/wgmma_tf32.cuh``) for
+    c % 64 == 0 (a 64-row M slab is 64 channels of one tap), o % 4 == 0
+    (TMA's 16-byte strides, the epilogue's 16-byte stores) and both
+    addresses 16-byte aligned (the split pass's reads), at any batch and
+    image size; else "simt".  A dispatch by shape, never a fallback:
+    ``ptt_conv_dw_nhwc_f32`` checks the same rule and refuses a wgmma
+    launch it does not allow."""
+    if c % 64 == 0 and o % 4 == 0 and x % 16 == 0 and g % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
 def _dw_engine(x: torch.Tensor, g: torch.Tensor) -> str:
     """The engine of a filter-gradient launch on x (N, H, W, C) and g
     (N, H, W, O)."""
-    if x.dtype != torch.bfloat16:
-        return "mma.sync"
-    return bf16_engine(x.shape[3], g.shape[3], x.data_ptr(), g.data_ptr())
+    rule = bf16_engine if x.dtype == torch.bfloat16 else f32_dw_engine
+    return rule(x.shape[3], g.shape[3], x.data_ptr(), g.data_ptr())
 
 
 def wgmma_attributes(bn: int, gather: bool, dw: bool = False,
@@ -189,9 +217,13 @@ def wgmma_attributes(bn: int, gather: bool, dw: bool = False,
     tile width ``bn`` (64, 128, 256), A gathered or loaded by TMA, as the
     card reports them: the forward's (``csrc/conv.cu``; the split-TF32 one
     with ``tf32``, bn 64 or 128), or with ``dw`` the filter gradient's
-    (``csrc/conv_dw.cu``)."""
+    (``csrc/conv_dw.cu``; with ``tf32`` too, the split-TF32 one, whose A
+    always comes by TMA)."""
     if dw:
         lib = _build.load("conv_dw", _DW_SIGNATURES)
+        if tf32:
+            return _build.wgmma_attributes(
+                lib, "ptt_conv_dw_tf32_attributes", bn)
         return _build.wgmma_attributes(lib, "ptt_conv_dw_wgmma_attributes",
                                        bn, int(gather))
     lib = _build.load("conv", _SIGNATURES)
@@ -302,6 +334,56 @@ def conv2d_nhwc_dw_plain(x: torch.Tensor, g: torch.Tensor, kernel: int,
         for j in range(kernel):
             dw[i, j] = xp[:, i:i + h, j:j + wd, :].reshape(-1, c).t() @ gf
     return dw
+
+
+def dw_row(w: int, padding: int) -> int:
+    """The row of the float32 filter gradient's pixel layout
+    (``csrc/wgmma_tf32.cuh`` ``dw_row``): w + p rounded up to 4, w for
+    p 0."""
+    return -(-(w + padding) // 4) * 4 if padding else w
+
+
+def dw_lead(w: int, padding: int) -> int:
+    """Zeros at both ends of each of x's copies in that layout
+    (``dw_lead``): p dw_row + p rounded up to 4, the farthest a tap
+    reaches."""
+    return -(-(padding * dw_row(w, padding) + padding) // 4) * 4
+
+
+def dw_pixels(n: int, h: int, w: int, padding: int, lead: int = 0) -> int:
+    """The positions of the layout with ``lead`` zeros at both ends
+    (``dw_pixels``: g's, lead 0, the reduction; ``dw_pixels_x``: each of
+    x's copies, lead ``dw_lead``): pixel (i, r, c) of an (n, h, w) batch at
+    lead + i (h + p) dw_row + r dw_row + c, every other position zero (at
+    least p zero columns after each image row, p zero rows after each
+    image), the body rounded up to 4."""
+    body = n * (h + padding) * dw_row(w, padding)
+    return -(-body // 4) * 4 + 2 * lead
+
+
+def dw_separated(t: torch.Tensor, padding: int, lead: int = 0,
+                 shift: int = 0) -> torch.Tensor:
+    """(R, dw_pixels(..., lead)) float32: the NHWC tensor t (N, H, W, R)
+    transposed into the layout, channel-major, zeros where no pixel is,
+    read ``shift`` positions on (position q holds what the unshifted
+    layout holds at q + shift) -- what the split pass writes before it
+    splits each value into hi and lo: g with lead 0, x's copy kw with
+    ``dw_lead`` and shift kw - p."""
+    n, h, w, r = t.shape
+    p = padding
+    wp = dw_row(w, p)
+    size, m = dw_pixels(n, h, w, p, lead), abs(shift)
+    out = torch.zeros(r, size + 2 * m, dtype=torch.float32, device=t.device)
+    body = out[:, m + lead:m + lead + n * (h + p) * wp]
+    body.view(r, n, h + p, wp)[:, :, :h, :w] = t.float().permute(3, 0, 1, 2)
+    return out[:, m + shift:m + shift + size].contiguous()
+
+
+def dw_tap_offset(kh: int, w: int, padding: int) -> int:
+    """Where tap row kh reads its copy of x, from g's position: dw_lead +
+    (kh - p) dw_row, a multiple of 4 (the copy, kw's, carries the kw - p
+    shift)."""
+    return dw_lead(w, padding) + (kh - padding) * dw_row(w, padding)
 
 
 # ---------------------------------------------------------------------------
@@ -419,49 +501,72 @@ def wgmma_tile_n(o: int) -> int:
     return 256 if o > 128 else (128 if o > 64 else 64)
 
 
-def _dw_wgmma_cost(m: int, o: int, steps: int, splits: int) -> float:
-    """The time of the wgmma filter gradient at ``splits`` splits of its
-    ``steps`` K steps, in the time of one block's K step at the tensor
-    cores' rate: the waves of one-block-an-SM launches times a block's
-    steps and fixed cost, plus the partial buffer's write and read (none
-    for one split) at the memory's rate."""
-    bn = wgmma_tile_n(o)
+def _wgmma_dw_splits(m: int, o: int, k: int, kstep: int, bn: int,
+                     waves: int, step_s: float):
+    """(splits, chunk) of a wgmma filter gradient over k pixels (or
+    positions) in K steps of ``kstep`` on 128 x ``bn`` tiles: chunk a
+    multiple of the step (only the last split's last step is ragged), at
+    most ``waves`` waves of one block an SM, each split at least
+    _WG_MIN_STEPS steps (one split if k is shorter), the count of least
+    modelled time: the waves times a block's steps and fixed cost, plus
+    the partial buffer's write and read (none for one split) at the
+    memory's rate, in units of one block's K step on its SM (``step_s``:
+    that step's FLOPs over the whole card's peak)."""
+    steps = math.ceil(k / kstep)
     tiles = math.ceil(m / _WG_TILE_M) * math.ceil(o / bn)
-    step_s = 2.0 * _WG_TILE_M * bn * _WG_KSTEP / (_PEAK_BF16_FLOPS / _SMS)
-    waves = math.ceil(tiles * splits / _SMS)
-    partial = 8.0 * splits * m * o / _PEAK_BYTES if splits > 1 else 0.0
-    return (waves * (math.ceil(steps / splits) + _WG_FIXED_STEPS)
-            + partial / step_s)
+
+    def cost(splits):
+        rounds = math.ceil(tiles * splits / _SMS)
+        partial = 8.0 * splits * m * o / _PEAK_BYTES if splits > 1 else 0.0
+        return (rounds * (math.ceil(steps / splits) + _WG_FIXED_STEPS)
+                + partial / (step_s * _SMS))
+
+    most = max(1, min(waves * _SMS // tiles, steps // _WG_MIN_STEPS))
+    splits = min(range(1, most + 1), key=cost)
+    chunk = math.ceil(steps / splits) * kstep
+    return math.ceil(k / chunk), chunk
 
 
 @functools.lru_cache(maxsize=None)
 def dw_splits_wgmma(m: int, o: int, k: int):
-    """(splits, chunk) of the wgmma filter gradient over k pixels: chunk a
-    multiple of the 64-pixel K step (only the last split's last step is
-    ragged), at most _WG_WAVES waves of one block an SM, each split at
-    least _WG_MIN_STEPS steps (one split if k is shorter), the count of
-    least ``_dw_wgmma_cost``.  ``ptt_conv_dw_nhwc_bf16`` refuses a split
-    that breaks the first rule or leaves a split empty.  Cached: the
+    """(splits, chunk) of the bf16 wgmma filter gradient over k pixels:
+    64-pixel steps on the bf16 engine's tiles, at most _WG_WAVES waves
+    (``_wgmma_dw_splits``).  ``ptt_conv_dw_nhwc_bf16`` refuses a split
+    off the 64-pixel step or that leaves a split empty.  Cached: the
     search costs more host time than a short launch takes on the card."""
-    steps = math.ceil(k / _WG_KSTEP)
-    tiles = (math.ceil(m / _WG_TILE_M)
-             * math.ceil(o / wgmma_tile_n(o)))
-    most = max(1, min(_WG_WAVES * _SMS // tiles, steps // _WG_MIN_STEPS))
-    splits = min(range(1, most + 1),
-                 key=lambda s: _dw_wgmma_cost(m, o, steps, s))
-    chunk = math.ceil(steps / splits) * _WG_KSTEP
-    return math.ceil(k / chunk), chunk
+    bn = wgmma_tile_n(o)
+    return _wgmma_dw_splits(m, o, k, _WG_KSTEP, bn, _WG_WAVES,
+                            2.0 * _WG_TILE_M * bn * _WG_KSTEP
+                            / _PEAK_BF16_FLOPS)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_splits_tf32(m: int, o: int, k: int):
+    """(splits, chunk) of the split-TF32 filter gradient over k positions
+    (``dw_pixels``): 32-position steps of three TF32 products on 128 x 64
+    or 128 x 128 tiles, at most _TF32_WAVES waves
+    (``_wgmma_dw_splits``).  ``ptt_conv_dw_nhwc_f32`` refuses a split off
+    the 32-position step or that leaves a split empty."""
+    bn = 128 if o > 64 else 64
+    return _wgmma_dw_splits(m, o, k, _TF32_KSTEP, bn, _TF32_WAVES,
+                            3 * 2.0 * _WG_TILE_M * bn * _TF32_KSTEP
+                            / _PEAK_TF32_FLOPS)
 
 
 def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
-               engine: str = "mma.sync") -> torch.Tensor:
+               engine: str | None = None) -> torch.Tensor:
     """The filter gradient by ``csrc/conv_dw.cu``: the float32 or bf16
-    instance by x's dtype, the bf16 one on the named engine
-    (``chip_smoke.py`` times both engines through it).  Not counted:
+    instance by x's dtype, on the named engine ("wgmma", or the dtype's
+    tile: "simt" for float32, "mma.sync" for bf16, which None names;
+    ``chip_smoke.py`` times both engines through it).  Not counted:
     ``conv2d_nhwc_dw`` counts its own launches."""
     _build.require_cuda("conv2d_nhwc_dw", _build.F32_BF16, x, g)
-    if engine == "wgmma" and x.dtype != torch.bfloat16:
-        raise TypeError("conv2d_nhwc_dw: the wgmma engine takes bf16")
+    bf16 = x.dtype == torch.bfloat16
+    tile = "mma.sync" if bf16 else "simt"
+    engine = engine or tile
+    if engine not in ("wgmma", tile):
+        raise ValueError(f"conv2d_nhwc_dw: no {engine!r} engine for "
+                         f"{x.dtype}")
     n, h, wd, c = x.shape
     o = g.shape[3]
     out = torch.empty((kernel, kernel, c, o), dtype=torch.float32,
@@ -469,9 +574,18 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
     m, k = kernel * kernel * c, n * h * wd
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    if engine == "wgmma":
+    xs = gs = None
+    if engine == "wgmma" and bf16:
         splits, chunk = dw_splits_wgmma(m, o, k)
-    elif x.dtype == torch.bfloat16:
+    elif engine == "wgmma":
+        pixels = dw_pixels(n, h, wd, padding)
+        splits, chunk = dw_splits_tf32(m, o, pixels)
+        xs = torch.empty(2 * kernel * c * dw_pixels(
+            n, h, wd, padding, dw_lead(wd, padding)), dtype=torch.float32,
+            device=x.device)
+        gs = torch.empty(2 * o * pixels, dtype=torch.float32,
+                         device=x.device)
+    elif bf16:
         splits, chunk = dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
     else:
         splits, chunk = dw_splits(m, o, k)
@@ -480,13 +594,15 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
     lib = _build.load("conv_dw", _DW_SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
-                n, h, wd, c, kernel, kernel, o, padding, splits, chunk)
-        if x.dtype == torch.bfloat16:
-            err = lib.ptt_conv_dw_nhwc_bf16(*args, _build.ENGINES[engine],
-                                            stream)
+        ptrs = (x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr())
+        shape = (n, h, wd, c, kernel, kernel, o, padding, splits, chunk)
+        if bf16:
+            err = lib.ptt_conv_dw_nhwc_bf16(*ptrs, *shape,
+                                            _build.ENGINES[engine], stream)
         else:
-            err = lib.ptt_conv_dw_nhwc_f32(*args, stream)
+            err = lib.ptt_conv_dw_nhwc_f32(
+                *ptrs, _build.address(xs), _build.address(gs), *shape,
+                _build.ENGINES[engine], stream)
     _build.check(lib, err, f"conv2d_nhwc_dw ({engine})")
     return out
 
@@ -495,9 +611,9 @@ def conv2d_nhwc_dw(x: torch.Tensor, g: torch.Tensor, kernel: int,
                    padding: int) -> torch.Tensor:
     """The filter gradient (KH, KW, C, O) in float32: launches
     ``csrc/conv_dw.cu`` on CUDA tensors (float32 or bf16 x and g of one
-    dtype, contiguous; bf16 on the engine ``bf16_engine`` picks from C, O
-    and the addresses of x and g); runs the plain version on CPU
-    tensors."""
+    dtype, contiguous; on the engine ``f32_dw_engine`` or ``bf16_engine``
+    picks from C, O and the addresses of x and g); runs the plain version
+    on CPU tensors."""
     _check_dw(x, g, kernel, padding)
     if x.device.type == "cpu":
         return conv2d_nhwc_dw_plain(x, g, kernel, padding)

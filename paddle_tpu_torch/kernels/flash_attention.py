@@ -20,15 +20,15 @@ head merge after attention is a free reshape.  lse and delta are
 
 Each kernel has a float32 and a bf16 instance (``ptt_flash_*_f32`` and
 ``ptt_flash_*_bf16``), picked by the dtype of q, k, v (and do), which
-must be one; lse and delta are float32 in both.  The float32 forward is
-a SIMT kernel (``fmaf`` on f32 tiles).  The float32 backward runs every
-product on the tensor cores as split TF32: each f32 operand x is hi =
-tf32(x) plus lo = tf32(x - hi), and a product is lo*hi + hi*lo + hi*hi
-(three ``mma.sync`` m16n8k8 tf32 into f32 sums), which keeps float32
-accuracy and rounds nothing else.  Its earlier SIMT kernels stay in the
-library as ``ptt_flash_{dq,dkv}_f32_simt``, which the wrapper never
-launches (``_launch_bwd(..., simt=True)`` reaches them uncounted, for
-timing and checking beside the new ones).  The bf16 instances run every
+must be one; lse and delta are float32 in both.  The float32 forward
+and backward run every product on the tensor cores as split TF32: each
+f32 operand x is hi = tf32(x) plus lo = tf32(x - hi), and a product is
+lo*hi + hi*lo + hi*hi (three ``mma.sync`` m16n8k8 tf32 into f32 sums),
+which keeps float32 accuracy and rounds nothing else.  Their earlier SIMT
+kernels stay in the library as ``ptt_flash_{fwd,dq,dkv}_f32_simt``, which
+the wrappers never launch (``_launch_fwd(..., simt=True)`` and
+``_launch_bwd(..., simt=True)`` reach them uncounted, for timing and
+checking beside the new ones).  The bf16 instances run every
 product on the tensor cores (``mma.sync`` bf16 with f32 sums, bf16 tiles
 fed by a two-stage ``cp.async`` ring) and, like the plain versions on
 bf16 inputs, round where the TPU kernel rounds on bf16 inputs and
@@ -57,7 +57,7 @@ from paddle_tpu_torch.kernels import _build
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {}
-for _s in ("f32", "bf16"):
+for _s in ("f32", "f32_simt", "bf16"):
     _SIGNATURES[f"ptt_flash_fwd_{_s}"] = (
         [_PTR] * 5 + [_INT] * 4 + [_LL] * 9 + [ctypes.c_float, _INT, _PTR])
 for _s in ("f32", "f32_simt", "bf16"):
@@ -230,14 +230,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
-    """(out, lse).  Launches the forward of ``csrc/flash_attention.cu`` on
-    CUDA tensors (float32 or bf16, one dtype, head dim contiguous, any
-    other strides); runs the plain version on CPU tensors."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, scale)
+def _launch_fwd(q, k, v, causal, scale, simt=False):
+    """(out, lse) from the forward kernel, not counted (the public wrapper
+    counts).  ``simt``: the float32 SIMT forward instead of the
+    split-TF32 one (``chip_smoke.py`` times and checks it beside the new
+    one; the wrapper never routes there)."""
     sfx = _strided("flash_attention_fwd", q, k, v)
+    if simt:
+        if sfx != "f32":
+            raise TypeError("the SIMT forward kernel takes float32")
+        sfx = "f32_simt"
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
@@ -251,7 +253,19 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
             lse.data_ptr(), b, h, n, d, *_strides(q), *_strides(k),
             *_strides(v), _scale(q, scale), int(causal), stream)
     _build.check(lib, err, "flash_attention_fwd")
-    _count("launches", sfx)
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
+    """(out, lse).  Launches the forward of ``csrc/flash_attention.cu`` on
+    CUDA tensors (float32 or bf16, one dtype, head dim contiguous, any
+    other strides); runs the plain version on CPU tensors."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    out, lse = _launch_fwd(q, k, v, causal, scale)
+    if out.numel():
+        _count("launches", _build.SUFFIX[q.dtype])
     return out, lse
 
 

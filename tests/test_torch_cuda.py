@@ -32,7 +32,11 @@ against the same running maximum on both sides), lse within 1e-4
 split-TF32 wgmma engine (``-k tf32``): GEMM_TOL against the plain
 versions, bit for bit across repeated launches and between the fused
 and the copied filter flip, and against float64 at most twice the SIMT
-tile's largest error.
+tile's largest error.  The float32 flash forward and filter gradient
+in split TF32 (``-k "tf32_fwd or tf32_dw"``): the plain versions'
+tolerances above, the SIMT kernels they replaced within the same, bit
+for bit across repeated launches and unaligned views, against float64
+at most twice the SIMT kernels' largest error.
 """
 
 import ctypes
@@ -2008,3 +2012,275 @@ def test_tf32_refuses_what_its_rule_does_not_allow(dev):
     assert (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
             kconv.launches_wgmma) == (before[0] + 1, before[1],
                                       before[2] + 1, before[3])
+
+
+# ---------------------------------------------------------------------------
+# the float32 flash forward in split TF32 (csrc/flash_attention.cu
+# flash_fwd_tf32_kernel) and the float32 filter gradient on the split-TF32
+# wgmma engine (csrc/conv_dw.cu wgmma_tf32_dw_kernel); ``-k tf32_fwd`` and
+# ``-k tf32_dw`` select them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", FLASH_SHAPES)
+def test_flash_tf32_fwd_matches_plain_and_its_simt_kernel(dev, b, s, h, d,
+                                                          causal):
+    """The split-TF32 forward (what the wrapper launches on float32,
+    counted) and the SIMT forward it replaced (``_launch_fwd(simt=True)``,
+    not counted), on strided q, k, v views: out and lse within 1e-4 of the
+    plain version and of each other."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(60)
+    q, k, v, _ = _flash_f32_inputs(g, b, s, h, d, dev)
+    before = kfa.launches
+    out, lse = kfa.flash_attention_fwd(q, k, v, causal)
+    assert kfa.launches == before + 1
+    so, sl = kfa._launch_fwd(q, k, v, causal, None, simt=True)
+    assert kfa.launches == before + 1
+    torch.cuda.synchronize()
+    pout, plse = kfa.flash_attention_fwd_plain(q, k, v, causal)
+    for got in (out, so):
+        torch.testing.assert_close(got, pout, rtol=0, atol=1e-4)
+    for got in (lse, sl):
+        torch.testing.assert_close(got, plse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out, so, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [24, 128, 256])
+def test_flash_tf32_fwd_unaligned_views_take_the_element_loads(dev, d):
+    """q, k, v as views one element into their buffer: the element-load
+    variant of the split-TF32 forward, counted, bit for bit the forward of
+    16-byte-aligned copies of the same values, within 1e-4 of the plain
+    version."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(61)
+    b, s, h = 2, 150, 2
+    buf = _randn(g, 1 + b * s * 3 * h * d, device=dev)
+    qkv = buf[1:].view(b, s, 3 * h * d)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=2))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    before = kfa.launches
+    out, lse = kfa.flash_attention_fwd(q, k, v, True)
+    assert kfa.launches == before + 1
+    aligned = [t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v)]
+    want, wlse = kfa.flash_attention_fwd(*aligned, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(lse, wlse)
+    pout, plse = kfa.flash_attention_fwd_plain(q, k, v, True)
+    torch.testing.assert_close(out, pout, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [
+    (1, 200, 3, 64, False), (2, 200, 4, 64, True), (2, 200, 2, 24, True),
+    (1, 1024, 4, 128, True), (1, 200, 2, 256, True)])
+def test_flash_tf32_fwd_is_as_precise_as_simt(dev, b, s, h, d, causal):
+    """Against out in float64 (a softmax of the same f32 inputs' float64
+    scores), the split-TF32 forward's largest error is at most twice the
+    SIMT forward's."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(62)
+    q, k, v, _ = _flash_f32_inputs(g, b, s, h, d, dev)
+    new, _ = kfa.flash_attention_fwd(q, k, v, causal)
+    old, _ = kfa._launch_fwd(q, k, v, causal, None, simt=True)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * d ** -0.5
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1),
+                         v.double())
+    err_new = float((new.double() - exact).abs().max())
+    err_old = float((old.double() - exact).abs().max())
+    assert err_new <= 2 * err_old, (err_new, err_old)
+
+
+def test_flash_tf32_fwd_stores_nothing_out_of_bounds(dev):
+    """``ptt_flash_fwd_f32`` launched straight into out and lse with NaN
+    guards on both sides, at S 100 and each padded head dim (D 24, 72,
+    256), outputs 16-byte aligned and one element off (the element-store
+    variant): the guards stay NaN, out and lse equal the wrapper's."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator().manual_seed(63)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("flash_attention", kfa._SIGNATURES)
+    b, s, h = 2, 100, 3
+    for d in (24, 72, 256):
+        q, k, v = (_randn(g, b, s, h, d, device=dev) for _ in range(3))
+        want, wlse = kfa.flash_attention_fwd(q, k, v, True)
+        strides = [t.stride()[:3] for t in (q, k, v)]
+        for pad in (4096, 4097):
+            obuf, out = _guarded((b, s, h, d), torch.float32, dev, pad)
+            lbuf, lse = _guarded((b * h, s), torch.float32, dev, pad)
+            _build.check(lib, lib.ptt_flash_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b, h, s, d, *strides[0], *strides[1],
+                *strides[2], d ** -0.5, 1, stream), "fwd")
+            torch.cuda.synchronize()
+            for buf in (obuf, lbuf):
+                assert bool(torch.isnan(torch.cat([buf[:pad],
+                                                   buf[-pad:]])).all())
+            assert torch.equal(out, want) and torch.equal(lse, wlse)
+
+
+TF32_DW_SHAPES = [(n, h, w, c, o, k) for n, h, w, c, o, k in [
+    # ragged batch and image sizes, 1 x 1 and 3 x 3 at C 64 and 128
+    (1, 7, 7, 64, 64, 1), (3, 9, 5, 64, 72, 3), (2, 14, 11, 128, 128, 3),
+    (5, 6, 13, 128, 68, 1), (2, 56, 56, 64, 64, 3), (2, 56, 56, 64, 256, 1),
+    (3, 28, 28, 128, 128, 3), (2, 7, 7, 512, 512, 3), (2, 7, 7, 2048, 512, 1),
+    # a 5 x 5 filter, O 4 (one TMA box taller than g), many splits
+    (2, 9, 11, 128, 64, 5), (3, 7, 14, 64, 4, 1), (64, 7, 7, 64, 64, 3),
+]]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", TF32_DW_SHAPES)
+def test_tf32_dw_matches_plain_and_the_simt_tile(dev, n, h, w, c, o, k):
+    """The float32 filter gradient on the split-TF32 engine, counted as a
+    float32 launch and a wgmma one, within the filter gradient's tolerance
+    of the plain version and of the SIMT tile (``_launch_dw(...,
+    "simt")``, not counted)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(64)
+    x = _randn(g, n, h, w, c, device=dev)
+    dy = _randn(g, n, h, w, o, device=dev)
+    assert kconv.f32_dw_engine(c, o, x.data_ptr(), dy.data_ptr()) == "wgmma"
+    before = (kconv.dw_launches, kconv.dw_launches_wgmma)
+    got = kconv.conv2d_nhwc_dw(x, dy, k, k // 2)
+    assert (kconv.dw_launches, kconv.dw_launches_wgmma) == (before[0] + 1,
+                                                            before[1] + 1)
+    simt = kconv._launch_dw(x, dy, k, k // 2, "simt")
+    assert (kconv.dw_launches, kconv.dw_launches_wgmma) == (before[0] + 1,
+                                                            before[1] + 1)
+    torch.cuda.synchronize()
+    want = kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2)
+    _close_dw(got, want)
+    _close_dw(simt, want)
+
+
+def test_tf32_dw_repeated_launches_agree_bit_for_bit(dev):
+    """200 launches at a halo-heavy shape over several splits, each equal to
+    the first bit for bit (fixed-order sums), the first within tolerance
+    of the plain version."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(65)
+    x = _randn(g, 128, 7, 7, 128, device=dev)
+    dy = _randn(g, 128, 7, 7, 128, device=dev)
+    splits, _ = kconv.dw_splits_tf32(9 * 128, 128,
+                                     kconv.dw_pixels(128, 7, 7, 1))
+    assert splits > 1
+    first = kconv.conv2d_nhwc_dw(x, dy, 3, 1)
+    torch.cuda.synchronize()
+    _close_dw(first, kconv.conv2d_nhwc_dw_plain(x, dy, 3, 1))
+    differ = [i for i in range(200)
+              if not torch.equal(kconv.conv2d_nhwc_dw(x, dy, 3, 1), first)]
+    assert not differ, f"launches {differ[:10]} differ from the first"
+
+
+def test_tf32_dw_is_as_precise_as_the_simt_tile(dev):
+    """Against float64, the split-TF32 filter gradient's largest error is
+    at most twice the SIMT tile's: a 3 x 3 at C 512 on 7 x 7 images and
+    the longest reduction, a 1 x 1 at 56 x 56 (64 -> 256)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(66)
+    for n, h, c, o, k in ((32, 7, 512, 512, 3), (32, 56, 64, 256, 1)):
+        x = _randn(g, n, h, h, c, device=dev)
+        dy = _randn(g, n, h, h, o, device=dev)
+        p = k // 2
+        xp = torch.nn.functional.pad(x.double(), (0, 0, p, p, p, p))
+        exact = torch.stack([torch.stack([
+            xp[:, i:i + h, j:j + h].reshape(-1, c).t()
+            @ dy.double().reshape(-1, o) for j in range(k)])
+            for i in range(k)])
+        err, simt = _f64_errors(kconv._launch_dw(x, dy, k, p, "wgmma"),
+                                kconv._launch_dw(x, dy, k, p, "simt"), exact)
+        assert err <= 2 * simt, ((n, h, c, o, k), err, simt)
+
+
+def test_tf32_dw_stores_nothing_out_of_bounds(dev):
+    """``ptt_conv_dw_nhwc_f32`` on the wgmma engine straight into outputs
+    with NaN guards on both sides, one split (the kernel writes dw itself)
+    and several (the reduce writes it), at a ragged shape (O 72 in a
+    128-wide tile, a last tile with one live slab), the split scratch NaN
+    on entry: the guards stay NaN, the outputs match."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(67)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("conv_dw", kconv._DW_SIGNATURES)
+    n, h, w, c, o, k = 24, 7, 5, 64, 72, 3
+    x = _randn(g, n, h, w, c, device=dev)
+    dy = _randn(g, n, h, w, o, device=dev)
+    want = kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2)
+    pos = kconv.dw_pixels(n, h, w, 1)
+    xs = torch.full((2 * k * c * kconv.dw_pixels(n, h, w, 1,
+                                                 kconv.dw_lead(w, 1)),),
+                    float("nan"), device=dev)
+    gs = torch.full((2 * o * pos,), float("nan"), device=dev)
+    for splits, chunk in ((1, -(-pos // 32) * 32), (4, -(-pos // 128) * 32)):
+        assert (splits - 1) * chunk < pos <= splits * chunk
+        buf, dw = _guarded((k, k, c, o), torch.float32, dev)
+        pbuf, part = _guarded((splits, k * k * c, o), torch.float32, dev)
+        _build.check(lib, lib.ptt_conv_dw_nhwc_f32(
+            x.data_ptr(), dy.data_ptr(),
+            (dw if splits == 1 else part).data_ptr(), dw.data_ptr(),
+            xs.data_ptr(), gs.data_ptr(), n, h, w, c, k, k, o, k // 2,
+            splits, chunk, _build.ENGINES["wgmma"], stream), "conv dw tf32")
+        torch.cuda.synchronize()
+        for b in (buf, pbuf):
+            assert bool(torch.isnan(torch.cat([b[:4096], b[-4096:]])).all())
+        assert not bool(torch.isnan(dw).any())
+        _close_dw(dw, want)
+
+
+def test_tf32_dw_refuses_what_its_rule_does_not_allow(dev):
+    """No fallback: the C entry refuses a float32 wgmma launch at a shape,
+    alignment or split the rule does not allow, and the wrapper raises;
+    where the rule picks the SIMT tile (C 20, a misaligned view) the
+    wrapper counts no wgmma launch and agrees with the plain version."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    xi = torch.ones(2, 7, 7, 20, device=dev)
+    gi = torch.ones(2, 7, 7, 64, device=dev)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(xi, gi, 3, 1, "wgmma")                 # C % 64
+    big = torch.ones(2 * 7 * 7 * 64 + 4, device=dev)
+    off = big[1:1 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(off, gi, 3, 1, "wgmma")                # x off 16
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kconv._launch_dw(gi, torch.ones(2, 7, 7, 70, device=dev), 1, 0,
+                         "wgmma")                               # O % 4
+    with pytest.raises(ValueError):
+        kconv._launch_dw(gi, gi, 3, 1, "mma.sync")              # not f32's
+    lib = _build.load("conv_dw", kconv._DW_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(3, 3, 64, 64, device=dev)
+    scratch = torch.empty(1 << 20, device=dev)
+    pos = kconv.dw_pixels(2, 7, 7, 1)
+    for splits, chunk in ((1, pos + 16), (1, 32), (pos // 32 + 2, 32)):
+        # a chunk off the 32-position step, splits that leave positions
+        # out, an empty split
+        err = lib.ptt_conv_dw_nhwc_f32(
+            gi.data_ptr(), gi.data_ptr(), out.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr(), 2, 7, 7, 64, 3, 3, 64, 1,
+            splits, chunk, _build.ENGINES["wgmma"], stream)
+        assert err != 0, (splits, chunk)
+    g = torch.Generator().manual_seed(68)
+    for x in (_randn(g, 2, 7, 7, 20, device=dev), off):
+        before = (kconv.dw_launches, kconv.dw_launches_wgmma)
+        got = kconv.conv2d_nhwc_dw(x, gi, 3, 1)
+        assert (kconv.dw_launches, kconv.dw_launches_wgmma) == (
+            before[0] + 1, before[1])
+        torch.cuda.synchronize()
+        _close_dw(got, kconv.conv2d_nhwc_dw_plain(x, gi, 3, 1))

@@ -176,11 +176,12 @@ def test_cpu_tensors_run_the_plain_version_at_wgmma_shapes():
 def test_resnet50_filter_gradients_take_wgmma(h, c, o, k):
     """The filter gradient of each of the 46 convs at batch 256, as the
     wrapper reads it: C from x, O from g (meta tensors: shapes and an
-    aligned address, no memory); in f32 always the tile."""
+    aligned address, no memory); in f32 the split-TF32 engine's rule
+    (``f32_dw_engine``) picks wgmma too."""
     x = torch.empty(256, h, h, c, dtype=torch.bfloat16, device="meta")
     g = torch.empty(256, h, h, o, dtype=torch.bfloat16, device="meta")
     assert kconv._dw_engine(x, g) == "wgmma"
-    assert kconv._dw_engine(x.float(), g.float()) == "mma.sync"
+    assert kconv._dw_engine(x.float(), g.float()) == "wgmma"
 
 
 @pytest.mark.parametrize("c,o,why", [
@@ -377,3 +378,95 @@ def test_f32_cpu_tensors_run_the_plain_version_at_wgmma_shapes():
     assert (kmatmul.launches, kmatmul.launches_wgmma, kconv.launches,
             kconv.launches_wgmma, kconv.bwd_input_launches,
             kconv.bwd_input_launches_wgmma) == before
+
+
+# ---------------------------------------------------------------------------
+# the float32 filter gradient (csrc/conv_dw.cu on csrc/wgmma_tf32.cuh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,c,o,k", RESNET50_CONVS)
+def test_f32_resnet50_filter_gradients_take_wgmma(h, c, o, k):
+    """Every stride-1 conv of the f32 ResNet-50 step at batch 256, as the
+    wrapper reads it (meta tensors): the split-TF32 engine."""
+    x = torch.empty(256, h, h, c, device="meta")
+    g = torch.empty(256, h, h, o, device="meta")
+    assert kconv.f32_dw_engine(c, o, ALIGNED, ALIGNED) == "wgmma"
+    assert kconv._dw_engine(x, g) == "wgmma"
+
+
+@pytest.mark.parametrize("c,o,why", [
+    (1, 20, "LeNet's first conv: C = 1"),
+    (20, 50, "LeNet's second conv: C = 20"),
+    (3, 64, "C = 3: a 64-row slab spans taps"),
+    (32, 64, "C % 64 != 0 (the conv's C % 32 is not enough)"),
+    (96, 64, "C % 64 != 0"),
+    (64, 70, "O % 4 != 0: a row of the split g is not 16-byte strided"),
+])
+def test_f32_ragged_filter_gradients_keep_the_simt_tile(c, o, why):
+    x = torch.empty(2, 7, 7, c, device="meta")
+    g = torch.empty(2, 7, 7, o, device="meta")
+    assert kconv.f32_dw_engine(c, o, ALIGNED, ALIGNED) == "simt", why
+    assert kconv._dw_engine(x, g) == "simt", why
+
+
+def test_f32_misaligned_filter_gradient_operands_keep_the_simt_tile():
+    buf = torch.zeros(2 * 7 * 7 * 64 + 8, dtype=torch.float32)
+    x = buf[1:1 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    g = buf[4:4 + 2 * 7 * 7 * 64].view(2, 7, 7, 64)
+    assert x.data_ptr() % 16 == 4 and g.data_ptr() % 16 == 0
+    assert kconv._dw_engine(x, g) == "simt"
+    assert kconv._dw_engine(g, x) == "simt"
+    assert kconv._dw_engine(g, g) == "wgmma"
+
+
+def test_the_f32_filter_gradient_c_entry_mirrors_the_rule():
+    """``ptt_conv_dw_nhwc_f32`` refuses a wgmma launch by the same rule
+    (C % 64, O % 4, x and g aligned), takes only splits of whole
+    32-position steps (the step ``dw_splits_tf32`` cuts by) over
+    ``dw_pixels``' positions, and numbers its engines as
+    ``_build.ENGINES``."""
+    from paddle_tpu_torch.kernels import _build
+
+    csrc = os.path.join(os.path.dirname(kconv.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "conv_dw.cu")) as f:
+        dw = f.read()
+    with open(os.path.join(csrc, "wgmma_tf32.cuh")) as f:
+        engine = f.read()
+    assert ("C % 64 != 0 || O % 4 != 0 || !ptt::aligned16(x) || "
+            "!ptt::aligned16(g)") in dw
+    assert "chunk % wt::kBK == 0" in dw and kconv._TF32_KSTEP == 32
+    assert "if (!tf32_dw_takes(" in dw
+    assert "const long long K = wt::dw_pixels(N, H, W, pad);" in dw
+    assert "constexpr int kBK = 32;" in engine
+    # rows of W + p rounded up to 4 (W for p 0); g's N (H + p) rows, x's
+    # with dw_lead's zeros at both ends, p rows + p rounded up to 4
+    assert ("inline int dw_row(int W, int pad) { return pad ? (W + pad + 3) "
+            "/ 4 * 4 : W; }") in engine
+    assert "return (pad * dw_row(W, pad) + pad + 3) / 4 * 4;" in engine
+    assert ("const long long n = static_cast<long long>(N) * (H + pad) * "
+            "dw_row(W, pad);\n  return (n + 3) / 4 * 4;") in engine
+    assert "return dw_pixels(N, H, W, pad) + 2 * dw_lead(W, pad);" in engine
+    for n, h, w, p in ((256, 56, 56, 0), (2, 7, 9, 1), (3, 14, 7, 2),
+                       (1, 7, 7, 0)):
+        wp = -(-(w + p) // 4) * 4 if p else w
+        lead = -(-(p * wp + p) // 4) * 4
+        body = -(-(n * (h + p) * wp) // 4) * 4
+        assert kconv.dw_row(w, p) == wp and kconv.dw_lead(w, p) == lead
+        assert kconv.dw_pixels(n, h, w, p) == body
+        assert kconv.dw_pixels(n, h, w, p, lead) == body + 2 * lead
+    assert _build.ENGINES["simt"] == 0 and _build.ENGINES["wgmma"] == 1
+
+
+def test_f32_cpu_filter_gradient_runs_the_plain_version_at_wgmma_shapes():
+    """A float32 CPU tensor at a shape the split-TF32 route takes gets the
+    plain version, and no launch is counted."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 7, 7, 64, generator=g)
+    dy = torch.randn(2, 7, 7, 128, generator=g)
+    assert kconv._dw_engine(x, dy) == "wgmma"
+    before = (kconv.dw_launches, kconv.dw_launches_wgmma)
+    for k in (1, 3):
+        assert torch.equal(kconv.conv2d_nhwc_dw(x, dy, k, k // 2),
+                           kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
+    assert (kconv.dw_launches, kconv.dw_launches_wgmma) == before

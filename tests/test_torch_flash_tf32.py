@@ -1,6 +1,7 @@
-"""The arithmetic of the float32 flash backward's split-TF32 products
-(``paddle_tpu_torch/csrc/flash_attention.cu``, namespace ``tf32``),
-emulated on the CPU: no card and no jax needed.
+"""The arithmetic of the float32 flash kernels' split-TF32 products
+(``paddle_tpu_torch/csrc/flash_attention.cu``, namespace ``tf32``: the
+backward's and the forward's), emulated on the CPU: no card and no jax
+needed.
 
 Each f32 operand x is hi = tf32(x) and lo = tf32(x - hi), tf32 the
 kernel's ``cvt.rna.tf32.f32`` (round to nearest, ties away from zero, to
@@ -17,7 +18,9 @@ float32 (round to nearest), and as the tensor cores take them, each
 float32.  These tests pin that design's accuracy where the tests run:
 against float64, the split product's largest error is at most twice a
 plain float32 product's, for the four product shapes of the backward at
-small flash shapes from a numpy seed.
+small flash shapes from a numpy seed; and the forward's whole scheme
+(split q k^T, the online rescale, p V in fresh sums over 32-key tiles)
+errs at most twice the plain float32 forward at S 200 and S 1024.
 """
 
 import numpy as np
@@ -132,3 +135,64 @@ def test_split_tf32_products_are_as_precise_as_float32(s, d, causal,
         # one tf32 product alone is far off: the split is what keeps f32
         err_tf32 = float(((tf32(a) @ tf32(b)).double() - exact).abs().max())
         assert err_tf32 > 8 * err_f32, (name, err_tf32, err_f32)
+
+
+#: keys a tile of the forward walks at D <= 128 (tf32::dq_keys)
+FWD_KEYS = 32
+
+
+def split_forward(q, k, v, causal, truncating):
+    """One head's attention (S, D), float32, as the split-TF32 forward
+    forms it: key tiles of FWD_KEYS, s = q k^T by ``split_matmul`` (hi*hi
+    in fresh sums of STEPS_D terms, the small terms apart), scaled and
+    masked, the running max m and normaliser l in float32, p = exp(s - m)
+    unrounded, the accumulator rescaled by exp(m_old - m_new) and then
+    added each p V as ``split_matmul`` sums it (fresh sums of STEPS_S
+    terms); out = acc / l."""
+    s_len, d = q.shape
+    scale = d ** -0.5
+    m = torch.full((s_len, 1), float("-inf"))
+    l = torch.zeros(s_len, 1)
+    acc = torch.zeros(s_len, d)
+    rows = torch.arange(s_len)[:, None]
+    for k0 in range(0, s_len, FWD_KEYS):
+        kt, vt = k[k0:k0 + FWD_KEYS], v[k0:k0 + FWD_KEYS]
+        sc = split_matmul(q, kt.T.contiguous(), STEPS_D, True,
+                          truncating) * scale
+        keep = (k0 + torch.arange(kt.shape[0])[None, :] <= rows
+                if causal else torch.ones_like(sc, dtype=torch.bool))
+        sc = torch.where(keep, sc, torch.full_like(sc, float("-inf")))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(sc - m_new), torch.zeros_like(sc))
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + split_matmul(p, vt, STEPS_S, False, truncating)
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("truncating", [False, True])
+@pytest.mark.parametrize("s,d,causal", [(200, 64, True), (200, 64, False),
+                                        (1024, 128, True)])
+def test_split_tf32_forward_is_as_precise_as_float32(s, d, causal,
+                                                     truncating):
+    """The forward's scheme against a float64 softmax attention of the
+    same float32 q, k, v: its largest error at most twice that of the
+    plain float32 forward (``flash_attention_fwd_plain``: scores in
+    float32, one tile)."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    rng = np.random.RandomState(s + d + causal)
+    q, k, v = (torch.from_numpy(rng.randn(s, d).astype(np.float32))
+               for _ in range(3))
+    sc = q.double() @ k.double().T * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                            float("-inf"))
+    exact = torch.softmax(sc, -1) @ v.double()
+    got = split_forward(q, k, v, causal, truncating)
+    plain, _ = kfa.flash_attention_fwd_plain(q[None, :, None], k[None, :, None],
+                                             v[None, :, None], causal)
+    err = float((got.double() - exact).abs().max())
+    err_f32 = float((plain[0, :, 0].double() - exact).abs().max())
+    assert err <= 2 * err_f32, (err, err_f32)
