@@ -28,7 +28,13 @@ seconds):
    backward-input (F.conv2d, conv2d_input) and filter gradient
    (conv2d_weight) at every distinct shape of the ResNet-50 training
    step at batch 256 (13); the BN forward and backward (F.batch_norm,
-   native_batch_norm_backward) at every distinct BN shape of that step;
+   native_batch_norm_backward) at every distinct BN shape of that step,
+   float32 and bf16, each also bit for bit across two calls, with its
+   device-only time and launches a call from a profiled window (2; the
+   earlier three-launch design, held to the same plain results, 3, its
+   event and device time beside), the wrapper's host microseconds a call
+   (``host_us``) and the bytes moved a second of device time over the 3
+   (forward) and 5 (backward) passes a call needs (``moved_gb_per_s``);
    matmul and softmax at 3, 32 and 256 rows (torch.matmul,
    torch.softmax); the flash-attention forward, dq and dk/dv kernels at
    the transformer step's shape and at ragged ones
@@ -972,63 +978,217 @@ def phase_conv_kernels(dev, serve_shapes, train_shapes, randn):
     return results
 
 
-def phase_bn_kernels(dev, train_shapes, randn):
+# the BN kernels' CUDA names in a profile: the two launches of a call,
+# and the three launches of the earlier three-launch design
+BN_KERNELS = {
+    ("fwd", "two"): ("bn_fwd_stats_kernel", "bn_fwd_apply_kernel"),
+    ("bwd", "two"): ("bn_bwd_stats_kernel", "bn_bwd_apply_kernel"),
+    ("fwd", "three"): ("bn_fwd_partial_kernel", "bn_fwd_finalize_kernel",
+                       "bn_fwd_normalize_kernel"),
+    ("bwd", "three"): ("bn_bwd_partial_kernel", "bn_bwd_finalize_kernel",
+                       "bn_bwd_dx_kernel"),
+}
+# bytes a BN call moves at least, in passes over R x C: x cannot stay on
+# the chip between its two launches (forward x, x, y; backward x, dy, x,
+# dy, dx); the bound counts each input and output once (2 and 3)
+BN_PASSES = {"fwd": 3, "bwd": 5}
+
+
+def host_us(fn, batches=5, calls=20):
+    """The host's microseconds a call of ``fn`` (the wrapper's own work up
+    to its last launch): the median over ``batches`` of ``calls`` calls
+    queued back to back after a synchronise; the card runs behind.  Late
+    in this process, after profiled windows, launches cost the host more
+    than in a fresh one (scripts/bn_variants.py measures before any)."""
+    import torch
+
+    out = []
+    for _ in range(batches):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _bn_profile(calls, reps=5, tries=3):
+    """{(direction, design): (device ms a call, kernel launches a call)} of
+    ``calls`` ({(direction, design): fn}), from one profiled window of
+    ``reps`` calls of each after one unprofiled call of each.  The
+    profiler sometimes leaves ctypes-launched kernels out of a window (on
+    the card, one window in 36 missed a forward's two launches): a window
+    that saw another count than each design's launches a call (2; the
+    three-launch design's 3) is taken again, up to ``tries`` windows; the
+    last one is returned, and the caller fails on its counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        out = {}
+        for key in calls:
+            hits = [e for e in events if any(
+                f"{k}<" in e.key or f"{k}(" in e.key
+                for k in BN_KERNELS[key])]
+            out[key] = (
+                sum(e.self_device_time_total for e in hits) / 1e3 / reps,
+                sum(e.count for e in hits) / reps)
+        if all(n == len(BN_KERNELS[key]) for key, (_, n) in out.items()):
+            break
+    return out
+
+
+def phase_bn_instance(dtype, bn_shapes, randn):
+    """The BN forward and backward in ``dtype`` at every distinct BN shape
+    of the ResNet-50 step at batch 256: each against its plain version
+    (float32 within BN_TOL, bf16 by check_bf16, the vectors within
+    BN_VEC_TOL of max), two calls bit for bit; CUDA-event medians of the
+    wrapper, the plain version and the library call (F.batch_norm, and
+    native_batch_norm_backward as its autograd runs it, on channels-last
+    tensors); the device-only time and launches a call of the kernels and
+    of the earlier three-launch design (one profiled window a shape) and
+    that design's event time; the wrapper's host microseconds a call; the
+    bytes moved a second of device time.  Returns the two instances' rows
+    of the kernels line."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import batch_norm as kbn
 
-    sums = {"batch_norm_fwd": _Sum(), "batch_norm_bwd": _Sum()}
-    log(f"batch-norm kernels of the training step at batch {TRAIN_BATCH} "
-        "(fwd: F.batch_norm(training=True); bwd: native_batch_norm_backward,"
-        " its autograd backward; channels-last inputs), per call:")
-    for (n, h, w, c), count in sorted(train_shapes.items()):
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    suffix = "_bf16" if bf16 else ""
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    sums = {d: _Sum(peak) for d in ("fwd", "bwd")}
+    extra = {d: dict(device_ms=0.0, three_pass_ms=0.0,
+                     three_pass_device_ms=0.0, host_us=0.0, moved_bytes=0.0)
+             for d in ("fwd", "bwd")}
+    calls = 0
+    log(f"{'bf16 ' if bf16 else ''}batch-norm kernels of the "
+        f"{'AMP ' if bf16 else ''}training step at batch {TRAIN_BATCH} (fwd: "
+        "F.batch_norm(training=True); bwd: native_batch_norm_backward, its "
+        "autograd backward; channels-last inputs, f32 gamma and beta; "
+        "device = the kernels' own time, two launches a call; three-pass = "
+        "the earlier three-launch design), per call:")
+    for (n, h, w, c), count in sorted(bn_shapes.items()):
         rows = n * h * w
-        x = randn(rows, c, scale=2.0) + 0.5
+        x = (randn(rows, c, scale=2.0) + 0.5).to(dtype)
         gamma, beta = randn(c), randn(c)
-        dy = randn(rows, c)
+        dy = randn(rows, c).to(dtype)
         x4 = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
         dy4 = dy.reshape(n, h, w, c).permute(0, 3, 1, 2)
-        tag = f"R{rows} C{c}"
+        tag = f"{'bf16 ' if bf16 else ''}R{rows} C{c}"
+
+        def close(what, got, want):
+            return (check_bf16(what, got, want) if bf16
+                    else check_close(what, got, want, **BN_TOL))
 
         y, m, v = kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)
         py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, BN_EPS)
-        err = check_close(f"bn fwd {tag}", y, py, **BN_TOL)
+        err_f = close(f"bn fwd {tag}", y, py)
         check_scaled(f"bn mean {tag}", m, pm, BN_VEC_TOL)
         check_scaled(f"bn var {tag}", v, pv, BN_VEC_TOL)
-        times = (time_ms(lambda: kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)),
-                 time_ms(lambda: kbn.batch_norm_fwd_plain(x, gamma, beta,
-                                                          BN_EPS)),
-                 time_ms(lambda: F.batch_norm(x4, None, None, gamma, beta,
-                                              training=True, eps=BN_EPS)))
-        flops, nbytes = 5.0 * rows * c, 2.0 * rows * c * 4
-        _line(f"fwd {tag}", count, *times, flops, nbytes, err)
-        sums["batch_norm_fwd"].add(count, *times, flops, nbytes, err)
-
         inv = torch.rsqrt(v + BN_EPS)
         dx, dg, db = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
         pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
-        err = check_close(f"bn bwd {tag}", dx, pdx, **BN_TOL)
+        err_b = close(f"bn bwd {tag}", dx, pdx)
         check_scaled(f"bn dgamma {tag}", dg, pdg, BN_VEC_TOL)
         check_scaled(f"bn dbeta {tag}", db, pdb, BN_VEC_TOL)
-        times = (time_ms(lambda: kbn.batch_norm_bwd(x, dy, gamma, m, inv)),
-                 time_ms(lambda: kbn.batch_norm_bwd_plain(x, dy, gamma, m,
-                                                          inv)),
-                 time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-                     dy4, x4, gamma, None, None, m, inv, True, BN_EPS,
-                     [True, True, True])))
-        flops, nbytes = 8.0 * rows * c, 3.0 * rows * c * 4
-        _line(f"bwd {tag}", count, *times, flops, nbytes, err)
-        sums["batch_norm_bwd"].add(count, *times, flops, nbytes, err)
-        del x, dy, x4, dy4, y, py, dx, pdx
+        again = (kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)
+                 + kbn.batch_norm_bwd(x, dy, gamma, m, inv))
+        if not all(torch.equal(a, b) for a, b in
+                   zip((y, m, v, dx, dg, db), again)):
+            fail(f"bn {tag}: two calls on the same inputs differ")
+        # the earlier design on the same inputs, held to the same plain
+        # results
+        ty, tm, tv = kbn._launch_fwd(x, gamma, beta, BN_EPS, "three-pass")
+        close(f"bn fwd {tag} (three-pass)", ty, py)
+        check_scaled(f"bn var {tag} (three-pass)", tv, pv, BN_VEC_TOL)
+        tdx = kbn._launch_bwd(x, dy, gamma, m, inv, "three-pass")[0]
+        close(f"bn bwd {tag} (three-pass)", tdx, pdx)
+        del y, py, dx, pdx, again, ty, tdx
+
+        fns = {
+            ("fwd", "two"): lambda: kbn.batch_norm_fwd(x, gamma, beta,
+                                                       BN_EPS),
+            ("bwd", "two"): lambda: kbn.batch_norm_bwd(x, dy, gamma, m, inv),
+            ("fwd", "three"): lambda: kbn._launch_fwd(x, gamma, beta, BN_EPS,
+                                                      "three-pass"),
+            ("bwd", "three"): lambda: kbn._launch_bwd(x, dy, gamma, m, inv,
+                                                      "three-pass"),
+        }
+        plain = {"fwd": lambda: kbn.batch_norm_fwd_plain(x, gamma, beta,
+                                                         BN_EPS),
+                 "bwd": lambda: kbn.batch_norm_bwd_plain(x, dy, gamma, m,
+                                                         inv)}
+        library = {
+            "fwd": lambda: F.batch_norm(x4, None, None, gamma, beta,
+                                        training=True, eps=BN_EPS),
+            "bwd": lambda: torch.ops.aten.native_batch_norm_backward(
+                dy4, x4, gamma, None, None, m, inv, True, BN_EPS,
+                [True, True, True])}
+        prof = _bn_profile(fns)
+        for d, err, flops, nbytes in (
+                ("fwd", err_f, 5.0 * rows * c, 2.0 * rows * c * size),
+                ("bwd", err_b, 8.0 * rows * c, 3.0 * rows * c * size)):
+            dev_ms, per_call = prof[(d, "two")]
+            old_dev, old_per_call = prof[(d, "three")]
+            if (per_call, old_per_call) != (2, 3):
+                fail(f"bn {d} {tag}: the profiler saw {per_call} launches a "
+                     f"call ({old_per_call} for the three-launch design), "
+                     "not 2 (3)")
+            times = (time_ms(fns[(d, "two")]),
+                     time_ms(plain[d], reps=5 if bf16 else 10),
+                     time_ms(library[d]))
+            old_ms = time_ms(fns[(d, "three")])
+            host = host_us(fns[(d, "two")])
+            moved = BN_PASSES[d] * rows * c * size
+            b_ms, _ = bound(flops, nbytes, peak)
+            _line(f"{d} {tag}", count, *times, flops, nbytes, err, peak)
+            log(f"    device {dev_ms:.4f} ms ({moved / dev_ms / 1e6:.1f} GB/s "
+                f"over {BN_PASSES[d]} passes, {nbytes / dev_ms / 1e6:.1f} "
+                f"GB/s of the bound's bytes; {b_ms / dev_ms:.0%} of the "
+                f"bound); three-pass {old_ms:.4f} ms, device {old_dev:.4f} ms"
+                f" ({old_dev / dev_ms:.2f}x); host {host:.1f} us a call")
+            sums[d].add(count, *times, flops, nbytes, err)
+            for k, val in (("device_ms", dev_ms), ("three_pass_ms", old_ms),
+                           ("three_pass_device_ms", old_dev),
+                           ("host_us", host), ("moved_bytes", moved)):
+                extra[d][k] += count * val
+        calls += count
+        del x, dy, x4, dy4
     torch.cuda.empty_cache()
-    results = {name: s.result() for name, s in sums.items()}
-    for name, r in results.items():
-        log(f"  one training step's {name} launches: kernel {r['ms']:.3f} ms,"
-            f" plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms,"
-            f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max err "
-            f"{r['max_abs_err']:.2e} (tolerance {BN_TOL}, vectors "
+    results = {}
+    for d, name in (("fwd", "batch_norm_fwd"), ("bwd", "batch_norm_bwd")):
+        r = sums[d].result()
+        e = extra[d]
+        r.update(device_ms=e["device_ms"], three_pass_ms=e["three_pass_ms"],
+                 three_pass_device_ms=e["three_pass_device_ms"],
+                 host_us=e["host_us"] / calls,
+                 moved_gb_per_s=e["moved_bytes"] / e["device_ms"] / 1e6)
+        log(f"  one training step's {name + suffix} launches: kernel "
+            f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); the three-launch "
+            f"design {r['three_pass_ms']:.3f} ms (device "
+            f"{r['three_pass_device_ms']:.3f}); host {r['host_us']:.1f} us a "
+            f"call; {r['moved_gb_per_s']:.1f} GB/s moved over "
+            f"{BN_PASSES[d]} passes; max err {r['max_abs_err']:.2e} "
+            f"(tolerance {'check_bf16' if bf16 else BN_TOL}, vectors "
             f"{BN_VEC_TOL} x max)")
+        results[name + suffix] = r
     return results
 
 
@@ -1130,14 +1290,12 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
-    from paddle_tpu_torch.kernels import batch_norm as kbn
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
     bf = torch.bfloat16
     sums = {k: _Sum(PEAK_BF16_FLOPS) for k in (
-        "conv2d_nhwc_bf16", "conv_bwd_input_bf16", "conv_dw_bf16",
-        "batch_norm_fwd_bf16", "batch_norm_bwd_bf16")}
+        "conv2d_nhwc_bf16", "conv_bwd_input_bf16", "conv_dw_bf16")}
     # the same launches on the mma.sync tile, for the wgmma engine's gain
     tile_ms = dict(conv2d_nhwc_bf16=0.0, conv_bwd_input_bf16=0.0,
                    conv_dw_bf16=0.0)
@@ -1211,53 +1369,11 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
             lambda name, got, want: check_scaled(name, got, want, DW_TOL))
         del x, wt, g, x_lib, g_lib, w_lib, want
 
-    log(f"bf16 batch-norm kernels of the AMP step at batch {TRAIN_BATCH} "
-        "(F.batch_norm and native_batch_norm_backward on channels-last bf16 "
-        "with f32 gamma and beta), per call:")
-    for (n, h, w, c), count in sorted(bn_shapes.items()):
-        rows = n * h * w
-        x = (randn(rows, c, scale=2.0) + 0.5).to(bf)
-        gamma, beta = randn(c), randn(c)
-        dy = randn(rows, c).to(bf)
-        x4 = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
-        dy4 = dy.reshape(n, h, w, c).permute(0, 3, 1, 2)
-        tag = f"R{rows} C{c}"
-        y, m, v = kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)
-        py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, BN_EPS)
-        err = check_bf16(f"bf16 bn fwd {tag}", y, py)
-        check_scaled(f"bf16 bn mean {tag}", m, pm, BN_VEC_TOL)
-        check_scaled(f"bf16 bn var {tag}", v, pv, BN_VEC_TOL)
-        times = (time_ms(lambda: kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)),
-                 time_ms(lambda: kbn.batch_norm_fwd_plain(x, gamma, beta,
-                                                          BN_EPS), reps=5),
-                 time_ms(lambda: F.batch_norm(x4, None, None, gamma, beta,
-                                              training=True, eps=BN_EPS)))
-        flops, nbytes = 5.0 * rows * c, 2.0 * rows * c * 2
-        _line(f"bf16 fwd {tag}", count, *times, flops, nbytes, err,
-              PEAK_BF16_FLOPS)
-        sums["batch_norm_fwd_bf16"].add(count, *times, flops, nbytes, err)
-
-        inv = torch.rsqrt(v + BN_EPS)
-        dx, dg, db = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
-        pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
-        err = check_bf16(f"bf16 bn bwd {tag}", dx, pdx)
-        check_scaled(f"bf16 bn dgamma {tag}", dg, pdg, BN_VEC_TOL)
-        check_scaled(f"bf16 bn dbeta {tag}", db, pdb, BN_VEC_TOL)
-        times = (time_ms(lambda: kbn.batch_norm_bwd(x, dy, gamma, m, inv)),
-                 time_ms(lambda: kbn.batch_norm_bwd_plain(x, dy, gamma, m,
-                                                          inv), reps=5),
-                 time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-                     dy4, x4, gamma, None, None, m, inv, True, BN_EPS,
-                     [True, True, True])))
-        flops, nbytes = 8.0 * rows * c, 3.0 * rows * c * 2
-        _line(f"bf16 bwd {tag}", count, *times, flops, nbytes, err,
-              PEAK_BF16_FLOPS)
-        sums["batch_norm_bwd_bf16"].add(count, *times, flops, nbytes, err)
-        del x, dy, x4, dy4, y, py, dx, pdx
     torch.cuda.empty_cache()
     results = {name: s.result() for name, s in sums.items()}
     for name, ms in tile_ms.items():
         results[name]["mma_sync_ms"] = ms
+    results.update(phase_bn_instance(bf, bn_shapes, randn))
 
     x = randn(TRAIN_BATCH, 2048).to(bf)
     y = randn(2048, 1000, scale=0.03).to(bf)
@@ -1829,7 +1945,7 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     results = phase_conv_kernels(dev, serve_shapes, train_conv_shapes, randn)
-    results.update(phase_bn_kernels(dev, train_bn_shapes, randn))
+    results.update(phase_bn_instance(torch.float32, train_bn_shapes, randn))
     results.update(phase_dense_kernels(dev, randn))
     results.update(phase_bf16_kernels(dev, train_conv_shapes,
                                       train_bn_shapes, randn))
@@ -4510,7 +4626,9 @@ def main():
              **({"simt_ms": k["simt_ms"], "bound_tf32_ms": k["bound_tf32_ms"]}
                 if "simt_ms" in k else {}),
              **{f: k[f] for f in ("split_pass_ms", "device_ms",
-                                  "library_device_ms") if f in k},
+                                  "library_device_ms", "three_pass_ms",
+                                  "three_pass_device_ms", "host_us",
+                                  "moved_gb_per_s") if f in k},
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
                                             wgmma_by_path.items()}}

@@ -9,7 +9,10 @@ Tolerances: conv, its backward-input and matmul rtol 1e-4 / atol 1e-4
 the filter gradient rtol 1e-4 / atol 1e-4 * max|dW| (sums over every
 pixel of the batch, up to 10^5-10^6 terms, in another order); batch norm
 atol 1e-4 on y and dx, rtol 1e-4 on the per-channel vectors (f32 sums
-over R rows; the kernel adds its chunk partials in double); flash
+over R rows; the kernel adds its chunk partials in double), at one row
+var within 2^-22 of x^2 (E[x^2] - m^2 cancels) and y within 1e-5 of
+max(|y|, |x a|) (the folded y = x a + b cancels x a), and two calls bit
+for bit; flash
 attention atol 1e-4 on out and lse, and 1e-3 of max|plain| on dq, dk and
 dv (f32 sums over S keys or queries and D, in another order, through
 exp), the float32 backward's split-TF32 kernels also within 1e-3 of max
@@ -190,10 +193,13 @@ def test_conv_dw_kernel_matches_plain(dev, n, h, w, c, o, k):
                                atol=1e-4 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("rows,cols", [
+BN_SHAPES = [
     (105, 24), (8 * 56 * 56, 64), (2 * 7 * 7, 2048), (5, 3), (1000, 1),
-    (64 * 14 * 14, 1024),
-])
+    (64 * 14 * 14, 1024), (100, 64), (802816, 64),
+]
+
+
+@pytest.mark.parametrize("rows,cols", BN_SHAPES)
 def test_batch_norm_kernels_match_plain(dev, rows, cols):
     from paddle_tpu_torch.kernels import batch_norm as kbn
 
@@ -218,6 +224,180 @@ def test_batch_norm_kernels_match_plain(dev, rows, cols):
     torch.testing.assert_close(dgamma, pdg, rtol=1e-4,
                                atol=1e-4 * float(pdg.abs().max()))
     torch.testing.assert_close(dx, pdx, rtol=1e-4, atol=1e-4)
+
+
+def _bn_inputs(g, rows, cols, dtype, dev):
+    x = (_randn(g, rows, cols, scale=2.0, device=dev) + 0.5).to(dtype)
+    gamma = _randn(g, cols, device=dev)
+    beta = _randn(g, cols, device=dev)
+    dy = _randn(g, rows, cols, device=dev).to(dtype)
+    return x, dy, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [1, 2, 5, 67, 130])
+def test_batch_norm_one_row(dev, dtype, cols):
+    """R = 1: mean = x; var = E[x^2] - m^2 cancels to within 2^-22 of x^2;
+    y = x * a + b folds the affine and cancels x * a: y within 1e-5 of
+    max(|y|, |x * a|) (bf16: plus one bf16 ulp, 2^-7 relative); dgamma
+    and dx zero, dbeta = dy."""
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    g = torch.Generator().manual_seed(51)
+    x, dy, gamma, beta = _bn_inputs(g, 1, cols, dtype, dev)
+    y, m, v = kbn.batch_norm_fwd(x, gamma, beta, 1e-5)
+    inv = torch.rsqrt(v + 1e-5)
+    dx, dgamma, dbeta = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
+    torch.cuda.synchronize()
+    py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, 1e-5)
+    pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
+    xf = x.float()
+    torch.testing.assert_close(m, pm, rtol=0, atol=0)
+    assert bool(((v - pv).abs() <= 2.0 ** -22 * xf[0] ** 2).all())
+    a = gamma * torch.rsqrt(pv + 1e-5)
+    scale = max(float(py.float().abs().max()), float((xf * a).abs().max()))
+    err = (y.float() - py.float()).abs()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    assert bool((err <= rtol * py.float().abs() + 1e-5 * scale).all())
+    torch.testing.assert_close(dbeta, pdb, rtol=0, atol=0)
+    torch.testing.assert_close(dgamma, pdg, rtol=0, atol=1e-6)
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_misaligned_view_takes_the_scalar_route(dev, dtype):
+    """x and dy views whose base is 4 bytes off 16-byte alignment take the
+    scalar route (an aligned copy the vector route); both match the plain
+    versions at the tolerances above."""
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    g = torch.Generator().manual_seed(52)
+    rows, cols = 3000, 64
+    skip = 4 // torch.tensor([], dtype=dtype).element_size()
+    views = []
+    for _ in range(2):
+        base = torch.empty(rows * cols + skip, dtype=dtype, device=dev)
+        views.append(base[skip:].view(rows, cols))
+    x, dy, gamma, beta = _bn_inputs(g, rows, cols, dtype, dev)
+    views[0].copy_(x)
+    views[1].copy_(dy)
+    xv, dyv = views
+    assert xv.data_ptr() % 16 == 4
+    assert kbn.route(cols, dtype, xv.data_ptr(), dyv.data_ptr()) == "scalar"
+    assert kbn.route(cols, dtype, x.data_ptr(), dy.data_ptr()) == "vector"
+    close = (_close_bf16 if dtype == torch.bfloat16 else
+             lambda a, b: torch.testing.assert_close(a, b, rtol=1e-4,
+                                                     atol=1e-4))
+    for xs, dys in ((xv, dyv), (x, dy)):
+        y, m, v = kbn.batch_norm_fwd(xs, gamma, beta, 1e-5)
+        inv = torch.rsqrt(v + 1e-5)
+        dx, dgamma, dbeta = kbn.batch_norm_bwd(xs, dys, gamma, m, inv)
+        torch.cuda.synchronize()
+        py, pm, pv = kbn.batch_norm_fwd_plain(xs, gamma, beta, 1e-5)
+        pdx, pdg, pdb = kbn.batch_norm_bwd_plain(xs, dys, gamma, m, inv)
+        torch.testing.assert_close(m, pm, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+        close(y, py)
+        close(dx, pdx)
+        for got, want in ((dgamma, pdg), (dbeta, pdb)):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols", [(200704, 128), (105, 24), (1001, 67),
+                                       (100, 64)])
+def test_batch_norm_repeated_calls_are_bit_identical(dev, dtype, rows, cols):
+    """Two calls on the same inputs give y, mean, var, dx, dgamma and dbeta
+    bit for bit (no value is summed by an atomic); each wrapper call counts
+    one launch; every ticket counter is back at zero after the calls."""
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    g = torch.Generator().manual_seed(53)
+    x, dy, gamma, beta = _bn_inputs(g, rows, cols, dtype, dev)
+    names = (("launches_bf16", "bwd_launches_bf16")
+             if dtype == torch.bfloat16 else ("launches", "bwd_launches"))
+    before = [getattr(kbn, n) for n in names]
+    first = kbn.batch_norm_fwd(x, gamma, beta, 1e-5)
+    second = kbn.batch_norm_fwd(x, gamma, beta, 1e-5)
+    inv = torch.rsqrt(first[2] + 1e-5)
+    first += kbn.batch_norm_bwd(x, dy, gamma, first[1], inv)
+    second += kbn.batch_norm_bwd(x, dy, gamma, first[1], inv)
+    assert [getattr(kbn, n) for n in names] == [b + 2 for b in before]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for t in kbn._counters.values():
+        assert int(t.abs().sum()) == 0
+
+
+def test_batch_norm_plan_matches_the_library(dev):
+    """``kbn.plan``'s vector width, lanes, tiles and groups against the C
+    entries' own (``ptt_bn_plan``) for every C to 300 and the step's wide
+    ones, at R 1000 and 802816."""
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    for rows in (1000, 802816):
+        for cols in list(range(1, 301)) + [512, 1024, 2048, 4096, 8192]:
+            for itemsize in (4, 2):
+                for route in ("scalar", "vector"):
+                    p = kbn.plan(rows, cols, itemsize, route)
+                    got = kbn.c_plan(cols, itemsize, route, p.chunks)
+                    assert got == (p.vec, p.lanes, p.tiles, p.group_chunks,
+                                   p.groups), (rows, cols, itemsize, route)
+
+
+def test_batch_norm_entries_refuse_a_vector_launch_off_the_rule(dev):
+    """``route`` 1 with C not a multiple of the vector, a misaligned x, or
+    no ticket counter: cudaErrorInvalidValue (1), nothing launched."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    lib = _build.load("batch_norm", kbn._SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = 64
+    for cols, skip, counter in ((6, 0, True), (64, 1, True), (64, 0, False)):
+        base = torch.zeros(rows * cols + skip, device=dev)
+        x = base[skip:].view(rows, cols)
+        y = torch.empty(rows, cols, device=dev)
+        vec = torch.ones(cols, device=dev)
+        scratch = torch.empty(2 * rows * cols + 4 * cols, device=dev)
+        ticket = torch.zeros(8, dtype=torch.int32, device=dev)
+        err = lib.ptt_bn_fwd_f32(
+            x.data_ptr(), vec.data_ptr(), vec.data_ptr(), y.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr(), ticket.data_ptr() if counter else None, rows,
+            cols, 1, rows, 1e-5, kbn.ROUTES["vector"], stream)
+        assert err == 1, (cols, skip, counter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_three_pass_design_matches_plain(dev, dtype):
+    """The earlier three-launch design, reached by name only, uncounted."""
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    g = torch.Generator().manual_seed(54)
+    x, dy, gamma, beta = _bn_inputs(g, 50176, 256, dtype, dev)
+    before = (kbn.launches, kbn.bwd_launches, kbn.launches_bf16,
+              kbn.bwd_launches_bf16)
+    y, m, v = kbn._launch_fwd(x, gamma, beta, 1e-5, "three-pass")
+    inv = torch.rsqrt(v + 1e-5)
+    dx, dgamma, dbeta = kbn._launch_bwd(x, dy, gamma, m, inv, "three-pass")
+    assert before == (kbn.launches, kbn.bwd_launches, kbn.launches_bf16,
+                      kbn.bwd_launches_bf16)
+    torch.cuda.synchronize()
+    py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, 1e-5)
+    pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
+    torch.testing.assert_close(m, pm, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+    close = (_close_bf16 if dtype == torch.bfloat16 else
+             lambda a, b: torch.testing.assert_close(a, b, rtol=1e-4,
+                                                     atol=1e-4))
+    close(y, py)
+    close(dx, pdx)
+    for got, want in ((dgamma, pdg), (dbeta, pdb)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 def test_autograd_functions_on_the_card_match_the_cpu(dev):
@@ -854,10 +1034,7 @@ def test_matmul_bf16_kernel_matches_plain(dev, m, k, n):
     _close_bf16(got, kmatmul.matmul_plain(x, y))
 
 
-@pytest.mark.parametrize("rows,cols", [
-    (105, 24), (8 * 56 * 56, 64), (2 * 7 * 7, 2048), (5, 3), (1000, 1),
-    (64 * 14 * 14, 1024),
-])
+@pytest.mark.parametrize("rows,cols", BN_SHAPES)
 def test_batch_norm_bf16_kernels_match_plain(dev, rows, cols):
     from paddle_tpu_torch.kernels import batch_norm as kbn
 
@@ -981,14 +1158,18 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
     gamma, beta = _randn(g, 24, device=dev), _randn(g, 24, device=dev)
     buf5, y = _guarded((105, 24), torch.bfloat16, dev)
     bufs.append((buf5, y))
-    chunks, per = kbn.row_chunks(105, 24)
+    route = kbn.route(24, torch.bfloat16, xb.data_ptr(), y.data_ptr())
+    plan = kbn.plan(105, 24, 2, route)
     stats = torch.empty((2, 24), device=dev)
-    bpart = torch.empty((2, chunks, 24), device=dev)
+    bpart = torch.empty((2, plan.chunks + 2 * plan.groups, 24), device=dev)
     ab = torch.empty((2, 24), device=dev)
+    ticket = torch.zeros(plan.tiles * (plan.groups + 1), dtype=torch.int32,
+                         device=dev)
     _build.check(blib, blib.ptt_bn_fwd_bf16(
         xb.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         stats[0].data_ptr(), stats[1].data_ptr(), bpart.data_ptr(),
-        ab.data_ptr(), 105, 24, chunks, per, 1e-5, stream), "bn")
+        ab.data_ptr(), ticket.data_ptr(), 105, 24, plan.chunks,
+        plan.chunk_rows, 1e-5, kbn.ROUTES[route], stream), "bn")
     torch.cuda.synchronize()
 
     for buf, view in bufs:
