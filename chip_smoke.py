@@ -41,19 +41,24 @@ seconds):
    (F.scaled_dot_product_attention and its autograd backward); the
    matmul at the transformer step's five shapes; the matmul at the LSTM
    classifier step's three shapes (B 64, T 100) and the LoD step's two,
-   the softmax at their 64 x 2 head; the LSTM kernel
-   (hs, cs, gates) and LSTMSeq's backward at T 100, B 64, H 256, 512 and
-   1280 and at T 7, B 5, H 100 (torch.nn.LSTM on cuDNN, timed with the
-   kernel in LSTM_ROUNDS alternating rounds); the gather at
+   the softmax at their 64 x 2 head; the LSTM forward kernel (hs, cs,
+   gates) and backward kernel (LSTMSeq's backward: dxproj, dW, dbias,
+   dh0, dc0) at T 100, B 64, H 256, 512 and 1280 and at T 7, B 5, H 100
+   (torch.nn.LSTM on cuDNN and autograd of it, timed with the kernels in
+   LSTM_ROUNDS alternating rounds; the earlier grid-barrier forward held
+   to the same plain result and timed beside, ``grid_ms``; µs a time
+   step, the clusters and their blocks, device times from a profiled
+   window); the gather at
    the LoD step's ids on the 30000 x 512 table, on a 510-wide table and
    with ids out of range (torch.index_select).  For the transformer's
    and the LSTM classifier's AMP steps: the bf16 flash forward, dq
    and dk/dv at the step's shape and at S 200, D 64 and 72 (the plain
    forward walking the kernel's key tiles), the bf16 matmul at the
-   transformer's five shapes (torch.matmul in bf16), the bf16 LSTM at
-   T 100, B 64, H 256 and T 7, B 5, H 100 (torch.nn.LSTM in bf16 on
-   cuDNN), each within BF16_RTOL / BF16_ATOL, bound at 989 TFLOP/s bf16
-   (the LSTM's f32 recurrence at 67).  Where the bf16 matmul and conv
+   transformer's five shapes (torch.matmul in bf16), the bf16 LSTM
+   forward and backward at T 100, B 64, H 256 and T 7, B 5, H 100
+   (torch.nn.LSTM in bf16 on cuDNN and autograd of it), each within
+   BF16_RTOL / BF16_ATOL, bound at 989 TFLOP/s bf16 (the LSTM's f32
+   recurrence at 67).  Where the bf16 matmul and conv
    run on the wgmma engine (csrc/wgmma_gemm.cuh: the transformer's
    products, every ResNet-50 conv forward, backward-input and, in
    csrc/conv_dw.cu, filter gradient), the mma.sync tile it replaced is
@@ -184,16 +189,18 @@ seconds):
     end to end (SEQ_PARITY_TOL, or the CPU's own spread under a
     perturbation of the embedding table) and op by op on identical
     inputs, the LSTM's gates handed to its grad op on both sides.
-12. The LSTM classifier step at B 64, T 100: launches (lstm 2, matmul 3,
-    softmax 1, gather 0), samples/s and tokens/s over 5 timed steps
-    after 2 warm-up steps, peak memory.
+12. The LSTM classifier step at B 64, T 100: launches (lstm 2, lstm
+    backward 2, matmul 3, softmax 1, gather 0), samples/s and tokens/s
+    over 5 timed steps after 2 warm-up steps, peak memory.
 13. A small LSTM classifier (T 20, emb 32, hidden 64, Adam(1e-2)) learns
     whether token 0 occurs: held-out accuracy above SEQ_CONVERGE_ACC.
 13a. The LSTM classifier under AMP: parity at B 2 (amp_step_parity);
-    the step at B 64, T 100 with launches bf16 lstm 2, bf16 matmul 3
+    the step at B 64, T 100 with launches bf16 lstm 2, bf16 lstm
+    backward 2, bf16 matmul 3
     (the engine of each logged: the two 6,400-row projections on wgmma,
     the 64-row head on the mma.sync tile), f32 softmax 1 and no f32 lstm
-    or matmul launch, samples/s beside phase 12's; the small classifier
+    (forward or backward) or matmul launch, samples/s beside phase 12's;
+    the small classifier
     of phase 13 learns under AMP.
 14. LoD classifier parity: LoD ids of 64 sequences with seeded lengths
     in 1-100 -> embedding([30000, 512]) -> fc(256, tanh) ->
@@ -204,8 +211,8 @@ seconds):
 16. One profiled step of each sequence path in a fresh process
     (``chip_smoke.py --profile-sequence-steps``; the LSTM classifier in
     f32 and under AMP): idle share, top kernels, and the split into the
-    port's kernels, the plain LSTM backward loop, the mul backward
-    products, the rest and the host.
+    port's kernels (the LSTM forward and backward kernels apart), the mul
+    backward products, the rest and the host.
 17. (A, in phase 2) The paged-attention kernels against their plain
     versions, atol PAGED_ATOL: the decode kernel at the slice's shape
     (S 16, H 16, D 128, page 16, P 128) with seeded ragged lens in 1-2048
@@ -241,7 +248,12 @@ seconds):
     path, ``simt_ms`` and ``bound_tf32_ms``, the filter gradient's
     ``split_pass_ms``; for the f32 flash kernels ``simt_ms`` and
     ``bound_tf32_ms``; ``device_ms`` and ``library_device_ms`` where phase
-    2 took them), the card's name and power limit, and the result.
+    2 took them; for the LSTM rows ``us_per_step``, ``clusters``,
+    ``cluster_blocks``, ``resident``, the forward's ``grid_ms`` and
+    ``grid_device_ms`` (the earlier design), the backward's ``kernel_ms``
+    (its launch alone: its ``ms`` is the whole backward, kernel, dW
+    product, dbias and casts)), the card's name and power limit, and the
+    result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
 
@@ -352,6 +364,9 @@ KERNELS = {
     "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/pallas/flash_attention.py:313"),
     "lstm": ("paddle_tpu_torch/csrc/lstm.cu", "paddle_tpu/pallas/lstm.py:112"),
+    # the backward of the custom_vjp, a reverse lax.scan (no pallas_call)
+    "lstm_bwd": ("paddle_tpu_torch/csrc/lstm.cu",
+                 "paddle_tpu/pallas/lstm.py:191"),
     "embedding": ("paddle_tpu_torch/csrc/embedding.cu",
                   "paddle_tpu/pallas/embedding.py:47"),
     "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
@@ -384,13 +399,15 @@ KERNELS = {
                                  "paddle_tpu/pallas/flash_attention.py:313"),
     "lstm_bf16": ("paddle_tpu_torch/csrc/lstm.cu",
                   "paddle_tpu/pallas/lstm.py:112"),
+    "lstm_bwd_bf16": ("paddle_tpu_torch/csrc/lstm.cu",
+                      "paddle_tpu/pallas/lstm.py:191"),
 }
 # the bf16 instance of each kernel an AMP step runs in bf16 (the softmax
 # takes the f32 sum of a bf16 product and an f32 bias)
 BF16_OF = {name: name + "_bf16" for name in (
     "conv2d_nhwc", "conv_bwd_input", "conv_dw", "batch_norm_fwd",
     "batch_norm_bwd", "matmul", "flash_attention_fwd", "flash_attention_dq",
-    "flash_attention_dkv", "lstm")}
+    "flash_attention_dkv", "lstm", "lstm_bwd")}
 
 # The transformer LM of benchmark/transformer_bench.py:45-60 at its own
 # full width (d_model 2048, 16 heads of 128, 4 layers, vocab 32768,
@@ -577,6 +594,7 @@ def counters():
                 softmax=ksoftmax.launches, flash_attention_fwd=kfa.launches,
                 flash_attention_dq=kfa.dq_launches,
                 flash_attention_dkv=kfa.dkv_launches, lstm=klstm.launches,
+                lstm_bwd=klstm.bwd_launches,
                 embedding=kemb.launches, paged_attention=kpa.launches,
                 paged_attention_chunk=kpa.chunk_launches,
                 conv2d_nhwc_bf16=kconv.launches_bf16,
@@ -590,7 +608,8 @@ def counters():
                 flash_attention_fwd_bf16=kfa.launches_bf16,
                 flash_attention_dq_bf16=kfa.dq_launches_bf16,
                 flash_attention_dkv_bf16=kfa.dkv_launches_bf16,
-                lstm_bf16=klstm.launches_bf16)
+                lstm_bf16=klstm.launches_bf16,
+                lstm_bwd_bf16=klstm.bwd_launches_bf16)
 
 
 def wgmma_counters():
@@ -635,6 +654,7 @@ def zero_counters():
     kfa.launches = kfa.dq_launches = kfa.dkv_launches = 0
     kfa.launches_bf16 = kfa.dq_launches_bf16 = kfa.dkv_launches_bf16 = 0
     klstm.launches = klstm.launches_bf16 = kemb.launches = 0
+    klstm.bwd_launches = klstm.bwd_launches_bf16 = 0
     kpa.launches = kpa.chunk_launches = 0
 
 
@@ -737,6 +757,9 @@ def launches_implied(program, amp=False):
                 want["flash_attention_fwd"] += applies
         elif op.type == "lstm":
             want["lstm"] += lstm_kernel_op(op, block)
+        elif op.type == "lstm_grad":
+            want["lstm_bwd"] += lstm_kernel_op(
+                op, block, op.attr("__fwd_attrs__").get)
         elif op.type == "lookup_table":
             # the gather kernel takes the lookups whose ids are 1-D once
             # their trailing 1 is squeezed: (N, 1) LoD ids
@@ -748,15 +771,15 @@ def launches_implied(program, amp=False):
     return want
 
 
-def lstm_kernel_op(op, block):
-    """Whether an lstm op runs the LSTM kernel (default activations, no
-    peepholes)."""
+def lstm_kernel_op(op, block, attr=None):
+    """Whether an lstm op (an lstm_grad op, with its forward's ``attr``)
+    runs the LSTM kernels (default activations, no peepholes)."""
     from paddle_tpu_torch.ops.sequence_ops import _kernel_path
 
     bias = op.input("Bias")
     bias_var = block.var(bias[0]) if bias and bias[0] else None
     h = block.var(op.input("Weight")[0]).shape[0]
-    return _kernel_path(op.attr, bias_var, h)
+    return _kernel_path(attr or op.attr, bias_var, h)
 
 
 class _Sum:
@@ -1954,8 +1977,8 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results["matmul"] = phase_tf_matmul(dev, randn)
     results["matmul_bf16"] = phase_tf_matmul(dev, randn, bf16=True)
     phase_seq_dense(dev, randn)
-    results["lstm"] = phase_lstm_kernels(dev, randn)
-    results["lstm_bf16"] = phase_lstm_bf16_kernel(dev, randn)
+    results.update(phase_lstm_kernels(dev, randn))
+    results.update(phase_lstm_bf16_kernel(dev, randn))
     results["embedding"] = phase_gather_kernel(dev, randn)
     results.update(phase_paged_kernels(dev, randn))
     return results
@@ -3028,24 +3051,174 @@ def _tf_converge(kind):
 # ---------------------------------------------------------------------------
 
 
-def lstm_work(b, t, h):
+def lstm_work(b, t, h, itemsize=4):
     """(FLOPs, bytes) of one whole-sequence LSTM forward: the T recurrent
-    products, and xproj, W, bias, h0, c0 read once, hs, cs and the gates
-    written once."""
+    products; xproj, h0, c0 (``itemsize`` bytes) and W, bias (float32)
+    read once, hs, cs and the gates written once."""
     return (2.0 * t * b * h * 4 * h,
-            4.0 * (2 * b * t * 4 * h + 4 * h * h + 4 * h + 2 * b * h
-                   + 2 * b * t * h))
+            itemsize * (2 * b * t * 4 * h + 2 * b * h + 2 * b * t * h)
+            + 4.0 * (4 * h * h + 4 * h))
+
+
+def lstm_bwd_work(b, t, h, itemsize=4):
+    """(FLOPs, bytes) of one LSTMSeq backward (``lstm_seq_bwd``: the
+    kernel, then dW, dbias and the casts): the T recurrent products
+    dgates_t W^T and the dW product over T B rows; the gates, hs, cs, dhs,
+    dcs, h0 and c0 (``itemsize`` bytes) and W read once, dxproj, dh0, dc0
+    (``itemsize``), dW and dbias (float32) written once."""
+    return (4.0 * t * b * h * 4 * h,
+            itemsize * (2 * b * t * 4 * h + 4 * b * t * h + 4 * b * h)
+            + 4.0 * (2 * 4 * h * h + 4 * h))
+
+
+def _kernel_device_ms(fn, name):
+    """Device ms a call of the kernels whose names contain ``name``, from
+    one profiled window (``device_ms``); None where the profiler saw
+    none."""
+    return sum(v for k, v in device_ms(fn).items() if name in k) or None
+
+
+def _cudnn_lstm(dev, args, dtype):
+    """torch.nn.LSTM(4H, H) on cuDNN computing the kernel's function on
+    ``args`` (xproj, W, bias, h0, c0): W_ih = I, W_hh = W^T, b_ih = bias,
+    b_hh = 0 (rounded to ``dtype``), plus the identity product's 2 T B
+    (4H)^2 FLOPs; with its state."""
+    import torch
+
+    h = args[1].shape[0]
+    lib = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev, dtype)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+        lib.weight_hh_l0.copy_(args[1].t())
+        lib.bias_ih_l0.copy_(args[2])
+        lib.bias_hh_l0.zero_()
+    return lib, (args[3][None].contiguous(), args[4][None].contiguous())
+
+
+def _lstm_rows(what, dev, args, r_h, r_c, t, count, check, bf16=False):
+    """The forward and the backward kernel at one shape: held against the
+    plain versions (``check(name, got, want)`` per output), timed against
+    them and cuDNN (forward: ``nn.LSTM``; backward: autograd of it, a
+    cotangent on hs) in LSTM_ROUNDS alternating rounds, the earlier
+    grid-barrier forward timed and checked beside, the kernels' device
+    time from a profiled window.  Returns (forward _Sum, backward _Sum,
+    extras of each)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    b, _, h = r_h.shape
+    dt = args[0].dtype
+    itemsize = 2 if bf16 else 4
+    peak = PEAK_F32_FLOPS   # f32 products on the f32 master W
+    got = klstm.lstm_seq(*args)
+    fwd_launch = dict(klstm.last_launch)
+    want = klstm.lstm_seq_plain(*args)
+    err = max(check(f"lstm {n} {what}", g, w)
+              for n, g, w in zip(("hs", "cs", "gates"), got, want))
+    grid = klstm._launch_grid(*args)
+    grid_err = max(check(f"lstm (grid design) {n} {what}", g, w)
+                   for n, g, w in zip(("hs", "cs", "gates"), grid[:3], want))
+    hs, cs, gates = got
+    bwd_args = (gates, hs, cs, args[1], args[3], args[4], r_h, r_c)
+    bwd = klstm.lstm_seq_bwd(*bwd_args)
+    bwd_launch = dict(klstm.last_launch)
+    want_bwd = klstm.lstm_seq_bwd_plain(*bwd_args)
+    bwd_err = 0.0
+    for n, g, w in zip(("dxproj", "dW", "dbias", "dh0", "dc0"), bwd,
+                       want_bwd):
+        bwd_err = max(bwd_err, check_bf16(f"lstm_bwd {n} {what}", g, w)
+                      if w.dtype == torch.bfloat16 else
+                      check_scaled(f"lstm_bwd {n} {what}", g, w,
+                                   LSTM_GRAD_TOL))
+    lib, state = _cudnn_lstm(dev, args, dt)
+    x = args[0].detach().clone().requires_grad_(True)
+    h0l, c0l = (s.detach().clone().requires_grad_(True) for s in state)
+    with torch.no_grad():
+        lib_err = float((lib(args[0], state)[0].float() - hs.float())
+                        .abs().max())
+        rounds = [(time_ms(lambda: klstm.lstm_seq(*args)),
+                   time_ms(lambda: lib(args[0], state)))
+                  for _ in range(LSTM_ROUNDS)]
+        grid_ms = time_ms(lambda: klstm._launch_grid(*args))
+        plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
+        bwd_plain = time_ms(lambda: klstm.lstm_seq_bwd_plain(*bwd_args),
+                            reps=3)
+        kernel_bwd = time_ms(lambda: klstm._launch_bwd(
+            gates, cs, args[4], args[1], r_h, r_c))
+    out = lib(x, (h0l, c0l))[0]
+    leaves = [x, h0l, c0l] + list(lib.parameters())
+    bwd_rounds = [(time_ms(lambda: klstm.lstm_seq_bwd(*bwd_args)),
+                   time_ms(lambda: torch.autograd.grad(
+                       out, leaves, r_h, retain_graph=True)))
+                  for _ in range(LSTM_ROUNDS)]
+    del out
+    dev_fwd = _kernel_device_ms(lambda: klstm.lstm_seq(*args),
+                                "lstm_fwd_kernel")
+    dev_grid = _kernel_device_ms(lambda: klstm._launch_grid(*args),
+                                 "lstm_seq_kernel")
+    dev_bwd = _kernel_device_ms(lambda: klstm.lstm_seq_bwd(*bwd_args),
+                                "lstm_bwd_kernel")
+    ms = statistics.median(r[0] for r in rounds)
+    lib_ms = statistics.median(r[1] for r in rounds)
+    bms = statistics.median(r[0] for r in bwd_rounds)
+    lib_bms = statistics.median(r[1] for r in bwd_rounds)
+    flops, nbytes = lstm_work(b, t, h, itemsize)
+    _line(f"lstm {what} ({fwd_launch['tiles']} clusters of "
+          f"{fwd_launch['cluster']} blocks, W "
+          f"{'resident' if fwd_launch['resident'] else 'streamed'})", count,
+          ms, plain, lib_ms, flops, nbytes, err, peak)
+    log(f"  over {LSTM_ROUNDS} alternating rounds (median of 10 calls each): "
+        f"kernel {min(r[0] for r in rounds):.4f}-"
+        f"{max(r[0] for r in rounds):.4f} ms, cuDNN "
+        f"{min(r[1] for r in rounds):.4f}-{max(r[1] for r in rounds):.4f} ms;"
+        f" {1e3 * ms / t:.2f} us a step; device {dev_fwd} ms; the card holds "
+        f"{fwd_launch['active_clusters']} such clusters at once; the grid "
+        f"design {grid_ms:.4f} ms (device {dev_grid} ms, {grid[3]} blocks, "
+        f"max err {grid_err:.2e}); cuDNN's hs vs the kernel's: max diff "
+        f"{lib_err:.2e}")
+    bflops, bbytes = lstm_bwd_work(b, t, h, itemsize)
+    _line(f"lstm_bwd {what} ({bwd_launch['tiles']} clusters of "
+          f"{bwd_launch['cluster']} blocks, W "
+          f"{'resident' if bwd_launch['resident'] else 'streamed'})", count,
+          bms, bwd_plain, lib_bms, bflops, bbytes, bwd_err, peak)
+    log(f"  over {LSTM_ROUNDS} alternating rounds: backward "
+        f"{min(r[0] for r in bwd_rounds):.4f}-"
+        f"{max(r[0] for r in bwd_rounds):.4f} ms, autograd of cuDNN "
+        f"{min(r[1] for r in bwd_rounds):.4f}-"
+        f"{max(r[1] for r in bwd_rounds):.4f} ms; the kernel alone "
+        f"{kernel_bwd:.4f} ms ({1e3 * kernel_bwd / t:.2f} us a step; bound "
+        f"{bound(bflops / 2, 0, peak)[0]:.4f} ms), device {dev_bwd} ms; the "
+        f"card holds {bwd_launch['active_clusters']} such clusters at once")
+    fwd_sum, bwd_sum = _Sum(peak), _Sum(peak)
+    fwd_sum.add(count, ms, plain, lib_ms, flops, nbytes, max(err, grid_err))
+    bwd_sum.add(count, bms, bwd_plain, lib_bms, bflops, bbytes, bwd_err)
+    fwd_extra = dict(grid_ms=grid_ms * count, device_ms=dev_fwd and
+                     dev_fwd * count, grid_device_ms=dev_grid and
+                     dev_grid * count, us_per_step=1e3 * ms / t,
+                     clusters=fwd_launch["tiles"],
+                     cluster_blocks=fwd_launch["cluster"],
+                     resident=bool(fwd_launch["resident"]))
+    bwd_extra = dict(kernel_ms=kernel_bwd * count, device_ms=dev_bwd and
+                     dev_bwd * count, us_per_step=1e3 * kernel_bwd / t,
+                     clusters=bwd_launch["tiles"],
+                     cluster_blocks=bwd_launch["cluster"],
+                     resident=bool(bwd_launch["resident"]))
+    del lib
+    return fwd_sum, bwd_sum, fwd_extra, bwd_extra
 
 
 def phase_lstm_kernels(dev, randn):
-    """The LSTM kernel against its plain version (hs, cs, gates) and
-    LSTMSeq's backward against autograd of the plain version, at the
+    """The LSTM kernels (the forward's hs, cs, gates; the backward's
+    dxproj, dW, dbias, dh0, dc0) against their plain versions, and
+    LSTMSeq's backward against autograd of the plain forward, at the
     three benchmark/run.py widths (T 100, B 64, H 256, 512, 1280) and a
     ragged shape (T 7, B 5, H 100), all with non-zero h0/c0, xproj the
-    (B, T, 4H) view of a projection.  Library: torch.nn.LSTM(4H, H) on
-    cuDNN (TF32 off) with W_ih = I, W_hh = W^T, b_ih = bias, b_hh = 0,
-    the same function plus an identity product of 2 T B (4H)^2 FLOPs.
-    The kernels line keeps H 256, the padded step's 2 launches."""
+    (B, T, 4H) view of a projection; the earlier grid-barrier forward
+    beside.  Library: torch.nn.LSTM(4H, H) on cuDNN (TF32 off) with W_ih
+    = I, W_hh = W^T, b_ih = bias, b_hh = 0, the same function plus an
+    identity product of 2 T B (4H)^2 FLOPs, and autograd of it.  The
+    kernels line keeps H 256, the padded step's 2 + 2 launches."""
     import torch
 
     from paddle_tpu_torch.kernels import lstm as klstm
@@ -3055,85 +3228,59 @@ def phase_lstm_kernels(dev, randn):
         return (xp, randn(h, 4 * h, scale=h ** -0.5), randn(4 * h, scale=0.1),
                 randn(b, h, scale=0.5), randn(b, h, scale=0.5))
 
-    def check(tag, args):
-        got = klstm.lstm_seq(*args)
-        want = klstm.lstm_seq_plain(*args)
-        err = max(check_close(f"lstm {n} {tag}", g, w, **LSTM_TOL)
-                  for n, g, w in zip(("hs", "cs", "gates"), got, want))
-        r_h, r_c = randn(*got[0].shape), randn(*got[0].shape)
+    def check(name, got, want):
+        return check_close(name, got, want, **LSTM_TOL)
+
+    def autograd_check(tag, args):
+        r_h, r_c = randn(*args[0].shape[:2], args[1].shape[0]), randn(
+            *args[0].shape[:2], args[1].shape[0])
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
         torch.autograd.backward(klstm.LSTMSeq.apply(*leaves), [r_h, r_c])
         plain = [a.detach().clone().requires_grad_(True) for a in args]
         torch.autograd.backward(klstm.lstm_seq_plain(*plain)[:2], [r_h, r_c])
         for name, a, p in zip(("dxproj", "dW", "dbias", "dh0", "dc0"),
                               leaves, plain):
-            check_scaled(f"lstm {name} {tag}", a.grad, p.grad, LSTM_GRAD_TOL)
-        return got, err, (r_h, r_c)
+            check_scaled(f"LSTMSeq {name} {tag}", a.grad, p.grad,
+                         LSTM_GRAD_TOL)
+        return r_h, r_c
 
-    _, ragged_err, _ = check("T7 B5 H100", inputs(5, 7, 100))
-    log(f"lstm at T 7, B 5, H 100 (h0, c0 non-zero): max err {ragged_err:.2e}"
-        f" (tolerance {LSTM_TOL}); LSTMSeq gradients within {LSTM_GRAD_TOL} x"
-        f" max of autograd of the plain version")
+    args = inputs(5, 7, 100)
+    r_h, r_c = autograd_check("T7 B5 H100", args)
+    ragged = _lstm_rows("T7 B5 H100", dev, args, r_h, r_c, 7, 1, check)
+    log(f"lstm at T 7, B 5, H 100 (h0, c0 non-zero): within {LSTM_TOL}; "
+        f"LSTMSeq gradients and the backward kernel within {LSTM_GRAD_TOL} "
+        f"x max of the plain versions")
     b, t = LSTM_BATCH, LSTM_SEQ
-    result = None
+    results = {}
     for h in LSTM_WIDTHS:
         args = inputs(b, t, h)
         tag = f"T{t} B{b} H{h}"
-        (hs, cs, gates), err, (r_h, r_c) = check(tag, args)
-        lib = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev)
-        with torch.no_grad():
-            lib.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
-            lib.weight_hh_l0.copy_(args[1].t())
-            lib.bias_ih_l0.copy_(args[2])
-            lib.bias_hh_l0.zero_()
-            state = (args[3][None], args[4][None])
-            lib_err = float((lib(args[0], state)[0] - hs).abs().max())
-            # kernel and cuDNN timed in alternating rounds: the spread
-            # says how far apart two calls of either can land
-            rounds = [(time_ms(lambda: klstm.lstm_seq(*args)),
-                       time_ms(lambda: lib(args[0], state)))
-                      for _ in range(LSTM_ROUNDS)]
-            ms = statistics.median(r[0] for r in rounds)
-            lib_ms = statistics.median(r[1] for r in rounds)
-            plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
-            bwd = time_ms(lambda: klstm.lstm_seq_bwd(
-                gates, hs, cs, args[1], args[3], args[4], r_h, r_c), reps=3)
-        flops, nbytes = lstm_work(b, t, h)
+        r_h, r_c = autograd_check(tag, args)
         count = 2 if h == LSTM_HIDDEN else 1
-        _line(f"lstm {tag} ({klstm.last_grid_blocks} blocks)", count, ms,
-              plain, lib_ms, flops, nbytes, err)
-        log(f"  over {LSTM_ROUNDS} alternating rounds (median of 10 calls "
-            f"each): kernel {min(r[0] for r in rounds):.4f}-"
-            f"{max(r[0] for r in rounds):.4f} ms, cuDNN "
-            f"{min(r[1] for r in rounds):.4f}-{max(r[1] for r in rounds):.4f}"
-            f" ms, kernel/cuDNN per round "
-            + ", ".join(f"{k / c:.3f}" for k, c in rounds))
-        log(f"  LSTMSeq's plain backward {bwd:.4f} ms per call; cuDNN's hs "
-            f"vs the kernel's: max diff {lib_err:.2e}; {t} dependent steps, "
-            f"each a grid-wide barrier, are a latency floor the bound does "
-            f"not count ({1e3 * ms / t:.2f} us per step)")
+        fwd, bwd, fx, bx = _lstm_rows(tag, dev, args, r_h, r_c, t, count,
+                                      check)
         if h == LSTM_HIDDEN:
-            sm = _Sum()
-            sm.add(count, ms, plain, lib_ms, flops, nbytes,
-                   max(err, ragged_err))
-            result = sm.result()
-        del args, hs, cs, gates, lib
+            for s, rag in ((fwd, ragged[0]), (bwd, ragged[1])):
+                s.max_abs_err = max(s.max_abs_err, rag.max_abs_err)
+            results["lstm"] = {**fwd.result(), **fx}
+            results["lstm_bwd"] = {**bwd.result(), **bx}
+        del args
     torch.cuda.empty_cache()
-    return result
+    return results
 
 
 def phase_lstm_bf16_kernel(dev, randn):
-    """The bf16 LSTM instance (bf16 xproj view, h0 and c0; f32 W and
-    bias; f32 carry) against its plain version at the AMP step's T 100,
-    B 64, H 256 and at T 7, B 5, H 100: hs, cs and gates within the bf16
-    tolerance.  Library: torch.nn.LSTM in bf16 on cuDNN (W_ih = I, W_hh =
-    W^T and b_ih = bias rounded to bf16, b_hh = 0), timed with the kernel
-    in LSTM_ROUNDS alternating rounds.  Bound: the recurrence's products
-    at 67 TFLOP/s (f32 products, as the TPU kernel takes h W on the f32
-    master W), the bf16 and f32 bytes at 3.35 TB/s."""
+    """The bf16 LSTM instances (bf16 xproj view, h0, c0, gates, cs and
+    cotangents; f32 W and bias; f32 carry) against their plain versions
+    at the AMP step's T 100, B 64, H 256 and at T 7, B 5, H 100: the bf16
+    outputs within the bf16 tolerance, the backward's f32 dW and dbias
+    within LSTM_GRAD_TOL.  Library: torch.nn.LSTM in bf16 on cuDNN (W_ih
+    = I, W_hh = W^T and b_ih = bias rounded to bf16, b_hh = 0) and
+    autograd of it, timed with the kernels in LSTM_ROUNDS alternating
+    rounds.  Bound: the recurrence's products at 67 TFLOP/s (f32 products,
+    as the TPU kernel takes h W on the f32 master W), the bf16 and f32
+    bytes at 3.35 TB/s."""
     import torch
-
-    from paddle_tpu_torch.kernels import lstm as klstm
 
     bf = torch.bfloat16
 
@@ -3143,49 +3290,20 @@ def phase_lstm_bf16_kernel(dev, randn):
                 randn(4 * h, scale=0.1), randn(b, h, scale=0.5).to(bf),
                 randn(b, h, scale=0.5).to(bf))
 
-    def check(tag, args):
-        got = klstm.lstm_seq(*args)
-        want = klstm.lstm_seq_plain(*args)
-        return got, max(check_bf16(f"lstm bf16 {n} {tag}", g, w)
-                        for n, g, w in zip(("hs", "cs", "gates"), got, want))
+    def cot(b, t, h):
+        return randn(b, t, h).to(bf), randn(b, t, h).to(bf)
 
-    _, ragged_err = check("T7 B5 H100", inputs(5, 7, 100))
+    ragged = _lstm_rows("T7 B5 H100 bf16", dev, inputs(5, 7, 100),
+                        *cot(5, 7, 100), 7, 1, check_bf16, bf16=True)
     b, t, h = LSTM_BATCH, LSTM_SEQ, LSTM_HIDDEN
-    args = inputs(b, t, h)
-    tag = f"T{t} B{b} H{h} bf16"
-    (hs, _, _), err = check(tag, args)
-    lib = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev, bf)
-    with torch.no_grad():
-        lib.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
-        lib.weight_hh_l0.copy_(args[1].t())
-        lib.bias_ih_l0.copy_(args[2])
-        lib.bias_hh_l0.zero_()
-        state = (args[3][None], args[4][None])
-        lib_err = float((lib(args[0], state)[0].float() - hs.float())
-                        .abs().max())
-        rounds = [(time_ms(lambda: klstm.lstm_seq(*args)),
-                   time_ms(lambda: lib(args[0], state)))
-                  for _ in range(LSTM_ROUNDS)]
-        ms = statistics.median(r[0] for r in rounds)
-        lib_ms = statistics.median(r[1] for r in rounds)
-        plain = time_ms(lambda: klstm.lstm_seq_plain(*args), reps=3)
-    flops = 2.0 * t * b * h * 4 * h
-    # bf16 xproj, h0, c0, hs, cs and gates; f32 W and bias
-    nbytes = (2.0 * (2 * b * t * 4 * h + 2 * b * h + 2 * b * t * h)
-              + 4.0 * (4 * h * h + 4 * h))
-    _line(f"lstm {tag} ({klstm.last_grid_blocks} blocks)", 2, ms, plain,
-          lib_ms, flops, nbytes, err)
-    log(f"  at T 7, B 5, H 100: max err {ragged_err:.2e}; over "
-        f"{LSTM_ROUNDS} alternating rounds: kernel "
-        f"{min(r[0] for r in rounds):.4f}-{max(r[0] for r in rounds):.4f} "
-        f"ms, cuDNN bf16 {min(r[1] for r in rounds):.4f}-"
-        f"{max(r[1] for r in rounds):.4f} ms; cuDNN's hs (bf16 W) vs the "
-        f"kernel's: max diff {lib_err:.2e}")
-    sm = _Sum()
-    sm.add(2, ms, plain, lib_ms, flops, nbytes, max(err, ragged_err))
-    del args, hs, lib
+    fwd, bwd, fx, bx = _lstm_rows(f"T{t} B{b} H{h} bf16", dev,
+                                  inputs(b, t, h), *cot(b, t, h), t, 2,
+                                  check_bf16, bf16=True)
+    for s, rag in ((fwd, ragged[0]), (bwd, ragged[1])):
+        s.max_abs_err = max(s.max_abs_err, rag.max_abs_err)
     torch.cuda.empty_cache()
-    return sm.result()
+    return {"lstm_bf16": {**fwd.result(), **fx},
+            "lstm_bwd_bf16": {**bwd.result(), **bx}}
 
 
 def lod_feed(rng, device=None):
@@ -3449,10 +3567,10 @@ def lstm_step_feed(dev):
 
 
 def phase_lstm_train_step(dev, smi, amp=False):
-    """Path A at full width, B 64 T 100: launches 2 lstm / 3 matmul / 1
-    softmax / 0 gather (under AMP with ``amp``: 2 bf16 lstm / 3 bf16
-    matmul / 1 f32 softmax, no f32 lstm or matmul launch), samples/s and
-    tokens/s, peak memory."""
+    """Path A at full width, B 64 T 100: launches 2 lstm / 2 lstm backward
+    / 3 matmul / 1 softmax / 0 gather (under AMP with ``amp``: 2 bf16 lstm
+    / 2 bf16 lstm backward / 3 bf16 matmul / 1 f32 softmax, no f32 lstm or
+    matmul launch), samples/s and tokens/s, peak memory."""
     import paddle_tpu_torch as pt
 
     main_prog, startup, _, loss, _ = build_lstm_program()
@@ -3462,8 +3580,8 @@ def phase_lstm_train_step(dev, smi, amp=False):
     with pt.amp.amp_guard(amp):
         secs, peak, launches, wgmma = seq_train_step(
             dev, main_prog, startup, loss, lstm_step_feed(dev),
-            {f"lstm{sfx}": 2, f"matmul{sfx}": 3, "softmax": 1,
-             "embedding": 0},
+            {f"lstm{sfx}": 2, f"lstm_bwd{sfx}": 2, f"matmul{sfx}": 3,
+             "softmax": 1, "embedding": 0},
             f"LSTM classifier step at B {b} T {t} ({kind})", smi, amp)
     sps = 5 * b / secs
     log(f"LSTM classifier step ({kind}): {sps:.1f} samples/s, "
@@ -3567,16 +3685,14 @@ def range_calls(mod, name):
 def profile_sequence_steps():
     """The body of ``chip_smoke.py --profile-sequence-steps``: one profiled
     step of each sequence path, from the same seeds as phases 12 and 15,
-    after 2 warm-up steps, split into the port's kernels, the plain LSTM
-    backward loop and the mul backward products.  Prints the idle shares
-    as the last line, a JSON object."""
+    after 2 warm-up steps, split into the port's kernels (the LSTM forward
+    and backward kernels apart) and the mul backward products.  Prints the
+    idle shares as the last line, a JSON object."""
     import torch
 
-    from paddle_tpu_torch.kernels import lstm as klstm
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
     dev = torch.device("cuda", 0)
-    range_calls(klstm, "lstm_seq_bwd")
     range_calls(kmatmul, "matmul_backward")
     lstm_prog, lstm_startup, _, lstm_loss, _ = build_lstm_program()
     lod_prog, lod_startup, lod_loss, _ = build_lod_program()
@@ -3585,12 +3701,13 @@ def profile_sequence_steps():
         return (lstm_prog, lstm_startup, lstm_loss, lstm_step_feed(dev),
                 f"LSTM classifier step at B {LSTM_BATCH} T {LSTM_SEQ} "
                 f"({kind})",
-                {"LSTM kernel": ["lstm_seq_kernel"],
-                 "LSTM backward loop (plain)": "lstm_seq_bwd",
+                {"LSTM kernel": ["lstm_fwd_kernel"],
+                 "LSTM backward kernel": ["lstm_bwd_kernel"],
                  # with the split passes of the f32 wgmma engine
                  "matmul kernel": list(mm) + ["wgmma_tf32_split"],
                  "mul backward products": "matmul_backward"},
-                {"lstm_seq_kernel": 2, **mm, "softmax_f32_kernel": 1})
+                {"lstm_fwd_kernel": 2, "lstm_bwd_kernel": 2, **mm,
+                 "softmax_f32_kernel": 1})
 
     paths = {
         # the two 6400-row projections on the split-TF32 wgmma engine, the
@@ -4588,11 +4705,13 @@ def main():
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
     main_path.update(matmul=tf["launches"], lstm=lstm["launches"],
+                     lstm_bwd=lstm["launches"],
                      embedding=lod["launches"],
                      paged_attention=dec_counts["decode_step"],
                      paged_attention_chunk=dec_counts["verify_step"],
                      matmul_bf16=tf_amp["launches"],
                      lstm_bf16=lstm_amp["launches"],
+                     lstm_bwd_bf16=lstm_amp["launches"],
                      **{f"flash_attention_{k}_bf16": tf_amp["launches"]
                         for k in ("fwd", "dq", "dkv")})
     # the matmul and conv launches on a wgmma engine, per path (the rest of
@@ -4628,7 +4747,10 @@ def main():
              **{f: k[f] for f in ("split_pass_ms", "device_ms",
                                   "library_device_ms", "three_pass_ms",
                                   "three_pass_device_ms", "host_us",
-                                  "moved_gb_per_s") if f in k},
+                                  "moved_gb_per_s", "grid_ms",
+                                  "grid_device_ms", "kernel_ms",
+                                  "us_per_step", "clusters",
+                                  "cluster_blocks", "resident") if f in k},
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
                                             wgmma_by_path.items()}}

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import unary
+from paddle_tpu_torch.ops.common import clip, unary
 from paddle_tpu_torch.registry import infer_same_shape, register_op
 
 
@@ -24,7 +24,8 @@ _SIMPLE = {
     "relu": torch.relu,
     "tanh": torch.tanh,
     "sqrt": torch.sqrt,
-    "abs": torch.abs,
+    # jnp.abs's gradient at 0 is 1, torch.abs's 0
+    "abs": lambda x: torch.where(x >= 0, x, -x),
     "ceil": torch.ceil,
     "floor": torch.floor,
     "round": torch.round,
@@ -41,13 +42,14 @@ _WITH_ATTRS = {
         x >= 0, x, x * ctx.attr("alpha", 0.02)),
     "elu": lambda x, ctx: torch.where(
         x >= 0, x, ctx.attr("alpha", 1.0) * (torch.exp(x) - 1)),
-    "relu6": lambda x, ctx: torch.clamp(x, 0.0, ctx.attr("threshold", 6.0)),
+    # clip, not torch.clamp: a tie at a bound splits its gradient as JAX's
+    "relu6": lambda x, ctx: clip(x, 0.0, ctx.attr("threshold", 6.0)),
     "pow": lambda x, ctx: torch.pow(x, ctx.attr("factor", 1.0)),
     "stanh": lambda x, ctx: ctx.attr("scale_b", 1.7159) * torch.tanh(
         ctx.attr("scale_a", 2.0 / 3.0) * x),
-    "brelu": lambda x, ctx: torch.clamp(
+    "brelu": lambda x, ctx: clip(
         x, ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0)),
-    "soft_relu": lambda x, ctx: torch.log1p(torch.exp(torch.clamp(
+    "soft_relu": lambda x, ctx: torch.log1p(torch.exp(clip(
         x, -ctx.attr("threshold", 40.0), ctx.attr("threshold", 40.0)))),
     "softshrink": lambda x, ctx: torch.where(
         x > ctx.attr("lambda", 0.5), x - ctx.attr("lambda", 0.5),
@@ -57,7 +59,7 @@ _WITH_ATTRS = {
         torch.abs(x) > ctx.attr("threshold", 0.5), x, torch.zeros_like(x)),
     "thresholded_relu": lambda x, ctx: torch.where(
         x > ctx.attr("threshold", 1.0), x, torch.zeros_like(x)),
-    "hard_sigmoid": lambda x, ctx: torch.clamp(
+    "hard_sigmoid": lambda x, ctx: clip(
         ctx.attr("slope", 0.2) * x + ctx.attr("offset", 0.5), 0.0, 1.0),
     "swish": lambda x, ctx: x * torch.sigmoid(ctx.attr("beta", 1.0) * x),
 }

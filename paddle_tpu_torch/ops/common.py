@@ -52,6 +52,15 @@ def elementwise(ctx, fn):
     ctx.set_output("Out", rewrap(x, out))
 
 
+def clip(x, lo, hi):
+    """``jnp.clip``: min(max(x, lo), hi) over tensor bounds, whose backward
+    splits a tie's gradient in half between x and the bound, as JAX's
+    max and min do (``torch.clamp`` passes all of it to x)."""
+    lo, hi = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
+              for v in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def unary(ctx, fn, slot_in="X", slot_out="Out"):
     x = ctx.input(slot_in)
     ctx.set_output(slot_out, rewrap(x, fn(unwrap(x))))

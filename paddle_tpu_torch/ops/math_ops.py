@@ -13,7 +13,8 @@ import torch
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import elementwise, grad_in, grad_out, unary
+from paddle_tpu_torch.ops.common import (clip, elementwise, grad_in, grad_out,
+                                        unary)
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
 
@@ -161,7 +162,7 @@ def _sign(ctx):
 @register_op("clip", inputs=("X",), infer_shape=infer_same_shape)
 def _clip(ctx):
     lo, hi = ctx.attr("min"), ctx.attr("max")
-    unary(ctx, lambda x: torch.clamp(x, lo, hi))
+    unary(ctx, lambda x: clip(x, lo, hi))
 
 
 @register_op("clip_by_norm", inputs=("X",), infer_shape=infer_same_shape)
@@ -170,8 +171,10 @@ def _clip_by_norm(ctx):
 
     def f(x):
         norm = torch.sqrt(torch.sum(torch.square(x)))
-        return x * torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
-                               max=1.0)
+        # jnp.minimum / jnp.maximum over tensors: a tie splits its gradient
+        scale = torch.minimum(max_norm / torch.maximum(
+            norm, norm.new_tensor(1e-12)), norm.new_tensor(1.0))
+        return x * scale
 
     unary(ctx, f)
 

@@ -30,9 +30,12 @@ def _infer_top_k_shape(op, block):
              stop_gradient=True, infer_shape=_infer_top_k_shape)
 def _top_k(ctx):
     x = unwrap(ctx.input("X"))
-    vals, idx = torch.topk(x, ctx.attr("k", 1), dim=-1)
-    ctx.set_output("Out", vals)
-    ctx.set_output("Indices", idx.long())
+    # lax.top_k's order: the lower index first among equal values
+    # (torch.topk leaves ties in no set order)
+    k = ctx.attr("k", 1)
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    ctx.set_output("Out", vals[..., :k])
+    ctx.set_output("Indices", idx[..., :k].long())
 
 
 def _infer_accuracy_shape(op, block):

@@ -19,7 +19,10 @@ exp), the float32 backward's split-TF32 kernels also within 1e-3 of max
 of the SIMT kernels they replaced and, against a float64 backward, at
 most twice the SIMT kernels' largest error; the LSTM rtol 1e-4 / atol 1e-5 on hs, cs and the gates (f32
 recurrences, products of H terms in another order) and 1e-4 of max on
-the gradients; the gather exactly (a copy).  The bf16 instances (the
+the gradients and on each output of the backward kernel (dgates, dh0,
+dc0 and the dW product and dbias sum over them: f32 sums of 4H terms a
+step through the reverse recurrence), both kernels bit for bit across
+two calls; the gather exactly (a copy).  The bf16 instances (the
 AMP slice): each bf16 output within rtol 1e-2 of the plain version (the
 kernel and the plain version each sum in f32, in other orders, and
 round once: a sum near a rounding boundary lands one bf16 ulp, at most
@@ -696,23 +699,31 @@ def test_transformer_step_on_the_card_matches_cpu(dev):
                                    atol=1e-3 * np.abs(w).max(), err_msg=name)
 
 
+# (17, 3, 1280): 8-row tiles of H 1280, the backward in one slot
 LSTM_SHAPES = [(5, 7, 100), (64, 100, 256), (3, 4, 1), (2, 3, 1280),
-               (200, 3, 8)]
+               (200, 3, 8), (17, 3, 1280)]
+
+
+def _lstm_case(g, b, t, h, dev, dtype=torch.float32):
+    """A strided xproj view (the op's (B, T, 4H) view of a projection), W,
+    bias, non-zero h0 and c0; the sequence tensors in ``dtype``."""
+    proj = _randn(g, b, t, 8 * h, scale=0.5, device=dev).to(dtype)
+    w = _randn(g, h, 4 * h, scale=h ** -0.5, device=dev)
+    bias = _randn(g, 4 * h, scale=0.1, device=dev)
+    h0, c0 = (_randn(g, b, h, scale=0.5, device=dev).to(dtype)
+              for _ in range(2))
+    return proj[:, :, 2 * h:6 * h], w, bias, h0, c0
 
 
 @pytest.mark.parametrize("b,t,h", LSTM_SHAPES)
 def test_lstm_kernel_matches_plain(dev, b, t, h):
     """Forward hs, cs and gates on a strided xproj view with non-zero
-    h0/c0, and ``LSTMSeq``'s backward against autograd of the plain
-    version."""
+    h0/c0, and ``LSTMSeq``'s backward (one backward kernel launch) against
+    autograd of the plain version."""
     from paddle_tpu_torch.kernels import lstm as klstm
 
     g = torch.Generator().manual_seed(10)
-    proj = _randn(g, b, t, 8 * h, scale=0.5, device=dev)
-    xp = proj[:, :, 2 * h:6 * h]
-    w = _randn(g, h, 4 * h, scale=h ** -0.5, device=dev)
-    bias = _randn(g, 4 * h, scale=0.1, device=dev)
-    h0, c0 = (_randn(g, b, h, scale=0.5, device=dev) for _ in range(2))
+    xp, w, bias, h0, c0 = _lstm_case(g, b, t, h, dev)
     before = klstm.launches
     got = klstm.lstm_seq(xp, w, bias, h0, c0)
     assert klstm.launches == before + 1
@@ -724,8 +735,11 @@ def test_lstm_kernel_matches_plain(dev, b, t, h):
     r_h, r_c = (_randn(g, b, t, h, device=dev) for _ in range(2))
     leaves = [a.detach().clone().requires_grad_(True)
               for a in (xp, w, bias, h0, c0)]
+    before = (klstm.launches, klstm.bwd_launches)
     hs, cs = klstm.LSTMSeq.apply(*leaves)
     ((hs * r_h).sum() + (cs * r_c).sum()).backward()
+    assert (klstm.launches, klstm.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
     plain = [a.detach().clone().requires_grad_(True)
              for a in (xp, w, bias, h0, c0)]
     phs, pcs, _ = klstm.lstm_seq_plain(*plain)
@@ -733,6 +747,159 @@ def test_lstm_kernel_matches_plain(dev, b, t, h):
     for a, ref in zip(leaves, plain):
         torch.testing.assert_close(a.grad, ref.grad, rtol=0,
                                    atol=1e-4 * float(ref.grad.abs().max()))
+
+
+@pytest.mark.parametrize("cot", ["both", "dhs", "dcs"])
+@pytest.mark.parametrize("b,t,h", LSTM_SHAPES)
+def test_lstm_bwd_kernel_matches_plain(dev, b, t, h, cot):
+    """The backward kernel on the forward kernel's residuals against
+    ``lstm_seq_bwd_plain`` on the same ones, with cotangents on hs and cs,
+    on hs only and on cs only (the other None): every output within 1e-4
+    of its largest magnitude, dgates (dxproj), dh0 and dc0 float32; two
+    calls bit for bit; one counted launch a call."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(41)
+    xp, w, bias, h0, c0 = _lstm_case(g, b, t, h, dev)
+    hs, cs, gates = klstm.lstm_seq(xp, w, bias, h0, c0)
+    dhs = _randn(g, b, t, h, device=dev) if cot != "dcs" else None
+    dcs = _randn(g, b, t, h, device=dev) if cot != "dhs" else None
+    before = klstm.bwd_launches
+    got = klstm.lstm_seq_bwd(gates, hs, cs, w, h0, c0, dhs, dcs)
+    again = klstm.lstm_seq_bwd(gates, hs, cs, w, h0, c0, dhs, dcs)
+    assert klstm.bwd_launches == before + 2
+    torch.cuda.synchronize()
+    want = klstm.lstm_seq_bwd_plain(gates, hs, cs, w, h0, c0, dhs, dcs)
+    for a, a2, ref in zip(got, again, want):
+        assert a.dtype == ref.dtype and a.shape == ref.shape
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+def test_lstm_kernels_are_bit_identical_across_calls(dev):
+    """The forward and the backward kernel, f32 and bf16, at the
+    classifier's B 64 T 100 H 256 and a ragged B 5 T 7 H 100: two calls on
+    the same inputs give the same bits (fixed-order sums, no atomics)."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    g = torch.Generator().manual_seed(42)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, h in ((64, 100, 256), (5, 7, 100)):
+            xp, w, bias, h0, c0 = _lstm_case(g, b, t, h, dev, dtype)
+            fwd = [klstm.lstm_seq(xp, w, bias, h0, c0) for _ in range(2)]
+            hs, cs, gates = fwd[0]
+            dhs, dcs = (_randn(g, b, t, h, device=dev).to(dtype)
+                        for _ in range(2))
+            bwd = [klstm.lstm_seq_bwd(gates, hs, cs, w, h0, c0, dhs, dcs)
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            for a, a2 in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+                assert torch.equal(a, a2), (dtype, b, t, h)
+
+
+def test_lstm_plan_matches_the_library(dev):
+    """``klstm.plan`` (with this card's SM count and shared memory) against
+    ``ptt_lstm_plan`` in both directions, at every card-test shape, the
+    three benchmark widths at B 64, the classifier's small widths and a
+    sweep of B and H; and the launch the wrappers make follows it (the
+    cluster, tiles and whether W is resident)."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    smem = getattr(props, "shared_memory_per_block_optin", klstm.SMEM_LIMIT)
+    shapes = [(b, h) for b, _, h in LSTM_SHAPES] + [
+        (64, 512), (64, 1280), (6, 48), (32, 64), (2, 256)] + [
+        (b, h) for b in (1, 4, 5, 8, 9, 33, 64, 128, 300)
+        for h in (1, 7, 31, 32, 33, 100, 128, 257, 640, 2048)]
+    for b, h in shapes:
+        for backward in (False, True):
+            try:
+                want = klstm.plan(b, h, sms, backward, smem)
+            except ValueError:   # both refuse
+                with pytest.raises(RuntimeError):
+                    klstm.card_plan(b, h, backward, device=dev)
+                continue
+            assert klstm.card_plan(b, h, backward, device=dev) == want, (
+                b, h, backward)
+    g = torch.Generator().manual_seed(43)
+    for b, t, h in LSTM_SHAPES:
+        xp, w, bias, h0, c0 = _lstm_case(g, b, t, h, dev)
+        hs, cs, gates = klstm.lstm_seq(xp, w, bias, h0, c0)
+        p = klstm.plan(b, h, sms, False, smem)
+        assert klstm.last_launch["cluster"] == p.cluster
+        assert klstm.last_launch["tiles"] == p.tiles
+        assert klstm.last_launch["resident"] == p.resident
+        klstm.lstm_seq_bwd(gates, hs, cs, w, h0, c0, hs, None)
+        p = klstm.plan(b, h, sms, True, smem)
+        assert (klstm.last_launch["tiles"],
+                klstm.last_launch["resident"]) == (p.tiles, p.resident)
+
+
+def test_lstm_variants_match_plain(dev):
+    """The forward and backward kernels at every forced plan variant the
+    shapes allow (rows 4 and 8, clusters 1-16) against the plain versions:
+    the plan changes the tiling, never the function."""
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(44)
+    for b, t, h in ((9, 5, 100), (64, 6, 256)):
+        xp, w, bias, h0, c0 = _lstm_case(g, b, t, h, dev)
+        want = klstm.lstm_seq_plain(xp, w, bias, h0, c0)
+        dhs, dcs = (_randn(g, b, t, h, device=dev) for _ in range(2))
+        hs, cs, gates = want
+        want_bwd = klstm.lstm_seq_bwd_plain(gates, hs, cs, w, h0, c0, dhs,
+                                            dcs)
+        for rows in (4, 8):
+            for cluster in (1, 2, 4, 8, 16):
+                try:
+                    for backward in (False, True):
+                        klstm.plan(b, h, sms, backward, rows=rows,
+                                   cluster=cluster)
+                except ValueError:   # no such tiling of this shape
+                    continue
+                got = klstm._launch_fwd(xp, w, bias, h0, c0, rows,
+                                        cluster)[:3]
+                for a, ref in zip(got, want):
+                    torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-5)
+                dg, dh0, dc0, _ = klstm._launch_bwd(gates, cs, c0, w, dhs,
+                                                    dcs, rows, cluster)
+                for a, ref in zip((dg, dh0, dc0),
+                                  (want_bwd[0], *want_bwd[3:])):
+                    torch.testing.assert_close(
+                        a, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_top_k_and_accuracy_on_the_card_put_the_lower_index_first():
+    """ROADMAP Queue 3's tied scores through the port's top_k and accuracy
+    ops on the card: indices [0, 1] and [3, 1] (lax.top_k's order), and
+    accuracy 0.5 with labels [1] and [3]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[2, 4], dtype="float32",
+                       append_batch_size=False)
+    label = pt.layers.data(name="label", shape=[2, 1], dtype="int64",
+                           append_batch_size=False)
+    helper = LayerHelper("top_k")
+    vals = helper.create_tmp_variable("float32")
+    idx = helper.create_tmp_variable("int64")
+    helper.append_op(type="top_k", inputs={"X": [x]},
+                     outputs={"Out": [vals], "Indices": [idx]},
+                     attrs={"k": 2})
+    acc = pt.layers.accuracy(input=x, label=label, k=1)
+    feed = {"x": np.asarray([[0.3, 0.3, 0.1, 0.3], [0.1, 0.2, 0.2, 0.5]],
+                            np.float32),
+            "label": np.asarray([[1], [3]], np.int64)}
+    got_idx, got_acc = pt.Executor().run(feed=feed,
+                                         fetch_list=[idx.name, acc.name])
+    np.testing.assert_array_equal(got_idx, [[0, 1], [3, 1]])
+    np.testing.assert_allclose(got_acc, [0.5])
 
 
 @pytest.mark.parametrize("n,v,d,dtype", [
@@ -770,6 +937,14 @@ def test_sequence_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         klstm.lstm_seq(x.double(), torch.ones(2, 8, device=dev),
                        torch.ones(8, device=dev), z, z)
+    # the backward: a bf16 W, mixed sequence dtypes
+    seq = torch.ones(2, 3, 2, device=dev)
+    with pytest.raises(TypeError):
+        klstm.lstm_seq_bwd(x, seq, seq, torch.ones(2, 8, device=dev).bfloat16(),
+                           z, z, seq)
+    with pytest.raises(TypeError):
+        klstm.lstm_seq_bwd(x, seq, seq, torch.ones(2, 8, device=dev), z, z,
+                           seq.bfloat16())
 
 
 def test_lstm_classifier_step_on_the_card_matches_cpu(dev):
@@ -794,9 +969,10 @@ def test_lstm_classifier_step_on_the_card_matches_cpu(dev):
     rng = np.random.RandomState(12)
     feed = {"ids": rng.randint(0, 500, (6, 12, 1)).astype(np.int64),
             "label": rng.randint(0, 2, (6, 1)).astype(np.int64)}
-    before = klstm.launches
+    before = (klstm.launches, klstm.bwd_launches)
     (got,) = pt.Executor().run(feed=feed, fetch_list=[loss], scope=card_scope)
-    assert klstm.launches == before + 2
+    assert (klstm.launches, klstm.bwd_launches) == (before[0] + 2,
+                                                    before[1] + 2)
     (want,) = cpu.run(feed=feed, fetch_list=[loss], scope=cpu_scope)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     for n in state:
@@ -1333,11 +1509,28 @@ def test_lstm_bf16_kernel_matches_plain(dev, b, t, h):
         assert torch.equal(a, ref)
     leaves = [a.detach().clone().requires_grad_(True)
               for a in (xp, w, bias, h0, c0)]
+    before = (klstm.bwd_launches, klstm.bwd_launches_bf16)
     hs, cs = klstm.LSTMSeq.apply(*leaves)
     (hs.float().sum() + cs.float().sum()).backward()
+    assert (klstm.bwd_launches, klstm.bwd_launches_bf16) == (before[0],
+                                                             before[1] + 1)
     assert [a.grad.dtype for a in leaves] == [
         torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
         torch.bfloat16]
+    # the bf16 backward kernel against the plain backward on the same bf16
+    # residuals: both take float32 sums of the same values; the float32
+    # outputs (dW, dbias) within 1e-4 of max, the bf16 ones within the
+    # bf16 tolerance
+    hs, cs, gates = got
+    dhs, dcs = (_bf16(g, b, t, h, device=dev) for _ in range(2))
+    out = klstm.lstm_seq_bwd(gates, hs, cs, w, h0, c0, dhs, dcs)
+    want = klstm.lstm_seq_bwd_plain(gates, hs, cs, w, h0, c0, dhs, dcs)
+    for a, ref in zip(out, want):
+        if ref.dtype == torch.bfloat16:
+            _close_bf16(a, ref)
+        else:
+            torch.testing.assert_close(a, ref, rtol=0,
+                                       atol=1e-4 * float(ref.abs().max()))
 
 
 def _flash_bf16_into_guards(dev, g, b, s, h, d, pad):
@@ -1412,14 +1605,12 @@ def test_bf16_flash_and_lstm_store_nothing_out_of_bounds(dev):
     seq_bufs = [_guarded((lb, lt, lh), bf, dev), _guarded((lb, lt, lh), bf, dev),
                 _guarded((lb, lt, 4 * lh), bf, dev)]
     hs, cs, gates = (view for _, view in seq_bufs)
-    state = torch.empty((3, lb, lh), device=dev)
-    blocks = ctypes.c_int(0)
+    info = (ctypes.c_int * 5)()
     llib = _build.load("lstm", klstm._SIGNATURES)
     _build.check(llib, llib.ptt_lstm_seq_bf16(
         xp.data_ptr(), xp.stride(0), xp.stride(1), w.data_ptr(),
         bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-        cs.data_ptr(), gates.data_ptr(), state[0].data_ptr(),
-        state[2].data_ptr(), lb, lt, lh, ctypes.byref(blocks), stream),
+        cs.data_ptr(), gates.data_ptr(), lb, lt, lh, 0, 0, info, stream),
         "lstm")
     torch.cuda.synchronize()
 
