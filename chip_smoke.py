@@ -124,7 +124,9 @@ seconds):
    at its distinct BN shapes, the matmul at the fc's 256 x 2048 x 1000,
    each within BF16_RTOL / BF16_ATOL; the fused conv + BN statistics
    (conv2d_bn_stats_nhwc, no op calls it) at benchmark/
-   pallas_convbn_bench.py's two shapes in float32 and bf16; medians of
+   pallas_convbn_bench.py's two shapes in float32 and bf16, launched on
+   the wgmma engines there, beside the old tile (``tile_ms``), the plain
+   conv on the same engine and the split-TF32 bound; medians of
    the kernel, the plain version and the library (F.conv2d on
    channels-last input, conv2d_input, conv2d_weight, F.batch_norm and its
    backward, torch.matmul; for the fused conv F.conv2d plus
@@ -217,9 +219,12 @@ seconds):
     versions, atol PAGED_ATOL: the decode kernel at the slice's shape
     (S 16, H 16, D 128, page 16, P 128) with seeded ragged lens in 1-2048
     and with every lens 2048, and at S 5, H 2, D 16, page 8; the chunk
-    kernel at S 16, T 4 and at S 1, T 88 over 512 cached rows; the
-    kernel, plain and gather + F.scaled_dot_product_attention (two
-    calls) times beside the bound.
+    kernel (split over pages, then the merge) at S 16, T 4 and at S 1,
+    T 88 over 512 cached rows, beside its first design's device time, and
+    at T 1 on the decode step's lens (a line only: the decode step keeps
+    its own kernel); the kernel, plain and gather +
+    F.scaled_dot_product_attention (two calls) times beside the bound,
+    the device times and the wrappers' host us a call.
 18. (B, E) The decoder LM of /generate (TinyDecoderLM at the
     transformer's widths, DEC_CONFIG) on the card against the port's CPU
     path from the same weights: a cold prefill of 4 ragged prompts, 8
@@ -533,6 +538,12 @@ def ptxas_entry(line):
     return mangled
 
 
+def kernel_name(key):
+    """``name_kernel<args>`` out of a profiler's demangled kernel name."""
+    m = re.search(r"(\w+_kernel(<[^>]*>)?)", key)
+    return m.group(1) if m else key[:60]
+
+
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
@@ -614,9 +625,10 @@ def counters():
 
 def wgmma_counters():
     """The launches that ran on a wgmma engine (they count in
-    ``counters()`` too): the f32 matmul, conv forward, backward-input and
-    filter gradient in split TF32, the bf16 matmul, conv forward,
-    backward-input and filter gradient."""
+    ``counters()`` too): the f32 matmul, conv forward, backward-input,
+    filter gradient and fused statistics in split TF32, the bf16 matmul,
+    conv forward, backward-input, filter gradient and fused
+    statistics."""
     from paddle_tpu_torch.kernels import conv as kconv
     from paddle_tpu_torch.kernels import matmul as kmatmul
 
@@ -627,7 +639,9 @@ def wgmma_counters():
                 matmul_bf16=kmatmul.launches_bf16_wgmma,
                 conv2d_nhwc_bf16=kconv.launches_bf16_wgmma,
                 conv_bwd_input_bf16=kconv.bwd_input_launches_bf16_wgmma,
-                conv_dw_bf16=kconv.dw_launches_bf16_wgmma)
+                conv_dw_bf16=kconv.dw_launches_bf16_wgmma,
+                conv2d_bn_stats=kconv.stats_launches_wgmma,
+                conv2d_bn_stats_bf16=kconv.stats_launches_bf16_wgmma)
 
 
 def zero_counters():
@@ -644,6 +658,7 @@ def zero_counters():
     kconv.launches_bf16 = kconv.bwd_input_launches_bf16 = 0
     kconv.dw_launches_bf16 = 0
     kconv.stats_launches = kconv.stats_launches_bf16 = 0
+    kconv.stats_launches_wgmma = kconv.stats_launches_bf16_wgmma = 0
     kconv.launches_bf16_wgmma = kconv.bwd_input_launches_bf16_wgmma = 0
     kconv.dw_launches_bf16_wgmma = kmatmul.launches_bf16_wgmma = 0
     kconv.launches_wgmma = kconv.bwd_input_launches_wgmma = 0
@@ -1414,11 +1429,41 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
                                   library_ms=times[2], bound_ms=b_ms,
                                   bound_by=b_by, max_abs_err=err)
 
-    # the fused conv + BN statistics (row 1b): no op calls it; its
-    # numbers are per call at each shape, summed over the two
+    results.update(phase_conv_stats(randn))
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms,"
+            f" library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})"
+            + (f", {r['bound_tf32_ms']:.4f} ms as split TF32"
+               if "bound_tf32_ms" in r else "")
+            + (f"; the old tile {r['tile_ms']:.3f} ms, the plain conv on the "
+               f"same engine {r['conv_ms']:.3f} ms" if "tile_ms" in r else "")
+            + f"; max err {r['max_abs_err']:.2e}")
+    return results
+
+
+def phase_conv_stats(randn):
+    """The fused conv + BN statistics (row 1b; no op calls it) in f32 and
+    bf16 at STATS_SHAPES, per call at each shape, summed over the two:
+    launched on the plain conv's engine (wgmma at both shapes, checked by
+    its counters), held against the plain version (out, mean, var), bit
+    for bit across two calls, beside the old tile (``tile_ms``, by name),
+    the plain conv on the same engine (``conv_ms``: what the statistics
+    epilogue adds), the library (F.conv2d + torch.var_mean) and, for
+    f32, the split-TF32 bound (``bound_tf32_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    bf = torch.bfloat16
+    results = {}
     for dtype, name in ((torch.float32, "conv2d_bn_stats"),
                         (bf, "conv2d_bn_stats_bf16")):
         total = _Sum(PEAK_BF16_FLOPS if dtype == bf else PEAK_F32_FLOPS)
+        tile = "mma.sync" if dtype == bf else "simt"
+        tile_sum = conv_sum = tf32_sum = dev_sum = conv_dev_sum = 0.0
         size = 2 if dtype == bf else 4
         log(f"{name} (conv + BN statistics; library F.conv2d + "
             "torch.var_mean of its output), per call:")
@@ -1429,13 +1474,30 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
             x_lib = x.permute(0, 3, 1, 2)
             w_lib = wt.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            out, mean, var = kconv.conv2d_bn_stats_nhwc(x, wt, p)
-            pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, p)
             tag = f"N{n} {h}x{w} {c}->{o} k{k}"
-            err = (check_bf16(f"{name} {tag}", out, pout) if dtype == bf
-                   else check_close(f"{name} {tag}", out, pout, **GEMM_TOL))
+            on = (wgmma_counters()[name], counters()[name])
+            out, mean, var = kconv.conv2d_bn_stats_nhwc(x, wt, p)
+            if (wgmma_counters()[name], counters()[name]) != (on[0] + 1,
+                                                              on[1] + 1):
+                fail(f"{name} {tag}: not launched on the wgmma engine")
+            pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, p)
+            check = (check_bf16 if dtype == bf else
+                     (lambda what, got, want:
+                      check_close(what, got, want, **GEMM_TOL)))
+            err = check(f"{name} {tag}", out, pout)
             check_scaled(f"{name} mean {tag}", mean, pmean, STATS_TOL)
             check_scaled(f"{name} var {tag}", var, pvar, STATS_TOL)
+            old = kconv._launch_conv(x, wt, p, name, stats=True, engine=tile)
+            check(f"{name} {tag} ({tile} tile)", old[0], pout)
+            check_scaled(f"{name} mean {tag} ({tile} tile)", old[1], pmean,
+                         STATS_TOL)
+            check_scaled(f"{name} var {tag} ({tile} tile)", old[2], pvar,
+                         STATS_TOL)
+            # bit for bit across calls (no atomics)
+            again = kconv.conv2d_bn_stats_nhwc(x, wt, p)
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                         (out, mean, var))):
+                fail(f"{name} {tag}: two calls differ")
 
             def library():
                 o_ = F.conv2d(x_lib, w_lib, padding=p)
@@ -1446,18 +1508,44 @@ def phase_bf16_kernels(dev, train_shapes, bn_shapes, randn):
                      time_ms(lambda: kconv.conv2d_bn_stats_nhwc_plain(
                          x, wt, p), reps=5),
                      time_ms(library))
+            t_ms = time_ms(lambda: kconv._launch_conv(
+                x, wt, p, name, stats=True, engine=tile), reps=5)
+            c_ms = time_ms(lambda: kconv._launch_conv(x, wt, p, name,
+                                                      engine="wgmma"))
             flops = 2.0 * n * h * w * o * k * k * c + 3.0 * n * h * w * o
             nbytes = (size * (n * h * w * c + k * k * c * o + n * h * w * o)
                       + 8.0 * o)
+            b_tf32 = 3 * 2.0 * n * h * w * o * k * k * c / PEAK_TF32_FLOPS * 1e3
             _line(f"{name} {tag}", 1, *times, flops, nbytes, err, total.peak)
+            log(f"    wgmma engine {times[0]:.4f} ms "
+                f"({flops / times[0] / 1e9:.1f} TFLOP/s); the {tile} tile "
+                f"{t_ms:.4f} ms ({t_ms / times[0]:.2f}x); the plain conv on "
+                f"the same engine {c_ms:.4f} ms (event times, host work "
+                "included)"
+                + ("" if dtype == bf else
+                   f"; split-TF32 bound {b_tf32:.4f} ms"))
+            parts = device_ms(lambda: kconv.conv2d_bn_stats_nhwc(x, wt, p),
+                              reps=3)
+            conv_dev = sum(device_ms(lambda: kconv._launch_conv(
+                x, wt, p, name, engine="wgmma"), reps=3).values())
+            log("    device time a call: " + ", ".join(
+                f"{kernel_name(k_)} {v:.4f} ms"
+                for k_, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+                + f"; the plain conv's {conv_dev:.4f} ms (the statistics add "
+                f"{100 * (sum(parts.values()) / conv_dev - 1):.1f}% of device "
+                "time)")
+            dev_sum += sum(parts.values())
+            conv_dev_sum += conv_dev
             total.add(1, *times, flops, nbytes, err)
-            del x, wt, x_lib, w_lib, out, pout
+            tile_sum += t_ms
+            conv_sum += c_ms
+            tf32_sum += b_tf32
+            del x, wt, x_lib, w_lib, out, pout, old, again
         results[name] = total.result()
-    torch.cuda.empty_cache()
-    for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms,"
-            f" library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
+        results[name].update(tile_ms=tile_sum, conv_ms=conv_sum,
+                             device_ms=dev_sum, conv_device_ms=conv_dev_sum)
+        if dtype != bf:
+            results[name]["bound_tf32_ms"] = tf32_sum
     return results
 
 
@@ -2497,7 +2585,8 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
     # forward, backward-input and filter gradient in split TF32, the bf16
     # forward, backward-input and filter gradient; the fc (256 rows) on the
     # SIMT or mma.sync tile
-    want_wgmma = dict(matmul=0, matmul_bf16=0, **{
+    want_wgmma = dict.fromkeys(wgmma, 0)
+    want_wgmma.update({
         k: want_launches[k] for k in ("conv2d_nhwc", "conv_bwd_input",
                                       "conv_dw", "conv2d_nhwc_bf16",
                                       "conv_bwd_input_bf16",
@@ -2541,22 +2630,33 @@ def profile_step(run, what, split=None, want=None):
     of a ``record_function`` range}) logs the device time of each part
     beside the host's.  ``want`` ({kernel name: launches}) fails the run
     if the profiler saw fewer launches of a kernel.  Returns the idle
-    share."""
+    share.  A window whose ``want`` counts fall short is profiled again,
+    up to 3 windows in all: the profiler has dropped a short kernel's
+    record from a window whose launch counters were right."""
     from torch.profiler import ProfilerActivity, profile
 
     # a range also shows on the device timeline as an annotation spanning
     # its kernels and the gaps between them: not a kernel
     ranges = {v for v in (split or {}).values() if isinstance(v, str)}
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # (device ms, count, name) of every kernel
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in events
-            if str(e.device_type).endswith("CUDA") and e.key not in ranges]
+    for attempt in range(3):
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # (device ms, count, name) of every kernel
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in events if str(e.device_type).endswith("CUDA")
+                and e.key not in ranges]
+        short = {k: sum(r[1] for r in rows if k in r[2])
+                 for k in (want or {})}
+        short = {k: v for k, v in short.items() if v < want[k]}
+        if not short:
+            break
+        log(f"profiled {what}, window {attempt + 1}: the profiler saw "
+            f"{short} launches, want {want}")
     for kernel, n in (want or {}).items():
         seen = sum(r[1] for r in rows if kernel in r[2])
         if seen < n:
@@ -3872,9 +3972,15 @@ def phase_paged_kernels(dev, randn):
     with seeded ragged lens in 1-2048 (1, 16, 17 and 2048 among them) and
     at a small ragged shape (S 5, H 2, D 16, page 8); the chunk kernel at
     S 16, T 4 (the speculative verify) and at S 1, T 88 over 512 cached
-    rows (a prefix-hit suffix).  CUDA-event medians of each kernel, its
-    plain version and the gather + SDPA comparison, beside the bound; the
+    rows (a prefix-hit suffix), each beside the chunk's first design
+    (``kpa._launch(..., chunk=True)``, uncounted) and bit for bit across
+    two calls; the chunk kernel also at T 1 on the decode lens (lens - 1),
+    which no path routes there.  CUDA-event medians of each kernel, its
+    plain version and the gather + SDPA comparison, beside the bound, and
+    each kernel's device time and its wrapper's host us a call; the
     kernels line carries them per decode (verify) step, 4 launches."""
+    import torch
+
     from paddle_tpu_torch.kernels import paged_attention as kpa
 
     rng = np.random.RandomState(51)
@@ -3913,12 +4019,32 @@ def phase_paged_kernels(dev, randn):
             f"gather + SDPA (two calls) {cmp_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}, {nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
             f"max err {err:.2e}, gather + SDPA err {cmp_err:.2e}")
+        host = host_us(lambda: kernel(q, kp, vp, tables, lens_t))
         dev = sum(device_ms(lambda: kernel(q, kp, vp, tables,
                                            lens_t)).values()) or None
-        log(f"  {name} {tag}: device time {dev} ms")
-        return dict(ms=ms, plain_ms=plain_ms, gather_sdpa_ms=cmp_ms,
-                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    flops=flops, nbytes=nbytes, device_ms=dev)
+        log(f"  {name} {tag}: device time {dev} ms; the wrapper's host work "
+            f"{host:.1f} us a call")
+        r = dict(ms=ms, plain_ms=plain_ms, gather_sdpa_ms=cmp_ms,
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 flops=flops, nbytes=nbytes, device_ms=dev, host_us=host)
+        if chunk:
+            if not torch.equal(got, kernel(q, kp, vp, tables, lens_t)):
+                fail(f"{name} {tag}: two calls differ")
+
+            def first():
+                return kpa._launch(q, kp, vp, tables, lens_t, None,
+                                   chunk=True)
+
+            old_err = check_close(f"{name} {tag} (first design)", first(),
+                                  want, rtol=0, atol=PAGED_ATOL)
+            r["old_ms"] = time_ms(first)
+            r["old_device_ms"] = sum(device_ms(first).values()) or None
+            log(f"  {name} {tag}: the first design {r['old_ms']:.4f} ms, "
+                f"device {r['old_device_ms']} ms (max err {old_err:.2e}); "
+                f"the redesign's device time "
+                + (f"{r['old_device_ms'] / dev:.2f}x faster"
+                   if dev and r["old_device_ms"] else "not measured"))
+        return r
 
     lens = rng.randint(1, p * page + 1, DEC_SLOTS)
     lens[:4] = (1, 16, 17, p * page)
@@ -3937,19 +4063,34 @@ def phase_paged_kernels(dev, randn):
               h, d, page, p, n, vlens, t=4, time_it=True)
     suffix = run("paged_attention_chunk", "S1 T88 over 512 cached rows", 1,
                  h, d, page, p, n, [GEN_SHARED_PREFIX], t=88, time_it=True)
+    single = run("paged_attention_chunk",
+                 f"S{DEC_SLOTS} T1 on the decode lens (not routed)",
+                 DEC_SLOTS, h, d, page, p, n, [ln - 1 for ln in lens], t=1,
+                 time_it=True)
     log(f"  the bound at every lens {p * page} is {full['bound_ms']:.4f} ms "
         f"({full['nbytes'] / 1e6:.0f} MB at {PEAK_BYTES / 1e12} TB/s); the "
         f"kernel takes {full['ms'] / full['bound_ms']:.2f}x it there, "
         f"{dec['ms'] / dec['bound_ms']:.2f}x at the ragged lens; the chunk "
         f"kernel {ver['ms'] / ver['bound_ms']:.2f}x at S16 T4, "
-        f"{suffix['ms'] / suffix['bound_ms']:.2f}x at S1 T88")
+        f"{suffix['ms'] / suffix['bound_ms']:.2f}x at S1 T88; at T1 on the "
+        f"decode lens its device time {single['device_ms']} ms against the "
+        f"decode kernel's {dec['device_ms']} ms")
     for name, r in (("paged_attention", dec), ("paged_attention_chunk", ver)):
         b_ms, b_by = bound(count * r["flops"], count * r["nbytes"])
         results[name] = dict(
             ms=count * r["ms"], plain_ms=count * r["plain_ms"],
             library_ms=None, gather_sdpa_ms=count * r["gather_sdpa_ms"],
             bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
-            device_ms=r["device_ms"] and count * r["device_ms"])
+            device_ms=r["device_ms"] and count * r["device_ms"],
+            host_us=r["host_us"])
+    chunk = results["paged_attention_chunk"]
+    chunk.update(
+        old_ms=count * ver["old_ms"],
+        old_device_ms=ver["old_device_ms"] and count * ver["old_device_ms"],
+        suffix_ms=suffix["ms"], suffix_device_ms=suffix["device_ms"],
+        suffix_old_device_ms=suffix["old_device_ms"],
+        suffix_bound_ms=suffix["bound_ms"],
+        t1_device_ms=single["device_ms"])
     return results
 
 
@@ -4473,7 +4614,8 @@ def profile_decode_step():
              {"flash_fwd_tf32_kernel": layers}),
             (f"prefix-hit prefill ({GEN_SHARED_PREFIX} cached + 88)",
              lambda: model.prefill(prompt, hit, cached_len=GEN_SHARED_PREFIX),
-             {"paged_attention_chunk_kernel": layers})):
+             {"paged_chunk_split_kernel": layers,
+              "paged_chunk_merge_kernel": layers})):
         run()
         profile_step(run, what, want=want)
         ptimes = []
@@ -4742,9 +4884,13 @@ def main():
              library_ms=k["library_ms"],
              **({"gather_sdpa_ms": k["gather_sdpa_ms"]}
                 if "gather_sdpa_ms" in k else {}),
-             **({"simt_ms": k["simt_ms"], "bound_tf32_ms": k["bound_tf32_ms"]}
-                if "simt_ms" in k else {}),
-             **{f: k[f] for f in ("split_pass_ms", "device_ms",
+             **({"simt_ms": k["simt_ms"]} if "simt_ms" in k else {}),
+             **{f: k[f] for f in ("bound_tf32_ms", "tile_ms", "conv_ms",
+                                  "old_ms", "old_device_ms", "suffix_ms",
+                                  "suffix_device_ms", "suffix_old_device_ms",
+                                  "suffix_bound_ms", "t1_device_ms",
+                                  "conv_device_ms",
+                                  "split_pass_ms", "device_ms",
                                   "library_device_ms", "three_pass_ms",
                                   "three_pass_device_ms", "host_us",
                                   "moved_gb_per_s", "grid_ms",

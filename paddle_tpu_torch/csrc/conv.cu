@@ -37,7 +37,7 @@
 //   for a 1 x 1 conv, else gathered, a 32-wide K step inside one tap.
 //   Every stride-1 conv of ResNet-50 takes it, forward and backward-input.
 // - SIMT (tile_gemm.cuh gemm_tile): everything else (C = 1, 3, 20, views
-//   off alignment) and the fused conv + BN statistics.
+//   off alignment).
 // The bf16 instance has two engines, by shape (kernels/conv.py
 // bf16_engine, mirrored in ptt_conv2d_nhwc_bf16):
 // - wgmma (wgmma_gemm.cuh): C % 64 == 0, O % 8 == 0, 16-byte-aligned x
@@ -49,7 +49,15 @@
 //   of ResNet-50 takes it, forward and backward-input (C, O in {64, ...,
 //   2048}).
 // - mma.sync (tile_gemm.cuh gemm_tile_bf16): everything else (C = 3, C =
-//   20, views off alignment) and the fused conv + BN statistics.
+//   20, views off alignment).
+// The fused conv + BN statistics takes the same engine as the plain conv
+// of the same x and w.  On a wgmma engine each consumer adds the column
+// sums and squares of its final f32 fragment (after split TF32's fresh,
+// mid and running sums are merged; in bf16 before rounding) by xor
+// shuffles and through the staging tiles in a fixed order, one partial
+// row per 128-row tile (wgmma_gemm.cuh tile_stats); on the tiles, one
+// per 64-row (SIMT) or 128-row (mma.sync) tile.  The finalize is the
+// same for all.
 //
 // What bounds it on the H100 (bf16: 989 TFLOP/s on the tensor cores,
 // 3.35 TB/s): operations for the 3 x 3 convs at 7 x 7 to 28 x 28 and
@@ -214,23 +222,45 @@ __global__ void __launch_bounds__(ptt::kThreads)
 }
 
 // mean[o] = sum of the tiles' partial sums / cnt, var[o] = the partial
-// squares' sum / cnt - mean^2 (biased, as the TPU kernel's wrapper),
-// tiles added in order in double.
-__global__ void conv_stats_finalize_kernel(const float* __restrict__ psum,
-                                           const float* __restrict__ psq,
-                                           float* __restrict__ mean,
-                                           float* __restrict__ var, int tiles,
-                                           int O, double cnt) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
+// squares' sum / cnt - mean^2 (biased, as the TPU kernel's wrapper), in
+// double and in a fixed order: a block takes kFinCols columns, thread
+// (group g, column c) adds tiles g, g + kFinGroups, ... of its column,
+// then the kFinGroups sums of a column are added in order of g.  One
+// thread a column walking every tile in turn took ~0.1 ms at 392 tiles
+// (each step a dependent load); this keeps 16 walks of a column in
+// flight.
+constexpr int kFinCols = 16;
+constexpr int kFinGroups = 16;
+
+__global__ void __launch_bounds__(kFinCols * kFinGroups)
+    conv_stats_finalize_kernel(const float* __restrict__ psum,
+                               const float* __restrict__ psq,
+                               float* __restrict__ mean,
+                               float* __restrict__ var, int tiles, int O,
+                               double cnt) {
+  __shared__ double ss[kFinGroups][kFinCols], sq[kFinGroups][kFinCols];
+  const int c = threadIdx.x % kFinCols, g = threadIdx.x / kFinCols;
+  const int o = blockIdx.x * kFinCols + c;
   double s = 0.0, q = 0.0;
-  for (int t = 0; t < tiles; ++t) {
-    s += psum[static_cast<long long>(t) * O + o];
-    q += psq[static_cast<long long>(t) * O + o];
+  if (o < O) {
+#pragma unroll 4
+    for (int t = g; t < tiles; t += kFinGroups) {
+      s += psum[static_cast<long long>(t) * O + o];
+      q += psq[static_cast<long long>(t) * O + o];
+    }
   }
-  const double m = s / cnt;
+  ss[g][c] = s;
+  sq[g][c] = q;
+  __syncthreads();
+  if (g != 0 || o >= O) return;
+  double S = 0.0, Q = 0.0;
+  for (int i = 0; i < kFinGroups; ++i) {
+    S += ss[i][c];
+    Q += sq[i][c];
+  }
+  const double m = S / cnt;
   mean[o] = static_cast<float>(m);
-  var[o] = static_cast<float>(q / cnt - m * m);
+  var[o] = static_cast<float>(Q / cnt - m * m);
 }
 
 template <bool kStats, bool kVec>
@@ -244,13 +274,15 @@ void launch_bf16(dim3 grid, cudaStream_t stream, const ptt::bf16* x,
 
 // The bf16 conv on the wgmma engine (C % 64 == 0): a 1 x 1 conv as the
 // dense (N * H * W, C) @ (C, O) product, A by TMA; any other filter as
-// out[N * OH * OW, O] with A gathered from x.
+// out[N * OH * OW, O] with A gathered from x.  With kStats, the column
+// statistics of the f32 sums into part (2 x ceil(M / 128) x O floats).
+template <bool kStats>
 int wgmma_conv(const ptt::bf16* x, const ptt::bf16* w, ptt::bf16* out, int N,
                int H, int W, int C, int KH, int KW, int O, int pad,
-               cudaStream_t stream) {
+               cudaStream_t stream, float* part = nullptr) {
   namespace wg = ptt::wg;
   if (KH == 1 && KW == 1 && pad == 0)
-    return wg::gemm_dense(x, w, out, N * H * W, O, C, stream);
+    return wg::gemm_dense<kStats>(x, w, out, N * H * W, O, C, stream, part);
   const int OH = H + 2 * pad - KH + 1;
   const int OW = W + 2 * pad - KW + 1;
   const int K = KH * KW * C;
@@ -258,8 +290,19 @@ int wgmma_conv(const ptt::bf16* x, const ptt::bf16* w, ptt::bf16* out, int N,
   const int err = wg::encode_bf16(&tb, w, O, K, 64, wg::kBK);
   if (err != 0) return err;
   const wg::ConvGeom g{x, H, W, C, KW, pad, OH, OW};
-  return wg::launch_bn<true>(wg::tile_n(O), tb, tb, g, out, N * OH * OW, O,
-                             K, stream);
+  return wg::launch_bn<true, kStats>(wg::tile_n(O), tb, tb, g, out,
+                                     N * OH * OW, O, K, stream, part);
+}
+
+// mean / var from `tiles` rows of partial sums at part and of squares
+// after them (conv_stats_finalize_kernel).
+int finalize_stats(const float* part, int tiles, float* mean, float* var,
+                   int O, long long cnt, cudaStream_t stream) {
+  conv_stats_finalize_kernel<<<(O + kFinCols - 1) / kFinCols,
+                               kFinCols * kFinGroups, 0, stream>>>(
+      part, part + static_cast<long long>(tiles) * O, mean, var, tiles, O,
+      static_cast<double>(cnt));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -303,10 +346,8 @@ int launch_conv(const T* x, const T* w, T* out, float* part, float* mean,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
-  conv_stats_finalize_kernel<<<(O + 255) / 256, 256, 0, stream>>>(
-      part, psq, mean, var, static_cast<int>(grid.x), O,
-      static_cast<double>(N) * OH * OW);
-  return static_cast<int>(cudaGetLastError());
+  return finalize_stats(part, static_cast<int>(grid.x), mean, var, O, M,
+                        stream);
 }
 
 }  // namespace
@@ -316,10 +357,13 @@ int launch_conv(const T* x, const T* w, T* out, float* part, float* mean,
 // transposed (O, KH * KW * C) weight, or with flip from the forward's
 // filter (KH, KW, O, C) flipped; then a 1 x 1 conv as the dense
 // (N * H * W, C) @ (C, O) product, A by TMA, any other filter with A
-// gathered from the split image.
+// gathered from the split image.  With kStats, the column statistics of
+// out into part (2 x ceil(M / 128) x O floats).
+template <bool kStats = false>
 int wgmma_conv_f32(const float* x, const float* w, float* xs, float* ws,
                    float* out, int N, int H, int W, int C, int KH, int KW,
-                   int O, int pad, bool flip, cudaStream_t stream) {
+                   int O, int pad, bool flip, cudaStream_t stream,
+                   float* part = nullptr) {
   namespace tf = ptt::wg::tf32;
   const long long nx = static_cast<long long>(N) * H * W * C;
   const int T = KH * KW;
@@ -331,14 +375,14 @@ int wgmma_conv_f32(const float* x, const float* w, float* xs, float* ws,
   if (err != 0) return err;
   if (KH == 1 && KW == 1 && pad == 0) {
     const tf::Geom g{nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0};
-    return tf::launch_split<false>(xs, N * H * W, ws, g, out, N * H * W, O, C,
-                                   stream);
+    return tf::launch_split<false, kStats>(xs, N * H * W, ws, g, out,
+                                           N * H * W, O, C, stream, part);
   }
   const int OH = H + 2 * pad - KH + 1;
   const int OW = W + 2 * pad - KW + 1;
   const tf::Geom g{xs, xs + nx, H, W, C, KW, pad, OH, OW};
-  return tf::launch_split<true>(nullptr, 0, ws, g, out, N * OH * OW, O, K,
-                                stream);
+  return tf::launch_split<true, kStats>(nullptr, 0, ws, g, out, N * OH * OW,
+                                        O, K, stream, part);
 }
 
 // Launch on `stream`; return cudaGetLastError() of the launch.  engine: 0
@@ -375,7 +419,7 @@ PTT_EXPORT int ptt_conv2d_nhwc_bf16(const ptt::bf16* x, const ptt::bf16* w,
   if (engine == 1) {
     if (C % 64 != 0 || !ptt::wg::takes(KH * KW * C, O, x, w, out))
       return static_cast<int>(cudaErrorInvalidValue);
-    return wgmma_conv(x, w, out, N, H, W, C, KH, KW, O, pad, stream);
+    return wgmma_conv<false>(x, w, out, N, H, W, C, KH, KW, O, pad, stream);
   }
   if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv(x, w, out, nullptr, nullptr, nullptr, N, H, W, C, KH,
@@ -396,15 +440,34 @@ PTT_EXPORT int ptt_conv_wgmma_tf32_attributes(int bn, int gather, int* out) {
                 : ptt::wg::tf32::attributes_bn<false>(bn, out);
 }
 
-// The fused conv + BN statistics: out, and mean / var (O floats each);
-// `part` is f32 scratch of 2 * ceil(N * OH * OW / 64) * O floats (the
-// bf16 instance's tiles are 128 rows and use half of it).
+// The fused conv + BN statistics: out, and mean / var (O floats each) of
+// its f32 sums over the N * OH * OW rows.  `part` is f32 scratch of 2 x
+// (M tiles) x O floats, the tiles of the engine: 64 rows for the SIMT
+// tile, 128 for the mma.sync tile and both wgmma engines.  engine as
+// ptt_conv2d_nhwc_{f32,bf16}'s: 0 the tile (any shape), 1 the wgmma
+// engine of the plain conv (its rule checked; refused with
+// cudaErrorInvalidValue where it fails, never a fallback); the f32
+// engine's split scratch xs / ws as ptt_conv2d_nhwc_f32's.
 PTT_EXPORT int ptt_conv2d_bn_stats_nhwc_f32(const float* x, const float* w,
                                             float* out, float* part,
-                                            float* mean, float* var, int N,
+                                            float* mean, float* var,
+                                            float* xs, float* ws, int N,
                                             int H, int W, int C, int KH,
                                             int KW, int O, int pad,
-                                            cudaStream_t stream) {
+                                            int engine, cudaStream_t stream) {
+  if (engine == 1) {
+    if (C % 32 != 0 ||
+        !ptt::wg::tf32::takes(KH * KW * C, O, x, w, out, xs, ws))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long M = static_cast<long long>(N) * (H + 2 * pad - KH + 1) *
+                        (W + 2 * pad - KW + 1);
+    const int err = wgmma_conv_f32<true>(x, w, xs, ws, out, N, H, W, C, KH,
+                                         KW, O, pad, false, stream, part);
+    if (err != 0) return err;
+    return finalize_stats(part, static_cast<int>((M + 127) / 128), mean, var,
+                          O, M, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv(x, w, out, part, mean, var, N, H, W, C, KH, KW, O, pad,
                      stream);
 }
@@ -412,7 +475,19 @@ PTT_EXPORT int ptt_conv2d_bn_stats_nhwc_f32(const float* x, const float* w,
 PTT_EXPORT int ptt_conv2d_bn_stats_nhwc_bf16(
     const ptt::bf16* x, const ptt::bf16* w, ptt::bf16* out, float* part,
     float* mean, float* var, int N, int H, int W, int C, int KH, int KW,
-    int O, int pad, cudaStream_t stream) {
+    int O, int pad, int engine, cudaStream_t stream) {
+  if (engine == 1) {
+    if (C % 64 != 0 || !ptt::wg::takes(KH * KW * C, O, x, w, out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long M = static_cast<long long>(N) * (H + 2 * pad - KH + 1) *
+                        (W + 2 * pad - KW + 1);
+    const int err = wgmma_conv<true>(x, w, out, N, H, W, C, KH, KW, O, pad,
+                                     stream, part);
+    if (err != 0) return err;
+    return finalize_stats(part, static_cast<int>((M + 127) / 128), mean, var,
+                          O, M, stream);
+  }
+  if (engine != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv(x, w, out, part, mean, var, N, H, W, C, KH, KW, O, pad,
                      stream);
 }

@@ -66,6 +66,12 @@
 // its A and B panels in L2; a persistent tile scheduler, clusters and TMA
 // multicast are later work.
 //
+// With kStats (the fused conv + BN statistics, conv.cu), each consumer
+// then forms the column sums and sums of squares of its final f32
+// fragment, before any rounding (tile_stats): the 128-row tile's partial
+// row goes to the f32 scratch, and conv.cu adds the tiles in a fixed
+// order in double.  The plain instances (kStats false) are unchanged.
+//
 // The tensor maps come from cuTensorMapEncodeTiled, a driver API call.
 // The libraries are built without -lcuda, so the entry point is looked up
 // at run time with cudaGetDriverEntryPointByVersion and only <cuda.h>'s
@@ -472,13 +478,104 @@ __device__ __forceinline__ void produce_gather(const CUtensorMap* tb,
     mbar_arrive(full0 + 8 * (kt % S));
 }
 
-// A consumer warpgroup (cw 0 or 1: rows 64 cw .. 64 cw + 63 of the tile):
-// wgmma over the ring, then the bf16 epilogue through its staging tile.
+// The statistics epilogue of the fused conv + BN statistics, called by
+// both consumers once their fragments d (64 x BN f32 each, the layout of
+// wgmma_m64n64; both engines share it) are final and their epilogues
+// are done with their staging tiles.  Each thread adds the two rows it
+// holds of each column into 4 values for each 8-column group j (v[4 j +
+// k]: the sums of columns 8 j + 2 (lane % 4) and the next, then their
+// squares).  The 8 lanes that hold the same columns (lane bits 2-4)
+// reduce-scatter them, 32 values (8 groups) at a time: at each of three
+// levels (xor 16, 8, 4) a lane keeps half its values, adds its partner's
+// copy of that half and sends the other half, so a lane ends with 4
+// totals of the 32 (28 shuffles, not the 96 of a full butterfly; 32
+// values a round stay in registers).  Those go to `red`: both
+// consumers' staging tiles, consumer cw's at red + cw * stride floats, 4
+// warps x (sums, squares) x BN each.
+// After a barrier of the 256 consumer threads, each adds the 8 warps'
+// partials of its columns in a fixed order (consumer 0's warps 0-3, then
+// consumer 1's) into row `tile` of psum and psq (tiles x N each);
+// columns past N are not written.  Rows past M hold zeros (their A reads
+// as zero) and add nothing.  No atomics: the statistics are the same from
+// run to run (tests/test_torch_conv_stats.py models the order).
+// One level of tile_stats' reduce-scatter: the partner lane differs in
+// bit H, each lane keeps H of its 2 H values, adds the partner's copy of
+// them and sends it the other H.  H is a template argument so that every
+// index is a constant and v stays in registers.
+template <int H>
+__device__ __forceinline__ void scatter_level(float (&v)[32], int lane) {
+  const unsigned up = (lane & H) ? 0xffffffffu : 0u;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const unsigned lo = __float_as_uint(v[i]);
+    const unsigned hi = __float_as_uint(v[i + H]);
+    const float send = __uint_as_float((hi & ~up) | (lo & up));
+    const float keep = __uint_as_float((lo & ~up) | (hi & up));
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
 template <int BN>
+__device__ __forceinline__ void tile_stats(const float (&d)[BN / 2],
+                                           float* red, int stride,
+                                           float* __restrict__ psum,
+                                           float* __restrict__ psq, int tile,
+                                           int n0, int N) {
+  const int cw = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  float* mine = red + cw * stride + (t / 32) * 2 * BN;
+  // after the three levels v[i] holds local value first + i
+  const int first = (lane >> 2 & 1) * 4 + (lane >> 3 & 1) * 8 +
+                    (lane >> 4 & 1) * 16;
+#pragma unroll
+  for (int g = 0; g < BN / 64; ++g) {
+    float v[32];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * g + jj;
+      v[4 * jj] = d[4 * j] + d[4 * j + 2];
+      v[4 * jj + 1] = d[4 * j + 1] + d[4 * j + 3];
+      v[4 * jj + 2] = d[4 * j] * d[4 * j] + d[4 * j + 2] * d[4 * j + 2];
+      v[4 * jj + 3] =
+          d[4 * j + 1] * d[4 * j + 1] + d[4 * j + 3] * d[4 * j + 3];
+    }
+    scatter_level<16>(v, lane);
+    scatter_level<8>(v, lane);
+    scatter_level<4>(v, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = first + i;
+      mine[(idx & 2 ? BN : 0) + 8 * (8 * g + idx / 4) + 2 * (lane % 4) +
+           (idx & 1)] = v[i];
+    }
+  }
+  // barrier 4: the two consumer warpgroups (1 is the producer's, 2 and 3
+  // each consumer's own)
+  asm volatile("bar.sync 4, 256;\n" ::: "memory");
+  for (int i = threadIdx.x - 128; i < 2 * BN; i += 256) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) s += red[c * stride + w * 2 * BN + i];
+    }
+    const int col = n0 + i % BN;
+    if (col < N)
+      (i < BN ? psum : psq)[static_cast<long long>(tile) * N + col] = s;
+  }
+}
+
+// A consumer warpgroup (cw 0 or 1: rows 64 cw .. 64 cw + 63 of the tile):
+// wgmma over the ring, then the bf16 epilogue through its staging tile,
+// and with kStats the statistics of the f32 sums (tile_stats; psum of
+// gridDim.x x N floats, psq after it).
+template <int BN, bool kStats>
 __device__ __forceinline__ void consume(uint32_t base, uint32_t full0,
                                         uint32_t empty0, uint8_t* staging,
                                         bf16* __restrict__ out, int m0,
-                                        int n0, int M, int N, int KT) {
+                                        int n0, int M, int N, int KT,
+                                        float* __restrict__ psum) {
   constexpr int S = kStages<BN>;
   const int cw = threadIdx.x / 128 - 1;
   const int t = threadIdx.x % 128;
@@ -539,14 +636,21 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t full0,
     }
     warpgroup_sync(2 + cw);
   }
+  if constexpr (kStats)
+    tile_stats<BN>(d, reinterpret_cast<float*>(staging - cw * kOutTile),
+                   kOutTile / 4, psum,
+                   psum + static_cast<long long>(gridDim.x) * N, m0 / kBM,
+                   n0, N);
 }
 
-template <int BN, bool kGather>
+// psum: with kStats, the statistics scratch (2 x gridDim.x x N floats);
+// unused otherwise.
+template <int BN, bool kGather, bool kStats = false>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_b,
                       const ConvGeom geom, bf16* __restrict__ out, int M,
-                      int N, int K) {
+                      int N, int K, float* __restrict__ psum) {
   constexpr int S = kStages<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -589,9 +693,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       produce_tma<BN>(&tm_a, &tm_b, base, full0, empty0, m0, n0, KT);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<BN>(base, full0, empty0,
-                staging + (threadIdx.x / 128 - 1) * kOutTile, out, m0, n0, M,
-                N, KT);
+    consume<BN, kStats>(base, full0, empty0,
+                        staging + (threadIdx.x / 128 - 1) * kOutTile, out, m0,
+                        n0, M, N, KT, psum);
   }
 }
 
@@ -645,17 +749,18 @@ inline int encode_bf16(CUtensorMap* map, const void* p, int cols, int rows,
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
-template <int BN, bool kGather>
+template <int BN, bool kGather, bool kStats>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const ConvGeom& g,
-           bf16* out, int M, int N, int K, cudaStream_t stream) {
+           bf16* out, int M, int N, int K, float* psum, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory only once allowed, per instance
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      wgmma_gemm_kernel<BN, kGather>,
+      wgmma_gemm_kernel<BN, kGather, kStats>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<BN>);
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
   const dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN);
-  wgmma_gemm_kernel<BN, kGather><<<grid, kThreads, kSmemBytes<BN>, stream>>>(
-      ta, tb, g, out, M, N, K);
+  wgmma_gemm_kernel<BN, kGather, kStats>
+      <<<grid, kThreads, kSmemBytes<BN>, stream>>>(ta, tb, g, out, M, N, K,
+                                                   psum);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,13 +768,18 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, const ConvGeom& g,
 // up to 256 (O = 64 must not fill a quarter of a 256-wide tile).
 inline int tile_n(int n) { return n > 128 ? 256 : (n > 64 ? 128 : 64); }
 
-template <bool kGather>
+// psum: with kStats, the statistics scratch (2 x ceil(M / kBM) x N
+// floats).
+template <bool kGather, bool kStats = false>
 int launch_bn(int bn, const CUtensorMap& ta, const CUtensorMap& tb,
               const ConvGeom& g, bf16* out, int M, int N, int K,
-              cudaStream_t stream) {
-  if (bn == 64) return launch<64, kGather>(ta, tb, g, out, M, N, K, stream);
-  if (bn == 128) return launch<128, kGather>(ta, tb, g, out, M, N, K, stream);
-  return launch<256, kGather>(ta, tb, g, out, M, N, K, stream);
+              cudaStream_t stream, float* psum = nullptr) {
+  if (bn == 64)
+    return launch<64, kGather, kStats>(ta, tb, g, out, M, N, K, psum, stream);
+  if (bn == 128)
+    return launch<128, kGather, kStats>(ta, tb, g, out, M, N, K, psum,
+                                        stream);
+  return launch<256, kGather, kStats>(ta, tb, g, out, M, N, K, psum, stream);
 }
 
 // Whether the engine takes these operands: K % 8 == 0 and N % 8 == 0 (a
@@ -681,15 +791,18 @@ inline bool takes(int K, int N, const void* a, const void* b,
          aligned16(out);
 }
 
-// out[M, N] = a[M, K] @ b[K, N] with A loaded by TMA.
-inline int gemm_dense(const bf16* a, const bf16* b, bf16* out, int M, int N,
-                      int K, cudaStream_t stream) {
+// out[M, N] = a[M, K] @ b[K, N] with A loaded by TMA (with kStats, and
+// out's column statistics into psum as launch_bn says).
+template <bool kStats = false>
+int gemm_dense(const bf16* a, const bf16* b, bf16* out, int M, int N, int K,
+               cudaStream_t stream, float* psum = nullptr) {
   CUtensorMap ta, tb;
   int err = encode_bf16(&ta, a, K, M, kBK, kBM);
   if (err == 0) err = encode_bf16(&tb, b, N, K, 64, kBK);
   if (err != 0) return err;
   const ConvGeom g{nullptr, 0, 0, 0, 0, 0, 0, 0};
-  return launch_bn<false>(tile_n(N), ta, tb, g, out, M, N, K, stream);
+  return launch_bn<false, kStats>(tile_n(N), ta, tb, g, out, M, N, K, stream,
+                                  psum);
 }
 
 // out[0..4): registers, local (spill) bytes, static and dynamic shared

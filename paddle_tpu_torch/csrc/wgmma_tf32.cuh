@@ -58,7 +58,10 @@
 // A consumer issues wgmma.m64n{BN}k8.f32.tf32.tf32, four k8 steps a
 // stage, three products a step; its epilogue writes f32 32 columns at a
 // time to the staging tile and out as 16-byte rows, masked at M and N.
-// Everything outside [0, M) x [0, K) x [0, N) reads as zero.
+// Everything outside [0, M) x [0, K) x [0, N) reads as zero.  With
+// kStats (the fused conv + BN statistics, conv.cu) each consumer then
+// forms the column sums and sums of squares of its merged f32 sums
+// (wgmma_gemm.cuh tile_stats), one partial row per 128-row tile.
 //
 // Shapes it takes: K % 4 == 0, N % 4 == 0 (TMA's 16-byte strides, the
 // epilogue's 16-byte stores), 16-byte-aligned operands, out and scratch,
@@ -445,12 +448,15 @@ __device__ __forceinline__ void produce_gather(const CUtensorMap* bh,
 
 // A consumer warpgroup (cw 0 or 1: rows 64 cw .. 64 cw + 63 of the tile):
 // the split products over the ring in fresh, mid and running sums, then
-// the f32 epilogue through its staging tile.
-template <int BN>
+// the f32 epilogue through its staging tile, and with kStats the
+// statistics of the merged sums (tile_stats; psum of gridDim.x x N
+// floats, psq after it; both consumers must take part).
+template <int BN, bool kStats = false>
 __device__ __forceinline__ void consume(uint32_t base, uint32_t full0,
                                         uint32_t empty0, float* staging,
                                         float* __restrict__ out, int m0,
-                                        int n0, int M, int N, int KT) {
+                                        int n0, int M, int N, int KT,
+                                        float* __restrict__ psum = nullptr) {
   constexpr int S = kStages<BN>;
   constexpr int R = BN / 2;
   const int cw = threadIdx.x / 128 - 1;
@@ -527,16 +533,22 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t full0,
     }
     warpgroup_sync(2 + cw);
   }
+  if constexpr (kStats)
+    tile_stats<BN>(acc, staging - cw * (kOutTile / 4), kOutTile / 4, psum,
+                   psum + static_cast<long long>(gridDim.x) * N, m0 / kBM,
+                   n0, N);
 }
 
-template <int BN, bool kGather>
+// psum: with kStats, the statistics scratch (2 x gridDim.x x N floats);
+// unused otherwise.
+template <int BN, bool kGather, bool kStats = false>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_tf32_kernel(const __grid_constant__ CUtensorMap tm_ah,
                       const __grid_constant__ CUtensorMap tm_al,
                       const __grid_constant__ CUtensorMap tm_bh,
                       const __grid_constant__ CUtensorMap tm_bl,
                       const Geom geom, float* __restrict__ out, int M, int N,
-                      int K) {
+                      int K, float* __restrict__ psum) {
   constexpr int S = kStages<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -578,9 +590,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                       m0, n0, KT);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<BN>(base, full0, empty0,
-                staging + (threadIdx.x / 128 - 1) * (kOutTile / 4), out, m0,
-                n0, M, N, KT);
+    consume<BN, kStats>(base, full0, empty0,
+                        staging + (threadIdx.x / 128 - 1) * (kOutTile / 4),
+                        out, m0, n0, M, N, KT, psum);
   }
 }
 
@@ -664,17 +676,18 @@ inline int split_flip(const float* in, float* s, int T, int R, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, bool kGather>
+template <int BN, bool kGather, bool kStats>
 int launch(const CUtensorMap (&maps)[4], const Geom& g, float* out, int M,
-           int N, int K, cudaStream_t stream) {
+           int N, int K, float* psum, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory only once allowed, per instance
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      wgmma_tf32_kernel<BN, kGather>,
+      wgmma_tf32_kernel<BN, kGather, kStats>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<BN>);
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
   const dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN);
-  wgmma_tf32_kernel<BN, kGather><<<grid, kThreads, kSmemBytes<BN>, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], g, out, M, N, K);
+  wgmma_tf32_kernel<BN, kGather, kStats>
+      <<<grid, kThreads, kSmemBytes<BN>, stream>>>(
+          maps[0], maps[1], maps[2], maps[3], g, out, M, N, K, psum);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,10 +695,12 @@ int launch(const CUtensorMap (&maps)[4], const Geom& g, float* out, int M,
 inline int tile_n(int n) { return n > 64 ? 128 : 64; }
 
 // Encode the maps of A hi / lo (a_rows x K, at a and a + a_rows K) and B
-// hi / lo (N x K, at b and b + N K), then launch.
-template <bool kGather>
+// hi / lo (N x K, at b and b + N K), then launch (with kStats, out's
+// column statistics into psum: 2 x ceil(M / kBM) x N floats).
+template <bool kGather, bool kStats = false>
 int launch_split(const float* a, int a_rows, const float* b, const Geom& g,
-                 float* out, int M, int N, int K, cudaStream_t stream) {
+                 float* out, int M, int N, int K, cudaStream_t stream,
+                 float* psum = nullptr) {
   const int bn = tile_n(N);
   const long long an = static_cast<long long>(a_rows) * K;
   const long long bnk = static_cast<long long>(N) * K;
@@ -700,8 +715,10 @@ int launch_split(const float* a, int a_rows, const float* b, const Geom& g,
   if (err == 0) err = encode_f32(&maps[2], b, K, N, bn);
   if (err == 0) err = encode_f32(&maps[3], b + bnk, K, N, bn);
   if (err != 0) return err;
-  return bn == 64 ? launch<64, kGather>(maps, g, out, M, N, K, stream)
-                  : launch<128, kGather>(maps, g, out, M, N, K, stream);
+  return bn == 64
+             ? launch<64, kGather, kStats>(maps, g, out, M, N, K, psum, stream)
+             : launch<128, kGather, kStats>(maps, g, out, M, N, K, psum,
+                                            stream);
 }
 
 // Whether the engine takes these operands: K % 4 == 0 and N % 4 == 0 (a

@@ -36,9 +36,11 @@ filter flipped by its split pass, not by ``flip_filter``) or the SIMT
 tile; the float32 filter gradient by ``f32_dw_engine``: the same engine's
 products in ``csrc/conv_dw.cu`` over x and g transposed by a split pass
 into a zero-separated pixel layout (``dw_pixels``, ``dw_separated``), or
-the SIMT tile.  The fused conv + BN statistics stays on its SIMT kernel.
-The 3 x 3 convs at 7 x 7 to 28 x 28 and the
-matmul-like 1 x 1 convs at 7 x 7 are bound by operations on the H100, the
+the SIMT tile.  The fused conv + BN statistics takes the engine the
+plain conv takes for the same x and w, its statistics in the consumers'
+epilogue (``stats_tile`` rows a partial row).  The 3 x 3 convs at 7 x 7
+to 28 x 28 and the matmul-like 1 x 1 convs at 7 x 7 are bound by
+operations on the H100, the
 other 1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
 kernels by operations.  ``csrc/conv.cu`` and
 ``csrc/conv_dw.cu`` say what their designs do about that.
@@ -67,8 +69,12 @@ _SIGNATURES = {
     **{f"ptt_conv_wgmma{t}_attributes": [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
        for t in ("", "_tf32")},
-    **{f"ptt_conv2d_bn_stats_nhwc_{s}": [ctypes.c_void_p] * 6
-       + [ctypes.c_int] * 8 + [ctypes.c_void_p] for s in ("f32", "bf16")},
+    # x, w, out, part, mean, var (and for f32 the split scratch of x and
+    # w); N, H, W, C, KH, KW, O, pad, the engine (_build.ENGINES)
+    "ptt_conv2d_bn_stats_nhwc_f32": [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "ptt_conv2d_bn_stats_nhwc_bf16": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 _DW_SIGNATURES = {
     # x, g, part, out, the split scratch of x and g; N, H, W, C, KH, KW, O,
@@ -87,9 +93,10 @@ _DW_SIGNATURES = {
 #: and bf16 instances apart: the forward, the backward-input (the forward
 #: kernel on the flipped filter), the filter gradient and the fused
 #: conv + BN statistics; the ``_wgmma`` counters count the launches that
-#: ran on a wgmma engine: the float32 forward, backward-input and filter
-#: gradient (split TF32), the bf16 forward, backward-input and filter
-#: gradient (they count in their plain counters too).
+#: ran on a wgmma engine: the float32 forward, backward-input, filter
+#: gradient (split TF32) and fused statistics, the bf16 forward,
+#: backward-input, filter gradient and fused statistics (they count in
+#: their plain counters too).
 launches = 0
 launches_wgmma = 0
 bwd_input_launches = 0
@@ -97,6 +104,7 @@ bwd_input_launches_wgmma = 0
 dw_launches = 0
 dw_launches_wgmma = 0
 stats_launches = 0
+stats_launches_wgmma = 0
 launches_bf16 = 0
 bwd_input_launches_bf16 = 0
 dw_launches_bf16 = 0
@@ -104,6 +112,7 @@ stats_launches_bf16 = 0
 launches_bf16_wgmma = 0
 bwd_input_launches_bf16_wgmma = 0
 dw_launches_bf16_wgmma = 0
+stats_launches_bf16_wgmma = 0
 _count_lock = threading.Lock()
 
 # Split-K of the filter gradient: aim for this many blocks in flight
@@ -187,6 +196,15 @@ def _engine(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> str:
     c, o = (w.shape[3], w.shape[2]) if flip else (w.shape[2], w.shape[3])
     rule = bf16_engine if x.dtype == torch.bfloat16 else f32_engine
     return rule(c, o, x.data_ptr(), w.data_ptr())
+
+
+def stats_tile(dtype: torch.dtype, engine: str) -> int:
+    """Rows of the M tile of which the fused conv + BN statistics writes
+    one partial row into its scratch: 64 for the float32 SIMT tile, 128
+    for the bf16 ``mma.sync`` tile and both wgmma engines."""
+    if dtype == torch.float32 and engine != "wgmma":
+        return _TILE
+    return _WG_TILE_M
 
 
 def f32_dw_engine(c: int, o: int, x: int, g: int) -> str:
@@ -395,8 +413,9 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
                  what: str, stats: bool = False, engine: str = "mma.sync",
                  flip: bool = False):
     """out, or (out, mean, var) with ``stats``: the float32 or bf16
-    instance of ``csrc/conv.cu`` by x's dtype, the forward on the named
-    engine (``chip_smoke.py`` times both engines through it).  With
+    instance of ``csrc/conv.cu`` by x's dtype, the forward (or the fused
+    conv + BN statistics) on the named engine (``chip_smoke.py`` times
+    both engines through it).  With
     ``flip`` (float32 on the wgmma engine only) w is the forward's
     (KH, KW, O, C) filter of a backward-input, flipped by the split pass.
     Not counted: the public wrappers count their own launches."""
@@ -415,13 +434,17 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if stats:
-            tiles = math.ceil(n * h * wd / _TILE)
+            tiles = math.ceil(n * h * wd / stats_tile(x.dtype, engine))
             part = torch.empty((2, tiles, o), dtype=torch.float32,
                                device=x.device)
+            ptrs = [x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), mv[0].data_ptr(), mv[1].data_ptr()]
+            if x.dtype == torch.float32:
+                xs, ws = _build.split_scratch(engine, x, w)
+                ptrs += [_build.address(xs), _build.address(ws)]
             err = getattr(lib, f"ptt_conv2d_bn_stats_nhwc_{sfx}")(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
-                mv[0].data_ptr(), mv[1].data_ptr(), n, h, wd, c, kh, kw, o,
-                padding, stream)
+                *ptrs, n, h, wd, c, kh, kw, o, padding,
+                _build.ENGINES[engine], stream)
         elif x.dtype == torch.bfloat16:
             err = lib.ptt_conv2d_nhwc_bf16(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
@@ -453,13 +476,16 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
 def conv2d_bn_stats_nhwc(x: torch.Tensor, w: torch.Tensor, padding: int):
     """(out, mean, var): the conv in x's dtype and the per-channel batch
     mean and biased variance (float32) of its float32 sums.  Launches the
-    fused kernel of ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16);
-    runs the plain version on a CPU tensor."""
+    fused kernel of ``csrc/conv.cu`` on a CUDA tensor (float32 or bf16, on
+    the engine ``conv2d_nhwc`` takes for the same x and w); runs the plain
+    version on a CPU tensor."""
     _check(x, w, padding, what="conv2d_bn_stats_nhwc")
     if x.device.type == "cpu":
         return conv2d_bn_stats_nhwc_plain(x, w, padding)
-    out = _launch_conv(x, w, padding, "conv2d_bn_stats_nhwc", stats=True)
-    _count("stats_launches", x.dtype)
+    engine = _engine(x, w)
+    out = _launch_conv(x, w, padding, "conv2d_bn_stats_nhwc", stats=True,
+                       engine=engine)
+    _count("stats_launches", x.dtype, engine)
     return out
 
 

@@ -1024,11 +1024,17 @@ def test_paged_attention_kernel_matches_plain(dev, s, h, d, page, p, n, lens):
 
 
 @pytest.mark.parametrize("s,t,cached", [(16, 4, None), (1, 88, [512]),
-                                        (3, 5, [0, 9, 30])])
+                                        (3, 5, [0, 9, 30]),
+                                        (2, 88, [512, 131]),
+                                        (3, 11, [2040, 7, 1500]),
+                                        (2, 1, [0, 2047])])
 def test_paged_attention_chunk_kernel_matches_plain(dev, s, t, cached):
+    """The chunk redesign (split over pages, the merge) and the first
+    design by name, both against the plain version; (3, 11, ...) caps a
+    row limit at P * page."""
     from paddle_tpu_torch.kernels import paged_attention as kpa
 
-    h, d, page, p = (16, 128, 16, 128) if s != 3 else (2, 24, 8, 6)
+    h, d, page, p = (16, 128, 16, 128) if s != 3 or t != 5 else (2, 24, 8, 6)
     n = s * p + 1
     if cached is None:   # the speculative verify: ragged lens below 2044
         cached = [int(x) for x in np.random.RandomState(3).randint(
@@ -1039,9 +1045,68 @@ def test_paged_attention_chunk_kernel_matches_plain(dev, s, t, cached):
     before = kpa.chunk_launches
     got = kpa.paged_attention_chunk(q, kp, vp, tables, lens_t)
     assert kpa.chunk_launches == before + 1
+    old = kpa._launch(q, kp, vp, tables, lens_t, None, chunk=True)
+    assert kpa.chunk_launches == before + 1
     torch.cuda.synchronize()
     want = kpa.paged_attention_chunk_plain(q, kp, vp, tables, lens_t)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(old, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 40, 128, 200, 256])
+def test_paged_attention_chunk_head_dims(dev, d):
+    """The redesign's two geometries (D <= 128: 16 positions a stage and
+    16 rows a tile; D 200 and 256: 8 and 8), its 16-byte copies (D % 4
+    == 0) and its 4-byte copies (D 39, a ragged last float4 in every
+    staged row)."""
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(24)
+    s, t, h, page, p = 3, 19, 2, 8, 9
+    cached = [5, 60, 40]
+    q, kp, vp, tables, lens_t = _paged_inputs(g, s, h, d, page, p, s * p + 1,
+                                              cached, t=t, dev=dev)
+    got = kpa.paged_attention_chunk(q, kp, vp, tables, lens_t)
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_chunk_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    if d == 40:
+        # D 39: the first 39 columns of the same values
+        q3, k3, v3 = (a[..., :39].contiguous() for a in (q, kp, vp))
+        got = kpa.paged_attention_chunk(q3, k3, v3, tables, lens_t)
+        torch.cuda.synchronize()
+        want = kpa.paged_attention_chunk_plain(q3, k3, v3, tables, lens_t)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_paged_chunk_slots_match_the_c_rule(dev):
+    """``kpa.chunk_slots`` (the gate's and the tests' mirror) against the
+    C entry's own count, over head dims, row counts and spans."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    lib = _build.load("paged_attention", kpa._SIGNATURES)
+    for d in (1, 4, 16, 24, 39, 64, 100, 128, 129, 200, 256):
+        for t in (1, 4, 5, 16, 88):
+            for span in (1, 6, 15, 128, 1000):
+                assert lib.ptt_paged_chunk_slots(d, t, span) == \
+                    kpa.chunk_slots(d, t, span), (d, t, span)
+
+
+def test_paged_attention_chunk_bit_identical_across_calls(dev):
+    """The merge adds the splits in split order: the same out bit for bit
+    from call to call, at the verify step's and the suffix's shapes."""
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(25)
+    for s, t, cached in ((16, 4, [int(x) for x in np.random.RandomState(
+            4).randint(1, 2044, 16)]), (1, 88, [512])):
+        q, kp, vp, tables, lens_t = _paged_inputs(
+            g, s, 16, 128, 16, 128, s * 128 + 1, cached, t=t, dev=dev)
+        first = kpa.paged_attention_chunk(q, kp, vp, tables, lens_t)
+        for _ in range(3):
+            assert torch.equal(
+                first, kpa.paged_attention_chunk(q, kp, vp, tables, lens_t))
 
 
 def test_paged_attention_never_reads_past_the_limit(dev):
@@ -1091,6 +1156,80 @@ def test_paged_attention_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):   # head dim past the kernel's 256
         kpa.paged_attention(big, torch.ones(4, 8, 2, 512, device=dev),
                             torch.ones(4, 8, 2, 512, device=dev), tables, lens)
+
+
+@pytest.mark.parametrize("d,p", [(64, 7000), (128, 2048)])
+def test_paged_attention_long_tables(dev, d, p):
+    """Tables of 2048 and 7000 pages of 16 (32K and 112K positions; the
+    decode kernel's table in shared memory): the decode kernel and the
+    chunk redesign against the plain versions; then the chunk's C entry
+    straight at the longest span that leaves two ring slots (two splits,
+    the second ragged), and a span one page longer refused."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(25)
+    s, t, h, page = 2, 16, 2, 16     # T 16: a whole tile of rows
+    n = s * p + 1
+    q, kp, vp, tables, lens_t = _paged_inputs(
+        g, s, h, d, page, p, n, [p * page - t - 3, 1234], t=t, dev=dev)
+    q1 = q[:, 0].contiguous()
+    got = kpa.paged_attention(q1, kp, vp, tables, lens_t)
+    chunk = kpa.paged_attention_chunk(q, kp, vp, tables, lens_t)
+    span = kpa.chunk_span_max(d, t)
+    assert -(-p // span) == 2
+    lib = _build.load("paged_attention", kpa._SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty(s * h * t * 2 * (d + 2), device=dev)
+    out = torch.empty_like(q)
+
+    def call(sp):
+        return lib.ptt_paged_attention_chunk_f32(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+            lens_t.data_ptr(), out.data_ptr(), part.data_ptr(), s, t, h, d,
+            page, p, n, sp, d ** -0.5, stream)
+
+    _build.check(lib, call(span), "paged_attention_chunk")
+    assert call(span + 1) == 1          # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, kpa.paged_attention_plain(q1, kp, vp, tables, lens_t),
+        rtol=0, atol=1e-4)
+    want = kpa.paged_attention_chunk_plain(q, kp, vp, tables, lens_t)
+    torch.testing.assert_close(chunk, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+
+
+def test_paged_chunk_stores_nothing_out_of_bounds(dev):
+    """The chunk redesign's split kernel and merge launched straight into
+    a part scratch and an out with NaN guards on both sides, at T 88 (a
+    ragged last tile of rows), 7 splits of 3 pages (the last of 2) and
+    one slot's limit capped at P * page: the guards stay NaN, every row of
+    out is written and matches the plain version."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    g = torch.Generator().manual_seed(26)
+    s, t, h, d, page, p, span = 2, 88, 3, 72, 16, 20, 3
+    splits = -(-p // span)
+    n = s * p + 1
+    q, kp, vp, tables, lens_t = _paged_inputs(g, s, h, d, page, p, n,
+                                              [300, 17], t=t, dev=dev)
+    buf, part = _guarded((s * h * t * splits * (d + 2),), torch.float32, dev)
+    buf2, out = _guarded((s, t, h, d), torch.float32, dev)
+    lib = _build.load("paged_attention", kpa._SIGNATURES)
+    _build.check(lib, lib.ptt_paged_attention_chunk_f32(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+        lens_t.data_ptr(), out.data_ptr(), part.data_ptr(), s, t, h, d, page,
+        p, n, span, d ** -0.5, torch.cuda.current_stream(dev).cuda_stream),
+        "paged_attention_chunk")
+    torch.cuda.synchronize()
+    for b in (buf, buf2):
+        assert bool(torch.isnan(torch.cat([b[:4096], b[-4096:]])).all())
+    assert not bool(torch.isnan(out).any())
+    torch.testing.assert_close(
+        out, kpa.paged_attention_chunk_plain(q, kp, vp, tables, lens_t),
+        rtol=0, atol=1e-4)
 
 
 def test_decoder_lm_on_the_card_matches_cpu(dev):
@@ -1242,11 +1381,14 @@ def test_batch_norm_bf16_kernels_match_plain(dev, rows, cols):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,c,o,k", [
     (3, 7, 5, 16, 24, 3), (2, 9, 11, 20, 70, 1), (4, 14, 14, 256, 256, 3),
-    (2, 7, 7, 512, 512, 3),
+    (2, 7, 7, 512, 512, 3), (2, 9, 11, 64, 72, 1), (3, 7, 5, 64, 40, 3),
 ])
 def test_conv_bn_stats_kernel_matches_plain(dev, dtype, n, h, w, c, o, k):
-    """The fused conv + BN statistics: out as the conv kernel's, mean and
-    variance of the f32 sums within 1e-4 of max|mean| and max|var|."""
+    """The fused conv + BN statistics on the engine the plain conv takes
+    (counted under ``_wgmma`` there) and on the old tile by name: out as
+    the conv kernel's, mean and variance of the f32 sums within 1e-4 of
+    max|mean| and max|var|.  Rows past M (M 105, 198, 98, ...) and columns
+    past O (O 24, 40, 70, 72 in tiles of 64-256) add nothing."""
     from paddle_tpu_torch.kernels import conv as kconv
 
     g = torch.Generator().manual_seed(34)
@@ -1254,19 +1396,78 @@ def test_conv_bn_stats_kernel_matches_plain(dev, dtype, n, h, w, c, o, k):
     wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5,
                 device=dev).to(dtype)
     name = "stats_launches" + ("_bf16" if dtype == torch.bfloat16 else "")
-    before = getattr(kconv, name)
+    engine = kconv._engine(x, wt)
+    before = (getattr(kconv, name), getattr(kconv, name + "_wgmma"))
     out, mean, var = kconv.conv2d_bn_stats_nhwc(x, wt, k // 2)
-    assert getattr(kconv, name) == before + 1
+    assert (getattr(kconv, name), getattr(kconv, name + "_wgmma")) == (
+        before[0] + 1, before[1] + int(engine == "wgmma"))
+    assert engine == ("wgmma" if c % (64 if dtype == torch.bfloat16 else 32)
+                      == 0 else ("mma.sync" if dtype == torch.bfloat16
+                                 else "simt"))
+    tile = "mma.sync" if dtype == torch.bfloat16 else "simt"
+    old = kconv._launch_conv(x, wt, k // 2, "stats", stats=True, engine=tile)
     torch.cuda.synchronize()
     pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, k // 2)
-    if dtype == torch.bfloat16:
-        _close_bf16(out, pout)
-    else:
-        torch.testing.assert_close(out, pout, **GEMM_TOL)
-    for got, want in ((mean, pmean), (var, pvar)):
-        assert got.dtype == torch.float32
-        torch.testing.assert_close(got, want, rtol=0,
-                                   atol=1e-4 * float(want.abs().max()))
+    for o_, m_, v_ in ((out, mean, var), old):
+        if dtype == torch.bfloat16:
+            _close_bf16(o_, pout)
+        else:
+            torch.testing.assert_close(o_, pout, **GEMM_TOL)
+        for got, want in ((m_, pmean), (v_, pvar)):
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_stats_bit_identical_across_calls(dev, dtype):
+    """No atomics: the wgmma instance's out, mean and var are the same bit
+    for bit from call to call."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(36)
+    x = (_randn(g, 8, 14, 14, 256, device=dev) + 0.2).to(dtype)
+    wt = _randn(g, 3, 3, 256, 256, scale=(2.0 / 2304) ** 0.5,
+                device=dev).to(dtype)
+    assert kconv._engine(x, wt) == "wgmma"
+    first = kconv.conv2d_bn_stats_nhwc(x, wt, 1)
+    for _ in range(3):
+        again = kconv.conv2d_bn_stats_nhwc(x, wt, 1)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_conv_bn_stats_wgmma_f32_is_as_precise_as_simt(dev):
+    """Against mean and var in float64 (of the float64 conv of the same
+    inputs), the split-TF32 instance's largest error is at most twice the
+    SIMT instance's."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(37)
+    x = _randn(g, 8, 14, 14, 256, device=dev) + 0.2
+    wt = _randn(g, 3, 3, 256, 256, scale=(2.0 / 2304) ** 0.5, device=dev)
+    exact = _conv_f64(x, wt, 1).reshape(-1, 256)
+    em = exact.mean(0)
+    ev = (exact * exact).mean(0) - em * em
+    new = kconv._launch_conv(x, wt, 1, "stats", stats=True, engine="wgmma")
+    simt = kconv._launch_conv(x, wt, 1, "stats", stats=True, engine="simt")
+    for i, (want, what) in enumerate(((em, "mean"), (ev, "var"))):
+        err, old = _f64_errors(new[1 + i], simt[1 + i], want)
+        assert err <= 2 * old, (what, err, old)
+
+
+def test_conv_bn_stats_refuses_wgmma_off_its_rule(dev):
+    """The stats entries check the plain conv's rule: a wgmma launch at C
+    20 (f32 and bf16) or C 32 (bf16) is refused, never a fallback."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    for dtype, c in ((torch.float32, 20), (torch.bfloat16, 20),
+                     (torch.bfloat16, 32)):
+        xi = torch.ones(2, 7, 7, c, device=dev, dtype=dtype)
+        wi = torch.ones(3, 3, c, 64, device=dev, dtype=dtype)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            kconv._launch_conv(xi, wi, 1, "stats", stats=True,
+                               engine="wgmma")
 
 
 def _guarded(shape, dtype, dev, pad=4096):
@@ -1310,7 +1511,7 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
     _build.check(lib, lib.ptt_conv2d_bn_stats_nhwc_bf16(
         x.data_ptr(), wt.data_ptr(), out2.data_ptr(), part.data_ptr(),
         mv[0].data_ptr(), mv[1].data_ptr(), n, h, w, c, k, k, o, k // 2,
-        stream), "conv stats")
+        _build.ENGINES["mma.sync"], stream), "conv stats")
 
     dlib = _build.load("conv_dw", kconv._DW_SIGNATURES)
     buf3, dw = _guarded((k, k, c, o), torch.float32, dev)
@@ -1359,6 +1560,53 @@ def test_bf16_kernels_store_nothing_out_of_bounds(dev):
                                atol=1e-4 * float(want.abs().max()))
     _close_bf16(mm, kmatmul.matmul_plain(a, b))
     _close_bf16(y, kbn.batch_norm_fwd_plain(xb, gamma, beta, 1e-5)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("o", [40, 72])
+def test_conv_stats_wgmma_stores_nothing_out_of_bounds(dev, dtype, o):
+    """The fused conv + BN statistics on its wgmma engine, launched
+    straight into out, its (2, tiles, O) partial rows and mean/var with
+    NaN guards on both sides, at M 297 (three 128-row tiles, the last
+    ragged) and O 40 or 72 (a ragged column tile): the guards stay NaN;
+    out, every partial row, mean and var are written and match the plain
+    version."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(38)
+    n, h, w, c, k = 3, 9, 11, 64, 3
+    x = (_randn(g, n, h, w, c, device=dev) + 0.2).to(dtype)
+    wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5,
+                device=dev).to(dtype)
+    assert kconv._engine(x, wt) == "wgmma"
+    tiles = math.ceil(n * h * w / kconv.stats_tile(dtype, "wgmma"))
+    assert tiles == 3
+    buf, out = _guarded((n, h, w, o), dtype, dev)
+    buf2, part = _guarded((2, tiles, o), torch.float32, dev)
+    buf3, mv = _guarded((2, o), torch.float32, dev)
+    ptrs = [x.data_ptr(), wt.data_ptr(), out.data_ptr(), part.data_ptr(),
+            mv[0].data_ptr(), mv[1].data_ptr()]
+    sfx = _build.SUFFIX[dtype]
+    if dtype == torch.float32:
+        xs, ws = _build.split_scratch("wgmma", x, wt)
+        ptrs += [xs.data_ptr(), ws.data_ptr()]
+    lib = _build.load("conv", kconv._SIGNATURES)
+    _build.check(lib, getattr(lib, f"ptt_conv2d_bn_stats_nhwc_{sfx}")(
+        *ptrs, n, h, w, c, k, k, o, k // 2, _build.ENGINES["wgmma"],
+        torch.cuda.current_stream(dev).cuda_stream), "conv stats")
+    torch.cuda.synchronize()
+    for b, view in ((buf, out), (buf2, part), (buf3, mv)):
+        assert bool(torch.isnan(torch.cat([b[:4096], b[-4096:]])).all())
+        assert not bool(torch.isnan(view).any())
+    pout, pmean, pvar = kconv.conv2d_bn_stats_nhwc_plain(x, wt, k // 2)
+    if dtype == torch.bfloat16:
+        _close_bf16(out, pout)
+    else:
+        torch.testing.assert_close(out, pout, **GEMM_TOL)
+    for got, want in ((mv[0], pmean), (mv[1], pvar)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 def test_bf16_wrappers_refuse_what_they_do_not_take(dev):
