@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch on one CUDA card: build its kernels, hold each
 against its plain PyTorch version, serve full-width ResNet-50 over HTTP
-and check the replies, train full-width ResNet-50, LeNet-5, the
+and check the replies, train full-width ResNet-50, the image cells of
+benchmark/run.py (alexnet, googlenet, vgg16, smallnet), LeNet-5, the
 transformer LM and the LSTM text classifier (padded, float32 and under
 bf16 AMP each; and over LoD ids) and check their steps, serve the
 paged-KV decoder LM over /generate and check its generations, then
@@ -148,6 +149,29 @@ seconds):
    over 5 timed steps after 2 warm-up steps beside the f32 step's, peak
    memory, one profiled step (which must see the 46 wgmma filter-gradient
    launches).
+6d. The image cells of benchmark/run.py (IMAGE_CELLS: alexnet, googlenet
+   and vgg16 at 224 x 224 and 1000 classes, smallnet =
+   resnet_cifar10(depth=20) at 32 x 32 and 10; Momentum(0.01, 0.9)).
+   Before phase 2, the work guard: each program's forward conv + fc
+   GFLOP an image within FLOPS_RTOL of its published cost.  In phase 2,
+   every distinct kernel-route conv shape of the four steps at run.py's
+   batch (forward, backward-input, filter gradient; f32 and bf16) against
+   its plain version on the engine the rules pick (the plain versions
+   checked once and timed IMAGE_PLAIN_REPS times), each model's launches
+   summed (event time, device time from one profiled window, library,
+   bound, and by engine), the fcs' products and the heads' softmax, and
+   BN at VGG-16's and smallnet's shapes.  After phase 6c: each model's
+   step at batch 2 (dropouts is_test, every other op training) on the
+   card against the CPU, f32 and AMP, end to end and op by op (phases 5
+   and 6b); training dropout on the card at each dropout's full-batch
+   shape, f32 and bf16 (Out = X * Mask and X@GRAD = Out@GRAD * Mask bit
+   for bit, the mask's two values, the kept share within
+   IMAGE_DROPOUT_SIGMAS sigma of 1 - p, the same mask for the same
+   program and step, another for the next step); each cell's step at
+   run.py's batch in f32 and under AMP with dropout on: launches equal to
+   launches_implied and wgmma launches to wgmma_implied (each engine's
+   share logged), images/s over 5 timed steps after 2 warm-up steps,
+   peak memory, one profiled step, a finite loss.
 7. LeNet-5 with Adam trains on the card to accuracy > 0.9 on the seeded
    synthetic digits of tests/test_book_convergence.py, in float32 and
    under AMP.
@@ -257,8 +281,9 @@ seconds):
     ``cluster_blocks``, ``resident``, the forward's ``grid_ms`` and
     ``grid_device_ms`` (the earlier design), the backward's ``kernel_ms``
     (its launch alone: its ``ms`` is the whole backward, kernel, dW
-    product, dbias and casts)), the card's name and power limit, and the
-    result.
+    product, dbias and casts); for the conv, matmul, softmax and BN rows
+    ``by_model``: the image cells' launches at run.py's batch from phase
+    2), the card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
 
@@ -510,6 +535,27 @@ GEN_REQUESTS, GEN_NEW_TOKENS, GEN_SHARED_PREFIX = 32, 64, 512
 # of its own (see phase_decode_profile)
 PROFILE_DEC = "--profile-decode-step"
 
+# The image cells of benchmark/run.py (run.py:41-50 defaults, :55-91 the
+# step): model -> (run.py's default batch, image, classes, the published
+# forward GFLOP of one image, copied from benchmark/flops.py:84-87), each
+# trained with Momentum(0.01, 0.9), under AMP by default (run.py:101-102)
+# and in float32 (BENCH_AMP=0); smallnet is resnet_cifar10(depth=20).
+IMAGE_CELLS = {
+    "alexnet": (128, (3, 224, 224), 1000, 1.43),
+    "googlenet": (128, (3, 224, 224), 1000, 3.2),
+    "vgg16": (256, (3, 224, 224), 1000, 31.0),
+    "smallnet": (256, (3, 32, 32), 10, 0.082),
+}
+IMAGE_LR, IMAGE_MOMENTUM = 0.01, 0.9
+# the work guard: counted forward GFLOP a image within this share of the
+# published figure (benchmark/flops.py:90's rtol)
+FLOPS_RTOL = 0.35
+# the kept share of a dropout mask within this many sigma of 1 - p
+IMAGE_DROPOUT_SIGMAS = 4.0
+# the plain versions at the image cells' shapes are checked once and
+# timed this many times (VGG-16's largest float32 conv is ~1 TFLOP a call)
+IMAGE_PLAIN_REPS = 2
+
 
 def log(*a):
     print(*a, flush=True)
@@ -569,22 +615,49 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
-    """{CUDA kernel name: device ms per call} of ``fn``, from one profiled
-    window of ``reps`` calls after one unprofiled call: the kernels' own
-    time, without the wrapper's host work that ``time_ms`` brackets."""
+def cuda_window(body, ok=bool, what="a profiled window", tries=7):
+    """The CUDA rows of ``key_averages()`` of one profiled window of
+    ``body()`` (CUDA activity only, a synchronise at its end).  The
+    profiler on the card sometimes leaves ctypes-launched kernels out of a
+    window: one window in 36 missed a BN forward's two launches, and once
+    three windows in a row saw no kernel at all.  A window whose rows fail
+    ``ok`` (by default: it saw no kernel) is logged and taken again after
+    a pause that doubles from 0.25 s, up to ``tries`` windows; the last
+    one is returned, and the caller judges it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        if ok(rows) or attempt == tries - 1:
+            return rows
+        pause = 0.25 * 2 ** attempt
+        log(f"{what}, window {attempt + 1}: the profiler saw "
+            f"{sum(e.count for e in rows)} kernel launches in {len(rows)} "
+            f"records; taken again after {pause:.2f} s")
+        time.sleep(pause)
+
+
+def device_ms(fn, reps=5):
+    """{CUDA kernel name: device ms per call} of ``fn``, from one profiled
+    window of ``reps`` calls after one unprofiled call (``cuda_window``):
+    the kernels' own time, without the wrapper's host work that
+    ``time_ms`` brackets."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
     return {e.key: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")}
+            for e in cuda_window(body)}
 
 
 def counters():
@@ -737,16 +810,33 @@ def bn_shapes_of(program, batch):
     return shapes
 
 
+def bn_input_is_conv(op, block):
+    """Whether a batch_norm (or batch_norm_grad) op's X is a conv2d's
+    output: under AMP that is bf16 (ResNet's bias-free convs), while a
+    conv followed by its bias add (VGG-16's) gives BN a float32 X."""
+    x = (op.attr("__fwd_inputs__")["X"][0] if op.type.endswith("_grad")
+         else op.input("X")[0])
+    return any(w.type == "conv2d" and x in w.output_arg_names
+               for w in block.ops)
+
+
 def launches_implied(program, amp=False):
     """The kernel launches one run of a training ``program`` implies; with
-    ``amp``, the conv, BN, matmul, flash attention and LSTM launches are
-    their bf16 instances' (under AMP every activation those kernels see
-    on the ResNet, transformer and LSTM steps is bf16)."""
+    ``amp``, the conv, matmul, flash attention and LSTM launches are their
+    bf16 instances' (under AMP every activation those kernels see is bf16
+    or cast to it), and a BN's are where its X is a conv's bf16 output
+    (``bn_input_is_conv``; the float32 instance's after a bias add)."""
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     block = program.global_block()
     want = dict.fromkeys(KERNELS, 0)
+    f32_bn = dict(batch_norm_fwd=0, batch_norm_bwd=0)
     for op in block.ops:
+        if (amp and op.type in ("batch_norm", "batch_norm_grad")
+                and not bn_input_is_conv(op, block)):
+            f32_bn["batch_norm_fwd" if op.type == "batch_norm"
+                   else "batch_norm_bwd"] += 1
+            continue
         if op.type == "conv2d" and _conv_kernel_op(op, block):
             want["conv2d_nhwc"] += 1
         elif op.type == "conv2d_grad" and _conv_kernel_op(
@@ -783,6 +873,7 @@ def launches_implied(program, amp=False):
     if amp:
         for name, bf16 in BF16_OF.items():
             want[bf16], want[name] = want[name], 0
+        want.update(f32_bn)
     return want
 
 
@@ -1052,29 +1143,25 @@ def host_us(fn, batches=5, calls=20):
     return statistics.median(out)
 
 
-def _bn_profile(calls, reps=5, tries=3):
+def _bn_profile(calls, reps=5):
     """{(direction, design): (device ms a call, kernel launches a call)} of
     ``calls`` ({(direction, design): fn}), from one profiled window of
-    ``reps`` calls of each after one unprofiled call of each.  The
-    profiler sometimes leaves ctypes-launched kernels out of a window (on
-    the card, one window in 36 missed a forward's two launches): a window
+    ``reps`` calls of each after one unprofiled call of each.  A window
     that saw another count than each design's launches a call (2; the
-    three-launch design's 3) is taken again, up to ``tries`` windows; the
-    last one is returned, and the caller fails on its counts."""
+    three-launch design's 3) is taken again (``cuda_window``); the last
+    one is returned, and the caller fails on its counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fn in calls.values():
-                for _ in range(reps):
-                    fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")]
+
+    def body():
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+
+    def tally(events):
         out = {}
         for key in calls:
             hits = [e for e in events if any(
@@ -1083,9 +1170,13 @@ def _bn_profile(calls, reps=5, tries=3):
             out[key] = (
                 sum(e.self_device_time_total for e in hits) / 1e3 / reps,
                 sum(e.count for e in hits) / reps)
-        if all(n == len(BN_KERNELS[key]) for key, (_, n) in out.items()):
-            break
-    return out
+        return out
+
+    def right(events):
+        return all(n == len(BN_KERNELS[key])
+                   for key, (_, n) in tally(events).items())
+
+    return tally(cuda_window(body, right, "profiled BN calls"))
 
 
 def phase_bn_instance(dtype, bn_shapes, randn):
@@ -1829,17 +1920,12 @@ def _dw_f64(x, g, k, p):
 
 def _library_kernels(fn):
     """[(kernel name, launches)] of the CUDA kernels one profiled call of
-    ``fn`` ran, after one unprofiled call."""
+    ``fn`` ran, after one unprofiled call (``cuda_window``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.key[:90], e.count) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+    return [(e.key[:90], e.count) for e in cuda_window(fn)]
 
 
 def _time_bwd_launches(kfa, dq_name, dkv_name, run, reps=10):
@@ -2239,14 +2325,21 @@ def phase_throughput(dev, model_dir):
     # where one forward's time goes: the profiler's device time by kernel
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):   # the second profiled forward is the one kept
+    # the second profiled forward is the one kept; a later one where the
+    # profiler saw no kernel (``cuda_window``)
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             rep.run({"img": x})
             wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        if attempt and kernels:
+            break
+        if attempt:
+            log(f"profiled forward, window {attempt + 1}: the profiler saw "
+                "no kernel; taken again")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"one profiled forward at batch {SERVE_BATCH}: {wall_ms:.2f} ms wall, "
         f"device kernels {busy_ms:.2f} ms busy, idle share "
@@ -2293,9 +2386,18 @@ def _scaled_err(got, want):
     return err / scale if scale else err
 
 
-def phase_train_parity(dev, main_prog, startup, loss, params_grads):
+def parity_feed(rng, image=(3, 224, 224), classes=1000):
+    """PARITY_BATCH seeded images and labels."""
+    return {"img": rng.randn(PARITY_BATCH, *image).astype(np.float32),
+            "label": rng.randint(0, classes, (PARITY_BATCH, 1)).astype(
+                np.int64)}
+
+
+def phase_train_parity(dev, main_prog, startup, loss, params_grads,
+                       image=(3, 224, 224), classes=1000, what="train-step"):
     """One train step on the card against the same step on the CPU, end to
-    end and op by op.
+    end and op by op (ResNet-50's; with ``image`` and ``classes``, an
+    image cell's).
 
     End to end, from identical weights and feeds: the loss and the BN
     running statistics within PARITY_TOL of the CPU's largest magnitude.
@@ -2323,8 +2425,7 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
     card.run(startup, scope=scope)
     state = {n: v.cpu().numpy() for n, v in scope.values.items()}
     rng = np.random.RandomState(5)
-    feed = {"img": rng.randn(PARITY_BATCH, 3, 224, 224).astype(np.float32),
-            "label": rng.randint(0, 1000, (PARITY_BATCH, 1)).astype(np.int64)}
+    feed = parity_feed(rng, image, classes)
     fetch = [loss.name] + [g.name for _, g in params_grads]
     t0 = time.perf_counter()
     got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
@@ -2370,7 +2471,7 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
             worst[kind] = (rel, rel_spread, name)
         if not err <= allowed:
             bad.append((name, err, allowed))
-    log(f"train-step parity at batch {PARITY_BATCH}, end to end (card "
+    log(f"{what} parity at batch {PARITY_BATCH}, end to end (card "
         f"{t_card:.2f} s, CPU plain path {t_cpu:.2f} s per step): loss card "
         f"{float(got[0]):.6f} vs CPU {float(runs[0][0]):.6f}; "
         f"{len(params_grads)} gradients and {len(state)} state tensors, "
@@ -2384,13 +2485,14 @@ def phase_train_parity(dev, main_prog, startup, loss, params_grads):
              f"{bad[:10]}")
 
     ops_on_identical_inputs(dev, block, state, feed,
-                            f"train-step parity at batch {PARITY_BATCH}")
+                            f"{what} parity at batch {PARITY_BATCH}")
     del scope, got, runs
     torch.cuda.empty_cache()
     return worst
 
 
-def phase_amp_parity(dev, main_prog, startup, loss):
+def phase_amp_parity(dev, main_prog, startup, loss, image=(3, 224, 224),
+                     classes=1000, what="AMP step"):
     """One AMP step on the card against the same AMP step on the CPU (the
     kernels' plain versions), from identical weights and feeds, end to
     end: the loss within AMP_PARITY_TOL of its value, each BN running
@@ -2409,8 +2511,7 @@ def phase_amp_parity(dev, main_prog, startup, loss):
     card.run(startup, scope=scope)
     state = {n: v.cpu().numpy() for n, v in scope.values.items()}
     rng = np.random.RandomState(6)
-    feed = {"img": rng.randn(PARITY_BATCH, 3, 224, 224).astype(np.float32),
-            "label": rng.randint(0, 1000, (PARITY_BATCH, 1)).astype(np.int64)}
+    feed = parity_feed(rng, image, classes)
     block = main_prog.global_block()
     stats = sorted({n for op in block.ops if op.type == "batch_norm"
                     for n in op.input("Mean") + op.input("Variance")})
@@ -2432,7 +2533,7 @@ def phase_amp_parity(dev, main_prog, startup, loss):
                                          scope=scopes[amp])
         t_cpu = (time.perf_counter() - t0) / 2
     if launches != launches_implied(main_prog, amp=True):
-        fail(f"AMP step at batch {PARITY_BATCH}: launches {launches}")
+        fail(f"{what} at batch {PARITY_BATCH}: launches {launches}")
     want = losses[True]
     rel_loss = abs(float(got) - float(want)) / abs(float(want))
     bad = [(loss.name, rel_loss)] if not rel_loss <= AMP_PARITY_TOL else []
@@ -2449,7 +2550,7 @@ def phase_amp_parity(dev, main_prog, startup, loss):
         worst = max(worst, (err / scale, effect / scale, name))
         if not err <= allowed:
             bad.append((name, err, allowed))
-    log(f"AMP step parity at batch {PARITY_BATCH}, end to end (card "
+    log(f"{what} parity at batch {PARITY_BATCH}, end to end (card "
         f"{t_card:.2f} s, CPU plain path {t_cpu:.2f} s a step): loss card "
         f"{float(got):.6f} vs CPU {float(want):.6f} (rel {rel_loss:.2e}; the "
         f"CPU's f32 step {float(losses[False]):.6f}); {len(stats)} BN "
@@ -2462,7 +2563,7 @@ def phase_amp_parity(dev, main_prog, startup, loss):
              f"{bad[:10]}")
     with pt.amp.amp_guard(True):
         ops_on_identical_inputs(dev, block, state, feed,
-                                f"AMP step parity at batch {PARITY_BATCH}",
+                                f"{what} parity at batch {PARITY_BATCH}",
                                 tol=AMP_OP_TOL)
     del scope, scopes
     torch.cuda.empty_cache()
@@ -2485,13 +2586,29 @@ def _moved(v, device):
     return torch.as_tensor(v, device=device)
 
 
+def pre_bn_bias_grads(block):
+    """{Y@GRAD: Out@GRAD} of the bias adds whose output feeds a training
+    batch_norm (VGG-16's conv biases): BN takes out every per-channel
+    shift, so such a bias's gradient, the sum of Out@GRAD over the rows,
+    is zero but for rounding; ``ops_on_identical_inputs`` holds it
+    relative to the terms it sums, where a test relative to itself would
+    hold noise to noise."""
+    bn_x = {op.input("X")[0] for op in block.ops
+            if op.type == "batch_norm" and not op.attr("is_test", False)}
+    return {op.output("Y@GRAD")[0]: op.input("Out@GRAD")[0]
+            for op in block.ops if op.type == "elementwise_add_grad"
+            and op.attr("__fwd_outputs__")["Out"][0] in bn_x
+            and op.output("Y@GRAD") and op.output("Y@GRAD")[0]}
+
+
 def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
                             only=None):
     """Every op of ``block`` (forward, grad ops, sums, updates) on the card
     and, on copies of the very same input values, on the CPU: each output
-    within ``tol`` of the CPU output's largest magnitude.  A grad op gets
-    the residual its forward left for it (the attention's logsumexp, the
-    LSTM's gates) on both sides.  With ``only`` (a set of op types), the
+    within ``tol`` of the CPU output's largest magnitude (a bias gradient
+    in front of a training BN: of the terms it sums, ``pre_bn_bias_grads``).
+    A grad op gets the residual its forward left for it (the attention's
+    logsumexp, the LSTM's gates) on both sides.  With ``only`` (a set of op types), the
     other ops run on the card alone, to make the compared ops' inputs."""
     import torch
 
@@ -2501,6 +2618,7 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
     from paddle_tpu_torch.registry import LowerContext, OpRegistry
 
     cpu_dev = torch.device("cpu")
+    bias_terms = pre_bn_bias_grads(block)
     values = {n: _moved(v, dev) for n, v in state.items()}
     values.update({k: _moved(v, dev) for k, v in feed.items()})
     op_worst, op_bad, n_out = [], [], 0
@@ -2524,6 +2642,9 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
                 want = unwrap(twin[n]).double()
                 g = unwrap(values[n]).cpu().double()
                 scale = float(want.abs().max()) if want.numel() else 0.0
+                if n in bias_terms:
+                    scale = max(scale, float(unwrap(
+                        twin[bias_terms[n]]).double().abs().max()))
                 err = float((g - want).abs().max()) if want.numel() else 0.0
                 n_out += 1
                 op_worst.append((err / scale if scale else err, op.type, n))
@@ -2630,15 +2751,18 @@ def profile_step(run, what, split=None, want=None):
     of a ``record_function`` range}) logs the device time of each part
     beside the host's.  ``want`` ({kernel name: launches}) fails the run
     if the profiler saw fewer launches of a kernel.  Returns the idle
-    share.  A window whose ``want`` counts fall short is profiled again,
-    up to 3 windows in all: the profiler has dropped a short kernel's
-    record from a window whose launch counters were right."""
+    share.  A window whose ``want`` counts fall short, or that saw no
+    kernel, is profiled again after a pause, up to 5 windows in all: the
+    profiler has dropped a short kernel's record from a window whose
+    launch counters were right (``cuda_window``)."""
     from torch.profiler import ProfilerActivity, profile
 
     # a range also shows on the device timeline as an annotation spanning
     # its kernels and the gaps between them: not a kernel
     ranges = {v for v in (split or {}).values() if isinstance(v, str)}
-    for attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.25 * 2 ** attempt)
         for _ in range(2):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2653,10 +2777,10 @@ def profile_step(run, what, split=None, want=None):
         short = {k: sum(r[1] for r in rows if k in r[2])
                  for k in (want or {})}
         short = {k: v for k, v in short.items() if v < want[k]}
-        if not short:
+        if rows and not short:
             break
         log(f"profiled {what}, window {attempt + 1}: the profiler saw "
-            f"{short} launches, want {want}")
+            f"{short} launches of {len(rows)} kernels, want {want}")
     for kernel, n in (want or {}).items():
         seen = sum(r[1] for r in rows if kernel in r[2])
         if seen < n:
@@ -4640,6 +4764,567 @@ def profile_decode_step():
                       "d2h_ms": statistics.median(d2h)}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the image cells of benchmark/run.py: alexnet, googlenet, vgg16, smallnet
+# ---------------------------------------------------------------------------
+
+
+def build_image_program(name, is_test=False, seed=2026):
+    """run.py's training program for an image cell (run.py:55-91), in the
+    port: the model at its image size and classes, mean(cross_entropy),
+    Momentum(0.01, 0.9); with ``is_test`` its dropouts are the identity
+    (every other op trains).  Returns (main, startup, loss,
+    params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import models
+
+    _, image, classes, _ = IMAGE_CELLS[name]
+    pt.framework.reset_default_programs()
+    main_prog = pt.default_main_program()
+    startup = pt.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    img = pt.layers.data(name="img", shape=list(image))
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    if name == "smallnet":
+        pred = models.resnet_cifar10(img, depth=20, class_dim=classes)
+    else:
+        pred = getattr(models, name)(img, class_dim=classes, is_test=is_test)
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    _, params_grads = pt.optimizer.Momentum(
+        learning_rate=IMAGE_LR, momentum=IMAGE_MOMENTUM).minimize(loss)
+    return main_prog, startup, loss, params_grads
+
+
+def forward_gflops_per_image(program):
+    """The forward conv and fc GFLOP of one image, from the program's
+    static shapes, counted as benchmark/flops.py:21-73 counts them: 2 x
+    the multiply-adds of every conv2d and mul op."""
+    block = program.global_block()
+    total = 0.0
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.var(op.input("Filter")[0]).shape
+            out = block.var(op.output("Output")[0]).shape
+            total += 2.0 * math.prod(w) * out[2] * out[3]
+        elif op.type == "mul":
+            x = block.var(op.input("X")[0]).shape
+            y = block.var(op.input("Y")[0]).shape
+            ncol = op.attr("x_num_col_dims", 1)
+            total += (2.0 * math.prod(x[1:ncol]) * math.prod(x[ncol:])
+                      * math.prod(y[1:]))
+    return total / 1e9
+
+
+def phase_image_work_guard(programs):
+    """Each image program's forward conv + fc GFLOP per image within
+    FLOPS_RTOL of the architecture's published cost (IMAGE_CELLS): a
+    graph doing the wrong amount of work (a stem that lost its stride)
+    fails here, before any number is taken."""
+    got = {}
+    for name, (main_prog, *_) in programs.items():
+        want = IMAGE_CELLS[name][3]
+        got[name] = forward_gflops_per_image(main_prog)
+        log(f"{name}: {got[name]:.4f} GFLOP a forward image (published "
+            f"{want}, tolerance {FLOPS_RTOL:.0%})")
+        if not abs(got[name] - want) <= FLOPS_RTOL * want:
+            fail(f"{name} does {got[name]:.3f} GFLOP a forward image, not "
+                 f"{want} +- {FLOPS_RTOL:.0%}")
+    return got
+
+
+def image_conv_launches(program, batch):
+    """{"fwd" | "bwd" | "dw": {(n, h, w, c, o, k): count}}: the conv
+    kernel's forward, backward-input and filter-gradient launches in one
+    training step of ``program`` at ``batch`` rows (a conv on the image
+    has no backward-input)."""
+    block = program.global_block()
+    out = {"fwd": {}, "bwd": {}, "dw": {}}
+    for op in block.ops:
+        if op.type == "conv2d" and _conv_kernel_op(op, block):
+            kinds = ["fwd"]
+        elif op.type == "conv2d_grad" and _conv_kernel_op(
+                op, block, attrs=op.attr("__fwd_attrs__")):
+            kinds = [k for k, slot in (("bwd", "Input@GRAD"),
+                                       ("dw", "Filter@GRAD"))
+                     if op.output(slot) and op.output(slot)[0]]
+        else:
+            continue
+        x = block.var(op.input("Input")[0]).shape
+        w = block.var(op.input("Filter")[0]).shape
+        key = (batch, x[2], x[3], x[1], w[0], w[2])
+        for kind in kinds:
+            out[kind][key] = out[kind].get(key, 0) + 1
+    return out
+
+
+def conv_engine(kind, c, o, bf16):
+    """The engine of a conv launch of ``kind`` with c input and o output
+    channels, on 16-byte-aligned operands (every tensor the step hands the
+    kernels): the rules of kernels/conv.py (the backward-input's C and O
+    swapped)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    if kind == "dw":
+        return (kconv.bf16_engine if bf16 else kconv.f32_dw_engine)(
+            c, o, 0, 0)
+    if kind == "bwd":
+        c, o = o, c
+    return (kconv.bf16_engine if bf16 else kconv.f32_engine)(c, o, 0, 0)
+
+
+CONV_ROWS = {"fwd": "conv2d_nhwc", "bwd": "conv_bwd_input", "dw": "conv_dw"}
+
+
+def wgmma_implied(program, amp):
+    """The wgmma launches of one training step of ``program``, keyed as
+    ``wgmma_counters()``: each conv launch by ``conv_engine``; the fcs'
+    products (at most 256 rows) all on the tiles."""
+    want = dict.fromkeys(wgmma_counters(), 0)
+    for kind, shapes in image_conv_launches(program, 1).items():
+        row = CONV_ROWS[kind] + ("_bf16" if amp else "")
+        for (_, _, _, c, o, _), count in shapes.items():
+            want[row] += count * (conv_engine(kind, c, o, amp) == "wgmma")
+    return want
+
+
+def _image_conv_calls(kind, x, wt, g, k, p):
+    """(kernel, plain, library) calls of one conv launch of ``kind``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    x_lib, g_lib = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    w_lib = wt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    if kind == "fwd":
+        return (lambda: kconv.conv2d_nhwc(x, wt, p),
+                lambda: kconv.conv2d_nhwc_plain(x, wt, p),
+                lambda: F.conv2d(x_lib, w_lib, padding=p))
+    if kind == "bwd":
+        return (lambda: kconv.conv2d_nhwc_bwd_input(g, wt, p),
+                lambda: kconv.conv2d_nhwc_bwd_input_plain(g, wt, p),
+                lambda: conv2d_input(x_lib.shape, w_lib, g_lib, padding=p))
+    return (lambda: kconv.conv2d_nhwc_dw(x, g, k, p),
+            lambda: kconv.conv2d_nhwc_dw_plain(x, g, k, p),
+            lambda: conv2d_weight(x_lib, w_lib.shape, g_lib, padding=p))
+
+
+def _image_model_convs(name, launches, dtype, randn):
+    """One model's conv launches in ``dtype``: every distinct shape of
+    each kind against its plain version (checked once; the plain version
+    timed IMAGE_PLAIN_REPS times), CUDA-event medians of the kernel and
+    the library call, the bound; summed over the step's launches, and
+    apart by engine; then the step's launches of each kind once more in
+    one profiled window, for their device time.  Returns {row: summary}."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    sfx = "_bf16" if bf16 else ""
+    shapes = sorted(set().union(*launches.values()))
+    tensors = {}
+    for (n, h, w, c, o, k) in shapes:
+        tensors[(n, h, w, c, o, k)] = (
+            randn(n, h, w, c).to(dtype),
+            randn(k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5).to(dtype),
+            randn(n, h, w, o).to(dtype))
+    out = {}
+    for kind, counts in launches.items():
+        row = CONV_ROWS[kind] + sfx
+        total, calls = _Sum(peak), []
+        by_engine = {}
+        for key, count in sorted(counts.items()):
+            n, h, w, c, o, k = key
+            x, wt, g = tensors[key]
+            kernel, plain, library = _image_conv_calls(kind, x, wt, g, k,
+                                                       k // 2)
+            tag = f"{name} {'bf16 ' if bf16 else ''}{kind} N{n} {h}x{w} " \
+                  f"{c}->{o} k{k}"
+            want = plain()
+            got = kernel()
+            if kind == "dw":
+                err = check_scaled(tag, got, want, DW_TOL)
+            elif bf16:
+                err = check_bf16(tag, got, want)
+            else:
+                err = check_close(tag, got, want, **GEMM_TOL)
+            del got, want
+            times = (time_ms(kernel, reps=5),
+                     time_ms(plain, reps=IMAGE_PLAIN_REPS, warmup=0),
+                     time_ms(library, reps=5))
+            flops = 2.0 * n * h * w * o * k * k * c
+            nbytes = (size * (n * h * w * (c + o))
+                      + (4 if kind == "dw" else size) * k * k * c * o)
+            engine = conv_engine(kind, c, o, bf16)
+            _line(f"{tag} ({engine})", count, *times, flops, nbytes, err,
+                  peak)
+            total.add(count, *times, flops, nbytes, err)
+            e = by_engine.setdefault(engine, dict(launches=0, ms=0.0))
+            e["launches"] += count
+            e["ms"] += count * times[0]
+            calls.append((kernel, count))
+
+        def window(calls=calls):
+            for fn, count in calls:
+                for _ in range(count):
+                    fn()
+
+        r = total.result()
+        r.update(device_ms=sum(device_ms(window, reps=1).values()),
+                 launches=sum(counts.values()), engines=by_engine)
+        log(f"  {name}'s {row} launches ({r['launches']}): kernel "
+            f"{r['ms']:.3f} ms, device {r['device_ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}); by engine "
+            + ", ".join(f"{e} {v['launches']} launches {v['ms']:.3f} ms"
+                        for e, v in sorted(by_engine.items())))
+        out[row] = r
+    del tensors
+    torch.cuda.empty_cache()
+    return out
+
+
+def _image_model_dense(name, program, batch, randn):
+    """The fcs' forward products (the matmul kernel, f32 and bf16) and the
+    head's softmax at the step's shapes, against their plain versions,
+    with the library call and the bound.  Returns {row: summary}."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    out = {}
+    for dtype, row in ((torch.float32, "matmul"),
+                       (torch.bfloat16, "matmul_bf16")):
+        bf16 = dtype == torch.bfloat16
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        total = _Sum(peak)
+        for (m, k, n), count in sorted(mul_shapes_of(program, batch).items()):
+            x = randn(m, k).to(dtype)
+            y = randn(k, n, scale=k ** -0.5).to(dtype)
+            tag = f"{name} {'bf16 ' if bf16 else ''}matmul {m}x{k}x{n}"
+            got, want = kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y)
+            err = (check_bf16(tag, got, want) if bf16
+                   else check_close(tag, got, want, **GEMM_TOL))
+            times = (time_ms(lambda: kmatmul.matmul(x, y), reps=5),
+                     time_ms(lambda: kmatmul.matmul_plain(x, y),
+                             reps=IMAGE_PLAIN_REPS, warmup=0),
+                     time_ms(lambda: torch.matmul(x, y), reps=5))
+            flops = 2.0 * m * k * n
+            nbytes = (2 if bf16 else 4) * (m * k + k * n + m * n)
+            engine = (kmatmul.bf16_engine if bf16 else kmatmul.f32_engine)(
+                m, k, n, x.data_ptr(), y.data_ptr())
+            _line(f"{tag} ({engine})", count, *times, flops, nbytes, err,
+                  peak)
+            total.add(count, *times, flops, nbytes, err)
+        out[row] = total.result()
+    classes = IMAGE_CELLS[name][2]
+    x = randn(batch, classes, scale=4.0)
+    err = check_close(f"{name} softmax {batch}x{classes}",
+                      ksoftmax.softmax(x), ksoftmax.softmax_plain(x),
+                      rtol=0, atol=SOFTMAX_ATOL)
+    times = (time_ms(lambda: ksoftmax.softmax(x), reps=5),
+             time_ms(lambda: ksoftmax.softmax_plain(x), reps=5),
+             time_ms(lambda: torch.softmax(x, dim=-1), reps=5))
+    b_ms, b_by = bound(5.0 * batch * classes, 8.0 * batch * classes)
+    _line(f"{name} softmax {batch}x{classes}", 1, *times,
+          5.0 * batch * classes, 8.0 * batch * classes, err)
+    out["softmax"] = dict(ms=times[0], plain_ms=times[1],
+                          library_ms=times[2], bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err)
+    return out
+
+
+def _image_model_bn(name, program, batch, randn):
+    """The BN forward and backward at every distinct BN shape of the step,
+    in each dtype a cell runs it (float32 after VGG-16's bias adds in both
+    cells; bf16 too under AMP where X is a conv's output), against their
+    plain versions, with the library call (F.batch_norm and
+    native_batch_norm_backward on channels-last tensors) and the bound.
+    Returns {row: summary}."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    block = program.global_block()
+    shapes = bn_shapes_of(program, batch)
+    if not shapes:
+        return {}
+    dtypes = [torch.float32]
+    if any(bn_input_is_conv(op, block) for op in block.ops
+           if op.type == "batch_norm"):
+        dtypes.append(torch.bfloat16)
+    out = {}
+    for dtype in dtypes:
+        bf16 = dtype == torch.bfloat16
+        size, sfx = (2, "_bf16") if bf16 else (4, "")
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        sums = {"fwd": _Sum(peak), "bwd": _Sum(peak)}
+        for (n, h, w, c), count in sorted(shapes.items()):
+            rows = n * h * w
+            x = (randn(rows, c, scale=2.0) + 0.5).to(dtype)
+            dy = randn(rows, c).to(dtype)
+            gamma, beta = randn(c), randn(c)
+            x4 = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
+            dy4 = dy.reshape(n, h, w, c).permute(0, 3, 1, 2)
+            tag = f"{name} {'bf16 ' if bf16 else ''}bn R{rows} C{c}"
+
+            def close(what, got, want):
+                return (check_bf16(what, got, want) if bf16
+                        else check_close(what, got, want, **BN_TOL))
+
+            y, m, v = kbn.batch_norm_fwd(x, gamma, beta, BN_EPS)
+            py, pm, pv = kbn.batch_norm_fwd_plain(x, gamma, beta, BN_EPS)
+            err_f = close(f"{tag} fwd", y, py)
+            check_scaled(f"{tag} mean", m, pm, BN_VEC_TOL)
+            check_scaled(f"{tag} var", v, pv, BN_VEC_TOL)
+            inv = torch.rsqrt(v + BN_EPS)
+            dx, dg, db = kbn.batch_norm_bwd(x, dy, gamma, m, inv)
+            pdx, pdg, pdb = kbn.batch_norm_bwd_plain(x, dy, gamma, m, inv)
+            err_b = close(f"{tag} bwd", dx, pdx)
+            check_scaled(f"{tag} dgamma", dg, pdg, BN_VEC_TOL)
+            check_scaled(f"{tag} dbeta", db, pdb, BN_VEC_TOL)
+            del y, py, dx, pdx
+            for d, err, flops, nbytes, fns in (
+                    ("fwd", err_f, 5.0 * rows * c, 2.0 * rows * c * size, (
+                        lambda: kbn.batch_norm_fwd(x, gamma, beta, BN_EPS),
+                        lambda: kbn.batch_norm_fwd_plain(x, gamma, beta,
+                                                         BN_EPS),
+                        lambda: F.batch_norm(x4, None, None, gamma, beta,
+                                             training=True, eps=BN_EPS))),
+                    ("bwd", err_b, 8.0 * rows * c, 3.0 * rows * c * size, (
+                        lambda: kbn.batch_norm_bwd(x, dy, gamma, m, inv),
+                        lambda: kbn.batch_norm_bwd_plain(x, dy, gamma, m,
+                                                         inv),
+                        lambda: torch.ops.aten.native_batch_norm_backward(
+                            dy4, x4, gamma, None, None, m, inv, True,
+                            BN_EPS, [True, True, True])))):
+                times = (time_ms(fns[0], reps=5),
+                         time_ms(fns[1], reps=IMAGE_PLAIN_REPS, warmup=0),
+                         time_ms(fns[2], reps=5))
+                _line(f"{tag} {d} ({kbn.route(c, dtype, x.data_ptr())})", count, *times, flops,
+                      nbytes, err, peak)
+                sums[d].add(count, *times, flops, nbytes, err)
+            del x, dy, x4, dy4
+        for d, row in (("fwd", "batch_norm_fwd"), ("bwd", "batch_norm_bwd")):
+            out[row + sfx] = sums[d].result()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_image_kernels(dev, programs):
+    """Phase 2 at the image cells' shapes: every kernel-route conv shape of
+    the four steps at run.py's batch (forward, backward-input, filter
+    gradient; float32 and bf16) against its plain version on the engine
+    the rules pick, the fcs' products and the heads' softmax, and the BN
+    at VGG-16's and smallnet's shapes; each model's launches summed.
+    Returns {model: {kernels-line row: summary}}."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    results = {}
+    for name, (main_prog, *_) in programs.items():
+        batch = IMAGE_CELLS[name][0]
+        launches = image_conv_launches(main_prog, batch)
+        log(f"{name} at batch {batch}: conv kernel launches a step "
+            + ", ".join(f"{k} {sum(v.values())} ({len(v)} shapes)"
+                        for k, v in launches.items())
+            + f" (plain versions timed {IMAGE_PLAIN_REPS} times):")
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            res.update(_image_model_convs(name, launches, dtype, randn))
+        res.update(_image_model_dense(name, main_prog, batch, randn))
+        res.update(_image_model_bn(name, main_prog, batch, randn))
+        results[name] = res
+    return results
+
+
+def phase_image_parity(dev, name):
+    """An image cell's step at PARITY_BATCH on the card against the same
+    step on CPUPlace() from identical weights, its dropouts ``is_test``
+    (the two devices draw different masks) and every other op training:
+    float32 (phase 5's tolerances, end to end and op by op) and AMP (phase
+    6b's)."""
+    main_prog, startup, loss, params_grads = build_image_program(
+        name, is_test=True)
+    _, image, classes, _ = IMAGE_CELLS[name]
+    phase_train_parity(dev, main_prog, startup, loss, params_grads, image,
+                       classes, what=f"{name} step")
+    phase_amp_parity(dev, main_prog, startup, loss, image, classes,
+                     what=f"{name} AMP step")
+
+
+def _dropout_on_card(dev, shape, p, dtype, models):
+    """One training dropout at ``shape`` in ``dtype`` on the card, in a
+    program of its own (dropout, then mean): Out == X * Mask and X@GRAD
+    == Out@GRAD * Mask bit for bit, the mask's values {0, 1 / (1 - p) in
+    the dtype} and nothing else, the kept share within
+    IMAGE_DROPOUT_SIGMAS sigma of 1 - p; a second Executor's first step
+    draws the same mask, the next step another."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.backward import append_backward
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.seed = startup.seed = 99
+    with pt.program_guard(main_prog, startup):
+        x = pt.layers.data(name="x", shape=list(shape[1:]), dtype=dtype)
+        x.stop_gradient = False
+        out = pt.layers.dropout(x, dropout_prob=p)
+        out_f32 = out
+        if dtype != "float32":
+            helper = LayerHelper("cast")
+            out_f32 = helper.create_tmp_variable("float32", out.shape)
+            helper.append_op(type="cast", inputs={"X": [out]},
+                             outputs={"Out": [out_f32]},
+                             attrs={"out_dtype": "float32",
+                                    "in_dtype": dtype})
+        append_backward(pt.layers.mean(out_f32))
+    mask = main_prog.global_block().ops[0].output("Mask")[0]
+    tdt = getattr(torch, dtype)
+    xv = torch.randn(*shape, device=dev).to(tdt)
+    fetch = [out.name, mask, "x@GRAD", out.name + "@GRAD"]
+    masks = []
+    for exe_i in range(2):
+        exe = pt.Executor()
+        for step in range(2 - exe_i):
+            o, m, gx, go = exe.run(main_prog, feed={"x": xv},
+                                   fetch_list=fetch, scope=pt.Scope(),
+                                   return_numpy=False)
+            masks.append(m)
+            if not (torch.equal(o, xv * m) and torch.equal(gx, go * m)):
+                fail(f"dropout {shape} {dtype}: Out != X * Mask or X@GRAD "
+                     "!= Out@GRAD * Mask")
+            q = float(torch.ones((), dtype=tdt) / torch.tensor(1 - p,
+                                                               dtype=tdt))
+            vals = set(torch.unique(m.float()).tolist())
+            kept = float((m != 0).float().mean())
+            sigma = (p * (1 - p) / m.numel()) ** 0.5
+            if vals != {0.0, q} or not abs(kept - (1 - p)) <= \
+                    IMAGE_DROPOUT_SIGMAS * sigma:
+                fail(f"dropout {shape} {dtype}: mask values {vals} (want "
+                     f"{{0, {q}}}), kept share {kept} (want {1 - p} +- "
+                     f"{IMAGE_DROPOUT_SIGMAS} x {sigma:.2e})")
+    if not torch.equal(masks[0], masks[2]) or torch.equal(masks[0],
+                                                          masks[1]):
+        fail(f"dropout {shape} {dtype}: the same step of two Executors drew "
+             "different masks, or two steps the same one")
+    log(f"  dropout p {p} at {tuple(shape)} {dtype} ({', '.join(models)}): "
+        f"Out = X * Mask, X@GRAD = Out@GRAD * Mask, mask values {{0, {q}}},"
+        f" kept {kept:.5f} (1 - p = {1 - p}, sigma {sigma:.1e}); the same "
+        "step of a second Executor draws the same mask, the next step "
+        "another")
+
+
+def phase_image_dropout(dev, programs):
+    """Training dropout on the card at each dropout's full-batch shape of
+    the image steps, float32 (what both cells hand it: the fc and the
+    pooled conv outputs are float32 after their bias adds) and bf16."""
+    shapes = {}
+    for name, (main_prog, *_) in programs.items():
+        block = main_prog.global_block()
+        for op in block.ops:
+            if op.type == "dropout":
+                shape = ((IMAGE_CELLS[name][0],)
+                         + tuple(block.var(op.input("X")[0]).shape[1:]))
+                shapes.setdefault((shape, op.attr("dropout_prob")),
+                                  []).append(name)
+    for (shape, p), models in sorted(shapes.items()):
+        for dtype in ("float32", "bfloat16"):
+            _dropout_on_card(dev, shape, p, dtype, sorted(set(models)))
+
+
+def phase_image_step(dev, name, smi, amp=False):
+    """An image cell's training step at run.py's batch (under AMP with
+    ``amp``), dropout on: counted launches against ``launches_implied``
+    and each engine's share against ``wgmma_implied``, images/s over 5
+    timed steps after 2 warm-up steps, peak memory (it must fit the card),
+    one profiled step, a finite loss."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, _ = build_image_program(name)
+    with pt.amp.amp_guard(amp):
+        return _image_step(dev, name, main_prog, startup, loss,
+                           IMAGE_CELLS[name][0], smi,
+                           "AMP bf16" if amp else "f32", amp)
+
+
+def _image_step(dev, name, main_prog, startup, loss, batch, smi, kind, amp):
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    _, image, classes, _ = IMAGE_CELLS[name]
+    want = launches_implied(main_prog, amp=amp)
+    want_wgmma = wgmma_implied(main_prog, amp)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    feed = {"img": torch.randn(batch, *image, device=dev, generator=gen),
+            "label": torch.randint(0, classes, (batch, 1), device=dev,
+                                   generator=gen)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    first_s = time.perf_counter() - t0
+    launches = counters()
+    wgmma = wgmma_counters()
+    log(f"first {name} {kind} train step at batch {batch}: loss "
+        f"{float(first):.5f} in {first_s:.2f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        fail(f"{name} {kind} step: launch counts {launches} != {want}")
+    if wgmma != want_wgmma:
+        fail(f"{name} {kind} step: wgmma launch counts {wgmma} != "
+             f"{want_wgmma}")
+    shares = {row: (wgmma[row], launches[row]) for row in wgmma
+              if launches[row]}
+    log(f"  {name} {kind}: launches on the wgmma engine / all, by kernel: "
+        + ", ".join(f"{row} {w}/{n} ({w / n:.0%})"
+                    for row, (w, n) in shares.items()))
+    (second,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    times, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        (val,) = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t0)   # numpy fetch: a device sync
+        losses.append(float(val))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([float(first), float(second)] + losses)):
+        fail(f"{name} {kind}: non-finite training loss: {first}, {second}, "
+             f"{losses}")
+    img_s = 5 * batch / sum(times)
+    log(f"{name} train step at batch {batch} ({kind}): {img_s:.1f} images/s "
+        f"over 5 timed steps after 2 warm-up steps ({sum(times):.3f} s; "
+        f"median {statistics.median(times) * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); losses "
+        f"{[round(x, 5) for x in losses]}; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB on {smi}")
+    idle = profile_step(
+        lambda: exe.run(main_prog, feed=feed, fetch_list=[loss],
+                        scope=scope),
+        f"{name} {kind} train step",
+        want={"wgmma_dw_kernel": want_wgmma["conv_dw_bf16"],
+              "wgmma_tf32_dw_kernel": want_wgmma["conv_dw"]})
+    del exe, scope, feed
+    torch.cuda.empty_cache()
+    return dict(images_per_s=img_s, peak_bytes=peak, idle_share=idle,
+                launches=launches, wgmma=wgmma, shares=shares, batch=batch)
+
+
 def phase_decode_profile():
     """F. One profiled decode step in a fresh process (this script with
     PROFILE_DEC), as phase 16 profiles the sequence steps."""
@@ -4769,9 +5454,14 @@ def main():
     if want_amp != expect:
         fail(f"unexpected ResNet-50 AMP training program: {want_amp}")
 
+    # the image cells of benchmark/run.py: their work first
+    image_programs = {name: build_image_program(name) for name in IMAGE_CELLS}
+    timed(phase_image_work_guard, image_programs)
+
     kernels = timed(phase_kernels, dev, serve_shapes,
                     conv_shapes_of(main_prog, TRAIN_BATCH),
                     bn_shapes_of(main_prog, TRAIN_BATCH))
+    image_kernels = timed(phase_image_kernels, dev, image_programs)
 
     exe = pt.Executor()   # CUDAPlace(0) by default
     scope = pt.Scope()
@@ -4797,6 +5487,15 @@ def main():
     timed(phase_amp_parity, dev, main_prog, startup, loss)
     amp_train = timed(phase_train_step, dev, main_prog, startup, loss,
                       want_amp, smi, amp=True)
+    for name in IMAGE_CELLS:
+        timed(phase_image_parity, dev, name)
+    timed(phase_image_dropout, dev, image_programs)
+    image_steps = {}
+    for name in IMAGE_CELLS:
+        for amp in (False, True):
+            path = f"{name}{'_amp' if amp else ''}_train_step"
+            image_steps[path] = timed(phase_image_step, dev, name, smi,
+                                      amp=amp)
     timed(phase_lenet, dev)
     timed(phase_lenet, dev, amp=True)
 
@@ -4842,7 +5541,8 @@ def main():
                "lstm_train_step": lstm["launches"],
                "lstm_amp_train_step": lstm_amp["launches"],
                "lod_train_step": lod["launches"],
-               "generate": gen_launches, **dec_counts}
+               "generate": gen_launches, **dec_counts,
+               **{p: r["launches"] for p, r in image_steps.items()}}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -4865,7 +5565,8 @@ def main():
                      "transformer_amp_train_step": tf_amp["wgmma"],
                      "lstm_train_step": lstm["wgmma"],
                      "lstm_amp_train_step": lstm_amp["wgmma"],
-                     "lod_train_step": lod["wgmma"]}
+                     "lod_train_step": lod["wgmma"],
+                     **{p: r["wgmma"] for p, r in image_steps.items()}}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
                       conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
                       matmul_bf16=tf_amp["wgmma"],
@@ -4902,7 +5603,12 @@ def main():
                                             wgmma_by_path.items()}}
                 if name in main_wgmma else {}),
              **({"mma_sync_ms": k["mma_sync_ms"]}
-                if "mma_sync_ms" in k else {}))
+                if "mma_sync_ms" in k else {}),
+             # the image cells' launches of this kernel at run.py's batch
+             # (phase 2), by model
+             **({"by_model": {m: r[name] for m, r in image_kernels.items()
+                              if name in r}}
+                if any(name in r for r in image_kernels.values()) else {}))
         for name, k in kernels.items()]}
     log(f"serving throughput: {img_per_s:.1f} images/s at bucket "
         f"{SERVE_BATCH}; ResNet-50 training: {train['images_per_s']:.1f} "
@@ -4933,8 +5639,13 @@ def main():
         f"{gen['ttft_p99_ms']:.1f} ms, decode step {gen['step_ms_16']:.2f} "
         f"ms at 16 slots, peak {gen['peak_bytes'] / 2**30:.2f} GiB, idle "
         f"share {gen['idle_share']:.3f}; speculative {spec['tokens_per_s']:.1f}"
-        f" tokens/s, acceptance {spec['accept_ratio']:.3f}; on {smi}; "
-        f"{time.perf_counter() - t_start:.1f} s in all")
+        f" tokens/s, acceptance {spec['accept_ratio']:.3f}; image cells of "
+        "benchmark/run.py: "
+        + "; ".join(f"{p[:-len('_train_step')]} {r['images_per_s']:.1f} "
+                    f"images/s at batch {r['batch']}, peak "
+                    f"{r['peak_bytes'] / 2**30:.2f} GiB, idle share "
+                    f"{r['idle_share']:.3f}" for p, r in image_steps.items())
+        + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -132,6 +132,12 @@ _WG_TILE_M = 128      # wgmma_gemm.cuh's kBM
 # a block's fixed cost (the ring's fill and drain, the epilogue), in K
 # steps; the card's rates (bf16 tensor cores, memory) for the rest
 _WG_FIXED_STEPS = 8
+# at most this many K steps a split of the bf16 filter gradient, however
+# many waves that takes: the tensor cores truncate the f32 sums they
+# accumulate, so a split's drift grows with its length (VGG-16's 56 x 56
+# 256 -> 256 filter gradient at 1,792 steps a split missed 1e-4 of max;
+# ResNet-50's longest split, 483 steps, holds it)
+_WG_MAX_STEPS = 512
 _PEAK_BF16_FLOPS = 989e12
 _PEAK_BYTES = 3.35e12
 # ... and the float32 filter gradient on the split-TF32 engine: 32-pixel
@@ -528,18 +534,20 @@ def wgmma_tile_n(o: int) -> int:
 
 
 def _wgmma_dw_splits(m: int, o: int, k: int, kstep: int, bn: int,
-                     waves: int, step_s: float):
+                     waves: int, step_s: float, max_steps: int = 0):
     """(splits, chunk) of a wgmma filter gradient over k pixels (or
     positions) in K steps of ``kstep`` on 128 x ``bn`` tiles: chunk a
     multiple of the step (only the last split's last step is ragged), at
     most ``waves`` waves of one block an SM, each split at least
-    _WG_MIN_STEPS steps (one split if k is shorter), the count of least
-    modelled time: the waves times a block's steps and fixed cost, plus
-    the partial buffer's write and read (none for one split) at the
-    memory's rate, in units of one block's K step on its SM (``step_s``:
-    that step's FLOPs over the whole card's peak)."""
+    _WG_MIN_STEPS steps (one split if k is shorter) and, with
+    ``max_steps``, at most that many (more waves where that needs them),
+    the count of least modelled time: the waves times a block's steps and
+    fixed cost, plus the partial buffer's write and read (none for one
+    split) at the memory's rate, in units of one block's K step on its SM
+    (``step_s``: that step's FLOPs over the whole card's peak)."""
     steps = math.ceil(k / kstep)
     tiles = math.ceil(m / _WG_TILE_M) * math.ceil(o / bn)
+    least = math.ceil(steps / max_steps) if max_steps else 1
 
     def cost(splits):
         rounds = math.ceil(tiles * splits / _SMS)
@@ -547,8 +555,8 @@ def _wgmma_dw_splits(m: int, o: int, k: int, kstep: int, bn: int,
         return (rounds * (math.ceil(steps / splits) + _WG_FIXED_STEPS)
                 + partial / (step_s * _SMS))
 
-    most = max(1, min(waves * _SMS // tiles, steps // _WG_MIN_STEPS))
-    splits = min(range(1, most + 1), key=cost)
+    most = max(least, min(waves * _SMS // tiles, steps // _WG_MIN_STEPS))
+    splits = min(range(least, most + 1), key=cost)
     chunk = math.ceil(steps / splits) * kstep
     return math.ceil(k / chunk), chunk
 
@@ -557,13 +565,14 @@ def _wgmma_dw_splits(m: int, o: int, k: int, kstep: int, bn: int,
 def dw_splits_wgmma(m: int, o: int, k: int):
     """(splits, chunk) of the bf16 wgmma filter gradient over k pixels:
     64-pixel steps on the bf16 engine's tiles, at most _WG_WAVES waves
-    (``_wgmma_dw_splits``).  ``ptt_conv_dw_nhwc_bf16`` refuses a split
-    off the 64-pixel step or that leaves a split empty.  Cached: the
-    search costs more host time than a short launch takes on the card."""
+    and at most _WG_MAX_STEPS steps a split (``_wgmma_dw_splits``).
+    ``ptt_conv_dw_nhwc_bf16`` refuses a split off the 64-pixel step or
+    that leaves a split empty.  Cached: the search costs more host time
+    than a short launch takes on the card."""
     bn = wgmma_tile_n(o)
     return _wgmma_dw_splits(m, o, k, _WG_KSTEP, bn, _WG_WAVES,
                             2.0 * _WG_TILE_M * bn * _WG_KSTEP
-                            / _PEAK_BF16_FLOPS)
+                            / _PEAK_BF16_FLOPS, _WG_MAX_STEPS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,15 +3,16 @@
 
 from paddle_tpu_torch.layers.io import data
 from paddle_tpu_torch.layers.nn import (accuracy, batch_norm, conv2d,
-                                        cross_entropy, dynamic_lstm,
-                                        embedding, fc, layer_norm, lstm,
+                                        cross_entropy, dropout, dynamic_lstm,
+                                        embedding, fc, layer_norm, lrn, lstm,
                                         multi_head_attention, pool2d,
                                         scaled_dot_product_attention,
                                         softmax_with_cross_entropy, topk)
 from paddle_tpu_torch.layers.sequence import (sequence_first_step,
                                               sequence_last_step,
                                               sequence_pool)
-from paddle_tpu_torch.layers.tensor import (elementwise_add, elementwise_div,
+from paddle_tpu_torch.layers.tensor import (concat, elementwise_add,
+                                            elementwise_div,
                                             elementwise_mul, elementwise_sub,
                                             mean, reduce_max, reduce_mean,
                                             reduce_min, reduce_sum, reshape,
@@ -24,4 +25,4 @@ __all__ = ["data", "fc", "conv2d", "pool2d", "batch_norm", "cross_entropy",
            "softmax_with_cross_entropy", "reshape", "transpose", "lstm",
            "dynamic_lstm", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "reduce_sum", "reduce_mean", "reduce_max",
-           "reduce_min"]
+           "reduce_min", "dropout", "lrn", "concat"]

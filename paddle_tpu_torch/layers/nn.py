@@ -2,8 +2,8 @@
 batch_norm, the loss and metric layers of the training slice
 (cross_entropy, topk, accuracy), and the transformer's embedding,
 layer_norm, scaled_dot_product_attention, multi_head_attention and
-softmax_with_cross_entropy, and the sequence slice's fused ``lstm``
-(``dynamic_lstm``)."""
+softmax_with_cross_entropy, the sequence slice's fused ``lstm``
+(``dynamic_lstm``), and the image models' dropout and lrn."""
 
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from paddle_tpu_torch.param_attr import ParamAttr
 __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "accuracy", "embedding", "layer_norm",
            "scaled_dot_product_attention", "multi_head_attention",
-           "softmax_with_cross_entropy", "lstm", "dynamic_lstm"]
+           "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
+           "lrn"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -172,6 +173,31 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
                "data_layout": data_layout},
     )
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob: float, is_test: bool = False, seed=None,
+            name=None, **kwargs):
+    helper = LayerHelper("dropout", name=name, **kwargs)
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    mask = helper.create_tmp_variable(x.dtype, x.shape)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test},
+    )
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, **kwargs):
+    """MidOut is declared float32 whatever the input's dtype."""
+    helper = LayerHelper("lrn", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, input.shape)
+    mid = helper.create_tmp_variable("float32", input.shape)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 def cross_entropy(input, label, soft_label: bool = False, **kwargs):

@@ -1,5 +1,5 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``reshape``,
-``transpose``, ``mean``, the elementwise layers with an optional
+``transpose``, ``mean``, ``concat`` (:66-77), the elementwise layers with an optional
 activation (:148-165, :180-195) and ``reduce_sum/mean/max/min``
 (:198-223)."""
 
@@ -22,6 +22,21 @@ def transpose(x, perm, **kwargs):
     out = helper.create_tmp_variable(x.dtype, shape)
     helper.append_op(type="transpose", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def concat(input, axis=0, **kwargs):
+    helper = LayerHelper("concat", **kwargs)
+    xs = list(input)
+    shape = list(xs[0].shape) if xs[0].shape else None
+    if shape is not None:
+        shape[axis] = sum(v.shape[axis] for v in xs) if all(
+            v.shape and v.shape[axis] is not None and v.shape[axis] >= 0
+            for v in xs) else -1
+    out = helper.create_tmp_variable(
+        xs[0].dtype, tuple(shape) if shape else None, xs[0].lod_level)
+    helper.append_op(type="concat", inputs={"X": xs}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
     return out
 
 

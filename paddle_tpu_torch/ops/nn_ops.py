@@ -1,5 +1,5 @@
-"""NN layer ops: conv2d, pool2d, batch_norm, softmax.  All NCHW, as in
-the JAX package's ``paddle_tpu/ops/nn_ops.py``.
+"""NN layer ops: conv2d, pool2d, batch_norm, softmax, dropout, lrn.  All
+NCHW, as in the JAX package's ``paddle_tpu/ops/nn_ops.py``.
 
 Under AMP (``paddle_tpu_torch.amp``) conv2d casts its float32 operands
 to bf16 and writes bf16, and its grad brings each gradient back to its
@@ -11,7 +11,9 @@ conv2d, batch_norm and softmax launch CUDA kernels, so they carry
 explicit grad rules that call the kernels' backwards on the values the
 forward left in the run (x, w, Out; for BN the saved batch statistics):
 no forward replay, which autograd could not see through anyway.
-pool2d takes the generic replay (``autodiff.generic_grad_lower``).
+pool2d and lrn take the generic replay (``autodiff.generic_grad_lower``);
+dropout's grad rule reads the forward's Mask, since a replay would draw
+a new one.
 """
 
 from __future__ import annotations
@@ -355,3 +357,88 @@ def _softmax(ctx):
         return
     out = torch.softmax(x.float(), dim=-1).to(x.dtype)
     ctx.set_output("Out", rewrap(unary_in, out))
+
+
+def _infer_mirror_x(*out_slots):
+    """Every named output mirrors the single X input's shape and LoD
+    level (``paddle_tpu/ops/nn_ops.py:162``)."""
+
+    def infer(op, block):
+        ins = op.inputs.get("X", [])
+        if len(ins) != 1 or not ins[0]:
+            raise SkipInferShape
+        xv = block.find_var(ins[0])
+        if xv is None or xv.shape is None:
+            raise SkipInferShape
+        for slot in out_slots:
+            outs = op.outputs.get(slot, [])
+            ov = block.find_var(outs[0]) if len(outs) == 1 and outs[0] \
+                else None
+            if ov is None:
+                continue
+            if ov.shape is None:
+                ov.shape = tuple(xv.shape)
+            if ov.lod_level == 0 and xv.lod_level:
+                ov.lod_level = xv.lod_level
+
+    return infer
+
+
+def _dropout_grad(ctx):
+    """X@GRAD = Out@GRAD * Mask, the mask the forward drew and left in
+    the run (``paddle_tpu/ops/nn_ops.py:489-497``)."""
+    name = grad_out(ctx, "X@GRAD")
+    if name is None:
+        return
+    g = grad_in(ctx, "Out@GRAD")
+    ctx.values[name] = rewrap(g, unwrap(g) * unwrap(ctx.input("Mask")))
+
+
+@register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),
+             infer_shape=_infer_mirror_x("Out", "Mask"),
+             grad_lower=_dropout_grad)
+def _dropout(ctx):
+    """Inverted dropout (``paddle_tpu/ops/nn_ops.py:500-515``).
+    ``is_test``: Out = X, Mask ones.  Training: keep ~ Bernoulli(1 - p)
+    from the run's generator on X's device, Mask = keep / (1 - p) with
+    both in X's dtype (under AMP a bf16 X gets the bf16 quotient of 1 and
+    bf16(1 - p), as the JAX op's), Out = X * Mask."""
+    x = ctx.input("X")
+    xd = unwrap(x)
+    p = ctx.attr("dropout_prob", 0.5)
+    if ctx.attr("is_test", False):
+        ctx.set_output("Out", x)
+        ctx.set_output("Mask", torch.ones_like(xd))
+        return
+    keep = torch.empty(xd.shape, dtype=torch.float32, device=xd.device)
+    keep.bernoulli_(1.0 - p, generator=ctx.generator())
+    mask = keep.to(xd.dtype) / torch.tensor(1.0 - p, dtype=xd.dtype,
+                                            device=xd.device)
+    ctx.set_output("Out", rewrap(x, xd * mask))
+    ctx.set_output("Mask", mask)
+
+
+@register_op("lrn", inputs=("X",), outputs=("Out", "MidOut"),
+             infer_shape=_infer_mirror_x("Out", "MidOut"))
+def _lrn(ctx):
+    """Local response norm across channels
+    (``paddle_tpu/ops/nn_ops.py:531-546``): MidOut = k + alpha * the sum
+    of x^2 (float32) over the n channels centred on each, zero past the
+    ends, added in window order; Out = x / MidOut^beta in float32, cast
+    to x's dtype.  Computed on the (N, H, W, C) view, which is free for
+    the channels-last tensors a conv and a pool leave, so Out and MidOut
+    come back channels-last."""
+    x = unwrap(ctx.input("X"))
+    n = ctx.attr("n", 5)
+    k = ctx.attr("k", 2.0)
+    alpha = ctx.attr("alpha", 1e-4)
+    beta = ctx.attr("beta", 0.75)
+    xt = x.permute(0, 2, 3, 1)
+    c = xt.shape[3]
+    half = n // 2
+    sq = F.pad(xt.float().square(), (half, half))
+    acc = sum(sq[..., i:i + c] for i in range(n))
+    mid = k + alpha * acc
+    out = (xt.float() / torch.pow(mid, beta)).to(x.dtype)
+    ctx.set_output("MidOut", mid.permute(0, 3, 1, 2))
+    ctx.set_output("Out", out.permute(0, 3, 1, 2))

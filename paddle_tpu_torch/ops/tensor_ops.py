@@ -3,7 +3,8 @@ startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), the
 copies the backward pass emits: assign, cast, fill_zeros_like
 (``:239-250``), and the transformer's split, reshape, transpose
 (``:291-324``) and lookup_table (``:352-406``), whose 1-D ids go through
-the gather kernel (``kernels/embedding.py``).
+the gather kernel (``kernels/embedding.py``), and googlenet's concat
+(``:283-288``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -111,6 +112,27 @@ def _one_in_out(op, block, in_slot="X", out_slot="Out"):
     if xv.shape is None:
         raise SkipInferShape
     return xv, ov
+
+
+def _infer_concat_shape(op, block):
+    ins = op.inputs.get("X", [])
+    outs = op.outputs.get("Out", [])
+    if not ins or len(outs) != 1:
+        raise SkipInferShape
+    xvs = [_shape_var(block, n) for n in ins]
+    ov = _shape_var(block, outs[0])
+    if any(v.shape is None for v in xvs):
+        raise SkipInferShape
+    axis = op.attr("axis", 0) % max(1, len(xvs[0].shape))
+    base = list(xvs[0].shape)
+    if axis >= len(base):
+        raise SkipInferShape
+    dims = [v.shape[axis] if axis < len(v.shape) else -1 for v in xvs]
+    base[axis] = -1 if any(d < 0 for d in dims) else sum(dims)
+    if ov.shape is None:
+        ov.shape = tuple(base)
+    if ov.lod_level == 0 and xvs[0].lod_level:
+        ov.lod_level = xvs[0].lod_level
 
 
 def _infer_split_shape(op, block):
@@ -281,3 +303,27 @@ def _lookup_table(ctx):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (flat != padding_idx)[..., None].to(out.dtype)
     ctx.set_output("Out", rewrap(ids, out))
+
+
+def _concat_grad(ctx):
+    """Each X@GRAD is its slice of Out@GRAD along ``axis``, in its own
+    input's dtype: views, no copy and no replay of the concatenation."""
+    axis = ctx.op.attr("__fwd_attrs__").get("axis", 0)
+    xs = ctx.inputs("X")
+    g = unwrap(grad_in(ctx, "Out@GRAD"))
+    parts = torch.split(g, [unwrap(x).shape[axis] for x in xs], dim=axis)
+    for name, x, part in zip(ctx.op.output("X@GRAD"), xs, parts):
+        if name:
+            ctx.values[name] = rewrap(x, part.to(unwrap(x).dtype))
+
+
+@register_op("concat", inputs=("X",), infer_shape=_infer_concat_shape,
+             grad_lower=_concat_grad)
+def _concat(ctx):
+    """``torch.cat`` along ``axis`` (``jnp.concatenate``: mixed dtypes
+    promote).  Inputs that are all channels-last (googlenet's branch
+    convs) give a channels-last result, so the next conv's NHWC view of
+    it is free."""
+    xs = ctx.inputs("X")
+    out = torch.cat([unwrap(x) for x in xs], dim=ctx.attr("axis", 0))
+    ctx.set_output("Out", rewrap(xs[0], out))

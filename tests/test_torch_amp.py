@@ -135,12 +135,17 @@ def _close_amp(got, want, base, what):
         (what, err, scale, floor)
 
 
-def amp_steps_match_jax(exe, port, scope, fetch, feeds):
+def amp_steps_match_jax(exe, port, scope, fetch, feeds, loss_floor=False):
     """One AMP step of both packages per feed, from the state both hold
     now (the JAX package's global scope, the port's ``scope``), beside
     the JAX package's float32 steps from that start (the floor): the
     loss and every fetched gradient (float32 masters) of each step, then
-    every persistable, which stays float32."""
+    every persistable, which stays float32.  With ``loss_floor`` the loss
+    too may differ by up to AMP_FLOOR times the JAX package's own bf16
+    effect on it, where that is larger than AMP_LOSS_TOL of its value
+    (VGG-16 at 32 x 32, batch 2: after one step bf16 moves that package's
+    own loss by 1.1% and the port's AMP loss lies 2.8% from its, well
+    past a bf16 ulp)."""
     main_j, main_p = fluid.default_main_program(), pt.default_main_program()
     f32_scope = fluid.executor.Scope()
     f32_scope.values.update(fluid.global_scope().values)
@@ -155,8 +160,12 @@ def amp_steps_match_jax(exe, port, scope, fetch, feeds):
         assert not pt.amp.is_enabled()
         # the step really ran in bf16: its loss is not the f32 step's
         assert float(got[0]) != float(base[0])
-        assert abs(float(got[0]) - float(want[0])) <= \
-            AMP_LOSS_TOL * abs(float(want[0])), (step, got[0], want[0])
+        loss_tol = AMP_LOSS_TOL * abs(float(want[0]))
+        if loss_floor:
+            loss_tol = max(loss_tol, AMP_FLOOR * abs(float(want[0])
+                                                     - float(base[0])))
+        assert abs(float(got[0]) - float(want[0])) <= loss_tol, \
+            (step, got[0], want[0])
         for name, g, w, b in zip(fetch[1:], got[1:], want[1:], base[1:]):
             assert g.dtype == np.float32, name
             _close_amp(g, w, b, f"step {step}: {name}")

@@ -2904,3 +2904,135 @@ def test_tf32_dw_refuses_what_its_rule_does_not_allow(dev):
             before[0] + 1, before[1])
         torch.cuda.synchronize()
         _close_dw(got, kconv.conv2d_nhwc_dw_plain(x, gi, 3, 1))
+
+
+# ---------------------------------------------------------------------------
+# the image cells of benchmark/run.py (alexnet, googlenet, vgg16, smallnet)
+# ---------------------------------------------------------------------------
+
+# their edge shapes, at a small batch: alexnet's 5x5 at padding 2 (27x27,
+# C 64 -> O 192); googlenet's narrow 1x1 outputs (C 528 -> O 16, C 480 ->
+# O 24: their backward-inputs have C 16 and 24); VGG-16's first conv (C 3)
+IMAGE_CONV_SHAPES = [(2, 27, 27, 64, 192, 5), (2, 7, 7, 528, 16, 1),
+                     (2, 14, 14, 480, 24, 1), (2, 28, 28, 3, 64, 3)]
+
+
+def _engine_rule(kind, c, o, bf16):
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    if kind == "dw":
+        return (kconv.bf16_engine if bf16 else kconv.f32_dw_engine)(
+            c, o, 0, 0)
+    if kind == "bwd":
+        c, o = o, c
+    return (kconv.bf16_engine if bf16 else kconv.f32_engine)(c, o, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,o,k", IMAGE_CONV_SHAPES)
+def test_conv_kernels_at_the_image_cells_edge_shapes(dev, dtype, n, h, w, c,
+                                                     o, k):
+    """Forward, backward-input and filter gradient against the plain
+    versions, each on the engine its rule picks (counted by the wgmma
+    counters exactly where the rule says wgmma)."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    g = torch.Generator().manual_seed(73)
+    x = _randn(g, n, h, w, c, device=dev).to(dtype)
+    wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5,
+                device=dev).to(dtype)
+    dy = _randn(g, n, h, w, o, device=dev).to(dtype)
+    p = k // 2
+    for kind, counter, run, plain in (
+            ("fwd", "launches", lambda: kconv.conv2d_nhwc(x, wt, p),
+             lambda: kconv.conv2d_nhwc_plain(x, wt, p)),
+            ("bwd", "bwd_input_launches",
+             lambda: kconv.conv2d_nhwc_bwd_input(dy, wt, p),
+             lambda: kconv.conv2d_nhwc_bwd_input_plain(dy, wt, p)),
+            ("dw", "dw_launches", lambda: kconv.conv2d_nhwc_dw(x, dy, k, p),
+             lambda: kconv.conv2d_nhwc_dw_plain(x, dy, k, p))):
+        name = counter + sfx
+        before = (getattr(kconv, name), getattr(kconv, name + "_wgmma"))
+        got = run()
+        wgmma = _engine_rule(kind, c, o, bf16) == "wgmma"
+        assert (getattr(kconv, name), getattr(kconv, name + "_wgmma")) == (
+            before[0] + 1, before[1] + wgmma), kind
+        torch.cuda.synchronize()
+        want = plain()
+        if kind == "dw":
+            _close_dw(got, want)
+        elif bf16:
+            _close_bf16(got, want)
+        else:
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_on_the_card(dev, dtype):
+    """Training dropout on the card: Out == X * Mask and X@GRAD ==
+    Out@GRAD * Mask bit for bit, the mask's values {0, 1 / (1 - p) in X's
+    dtype} and the kept share within 4 sigma of 1 - p."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.backward import append_backward
+
+    p = 0.4
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.seed = 5
+    with pt.program_guard(main_prog, startup):
+        x = pt.layers.data(name="x", shape=[1024, 1, 1], dtype=dtype)
+        x.stop_gradient = False
+        out = pt.layers.dropout(x, dropout_prob=p)
+        append_backward(pt.layers.mean(out))
+    mask = main_prog.global_block().ops[0].output("Mask")[0]
+    tdt = getattr(torch, dtype)
+    xv = torch.randn(128, 1024, 1, 1, device=dev).to(tdt)
+    o, m, gx, go = pt.Executor().run(
+        main_prog, feed={"x": xv}, scope=pt.Scope(), return_numpy=False,
+        fetch_list=[out.name, mask, "x@GRAD", out.name + "@GRAD"])
+    assert m.device.type == "cuda" and m.dtype == tdt
+    assert torch.equal(o, xv * m) and torch.equal(gx, go * m)
+    q = float(torch.ones((), dtype=tdt) / torch.tensor(1 - p, dtype=tdt))
+    assert set(torch.unique(m.float()).tolist()) == {0.0, q}
+    sigma = (p * (1 - p) / m.numel()) ** 0.5
+    assert abs(float((m != 0).float().mean()) - (1 - p)) <= 4 * sigma
+
+
+def test_googlenet_step_on_the_card_matches_cpu(dev):
+    """One Momentum(0.01, 0.9) step of googlenet at 32x32, batch 2, its
+    dropout is_test, card against CPU from identical weights: its 56 conv
+    forward, backward-input and filter-gradient launches, the loss and
+    every parameter after the update (1e-4 of max: the gradients
+    themselves may differ where a relu's input lies within rounding of
+    zero, which a step of 0.01 leaves far below that)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.models import googlenet
+
+    pt.framework.reset_default_programs()
+    img = pt.layers.data(name="img", shape=[3, 32, 32])
+    label = pt.layers.data(name="label", shape=[1], dtype="int64")
+    pred = googlenet(img, class_dim=10, is_test=True)
+    loss = pt.layers.mean(pt.layers.cross_entropy(input=pred, label=label))
+    params = [p_.name for p_, _ in pt.optimizer.Momentum(
+        learning_rate=0.01, momentum=0.9).minimize(loss)[1]]
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cpu.run(pt.default_startup_program(), scope=cpu_scope)
+    card_scope = pt.Scope()
+    card_scope.load_numpy({n: v.numpy() for n, v in
+                           cpu_scope.values.items()}, dev)
+    rng = np.random.RandomState(14)
+    feed = {"img": rng.randn(2, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (2, 1)).astype(np.int64)}
+    before = (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches)
+    (got,) = pt.Executor().run(feed=feed, fetch_list=[loss], scope=card_scope)
+    assert (kconv.launches, kconv.bwd_input_launches,
+            kconv.dw_launches) == tuple(b + 56 for b in before)
+    (want,) = cpu.run(feed=feed, fetch_list=[loss], scope=cpu_scope)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for n in params:
+        a, ref = card_scope.get(n).cpu().numpy(), cpu_scope.get(n).numpy()
+        np.testing.assert_allclose(a, ref, rtol=0,
+                                   atol=1e-4 * max(np.abs(ref).max(), 1e-30))

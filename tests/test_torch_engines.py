@@ -470,3 +470,23 @@ def test_f32_cpu_filter_gradient_runs_the_plain_version_at_wgmma_shapes():
         assert torch.equal(kconv.conv2d_nhwc_dw(x, dy, k, k // 2),
                            kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
     assert (kconv.dw_launches, kconv.dw_launches_wgmma) == before
+
+
+# the bf16 filter gradients of the image cells of benchmark/run.py whose
+# pixels run longest: VGG-16 at batch 256, googlenet and alexnet at 128
+IMAGE_CELL_DW = [(256, 224, 64, 64, 3), (256, 112, 64, 128, 3),
+                 (256, 112, 128, 128, 3), (256, 56, 256, 256, 3),
+                 (256, 28, 512, 512, 3), (128, 56, 64, 192, 3),
+                 (128, 27, 64, 192, 5)]
+
+
+@pytest.mark.parametrize("batch,h,c,o,k", IMAGE_CELL_DW)
+def test_wgmma_filter_gradient_splits_are_short_enough(batch, h, c, o, k):
+    """Whole 64-pixel steps, every pixel in one split, no split empty, and
+    none longer than _WG_MAX_STEPS steps (more waves where the pixels need
+    them): the tensor cores' truncated f32 sums drift with a split's
+    length."""
+    m, pixels = k * k * c, batch * h * h
+    splits, chunk = kconv.dw_splits_wgmma(m, o, pixels)
+    assert chunk % 64 == 0 and chunk <= kconv._WG_MAX_STEPS * 64
+    assert splits * chunk >= pixels > (splits - 1) * chunk

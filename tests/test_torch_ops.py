@@ -177,7 +177,29 @@ def test_softmax_op_on_3d_input(rng):
     _run_both(build, {"x": x}, POINTWISE)
 
 
-@pytest.mark.parametrize("model", ["cifar8", "imagenet50"])
+def _image_layers(lib, img):
+    """The image models' layers: dropout (training and is_test), lrn in
+    two settings, concat of conv branches, and VGG's conv group."""
+    c = lib.layers.conv2d(img, num_filters=8, filter_size=3, padding=1,
+                          act="relu")
+    n = lib.layers.lrn(c, n=5)
+    n = lib.layers.lrn(n, n=3, k=1.0, alpha=1e-3, beta=0.5)
+    b = lib.layers.conv2d(n, num_filters=4, filter_size=1)
+    cat = lib.layers.concat([n, b, lib.layers.pool2d(n, pool_size=3,
+                                                      pool_padding=1)],
+                            axis=1)
+    lib.layers.concat([cat, cat], axis=0)
+    g = lib.nets.img_conv_group(cat, conv_num_filter=[6, 6], pool_size=2,
+                                conv_act="relu", conv_with_batchnorm=[
+                                    True, False],
+                                conv_batchnorm_drop_rate=0.25,
+                                pool_stride=2)
+    f = lib.layers.fc(g, size=10, act="relu")
+    lib.layers.dropout(lib.layers.dropout(f, dropout_prob=0.5), 0.4,
+                       is_test=True)
+
+
+@pytest.mark.parametrize("model", ["cifar8", "imagenet50", "image_layers"])
 def test_port_layers_build_the_reference_program(model):
     """The same model code over the two layers packages gives the same
     main and startup programs, names and inferred shapes included."""
@@ -188,8 +210,10 @@ def test_port_layers_build_the_reference_program(model):
         img = lib.layers.data(name="img", shape=[3, 32, 32])
         if model == "cifar8":
             resnet.resnet_cifar10(img, depth=8)
-        else:
+        elif model == "imagenet50":
             resnet.resnet_imagenet(img, depth=50)
+        else:
+            _image_layers(lib, img)
         return (lib.default_main_program().to_dict(),
                 lib.default_startup_program().to_dict())
 
