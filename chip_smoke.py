@@ -4,7 +4,9 @@ against its plain PyTorch version, serve full-width ResNet-50 over HTTP
 and check the replies, train full-width ResNet-50, the image cells of
 benchmark/run.py (alexnet, googlenet, vgg16, smallnet), LeNet-5, the
 transformer LM and the LSTM text classifier (padded, float32 and under
-bf16 AMP each; and over LoD ids) and check their steps, serve the
+bf16 AMP each; and over LoD ids) and the wide_deep cell of
+benchmark/run.py (sparse tables, f32 and AMP) and check their steps, serve
+the
 paged-KV decoder LM over /generate and check its generations, then
 measure.
 
@@ -234,9 +236,28 @@ seconds):
     vs CPU end to end and op by op.
 15. The LoD classifier step: launches (gather 1, matmul 2, softmax 1,
     lstm 0), steps/s and rows/s, peak memory.
-16. One profiled step of each sequence path in a fresh process
-    (``chip_smoke.py --profile-sequence-steps``; the LSTM classifier in
-    f32 and under AMP): idle share, top kernels, and the split into the
+15a. wide_deep parity: models.wide_deep as benchmark/run.py's
+    bench_wide_deep trains it (WD_*: B 1024, wide table 100,000 x 1 read
+    by 26 ids, deep table 10,000 x 16 read by 26 fields, hidden (256,
+    128), is_sparse, mean(log_loss), Adam(1e-3)) at full width for one
+    step at B WD_PARITY_BATCH on the card against CPUPlace(), end to end
+    and op by op (as phase 11; fetched SparseGrads compared densified on
+    the host, op outputs row for row); then one step on the card
+    fetching both tables' W@GRAD as tensors: each a float32 SparseGrad
+    of B x 26 rows, no SparseGrad densified during the step; and the
+    sparse Adam update under torch.cuda.set_sync_debug_mode("error").
+15b. The wide_deep step at B 1024, the feed as run.py draws it: launches
+    matmul 3, 2 on the split-TF32 wgmma engine, nothing else; examples/s
+    and ms a step over WD_TIMED steps after WD_WARMUP warm-up steps, peak
+    memory; the table rows no id touched bit for bit unchanged and their
+    Adam moments zero.  (In phase 2: the three forward products at B 1024
+    against the plain matmul, f32 and bf16, each on its engine.)
+15c-15d. The same under AMP (amp_step_parity at B WD_PARITY_BATCH; 3 bf16
+    matmul launches, 2 on the wgmma engine, no f32 matmul launch).
+16. One profiled step of each sequence path and of the wide_deep step
+    in a fresh process (``chip_smoke.py --profile-sequence-steps``; the
+    LSTM classifier and wide_deep in f32 and under AMP): idle share, top
+    kernels, and the split into the
     port's kernels (the LSTM forward and backward kernels apart), the mul
     backward products, the rest and the host.
 17. (A, in phase 2) The paged-attention kernels against their plain
@@ -502,6 +523,18 @@ SEQ_PERTURB = 1e-4
 # the small classifier's seeded "does token 0 occur" task: held-out
 # accuracy must pass this
 SEQ_CONVERGE_ACC = 0.9
+# The wide_deep cell of benchmark/run.py (run.py:322-370, bench_wide_deep):
+# B 1024, a wide table of 100,000 rows read by 26 hashed ids, a deep
+# table of 10,000 rows x 16 read once per field of 26, an MLP of (256,
+# 128), both tables sparse (SparseGrad gradients), mean(log_loss),
+# Adam(1e-3), under AMP by default and in float32 (BENCH_AMP=0); not cut.
+WD_BATCH, WD_WIDE_VOCAB, WD_DEEP_VOCAB = 1024, 100_000, 10_000
+WD_FIELDS, WD_WIDE_IDS, WD_EMB, WD_HIDDEN = 26, 26, 16, (256, 128)
+WD_LR = 1e-3
+# card vs CPU at full width on this batch (SEQ_PARITY_TOL / AMP_PARITY_TOL)
+WD_PARITY_BATCH = 8
+# examples/s over WD_TIMED steps after WD_WARMUP warm-up steps
+WD_WARMUP, WD_TIMED = 3, 5
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
@@ -2151,6 +2184,7 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results["matmul"] = phase_tf_matmul(dev, randn)
     results["matmul_bf16"] = phase_tf_matmul(dev, randn, bf16=True)
     phase_seq_dense(dev, randn)
+    phase_wide_deep_dense(dev, randn)
     results.update(phase_lstm_kernels(dev, randn))
     results.update(phase_lstm_bf16_kernel(dev, randn))
     results["embedding"] = phase_gather_kernel(dev, randn)
@@ -2571,16 +2605,20 @@ def phase_amp_parity(dev, main_prog, startup, loss, image=(3, 224, 224),
 
 def _moved(v, device):
     """A run value on ``device``: a tensor, a LoD value (its rows and
-    offsets), or a residual tuple (the LSTM's hs, cs and gates); a LoD
-    feed given as (array, [offsets]) becomes a LoD value."""
+    offsets), a SparseGrad (its rows and values) or a residual tuple (the
+    LSTM's hs, cs and gates); a LoD feed given as (array, [offsets])
+    becomes a LoD value."""
     import torch
 
     from paddle_tpu_torch.lod import LoDArray, create_lod_array
+    from paddle_tpu_torch.sparse import SparseGrad
 
     if isinstance(v, tuple) and len(v) == 2 and isinstance(v[1], list):
         v = create_lod_array(v[0], v[1])
     if isinstance(v, LoDArray):
         return LoDArray(v.data.to(device), [o.to(device) for o in v.lod])
+    if isinstance(v, SparseGrad):
+        return SparseGrad(v.rows.to(device), v.values.to(device), v.height)
     if isinstance(v, tuple):
         return tuple(t.to(device) for t in v)
     return torch.as_tensor(v, device=device)
@@ -2616,6 +2654,7 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
     from paddle_tpu_torch.ops.attention_ops import lse_name
     from paddle_tpu_torch.ops.sequence_ops import gates_name
     from paddle_tpu_torch.registry import LowerContext, OpRegistry
+    from paddle_tpu_torch.sparse import SparseGrad
 
     cpu_dev = torch.device("cpu")
     bias_terms = pre_bn_bias_grads(block)
@@ -2639,8 +2678,14 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
             for n in op.output_arg_names:
                 if not n or n not in twin:
                     continue
-                want = unwrap(twin[n]).double()
-                g = unwrap(values[n]).cpu().double()
+                want, g = twin[n], values[n]
+                if isinstance(want, SparseGrad):
+                    # the same rows, then the rows' values
+                    if not torch.equal(g.rows.cpu(), want.rows):
+                        op_bad.append((op.type, n, "rows", None))
+                    want, g = want.values, g.values
+                want = unwrap(want).double()
+                g = unwrap(g).cpu().double()
                 scale = float(want.abs().max()) if want.numel() else 0.0
                 if n in bias_terms:
                     scale = max(scale, float(unwrap(
@@ -2893,6 +2938,7 @@ def amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
     with pt.amp.amp_guard(True):
         got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
     t_card = time.perf_counter() - t0
+    got = [_host_dense(v) for v in got]
     got += [scope.get(n).cpu().numpy() for n in sorted(state)]
     del scope
     torch.cuda.empty_cache()
@@ -2904,7 +2950,8 @@ def amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
         with pt.amp.amp_guard(amp):
             out = pt.Executor(pt.CPUPlace()).run(
                 main_prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
-        runs[amp] = out + [cpu_scope.get(n).numpy() for n in sorted(state)]
+        runs[amp] = [_host_dense(v) for v in out] + [
+            cpu_scope.get(n).numpy() for n in sorted(state)]
         del cpu_scope
     t_cpu = (time.perf_counter() - t0) / 2
     want_loss = float(runs[True][0])
@@ -3655,6 +3702,7 @@ def seq_step_parity(dev, main_prog, startup, loss, params_grads, feed, what):
     t0 = time.perf_counter()
     got = card.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
     t_card = time.perf_counter() - t0
+    got = [_host_dense(v) for v in got]
     got += [scope.get(n).cpu().numpy() for n in sorted(state)]
     del scope
     table = next(op for op in main_prog.global_block().ops
@@ -3669,7 +3717,8 @@ def seq_step_parity(dev, main_prog, startup, loss, params_grads, feed, what):
                                        .manual_seed(3)))
         out = pt.Executor(pt.CPUPlace()).run(main_prog, feed=feed,
                                              fetch_list=fetch, scope=cpu_scope)
-        runs.append(out + [cpu_scope.get(n).numpy() for n in sorted(state)])
+        runs.append([_host_dense(v) for v in out]
+                    + [cpu_scope.get(n).numpy() for n in sorted(state)])
     t_cpu = (time.perf_counter() - t0) / 2
     params = {p.name for p, _ in params_grads}
     worst, floor_held, bad = {}, 0, []
@@ -3892,6 +3941,281 @@ def phase_lod_train_step(dev, smi):
                 peak_bytes=peak, launches=launches, wgmma=wgmma)
 
 
+# ---------------------------------------------------------------------------
+# phases 15a-15d: the wide_deep cell of benchmark/run.py
+# ---------------------------------------------------------------------------
+
+
+def build_wide_deep_program(seed=2026):
+    """models.wide_deep + mean(log_loss) + Adam(1e-3), as
+    benchmark/run.py's bench_wide_deep builds it (sparse tables).  Returns
+    (main, startup, loss, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import wide_deep
+
+    pt.framework.reset_default_programs()
+    main_prog = pt.default_main_program()
+    startup = pt.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    wide = pt.layers.data(name="wide", shape=[WD_WIDE_IDS, 1], dtype="int64")
+    deep = pt.layers.data(name="deep", shape=[WD_FIELDS, 1], dtype="int64")
+    label = pt.layers.data(name="label", shape=[1], dtype="float32")
+    prob = wide_deep(wide, deep, wide_vocab=WD_WIDE_VOCAB,
+                     deep_vocab=WD_DEEP_VOCAB, num_fields=WD_FIELDS,
+                     emb_dim=WD_EMB, hidden=WD_HIDDEN, is_sparse=True)
+    loss = pt.layers.mean(pt.layers.log_loss(prob, label))
+    _, params_grads = pt.optimizer.Adam(learning_rate=WD_LR).minimize(loss)
+    return main_prog, startup, loss, params_grads
+
+
+def wide_deep_feed(batch, seed=0, device=None):
+    """The feed as benchmark/run.py:354-360 draws it (numpy RandomState,
+    seed 0 there), as tensors on ``device`` when given."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    feed = {"wide": rng.randint(0, WD_WIDE_VOCAB, (batch, WD_WIDE_IDS, 1))
+            .astype(np.int64),
+            "deep": rng.randint(0, WD_DEEP_VOCAB, (batch, WD_FIELDS, 1))
+            .astype(np.int64),
+            "label": (rng.rand(batch, 1) < 0.3).astype(np.float32)}
+    if device is not None:
+        feed = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    return feed
+
+
+def wide_deep_engines(bf16):
+    """{(m, k, n): engine} of the deep tower's three products at B 1024:
+    the 416 x 256 and 256 x 128 layers on a wgmma engine, the N 1 head on
+    the SIMT (f32) or mma.sync (bf16) tile."""
+    shapes = mul_shapes_of(build_wide_deep_program()[0], WD_BATCH)
+    small = "mma.sync" if bf16 else "simt"
+    return {s: "wgmma" if s[2] > 1 else small for s in shapes}
+
+
+def phase_wide_deep_dense(dev, randn):
+    """The matmul kernel against its plain version at the wide_deep step's
+    three forward products (B 1024, from its program), in f32 and in bf16
+    (its AMP step), each on the engine its rule picks, which must be the
+    one ``wide_deep_engines`` names.  Logged, with the summed row of each
+    step; the kernels line keeps the transformer's numbers."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    out = {}
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        rule = kmatmul.bf16_engine if bf16 else kmatmul.f32_engine
+        check = check_bf16 if bf16 else (
+            lambda n, g, w: check_close(n, g, w, **GEMM_TOL))
+        kind = "bf16" if bf16 else "f32"
+        sm = _Sum(peak)
+        log(f"{kind} matmul at the wide_deep step's forward shapes (B "
+            f"{WD_BATCH}), per call:")
+        for (m, k, n), engine in wide_deep_engines(bf16).items():
+            x = randn(m, k).to(dt)
+            y = randn(k, n, scale=k ** -0.5).to(dt)
+            got = rule(m, k, n, x.data_ptr(), y.data_ptr())
+            if got != engine:
+                fail(f"wide_deep {kind} matmul {m}x{k}x{n}: engine {got}, "
+                     f"not {engine}")
+            err = check(f"wide_deep {kind} matmul {m}x{k}x{n}",
+                        kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y))
+            times = (time_ms(lambda: kmatmul.matmul(x, y)),
+                     time_ms(lambda: kmatmul.matmul_plain(x, y)),
+                     time_ms(lambda: torch.matmul(x, y)))
+            flops = 2.0 * m * k * n
+            nbytes = x.element_size() * (m * k + k * n + m * n)
+            _line(f"{m}x{k}x{n} ({engine} engine)", 1, *times, flops, nbytes,
+                  err, peak)
+            sm.add(1, *times, flops, nbytes, err)
+        r = out[kind] = sm.result()
+        log(f"  the wide_deep {kind} step's 3 forward products: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); max err {r['max_abs_err']:.2e}")
+    return out
+
+
+def _host_dense(v):
+    """A fetched value as a dense numpy array: a SparseGrad's rows added
+    into its height on the host (the comparison's copy, not the path's)."""
+    from paddle_tpu_torch.sparse import SparseGrad
+
+    if not isinstance(v, SparseGrad):
+        return v
+    dense = np.zeros(v.shape, np.float64)
+    np.add.at(dense, np.asarray(v.rows), np.asarray(v.values, np.float64))
+    return dense
+
+
+def _sparse_on_card(dev, main_prog, startup, loss, feed, amp):
+    """One step on the card from a fresh start, fetching both tables'
+    W@GRAD as tensors: each must be a SparseGrad of the batch's B x 26
+    rows on the card, and no SparseGrad may be densified during the step
+    (``SparseGrad.to_dense`` counted).  Then the sparse Adam update of
+    wide_w alone, under ``torch.cuda.set_sync_debug_mode("error")``: no
+    device-to-host sync."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import sparse
+    from paddle_tpu_torch.registry import LowerContext, OpRegistry
+
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    dense_calls = []
+    to_dense = sparse.SparseGrad.to_dense
+    sparse.SparseGrad.to_dense = lambda self: (dense_calls.append(1),
+                                               to_dense(self))[1]
+    try:
+        with pt.amp.amp_guard(amp):
+            grads = exe.run(main_prog, feed=feed,
+                            fetch_list=[loss.name, "wide_w@GRAD",
+                                        "deep_emb@GRAD"],
+                            scope=scope, return_numpy=False)[1:]
+    finally:
+        sparse.SparseGrad.to_dense = to_dense
+    rows = feed["wide"].shape[0] * WD_FIELDS
+    for name, g, width in zip(("wide_w", "deep_emb"), grads, (1, WD_EMB)):
+        if not (isinstance(g, sparse.SparseGrad)
+                and g.values.device.type == "cuda"
+                and tuple(g.values.shape) == (rows, width)
+                and g.values.dtype == torch.float32):
+            fail(f"wide_deep: {name}@GRAD on the card is {g!r}, not a "
+                 f"float32 SparseGrad of {rows} rows")
+    if dense_calls:
+        fail(f"wide_deep: the step densified a SparseGrad "
+             f"{len(dense_calls)} times")
+    op = next(o for o in main_prog.global_block().ops
+              if o.type == "adam" and o.input("Param") == ["wide_w"])
+    values = {n: scope.get(n) for n in op.input_arg_names
+              if n != "wide_w@GRAD"}
+    values["wide_w@GRAD"] = grads[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        OpRegistry.get("adam").lower(LowerContext(op, values, dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"wide_deep {'AMP ' if amp else ''}step on the card: wide_w@GRAD and "
+        f"deep_emb@GRAD are SparseGrads of {rows} rows (no (vocab, D) "
+        "gradient built, no SparseGrad densified); the sparse Adam update "
+        "ran with no device-to-host sync")
+    del exe, scope
+
+
+def phase_wide_deep_parity(dev, amp=False):
+    """Phase 15a (f32) / 15c (AMP): the cell at full width, B
+    WD_PARITY_BATCH, one step on the card against CPUPlace() from
+    identical weights, end to end and op by op (seq_step_parity /
+    amp_step_parity: the loss, both tables' gradients, every parameter and
+    Adam moment after the update), then the sparse checks on the card
+    (``_sparse_on_card``)."""
+    main_prog, startup, loss, params_grads = build_wide_deep_program()
+    feed = wide_deep_feed(WD_PARITY_BATCH, seed=9)
+    what = (f"wide_deep step parity at full width, B {WD_PARITY_BATCH}")
+    if amp:
+        amp_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                        what)
+    else:
+        seq_step_parity(dev, main_prog, startup, loss, params_grads, feed,
+                        what)
+    _sparse_on_card(dev, main_prog, startup, loss, feed, amp)
+
+
+def phase_wide_deep_step(dev, smi, amp=False):
+    """Phase 15b (f32) / 15d (AMP): the cell at run.py's size, B 1024,
+    the feed as run.py draws it.  The counters zeroed just before the
+    first step and read just after: 3 matmul launches (bf16 under AMP),
+    2 of them on the wgmma engine, nothing else; examples/s and ms a step
+    over WD_TIMED steps after WD_WARMUP warm-up steps, peak memory; after
+    them the rows no id of the feed touched hold their initial values
+    bit for bit and zero Adam moments (lazy rows)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    kind = "AMP bf16" if amp else "f32"
+    mm = "matmul_bf16" if amp else "matmul"
+    main_prog, startup, loss, _ = build_wide_deep_program()
+    want = dict.fromkeys(KERNELS, 0)
+    want[mm] = 3
+    if launches_implied(main_prog, amp) != want:
+        fail(f"wide_deep {kind}: the program implies "
+             f"{launches_implied(main_prog, amp)}, not {want}")
+    want_wgmma = dict.fromkeys(wgmma_counters(), 0)
+    want_wgmma[mm] = 2
+    feed = wide_deep_feed(WD_BATCH, device=dev)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    start = {n: scope.get(n).clone() for n in ("wide_w", "deep_emb")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with pt.amp.amp_guard(amp):
+        zero_counters()
+        t0 = time.perf_counter()
+        (first,) = exe.run(main_prog, feed=feed, fetch_list=[loss],
+                           scope=scope)
+        first_s = time.perf_counter() - t0
+        launches, wgmma = counters(), wgmma_counters()
+        log(f"wide_deep {kind} step at B {WD_BATCH}: first step loss "
+            f"{float(first):.5f} in {first_s:.2f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, on the wgmma "
+            f"engine { {k: v for k, v in wgmma.items() if v} }")
+        if launches != want:
+            fail(f"wide_deep {kind}: launch counts {launches} != {want}")
+        if wgmma != want_wgmma:
+            fail(f"wide_deep {kind}: wgmma launch counts {wgmma} != "
+                 f"{want_wgmma}")
+        losses = [float(first)]
+        for _ in range(WD_WARMUP - 1):
+            losses += [float(v) for v in exe.run(
+                main_prog, feed=feed, fetch_list=[loss], scope=scope)]
+        times = []
+        for _ in range(WD_TIMED):
+            t0 = time.perf_counter()
+            (val,) = exe.run(main_prog, feed=feed, fetch_list=[loss],
+                             scope=scope)
+            times.append(time.perf_counter() - t0)   # numpy fetch: a sync
+            losses.append(float(val))
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"wide_deep {kind}: losses {losses} (non-finite, or the same "
+             "batch's loss did not fall)")
+    for table, slot in (("wide_w", "wide"), ("deep_emb", "deep")):
+        idle = torch.ones(start[table].shape[0], dtype=torch.bool, device=dev)
+        idle[feed[slot].reshape(-1)] = False
+        after = scope.get(table)
+        if not torch.equal(after[idle], start[table][idle]):
+            fail(f"wide_deep {kind}: rows of {table} no id touched moved")
+        if torch.equal(after[~idle], start[table][~idle]):
+            fail(f"wide_deep {kind}: the touched rows of {table} did not move")
+        for m in (n for n in scope.keys() if n.startswith(table + "_moment")):
+            if scope.get(m)[idle].any():
+                fail(f"wide_deep {kind}: {m} is not zero on untouched rows")
+        log(f"  {table}: {int(idle.sum())} of {idle.numel()} rows untouched by "
+            f"the feed, bit for bit unchanged after {len(losses)} steps, Adam "
+            "moments zero there")
+    ex_s = WD_TIMED * WD_BATCH / sum(times)
+    ms = statistics.median(times) * 1e3
+    log(f"wide_deep train step at B {WD_BATCH} ({kind}): {ex_s:.1f} "
+        f"examples/s over {WD_TIMED} timed steps after {WD_WARMUP} warm-up "
+        f"steps ({sum(times):.4f} s; median {ms:.3f} ms, min "
+        f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}); losses "
+        f"{[round(x, 5) for x in losses]}; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB on {smi}")
+    del exe, scope
+    torch.cuda.empty_cache()
+    return dict(examples_per_s=ex_s, ms_per_step=ms, peak_bytes=peak,
+                launches=launches, wgmma=wgmma)
+
+
 def range_calls(mod, name):
     """Wrap every later call of ``mod.name`` in a torch.profiler
     record_function range of that name (for the profiled split)."""
@@ -3909,6 +4233,7 @@ def range_calls(mod, name):
 def profile_sequence_steps():
     """The body of ``chip_smoke.py --profile-sequence-steps``: one profiled
     step of each sequence path, from the same seeds as phases 12 and 15,
+    and of the wide_deep step in f32 and under AMP (phases 15b and 15d),
     after 2 warm-up steps, split into the port's kernels (the LSTM forward
     and backward kernels apart) and the mul backward products.  Prints the
     idle shares as the last line, a JSON object."""
@@ -3951,8 +4276,29 @@ def profile_sequence_steps():
                          "mul backward products": "matmul_backward"},
                         {"gather_rows_kernel": 1, "wgmma_tf32_kernel": 1,
                          "matmul_f32_kernel": 1, "softmax_f32_kernel": 1})),
+        **wide_deep_profile_paths(dev),
     }
     profile_paths(paths)
+
+
+def wide_deep_profile_paths(dev):
+    """profile_paths' entries for the wide_deep step, f32 and AMP, from
+    phase 15b's feed: the matmul kernel (the 416 x 256 and 256 x 128
+    layers on a wgmma engine, the N 1 head on the SIMT or mma.sync tile)
+    and the mul backward products split out."""
+    prog, startup, loss, _ = build_wide_deep_program()
+
+    def path(mm, kind):
+        return (prog, startup, loss, wide_deep_feed(WD_BATCH, device=dev),
+                f"wide_deep step at B {WD_BATCH} ({kind})",
+                {"matmul kernel": list(mm) + ["wgmma_tf32_split"],
+                 "mul backward products": "matmul_backward"}, mm)
+
+    return {"wide_deep": (False, path({"wgmma_tf32_kernel": 2,
+                                       "matmul_f32_kernel": 1}, "f32")),
+            "wide_deep_amp": (True, path({"wgmma_gemm_kernel": 2,
+                                          "matmul_bf16_kernel": 1},
+                                         "AMP bf16"))}
 
 
 def profile_paths(paths):
@@ -5514,9 +5860,15 @@ def main():
     timed(phase_lstm_converge, dev, amp=True)
     timed(phase_lod_parity, dev)
     lod = timed(phase_lod_train_step, dev, smi)
+    timed(phase_wide_deep_parity, dev)
+    wd = timed(phase_wide_deep_step, dev, smi)
+    timed(phase_wide_deep_parity, dev, amp=True)
+    wd_amp = timed(phase_wide_deep_step, dev, smi, amp=True)
     idle = timed(phase_seq_profile)
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
     lstm_amp["idle_share"] = idle["lstm_amp"]
+    wd["idle_share"] = idle["wide_deep"]
+    wd_amp["idle_share"] = idle["wide_deep_amp"]
 
     model, dec_counts = timed(phase_decode_parity, dev)
     gen, gen_launches, refs, reqs = timed(phase_generate, dev, model, smi)
@@ -5541,6 +5893,8 @@ def main():
                "lstm_train_step": lstm["launches"],
                "lstm_amp_train_step": lstm_amp["launches"],
                "lod_train_step": lod["launches"],
+               "wide_deep_train_step": wd["launches"],
+               "wide_deep_amp_train_step": wd_amp["launches"],
                "generate": gen_launches, **dec_counts,
                **{p: r["launches"] for p, r in image_steps.items()}}
     main_path = {n: amp_train["launches"] for n in
@@ -5566,6 +5920,8 @@ def main():
                      "lstm_train_step": lstm["wgmma"],
                      "lstm_amp_train_step": lstm_amp["wgmma"],
                      "lod_train_step": lod["wgmma"],
+                     "wide_deep_train_step": wd["wgmma"],
+                     "wide_deep_amp_train_step": wd_amp["wgmma"],
                      **{p: r["wgmma"] for p, r in image_steps.items()}}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
                       conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
@@ -5645,6 +6001,14 @@ def main():
                     f"images/s at batch {r['batch']}, peak "
                     f"{r['peak_bytes'] / 2**30:.2f} GiB, idle share "
                     f"{r['idle_share']:.3f}" for p, r in image_steps.items())
+        + f"; wide_deep training: {wd['examples_per_s']:.1f} examples/s at "
+        f"B {WD_BATCH} (f32), {wd['ms_per_step']:.3f} ms a step, peak "
+        f"{wd['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{wd['idle_share']:.3f}; under AMP (bf16) "
+        f"{wd_amp['examples_per_s']:.1f} examples/s, "
+        f"{wd_amp['ms_per_step']:.3f} ms a step, peak "
+        f"{wd_amp['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{wd_amp['idle_share']:.3f}"
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

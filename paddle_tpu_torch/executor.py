@@ -42,6 +42,7 @@ from paddle_tpu_torch.framework import Place, Program, Variable
 from paddle_tpu_torch.lod import LoDArray, create_lod_array
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import LowerContext, OpRegistry
+from paddle_tpu_torch.sparse import SparseGrad
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +207,13 @@ def _to_numpy(v):
     """A fetch as numpy; a bf16 tensor as an ``ml_dtypes`` bfloat16 array
     of its bits, the dtype the reference fetches (``np.asarray`` of a
     bf16 jax array), or, without ``ml_dtypes``, as the float32 array of
-    the same values."""
+    the same values.  A ``SparseGrad`` (an ``is_sparse`` table's W@GRAD)
+    comes back as one of numpy rows and values."""
     if isinstance(v, LoDArray):
         return LoDArray(_to_numpy(v.data), tuple(_to_numpy(o) for o in v.lod))
+    if isinstance(v, SparseGrad):
+        # numpy rows and values, as ``paddle_tpu/executor.py:436-441``
+        return SparseGrad(_to_numpy(v.rows), _to_numpy(v.values), v.height)
     v = v.detach()
     if v.dtype == torch.bfloat16:
         bf16 = _numpy_bf16()

@@ -3,7 +3,9 @@ batch_norm, the loss and metric layers of the training slice
 (cross_entropy, topk, accuracy), and the transformer's embedding,
 layer_norm, scaled_dot_product_attention, multi_head_attention and
 softmax_with_cross_entropy, the sequence slice's fused ``lstm``
-(``dynamic_lstm``), and the image models' dropout and lrn."""
+(``dynamic_lstm``), the image models' dropout and lrn, and the raw
+``mul``, ``square_error_cost``, ``sigmoid_cross_entropy_with_logits``
+and ``log_loss`` (wide_deep's loss)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "accuracy", "embedding", "layer_norm",
            "scaled_dot_product_attention", "multi_head_attention",
            "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
-           "lrn"]
+           "lrn", "mul", "square_error_cost",
+           "sigmoid_cross_entropy_with_logits", "log_loss"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -242,8 +245,9 @@ def accuracy(input, label, k: int = 1, **kwargs):
 def embedding(input, size, is_sparse: bool = False, padding_idx=None,
               param_attr=None, dtype="float32", **kwargs):
     """size = [vocab, dim]: a ``lookup_table`` of a (vocab, dim) weight.
-    ``is_sparse`` is kept in the program; its SelectedRows gradient
-    comes with the sequences slice (the grad rule raises until then)."""
+    With ``is_sparse`` the table's gradient is a ``SparseGrad`` of the
+    looked-up rows, and Momentum, Adam and Adagrad update only those rows
+    (SGD scatter-adds them)."""
     helper = LayerHelper("embedding", param_attr=param_attr, **kwargs)
     w = helper.create_parameter(
         param_attr, shape=list(size), dtype=dtype,
@@ -413,3 +417,54 @@ def lstm(input, size: int, h0=None, c0=None, param_attr=None, bias_attr=None,
 
 
 dynamic_lstm = lstm
+
+
+def square_error_cost(input, label, **kwargs):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost", **kwargs)
+    minus_out = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]})
+    sq = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [sq]})
+    return sq
+
+
+def sigmoid_cross_entropy_with_logits(x, label, **kwargs):
+    """Per-element sigmoid cross entropy of logits ``x``."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, x.shape, x.lod_level)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def log_loss(input, label, epsilon: float = 1e-4, **kwargs):
+    """Negative log likelihood of a probability ``input``."""
+    helper = LayerHelper("log_loss", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, input.shape,
+                                     input.lod_level)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, **kwargs):
+    """The raw ``mul`` op: x flattened to 2-D at ``x_num_col_dims`` times y
+    flattened at ``y_num_col_dims``."""
+    helper = LayerHelper("mul", **kwargs)
+    shape = None
+    if x.shape is not None and y.shape is not None:
+        shape = (tuple(x.shape[:x_num_col_dims])
+                 + tuple(y.shape[y_num_col_dims:]))
+    out = helper.create_tmp_variable(x.dtype, shape)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out

@@ -8,8 +8,10 @@ one per level (level 0 outermost).  LoD-aware ops work by masking and
 segment arithmetic over the offsets; every other op sees the packed rows
 through ``unwrap`` and hands its result back through ``rewrap``.
 
-The JAX package's ``LoDRankTable`` (dynamic RNNs) and the ``SparseGrad``
-branch of ``unwrap`` come with the control-flow and ``sparse.py`` work.
+``unwrap`` also densifies a ``SparseGrad`` (``paddle_tpu/lod.py:128-138``):
+an op with no sparse branch (a clip, a regularizer) sees the dense
+gradient.  The JAX package's ``LoDRankTable`` (dynamic RNNs) comes with
+the control-flow work.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.sparse import SparseGrad
 
 
 class LoDArray:
@@ -81,7 +85,11 @@ def row_segment_ids(offsets, num_rows: int):
 
 
 def unwrap(x):
-    return x.data if isinstance(x, LoDArray) else x
+    if isinstance(x, LoDArray):
+        return x.data
+    if isinstance(x, SparseGrad):
+        return x.to_dense()
+    return x
 
 
 def rewrap(template, data):

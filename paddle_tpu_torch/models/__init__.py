@@ -8,7 +8,8 @@ from paddle_tpu_torch.models.resnet import resnet_cifar10, resnet_imagenet
 from paddle_tpu_torch.models.transformer import (transformer_lm,
                                                  transformer_lm_loss)
 from paddle_tpu_torch.models.vgg import vgg16
+from paddle_tpu_torch.models.wide_deep import wide_deep
 
 __all__ = ["alexnet", "googlenet", "lenet5", "lstm_text_classifier",
            "resnet_cifar10", "resnet_imagenet", "transformer_lm",
-           "transformer_lm_loss", "vgg16"]
+           "transformer_lm_loss", "vgg16", "wide_deep"]

@@ -1,4 +1,5 @@
-"""Composite network helpers (``paddle_tpu/nets.py``)."""
+"""Composite network helpers (``paddle_tpu/nets.py``):
+``simple_img_conv_pool``, ``img_conv_group`` and ``glu``."""
 
 from __future__ import annotations
 
@@ -43,3 +44,10 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                                      dropout_prob=conv_batchnorm_drop_rate[i])
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: input split in two halves a, b along ``dim``,
+    a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(b))

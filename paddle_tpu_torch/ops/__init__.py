@@ -12,3 +12,4 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     sequence_ops,
     tensor_ops,
 )
+from paddle_tpu_torch.ops import aliases  # noqa: F401  (must be last)

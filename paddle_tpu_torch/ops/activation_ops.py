@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import clip, unary
+from paddle_tpu_torch.ops.common import absolute, clip, unary
 from paddle_tpu_torch.registry import infer_same_shape, register_op
 
 
@@ -24,8 +24,7 @@ _SIMPLE = {
     "relu": torch.relu,
     "tanh": torch.tanh,
     "sqrt": torch.sqrt,
-    # jnp.abs's gradient at 0 is 1, torch.abs's 0
-    "abs": lambda x: torch.where(x >= 0, x, -x),
+    "abs": absolute,
     "ceil": torch.ceil,
     "floor": torch.floor,
     "round": torch.round,

@@ -61,6 +61,11 @@ def clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
+def absolute(x):
+    """``jnp.abs``: |x| with gradient 1 at 0 (``torch.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def unary(ctx, fn, slot_in="X", slot_out="Out"):
     x = ctx.input(slot_in)
     ctx.set_output(slot_out, rewrap(x, fn(unwrap(x))))

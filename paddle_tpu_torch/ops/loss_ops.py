@@ -1,5 +1,12 @@
-"""Loss ops: ``cross_entropy`` (``paddle_tpu/ops/loss_ops.py:86-98``) and
-``softmax_with_cross_entropy`` (``:101-113``)."""
+"""Loss ops: ``cross_entropy`` (``paddle_tpu/ops/loss_ops.py:86-98``),
+``softmax_with_cross_entropy`` (``:101-113``) and the pointwise losses of
+``:116-214``: ``sigmoid_cross_entropy_with_logits``, ``smooth_l1_loss``,
+``huber_loss``, ``hinge_loss``, ``rank_loss``, ``margin_rank_loss``,
+``log_loss`` and ``modified_huber_loss``.  The pointwise losses take
+their gradients from the generic replay (``autodiff.py``), so their
+kinks take JAX's gradients: a ``max`` against zero is ``torch.maximum``,
+whose backward splits a tie in half (``torch.clamp`` would pass all of
+it), and ``|x|`` is ``common.absolute`` (gradient 1 at 0)."""
 
 from __future__ import annotations
 
@@ -7,7 +14,7 @@ import torch
 
 from paddle_tpu_torch.kernels import softmax as ksoftmax
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import grad_in, grad_out
+from paddle_tpu_torch.ops.common import absolute, grad_in, grad_out
 from paddle_tpu_torch.registry import SkipInferShape, register_op
 
 
@@ -38,6 +45,35 @@ def _infer_rowwise(in_slot, out_slot, mirror=()):
             mv = block.find_var(m_outs[0])
             if mv is not None and mv.shape is None:
                 mv.shape = tuple(xv.shape)
+
+    return infer
+
+
+def _infer_mirror(in_slot, *out_slots):
+    """Each named output mirrors the single ``in_slot`` input."""
+
+    def infer(op, block):
+        ins = op.inputs.get(in_slot, [])
+        if len(ins) != 1 or not ins[0]:
+            raise SkipInferShape
+        xv = block.find_var(ins[0])
+        if xv is None or xv.shape is None:
+            raise SkipInferShape
+        hit = False
+        for slot in out_slots:
+            outs = op.outputs.get(slot, [])
+            if len(outs) != 1 or not outs[0]:
+                continue
+            ov = block.find_var(outs[0])
+            if ov is None:
+                continue
+            hit = True
+            if ov.shape is None:
+                ov.shape = tuple(xv.shape)
+            if ov.lod_level == 0 and xv.lod_level:
+                ov.lod_level = xv.lod_level
+        if not hit:
+            raise SkipInferShape
 
     return infer
 
@@ -112,3 +148,114 @@ def _softmax_with_cross_entropy(ctx):
         loss = -_take_label_prob(logp, label)
     ctx.set_output("Loss", loss)
     ctx.set_output("Softmax", logp.exp_())
+
+
+def _relu0(x):
+    """max(x, 0) with JAX's tie rule (see the module docstring)."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+             diff_inputs=("X",), infer_shape=_infer_mirror("X", "Out"))
+def _sigmoid_ce(ctx):
+    """max(x, 0) - x z + log(1 + exp(-|x|)), stable for any x."""
+    x = unwrap(ctx.input("X"))
+    label = unwrap(ctx.input("Label")).to(x.dtype)
+    ctx.set_output("Out", _relu0(x) - x * label
+                   + torch.log1p(torch.exp(-absolute(x))))
+
+
+@register_op("smooth_l1_loss",
+             inputs=("X", "Y", "InsideWeight", "OutsideWeight"),
+             outputs=("Diff", "Out"), diff_inputs=("X", "Y"),
+             infer_shape=_infer_rowwise("X", "Out", mirror=("Diff",)))
+def _smooth_l1(ctx):
+    """Per row, the sum of 0.5 (sigma d)^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2, d = (x - y) * InsideWeight, each term times
+    OutsideWeight."""
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    sigma2 = ctx.attr("sigma", 1.0) ** 2
+    diff = x - y
+    if ctx.has_input("InsideWeight"):
+        diff = diff * unwrap(ctx.input("InsideWeight"))
+    ctx.set_output("Diff", diff)
+    ad = absolute(diff)
+    loss = torch.where(ad < 1.0 / sigma2, 0.5 * sigma2 * torch.square(diff),
+                       ad - 0.5 / sigma2)
+    if ctx.has_input("OutsideWeight"):
+        loss = loss * unwrap(ctx.input("OutsideWeight"))
+    ctx.set_output("Out", torch.sum(loss, dim=tuple(range(1, loss.ndim)))
+                   .reshape(-1, 1))
+
+
+@register_op("huber_loss", inputs=("X", "Y"), outputs=("Residual", "Out"),
+             diff_inputs=("X", "Y"),
+             infer_shape=_infer_mirror("X", "Residual", "Out"))
+def _huber(ctx):
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    delta = ctx.attr("delta", 1.0)
+    r = y - x
+    ctx.set_output("Residual", r)
+    ar = absolute(r)
+    ctx.set_output("Out", torch.where(ar <= delta, 0.5 * torch.square(r),
+                                      delta * (ar - 0.5 * delta)))
+
+
+@register_op("hinge_loss", inputs=("Logits", "Labels"), outputs=("Loss",),
+             diff_inputs=("Logits",),
+             infer_shape=_infer_mirror("Logits", "Loss"))
+def _hinge(ctx):
+    """max(1 - (2 label - 1) logit, 0), labels in {0, 1}."""
+    logits = unwrap(ctx.input("Logits"))
+    labels = unwrap(ctx.input("Labels")).to(logits.dtype)
+    ctx.set_output("Loss", _relu0(1.0 - (2.0 * labels - 1.0) * logits))
+
+
+@register_op("rank_loss", inputs=("Label", "Left", "Right"), outputs=("Out",),
+             diff_inputs=("Left", "Right"),
+             infer_shape=_infer_mirror("Left", "Out"))
+def _rank_loss(ctx):
+    """log(1 + exp(l - r)) - label (l - r)."""
+    label = unwrap(ctx.input("Label"))
+    d = unwrap(ctx.input("Left")) - unwrap(ctx.input("Right"))
+    ctx.set_output("Out", torch.log1p(torch.exp(d)) - label * d)
+
+
+@register_op("margin_rank_loss", inputs=("Label", "X1", "X2"),
+             outputs=("Out", "Activated"), diff_inputs=("X1", "X2"),
+             infer_shape=_infer_mirror("X1", "Out", "Activated"))
+def _margin_rank_loss(ctx):
+    """max(-label (x1 - x2) + margin, 0), with the 0/1 mask of the rows it
+    keeps as Activated."""
+    label = unwrap(ctx.input("Label"))
+    x1 = unwrap(ctx.input("X1"))
+    raw = -label * (x1 - unwrap(ctx.input("X2"))) + ctx.attr("margin", 0.0)
+    act = (raw > 0).to(x1.dtype)
+    ctx.set_output("Activated", act)
+    ctx.set_output("Out", act * raw)
+
+
+@register_op("log_loss", inputs=("Predicted", "Labels"), outputs=("Loss",),
+             diff_inputs=("Predicted",),
+             infer_shape=_infer_mirror("Predicted", "Loss"))
+def _log_loss(ctx):
+    """-l log(p + eps) - (1 - l) log(1 - p + eps)."""
+    p = unwrap(ctx.input("Predicted"))
+    lab = unwrap(ctx.input("Labels"))
+    eps = ctx.attr("epsilon", 1e-4)
+    ctx.set_output("Loss", -lab * torch.log(p + eps)
+                   - (1 - lab) * torch.log(1 - p + eps))
+
+
+@register_op("modified_huber_loss", inputs=("X", "Y"),
+             outputs=("IntermediateVal", "Out"), diff_inputs=("X",),
+             infer_shape=_infer_mirror("X", "IntermediateVal", "Out"))
+def _modified_huber(ctx):
+    """z = (2 y - 1) x: -4 z where z < -1, else max(1 - z, 0)^2."""
+    x = unwrap(ctx.input("X"))
+    z = (2.0 * unwrap(ctx.input("Y")).to(x.dtype) - 1.0) * x
+    ctx.set_output("IntermediateVal", z)
+    ctx.set_output("Out", torch.where(z < -1.0, -4.0 * z,
+                                      torch.square(_relu0(1.0 - z))))

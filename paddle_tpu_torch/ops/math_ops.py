@@ -1,8 +1,9 @@
 """Dense math ops: ``mul`` and the elementwise family
 (``paddle_tpu/ops/math_ops.py:142/186``), and the ops the backward pass,
 the regularizers and the gradient clips append: ``sum``, ``scale``,
-``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm`` (dense only;
-``SparseGrad`` comes with the sequences slice)."""
+``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``.  ``sum`` of
+``SparseGrad`` operands concatenates their rows (a table read twice);
+the others see a sparse operand densified (``lod.unwrap``)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from paddle_tpu_torch.ops.common import (clip, elementwise, grad_in, grad_out,
                                         unary)
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
+from paddle_tpu_torch.sparse import concat_sparse, is_sparse_grad
 
 
 def _static_numel(shape):
@@ -139,11 +141,18 @@ def _infer_sum_shape(op, block):
 
 @register_op("sum", inputs=("X",), infer_shape=_infer_sum_shape)
 def _sum(ctx):
+    """A sum of SelectedRows stays sparse: the rows concatenated
+    (``paddle_tpu/ops/math_ops.py:201-216``); with any dense operand, the
+    dense sum, LoD taken from the first dense operand."""
     raw = ctx.inputs("X")
+    if all(is_sparse_grad(v) for v in raw):
+        ctx.set_output("Out", concat_sparse(raw))
+        return
     out = unwrap(raw[0])
     for x in raw[1:]:
         out = out + unwrap(x)
-    ctx.set_output("Out", rewrap(raw[0], out))
+    template = next((v for v in raw if not is_sparse_grad(v)), raw[0])
+    ctx.set_output("Out", rewrap(template, out))
 
 
 @register_op("scale", inputs=("X",), infer_shape=infer_same_shape)

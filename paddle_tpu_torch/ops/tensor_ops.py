@@ -1,5 +1,6 @@
 """Tensor ops: fill_constant and the random initializers that the
-startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``), the
+startup program runs (``paddle_tpu/ops/tensor_ops.py:218/255/266``),
+fill_constant_batch_size_like (``:227``), the
 copies the backward pass emits: assign, cast, fill_zeros_like
 (``:239-250``), and the transformer's split, reshape, transpose
 (``:291-324``) and lookup_table (``:352-406``), whose 1-D ids go through
@@ -21,6 +22,7 @@ from paddle_tpu_torch.lod import rewrap, unwrap
 from paddle_tpu_torch.ops.common import grad_in, grad_out, torch_dtype, unary
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
+from paddle_tpu_torch.sparse import SparseGrad
 
 
 def _infer_attr_shape(op, block):
@@ -214,6 +216,33 @@ def _infer_lookup_table_shape(op, block):
         ov.lod_level = iv.lod_level
 
 
+def _infer_fill_bsl_shape(op, block):
+    xv, ov = _one_in_out(op, block, in_slot="Input")
+    shape = list(op.attr("shape", None) or [])
+    in_idx = int(op.attr("input_dim_idx", 0) or 0)
+    out_idx = int(op.attr("output_dim_idx", 0) or 0)
+    if not shape or in_idx >= len(xv.shape) or out_idx >= len(shape):
+        raise SkipInferShape
+    shape[out_idx] = xv.shape[in_idx]
+    if ov.shape is None:
+        ov.shape = tuple(int(s) for s in shape)
+
+
+@register_op("fill_constant_batch_size_like", inputs=("Input",),
+             stop_gradient=True, infer_shape=_infer_fill_bsl_shape)
+def _fill_constant_bsl(ctx):
+    """fill_constant whose ``output_dim_idx`` dim is Input's
+    ``input_dim_idx`` dim (``paddle_tpu/ops/tensor_ops.py:227-236``), on
+    Input's device."""
+    ref = unwrap(ctx.input("Input"))
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = ref.shape[
+        ctx.attr("input_dim_idx", 0)]
+    ctx.set_output("Out", torch.full(
+        tuple(shape), ctx.attr("value", 0.0),
+        dtype=torch_dtype(ctx.attr("dtype", "float32")), device=ref.device))
+
+
 @register_op("split", inputs=("X",), infer_shape=_infer_split_shape)
 def _split(ctx):
     """``num`` equal parts or ``sections`` along ``axis``: views of X
@@ -258,27 +287,28 @@ def _lookup_ids(ids):
 
 
 def _lookup_table_grad(ctx):
-    """W@GRAD: a dense scatter-add of the rows' gradients, rows at
-    ``padding_idx`` masked (``paddle_tpu/ops/tensor_ops.py:352``).  On
-    CUDA ``index_add_`` adds with atomics, so the sum of a row that
-    several ids hit is not bit-stable.  ``is_sparse`` (a SelectedRows
-    gradient) waits for the port of ``sparse.py``."""
+    """W@GRAD, rows at ``padding_idx`` masked
+    (``paddle_tpu/ops/tensor_ops.py:352-377``).  With ``is_sparse`` it is
+    a ``SparseGrad``: the looked-up ids and the (N, D) rows of Out@GRAD in
+    its own dtype, so no (vocab, D) gradient is built; otherwise a dense
+    scatter-add.  On CUDA ``index_add_`` adds with atomics, so the sum of
+    a row that several ids hit is not bit-stable."""
     gname = grad_out(ctx, "W@GRAD")
     if gname is None:
         return
     fwd_attrs = ctx.op.attr("__fwd_attrs__")
-    if fwd_attrs.get("is_sparse"):
-        raise NotImplementedError(
-            "paddle_tpu_torch: lookup_table with is_sparse=True needs "
-            "SparseGrad (sparse.py), which is not ported yet")
     w = unwrap(ctx.input("W"))
     rows = _lookup_ids(ctx.input("Ids")).reshape(-1)
     g = unwrap(grad_in(ctx, "Out@GRAD"))
-    vals = g.reshape(-1, g.shape[-1]).to(w.dtype)
+    vals = g.reshape(-1, g.shape[-1])
     padding_idx = fwd_attrs.get("padding_idx")
     if padding_idx is not None and padding_idx >= 0:
         vals = vals * (rows != padding_idx)[:, None].to(vals.dtype)
-    ctx.values[gname] = torch.zeros_like(w).index_add_(0, rows, vals)
+    if fwd_attrs.get("is_sparse"):
+        ctx.values[gname] = SparseGrad(rows, vals, w.shape[0])
+    else:
+        ctx.values[gname] = torch.zeros_like(w).index_add_(0, rows,
+                                                           vals.to(w.dtype))
 
 
 @register_op("lookup_table", inputs=("W", "Ids"), diff_inputs=("W",),

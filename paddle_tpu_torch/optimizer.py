@@ -1,5 +1,7 @@
 """Optimizers: append backward + update ops to the program (the port of
-``paddle_tpu/optimizer.py:19-222``).
+``paddle_tpu/optimizer.py``): SGD, Momentum, Adagrad, Adam, Adamax,
+DecayedAdagrad, Adadelta and RMSProp, with the reference's short
+aliases.
 
 ``minimize`` = ``append_backward`` + the gradient clips + one update op
 per parameter, with the learning rate and the accumulators created in
@@ -148,6 +150,27 @@ class MomentumOptimizer(Optimizer):
         )
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"epsilon": self._epsilon},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -196,6 +219,112 @@ class AdamOptimizer(Optimizer):
                         attrs={"scale": self._beta2})
 
 
+class AdamaxOptimizer(AdamOptimizer):
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+        self._beta1_pow = self._add_global_acc("beta1_pow", self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": [p], "Grad": [g], "LearningRate": [self._lr_var],
+                    "Moment": [self._get_accumulator("moment", p)],
+                    "InfNorm": [self._get_accumulator("inf_norm", p)],
+                    "Beta1Pow": [self._beta1_pow]},
+            outputs={"ParamOut": [p],
+                     "MomentOut": [self._get_accumulator("moment", p)],
+                     "InfNormOut": [self._get_accumulator("inf_norm", p)]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block):
+        block.append_op(type="scale", inputs={"X": [self._beta1_pow]},
+                        outputs={"Out": [self._beta1_pow]},
+                        attrs={"scale": self._beta1})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "MomentOut": [m]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+        )
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate=1.0, rho=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._rho, self._epsilon = rho, epsilon
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        ag = self._get_accumulator("avg_squared_grad", p)
+        au = self._get_accumulator("avg_squared_update", p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [p], "Grad": [g], "AvgSquaredGrad": [ag],
+                    "AvgSquaredUpdate": [au]},
+            outputs={"ParamOut": [p], "AvgSquaredGradOut": [ag],
+                     "AvgSquaredUpdateOut": [au]},
+            attrs={"rho": self._rho, "epsilon": self._epsilon},
+        )
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.9, epsilon=1e-10, momentum=0.0,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._rho, self._epsilon, self._momentum = rho, epsilon, momentum
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("momentum_acc", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [p], "Grad": [g], "LearningRate": [self._lr_var],
+                    "MeanSquare": [self._get_accumulator("mean_square", p)],
+                    "Moment": [self._get_accumulator("momentum_acc", p)]},
+            outputs={"ParamOut": [p],
+                     "MeanSquareOut": [self._get_accumulator("mean_square",
+                                                             p)],
+                     "MomentOut": [self._get_accumulator("momentum_acc", p)]},
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum},
+        )
+
+
+# the reference's exported short names
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer

@@ -367,8 +367,10 @@ def test_attention_residual_lives_only_within_its_run(rng):
 
 
 def test_unported_transformer_paths_raise(rng):
-    """Tensor parallelism, recompute, sparse embedding gradients and
-    parallel strategies wait for later slices."""
+    """Tensor parallelism, recompute and parallel strategies wait for
+    later slices.  Sparse embedding gradients, which waited too, train
+    since the port of ``sparse.py``: the step runs, W@GRAD is a
+    SparseGrad, and SGD moves only the looked-up rows."""
     for kw in (dict(tp_axis="tp"), dict(recompute=True)):
         pt.framework.reset_default_programs()
         tokens = pt.layers.data(name="tokens", shape=[S, 1], dtype="int64")
@@ -386,6 +388,12 @@ def test_unported_transformer_paths_raise(rng):
     exe = pt.Executor(pt.CPUPlace())
     scope = pt.Scope()
     exe.run(pt.default_startup_program(), scope=scope)
-    with pytest.raises(NotImplementedError, match="is_sparse"):
-        exe.run(feed={"ids": np.array([[1], [2]], np.int64)},
-                fetch_list=[loss], scope=scope)
+    w = [p.name for p in pt.default_main_program().global_block()
+         .all_parameters()][0]
+    before = scope.get(w).clone()
+    _, grad = exe.run(feed={"ids": np.array([[1], [2]], np.int64)},
+                      fetch_list=[loss, w + "@GRAD"], scope=scope)
+    assert isinstance(grad, pt.sparse.SparseGrad)
+    np.testing.assert_array_equal(grad.rows, [1, 2])
+    moved = (scope.get(w) != before).any(dim=1)
+    assert moved.tolist() == [i in (1, 2) for i in range(10)]

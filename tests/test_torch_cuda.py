@@ -42,7 +42,10 @@ tile's largest error.  The float32 flash forward and filter gradient
 in split TF32 (``-k "tf32_fwd or tf32_dw"``): the plain versions'
 tolerances above, the SIMT kernels they replaced within the same, bit
 for bit across repeated launches and unaligned views, against float64
-at most twice the SIMT kernels' largest error.
+at most twice the SIMT kernels' largest error.  The SelectedRows
+updates (``-k "sparse or rowwise"``): the merged sums, the updated rows
+and the sparse adam / adagrad outputs within 1e-6 of max of the CPU's
+(atomic adds in another order), row ids and untouched rows exactly.
 """
 
 import ctypes
@@ -3036,3 +3039,115 @@ def test_googlenet_step_on_the_card_matches_cpu(dev):
         a, ref = card_scope.get(n).cpu().numpy(), cpu_scope.get(n).numpy()
         np.testing.assert_allclose(a, ref, rtol=0,
                                    atol=1e-4 * max(np.abs(ref).max(), 1e-30))
+
+
+# ---------------------------------------------------------------------------
+# SelectedRows gradients on the card (paddle_tpu_torch/sparse.py)
+# ---------------------------------------------------------------------------
+
+
+def _sparse_case(device, height=50, n=40, width=8, with_last=True):
+    """Duplicate rows, a row at height - 1 when ``with_last`` (so that
+    merged's unused slots and the last row share an index), seeded
+    values; as tensors on ``device``."""
+    from paddle_tpu_torch import sparse
+
+    rng = np.random.RandomState(21)
+    rows = rng.randint(0, height // 2, n)
+    if with_last:
+        rows[[3, 17]] = height - 1
+    vals = rng.randn(n, width).astype(np.float32)
+    p = rng.randn(height, width).astype(np.float32)
+    states = [rng.uniform(0.0, 1.0, (height, width)).astype(np.float32)
+              for _ in range(2)]
+    t = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    return (sparse.SparseGrad(t(rows.astype(np.int64)), t(vals), height),
+            t(p), [t(s) for s in states])
+
+
+@pytest.mark.parametrize("with_last", [True, False])
+def test_rowwise_update_on_the_card_matches_cpu(dev, with_last):
+    """merged and rowwise_update on CUDA against the CPU: the same row ids
+    exactly, the merged sums to 1e-6 of max (atomic adds in another
+    order), the updated rows likewise, every untouched row bit for bit."""
+    from paddle_tpu_torch import sparse
+
+    def upd(p_rows, g_rows, a, b):
+        return p_rows - 0.1 * g_rows, a + g_rows * g_rows, 0.5 * b + g_rows
+
+    out = {}
+    for device in ("cpu", dev):
+        g, p, states = _sparse_case(device, with_last=with_last)
+        out[str(device)] = (g.merged(), sparse.rowwise_update(
+            p, g, upd, *states), p, states, g)
+    (cu_rows, cu_vals), cu_new, _, _, g = out[str(dev)]
+    (cp_rows, cp_vals), cp_new, p, states, _ = out["cpu"]
+    assert torch.equal(cu_rows.cpu(), cp_rows)
+    torch.testing.assert_close(cu_vals.cpu(), cp_vals, rtol=0,
+                               atol=1e-6 * float(cp_vals.abs().max()))
+    touched = torch.zeros(g.height, dtype=torch.bool)
+    touched[g.rows.cpu()] = True
+    for got, want, before in zip(cu_new, cp_new, [p] + states):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+        assert torch.equal(got.cpu()[~touched], before[~touched])
+        assert not torch.equal(got.cpu()[touched], before[touched])
+
+
+def _update_op(op_type, device, g, p, states):
+    """One sparse adam or adagrad op on ``device``: (ParamOut, moments)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.registry import LowerContext, OpRegistry
+
+    pt.framework.reset_default_programs()
+    block = pt.default_main_program().global_block()
+    names = {"Param": "p", "Grad": "g", "LearningRate": "lr"}
+    outs = {"ParamOut": "p"}
+    attrs = {}
+    values = {"p": p, "g": g,
+              "lr": torch.full((1,), 0.05, device=device)}
+    if op_type == "adam":
+        names.update(Moment1="m1", Moment2="m2", Beta1Pow="b1p",
+                     Beta2Pow="b2p")
+        outs.update(Moment1Out="m1", Moment2Out="m2")
+        values.update(m1=states[0] - 0.5, m2=states[1],
+                      b1p=torch.full((1,), 0.81, device=device),
+                      b2p=torch.full((1,), 0.998, device=device))
+    else:
+        names.update(Moment="m1")
+        outs.update(MomentOut="m1")
+        values.update(m1=states[0])
+        attrs["epsilon"] = 1e-5
+    op = block.append_op(type=op_type, inputs={k: [v] for k, v in
+                                               names.items()},
+                         outputs={k: [v] for k, v in outs.items()},
+                         attrs=attrs)
+    OpRegistry.get(op_type).lower(LowerContext(op, values, device))
+    return [values[v] for v in outs.values()]
+
+
+@pytest.mark.parametrize("op_type", ["adam", "adagrad"])
+def test_sparse_optimizer_ops_on_the_card_match_cpu(dev, op_type):
+    """The sparse adam and adagrad ops on CUDA against the CPU plain path,
+    over duplicate rows, fill slots and the last row: parameters and
+    moments to 1e-6 of max, untouched rows bit for bit.  The CUDA op makes
+    no device-to-host sync (``set_sync_debug_mode("error")``)."""
+    got = {}
+    for device in ("cpu", dev):
+        g, p, states = _sparse_case(device)
+        if device == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got[str(device)] = _update_op(op_type, device, g, p, states)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    touched = torch.zeros(g.height, dtype=torch.bool)
+    touched[g.rows.cpu()] = True
+    _, p_cpu, states_cpu = _sparse_case("cpu")
+    befores = [p_cpu, states_cpu[0] - 0.5 if op_type == "adam"
+               else states_cpu[0], states_cpu[1]]
+    for a, b, before in zip(got[str(dev)], got["cpu"], befores):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+        assert torch.equal(a.cpu()[~touched], before[~touched])
