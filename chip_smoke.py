@@ -5,8 +5,8 @@ and check the replies, train full-width ResNet-50, the image cells of
 benchmark/run.py (alexnet, googlenet, vgg16, smallnet), LeNet-5, the
 transformer LM and the LSTM text classifier (padded, float32 and under
 bf16 AMP each; and over LoD ids) and the wide_deep cell of
-benchmark/run.py (sparse tables, f32 and AMP) and check their steps, serve
-the
+benchmark/run.py (sparse tables, f32 and AMP) and its seq2seq cell
+(through its v1 config, f32 and AMP) and check their steps, serve the
 paged-KV decoder LM over /generate and check its generations, then
 measure.
 
@@ -254,12 +254,40 @@ seconds):
     against the plain matmul, f32 and bf16, each on its engine.)
 15c-15d. The same under AMP (amp_step_parity at B WD_PARITY_BATCH; 3 bf16
     matmul launches, 2 on the wgmma engine, no f32 matmul launch).
-16. One profiled step of each sequence path and of the wide_deep step
-    in a fresh process (``chip_smoke.py --profile-sequence-steps``; the
-    LSTM classifier and wide_deep in f32 and under AMP): idle share, top
-    kernels, and the split into the
-    port's kernels (the LSTM forward and backward kernels apart), the mul
-    backward products, the rest and the host.
+15e. seq2seq parity: benchmark/run.py's seq2seq cell (S2S_*: a GRU
+    encoder, a recurrent_group decoder with simple_attention and a
+    gru_step_layer, VOCAB 30000, EMB = HID = 512, Adam(1e-3)) built
+    through its v1 config (seq2seq_config -> parse_config -> Trainer on
+    CUDAPlace(0)) at full width, one step at B S2S_PARITY_BATCH, S
+    S2S_PARITY_SEQ with ragged lengths on the card against CPUPlace(),
+    end to end and op by op (as phase 11; the recurrent op and its
+    replaying grad op included), then the step block's five weights'
+    gradients (attention score, the two input projections, gru_unit's
+    weight and bias) card against CPU within PARITY_TOL of max and not
+    zero, with the matmul launches the forward and the replay make.
+15f. The seq2seq step at run.py's size (B 64, S 32), run.py's
+    BENCH_CHAIN=0 loop: Executor.run of the Trainer's program under
+    scope_guard(t.parameters.scope), the feeds on the card; launches
+    matmul 194 (2 on the split-TF32 wgmma engine: the encoder's and the
+    vocab projection; the step block's 2 x 32 x 3 on the SIMT tile),
+    nothing else (its softmax is over (B, S, vocab): torch.softmax, as
+    the JAX op runs jax.nn.softmax off its 2-D kernel path); tokens/s and
+    ms a step over S2S_TIMED steps after S2S_WARMUP warm-up steps,
+    run.py's model TFLOP/s, peak memory; the fixed batch's loss falls.
+    (In phase 2: the matmul at the step's five shapes, f32 and bf16, each
+    on the engine its rule picks, the N 1 attention score's included, and
+    the softmax kernel at the 2048 x 30000 of its probabilities.)
+15g-15h. The same under AMP (amp_step_parity; the step block's weights
+    within AMP_PARITY_TOL; 194 bf16 matmul launches, 2 on the wgmma
+    engine, the rest on the mma.sync tile).
+16. One profiled step of each sequence path, of the wide_deep step and
+    of the seq2seq step in a fresh process (``chip_smoke.py
+    --profile-sequence-steps``; the LSTM classifier, wide_deep and
+    seq2seq in f32 and under AMP): idle share, top kernels, and the
+    split into the port's kernels (the LSTM forward and backward kernels
+    apart), the mul backward products, the rest and the host (for
+    seq2seq also the host time inside the recurrent op, its grad op and
+    the replay in it, the gru op and its grad op).
 17. (A, in phase 2) The paged-attention kernels against their plain
     versions, atol PAGED_ATOL: the decode kernel at the slice's shape
     (S 16, H 16, D 128, page 16, P 128) with seeded ragged lens in 1-2048
@@ -535,6 +563,19 @@ WD_LR = 1e-3
 WD_PARITY_BATCH = 8
 # examples/s over WD_TIMED steps after WD_WARMUP warm-up steps
 WD_WARMUP, WD_TIMED = 3, 5
+# The seq2seq cell of benchmark/run.py (run.py:151-319, bench_seq2seq;
+# BASELINE.json's acceptance config #3): a GRU encoder over a 3H
+# projection of the source embedding, a recurrent_group decoder with
+# simple_attention and a gru_step_layer, the vocab softmax fc hoisted out
+# of the loop, classification_cost, Adam(1e-3); VOCAB 30000, EMB = HID =
+# 512, S 32, B 64, under AMP by default and in float32 (BENCH_AMP=0);
+# trained through its v1 config (parse_config -> Trainer -> Executor.run,
+# run.py's BENCH_CHAIN=0 loop); not cut.
+S2S_VOCAB, S2S_EMB, S2S_HID, S2S_SEQ, S2S_BATCH = 30000, 512, 512, 32, 64
+# card vs CPU at full width at this batch and length, ragged lengths
+S2S_PARITY_BATCH, S2S_PARITY_SEQ = 4, 8
+# tokens/s over S2S_TIMED steps after S2S_WARMUP warm-up steps (run.py's)
+S2S_WARMUP, S2S_TIMED = 3, 10
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
@@ -853,12 +894,15 @@ def bn_input_is_conv(op, block):
                for w in block.ops)
 
 
-def launches_implied(program, amp=False):
+def launches_implied(program, amp=False, steps=0):
     """The kernel launches one run of a training ``program`` implies; with
     ``amp``, the conv, matmul, flash attention and LSTM launches are their
     bf16 instances' (under AMP every activation those kernels see is bf16
     or cast to it), and a BN's are where its X is a conv's bf16 output
-    (``bn_input_is_conv``; the float32 instance's after a bias add)."""
+    (``bn_input_is_conv``; the float32 instance's after a bias add).  A
+    ``recurrent`` op runs its step block's kernel ops ``steps`` times,
+    and its ``recurrent_grad`` as many again (the replay, through the
+    kernels' autograd Functions)."""
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     block = program.global_block()
@@ -883,7 +927,8 @@ def launches_implied(program, amp=False):
         elif op.type == "mul":
             want["matmul"] += 1
         elif op.type == "softmax":
-            want["softmax"] += 1
+            # the kernel takes a 2-D X, as the JAX op's Pallas kernel
+            want["softmax"] += len(block.var(op.input("X")[0]).shape) == 2
         elif op.type in ("scaled_dot_product_attention",
                          "scaled_dot_product_attention_grad"):
             _, s, _, d = block.var(op.input("Q")[0]).shape
@@ -903,6 +948,18 @@ def launches_implied(program, amp=False):
             # their trailing 1 is squeezed: (N, 1) LoD ids
             ids = block.var(op.input("Ids")[0]).shape
             want["embedding"] += len(ids) - (ids[-1] == 1) == 1
+        elif op.type in ("recurrent", "recurrent_grad"):
+            attrs = (op.attr("__fwd_attrs__") if op.type.endswith("_grad")
+                     else op.attrs)
+            for sub_op in attrs["sub_block"].ops:
+                if sub_op.type == "mul":
+                    want["matmul"] += steps
+                elif sub_op.type in ("conv2d", "batch_norm", "lstm",
+                                     "softmax",
+                                     "lookup_table",
+                                     "scaled_dot_product_attention"):
+                    fail(f"launches_implied: no rule for a {sub_op.type} "
+                         "op in a step block")
     if amp:
         for name, bf16 in BF16_OF.items():
             want[bf16], want[name] = want[name], 0
@@ -2185,6 +2242,7 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results["matmul_bf16"] = phase_tf_matmul(dev, randn, bf16=True)
     phase_seq_dense(dev, randn)
     phase_wide_deep_dense(dev, randn)
+    phase_seq2seq_dense(dev, randn)
     results.update(phase_lstm_kernels(dev, randn))
     results.update(phase_lstm_bf16_kernel(dev, randn))
     results["embedding"] = phase_gather_kernel(dev, randn)
@@ -2789,12 +2847,14 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
                 launches=launches, wgmma=wgmma)
 
 
-def profile_step(run, what, split=None, want=None):
+def profile_step(run, what, split=None, want=None, host_ranges=()):
     """Profile ``run()`` twice and keep the second: wall time, device busy
     time and idle share, the top kernels by device time, the layout and
     dtype copies.  ``split`` ({part: kernel-name substrings, or the name
     of a ``record_function`` range}) logs the device time of each part
-    beside the host's.  ``want`` ({kernel name: launches}) fails the run
+    beside the host's; ``host_ranges`` (names of ``record_function``
+    ranges that span other parts' kernels) logs the host time alone
+    inside each.  ``want`` ({kernel name: launches}) fails the run
     if the profiler saw fewer launches of a kernel.  Returns the idle
     share.  A window whose ``want`` counts fall short, or that saw no
     kernel, is profiled again after a pause, up to 5 windows in all: the
@@ -2805,6 +2865,7 @@ def profile_step(run, what, split=None, want=None):
     # a range also shows on the device timeline as an annotation spanning
     # its kernels and the gaps between them: not a kernel
     ranges = {v for v in (split or {}).values() if isinstance(v, str)}
+    ranges.update(host_ranges)
     for attempt in range(5):
         if attempt:
             time.sleep(0.25 * 2 ** attempt)
@@ -2849,15 +2910,21 @@ def profile_step(run, what, split=None, want=None):
         "aten::copy_ calls")
     if split:
         parts, host = {}, {}
+
+        def spans(name):
+            return [e for e in events if e.key == name
+                    and not str(e.device_type).endswith("CUDA")]
+
         for part, pats in split.items():
             if isinstance(pats, str):   # a range: the kernels launched in it
-                spans = [e for e in events if e.key == pats
-                         and not str(e.device_type).endswith("CUDA")]
-                parts[part] = sum(e.device_time_total for e in spans) / 1e3
-                host[part] = sum(e.cpu_time_total for e in spans) / 1e3
+                parts[part] = sum(e.device_time_total
+                                  for e in spans(pats)) / 1e3
+                host[part] = sum(e.cpu_time_total for e in spans(pats)) / 1e3
             else:
                 parts[part] = sum(r[0] for r in rows
                                   if any(p in r[2] for p in pats))
+        for name in host_ranges:
+            host[name] = sum(e.cpu_time_total for e in spans(name)) / 1e3
         parts["other device kernels"] = busy_ms - sum(parts.values())
         log(f"where the {what}'s {wall_ms:.1f} ms go, by device time: "
             + "; ".join(f"{k} {v:.2f} ms ({100 * v / wall_ms:.1f}%)"
@@ -4216,6 +4283,436 @@ def phase_wide_deep_step(dev, smi, amp=False):
                 launches=launches, wgmma=wgmma)
 
 
+# ---------------------------------------------------------------------------
+# the seq2seq cell of benchmark/run.py
+# ---------------------------------------------------------------------------
+
+
+def seq2seq_config(tch, vocab=S2S_VOCAB, emb=S2S_EMB, hid=S2S_HID,
+                   batch=S2S_BATCH):
+    """benchmark/run.py:175-216's v1 config function, written against
+    the port's trainer_config_helpers (``tch``)."""
+
+    def config():
+        tch.settings(batch_size=batch, learning_rate=1e-3,
+                     learning_method=tch.AdamOptimizer())
+        src = tch.data_layer(name="src", size=vocab)
+        src_emb = tch.embedding_layer(input=src, size=emb,
+                                      param_attr=tch.ParamAttr(name="src_emb"))
+        enc_proj = tch.fc_layer(input=src_emb, size=3 * hid,
+                                act=tch.LinearActivation(), bias_attr=False)
+        enc = tch.grumemory(input=enc_proj, size=hid, name="enc_seq")
+        trg_in = tch.data_layer(name="trg_in", size=vocab)
+        trg_out = tch.data_layer(name="trg_out", size=vocab)
+        trg_emb = tch.embedding_layer(input=trg_in, size=emb,
+                                      param_attr=tch.ParamAttr(name="trg_emb"))
+
+        def step(word, enc_states):
+            dec_mem = tch.memory(name="dec_state", size=hid)
+            ctx = tch.simple_attention(encoded_sequence=enc_states,
+                                       encoded_proj=enc_states,
+                                       decoder_state=dec_mem)
+            inp = tch.fc_layer(input=[word, ctx], size=3 * hid,
+                               act=tch.LinearActivation(), bias_attr=False)
+            dec = tch.gru_step_layer(input=inp, output_mem=dec_mem, size=hid,
+                                     name="dec_state")
+            return tch.fc_layer(input=dec, size=vocab,
+                                act=tch.SoftmaxActivation())
+
+        probs = tch.recurrent_group(
+            step=step, input=[trg_emb, tch.StaticInput(enc, is_seq=True,
+                                                       size=hid)])
+        tch.outputs(tch.classification_cost(input=probs, label=trg_out))
+
+    return config
+
+
+def seq2seq_trainer(place=None, batch=S2S_BATCH):
+    """parse_config(the cell's config) -> Trainer, as run.py:218-224 does:
+    the data layers typed integer_value_sequence(VOCAB), the Trainer (its
+    Parameters and SGD's Executors) on ``place``, CUDAPlace(0) unless
+    given."""
+    import paddle_tpu_torch.trainer_config_helpers as tch
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import Trainer
+    from paddle_tpu_torch.v2.data_type import integer_value_sequence
+
+    conf = parse_config(seq2seq_config(tch, batch=batch))
+    for name in ("src", "trg_in", "trg_out"):
+        conf.data_layers[name].input_type = integer_value_sequence(S2S_VOCAB)
+    return Trainer(conf, place)
+
+
+def seq2seq_feed(batch, seq, seed=0, ragged=False, device=None):
+    """run.py:226-236's six feeds (ids in [2, VOCAB), full lengths), or
+    ragged lengths in [1, seq] with a full one in each; as tensors on
+    ``device`` when given (run.py stages them on the device)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, S2S_VOCAB, (batch, seq)).astype(np.int64)
+    trg_in = rng.randint(2, S2S_VOCAB, (batch, seq)).astype(np.int64)
+    trg_out = rng.randint(2, S2S_VOCAB, (batch, seq)).astype(np.int64)
+    src_len = np.full((batch,), seq, np.int32)
+    trg_len = np.full((batch,), seq, np.int32)
+    if ragged:
+        src_len = rng.randint(1, seq + 1, batch).astype(np.int32)
+        trg_len = rng.randint(1, seq + 1, batch).astype(np.int32)
+        src_len[0] = trg_len[-1] = seq
+    feed = {"src": src, "src@len": src_len, "trg_in": trg_in,
+            "trg_in@len": trg_len, "trg_out": trg_out,
+            "trg_out@len": trg_len}
+    if device is not None:
+        feed = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    return feed
+
+
+def seq2seq_parts(trainer):
+    """(main program, startup, cost var, params_grads, the step block's
+    parameters) of a Trainer's topology."""
+    from paddle_tpu_torch import framework
+
+    topo = trainer._sgd.topology
+    prog = topo.main_program
+    block = prog.global_block()
+    params_grads = [(p, block.var(p.name + "@GRAD"))
+                    for p in prog.all_parameters()]
+    rnn = next(op for op in block.ops if op.type == "recurrent")
+    step_params = sorted(n for n in framework._sub_block_external_reads(rnn)
+                         if n in {p.name for p, _ in params_grads})
+    return prog, topo.startup_program, topo.cost_var, params_grads, step_params
+
+
+def seq2seq_matmul_shapes(steps=S2S_SEQ, batch=S2S_BATCH):
+    """{(m, k, n): launches} of the matmul kernel in one step of the cell
+    (source and target ``steps`` long): the encoder's 3H projection and
+    the hoisted vocab projection at B x S rows, and a time step's
+    attention score (B x S rows, N 1) and two input projections (B rows),
+    S times in the forward and S times again in recurrent_grad's
+    replay."""
+    rows = batch * steps
+    shapes = {}
+    for shape, count in (((rows, S2S_EMB, 3 * S2S_HID), 1),
+                         ((rows, S2S_HID, S2S_VOCAB), 1),
+                         ((rows, S2S_HID, 1), 2 * steps),
+                         ((batch, S2S_EMB, 3 * S2S_HID), 2 * steps),
+                         ((batch, S2S_HID, 3 * S2S_HID), 2 * steps)):
+        shapes[shape] = shapes.get(shape, 0) + count
+    return shapes
+
+
+def phase_seq2seq_dense(dev, randn):
+    """The matmul kernel at the seq2seq step's five product shapes (B 64,
+    S 32) in f32 and bf16 (its AMP step), each on the engine its rule
+    picks (the N 1 attention score's included), summed over the step's
+    194 launches; the softmax kernel over the 2048 x 30000 of its
+    probabilities (which the step itself runs through torch.softmax, as
+    the JAX op does: they are 3-D).  Logged (the kernels line keeps the transformer's
+    matmul and ResNet's softmax numbers)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    out = {}
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+        rule = kmatmul.bf16_engine if bf16 else kmatmul.f32_engine
+        check = check_bf16 if bf16 else (
+            lambda n, g, w: check_close(n, g, w, **GEMM_TOL))
+        kind = "bf16" if bf16 else "f32"
+        sm, engines = _Sum(peak), {}
+        # f32 on the wgmma engine is split TF32: 3 x FLOPs at its peak
+        bound_tf32 = 0.0
+        log(f"{kind} matmul at the seq2seq step's shapes (B {S2S_BATCH}, S "
+            f"{S2S_SEQ}), per call:")
+        for (m, k, n), count in seq2seq_matmul_shapes().items():
+            x = randn(m, k).to(dt)
+            y = randn(k, n, scale=k ** -0.5).to(dt)
+            engine = rule(m, k, n, x.data_ptr(), y.data_ptr())
+            engines[engine] = engines.get(engine, 0) + count
+            before = kmatmul.launches_bf16_wgmma if bf16 \
+                else kmatmul.launches_wgmma
+            err = check(f"seq2seq {kind} matmul {m}x{k}x{n}",
+                        kmatmul.matmul(x, y), kmatmul.matmul_plain(x, y))
+            after = kmatmul.launches_bf16_wgmma if bf16 \
+                else kmatmul.launches_wgmma
+            if (after - before == 1) != (engine == "wgmma"):
+                fail(f"seq2seq {kind} matmul {m}x{k}x{n}: the rule says "
+                     f"{engine}, the launch counters disagree")
+            times = (time_ms(lambda: kmatmul.matmul(x, y)),
+                     time_ms(lambda: kmatmul.matmul_plain(x, y), reps=3),
+                     time_ms(lambda: torch.matmul(x, y)))
+            flops = 2.0 * m * k * n
+            nbytes = x.element_size() * (m * k + k * n + m * n)
+            _line(f"{m}x{k}x{n} ({engine} engine)", count, *times, flops,
+                  nbytes, err, peak)
+            sm.add(count, *times, flops, nbytes, err)
+            if not bf16 and engine == "wgmma":
+                b_tf32 = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0]
+                log(f"    as split TF32 (3 x FLOPs at "
+                    f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s): bound "
+                    f"{b_tf32:.4f} ms, the kernel at "
+                    f"{b_tf32 / times[0]:.2f} of it")
+                bound_tf32 += count * b_tf32
+            elif not bf16:
+                bound_tf32 += count * bound(flops, nbytes, peak)[0]
+        r = out[kind] = sm.result()
+        r["engines"] = engines
+        if not bf16:
+            r["bound_tf32_ms"] = bound_tf32
+        log(f"  the seq2seq {kind} step's {sum(engines.values())} matmul "
+            f"launches ({engines}): kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + ("" if bf16 else f", {bound_tf32:.4f} ms with the wgmma "
+               "shapes as split TF32")
+            + f"; max err {r['max_abs_err']:.2e}")
+    x = randn(S2S_BATCH * S2S_SEQ, S2S_VOCAB, scale=4.0)
+    err = check_close(f"softmax {tuple(x.shape)}", ksoftmax.softmax(x),
+                      ksoftmax.softmax_plain(x), rtol=0, atol=SOFTMAX_ATOL)
+    times = (time_ms(lambda: ksoftmax.softmax(x)),
+             time_ms(lambda: ksoftmax.softmax_plain(x)),
+             time_ms(lambda: torch.softmax(x, dim=-1)))
+    dev_ms = sum(device_ms(lambda: ksoftmax.softmax(x)).values())
+    lib_dev_ms = sum(device_ms(lambda: torch.softmax(x, dim=-1)).values())
+    _line(f"softmax {S2S_BATCH * S2S_SEQ}x{S2S_VOCAB}", 1, *times,
+          5.0 * x.numel(), 8.0 * x.numel(), err)
+    b_ms, b_by = bound(5.0 * x.numel(), 8.0 * x.numel())
+    log(f"  (tolerance atol {SOFTMAX_ATOL}); device {dev_ms:.4f} ms, "
+        f"torch.softmax device {lib_dev_ms:.4f} ms")
+    out["softmax"] = dict(ms=times[0], plain_ms=times[1],
+                          library_ms=times[2], bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, device_ms=dev_ms,
+                          library_device_ms=lib_dev_ms)
+    return out
+
+
+def _seq2seq_step_block_grads(dev, trainer, feed, amp, tol):
+    """The step block's weights' gradients (the attention score's, the
+    two input projections', gru_unit's weight and bias) from one step on
+    the card against the same step on CPUPlace() from identical state:
+    each within ``tol`` of max|CPU| and not zero.  Their grad op replays
+    the loop under autograd; the card's products there launch through
+    ``Matmul`` (a raw launch would raise), and a product autograd could
+    not see would leave its weight's gradient zero or short of the
+    CPU's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    prog, _, cost, _, step_params = seq2seq_parts(trainer)
+    state = {n: v.cpu() for n, v in trainer.parameters.scope.values.items()}
+    fetch = [cost.name] + [n + "@GRAD" for n in step_params]
+    runs = []
+    for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+        scope = pt.Scope()
+        scope.values.update({n: v.to(place.device())
+                             for n, v in state.items()})
+        before = kmatmul.launches + kmatmul.launches_bf16
+        with pt.amp.amp_guard(amp):
+            runs.append(pt.Executor(place).run(prog, feed=feed,
+                                               fetch_list=fetch, scope=scope))
+        if isinstance(place, pt.CUDAPlace):
+            replayed = kmatmul.launches + kmatmul.launches_bf16 - before
+        del scope
+    want_launches = sum(seq2seq_matmul_shapes(
+        steps=feed["trg_in"].shape[1], batch=feed["trg_in"].shape[0]).values())
+    if replayed != want_launches:
+        fail(f"seq2seq step block: {replayed} matmul launches on the card, "
+             f"not {want_launches}")
+    worst = []
+    for name, g, w in zip(fetch[1:], runs[0][1:], runs[1][1:]):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        if not (scale > 0 and float(np.abs(g).max()) > 0):
+            fail(f"seq2seq step block: {name} is zero on the card or the "
+                 "CPU")
+        if not err <= tol * scale:
+            fail(f"seq2seq step block: {name} on the card differs from the "
+                 f"CPU: max err {err:.3e} > {tol} x {scale:.3e}")
+        worst.append((err / scale, name))
+    log(f"seq2seq step block's weights ({'AMP' if amp else 'f32'}), card vs "
+        f"CPU: {', '.join(f'{n} {e:.2e}' for e, n in sorted(worst)[::-1])} "
+        f"(tolerance {tol} of max; {replayed} matmul launches, the replay's "
+        "through Matmul)")
+
+
+def phase_seq2seq_parity(dev, amp=False):
+    """Phase 15e (f32) / 15g (AMP): the cell at full width, B
+    S2S_PARITY_BATCH, S S2S_PARITY_SEQ, ragged lengths: its Trainer built
+    on the card through parse_config; one step on the card against
+    CPUPlace() from identical weights, end to end and op by op
+    (seq_step_parity / amp_step_parity: the loss, every parameter's
+    gradient, every parameter and Adam moment after the update), then
+    the step block's weights explicitly (``_seq2seq_step_block_grads``)."""
+    import torch
+
+    t = seq2seq_trainer(batch=S2S_PARITY_BATCH)
+    prog, startup, cost, params_grads, step_params = seq2seq_parts(t)
+    feed = seq2seq_feed(S2S_PARITY_BATCH, S2S_PARITY_SEQ, seed=9,
+                        ragged=True)
+    what = (f"seq2seq step parity at full width, B {S2S_PARITY_BATCH} S "
+            f"{S2S_PARITY_SEQ}, src lengths {feed['src@len'].tolist()}, "
+            f"target lengths {feed['trg_in@len'].tolist()}")
+    if amp:
+        amp_step_parity(dev, prog, startup, cost, params_grads, feed, what)
+    else:
+        seq_step_parity(dev, prog, startup, cost, params_grads, feed, what)
+    _seq2seq_step_block_grads(dev, t, feed, amp,
+                              AMP_PARITY_TOL if amp else PARITY_TOL)
+    del t
+    torch.cuda.empty_cache()
+
+
+def seq2seq_flops():
+    """run.py:302-306's model FLOPs of one step (matmul terms, x3 for the
+    forward and backward)."""
+    s, emb, hid, vocab = S2S_SEQ, S2S_EMB, S2S_HID, S2S_VOCAB
+    per_tok = (emb * 3 * hid + 3 * hid * hid + 2 * hid * hid + 2 * s * hid
+               + (emb + hid) * 3 * hid + 3 * hid * hid + hid * vocab)
+    return 3 * 2 * per_tok * S2S_BATCH * s
+
+
+def phase_seq2seq_step(dev, smi, amp=False):
+    """Phase 15f (f32) / 15h (AMP): the cell at run.py's size through its
+    entry points: parse_config -> Trainer (CUDAPlace(0)) -> Executor.run
+    of the topology's program under scope_guard(t.parameters.scope),
+    the feeds staged on the card, run.py's BENCH_CHAIN=0 loop.  The
+    counters zeroed just before the first step and read just after: the
+    launches ``launches_implied`` gives (matmul 194, bf16 under AMP, 2 on
+    a wgmma engine), nothing else; tokens/s and ms a step over
+    S2S_TIMED steps after S2S_WARMUP warm-up steps (one sync after the
+    timed steps, as run.py), model TFLOP/s, peak memory; the loss of the
+    fixed batch falls over the timed steps."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    kind = "AMP bf16" if amp else "f32"
+    mm = "matmul_bf16" if amp else "matmul"
+    t = seq2seq_trainer()
+    prog, _, cost, _, _ = seq2seq_parts(t)
+    want = launches_implied(prog, amp, steps=S2S_SEQ)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect[mm] = sum(seq2seq_matmul_shapes().values())
+    if want != expect:
+        fail(f"seq2seq {kind}: the program implies {want}, not {expect}")
+    rule = kmatmul_rule(amp)
+    want_wgmma = dict.fromkeys(wgmma_counters(), 0)
+    want_wgmma[mm] = sum(c for (m, k, n), c in seq2seq_matmul_shapes().items()
+                         if rule(m, k, n, 0, 0) == "wgmma")
+    feed = seq2seq_feed(S2S_BATCH, S2S_SEQ, device=dev)
+    exe = pt.Executor()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with pt.scope_guard(t.parameters.scope), pt.amp.amp_guard(amp):
+        zero_counters()
+        t0 = time.perf_counter()
+        (first,) = exe.run(prog, feed=feed, fetch_list=[cost.name])
+        first_s = time.perf_counter() - t0
+        launches, wgmma = counters(), wgmma_counters()
+        log(f"seq2seq {kind} step at B {S2S_BATCH} S {S2S_SEQ}: first step "
+            f"loss {float(first):.5f} in {first_s:.2f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, on a wgmma "
+            f"engine { {k: v for k, v in wgmma.items() if v} }")
+        if launches != want:
+            fail(f"seq2seq {kind}: launch counts {launches} != {want}")
+        if wgmma != want_wgmma:
+            fail(f"seq2seq {kind}: wgmma launch counts {wgmma} != "
+                 f"{want_wgmma}")
+        for _ in range(S2S_WARMUP - 1):
+            exe.run(prog, feed=feed, fetch_list=[cost.name],
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(S2S_TIMED):
+            (val,) = exe.run(prog, feed=feed, fetch_list=[cost.name],
+                             return_numpy=False)
+            losses.append(val)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / S2S_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(first)] + [float(v) for v in losses]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[1]:
+        fail(f"seq2seq {kind}: losses {losses} (non-finite, or the fixed "
+             "batch's loss did not fall over the timed steps)")
+    tokens = S2S_BATCH * S2S_SEQ
+    tflops = seq2seq_flops() / dt / 1e12
+    log(f"seq2seq train step at B {S2S_BATCH} S {S2S_SEQ} ({kind}): "
+        f"{tokens / dt:.1f} tokens/s, {dt * 1e3:.3f} ms a step over "
+        f"{S2S_TIMED} timed steps after {S2S_WARMUP} warm-up steps; model "
+        f"{seq2seq_flops() / 1e9:.1f} GFLOP a step = {tflops:.2f} TFLOP/s "
+        f"(peaks: f32 {PEAK_F32_FLOPS / 1e12:.0f}, TF32 "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f}, bf16 {PEAK_BF16_FLOPS / 1e12:.0f}); "
+        f"losses {[round(x, 5) for x in losses]}; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB on {smi}")
+    del exe, t
+    torch.cuda.empty_cache()
+    return dict(tokens_per_s=tokens / dt, ms_per_step=dt * 1e3,
+                tflops=tflops, peak_bytes=peak, launches=launches,
+                wgmma=wgmma)
+
+
+def kmatmul_rule(bf16):
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    return kmatmul.bf16_engine if bf16 else kmatmul.f32_engine
+
+
+def seq2seq_profile_paths(dev):
+    """profile_paths' entries for the seq2seq step at run.py's size, f32
+    and AMP, from phase 15f's feed: the matmul kernel (the two B x S-row
+    projections on a wgmma engine, the step block's 192 products on the
+    SIMT or mma.sync tile), the mul backward products and the host time inside the loop ops (``recurrent``, its grad op and
+    the replay inside it, ``gru``, likewise) split out."""
+    t = seq2seq_trainer()
+    prog, startup, cost, _, _ = seq2seq_parts(t)
+    feed = seq2seq_feed(S2S_BATCH, S2S_SEQ, device=dev)
+    small = sum(c for (m, k, n), c in seq2seq_matmul_shapes().items()
+                if kmatmul_rule(False)(m, k, n, 0, 0) != "wgmma")
+    range_ops("recurrent", "recurrent_grad", "gru", "gru_grad")
+    # the ranges range_ops opens: a grad op's replay of its forward is a
+    # range of its own inside the grad op's
+    loops = ("recurrent", "recurrent replayed", "recurrent_grad", "gru",
+             "gru replayed", "gru_grad")
+
+    def path(mm, kind):
+        return (prog, startup, cost, feed,
+                f"seq2seq step at B {S2S_BATCH} S {S2S_SEQ} ({kind})",
+                {"matmul kernel": list(mm) + ["wgmma_tf32_split"],
+                 "mul backward products": "matmul_backward"}, mm, loops)
+
+    return {"seq2seq": (False, path({"wgmma_tf32_kernel": 2,
+                                     "matmul_f32_kernel": small}, "f32")),
+            "seq2seq_amp": (True, path({"wgmma_gemm_kernel": 2,
+                                        "matmul_bf16_kernel": small},
+                                       "AMP bf16"))}
+
+
+def range_ops(*types):
+    """Wrap every later run of the ops of ``types`` (a grad op's type
+    too) in a torch.profiler record_function range named after the type
+    (for the profiled split: the host time inside each); a grad op's
+    replay of its forward, which runs with autograd on, in one named
+    "<type> replayed", inside the grad op's range."""
+    import torch
+
+    from paddle_tpu_torch.registry import OpRegistry
+
+    for t in types:
+        info = OpRegistry.get(t)
+
+        def lower(ctx, _fn=info.lower, _t=t):
+            name = _t + " replayed" if torch.is_grad_enabled() else _t
+            with torch.profiler.record_function(name):
+                return _fn(ctx)
+
+        info.lower = lower
+
+
 def range_calls(mod, name):
     """Wrap every later call of ``mod.name`` in a torch.profiler
     record_function range of that name (for the profiled split)."""
@@ -4233,10 +4730,11 @@ def range_calls(mod, name):
 def profile_sequence_steps():
     """The body of ``chip_smoke.py --profile-sequence-steps``: one profiled
     step of each sequence path, from the same seeds as phases 12 and 15,
-    and of the wide_deep step in f32 and under AMP (phases 15b and 15d),
-    after 2 warm-up steps, split into the port's kernels (the LSTM forward
-    and backward kernels apart) and the mul backward products.  Prints the
-    idle shares as the last line, a JSON object."""
+    and of the wide_deep and seq2seq steps in f32 and under AMP (phases
+    15b, 15d, 15f and 15h), after 2 warm-up steps, split into the port's
+    kernels (the LSTM forward and backward kernels apart) and the mul
+    backward products.  Prints the idle shares as the last line, a JSON
+    object."""
     import torch
 
     from paddle_tpu_torch.kernels import matmul as kmatmul
@@ -4277,6 +4775,7 @@ def profile_sequence_steps():
                         {"gather_rows_kernel": 1, "wgmma_tf32_kernel": 1,
                          "matmul_f32_kernel": 1, "softmax_f32_kernel": 1})),
         **wide_deep_profile_paths(dev),
+        **seq2seq_profile_paths(dev),
     }
     profile_paths(paths)
 
@@ -4302,14 +4801,15 @@ def wide_deep_profile_paths(dev):
 
 
 def profile_paths(paths):
-    """{key: (amp, (program, startup, loss, feed, what, split, want))}:
-    one profiled step of each after 2 warm-up steps (profile_step);
-    prints {key: idle share} as the last line, a JSON object."""
+    """{key: (amp, (program, startup, loss, feed, what, split, want[,
+    host_ranges]))}: one profiled step of each after 2 warm-up steps
+    (profile_step); prints {key: idle share} as the last line, a JSON
+    object."""
     import paddle_tpu_torch as pt
 
     idle = {}
-    for key, (amp, (prog, startup, loss, feed, what, split,
-                    want)) in paths.items():
+    for key, (amp, (prog, startup, loss, feed, what, split, want,
+                    *host)) in paths.items():
         with pt.amp.amp_guard(amp):
             exe = pt.Executor()
             scope = pt.Scope()
@@ -4318,7 +4818,7 @@ def profile_paths(paths):
                 exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
             idle[key] = profile_step(
                 lambda: exe.run(prog, feed=feed, fetch_list=[loss],
-                                scope=scope), what, split, want)
+                                scope=scope), what, split, want, *host)
         del exe, scope
     print(json.dumps(idle), flush=True)
 
@@ -5864,11 +6364,17 @@ def main():
     wd = timed(phase_wide_deep_step, dev, smi)
     timed(phase_wide_deep_parity, dev, amp=True)
     wd_amp = timed(phase_wide_deep_step, dev, smi, amp=True)
+    timed(phase_seq2seq_parity, dev)
+    s2s = timed(phase_seq2seq_step, dev, smi)
+    timed(phase_seq2seq_parity, dev, amp=True)
+    s2s_amp = timed(phase_seq2seq_step, dev, smi, amp=True)
     idle = timed(phase_seq_profile)
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
     lstm_amp["idle_share"] = idle["lstm_amp"]
     wd["idle_share"] = idle["wide_deep"]
     wd_amp["idle_share"] = idle["wide_deep_amp"]
+    s2s["idle_share"] = idle["seq2seq"]
+    s2s_amp["idle_share"] = idle["seq2seq_amp"]
 
     model, dec_counts = timed(phase_decode_parity, dev)
     gen, gen_launches, refs, reqs = timed(phase_generate, dev, model, smi)
@@ -5895,6 +6401,8 @@ def main():
                "lod_train_step": lod["launches"],
                "wide_deep_train_step": wd["launches"],
                "wide_deep_amp_train_step": wd_amp["launches"],
+               "seq2seq_train_step": s2s["launches"],
+               "seq2seq_amp_train_step": s2s_amp["launches"],
                "generate": gen_launches, **dec_counts,
                **{p: r["launches"] for p, r in image_steps.items()}}
     main_path = {n: amp_train["launches"] for n in
@@ -5922,6 +6430,8 @@ def main():
                      "lod_train_step": lod["wgmma"],
                      "wide_deep_train_step": wd["wgmma"],
                      "wide_deep_amp_train_step": wd_amp["wgmma"],
+                     "seq2seq_train_step": s2s["wgmma"],
+                     "seq2seq_amp_train_step": s2s_amp["wgmma"],
                      **{p: r["wgmma"] for p, r in image_steps.items()}}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
                       conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
@@ -6009,6 +6519,12 @@ def main():
         f"{wd_amp['ms_per_step']:.3f} ms a step, peak "
         f"{wd_amp['peak_bytes'] / 2**30:.3f} GiB, idle share "
         f"{wd_amp['idle_share']:.3f}"
+        + "; seq2seq training: " + "; ".join(
+            f"{kind} {r['tokens_per_s']:.1f} tokens/s at B {S2S_BATCH} S "
+            f"{S2S_SEQ}, {r['ms_per_step']:.3f} ms a step, {r['tflops']:.2f} "
+            f"model TFLOP/s, peak {r['peak_bytes'] / 2**30:.3f} GiB, idle "
+            f"share {r['idle_share']:.3f}"
+            for kind, r in (("f32", s2s), ("AMP (bf16)", s2s_amp)))
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -12,8 +12,11 @@ with ``torch.autograd.grad``.
 The replay is a second forward of the op, which XLA's CSE removes in the
 JAX package but eager PyTorch pays for.  The ops whose forward launches
 a CUDA kernel (conv2d, batch_norm, mul, softmax) therefore register
-explicit grad rules: a ctypes launch is opaque to autograd, and the
-replay must never reach one.  An op that keeps a kernel's residual for
+explicit grad rules: a ctypes launch is opaque to autograd.  Where a
+replay does reach one (``recurrent_grad`` replays its step block, whose
+``mul`` and ``softmax`` then launch through their kernels'
+``torch.autograd.Function``), the wrappers refuse a raw launch on a
+tensor autograd records (``kernels/_build.refuse_recording``).  An op that keeps a kernel's residual for
 its backward (the LSTM's gates) passes its own ``lower``: the replay
 then differentiates the op's plain tensor code around a residual-fed
 autograd function instead of launching the kernel again.

@@ -17,6 +17,11 @@ residual that an op leaves for its grad rule under a name no op declares
 (the attention forward's logsumexp) is popped by that rule, or dies with
 the run's value map; it never reaches the Scope.
 
+An op that owns a sub-block (``recurrent``'s step block) reads what its
+sub-block reads from the enclosing scope, whether or not its own inputs
+name it (``op_reads``), and runs the sub-block's ops on a values map of
+its own (``run_block``).
+
 On a CUDA place every run holds float32 math at float32: TF32 is off for
 cuDNN and matmul, and so are bf16 matmuls' reduced-precision
 reductions, while any run is in flight (``_f32_math``), so the library
@@ -247,6 +252,27 @@ class _Plan:
         self.uses_rng = uses_rng
 
 
+def run_block(block, values: Dict[str, Any], device=None,
+              generator=None) -> None:
+    """Run ``block``'s ops in order on ``values`` (name -> tensor), which
+    they read and write: how an op that owns a sub-block runs it, the
+    counterpart of ``paddle_tpu/ops/control_flow_ops.py:32-35``."""
+    for op in block.ops:
+        OpRegistry.get(op.type).lower(
+            LowerContext(op, values, device, generator))
+
+
+def op_reads(op) -> List[str]:
+    """The names ``op`` reads: its inputs, then what its sub-blocks read
+    from the enclosing scope (``framework._sub_block_external_reads``,
+    less the sub-blocks' own variables, which the op sets itself: a
+    step input, a memory)."""
+    names = [n for n in op.input_arg_names if n]
+    extra = framework._sub_block_external_reads(op).difference(names)
+    return names + sorted(n for n in extra
+                          if op.block.find_var(n) is not None)
+
+
 class Executor:
     """Eager op-by-op executor on one place: ``CUDAPlace(0)`` unless the
     caller passes another, and a RuntimeError rather than a quiet CPU
@@ -344,8 +370,8 @@ class Executor:
             ops.append((op, OpRegistry.get(op.type)))
             if op.type in _RANDOM_OPS and not op.attr("is_test", False):
                 uses_rng = True
-            for n in op.input_arg_names:
-                if not n or n in produced or n in read_state:
+            for n in op_reads(op):
+                if n in produced or n in read_state:
                     continue
                 var = block.find_var(n)
                 if var is not None and var.persistable:
@@ -373,7 +399,7 @@ class Executor:
         keep = set(feed_vals) | set(fetch_names)
         last = {}
         for i, (op, _) in enumerate(ops):
-            for n in op.input_arg_names + op.output_arg_names:
+            for n in op_reads(op) + op.output_arg_names:
                 if n and n not in keep:
                     last[n] = i
         release = [[] for _ in ops]

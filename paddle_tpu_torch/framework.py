@@ -349,11 +349,19 @@ class Operator:
                 return {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
             return v
 
+        def _ser(k, v):
+            # a grad op's copy of its forward's attrs holds the forward's
+            # sub-block (recurrent_grad's): the same reference, one level
+            # down, so the dict stays JSON and loads back in from_dict
+            if k == "__fwd_attrs__" and isinstance(v, dict):
+                return {kk: _attr_ser(vv) for kk, vv in v.items()}
+            return _attr_ser(v)
+
         return {
             "type": self.type,
             "inputs": self.inputs,
             "outputs": self.outputs,
-            "attrs": {k: _attr_ser(v) for k, v in self.attrs.items()},
+            "attrs": {k: _ser(k, v) for k, v in self.attrs.items()},
         }
 
     def __repr__(self):
@@ -419,6 +427,16 @@ class Block:
         self.ops.append(op)
         return op
 
+    def prepend_op(self, type: str, inputs=None, outputs=None, attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        return op
+
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        return op
+
     def to_dict(self):
         return {
             "idx": self.idx,
@@ -445,6 +463,19 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block whose parent is the current block (or
+        ``parent_idx``); it becomes the current block."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self) -> List[Parameter]:
         return self.global_block().all_parameters()
@@ -487,11 +518,9 @@ class Program:
             for od in bd["ops"]:
                 attrs = {}
                 for k, v in od["attrs"].items():
-                    if isinstance(v, dict) and "__block__" in v:
-                        v = p.blocks[v["__block__"]]
-                    elif isinstance(v, dict) and "__ndarray__" in v:
-                        v = np.asarray(v["__ndarray__"], dtype=v["dtype"])
-                    attrs[k] = v
+                    if k == "__fwd_attrs__" and isinstance(v, dict):
+                        v = {kk: _attr_de(p, vv) for kk, vv in v.items()}
+                    attrs[k] = _attr_de(p, v)
                 op = Operator.__new__(Operator)
                 op.block = b
                 op.type = od["type"]
@@ -540,7 +569,10 @@ class Program:
 
     def prune(self, targets) -> "Program":
         """Dead-op elimination given fetch targets: keeps the ops whose
-        outputs (transitively) feed a target, and ``feed`` ops."""
+        outputs (transitively) feed a target, and ``feed`` ops.  A kept
+        op that owns a sub-block also keeps every variable the sub-block
+        reads from the enclosing scope (``_sub_block_external_reads``),
+        even where the op's own inputs do not name it."""
         needed = set(_as_name_list(targets))
         p = self.clone()
         block = p.global_block()
@@ -549,10 +581,40 @@ class Program:
             if needed & set(op.output_arg_names) or op.type == "feed":
                 kept.append(op)
                 needed |= set(op.input_arg_names)
+                needed |= _sub_block_external_reads(op)
         block.ops = list(reversed(kept))
         p._version += 1
         p.invalidate_cache()
         return p
+
+
+def _attr_de(program: Program, v):
+    """An attr value of ``to_dict`` output as the op holds it: a block
+    reference (``{"__block__": idx}``) as this program's block of that
+    index, an ``{"__ndarray__"}`` dict as a numpy array."""
+    if isinstance(v, dict) and "__block__" in v:
+        return program.blocks[v["__block__"]]
+    if isinstance(v, dict) and "__ndarray__" in v:
+        return np.asarray(v["__ndarray__"], dtype=v["dtype"])
+    return v
+
+
+def _sub_block_external_reads(op) -> set:
+    """Variables an op's sub-blocks (Block-valued attrs) read from the
+    enclosing scope: the union of the sub-block ops' inputs
+    (recursively) less the names produced inside the sub-block before
+    they are read (``paddle_tpu/framework.py:598-611``)."""
+    reads: set = set()
+    for v in op.attrs.values():
+        if not isinstance(v, Block):
+            continue
+        produced: set = set()
+        for sub_op in v.ops:
+            reads |= set(sub_op.input_arg_names) - produced
+            reads |= _sub_block_external_reads(sub_op)
+            produced |= set(sub_op.output_arg_names)
+    reads.discard("")
+    return reads
 
 
 _OPS_WITH_IS_TEST = frozenset({"dropout", "batch_norm"})

@@ -156,11 +156,33 @@ def address(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def recording(*tensors) -> bool:
+    """Whether autograd records any of ``tensors``: grad mode on and one
+    of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_recording(what: str, *tensors) -> None:
+    """Raise (RuntimeError) where autograd records a tensor that requires
+    grad: a kernel launched through ctypes is opaque to autograd, so its
+    result would carry no gradient back to its inputs, silently.  An op
+    that autograd replays (a step block's ops under ``recurrent_grad``)
+    launches through the kernel's ``torch.autograd.Function``, whose
+    forward runs with recording off."""
+    if recording(*tensors):
+        raise RuntimeError(
+            f"{what}: a raw kernel launch on a tensor that requires grad "
+            "while autograd records; call the kernel's autograd.Function "
+            "instead")
+
+
 def require_cuda(what: str, dtypes, *tensors) -> None:
     """Raise on what a CUDA kernel does not take: tensors of another
     dtype than one of ``dtypes``, or of two dtypes (TypeError); another
-    device, or a non-contiguous tensor (ValueError).  A bf16 tensor given
-    to a float32-only kernel raises: the wrappers never upcast."""
+    device, or a non-contiguous tensor (ValueError); a tensor autograd
+    records (``refuse_recording``).  A bf16 tensor given to a
+    float32-only kernel raises: the wrappers never upcast."""
+    refuse_recording(what, *tensors)
     got = [t.dtype for t in tensors]
     if len(set(got)) != 1 or got[0] not in dtypes:
         raise TypeError(f"{what} kernel takes one dtype of "

@@ -188,7 +188,8 @@ def _require_cuda(what: str, rows, vecs) -> None:
     """What the kernels take, as ``_build.require_cuda`` says it, in one
     pass: the row tensors of one dtype of float32 and bf16, the vectors
     float32, all on a CUDA device (``_check`` put them on one) and
-    contiguous."""
+    contiguous, none of them recorded by autograd."""
+    _build.refuse_recording(what, *rows, *vecs)
     dt = rows[0].dtype
     for t in rows:
         if t.dtype != dt or dt not in _ITEMSIZE:

@@ -122,7 +122,9 @@ def _strided(what, *tensors) -> str:
     """The C symbol suffix of the instance for these tensors; raises on
     what the kernels do not take: mixed dtypes, or another dtype than
     float32 or bf16 (TypeError: the wrappers never cast), another
-    device, or a head dim that is not contiguous."""
+    device, or a head dim that is not contiguous; a tensor autograd
+    records (``_build.refuse_recording``)."""
+    _build.refuse_recording(what, *tensors)
     got = {t.dtype for t in tensors}
     if len(got) != 1 or not got <= set(_build.F32_BF16):
         raise TypeError(f"{what} kernel takes one dtype of float32 or "

@@ -2,10 +2,12 @@
 ``paddle_tpu.layers``."""
 
 from paddle_tpu_torch.layers import ops
+from paddle_tpu_torch.layers.control_flow import DynamicRNN, StaticRNN
 from paddle_tpu_torch.layers.io import data
 from paddle_tpu_torch.layers.nn import (accuracy, batch_norm, conv2d,
                                         cross_entropy, dropout, dynamic_lstm,
-                                        embedding, fc, layer_norm, log_loss,
+                                        embedding, fc, gru_unit, layer_norm,
+                                        log_loss,
                                         lrn, lstm, mul, multi_head_attention,
                                         pool2d, scaled_dot_product_attention,
                                         sigmoid_cross_entropy_with_logits,
@@ -34,4 +36,5 @@ __all__ = ["data", "fc", "conv2d", "pool2d", "batch_norm", "cross_entropy",
            "log_loss", "create_tensor", "create_global_var", "cast", "split",
            "sums", "assign", "fill_constant",
            "fill_constant_batch_size_like", "ones", "zeros", "scale",
-           "gaussian_random", "uniform_random"] + ops.__all__
+           "gaussian_random", "uniform_random", "StaticRNN", "DynamicRNN",
+           "gru_unit"] + ops.__all__

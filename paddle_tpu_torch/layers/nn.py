@@ -1,11 +1,13 @@
-"""NN layers (``paddle_tpu/layers/nn.py``): fc, conv2d, pool2d,
+"""NN layers (``paddle_tpu/layers/nn.py``): fc (one input or several),
+conv2d, pool2d,
 batch_norm, the loss and metric layers of the training slice
 (cross_entropy, topk, accuracy), and the transformer's embedding,
 layer_norm, scaled_dot_product_attention, multi_head_attention and
 softmax_with_cross_entropy, the sequence slice's fused ``lstm``
 (``dynamic_lstm``), the image models' dropout and lrn, and the raw
 ``mul``, ``square_error_cost``, ``sigmoid_cross_entropy_with_logits``
-and ``log_loss`` (wide_deep's loss)."""
+and ``log_loss`` (wide_deep's loss), and the seq2seq decoder's
+``gru_unit``."""
 
 from __future__ import annotations
 
@@ -20,37 +22,64 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "scaled_dot_product_attention", "multi_head_attention",
            "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
            "lrn", "mul", "square_error_cost",
-           "sigmoid_cross_entropy_with_logits", "log_loss"]
+           "sigmoid_cross_entropy_with_logits", "log_loss", "gru_unit"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
        bias_attr=None, act: Optional[str] = None, name: Optional[str] = None,
-       **kwargs):
-    """One input: ``mul`` by a (in_features, size) weight, bias, act."""
+       in_features_hints=None, **kwargs):
+    """One ``mul`` per input by its own (in_features, size) weight, a
+    ``sum`` of them where there are several, bias, act.  ``param_attr``
+    may be a list, one per input; ``in_features_hints`` (one per input)
+    gives the weight's rows where an input's feature dims are unknown."""
+    inputs_list = list(input) if isinstance(input, (list, tuple)) else [input]
+    hints_list = (list(in_features_hints) if in_features_hints is not None
+                  else [None] * len(inputs_list))
+    if isinstance(param_attr, (list, tuple)):
+        attrs_list = list(param_attr)
+        assert len(attrs_list) == len(inputs_list), \
+            (len(attrs_list), len(inputs_list))
+    else:
+        attrs_list = [param_attr] * len(inputs_list)
     helper = LayerHelper("fc", param_attr=None, bias_attr=bias_attr,
                          act=act, name=name, **kwargs)
-    dtype = input.dtype
-    lead = input.shape[num_flatten_dims:] if input.shape is not None else None
-    if lead is None or any(s is None or s < 0 for s in lead):
-        raise ValueError(
-            f"fc input {input.name!r} has unknown feature dims past "
-            f"num_flatten_dims={num_flatten_dims}; the weight shape must "
-            "be static")
-    in_features = 1
-    for s in lead:
-        in_features *= s
-    w = helper.create_parameter(param_attr, shape=[in_features, size],
-                                dtype=dtype)
-    tmp = helper.create_tmp_variable(
-        dtype, tuple(input.shape[:num_flatten_dims]) + (size,),
-        input.lod_level)
-    helper.append_op(
-        type="mul",
-        inputs={"X": [input], "Y": [w]},
-        outputs={"Out": [tmp]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
-    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    dtype = inputs_list[0].dtype
+    mul_results = []
+    for inp, attr, hint in zip(inputs_list, attrs_list, hints_list):
+        in_shape = inp.shape
+        lead = in_shape[num_flatten_dims:] if in_shape is not None else ()
+        if in_shape is None or any(s is None or s < 0 for s in lead):
+            if hint is None:
+                raise ValueError(
+                    f"fc input {inp.name!r} has unknown feature dims past "
+                    f"num_flatten_dims={num_flatten_dims}; the weight shape "
+                    "must be static")
+            in_features = int(hint)
+        else:
+            in_features = 1
+            for s in lead:
+                in_features *= s
+        w = helper.create_parameter(attr, shape=[in_features, size],
+                                    dtype=dtype)
+        out_lead = (tuple(in_shape[:num_flatten_dims]) if in_shape is not None
+                    else (-1,) * num_flatten_dims)
+        tmp = helper.create_tmp_variable(dtype, out_lead + (size,),
+                                         inp.lod_level)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [inp], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype, mul_results[0].shape,
+                                              mul_results[0].lod_level)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -468,3 +497,30 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, **kwargs):
                      attrs={"x_num_col_dims": x_num_col_dims,
                             "y_num_col_dims": y_num_col_dims})
     return out
+
+
+def gru_unit(input, hidden, size: int, param_attr=None, bias_attr=None,
+             activation: str = "tanh", **kwargs):
+    """One GRU step (``gru_unit`` op).  ``size`` is 3 x the hidden width;
+    ``input`` is the (B, size) projection.  Returns (Hidden,
+    ResetHiddenPrev, Gate)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    d = size // 3
+    w = helper.create_parameter(param_attr, shape=[d, size],
+                                dtype=input.dtype)
+    ins = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias_attr is not False:  # False = no bias, the v1 idiom
+        b = helper.create_parameter(
+            bias_attr, shape=[size], dtype=input.dtype,
+            default_initializer=ConstantInitializer(0.0))
+        ins["Bias"] = [b]
+    gate = helper.create_tmp_variable(input.dtype, (input.shape[0], size))
+    rhp = helper.create_tmp_variable(input.dtype, (input.shape[0], d))
+    out = helper.create_tmp_variable(input.dtype, (input.shape[0], d))
+    helper.append_op(type="gru_unit",
+                     inputs=ins,
+                     outputs={"Gate": [gate], "ResetHiddenPrev": [rhp],
+                              "Hidden": [out]},
+                     attrs={"activation": activation})
+    return out, rhp, gate

@@ -3,12 +3,14 @@
 from paddle_tpu_torch.ops import (  # noqa: F401
     activation_ops,
     attention_ops,
+    control_flow_ops,
     loss_ops,
     math_ops,
     metric_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,
+    rnn_unit_ops,
     sequence_ops,
     tensor_ops,
 )

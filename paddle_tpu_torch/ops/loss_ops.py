@@ -259,3 +259,26 @@ def _modified_huber(ctx):
     ctx.set_output("IntermediateVal", z)
     ctx.set_output("Out", torch.where(z < -1.0, -4.0 * z,
                                       torch.square(_relu0(1.0 - z))))
+
+
+@register_op("padded_sequence_cross_entropy", inputs=("X", "Label", "Length"),
+             diff_inputs=("X",), infer_shape=_infer_rowwise("X", "Out"))
+def _padded_sequence_cross_entropy(ctx):
+    """Per-sequence mean NLL over padded (B, T, V) probabilities with
+    (B, T) integer labels, steps at or past Length masked
+    (``paddle_tpu/ops/loss_ops.py:215-234``): -log(max(p, 1e-12)) in
+    float32, summed over the valid steps and divided by max(length, 1);
+    Out (B, 1)."""
+    x = unwrap(ctx.input("X")).float()
+    label = unwrap(ctx.input("Label")).long()
+    b, t = label.shape[0], label.shape[1]
+    if ctx.has_input("Length"):
+        lens = unwrap(ctx.input("Length")).reshape(-1)
+    else:
+        lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    p = torch.take_along_dim(x, label.reshape(b, t, 1), dim=-1)[..., 0]
+    nll = -torch.log(torch.maximum(p, p.new_tensor(1e-12)))
+    valid = torch.arange(t, device=x.device)[None, :] < lens[:, None]
+    per_seq = (torch.where(valid, nll, torch.zeros_like(nll)).sum(1)
+               / torch.clamp(lens.float(), min=1.0))
+    ctx.set_output("Out", per_seq[:, None])

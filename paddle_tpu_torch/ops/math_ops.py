@@ -12,6 +12,7 @@ import functools
 import torch
 
 from paddle_tpu_torch import amp
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.lod import rewrap, unwrap
 from paddle_tpu_torch.ops.common import (clip, elementwise, grad_in, grad_out,
@@ -94,14 +95,18 @@ def _mul_grad(ctx):
 def _mul(ctx):
     """Flattening matmul: X flattened to 2-D at x_num_col_dims, Y at
     y_num_col_dims, then the ``matmul`` kernel; under AMP on bf16
-    operands, with a bf16 Out."""
+    operands, with a bf16 Out.  Where autograd records an operand (a step
+    block's mul replayed under ``recurrent_grad``), the kernel runs
+    through ``Matmul``, whose backward is ``matmul_backward``."""
     x = unwrap(ctx.input("X"))
     y = unwrap(ctx.input("Y"))
     xn = ctx.attr("x_num_col_dims", 1)
     yn = ctx.attr("y_num_col_dims", 1)
     out_dt = amp.out_dtype(x)
     x2, y2 = amp.cast_operands(_flatten2d(x, xn), _flatten2d(y, yn))
-    out = kmatmul.matmul(x2.contiguous(), y2.contiguous()).to(out_dt)
+    mm = (kmatmul.Matmul.apply if _build.recording(x2, y2)
+          else kmatmul.matmul)
+    out = mm(x2.contiguous(), y2.contiguous()).to(out_dt)
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     ctx.set_output("Out", rewrap(ctx.input("X"), torch.reshape(out, out_shape)))
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.autodiff import generic_grad_lower
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import batch_norm as kbn
 from paddle_tpu_torch.kernels import conv as kconv
 from paddle_tpu_torch.kernels import softmax as ksoftmax
@@ -350,10 +351,17 @@ def _softmax_grad(ctx):
 @register_op("softmax", inputs=("X",), infer_shape=infer_same_shape,
              grad_lower=_softmax_grad)
 def _softmax(ctx):
+    """Softmax over the last axis.  A 2-D X runs the softmax kernel, as
+    the JAX op runs its Pallas kernel, through ``Softmax`` where autograd
+    records X; any other X runs ``torch.softmax`` in float32, as the JAX
+    op's ``jax.nn.softmax``."""
     unary_in = ctx.input("X")
     x = unwrap(unary_in)
     if x.ndim == 2:
-        ctx.set_output("Out", rewrap(unary_in, ksoftmax.softmax(x.contiguous())))
+        x = x.contiguous()
+        fn = (ksoftmax.Softmax.apply if _build.recording(x)
+              else ksoftmax.softmax)
+        ctx.set_output("Out", rewrap(unary_in, fn(x)))
         return
     out = torch.softmax(x.float(), dim=-1).to(x.dtype)
     ctx.set_output("Out", rewrap(unary_in, out))

@@ -1,6 +1,8 @@
-"""Sequence ops of the LSTM text classifier's paths
-(``paddle_tpu/ops/sequence_ops.py``): the fused ``lstm`` over padded or
-LoD input, ``sequence_pool`` over LoD rows, and ``padded_sequence_pool``.
+"""Sequence ops of the LSTM text classifier's and the seq2seq cell's
+paths (``paddle_tpu/ops/sequence_ops.py``): the fused ``lstm`` over
+padded or LoD input, ``sequence_pool`` over LoD rows,
+``padded_sequence_pool``, the fused ``gru``, ``expand_as_steps``,
+``padded_sequence_softmax`` and ``padded_sequence_reverse``.
 
 ``lstm`` runs the whole-sequence LSTM kernel (``kernels/lstm.py``) with
 the default activations and no peepholes, for any B and H: the JAX op's
@@ -16,7 +18,10 @@ runs twice and the Program stays the JAX package's.  On the main path
 (padded, forward direction) hs and cs there are the Hidden and Cell
 outputs themselves.
 
-The other gradients are the generic replay.  The LoD reductions pad the
+``gru`` runs its step loop eagerly, its two products a step on
+``torch.matmul``: the JAX op's are ``jnp.dot`` inside ``lax.scan``,
+outside any Pallas kernel.  Its gradient, like the other ops' here, is
+the generic replay.  The LoD reductions pad the
 packed rows to (sequences, longest, ...) with one gather and reduce
 over the time axis: a fixed order, no atomics.
 """
@@ -29,7 +34,8 @@ from paddle_tpu_torch.autodiff import generic_grad_lower
 from paddle_tpu_torch.kernels import lstm as klstm
 from paddle_tpu_torch.lod import LoDArray, row_segment_ids, unwrap
 from paddle_tpu_torch.ops.nn_ops import _io_vars
-from paddle_tpu_torch.registry import SkipInferShape, register_op
+from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
+                                       register_op)
 
 
 def _infer_drop_time_shape(op, block):
@@ -329,3 +335,117 @@ register_op("lstm",
             infer_shape=_make_rnn_seq_infer(
                 4, ("BatchGate",), ("Hidden", "Cell", "BatchCellPreAct")))(
     _lstm_run)
+
+
+# ---------------------------------------------------------------------------
+# gru and the attention decoder's padded-sequence ops
+# ---------------------------------------------------------------------------
+
+
+def _gru(ctx):
+    """Fused GRU over pre-projected gates (``paddle_tpu/ops/sequence_ops.py:
+    697-744``): Input (B, T, 3H), Weight (H, 3H) packing W_ur (H, 2H) and
+    W_c (H, H), optional Bias (1, 3H) and H0.  A step's gate math runs in
+    float32 and only the carry is rounded, pinned to Input's dtype (under
+    AMP a bf16 carry): the JAX op's ``lax.scan`` body rounds each product
+    to Input's dtype, but XLA keeps the fused body's values in float32
+    (excess precision) and rounds at the carry alone.  With
+    ``is_reverse`` and Length each row runs backward inside its own
+    window (``_window_reverse``), without Length over the whole time
+    axis."""
+    x = unwrap(ctx.input("Input"))
+    b, _, h3 = x.shape
+    h = h3 // 3
+    w = unwrap(ctx.input("Weight")).float()
+    w_ur, w_c = w[:, :2 * h], w[:, 2 * h:]
+    bias = (unwrap(ctx.input("Bias")).reshape(1, 3 * h)
+            if ctx.has_input("Bias")
+            else torch.zeros((1, 3 * h), dtype=x.dtype, device=x.device))
+    hid = (unwrap(ctx.input("H0")).to(x.dtype) if ctx.has_input("H0")
+           else torch.zeros((b, h), dtype=x.dtype, device=x.device))
+    gate_act = _ACTS[ctx.attr("gate_activation", "sigmoid")]
+    cand_act = _ACTS[ctx.attr("activation", "tanh")]
+    lens = None
+    if ctx.attr("is_reverse", False) and ctx.has_input("Length"):
+        lens = unwrap(ctx.input("Length"))
+        x = _window_reverse(x, lens)
+    steps = list(range(x.shape[1]))
+    if ctx.attr("is_reverse", False) and lens is None:
+        steps.reverse()
+    hs = [None] * len(steps)
+    bias = bias.float()
+    for t in steps:
+        xt, hf = x[:, t].float(), hid.float()
+        ur = gate_act(xt[:, :2 * h] + hf @ w_ur + bias[:, :2 * h])
+        u, r = ur[:, :h], ur[:, h:]
+        c = cand_act(xt[:, 2 * h:] + (r * hf) @ w_c + bias[:, 2 * h:])
+        hid = (u * hf + (1 - u) * c).to(x.dtype)
+        hs[t] = hid
+    hidden = torch.stack(hs, 1)
+    if lens is not None:
+        hidden = _window_reverse(hidden, lens)
+    for slot in ("Hidden", "BatchGate", "BatchResetHiddenPrev",
+                 "BatchHidden"):
+        ctx.set_output(slot, hidden)
+
+
+register_op("gru",
+            inputs=("Input", "H0", "Weight", "Bias", "Length"),
+            outputs=("Hidden", "BatchGate", "BatchResetHiddenPrev",
+                     "BatchHidden"),
+            diff_inputs=("Input", "H0", "Weight", "Bias"),
+            infer_shape=_make_rnn_seq_infer(
+                3, ("BatchGate",),
+                ("Hidden", "BatchResetHiddenPrev", "BatchHidden")))(_gru)
+
+
+@register_op("expand_as_steps", inputs=("X", "Y", "XLength"),
+             diff_inputs=("X",))
+def _expand_as_steps(ctx):
+    """A per-sequence vector X (B, D) broadcast to every step of the
+    padded sequence Y (B, T, ...) -> (B, T, D) (``:755-779``).  A
+    sequence X (B, T', D) is taken at its first step, and where its
+    XLength holds a length above 1 the output is NaN: the reference
+    expands only length-1 sequences, and a test on the device keeps the
+    host out of the step."""
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    poison = None
+    if x.ndim == 3:
+        if ctx.has_input("XLength"):
+            poison = unwrap(ctx.input("XLength")).reshape(-1).max() > 1
+        x = x[:, 0]
+    out = x[:, None, :].expand(x.shape[0], y.shape[1], x.shape[-1])
+    if poison is not None:
+        out = torch.where(poison, torch.full_like(out, float("nan")), out)
+    ctx.set_output("Out", out)
+
+
+@register_op("padded_sequence_softmax", inputs=("X", "Length"),
+             diff_inputs=("X",), infer_shape=infer_same_shape)
+def _padded_sequence_softmax(ctx):
+    """Softmax over the time axis of padded (B, T) or (B, T, 1) scores,
+    steps at or past Length masked out (``:842-858``): -1e9 in X's dtype
+    before a float32 softmax, zeros after it."""
+    x = unwrap(ctx.input("X"))
+    lens = unwrap(ctx.input("Length")).reshape(-1)
+    squeeze = x.ndim == 3
+    s = x[..., 0] if squeeze else x
+    valid = torch.arange(s.shape[1], device=s.device)[None, :] < lens[:, None]
+    s = torch.where(valid, s, torch.full_like(s, -1e9))
+    out = torch.softmax(s.float(), dim=1).to(x.dtype)
+    out = torch.where(valid, out, torch.zeros_like(out))
+    ctx.set_output("Out", out[..., None] if squeeze else out)
+
+
+@register_op("padded_sequence_reverse", inputs=("X", "Length"),
+             infer_shape=infer_same_shape)
+def _padded_sequence_reverse(ctx):
+    """Each row of padded (B, T, ...) reversed inside its valid window
+    (``:948-961``); without Length the whole time axis.  An
+    involution."""
+    x = unwrap(ctx.input("X"))
+    if not ctx.has_input("Length"):
+        ctx.set_output("Out", torch.flip(x, dims=(1,)))
+        return
+    ctx.set_output("Out", _window_reverse(x, unwrap(ctx.input("Length"))))

@@ -1,0 +1,15 @@
+"""The v1 config DSL (``paddle_tpu/trainer_config_helpers/``), the part
+the seq2seq cell of ``benchmark/run.py`` reaches.  A v1 config calls
+``settings(...)``, builds a layer graph with ``*_layer`` constructors
+and declares ``outputs(...)``; ``paddle_tpu_torch.trainer.config_parser.
+parse_config`` runs it and returns what it declared.  The constructors
+build the lazy ``LayerOutput`` DAG of ``paddle_tpu_torch.v2.layer``, so
+a parsed config trains on the port's Program path."""
+
+from paddle_tpu_torch.trainer_config_helpers.activations import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.attrs import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.poolings import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.layers import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.layers_extra import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.networks import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.optimizers import *  # noqa: F401,F403

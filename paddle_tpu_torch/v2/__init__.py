@@ -1,0 +1,27 @@
+"""The paddle.v2 surface of the port (``paddle_tpu/v2/``), the part the
+v1 trainer reaches: layers build a lazy ``LayerOutput`` DAG,
+``Topology`` traces it into a Program, ``Parameters`` holds the weights
+in a Scope, ``SGD`` appends the optimizer.  Sequences are padded
+(B, T, ...) values beside a ``<name>@len`` length vector.  The data
+feeder, ``SGD.train``, checkpoints, inference and the datasets wait for
+the v2 slice."""
+
+from paddle_tpu_torch.v2 import (activation, attr, data_type, layer,
+                                 parameters, pooling, topology, trainer)
+
+_trainer_count = 1
+
+
+def init(use_gpu: bool = True, trainer_count: int = 1, **kwargs):
+    """Process init.  ``trainer_count`` above 1 (data parallelism over
+    that many cards) waits for the parallel slice and raises."""
+    global _trainer_count
+    if int(trainer_count) > 1:
+        raise NotImplementedError(
+            "paddle_tpu_torch: trainer_count > 1 (data parallelism) comes "
+            "with the parallel slice")
+    _trainer_count = int(trainer_count)
+
+
+__all__ = ["activation", "attr", "data_type", "init", "layer", "parameters",
+           "pooling", "topology", "trainer"]

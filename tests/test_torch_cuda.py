@@ -3151,3 +3151,73 @@ def test_sparse_optimizer_ops_on_the_card_match_cpu(dev, op_type):
         torch.testing.assert_close(a.cpu(), b, rtol=0,
                                    atol=1e-6 * float(b.abs().max()))
         assert torch.equal(a.cpu()[~touched], before[~touched])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent op's gradient on the card (the seq2seq slice)
+# ---------------------------------------------------------------------------
+
+
+def test_raw_matmul_launch_under_recording_raises(dev):
+    """A ctypes launch is opaque to autograd: ``matmul`` on an operand
+    autograd records raises, where ``Matmul`` (recording off in its
+    forward) launches and gives matmul_backward's gradients."""
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    g = torch.Generator().manual_seed(5)
+    x = _randn(g, 64, 32, device=dev).requires_grad_(True)
+    y = _randn(g, 32, 48, device=dev).requires_grad_(True)
+    with torch.enable_grad():
+        with pytest.raises(RuntimeError, match="autograd"):
+            kmatmul.matmul(x, y)
+        before = kmatmul.launches
+        out = kmatmul.Matmul.apply(x, y)
+        assert kmatmul.launches == before + 1
+        r = _randn(g, 64, 48, device=dev)
+        dx, dy = torch.autograd.grad(out, (x, y), r)
+    torch.testing.assert_close(dx, r @ y.detach().T, **GEMM_TOL)
+    torch.testing.assert_close(dy, x.detach().T @ r, **GEMM_TOL)
+
+
+def test_recurrent_weight_grads_on_the_card_match_cpu(dev):
+    """A StaticRNN whose step block multiplies by its own weights (``mul``
+    on the matmul kernel): recurrent_grad on the card replays the loop
+    under autograd through ``Matmul``, so the in-block weights'
+    gradients match the CPU path's within 1e-4 of max (none zero), and
+    the kernel ran in the forward and in the replay."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    b, t, d, h = 16, 8, 24, 32
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[b, t, d], append_batch_size=False)
+        rnn = pt.layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(batch_ref=xt, shape=[-1, h], init_value=0.1)
+            nh = pt.layers.fc(input=[xt, mem], size=h, act="tanh")
+            rnn.update_memory(mem, nh)
+            rnn.step_output(nh)
+        (out,) = rnn()
+        loss = pt.layers.mean(pt.layers.elementwise_mul(out, out))
+        params_grads = pt.append_backward(loss)
+    fetch = [loss.name] + [gv.name for _, gv in params_grads]
+    assert {"fc_0.w_0@GRAD", "fc_0.w_1@GRAD", "fc_0.b_0@GRAD"} <= set(fetch)
+    feed = {"x": np.random.RandomState(3).randn(b, t, d).astype(np.float32)}
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    state = {n: v.numpy() for n, v in cpu_scope.values.items()}
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                          scope=cpu_scope)
+    scope = pt.Scope()
+    scope.load_numpy(state, dev)
+    before = kmatmul.launches
+    got = pt.Executor(pt.CUDAPlace(0)).run(main, feed=feed, fetch_list=fetch,
+                                           scope=scope)
+    assert kmatmul.launches - before == 2 * 2 * t
+    for name, g_, w_ in zip(fetch, got, want):
+        scale = float(np.abs(w_).max())
+        assert scale > 0, name
+        assert float(np.abs(g_ - w_).max()) <= 1e-4 * scale, name
