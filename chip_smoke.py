@@ -280,6 +280,27 @@ seconds):
 15g-15h. The same under AMP (amp_step_parity; the step block's weights
     within AMP_PARITY_TOL; 194 bf16 matmul launches, 2 on the wgmma
     engine, the rest on the mma.sync tile).
+15i. The reference's v1 demos (V1_DEMOS: mnist_v1, quick_start,
+    sequence_tagging, traffic_prediction and the seq2seq demo's training
+    half, the port's copies in paddle_tpu_torch/demos/ at their own
+    widths, batches and synthetic providers) trained on the card through
+    the command line a user runs (``paddle_tpu_torch.trainer.main``) at
+    the reference tests' pass counts from their configs' CPU-initialised
+    weights (``--init_model_path``): the first two costs within
+    PARITY_TOL of the same batches on CPUPlace(), the costs to the
+    reference test's gate, ``--job=test`` on the last pass directory;
+    ``--job=checkgrad`` on traffic_prediction.  Each demo's launches
+    (counters zeroed just before it, read just after), ms a step,
+    samples/s and peak memory.
+15j. The fluid demos on the card through their ``main``: gan and vae
+    (DEMO_STEPS steps) and model_zoo (ResNet-20, 10 steps, export,
+    reload) to their reference tests' gates; gan's and model_zoo's first
+    two steps against CPUPlace() from the same state (vae draws its
+    noise in the graph, from each place's generator); model_zoo's
+    reloaded probabilities against the same export on CPUPlace(); the
+    same figures.  The demos together must launch rows 1, 2, 3, 4 and
+    5-6 (the conv forward, backward-input and filter gradient, matmul,
+    softmax, BN forward and backward).
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
@@ -332,7 +353,8 @@ seconds):
     (its launch alone: its ``ms`` is the whole backward, kernel, dW
     product, dbias and casts); for the conv, matmul, softmax and BN rows
     ``by_model``: the image cells' launches at run.py's batch from phase
-    2), the card's name and power limit, and the result.
+    2; ``launches_by_path`` has each demo's as ``demo_<name>``), the
+    card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
 
@@ -576,6 +598,26 @@ S2S_VOCAB, S2S_EMB, S2S_HID, S2S_SEQ, S2S_BATCH = 30000, 512, 512, 32, 64
 S2S_PARITY_BATCH, S2S_PARITY_SEQ = 4, 8
 # tokens/s over S2S_TIMED steps after S2S_WARMUP warm-up steps (run.py's)
 S2S_WARMUP, S2S_TIMED = 3, 10
+# The reference's v1 demos (paddle_tpu_torch/demos/, copies of demos/ at
+# their own widths, batches, seeds and synthetic providers; none cut),
+# trained through the paddle_trainer command line
+# (paddle_tpu_torch.trainer.main) at the reference tests' pass counts
+# (tests/test_v1_api.py:61-76, tests/test_demos.py:29-58), each held to
+# its test's gate on the per-batch costs: name -> (passes, gate, what).
+V1_DEMOS = {
+    "mnist_v1": (2, lambda c: c[0] > 1.5 and np.mean(c[-3:]) < 0.7 * c[0],
+                 "first > 1.5, mean of the last 3 < 0.7 x the first"),
+    "quick_start": (6, lambda c: np.mean(c[-3:]) < 0.45,
+                    "mean of the last 3 < 0.45"),
+    "sequence_tagging": (3, lambda c: np.mean(c[-3:]) < 0.5 * c[0],
+                         "mean of the last 3 < 0.5 x the first"),
+    "traffic_prediction": (4, lambda c: np.mean(c[-3:]) < 0.3 * c[0],
+                           "mean of the last 3 < 0.3 x the first"),
+    "seq2seq": (30, lambda c: np.mean(c[-3:]) < 0.25 * c[0],
+                "mean of the last 3 < 0.25 x the first"),
+}
+# the fluid demos' steps (tests/test_demos.py:11-53): gan and vae 300
+DEMO_STEPS = 300
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
@@ -6177,6 +6219,290 @@ def phase_decode_profile():
     return profile_in_child(PROFILE_DEC, "decode step")
 
 
+# ---------------------------------------------------------------------------
+# the v1 demos and the fluid demos
+# ---------------------------------------------------------------------------
+
+
+class _StampedLines:
+    """A stdout stand-in that keeps each line with the time it was
+    written (the trainer's "Pass p, Batch b, Cost c" lines come at each
+    EndIteration, after its cost reached the host)."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def _trainer_cli(args):
+    """paddle_tpu_torch.trainer.main(args) with its output kept:
+    (exit code, [(time, line)])."""
+    import contextlib
+
+    from paddle_tpu_torch.trainer import trainer as pt_trainer
+
+    out = _StampedLines()
+    with contextlib.redirect_stdout(out):
+        rc = pt_trainer.main(args)
+    return rc, out.lines
+
+
+def _demo_cpu_costs(config, init_tar, steps=2):
+    """The config's first ``steps`` batches trained on CPUPlace() from
+    the weights in ``init_tar``: their costs."""
+    import itertools
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import Trainer
+
+    pt.framework.reset_default_programs()
+    t = Trainer(parse_config(config), pt.CPUPlace())
+    t.load_parameters(init_tar)
+    reader = t._reader_from_sources()
+    costs = []
+    t._sgd.train(lambda: itertools.islice(reader(), steps),
+                 event_handler=lambda e: costs.append(e.cost)
+                 if hasattr(e, "cost") else None)
+    return costs
+
+
+def _check_first_steps(what, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if abs(g - w) > PARITY_TOL * abs(w):
+            fail(f"{what}: step {i} cost {g:.6f} on the card, {w:.6f} on "
+                 f"the CPU (gate {PARITY_TOL} of it)")
+
+
+def _demo_record(what, launches, steps, samples, seconds, smi):
+    """The launches, ms a step, samples/s and peak memory of a demo run,
+    logged; the record returned."""
+    import torch
+
+    rec = dict(launches=launches, steps=steps,
+               ms_per_step=1e3 * seconds / max(steps, 1),
+               samples_per_s=samples / seconds,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{what}: launches { {k: v for k, v in launches.items() if v} }; "
+        f"{rec['ms_per_step']:.3f} ms a step, {rec['samples_per_s']:.1f} "
+        f"samples/s over {steps} steps, peak "
+        f"{rec['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
+    return rec
+
+
+def phase_v1_demos(dev, smi):
+    """The v1 demos on the card through the command line a user runs.
+    For each: its config's initial weights (CPUPlace()) as a params.tar;
+    the first two batches on CPUPlace() from them; then ``main(["--config",
+    ..., "--init_model_path", tar, "--num_passes", n, "--log_period=1",
+    "--save_dir", d])`` on the card, the counters zeroed just before and
+    read just after.  The first two costs within PARITY_TOL of the CPU's,
+    the costs to the reference test's gate (V1_DEMOS), then ``--job=test``
+    on the last pass directory (a finite cost under the first training
+    cost).  ms a step between the first and the last batch's line,
+    samples/s, peak memory.  Then ``--job=checkgrad`` on
+    traffic_prediction on the card."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import Trainer
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (passes, gate, gate_text) in V1_DEMOS.items():
+            config = os.path.join(HERE, "paddle_tpu_torch", "demos", name,
+                                  "trainer_config.py")
+            pt.framework.reset_default_programs()
+            t = Trainer(parse_config(config), pt.CPUPlace())
+            init_tar = os.path.join(tmp, f"{name}_init.tar")
+            with open(init_tar, "wb") as f:
+                t.parameters.to_tar(f)
+            batch = t.batch_size
+            del t
+            want = _demo_cpu_costs(config, init_tar)
+            save = os.path.join(tmp, name)
+            pt.framework.reset_default_programs()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            rc, lines = _trainer_cli([
+                f"--config={config}", f"--init_model_path={init_tar}",
+                f"--num_passes={passes}", "--log_period=1",
+                f"--save_dir={save}"])
+            launches = counters()
+            steps = [(ts, float(line.split("Cost ")[1].split(",")[0]))
+                     for ts, line in lines if line.startswith("Pass ")]
+            costs = [c for _, c in steps]
+            if rc != 0 or len(costs) < 3:
+                fail(f"v1 demo {name}: exit {rc}, {len(costs)} batches")
+            _check_first_steps(f"v1 demo {name}", costs[:2], want)
+            if not (np.isfinite(costs).all() and gate(costs)):
+                fail(f"v1 demo {name}: costs {costs[0]:.6f} ... "
+                     f"{costs[-3:]} miss the reference's gate ({gate_text})")
+            seconds = steps[-1][0] - steps[0][0]
+            rec = _demo_record(
+                f"v1 demo {name} ({passes} passes, batch {batch})", launches,
+                len(costs) - 1, batch * (len(costs) - 1), seconds, smi)
+            rc, lines = _trainer_cli([
+                "--job=test", f"--config={config}",
+                f"--init_model_path={save}/pass-{passes - 1:05d}"])
+            done = [line for _, line in lines if line.startswith("Test done")]
+            test_cost = float(done[-1].split("cost")[-1].split(",")[0]) \
+                if rc == 0 and done else float("nan")
+            if not test_cost < costs[0]:
+                fail(f"v1 demo {name} --job=test: cost {test_cost} (first "
+                     f"training cost {costs[0]:.6f})")
+            log(f"v1 demo {name}: costs {costs[0]:.6f} -> "
+                f"{np.mean(costs[-3:]):.6f} (gate: {gate_text}), first two "
+                f"{costs[:2]} on the card, {[round(w, 6) for w in want]} on "
+                f"the CPU; --job=test on pass {passes - 1}: cost "
+                f"{test_cost:.6f}")
+            rec.update(first_cost=costs[0], last_costs=costs[-3:],
+                       test_cost=test_cost)
+            results[name] = rec
+    traffic = os.path.join(HERE, "paddle_tpu_torch", "demos",
+                           "traffic_prediction", "trainer_config.py")
+    pt.framework.reset_default_programs()
+    rc, lines = _trainer_cli(["--job=checkgrad", f"--config={traffic}"])
+    text = [line for _, line in lines]
+    if rc != 0 or not any("Gradient check PASSED" in x for x in text):
+        fail(f"v1 demo traffic_prediction --job=checkgrad: {text[-3:]}")
+    log("v1 demo traffic_prediction --job=checkgrad on the card: "
+        + "; ".join(x for x in text if x.startswith("checkgrad")))
+    return results
+
+
+def _fluid_two_steps(what, program, startup, feeds, fetch):
+    """Two steps of ``program`` on the card and on CPUPlace() from the
+    same initial state (its startup run on the CPU): each fetch within
+    PARITY_TOL of the CPU's value."""
+    import paddle_tpu_torch as pt
+
+    cpu, card = pt.Scope(), pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu)
+    card.load_numpy({n: v.numpy() for n, v in cpu.values.items()}, "cuda")
+    for i, feed in enumerate(feeds):
+        want = pt.Executor(pt.CPUPlace()).run(program, feed=feed,
+                                              fetch_list=fetch, scope=cpu)
+        got = pt.Executor().run(program, feed=feed, fetch_list=fetch,
+                                scope=card)
+        _check_first_steps(f"{what} {fetch}", [float(g) for g in got],
+                           [float(w) for w in want])
+        log(f"{what} step {i}: card {[float(g) for g in got]}, CPU "
+            f"{[float(w) for w in want]}")
+
+
+def phase_fluid_demos(dev, smi):
+    """gan (DEMO_STEPS steps), vae (DEMO_STEPS) and model_zoo (10 steps,
+    export, reload) on the card through their ``main(place=...)``, the
+    counters zeroed just before each and read just after, each held to
+    its reference test's gate (tests/test_demos.py).  gan's and
+    model_zoo's first two steps against CPUPlace() from the same state;
+    vae draws its noise in the graph from each place's own generator, so
+    it is held by its gate only.  model_zoo's export reloaded on the card
+    and on CPUPlace(): the probabilities within PROBS_TOL."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.demos.gan import train as gan
+    from paddle_tpu_torch.demos.model_zoo import infer as zoo
+    from paddle_tpu_torch.demos.vae import train as vae
+
+    results = {}
+    # gan: the first two steps, then the run
+    pt.framework.reset_default_programs()
+    zname, rname, _, d_loss, g_loss = gan.build()
+    rng = np.random.RandomState(0)
+    _fluid_two_steps("gan", pt.default_main_program(),
+                     pt.default_startup_program(),
+                     [{zname: rng.randn(64, 8).astype(np.float32),
+                       rname: gan.real_batch(rng, 64)} for _ in range(2)],
+                     [d_loss.name, g_loss.name])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    dl, gl, samples = gan.main(steps=DEMO_STEPS, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    radius = float(np.linalg.norm(samples, axis=1).mean())
+    real = float(np.linalg.norm(gan.real_batch(np.random.RandomState(0),
+                                               256), axis=1).mean())
+    if not (np.isfinite(dl) and np.isfinite(gl) and 1.0 < radius < 3.5
+            and abs(radius - real) < 1.5):
+        fail(f"gan: d {dl}, g {gl}, mean radius {radius} (real {real})")
+    log(f"gan: d_loss {dl:.4f}, g_loss {gl:.4f}, mean radius {radius:.4f} "
+        f"(real {real:.4f}; gate 1.0-3.5, within 1.5)")
+    results["gan"] = _demo_record(f"gan ({DEMO_STEPS} steps, batch 64)",
+                                  launches, DEMO_STEPS, 64 * DEMO_STEPS,
+                                  seconds, smi)
+    # vae
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    first, last = vae.main(steps=DEMO_STEPS, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    if not last < 0.3 * first:
+        fail(f"vae: reconstruction {first} -> {last} (gate 0.3 x)")
+    log(f"vae: reconstruction {first:.4f} -> {last:.4f} (gate < 0.3 x)")
+    results["vae"] = _demo_record(f"vae ({DEMO_STEPS} steps, batch 64)",
+                                  launches, DEMO_STEPS, 64 * DEMO_STEPS,
+                                  seconds, smi)
+    # model_zoo: the first two steps, then export on the card and reload
+    with tempfile.TemporaryDirectory() as tmp:
+        protos = zoo.export(os.path.join(tmp, "build"), steps=0,
+                            verbose=False, place=pt.CPUPlace())
+        loss = next(op.output("Out")[0] for op in
+                    pt.default_main_program().global_block().ops
+                    if op.type == "mean")
+        rng = np.random.RandomState(0)
+        rng.randn(10, 3, 32, 32)   # the prototypes
+        feeds = []
+        for _ in range(2):
+            ys = rng.randint(0, 10, (32,)).astype("int64")
+            xs = protos[ys] + 0.1 * rng.randn(32, 3, 32, 32).astype(
+                "float32")
+            feeds.append({"img": xs, "label": ys.reshape(-1, 1)})
+        _fluid_two_steps("model_zoo", pt.default_main_program(),
+                         pt.default_startup_program(), feeds, [loss])
+        model_dir = os.path.join(tmp, "resnet20")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        with pt.scope_guard(pt.Scope()):
+            protos = zoo.export(model_dir, verbose=False)
+        probs = zoo.infer(model_dir, protos)
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        want = zoo.infer(model_dir, protos, pt.CPUPlace())
+    if probs.shape != (10, 10) or not np.allclose(probs.sum(1), 1.0,
+                                                  atol=1e-4):
+        fail(f"model_zoo: probabilities {probs.shape}, row sums "
+             f"{probs.sum(1)}")
+    if not np.allclose(probs, want, **PROBS_TOL):
+        fail(f"model_zoo: reloaded probabilities on the card differ from "
+             f"the CPU's by {np.abs(probs - want).max():.3e} ({PROBS_TOL})")
+    log(f"model_zoo: top-1 of the prototypes {probs.argmax(1).tolist()}, "
+        f"max |card - CPU| {np.abs(probs - want).max():.3e}")
+    results["model_zoo"] = _demo_record(
+        "model_zoo (10 steps at batch 32, export, reload, 10 images)",
+        launches, 10, 32 * 10, seconds, smi)
+    return results
+
+
 def timed(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -6368,6 +6694,16 @@ def main():
     s2s = timed(phase_seq2seq_step, dev, smi)
     timed(phase_seq2seq_parity, dev, amp=True)
     s2s_amp = timed(phase_seq2seq_step, dev, smi, amp=True)
+    demos = timed(phase_v1_demos, dev, smi)
+    demos.update(timed(phase_fluid_demos, dev, smi))
+    demo_launches = {k: sum(r["launches"][k] for r in demos.values())
+                     for k in KERNELS}
+    log(f"the demos' launches in all: "
+        f"{ {k: v for k, v in demo_launches.items() if v} }")
+    for k in ("conv2d_nhwc", "conv_bwd_input", "conv_dw", "matmul",
+              "softmax", "batch_norm_fwd", "batch_norm_bwd"):
+        if not demo_launches[k]:
+            fail(f"the demos launched no {k} kernel")
     idle = timed(phase_seq_profile)
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
     lstm_amp["idle_share"] = idle["lstm_amp"]
@@ -6404,7 +6740,8 @@ def main():
                "seq2seq_train_step": s2s["launches"],
                "seq2seq_amp_train_step": s2s_amp["launches"],
                "generate": gen_launches, **dec_counts,
-               **{p: r["launches"] for p, r in image_steps.items()}}
+               **{p: r["launches"] for p, r in image_steps.items()},
+               **{f"demo_{n}": r["launches"] for n, r in demos.items()}}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -6525,6 +6862,10 @@ def main():
             f"model TFLOP/s, peak {r['peak_bytes'] / 2**30:.3f} GiB, idle "
             f"share {r['idle_share']:.3f}"
             for kind, r in (("f32", s2s), ("AMP (bf16)", s2s_amp)))
+        + "; the demos: " + "; ".join(
+            f"{n} {r['ms_per_step']:.3f} ms a step, "
+            f"{r['samples_per_s']:.1f} samples/s, peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB" for n, r in demos.items())
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -70,6 +70,10 @@ class LayerHelper:
         return self.block.append_op(**kwargs)
 
     @property
+    def param_attr(self):
+        return self.kwargs.get("param_attr")
+
+    @property
     def bias_attr(self):
         return self.kwargs.get("bias_attr")
 

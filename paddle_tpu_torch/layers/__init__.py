@@ -7,7 +7,7 @@ from paddle_tpu_torch.layers.io import data
 from paddle_tpu_torch.layers.nn import (accuracy, batch_norm, conv2d,
                                         cross_entropy, dropout, dynamic_lstm,
                                         embedding, fc, gru_unit, layer_norm,
-                                        log_loss,
+                                        linear_chain_crf, log_loss,
                                         lrn, lstm, mul, multi_head_attention,
                                         pool2d, scaled_dot_product_attention,
                                         sigmoid_cross_entropy_with_logits,
@@ -37,4 +37,4 @@ __all__ = ["data", "fc", "conv2d", "pool2d", "batch_norm", "cross_entropy",
            "sums", "assign", "fill_constant",
            "fill_constant_batch_size_like", "ones", "zeros", "scale",
            "gaussian_random", "uniform_random", "StaticRNN", "DynamicRNN",
-           "gru_unit"] + ops.__all__
+           "gru_unit", "linear_chain_crf"] + ops.__all__

@@ -22,7 +22,8 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "scaled_dot_product_attention", "multi_head_attention",
            "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
            "lrn", "mul", "square_error_cost",
-           "sigmoid_cross_entropy_with_logits", "log_loss", "gru_unit"]
+           "sigmoid_cross_entropy_with_logits", "log_loss", "gru_unit",
+           "linear_chain_crf"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -524,3 +525,28 @@ def gru_unit(input, hidden, size: int, param_attr=None, bias_attr=None,
                               "Hidden": [out]},
                      attrs={"activation": activation})
     return out, rhp, gate
+
+
+def linear_chain_crf(input, label, length=None, param_attr=None, **kwargs):
+    """The linear-chain CRF's negative log-likelihood over padded
+    emissions (B, T, D) with per-row lengths: the (B, 1) cost.  The
+    transition parameter (D + 2, D), rows [start; end; pairwise], is
+    named through ``param_attr``."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr, **kwargs)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[2 + num_tags, num_tags], dtype=input.dtype)
+    batch = input.shape[0]
+    ll = helper.create_tmp_variable(input.dtype, (batch, 1))
+    alpha = helper.create_tmp_variable(input.dtype, (batch, num_tags))
+    eexp = helper.create_tmp_variable(input.dtype, input.shape)
+    texp = helper.create_tmp_variable(input.dtype, (2 + num_tags, num_tags))
+    inputs = {"Emission": [input], "Transition": [transition],
+              "Label": [label]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="linear_chain_crf", inputs=inputs,
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [eexp], "TransitionExps": [texp]})
+    return ll

@@ -7,6 +7,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     loss_ops,
     math_ops,
     metric_ops,
+    nn_extra_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,

@@ -2,7 +2,8 @@
 paths (``paddle_tpu/ops/sequence_ops.py``): the fused ``lstm`` over
 padded or LoD input, ``sequence_pool`` over LoD rows,
 ``padded_sequence_pool``, the fused ``gru``, ``expand_as_steps``,
-``padded_sequence_softmax`` and ``padded_sequence_reverse``.
+``padded_sequence_softmax``, ``padded_sequence_reverse`` and
+``context_project``.
 
 ``lstm`` runs the whole-sequence LSTM kernel (``kernels/lstm.py``) with
 the default activations and no peepholes, for any B and H: the JAX op's
@@ -449,3 +450,46 @@ def _padded_sequence_reverse(ctx):
         ctx.set_output("Out", torch.flip(x, dims=(1,)))
         return
     ctx.set_output("Out", _window_reverse(x, unwrap(ctx.input("Length"))))
+
+
+def _infer_context_project_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Out")
+    if ov.shape is not None:
+        return
+    ctx_len = op.attr("context_length", None)
+    if not ctx_len or len(xv.shape) < 2:
+        raise SkipInferShape
+    last = xv.shape[-1]
+    ov.shape = tuple(xv.shape[:-1]) + (
+        last * int(ctx_len) if last >= 0 else -1,)
+
+
+@register_op("context_project", inputs=("X", "Length"),
+             infer_shape=_infer_context_project_shape)
+def _context_project(ctx):
+    """A sliding window concatenated over time (``:806-839``): X (B, T, D)
+    -> (B, T, D * context_length), step t holding steps
+    [t + start, t + start + length) with zeros past either edge.  With
+    Length, the steps at or past each row's length are zeroed first, so
+    a window that crosses a short row's end sees zeros, not the padding's
+    values."""
+    x = unwrap(ctx.input("X"))
+    if ctx.has_input("Length"):
+        lens = unwrap(ctx.input("Length")).reshape(-1)
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 < lens[:, None])
+        x = x * valid.reshape(valid.shape + (1,) * (x.ndim - 2)).to(x.dtype)
+    ctx_len = int(ctx.attr("context_length"))
+    start = int(ctx.attr("context_start", -(ctx_len // 2)))
+    B, T = x.shape[0], x.shape[1]
+    slabs = []
+    for k in range(ctx_len):
+        shift = start + k
+        pad = x.new_zeros((B, min(abs(shift), T)) + tuple(x.shape[2:]))
+        if shift == 0:
+            slabs.append(x)
+        elif shift > 0:
+            slabs.append(torch.cat([x[:, shift:], pad], dim=1))
+        else:
+            slabs.append(torch.cat([pad, x[:, :shift]], dim=1))
+    ctx.set_output("Out", torch.cat(slabs, dim=-1))

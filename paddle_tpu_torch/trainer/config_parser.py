@@ -2,8 +2,9 @@
 DSL constructors already build the lazy LayerOutput DAG, so parsing runs
 the config under a capture and packages what it declared, with
 proto-shaped views (``model_config.layers``) and the live LayerOutputs
-the trainer builds into a Program.  Data providers
-(``define_py_data_sources2``) wait for the v2 slice."""
+the trainer builds into a Program.  A config that declares a data
+source (``define_py_data_sources2``) has its data layers retyped from
+the provider's input types once the whole config has run."""
 
 from __future__ import annotations
 
@@ -79,8 +80,10 @@ def parse_config(config, config_arg_str: str = "") -> TrainerConfig:
             exec(compile(src, path, "exec"), glb)
     finally:
         _layers._end_capture()
-    if cap.get("_pending_input_types"):
-        raise NotImplementedError(
-            "paddle_tpu_torch: data providers (define_py_data_sources2) come "
-            "with the v2 slice")
+    pending = cap.get("_pending_input_types")
+    if pending:
+        from paddle_tpu_torch.trainer_config_helpers.data_sources import \
+            _apply_input_types
+
+        _apply_input_types(cap, pending)
     return TrainerConfig(cap)

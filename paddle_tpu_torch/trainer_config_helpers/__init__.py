@@ -13,3 +13,4 @@ from paddle_tpu_torch.trainer_config_helpers.layers import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.layers_extra import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.networks import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.optimizers import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.data_sources import *  # noqa: F401,F403

@@ -1,16 +1,19 @@
 """v1 layer constructors (``paddle_tpu/trainer_config_helpers/layers.py``),
-the part the seq2seq cell of ``benchmark/run.py`` reaches: the config
-capture, the data, fc, embedding, grumemory, pooling, expand, addto,
-scaling and classification cost layers, and ``recurrent_group`` with
-``memory`` and ``StaticInput``.  Each returns the same lazy
+the part the seq2seq cell of ``benchmark/run.py`` and the reference's
+v1 demos reach: the config capture, the data, fc, embedding, image conv
+and pool, grumemory, pooling, expand, addto and scaling layers,
+``mixed_layer`` with the full-matrix, identity and context projections,
+the classification, regression and CRF costs, and ``recurrent_group``
+with ``memory`` and ``StaticInput``.  Each returns the same lazy
 ``LayerOutput`` the v2 layers do (``paddle_tpu_torch/v2/layer.py``);
 ``outputs()`` marks the roots, and a module-level capture (driven by
 ``trainer.config_parser``) records a LayerConfig-shaped dict a call.
-Nested sequences (``SubsequenceInput``), the image, projection and the
-other cost layers and ``beam_search`` wait for the v2 slice."""
+Nested sequences (``SubsequenceInput``), the other projections and cost
+layers and ``beam_search`` wait for later slices."""
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -24,10 +27,12 @@ from paddle_tpu_torch.v2.layer import LayerOutput, SeqVal
 
 __all__ = [
     "LayerOutput", "data_layer", "fc_layer", "embedding_layer",
-    "grumemory", "pooling_layer", "expand_layer", "addto_layer",
-    "scaling_layer", "classification_cost", "cross_entropy",
-    "cross_entropy_cost", "recurrent_group", "memory", "StaticInput",
-    "outputs",
+    "img_conv_layer", "img_pool_layer", "grumemory", "pooling_layer",
+    "expand_layer", "addto_layer", "scaling_layer", "mixed_layer",
+    "full_matrix_projection", "identity_projection", "context_projection",
+    "classification_cost", "cross_entropy", "cross_entropy_cost",
+    "regression_cost", "mse_cost", "crf_layer", "recurrent_group",
+    "memory", "StaticInput", "outputs",
 ]
 
 # ---------------------------------------------------------------------------
@@ -148,6 +153,113 @@ def embedding_layer(input, size: int, param_attr=None, name=None,
 
 
 # ---------------------------------------------------------------------------
+# image layers: v1 feeds flat (B, C*H*W) rows; a conv or pool reshapes
+# them with num_channels and the parent's declared or square geometry
+# ---------------------------------------------------------------------------
+
+
+def _to_image(x, parent: LayerOutput, num_channels):
+    from paddle_tpu_torch import layers as L
+
+    if x.shape is not None and len(x.shape) == 2:
+        c = num_channels or 1
+        img = getattr(parent, "img_shape", None)
+        if img and img[1]:
+            _, h, w = img
+        else:
+            h = w = int(math.isqrt((parent.size or x.shape[-1]) // c))
+        return L.reshape(x, shape=[-1, c, h, w])
+    return x
+
+
+def _pair_hw(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _out_hw(h, w, k, s, p, ceil_mode=False):
+    """A conv's (or, ``ceil_mode``, a v1 pool's) output extent; (0, 0),
+    unknown geometry, where the window does not fit, so later layers
+    fall back to declared sizes."""
+    from paddle_tpu_torch.layers.nn import pool_out_extent
+
+    if not h or not w:
+        return 0, 0
+    (kh, kw), (sh, sw), (ph, pw) = _pair_hw(k), _pair_hw(s), _pair_hw(p)
+    oh = pool_out_extent(h, kh, ph, sh, ceil_mode)
+    ow = pool_out_extent(w, kw, pw, sw, ceil_mode)
+    return (oh, ow) if oh > 0 and ow > 0 else (0, 0)
+
+
+def _parent_geom(parent, num_channels):
+    """(c, h, w) of a layer read as an image: its declared geometry, else
+    the square that its size over c makes."""
+    c = num_channels or getattr(parent, "num_channels", None) or 1
+    img = getattr(parent, "img_shape", None)
+    if img and img[1]:
+        return c, int(img[1]), int(img[2])
+    hw = (parent.size or 0) // c
+    side = int(math.isqrt(hw)) if hw > 0 else 0
+    return c, side, side
+
+
+def img_conv_layer(input, filter_size, num_filters, num_channels=None,
+                   stride=1, padding=0, act=None, param_attr=None,
+                   bias_attr=None, groups=1, trans=False, name=None,
+                   **kwargs):
+    """A conv2d over the parent read as an image.  The transposed conv
+    (``trans=True``) comes with ``conv2d_transpose``."""
+    if trans:
+        raise NotImplementedError(
+            "paddle_tpu_torch: img_conv_layer(trans=True) comes with "
+            "conv2d_transpose")
+
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        return L.conv2d(input=_to_image(x, input, num_channels),
+                        num_filters=num_filters, filter_size=filter_size,
+                        stride=stride, padding=padding, groups=groups,
+                        act=(act.name if act else None),
+                        param_attr=param_attr, bias_attr=bias_attr)
+
+    _, h, w = _parent_geom(input, num_channels)
+    oh, ow = _out_hw(h, w, filter_size, stride, padding)
+    lo = LayerOutput(name or _v2._uname("conv"), [input], build,
+                     size=(num_filters * oh * ow) or num_filters)
+    lo.num_channels = num_filters
+    lo.img_shape = (None, oh, ow) if oh else None
+    return _record(lo, "exconv", num_filters=num_filters,
+                   filter_size=filter_size)
+
+
+def img_pool_layer(input, pool_size, stride=1, padding=0, pool_type=None,
+                   num_channels=None, ceil_mode=True, exclude_mode=None,
+                   name=None, **kwargs):
+    """A pool2d over the parent read as an image, with the v1 defaults:
+    output extents rounded up and averages over the cells inside the
+    image only (``exclude_mode``)."""
+    ptype = pool_type.name if isinstance(pool_type, BasePoolingType) else (
+        pool_type or "max")
+    exclusive = True if exclude_mode is None else bool(exclude_mode)
+
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        return L.pool2d(input=_to_image(x, input, num_channels),
+                        pool_size=pool_size, pool_type=ptype,
+                        pool_stride=stride, pool_padding=padding,
+                        ceil_mode=ceil_mode, exclusive=exclusive)
+
+    c, h, w = _parent_geom(input, num_channels)
+    oh, ow = _out_hw(h, w, pool_size, stride, padding, ceil_mode)
+    lo = LayerOutput(name or _v2._uname("pool"), [input], build,
+                     size=(c * oh * ow) or input.size)
+    lo.num_channels = c
+    lo.img_shape = (None, oh, ow) if oh else None
+    return _record(lo, "pool", pool_type=ptype)
+
+
+# ---------------------------------------------------------------------------
 # recurrent and sequence layers
 # ---------------------------------------------------------------------------
 
@@ -256,6 +368,161 @@ def scaling_layer(input, weight, name=None, **kwargs):
 
 
 # ---------------------------------------------------------------------------
+# mixed layer and projections
+# ---------------------------------------------------------------------------
+
+
+class _Projection:
+    def __init__(self, input: LayerOutput, build_fn, out_size=None):
+        self.input = input
+        self.build_fn = build_fn
+        self.out_size = out_size
+
+
+def full_matrix_projection(input, size: int = 0, param_attr=None, **kwargs):
+    """x @ W, no bias: a bias-free fc over the steps of a sequence."""
+
+    def build(ctx, x, mixed_size):
+        from paddle_tpu_torch import layers as L
+
+        if isinstance(x, SeqVal):
+            out = L.fc(input=x.var, size=mixed_size, bias_attr=False,
+                       param_attr=param_attr, num_flatten_dims=2)
+            return SeqVal(out, x.lengths)
+        nf = 2 if x.shape is not None and len(x.shape) == 3 else 1
+        return L.fc(input=x, size=mixed_size, bias_attr=False,
+                    param_attr=param_attr, num_flatten_dims=nf)
+
+    return _Projection(input, build, out_size=size or None)
+
+
+def identity_projection(input, offset: Optional[int] = None, **kwargs):
+    """The input as it is; a slice of it (``offset``) comes with the
+    ``slice_tensor`` op."""
+    if offset:
+        raise NotImplementedError(
+            "paddle_tpu_torch: identity_projection(offset=...) comes with "
+            "the slice_tensor op")
+    return _Projection(input, lambda ctx, x, mixed_size: x,
+                       out_size=input.size)
+
+
+def context_projection(input, context_len: int, context_start=None,
+                       **kwargs):
+    """Each step's window of ``context_len`` steps from ``context_start``
+    (default -(context_len // 2)) concatenated, zeros past a row's
+    edges (the ``context_project`` op)."""
+
+    def build(ctx, seq, mixed_size):
+        start = context_start if context_start is not None else \
+            -(context_len // 2)
+        ins = {"X": [seq.var if isinstance(seq, SeqVal) else seq]}
+        if isinstance(seq, SeqVal) and seq.lengths is not None:
+            ins["Length"] = [seq.lengths]
+        out = _op("context_project", ins,
+                  attrs={"context_length": context_len,
+                         "context_start": start},
+                  shape=(-1, -1, (input.size or 0) * context_len))
+        return SeqVal(out, seq.lengths) if isinstance(seq, SeqVal) else out
+
+    return _Projection(input, build,
+                       out_size=(input.size or 0) * context_len)
+
+
+class mixed_layer:
+    """``with mixed_layer(size=..) as m: m += projection`` or
+    ``mixed_layer(size, input=[projections])``: the projections summed,
+    then an optional bias and activation."""
+
+    def __new__(cls, size: int = 0, input=None, act=None, bias_attr=False,
+                name=None, **kwargs):
+        self = super().__new__(cls)
+        self._size = size
+        self._projs = []
+        self._act = act
+        self._bias = bias_attr
+        self._name = name
+        self._lo = None
+        if input is not None:
+            for p in (input if isinstance(input, (list, tuple)) else [input]):
+                self._add(p)
+            return self._finalize()
+        return self
+
+    def _add(self, proj):
+        if isinstance(proj, mixed_layer):  # a closed context-managed mixed
+            if proj._lo is None:
+                raise ValueError(
+                    "mixed_layer used as input before its 'with' block "
+                    "closed")
+            proj = proj._lo
+        if isinstance(proj, LayerOutput):  # a bare layer: identity
+            proj = identity_projection(proj)
+        self._projs.append(proj)
+
+    def __iadd__(self, proj):
+        self._add(proj)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self._finalize()
+        return False
+
+    def _finalize(self) -> LayerOutput:
+        projs = list(self._projs)
+        size = self._size or next(
+            (p.out_size for p in projs if p.out_size), None)
+        act, bias = self._act, self._bias
+
+        def build(ctx, *vals):
+            from paddle_tpu_torch import layers as L
+
+            total = lens = known_shape = None
+            for p, v in zip(projs, vals):
+                contrib = p.build_fn(ctx, v, size)
+                if isinstance(contrib, SeqVal):
+                    lens = contrib.lengths
+                    contrib = contrib.var
+                if getattr(contrib, "shape", None) is not None:
+                    known_shape = contrib.shape
+                total = contrib if total is None else L.elementwise_add(
+                    total, contrib)
+            if bias:
+                from paddle_tpu_torch.layer_helper import LayerHelper
+
+                b = LayerHelper("mixed_bias").create_parameter(
+                    None, shape=[size], dtype="float32", is_bias=True)
+                total = L.elementwise_add(total, b)
+            if act and act.name:
+                total = getattr(L, act.name)(total)
+            if getattr(total, "shape", None) is None:
+                # the static dims that shape-less projections lose
+                if known_shape is not None:
+                    total.shape = known_shape
+                elif size:
+                    total.shape = ((-1, -1, size) if lens is not None
+                                   else (-1, size))
+            return SeqVal(total, lens) if lens is not None else total
+
+        lo = LayerOutput(self._name or _v2._uname("mixed"),
+                         [p.input for p in projs], build, size=size)
+        self._lo = _record(lo, "mixed",
+                           active_type=(act.name if act else None))
+        return self._lo
+
+    def __getattr__(self, item):
+        # the closed mixed layer stands where a LayerOutput is expected
+        lo = object.__getattribute__(self, "_lo")
+        if lo is None:
+            raise AttributeError(item)
+        return getattr(lo, item)
+
+
+# ---------------------------------------------------------------------------
 # cost layers
 # ---------------------------------------------------------------------------
 
@@ -304,6 +571,63 @@ def classification_cost(input, label, weight=None, name=None,
 
 cross_entropy = classification_cost
 cross_entropy_cost = classification_cost
+
+
+def regression_cost(input, label, weight=None, name=None, **kwargs):
+    """mean((input - label)^2); with ``weight``, each row's mean square
+    error times its weight, averaged."""
+    if weight is not None:
+        def build(ctx, pred, lab, w):
+            from paddle_tpu_torch import layers as L
+
+            pv = pred.var if isinstance(pred, SeqVal) else pred
+            lv = lab.var if isinstance(lab, SeqVal) else lab
+            if lv.dtype != pv.dtype:
+                lv = L.cast(lv, pv.dtype)
+            if (label.size or 1) == 1 and (input.size or 1) > 1:
+                # a size-1 label against a wider prediction: align it on
+                # the batch dim and broadcast
+                lv = L.reshape(lv, shape=[-1, 1])
+            d = L.elementwise_sub(pv, lv)
+            se = L.reduce_mean(L.elementwise_mul(d, d), dim=1,
+                               keep_dim=True)
+            return _weighted_mean(se, w)
+
+        lo = LayerOutput(name or _v2._uname("mse"), [input, label, weight],
+                         build, size=1)
+        return _record(lo, "square_error")
+    return _record(_v2.mse_cost(input=input, label=label, name=name),
+                   "square_error")
+
+
+mse_cost = regression_cost
+
+
+def crf_layer(input, label, size=None, param_attr=None, name=None, **kwargs):
+    """The mean over rows of the linear-chain CRF's negative
+    log-likelihood (the ``linear_chain_crf`` op), its transition
+    parameter (size + 2, size) named through ``param_attr``."""
+    d = size or input.size
+
+    def build(ctx, em, lab):
+        from paddle_tpu_torch import layers as L
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("crf", param_attr=param_attr)
+        tr = helper.create_parameter(param_attr, shape=[d + 2, d],
+                                     dtype="float32")
+        ll = helper.create_tmp_variable("float32", None)
+        ins = {"Emission": [em.var if isinstance(em, SeqVal) else em],
+               "Transition": [tr],
+               "Label": [lab.var if isinstance(lab, SeqVal) else lab]}
+        if isinstance(em, SeqVal) and em.lengths is not None:
+            ins["Length"] = [em.lengths]
+        helper.append_op(type="linear_chain_crf", inputs=ins,
+                         outputs={"LogLikelihood": [ll]})
+        return L.mean(ll)
+
+    lo = LayerOutput(name or _v2._uname("crf"), [input, label], build, size=1)
+    return _record(lo, "crf", size=d)
 
 
 # ---------------------------------------------------------------------------

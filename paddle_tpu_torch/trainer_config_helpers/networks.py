@@ -1,14 +1,59 @@
 """v1 network compositions (``paddle_tpu/trainer_config_helpers/
-networks.py``), the part the seq2seq cell reaches: ``simple_attention``.
-The other compositions wait for the v2 slice."""
+networks.py``), the part the seq2seq cell and the v1 demos reach:
+``simple_img_conv_pool``, ``sequence_conv_pool`` (``text_conv_pool``)
+and ``simple_attention``.  The other compositions wait for later
+slices."""
 
 from __future__ import annotations
 
 from paddle_tpu_torch.trainer_config_helpers import layers as _l
 from paddle_tpu_torch.trainer_config_helpers.activations import (
-    LinearActivation, TanhActivation)
+    LinearActivation, ReluActivation, TanhActivation)
+from paddle_tpu_torch.trainer_config_helpers.poolings import MaxPooling
 
-__all__ = ["simple_attention"]
+__all__ = ["simple_img_conv_pool", "sequence_conv_pool", "text_conv_pool",
+           "simple_attention"]
+
+
+def simple_img_conv_pool(input, filter_size, num_filters, pool_size,
+                         num_channel=None, pool_type=None, act=None,
+                         groups=1, conv_stride=1, conv_padding=0,
+                         pool_stride=1, pool_padding=0, name=None,
+                         param_attr=None, **kwargs):
+    """img_conv_layer (relu unless ``act``) then img_pool_layer (max
+    unless ``pool_type``)."""
+    conv = _l.img_conv_layer(
+        input=input, filter_size=filter_size, num_filters=num_filters,
+        num_channels=num_channel, stride=conv_stride, padding=conv_padding,
+        groups=groups, act=act or ReluActivation(), param_attr=param_attr,
+        name=name and name + "_conv")
+    return _l.img_pool_layer(
+        input=conv, pool_size=pool_size, stride=pool_stride,
+        padding=pool_padding, pool_type=pool_type or MaxPooling(),
+        name=name and name + "_pool")
+
+
+def sequence_conv_pool(input, context_len, hidden_size,
+                       context_start=None, pool_type=None,
+                       context_proj_param_attr=None, fc_param_attr=None,
+                       fc_act=None, name=None, **kwargs):
+    """A context window (mixed_layer over context_projection), an fc
+    (tanh unless ``fc_act``) and a pooling over time (max unless
+    ``pool_type``): the quick-start text classifier's backbone."""
+    with _l.mixed_layer(size=(input.size or 0) * context_len,
+                        name=name and name + "_ctx") as m:
+        m += _l.context_projection(input, context_len=context_len,
+                                   context_start=context_start)
+    ctx_out = m._lo
+    ctx_out.is_seq = True
+    fc = _l.fc_layer(input=ctx_out, size=hidden_size,
+                     act=fc_act or TanhActivation(),
+                     param_attr=fc_param_attr, name=name and name + "_fc")
+    return _l.pooling_layer(input=fc, pooling_type=pool_type or MaxPooling(),
+                            name=name)
+
+
+text_conv_pool = sequence_conv_pool
 
 
 def simple_attention(encoded_sequence, encoded_proj, decoder_state,

@@ -1,11 +1,12 @@
 """v2 layer DSL (``paddle_tpu/v2/layer.py``), the part the v1 seq2seq
-cell reaches: each constructor returns a lazy ``LayerOutput``;
+cell and the v1 demos reach: each constructor returns a lazy ``LayerOutput``;
 ``Topology`` walks the DAG once and emits the ops into a Program with
 ``paddle_tpu_torch.layers``.  Sequence values flow as (padded (B, T, ...),
 lengths (B,)) pairs, ``SeqVal``.  Every v1 constructor resolves under its
 v2 name through the module's ``__getattr__`` (``_v1_bridge``).  ``data``,
 nested sequence data, the pooling, image, dropout, batch-norm and lstm
-constructors and the other costs wait for the v2 slice."""
+constructors and the costs besides cross entropy and mse wait for later
+slices."""
 
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from paddle_tpu_torch.v2.activation import BaseActivation
 from paddle_tpu_torch.v2.data_type import InputType
 
 __all__ = ["fc", "embedding", "gru", "classification_cost",
-           "cross_entropy_cost", "LayerOutput"]
+           "cross_entropy_cost", "mse_cost", "regression_cost",
+           "LayerOutput"]
 
 _counter = [0]
 
@@ -256,6 +258,18 @@ def cross_entropy_cost(input, label, name=None, **kwargs):
 
 
 classification_cost = cross_entropy_cost
+
+
+def mse_cost(input, label, name=None, **kwargs):
+    def build(ctx, pred, lab):
+        from paddle_tpu_torch import layers as L
+
+        return L.mean(L.square_error_cost(input=pred, label=lab))
+
+    return LayerOutput(name or _uname("mse"), [input, label], build, size=1)
+
+
+regression_cost = mse_cost
 
 
 # ---------------------------------------------------------------------------

@@ -115,3 +115,29 @@ def test_accuracy_on_tied_scores_matches_the_reference():
     got, want = _run_both(main, startup, feed, [acc.name])
     np.testing.assert_allclose(got[0], want[0], **TOL)
     np.testing.assert_allclose(got[0], [0.5], **TOL)
+
+
+def test_elementwise_pow_at_zero_to_the_zero():
+    """X@GRAD of 0^0 is y * x^(y - 1) = 0 * inf: NaN in the JAX package,
+    0 in the port (torch's pow).  Out and Y@GRAD agree there, and every
+    fetch agrees at the other points."""
+    x = np.asarray([[0.0, 2.0, 0.5, 3.0]], np.float32)
+    y = np.asarray([[0.0, 3.0, 2.0, 0.0]], np.float32)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        xv, yv = (fluid.layers.data(name=n, shape=[1, 4], dtype="float32",
+                                    append_batch_size=False)
+                  for n in ("x", "y"))
+        xv.stop_gradient = yv.stop_gradient = False
+        helper = LayerHelper("elementwise_pow")
+        out = helper.create_variable_for_type_inference("float32")
+        helper.append_op(type="elementwise_pow", inputs={"X": [xv],
+                                                         "Y": [yv]},
+                         outputs={"Out": [out]}, attrs={"axis": -1})
+        append_backward(fluid.layers.mean(out))
+    fetch = [out.name, "x@GRAD", "y@GRAD"]
+    got, want = _run_both(main, startup, {"x": x, "y": y}, fetch)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    np.testing.assert_allclose(got[2], want[2], **TOL)
+    assert np.isnan(want[1][0, 0]) and got[1][0, 0] == 0.0
+    np.testing.assert_allclose(got[1][0, 1:], want[1][0, 1:], **TOL)

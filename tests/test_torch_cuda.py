@@ -3221,3 +3221,100 @@ def test_recurrent_weight_grads_on_the_card_match_cpu(dev):
         scale = float(np.abs(w_).max())
         assert scale > 0, name
         assert float(np.abs(g_ - w_).max()) <= 1e-4 * scale, name
+
+
+def _crf_context_program(pt, B, T, D, ctx_len, start):
+    """linear_chain_crf over padded emissions and context_project of the
+    same values, a weighted mean of each as the loss."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        em = pt.layers.data(name="em", shape=[B, T, D],
+                            append_batch_size=False)
+        em.stop_gradient = False
+        lab = pt.layers.data(name="lab", shape=[B, T], dtype="int64",
+                             append_batch_size=False)
+        ln = pt.layers.data(name="len", shape=[B], dtype="int32",
+                            append_batch_size=False)
+        w = pt.layers.data(name="w", shape=[B, T, D * ctx_len],
+                           append_batch_size=False)
+        ll = pt.layers.linear_chain_crf(em, lab, ln,
+                                        param_attr=pt.ParamAttr(name="crfw"))
+        helper = LayerHelper("context_project")
+        ctx = helper.create_tmp_variable("float32")
+        helper.append_op(type="context_project",
+                         inputs={"X": [em], "Length": [ln]},
+                         outputs={"Out": [ctx]},
+                         attrs={"context_length": ctx_len,
+                                "context_start": start})
+        loss = pt.layers.elementwise_add(
+            pt.layers.mean(ll),
+            pt.layers.mean(pt.layers.elementwise_mul(ctx, w)))
+        pt.append_backward(loss)
+    return main, startup, [ll.name, ctx.name, "em@GRAD", "crfw@GRAD"]
+
+
+@pytest.mark.parametrize("ctx_len,start", [(3, -1), (7, -3), (2, 2)])
+def test_crf_and_context_project_on_the_card_match_cpu(dev, ctx_len, start):
+    """The v1 demos' two new ops on CUDA tensors against the CPU path:
+    outputs and gradients within 1e-5 of max (float32 log-sum-exps and
+    shifts in the same order), lengths 1 to T."""
+    import paddle_tpu_torch as pt
+
+    B, T, D = 5, 6, 4
+    pt.framework.reset_default_programs()
+    main, startup, fetch = _crf_context_program(pt, B, T, D, ctx_len, start)
+    rng = np.random.RandomState(9)
+    feed = {"em": rng.randn(B, T, D).astype(np.float32),
+            "lab": rng.randint(0, D, (B, T)).astype(np.int64),
+            "len": np.asarray([1, 6, 3, 2, 5], np.int32),
+            "w": rng.rand(B, T, D * ctx_len).astype(np.float32)}
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    state = {n: v.numpy() for n, v in cpu_scope.values.items()}
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                          scope=cpu_scope)
+    scope = pt.Scope()
+    scope.load_numpy(state, dev)
+    got = pt.Executor(pt.CUDAPlace(0)).run(main, feed=feed, fetch_list=fetch,
+                                           scope=scope)
+    for name, g_, w_ in zip(fetch, got, want):
+        scale = float(np.abs(w_).max())
+        assert scale > 0, name
+        assert float(np.abs(g_ - w_).max()) <= 1e-5 * scale, name
+
+
+def test_train_from_config_on_the_card_matches_cpu(dev, tmp_path):
+    """The traffic_prediction demo's v1 config trained one pass by
+    train_from_config on CUDAPlace(0) and on CPUPlace() from the same
+    weights (``init_model_path``): every batch's cost within 1e-4 of its
+    value (16 Adam steps of float32 fcs), the fcs on the matmul kernel;
+    and SGD.train with prefetch (each next batch sent from pinned memory
+    while a step runs) on the card gives the card's costs bit for bit."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import Trainer, train_from_config
+    from paddle_tpu_torch.v2 import event
+
+    conf = "paddle_tpu_torch/demos/traffic_prediction/trainer_config.py"
+    init = str(tmp_path / "init.tar")
+    pt.framework.reset_default_programs()
+    with open(init, "wb") as f:
+        Trainer(parse_config(conf), pt.CPUPlace()).parameters.to_tar(f)
+    _, want = train_from_config(conf, place=pt.CPUPlace(),
+                                init_model_path=init)
+    before = kmatmul.launches
+    _, got = train_from_config(conf, place=pt.CUDAPlace(0),
+                               init_model_path=init)
+    assert kmatmul.launches - before == 16 * 3
+    assert len(got) == len(want) == 16
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    t = Trainer(parse_config(conf), pt.CUDAPlace(0))
+    t.load_parameters(init)
+    staged = []
+    t._sgd.train(t._reader_from_sources(), prefetch=True,
+                 event_handler=lambda e: staged.append(e.cost) if isinstance(
+                     e, event.EndIteration) else None)
+    assert staged == got
