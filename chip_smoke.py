@@ -301,6 +301,28 @@ seconds):
     same figures.  The demos together must launch rows 1, 2, 3, 4 and
     5-6 (the conv forward, backward-input and filter gradient, matmul,
     softmax, BN forward and backward).
+15k. (A) LoD control flow: the While-driven dynamic RNN
+    (``build_while_rnn``: lod_rank_table, lod_tensor_to_array, a While
+    over array_read, shrink_memory, fc([x_t, h]), array_write, increment
+    and less_than, array_to_lod_tensor, sequence_pool, an fc(2) softmax
+    head) at the LoD cell's widths, its CPU-initialised parameters
+    copied to the card: rows, pooled values and head within WHILE_TOL
+    of the CPU's; launches gather 1, matmul 2 an iteration + 1, softmax
+    1; the condition's host reads (iterations + 1); ms a batch, peak.
+15l. (B) The IfElse attention classifier (``build_ifelse_attention``:
+    fc over the LoD rows, sequence_softmax, a weighted sequence_pool, an
+    IfElse with an fc in each branch, Adam) for ATTN_STEPS steps: the
+    first two costs against the CPU's, the costs falling; launches
+    gather 1, matmul 4 (1 on wgmma); ms a step, samples/s, peak.
+15m. (C) Training BN on NHWC input at NHWC_BN_SHAPE, bit for bit the
+    NCHW op's on the permuted input, and on sequence frames SEQ_BN_SHAPE
+    with Length against the plain masked version; BN forward and
+    backward 1 + 1 each.
+15n. (D) The beam_search op over BEAM_STEPS seeded steps at B 16, K 4,
+    V 30000 and beam_search_decode, then decoding.beam_search and
+    greedy_search over a seeded Markov step: card and CPU token for
+    token (near-tied rows counted and left out), scores within
+    BEAM_SCORE_TOL.
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
@@ -353,7 +375,9 @@ seconds):
     (its launch alone: its ``ms`` is the whole backward, kernel, dW
     product, dbias and casts); for the conv, matmul, softmax and BN rows
     ``by_model``: the image cells' launches at run.py's batch from phase
-    2; ``launches_by_path`` has each demo's as ``demo_<name>``), the
+    2; ``launches_by_path`` has each demo's as ``demo_<name>`` and phases
+    15k-15n's as ``while_rnn``, ``ifelse_attention_train_step``,
+    ``bn_{nhwc,nchw,sequence}_step`` and ``beams``), the
     card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
@@ -618,6 +642,27 @@ V1_DEMOS = {
 }
 # the fluid demos' steps (tests/test_demos.py:11-53): gan and vae 300
 DEMO_STEPS = 300
+# The LoD control flow at the LoD LSTM cell's widths (64 sequences of
+# seeded lengths in 1-100, vocab 30000, emb 512, hidden 256; not cut).
+# A (the While-driven dynamic RNN): the rows, pooled values and head on
+# the card within WHILE_TOL of max|CPU| (f32 products of 768 terms a step
+# through 100 tanh steps, summed in another order; TF32 off).  B (the
+# IfElse attention classifier): ATTN_STEPS Adam(ATTN_LR) steps over
+# ATTN_BATCHES seeded batches in turn, the first two costs within
+# ATTN_COST_TOL of the CPU's (relative).
+WHILE_TOL = 1e-4
+ATTN_STEPS, ATTN_BATCHES, ATTN_LR, ATTN_COST_TOL = 20, 4, 1e-3, 1e-4
+# C: training BN on NHWC input at ResNet-50's first stage and on sequence
+# frames at the LoD cell's size (B, T, C) with phase A's lengths
+NHWC_BN_SHAPE = (256, 56, 56, 64)
+SEQ_BN_SHAPE = (LOD_SEQS, LOD_MAX_LEN, LOD_FC)
+# D: beam search over BEAM_STEPS steps at B 16, K 4, V 30000; a row whose
+# CPU candidates come within BEAM_SCORE_TOL of each other around the
+# K-th place (a near-tie the two devices may order either way) is left
+# out of the token comparison from that step on, and scores compare
+# within BEAM_SCORE_TOL of max(1, max|CPU|)
+BEAM_B, BEAM_K, BEAM_V, BEAM_STEPS = 16, 4, LSTM_VOCAB, 32
+BEAM_SCORE_TOL = 1e-4
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
@@ -712,8 +757,9 @@ def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
                                        else "bytes")
 
 
-def time_ms(fn, reps=10, warmup=2):
-    """Median of CUDA-event timings of ``fn`` (each rep timed alone)."""
+def time_ms(fn, reps=10, warmup=2, all_times=False):
+    """Median of CUDA-event timings of ``fn`` (each rep timed alone);
+    with ``all_times``, (median, every rep's ms)."""
     import torch
 
     for _ in range(warmup):
@@ -728,6 +774,8 @@ def time_ms(fn, reps=10, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if all_times:
+        return statistics.median(times), times
     return statistics.median(times)
 
 
@@ -3790,6 +3838,103 @@ def build_lod_program(seed=2026):
     return main_prog, startup, loss, params_grads
 
 
+def build_while_rnn(fl, n_seq=LOD_SEQS, vocab=LSTM_VOCAB, emb=LSTM_EMB,
+                    hidden=LOD_FC, max_len=LOD_MAX_LEN, seed=2026):
+    """Phase A's program, a dynamic RNN as the fluid book writes it, with
+    the layers of package ``fl`` (the port, or in CPU tests the JAX
+    package): LoD ids -> embedding -> lod_rank_table ->
+    lod_tensor_to_array(max_len) -> While { array_read -> reshape,
+    shrink_memory, fc([x_t, h], tanh), array_write, increment, less_than }
+    -> array_to_lod_tensor -> sequence_pool('average') -> reshape ->
+    fc(2, softmax).  ``n_seq`` sequences a batch (the memory and the output
+    array are (n_seq, hidden)).  Returns (main, startup, rows, pooled,
+    pred)."""
+    fl.framework.reset_default_programs()
+    main_prog = fl.default_main_program()
+    startup = fl.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    L = fl.layers
+    ids = L.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+    x = L.embedding(input=ids, size=[vocab, emb])
+    table = L.lod_rank_table(x)
+    xs = L.lod_tensor_to_array(x, table, max_len=max_len)
+    n = L.max_sequence_len(table)
+    i = L.fill_constant(shape=[1], dtype="int64", value=0)
+    h = L.fill_constant(shape=[n_seq, hidden], dtype="float32", value=0.0)
+    hs = L.create_array("float32", elem_shape=[n_seq, hidden],
+                        capacity=max_len)
+    cond = L.less_than(i, n)
+    loop = L.While(cond)
+    with loop.block():
+        x_t = L.reshape(L.array_read(xs, i), [-1, emb])
+        h_prev = L.shrink_memory(h, i, table)
+        h_t = L.fc(input=[x_t, h_prev], size=hidden, act="tanh")
+        L.array_write(h_t, i, hs)
+        L.assign(h_t, output=h)
+        L.increment(i, value=1, in_place=True)
+        L.assign(L.less_than(i, n), output=cond)
+    rows = L.array_to_lod_tensor(hs, table)
+    # the array's rows carry no static shape: the head's fc needs one
+    pooled = L.reshape(L.sequence_pool(rows, "average"), [-1, hidden])
+    pred = L.fc(input=pooled, size=2, act="softmax")
+    return main_prog, startup, rows, pooled, pred
+
+
+def build_ifelse_attention(fl, vocab=LSTM_VOCAB, emb=LSTM_EMB,
+                           hidden=LOD_FC, lr=1e-3, seed=2026):
+    """Phase B's program, an attention-pooling classifier with the layers
+    of package ``fl``: LoD ids -> embedding -> fc(hidden, tanh) over the
+    rows -> fc(1, no bias) -> sequence_softmax -> the rows weighted and summed per
+    sequence (sequence_pool('sum')) -> an IfElse on aux < 0.5 per
+    sequence with an fc(2) in each branch -> softmax_with_cross_entropy
+    -> mean, Adam(lr).  Returns (main, startup, loss)."""
+    fl.framework.reset_default_programs()
+    main_prog = fl.default_main_program()
+    startup = fl.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    L = fl.layers
+    ids = L.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+    aux = L.data(name="aux", shape=[1], dtype="float32")
+    label = L.data(name="label", shape=[1], dtype="int64")
+    x = L.embedding(input=ids, size=[vocab, emb])
+    h = L.fc(input=x, size=hidden, act="tanh")
+    # no bias on the score: a softmax ignores it, so its gradient is zero
+    weights = L.sequence_softmax(L.fc(input=h, size=1, bias_attr=False))
+    pooled = L.sequence_pool(L.elementwise_mul(h, weights), "sum")
+    half = L.fill_constant_batch_size_like(aux, [-1, 1], "float32", 0.5)
+    ie = L.IfElse(L.less_than(aux, half))
+    with ie.true_block():
+        ie.output(L.fc(input=pooled, size=2))
+    with ie.false_block():
+        ie.output(L.fc(input=pooled, size=2))
+    (logits,) = ie()
+    loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+    fl.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main_prog, startup, loss
+
+
+def attention_feed(rng, n_seq=LOD_SEQS, max_len=LOD_MAX_LEN,
+                   vocab=LSTM_VOCAB, signal=16):
+    """Phase B's batch as numpy: ``n_seq`` sequences of seeded lengths in
+    1..max_len; label 1 for half of them, which carry ids below
+    ``signal`` at about one step in five (the others never do), so the
+    label is a function of the ids that the embedding and the attention
+    can learn; aux uniform in [0, 1)."""
+    lens = rng.randint(1, max_len + 1, n_seq)
+    off = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    label = (np.arange(n_seq) % 2).astype(np.int64)
+    rng.shuffle(label)
+    ids = rng.randint(signal, vocab, off[-1])
+    for s in np.flatnonzero(label):
+        seg = slice(off[s], off[s + 1])
+        hit = rng.rand(lens[s]) < 0.2
+        hit[rng.randint(lens[s])] = True
+        ids[seg] = np.where(hit, rng.randint(0, signal, lens[s]), ids[seg])
+    return {"ids": (ids.astype(np.int64).reshape(-1, 1), [off]),
+            "aux": rng.rand(n_seq, 1).astype(np.float32),
+            "label": label.reshape(-1, 1)}
+
+
 def seq_step_parity(dev, main_prog, startup, loss, params_grads, feed, what):
     """One step on the card against the same step on CPUPlace(), end to end
     and op by op.  End to end from identical weights and feeds: the loss
@@ -6503,6 +6648,436 @@ def phase_fluid_demos(dev, smi):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 15k-15n: LoD control flow, BN layouts and beams
+# ---------------------------------------------------------------------------
+
+
+def _card_feed(feed, dev):
+    """A numpy feed (LoD values as (array, [offsets])) as tensors on the
+    card, so a timed run copies nothing from the host."""
+    import torch
+
+    from paddle_tpu_torch.lod import create_lod_array
+
+    return {k: create_lod_array(torch.from_numpy(v[0]).to(dev), v[1])
+            if isinstance(v, tuple) else torch.from_numpy(v).to(dev)
+            for k, v in feed.items()}
+
+
+def _cpu_and_card_scopes(startup, dev):
+    """The startup run on CPUPlace(), and its parameters copied to the
+    card (``params_from_numpy``): (CPU scope, card scope)."""
+    import paddle_tpu_torch as pt
+
+    cpu, card = pt.Scope(), pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu)
+    card.values.update(pt.params_from_numpy(
+        {n: v.numpy() for n, v in cpu.values.items()}, dev))
+    return cpu, card
+
+
+def phase_while_rnn(dev, smi):
+    """15k (A): the While-driven dynamic RNN (``build_while_rnn``) at the
+    LoD cell's widths, inference.  The parameters from the port's CPU
+    startup copied to the card; the card's LoD rows, pooled values and
+    head within WHILE_TOL of max|CPU| (the LoD offsets exactly).  The
+    counters zeroed just before the first run and read just after: the
+    gather 1, matmul 2 an iteration (the fc over [x_t, h] in the loop)
+    plus 1 (the head), softmax 1, nothing else; the condition read on the
+    host once an iteration and once more.  ms a batch (median of 5 after
+    2 warm-ups), peak memory."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import control_flow_ops
+
+    main_prog, startup, rows, pooled, pred = build_while_rnn(pt)
+    feed = {"ids": lod_feed(np.random.RandomState(12))["ids"]}
+    lens = np.diff(feed["ids"][1][0])
+    iters = int(lens.max())
+    fetch = [rows, pooled, pred]
+    cpu, card = _cpu_and_card_scopes(startup, dev)
+    want = pt.Executor(pt.CPUPlace()).run(main_prog, feed=feed,
+                                          fetch_list=fetch, scope=cpu)
+    exe = pt.Executor()
+    card_feed = _card_feed(feed, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    reads = control_flow_ops.condition_reads
+    got = exe.run(main_prog, feed=card_feed, fetch_list=fetch, scope=card)
+    launches = counters()
+    reads = control_flow_ops.condition_reads - reads
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(embedding=1, matmul=2 * iters + 1, softmax=1)
+    what = (f"While dynamic RNN, {LOD_SEQS} sequences of {int(lens.sum())} "
+            f"rows, {iters} iterations")
+    log(f"{what}: launches {launches}; condition reads {reads}")
+    if launches != expect:
+        fail(f"{what}: launch counts {launches} != {expect}")
+    if reads != iters + 1:
+        fail(f"{what}: {reads} host reads of the condition, not {iters + 1}")
+    if not np.array_equal(got[0].lod[0], want[0].lod[0]):
+        fail(f"{what}: the rebuilt rows' offsets differ from the CPU's")
+    errs = {}
+    for name, g_, w_ in zip(("rows", "pooled", "head"),
+                            [got[0].data] + got[1:], [want[0].data] + want[1:]):
+        err = float(np.abs(g_ - w_).max())
+        scale = float(np.abs(w_).max())
+        if not (np.isfinite(g_).all() and err <= WHILE_TOL * scale):
+            fail(f"{what}: {name} max abs err {err:.3e} > {WHILE_TOL} * "
+                 f"max|CPU| {scale:.3e}")
+        errs[name] = err
+    ms, times = time_ms(lambda: exe.run(main_prog, feed=card_feed,
+                                        fetch_list=[pred], scope=card),
+                        reps=5, all_times=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: card vs CPU max abs err {errs} (tolerance {WHILE_TOL} of "
+        f"max); {ms:.3f} ms a batch (median of 5 after 2 warm-ups; "
+        f"{[round(t, 3) for t in times]}), {ms / iters:.3f} ms an iteration,"
+        f" {reads / (ms / 1e3):.1f} condition reads/s; peak memory "
+        f"allocated {peak / 2**30:.3f} GiB on {smi}")
+    return dict(launches=launches, iterations=iters, condition_reads=reads,
+                ms=ms, peak_bytes=peak, lens=lens)
+
+
+def phase_ifelse_attention(dev, smi):
+    """15l (B): the IfElse attention classifier (``build_ifelse_attention``)
+    trained at the LoD cell's widths: ATTN_STEPS Adam(ATTN_LR) steps over
+    ATTN_BATCHES seeded batches (``attention_feed``) in turn.  The first
+    two costs within ATTN_COST_TOL (relative) of the port's CPU path from
+    the same start; the mean of the last 5 costs under the mean of the
+    first 5.  The counters zeroed just before the first step and read
+    just after: the gather 1, matmul 4 (the fc over the rows on the wgmma
+    engine; the score, N 1, and the two branches' fcs on the SIMT tile),
+    nothing else.  ms a step, samples/s, peak memory."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss = build_ifelse_attention(pt, lr=ATTN_LR)
+    rng = np.random.RandomState(14)
+    batches = [attention_feed(rng) for _ in range(ATTN_BATCHES)]
+    cpu, card = _cpu_and_card_scopes(startup, dev)
+    want = [float(pt.Executor(pt.CPUPlace()).run(
+        main_prog, feed=batches[i], fetch_list=[loss], scope=cpu)[0])
+        for i in range(2)]
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(embedding=1, matmul=4)
+    if launches_implied(main_prog) != expect:
+        fail(f"IfElse attention: the program implies "
+             f"{launches_implied(main_prog)}, not {expect}")
+    exe = pt.Executor()
+    feeds = [_card_feed(b, dev) for b in batches]
+    rows = int(feeds[0]["ids"].data.shape[0])
+    what = f"IfElse attention step, {LOD_SEQS} sequences of {rows} rows"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    costs = [float(exe.run(main_prog, feed=feeds[0], fetch_list=[loss],
+                           scope=card)[0])]
+    launches, wgmma = counters(), wgmma_counters()
+    log(f"{what}: launches {launches}; on the wgmma engine {wgmma}")
+    if launches != expect or wgmma["matmul"] != 1:
+        fail(f"{what}: launch counts {launches} (wgmma {wgmma}) != "
+             f"{expect} with 1 matmul on the wgmma engine")
+    times = []
+    for i in range(1, ATTN_STEPS):
+        t0 = time.perf_counter()
+        (c,) = exe.run(main_prog, feed=feeds[i % ATTN_BATCHES],
+                       fetch_list=[loss], scope=card)
+        times.append((time.perf_counter() - t0) * 1e3)
+        costs.append(float(c))
+    peak = torch.cuda.max_memory_allocated()
+    for i in range(2):
+        if not abs(costs[i] - want[i]) <= ATTN_COST_TOL * abs(want[i]):
+            fail(f"{what}: step {i} cost {costs[i]:.7f} on the card, "
+                 f"{want[i]:.7f} on the CPU (gate {ATTN_COST_TOL} of it)")
+    if not (np.isfinite(costs).all()
+            and np.mean(costs[-5:]) < np.mean(costs[:5])):
+        fail(f"{what}: costs do not fall: {costs}")
+    ms = statistics.median(times[2:])
+    log(f"{what}: first two costs {costs[:2]} on the card, {want} on the "
+        f"CPU; costs {[round(c, 5) for c in costs]}; {ms:.3f} ms a step "
+        f"(median of steps 3-{ATTN_STEPS - 1}), {LOD_SEQS / ms * 1e3:.1f} "
+        f"samples/s; peak memory allocated {peak / 2**30:.3f} GiB on {smi}")
+    return dict(launches=launches, wgmma=wgmma, ms_per_step=ms,
+                samples_per_s=LOD_SEQS / ms * 1e3, peak_bytes=peak,
+                costs=costs)
+
+
+def build_bn_program(pt, shape, layout, lengths=False):
+    """A training BN over ``shape`` in ``layout`` (on sequence frames
+    (B, T, C) with ``lengths``), sum(Y * G) as the loss and its
+    backward.  Returns (main, startup, fetch: Y, dX, dScale, dBias)."""
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=list(shape), dtype="float32",
+                       append_batch_size=False)
+    x.stop_gradient = False
+    lens = (pt.layers.data(name="len", shape=[shape[0]], dtype="int32",
+                           append_batch_size=False) if lengths else None)
+    y = pt.layers.batch_norm(x, data_layout=layout, lengths=lens)
+    g = pt.layers.data(name="g", shape=list(shape), dtype="float32",
+                       append_batch_size=False)
+    grads = pt.append_backward(pt.layers.reduce_sum(
+        pt.layers.elementwise_mul(y, g)))
+    return (pt.default_main_program(), pt.default_startup_program(),
+            [y.name, "x@GRAD"] + [gv.name for _, gv in grads])
+
+
+def _bn_run(dev, shape, layout, feed, lengths=False):
+    """One training BN step of ``build_bn_program`` on the card, the
+    counters zeroed just before and read just after: (fetches as card
+    tensors, launches, median ms of 5 more steps, each fetching dScale
+    and dBias alone)."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, fetch = build_bn_program(pt, shape, layout, lengths)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    zero_counters()
+    out = exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    launches = counters()
+    ms = time_ms(lambda: exe.run(main_prog, feed=feed, fetch_list=fetch[2:],
+                                 scope=scope), reps=5, warmup=1)
+    return out, launches, ms
+
+
+def phase_bn_layouts(dev, smi, lens):
+    """15m (C): training BN, forward and backward, on NHWC input at
+    NHWC_BN_SHAPE against the NCHW op on the same values permuted: Y, dX,
+    dScale and dBias equal bit for bit (one BN forward and one backward
+    launch each, on the same (R, C) rows); and on sequence frames
+    SEQ_BN_SHAPE with ``lens`` (phase A's) against the plain masked
+    version on the same card tensors (statistics over the real frames, Y
+    and dX zero past each length) within BN_TOL and BN_VEC_TOL, one BN
+    forward and one backward launch."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    shape = NHWC_BN_SHAPE
+    x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+    g = torch.randn(shape, device=dev, generator=gen)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(batch_norm_fwd=1, batch_norm_bwd=1)
+    out, launches, ms = {}, {}, {}
+    for layout, perm in (("NHWC", (0, 1, 2, 3)), ("NCHW", (0, 3, 1, 2))):
+        res, launches[layout], ms[layout] = _bn_run(
+            dev, tuple(shape[i] for i in perm), layout,
+            {"x": x.permute(perm), "g": g.permute(perm)})
+        if launches[layout] != want:
+            fail(f"{layout} BN at {shape}: launches {launches[layout]}")
+        inv = tuple(int(i) for i in np.argsort(perm))
+        out[layout] = [res[0].permute(inv), res[1].permute(inv)] + res[2:]
+    for name, a, b in zip(("Y", "dX", "dScale", "dBias"), out["NHWC"],
+                          out["NCHW"]):
+        if not torch.equal(a, b):
+            fail(f"NHWC BN at {shape}: {name} differs from the NCHW op on "
+                 f"the permuted input (max abs "
+                 f"{float((a - b).abs().max()):.3e})")
+    log(f"NHWC BN at {shape}: Y, dX, dScale, dBias equal the NCHW op's on "
+        f"the permuted input bit for bit; launches 1 forward / 1 backward "
+        f"each; a forward and backward step {ms['NHWC']:.3f} ms NHWC, "
+        f"{ms['NCHW']:.3f} ms NCHW on {smi}")
+    b, t, c = SEQ_BN_SHAPE
+    xs = torch.randn(SEQ_BN_SHAPE, device=dev, generator=gen) * 2 + 0.5
+    gs = torch.randn(SEQ_BN_SHAPE, device=dev, generator=gen)
+    lt = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+    (y, dx, dscale, dbias), seq_launches, seq_ms = _bn_run(
+        dev, SEQ_BN_SHAPE, "NCHW", {"x": xs, "g": gs, "len": lt},
+        lengths=True)
+    if seq_launches != want:
+        fail(f"sequence BN at {SEQ_BN_SHAPE}: launches {seq_launches}")
+    xt = xs.clone().requires_grad_(True)
+    valid = (torch.arange(t, device=dev)[None, :]
+             < lt.long()[:, None])[:, :, None].float()
+    n = valid.sum()
+    mean = (xt * valid).sum((0, 1)) / n
+    var = ((xt * valid) ** 2).sum((0, 1)) / n - mean ** 2
+    xhat = (xt - mean) * torch.rsqrt(var + BN_EPS)
+    yp = xhat * valid
+    (dxp,) = torch.autograd.grad((yp * gs).sum(), xt)
+    gv = gs * valid
+    errs = {}
+    for name, got_, plain in (("Y", y, yp.detach()), ("dX", dx, dxp)):
+        errs[name] = check_close(f"sequence BN {name}", got_, plain,
+                                 **BN_TOL)
+    for name, got_, plain in (("dBias", dbias, gv.sum((0, 1))),
+                              ("dScale", dscale,
+                               (gv * xhat.detach()).sum((0, 1)))):
+        errs[name] = check_scaled(f"sequence BN {name}", got_, plain,
+                                  BN_VEC_TOL)
+    rows = int(n)
+    log(f"sequence BN at {SEQ_BN_SHAPE} ({rows} real frames of {b * t}): "
+        f"against the plain masked version max abs err {errs}; launches 1 "
+        f"forward / 1 backward; a forward and backward step {seq_ms:.3f} ms"
+        f" on {smi}")
+    return dict(nhwc=launches["NHWC"], nchw=launches["NCHW"],
+                sequence=seq_launches)
+
+
+def _beam_programs(pt, b=BEAM_B, k=BEAM_K, v=BEAM_V, t=BEAM_STEPS):
+    """The beam_search op over (b, k) beams and (b, k, v) scores, and the
+    beam_search_decode op over (t, b, k) stacks, as two Programs:
+    (step, its fetches, decode, its fetches)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    step, decode = pt.Program(), pt.Program()
+    with pt.program_guard(step, pt.Program()):
+        ins = {"pre_ids": [pt.layers.data(name="pi", shape=[b, k],
+                                          dtype="int64",
+                                          append_batch_size=False)],
+               "pre_scores": [pt.layers.data(name="ps", shape=[b, k],
+                                             append_batch_size=False)],
+               "scores": [pt.layers.data(name="s", shape=[b, k, v],
+                                         append_batch_size=False)]}
+        helper = LayerHelper("beam")
+        outs = [helper.create_tmp_variable(dt, (b, k))
+                for dt in ("int64", "float32", "int64")]
+        helper.append_op(type="beam_search", inputs=ins,
+                         outputs={"selected_ids": [outs[0]],
+                                  "selected_scores": [outs[1]],
+                                  "parent_idx": [outs[2]]},
+                         attrs={"beam_size": k, "end_id": 0})
+    with pt.program_guard(decode, pt.Program()):
+        ids, par, sc = (pt.layers.data(name=n, shape=[t, b, k], dtype=dt,
+                                       append_batch_size=False)
+                        for n, dt in (("ids", "int64"), ("par", "int64"),
+                                      ("sc", "float32")))
+        sent = pt.layers.beam_search_decode(ids, sc, parent_idx=par)
+    return step, outs, decode, list(sent)
+
+
+def _near_tie_rows(total, k, tol):
+    """Rows (B,) of (B, K, V) candidate totals whose sorted top K + 1 come
+    within ``tol`` of each other: where two devices may pick in other
+    orders."""
+    top = total.reshape(total.shape[0], -1).topk(k + 1, dim=1).values
+    return (top[:, :-1] - top[:, 1:]).min(1).values < tol
+
+
+def _markov_step(table, v, beams=True):
+    """A seeded Markov step over vocab ``v``: the scores of the next token
+    depend on the current one alone, read from ``table`` at a hashed
+    index (integer arithmetic, the same on both devices); with ``beams``
+    a count carried in the state (gathered along the beams)."""
+    import torch
+
+    cols = torch.arange(v, device=table.device) * 104729
+
+    def step(tokens, state):
+        idx = (tokens.long()[..., None] * 7919 + cols) % table.shape[0]
+        logits = table[idx]
+        if not beams:
+            return logits, state
+        return logits, {"count": state["count"] + 1}
+
+    return step
+
+
+def phase_beams(dev, smi):
+    """15n (D): the beam_search op over BEAM_STEPS steps of seeded scores
+    (token 0, the end id, raised so that beams finish) at B 16, K 4,
+    V 30000, each device's beams fed back step by step, then the
+    beam_search_decode op over the stacks; and ``decoding.beam_search``
+    and ``greedy_search`` over a seeded Markov step function
+    (``_markov_step``).  Card and CPU agree token for token, except rows
+    where the CPU's candidates come within BEAM_SCORE_TOL of each other
+    around the K-th place (counted; at most a quarter of the rows);
+    scores within BEAM_SCORE_TOL of max(1, max|CPU|).  ms a beam step
+    (median) and a decode."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import decoding
+    from paddle_tpu_torch.ops.beam_ops import NEG_INF, extend_scores
+
+    b, k, v, t = BEAM_B, BEAM_K, BEAM_V, BEAM_STEPS
+    step, outs, decode, sent = _beam_programs(pt)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    scores = [torch.randn(b, k, v, device=dev, generator=gen) * 3
+              for _ in range(t)]
+    for s in scores:
+        s[..., 0] += 6.0
+    stacks, near, step_ms = {}, torch.zeros(b, dtype=torch.bool), []
+    zero_counters()
+    for name, place in (("cpu", pt.CPUPlace()), ("card", pt.CUDAPlace(0))):
+        exe = pt.Executor(place)
+        d = place.device()
+        pi = torch.ones(b, k, dtype=torch.int64, device=d)
+        ps = torch.tensor([0.0] + [NEG_INF] * (k - 1),
+                          device=d).expand(b, k).contiguous()
+        stack = []
+        for i in range(t):
+            s = scores[i].to(d)
+            if name == "cpu":
+                near |= _near_tie_rows(extend_scores(ps, s, pi == 0, 0), k,
+                                       BEAM_SCORE_TOL)
+            t0 = time.perf_counter()
+            pi, ps, par = exe.run(step, feed={"pi": pi, "ps": ps, "s": s},
+                                  fetch_list=outs, return_numpy=False)
+            if name == "card":
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            stack.append((pi, par, ps))
+        feed = {n: torch.stack([st[j] for st in stack])
+                for j, n in enumerate(("ids", "par", "sc"))}
+        stacks[name] = [o.cpu() for o in exe.run(
+            decode, feed=feed, fetch_list=sent, return_numpy=False)]
+    launches = counters()
+    if any(launches.values()):
+        fail(f"beams: the beam ops launched kernels: {launches}")
+    keep = ~near
+    if int(near.sum()) > b // 4:
+        fail(f"beams: {int(near.sum())} of {b} rows near-tied")
+    (ids_c, sc_c), (ids_g, sc_g) = stacks["cpu"], stacks["card"]
+    if not torch.equal(ids_c[keep], ids_g[keep]):
+        fail("beams: the decoded sentences differ between card and CPU")
+    tol = BEAM_SCORE_TOL * max(1.0, float(sc_c.abs().max()))
+    if float((sc_c - sc_g).abs().max()) > tol:
+        fail(f"beams: final scores differ by "
+             f"{float((sc_c - sc_g).abs().max()):.3e} > {tol:.3e}")
+    finished = int((ids_c[:, :, -1] == 0).sum())
+    log(f"beam_search op x{t} + beam_search_decode at B {b} K {k} V {v}: "
+        f"card = CPU token for token on {int(keep.sum())} of {b} rows "
+        f"({int(near.sum())} near-tied), {finished} of {b * k} beams ended;"
+        f" a step {statistics.median(step_ms):.3f} ms (median, the "
+        f"Executor.run and its sync) on {smi}")
+    table = torch.randn(100003, generator=torch.Generator().manual_seed(17)
+                        ) * 2
+    res = {}
+    for name, place in (("cpu", pt.CPUPlace()), ("card", None)):
+        d = dev if place is None else place.device()
+        tab = table.to(d)
+        t0 = time.perf_counter()
+        seqs, sc = decoding.beam_search(
+            _markov_step(tab, v), {"count": torch.zeros(b, k, 1, device=d)},
+            b, k, v, bos_id=1, eos_id=0, max_len=t, place=place)
+        greedy = decoding.greedy_search(_markov_step(tab, v, beams=False),
+                                        None, b, bos_id=1, eos_id=0,
+                                        max_len=t, place=place)
+        if name == "card":
+            torch.cuda.synchronize()
+        res[name] = (seqs.cpu(), sc.cpu(), greedy.cpu(),
+                       (time.perf_counter() - t0) * 1e3)
+    (s_c, sc_c, g_c, cpu_ms), (s_g, sc_g, g_g, card_ms) = (res["cpu"],
+                                                           res["card"])
+    if not (torch.equal(s_c, s_g) and torch.equal(g_c, g_g)):
+        fail("decoding: beam or greedy ids differ between card and CPU")
+    tol = BEAM_SCORE_TOL * max(1.0, float(sc_c.abs().max()))
+    if float((sc_c - sc_g).abs().max()) > tol:
+        fail(f"decoding: beam scores differ by "
+             f"{float((sc_c - sc_g).abs().max()):.3e} > {tol:.3e}")
+    log(f"decoding.beam_search and greedy_search over a Markov step, B {b} "
+        f"K {k} V {v} {t} steps: card = CPU token for token; "
+        f"{card_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU, both "
+        f"decodes, on {smi}")
+    return dict(launches=launches)
+
+
 def timed(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -6696,6 +7271,10 @@ def main():
     s2s_amp = timed(phase_seq2seq_step, dev, smi, amp=True)
     demos = timed(phase_v1_demos, dev, smi)
     demos.update(timed(phase_fluid_demos, dev, smi))
+    while_rnn = timed(phase_while_rnn, dev, smi)
+    attention = timed(phase_ifelse_attention, dev, smi)
+    bn_layouts = timed(phase_bn_layouts, dev, smi, while_rnn["lens"])
+    beams = timed(phase_beams, dev, smi)
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
     log(f"the demos' launches in all: "
@@ -6741,7 +7320,13 @@ def main():
                "seq2seq_amp_train_step": s2s_amp["launches"],
                "generate": gen_launches, **dec_counts,
                **{p: r["launches"] for p, r in image_steps.items()},
-               **{f"demo_{n}": r["launches"] for n, r in demos.items()}}
+               **{f"demo_{n}": r["launches"] for n, r in demos.items()},
+               "while_rnn": while_rnn["launches"],
+               "ifelse_attention_train_step": attention["launches"],
+               "bn_nhwc_step": bn_layouts["nhwc"],
+               "bn_nchw_step": bn_layouts["nchw"],
+               "bn_sequence_step": bn_layouts["sequence"],
+               "beams": beams["launches"]}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -6769,6 +7354,7 @@ def main():
                      "wide_deep_amp_train_step": wd_amp["wgmma"],
                      "seq2seq_train_step": s2s["wgmma"],
                      "seq2seq_amp_train_step": s2s_amp["wgmma"],
+                     "ifelse_attention_train_step": attention["wgmma"],
                      **{p: r["wgmma"] for p, r in image_steps.items()}}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
                       conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
@@ -6866,6 +7452,13 @@ def main():
             f"{n} {r['ms_per_step']:.3f} ms a step, "
             f"{r['samples_per_s']:.1f} samples/s, peak "
             f"{r['peak_bytes'] / 2**30:.3f} GiB" for n, r in demos.items())
+        + f"; While dynamic RNN: {while_rnn['ms']:.3f} ms a batch of "
+        f"{LOD_SEQS} sequences, {while_rnn['iterations']} iterations, "
+        f"{while_rnn['condition_reads']} host reads of the condition, peak "
+        f"{while_rnn['peak_bytes'] / 2**30:.3f} GiB; IfElse attention "
+        f"training: {attention['ms_per_step']:.3f} ms a step, "
+        f"{attention['samples_per_s']:.1f} samples/s, peak "
+        f"{attention['peak_bytes'] / 2**30:.3f} GiB"
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -17,10 +17,15 @@ residual that an op leaves for its grad rule under a name no op declares
 (the attention forward's logsumexp) is popped by that rule, or dies with
 the run's value map; it never reaches the Scope.
 
-An op that owns a sub-block (``recurrent``'s step block) reads what its
-sub-block reads from the enclosing scope, whether or not its own inputs
-name it (``op_reads``), and runs the sub-block's ops on a values map of
-its own (``run_block``).
+An op that owns a sub-block (``recurrent``'s step block, a ``while`` or
+``conditional_block`` body) reads what its sub-block reads from the
+enclosing scope, whether or not its own inputs name it (``op_reads``),
+and runs the sub-block's ops on a values map of its own
+(``run_block``).  What the sub-block writes to the enclosing scope the
+op lists as its outputs (``While``'s Out), so the release plan keeps
+each such value until the op has run.  Values of other kinds than
+tensors (a ``TensorArray``, a ``LoDRankTable``) pass through the plan
+and the values map as they are.
 
 On a CUDA place every run holds float32 math at float32: TF32 is off for
 cuDNN and matmul, and so are bf16 matmuls' reduced-precision
@@ -44,10 +49,11 @@ import torch
 
 from paddle_tpu_torch import amp, framework
 from paddle_tpu_torch.framework import Place, Program, Variable
-from paddle_tpu_torch.lod import LoDArray, create_lod_array
+from paddle_tpu_torch.lod import LoDArray, LoDRankTable, create_lod_array
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import LowerContext, OpRegistry
 from paddle_tpu_torch.sparse import SparseGrad
+from paddle_tpu_torch.tensor_array import TensorArray
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +219,13 @@ def _to_numpy(v):
     of its bits, the dtype the reference fetches (``np.asarray`` of a
     bf16 jax array), or, without ``ml_dtypes``, as the float32 array of
     the same values.  A ``SparseGrad`` (an ``is_sparse`` table's W@GRAD)
-    comes back as one of numpy rows and values."""
+    comes back as one of numpy rows and values, a ``TensorArray`` or a
+    ``LoDRankTable`` as one of numpy fields."""
+    if isinstance(v, TensorArray):
+        return TensorArray(_to_numpy(v.stack), _to_numpy(v.length))
+    if isinstance(v, LoDRankTable):
+        return LoDRankTable(_to_numpy(v.index), _to_numpy(v.lengths),
+                            _to_numpy(v.offsets), v.src_rows)
     if isinstance(v, LoDArray):
         return LoDArray(_to_numpy(v.data), tuple(_to_numpy(o) for o in v.lod))
     if isinstance(v, SparseGrad):

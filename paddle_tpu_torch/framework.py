@@ -144,6 +144,10 @@ def grad_var_name(name: str) -> str:
 
 class VarType:
     LOD_TENSOR = "lod_tensor"
+    SELECTED_ROWS = "selected_rows"
+    LOD_TENSOR_ARRAY = "lod_tensor_array"
+    STEP_SCOPES = "step_scopes"
+    RAW = "raw"
 
 
 class Variable:
@@ -513,7 +517,8 @@ class Program:
                         b, name=name, shape=vd["shape"], dtype=vd["dtype"],
                         lod_level=vd.get("lod_level", 0),
                         persistable=vd.get("persistable", False),
-                        stop_gradient=vd.get("stop_gradient", False))
+                        stop_gradient=vd.get("stop_gradient", False),
+                        type=vd.get("type", VarType.LOD_TENSOR))
                 b.vars[name] = var
             for od in bd["ops"]:
                 attrs = {}

@@ -1,17 +1,80 @@
 """Control-flow layers (``paddle_tpu/layers/control_flow.py``): the
 step-block RNNs ``StaticRNN`` and ``DynamicRNN``, which build a
-``recurrent`` op over a sub-block, and the block guards they use.
-``While``, ``IfElse``, the tensor arrays and the LoD rank-table layers
-wait for the LoD control-flow slice."""
+``recurrent`` op over a sub-block; ``While`` (a ``while`` op over its
+sub-block); ``IfElse``, whose branches both run over the whole batch and
+merge row by row through ``select_where``; the tensor-array layers, the
+LoD rank-table layers and the loop counter's ``increment`` and
+``less_than``; and the guards and records the reference exported."""
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import Variable
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["StaticRNN", "DynamicRNN", "StaticRNNGuard", "BlockGuard"]
+__all__ = [
+    "While", "StaticRNN", "IfElse", "DynamicRNN", "ConditionalBlock",
+    "BlockGuard", "StaticRNNGuard", "StaticRNNMemoryLink", "WhileGuard",
+    "increment", "less_than", "array_write", "array_read", "array_length",
+    "create_array", "lod_rank_table", "max_sequence_len",
+    "lod_tensor_to_array", "array_to_lod_tensor", "shrink_memory",
+    "split_lod_tensor", "merge_lod_tensor",
+]
+
+
+def increment(x, value=1.0, in_place=True, **kwargs):
+    helper = LayerHelper("increment", **kwargs)
+    out = x if in_place else helper.create_tmp_variable(x.dtype, x.shape)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
+    return out
+
+
+def less_than(x, y, **kwargs):
+    helper = LayerHelper("less_than", **kwargs)
+    out = helper.create_tmp_variable("bool", x.shape)
+    helper.append_op(type="less_than", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def create_array(dtype, elem_shape, capacity: int = 64, **kwargs):
+    helper = LayerHelper("array", **kwargs)
+    out = helper.block.create_var(
+        name=helper.name, dtype=dtype,
+        type=framework.VarType.LOD_TENSOR_ARRAY)
+    helper.append_op(type="create_array", outputs={"Out": [out]},
+                     attrs={"dtype": dtype, "elem_shape": list(elem_shape),
+                            "capacity": capacity})
+    return out
+
+
+def array_write(x, i, array, **kwargs):
+    helper = LayerHelper("array_write", **kwargs)
+    helper.append_op(type="write_to_array",
+                     inputs={"X": [x], "I": [i], "Array": [array]},
+                     outputs={"Out": [array]})
+    return array
+
+
+def array_read(array, i, **kwargs):
+    """Slot ``i`` of ``array``; its shape is unknown to the Program (put
+    a ``reshape`` after it where a layer needs one)."""
+    helper = LayerHelper("array_read", **kwargs)
+    out = helper.create_tmp_variable(array.dtype)
+    helper.append_op(type="read_from_array", inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_length(array, **kwargs):
+    helper = LayerHelper("array_length", **kwargs)
+    out = helper.create_tmp_variable("int64", (1,))
+    helper.append_op(type="lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def _external_reads(block) -> List[str]:
@@ -29,6 +92,60 @@ def _external_reads(block) -> List[str]:
             if n:
                 written.add(n)
     return external
+
+
+class While:
+    """``while (cond) { sub_block }``.  The condition and the loop state
+    are set before the loop and updated inside it.
+
+        cond = layers.less_than(i, n)
+        w = While(cond)
+        with w.block():
+            ... ops updating the state, i, and cond ...
+
+    The ``while`` op reads the sub-block's external reads (X) and lists
+    each variable of the enclosing block the sub-block writes (Out)."""
+
+    def __init__(self, cond: Variable, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+
+    def block(self):
+        return _SubBlockGuard(self)
+
+    def _complete(self, sub_block):
+        parent = self.helper.main_program.current_block()
+        x = [n for n in _external_reads(sub_block) if n != self.cond_var.name]
+        step_scopes = parent.create_var(
+            name=self.helper.name + ".step_scopes",
+            type=framework.VarType.STEP_SCOPES)
+        out = [n for op in sub_block.ops for n in op.output_arg_names
+               if n and parent.find_var(n) is not None]
+        parent.append_op(
+            type="while",
+            inputs={"X": x, "Condition": [self.cond_var]},
+            outputs={"Out": list(dict.fromkeys(out)),
+                     "StepScopes": [step_scopes]},
+            attrs={"sub_block": sub_block},
+        )
+
+
+class _SubBlockGuard:
+    """``with w.block():`` — a new sub-block is current inside, and on a
+    clean exit the owner's op goes into the parent block."""
+
+    def __init__(self, owner):
+        self.owner = owner
+
+    def __enter__(self):
+        self.block = self.owner.helper.main_program.create_block()
+        return self.block
+
+    def __exit__(self, exc_type, exc, tb):
+        self.owner.helper.main_program.rollback()
+        if exc_type is None:
+            self.owner._complete(self.block)
+        return False
 
 
 class StaticRNN:
@@ -171,6 +288,161 @@ class StaticRNNGuard:
 
 
 BlockGuard = StaticRNNGuard
+WhileGuard = StaticRNNGuard
+
+
+class StaticRNNMemoryLink:
+    """A memory link's record (init, pre_mem, mem), as the reference
+    exported it; StaticRNN keeps its links itself."""
+
+    def __init__(self, init, pre_mem, mem=None):
+        self.init = init
+        self.pre_mem = pre_mem
+        self.mem = mem
+
+
+class IfElse:
+    """A batched conditional: both branches run over the whole batch and
+    ``select_where`` merges their outputs row by row on ``cond`` (B, 1).
+
+        ie = IfElse(cond)
+        with ie.true_block():
+            ie.output(then_value)
+        with ie.false_block():
+            ie.output(else_value)
+        out, = ie()
+    """
+
+    def __init__(self, cond: Variable, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self._true_outs: List[Variable] = []
+        self._false_outs: List[Variable] = []
+        self._phase = None
+
+    def true_block(self):
+        return _IfElsePhase(self, True)
+
+    def false_block(self):
+        return _IfElsePhase(self, False)
+
+    def input(self, x: Variable) -> Variable:
+        return x  # both branches see the whole batch
+
+    def output(self, *outs):
+        (self._true_outs if self._phase else self._false_outs).extend(outs)
+
+    def __call__(self):
+        assert len(self._true_outs) == len(self._false_outs), \
+            "IfElse branches must output the same number of vars"
+        results = []
+        for t, f in zip(self._true_outs, self._false_outs):
+            out = self.helper.create_tmp_variable(t.dtype, t.shape)
+            self.helper.append_op(
+                type="select_where",
+                inputs={"Cond": [self.cond], "X": [t], "Y": [f]},
+                outputs={"Out": [out]})
+            results.append(out)
+        return results
+
+
+class _IfElsePhase:
+    def __init__(self, owner, phase):
+        self.owner = owner
+        self.phase = phase
+
+    def __enter__(self):
+        self.owner._phase = self.phase
+        return self.owner
+
+    def __exit__(self, exc_type, exc, tb):
+        self.owner._phase = None
+        return False
+
+
+class ConditionalBlock:
+    """The reference's scope-guarded conditional block.  As in the JAX
+    package, ``block()`` raises: ``IfElse`` (both branches, a row-wise
+    select) is the form a batched program takes."""
+
+    def __init__(self, inputs, name=None):
+        self.inputs = inputs
+
+    def block(self):
+        raise NotImplementedError(
+            "use layers.IfElse (dense two-branch select) — the TPU "
+            "mapping of conditional blocks")
+
+
+# --- the LoD dynamic-RNN machinery ------------------------------------------
+
+
+def lod_rank_table(x: Variable, level: int = 0, **kwargs):
+    helper = LayerHelper("lod_rank_table", **kwargs)
+    out = helper.block.create_var(name=helper.name, dtype="int32",
+                                  type=framework.VarType.LOD_TENSOR)
+    helper.append_op(type="lod_rank_table", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"level": level})
+    return out
+
+
+def max_sequence_len(rank_table: Variable, **kwargs):
+    helper = LayerHelper("max_seq_len", **kwargs)
+    out = helper.create_tmp_variable("int32", ())
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def lod_tensor_to_array(x: Variable, table: Variable, max_len=None,
+                        **kwargs):
+    helper = LayerHelper("lod_tensor_to_array", **kwargs)
+    out = helper.block.create_var(name=helper.name, dtype=x.dtype,
+                                  type=framework.VarType.LOD_TENSOR_ARRAY)
+    helper.append_op(type="lod_tensor_to_array",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]}, attrs={"max_len": max_len})
+    return out
+
+
+def array_to_lod_tensor(x: Variable, table: Variable, **kwargs):
+    helper = LayerHelper("array_to_lod_tensor", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="array_to_lod_tensor",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def shrink_memory(x: Variable, i: Variable, table: Variable, **kwargs):
+    helper = LayerHelper("shrink_memory", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, x.shape)
+    helper.append_op(type="shrink_rnn_memory",
+                     inputs={"X": [x], "I": [i], "RankTable": [table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def split_lod_tensor(input: Variable, mask: Variable, **kwargs):
+    helper = LayerHelper("split_lod_tensor", **kwargs)
+    out_true = helper.create_tmp_variable(input.dtype, input.shape)
+    out_false = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(type="split_lod_tensor",
+                     inputs={"X": [input], "Mask": [mask]},
+                     outputs={"OutTrue": [out_true], "OutFalse": [out_false]})
+    return out_true, out_false
+
+
+def merge_lod_tensor(in_true: Variable, in_false: Variable, x: Variable,
+                     mask: Variable, **kwargs):
+    helper = LayerHelper("merge_lod_tensor", **kwargs)
+    out = helper.create_tmp_variable(in_true.dtype, in_true.shape)
+    helper.append_op(type="merge_lod_tensor",
+                     inputs={"X": [x], "Mask": [mask], "InTrue": [in_true],
+                             "InFalse": [in_false]},
+                     outputs={"Out": [out]})
+    return out
 
 
 class DynamicRNN(StaticRNN):

@@ -6,8 +6,9 @@ layer_norm, scaled_dot_product_attention, multi_head_attention and
 softmax_with_cross_entropy, the sequence slice's fused ``lstm``
 (``dynamic_lstm``), the image models' dropout and lrn, and the raw
 ``mul``, ``square_error_cost``, ``sigmoid_cross_entropy_with_logits``
-and ``log_loss`` (wide_deep's loss), and the seq2seq decoder's
-``gru_unit``."""
+and ``log_loss`` (wide_deep's loss), the seq2seq decoder's
+``gru_unit``, and ``lstm_unit``, the batched ``matmul`` and
+``beam_search_decode``."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
            "lrn", "mul", "square_error_cost",
            "sigmoid_cross_entropy_with_logits", "log_loss", "gru_unit",
-           "linear_chain_crf"]
+           "linear_chain_crf", "lstm_unit", "matmul", "beam_search_decode"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -176,10 +177,19 @@ def pool2d(input, pool_size=2, pool_type="max", pool_stride=1, pool_padding=0,
 def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
                epsilon: float = 1e-5, param_attr=None, bias_attr=None,
                data_layout="NCHW", name=None, moving_mean_name=None,
-               moving_variance_name=None, **kwargs):
+               moving_variance_name=None, lengths=None, **kwargs):
+    """BN over channel axis 1 (NCHW) or the last (NHWC); with ``lengths``
+    over padded sequence frames (B, T, C), the statistics of the real
+    frames only (``paddle_tpu/layers/nn.py:376-419``)."""
     helper = LayerHelper("batch_norm", act=act, name=name, **kwargs)
     dtype = input.dtype
-    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    seq_frames = lengths is not None and len(input.shape or ()) == 3
+    if lengths is not None and not seq_frames:
+        raise ValueError(
+            "batch_norm(lengths=...) needs a (B, T, C) padded sequence "
+            f"input; got shape {input.shape}")
+    c = (input.shape[-1] if (seq_frames or data_layout != "NCHW")
+         else input.shape[1])
     scale = helper.create_parameter(
         param_attr, shape=[c], dtype=dtype,
         default_initializer=ConstantInitializer(1.0))
@@ -196,10 +206,13 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
     saved_mean = helper.create_tmp_variable("float32", (c,))
     saved_var = helper.create_tmp_variable("float32", (c,))
     out = helper.create_tmp_variable(dtype, input.shape)
+    bn_ins = {"X": [input], "Scale": [scale], "Bias": [bias],
+              "Mean": [mean], "Variance": [variance]}
+    if seq_frames:
+        bn_ins["Length"] = [lengths]
     helper.append_op(
         type="batch_norm",
-        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
-                "Mean": [mean], "Variance": [variance]},
+        inputs=bn_ins,
         outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
                  "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
         attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
@@ -498,6 +511,71 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, **kwargs):
                      attrs={"x_num_col_dims": x_num_col_dims,
                             "y_num_col_dims": y_num_col_dims})
     return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias: float = 0.0,
+              param_attr=None, bias_attr=None, **kwargs):
+    """One LSTM step: fc([x, h]) -> 4 gates -> the ``lstm_unit`` op's
+    (h, c) (``paddle_tpu/layers/nn.py:587-607``)."""
+    from paddle_tpu_torch.layers.tensor import concat
+
+    helper = LayerHelper("lstm_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    size = cell_t_prev.shape[-1]
+    gates = fc(concat([x_t, hidden_t_prev], axis=-1), size * 4,
+               param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_tmp_variable(x_t.dtype, cell_t_prev.shape)
+    h = helper.create_tmp_variable(x_t.dtype, cell_t_prev.shape)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": [gates], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, **kwargs):
+    """The batched ``matmul`` op; Out's shape broadcasts the batch dims
+    numpy-style, a mismatched static pair giving -1."""
+    helper = LayerHelper("matmul", **kwargs)
+    shape = None
+    if x.shape is not None and y.shape is not None:
+        xs, ys = list(x.shape), list(y.shape)
+        if len(xs) >= 2 and transpose_x:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if len(ys) >= 2 and transpose_y:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        if len(xs) >= 2 and len(ys) >= 2:
+            n = max(len(xs), len(ys)) - 2
+            xb = [1] * (n - len(xs) + 2) + xs[:-2]
+            yb = [1] * (n - len(ys) + 2) + ys[:-2]
+            batch = [b if a == 1 else a if (b == 1 or a == b) else -1
+                     for a, b in zip(xb, yb)]
+            shape = tuple(batch) + (xs[-2], ys[-1])
+        elif len(xs) == 1 and len(ys) >= 2:
+            shape = tuple(ys[:-2]) + (ys[-1],)
+        elif len(xs) >= 2 and len(ys) == 1:
+            shape = tuple(xs[:-1])
+    out = helper.create_tmp_variable(x.dtype, shape)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y})
+    return out
+
+
+def beam_search_decode(ids, scores, parent_idx=None, **kwargs):
+    """Stacked beam steps backtracked into sentences (the
+    ``beam_search_decode`` op)."""
+    helper = LayerHelper("beam_search_decode", **kwargs)
+    sent_ids = helper.create_tmp_variable("int64", None)
+    sent_scores = helper.create_tmp_variable("float32", None)
+    inputs = {"Ids": [ids], "Scores": [scores]}
+    if parent_idx is not None:
+        inputs["ParentIdx"] = [parent_idx]
+    helper.append_op(type="beam_search_decode", inputs=inputs,
+                     outputs={"SentenceIds": [sent_ids],
+                              "SentenceScores": [sent_scores]})
+    return sent_ids, sent_scores
 
 
 def gru_unit(input, hidden, size: int, param_attr=None, bias_attr=None,

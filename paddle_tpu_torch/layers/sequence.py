@@ -1,11 +1,13 @@
-"""Sequence layers (``paddle_tpu/layers/sequence.py:17-46``):
-``sequence_pool`` and its first- and last-step forms."""
+"""Sequence layers (``paddle_tpu/layers/sequence.py``): ``sequence_pool``
+and its first- and last-step forms, ``sequence_softmax`` and
+``sequence_expand``."""
 
 from __future__ import annotations
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["sequence_pool", "sequence_first_step", "sequence_last_step"]
+__all__ = ["sequence_pool", "sequence_softmax", "sequence_first_step",
+           "sequence_last_step", "sequence_expand"]
 
 
 def sequence_pool(input, pool_type: str, **kwargs):
@@ -30,3 +32,19 @@ def sequence_first_step(input, **kwargs):
 
 def sequence_last_step(input, **kwargs):
     return sequence_pool(input, "last", **kwargs)
+
+
+def sequence_softmax(input, **kwargs):
+    helper = LayerHelper("sequence_softmax", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, input.shape, input.lod_level)
+    helper.append_op(type="sequence_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_expand(x, y, **kwargs):
+    helper = LayerHelper("sequence_expand", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, x.shape, y.lod_level)
+    helper.append_op(type="seq_expand", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out

@@ -10,8 +10,8 @@ through ``unwrap`` and hands its result back through ``rewrap``.
 
 ``unwrap`` also densifies a ``SparseGrad`` (``paddle_tpu/lod.py:128-138``):
 an op with no sparse branch (a clip, a regularizer) sees the dense
-gradient.  The JAX package's ``LoDRankTable`` (dynamic RNNs) comes with
-the control-flow work.
+gradient.  ``LoDRankTable`` orders the sequences of a LoD value by
+length for the dynamic RNNs of ``ops/lod_ops.py``.
 """
 
 from __future__ import annotations
@@ -82,6 +82,27 @@ def row_segment_ids(offsets, num_rows: int):
     rows past the last offset get id == n_seq (a bucket for padding)."""
     rows = torch.arange(num_rows, dtype=offsets.dtype, device=offsets.device)
     return torch.searchsorted(offsets[1:].contiguous(), rows, right=True)
+
+
+class LoDRankTable:
+    """Sequences sorted by length, longest first, ties in input order
+    (``paddle_tpu/lod.py:97-127``): ``index[k]`` is the input index of
+    the rank-k sequence and ``lengths[k]`` its length (int32 tensors);
+    ``offsets`` keeps the source's last LoD level and ``src_rows`` its
+    packed row count, so ``array_to_lod_tensor`` rebuilds the source's
+    layout and buffer size."""
+
+    def __init__(self, index, lengths, offsets, src_rows=None):
+        self.index = index
+        self.lengths = lengths
+        self.offsets = offsets
+        self.src_rows = src_rows
+
+    def num_sequences(self) -> int:
+        return self.index.shape[0]
+
+    def __repr__(self):
+        return f"LoDRankTable(n={self.index.shape[0]})"
 
 
 def unwrap(x):

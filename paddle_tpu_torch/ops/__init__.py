@@ -3,7 +3,9 @@
 from paddle_tpu_torch.ops import (  # noqa: F401
     activation_ops,
     attention_ops,
+    beam_ops,
     control_flow_ops,
+    lod_ops,
     loss_ops,
     math_ops,
     metric_ops,

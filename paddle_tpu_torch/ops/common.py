@@ -66,6 +66,14 @@ def absolute(x):
     return torch.where(x >= 0, x, -x)
 
 
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, the
+    lower index first among equal values, as ``lax.top_k`` orders them
+    (``torch.topk`` leaves ties in no set order): a stable sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def unary(ctx, fn, slot_in="X", slot_out="Out"):
     x = ctx.input(slot_in)
     ctx.set_output(slot_out, rewrap(x, fn(unwrap(x))))

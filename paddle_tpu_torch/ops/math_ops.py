@@ -1,7 +1,10 @@
 """Dense math ops: ``mul`` and the elementwise family
 (``paddle_tpu/ops/math_ops.py:142/186``), and the ops the backward pass,
 the regularizers and the gradient clips append: ``sum``, ``scale``,
-``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``.  ``sum`` of
+``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``; the batched
+``matmul`` (a ``jnp.matmul`` outside any Pallas kernel in the JAX
+package, so ``torch.matmul`` here) and the compare and logical ops that
+``While`` and ``IfElse`` conditions use.  ``sum`` of
 ``SparseGrad`` operands concatenates their rows (a table read twice);
 the others see a sparse operand densified (``lod.unwrap``)."""
 
@@ -30,6 +33,10 @@ def _static_numel(shape):
             return None
         n *= d
     return n
+
+
+def _dim_known(d) -> bool:
+    return d is not None and d >= 0
 
 
 def _infer_mul_shape(op, block):
@@ -109,6 +116,93 @@ def _mul(ctx):
     out = mm(x2.contiguous(), y2.contiguous()).to(out_dt)
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     ctx.set_output("Out", rewrap(ctx.input("X"), torch.reshape(out, out_shape)))
+
+
+def _infer_matmul_shape(op, block):
+    """Batched matmul: Out is (batch..., M, N) after the transpose attrs,
+    the batch dims broadcast numpy-style; the inner extents must agree
+    when both are static."""
+    xv = block.find_var(op.input("X")[0]) if op.input("X") else None
+    yv = block.find_var(op.input("Y")[0]) if op.input("Y") else None
+    ov = block.find_var(op.output("Out")[0]) if op.output("Out") else None
+    if xv is None or yv is None or ov is None:
+        raise SkipInferShape
+    if xv.shape is None or yv.shape is None:
+        raise SkipInferShape
+    xs, ys = list(xv.shape), list(yv.shape)
+    if len(xs) < 2 or len(ys) < 2:
+        raise SkipInferShape  # 1-D operands follow numpy promotion rules
+    if op.attr("transpose_X", False):
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if op.attr("transpose_Y", False):
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if _dim_known(xs[-1]) and _dim_known(ys[-2]) and xs[-1] != ys[-2]:
+        raise ValueError(
+            f"inner extents differ: {xv.shape} @ {yv.shape} "
+            f"(K={xs[-1]} vs {ys[-2]})")
+    if ov.shape is None:
+        xb, yb = xs[:-2], ys[:-2]
+        n = max(len(xb), len(yb))
+        xb = [1] * (n - len(xb)) + xb
+        yb = [1] * (n - len(yb)) + yb
+        batch = []
+        for a, b in zip(xb, yb):
+            if a == 1:
+                batch.append(b)
+            elif b == 1:
+                batch.append(a)
+            elif not _dim_known(a) or not _dim_known(b):
+                batch.append(-1)
+            elif a == b:
+                batch.append(a)
+            else:
+                raise ValueError(
+                    f"batch dims do not broadcast: {xv.shape} @ {yv.shape}")
+        ov.shape = tuple(batch) + (xs[-2], ys[-1])
+
+
+@register_op("matmul", inputs=("X", "Y"), infer_shape=_infer_matmul_shape)
+def _matmul(ctx):
+    """``jnp.matmul`` with the transpose attrs (``paddle_tpu/ops/
+    math_ops.py:170-183``): under AMP on bf16 operands with a bf16 Out,
+    float32 sums either way."""
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    if ctx.attr("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out_dt = amp.out_dtype(x)
+    x, y = amp.cast_operands(x, y)
+    ctx.set_output("Out", torch.matmul(x, y).to(out_dt))
+
+
+def _register_compare(name, fn):
+    """A compare or logical op: Out = fn(X, Y), Y broadcast to X by the
+    elementwise rule, X's LoD kept; no gradient (``:350-369``)."""
+    register_op(name, inputs=("X", "Y"), stop_gradient=True,
+                infer_shape=infer_same_shape)(
+        functools.partial(lambda ctx, f: elementwise(ctx, f), f=fn))
+
+
+for name, fn in [
+    ("less_than", torch.lt),
+    ("less_equal", torch.le),
+    ("greater_than", torch.gt),
+    ("greater_equal", torch.ge),
+    ("equal", torch.eq),
+    ("not_equal", torch.ne),
+    ("logical_and", torch.logical_and),
+    ("logical_or", torch.logical_or),
+    ("logical_xor", torch.logical_xor),
+]:
+    _register_compare(name, fn)
+
+
+@register_op("logical_not", inputs=("X",), stop_gradient=True,
+             infer_shape=infer_same_shape)
+def _logical_not(ctx):
+    unary(ctx, torch.logical_not)
 
 
 for name, fn in [

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.lod import unwrap
+from paddle_tpu_torch.ops.common import top_k
 from paddle_tpu_torch.registry import SkipInferShape, register_op
 
 
@@ -29,13 +30,9 @@ def _infer_top_k_shape(op, block):
 @register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
              stop_gradient=True, infer_shape=_infer_top_k_shape)
 def _top_k(ctx):
-    x = unwrap(ctx.input("X"))
-    # lax.top_k's order: the lower index first among equal values
-    # (torch.topk leaves ties in no set order)
-    k = ctx.attr("k", 1)
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    ctx.set_output("Out", vals[..., :k])
-    ctx.set_output("Indices", idx[..., :k].long())
+    vals, idx = top_k(unwrap(ctx.input("X")), ctx.attr("k", 1))
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx.long())
 
 
 def _infer_accuracy_shape(op, block):

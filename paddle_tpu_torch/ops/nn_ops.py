@@ -267,10 +267,45 @@ def _from_channels_minor(x2d, shape):
         (0, nd - 1) + tuple(range(1, nd - 1)))
 
 
+def _bn_rows(x, layout, valid):
+    """The (R, C) rows a training BN normalizes, and how to put an (R, C)
+    result back at X's shape.  NCHW: the channels-minor view
+    (``_channels_minor``).  NHWC or 2-D: X itself, reshaped.  Sequence
+    frames (B, T, C) with their (B, T) ``valid`` mask: the real frames
+    only, packed by one gather (their count is one read on the host),
+    and a result goes back by a scatter into zeros, so padding frames
+    get zeros."""
+    if valid is not None:
+        c = x.shape[-1]
+        rows = valid.reshape(-1).nonzero().squeeze(1)
+
+        def back(r2d):
+            out = r2d.new_zeros((x.shape[0] * x.shape[1], c))
+            return out.index_copy(0, rows, r2d).reshape(x.shape)
+
+        return lambda v: v.reshape(-1, c)[rows], back
+    if layout != "NCHW" or x.ndim == 2:
+        c = x.shape[-1]
+        return (lambda v: v.contiguous().reshape(-1, c),
+                lambda r2d: r2d.reshape(x.shape))
+    return _channels_minor, lambda r2d: _from_channels_minor(r2d, x.shape)
+
+
+def _seq_valid(ctx, x):
+    """The (B, T) mask of the real frames of padded sequence frames
+    (B, T, C) with Length, else None (``paddle_tpu/ops/nn_ops.py:414``)."""
+    if not (ctx.has_input("Length") and x.ndim == 3):
+        return None
+    lens = unwrap(ctx.input("Length")).reshape(-1).long()
+    return torch.arange(x.shape[1], device=x.device)[None, :] < lens[:, None]
+
+
 def _batch_norm_grad(ctx):
-    """dX, dScale, dBias of training BN: the backward kernel on X, dY,
-    Scale, SavedMean and rsqrt(SavedVariance + eps), no forward replay.
-    An ``is_test`` BN (fixed statistics) takes the generic replay."""
+    """dX, dScale, dBias of training BN: the backward kernel on the rows
+    the forward normalized (``_bn_rows``) from X, dY, Scale, SavedMean
+    and rsqrt(SavedVariance + eps), no forward replay; dX of a padding
+    frame is zero, as the JAX op's masked forward gives it.  An
+    ``is_test`` BN (fixed statistics) takes the generic replay."""
     fwd = ctx.op.attr("__fwd_attrs__")
     if fwd.get("is_test", False):
         generic_grad_lower(ctx)
@@ -281,10 +316,12 @@ def _batch_norm_grad(ctx):
     if dy is None:
         dy = torch.zeros_like(x)
     inv = torch.rsqrt(ctx.input("SavedVariance") + fwd.get("epsilon", 1e-5))
+    to_rows, back = _bn_rows(x, fwd.get("data_layout", "NCHW"),
+                             _seq_valid(ctx, x))
     dx, dgamma, dbeta = kbn.batch_norm_bwd(
-        _channels_minor(x), _channels_minor(dy.to(x.dtype)), scale.float(),
+        to_rows(x), to_rows(dy.to(x.dtype)), scale.float(),
         ctx.input("SavedMean"), inv)
-    for slot, val in (("X@GRAD", _from_channels_minor(dx, x.shape)),
+    for slot, val in (("X@GRAD", back(dx)),
                       ("Scale@GRAD", dgamma.to(scale.dtype)),
                       ("Bias@GRAD", dbeta.to(scale.dtype))):
         name = grad_out(ctx, slot)
@@ -300,30 +337,35 @@ def _batch_norm_grad(ctx):
              infer_shape=_infer_batch_norm_shape,
              grad_lower=_batch_norm_grad)
 def _batch_norm(ctx):
-    """BN over NCHW channel axis 1.  Training: batch statistics (f32,
-    biased var = E[x^2] - m^2) and Y from the BN forward kernel on the
-    (R, C) view, Y channels-last; MeanOut/VarianceOut = momentum * old +
-    (1 - momentum) * batch; SavedMean/SavedVariance = the batch
-    statistics.  ``is_test``: the running statistics, in plain float32.
-    A training BN on a bf16 X (under AMP) keeps f32 statistics and gets a
+    """BN over channel axis 1 (NCHW), or the last axis (``data_layout``
+    NHWC, and padded sequence frames (B, T, C) with Length)
+    (``paddle_tpu/ops/nn_ops.py:400-481``).  Training: batch statistics
+    (f32, biased var = E[x^2] - m^2) and Y from the BN forward kernel on
+    the (R, C) rows of ``_bn_rows`` (NCHW: Y channels-last; sequence
+    frames: the real frames only, Y zero past each length);
+    MeanOut/VarianceOut = momentum * old + (1 - momentum) * batch;
+    SavedMean/SavedVariance = the batch statistics.  ``is_test``: the
+    running statistics, in plain float32, Y zero past each length.  A
+    training BN on a bf16 X (under AMP) keeps f32 statistics and gets a
     bf16 Y from the affine folded in f32 and rounded to bf16, as the JAX
-    op computes it (``paddle_tpu/ops/nn_ops.py:464-472``)."""
+    op computes it (``:464-472``)."""
     x = unwrap(ctx.input("X"))
     scale = unwrap(ctx.input("Scale"))
     bias = unwrap(ctx.input("Bias"))
     mean = unwrap(ctx.input("Mean"))
     var = unwrap(ctx.input("Variance"))
     eps = ctx.attr("epsilon", 1e-5)
-    if ctx.attr("data_layout", "NCHW") != "NCHW" or ctx.has_input("Length"):
-        raise NotImplementedError(
-            "paddle_tpu_torch batch_norm takes NCHW input without Length "
-            "(sequence BN comes with the sequences slice)")
+    layout = ctx.attr("data_layout", "NCHW")
+    valid = _seq_valid(ctx, x)
     if ctx.attr("is_test", False):
         bshape = [1] * x.ndim
-        bshape[1] = x.shape[1]
+        c_axis = x.ndim - 1 if valid is not None or layout != "NCHW" else 1
+        bshape[c_axis] = x.shape[c_axis]
         inv = torch.rsqrt(var.float() + eps)
         y = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
         y = y * scale.reshape(bshape) + bias.reshape(bshape)
+        if valid is not None:
+            y = y * valid[:, :, None]
         ctx.set_output("Y", y.to(x.dtype))
         ctx.set_output("MeanOut", mean)
         ctx.set_output("VarianceOut", var)
@@ -331,9 +373,16 @@ def _batch_norm(ctx):
         ctx.set_output("SavedVariance", var)
         return
     momentum = ctx.attr("momentum", 0.9)
-    y2d, bmean, bvar = kbn.batch_norm_fwd(_channels_minor(x), scale.float(),
-                                          bias.float(), eps)
-    ctx.set_output("Y", _from_channels_minor(y2d, x.shape))
+    to_rows, back = _bn_rows(x, layout, valid)
+    x2d = to_rows(x)
+    if x2d.shape[0]:
+        y2d, bmean, bvar = kbn.batch_norm_fwd(x2d, scale.float(),
+                                              bias.float(), eps)
+    else:
+        # no real frame: zero statistics, as the JAX op's n = max(n, 1)
+        bmean = bvar = torch.zeros(x.shape[-1], device=x.device)
+        y2d = x2d
+    ctx.set_output("Y", back(y2d))
     ctx.set_output("MeanOut", momentum * mean + (1 - momentum) * bmean)
     ctx.set_output("VarianceOut", momentum * var + (1 - momentum) * bvar)
     ctx.set_output("SavedMean", bmean)

@@ -5,7 +5,7 @@ copies the backward pass emits: assign, cast, fill_zeros_like
 (``:239-250``), and the transformer's split, reshape, transpose
 (``:291-324``) and lookup_table (``:352-406``), whose 1-D ids go through
 the gather kernel (``kernels/embedding.py``), and googlenet's concat
-(``:283-288``).
+(``:283-288``), and the loop counter's increment (``:277``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -80,6 +80,15 @@ def _gaussian_random(ctx):
              infer_shape=infer_same_shape)
 def _fill_zeros_like(ctx):
     unary(ctx, torch.zeros_like)
+
+
+@register_op("increment", inputs=("X",), stop_gradient=True,
+             infer_shape=infer_same_shape)
+def _increment(ctx):
+    """X + step in X's dtype (``paddle_tpu/ops/tensor_ops.py:277``)."""
+    step = ctx.attr("step", 1.0)
+    unary(ctx, lambda x: x + torch.tensor(step, dtype=x.dtype,
+                                          device=x.device))
 
 
 @register_op("assign", inputs=("X",), infer_shape=infer_same_shape)

@@ -3318,3 +3318,135 @@ def test_train_from_config_on_the_card_matches_cpu(dev, tmp_path):
                  event_handler=lambda e: staged.append(e.cost) if isinstance(
                      e, event.EndIteration) else None)
     assert staged == got
+
+
+def test_while_rnn_on_the_card_matches_cpu(dev):
+    """The While-driven dynamic RNN (``chip_smoke.build_while_rnn``) at a
+    small size on CUDAPlace(0) and CPUPlace() from the same weights: the
+    rebuilt rows, the pooled values and the head within 1e-5 of max
+    (float32 products of 48 terms a step, in another order); the fc in
+    the loop on the matmul kernel twice an iteration, the head's once,
+    and the condition read once an iteration and once more."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.ops import control_flow_ops
+
+    lens = [7, 3, 12, 1, 5, 9, 2, 12]
+    main, startup, rows, pooled, pred = chip_smoke.build_while_rnn(
+        pt, n_seq=len(lens), vocab=100, emb=32, hidden=16, max_len=12)
+    rng = np.random.RandomState(4)
+    off = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    feed = {"ids": (rng.randint(0, 100, (off[-1], 1)).astype(np.int64),
+                    [off])}
+    fetch = [rows, pooled, pred]
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    state = {n: v.numpy() for n, v in cpu_scope.values.items()}
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                          scope=cpu_scope)
+    scope = pt.Scope()
+    scope.load_numpy(state, dev)
+    launches, reads = kmatmul.launches, control_flow_ops.condition_reads
+    got = pt.Executor(pt.CUDAPlace(0)).run(main, feed=feed, fetch_list=fetch,
+                                           scope=scope)
+    assert kmatmul.launches - launches == 2 * max(lens) + 1
+    assert control_flow_ops.condition_reads - reads == max(lens) + 1
+    np.testing.assert_array_equal(got[0].lod[0], want[0].lod[0])
+    for g_, w_ in zip([got[0].data] + got[1:], [want[0].data] + want[1:]):
+        assert float(np.abs(g_ - w_).max()) <= 1e-5 * float(np.abs(w_).max())
+
+
+def test_nhwc_batch_norm_equals_nchw_bit_for_bit(dev):
+    """The NHWC op on X and the NCHW op on X permuted run the same BN
+    kernels on the same (R, C) rows: Y, dX, dScale and dBias equal bit
+    for bit, one forward and one backward launch each."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(8, 14, 14, 64).astype(np.float32) * 3 + 1
+    g = rng.randn(8, 14, 14, 64).astype(np.float32)
+    out = {}
+    for layout in ("NHWC", "NCHW"):
+        perm = (0, 1, 2, 3) if layout == "NHWC" else (0, 3, 1, 2)
+        main, startup, fetch = chip_smoke.build_bn_program(
+            pt, x.transpose(perm).shape, layout)
+        scope = pt.Scope()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        fwd, bwd = kbn.launches, kbn.bwd_launches
+        res = exe.run(main, feed={"x": x.transpose(perm),
+                                  "g": g.transpose(perm)},
+                      fetch_list=fetch, scope=scope)
+        assert (kbn.launches - fwd, kbn.bwd_launches - bwd) == (1, 1)
+        inv = np.argsort(perm)
+        out[layout] = [res[0].transpose(inv), res[1].transpose(inv)] + res[2:]
+    for a, b in zip(out["NHWC"], out["NCHW"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sequence_batch_norm_on_the_card_matches_plain(dev):
+    """Sequence BN (B, T, C) with Length on the card: the BN kernels on the
+    packed real frames against the plain masked version (statistics over
+    the real frames, Y and dX zero past each length) on the same CUDA
+    tensors, within the batch norm tolerances; one forward and one
+    backward launch."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import batch_norm as kbn
+
+    b, t, c = 16, 40, 96
+    rng = np.random.RandomState(6)
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    x = rng.randn(b, t, c).astype(np.float32) * 2 + 0.5
+    g = rng.randn(b, t, c).astype(np.float32)
+    main, startup, fetch = chip_smoke.build_bn_program(pt, (b, t, c), "NCHW",
+                                                       lengths=True)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    fwd, bwd = kbn.launches, kbn.bwd_launches
+    y, dx, dscale, dbias = exe.run(main, feed={"x": x, "len": lens, "g": g},
+                                   fetch_list=fetch, scope=scope)
+    assert (kbn.launches - fwd, kbn.bwd_launches - bwd) == (1, 1)
+    xt = torch.tensor(x, device=dev, requires_grad=True)
+    valid = (torch.arange(t, device=dev)[None, :]
+             < torch.tensor(lens, device=dev)[:, None])[:, :, None].float()
+    n = valid.sum()
+    mean = (xt * valid).sum((0, 1)) / n
+    var = ((xt * valid) ** 2).sum((0, 1)) / n - mean ** 2
+    yp = (xt - mean) * torch.rsqrt(var + 1e-5) * valid
+    (dxp,) = torch.autograd.grad((yp * torch.tensor(g, device=dev)).sum(),
+                                 xt)
+    gd = torch.tensor(g, device=dev) * valid
+    xhat = ((xt - mean) * torch.rsqrt(var + 1e-5)).detach()
+    np.testing.assert_allclose(y, yp.detach().cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(dx, dxp.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(dbias, gd.sum((0, 1)).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dscale, (gd * xhat).sum((0, 1)).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_beam_search_ties_on_the_card(dev):
+    """The beam_search op on CUDA tensors with the candidates tied across
+    every beam: the lower flat index first, as on the CPU, exactly."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    b, k, v = 4, 4, 30000
+    rng = np.random.RandomState(7)
+    row = np.round(rng.randn(b, 1, v), 1).astype(np.float32)
+    row[:, :, [17, 29000, 5]] = 6.0
+    feed = {"pi": np.ones((b, k), np.int64),
+            "ps": np.zeros((b, k), np.float32),
+            "s": np.repeat(row, k, axis=1)}
+    step, outs, _, _ = chip_smoke._beam_programs(pt, b, k, v)
+    got = pt.Executor(pt.CUDAPlace(0)).run(step, feed=feed, fetch_list=outs)
+    want = pt.Executor(pt.CPUPlace()).run(step, feed=feed, fetch_list=outs)
+    np.testing.assert_array_equal(got[0], [[5, 17, 29000, 5]] * b)
+    np.testing.assert_array_equal(got[2], [[0, 0, 0, 1]] * b)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_, w_)
