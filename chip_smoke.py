@@ -323,10 +323,32 @@ seconds):
     greedy_search over a seeded Markov step: card and CPU token for
     token (near-tied rows counted and left out), scores within
     BEAM_SCORE_TOL.
+15o. The fluid book's semantic-role tagger (``build_srl``: db_lstm at
+    SRL_CONFIG's widths, 8 LSTM layers, a CRF head, crf_decoding) from
+    the CPU's weights at B SRL_PARITY_BATCH: two costs within
+    SRL_COST_TOL of the CPU's, the paths equal but at Viterbi near-ties
+    (counted), chunk_eval's counts on both equal; then SRL_STEPS Adam
+    steps at B SRL_BATCH: launches lstm 8, lstm_bwd 8, matmul as the
+    program implies (the wgmma share printed), the cost a token halving;
+    ms a step, sentences/s, peak.
+15p. understand_sentiment's convolution_net (``build_text_conv``: two
+    LoD sequence_conv_pools of 512 filters) at the LoD cell's widths:
+    parity at 4 sequences as 15o's, then TEXT_STEPS Adam steps: launches
+    gather 1, matmul 6, softmax 1, the costs falling; ms a step,
+    samples/s, peak.
+15q. Every op of the fluid tail (``op_tail_cases``) on the card against
+    the CPU path, outputs and gradients within OP_TAIL_TOL (integers
+    exactly), among them warpctc at B 32 T 100 C 96, hsigmoid over 10,000
+    classes, conv2d_transpose, conv3d and pool3d at (4, 16, 16, 32, 32);
+    the SSD300 head (``build_ssd_head``: 8,732 priors, B 8, 21 classes,
+    multiclass_nms with nms_top_k 400 and keep_top_k 200 on equal
+    inputs); nce at V 10,000 at its own samples and sampling_id's
+    chi-square; each lr schedule over 5 Momentum steps.
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
-    seq2seq in f32 and under AMP): idle share, top kernels, and the
+    seq2seq in f32 and under AMP; the SRL tagger and the text conv net in
+    another, ``--profile-tail-steps``): idle share, top kernels, and the
     split into the port's kernels (the LSTM forward and backward kernels
     apart), the mul backward products, the rest and the host (for
     seq2seq also the host time inside the recurrent op, its grad op and
@@ -376,8 +398,9 @@ seconds):
     product, dbias and casts); for the conv, matmul, softmax and BN rows
     ``by_model``: the image cells' launches at run.py's batch from phase
     2; ``launches_by_path`` has each demo's as ``demo_<name>`` and phases
-    15k-15n's as ``while_rnn``, ``ifelse_attention_train_step``,
-    ``bn_{nhwc,nchw,sequence}_step`` and ``beams``), the
+    15k-15p's as ``while_rnn``, ``ifelse_attention_train_step``,
+    ``bn_{nhwc,nchw,sequence}_step``, ``beams``,
+    ``srl_train_step`` and ``text_conv_train_step``), the
     card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
@@ -663,11 +686,44 @@ SEQ_BN_SHAPE = (LOD_SEQS, LOD_MAX_LEN, LOD_FC)
 # within BEAM_SCORE_TOL of max(1, max|CPU|)
 BEAM_B, BEAM_K, BEAM_V, BEAM_STEPS = 16, 4, LSTM_VOCAB, 32
 BEAM_SCORE_TOL = 1e-4
+# The fluid op tail.  15o: the fluid book's semantic-role tagger (db_lstm,
+# label_semantic_roles) at its widths: six word features sharing one
+# 44,068 x 32 table, the predicate's 3,162 x 32 and the mark's 2 x 5
+# (CoNLL-05's dictionaries, paddle_tpu/v2/dataset/conll05.py:44-46), fc
+# 512 and an LSTM of hidden 128 at each of 8 layers, 67 labels (33 chunk
+# types in IOB and O), a CRF head; B 64 sentences of seeded lengths 5-60,
+# Adam(1e-3), not cut.  Parity at B 4: the first two costs within
+# SRL_COST_TOL (relative) of the CPU path's; the decoded paths equal but
+# at Viterbi near-ties (a margin below SRL_TIE), the chunk counts equal.
+# Learning: SRL_STEPS steps, the mean of the last 3 costs a token at most
+# half the first's.
+SRL_WORDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+SRL_CONFIG = dict(depth=8, word_dict=44068, pred_dict=3162, mark_dict=2,
+                  word_dim=32, mark_dim=5, hidden=512, labels=67)
+SRL_BATCH, SRL_PARITY_BATCH, SRL_LENS, SRL_LR = 64, 4, (5, 60), 1e-3
+SRL_STEPS, SRL_COST_TOL, SRL_TIE = 30, 2e-3, 1e-4
+# 15p: understand_sentiment's convolution_net over the LoD cell's ids
+# (vocab 30000, emb 512, 64 sequences of seeded lengths 1-100): two
+# sequence_conv_pools (filter sizes 3 and 4, 512 filters, tanh, sqrt
+# pooling), fc(2, softmax), Adam(TEXT_LR); parity at 4 sequences as 15o's
+TEXT_FILTERS, TEXT_LR, TEXT_STEPS = 512, 1e-3, 20
+# 15q: each new op on the card against the CPU path within OP_TAIL_TOL of
+# max|CPU| (f32), integer outputs exactly; SSD300's head at B 8 over 21
+# classes (its six maps give 8,732 priors)
+OP_TAIL_TOL = 1e-4
+SSD_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
+SSD_MIN = (30, 60, 111, 162, 213, 264)
+SSD_MAX = (60, 111, 162, 213, 264, 315)
+SSD_RATIOS = ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))
+SSD_B, SSD_CLASSES, SSD_GT = 8, 21, 6
 # the argument that makes the script profile the two sequence steps in a
 # process of their own (see phase_seq_profile)
 PROFILE_SEQ = "--profile-sequence-steps"
 # the same for the two transformer steps (see phase_tf_profile)
 PROFILE_TF = "--profile-transformer-steps"
+# the same for the tagger's and the text conv net's steps (see
+# phase_tail_profile)
+PROFILE_TAIL = "--profile-tail-steps"
 
 # The decoder LM that /generate serves (paddle_tpu/decode/model.py
 # TinyDecoderLM) at the widths of the transformer LM of phases 8-9
@@ -4967,6 +5023,52 @@ def profile_sequence_steps():
     profile_paths(paths)
 
 
+def profile_tail_steps():
+    """The body of ``chip_smoke.py --profile-tail-steps``: one profiled
+    step of the semantic-role tagger and of the text conv net (phases 15o
+    and 15p) after 2 warm-up steps, in a process of their own: at the
+    end of the sequence steps' child the profiler dropped the text conv
+    step's gather launch from every window.  Prints the idle shares as
+    the last line, a JSON object."""
+    import torch
+
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    range_calls(kmatmul, "matmul_backward")
+    profile_paths(tail_profile_paths(torch.device("cuda", 0)))
+
+
+def tail_profile_paths(dev):
+    """profile_paths' entries for the semantic-role tagger's step (phase
+    15o, B SRL_BATCH) and the text conv net's (15p, LOD_SEQS sequences):
+    the LSTM kernels 8 + 8, the gather 1, the matmul kernel (the split
+    passes of the f32 wgmma engine with it) and the mul backward
+    products."""
+    import paddle_tpu_torch as pt
+
+    mm = ["wgmma_tf32", "matmul_f32_kernel"]
+    srl_prog, srl_startup, srl_cost, _ = build_srl(pt, **SRL_CONFIG)
+    srl_feed_ = _card_feed(srl_feed(np.random.RandomState(37), SRL_BATCH),
+                           dev)
+    text_prog, text_startup, text_loss = build_text_conv(pt)
+    text_feed = _card_feed(text_conv_feed(np.random.RandomState(38)), dev)
+    return {
+        "srl": (False, (srl_prog, srl_startup, srl_cost, srl_feed_,
+                        f"SRL tagger step at B {SRL_BATCH}",
+                        {"LSTM kernel": ["lstm_fwd_kernel"],
+                         "LSTM backward kernel": ["lstm_bwd_kernel"],
+                         "matmul kernel": mm,
+                         "mul backward products": "matmul_backward"},
+                        {"lstm_fwd_kernel": 8, "lstm_bwd_kernel": 8})),
+        "text_conv": (False, (text_prog, text_startup, text_loss, text_feed,
+                              f"text conv step, {LOD_SEQS} sequences",
+                              {"gather kernel": ["gather_rows_kernel"],
+                               "matmul kernel": mm,
+                               "mul backward products": "matmul_backward"},
+                              {"gather_rows_kernel": 1})),
+    }
+
+
 def wide_deep_profile_paths(dev):
     """profile_paths' entries for the wide_deep step, f32 and AMP, from
     phase 15b's feed: the matmul kernel (the 416 x 256 and 256 x 128
@@ -5066,6 +5168,13 @@ def phase_seq_profile():
     """One profiled step of each sequence path, in a fresh process (this
     script with PROFILE_SEQ).  Returns {path: idle share}."""
     return profile_in_child(PROFILE_SEQ, "sequence steps")
+
+
+def phase_tail_profile():
+    """One profiled step of the tagger and of the text conv net, in a
+    fresh process (this script with PROFILE_TAIL).  Returns {path: idle
+    share}."""
+    return profile_in_child(PROFILE_TAIL, "fluid tail steps")
 
 
 # ---------------------------------------------------------------------------
@@ -7078,6 +7187,887 @@ def phase_beams(dev, smi):
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the fluid op tail: the semantic-role tagger, the text conv net, the ops
+# ---------------------------------------------------------------------------
+
+
+def build_srl(fl, depth=8, word_dict=44068, pred_dict=3162, mark_dict=2,
+              word_dim=32, mark_dim=5, hidden=512, labels=67, lr=SRL_LR,
+              seed=2026):
+    """Phase 15o's program, the fluid book's db_lstm with the layers of
+    package ``fl``: six word features (padded (B, T, 1) int64) through one
+    shared table ``emb``, the predicate through ``vemb``, the mark through
+    its own; an fc(``hidden``) of each, summed; an lstm of hidden / 4 with
+    the rows' lengths; then ``depth - 1`` layers of sums(fc(mix),
+    fc(lstm)) -> lstm, reversed at odd layers; the emission sums(fc(mix,
+    labels), fc(lstm, labels)); linear_chain_crf over the transition
+    ``crfw`` and its mean the cost, Adam(lr); crf_decoding on ``crfw``.
+    The LSTMs keep the default activations (the kernel's).  Returns (main,
+    startup, cost, decode)."""
+    fl.framework.reset_default_programs()
+    main_prog = fl.default_main_program()
+    startup = fl.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    L = fl.layers
+
+    def ids(name):
+        return L.data(name=name, shape=[-1, 1], dtype="int64")
+
+    embs = [L.embedding(input=ids(n), size=[word_dict, word_dim],
+                        param_attr=fl.ParamAttr(name="emb"))
+            for n in SRL_WORDS]
+    embs.append(L.embedding(input=ids("verb"), size=[pred_dict, word_dim],
+                            param_attr=fl.ParamAttr(name="vemb")))
+    embs.append(L.embedding(input=ids("mark"), size=[mark_dict, mark_dim]))
+    target = L.data(name="target", shape=[-1], dtype="int64")
+    length = L.data(name="length", shape=[1], dtype="int64")
+    mix = L.sums([L.fc(input=e, size=hidden, num_flatten_dims=2)
+                  for e in embs])
+    lstm, _ = L.lstm(input=mix, size=hidden // 4, lengths=length)
+    for i in range(1, depth):
+        mix = L.sums([L.fc(input=mix, size=hidden, num_flatten_dims=2),
+                      L.fc(input=lstm, size=hidden, num_flatten_dims=2)])
+        lstm, _ = L.lstm(input=mix, size=hidden // 4, is_reverse=i % 2 == 1,
+                         lengths=length)
+    emission = L.sums([L.fc(input=mix, size=labels, num_flatten_dims=2),
+                       L.fc(input=lstm, size=labels, num_flatten_dims=2)])
+    crf = L.linear_chain_crf(emission, target, length=length,
+                             param_attr=fl.ParamAttr(name="crfw"))
+    cost = L.mean(crf)
+    decode = L.crf_decoding(emission, param_attr=fl.ParamAttr(name="crfw"),
+                            length=length)
+    fl.optimizer.Adam(learning_rate=lr).minimize(cost)
+    return main_prog, startup, cost, decode
+
+
+def srl_feed(rng, batch, lens=SRL_LENS, word_dict=44068, pred_dict=3162,
+             labels=67, words=600):
+    """A batch of the tagging rule as numpy: lengths seeded in
+    [lens[0], lens[1]], words from a seeded subset of ``words`` ids of the
+    table, each word's context the neighbours (0 past the edges), one
+    predicate a sentence marked over its 5-word window.  A word tags O
+    (the last label) or, for a third of the subset, begins (B) a chunk of
+    the word's type, continued (I) while the next words share it: a rule
+    of the words that the tables and the CRF can learn, in IOB with
+    (labels - 1) / 2 types.  Padding ids 0, tags O."""
+    n_types = (labels - 1) // 2
+    vocab = rng.choice(word_dict, words, replace=False)
+    kind = rng.randint(0, 3 * n_types, words)      # < n_types: a chunk type
+    ln = rng.randint(lens[0], lens[1] + 1, batch)
+    T = int(ln.max())
+    pick = rng.randint(0, words, (batch, T))
+    w = np.where(np.arange(T)[None] < ln[:, None], vocab[pick], 0)
+    k = np.where(np.arange(T)[None] < ln[:, None], kind[pick], 3 * n_types)
+    tags = np.full((batch, T), labels - 1, np.int64)
+    for b in range(batch):
+        for t in range(ln[b]):
+            if k[b, t] < n_types:
+                same = t > 0 and k[b, t - 1] == k[b, t]
+                tags[b, t] = 2 * k[b, t] + same
+    feed = {}
+    for off, name in zip(range(-2, 3), SRL_WORDS[1:]):
+        c = np.zeros_like(w)
+        src = np.arange(T) + off
+        ok = (src >= 0) & (src < T)
+        c[:, ok] = w[:, src[ok]]
+        feed[name] = c[..., None].astype(np.int64)
+    feed["word"] = w[..., None].astype(np.int64)
+    at = rng.randint(0, ln)
+    feed["verb"] = np.repeat(rng.randint(0, pred_dict, (batch, 1)), T,
+                             1)[..., None].astype(np.int64)
+    feed["mark"] = (np.abs(np.arange(T)[None] - at[:, None]) <= 2)[
+        ..., None].astype(np.int64)
+    feed["target"] = tags
+    feed["length"] = ln.reshape(-1, 1).astype(np.int64)
+    return feed
+
+
+def build_chunk_eval(fl, labels=67):
+    """chunk_eval of decoded paths against targets, both fed as LoD rows
+    (each sentence's valid steps, so padding stays out of the counts),
+    IOB over (labels - 1) / 2 types.  Returns (main, outputs)."""
+    fl.framework.reset_default_programs()
+    L = fl.layers
+    inf = L.data(name="inference", shape=[1], dtype="int64", lod_level=1)
+    lab = L.data(name="label", shape=[1], dtype="int64", lod_level=1)
+    outs = L.chunk_eval(inf, lab, "IOB", num_chunk_types=(labels - 1) // 2)
+    return fl.default_main_program(), list(outs)
+
+
+def chunk_feed(paths, feed):
+    """{inference, label} as LoD rows of each sentence's valid steps."""
+    ln = feed["length"].reshape(-1)
+    off = np.concatenate([[0], np.cumsum(ln)]).tolist()
+    rows = [np.asarray(paths)[b, :n] for b, n in enumerate(ln)]
+    tags = [feed["target"][b, :n] for b, n in enumerate(ln)]
+    return {"inference": (np.concatenate(rows).reshape(-1, 1)
+                          .astype(np.int64), [off]),
+            "label": (np.concatenate(tags).reshape(-1, 1).astype(np.int64),
+                      [off])}
+
+
+def viterbi_margins(emission, transition, lengths):
+    """Each row's smallest Viterbi margin on its best path, on the host in
+    float64: at the final choice and at each back-pointer the path
+    follows, the best score less the runner-up.  A path whose margin is
+    tiny may decode otherwise under another rounding."""
+    em = np.asarray(emission, np.float64)
+    tr = np.asarray(transition, np.float64)
+    start, end, pair = tr[0], tr[1], tr[2:]
+    out = []
+    for b in range(em.shape[0]):
+        n = int(lengths[b])
+        delta = start + em[b, 0]
+        steps = []
+        for t in range(1, n):
+            s = delta[:, None] + pair
+            steps.append(s)
+            delta = s.max(0) + em[b, t]
+        fin = delta + end
+        top = np.sort(fin)
+        margin = float(top[-1] - top[-2]) if top.size > 1 else np.inf
+        j = int(np.argmax(fin))
+        for s in reversed(steps):
+            col = np.sort(s[:, j])
+            margin = min(margin, float(col[-1] - col[-2]))
+            j = int(np.argmax(s[:, j]))
+        out.append(margin)
+    return np.asarray(out)
+
+def build_ssd_head(fl, maps=SSD_MAPS, image=300, b=SSD_B,
+                   classes=SSD_CLASSES, gt=SSD_GT, mins=SSD_MIN, maxs=SSD_MAX,
+                   ratios=SSD_RATIOS, nms_top_k=400, keep_top_k=200,
+                   nms=True):
+    """Phase 15q's SSD head with the layers of package ``fl``: a
+    prior_box over each feature map (s x s, SSD300's min and max size and
+    aspect ratios, flipped, clipped) against a (b, 3, image, image) image,
+    concatenated to (M, 4) priors; fed loc (b, M, 4) and conf (b, M,
+    classes) with gradients, ground truth (b, gt, 4) and labels (b, gt)
+    (-1 padding); box_coder decodes loc and encodes it back, ssd_loss
+    (its mean differentiated), and with ``nms`` multiclass_nms over the
+    decoded boxes and the softmax scores.  Returns (main, [priors,
+    variances, decoded, encoded, loss(, detections)], M)."""
+    fl.framework.reset_default_programs()
+    L = fl.layers
+
+    def feed(name, shape, dtype="float32", grad=False):
+        v = L.data(name=name, shape=list(shape), dtype=dtype,
+                   append_batch_size=False)
+        v.stop_gradient = not grad
+        return v
+
+    img = feed("image", (b, 3, image, image))
+    boxes, variances = [], []
+    for i, ((s, _), mn, mx, ar) in enumerate(zip(maps, mins, maxs, ratios)):
+        bx, vr = L.prior_box(feed(f"map{i}", (b, 1, s, s)), img,
+                             min_sizes=[float(mn)], max_sizes=[float(mx)],
+                             aspect_ratios=[float(r) for r in ar])
+        boxes.append(L.reshape(bx, [-1, 4]))
+        variances.append(L.reshape(vr, [-1, 4]))
+    prior, pvar = L.concat(boxes, axis=0), L.concat(variances, axis=0)
+    M = sum(s * s * p for s, p in maps)
+    loc = feed("loc", (b, M, 4), grad=True)
+    conf = feed("conf", (b, M, classes), grad=True)
+    dec = L.box_coder(prior, pvar, loc, code_type="decode_center_size")
+    enc = L.box_coder(prior, pvar, dec, code_type="encode_center_size")
+    loss = L.ssd_loss(loc, conf, prior, pvar, feed("gt_box", (b, gt, 4)),
+                      feed("gt_label", (b, gt), "int64"))
+    fl.append_backward(L.mean(loss))
+    outs = [prior, pvar, dec, enc, loss]
+    if nms:
+        scores = L.transpose(L.softmax(conf), [0, 2, 1])
+        outs.append(L.detection_output(
+            dec, scores, score_threshold=0.01, nms_threshold=0.45,
+            nms_top_k=nms_top_k, keep_top_k=keep_top_k))
+    return fl.default_main_program(), outs, M
+
+
+def ssd_feed(rng, maps=SSD_MAPS, image=300, b=SSD_B, classes=SSD_CLASSES,
+             gt=SSD_GT):
+    """The SSD head's inputs as numpy: zero maps and image (only their
+    shapes matter), loc ~ 0.3 N(0, 1), conf ~ N(0, 1) with its class 1
+    raised on a third of the priors, 1-``gt`` ground-truth boxes an
+    image of sides 0.1-0.6 (-1 labels pad the rest)."""
+    M = sum(s * s * p for s, p in maps)
+    feed = {f"map{i}": np.zeros((b, 1, s, s), np.float32)
+            for i, (s, _) in enumerate(maps)}
+    feed["image"] = np.zeros((b, 3, image, image), np.float32)
+    feed["loc"] = (0.3 * rng.randn(b, M, 4)).astype(np.float32)
+    conf = rng.randn(b, M, classes).astype(np.float32)
+    conf[:, ::3, 1] += 3.0
+    feed["conf"] = conf
+    lo = rng.rand(b, gt, 2) * 0.4
+    side = 0.1 + rng.rand(b, gt, 2) * 0.5
+    feed["gt_box"] = np.concatenate([lo, np.minimum(lo + side, 1.0)],
+                                    -1).astype(np.float32)
+    labels = rng.randint(1, classes, (b, gt))
+    n = rng.randint(1, gt + 1, b)
+    labels[np.arange(gt)[None] >= n[:, None]] = -1
+    feed["gt_label"] = labels.astype(np.int64)
+    return feed
+
+
+def build_text_conv(fl, vocab=LSTM_VOCAB, emb=LSTM_EMB,
+                    filters=TEXT_FILTERS, lr=TEXT_LR, seed=2026):
+    """Phase 15p's program, understand_sentiment's convolution_net with
+    the layers and nets of package ``fl`` over LoD ids: embedding, two
+    sequence_conv_pools (filter sizes 3 and 4, tanh, sqrt pooling), fc(2,
+    softmax) over both, cross_entropy, mean, Adam(lr).  Returns (main,
+    startup, loss)."""
+    fl.framework.reset_default_programs()
+    main_prog = fl.default_main_program()
+    startup = fl.default_startup_program()
+    main_prog.seed = startup.seed = seed
+    L = fl.layers
+    ids = L.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+    label = L.data(name="label", shape=[1], dtype="int64")
+    x = L.embedding(input=ids, size=[vocab, emb])
+    convs = [fl.nets.sequence_conv_pool(input=x, num_filters=filters,
+                                        filter_size=k, act="tanh",
+                                        pool_type="sqrt") for k in (3, 4)]
+    pred = L.fc(input=convs, size=2, act="softmax")
+    loss = L.mean(L.cross_entropy(input=pred, label=label))
+    fl.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main_prog, startup, loss
+
+
+def _two_costs(exe, main_prog, feeds, fetch, scope):
+    return [exe.run(main_prog, feed=f, fetch_list=fetch, scope=scope)
+            for f in feeds]
+
+
+def _check_costs(what, got, want, tol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.isfinite(g) and abs(g - w) <= tol * abs(w)):
+            fail(f"{what}: step {i} cost {g:.7f} on the card, {w:.7f} on the "
+                 f"CPU (gate {tol} of it)")
+
+
+def _train(exe, main_prog, feeds, loss, scope, steps, what, expect):
+    """``steps`` steps over ``feeds`` in turn, the counters zeroed just
+    before the first and read just after (they must equal ``expect``):
+    (costs, launches, wgmma launches, ms a step (median of steps 3 on),
+    peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    costs = [float(exe.run(main_prog, feed=feeds[0], fetch_list=[loss],
+                           scope=scope)[0])]
+    launches, wgmma = counters(), wgmma_counters()
+    log(f"{what}: launches {launches}; on the wgmma engine {wgmma}")
+    if launches != expect:
+        fail(f"{what}: launch counts {launches} != {expect}")
+    times = []
+    for i in range(1, steps):
+        t0 = time.perf_counter()
+        (c,) = exe.run(main_prog, feed=feeds[i % len(feeds)],
+                       fetch_list=[loss], scope=scope)
+        times.append((time.perf_counter() - t0) * 1e3)
+        costs.append(float(c))
+    if not np.isfinite(costs).all():
+        fail(f"{what}: non-finite costs {costs}")
+    return (costs, launches, wgmma, statistics.median(times[2:]),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_srl(dev, smi):
+    """15o: the semantic-role tagger (``build_srl``) at SRL_CONFIG's widths.
+    Parity at B SRL_PARITY_BATCH from the port's CPU startup copied to the
+    card: the first two costs within SRL_COST_TOL (relative) of the CPU
+    path's; the decoded paths of step 1 equal but where the CPU's Viterbi
+    margin is below SRL_TIE (counted); chunk_eval of those paths on the
+    card and on the CPU equal exactly.  Then SRL_STEPS Adam steps at B
+    SRL_BATCH over 4 seeded batches in turn from the card's own startup:
+    the counters of the first step (lstm 8, lstm_bwd 8, matmul as the
+    program implies, nothing else), the mean of the last 3 costs a token
+    at most half the first's, ms a step, sentences/s, peak memory."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, cost, decode = build_srl(pt, **SRL_CONFIG)
+    block = main_prog.global_block()
+    emission = next(op for op in block.ops if op.type == "crf_decoding") \
+        .input("Emission")[0]
+    rng = np.random.RandomState(31)
+    feeds = [srl_feed(rng, SRL_PARITY_BATCH) for _ in range(2)]
+    cpu, card = _cpu_and_card_scopes(startup, dev)
+    crfw = cpu.values["crfw"].numpy().copy()
+    fetch = [cost, decode, emission]
+    want = _two_costs(pt.Executor(pt.CPUPlace()), main_prog, feeds, fetch,
+                      cpu)
+    exe = pt.Executor()
+    got = _two_costs(exe, main_prog, [_card_feed(f, dev) for f in feeds],
+                     fetch, card)
+    what = f"SRL tagger parity at B {SRL_PARITY_BATCH}"
+    _check_costs(what, [float(g[0]) for g in got], [float(w[0]) for w in want],
+                 SRL_COST_TOL)
+    margins = viterbi_margins(want[0][2], crfw, feeds[0]["length"].reshape(-1))
+    near = margins < SRL_TIE
+    paths, cpu_paths = np.asarray(got[0][1]), np.asarray(want[0][1])
+    differ = (paths != cpu_paths).any(1)
+    if (differ & ~near).any():
+        fail(f"{what}: rows {np.flatnonzero(differ & ~near).tolist()} decode "
+             f"differently on the card (margins {margins.tolist()})")
+    chunk_prog, chunk_outs = build_chunk_eval(pt)
+    cfeed = chunk_feed(paths, feeds[0])
+    on_card = pt.Executor().run(chunk_prog, feed=_card_feed(cfeed, dev),
+                                fetch_list=chunk_outs, scope=pt.Scope())
+    on_cpu = pt.Executor(pt.CPUPlace()).run(chunk_prog, feed=cfeed,
+                                             fetch_list=chunk_outs,
+                                             scope=pt.Scope())
+    counts = [int(np.asarray(v).reshape(-1)[0]) for v in on_card[3:]]
+    if counts != [int(np.asarray(v).reshape(-1)[0]) for v in on_cpu[3:]]:
+        fail(f"{what}: chunk counts {counts} on the card, "
+             f"{[np.asarray(v).tolist() for v in on_cpu[3:]]} on the CPU")
+    log(f"{what}: costs {[float(g[0]) for g in got]} on the card, "
+        f"{[float(w[0]) for w in want]} on the CPU (gate {SRL_COST_TOL}); "
+        f"paths: {int(differ.sum())} rows differ, {int(near.sum())} rows at a "
+        f"Viterbi near-tie (margin < {SRL_TIE}; smallest margin "
+        f"{margins.min():.3e}); chunk_eval inferred/labelled/correct "
+        f"{counts}, precision {float(on_card[0][0]):.4f}, F1 "
+        f"{float(on_card[2][0]):.4f}, equal on both")
+    del card, cpu
+
+    expect = launches_implied(main_prog)
+    if (expect["lstm"], expect["lstm_bwd"]) != (8, 8):
+        fail(f"SRL tagger: the program implies {expect}, not 8 + 8 LSTM "
+             "launches")
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    batches = [_card_feed(srl_feed(rng, SRL_BATCH), dev) for _ in range(4)]
+    rows = [int(b["length"].sum()) for b in batches]
+    what = (f"SRL tagger step, B {SRL_BATCH}, {rows[0]} tokens padded to "
+            f"{int(batches[0]['word'].shape[1])}")
+    costs, launches, wgmma, ms, peak = _train(
+        exe, main_prog, batches, cost, scope, SRL_STEPS, what, expect)
+    # the cost is a sentence's: per token, batches of other lengths compare
+    per_token = [c * SRL_BATCH / rows[i % 4] for i, c in enumerate(costs)]
+    if not np.mean(per_token[-3:]) <= 0.5 * per_token[0]:
+        fail(f"{what}: the cost a token does not halve in {SRL_STEPS} "
+             f"steps: {per_token}")
+    log(f"{what}: costs a token {[round(c, 4) for c in per_token]}; "
+        f"{ms:.3f} ms a step "
+        f"(median of steps 3-{SRL_STEPS - 1}), {SRL_BATCH / ms * 1e3:.1f} "
+        f"sentences/s, {np.mean(rows) / ms * 1e3:.1f} tokens/s; matmul "
+        f"launches a step {launches['matmul']}, {wgmma['matmul']} on the "
+        f"wgmma engine; peak memory allocated {peak / 2**30:.3f} GiB on {smi}")
+    del exe, scope
+    return dict(launches=launches, wgmma=wgmma, ms_per_step=ms,
+                sentences_per_s=SRL_BATCH / ms * 1e3, peak_bytes=peak,
+                costs=costs)
+
+
+def text_conv_feed(rng, n_seq=LOD_SEQS):
+    feed = attention_feed(rng, n_seq=n_seq)
+    del feed["aux"]
+    return feed
+
+
+def phase_text_conv(dev, smi):
+    """15p: understand_sentiment's convolution_net (``build_text_conv``)
+    over LoD ids at the LoD cell's widths.  Parity at 4 sequences as
+    15o's; then TEXT_STEPS Adam steps over 4 seeded batches of LOD_SEQS
+    sequences (a label the ids decide, ``attention_feed``): the counters
+    of the first step (the gather 1; matmul 6: each sequence_conv's
+    product and its replay under the gradient, the head's two muls;
+    softmax 1), the mean of the last 3 costs under the first 3's, ms a
+    step, samples/s, peak memory."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss = build_text_conv(pt)
+    rng = np.random.RandomState(32)
+    feeds = [text_conv_feed(rng, 4) for _ in range(2)]
+    cpu, card = _cpu_and_card_scopes(startup, dev)
+    want = _two_costs(pt.Executor(pt.CPUPlace()), main_prog, feeds, [loss],
+                      cpu)
+    exe = pt.Executor()
+    got = _two_costs(exe, main_prog, [_card_feed(f, dev) for f in feeds],
+                     [loss], card)
+    what = "text conv parity at 4 sequences"
+    _check_costs(what, [float(g[0]) for g in got], [float(w[0]) for w in want],
+                 SRL_COST_TOL)
+    log(f"{what}: costs {[float(g[0]) for g in got]} on the card, "
+        f"{[float(w[0]) for w in want]} on the CPU (gate {SRL_COST_TOL})")
+    del card, cpu
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(embedding=1, matmul=6, softmax=1)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    batches = [_card_feed(text_conv_feed(rng), dev) for _ in range(4)]
+    rows = int(batches[0]["ids"].data.shape[0])
+    what = f"text conv step, {LOD_SEQS} sequences of {rows} rows"
+    costs, launches, wgmma, ms, peak = _train(
+        exe, main_prog, batches, loss, scope, TEXT_STEPS, what, expect)
+    if not np.mean(costs[-3:]) < np.mean(costs[:3]):
+        fail(f"{what}: the costs do not fall: {costs}")
+    log(f"{what}: costs {[round(c, 4) for c in costs]}; {ms:.3f} ms a step "
+        f"(median of steps 3-{TEXT_STEPS - 1}), {LOD_SEQS / ms * 1e3:.1f} "
+        f"samples/s; peak memory allocated {peak / 2**30:.3f} GiB on {smi}")
+    del exe, scope
+    return dict(launches=launches, wgmma=wgmma, ms_per_step=ms,
+                samples_per_s=LOD_SEQS / ms * 1e3, peak_bytes=peak,
+                costs=costs)
+
+
+def op_program(pt, type_, feeds, inputs, outputs, attrs=None, grads=()):
+    """One op of type ``type_`` over fed inputs {slot: name or [names]}
+    with outputs {slot: (dtype, shape)}; with ``grads``, mean(out * out)
+    of every float output summed and differentiated, the feeds named in
+    ``grads`` taking gradients.  Returns (program, fetch names)."""
+    pt.framework.reset_default_programs()
+    L = pt.layers
+    vs = {}
+    for n, v in feeds.items():
+        arr = v[0] if isinstance(v, tuple) else v
+        dt = "int64" if arr.dtype.kind in "iu" else str(arr.dtype)
+        vs[n] = (L.data(name=n, shape=list(arr.shape[1:]), dtype=dt,
+                        lod_level=1) if isinstance(v, tuple)
+                 else L.data(name=n, shape=list(arr.shape), dtype=dt,
+                             append_batch_size=False))
+        vs[n].stop_gradient = n not in grads
+    helper = pt.layer_helper.LayerHelper(type_)
+    outs = {slot: helper.create_tmp_variable(dt, shape)
+            for slot, (dt, shape) in outputs.items()}
+    helper.append_op(
+        type=type_, outputs={k: [v] for k, v in outs.items()},
+        inputs={slot: [vs[n] for n in (names if isinstance(names, list)
+                                       else [names])]
+                for slot, names in inputs.items()}, attrs=attrs or {})
+    fetch = [v.name for v in outs.values()]
+    if grads:
+        terms = [L.mean(L.elementwise_mul(o, o)) for o in outs.values()
+                 if o.dtype.startswith("float")]
+        pt.append_backward(terms[0] if len(terms) == 1 else L.sums(terms))
+        fetch += [n + "@GRAD" for n in grads]
+    return pt.default_main_program(), fetch
+
+
+def op_tail_cases(rng):
+    """(type, feeds, inputs, outputs, attrs, grads) of phase 15q: every op
+    of the tail at a small shape, and the real-size cases
+    (warpctc at B 32 T 100 C 96, hsigmoid over 10,000 classes at D 256,
+    conv2d_transpose 4 x 4 stride 2 64 -> 32 channels at 32 x 32, conv3d
+    and pool3d on (4, 16, 16, 32, 32))."""
+    def f(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    def i(lo, hi, *s):
+        return rng.randint(lo, hi, s).astype(np.int64)
+
+    lens = [3, 1, 4]
+    off = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    lod = (f(off[-1] + 2, 3), [off])
+    B, T, C, S = 32, 100, 96, 30
+    ll = i(1, S + 1, B)
+    lb = np.zeros((B, S), np.int64)
+    for b in range(B):
+        lb[b, :ll[b]] = rng.randint(1, C, ll[b])
+    ctc = {"lg": f(B, T, C), "lb": lb, "tl": i(60, T + 1, B, 1),
+           "ll": ll.reshape(-1, 1)}
+    roi = np.asarray([[0, 0, 0, 5, 5], [1, 2, 1, 7, 6]], np.float32)
+    pool3 = dict(pooling_type="max", ksize=[2, 2, 2], strides=[2, 2, 2])
+    ties = f(2, 3, 8, 8)
+    ties[:, :, :4, :4] = 0.5
+    return [
+        ("crf_decoding", {"em": f(4, 9, 7), "tr": f(9, 7),
+                          "n": i(1, 10, 4, 1)},
+         {"Emission": "em", "Transition": "tr", "Length": "n"},
+         {"ViterbiPath": ("int64", (4, 9))}, {}, ()),
+        # every score tied: the first maximum at each step
+        ("crf_decoding", {"em": np.zeros((4, 9, 7), np.float32),
+                          "tr": np.zeros((9, 7), np.float32),
+                          "n": i(1, 10, 4, 1)},
+         {"Emission": "em", "Transition": "tr", "Length": "n"},
+         {"ViterbiPath": ("int64", (4, 9))}, {}, ()),
+        ("chunk_eval", {"a": i(0, 7, 30, 1), "b": i(0, 7, 30, 1)},
+         {"Inference": "a", "Label": "b"},
+         {"Precision": ("float32", (1,)), "Recall": ("float32", (1,)),
+          "F1-Score": ("float32", (1,)), "NumInferChunks": ("int64", (1,)),
+          "NumLabelChunks": ("int64", (1,)),
+          "NumCorrectChunks": ("int64", (1,))},
+         {"chunk_scheme": "IOB", "num_chunk_types": 3}, ()),
+        ("sequence_conv", {"x": lod, "w": f(9, 5)}, {"X": "x", "Filter": "w"},
+         {"Out": ("float32", (-1, 5))}, {"contextLength": 3}, ("x", "w")),
+        ("sequence_slice", {"x": lod, "o": i(0, 1, 3, 1),
+                            "n": np.asarray([[2], [1], [3]], np.int64)},
+         {"X": "x", "Offset": "o", "Length": "n"},
+         {"Out": ("float32", (-1, 3))}, {}, ("x",)),
+        ("row_conv", {"x": f(2, 6, 4), "w": f(3, 4)},
+         {"X": "x", "Filter": "w"}, {"Out": ("float32", (2, 6, 4))}, {},
+         ("x", "w")),
+        ("conv_shift", {"x": f(3, 8), "y": f(3, 3)}, {"X": "x", "Y": "y"},
+         {"Out": ("float32", (3, 8))}, {}, ("x", "y")),
+        ("block_expand", {"x": f(2, 3, 5, 6)}, {"X": "x"},
+         {"Out": ("float32", (2, 9, 12)), "OutLength": ("int32", (2,))},
+         {"block_y": 2, "block_x": 2}, ("x",)),
+        ("norm", {"x": f(2, 4, 3, 3), "s": f(4)}, {"X": "x", "Scale": "s"},
+         {"Out": ("float32", (2, 4, 3, 3))}, {}, ("x", "s")),
+        ("precision_recall", {"p": f(9, 1), "i": i(0, 4, 9, 1),
+                              "l": i(0, 4, 9, 1)},
+         {"MaxProbs": "p", "Indices": "i", "Labels": "l"},
+         {"BatchMetrics": ("float32", (6,)), "AccumMetrics": ("float32", (6,)),
+          "AccumStatesInfo": ("float32", (4, 3))}, {"class_number": 4}, ()),
+        ("max_pool2d_with_index", {"x": f(2, 3, 8, 8)}, {"X": "x"},
+         {"Out": ("float32", (2, 3, 4, 4)), "Mask": ("int32", (2, 3, 4, 4))},
+         {"ksize": [2, 2], "strides": [2, 2]}, ("x",)),
+        # four windows of equal values: the first maximum's index
+        ("max_pool2d_with_index", {"x": ties}, {"X": "x"},
+         {"Out": ("float32", (2, 3, 4, 4)), "Mask": ("int32", (2, 3, 4, 4))},
+         {"ksize": [2, 2], "strides": [2, 2]}, ("x",)),
+        ("max_pool3d_with_index", {"x": f(1, 2, 4, 4, 4)}, {"X": "x"},
+         {"Out": ("float32", (1, 2, 2, 2, 2)),
+          "Mask": ("int32", (1, 2, 2, 2, 2))}, {"ksize": [2, 2, 2]}, ("x",)),
+        ("unpool", {"x": f(1, 2, 2, 2), "i": np.asarray(
+            [[[[0, 3], [9, 14]], [[5, 2], [11, 8]]]], np.int64)},
+         {"X": "x", "Indices": "i"}, {"Out": ("float32", (1, 2, 4, 4))},
+         {"ksize": [2, 2]}, ("x",)),
+        ("pool3d", {"x": f(4, 16, 16, 32, 32)}, {"X": "x"},
+         {"Out": ("float32", (4, 16, 8, 16, 16))}, pool3, ("x",)),
+        ("pool3d_cudnn", {"x": f(2, 3, 6, 6, 6)}, {"X": "x"},
+         {"Out": ("float32", (2, 3, 3, 3, 3))},
+         dict(pooling_type="avg", ksize=[3, 3, 3], strides=[2, 2, 2],
+              paddings=[1, 1, 1], exclusive=True), ("x",)),
+        ("roi_pool", {"x": f(2, 3, 8, 8), "r": roi}, {"X": "x", "ROIs": "r"},
+         {"Out": ("float32", (2, 3, 2, 2)), "Argmax": ("int32", (2, 3, 2, 2))},
+         {"pooled_height": 2, "pooled_width": 2}, ("x",)),
+        ("scale_sub_region_mask", {"x": f(2, 4, 3, 3), "i": np.asarray(
+            [[1, 2, 2, 3, 1, 1], [3, 4, 1, 3, 2, 3]], np.int64)},
+         {"X": "x", "Indices": "i"}, {"Out": ("float32", (2, 4, 3, 3))},
+         {"value": 2.5}, ("x",)),
+        ("auc", {"p": np.abs(f(40, 2)) % 1, "i": i(0, 1, 40, 1),
+                 "l": i(0, 2, 40, 1)}, {"Out": "p", "Indices": "i",
+                                        "Label": "l"},
+         {"AUC": ("float32", (1,))}, {"num_thresholds": 200}, ()),
+        ("positive_negative_pair", {"s": np.round(np.abs(f(1500, 1)), 1),
+                                    "l": i(0, 3, 1500, 1).astype(np.float32),
+                                    "q": i(0, 4, 1500, 1)},
+         {"Score": "s", "Label": "l", "QueryID": "q"},
+         {"PositivePair": ("float32", (1,)), "NegativePair": ("float32", (1,)),
+          "NeutralPair": ("float32", (1,))}, {}, ()),
+        ("squared_l2_distance", {"x": f(4, 5), "y": f(1, 5)},
+         {"X": "x", "Y": "y"}, {"sub_result": ("float32", (4, 5)),
+                                "Out": ("float32", (4, 1))}, {}, ("x", "y")),
+        ("cos_sim", {"x": f(4, 5), "y": f(4, 15)}, {"X": "x", "Y": "y"},
+         {"Out": ("float32", (4, 3)), "XNorm": ("float32", (4, 1)),
+          "YNorm": ("float32", (4, 3))}, {}, ("x", "y")),
+        ("minus", {"x": f(3, 4), "y": f(3, 4)}, {"X": "x", "Y": "y"},
+         {"Out": ("float32", (3, 4))}, {}, ("x", "y")),
+        ("bilinear_tensor_product", {"x": f(4, 3), "y": f(4, 5),
+                                     "w": f(2, 3, 5), "b": f(1, 2)},
+         {"X": "x", "Y": "y", "Weight": "w", "Bias": "b"},
+         {"Out": ("float32", (4, 2))}, {}, ("x", "y", "w", "b")),
+        ("expand", {"x": f(2, 3)}, {"X": "x"}, {"Out": ("float32", (4, 9))},
+         {"expand_times": [2, 3]}, ("x",)),
+        ("gather", {"x": f(5, 3), "i": np.asarray([3, 0, 0, 2], np.int64)},
+         {"X": "x", "Index": "i"}, {"Out": ("float32", (4, 3))}, {}, ("x",)),
+        ("scatter", {"r": f(5, 3), "i": np.asarray([4, 0, 2], np.int64),
+                     "u": f(3, 3)}, {"Ref": "r", "Index": "i", "Updates": "u"},
+         {"Out": ("float32", (5, 3))}, {}, ("r", "u")),
+        ("shape", {"x": f(4, 5, 6)}, {"Input": "x"}, {"Out": ("int32", (3,))},
+         {}, ()),
+        ("slice_tensor", {"x": f(4, 5, 6)}, {"X": "x"},
+         {"Out": ("float32", (2, 5, 4))},
+         {"axes": [0, 2], "starts": [1, -4], "ends": [3, 100]}, ("x",)),
+        ("one_hot", {"x": np.asarray([[2], [0], [5], [-1]], np.int64)},
+         {"X": "x"}, {"Out": ("float32", (4, 4))}, {"depth": 4}, ()),
+        ("reverse", {"x": f(4, 5)}, {"X": "x"}, {"Out": ("float32", (4, 5))},
+         {"axis": [0, 1]}, ("x",)),
+        ("warpctc", ctc, {"Logits": "lg", "Label": "lb",
+                          "LogitsLength": "tl", "LabelLength": "ll"},
+         {"Loss": ("float32", (B, 1))}, {"blank": 0}, ("lg",)),
+        ("hierarchical_sigmoid", {"x": f(256, 256, scale=0.1),
+                                  "w": f(9999, 256, scale=0.1),
+                                  "b": f(9999, scale=0.1),
+                                  "l": i(0, 10000, 256, 1)},
+         {"X": "x", "W": "w", "Bias": "b", "Label": "l"},
+         {"Cost": ("float32", (256, 1))}, {}, ("x", "w", "b")),
+        ("factorization_machine", {"x": f(64, 32), "w": f(32, 8)},
+         {"X": "x", "W": "w"}, {"Out": ("float32", (64, 1))}, {}, ("x", "w")),
+        ("conv3d", {"x": f(4, 16, 16, 32, 32), "w": f(16, 16, 3, 3, 3,
+                                                     scale=0.1)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (4, 16, 16, 32, 32))},
+         {"paddings": [1, 1, 1]}, ("x", "w")),
+        ("conv3d_cudnn", {"x": f(2, 3, 5, 6, 6), "w": f(4, 3, 3, 3, 3)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (2, 4, 3, 2, 2))},
+         {"strides": [1, 2, 2]}, ("x", "w")),
+        ("conv2d_transpose", {"x": f(8, 64, 32, 32),
+                              "w": f(64, 32, 4, 4, scale=0.1)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (8, 32, 62, 62))},
+         {"strides": [2, 2], "paddings": [1, 1]}, ("x", "w")),
+        ("conv2d_transpose_cudnn", {"x": f(2, 3, 5, 5), "w": f(3, 4, 3, 3)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (2, 4, 9, 9))}, {"strides": [2, 2],
+                                                 "paddings": [1, 1]},
+         ("x", "w")),
+        ("conv3d_transpose", {"x": f(2, 3, 4, 4, 4), "w": f(3, 2, 3, 3, 3)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (2, 2, 7, 7, 7))},
+         {"strides": [2, 2, 2], "paddings": [1, 1, 1]}, ("x", "w")),
+        ("conv3d_transpose_cudnn", {"x": f(1, 2, 3, 3, 3),
+                                    "w": f(2, 2, 2, 2, 2)},
+         {"Input": "x", "Filter": "w"},
+         {"Output": ("float32", (1, 2, 2, 2, 2))}, {}, ("x", "w")),
+        ("bilinear_interp", {"x": f(2, 3, 6, 5)}, {"X": "x"},
+         {"Out": ("float32", (2, 3, 9, 3))}, {"out_h": 9, "out_w": 3},
+         ("x",)),
+        ("crop", {"x": f(2, 4, 5, 6)}, {"X": "x"},
+         {"Out": ("float32", (1, 2, 3, 4))},
+         {"shape": [1, 2, 3, 4], "offsets": [1, 1, 0, 2]}, ("x",)),
+        ("pad", {"x": f(2, 4)}, {"X": "x"}, {"Out": ("float32", (3, 7))},
+         {"paddings": [1, 0, 2, 1], "pad_value": 0.5}, ("x",)),
+        ("maxout", {"x": f(2, 4, 5, 6)}, {"X": "x"},
+         {"Out": ("float32", (2, 2, 5, 6))}, {"groups": 2}, ("x",)),
+        ("l1_norm", {"x": f(3, 4)}, {"X": "x"}, {"Out": ("float32", ())}, {},
+         ("x",)),
+        ("lambda_cost", {"o": f(3, 6, 1), "y": i(0, 4, 3, 6, 1).astype(
+            np.float32), "n": np.asarray([6, 4, 2], np.int64)},
+         {"Score": "o", "Label": "y", "Length": "n"},
+         {"Out": ("float32", (3, 1))}, {"NDCG_num": 3}, ("o",)),
+        ("cross_entropy_over_beam", {
+            "s0": f(2, 4), "s1": f(2, 6), "i0": np.asarray(
+                [[1, 3], [0, 2]], np.int64), "i1": np.asarray(
+                    [[4, 0], [1, -1]], np.int64),
+            "g0": np.asarray([[3], [2]], np.int64),
+            "g1": np.asarray([[4], [5]], np.int64)},
+         {"Scores": ["s0", "s1"], "Ids": ["i0", "i1"], "Golds": ["g0", "g1"]},
+         {"Out": ("float32", (2, 1))}, {}, ("s0", "s1")),
+    ]
+
+
+def _compare_tail(what, got, want, tol=OP_TAIL_TOL):
+    """A card fetch against the CPU's: ints and LoD offsets exactly,
+    floats within ``tol`` of max|CPU|.  Returns the float error."""
+    from paddle_tpu_torch.lod import LoDArray
+
+    if isinstance(want, LoDArray):
+        for g, w in zip(got.lod, want.lod):
+            if not np.array_equal(np.asarray(g), np.asarray(w)):
+                fail(f"{what}: LoD offsets differ")
+        got, want = got.data, want.data
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape:
+        fail(f"{what}: shape {g.shape} on the card, {w.shape} on the CPU")
+    if w.dtype.kind in "biu":
+        if not np.array_equal(g, w):
+            fail(f"{what}: integer outputs differ")
+        return 0.0
+    err = float(np.abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+    scale = float(np.abs(w).max()) if w.size else 0.0
+    if not (np.isfinite(g).all() and err <= tol * max(scale, 1e-30)):
+        fail(f"{what}: max abs err {err:.3e} > {tol} * max|CPU| {scale:.3e}")
+    return err
+
+
+def _ssd_on_card(dev):
+    """The SSD300 head (``build_ssd_head`` without its NMS) on the card
+    against the CPU path; multiclass_nms then on both from the CPU's
+    decoded boxes and softmax scores (equal inputs: its IoU compares and
+    stable sorts then see the same values)."""
+    import paddle_tpu_torch as pt
+
+    main_prog, outs, M = build_ssd_head(pt, nms=False)
+    if M != 8732:
+        fail(f"SSD300 head: {M} priors, not 8732")
+    feed = ssd_feed(np.random.RandomState(33))
+    fetch = [o.name for o in outs] + ["loc@GRAD", "conf@GRAD"]
+    t0 = time.perf_counter()
+    want = pt.Executor(pt.CPUPlace()).run(main_prog, feed=feed,
+                                          fetch_list=fetch, scope=pt.Scope())
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = pt.Executor().run(main_prog, feed=_card_feed(feed, dev),
+                            fetch_list=fetch, scope=pt.Scope())
+    head_s = time.perf_counter() - t0
+    errs = {n: _compare_tail(f"SSD300 head {n}", g, w)
+            for n, g, w in zip(("priors", "variances", "decoded", "encoded",
+                                "loss", "loc@GRAD", "conf@GRAD"), got, want)}
+    conf = feed["conf"].astype(np.float64)
+    probs = np.exp(conf - conf.max(-1, keepdims=True))
+    scores = (probs / probs.sum(-1, keepdims=True)).astype(np.float32) \
+        .transpose(0, 2, 1).copy()
+    nms_feed = {"bb": np.asarray(want[2]), "sc": scores}
+    prog, nfetch = op_program(
+        pt, "multiclass_nms", nms_feed, {"BBoxes": "bb", "Scores": "sc"},
+        {"Out": ("float32", (SSD_B, 200, 6))},
+        {"score_threshold": 0.01, "nms_threshold": 0.45, "nms_top_k": 400,
+         "keep_top_k": 200})
+    (w_nms,) = pt.Executor(pt.CPUPlace()).run(prog, feed=nms_feed,
+                                              fetch_list=nfetch,
+                                              scope=pt.Scope())
+    t0 = time.perf_counter()
+    (g_nms,) = pt.Executor().run(prog, feed=_card_feed(nms_feed, dev),
+                                 fetch_list=nfetch, scope=pt.Scope())
+    nms_s = time.perf_counter() - t0
+    errs["detections"] = _compare_tail("SSD300 multiclass_nms", g_nms, w_nms)
+    kept = int((np.asarray(g_nms)[:, :, 0] >= 0).sum())
+    log(f"SSD300 head at B {SSD_B}, {M} priors, {SSD_CLASSES} classes: card "
+        f"vs CPU max abs err {errs} (tolerance {OP_TAIL_TOL} of max); the "
+        f"head with ssd_loss's backward {head_s * 1e3:.1f} ms, "
+        f"multiclass_nms (nms_top_k 400, keep_top_k 200) {nms_s * 1e3:.1f} "
+        f"ms on the card (first calls; the head {cpu_s:.1f} s on the CPU), "
+        f"{kept} detections kept")
+    return errs
+
+
+def _nce_on_card(dev):
+    """nce at V 10,000, D 256, 10 negatives, B 256 on the card: its draws
+    shared across the batch and in [0, V); Cost and the Input, Weight and
+    Bias gradients against the CPU's nce_cost and grad rule at the card's
+    own samples."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.nn_extra_ops import nce_cost
+
+    rng = np.random.RandomState(34)
+    B, D, V = 256, 256, 10000
+    feeds = {"x": (0.1 * rng.randn(B, D)).astype(np.float32),
+             "label": rng.randint(0, V, (B, 1)).astype(np.int64),
+             "w": (0.1 * rng.randn(V, D)).astype(np.float32),
+             "b": (0.1 * rng.randn(V)).astype(np.float32)}
+    prog, fetch = op_program(
+        pt, "nce", feeds, {"Input": "x", "Label": "label", "Weight": "w",
+                           "Bias": "b"},
+        {"Cost": ("float32", (B, 1)), "SampleLogits": ("float32", (B, 11)),
+         "SampleLabels": ("int64", (B, 11))},
+        {"num_neg_samples": 10, "num_total_classes": V}, ("x", "w", "b"))
+    got = pt.Executor().run(prog, feed=_card_feed(feeds, dev),
+                            fetch_list=fetch, scope=pt.Scope())
+    ids = np.asarray(got[2])
+    if not ((ids[:, 1:] == ids[:1, 1:]).all() and (ids >= 0).all()
+            and (ids < V).all() and (ids[:, 0] == feeds["label"][:, 0]).all()):
+        fail("nce on the card: samples not shared, out of range or labels "
+             "not first")
+    leaves = {k: torch.from_numpy(feeds[k]).requires_grad_(True)
+              for k in ("x", "w", "b")}
+    with torch.enable_grad():
+        cost, logits = nce_cost(leaves["x"], leaves["w"], leaves["b"],
+                                torch.from_numpy(ids), 10, V)
+        # the program's loss: mean(Cost^2) + mean(SampleLogits^2)
+        loss = (cost * cost).mean() + (logits * logits).mean()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    want = [cost.detach(), logits.detach()] + list(grads)
+    return {n: _compare_tail(f"nce {n}", g, w) for n, g, w in zip(
+        ("Cost", "SampleLogits", "x@GRAD", "w@GRAD", "b@GRAD"),
+        [got[0], got[1]] + got[3:], want)}
+
+
+def _sampling_id_on_card(dev):
+    """sampling_id's draws on the card: a chi-square over 20,000 draws of
+    two rows, and never a zero-probability class."""
+    import paddle_tpu_torch as pt
+
+    probs = np.asarray([[0.1, 0.2, 0.3, 0.4], [0.7, 0.0, 0.1, 0.2]],
+                       np.float32)
+    reps = 10000
+    feeds = {"p": np.repeat(probs, reps, 0)}
+    prog, fetch = op_program(pt, "sampling_id", feeds, {"X": "p"},
+                             {"Out": ("int64", (2 * reps,))})
+    (ids,) = pt.Executor().run(prog, feed=_card_feed(feeds, dev),
+                               fetch_list=fetch, scope=pt.Scope())
+    ids = np.asarray(ids).reshape(2, reps)
+    chi2 = []
+    for row, p in zip(ids, probs):
+        counts = np.bincount(row, minlength=4)
+        if counts[p == 0].sum():
+            fail("sampling_id on the card drew a class of probability 0")
+        want = p[p > 0] * reps
+        chi2.append(float(((counts[p > 0] - want) ** 2 / want).sum()))
+    if max(chi2) >= 16.27:
+        fail(f"sampling_id on the card: chi-square {chi2} (p = 0.001 gate "
+             "16.27)")
+    return chi2
+
+
+LR_SCHEDULES = {
+    "exponential_decay": lambda m: m.exponential_decay(0.1, 2, 0.5),
+    "natural_exp_decay": lambda m: m.natural_exp_decay(0.1, 3, 0.4),
+    "inverse_time_decay": lambda m: m.inverse_time_decay(
+        0.1, 2, 0.5, staircase=True),
+    "polynomial_decay": lambda m: m.polynomial_decay(0.1, 4, 0.01, power=2.0),
+    "piecewise_decay": lambda m: m.piecewise_decay([2, 4], [0.1, 0.05, 0.01]),
+}
+
+
+def _lr_on_card(dev):
+    """Each lr schedule drives Momentum(0.9) over an fc for 5 steps on the
+    card and on the CPU from the same weights: the rate and the loss of
+    every step agree."""
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(35)
+    feed = {"x": rng.randn(16, 8).astype(np.float32),
+            "y": rng.randn(16, 1).astype(np.float32)}
+    rates = {}
+    for name, make in LR_SCHEDULES.items():
+        pt.framework.reset_default_programs()
+        x = pt.layers.data(name="x", shape=[8], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        pred = pt.layers.fc(input=x, size=1)
+        loss = pt.layers.mean(pt.layers.square_error_cost(input=pred,
+                                                          label=y))
+        lr = make(pt.lr_scheduler)
+        pt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+        cpu, card = _cpu_and_card_scopes(pt.default_startup_program(), dev)
+        seen = []
+        for _ in range(5):
+            w = pt.Executor(pt.CPUPlace()).run(
+                pt.default_main_program(), feed=feed, fetch_list=[lr, loss],
+                scope=cpu)
+            g = pt.Executor().run(pt.default_main_program(),
+                                  feed=_card_feed(feed, dev),
+                                  fetch_list=[lr, loss], scope=card)
+            for n, a, b in zip(("rate", "loss"), g, w):
+                _compare_tail(f"{name} {n}", a, b)
+            seen.append(float(np.asarray(g[0]).reshape(-1)[0]))
+        rates[name] = seen
+    return rates
+
+
+def phase_op_tail(dev, smi):
+    """15q: every op of the tail once on the card against the same program
+    on the CPU path (``op_tail_cases``: outputs, and the gradients of
+    mean(out^2) summed where the op has them), within OP_TAIL_TOL of
+    max|CPU|, integer outputs exactly; the SSD300 head (``_ssd_on_card``),
+    nce and sampling_id against their contracts, and each lr schedule over
+    5 Momentum steps."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(36)
+    errs, secs = {}, {}
+    for type_, feeds, inputs, outputs, attrs, grads in op_tail_cases(rng):
+        prog, fetch = op_program(pt, type_, feeds, inputs, outputs, attrs,
+                                 grads)
+        t1 = time.perf_counter()
+        want = pt.Executor(pt.CPUPlace()).run(prog, feed=feeds,
+                                              fetch_list=fetch,
+                                              scope=pt.Scope())
+        t2 = time.perf_counter()
+        got = pt.Executor().run(prog, feed=_card_feed(feeds, dev),
+                                fetch_list=fetch, scope=pt.Scope())
+        key = type_ + (" (ties)" if type_ in errs else "")
+        secs[key] = (round(t2 - t1, 3), round(time.perf_counter() - t2, 3))
+        errs[key] = max(_compare_tail(f"{key} {n}", g, w)
+                        for n, g, w in zip(fetch, got, want))
+    log(f"the op tail on the card: {len(errs)} ops against the CPU path, "
+        f"max abs err {errs} (tolerance {OP_TAIL_TOL} of max); seconds "
+        f"(CPU, card; first calls, outputs fetched) {secs}")
+    ssd = _ssd_on_card(dev)
+    nce = _nce_on_card(dev)
+    chi2 = _sampling_id_on_card(dev)
+    rates = _lr_on_card(dev)
+    log(f"nce on the card at its own samples: max abs err {nce}; "
+        f"sampling_id chi-square {chi2}; the lr schedules' rates over 5 "
+        f"steps {rates}; 15q in {time.perf_counter() - t0:.1f} s on {smi}")
+    return dict(ops=errs, ssd=ssd, nce=nce)
+
+
 def timed(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -7104,6 +8094,9 @@ def main():
         return
     if sys.argv[1:] == [PROFILE_DEC]:
         profile_decode_step()
+        return
+    if sys.argv[1:] == [PROFILE_TAIL]:
+        profile_tail_steps()
         return
     t_start = time.perf_counter()
 
@@ -7275,6 +8268,9 @@ def main():
     attention = timed(phase_ifelse_attention, dev, smi)
     bn_layouts = timed(phase_bn_layouts, dev, smi, while_rnn["lens"])
     beams = timed(phase_beams, dev, smi)
+    srl = timed(phase_srl, dev, smi)
+    text = timed(phase_text_conv, dev, smi)
+    timed(phase_op_tail, dev, smi)
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
     log(f"the demos' launches in all: "
@@ -7284,12 +8280,14 @@ def main():
         if not demo_launches[k]:
             fail(f"the demos launched no {k} kernel")
     idle = timed(phase_seq_profile)
+    idle.update(timed(phase_tail_profile))
     lstm["idle_share"], lod["idle_share"] = idle["lstm"], idle["lod"]
     lstm_amp["idle_share"] = idle["lstm_amp"]
     wd["idle_share"] = idle["wide_deep"]
     wd_amp["idle_share"] = idle["wide_deep_amp"]
     s2s["idle_share"] = idle["seq2seq"]
     s2s_amp["idle_share"] = idle["seq2seq_amp"]
+    srl["idle_share"], text["idle_share"] = idle["srl"], idle["text_conv"]
 
     model, dec_counts = timed(phase_decode_parity, dev)
     gen, gen_launches, refs, reqs = timed(phase_generate, dev, model, smi)
@@ -7326,7 +8324,9 @@ def main():
                "bn_nhwc_step": bn_layouts["nhwc"],
                "bn_nchw_step": bn_layouts["nchw"],
                "bn_sequence_step": bn_layouts["sequence"],
-               "beams": beams["launches"]}
+               "beams": beams["launches"],
+               "srl_train_step": srl["launches"],
+               "text_conv_train_step": text["launches"]}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -7355,6 +8355,8 @@ def main():
                      "seq2seq_train_step": s2s["wgmma"],
                      "seq2seq_amp_train_step": s2s_amp["wgmma"],
                      "ifelse_attention_train_step": attention["wgmma"],
+                     "srl_train_step": srl["wgmma"],
+                     "text_conv_train_step": text["wgmma"],
                      **{p: r["wgmma"] for p, r in image_steps.items()}}
     main_wgmma = dict(matmul=tf["wgmma"], conv2d_nhwc=train["wgmma"],
                       conv_bwd_input=train["wgmma"], conv_dw=train["wgmma"],
@@ -7459,6 +8461,13 @@ def main():
         f"training: {attention['ms_per_step']:.3f} ms a step, "
         f"{attention['samples_per_s']:.1f} samples/s, peak "
         f"{attention['peak_bytes'] / 2**30:.3f} GiB"
+        + f"; SRL tagger training: {srl['ms_per_step']:.3f} ms a step, "
+        f"{srl['sentences_per_s']:.1f} sentences/s at B {SRL_BATCH}, peak "
+        f"{srl['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{srl['idle_share']:.3f}; text conv training: "
+        f"{text['ms_per_step']:.3f} ms a step, {text['samples_per_s']:.1f} "
+        f"samples/s, peak {text['peak_bytes'] / 2**30:.3f} GiB, idle share "
+        f"{text['idle_share']:.3f}"
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -14,9 +14,9 @@ formats unchanged.
 """
 
 from paddle_tpu_torch import ops  # noqa: F401  (registers the op lowerings)
-from paddle_tpu_torch import (amp, clip, framework, initializer, io,
-                              layers, models, nets, optimizer, param_attr,
-                              regularizer)
+from paddle_tpu_torch import (amp, clip, evaluator, framework, initializer,
+                              io, layers, lr_scheduler, models, nets,
+                              optimizer, param_attr, regularizer)
 from paddle_tpu_torch.backward import append_backward
 from paddle_tpu_torch.executor import (Executor, Scope, global_scope,
                                        params_from_numpy, scope_guard)
@@ -29,7 +29,8 @@ from paddle_tpu_torch.param_attr import ParamAttr
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program", "Scope",
     "amp", "append_backward", "clip", "default_main_program",
-    "default_startup_program", "framework", "global_scope", "initializer",
-    "io", "layers", "models", "nets", "optimizer", "param_attr",
+    "default_startup_program", "evaluator", "framework", "global_scope",
+    "initializer", "io", "layers", "lr_scheduler", "models", "nets",
+    "optimizer", "param_attr",
     "params_from_numpy", "program_guard", "regularizer", "scope_guard",
 ]

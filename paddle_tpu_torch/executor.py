@@ -245,7 +245,8 @@ def _to_numpy(v):
 # ---------------------------------------------------------------------------
 
 
-_RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
+_RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout",
+                         "nce", "sampling_id"})
 
 
 class _Plan:

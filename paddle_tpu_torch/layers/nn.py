@@ -8,7 +8,10 @@ softmax_with_cross_entropy, the sequence slice's fused ``lstm``
 ``mul``, ``square_error_cost``, ``sigmoid_cross_entropy_with_logits``
 and ``log_loss`` (wide_deep's loss), the seq2seq decoder's
 ``gru_unit``, and ``lstm_unit``, the batched ``matmul`` and
-``beam_search_decode``."""
+``beam_search_decode``; the tagging head (``linear_chain_crf``,
+``crf_decoding``, ``chunk_eval``), ``cos_sim``, the sampled and
+structured losses (``warpctc``, ``hsigmoid``,
+``factorization_machine``) and ``conv2d_transpose``."""
 
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "cross_entropy", "topk",
            "softmax_with_cross_entropy", "lstm", "dynamic_lstm", "dropout",
            "lrn", "mul", "square_error_cost",
            "sigmoid_cross_entropy_with_logits", "log_loss", "gru_unit",
-           "linear_chain_crf", "lstm_unit", "matmul", "beam_search_decode"]
+           "linear_chain_crf", "lstm_unit", "matmul", "beam_search_decode",
+           "crf_decoding", "chunk_eval", "cos_sim", "warpctc", "hsigmoid",
+           "factorization_machine", "conv2d_transpose"]
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -628,3 +633,126 @@ def linear_chain_crf(input, label, length=None, param_attr=None, **kwargs):
         outputs={"LogLikelihood": [ll], "Alpha": [alpha],
                  "EmissionExps": [eexp], "TransitionExps": [texp]})
     return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None, **kwargs):
+    """Viterbi decode with the transition parameter that
+    ``linear_chain_crf`` learns (shared by name through ``param_attr``):
+    the (B, T) int64 best tag path."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, **kwargs)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[2 + num_tags, num_tags], dtype=input.dtype)
+    path = helper.create_tmp_variable("int64", input.shape[:-1])
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, **kwargs):
+    """Chunk precision, recall, F1 and the three counts."""
+    helper = LayerHelper("chunk_eval", **kwargs)
+    outs = [helper.create_tmp_variable(dt, (1,)) for dt in
+            ("float32", "float32", "float32", "int64", "int64", "int64")]
+    helper.append_op(
+        type="chunk_eval", inputs={"Inference": [input], "Label": [label]},
+        outputs={slot: [v] for slot, v in zip(
+            ("Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"), outs)},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return tuple(outs)
+
+
+def cos_sim(X, Y, **kwargs):
+    """Cosine similarity of the rows of X and Y."""
+    helper = LayerHelper("cos_sim", **kwargs)
+    shape = (X.shape[0], 1) if X.shape else None
+    out, xn, yn = (helper.create_tmp_variable(X.dtype, shape)
+                   for _ in range(3))
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def warpctc(input, label, input_length=None, label_length=None, blank=0,
+            norm_by_times=False, **kwargs):
+    """CTC loss (B, 1) over padded (B, T, C) logits."""
+    helper = LayerHelper("warpctc", **kwargs)
+    loss = helper.create_tmp_variable(input.dtype, (input.shape[0], 1))
+    inputs = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length]
+    helper.append_op(type="warpctc", inputs=inputs, outputs={"Loss": [loss]},
+                     attrs={"blank": int(blank),
+                            "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             **kwargs):
+    """Hierarchical sigmoid cost (B, 1) over a complete binary tree of
+    ``num_classes`` leaves."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    dtype = input.dtype
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1,
+                                                   input.shape[-1]],
+                                dtype=dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, shape=[num_classes - 1], dtype=dtype, is_bias=True)]
+    cost = helper.create_tmp_variable(dtype, (input.shape[0], 1))
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Cost": [cost]})
+    return cost
+
+
+def factorization_machine(input, factor_size, param_attr=None, **kwargs):
+    """The second-order FM interaction, (B, D) -> (B, 1)."""
+    helper = LayerHelper("factorization_machine", param_attr=param_attr,
+                         **kwargs)
+    w = helper.create_parameter(param_attr, shape=[input.shape[-1],
+                                                   factor_size],
+                                dtype=input.dtype)
+    out = helper.create_tmp_variable(input.dtype, (input.shape[0], 1))
+    helper.append_op(type="factorization_machine",
+                     inputs={"X": [input], "W": [w]}, outputs={"Out": [out]})
+    return out
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=None, act=None, **kwargs):
+    """A transposed conv by a (C, num_filters, kh, kw) filter, bias, act.
+    The output var carries the Paddle extent (in - 1) s - 2 p + k, as the
+    JAX layer stamps it; the op emits (in - 1) s + 2 p - k + 2, equal
+    where p = (k - 1) / 2."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, **kwargs)
+    dtype = input.dtype
+    fs, st, pd = (v if isinstance(v, (list, tuple)) else (v, v)
+                  for v in (filter_size, stride, padding))
+    n, c, h, w = input.shape
+    filt = helper.create_parameter(param_attr, shape=[c, num_filters, fs[0],
+                                                      fs[1]], dtype=dtype)
+    oh = (h - 1) * st[0] - 2 * pd[0] + fs[0] if h and h > 0 else -1
+    ow = (w - 1) * st[1] - 2 * pd[1] + fs[1] if w and w > 0 else -1
+    pre_bias = helper.create_tmp_variable(dtype, (n, num_filters, oh, ow))
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [filt]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": list(st), "paddings": list(pd),
+               "dilations": [1, 1]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)

@@ -1,5 +1,6 @@
 """Composite network helpers (``paddle_tpu/nets.py``):
-``simple_img_conv_pool``, ``img_conv_group`` and ``glu``."""
+``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool`` and
+``glu``."""
 
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                                      dropout_prob=conv_batchnorm_drop_rate[i])
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
+                       pool_type="max"):
+    """``sequence_conv`` then ``sequence_pool``.  The pool needs LoD rows,
+    so this runs over LoD input (the JAX helper, whose conv takes padded
+    input only, runs over neither)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -5,6 +5,8 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     attention_ops,
     beam_ops,
     control_flow_ops,
+    ctc_ops,
+    detection_ops,
     lod_ops,
     loss_ops,
     math_ops,

@@ -1,11 +1,8 @@
 """cuDNN-named op aliases (``paddle_tpu/ops/aliases.py``): the same
 lowering, inputs, gradient inputs and shape rule as their targets, and
 the target's own grad rule where it has one (``conv2d``'s: the generic
-replay must never reach a kernel launch, ``autodiff.py``).  Only
-the aliases whose targets the port has: ``conv3d_cudnn``,
-``conv2d_transpose_cudnn``, ``conv3d_transpose_cudnn`` and
-``pool3d_cudnn`` wait for ``conv3d``, ``conv2d_transpose`` and
-``pool3d``.  Imported last, so that every target exists."""
+replay must never reach a kernel launch, ``autodiff.py``).  Imported
+last, so that every target exists."""
 
 from __future__ import annotations
 
@@ -22,3 +19,9 @@ def _alias_op(alias: str, target: str, inputs, outputs=("Out",)):
 
 _alias_op("conv2d_cudnn", "conv2d", ("Input", "Filter"), ("Output",))
 _alias_op("pool2d_cudnn", "pool2d", ("X",))
+_alias_op("conv3d_cudnn", "conv3d", ("Input", "Filter"), ("Output",))
+_alias_op("conv2d_transpose_cudnn", "conv2d_transpose", ("Input", "Filter"),
+          ("Output",))
+_alias_op("conv3d_transpose_cudnn", "conv3d_transpose", ("Input", "Filter"),
+          ("Output",))
+_alias_op("pool3d_cudnn", "pool3d", ("X",))

@@ -282,3 +282,151 @@ def _padded_sequence_cross_entropy(ctx):
     per_seq = (torch.where(valid, nll, torch.zeros_like(nll)).sum(1)
                / torch.clamp(lens.float(), min=1.0))
     ctx.set_output("Out", per_seq[:, None])
+
+
+# ---------------------------------------------------------------------------
+# lambda_cost and cross_entropy_over_beam (``paddle_tpu/ops/loss_ops.py:
+# 231-430``)
+# ---------------------------------------------------------------------------
+
+
+def _lists(o, y, lens_in):
+    """(B, T) scores and labels as float32, the (B,) valid lengths."""
+    o, y = o.float(), y.float()
+    o = o[..., 0] if o.ndim == 3 else o
+    y = y[..., 0] if y.ndim == 3 else y
+    B, T = o.shape
+    lens = (lens_in.reshape(-1).long() if lens_in is not None
+            else torch.full((B,), T, dtype=torch.long, device=o.device))
+    return o, y, lens
+
+
+def _sort_desc(key, valid):
+    """A row's order by ``key`` descending, its invalid steps last, ties
+    in index order (``jnp.argsort``'s stable sort of -key)."""
+    return torch.argsort(-torch.where(valid, key, float("-inf")), dim=1,
+                         stable=True)
+
+
+def _dcg(ys, lens, k):
+    pos = torch.arange(ys.shape[1], device=ys.device)[None, :]
+    disc = 1.0 / torch.log(pos + 2.0)
+    gain = torch.pow(2.0, ys) - 1.0
+    keep = pos < torch.clamp(lens, max=k)[:, None]
+    return torch.sum(torch.where(keep, gain * disc, 0.0), dim=1)
+
+
+def _lambda_cost_grad(ctx):
+    """The hand-defined LambdaRank gradient (the v1 LambdaCost::calcGrad),
+    not the gradient of the NDCG the forward emits: over each list
+    sorted by label, pair (i, j), i < j, j valid and i within
+    ``max_sort_size`` weighs -|dDCG_ij| / (1 + exp(o_i - o_j)); a
+    position gets its row sum less its column sum over maxDCG, unsorted
+    and times Out@GRAD."""
+    fwd_in = ctx.op.attr("__fwd_inputs__")
+    fwd_at = ctx.op.attr("__fwd_attrs__")
+    score_v = ctx.values[fwd_in["Score"][0]]
+    lens_in = (unwrap(ctx.values[fwd_in["Length"][0]])
+               if fwd_in.get("Length") else None)
+    o, y, lens = _lists(unwrap(score_v),
+                        unwrap(ctx.values[fwd_in["Label"][0]]), lens_in)
+    B, T = o.shape
+    k = int(fwd_at.get("NDCG_num", 5))
+    mss = int(fwd_at.get("max_sort_size", -1))
+    pos = torch.arange(T, device=o.device)
+    order = _sort_desc(y, pos[None, :] < lens[:, None])
+    ys, os_ = torch.gather(y, 1, order), torch.gather(o, 1, order)
+    max_dcg = torch.clamp(_dcg(ys, lens, k), min=1e-12)
+    p, q = pos[:, None], pos[None, :]
+    sort_size = lens if mss < 0 else torch.clamp(lens, max=mss)
+    pair_ok = ((p < q)[None] & (q[None] < lens[:, None, None])
+               & (p[None] < sort_size[:, None, None]))
+    disc_p, disc_q = 1.0 / torch.log(p + 2.0), 1.0 / torch.log(q + 2.0)
+    gain = torch.pow(2.0, ys)
+    gdif = gain[:, :, None] - gain[:, None, :]
+    dcg_dif = torch.where(q[None] < sort_size[:, None, None],
+                          gdif * (disc_p - disc_q)[None], gdif * disc_p[None])
+    lam = -absolute(dcg_dif) / (1.0 + torch.exp(
+        os_[:, :, None] - os_[:, None, :]))
+    lam = torch.where(pair_ok, lam, 0.0)
+    g_sorted = (lam.sum(2) - lam.sum(1)) / max_dcg[:, None]
+    grad = torch.zeros_like(g_sorted).scatter(1, order, g_sorted)
+    grad = grad * unwrap(grad_in(ctx, "Out@GRAD")).reshape(B, 1).float()
+    if unwrap(score_v).ndim == 3:
+        grad = grad[..., None]
+    name = grad_out(ctx, "Score@GRAD")
+    if name is not None:
+        ctx.values[name] = rewrap(score_v, grad.to(unwrap(score_v).dtype))
+
+
+@register_op("lambda_cost", inputs=("Score", "Label", "Length"),
+             outputs=("Out",), diff_inputs=("Score",),
+             grad_lower=_lambda_cost_grad,
+             infer_shape=_infer_rowwise("Score", "Out"))
+def _lambda_cost(ctx):
+    """LambdaRank's listwise cost: each list's NDCG@``NDCG_num`` (what the
+    v1 layer reports); its backward is the hand-defined lambda gradient
+    above.  Score, Label padded (B, T[, 1]); Length (B,)."""
+    lens_in = unwrap(ctx.input("Length")) if ctx.has_input("Length") \
+        else None
+    o, y, lens = _lists(unwrap(ctx.input("Score")),
+                        unwrap(ctx.input("Label")), lens_in)
+    k = int(ctx.attr("NDCG_num", 5))
+    valid = torch.arange(o.shape[1], device=o.device)[None, :] < lens[:, None]
+    dcg = _dcg(torch.gather(y, 1, _sort_desc(o, valid)), lens, k)
+    max_dcg = _dcg(torch.gather(y, 1, _sort_desc(y, valid)), lens, k)
+    ctx.set_output("Out", (dcg / torch.clamp(max_dcg, min=1e-12))[:, None])
+
+
+@register_op("cross_entropy_over_beam", inputs=("Scores", "Ids", "Golds"),
+             outputs=("Out",), diff_inputs=("Scores",),
+             infer_shape=_infer_rowwise("Scores", "Out"))
+def _cross_entropy_over_beam(ctx):
+    """Cross entropy over beam expansions, normalised over every path
+    alive in the expansion where the gold first falls off the beam (the
+    last one where it never does), the gold joining as an extra path
+    when it fell off (the v1 CrossEntropyOverBeam).  Per step i: Scores
+    (B, N_i), whose candidate c has parent slot c // (N_i / k_{i-1});
+    Ids (B, k_i) the beam, -1 padded; Golds (B, 1)."""
+    scores = [unwrap(v).float() for v in ctx.inputs("Scores")]
+    scores = [s[..., 0] if s.ndim == 3 else s for s in scores]
+    golds = [unwrap(v).reshape(-1).long() for v in ctx.inputs("Golds")]
+    ids = [unwrap(ctx.values[n]).long()
+           for n in ctx.op.inputs.get("Ids", []) if n]
+    E = len(scores)
+    if E > 1 and len(ids) != E:
+        raise ValueError(
+            "cross_entropy_over_beam: multi-step beams need the Ids input "
+            "(one (B, k) selected-candidate tensor a step) to define the "
+            "expanded paths")
+    if E == 1 and not ids:
+        logp = torch.log_softmax(scores[0], dim=-1)
+        nll = -torch.gather(logp, 1, golds[0][:, None])[:, 0]
+        ctx.set_output("Out", nll[:, None])
+        return
+    B = scores[0].shape[0]
+    dev = scores[0].device
+    neg = torch.tensor(-1e30, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    gold_sum = torch.zeros(B, device=dev)
+    cost = torch.zeros(B, device=dev)
+    anc_prev = None
+    for i in range(E):
+        s, g = scores[i], golds[i]
+        valid = ids[i] >= 0
+        cand = torch.where(valid, ids[i], 0)
+        anc = torch.gather(s, 1, cand)
+        if anc_prev is not None:
+            cpp = s.shape[1] // anc_prev.shape[1]
+            anc = torch.gather(anc_prev, 1, cand // cpp) + anc
+        anc = torch.where(valid, anc, neg)
+        gold_sum = gold_sum + torch.gather(s, 1, g[:, None])[:, 0]
+        found = torch.any(valid & (cand == g[:, None]), dim=1)
+        is_last = active & (~found | (i == E - 1))
+        paths = torch.cat([anc, torch.where(found, neg, gold_sum)[:, None]],
+                          dim=1)
+        lse = torch.logsumexp(paths, dim=1)
+        cost = cost + torch.where(is_last, lse - gold_sum, 0.0)
+        active = active & found
+        anc_prev = anc
+    ctx.set_output("Out", cost[:, None])

@@ -4,7 +4,9 @@ the regularizers and the gradient clips append: ``sum``, ``scale``,
 ``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``; the batched
 ``matmul`` (a ``jnp.matmul`` outside any Pallas kernel in the JAX
 package, so ``torch.matmul`` here) and the compare and logical ops that
-``While`` and ``IfElse`` conditions use.  ``sum`` of
+``While`` and ``IfElse`` conditions use; the module's tail:
+``squared_l2_distance``, ``cos_sim``, ``minus`` and
+``bilinear_tensor_product``.  ``sum`` of
 ``SparseGrad`` operands concatenates their rows (a table read twice);
 the others see a sparse operand densified (``lod.unwrap``)."""
 
@@ -18,8 +20,8 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import matmul as kmatmul
 from paddle_tpu_torch.lod import rewrap, unwrap
-from paddle_tpu_torch.ops.common import (clip, elementwise, grad_in, grad_out,
-                                        unary)
+from paddle_tpu_torch.ops.common import (broadcast_to_x, clip, elementwise,
+                                        grad_in, grad_out, unary)
 from paddle_tpu_torch.registry import (SkipInferShape, infer_same_shape,
                                        register_op)
 from paddle_tpu_torch.sparse import concat_sparse, is_sparse_grad
@@ -302,3 +304,105 @@ def _infer_squared_l2_norm_shape(op, block):
              infer_shape=_infer_squared_l2_norm_shape)
 def _squared_l2_norm(ctx):
     unary(ctx, lambda x: torch.sum(torch.square(x)).reshape(1))
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's tail (``paddle_tpu/ops/math_ops.py:305-387``)
+# ---------------------------------------------------------------------------
+
+
+def _slot_var(op, block, slot, inputs=True, need_shape=False):
+    names = (op.inputs if inputs else op.outputs).get(slot, [])
+    if len(names) != 1 or not names[0]:
+        raise SkipInferShape
+    v = block.find_var(names[0])
+    if v is None or (need_shape and v.shape is None):
+        raise SkipInferShape
+    return v
+
+
+def _set_shape(v, shape):
+    if v.shape is None:
+        v.shape = tuple(int(s) for s in shape)
+
+
+def _infer_squared_l2_distance_shape(op, block):
+    xv = _slot_var(op, block, "X", need_shape=True)
+    _set_shape(_slot_var(op, block, "sub_result", inputs=False), xv.shape)
+    _set_shape(_slot_var(op, block, "Out", inputs=False), (xv.shape[0], 1))
+
+
+def _infer_cos_sim_shape(op, block):
+    # the size-K form (Y holds K stacked vectors of X's width) yields K
+    # similarities a row, the plain form one
+    xv = _slot_var(op, block, "X", need_shape=True)
+    yv = _slot_var(op, block, "Y", need_shape=True)
+    if not xv.shape or not yv.shape or not xv.shape[-1]:
+        raise SkipInferShape
+    k = (1 if yv.shape[-1] == xv.shape[-1]
+         else yv.shape[-1] // xv.shape[-1])
+    _set_shape(_slot_var(op, block, "Out", inputs=False),
+               tuple(xv.shape[:-1]) + (k,))
+    _set_shape(_slot_var(op, block, "XNorm", inputs=False),
+               tuple(xv.shape[:-1]) + (1,))
+    _set_shape(_slot_var(op, block, "YNorm", inputs=False),
+               tuple(yv.shape[:-1]) + (k if k > 1 else 1,))
+
+
+def _infer_bilinear_shape(op, block):
+    xv = _slot_var(op, block, "X", need_shape=True)
+    wv = _slot_var(op, block, "Weight", need_shape=True)
+    _set_shape(_slot_var(op, block, "Out", inputs=False),
+               (xv.shape[0], wv.shape[0]))
+
+
+@register_op("squared_l2_distance", inputs=("X", "Y"),
+             outputs=("sub_result", "Out"),
+             infer_shape=_infer_squared_l2_distance_shape)
+def _squared_l2_distance(ctx):
+    x = unwrap(ctx.input("X"))
+    sub = x - broadcast_to_x(x, ctx.input("Y"), 0)
+    ctx.set_output("sub_result", sub)
+    ctx.set_output("Out", torch.sum(torch.square(sub), dim=tuple(
+        range(1, sub.ndim))).reshape(-1, 1))
+
+
+def _norm_last(v, keepdim):
+    return torch.sqrt(torch.sum(torch.square(v), dim=-1, keepdim=keepdim))
+
+
+@register_op("cos_sim", inputs=("X", "Y"), outputs=("Out", "XNorm", "YNorm"),
+             infer_shape=_infer_cos_sim_shape)
+def _cos_sim(ctx):
+    """Rows of X against rows of Y; where Y is K times X's width (the v1
+    CosSimLayer of size K), the K similarities of X against each."""
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    keep = y.shape[-1] == x.shape[-1]
+    if not keep:
+        k = y.shape[-1] // x.shape[-1]
+        y = y.reshape(y.shape[:-1] + (k, x.shape[-1]))
+        x = x[..., None, :]
+    xn, yn = _norm_last(x, keep), _norm_last(y, keep)
+    out = torch.sum(x * y, dim=-1, keepdim=keep) / (xn * yn + 1e-12)
+    ctx.set_output("Out", out)
+    ctx.set_output("XNorm", xn)
+    ctx.set_output("YNorm", yn)
+
+
+@register_op("minus", inputs=("X", "Y"), infer_shape=infer_same_shape)
+def _minus(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", rewrap(x, unwrap(x) - unwrap(ctx.input("Y"))))
+
+
+@register_op("bilinear_tensor_product", inputs=("X", "Y", "Weight", "Bias"),
+             infer_shape=_infer_bilinear_shape)
+def _bilinear_tensor_product(ctx):
+    """out[b, k] = x[b] W[k] y[b] (+ bias[k])."""
+    x = unwrap(ctx.input("X"))
+    y = unwrap(ctx.input("Y"))
+    out = torch.einsum("bm,kmn,bn->bk", x, unwrap(ctx.input("Weight")), y)
+    if ctx.has_input("Bias"):
+        out = out + unwrap(ctx.input("Bias"))
+    ctx.set_output("Out", out)

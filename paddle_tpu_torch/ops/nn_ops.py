@@ -1,5 +1,9 @@
-"""NN layer ops: conv2d, pool2d, batch_norm, softmax, dropout, lrn.  All
-NCHW, as in the JAX package's ``paddle_tpu/ops/nn_ops.py``.
+"""NN layer ops: conv2d, pool2d, batch_norm, softmax, dropout, lrn, and
+the module's tail: conv3d, conv2d_transpose, conv3d_transpose,
+bilinear_interp, crop, pad and maxout.  All NCHW, as in the JAX
+package's ``paddle_tpu/ops/nn_ops.py``.  The tail's convs are
+``lax.conv_*`` there, outside any Pallas kernel, so the library's convs
+here, their gradients the generic replay.
 
 Under AMP (``paddle_tpu_torch.amp``) conv2d casts its float32 operands
 to bf16 and writes bf16, and its grad brings each gradient back to its
@@ -78,39 +82,70 @@ def _nd(op, name, default, n):
     return v
 
 
-def _infer_conv2d_shape(op, block):
-    xv, ov = _io_vars(op, block, "Input", "Output")
-    if ov.shape is not None:
-        return
-    fs = op.inputs.get("Filter", [])
-    wv = block.find_var(fs[0]) if len(fs) == 1 and fs[0] else None
-    if (wv is None or wv.shape is None or len(xv.shape) != 4
-            or len(wv.shape) != 4):
-        raise SkipInferShape
-    strides = _nd(op, "strides", (1, 1), 2)
-    pads = _nd(op, "paddings", (0, 0), 2)
-    dils = _nd(op, "dilations", (1, 1), 2)
-    sp = tuple(_conv_extent(xv.shape[2 + i], wv.shape[2 + i], pads[i],
-                            strides[i], dils[i]) for i in range(2))
-    ov.shape = (xv.shape[0], wv.shape[0]) + sp
+def _make_conv_infer(spatial: int, transpose: bool = False):
+    """Output (N, O, ...) of an N-d conv; a transposed conv's filter is
+    (Cin, Cout, *k) and its extent (in - 1) s + 2 p - (k - 1) d + 1, what
+    the JAX op's ``lax.conv_transpose`` emits (its layer stamps the
+    Paddle extent at build time; this rule only backfills)."""
+
+    def infer(op, block):
+        xv, ov = _io_vars(op, block, "Input", "Output")
+        if ov.shape is not None:
+            return
+        fs = op.inputs.get("Filter", [])
+        wv = block.find_var(fs[0]) if len(fs) == 1 and fs[0] else None
+        if (wv is None or wv.shape is None or len(xv.shape) != 2 + spatial
+                or len(wv.shape) != 2 + spatial):
+            raise SkipInferShape
+        strides = _nd(op, "strides", (1,) * spatial, spatial)
+        pads = _nd(op, "paddings", (0,) * spatial, spatial)
+        dils = _nd(op, "dilations", (1,) * spatial, spatial)
+        sp = []
+        for i in range(spatial):
+            size, k = xv.shape[2 + i], wv.shape[2 + i]
+            if not transpose:
+                sp.append(_conv_extent(size, k, pads[i], strides[i],
+                                       dils[i]))
+                continue
+            out = (-1 if size < 0 else (size - 1) * strides[i]
+                   + 2 * pads[i] - (k - 1) * dils[i] + 1)
+            if size >= 0 and out < 1:
+                raise ValueError(f"conv_transpose output extent {out} < 1")
+            sp.append(out)
+        ov.shape = (xv.shape[0], wv.shape[1 if transpose else 0]) + tuple(sp)
+
+    return infer
 
 
-def _infer_pool2d_shape(op, block):
-    xv, ov = _io_vars(op, block, "X", "Out")
-    if len(xv.shape) != 4:
-        raise SkipInferShape
-    if ov.shape is not None:
-        return
-    if op.attr("global_pooling", False):
-        sp = (1, 1)
-    else:
-        ks = _nd(op, "ksize", (2, 2), 2)
-        st = _nd(op, "strides", (1, 1), 2)
-        pd = _nd(op, "paddings", (0, 0), 2)
-        ceil = op.attr("ceil_mode", False)
-        sp = tuple(pool_out_extent(xv.shape[2 + i], ks[i], pd[i], st[i],
-                                   ceil_mode=ceil) for i in range(2))
-    ov.shape = tuple(xv.shape[:2]) + sp
+def _make_pool_infer(spatial: int, default_strides=None, also=()):
+    """Output of an N-d pool (``default_strides`` "ksize" for the
+    with-index pools); the slots in ``also`` (a Mask) mirror Out."""
+
+    def infer(op, block):
+        xv, ov = _io_vars(op, block, "X", "Out")
+        if len(xv.shape) != 2 + spatial:
+            raise SkipInferShape
+        if ov.shape is None:
+            if op.attr("global_pooling", False):
+                sp = (1,) * spatial
+            else:
+                ks = _nd(op, "ksize", (2,) * spatial, spatial)
+                st = _nd(op, "strides", ks if default_strides == "ksize"
+                         else default_strides or (1,) * spatial, spatial)
+                pd = _nd(op, "paddings", (0,) * spatial, spatial)
+                ceil = op.attr("ceil_mode", False)
+                sp = tuple(pool_out_extent(xv.shape[2 + i], ks[i], pd[i],
+                                           st[i], ceil_mode=ceil)
+                           for i in range(spatial))
+            ov.shape = tuple(xv.shape[:2]) + sp
+        for slot in also:
+            extra = op.outputs.get(slot, [])
+            if len(extra) == 1 and extra[0]:
+                ev = block.find_var(extra[0])
+                if ev is not None and ev.shape is None:
+                    ev.shape = tuple(ov.shape)
+
+    return infer
 
 
 def _infer_batch_norm_shape(op, block):
@@ -185,7 +220,7 @@ def _conv2d_grad(ctx):
 
 
 @register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
-             infer_shape=_infer_conv2d_shape, grad_lower=_conv2d_grad)
+             infer_shape=_make_conv_infer(2), grad_lower=_conv2d_grad)
 def _conv2d(ctx):
     """NCHW conv, filter (O, I/groups, H, W).  The output is channels-last
     in memory on both paths (the kernel writes NHWC; ``F.conv2d`` gets a
@@ -209,7 +244,7 @@ def _conv2d(ctx):
     ctx.set_output("Output", out.to(out_dt))
 
 
-@register_op("pool2d", inputs=("X",), infer_shape=_infer_pool2d_shape)
+@register_op("pool2d", inputs=("X",), infer_shape=_make_pool_infer(2))
 def _pool2d(ctx):
     """Max/avg pooling with the JAX package's semantics: explicit
     padding (ceil_mode as extra high-side padding), then a window max or
@@ -499,3 +534,159 @@ def _lrn(ctx):
     out = (xt.float() / torch.pow(mid, beta)).to(x.dtype)
     ctx.set_output("MidOut", mid.permute(0, 3, 1, 2))
     ctx.set_output("Out", out.permute(0, 3, 1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's tail: 3-D and transposed convs (``lax.conv_*`` there,
+# no Pallas kernel: the library's convs here), resize, crop, pad, maxout
+# ---------------------------------------------------------------------------
+
+
+def _infer_maxout_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Out")
+    if ov.shape is not None or len(xv.shape) != 4:
+        raise SkipInferShape
+    groups = op.attr("groups", None)
+    if not groups:
+        raise SkipInferShape
+    n, c, h, w = xv.shape
+    if c >= 0 and c % groups != 0:
+        raise ValueError(f"maxout: channels {c} not divisible by "
+                         f"groups {groups}")
+    ov.shape = (n, c // groups if c >= 0 else -1, h, w)
+
+
+def _infer_pad_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Out")
+    if ov.shape is not None:
+        return
+    paddings = op.attr("paddings", None)
+    if not paddings or len(paddings) != 2 * len(xv.shape):
+        raise SkipInferShape
+    ov.shape = tuple(
+        -1 if d < 0 else d + paddings[2 * i] + paddings[2 * i + 1]
+        for i, d in enumerate(xv.shape))
+
+
+def _infer_bilinear_shape(op, block):
+    xv, ov = _io_vars(op, block, "X", "Out")
+    if ov.shape is not None or len(xv.shape) != 4:
+        raise SkipInferShape
+    oh, ow = op.attr("out_h", None), op.attr("out_w", None)
+    if not oh or not ow:
+        raise SkipInferShape
+    ov.shape = (xv.shape[0], xv.shape[1], int(oh), int(ow))
+
+
+def _nd_attr(ctx, name, default, n):
+    v = ctx.attr(name, default)
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
+
+
+@register_op("conv3d", inputs=("Input", "Filter"), outputs=("Output",),
+             infer_shape=_make_conv_infer(3))
+def _conv3d(ctx):
+    """NCDHW conv, filter (O, I/groups, D, H, W)."""
+    x = unwrap(ctx.input("Input"))
+    w = unwrap(ctx.input("Filter"))
+    out = F.conv3d(x, w.to(x.dtype), stride=_nd_attr(ctx, "strides", 1, 3),
+                   padding=_nd_attr(ctx, "paddings", 0, 3),
+                   dilation=_nd_attr(ctx, "dilations", 1, 3),
+                   groups=ctx.attr("groups", 1))
+    ctx.set_output("Output", out)
+
+
+def _conv_transpose(ctx, n):
+    """``lax.conv_transpose(..., transpose_kernel=True)`` with explicit
+    padding p: the filter (Cin, Cout, *k) is torch's transposed-conv
+    layout, and an extent of (in - 1) s + 2 p - (k - 1) d + 1 is torch's
+    with padding (k - 1) d - p; where that is negative the outer rows
+    are windows over padding alone, zeros."""
+    x = unwrap(ctx.input("Input"))
+    w = unwrap(ctx.input("Filter")).to(x.dtype)
+    strides = _nd_attr(ctx, "strides", 1, n)
+    pads = _nd_attr(ctx, "paddings", 0, n)
+    dils = _nd_attr(ctx, "dilations", 1, n)
+    tp = [(w.shape[2 + i] - 1) * dils[i] - pads[i] for i in range(n)]
+    fn = F.conv_transpose2d if n == 2 else F.conv_transpose3d
+    out = fn(x, w, stride=strides, padding=[max(p, 0) for p in tp],
+             dilation=dils)
+    grow = []
+    for p in reversed(tp):
+        grow += [max(-p, 0)] * 2
+    if any(grow):
+        out = F.pad(out, grow)
+    ctx.set_output("Output", out)
+
+
+@register_op("conv2d_transpose", inputs=("Input", "Filter"),
+             outputs=("Output",),
+             infer_shape=_make_conv_infer(2, transpose=True))
+def _conv2d_transpose(ctx):
+    _conv_transpose(ctx, 2)
+
+
+@register_op("conv3d_transpose", inputs=("Input", "Filter"),
+             outputs=("Output",),
+             infer_shape=_make_conv_infer(3, transpose=True))
+def _conv3d_transpose(ctx):
+    _conv_transpose(ctx, 3)
+
+
+@register_op("bilinear_interp", inputs=("X",),
+             infer_shape=_infer_bilinear_shape)
+def _bilinear_interp(ctx):
+    """``jax.image.resize(..., "bilinear")``: half-pixel centres, and a
+    triangle filter widened by the scale where a dim shrinks (its
+    antialiasing), in float32."""
+    x = unwrap(ctx.input("X"))
+    oh, ow = int(ctx.attr("out_h")), int(ctx.attr("out_w"))
+    shrink = oh < x.shape[2] or ow < x.shape[3]
+    out = F.interpolate(x.float(), size=(oh, ow), mode="bilinear",
+                        align_corners=False, antialias=shrink)
+    ctx.set_output("Out", out.to(x.dtype))
+
+
+@register_op("crop", inputs=("X", "Y"))
+def _crop(ctx):
+    """X cropped to a target shape from ``axis`` on (dims before it whole;
+    offsets default to 0), the target Y's shape or the ``shape`` attr."""
+    x = unwrap(ctx.input("X"))
+    axis = ctx.attr("axis", 0)
+    offsets = list(ctx.attr("offsets") or [])
+    if ctx.has_input("Y"):
+        tgt = list(unwrap(ctx.input("Y")).shape)
+        shape = tgt[axis:] if len(tgt) == x.ndim else tgt
+    else:
+        shape = list(ctx.attr("shape"))
+        if len(shape) == x.ndim:
+            axis = 0
+    if len(offsets) == x.ndim:
+        axis = 0
+    if not offsets:
+        offsets = [0] * len(shape)
+    if len(offsets) != len(shape):
+        raise ValueError(
+            f"crop: offsets rank {len(offsets)} != target rank "
+            f"{len(shape)} (axis={axis})")
+    sl = [slice(None)] * axis + [
+        slice(o, o + s) for o, s in zip(offsets, shape)]
+    ctx.set_output("Out", x[tuple(sl)])
+
+
+@register_op("pad", inputs=("X",), infer_shape=_infer_pad_shape)
+def _pad(ctx):
+    x = unwrap(ctx.input("X"))
+    p = ctx.attr("paddings")
+    cfg = []
+    for i in reversed(range(x.ndim)):
+        cfg += [p[2 * i], p[2 * i + 1]]
+    ctx.set_output("Out", F.pad(x, cfg, value=ctx.attr("pad_value", 0.0)))
+
+
+@register_op("maxout", inputs=("X",), infer_shape=_infer_maxout_shape)
+def _maxout(ctx):
+    x = unwrap(ctx.input("X"))
+    g = ctx.attr("groups")
+    n, c, h, w = x.shape
+    ctx.set_output("Out", torch.amax(x.reshape(n, c // g, g, h, w), dim=2))

@@ -1,13 +1,14 @@
 """Reduce ops (``paddle_tpu/ops/reduce_ops.py``): ``mean`` and
 ``reduce_sum``, ``reduce_mean``, ``reduce_max``, ``reduce_min`` with
-``dim``, ``keep_dim`` and ``reduce_all``.  Their gradients are the
-generic replay."""
+``dim``, ``keep_dim`` and ``reduce_all``, and ``l1_norm``.  Their
+gradients are the generic replay."""
 
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.lod import unwrap
+from paddle_tpu_torch.ops.common import absolute
 from paddle_tpu_torch.registry import SkipInferShape, register_op
 
 
@@ -78,3 +79,10 @@ for _n, _f in [
     ("reduce_min", torch.amin),
 ]:
     _reg_reduce(_n, _f)
+
+
+@register_op("l1_norm", inputs=("X",), infer_shape=_infer_scalar_shape)
+def _l1_norm(ctx):
+    """sum |x|, a rank-0 scalar; |x| with gradient 1 at 0, as ``jnp.abs``."""
+    x = unwrap(ctx.input("X"))
+    ctx.set_output("Out", torch.sum(absolute(x)).reshape(()))

@@ -5,7 +5,9 @@ copies the backward pass emits: assign, cast, fill_zeros_like
 (``:239-250``), and the transformer's split, reshape, transpose
 (``:291-324``) and lookup_table (``:352-406``), whose 1-D ids go through
 the gather kernel (``kernels/embedding.py``), and googlenet's concat
-(``:283-288``), and the loop counter's increment (``:277``).
+(``:283-288``), the loop counter's increment (``:277``), and the
+module's tail: expand, gather, scatter, shape, slice_tensor, one_hot and
+reverse (``:327-444``).
 
 The random ops draw from a ``torch.Generator``: the run's generator, or
 one seeded from the op's ``seed`` attr when that is set.  They never
@@ -366,3 +368,139 @@ def _concat(ctx):
     xs = ctx.inputs("X")
     out = torch.cat([unwrap(x) for x in xs], dim=ctx.attr("axis", 0))
     ctx.set_output("Out", rewrap(xs[0], out))
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's tail (``paddle_tpu/ops/tensor_ops.py:327-444``)
+# ---------------------------------------------------------------------------
+
+
+def _infer_expand_shape(op, block):
+    xv, ov = _one_in_out(op, block)
+    times = op.attr("expand_times", None)
+    # only the matched-rank tile; rank-promoting tiles stay dynamic
+    if not times or len(times) != len(xv.shape):
+        raise SkipInferShape
+    if ov.shape is None:
+        ov.shape = tuple(d * int(t) if d >= 0 else -1
+                         for d, t in zip(xv.shape, times))
+
+
+def _infer_gather_shape(op, block):
+    xv, ov = _one_in_out(op, block)
+    idxs = op.inputs.get("Index", [])
+    if len(idxs) != 1:
+        raise SkipInferShape
+    iv = _shape_var(block, idxs[0])
+    if iv.shape is None:
+        raise SkipInferShape
+    if ov.shape is None:
+        ov.shape = tuple(iv.shape) + tuple(xv.shape[1:])
+
+
+def _infer_scatter_shape(op, block):
+    rv, ov = _one_in_out(op, block, "Ref", "Out")
+    if ov.shape is None:
+        ov.shape = tuple(rv.shape)
+
+
+def _infer_shape_op_shape(op, block):
+    xv, ov = _one_in_out(op, block, "Input", "Out")
+    if ov.shape is None:
+        ov.shape = (len(xv.shape),)
+
+
+def _infer_one_hot_shape(op, block):
+    xv, ov = _one_in_out(op, block)
+    depth = op.attr("depth", None)
+    if not depth:
+        raise SkipInferShape
+    if ov.shape is None:
+        shape = tuple(xv.shape)
+        if shape and shape[-1] == 1:   # the trailing id dim is squeezed
+            shape = shape[:-1]
+        ov.shape = shape + (int(depth),)
+
+
+def one_hot(ids, depth: int):
+    """``jax.nn.one_hot``: float32 rows, an id outside [0, depth) a row of
+    zeros (``F.one_hot`` raises there)."""
+    return (ids.long()[..., None] == torch.arange(
+        depth, device=ids.device)).float()
+
+
+@register_op("expand", inputs=("X",), infer_shape=_infer_expand_shape)
+def _expand(ctx):
+    """``jnp.tile``: the shorter of X's shape and ``expand_times`` gains
+    leading ones."""
+    x = unwrap(ctx.input("X"))
+    times = list(ctx.attr("expand_times"))
+    times = [1] * (x.ndim - len(times)) + times
+    ctx.set_output("Out", x.repeat(*times))
+
+
+@register_op("gather", inputs=("X", "Index"), diff_inputs=("X",),
+             infer_shape=_infer_gather_shape)
+def _gather(ctx):
+    """``jnp.take(x, idx, axis=0)``: a negative index counts from the end,
+    and an index outside [-n, n) gives NaN rows (its ``fill`` mode; the
+    most negative value for an integer X, int32's for an int64 one, which
+    the JAX package holds as int32)."""
+    x = unwrap(ctx.input("X"))
+    idx = unwrap(ctx.input("Index")).long()
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    out = x[idx.clamp(0, max(n - 1, 0))]
+    fill = (float("nan") if x.is_floating_point() else torch.iinfo(
+        torch.int32 if x.dtype == torch.int64 else x.dtype).min)
+    ok = ok.reshape(ok.shape + (1,) * (out.ndim - ok.ndim))
+    ctx.set_output("Out", torch.where(ok, out, torch.full(
+        (), fill, dtype=x.dtype, device=x.device)))
+
+
+@register_op("scatter", inputs=("Ref", "Index", "Updates"),
+             diff_inputs=("Ref", "Updates"),
+             infer_shape=_infer_scatter_shape)
+def _scatter(ctx):
+    """``ref.at[idx].set(upd)``.  With a repeated index the row that wins
+    is not defined, there (XLA) or here (``index_put`` on CUDA)."""
+    ref = unwrap(ctx.input("Ref"))
+    idx = unwrap(ctx.input("Index")).long()
+    upd = unwrap(ctx.input("Updates")).to(ref.dtype)
+    ctx.set_output("Out", ref.index_put((idx,), upd))
+
+
+@register_op("shape", inputs=("Input",), stop_gradient=True,
+             infer_shape=_infer_shape_op_shape)
+def _shape(ctx):
+    x = unwrap(ctx.input("Input"))
+    ctx.set_output("Out", torch.tensor(list(x.shape), dtype=torch.int32,
+                                       device=x.device))
+
+
+@register_op("slice_tensor", inputs=("X",))
+def _slice_tensor(ctx):
+    x = unwrap(ctx.input("X"))
+    sl = [slice(None)] * x.ndim
+    for ax, st, en in zip(ctx.attr("axes"), ctx.attr("starts"),
+                          ctx.attr("ends")):
+        sl[ax] = slice(st, en)
+    ctx.set_output("Out", x[tuple(sl)])
+
+
+@register_op("one_hot", inputs=("X",), stop_gradient=True,
+             infer_shape=_infer_one_hot_shape)
+def _one_hot(ctx):
+    x = unwrap(ctx.input("X"))
+    if x.ndim and x.shape[-1] == 1:
+        x = x[..., 0]
+    ctx.set_output("Out", one_hot(x, int(ctx.attr("depth"))))
+
+
+@register_op("reverse", inputs=("X",), infer_shape=infer_same_shape)
+def _reverse(ctx):
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 0)
+    dims = list(axis) if isinstance(axis, (list, tuple)) else [axis]
+    ctx.set_output("Out", rewrap(x, torch.flip(unwrap(x), dims=dims)))

@@ -150,6 +150,9 @@ class LowerContext:
 
     # --- outputs -----------------------------------------------------------
 
+    def has_output(self, slot: str) -> bool:
+        return bool(self.op.output(slot))
+
     def set_output(self, slot: str, value):
         names = self.op.output(slot)
         if not names:

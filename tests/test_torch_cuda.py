@@ -46,6 +46,10 @@ at most twice the SIMT kernels' largest error.  The SelectedRows
 updates (``-k "sparse or rowwise"``): the merged sums, the updated rows
 and the sparse adam / adagrad outputs within 1e-6 of max of the CPU's
 (atomic adds in another order), row ids and untouched rows exactly.
+The fluid op tail (``-k "srl or nms or warpctc"``): the semantic-role
+tagger's costs within 1e-4 (relative) of the CPU's and its paths equal
+but at Viterbi near-ties, multiclass_nms exactly on equal inputs,
+warpctc's loss and gradient within 1e-4 of max.
 """
 
 import ctypes
@@ -3450,3 +3454,114 @@ def test_beam_search_ties_on_the_card(dev):
     np.testing.assert_array_equal(got[2], [[0, 0, 0, 1]] * b)
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_, w_)
+
+
+def _card_and_cpu(prog, feed, fetch, dev):
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    want = pt.Executor(pt.CPUPlace()).run(prog, feed=feed, fetch_list=fetch,
+                                          scope=pt.Scope())
+    got = pt.Executor(pt.CUDAPlace(0)).run(
+        prog, feed=chip_smoke._card_feed(feed, dev), fetch_list=fetch,
+        scope=pt.Scope())
+    return got, want
+
+
+def test_srl_tagger_on_the_card_matches_cpu(dev):
+    """``chip_smoke.build_srl`` at 2 layers (hidden 64) on CUDAPlace(0)
+    and CPUPlace() from the same weights, B 4: the two costs within 1e-4
+    (relative), the paths equal but at Viterbi near-ties (margin < 1e-4),
+    the LSTM kernels 2 + 2 a step, and chunk_eval's counts of the card's
+    paths equal on both places."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import lstm as klstm
+
+    cfg = dict(depth=2, word_dict=500, pred_dict=30, mark_dict=2,
+               word_dim=16, mark_dim=5, hidden=64, labels=67)
+    main, startup, cost, decode = chip_smoke.build_srl(pt, **cfg)
+    emission = next(op for op in main.global_block().ops
+                    if op.type == "crf_decoding").input("Emission")[0]
+    rng = np.random.RandomState(6)
+    feeds = [chip_smoke.srl_feed(rng, 4, lens=(3, 12), word_dict=500,
+                                 pred_dict=30, words=60) for _ in range(2)]
+    cpu, card = chip_smoke._cpu_and_card_scopes(startup, dev)
+    crfw = cpu.values["crfw"].numpy().copy()
+    fetch = [cost, decode, emission]
+    want = [pt.Executor(pt.CPUPlace()).run(main, feed=f, fetch_list=fetch,
+                                           scope=cpu) for f in feeds]
+    before = (klstm.launches, klstm.bwd_launches)
+    got = [pt.Executor(pt.CUDAPlace(0)).run(
+        main, feed=chip_smoke._card_feed(f, dev), fetch_list=fetch,
+        scope=card) for f in feeds]
+    assert (klstm.launches - before[0], klstm.bwd_launches - before[1]) \
+        == (4, 4)
+    for g, w in zip(got, want):
+        assert abs(float(g[0]) - float(w[0])) <= 1e-4 * abs(float(w[0]))
+    near = chip_smoke.viterbi_margins(
+        want[0][2], crfw, feeds[0]["length"].reshape(-1)) < 1e-4
+    differ = (np.asarray(got[0][1]) != np.asarray(want[0][1])).any(1)
+    assert not (differ & ~near).any()
+    prog, outs = chip_smoke.build_chunk_eval(pt)
+    cfeed = chip_smoke.chunk_feed(np.asarray(got[0][1]), feeds[0])
+    a, b = _card_and_cpu(prog, cfeed, outs, dev)
+    assert [np.asarray(v).tolist() for v in a[3:]] == \
+        [np.asarray(v).tolist() for v in b[3:]]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_multiclass_nms_on_the_card_equals_cpu(dev, ties):
+    """multiclass_nms on equal inputs: rows equal exactly on both places,
+    with runs of equal scores (the stable order) and more rounds than live
+    boxes (the early stop)."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(7)
+    M, C = 300, 5
+    lo = rng.rand(M, 2).astype(np.float32) * 0.8
+    boxes = np.concatenate([lo, lo + 0.05 + 0.15 * rng.rand(M, 2)], 1) \
+        .astype(np.float32)
+    scores = rng.rand(2, C, M).astype(np.float32)
+    if ties:
+        scores[:, 1, :50] = 0.5
+    feed = {"bb": np.repeat(boxes[None], 2, 0), "sc": scores}
+    prog, fetch = chip_smoke.op_program(
+        pt, "multiclass_nms", feed, {"BBoxes": "bb", "Scores": "sc"},
+        {"Out": ("float32", (2, 100, 6))},
+        {"score_threshold": 0.3, "nms_threshold": 0.45, "nms_top_k": 400,
+         "keep_top_k": 100})
+    (got,), (want,) = _card_and_cpu(prog, feed, fetch, dev)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["empty_label", "infeasible", "repeats"])
+def test_warpctc_edge_cases_on_the_card(dev, case):
+    """warpctc's loss and the logits' gradient on the card within 1e-4 of
+    max of the CPU's: an empty label (the all-blank path), an infeasible
+    alignment (-1e30 states: a loss near 1e30, a finite gradient) and
+    repeated labels."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(8)
+    B, T, C, S = 4, 12, 6, 5
+    lens = {"empty_label": [2, 0, 3, 0]}.get(case, [5, 3, 4, 1])
+    labels = np.zeros((B, S), np.int64)
+    for b in range(B):
+        labels[b, :lens[b]] = (2 if case != "empty_label"
+                               else rng.randint(1, C, lens[b]))
+    tl = [4 if case == "infeasible" else 12, 10, 12, 8]
+    feed = {"lg": rng.randn(B, T, C).astype(np.float32), "lb": labels,
+            "tl": np.asarray(tl, np.int64).reshape(-1, 1),
+            "ll": np.asarray(lens, np.int64).reshape(-1, 1)}
+    prog, fetch = chip_smoke.op_program(
+        pt, "warpctc", feed, {"Logits": "lg", "Label": "lb",
+                              "LogitsLength": "tl", "LabelLength": "ll"},
+        {"Loss": ("float32", (B, 1))}, {"blank": 0}, ("lg",))
+    got, want = _card_and_cpu(prog, feed, fetch, dev)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert np.isfinite(g).all()
+        assert float(np.abs(g - w).max()) <= 1e-4 * float(np.abs(w).max())
