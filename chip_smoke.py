@@ -98,6 +98,28 @@ seconds):
    launch counters, zeroed just before the requests, must read 46 conv,
    1 matmul and 1 softmax launches per forward batch served, every conv
    launch on the split-TF32 wgmma engine.
+3b. The serving path's operations on the same export: InferenceServer(
+   replicas=2, max_batch=32, warmup=True, tenants=OPS_TENANTS,
+   chaos="die@2", dispatch_timeout=OPS_DISPATCH_TIMEOUT), both replicas
+   on CUDAPlace(0).  One gold request, then gold and bronze at once (the
+   X-Tenant header and the "tenant" key), bronze past its burst; the
+   second dispatch dies and its batch is requeued.  Every over-quota
+   request gets 429 tenant_over_quota and launches nothing; every
+   admitted reply matches the CPU path as in phase 3.  /health says
+   degraded (replicas_down:1) while the dead replica is down and ok once
+   it is respawned on the card.  Then an injected hang on the surviving
+   original replica (OPS_HANG_S past the lease): the lease sweeps it and
+   its request is answered once, by another replica.  GET /metrics must
+   parse as Prometheus text and agree with what the phase did (deaths by
+   cause, restarts, requeued requests, responses by code, forwards in
+   serving_batch_size, plan-cache misses of every replica, fetched
+   bytes), GET /stats must be the same snapshot, launches 46 conv (all
+   on wgmma) + 1 matmul + 1 softmax per forward, device memory after
+   both respawns within one replica's parameters of its value before
+   the first death, and the Chrome trace must hold serving.predict,
+   executor.step and executor.compile.  Logs the telemetry write set's
+   cost, Executor.run at bucket 32 with telemetry and with trace_ops
+   (one record_function range per op) and the phase's wall time.
 4. Throughput of Executor.run at bucket 32 in-process, and where one
    forward's time goes (torch.profiler device time by kernel).
 5. Training parity: one step of the ResNet-50 training program
@@ -418,6 +440,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -772,6 +795,19 @@ IMAGE_DROPOUT_SIGMAS = 4.0
 # the plain versions at the image cells' shapes are checked once and
 # timed this many times (VGG-16's largest float32 conv is ~1 TFLOP a call)
 IMAGE_PLAIN_REPS = 2
+
+# phase 3b: two tenants (name:rate:burst:weight): gold unmetered in
+# practice, bronze with a burst of 2 and no refill within the phase
+OPS_TENANTS = "gold:1000:64:4,bronze:0.001:2:1"
+OPS_BRONZE_BURST = 2
+# the burst's requests: gold sizes, and bronze single images (two past
+# bronze's burst)
+OPS_GOLD_SIZES = (1, 3, 8, 2)
+OPS_BRONZE_REQUESTS = 4
+# the lease, and an injected hang well past it; the hung request's rows
+OPS_DISPATCH_TIMEOUT = 3.0
+OPS_HANG_S = 6.0
+OPS_HANG_ROWS = 4
 
 
 def log(*a):
@@ -2536,6 +2572,422 @@ def phase_serving(dev, model_dir, rng):
     log(f"replies match the CPU plain path: max abs err {worst:.3e} "
         f"(tolerance {PROBS_TOL}), argmax equal; max prob "
         f"{max(float(np.max(r['outputs'][0])) for r in replies):.4f}")
+    return launches, wgmma
+
+
+def post_as(base, images, tenant, via="header", timeout=600):
+    """(status, reply) of one POST /predict of ``images`` as ``tenant``,
+    named by the X-Tenant header or by the "tenant" key."""
+    payload = {"img": images.tolist()}
+    headers = {"Content-Type": "application/json"}
+    if via == "header":
+        headers["X-Tenant"] = tenant
+    else:
+        payload["tenant"] = tenant
+    req = urllib.request.Request(f"{base}/predict",
+                                 data=json.dumps(payload).encode(),
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_json(base, path, timeout=60):
+    with urllib.request.urlopen(f"{base}{path}", timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+_PROM_SAMPLE = re.compile(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text):
+    """{(name, ((label, value), ...)): value} of a Prometheus 0.0.4 text
+    scrape.  ValueError on a line that is neither a HELP or TYPE comment
+    nor a sample of a family a TYPE line declared before it."""
+    kinds, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if kind not in ("counter", "gauge", "histogram", "summary",
+                            "untyped"):
+                raise ValueError(f"unknown metric type: {line!r}")
+            kinds[name] = kind
+            continue
+        m = _PROM_SAMPLE.fullmatch(line)
+        if m is None:
+            raise ValueError(f"not a Prometheus sample: {line!r}")
+        name, body, value = m.groups()
+        family = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            stem = name[:-len(suffix)]
+            if name.endswith(suffix) and kinds.get(stem) == "histogram":
+                family = stem
+        if family not in kinds:
+            raise ValueError(f"sample of an undeclared family: {line!r}")
+        labels = ()
+        if body:
+            pairs = _PROM_LABEL.findall(body[1:-1])
+            if ",".join(f'{k}="{v}"' for k, v in pairs) != body[1:-1]:
+                raise ValueError(f"malformed labels: {line!r}")
+            labels = tuple(sorted(
+                (k, re.sub(r"\\(.)", lambda c: "\n" if c.group(1) == "n"
+                           else c.group(1), v)) for k, v in pairs))
+        samples[(name, labels)] = float(value)
+    return samples
+
+
+def prom_total(samples, name, **labels):
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    want = {(k, str(v)) for k, v in labels.items()}
+    return sum(v for (n, ls), v in samples.items()
+               if n == name and want <= set(ls))
+
+
+def phase_serving_ops(dev, model_dir, rng):
+    import gc
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.serving import (FaultInjector, InferenceServer,
+                                          ModelBundle, Replica,
+                                          bucket_ladder, next_bucket)
+
+    t_phase = time.perf_counter()
+    overhead_us = obs.measure_step_overhead() * 1e6
+    log(f"telemetry writes of one cached Executor.run on this host: "
+        f"{overhead_us:.2f} us (measure_step_overhead)")
+    obs.reset()
+    ladder = bucket_ladder(SERVE_BATCH)
+    t0 = time.perf_counter()
+    srv = InferenceServer(model_dir, replicas=2, max_batch=SERVE_BATCH,
+                          warmup=True, tenants=OPS_TENANTS, chaos="die@2",
+                          dispatch_timeout=OPS_DISPATCH_TIMEOUT)
+    base = f"http://{srv.address}"
+    pool = srv._pool
+    log(f"two replicas up on {srv.place!r}, ladder {list(ladder)} warmed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    replies, health_log, health_at, poll_errors = [], [], [], []
+    stop_polling = threading.Event()
+    poller = None
+    try:
+        places = [rep.exe.place for rep in pool.replicas]
+        if places != [pt.CUDAPlace(0)] * 2:
+            fail(f"the replicas sit on {places}, not CUDAPlace(0)")
+        if not srv.fault._armed:
+            fail("the --chaos spec was not armed after warmup")
+        misses = prom_total(parse_prometheus(obs.render_prometheus()),
+                            "executor_compile_cache_miss_total",
+                            source="plan")
+        if misses != 2 * len(ladder):
+            fail(f"{misses} plan-cache misses after warming two replicas, "
+                 f"not {2 * len(ladder)}")
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in pool.replicas[0].scope.values.values())
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+
+        def poll():
+            while not stop_polling.is_set():
+                try:
+                    h = get_json(base, "/health")
+                    health_log.append((h["status"], tuple(h["reasons"])))
+                    health_at.append(time.perf_counter())
+                except Exception as exc:  # reported below, fails the phase
+                    poll_errors.append(repr(exc))
+                stop_polling.wait(0.01)
+
+        def send(images, tenant, via):
+            code, body = post_as(base, images, tenant, via)
+            replies.append((images, tenant, code, body))
+
+        zero_counters()
+        # dispatch 1, alone; then the burst, whose first dispatch dies
+        send(rng.randn(2, 3, 224, 224).astype(np.float32), "gold", "header")
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        jobs = [(rng.randn(n, 3, 224, 224).astype(np.float32), "gold",
+                 ("header", "key")[i % 2])
+                for i, n in enumerate(OPS_GOLD_SIZES)]
+        jobs += [(rng.randn(1, 3, 224, 224).astype(np.float32), "bronze",
+                  ("key", "header")[i % 2])
+                 for i in range(OPS_BRONZE_REQUESTS)]
+        threads = [threading.Thread(target=send, args=job) for job in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            fail("a request of the burst did not return")
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and (
+                len(pool.replicas) != 2 or srv.degraded_reasons()):
+            time.sleep(0.05)
+        time.sleep(0.2)     # the poller reads the healed state
+        stop_polling.set()
+        poller.join(timeout=60)
+        if poll_errors or poller.is_alive():
+            fail(f"/health polls failed: {poll_errors[:3]}")
+        if srv.fault.fired != 1:
+            fail(f"die@2 fired {srv.fault.fired} times, not once")
+        seen = [s for s in health_log if s[0] == "degraded"]
+        if not seen or ("degraded", ("replicas_down:1",)) not in seen:
+            fail(f"/health never said degraded with replicas_down:1 while "
+                 f"a replica was down: {sorted(set(health_log))}")
+        if health_log[-1] != ("ok", ()):
+            fail(f"/health says {health_log[-1]} after the respawn")
+        down = [t for t, h in zip(health_at, health_log)
+                if h[0] == "degraded"]
+        log(f"/health over the death: {len(health_log)} polls, "
+            f"{len(seen)} degraded {sorted(set(seen))} over "
+            f"{down[-1] - down[0]:.3f} s, then ok")
+        places = [rep.exe.place for rep in pool.replicas]
+        if places != [pt.CUDAPlace(0)] * 2:
+            fail(f"the respawned replicas sit on {places}")
+
+        # one more bronze request, alone: refused before any launch
+        before = counters()
+        images = rng.randn(1, 3, 224, 224).astype(np.float32)
+        code, body = post_as(base, images, "bronze", "key")
+        replies.append((images, "bronze", code, body))
+        if (code, body.get("reason")) != (429, "tenant_over_quota"):
+            fail(f"the over-quota request got {code} {body}")
+        if counters() != before:
+            fail("an over-quota request moved the launch counters")
+
+        # a hang on the surviving original replica, past the lease
+        plans = {rep.index: len(rep.exe._cache) for rep in pool.replicas}
+        originals = [i for i in plans if i < 2]
+        if len(originals) != 1:
+            fail(f"live replicas {sorted(plans)} after one death")
+        hung = originals[0]
+        hang = FaultInjector("hang", replica=hung, hang_s=OPS_HANG_S)
+        pool.fault = hang
+        # no name of this frame may keep a replica (and its parameters)
+        # alive past its death
+        list(map(lambda r: setattr(r, "fault", hang), pool.replicas))
+        hang.arm()
+        for _ in range(20):
+            images = rng.randn(OPS_HANG_ROWS, 3, 224, 224).astype(np.float32)
+            t0 = time.perf_counter()
+            send(images, "gold", "header")
+            if hang.fired:
+                break
+        waited = time.perf_counter() - t0
+        if hang.fired != 1:
+            fail("the hang never fired on its replica")
+        if replies[-1][2] != 200 or not waited < OPS_HANG_S:
+            fail(f"the hung request got {replies[-1][2]} after "
+                 f"{waited:.2f} s (hang {OPS_HANG_S} s)")
+        log(f"replica {hung} hung: its request answered by another "
+            f"replica after {waited:.2f} s (lease {OPS_DISPATCH_TIMEOUT} "
+            f"s, hang {OPS_HANG_S} s)")
+        with pool._lock:
+            zombie = pool._threads[hung]
+        zombie.join(timeout=OPS_HANG_S + 120)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and (
+                len(pool.replicas) != 2 or srv.degraded_reasons()):
+            time.sleep(0.05)
+        if zombie.is_alive() or srv.degraded_reasons():
+            fail(f"after the hang: zombie alive {zombie.is_alive()}, "
+                 f"/health reasons {srv.degraded_reasons()}")
+        launches = counters()
+        wgmma = wgmma_counters()
+        # every replica's plans: the one that died at dispatch 2 had only
+        # its ladder, the hung one what it had before it hung (its late
+        # batch is a ladder shape), the live ones what they hold now
+        plans_end = {rep.index: len(rep.exe._cache)
+                     for rep in pool.replicas}
+        want_misses = len(ladder) + plans[hung] + sum(plans_end.values())
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        log(f"device memory: {mem_before / 2**20:.1f} MiB before the first "
+            f"death, {mem_after / 2**20:.1f} MiB after both respawns "
+            f"(one replica's parameters {param_bytes / 2**20:.1f} MiB)")
+        # the sound runs read within 2 MiB; one leaked scope adds a whole
+        # param_bytes, so a quarter of it lies between the two
+        if abs(mem_after - mem_before) > param_bytes / 4:
+            fail(f"a dead replica's scope was not freed: "
+                 f"{(mem_after - mem_before) / 2**20:+.1f} MiB, more than a "
+                 f"quarter of one replica's parameters")
+
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            ctype = r.headers["Content-Type"]
+            samples = parse_prometheus(r.read().decode())
+        stats = get_json(base, "/stats")
+        snap = json.loads(json.dumps(obs.snapshot()))
+        trace = obs.export_chrome_trace(os.path.join(
+            tempfile.mkdtemp(dir=os.path.dirname(model_dir)), "host.json"))
+    finally:
+        stop_polling.set()
+        srv.stop()
+    if ctype != "text/plain; version=0.0.4; charset=utf-8":
+        fail(f"/metrics content type {ctype!r}")
+
+    codes = [c for _, _, c, _ in replies]
+    n200, n429 = codes.count(200), codes.count(429)
+    bronze_ok = sum(1 for _, t, c, _ in replies if t == "bronze" and c == 200)
+    if n200 + n429 != len(replies) or bronze_ok != OPS_BRONZE_BURST:
+        fail(f"replies {codes}: bronze admitted {bronze_ok}, not "
+             f"{OPS_BRONZE_BURST}")
+    if any(t == "gold" and c != 200 for _, t, c, _ in replies):
+        fail(f"a gold request was refused: {codes}")
+    # serving_batch_size counts every dispatch, the one that died at its
+    # start (before any launch) too; the requeued requests ran solo, the
+    # hung one's among them, so the dead batch held the solo rows but the
+    # hung request's
+    rows_by = {ls: v for (n, ls), v in samples.items()
+               if n == "serving_batch_size_count"}
+    forwards = int(sum(rows_by.values())) - 1
+    solo_rows = prom_total(samples, "serving_batch_size_sum",
+                           bucket="unbatched")
+    dispatched = solo_rows + sum(
+        v * int(dict(ls)["bucket"]) for ls, v in rows_by.items()
+        if dict(ls)["bucket"] != "unbatched")
+    dispatched -= next_bucket(int(solo_rows) - OPS_HANG_ROWS)
+    requeued = prom_total(samples, "serving_requeued_total")
+    checks = {
+        "deaths injected": (prom_total(samples,
+                                       "serving_replica_deaths_total",
+                                       cause="injected"), 1),
+        "deaths hang": (prom_total(samples, "serving_replica_deaths_total",
+                                   cause="hang"), 1),
+        "deaths in all": (prom_total(samples,
+                                     "serving_replica_deaths_total"), 2),
+        "restarts": (prom_total(samples, "serving_replica_restarts_total"),
+                     2),
+        # each requeued request redispatched once, solo
+        "requeued, redispatched": (prom_total(
+            samples, "serving_unbatched_total", reason="requeued"),
+            requeued),
+        "responses 200": (prom_total(samples, "serving_responses_total",
+                                     code="200"),
+                          n200 + len(health_log)),
+        "responses 429": (prom_total(samples, "serving_responses_total",
+                                     code="429"), n429),
+        "rejected bronze": (prom_total(samples, "serving_rejected_total",
+                                       reason="tenant_over_quota",
+                                       tenant="bronze"), n429),
+        "plan-cache misses": (prom_total(
+            samples, "executor_compile_cache_miss_total", source="plan"),
+            want_misses),
+        "fetched bytes": (prom_total(
+            samples, "executor_fetch_device_to_host_bytes_total"),
+            4000 * (2 * sum(ladder) + dispatched)),
+        "conv launches": (launches["conv2d_nhwc"], 46 * forwards),
+        "conv launches on wgmma": (wgmma["conv2d_nhwc"], 46 * forwards),
+        "matmul launches": (launches["matmul"], forwards),
+        "softmax launches": (launches["softmax"], forwards),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or requeued < 2:
+        fail(f"/metrics or the counters disagree with the phase (got, "
+             f"want): {bad}; requeued {requeued}")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("conv2d_nhwc", "matmul", "softmax")}
+    if others:
+        fail(f"unexpected launches on the serving path: {others}")
+    log(f"/metrics agrees: {forwards} forwards, {requeued:g} requeued, "
+        + ", ".join(f"{k} {v[0]:g}" for k, v in checks.items()))
+    # /stats is the snapshot the scrape rendered; the /stats reply itself
+    # counts one more 200 after its snapshot was taken
+    resp = snap.pop("serving_responses_total")
+    stats_resp = stats.pop("serving_responses_total")
+    for v in resp["values"]:
+        if v["labels"] == {"code": "200"}:
+            v["value"] -= 1
+    if stats != snap or stats_resp != resp:
+        fail("GET /stats is not the registry's snapshot")
+    for (name, ls), v in samples.items():
+        fam = stats.get(name)
+        if fam is not None and fam["type"] != "histogram" and not any(
+                c["labels"] == dict(ls) and c["value"] == v
+                for c in fam["values"]):
+            fail(f"/metrics {name}{dict(ls)} {v} is not in /stats")
+    with open(trace) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    if not {"serving.predict", "executor.step", "executor.compile"} <= names:
+        fail(f"the Chrome trace holds {sorted(names)}")
+
+    # the admitted replies against the CPU path
+    ref = Replica(ModelBundle(model_dir), 0, pt.CPUPlace())
+    worst = 0.0
+    for i, (images, _, code, body) in enumerate(replies):
+        if code != 200:
+            continue
+        got = np.asarray(body["outputs"][0], np.float32)
+        (cpu,) = ref.run({"img": images})
+        if got.shape != (len(images), 1000) or not np.isfinite(got).all():
+            fail(f"reply {i}: shape {got.shape} or non-finite values")
+        worst = max(worst, float(np.abs(got - cpu).max()))
+        if not np.allclose(got, cpu, **PROBS_TOL) or not (
+                got.argmax(1) == cpu.argmax(1)).all():
+            fail(f"reply {i}: card vs CPU differ by {worst:.3e} or in "
+                 f"argmax (tolerance {PROBS_TOL})")
+    log(f"{n200} admitted replies match the CPU path: max abs err "
+        f"{worst:.3e} (tolerance {PROBS_TOL}); {n429} refused with 429")
+    del ref
+
+    # Executor.run at bucket 32 with telemetry, then with trace_ops
+    rep = Replica(ModelBundle(model_dir), 0)
+    prog = rep.bundle.program
+    label = prog.fingerprint()[:12]
+    x = torch.randn(SERVE_BATCH, 3, 224, 224, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+
+    def median_run():
+        for _ in range(3):
+            rep.run({"img": x})
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            rep.run({"img": x})     # returns numpy: ends in a device sync
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    def plan_misses():
+        return prom_total(parse_prometheus(obs.render_prometheus()),
+                          "executor_compile_cache_miss_total", program=label)
+
+    plain_ms = median_run()
+    op_types = [op.type for op in prog.global_block().ops
+                if op.type not in ("feed", "fetch")]
+    try:
+        FLAGS.set("trace_ops", True)
+        before = plan_misses()
+        rep.run({"img": x})
+        first_missed = plan_misses() - before
+        traced_ms = median_run()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            rep.run({"img": x})
+        ranges = [e.name for e in prof.events() if e.name in set(op_types)]
+    finally:
+        FLAGS.set("trace_ops", False)
+    if first_missed != 1 or plan_misses() - before != 1:
+        fail(f"trace_ops: the first traced run missed {first_missed} "
+             "times, and later ones must hit")
+    if sorted(ranges) != sorted(op_types):
+        fail(f"trace_ops: {len(ranges)} record_function ranges for "
+             f"{len(op_types)} ops")
+    log(f"Executor.run at bucket {SERVE_BATCH}, median of 10: "
+        f"{plain_ms:.3f} ms with telemetry (writes {overhead_us:.2f} us, "
+        f"{100 * overhead_us / 1e3 / plain_ms:.4f}% of it); "
+        f"{traced_ms:.3f} ms with trace_ops ({len(ranges)} ranges, "
+        f"{(traced_ms - plain_ms) * 1e3 / len(ranges):+.2f} us an op)")
+    log(f"phase 3b wall time {time.perf_counter() - t_phase:.1f} s")
     return launches, wgmma
 
 
@@ -8219,6 +8671,8 @@ def main():
         del exe, scope
         serve_launches, serve_wgmma = timed(phase_serving, dev, model_dir,
                                             rng)
+        ops_launches, ops_wgmma = timed(phase_serving_ops, dev, model_dir,
+                                        rng)
         img_per_s = timed(phase_throughput, dev, model_dir)
 
     timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
@@ -8307,6 +8761,7 @@ def main():
     by_path = {"train_step": train["launches"],
                "amp_train_step": amp_train["launches"],
                "serving": serve_launches,
+               "serving_ops": ops_launches,
                "transformer_train_step": tf["launches"],
                "transformer_amp_train_step": tf_amp["launches"],
                "lstm_train_step": lstm["launches"],
@@ -8343,6 +8798,7 @@ def main():
     # the matmul and conv launches on a wgmma engine, per path (the rest of
     # each path's launches ran on the SIMT or the mma.sync tile)
     wgmma_by_path = {"serving": serve_wgmma,
+                     "serving_ops": ops_wgmma,
                      "train_step": train["wgmma"],
                      "amp_train_step": amp_train["wgmma"],
                      "transformer_train_step": tf["wgmma"],

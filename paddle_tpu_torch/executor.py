@@ -36,20 +36,34 @@ backward's products) round like the kernels do.
 AMP (``paddle_tpu_torch.amp``) is read once per run: the forward ops and
 the grad ops of one run see the same state, and the plan cache is keyed
 on it, as the JAX Executor's compile cache is.
+
+Every run records the JAX Executor's seven metric families, with its
+names and label keys (``paddle_tpu_torch.observability``), labelled by
+``program``, the first 12 hex digits of ``Program.fingerprint()``.  A
+plan-cache miss or hit counts with ``source="plan"``: the port builds an
+op plan where the JAX package traces and compiles.  ``executor_step_seconds``
+is host dispatch (CUDA runs asynchronously); ``executor_fetch_seconds``
+holds the device-to-host sync.  ``FLAGS.trace_ops`` runs each op inside
+``torch.profiler.record_function(op.type)`` and keys the plan cache;
+``FLAGS.check_program`` raises, since the static verifier is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import amp, framework
+from paddle_tpu_torch.flags import FLAGS
 from paddle_tpu_torch.framework import Place, Program, Variable
 from paddle_tpu_torch.lod import LoDArray, LoDRankTable, create_lod_array
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability.events import GLOBAL_EVENTS as _EVENTS
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import LowerContext, OpRegistry
 from paddle_tpu_torch.sparse import SparseGrad
@@ -57,8 +71,77 @@ from paddle_tpu_torch.tensor_array import TensorArray
 
 
 # ---------------------------------------------------------------------------
+# Telemetry: the JAX Executor's families (paddle_tpu/executor.py:59-84),
+# keyed by program fingerprint so GET /metrics attributes cost per program
+# ---------------------------------------------------------------------------
+
+_M_CACHE_MISS = _metrics.counter(
+    "executor_compile_cache_miss_total",
+    "Executor.run plan-cache misses, by how the plan was produced "
+    "(source=plan: the block's ops classified into a run plan)")
+_M_CACHE_HIT = _metrics.counter(
+    "executor_compile_cache_hit_total",
+    "Executor.run plan-cache hits (cached run plan reused), labeled by "
+    "the plan's source (plan)")
+_M_COMPILE_SEC = _metrics.histogram(
+    "executor_compile_seconds",
+    "wall time per plan-cache miss: the plan build",
+    buckets=_metrics.COMPILE_TIME_BUCKETS)
+_M_FEED_SEC = _metrics.histogram(
+    "executor_feed_convert_seconds",
+    "host-side feed-dict conversion time per run")
+_M_STEP_SEC = _metrics.histogram(
+    "executor_step_seconds",
+    "step dispatch wall time on the host (CUDA runs asynchronously; "
+    "cached='miss' rows follow a plan build)")
+_M_FETCH_SEC = _metrics.histogram(
+    "executor_fetch_seconds",
+    "fetch materialization (device->host sync) time per run")
+_M_FETCH_BYTES = _metrics.counter(
+    "executor_fetch_device_to_host_bytes_total",
+    "bytes copied device->host materializing return_numpy fetches")
+
+#: Where the port's static verifier will come from (ROADMAP Queue 1).
+_CHECK_PROGRAM_ITEM = (
+    "paddle_tpu_torch: FLAGS.check_program needs the static verifier "
+    "(analysis/), which ROADMAP Queue 1 item 3 queues behind CUDA graphs "
+    "and the rest of the executor; unset the flag to run unverified")
+
+
+def _fetch_nbytes(v) -> int:
+    """Host bytes a fetch converted to numpy occupies."""
+    if isinstance(v, LoDArray):
+        return v.data.nbytes + sum(o.nbytes for o in v.lod)
+    if isinstance(v, SparseGrad):
+        return v.rows.nbytes + v.values.nbytes
+    if isinstance(v, TensorArray):
+        return v.stack.nbytes + v.length.nbytes
+    return getattr(v, "nbytes", 0)
+
+
+# ---------------------------------------------------------------------------
 # Scope
 # ---------------------------------------------------------------------------
+
+
+class _VarHolder:
+    """``scope.var(name).get_tensor()``, as the reference's scope offers
+    it."""
+
+    def __init__(self, scope: "Scope", name: str):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self):
+        return self._scope.values.get(self._name)
+
+    def set(self, value, place=None):
+        """Store ``value`` as a tensor on ``place`` (``CUDAPlace(0)``
+        unless the caller passes another)."""
+        device = framework.resolve_place(place).device()
+        self._scope.values[self._name] = (
+            value.to(device) if isinstance(value, torch.Tensor)
+            else tensor_from_numpy(value, device))
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -87,6 +170,22 @@ class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self.parent = parent
         self.values: Dict[str, Any] = {}
+
+    def new_scope(self) -> "Scope":
+        # the child links to its parent only: a scope left by
+        # leave_local_scope is freed with its tensors
+        return Scope(self)
+
+    def var(self, name: str) -> _VarHolder:
+        return _VarHolder(self, name)
+
+    def find_var(self, name: str) -> Optional[_VarHolder]:
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s.values:
+                return _VarHolder(s, name)
+            s = s.parent
+        return None
 
     def get(self, name: str, default=None):
         s: Optional[Scope] = self
@@ -319,17 +418,33 @@ class Executor:
         fetch_names = tuple(
             v.name if isinstance(v, Variable) else str(v)
             for v in (fetch_list or []))
+        if FLAGS.get("check_program"):
+            raise NotImplementedError(_CHECK_PROGRAM_ITEM)
         block = program.global_block()
+        fp = program.cache_key()
+        prog_label = fp[:12]
+
+        t_feed = time.perf_counter()
         feed_vals = {name: _convert_feed(v, block.find_var(name), self.device)
                      for name, v in feed.items()}
+        _M_FEED_SEC.observe(time.perf_counter() - t_feed, program=prog_label)
 
         amp_on = amp.is_enabled()
-        key = (program.cache_key(), _feed_signature(feed_vals), fetch_names,
-               self.place, amp_on)
+        trace_ops = bool(FLAGS.get("trace_ops"))
+        key = (fp, _feed_signature(feed_vals), fetch_names, self.place,
+               amp_on, trace_ops)
         plan = self._cache.get(key)
-        if plan is None:
-            plan = self._classify(program, feed_vals, fetch_names)
+        cache_hit = plan is not None
+        if cache_hit:
+            _M_CACHE_HIT.inc(program=prog_label, source="plan")
+        else:
+            _M_CACHE_MISS.inc(program=prog_label, source="plan")
+            t_plan = time.perf_counter()
+            with _EVENTS.span("executor.compile", program=prog_label):
+                plan = self._classify(program, feed_vals, fetch_names)
             self._cache[key] = plan
+            _M_COMPILE_SEC.observe(time.perf_counter() - t_plan,
+                                   program=prog_label)
 
         values: Dict[str, Any] = {}
         missing = []
@@ -354,17 +469,37 @@ class Executor:
 
         math = (_f32_math() if self.device.type == "cuda"
                 else contextlib.nullcontext())
+        tag = "hit" if cache_hit else "miss"
+        ev_t0 = _EVENTS.now()
+        t_step = time.perf_counter()
         with torch.no_grad(), math, amp.amp_guard(amp_on):
             for op, info, release in plan.ops:
-                info.lower(LowerContext(op, values, self.device, generator))
+                ctx = LowerContext(op, values, self.device, generator)
+                if trace_ops:
+                    with torch.profiler.record_function(op.type):
+                        info.lower(ctx)
+                else:
+                    info.lower(ctx)
                 for n in release:
                     values.pop(n, None)
+        dt_step = time.perf_counter() - t_step
+        _M_STEP_SEC.observe(dt_step, program=prog_label, cached=tag)
+        _EVENTS.complete("executor.step", ev_t0, dt_step,
+                         program=prog_label, cached=tag)
         for n in plan.written_names:
             scope.set(n, values[n])
         fetches = [values[n] for n in plan.fetch_names]
-        if return_numpy:
-            return [_to_numpy(v) for v in fetches]
-        return fetches
+        if not return_numpy:
+            return fetches
+        t_fetch = time.perf_counter()
+        out = [_to_numpy(v) for v in fetches]
+        if out:
+            _M_FETCH_SEC.observe(time.perf_counter() - t_fetch,
+                                 program=prog_label)
+            nbytes = sum(_fetch_nbytes(v) for v in out)
+            if nbytes:
+                _M_FETCH_BYTES.inc(nbytes, program=prog_label)
+        return out
 
     @staticmethod
     def _classify(program: Program, feed_vals: Dict[str, Any],

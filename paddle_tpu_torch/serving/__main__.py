@@ -4,13 +4,23 @@ HTTP:
     python -m paddle_tpu_torch.serving --model_dir=DIR [--port=N]
         [--replicas=N] [--max_batch=N] [--batch_timeout_ms=MS] [--warmup]
         [--request_timeout=SECONDS] [--max_inflight=N] [--cpu]
+        [--tenants=NAME:RATE[:BURST[:WEIGHT]],...] [--tenant_config=FILE]
+        [--max_attempts=N] [--replica_heartbeat_ms=MS]
+        [--dispatch_timeout=SECONDS] [--chaos=KIND[@N[:rIDX]]]
     python -m paddle_tpu_torch.serving --gen_config=SCRIPT [--port=N]
         [--gen_slots=N] [--gen_queue=N] [--gen_max_tokens=N]
         [--prefix_cache] [--prefix_cache_pages=N] [--spec_draft=ngram]
         [--spec_k=K] [--beam_max=K] [--request_timeout=SECONDS]
 
 The counterpart of ``paddle serve``.  ``--model_dir`` mounts
-``/predict``, on CUDA card 0 unless ``--cpu`` is given.
+``/predict``, on CUDA card 0 unless ``--cpu`` is given.  ``--tenants``
+gives each named tenant a token-bucket quota and a fair-queue weight
+(a ``*`` entry templates unknown tenants); ``--tenant_config`` reads the
+same from a JSON file (``{"A": {"rate": 100, "burst": 20, "weight":
+4}, ...}``) or from a file of one ``NAME:RATE...`` entry a line.
+``--chaos`` arms a fault injector after warmup (``die``, ``raise`` or
+``hang`` on the Nth dispatch).  ``--artifacts`` (AOT executables)
+raises: the port has no AOT yet.
 ``--gen_config`` mounts ``/generate``: SCRIPT is executed and must
 define ``make_decode_model()`` returning a paged decoder LM (a
 ``paddle_tpu_torch.decode.model.TinyDecoderLM``, which picks its own
@@ -23,6 +33,7 @@ until interrupted.
 from __future__ import annotations
 
 import argparse
+import json
 import threading
 
 from paddle_tpu_torch.framework import CPUPlace
@@ -60,6 +71,20 @@ def load_generator(args):
         spec_k=args.spec_k, beam_max=args.beam_max)
 
 
+def tenant_spec(args):
+    """``--tenant_config``'s JSON dict, or its ``NAME:RATE...`` lines
+    joined as a ``--tenants`` spec; else ``--tenants``."""
+    if not args.tenant_config:
+        return args.tenants
+    with open(args.tenant_config) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return ",".join(ln.strip() for ln in text.splitlines()
+                        if ln.strip() and not ln.startswith("#"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.serving")
     ap.add_argument("--model_dir", default=None)
@@ -73,6 +98,19 @@ def main(argv=None) -> int:
     ap.add_argument("--max_inflight", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="run /predict on the CPU instead of CUDA card 0")
+    ap.add_argument("--tenants", default=None,
+                    help="NAME:RATE[:BURST[:WEIGHT]],... token-bucket "
+                    "quotas and fair-queue weights")
+    ap.add_argument("--tenant_config", default=None,
+                    help="a JSON file of tenants (or one spec a line)")
+    ap.add_argument("--max_attempts", type=int, default=3)
+    ap.add_argument("--replica_heartbeat_ms", type=float, default=1000.0)
+    ap.add_argument("--dispatch_timeout", type=float, default=None)
+    ap.add_argument("--chaos", default=None,
+                    help="KIND[@N[:rIDX]]: die, raise or hang on the Nth "
+                    "dispatch after warmup")
+    ap.add_argument("--artifacts", default=None,
+                    help="AOT executables to boot from (not ported: raises)")
     ap.add_argument("--gen_config", default=None,
                     help="script defining make_decode_model(): mounts "
                     "POST /generate")
@@ -94,7 +132,11 @@ def main(argv=None) -> int:
         max_inflight=args.max_inflight, replicas=args.replicas,
         max_batch=args.max_batch, batch_timeout_ms=args.batch_timeout_ms,
         warmup=args.warmup, place=CPUPlace() if args.cpu else None,
-        generator=generator)
+        generator=generator, tenants=tenant_spec(args),
+        max_attempts=args.max_attempts,
+        replica_heartbeat_ms=args.replica_heartbeat_ms,
+        dispatch_timeout=args.dispatch_timeout, chaos=args.chaos,
+        artifacts=args.artifacts)
     print(f"serving on http://{srv.address}", flush=True)
     try:
         threading.Event().wait()

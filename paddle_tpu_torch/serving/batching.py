@@ -1,5 +1,5 @@
 """Bucketed request coalescing for the serving engine
-(``paddle_tpu/serving/batching.py``, single-tenant).
+(``paddle_tpu/serving/batching.py``).
 
 Concurrent ``/predict`` requests are coalesced into one padded batch at
 power-of-two bucket shapes.  A worker that frees up takes whatever
@@ -9,15 +9,28 @@ single-request latency and heavy traffic shares one dispatch.
 - ``BatchSpec`` decides from the program's shape metadata whether rows
   can be coalesced at all (every feed and fetch batch-major: leading
   dim -1, static trailing dims, lod_level 0).  Programs that fail the
-  test still serve; each request then runs alone at its own shape.
-- ``PendingRequest`` is one waiter: feeds, row count, deadline and a
-  completion event.
-- ``RequestQueue`` hands replicas dispatch groups in arrival order, up
-  to ``max_batch`` rows, optionally lingering ``batch_timeout`` seconds
-  to fill a bucket, and expires requests whose deadline passed while
-  queued.
+  test still serve; each request then runs alone at its own shape, and
+  ``code`` names the reason in ``serving_unbatched_total{reason}``.
+- ``PendingRequest`` is one waiter: feeds, row count, deadline, tenant,
+  dispatch attempts (the supervised pool requeues a dead replica's
+  batch) and a completion event.
+- ``RequestQueue`` hands replicas dispatch groups up to ``max_batch``
+  rows, optionally lingering ``batch_timeout`` seconds to fill a
+  bucket, and expires requests whose deadline passed while queued.
 - ``coalesce``/``scatter`` pad rows up to the bucket by repeating the
   last real row and slice each fetch back to its waiter.
+
+Tenants: ``TenantQuota`` is a per-tenant token bucket (``rate`` tokens
+a second, capped at ``burst``) with a fair-share ``weight``;
+``TenantRegistry`` holds the configured tenants and a ``"*"`` template
+for tenants first seen at run time.  An over-quota submission raises
+``TenantOverQuota`` (HTTP 429).  Dequeue is weighted-fair: a request's
+virtual finish time is ``vft = max(tenant_vft, queue_vclock) +
+rows / weight`` and ``take()`` serves in vft order, so under saturation
+each tenant's share converges to its weight, while a lone tenant sees
+plain FIFO.  Past ``shed_watermark`` queued requests the queue sheds
+the tenants below the top weight (``QueueShed`` ``shed_low_weight``,
+HTTP 503), and everyone at twice it (``queue_collapse``).
 """
 
 from __future__ import annotations
@@ -27,6 +40,188 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from paddle_tpu_torch.observability import metrics as _metrics
+_M_QUEUE_WAIT = _metrics.histogram(
+    "serving_queue_wait_seconds",
+    "time a request spends queued before a replica takes it")
+_M_BATCH_ROWS = _metrics.histogram(
+    "serving_batch_size",
+    "coalesced request rows per executed batch "
+    "(label bucket = padded rows dispatched, 'unbatched' = solo path)",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0))
+_M_UNBATCHED = _metrics.counter(
+    "serving_unbatched_total",
+    "solo-fallback dispatches by reason (the BatchSpec disabled() "
+    "family: lod_feed/lod_fetch/not_batch_major/... when the model "
+    "cannot batch at all, shape_mismatch when this request's shapes "
+    "did not fit an otherwise batchable model, requeued when a "
+    "replica death sent the request back for solo redispatch)")
+_M_TENANT_DEPTH = _metrics.gauge(
+    "serving_tenant_queue_depth",
+    "queued requests per tenant (weighted-fair scheduling input)")
+
+#: Tenant id used when a request names none (no X-Tenant header, no
+#: "tenant" payload key).
+DEFAULT_TENANT = "default"
+
+
+class TenantOverQuota(RuntimeError):
+    """The tenant's token bucket is empty — HTTP 429, their burst
+    degrades *their* latency instead of starving other tenants."""
+
+    def __init__(self, tenant: str, message: str):
+        super().__init__(message)
+        self.tenant = tenant
+
+
+class QueueShed(RuntimeError):
+    """Load-shedding admission refusal under sustained queue pressure
+    (HTTP 503): ``reason`` is ``shed_low_weight`` (lowest-weight
+    tenants go first) or ``queue_collapse`` (everyone, at twice the
+    watermark)."""
+
+    def __init__(self, reason: str, message: str):
+        super().__init__(message)
+        self.reason = reason
+
+
+class RetryExhausted(RuntimeError):
+    """A request burned its dispatch-attempt budget (every attempt
+    killed or lost a replica) and is quarantined — HTTP 503 naming the
+    reason, never an infinite redispatch of a poison batch."""
+
+    reason = "retry_exhausted"
+
+
+class TenantQuota:
+    """One tenant's admission policy: token bucket + fair-share weight.
+
+    ``rate`` is tokens (requests) per second, ``burst`` the bucket
+    capacity; ``rate=None`` means unmetered (the bucket never empties).
+    Refill is lazy (computed from elapsed wall time at each take) and
+    clamped at ``burst``, so an idle tenant's unused tokens never
+    accumulate past one burst.
+    """
+
+    __slots__ = ("name", "rate", "burst", "weight", "tokens", "_last",
+                 "vft")
+
+    def __init__(self, name: str, rate: Optional[float] = None,
+                 burst: Optional[float] = None, weight: float = 1.0):
+        self.name = name
+        self.rate = float(rate) if rate else None
+        if self.rate is not None and self.rate <= 0:
+            raise ValueError(f"tenant {name!r}: rate must be > 0")
+        self.burst = float(burst) if burst is not None else (
+            max(self.rate, 1.0) if self.rate is not None else 0.0)
+        if self.rate is not None and self.burst < 1.0:
+            raise ValueError(f"tenant {name!r}: burst must be >= 1")
+        self.weight = float(weight)
+        if self.weight <= 0:
+            raise ValueError(f"tenant {name!r}: weight must be > 0")
+        self.tokens = self.burst
+        self._last = time.monotonic()
+        self.vft = 0.0                 # fair-queue virtual finish time
+
+    def available(self, now: Optional[float] = None) -> float:
+        """Tokens in the bucket right now (refilled, burst-capped)."""
+        if self.rate is None:
+            return float("inf")
+        now = time.monotonic() if now is None else now
+        self.tokens = min(self.burst,
+                          self.tokens + (now - self._last) * self.rate)
+        self._last = now
+        return self.tokens
+
+    def try_take(self, now: Optional[float] = None, n: float = 1.0) -> bool:
+        if self.rate is None:
+            return True
+        if self.available(now) < n:
+            return False
+        self.tokens -= n
+        return True
+
+
+class TenantRegistry:
+    """The configured tenants plus a ``"*"`` template for unknown ones.
+
+    Config shape (``--tenant_config`` JSON / ``InferenceServer``
+    ``tenants=`` dict)::
+
+        {"A": {"rate": 100, "burst": 20, "weight": 4},
+         "B": {"rate": 50, "weight": 1},
+         "*": {"rate": 10, "burst": 10}}
+
+    or the compact ``--tenants`` form ``A:100:20:4,B:50::1,*:10:10``
+    (``name:rate[:burst[:weight]]``, ``-`` or empty = default).  A
+    tenant id never configured inherits the ``"*"`` template (default:
+    unmetered, weight 1) — multi-tenancy is opt-in per tenant, not a
+    registration wall.
+    """
+
+    def __init__(self, config: Optional[Dict[str, dict]] = None):
+        self._lock = threading.Lock()
+        self._tenants: Dict[str, TenantQuota] = {}
+        cfg = dict(config or {})
+        self._template = cfg.pop("*", {})
+        for name, spec in cfg.items():
+            self._tenants[name] = TenantQuota(name, **spec)
+
+    @classmethod
+    def parse(cls, compact: str) -> "TenantRegistry":
+        """``A:100:20:4,B:50``  ->  name:rate[:burst[:weight]]."""
+        config: Dict[str, dict] = {}
+        for item in compact.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            parts = item.split(":")
+            name = parts[0]
+            if not name:
+                raise ValueError(f"tenant spec {item!r} names no tenant")
+            spec: dict = {}
+            fields = ("rate", "burst", "weight")
+            for key, raw in zip(fields, parts[1:]):
+                if raw not in ("", "-"):
+                    spec[key] = float(raw)
+            config[name] = spec
+        return cls(config)
+
+    def get(self, name: str) -> TenantQuota:
+        with self._lock:
+            q = self._tenants.get(name)
+            if q is None:
+                q = TenantQuota(name, **self._template)
+                self._tenants[name] = q
+            return q
+
+    def admit(self, name: str) -> TenantQuota:
+        """Charge one request to the tenant's bucket; raises
+        ``TenantOverQuota`` when it is empty."""
+        q = self.get(name)
+        with self._lock:
+            if not q.try_take():
+                raise TenantOverQuota(
+                    name, f"tenant {name!r} is over quota "
+                    f"(rate={q.rate}/s, burst={q.burst:g})")
+        return q
+
+    def max_weight(self) -> float:
+        with self._lock:
+            if not self._tenants:
+                return 1.0
+            return max(q.weight for q in self._tenants.values())
+
+    def info(self) -> dict:
+        with self._lock:
+            return {
+                name: {"rate": q.rate, "burst": q.burst,
+                       "weight": q.weight,
+                       "tokens": (None if q.rate is None
+                                  else round(q.available(), 3))}
+                for name, q in sorted(self._tenants.items())
+            }
 
 
 def next_bucket(rows: int) -> int:
@@ -75,17 +270,21 @@ class BatchSpec:
     def __init__(self, batchable: bool, reason: str,
                  feed_names: Sequence[str] = (),
                  row_shapes: Optional[Dict[str, tuple]] = None,
-                 dtypes: Optional[Dict[str, Any]] = None):
+                 dtypes: Optional[Dict[str, Any]] = None,
+                 code: str = "ok"):
         self.batchable = batchable
         self.reason = reason
+        # short slug of the disabled() reason family: the label value of
+        # serving_unbatched_total (the prose stays in .reason)
+        self.code = code
         self.feed_names = tuple(feed_names)
         self.row_shapes = row_shapes or {}
         self.dtypes = dtypes or {}
         self._feed_set = frozenset(self.feed_names)
 
     @classmethod
-    def disabled(cls, reason: str) -> "BatchSpec":
-        return cls(False, reason)
+    def disabled(cls, reason: str, code: str = "disabled") -> "BatchSpec":
+        return cls(False, reason, code=code)
 
     @classmethod
     def from_program(cls, program, feed_names: Sequence[str],
@@ -97,33 +296,39 @@ class BatchSpec:
         for name in feed_names:
             var = block.find_var(name)
             if var is None or var.shape is None:
-                return cls.disabled(f"feed {name!r} has no shape metadata")
+                return cls.disabled(f"feed {name!r} has no shape metadata",
+                                    code="no_shape_metadata")
             if var.lod_level:
                 return cls.disabled(f"feed {name!r} is LoD "
-                                    f"(lod_level={var.lod_level})")
+                                    f"(lod_level={var.lod_level})",
+                                    code="lod_feed")
             if len(var.shape) < 1 or var.shape[0] != -1:
                 return cls.disabled(
-                    f"feed {name!r} shape {var.shape} is not batch-major")
+                    f"feed {name!r} shape {var.shape} is not batch-major",
+                    code="not_batch_major")
             if any(d < 0 for d in var.shape[1:]):
                 return cls.disabled(
                     f"feed {name!r} shape {var.shape} has dynamic "
-                    "non-batch dims")
+                    "non-batch dims", code="dynamic_dims")
             if var.dtype == "bfloat16":
                 return cls.disabled(f"feed {name!r} is bfloat16, which "
-                                    "numpy cannot hold")
+                                    "numpy cannot hold", code="bfloat16_feed")
             row_shapes[name] = tuple(var.shape[1:])
             dtypes[name] = np.dtype(var.dtype)
         for name in fetch_names:
             var = block.find_var(name)
             if var is None or var.shape is None:
-                return cls.disabled(f"fetch {name!r} has no shape metadata")
+                return cls.disabled(f"fetch {name!r} has no shape metadata",
+                                    code="no_shape_metadata")
             if var.lod_level:
                 return cls.disabled(f"fetch {name!r} is LoD "
-                                    f"(lod_level={var.lod_level})")
+                                    f"(lod_level={var.lod_level})",
+                                    code="lod_fetch")
             if len(var.shape) < 1 or var.shape[0] != -1:
                 return cls.disabled(
                     f"fetch {name!r} shape {var.shape} is not batch-major "
-                    "(per-request rows cannot be scattered back)")
+                    "(per-request rows cannot be scattered back)",
+                    code="not_batch_major")
         return cls(True, "ok", feed_names, row_shapes, dtypes)
 
     def classify(self, feeds: Dict[str, np.ndarray]):
@@ -151,22 +356,36 @@ class BatchSpec:
 
 
 class PendingRequest:
-    """One in-flight request: feeds + row span + completion event."""
+    """One in-flight request: feeds + row span + completion event.
 
-    __slots__ = ("feeds", "rows", "batchable", "deadline", "enqueued_at",
-                 "abandoned", "outputs", "error", "bucket", "_event", "_done")
+    ``tenant`` feeds the fair queue; ``attempts`` counts dispatches —
+    the supervised replica pool bumps it each time a replica dies with
+    this request in flight, and quarantines the request
+    (``RetryExhausted`` -> 503) once the budget is spent.
+    """
+
+    __slots__ = ("feeds", "rows", "batchable", "solo_reason", "deadline",
+                 "enqueued_at", "abandoned", "outputs", "error", "bucket",
+                 "tenant", "attempts", "_vft", "_seq", "_event", "_done")
 
     def __init__(self, feeds: Dict[str, Any], rows: int = 1,
-                 batchable: bool = False, deadline: Optional[float] = None):
+                 batchable: bool = False, deadline: Optional[float] = None,
+                 solo_reason: str = "unbatchable",
+                 tenant: str = DEFAULT_TENANT):
         self.feeds = feeds
         self.rows = rows
         self.batchable = batchable
+        self.solo_reason = solo_reason    # serving_unbatched_total label
         self.deadline = deadline          # time.monotonic timestamp
+        self.tenant = tenant
+        self.attempts = 0                 # dispatches consumed so far
         self.enqueued_at = time.monotonic()
         self.abandoned = False            # waiter gave up (timed out)
         self.outputs: Optional[list] = None
         self.error: Optional[BaseException] = None
         self.bucket: Optional[int] = None  # padded rows it dispatched at
+        self._vft = 0.0                   # virtual finish time (fair queue)
+        self._seq = 0                     # submit order tie-break
         self._event = threading.Event()
         self._done = False
 
@@ -198,33 +417,132 @@ class PendingRequest:
 class RequestQueue:
     """Coalescing FIFO the replica pool pulls from.
 
-    ``take()`` returns one dispatch group: batchable requests in arrival
-    order totalling at most ``max_batch`` rows, or a single unbatchable
-    request.  With ``batch_timeout`` > 0 the head request may linger
-    that long for peers to fill the bucket; at 0 coalescing is purely
-    opportunistic, so an idle server adds no latency.
+    ``take()`` (worker side) returns a list of requests forming one
+    dispatch: either a group of batchable requests totalling at most
+    ``max_batch`` rows, or a single unbatchable request.  With
+    ``batch_timeout`` > 0 the head request may linger that long waiting
+    for peers to fill the bucket; at 0 (default) coalescing is purely
+    opportunistic — whatever is queued when a worker frees up rides
+    along, so an idle server adds zero latency.
+
+    With a ``TenantRegistry`` the queue is weighted-fair: ``submit``
+    charges the tenant's token bucket (``TenantOverQuota`` when empty)
+    and stamps a virtual finish time; ``take`` serves in vft order, so
+    dispatch share converges to the weight ratio under saturation.
+    ``shed_watermark`` arms pressure shedding: past it, tenants below
+    the registry's top weight are refused (``QueueShed``
+    ``shed_low_weight``); past twice it, everyone is
+    (``queue_collapse``) — bounded degradation instead of queue
+    collapse.
     """
 
-    def __init__(self, max_batch: int = 8, batch_timeout: float = 0.0):
+    def __init__(self, max_batch: int = 8, batch_timeout: float = 0.0,
+                 tenants: Optional[TenantRegistry] = None,
+                 shed_watermark: Optional[int] = None):
         self.max_batch = max(1, int(max_batch))
         self.batch_timeout = max(0.0, float(batch_timeout))
+        self.tenants = tenants if tenants is not None else TenantRegistry()
+        self.shed_watermark = (int(shed_watermark)
+                               if shed_watermark else None)
         self._cond = threading.Condition()
         self._pending: List[PendingRequest] = []
         self._closed = False
+        self._paused = False
+        self._vclock = 0.0            # fair-queue virtual time
+        self._seq = 0                 # submit counter (vft tie-break)
+
+    def pause(self) -> None:
+        """Stop handing out batches (drain/maintenance).  Submissions
+        still queue — and expire against their deadlines."""
+        with self._cond:
+            self._paused = True
+
+    def resume(self) -> None:
+        with self._cond:
+            self._paused = False
+            self._cond.notify_all()
 
     def __len__(self) -> int:
         with self._cond:
             return len(self._pending)
 
+    def _shed_check_locked(self, req: PendingRequest) -> None:
+        """Pressure shedding (holds the queue lock): lowest-weight
+        tenants are refused first, everyone at 2x the watermark."""
+        if self.shed_watermark is None:
+            return
+        depth = len(self._pending)
+        if depth >= 2 * self.shed_watermark:
+            raise QueueShed(
+                "queue_collapse",
+                f"serving queue saturated ({depth} pending >= "
+                f"{2 * self.shed_watermark}); shedding all tenants")
+        if depth >= self.shed_watermark:
+            weight = self.tenants.get(req.tenant).weight
+            top = self.tenants.max_weight()
+            if weight < top:
+                raise QueueShed(
+                    "shed_low_weight",
+                    f"serving queue under pressure ({depth} pending >= "
+                    f"{self.shed_watermark}); shedding tenant "
+                    f"{req.tenant!r} (weight {weight:g} < {top:g})")
+
     def submit(self, req: PendingRequest) -> None:
+        """Admit one request: charge the tenant's token bucket
+        (``TenantOverQuota`` -> 429 when empty), apply pressure
+        shedding, stamp the fair-queue virtual finish time, enqueue."""
+        quota = self.tenants.admit(req.tenant)
         with self._cond:
             if self._closed:
                 raise RuntimeError("serving queue is shut down")
+            self._shed_check_locked(req)
             req.enqueued_at = time.monotonic()
+            # weighted fair queuing: heavier tenants' requests finish
+            # "sooner" in virtual time, so they drain proportionally
+            # faster under saturation.  max() with the queue vclock
+            # means an idle tenant re-enters at *now* — no banked
+            # scheduling credit from its idle spell.
+            req._vft = max(quota.vft, self._vclock) + req.rows / quota.weight
+            quota.vft = req._vft
+            self._seq += 1
+            req._seq = self._seq
             self._pending.append(req)
-            # notify_all: a lingering worker also waits on this
-            # condition and could swallow a single wakeup
+            # notify_all, not notify: a lingering worker (batch_timeout)
+            # also waits on this condition and could swallow the single
+            # wakeup while an idle replica sleeps through it
             self._cond.notify_all()
+
+    def requeue(self, reqs: Sequence[PendingRequest]) -> None:
+        """Put a dead replica's in-flight requests back (supervisor
+        path): no fresh quota charge, original vft kept — they return
+        to the *front* of the virtual-time order they already earned.
+        Requests already completed by a zombie dispatch are skipped."""
+        with self._cond:
+            for req in reqs:
+                if req.done or req.abandoned:
+                    continue
+                if self._closed:
+                    req.fail(RuntimeError("server shutting down"))
+                    continue
+                self._pending.append(req)
+            self._cond.notify_all()
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._pending)
+
+    def degradation(self) -> dict:
+        """Pressure snapshot for /health."""
+        with self._cond:
+            depth = len(self._pending)
+        out = {"pending": depth, "shed_watermark": self.shed_watermark,
+               "shedding": None}
+        if self.shed_watermark is not None:
+            if depth >= 2 * self.shed_watermark:
+                out["shedding"] = "queue_collapse"
+            elif depth >= self.shed_watermark:
+                out["shedding"] = "shed_low_weight"
+        return out
 
     def close(self) -> None:
         with self._cond:
@@ -234,9 +552,15 @@ class RequestQueue:
             self._pending.clear()
             self._cond.notify_all()
 
+    # -- worker side --------------------------------------------------------
+
     def _sweep_locked(self) -> None:
-        """Drop abandoned waiters; expire requests whose deadline passed
-        while queued (they time out without burning a dispatch)."""
+        """Drop abandoned/already-completed waiters; expire requests
+        whose deadline passed while queued (they 504 without burning a
+        dispatch).  Also restores weighted-fair order: the pending list
+        is kept sorted by virtual finish time (timsort on a
+        nearly-sorted list — requeues are the only out-of-order
+        inserts)."""
         now = time.monotonic()
         live = []
         for req in self._pending:
@@ -247,7 +571,14 @@ class RequestQueue:
                     "request deadline expired waiting for a serving replica"))
                 continue
             live.append(req)
+        live.sort(key=lambda r: (r._vft, r._seq))
         self._pending = live
+        counts: Dict[str, int] = {}
+        for req in live:
+            counts[req.tenant] = counts.get(req.tenant, 0) + 1
+        seen = {d.get("tenant", "") for d in _M_TENANT_DEPTH.label_sets()}
+        for tenant in set(counts) | (seen - {""}):
+            _M_TENANT_DEPTH.set(counts.get(tenant, 0), tenant=tenant)
 
     def take(self) -> Optional[List[PendingRequest]]:
         """Block until a dispatch group is available; None on shutdown."""
@@ -258,7 +589,7 @@ class RequestQueue:
                     self._sweep_locked()
                     if self._closed:
                         return None
-                    if self._pending:
+                    if self._pending and not self._paused:
                         break
                     self._cond.wait()
                 head = self._pending[0]
@@ -274,23 +605,31 @@ class RequestQueue:
                         self._sweep_locked()
                         if self._closed:
                             return None
-                        if not self._pending:
-                            head = None  # everything expired: start over
+                        if self._paused or not self._pending:
+                            # paused mid-linger (pause() must stop
+                            # dispatch) or everything expired: start over
+                            head = None
                             break
                         head = self._pending[0]
                         if not head.batchable:
                             break
             if not head.batchable:
-                return [self._pending.pop(0)]
-            batch, rows, keep = [], 0, []
-            for req in self._pending:
-                if req.batchable and (
-                        not batch or rows + req.rows <= self.max_batch):
-                    batch.append(req)
-                    rows += req.rows
-                else:
-                    keep.append(req)
-            self._pending = keep
+                batch = [self._pending.pop(0)]
+            else:
+                batch, rows, keep = [], 0, []
+                for req in self._pending:
+                    if req.batchable and (
+                            not batch or rows + req.rows <= self.max_batch):
+                        batch.append(req)
+                        rows += req.rows
+                    else:
+                        keep.append(req)
+                self._pending = keep
+            now = time.monotonic()
+            for req in batch:
+                req.attempts += 1
+                self._vclock = max(self._vclock, req._vft)
+                _M_QUEUE_WAIT.observe(max(0.0, now - req.enqueued_at))
             return batch
 
 

@@ -5,21 +5,48 @@ gradients by central differences (``check_gradient``), saves a
 ``save_dir/pass-%05d/params.tar`` a pass and exports the prediction
 slice; ``main`` is the ``paddle_trainer`` command line
 (``python -m paddle_tpu_torch.trainer``).  It trains on ``CUDAPlace(0)``
-unless the caller passes another place."""
+unless the caller passes another place.  ``log_period`` defaults to
+``FLAGS.log_period``; with ``FLAGS.show_layer_stat`` every log line is
+followed by the telemetry registry's table and ``stat.GLOBAL_STATS``."""
 
 from __future__ import annotations
 
 import importlib
 import os
+import sys
 import time
 from typing import Optional
 
 import numpy as np
 
+from paddle_tpu_torch import observability as obs
+from paddle_tpu_torch import stat
+from paddle_tpu_torch.flags import FLAGS
 from paddle_tpu_torch.framework import Place, resolve_place
 from paddle_tpu_torch.trainer.config_parser import TrainerConfig, parse_config
 
-DEFAULT_LOG_PERIOD = 100
+
+def _resolve_log_period(log_period):
+    """An explicit argument wins; otherwise the flag tier's log_period
+    (reference: utils/Flags.cpp FLAGS_log_period, default 100)."""
+    if log_period is not None:
+        return max(int(log_period), 1)
+    return max(int(FLAGS.get("log_period", 100) or 100), 1)
+
+
+def _dump_layer_stat(pass_id, batch_id, out=None):
+    """--show_layer_stat: the runtime telemetry registry (plan-cache,
+    step and feed metrics per program) and any host StatSet timers,
+    every log_period batches (reference: Stat.h printAllStatus under
+    WITH_TIMER and FLAGS_show_layer_stat)."""
+    out = out or sys.stderr
+    print(f"--- runtime stats (pass {pass_id}, batch {batch_id}) ---",
+          file=out)
+    table = obs.format_snapshot(obs.snapshot())
+    if table:
+        print(table, file=out)
+    if stat.GLOBAL_STATS.items():
+        stat.GLOBAL_STATS.print_status(out=out)
 
 
 class Trainer:
@@ -106,11 +133,12 @@ class Trainer:
               log_period: Optional[int] = None, event_handler=None):
         """Train ``num_passes`` passes over the train source; every
         batch's cost, in order.  A line a ``log_period`` batches
-        (default 100); with ``save_dir``, ``pass-%05d/params.tar`` at the
-        end of each pass."""
+        (default ``FLAGS.log_period``, 100), followed by the runtime
+        stats under ``FLAGS.show_layer_stat``; with ``save_dir``,
+        ``pass-%05d/params.tar`` at the end of each pass."""
         from paddle_tpu_torch.v2 import event as v2_event
 
-        log_period = max(int(log_period or DEFAULT_LOG_PERIOD), 1)
+        log_period = _resolve_log_period(log_period)
         costs = []
 
         def handler(e):
@@ -123,6 +151,8 @@ class Trainer:
                           f"Cost {e.cost:.6f}"
                           + (f", Eval:{evals}" if evals else ""),
                           flush=True)
+                    if FLAGS.get("show_layer_stat"):
+                        _dump_layer_stat(e.pass_id, e.batch_id)
             if isinstance(e, v2_event.EndPass) and save_dir:
                 pass_dir = os.path.join(save_dir, f"pass-{e.pass_id:05d}")
                 os.makedirs(pass_dir, exist_ok=True)
@@ -257,8 +287,8 @@ def main(argv=None):
     """``python -m paddle_tpu_torch.trainer --config=conf.py``: the
     paddle_trainer command line (``--job=train|test|checkgrad``,
     ``--num_passes``, ``--save_dir``, ``--init_model_path``,
-    ``--config_args``, ``--log_period``; ``--use_gpu=0`` trains on the
-    CPU)."""
+    ``--config_args``, ``--log_period``, ``--show_layer_stat``;
+    ``--use_gpu=0`` trains on the CPU)."""
     import argparse
 
     from paddle_tpu_torch.framework import CPUPlace, CUDAPlace
@@ -275,8 +305,12 @@ def main(argv=None):
                    help="a pass dir, a save_dir or a params.tar to load "
                         "before training, testing or checking")
     p.add_argument("--config_args", default="")
-    p.add_argument("--log_period", type=int, default=DEFAULT_LOG_PERIOD,
-                   help="batches between log lines")
+    p.add_argument("--log_period", type=int, default=None,
+                   help="batches between log lines (default: the "
+                        "log_period flag, 100)")
+    p.add_argument("--show_layer_stat", action="store_true",
+                   help="print the runtime stats table after every log "
+                        "line")
     p.add_argument("--use_gpu", type=int, default=1,
                    help="1: train on CUDAPlace(0); 0: on the CPU")
     p.add_argument("--trainer_count", type=int, default=1)
@@ -285,6 +319,8 @@ def main(argv=None):
         raise NotImplementedError(
             "paddle_tpu_torch: --trainer_count > 1 comes with the parallel "
             "slice")
+    if a.show_layer_stat:
+        FLAGS.set("show_layer_stat", True)
     place = CUDAPlace(0) if a.use_gpu else CPUPlace()
     t0 = time.time()
     if a.job in ("test", "checkgrad"):

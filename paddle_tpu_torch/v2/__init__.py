@@ -13,14 +13,20 @@ _trainer_count = 1
 
 
 def init(use_gpu: bool = True, trainer_count: int = 1, **kwargs):
-    """Process init.  ``trainer_count`` above 1 (data parallelism over
-    that many cards) waits for the parallel slice and raises."""
+    """Process init: records ``trainer_count`` and ``use_gpu`` into
+    ``FLAGS``, as ``paddle_tpu/v2/__init__.py:55-64`` does.
+    ``trainer_count`` above 1 (data parallelism over that many cards)
+    waits for the parallel slice and raises."""
     global _trainer_count
     if int(trainer_count) > 1:
         raise NotImplementedError(
             "paddle_tpu_torch: trainer_count > 1 (data parallelism) comes "
             "with the parallel slice")
     _trainer_count = int(trainer_count)
+    from paddle_tpu_torch.flags import FLAGS
+
+    FLAGS.set("trainer_count", int(trainer_count))
+    FLAGS.set("use_gpu", bool(use_gpu))
 
 
 __all__ = ["activation", "attr", "data_type", "init", "layer", "parameters",

@@ -49,11 +49,15 @@ and the sparse adam / adagrad outputs within 1e-6 of max of the CPU's
 The fluid op tail (``-k "srl or nms or warpctc"``): the semantic-role
 tagger's costs within 1e-4 (relative) of the CPU's and its paths equal
 but at Viterbi near-ties, multiclass_nms exactly on equal inputs,
-warpctc's loss and gradient within 1e-4 of max.
+warpctc's loss and gradient within 1e-4 of max.  The serving path's
+operations (``-k two_replica``): a requeued reply within chip_smoke's
+PROBS_TOL of the CPU path, the same argmax.
 """
 
 import ctypes
 import math
+import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -3565,3 +3569,51 @@ def test_warpctc_edge_cases_on_the_card(dev, case):
         g, w = np.asarray(g), np.asarray(w)
         assert np.isfinite(g).all()
         assert float(np.abs(g - w).max()) <= 1e-4 * float(np.abs(w).max())
+
+
+def test_two_replica_server_requeues_a_death_on_the_card(dev, tmp_path):
+    """Two replicas of a ResNet-8 export on CUDAPlace(0) under die@1: the
+    request whose dispatch died is requeued onto the other replica and
+    answered like the CPU path (chip_smoke.PROBS_TOL, the same argmax),
+    and the supervisor respawns the dead replica on the card, once."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import resnet_cifar10
+    from paddle_tpu_torch.serving import InferenceServer, ModelBundle, Replica
+
+    pt.framework.reset_default_programs()
+    img = pt.layers.data(name="img", shape=[3, 16, 16])
+    pred = resnet_cifar10(img, depth=8)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(pt.default_startup_program(), scope=scope)
+    d = str(tmp_path / "resnet8")
+    pt.io.save_inference_model(d, ["img"], [pred], exe, scope=scope)
+    obs.reset()
+    x = np.random.RandomState(4).randn(3, 3, 16, 16).astype(np.float32)
+    srv = InferenceServer(d, replicas=2, max_batch=8, warmup=True,
+                          chaos="die@1")
+    try:
+        base = f"http://{srv.address}"
+        code, body = chip_smoke.post_as(base, x, "default")
+        assert code == 200 and srv.fault.fired == 1
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                len(srv._pool.replicas) != 2 or srv.degraded_reasons()):
+            time.sleep(0.05)
+        assert [r.exe.place for r in srv._pool.replicas] == \
+            [pt.CUDAPlace(0)] * 2
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            samples = chip_smoke.parse_prometheus(r.read().decode())
+    finally:
+        srv.stop()
+    (want,) = Replica(ModelBundle(d), 0, pt.CPUPlace()).run({"img": x})
+    got = np.asarray(body["outputs"][0], np.float32)
+    np.testing.assert_allclose(got, want, **chip_smoke.PROBS_TOL)
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    assert chip_smoke.prom_total(samples,
+                                 "serving_replica_restarts_total") == 1
+    assert chip_smoke.prom_total(samples, "serving_replica_deaths_total",
+                                 cause="injected") == 1
+    assert chip_smoke.prom_total(samples, "serving_requeued_total") == 1

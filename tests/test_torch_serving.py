@@ -391,6 +391,152 @@ def test_launcher_serves_on_the_cpu(tmp_path, rng):
         proc.wait(timeout=30)
 
 
+def test_metrics_stats_and_health_keys(tmp_path, rng):
+    """GET /metrics is Prometheus 0.0.4 text with the reference's content
+    type whose counts agree with the requests served; GET /stats is the
+    registry's snapshot; /health carries the reference's keys (and the
+    port's ``place``)."""
+    from paddle_tpu.serving import InferenceServer as JaxServer
+    from paddle_tpu_torch import observability as obs
+
+    d, _, _, _ = _small_export(tmp_path)
+    obs.reset()
+    srv = InferenceServer(d, place=pt.CPUPlace(), warmup=True)
+    ref = JaxServer(d)
+    try:
+        base = f"http://{srv.address}"
+        for n in (1, 3):
+            _post(base, {"x": rng.randn(n, 6).tolist()})
+        code, _ = _http_error(lambda: _post(base, {}))
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            ctype = r.headers["Content-Type"]
+            samples = chip_smoke.parse_prometheus(r.read().decode())
+        with urllib.request.urlopen(f"http://{ref.address}/metrics",
+                                    timeout=10) as r:
+            assert r.headers["Content-Type"] == ctype
+        assert ctype == "text/plain; version=0.0.4; charset=utf-8"
+        total = chip_smoke.prom_total
+        assert total(samples, "serving_responses_total", code="200") == 2
+        assert total(samples, "serving_responses_total", code="400") == 1
+        assert total(samples, "serving_request_seconds_count",
+                     endpoint="/predict") == 3
+        assert total(samples, "serving_inflight_requests") == 0
+        ladder = len(bucket_ladder(8))
+        # the ladder warmed, then buckets 1 and 4 hit
+        assert total(samples, "executor_compile_cache_miss_total",
+                     source="plan") == ladder
+        assert total(samples, "executor_compile_cache_hit_total",
+                     source="plan") == 2
+        assert total(samples, "serving_batch_size_count") == 2
+        assert total(samples, "serving_time_to_ready_seconds_count",
+                     boot="plan") == 1
+        assert total(samples, "executor_fetch_device_to_host_bytes_total") \
+            == (sum(bucket_ladder(8)) + 1 + 4) * 3 * 4
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats",
+                                                  timeout=10).read())
+        snap = json.loads(json.dumps(obs.snapshot()))
+        for v in snap["serving_responses_total"]["values"]:
+            if v["labels"] == {"code": "200"}:
+                v["value"] -= 1      # the /stats reply itself
+        assert stats == snap
+        health, want = (json.loads(urllib.request.urlopen(
+            f"http://{a}/health", timeout=10).read())
+            for a in (srv.address, ref.address))
+        assert set(health) - {"place"} == set(want)
+        assert health["status"] == "ok" and health["reasons"] == []
+        assert health["aot"] is None and health["fetches"] == want["fetches"]
+        assert set(health["self_healing"]) == set(want["self_healing"])
+        assert set(health["self_healing"]["pool"]) == \
+            set(want["self_healing"]["pool"])
+        assert health["self_healing"]["queue"] == want["self_healing"]["queue"]
+        with pytest.raises(ValueError, match="malformed labels"):
+            chip_smoke.parse_prometheus("# TYPE a counter\na{b=1} 2")
+        with pytest.raises(ValueError, match="not a Prometheus sample"):
+            chip_smoke.parse_prometheus("# TYPE a counter\na 1 2")
+        with pytest.raises(ValueError, match="undeclared"):
+            chip_smoke.parse_prometheus("a 2")
+    finally:
+        srv.stop()
+        ref.stop()
+
+
+def test_artifacts_and_check_program_raise(tmp_path, rng):
+    from paddle_tpu_torch.flags import FLAGS
+
+    d, _, _, _ = _small_export(tmp_path)
+    with pytest.raises(NotImplementedError, match="torch.export"):
+        InferenceServer(d, place=pt.CPUPlace(), artifacts=str(tmp_path))
+    rep = Replica(ModelBundle(d), 0, pt.CPUPlace())
+    try:
+        FLAGS.set("check_program", True)
+        with pytest.raises(NotImplementedError, match="analysis"):
+            rep.run({"x": rng.randn(1, 6).astype(np.float32)})
+    finally:
+        FLAGS.set("check_program", False)
+    assert rep.run({"x": rng.randn(1, 6).astype(np.float32)})[0].shape == \
+        (1, 3)
+
+
+def test_launcher_takes_the_operations_flags(tmp_path, rng):
+    """The launcher passes --tenant_config (JSON), --max_attempts,
+    --replica_heartbeat_ms, --dispatch_timeout and --chaos through, and
+    --artifacts refuses to start."""
+    from paddle_tpu_torch.serving.__main__ import tenant_spec
+
+    d, _, _, _ = _small_export(tmp_path)
+    conf = tmp_path / "tenants.json"
+    conf.write_text(json.dumps({"A": {"rate": 0.05, "burst": 1},
+                                "*": {"weight": 2}}))
+    lines = tmp_path / "tenants.txt"
+    lines.write_text("# tenants\nA:0.05:1\nB:::3\n")
+    ns = type("Args", (), {"tenants": "C:1", "tenant_config": None})
+    assert tenant_spec(ns) == "C:1"
+    ns.tenant_config = str(lines)
+    assert tenant_spec(ns) == "A:0.05:1,B:::3"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving",
+         f"--model_dir={d}", "--port=0", "--cpu", "--warmup",
+         "--replicas=2", f"--tenant_config={conf}", "--max_attempts=2",
+         "--replica_heartbeat_ms=50", "--dispatch_timeout=7",
+         "--chaos=die@1"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://"), (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        base = line.split()[-1]
+        x = rng.randn(2, 6).tolist()
+        # the first live dispatch dies: requeued, answered all the same
+        assert _request(base, "/predict", {"x": x}, "A")[0] == 200
+        code, body = _request(base, "/predict", {"x": x, "tenant": "A"})
+        assert (code, body["reason"]) == (429, "tenant_over_quota")
+        deadline = time.monotonic() + 30
+        while True:
+            with urllib.request.urlopen(f"{base}/health", timeout=10) as r:
+                h = json.loads(r.read())
+            if h["self_healing"]["pool"]["restarts"] >= 1 or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        pool = h["self_healing"]["pool"]
+        assert (pool["max_attempts"], pool["heartbeat_s"],
+                pool["dispatch_timeout_s"], pool["restarts"]) == (
+            2, 0.05, 7.0, 1)
+        assert h["self_healing"]["tenants"]["A"]["burst"] == 1.0
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            samples = chip_smoke.parse_prometheus(r.read().decode())
+        assert chip_smoke.prom_total(samples, "serving_replica_deaths_total",
+                                     cause="injected") == 1
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.serving",
+         f"--model_dir={d}", "--port=0", "--cpu", f"--artifacts={tmp_path}"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+
+
 # ---------------------------------------------------------------------------
 # the port stands alone
 # ---------------------------------------------------------------------------

@@ -388,6 +388,60 @@ def test_trainer_checkgrad_catches_wrong_gradient(tmp_path):
         sys.path.remove(str(d))
 
 
+def test_show_layer_stat_and_log_period_flags(tmp_path):
+    """--show_layer_stat prints the runtime table after every log line,
+    every log_period batches (tests/test_observability.py's check of the
+    reference's trainer); log_period comes from FLAGS when no argument
+    gives it, as in the reference."""
+    from paddle_tpu.trainer import trainer as jax_trainer
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import stat
+    from paddle_tpu_torch.flags import FLAGS
+
+    assert port_trainer._resolve_log_period(7) == 7
+    FLAGS.set("log_period", 13)
+    try:
+        assert port_trainer._resolve_log_period(None) == 13
+    finally:
+        FLAGS.set("log_period", 100)
+    assert port_trainer._resolve_log_period(None) == \
+        jax_trainer._resolve_log_period(None) == 100
+
+    obs.reset()
+    exe = pt.Executor(pt.CPUPlace())
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[4])
+    pred = pt.layers.fc(x, size=2)
+    exe.run(pt.default_startup_program())
+    exe.run(feed={"x": np.ones((2, 4), np.float32)}, fetch_list=[pred])
+    stats = stat.GLOBAL_STATS
+    try:
+        with stat.timer("probe_timer"):
+            pass
+        buf = io.StringIO()
+        port_trainer._dump_layer_stat(0, 20, out=buf)
+    finally:
+        stats.reset()
+    out = buf.getvalue()
+    assert out.startswith("--- runtime stats (pass 0, batch 20) ---")
+    assert "executor_compile_cache_miss_total" in out
+    assert "source=plan" in out and "probe_timer" in out
+
+    d = _tiny_config(tmp_path)
+    out = _trainer_cli(d, f"--config={d / 'conf.py'}", "--num_passes=2",
+                       "--log_period=2", "--show_layer_stat")
+    assert out.returncode == 0, out.stderr[-2000:]
+    # 48 rows a pass in batches of 16: batches 0 and 2 of each pass log
+    heads = [ln for ln in out.stderr.splitlines()
+             if ln.startswith("--- runtime stats")]
+    assert heads == [f"--- runtime stats (pass {p}, batch {b}) ---"
+                     for p in (0, 1) for b in (0, 2)]
+    assert out.stdout.count("Pass ") == 4
+    assert out.stderr.count("executor_step_seconds") >= 4
+    out = _trainer_cli(d, f"--config={d / 'conf.py'}", "--num_passes=1")
+    assert out.returncode == 0 and "runtime stats" not in out.stderr
+
+
 def test_traffic_prediction_trains_from_the_command_line(capsys):
     """The acceptance command on the CPU: the final cost under 0.3 x the
     first (the reference test's gate)."""
