@@ -120,8 +120,13 @@ seconds):
    executor.step and executor.compile.  Logs the telemetry write set's
    cost, Executor.run at bucket 32 with telemetry and with trace_ops
    (one record_function range per op) and the phase's wall time.
-4. Throughput of Executor.run at bucket 32 in-process, and where one
-   forward's time goes (torch.profiler device time by kernel).
+4. Throughput of Executor.run at bucket 32 in-process (replayed from
+   its CUDA graph), and where one forward's time goes (torch.profiler
+   device time by kernel).
+4b. ResNet-50 at bucket 32 through a replica eagerly (disable_graphs)
+   and through one replaying its CUDA graph: replies equal bit for bit,
+   one replay's launches 46 conv (all wgmma), 1 matmul, 1 softmax, and
+   Executor.run's median ms of each.
 5. Training parity: one step of the ResNet-50 training program
    (mean(cross_entropy(softmax fc)), Momentum(0.1, 0.9), f32, the
    program bench.py builds) at batch 2 on the card against the same step
@@ -232,6 +237,24 @@ seconds):
     matmul kernel, the mul backward products and the rest, failing if
     the profiler saw fewer flash or matmul launches than the step makes.
     10c. The small model of phase 10 learns under AMP.
+10d. The rest of the Executor on the transformer step at B 8, S 1024
+    built with recompute=True (each block and the LM head one
+    rematerialization segment), FLAGS.check_program on and
+    optimize_program=True (phase_executor_graphs): a dangling fetch
+    raises ProgramVerificationError before any launch; the OptReport and
+    the donation mask; 2 warm-up and 5 timed steps eagerly
+    (disable_graphs) and with the plan captured as a CUDA graph on its
+    second run, f32 and under AMP, from one state: losses within 1e-6
+    relative, the counters equal and 5 x the program's own count (matmul
+    34, flash forward 8, dq 4, dk/dv 4: each segment's forward replayed
+    in its backward), the donated parameters and Adam moments keeping
+    their storage, tokens/s, peak memory, the idle share profiled in a
+    fresh process (PROFILE_GRAPHS); one step against the direct program
+    (loss and parameters within TF_PARITY_TOL, peak memory of both);
+    build_callable's 5 chained calls captured in one torch.cuda.graph,
+    the 5th loss within 1e-6 relative of the 5th Executor.run step's.
+    Every phase logs the plans captured as graphs, the plans that ran
+    eagerly with the first reason of each, and the graphs still held.
 11. LSTM classifier parity: lstm_text_classifier as benchmark/run.py
     trains its `lstm` cell (B 64, T 100, vocab 30000 with ids < 10000,
     emb 512, hidden 256, 2 layers, 2 classes, Momentum(0.01, 0.9), f32)
@@ -430,6 +453,7 @@ seconds):
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -747,6 +771,9 @@ PROFILE_TF = "--profile-transformer-steps"
 # the same for the tagger's and the text conv net's steps (see
 # phase_tail_profile)
 PROFILE_TAIL = "--profile-tail-steps"
+#: The flag of phase 10d's child: the recompute transformer step
+#: profiled eagerly and replayed from its CUDA graph, f32 and AMP.
+PROFILE_GRAPHS = "--profile-graph-steps"
 
 # The decoder LM that /generate serves (paddle_tpu/decode/model.py
 # TinyDecoderLM) at the widths of the transformer LM of phases 8-9
@@ -1130,6 +1157,23 @@ def launches_implied(program, amp=False, steps=0):
             # their trailing 1 is squeezed: (N, 1) LoD ids
             ids = block.var(op.input("Ids")[0]).shape
             want["embedding"] += len(ids) - (ids[-1] == 1) == 1
+        elif op.type == "recompute_segment_grad":
+            # the segment's forward replayed under autograd: its kernels
+            # launch again through their autograd Functions, and the
+            # flash backward's dq and dk/dv kernels run in the pull-back
+            for sub_op in op.attr("__seg_ops__"):
+                if sub_op.type == "mul":
+                    want["matmul"] += 1
+                elif sub_op.type == "scaled_dot_product_attention":
+                    _, s, _, d = block.var(sub_op.input("Q")[0]).shape
+                    applies = kfa.kernel_applies(s, s, d)
+                    want["flash_attention_fwd"] += applies
+                    want["flash_attention_dq"] += applies
+                    want["flash_attention_dkv"] += applies
+                elif sub_op.type in ("conv2d", "batch_norm", "lstm",
+                                     "softmax", "lookup_table"):
+                    fail(f"launches_implied: no rule for a {sub_op.type} "
+                         "op in a recompute segment")
         elif op.type in ("recurrent", "recurrent_grad"):
             attrs = (op.attr("__fwd_attrs__") if op.type.endswith("_grad")
                      else op.attrs)
@@ -2650,6 +2694,7 @@ def prom_total(samples, name, **labels):
 
 def phase_serving_ops(dev, model_dir, rng):
     import gc
+    import weakref
 
     import torch
 
@@ -2683,9 +2728,10 @@ def phase_serving_ops(dev, model_dir, rng):
             fail(f"the replicas sit on {places}, not CUDAPlace(0)")
         if not srv.fault._armed:
             fail("the --chaos spec was not armed after warmup")
+        # both sources: plans captured on their second run (graph) and
+        # plans that run eagerly (plan)
         misses = prom_total(parse_prometheus(obs.render_prometheus()),
-                            "executor_compile_cache_miss_total",
-                            source="plan")
+                            "executor_compile_cache_miss_total")
         if misses != 2 * len(ladder):
             fail(f"{misses} plan-cache misses after warming two replicas, "
                  f"not {2 * len(ladder)}")
@@ -2694,6 +2740,15 @@ def phase_serving_ops(dev, model_dir, rng):
         gc.collect()
         torch.cuda.synchronize()
         mem_before = torch.cuda.memory_allocated()
+        # the tensors the live replicas' CUDA graphs keep (static feeds,
+        # fetches): a graph's, not a leak; a dead replica's go with it
+        graphs_before = sum(rep.exe.graph_stats()["static_bytes"]
+                            for rep in pool.replicas)
+        # each replica's Executor, held weakly: a dead replica's must be
+        # freed, and with it its plans and CUDA graphs (their pools are
+        # reserved memory, which memory_allocated does not count)
+        executors = {rep.index: weakref.ref(rep.exe) for rep in pool.replicas}
+        pools_before = graph_pools()
 
         def poll():
             while not stop_polling.is_set():
@@ -2811,15 +2866,35 @@ def phase_serving_ops(dev, model_dir, rng):
         gc.collect()
         torch.cuda.synchronize()
         mem_after = torch.cuda.memory_allocated()
+        graphs_after = sum(rep.exe.graph_stats()["static_bytes"]
+                           for rep in pool.replicas)
+        live_graphs = sum(rep.exe.graph_stats()["graphs"]
+                          for rep in pool.replicas)
+        live = {rep.index for rep in pool.replicas}
+        kept = sorted(i for i, ref in executors.items()
+                      if i not in live and ref() is not None)
+        dead = sorted(set(executors) - live)
+        pools_after = graph_pools()
         log(f"device memory: {mem_before / 2**20:.1f} MiB before the first "
-            f"death, {mem_after / 2**20:.1f} MiB after both respawns "
-            f"(one replica's parameters {param_bytes / 2**20:.1f} MiB)")
+            f"death ({graphs_before / 2**20:.1f} MiB in the replicas' "
+            f"graphs), {mem_after / 2**20:.1f} MiB after both respawns "
+            f"({graphs_after / 2**20:.1f} MiB in the live replicas' "
+            f"{live_graphs} graphs; one replica's parameters "
+            f"{param_bytes / 2**20:.1f} MiB); graph pools in the process "
+            f"{pools_before[0]} ({pools_before[1] / 2**20:.1f} MiB) before, "
+            f"{pools_after[0]} ({pools_after[1] / 2**20:.1f} MiB) after; "
+            f"the Executors of the dead replicas {dead} freed: "
+            f"{[i for i in dead if i not in kept]}")
+        if not dead or kept:
+            fail(f"dead replicas {dead}: the Executors of {kept} (their "
+                 "plans and CUDA graphs) were not freed")
         # the sound runs read within 2 MiB; one leaked scope adds a whole
         # param_bytes, so a quarter of it lies between the two
-        if abs(mem_after - mem_before) > param_bytes / 4:
+        grew = (mem_after - graphs_after) - (mem_before - graphs_before)
+        if abs(grew) > param_bytes / 4:
             fail(f"a dead replica's scope was not freed: "
-                 f"{(mem_after - mem_before) / 2**20:+.1f} MiB, more than a "
-                 f"quarter of one replica's parameters")
+                 f"{grew / 2**20:+.1f} MiB, more than a quarter of one "
+                 f"replica's parameters")
 
         with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
             ctype = r.headers["Content-Type"]
@@ -2879,8 +2954,7 @@ def phase_serving_ops(dev, model_dir, rng):
                                        reason="tenant_over_quota",
                                        tenant="bronze"), n429),
         "plan-cache misses": (prom_total(
-            samples, "executor_compile_cache_miss_total", source="plan"),
-            want_misses),
+            samples, "executor_compile_cache_miss_total"), want_misses),
         "fetched bytes": (prom_total(
             samples, "executor_fetch_device_to_host_bytes_total"),
             4000 * (2 * sum(ladder) + dispatched)),
@@ -3039,6 +3113,60 @@ def phase_throughput(dev, model_dir):
         log(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count:3d} "
             f"{e.key[:90]}")
     return SERVE_BATCH / med
+
+
+def phase_serving_graph(dev, model_dir):
+    """Phase 4b: ResNet-50 at bucket 32 through one Replica eagerly
+    (disable_graphs) and through another replaying its CUDA graph (the
+    warm-ups: the plan build, the capture, one replay): the replies equal
+    bit for bit, the launches of one replayed forward (46 conv, all on
+    wgmma, 1 matmul, 1 softmax), and Executor.run's median ms of 10
+    each."""
+    import torch
+
+    from paddle_tpu_torch.executor import disable_graphs
+    from paddle_tpu_torch.serving import ModelBundle, Replica
+
+    bundle = ModelBundle(model_dir)
+    x = torch.randn(SERVE_BATCH, 3, 224, 224, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+
+    def median_run(rep):
+        for _ in range(3):
+            out = rep.run({"img": x})
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            out = rep.run({"img": x})   # returns numpy: a device sync
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3, out[0]
+
+    with disable_graphs():
+        eager_ms, eager_out = median_run(Replica(bundle, 0))
+    rep = Replica(bundle, 1)
+    graph_ms, graph_out = median_run(rep)
+    stats = rep.exe.graph_stats()
+    zero_counters()
+    rep.run({"img": x})
+    launches, wgmma = counters(), wgmma_counters()
+    log(f"Executor.run at bucket {SERVE_BATCH}, median of 10: eager "
+        f"{eager_ms:.3f} ms, replayed from its CUDA graph {graph_ms:.3f} ms "
+        f"({eager_ms / graph_ms:.2f}x); {stats['graphs']} graph, pool "
+        f"{stats['pool_bytes'] / 2**20:.1f} MiB; replies equal bit for bit: "
+        f"{np.array_equal(graph_out, eager_out)}; one replayed forward "
+        f"launched conv {launches['conv2d_nhwc']} (wgmma "
+        f"{wgmma['conv2d_nhwc']}), matmul {launches['matmul']}, softmax "
+        f"{launches['softmax']}")
+    if stats["graphs"] != 1:
+        fail(f"the bucket-{SERVE_BATCH} forward was not captured: {stats}")
+    if not np.array_equal(graph_out, eager_out):
+        fail(f"graph replies differ from eager by "
+             f"{np.abs(graph_out - eager_out).max():.3e}")
+    if (launches["conv2d_nhwc"], wgmma["conv2d_nhwc"], launches["matmul"],
+            launches["softmax"]) != (46, 46, 1, 1):
+        fail(f"a replayed forward's launches: {launches}, {wgmma}")
+    return dict(eager_ms=eager_ms, graph_ms=graph_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3445,7 +3573,8 @@ def _train_step(dev, main_prog, startup, loss, want_launches, smi, kind):
                 launches=launches, wgmma=wgmma)
 
 
-def profile_step(run, what, split=None, want=None, host_ranges=()):
+def profile_step(run, what, split=None, want=None, host_ranges=(),
+                 exact=False):
     """Profile ``run()`` twice and keep the second: wall time, device busy
     time and idle share, the top kernels by device time, the layout and
     dtype copies.  ``split`` ({part: kernel-name substrings, or the name
@@ -3453,7 +3582,8 @@ def profile_step(run, what, split=None, want=None, host_ranges=()):
     beside the host's; ``host_ranges`` (names of ``record_function``
     ranges that span other parts' kernels) logs the host time alone
     inside each.  ``want`` ({kernel name: launches}) fails the run
-    if the profiler saw fewer launches of a kernel.  Returns the idle
+    if the profiler saw fewer launches of a kernel, or with ``exact``
+    other than that many.  Returns the idle
     share.  A window whose ``want`` counts fall short, or that saw no
     kernel, is profiled again after a pause, up to 5 windows in all: the
     profiler has dropped a short kernel's record from a window whose
@@ -3487,7 +3617,7 @@ def profile_step(run, what, split=None, want=None, host_ranges=()):
             f"{short} launches of {len(rows)} kernels, want {want}")
     for kernel, n in (want or {}).items():
         seen = sum(r[1] for r in rows if kernel in r[2])
-        if seen < n:
+        if seen < n or (exact and seen != n):
             fail(f"profiled {what}: the profiler saw {seen} launches of "
                  f"{kernel}, not {n}")
         if n:
@@ -3980,6 +4110,334 @@ def _tf_converge(kind):
     if not losses[-1] < CONVERGE_LOSS:
         fail(f"the small transformer ({kind}) did not learn the task: loss "
              f"{losses[-1]:.4f} >= {CONVERGE_LOSS}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10d: the rest of the executor (CUDA graphs, donation, the
+# verifier and the optimizer, recompute, build_callable) on the
+# transformer step at full width
+# ---------------------------------------------------------------------------
+
+
+def _clone_state(state):
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    scope.values.update({n: v.clone() for n, v in state.items()})
+    return scope
+
+
+def _graph_steps(exe, main_prog, loss, feed, scope, kind, graphs, smi):
+    """2 warm-up and 5 timed steps of ``main_prog`` (the recompute
+    transformer step, ``optimize_program=True``) through ``exe``, eagerly
+    or with ``graphs`` (the warm-ups: the plan build, then the capture):
+    the losses, the launch counters over the 5 timed steps, tokens/s,
+    peak memory, and whether the donated parameters and moments kept
+    their storage over the timed steps."""
+    import torch
+
+    from paddle_tpu_torch.executor import disable_graphs
+
+    tokens = TF_BATCH * TF_SEQ
+    losses = []
+    ctx = disable_graphs() if not graphs else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            (lv,) = exe.run(main_prog, feed=feed, fetch_list=[loss],
+                            scope=scope, optimize_program=True)
+            losses.append(float(lv))
+        plan = next(p for p in exe._cache.values()
+                    if loss.name in p.fetch_names)
+        ptrs = {n: scope.get(n).data_ptr() for n in plan.donated}
+        torch.cuda.synchronize()
+        zero_counters()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main_prog, feed=feed, fetch_list=[loss],
+                            scope=scope, optimize_program=True)
+            times.append(time.perf_counter() - t0)  # numpy fetch: a sync
+            losses.append(float(lv))
+        launches, wgmma = counters(), wgmma_counters()
+        peak = torch.cuda.max_memory_allocated()
+    moved = sorted(n for n in plan.donated
+                   if scope.get(n).data_ptr() != ptrs[n])
+    tok_s = 5 * tokens / sum(times)
+    what = "graphs" if graphs else "eager"
+    log(f"recompute transformer step, {kind}, {what}: {tok_s:.1f} tokens/s "
+        f"over 5 timed steps after 2 warm-up steps (median "
+        f"{statistics.median(times) * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); losses "
+        f"{losses}; launches over the 5 {dict((k, v) for k, v in launches.items() if v)}; "
+        f"peak memory allocated {peak / 2**30:.2f} GiB on {smi}; "
+        f"{len(plan.donated)} donated tensors, {len(moved)} moved storage")
+    if moved:
+        fail(f"donated state changed storage across steps ({what}): "
+             f"{moved[:5]}")
+    if graphs and not plan.capturable:
+        fail(f"the recompute transformer step was not captured: "
+             f"{plan.eager_reasons}")
+    return dict(losses=losses, launches=launches, wgmma=wgmma,
+                tokens_per_s=tok_s, peak_bytes=peak,
+                ms=statistics.median(times) * 1e3)
+
+
+def _graph_vs_eager(dev, smi, main_prog, loss, feed, state, kind, want):
+    """The recompute step eagerly and with graphs from the same state:
+    losses within 1e-6 relative (and whether bit for bit), the counters
+    equal, and equal to 5 x the launches the program implies."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    runs = {}
+    for graphs in (False, True):
+        scope = _clone_state(state)
+        exe = pt.Executor()
+        runs[graphs] = _graph_steps(exe, main_prog, loss, feed, scope, kind,
+                                    graphs, smi)
+        runs[graphs]["scope"] = scope
+        runs[graphs]["stats"] = exe.graph_stats()
+        runs[graphs]["report"] = exe.optimize_report(main_prog, feed,
+                                                     (loss.name,))
+        del exe
+    eager, graph = runs[False], runs[True]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(graph["losses"],
+                                                    eager["losses"]))
+    bitwise = graph["losses"] == eager["losses"]
+    same_state = all(torch.equal(graph["scope"].get(n),
+                                 eager["scope"].get(n))
+                     for n in eager["scope"].keys())
+    log(f"{kind}: graph losses vs eager: largest relative difference "
+        f"{rel:.3e}, bit for bit: {bitwise}; state after 7 steps bit for "
+        f"bit: {same_state}; the graph's pool "
+        f"{graph['stats']['pool_bytes'] / 2**30:.2f} GiB; graph "
+        f"{graph['tokens_per_s'] / eager['tokens_per_s']:.3f}x the eager "
+        "tokens/s")
+    if rel > 1e-6:
+        fail(f"{kind}: graph losses {graph['losses']} differ from eager "
+             f"{eager['losses']} by {rel:.3e} relative")
+    if graph["launches"] != eager["launches"]:
+        fail(f"{kind}: launches under replay {graph['launches']} != eager "
+             f"{eager['launches']}")
+    five = {k: 5 * v for k, v in want.items()}
+    if eager["launches"] != five:
+        fail(f"{kind}: 5 recompute steps launched {eager['launches']}, the "
+             f"program implies {five}")
+    for r in runs.values():
+        del r["scope"]
+    torch.cuda.empty_cache()
+    return eager, graph
+
+
+def phase_executor_graphs(dev, smi):
+    """Phase 10d: the recompute transformer step at full width (B 8, S
+    1024, TF_CONFIG with recompute=True: each block and the head one
+    segment) with check_program on and optimize_program=True.  Logs the
+    OptReport and the donation mask; a dangling fetch raises
+    ProgramVerificationError before any launch; the step eagerly
+    (disable_graphs) and captured as a CUDA graph, f32 and under AMP, 2
+    warm-up and 5 timed steps each from one state: losses equal within
+    1e-6 relative, the counters equal (and 5 x launches_implied: matmul
+    34, flash forward 8, dq 4, dk/dv 4), the donated parameters and
+    moments keep their storage, tokens/s, peak memory; the idle shares
+    profiled in a child process (PROFILE_GRAPHS); recompute against the
+    direct program: the first loss and the parameters after one step
+    within TF_PARITY_TOL of max, the peak memory of both; build_callable's
+    5 chained calls captured in one torch.cuda.graph: the 5th loss
+    equal to the 5th Executor.run step's within 1e-6 relative."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis import ProgramVerificationError
+    from paddle_tpu_torch.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    config = dict(TF_CONFIG, recompute=True)
+    main_prog, startup, loss, _ = build_transformer_program(TF_SEQ,
+                                                            config=config)
+    want = launches_implied(main_prog)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(flash_attention_fwd=8, flash_attention_dq=4,
+                  flash_attention_dkv=4, matmul=34)
+    if want != expect:
+        fail(f"unexpected recompute transformer program: launches {want}")
+    want_amp = launches_implied(main_prog, amp=True)
+    log(f"the recompute program implies a step: {want}; under AMP "
+        f"{ {k: v for k, v in want_amp.items() if v} }")
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    state = {n: v.clone() for n, v in scope.values.items()}
+    del exe, scope
+    feed = transformer_step_feed(dev)
+    FLAGS.set("check_program", True)
+    try:
+        # a dangling fetch: rejected at the plan miss, before any launch
+        zero_counters()
+        try:
+            pt.Executor().run(main_prog, feed=feed,
+                              fetch_list=["no_such_var"], scope=pt.Scope())
+        except ProgramVerificationError as exc:
+            launched = {k: v for k, v in counters().items() if v}
+            log(f"a dangling fetch under check_program: "
+                f"{str(exc).splitlines()[1].strip()}; launches {launched}")
+            if launched or "PVE02" not in str(exc):
+                fail("the dangling fetch launched kernels or was not PVE02")
+        else:
+            fail("a dangling fetch under check_program did not raise")
+        eager, graph = _graph_vs_eager(dev, smi, main_prog, loss, feed,
+                                       state, "f32", want)
+        # the rewrite and the donation mask
+        report = eager["report"]
+        held = {n: e.reason for n, e in report.donation.items()
+                if not e.eligible}
+        log(f"OptReport of the recompute step: ops {report.ops_before} -> "
+            f"{report.ops_after} in {report.rounds} round(s): "
+            f"constant-fold {report.folds}, cse {report.cse_hits}, dce "
+            f"{report.dce_ops_removed} ops and {report.dce_vars_removed} "
+            f"vars; donation mask: "
+            f"{sum(e.eligible for e in report.donation.values())} of "
+            f"{len(report.donation)} state names eligible; held: {held}")
+        with pt.amp.amp_guard(True):
+            amp_eager, amp_graph = _graph_vs_eager(
+                dev, smi, main_prog, loss, feed, state, "AMP bf16", want_amp)
+    finally:
+        FLAGS.set("check_program", False)
+
+    # recompute against the direct program, one step from the same state
+    direct_prog, _, direct_loss, _ = build_transformer_program(
+        TF_SEQ, config=TF_CONFIG)
+    one = {}
+    for kind, prog, lossvar in (("direct", direct_prog, direct_loss),
+                                ("recompute", main_prog, loss)):
+        scope = _clone_state(state)
+        exe = pt.Executor()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (lv,) = exe.run(prog, feed=feed, fetch_list=[lossvar], scope=scope)
+        torch.cuda.synchronize()
+        names = sorted(n for n in state if n.endswith(".w_0"))[:4]
+        one[kind] = dict(loss=float(lv), peak=torch.cuda.max_memory_allocated(),
+                         params={n: scope.get(n).cpu().numpy()
+                                 for n in names})
+        del exe, scope
+        torch.cuda.empty_cache()
+    d, r = one["direct"], one["recompute"]
+    err = _scaled_err(np.float32(r["loss"]), np.float32(d["loss"]))
+    errs = {n: _scaled_err(r["params"][n], d["params"][n])
+            for n in d["params"]}
+    log(f"recompute vs direct, one step: loss {r['loss']:.6f} vs "
+        f"{d['loss']:.6f} (scaled err {err:.3e}); parameters after it "
+        f"{ {n: f'{e:.3e}' for n, e in errs.items()} }; peak memory "
+        f"{r['peak'] / 2**30:.2f} GiB vs {d['peak'] / 2**30:.2f} GiB "
+        f"direct")
+    if max([err] + list(errs.values())) > TF_PARITY_TOL:
+        fail(f"recompute vs direct beyond {TF_PARITY_TOL}: {err}, {errs}")
+
+    # build_callable: 5 chained calls captured in one graph
+    exe = pt.Executor()
+    fn, st, feeds, uses_rng = exe.build_callable(
+        main_prog, feed, [loss.name], _clone_state(state))
+    if uses_rng:
+        fail("the transformer step's callable takes a seed")
+    with torch.no_grad():
+        fn(st, feeds)       # warm-up outside the capture
+    torch.cuda.synchronize()
+    zero_counters()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        s = st
+        outs = []
+        for _ in range(5):
+            (lv,), s = fn(s, feeds)
+            outs.append(lv)
+    captured = {k: v for k, v in counters().items() if v}
+    g.replay()
+    torch.cuda.synchronize()
+    chained = [float(v) for v in outs]
+    rel = abs(chained[4] - eager["losses"][4]) / abs(eager["losses"][4])
+    log(f"build_callable: 5 chained calls in one CUDA graph (launches "
+        f"captured {captured}): losses {chained}; the 5th against the 5th "
+        f"Executor.run step {eager['losses'][4]}: {rel:.3e} relative")
+    if rel > 1e-6:
+        fail(f"build_callable's chained 5th loss {chained[4]} vs "
+             f"{eager['losses'][4]}")
+    del g, s, outs, st, feeds, fn, exe, state
+    torch.cuda.empty_cache()
+
+    idle = profile_in_child(PROFILE_GRAPHS, "graph and eager steps")
+    eager["idle_share"], graph["idle_share"] = idle["eager"], idle["graph"]
+    amp_eager["idle_share"] = idle["amp_eager"]
+    amp_graph["idle_share"] = idle["amp_graph"]
+    for kind, r in (("f32 eager", eager), ("f32 graphs", graph),
+                    ("AMP eager", amp_eager), ("AMP graphs", amp_graph)):
+        log(f"recompute transformer step, {kind}: {r['tokens_per_s']:.1f} "
+            f"tokens/s, {r['ms']:.1f} ms, peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB, idle share {r['idle_share']}")
+    log(f"phase 10d wall time {time.perf_counter() - t_phase:.1f} s")
+    per_step = {k: v // 5 for k, v in graph["launches"].items()}
+    per_step_amp = {k: v // 5 for k, v in amp_graph["launches"].items()}
+    return dict(f32=graph, amp=amp_graph, f32_eager=eager,
+                amp_eager=amp_eager, launches=per_step,
+                launches_amp=per_step_amp,
+                wgmma={k: v // 5 for k, v in graph["wgmma"].items()},
+                wgmma_amp={k: v // 5 for k, v in amp_graph["wgmma"].items()})
+
+
+def profile_graph_steps():
+    """The body of ``chip_smoke.py --profile-graph-steps``: one profiled
+    recompute transformer step at B 8, S 1024, eagerly and replayed from
+    its CUDA graph, f32 and under AMP (profile_step after 2 warm-up steps:
+    for the graph, the plan build and the capture).  In each traced step
+    the profiler must see exactly the matmul, flash forward, dq and dk/dv
+    launches that ``launches_implied`` derives from the program: a
+    replay's launch counters are the capture's change added again, and
+    this holds them to the kernels the replay really ran.  Prints
+    {path: idle share} as the last line."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.executor import disable_graphs
+
+    dev = torch.device("cuda", 0)
+    prog, startup, loss, _ = build_transformer_program(
+        TF_SEQ, config=dict(TF_CONFIG, recompute=True))
+    feed = transformer_step_feed(dev)
+    idle = {}
+    for amp in (False, True):
+        implied = launches_implied(prog, amp=amp)
+        sfx, c = ("_bf16", "_bf16") if amp else ("_tf32", "")
+        # every product of the step on a wgmma engine (PERF.md section 6)
+        want = {("wgmma_gemm_kernel" if amp else "wgmma_tf32_kernel"):
+                implied[f"matmul{c}"],
+                f"flash_fwd{sfx}_kernel": implied[f"flash_attention_fwd{c}"],
+                f"flash_dq{sfx}_kernel": implied[f"flash_attention_dq{c}"],
+                f"flash_dkv{sfx}_kernel": implied[f"flash_attention_dkv{c}"]}
+        if min(want.values()) < 1:
+            fail(f"the recompute step implies no launch of a kernel: {want}")
+        for graphs in (False, True):
+            key = ("amp_" if amp else "") + ("graph" if graphs else "eager")
+            ctx = disable_graphs() if not graphs else contextlib.nullcontext()
+            with pt.amp.amp_guard(amp), ctx:
+                exe = pt.Executor()
+                scope = pt.Scope()
+                exe.run(startup, scope=scope)
+
+                def run():
+                    exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+
+                for _ in range(2):
+                    run()
+                if graphs and not exe.graph_stats()["graphs"]:
+                    fail("the recompute step was not captured")
+                idle[key] = profile_step(run, f"recompute step ({key})",
+                                         want=want, exact=True)
+            del exe, scope
+            torch.cuda.empty_cache()
+    print(json.dumps(idle), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5065,7 +5523,7 @@ def seq2seq_feed(batch, seq, seed=0, ragged=False, device=None):
 def seq2seq_parts(trainer):
     """(main program, startup, cost var, params_grads, the step block's
     parameters) of a Trainer's topology."""
-    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.analysis import dataflow
 
     topo = trainer._sgd.topology
     prog = topo.main_program
@@ -5073,7 +5531,7 @@ def seq2seq_parts(trainer):
     params_grads = [(p, block.var(p.name + "@GRAD"))
                     for p in prog.all_parameters()]
     rnn = next(op for op in block.ops if op.type == "recurrent")
-    step_params = sorted(n for n in framework._sub_block_external_reads(rnn)
+    step_params = sorted(n for n in dataflow.sub_block_external_reads(rnn)
                          if n in {p.name for p, _ in params_grads})
     return prog, topo.startup_program, topo.cost_var, params_grads, step_params
 
@@ -8520,11 +8978,51 @@ def phase_op_tail(dev, smi):
     return dict(ops=errs, ssd=ssd, nce=nce)
 
 
+def graph_pools():
+    """(pools, bytes): the CUDA graphs' private memory pools the caching
+    allocator still holds, after freeing what nothing references (a dead
+    graph's pool goes with it).  Every capture has a pool of its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pool != (0, 0):
+            pools[pool] = pools.get(pool, 0) + seg["total_size"]
+    return len(pools), sum(pools.values())
+
+
 def timed(fn, *args, **kwargs):
+    """Run one phase; log its seconds and what the Executors' CUDA places
+    did in it, from the host events (``executor.capture`` with its pool
+    and seconds, ``executor.eager_plan`` with the first reason), and the
+    graph pools the allocator holds after it."""
+    from paddle_tpu_torch.observability.events import GLOBAL_EVENTS
+
+    ev0 = GLOBAL_EVENTS.now() * 1e6
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     tag = "".join(f", {k}={v}" for k, v in kwargs.items())
     log(f"[phase {fn.__name__}{tag}: {time.perf_counter() - t0:.1f} s]")
+    events = [e for e in GLOBAL_EVENTS.events() if e["ts"] >= ev0]
+    graphs = [e for e in events if e["name"] == "executor.capture"]
+    eager = sorted({(e["args"]["program"], e["args"]["where"],
+                     e["args"]["why"])
+                    for e in events if e["name"] == "executor.eager_plan"})
+    pools, pool_bytes = graph_pools()
+    log(f"  graphs: {len(graphs)} captured ("
+        + ", ".join(f"{e['args']['program']} pool "
+                    f"{e['args']['pool_bytes'] / 2**20:.1f} MiB in "
+                    f"{e['dur'] / 1e6:.2f} s" for e in graphs)
+        + f"); {len(eager)} plans eager"
+        + "".join(f"; {lbl} {where}: {why}" for lbl, where, why in eager)
+        + f"; held after the phase: {pools} graph pools, "
+        f"{pool_bytes / 2**20:.1f} MiB")
     return out
 
 
@@ -8549,6 +9047,9 @@ def main():
         return
     if sys.argv[1:] == [PROFILE_TAIL]:
         profile_tail_steps()
+        return
+    if sys.argv[1:] == [PROFILE_GRAPHS]:
+        profile_graph_steps()
         return
     t_start = time.perf_counter()
 
@@ -8674,6 +9175,7 @@ def main():
         ops_launches, ops_wgmma = timed(phase_serving_ops, dev, model_dir,
                                         rng)
         img_per_s = timed(phase_throughput, dev, model_dir)
+        serve_graph = timed(phase_serving_graph, dev, model_dir)
 
     timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
     train = timed(phase_train_step, dev, main_prog, startup, loss,
@@ -8699,6 +9201,7 @@ def main():
     timed(phase_tf_amp_parity, dev)
     tf_amp = timed(phase_tf_train_step, dev, smi, amp=True, f32=tf)
     timed(phase_tf_converge, dev, amp=True)
+    graphs = timed(phase_executor_graphs, dev, smi)
 
     timed(phase_lstm_parity, dev)
     lstm = timed(phase_lstm_train_step, dev, smi)
@@ -8764,6 +9267,9 @@ def main():
                "serving_ops": ops_launches,
                "transformer_train_step": tf["launches"],
                "transformer_amp_train_step": tf_amp["launches"],
+               "transformer_recompute_graph_step": graphs["launches"],
+               "transformer_recompute_graph_amp_step":
+                   graphs["launches_amp"],
                "lstm_train_step": lstm["launches"],
                "lstm_amp_train_step": lstm_amp["launches"],
                "lod_train_step": lod["launches"],
@@ -8803,6 +9309,9 @@ def main():
                      "amp_train_step": amp_train["wgmma"],
                      "transformer_train_step": tf["wgmma"],
                      "transformer_amp_train_step": tf_amp["wgmma"],
+                     "transformer_recompute_graph_step": graphs["wgmma"],
+                     "transformer_recompute_graph_amp_step":
+                         graphs["wgmma_amp"],
                      "lstm_train_step": lstm["wgmma"],
                      "lstm_amp_train_step": lstm_amp["wgmma"],
                      "lod_train_step": lod["wgmma"],
@@ -8870,7 +9379,17 @@ def main():
         f"{tf['idle_share']:.3f}; under AMP (bf16) "
         f"{tf_amp['tokens_per_s']:.1f} tokens/s, peak "
         f"{tf_amp['peak_bytes'] / 2**30:.2f} GiB, idle share "
-        f"{tf_amp['idle_share']:.3f}; LSTM classifier training: "
+        f"{tf_amp['idle_share']:.3f}; recompute transformer step "
+        + "; ".join(f"{kind} {r['tokens_per_s']:.1f} tokens/s, peak "
+                    f"{r['peak_bytes'] / 2**30:.2f} GiB, idle share "
+                    f"{r['idle_share']}"
+                    for kind, r in (("f32 eager", graphs["f32_eager"]),
+                                    ("f32 graphs", graphs["f32"]),
+                                    ("AMP eager", graphs["amp_eager"]),
+                                    ("AMP graphs", graphs["amp"])))
+        + f"; Executor.run at bucket {SERVE_BATCH} eager "
+        f"{serve_graph['eager_ms']:.3f} ms, graph "
+        f"{serve_graph['graph_ms']:.3f} ms; LSTM classifier training: "
         f"{lstm['samples_per_s']:.1f} samples/s = "
         f"{lstm['tokens_per_s']:.1f} tokens/s at B {LSTM_BATCH} T {LSTM_SEQ}"
         f" (f32), peak {lstm['peak_bytes'] / 2**30:.3f} GiB, idle share "

@@ -23,7 +23,7 @@ from paddle_tpu_torch.executor import (Executor, Scope, global_scope,
 from paddle_tpu_torch.framework import (CPUPlace, CUDAPlace, Program,
                                         default_main_program,
                                         default_startup_program,
-                                        program_guard)
+                                        program_guard, recompute_scope)
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
@@ -32,5 +32,6 @@ __all__ = [
     "default_startup_program", "evaluator", "framework", "global_scope",
     "initializer", "io", "layers", "lr_scheduler", "models", "nets",
     "optimizer", "param_attr",
-    "params_from_numpy", "program_guard", "regularizer", "scope_guard",
+    "params_from_numpy", "program_guard", "recompute_scope", "regularizer",
+    "scope_guard",
 ]

@@ -128,6 +128,9 @@ def synthesize_grad_info(grad_type: str) -> OpInfo:
     """Build (and register) an OpInfo for ``<base>_grad`` on demand."""
     base = OpRegistry.get(grad_type[: -len("_grad")])
     lower = base.grad_lower if base.grad_lower is not None else generic_grad_lower
-    info = OpInfo(type=grad_type, lower=lower, stop_gradient=True)
+    # a grad op replays (or mirrors) its forward: it reads on the host
+    # what the forward reads
+    info = OpInfo(type=grad_type, lower=lower, stop_gradient=True,
+                  host_sync=base.host_sync)
     OpRegistry._ops[grad_type] = info
     return info

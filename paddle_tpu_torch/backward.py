@@ -7,13 +7,15 @@ and return (param, grad) pairs for the optimizer.  For the same Program
 it emits the same ops, names and attrs as the JAX package, so a program
 trained by either package serialises the same.
 
-Rematerialization segments (``recompute_scope``) are not ported yet:
-a forward op that carries one raises ``NotImplementedError``.
+Consecutive relevant ops of one rematerialization segment
+(``recompute_scope``) get one ``recompute_segment_grad`` op in place of
+their per-op grads (``paddle_tpu/backward.py:102-151, 221-245``): it
+replays the segment's forward from the segment's external inputs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from paddle_tpu_torch.framework import (Block, Operator, Parameter, Variable,
                                         grad_var_name, is_float_dtype,
@@ -87,6 +89,58 @@ def _make_grad_op_desc(
     return (op.type + "_grad", inputs, outputs, attrs)
 
 
+def _append_segment_grad(block, seg_id, fwd_ops, no_grad, _settle,
+                         _contribute, pending):
+    """One grad op for a whole rematerialization segment (forward-order
+    ``fwd_ops``): inputs are the segment's external activations/params
+    plus the settled grads of its externally-consumed outputs; outputs
+    are grads of every differentiable external input."""
+    produced: Set[str] = set()
+    ext_in: List[str] = []
+    for op in fwd_ops:
+        for ns in op.inputs.values():
+            for n in ns:
+                if n and n not in produced and n not in ext_in:
+                    ext_in.append(n)
+        for ns in op.outputs.values():
+            produced.update(n for n in ns if n)
+
+    # externally-consumed outputs = those with grad contributions from
+    # already-processed (later) consumers
+    ext_out = [n for n in sorted(produced) if pending.get(n)]
+    if not ext_out:
+        return
+    gout_names = []
+    for n in ext_out:
+        g = _settle(n)
+        gout_names.append(g if g is not None else "")
+
+    gin_names = []
+    for n in ext_in:
+        if _wants_grad(block, n, no_grad):
+            gn = grad_var_name(n)
+            if pending.get(n):
+                gn = unique_name(gn + "@RENAME")
+            _ensure_grad_var(block, n, gn)
+            gin_names.append(gn)
+            _contribute(n, gn)
+        else:
+            gin_names.append("")
+
+    key_name = f"__segkey_{seg_id}__"
+    ins = {"X": list(ext_in), "OutGrad": gout_names}
+    if block.find_var(key_name) is not None:
+        ins["SegKey"] = [key_name]
+    block.append_op(
+        type="recompute_segment_grad",
+        inputs=ins,
+        outputs={"X@GRAD": gin_names},
+        attrs={"__seg_ops__": list(fwd_ops),
+               "__seg_inputs__": list(ext_in),
+               "__seg_outputs__": list(ext_out),
+               "__seg_id__": seg_id})
+
+
 def append_backward(
     loss: Variable,
     parameter_list: Optional[Sequence[str]] = None,
@@ -105,10 +159,6 @@ def append_backward(
         if OpRegistry.get(op.type, none_ok=True) is None:
             continue
         if relevant & set(op.output_arg_names):
-            if op.attr("__recompute_seg__", None) is not None:
-                raise NotImplementedError(
-                    "paddle_tpu_torch does not port recompute segments "
-                    f"yet (op {op.type} carries one)")
             relevant_ops.append(op)  # already reverse order
             relevant |= set(op.input_arg_names)
 
@@ -145,7 +195,25 @@ def append_backward(
         pending[name] = [target]
         return target
 
-    for op in relevant_ops:
+    def _contribute(name: str, grad_name: str):
+        pending.setdefault(name, []).append(grad_name)
+
+    # group consecutive relevant ops of one rematerialization segment:
+    # one recompute_segment_grad op replaces their per-op grads
+    grouped: List[Any] = []
+    for op in relevant_ops:  # already reverse order
+        seg = op.attr("__recompute_seg__", None)
+        if seg is not None and grouped and grouped[-1][0] == seg:
+            grouped[-1][1].append(op)
+        else:
+            grouped.append((seg, [op]))
+
+    for seg, seg_rev_ops in grouped:
+        if seg is not None:
+            _append_segment_grad(block, seg, list(reversed(seg_rev_ops)),
+                                 no_grad, _settle, _contribute, pending)
+            continue
+        op = seg_rev_ops[0]
         desc = _make_grad_op_desc(op, block, no_grad)
         if desc is None:
             continue
@@ -180,7 +248,7 @@ def append_backward(
                     gn = unique_name(gn + "@RENAME")
                 if fwd_n is not None:
                     _ensure_grad_var(block, fwd_n, gn)
-                    pending.setdefault(fwd_n, []).append(gn)
+                    _contribute(fwd_n, gn)
                 fixed.append(gn)
             goutputs[slot] = fixed
 

@@ -5,9 +5,9 @@ init_gflags, pybind/pybind.cc:441).
 
 The definitions and defaults are the JAX package's.  Two flags act on
 the port's ``Executor``: ``trace_ops`` wraps each op's run in
-``torch.profiler.record_function(op.type)`` and keys the plan cache,
-and ``check_program`` raises ``NotImplementedError`` there, since the
-static verifier (``analysis/``) is not ported yet."""
+``torch.profiler.record_function(op.type)``, keys the plan cache and
+keeps a plan off its CUDA graph, and ``check_program`` runs the static
+verifier's error tier (``analysis/``) at every plan-cache miss."""
 
 from __future__ import annotations
 
@@ -58,9 +58,8 @@ FLAGS.define("num_passes", 1, "training passes")
 FLAGS.define("parallel_nn", False, "model-parallel layer placement")
 FLAGS.define("port", 20134, "pserver base port")
 FLAGS.define("num_gradient_servers", 1, "sync-SGD barrier width")
-# run the static verifier over a program at every plan-cache miss; the
-# verifier is not ported, so the Executor raises when this is set.
-# PADDLE_CHECK_PROGRAM seeds the default.
+# run the static verifier's error tier over a program at every plan-cache
+# miss (analysis.check_or_raise).  PADDLE_CHECK_PROGRAM seeds the default.
 FLAGS.define("check_program",
              os.environ.get("PADDLE_CHECK_PROGRAM", "").lower()
              in ("1", "true", "yes"),

@@ -305,6 +305,13 @@ class Operator:
             k: _as_name_list(v) for k, v in (outputs or {}).items()
         }
         self._attrs: Dict[str, Any] = _AttrDict(self, attrs or {})
+        if _RECOMPUTE_SEG[0] is not None:
+            self._attrs["__recompute_seg__"] = _RECOMPUTE_SEG[0]
+            # a stable index per op: the backward replay may run a pruned
+            # subset of the segment, so each random op draws from the
+            # segment's key folded with its own index, not its position
+            _RECOMPUTE_OP_IDX[0] += 1
+            self._attrs["__seg_rng_idx__"] = _RECOMPUTE_OP_IDX[0]
         # registry-side infer_shape at append time, like the reference's
         # compile-time InferShape
         from paddle_tpu_torch import registry
@@ -351,6 +358,11 @@ class Operator:
                 return {"__block__": v.idx}
             if isinstance(v, np.ndarray):
                 return {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
+            if (isinstance(v, list) and v
+                    and all(isinstance(o, Operator) for o in v)):
+                # recompute_segment_grad's __seg_ops__: a one-way dump
+                # (backward ops are pruned from inference exports)
+                return {"__seg_ops__": [o.to_dict() for o in v]}
             return v
 
         def _ser(k, v):
@@ -574,23 +586,15 @@ class Program:
 
     def prune(self, targets) -> "Program":
         """Dead-op elimination given fetch targets: keeps the ops whose
-        outputs (transitively) feed a target, and ``feed`` ops.  A kept
+        outputs (transitively) feed a target, and ``feed`` ops; a kept
         op that owns a sub-block also keeps every variable the sub-block
-        reads from the enclosing scope (``_sub_block_external_reads``),
-        even where the op's own inputs do not name it."""
-        needed = set(_as_name_list(targets))
-        p = self.clone()
-        block = p.global_block()
-        kept: List[Operator] = []
-        for op in reversed(block.ops):
-            if needed & set(op.output_arg_names) or op.type == "feed":
-                kept.append(op)
-                needed |= set(op.input_arg_names)
-                needed |= _sub_block_external_reads(op)
-        block.ops = list(reversed(kept))
-        p._version += 1
-        p.invalidate_cache()
-        return p
+        reads from the enclosing scope.  Delegates to the analysis
+        layer's fetch-driven backward slicer (analysis/optimize.py),
+        which the optimizer's dce pass shares."""
+        from paddle_tpu_torch.analysis.optimize import backward_slice
+
+        return backward_slice(self, _as_name_list(targets),
+                              keep_side_effects=False)
 
 
 def _attr_de(program: Program, v):
@@ -602,24 +606,6 @@ def _attr_de(program: Program, v):
     if isinstance(v, dict) and "__ndarray__" in v:
         return np.asarray(v["__ndarray__"], dtype=v["dtype"])
     return v
-
-
-def _sub_block_external_reads(op) -> set:
-    """Variables an op's sub-blocks (Block-valued attrs) read from the
-    enclosing scope: the union of the sub-block ops' inputs
-    (recursively) less the names produced inside the sub-block before
-    they are read (``paddle_tpu/framework.py:598-611``)."""
-    reads: set = set()
-    for v in op.attrs.values():
-        if not isinstance(v, Block):
-            continue
-        produced: set = set()
-        for sub_op in v.ops:
-            reads |= set(sub_op.input_arg_names) - produced
-            reads |= _sub_block_external_reads(sub_op)
-            produced |= set(sub_op.output_arg_names)
-    reads.discard("")
-    return reads
 
 
 _OPS_WITH_IS_TEST = frozenset({"dropout", "batch_norm"})
@@ -672,6 +658,49 @@ def switch_startup_program(p: Program) -> Program:
     global _startup_program
     old, _startup_program = _startup_program, p
     return old
+
+
+_RECOMPUTE_SEG = [None]
+_RECOMPUTE_COUNTER = [0]
+_RECOMPUTE_OP_IDX = [0]
+
+
+@contextlib.contextmanager
+def recompute_scope():
+    """Mark every op appended inside this scope as one rematerialization
+    segment (``paddle_tpu/framework.py:671-705``): ``append_backward``
+    emits one ``recompute_segment_grad`` op for the segment, which
+    replays the segment's forward from its external inputs under
+    autograd, so the Executor drops the segment's activations at the
+    segment's end instead of keeping them for the backward: device
+    memory traded for a second forward.  Random ops inside the segment
+    draw the same values in the forward and in the replay (each from
+    the segment's key, which a ``segment_rng_key`` op appended before
+    the segment draws once).  Host-side side effects (print/save ops)
+    inside the scope fire again during the replay — keep them outside.
+
+    Usage::
+
+        with fluid.recompute_scope():
+            h = fluid.layers.fc(h, 4096, act="relu")
+            h = fluid.layers.fc(h, 4096, act="relu")
+    """
+    _RECOMPUTE_COUNTER[0] += 1
+    seg = _RECOMPUTE_COUNTER[0]
+    prev = _RECOMPUTE_SEG[0]
+    # the segment key op runs OUTSIDE the segment: the forward and the
+    # backward replay both derive their randomness from its output
+    blk = default_main_program().global_block()
+    key_name = f"__segkey_{seg}__"
+    blk.create_var(name=key_name, shape=(), dtype="int32",
+                   stop_gradient=True)
+    blk.append_op(type="segment_rng_key", outputs={"Out": [key_name]},
+                  attrs={"__seg_id__": seg})
+    _RECOMPUTE_SEG[0] = seg
+    try:
+        yield
+    finally:
+        _RECOMPUTE_SEG[0] = prev
 
 
 @contextlib.contextmanager

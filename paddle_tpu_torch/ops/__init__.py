@@ -7,6 +7,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     control_flow_ops,
     ctc_ops,
     detection_ops,
+    io_ops,
     lod_ops,
     loss_ops,
     math_ops,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.autodiff import generic_grad_lower
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as kflash
 from paddle_tpu_torch.lod import rewrap, unwrap
 from paddle_tpu_torch.ops.common import grad_in, grad_out
@@ -155,7 +156,11 @@ def _sdp_attention(ctx):
     v = unwrap(ctx.input("V"))
     causal = ctx.attr("causal", False)
     if _kernel_path(q, k):
-        out, lse = kflash.flash_attention_fwd(q, k, v, causal)
+        # a recompute segment's replay records: through the autograd
+        # function, whose backward is the dq and dk/dv kernels
+        fwd = (kflash.FlashAttention.apply if _build.recording(q, k, v)
+               else kflash.flash_attention_fwd)
+        out, lse = fwd(q, k, v, causal)
         ctx.values[lse_name(ctx.op.output("Out")[0])] = lse
     else:
         out = local_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -56,7 +56,8 @@ def clip(x, lo, hi):
     """``jnp.clip``: min(max(x, lo), hi) over tensor bounds, whose backward
     splits a tie's gradient in half between x and the bound, as JAX's
     max and min do (``torch.clamp`` passes all of it to x)."""
-    lo, hi = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    lo, hi = (v.to(x.dtype) if isinstance(v, torch.Tensor)
+              else torch.full((), v, dtype=x.dtype, device=x.device)
               for v in (lo, hi))
     return torch.minimum(torch.maximum(x, lo), hi)
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch import framework
+from paddle_tpu_torch.analysis import dataflow
 from paddle_tpu_torch.lod import LoDArray, LoDRankTable, unwrap
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import SkipInferShape, register_op
@@ -48,7 +48,7 @@ def _holds(cond) -> bool:
 
 def _external(ctx):
     """The values ``ctx.op``'s sub-block reads from the enclosing scope."""
-    return {n: ctx.values[n] for n in framework._sub_block_external_reads(
+    return {n: ctx.values[n] for n in dataflow.sub_block_external_reads(
         ctx.op) if n in ctx.values}
 
 
@@ -174,8 +174,8 @@ def _max_sequence_len(ctx):
     elif isinstance(x, LoDArray):
         out = x.seq_lens().max().reshape(())
     else:
-        out = torch.tensor(unwrap(x).shape[1], dtype=torch.int32,
-                           device=unwrap(x).device)
+        out = torch.full((), unwrap(x).shape[1], dtype=torch.int32,
+                         device=unwrap(x).device)
     ctx.set_output("Out", out)
 
 
@@ -194,7 +194,8 @@ def _select_where(ctx):
 @register_op("is_empty", inputs=("X",), stop_gradient=True)
 def _is_empty(ctx):
     x = unwrap(ctx.input("X"))
-    ctx.set_output("Out", torch.tensor(x.numel() == 0, device=x.device))
+    ctx.set_output("Out", torch.full((), x.numel() == 0, dtype=torch.bool,
+                                     device=x.device))
 
 
 def _infer_multiplex_shape(op, block):

@@ -60,7 +60,8 @@ def iou(a, b):
 
 
 @register_op("prior_box", inputs=("Input", "Image"),
-             outputs=("Boxes", "Variances"), stop_gradient=True)
+             outputs=("Boxes", "Variances"), stop_gradient=True,
+             host_sync="copies its box sizes and variances from the host")
 def _prior_box(ctx):
     """SSD anchors of an (N, C, H, W) feature map for an (N, C, IH, IW)
     image: (H, W, P, 4) normalised corner boxes and their variances."""
@@ -153,7 +154,7 @@ def nms_picks(scores, overlaps, score_threshold, nms_threshold, rounds):
     remaining picks are -1, as the fixed-length rounds would give."""
     K, M = scores.shape
     alive = scores > score_threshold
-    ninf = torch.tensor(float("-inf"), device=scores.device)
+    ninf = torch.full((), float("-inf"), device=scores.device)
     ar = torch.arange(M, device=scores.device)
     picks = torch.full((K, rounds), -1, dtype=torch.long,
                        device=scores.device)
@@ -170,7 +171,9 @@ def nms_picks(scores, overlaps, score_threshold, nms_threshold, rounds):
 
 
 @register_op("multiclass_nms", inputs=("BBoxes", "Scores"),
-             outputs=("Out",), stop_gradient=True)
+             outputs=("Out",), stop_gradient=True,
+             host_sync="reads on the host whether any box is still live, "
+                       "and copies the class list to the card")
 def _multiclass_nms(ctx):
     """Per-class NMS, then the ``keep_top_k`` best rows across classes.
     Scores (B, C, M); BBoxes (M, 4) or (B, M, 4) decoded corner boxes.

@@ -147,7 +147,9 @@ def _softmax_with_cross_entropy(ctx):
     else:
         loss = -_take_label_prob(logp, label)
     ctx.set_output("Loss", loss)
-    ctx.set_output("Softmax", logp.exp_())
+    # in place, unless a recompute segment's replay records logp
+    ctx.set_output("Softmax", logp.exp() if logp.requires_grad
+                   else logp.exp_())
 
 
 def _relu0(x):
@@ -277,7 +279,7 @@ def _padded_sequence_cross_entropy(ctx):
     else:
         lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
     p = torch.take_along_dim(x, label.reshape(b, t, 1), dim=-1)[..., 0]
-    nll = -torch.log(torch.maximum(p, p.new_tensor(1e-12)))
+    nll = -torch.log(torch.maximum(p, p.new_full((), 1e-12)))
     valid = torch.arange(t, device=x.device)[None, :] < lens[:, None]
     per_seq = (torch.where(valid, nll, torch.zeros_like(nll)).sum(1)
                / torch.clamp(lens.float(), min=1.0))
@@ -406,7 +408,7 @@ def _cross_entropy_over_beam(ctx):
         return
     B = scores[0].shape[0]
     dev = scores[0].device
-    neg = torch.tensor(-1e30, device=dev)
+    neg = torch.full((), -1e30, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     gold_sum = torch.zeros(B, device=dev)
     cost = torch.zeros(B, device=dev)

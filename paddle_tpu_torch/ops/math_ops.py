@@ -283,7 +283,7 @@ def _clip_by_norm(ctx):
         norm = torch.sqrt(torch.sum(torch.square(x)))
         # jnp.minimum / jnp.maximum over tensors: a tie splits its gradient
         scale = torch.minimum(max_norm / torch.maximum(
-            norm, norm.new_tensor(1e-12)), norm.new_tensor(1.0))
+            norm, norm.new_full((), 1e-12)), norm.new_full((), 1.0))
         return x * scale
 
     unary(ctx, f)

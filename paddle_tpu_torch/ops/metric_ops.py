@@ -70,8 +70,8 @@ def _accuracy(ctx):
     n = idx.shape[0]
     correct = torch.sum(hit.to(torch.int32)).to(torch.int32)
     ctx.set_output("Correct", correct)
-    ctx.set_output("Total", torch.tensor(n, dtype=torch.int32,
-                                         device=idx.device))
+    ctx.set_output("Total", torch.full((), n, dtype=torch.int32,
+                                       device=idx.device))
     ctx.set_output("Accuracy", (correct / n).float().reshape(1))
 
 
@@ -215,5 +215,6 @@ def _positive_negative_pair(ctx):
         tot = tot + torch.sum(valid)
     for slot, v in (("PositivePair", pos), ("NegativePair", tot - pos - neu),
                     ("NeutralPair", neu)):
-        ctx.set_output(slot, torch.as_tensor(v, device=score.device)
-                       .float().reshape(1))
+        v = v if isinstance(v, torch.Tensor) else torch.zeros(
+            (), dtype=torch.int64, device=score.device)
+        ctx.set_output(slot, v.float().reshape(1))

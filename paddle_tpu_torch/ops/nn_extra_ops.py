@@ -536,7 +536,7 @@ def _roi_pool(ctx):
     x1, y1, x2, y2 = (rois[:, i] * scale for i in range(1, 5))
     rh = torch.clamp(y2 - y1 + 1, min=1.0) / ph
     rw = torch.clamp(x2 - x1 + 1, min=1.0) / pw
-    neg = torch.tensor(NEG_INF, dtype=x.dtype, device=x.device)
+    neg = torch.full((), NEG_INF, dtype=x.dtype, device=x.device)
     rows = []
     for i in range(ph):
         my = ((ys[None] >= torch.floor(y1 + i * rh)[:, None])

@@ -233,9 +233,13 @@ def _conv2d(ctx):
     x, w = amp.cast_operands(x, w)
     if conv_kernel_applies(groups, dilations, strides, pads, w.shape[2],
                            w.shape[3]):
-        out = kconv.conv2d_nhwc(
-            x.permute(0, 2, 3, 1).contiguous(),
-            w.permute(2, 3, 1, 0).contiguous().to(x.dtype), pads[0])
+        xk = x.permute(0, 2, 3, 1).contiguous()
+        wk = w.permute(2, 3, 1, 0).contiguous().to(x.dtype)
+        # a recompute segment's replay records: launch through the
+        # autograd function, whose backward is the kernels' backward
+        conv = (kconv.ConvNHWC.apply if _build.recording(xk, wk)
+                else kconv.conv2d_nhwc)
+        out = conv(xk, wk, pads[0])
         ctx.set_output("Output", out.permute(0, 3, 1, 2).to(out_dt))
         return
     out = F.conv2d(x.contiguous(memory_format=torch.channels_last), w,
@@ -364,8 +368,17 @@ def _batch_norm_grad(ctx):
             ctx.values[name] = val
 
 
+def _bn_host_sync(op):
+    """A training BN over padded sequence frames packs the real frames,
+    whose count it reads on the host (``_bn_rows``)."""
+    if any(op.input("Length")) and not op.attr("is_test", False):
+        return "counts the real frames of its Length on the host"
+    return None
+
+
 @register_op("batch_norm",
              inputs=("X", "Scale", "Bias", "Mean", "Variance", "Length"),
+             host_sync=_bn_host_sync,
              outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
                       "SavedVariance"),
              diff_inputs=("X", "Scale", "Bias"),
@@ -411,8 +424,10 @@ def _batch_norm(ctx):
     to_rows, back = _bn_rows(x, layout, valid)
     x2d = to_rows(x)
     if x2d.shape[0]:
-        y2d, bmean, bvar = kbn.batch_norm_fwd(x2d, scale.float(),
-                                              bias.float(), eps)
+        gamma, beta = scale.float(), bias.float()
+        bn = (kbn.BatchNormTrain.apply if _build.recording(x2d, gamma, beta)
+              else kbn.batch_norm_fwd)
+        y2d, bmean, bvar = bn(x2d, gamma, beta, eps)
     else:
         # no real frame: zero statistics, as the JAX op's n = max(n, 1)
         bmean = bvar = torch.zeros(x.shape[-1], device=x.device)

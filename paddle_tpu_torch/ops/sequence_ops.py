@@ -157,7 +157,7 @@ def _masked_pool(x, mask, ptype, axis):
     if ptype == "SQRT":
         return torch.sum(x * m, dim=axis) / torch.sqrt(n)
     if ptype == "MAX":
-        neg = torch.tensor(-1e9, dtype=x.dtype, device=x.device)
+        neg = torch.full((), -1e9, dtype=x.dtype, device=x.device)
         return torch.amax(torch.where(m.bool(), x, neg), dim=axis)
     raise ValueError(ptype)
 
@@ -688,7 +688,8 @@ def _seq_expand(ctx):
 
 
 @register_op("lod_reset", inputs=("X", "TargetLoD"),
-             infer_shape=infer_same_shape)
+             infer_shape=infer_same_shape,
+             host_sync="copies its target_lod attr from the host")
 def _lod_reset(ctx):
     """X's rows under one new LoD level: TargetLoD's values, else the
     ``target_lod`` attr (``:263-272``)."""
@@ -846,7 +847,7 @@ def _padded_sequence_max_index(ctx):
     x = unwrap(ctx.input("X"))
     lens = unwrap(ctx.input("Length")).reshape(-1).long()
     mask = torch.arange(x.shape[1], device=x.device)[None, :] < lens[:, None]
-    neg = torch.tensor(-1e9, dtype=x.dtype, device=x.device)
+    neg = torch.full((), -1e9, dtype=x.dtype, device=x.device)
     idx = torch.argmax(torch.where(_trailing(mask, x.ndim), x, neg), dim=1)
     ctx.set_output("Out", idx.to(torch.float32))
 
@@ -931,8 +932,8 @@ def _mask_padded_subseq_scores(ctx):
     sub = unwrap(ctx.input("SubLength")).long()
     b, s, t = x.shape
     ok = _nested_mask(x, lens, sub).reshape(b, s, t)
-    out = torch.where(ok, x, torch.tensor(-1e9, dtype=x.dtype,
-                                          device=x.device))
+    out = torch.where(ok, x, torch.full((), -1e9, dtype=x.dtype,
+                                        device=x.device))
     ctx.set_output("Out", out.reshape(b, s * t))
 
 
@@ -944,5 +945,5 @@ def _mask_padded_scores(ctx):
     x = unwrap(ctx.input("X"))
     lens = unwrap(ctx.input("Length")).reshape(-1).long()
     mask = torch.arange(x.shape[1], device=x.device)[None, :] < lens[:, None]
-    ctx.set_output("Out", torch.where(mask, x, torch.tensor(
-        -1e30, dtype=x.dtype, device=x.device)))
+    ctx.set_output("Out", torch.where(mask, x, torch.full(
+        (), -1e30, dtype=x.dtype, device=x.device)))

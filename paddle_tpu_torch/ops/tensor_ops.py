@@ -89,8 +89,8 @@ def _fill_zeros_like(ctx):
 def _increment(ctx):
     """X + step in X's dtype (``paddle_tpu/ops/tensor_ops.py:277``)."""
     step = ctx.attr("step", 1.0)
-    unary(ctx, lambda x: x + torch.tensor(step, dtype=x.dtype,
-                                          device=x.device))
+    unary(ctx, lambda x: x + torch.full((), step, dtype=x.dtype,
+                                        device=x.device))
 
 
 @register_op("assign", inputs=("X",), infer_shape=infer_same_shape)
@@ -302,8 +302,9 @@ def _lookup_table_grad(ctx):
     (``paddle_tpu/ops/tensor_ops.py:352-377``).  With ``is_sparse`` it is
     a ``SparseGrad``: the looked-up ids and the (N, D) rows of Out@GRAD in
     its own dtype, so no (vocab, D) gradient is built; otherwise a dense
-    scatter-add.  On CUDA ``index_add_`` adds with atomics, so the sum of
-    a row that several ids hit is not bit-stable."""
+    scatter-add, bit-stable from run to run (``index_put_`` with
+    ``accumulate``: on CUDA a sort of the ids, then each row's sum in
+    order; ``index_add_`` adds with atomics)."""
     gname = grad_out(ctx, "W@GRAD")
     if gname is None:
         return
@@ -318,8 +319,10 @@ def _lookup_table_grad(ctx):
     if fwd_attrs.get("is_sparse"):
         ctx.values[gname] = SparseGrad(rows, vals, w.shape[0])
     else:
-        ctx.values[gname] = torch.zeros_like(w).index_add_(0, rows,
-                                                           vals.to(w.dtype))
+        # index_put_'s accumulate sorts the ids and sums each row's
+        # contributions in a fixed order (index_add_ adds with atomics)
+        ctx.values[gname] = torch.zeros_like(w).index_put_(
+            (rows,), vals.to(w.dtype), accumulate=True)
 
 
 @register_op("lookup_table", inputs=("W", "Ids"), diff_inputs=("W",),
@@ -472,7 +475,8 @@ def _scatter(ctx):
 
 
 @register_op("shape", inputs=("Input",), stop_gradient=True,
-             infer_shape=_infer_shape_op_shape)
+             infer_shape=_infer_shape_op_shape,
+             host_sync="copies the shape from the host on every run")
 def _shape(ctx):
     x = unwrap(ctx.input("Input"))
     ctx.set_output("Out", torch.tensor(list(x.shape), dtype=torch.int32,

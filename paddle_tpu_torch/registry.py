@@ -57,6 +57,21 @@ class OpInfo:
     grad_maker: Optional[Callable] = None
     # ops with no gradient at all (metrics, fill, random init, ...)
     stop_gradient: bool = False
+    # why the op cannot run inside a captured CUDA graph (None: it can):
+    # it reads device values on the host, sizes an output by them, or
+    # copies host data to the card on every run.  A string, or a
+    # function of the op giving one or None where it depends on the op's
+    # inputs or attrs (``host_sync_reason``).  The Executor runs a plan
+    # holding such an op eagerly and records this reason.
+    host_sync: Any = None
+
+
+def host_sync_reason(info: OpInfo, op) -> Optional[str]:
+    """Why ``op`` (of registry entry ``info``) cannot be captured in a
+    CUDA graph, or None."""
+    if callable(info.host_sync):
+        return info.host_sync(op)
+    return info.host_sync
 
 
 class OpRegistry:
@@ -77,12 +92,28 @@ class OpRegistry:
             info = synthesize_grad_info(type)
         if info is None and not none_ok:
             msg = f"op {type!r} is not registered in paddle_tpu_torch"
-            close = difflib.get_close_matches(type, list(cls._ops), n=1,
-                                              cutoff=0.6)
+            close = cls.suggest(type, n=1)
             if close:
                 msg += f"; did you mean {close[0]!r}?"
             raise KeyError(msg)
         return info
+
+    @classmethod
+    def suggest(cls, type: str, n: int = 3) -> List[str]:
+        """Closest registered op names (for did-you-mean diagnostics); a
+        mistyped grad op suggests the registered forward's grad form."""
+        candidates = list(cls._ops)
+        if type.endswith("_grad"):
+            candidates += [op + "_grad" for op in cls._ops]
+        return difflib.get_close_matches(type, candidates, n=n, cutoff=0.6)
+
+    @classmethod
+    def has(cls, type: str) -> bool:
+        return type in cls._ops
+
+    @classmethod
+    def all_ops(cls) -> List[str]:
+        return sorted(cls._ops)
 
 
 def register_op(
@@ -95,6 +126,7 @@ def register_op(
     grad_lower=None,
     grad_maker=None,
     stop_gradient: bool = False,
+    host_sync: Any = None,
 ):
     """Decorator: ``@register_op("relu", inputs=["X"])`` on a lowering fn."""
 
@@ -111,6 +143,7 @@ def register_op(
                 grad_lower=grad_lower,
                 grad_maker=grad_maker,
                 stop_gradient=stop_gradient,
+                host_sync=host_sync,
             )
         )
         return fn
@@ -167,6 +200,10 @@ class LowerContext:
 
     def attr(self, name: str, default=None):
         return self.op.attr(name, default)
+
+    def generator_or_none(self):
+        """The run's ``torch.Generator``, or None where the run has none."""
+        return self._generator
 
     def generator(self):
         """The run's ``torch.Generator`` (random ops draw from it)."""

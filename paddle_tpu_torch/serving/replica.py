@@ -36,9 +36,16 @@ the pool's last reference to the dead replica, so its Scope (a model's
 parameters on the card) is freed once its thread ends.
 
 ``FaultInjector`` is the test and chaos hook: armed, it makes dispatch N
-raise, hang or die.  ``ModelBundle`` serves the exported program as it
-was written: the JAX package's ``optimize=True`` rewrite through
-``analysis/`` waits for that package's port (ROADMAP Queue 1).
+raise, hang or die.  ``ModelBundle(optimize=True)`` rewrites the export
+once through ``analysis.optimize_program`` (verified or reverted pass by
+pass) and every replica serves the rewritten program.
+
+On the card each replica's Executor captures a bucket's plan as a CUDA
+graph on its second run there (warmup runs each bucket once) and replays
+it after that; captures run one at a time per device and take
+``capture_error_mode="thread_local"``, so the other replicas' threads go
+on (``executor._DeviceGate``).  A dead replica's graphs and their pools
+are freed with its Executor.
 """
 
 from __future__ import annotations
@@ -194,14 +201,25 @@ class FaultInjector:
 
 
 class ModelBundle:
-    """One parse of a save_inference_model export, shared by replicas."""
+    """One parse of a save_inference_model export, shared by replicas.
+    With ``optimize`` the program is rewritten once here
+    (``paddle_tpu/serving/replica.py:196-217``): the shared IR keeps
+    every replica on one fingerprint (one plan-cache key, one telemetry
+    label), and ``opt_report`` says what the rewrite did."""
 
-    def __init__(self, model_dir: str):
+    def __init__(self, model_dir: str, optimize: bool = True):
+        from paddle_tpu_torch import analysis
+
         self.model_dir = model_dir
         self.program, feed_names, fetch_names, self.param_names = \
             io.read_inference_export(model_dir)
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
+        self.opt_report = None
+        if optimize:
+            self.program, self.opt_report = analysis.optimize_program(
+                self.program, feed_names=set(self.feed_names),
+                fetch_names=self.fetch_names)
 
     def batch_spec(self) -> BatchSpec:
         return BatchSpec.from_program(self.program, self.feed_names,

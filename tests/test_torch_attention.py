@@ -367,16 +367,24 @@ def test_attention_residual_lives_only_within_its_run(rng):
 
 
 def test_unported_transformer_paths_raise(rng):
-    """Tensor parallelism, recompute and parallel strategies wait for
-    later slices.  Sparse embedding gradients, which waited too, train
-    since the port of ``sparse.py``: the step runs, W@GRAD is a
-    SparseGrad, and SGD moves only the looked-up rows."""
-    for kw in (dict(tp_axis="tp"), dict(recompute=True)):
-        pt.framework.reset_default_programs()
-        tokens = pt.layers.data(name="tokens", shape=[S, 1], dtype="int64")
-        with pytest.raises(NotImplementedError):
-            port_transformer.transformer_lm_loss(tokens, labels=tokens,
-                                                 **CONFIG, **kw)
+    """Tensor parallelism and parallel strategies wait for later slices.
+    Recompute, which waited too, builds its segments since the port of
+    ``recompute_scope`` (tests/test_torch_recompute.py trains it).
+    Sparse embedding gradients train since the port of ``sparse.py``:
+    the step runs, W@GRAD is a SparseGrad, and SGD moves only the
+    looked-up rows."""
+    pt.framework.reset_default_programs()
+    tokens = pt.layers.data(name="tokens", shape=[S, 1], dtype="int64")
+    with pytest.raises(NotImplementedError):
+        port_transformer.transformer_lm_loss(tokens, labels=tokens,
+                                             **CONFIG, tp_axis="tp")
+    pt.framework.reset_default_programs()
+    tokens = pt.layers.data(name="tokens", shape=[S, 1], dtype="int64")
+    port_transformer.transformer_lm_loss(tokens, labels=tokens, **CONFIG,
+                                         recompute=True)
+    assert sum(op.type == "segment_rng_key" for op in
+               pt.default_main_program().global_block().ops) == \
+        CONFIG["num_layers"] + 1
     with pytest.raises(NotImplementedError, match="parallel"):
         pt.Executor(pt.CPUPlace(), strategy=object())
 

@@ -51,9 +51,17 @@ tagger's costs within 1e-4 (relative) of the CPU's and its paths equal
 but at Viterbi near-ties, multiclass_nms exactly on equal inputs,
 warpctc's loss and gradient within 1e-4 of max.  The serving path's
 operations (``-k two_replica``): a requeued reply within chip_smoke's
-PROBS_TOL of the CPU path, the same argmax.
+PROBS_TOL of the CPU path, the same argmax.  The Executor's CUDA graphs
+(``-k graph``): replays equal to ``disable_graphs()`` runs bit for bit
+(losses and state; the dense embedding gradient sums in a fixed order),
+the launch counters of N replays equal to N eager runs, a capture on a
+replica's thread, fetches with ``return_numpy=False`` kept across the
+next replay, aliases of donated state (``assign``) equal to the eager
+runs' bit for bit, a constant-folded program captured and its results
+exactly the unrewritten program's.
 """
 
+import contextlib
 import ctypes
 import math
 import time
@@ -3617,3 +3625,211 @@ def test_two_replica_server_requeues_a_death_on_the_card(dev, tmp_path):
     assert chip_smoke.prom_total(samples, "serving_replica_deaths_total",
                                  cause="injected") == 1
     assert chip_smoke.prom_total(samples, "serving_requeued_total") == 1
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the Executor's plans captured on their second run
+# ---------------------------------------------------------------------------
+
+
+def _graph_step(seq=128):
+    """A small transformer LM recompute step with Adam on the card and
+    its feed; the plan captures."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as ptf
+
+    pt.framework.reset_default_programs()
+    tokens = pt.layers.data(name="tokens", shape=[seq, 1], dtype="int64")
+    labels = pt.layers.data(name="labels", shape=[seq, 1], dtype="int64")
+    loss = ptf.transformer_lm_loss(tokens, labels=labels, vocab_size=256,
+                                   d_model=128, num_heads=2, num_layers=2,
+                                   recompute=True)
+    pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    rng = np.random.RandomState(3)
+    feed = {n: rng.randint(0, 256, (2, seq, 1)).astype(np.int64)
+            for n in ("tokens", "labels")}
+    start = pt.Scope()
+    pt.Executor().run(pt.default_startup_program(), scope=start)
+    return pt.default_main_program(), loss, feed, start
+
+
+def _clone_scope(start):
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    scope.values.update({n: v.clone() for n, v in start.values.items()})
+    return scope
+
+
+def test_graph_replay_equals_eager(dev):
+    """Five steps replayed from the captured graph equal five eager
+    steps (disable_graphs) from the same state, losses and state bit for
+    bit; the donated state keeps its storage."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.executor import disable_graphs
+
+    prog, loss, feed, start = _graph_step()
+    runs = {}
+    for graphs in (True, False):
+        scope = _clone_scope(start)
+        exe = pt.Executor()
+        ctx = disable_graphs() if not graphs else contextlib.nullcontext()
+        with ctx:
+            losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=scope)[0] for _ in range(5)]
+        runs[graphs] = (losses, scope, exe)
+    (g_loss, g_scope, g_exe), (e_loss, e_scope, _) = runs[True], runs[False]
+    assert g_exe.graph_stats()["graphs"] == 1
+    for a, b in zip(g_loss, e_loss):
+        np.testing.assert_array_equal(a, b)
+    for n in e_scope.keys():
+        assert torch.equal(g_scope.get(n), e_scope.get(n)), n
+
+
+def test_graph_counters_equal_eager(dev):
+    """N replays count the launches of N eager runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.executor import disable_graphs
+
+    prog, loss, feed, start = _graph_step()
+    counts = {}
+    for graphs in (True, False):
+        scope = _clone_scope(start)
+        exe = pt.Executor()
+        ctx = disable_graphs() if not graphs else contextlib.nullcontext()
+        with ctx:
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            before = kernels.launch_counts()
+            for _ in range(4):   # the capture and three replays
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+        counts[graphs] = {k: after[k] - before[k] for k in after}
+    assert counts[True] == counts[False]
+    assert counts[True][("paddle_tpu_torch.kernels.matmul", "launches")] > 0
+
+
+def test_graph_capture_on_a_replica_thread(dev, tmp_path):
+    """A replica serving on its own thread captures the bucket's plan on
+    its second run there (thread-local capture mode) and replays it: the
+    replies equal the eager replies."""
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.executor import disable_graphs
+    from paddle_tpu_torch.models import resnet_cifar10
+    from paddle_tpu_torch.serving import ModelBundle, Replica
+
+    pt.framework.reset_default_programs()
+    img = pt.layers.data(name="img", shape=[3, 16, 16])
+    pred = resnet_cifar10(img, depth=8)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(pt.default_startup_program(), scope=scope)
+    d = str(tmp_path / "resnet8")
+    pt.io.save_inference_model(d, ["img"], [pred], exe, scope=scope)
+    bundle = ModelBundle(d)
+    x = np.random.RandomState(5).randn(4, 3, 16, 16).astype(np.float32)
+    rep = Replica(bundle, 0)
+    out = []
+    t = threading.Thread(target=lambda: out.extend(
+        rep.run({"img": x})[0] for _ in range(3)))
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and len(out) == 3
+    assert rep.exe.graph_stats()["graphs"] == 1
+    with disable_graphs():
+        (want,) = Replica(bundle, 1).run({"img": x})
+    for got in out:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_graph_fetches_survive_the_next_replay(dev):
+    """With return_numpy=False the fetches are clones: the next replay
+    does not overwrite what the caller holds."""
+    import paddle_tpu_torch as pt
+
+    prog, loss, feed, start = _graph_step()
+    scope = _clone_scope(start)
+    exe = pt.Executor()
+    held = []
+    for _ in range(4):
+        (v,) = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        held.append((v, v.clone()))
+    torch.cuda.synchronize()
+    assert exe.graph_stats()["graphs"] == 1
+    for v, copy in held:
+        assert torch.equal(v, copy)
+    assert len({float(v) for v, _ in held}) == 4   # the steps moved
+
+
+def test_graph_replay_keeps_aliases_of_donated_state(dev):
+    """``backup = assign(W)`` into a persistable and a fetched
+    ``assign(W)`` alias the parameter's tensor: replayed from the graph,
+    as eagerly, W's update goes into a new tensor, and the backups and
+    the fetches the caller holds keep W's value from before each step,
+    bit for bit against ``disable_graphs()`` runs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.executor import disable_graphs
+
+    pt.framework.reset_default_programs()
+    L = pt.layers
+    x = L.data(name="x", shape=[16], dtype="float32")
+    loss = L.mean(L.fc(input=x, size=8, act="tanh"))
+    (w,) = [p for p in pt.default_main_program().all_parameters()
+            if p.name.endswith(".w_0")]
+    backup = L.create_global_var(shape=[16, 8], value=0.0, dtype="float32",
+                                 persistable=True, name="w_backup")
+    L.assign(w, output=backup)
+    seen = L.assign(w)
+    pt.optimizer.Adam(learning_rate=0.1).minimize(loss)
+    prog = pt.default_main_program()
+    start = pt.Scope()
+    pt.Executor().run(pt.default_startup_program(), scope=start)
+    feed = {"x": np.random.RandomState(5).randn(4, 16).astype(np.float32)}
+    runs = {}
+    for graphs in (True, False):
+        scope = _clone_scope(start)
+        exe = pt.Executor()
+        ctx = disable_graphs() if not graphs else contextlib.nullcontext()
+        held = []
+        with ctx:
+            for _ in range(5):
+                _, s = exe.run(prog, feed=feed, fetch_list=[loss, seen],
+                               scope=scope, return_numpy=False)
+                held.append((s, scope.get("w_backup")))
+        torch.cuda.synchronize()
+        runs[graphs] = (held, scope, exe)
+    (g_held, g_scope, g_exe), (e_held, e_scope, _) = runs[True], runs[False]
+    assert g_exe.graph_stats()["graphs"] == 1
+    for (gs, gb), (es, eb) in zip(g_held, e_held):
+        assert torch.equal(gs, es) and torch.equal(gb, eb)
+        assert torch.equal(gs, gb)     # both W from before the step
+    assert len({float(s.sum()) for s, _ in g_held}) == 5   # W moved
+    for n in e_scope.keys():
+        assert torch.equal(g_scope.get(n), e_scope.get(n)), n
+
+
+def test_graph_captures_a_folded_program(dev):
+    """A program whose constant folding left a ``fill`` with data
+    (``run(optimize_program=True)``) is captured on its second run and
+    replays the unrewritten program's results."""
+    import paddle_tpu_torch as pt
+
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[3], dtype="float32")
+    c = pt.layers.scale(pt.layers.fill_constant(
+        shape=(1, 3), dtype="float32", value=2.0), scale=1.5, bias=0.25)
+    y = pt.layers.elementwise_mul(x, c)
+    prog = pt.default_main_program()
+    feed = {"x": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    want = pt.Executor().run(prog, feed=feed, fetch_list=[y])[0]
+    exe = pt.Executor()
+    got = [exe.run(prog, feed=feed, fetch_list=[y],
+                   optimize_program=True)[0] for _ in range(4)]
+    assert exe.optimize_report(prog, feed, [y.name]).folds >= 1
+    assert exe.graph_stats()["graphs"] == 1
+    for g in got:
+        np.testing.assert_array_equal(g, want)

@@ -306,13 +306,25 @@ def test_trace_ops_keys_the_plan_cache_and_keeps_results(rng):
 
 
 def test_check_program_raises_instead_of_being_ignored(rng):
+    """With check_program the verifier's error tier runs at a plan miss:
+    a valid program runs, and one that reads a variable nothing writes
+    raises ProgramVerificationError (PVE01) before any op runs."""
+    from paddle_tpu_torch.analysis import ProgramVerificationError
+
     _, _, prog, scope, fetch = _fc_programs(rng)
     exe = pt.Executor(pt.CPUPlace())
     try:
         flags.FLAGS.set("check_program", True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        (out,) = exe.run(prog, feed={"x": np.zeros((1, 4), np.float32)},
+                         fetch_list=[fetch], scope=scope)
+        assert out.shape == (1, 3)
+        block = prog.global_block()
+        block.create_var(name="ghost_out", shape=[4], dtype="float32")
+        block.append_op(type="relu", inputs={"X": ["never_written"]},
+                        outputs={"Out": ["ghost_out"]})
+        with pytest.raises(ProgramVerificationError, match="PVE01"):
             exe.run(prog, feed={"x": np.zeros((1, 4), np.float32)},
-                    fetch_list=[fetch], scope=scope)
+                    fetch_list=["ghost_out"], scope=scope)
     finally:
         flags.FLAGS.set("check_program", False)
 

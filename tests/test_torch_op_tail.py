@@ -528,9 +528,8 @@ def test_lr_schedule(rng, name):
 
 
 IO_COLLECTIVE_PIPELINE = {
-    "feed", "fetch", "fill", "save", "load", "print", "grad_printer",
-    "seq_text_printer", "cond", "segment_rng_key", "recompute_segment_grad",
-    "all_reduce", "ncclInit", "ncclAllReduce", "ncclReduce", "ncclBcast",
+    "feed", "fetch", "save", "load", "print", "grad_printer",
+    "seq_text_printer", "cond", "all_reduce", "ncclInit", "ncclAllReduce", "ncclReduce", "ncclBcast",
     "broadcast", "all_gather", "reduce_scatter", "send", "recv",
     "transformer_pipeline_blocks"}
 

@@ -22,7 +22,8 @@ import torch
 
 import paddle_tpu as fluid
 import paddle_tpu_torch as pt
-from paddle_tpu_torch import framework as pframework
+from paddle_tpu.analysis import dataflow as jdataflow
+from paddle_tpu_torch.analysis import dataflow
 from paddle_tpu_torch.kernels import _build
 from test_torch_gru import SEQ_TOL, close, data, run_both
 
@@ -143,14 +144,18 @@ def test_program_with_sub_block_round_trips_both_ways(rng):
 
 
 def test_sub_block_external_reads_and_prune():
-    """The step block reads the fc weights and the initial state; prune
+    """The step block reads the fc weights from the enclosing scope, and
+    not its own memory, which the op binds (``analysis.dataflow``, the
+    port's one answer, as the JAX package's analysis gives it); prune
     keeps the recurrent op and every var its block reads, as the JAX
     package's prune does."""
     main, _, outs = _port_rnn_program()
     op = main.global_block().ops[-1]
-    reads = pframework._sub_block_external_reads(op)
+    reads = dataflow.sub_block_external_reads(op)
     assert {"fc_0.w_0", "fc_0.w_1", "fc_0.b_0"} <= reads
-    assert "static_rnn_0.mem_0" in reads        # the block's own memory
+    assert "static_rnn_0.mem_0" not in reads    # the block's own memory
+    assert reads == jdataflow.sub_block_external_reads(
+        fluid.Program.from_dict(main.to_dict()).global_block().ops[-1])
     jprog = fluid.Program.from_dict(main.to_dict())
     kept = [o.type for o in main.prune([outs[0]]).global_block().ops]
     jkept = [o.type for o in jprog.prune([outs[0].name]).global_block().ops]

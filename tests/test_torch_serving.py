@@ -461,6 +461,9 @@ def test_metrics_stats_and_health_keys(tmp_path, rng):
 
 
 def test_artifacts_and_check_program_raise(tmp_path, rng):
+    """AOT artifacts raise (torch.export waits for its slice); the
+    check_program flag, which raised too, now runs the verifier over the
+    export at the replica's plan miss, which passes it."""
     from paddle_tpu_torch.flags import FLAGS
 
     d, _, _, _ = _small_export(tmp_path)
@@ -469,8 +472,8 @@ def test_artifacts_and_check_program_raise(tmp_path, rng):
     rep = Replica(ModelBundle(d), 0, pt.CPUPlace())
     try:
         FLAGS.set("check_program", True)
-        with pytest.raises(NotImplementedError, match="analysis"):
-            rep.run({"x": rng.randn(1, 6).astype(np.float32)})
+        assert rep.run({"x": rng.randn(1, 6).astype(
+            np.float32)})[0].shape == (1, 3)
     finally:
         FLAGS.set("check_program", False)
     assert rep.run({"x": rng.randn(1, 6).astype(np.float32)})[0].shape == \

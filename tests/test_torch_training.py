@@ -291,8 +291,9 @@ def test_executor_releases_values_after_their_last_reader(rng):
 
 
 def test_unported_training_paths_raise(rng):
-    """Recompute segments wait for a later slice.  The flash kernels take
-    float32 or bf16 (the transformer's AMP step), one dtype: mixed
+    """Recompute segments, which waited for a later slice, are ported: a
+    segment's ops get one recompute_segment_grad op.  The flash kernels
+    take float32 or bf16 (the transformer's AMP step), one dtype: mixed
     dtypes on the kernel route raise TypeError instead of being cast.
     (bf16 training batch norm, which this check used to refuse, is ported:
     tests/test_torch_amp.py::test_bf16_training_batch_norm_op_and_grads
@@ -305,8 +306,11 @@ def test_unported_training_paths_raise(rng):
     loss = pt.layers.mean(y)
     block = pt.default_main_program().global_block()
     block.ops[0].attrs["__recompute_seg__"] = 0
-    with pytest.raises(NotImplementedError, match="recompute"):
-        pt.append_backward(loss)
+    pt.append_backward(loss)
+    seg_grads = [op for op in block.ops
+                 if op.type == "recompute_segment_grad"]
+    assert len(seg_grads) == 1
+    assert [o.type for o in seg_grads[0].attr("__seg_ops__")] == ["mul"]
 
     q = torch.empty(1, 8, 2, 16, dtype=torch.bfloat16, device="meta")
     with pytest.raises(TypeError, match="float32"):
