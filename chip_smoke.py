@@ -39,7 +39,15 @@ seconds):
    (``host_us``) and the bytes moved a second of device time over the 3
    (forward) and 5 (backward) passes a call needs (``moved_gb_per_s``);
    matmul and softmax at 3, 32 and 256 rows (torch.matmul,
-   torch.softmax); the flash-attention forward, dq and dk/dv kernels at
+   torch.softmax), the softmax's route at 256 rows, its wrapper's host
+   microseconds a call beside torch.softmax's and its device time with
+   the L2 flushed between calls (a FLUSH_BYTES write, left out of the
+   sum) beside torch.softmax's; the softmax at 2048 rows of each
+   SOFTMAX_SWEEP_COLS width (1000 to 262144 columns): the route the rule
+   takes (warp, staged over a cluster, two-read), the kernel against its
+   plain version, its event and device times beside torch.softmax's, the
+   bound and the share of it (``sweep``; the 2048 x 30000 figures also
+   as ``wide_*``); the flash-attention forward, dq and dk/dv kernels at
    the transformer step's shape and at ragged ones
    (F.scaled_dot_product_attention and its autograd backward); the
    matmul at the transformer step's five shapes; the matmul at the LSTM
@@ -53,7 +61,11 @@ seconds):
    step, the clusters and their blocks, device times from a profiled
    window); the gather at
    the LoD step's ids on the 30000 x 512 table, on a 510-wide table and
-   with ids out of range (torch.index_select).  For the transformer's
+   with ids out of range (torch.index_select), its wrapper's host
+   microseconds a call and its device time with the L2 flushed, each
+   beside index_select's; the conv, matmul, flash forward and LSTM
+   wrappers' host microseconds a call at one path shape each (the BN and
+   paged wrappers' in their own rows).  For the transformer's
    and the LSTM classifier's AMP steps: the bf16 flash forward, dq
    and dk/dv at the step's shape and at S 200, D 64 and 72 (the plain
    forward walking the kernel's key tiles), the bf16 matmul at the
@@ -490,6 +502,12 @@ DW_TOL = 1e-4
 BN_TOL = dict(rtol=1e-4, atol=1e-4)
 BN_VEC_TOL = 1e-4
 SOFTMAX_ATOL = 1e-6
+# the softmax's wide-row sweep (phase 2): 2048 rows of each width
+SOFTMAX_SWEEP_ROWS = 2048
+SOFTMAX_SWEEP_COLS = (1000, 4096, 30000, 30001, 65536, 262144)
+# the cold readings' L2 flush between calls: a write of this many bytes
+# (the H100's L2 holds 50 MB)
+FLUSH_BYTES = 128 * 2**20
 PROBS_TOL = dict(rtol=1e-4, atol=1e-5)
 # bf16 kernels against their plain versions: |kernel - plain| <= BF16_RTOL
 # * |plain| + BF16_ATOL * max|plain| per bf16 output (both sum in f32 in
@@ -941,6 +959,33 @@ def device_ms(fn, reps=5):
 
     return {e.key: e.self_device_time_total / 1e3 / reps
             for e in cuda_window(body)}
+
+
+def cold_device_ms(fn, reps=5):
+    """Device ms a call of ``fn`` with the L2 flushed before each call: a
+    write of FLUSH_BYTES to a scratch tensor between the calls of one
+    profiled window, the flush's own kernels (their names from a profiled
+    flush alone) left out of the sum."""
+    import torch
+
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def flush():
+        scratch.fill_(1.0)
+
+    flush_keys = set(device_ms(flush))
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(reps):
+            flush()
+            fn()
+
+    rows = cuda_window(body, lambda r: any(e.key not in flush_keys
+                                            for e in r))
+    return sum(e.self_device_time_total for e in rows
+               if e.key not in flush_keys) / 1e3 / reps
 
 
 def counters():
@@ -1678,12 +1723,70 @@ def phase_dense_kernels(dev, randn):
         log(f"softmax {rows}x1000: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"library {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}), max err "
             f"{err:.2e} (tolerance atol {SOFTMAX_ATOL})")
+    y = ksoftmax.softmax(x)
+    route = ksoftmax.softmax_route(*x.shape, x.data_ptr(), y.data_ptr())
+    host = host_us(lambda: ksoftmax.softmax(x))
+    lib_host = host_us(lambda: torch.softmax(x, dim=-1))
+    cold = cold_device_ms(lambda: ksoftmax.softmax(x))
+    lib_cold = cold_device_ms(lambda: torch.softmax(x, dim=-1))
+    log(f"softmax {TRAIN_BATCH}x1000 ({route} route): host {host:.2f} us a "
+        f"call (torch.softmax {lib_host:.2f}); device time with the L2 "
+        f"flushed {cold:.4f} ms (torch.softmax {lib_cold:.4f})")
+    sweep = phase_softmax_sweep(randn)
+    wide = sweep[f"{SOFTMAX_SWEEP_ROWS}x30000"]
     results["softmax"] = dict(
         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=max_err, **_device_times(
+        max_abs_err=max(max_err, *(r["max_abs_err"] for r in sweep.values())),
+        kernel_route=route, host_us=host, library_host_us=lib_host,
+        cold_device_ms=cold, library_cold_device_ms=lib_cold,
+        wide_route=wide["route"], wide_ms=wide["ms"],
+        wide_device_ms=wide["device_ms"], wide_library_ms=wide["library_ms"],
+        wide_library_device_ms=wide["library_device_ms"],
+        wide_bound_ms=wide["bound_ms"], sweep=sweep, **_device_times(
             "softmax", ms, lib, lambda: ksoftmax.softmax(x),
             lambda: torch.softmax(x, dim=-1)))
     return results
+
+
+def phase_softmax_sweep(randn):
+    """The softmax at SOFTMAX_SWEEP_ROWS rows of each SOFTMAX_SWEEP_COLS
+    width: the route the rule takes, the kernel against its plain version
+    (atol SOFTMAX_ATOL), its event and device times beside
+    torch.softmax's, the bound and the shares of it."""
+    import torch
+
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    rows = SOFTMAX_SWEEP_ROWS
+    out = {}
+    for cols in SOFTMAX_SWEEP_COLS:
+        x = randn(rows, cols, scale=4.0)
+        y = ksoftmax.softmax(x)
+        route, cluster, part = ksoftmax.softmax_plan(cols, x.data_ptr(),
+                                                     y.data_ptr())
+        err = check_close(f"softmax {rows}x{cols} ({route})", y,
+                          ksoftmax.softmax_plain(x), rtol=0,
+                          atol=SOFTMAX_ATOL)
+        del y
+        ms = time_ms(lambda: ksoftmax.softmax(x))
+        lib = time_ms(lambda: torch.softmax(x, dim=-1))
+        dev = sum(device_ms(lambda: ksoftmax.softmax(x)).values())
+        lib_dev = sum(device_ms(lambda: torch.softmax(x, dim=-1)).values())
+        b_ms, b_by = bound(5.0 * rows * cols, 8.0 * rows * cols)
+        out[f"{rows}x{cols}"] = dict(
+            route=route, cluster=cluster, part=part, max_abs_err=err, ms=ms,
+            device_ms=dev, library_ms=lib, library_device_ms=lib_dev,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / dev,
+            library_bound_share=b_ms / lib_dev)
+        log(f"softmax {rows}x{cols}: {route} route (cluster {cluster}, part "
+            f"{part}), event {ms:.4f} ms, device {dev:.4f} ms "
+            f"({b_ms / dev:.3f} of the bound {b_ms:.4f} ms, {b_by}); "
+            "torch.softmax event "
+            f"{lib:.4f} ms, device {lib_dev:.4f} ms ({b_ms / lib_dev:.3f}); "
+            f"max err {err:.2e}")
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _device_times(what, ms, lib, kernel, library):
@@ -2473,7 +2576,36 @@ def phase_kernels(dev, serve_shapes, train_conv_shapes, train_bn_shapes):
     results.update(phase_lstm_bf16_kernel(dev, randn))
     results["embedding"] = phase_gather_kernel(dev, randn)
     results.update(phase_paged_kernels(dev, randn))
+    for name, us in phase_wrapper_host(dev, randn).items():
+        results[name]["host_us"] = us
     return results
+
+
+def phase_wrapper_host(dev, randn):
+    """The host's microseconds a call (``host_us``) of the conv, matmul,
+    flash forward and LSTM wrappers, at the shapes
+    scripts/launch_host_cost.py times them (the BN, softmax, gather and
+    paged wrappers' are taken in their own phases)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv as kconv
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+
+    cx, cw = randn(2, 7, 7, 512), randn(3, 3, 512, 512, scale=0.02)
+    mx, my = randn(256, 2048), randn(2048, 1000, scale=0.03)
+    q, k, v = (randn(1, 128, 16, 128) for _ in range(3))
+    xp, lw = randn(64, 100, 1024), randn(256, 1024, scale=0.05)
+    lb, h0 = randn(1024), torch.zeros(64, 256, device=dev)
+    out = {"conv2d_nhwc": host_us(lambda: kconv.conv2d_nhwc(cx, cw, 1)),
+           "matmul": host_us(lambda: kmatmul.matmul(mx, my)),
+           "flash_attention_fwd": host_us(
+               lambda: kfa.flash_attention_fwd(q, k, v)),
+           "lstm": host_us(lambda: klstm.lstm_seq(xp, lw, lb, h0, h0))}
+    log("wrappers' host us a call: " + ", ".join(
+        f"{n} {us:.2f}" for n, us in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4755,8 +4887,17 @@ def phase_gather_kernel(dev, randn):
           0.0)
     log("  exact at every shape, NaN rows for ids outside [-V, V)")
     b_ms, b_by = bound(flops, nbytes)
+    host = host_us(lambda: kemb.gather_rows(w, ids))
+    lib_host = host_us(lambda: torch.index_select(w, 0, ids))
+    cold = cold_device_ms(lambda: kemb.gather_rows(w, ids))
+    lib_cold = cold_device_ms(lambda: torch.index_select(w, 0, ids))
+    log(f"  gather: host {host:.2f} us a call (index_select {lib_host:.2f});"
+        f" device time with the L2 flushed {cold:.4f} ms ({b_ms / cold:.3f} "
+        f"of the bound; index_select {lib_cold:.4f} ms)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0, **_device_times(
+                bound_by=b_by, max_abs_err=0.0, host_us=host,
+                library_host_us=lib_host, cold_device_ms=cold,
+                library_cold_device_ms=lib_cold, **_device_times(
                     "gather", ms, lib, lambda: kemb.gather_rows(w, ids),
                     lambda: torch.index_select(w, 0, ids)))
 
@@ -5907,7 +6048,7 @@ def profile_sequence_steps():
                  "matmul kernel": list(mm) + ["wgmma_tf32_split"],
                  "mul backward products": "matmul_backward"},
                 {"lstm_fwd_kernel": 2, "lstm_bwd_kernel": 2, **mm,
-                 "softmax_f32_kernel": 1})
+                 "softmax_warp_kernel": 1})
 
     paths = {
         # the two 6400-row projections on the split-TF32 wgmma engine, the
@@ -5926,7 +6067,7 @@ def profile_sequence_steps():
                          "matmul kernel": ["wgmma_tf32", "matmul_f32_kernel"],
                          "mul backward products": "matmul_backward"},
                         {"gather_rows_kernel": 1, "wgmma_tf32_kernel": 1,
-                         "matmul_f32_kernel": 1, "softmax_f32_kernel": 1})),
+                         "matmul_f32_kernel": 1, "softmax_warp_kernel": 1})),
         **wide_deep_profile_paths(dev),
         **seq2seq_profile_paths(dev),
     }
@@ -9353,7 +9494,12 @@ def main():
                                   "moved_gb_per_s", "grid_ms",
                                   "grid_device_ms", "kernel_ms",
                                   "us_per_step", "clusters",
-                                  "cluster_blocks", "resident") if f in k},
+                                  "cluster_blocks", "resident",
+                                  "kernel_route", "library_host_us",
+                                  "cold_device_ms", "library_cold_device_ms",
+                                  "wide_route", "wide_ms", "wide_device_ms",
+                                  "wide_library_ms", "wide_library_device_ms",
+                                  "wide_bound_ms", "sweep") if f in k},
              **({"launches_wgmma": main_wgmma[name][name],
                  "launches_wgmma_by_path": {p: c[name] for p, c in
                                             wgmma_by_path.items()}}

@@ -110,7 +110,11 @@ def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Tuple[float, str]]:
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed.  Every entry
     in ``signatures`` (C function name -> ctypes argtypes) returns an
-    int error code."""
+    int error code.  Once loaded, a call takes no lock, and ctypes keeps
+    each C function it has resolved as an attribute of the library."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -125,6 +129,27 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream of CUDA tensor ``t``'s device
+    (the stream ``launch`` launches on), without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch(fn, t: torch.Tensor, *args) -> int:
+    """``fn(*args, stream)``: a C entry called on the current stream of
+    CUDA tensor ``t``'s device (the capture stream inside
+    ``torch.cuda.graph``, ``s`` inside ``torch.cuda.stream(s)``, each
+    thread's own), as its raw handle, without building a
+    ``torch.cuda.Stream``; the current device is switched to ``t``'s only
+    where it is another.  Returns ``fn``'s error code."""
+    index = t.get_device()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 #: The dtypes a kernel takes: float32 only, or float32 and bf16 (a
@@ -182,6 +207,13 @@ def require_cuda(what: str, dtypes, *tensors) -> None:
     device, or a non-contiguous tensor (ValueError); a tensor autograd
     records (``refuse_recording``).  A bf16 tensor given to a
     float32-only kernel raises: the wrappers never upcast."""
+    for t in tensors:   # the common case first, in a few attribute reads
+        if not (t.is_cuda and t.dtype in dtypes and not t.requires_grad
+                and t.is_contiguous()):
+            break
+    else:
+        if len(tensors) == 1 or len({t.dtype for t in tensors}) == 1:
+            return
     refuse_recording(what, *tensors)
     got = [t.dtype for t in tensors]
     if len(set(got)) != 1 or got[0] not in dtypes:

@@ -223,17 +223,10 @@ def _counter(index: int, stream: int, n: int) -> int:
     return t.data_ptr()
 
 
-_entries = {}
-
-
 def _entry(direction: str, dtype: torch.dtype):
     """The C entry of ``direction`` ("fwd", "bwd") for ``dtype``."""
-    fn = _entries.get((direction, dtype))
-    if fn is None:
-        lib = _build.load("batch_norm", _SIGNATURES)
-        fn = getattr(lib, f"ptt_bn_{direction}_{_build.SUFFIX[dtype]}")
-        _entries[(direction, dtype)] = fn
-    return fn
+    return getattr(_build.load("batch_norm", _SIGNATURES),
+                   f"ptt_bn_{direction}_{_build.SUFFIX[dtype]}")
 
 
 def _layout(rows, cols, dtype, design, *addresses):
@@ -255,10 +248,6 @@ def _launch_fwd(x2d, gamma, beta, eps: float, design: str = None):
     """Queues the forward on x2d's current stream and returns (y, mean,
     var).  ``design="three-pass"`` launches the earlier three-launch
     design.  Counts nothing: the wrappers count."""
-    index = x2d.device.index
-    if index != torch._C._cuda_getDevice():
-        with torch.cuda.device(index):
-            return _launch_fwd(x2d, gamma, beta, eps, design)
     rows, cols = x2d.shape
     y = torch.empty_like(x2d)
     xp, yp = x2d.data_ptr(), y.data_ptr()
@@ -267,12 +256,13 @@ def _launch_fwd(x2d, gamma, beta, eps: float, design: str = None):
     # one scratch: the partials, then mean, var, a and b
     buf = torch.empty(at + 4 * cols, dtype=torch.float32, device=x2d.device)
     base = buf.data_ptr()
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    err = _entry("fwd", x2d.dtype)(
-        xp, gamma.data_ptr(), beta.data_ptr(), yp, base + 4 * at,
-        base + 4 * (at + cols), base, base + 4 * (at + 2 * cols),
-        _counter(index, stream, counters) if counters else None, rows, cols,
-        chunks, per, eps, ROUTES[how], stream)
+    counter = _counter(x2d.get_device(), _build.stream_of(x2d),
+                       counters) if counters else None
+    err = _build.launch(
+        _entry("fwd", x2d.dtype), x2d, xp, gamma.data_ptr(), beta.data_ptr(),
+        yp, base + 4 * at, base + 4 * (at + cols), base,
+        base + 4 * (at + 2 * cols), counter, rows, cols, chunks, per, eps,
+        ROUTES[how])
     if err:
         _build.check(_build.load("batch_norm", _SIGNATURES), err,
                      "batch_norm_fwd")
@@ -282,10 +272,6 @@ def _launch_fwd(x2d, gamma, beta, eps: float, design: str = None):
 def _launch_bwd(x2d, dy2d, gamma, mean, inv, design: str = None):
     """Queues the backward on x2d's current stream and returns (dx,
     dgamma, dbeta); ``design`` as ``_launch_fwd``'s."""
-    index = x2d.device.index
-    if index != torch._C._cuda_getDevice():
-        with torch.cuda.device(index):
-            return _launch_bwd(x2d, dy2d, gamma, mean, inv, design)
     rows, cols = x2d.shape
     dx = torch.empty_like(dy2d)
     xp, dyp, dxp = x2d.data_ptr(), dy2d.data_ptr(), dx.data_ptr()
@@ -294,13 +280,13 @@ def _launch_bwd(x2d, dy2d, gamma, mean, inv, design: str = None):
     # one scratch: the partials, then dgamma, dbeta and the dx coefficients
     buf = torch.empty(at + 5 * cols, dtype=torch.float32, device=x2d.device)
     base = buf.data_ptr()
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    err = _entry("bwd", x2d.dtype)(
-        xp, dyp, gamma.data_ptr(), mean.data_ptr(), inv.data_ptr(), dxp,
-        base + 4 * at, base + 4 * (at + cols), base,
-        base + 4 * (at + 2 * cols),
-        _counter(index, stream, counters) if counters else None, rows, cols,
-        chunks, per, ROUTES[how], stream)
+    counter = _counter(x2d.get_device(), _build.stream_of(x2d),
+                       counters) if counters else None
+    err = _build.launch(
+        _entry("bwd", x2d.dtype), x2d, xp, dyp, gamma.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), dxp, base + 4 * at,
+        base + 4 * (at + cols), base, base + 4 * (at + 2 * cols), counter,
+        rows, cols, chunks, per, ROUTES[how])
     if err:
         _build.check(_build.load("batch_norm", _SIGNATURES), err,
                      "batch_norm_bwd")

@@ -437,30 +437,29 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, padding: int,
     if out.numel() == 0:
         return (out, *mv.fill_(float("nan"))) if stats else out
     lib = _build.load("conv", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if stats:
-            tiles = math.ceil(n * h * wd / stats_tile(x.dtype, engine))
-            part = torch.empty((2, tiles, o), dtype=torch.float32,
-                               device=x.device)
-            ptrs = [x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    part.data_ptr(), mv[0].data_ptr(), mv[1].data_ptr()]
-            if x.dtype == torch.float32:
-                xs, ws = _build.split_scratch(engine, x, w)
-                ptrs += [_build.address(xs), _build.address(ws)]
-            err = getattr(lib, f"ptt_conv2d_bn_stats_nhwc_{sfx}")(
-                *ptrs, n, h, wd, c, kh, kw, o, padding,
-                _build.ENGINES[engine], stream)
-        elif x.dtype == torch.bfloat16:
-            err = lib.ptt_conv2d_nhwc_bf16(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, kh,
-                kw, o, padding, _build.ENGINES[engine], stream)
-        else:
+    if stats:
+        tiles = math.ceil(n * h * wd / stats_tile(x.dtype, engine))
+        part = torch.empty((2, tiles, o), dtype=torch.float32,
+                           device=x.device)
+        ptrs = [x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                part.data_ptr(), mv[0].data_ptr(), mv[1].data_ptr()]
+        if x.dtype == torch.float32:
             xs, ws = _build.split_scratch(engine, x, w)
-            err = lib.ptt_conv2d_nhwc_f32(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                _build.address(xs), _build.address(ws), n, h, wd, c, kh, kw,
-                o, padding, int(flip), _build.ENGINES[engine], stream)
+            ptrs += [_build.address(xs), _build.address(ws)]
+        err = _build.launch(
+            getattr(lib, f"ptt_conv2d_bn_stats_nhwc_{sfx}"), x, *ptrs, n, h,
+            wd, c, kh, kw, o, padding, _build.ENGINES[engine])
+    elif x.dtype == torch.bfloat16:
+        err = _build.launch(
+            lib.ptt_conv2d_nhwc_bf16, x, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), n, h, wd, c, kh, kw, o, padding,
+            _build.ENGINES[engine])
+    else:
+        xs, ws = _build.split_scratch(engine, x, w)
+        err = _build.launch(
+            lib.ptt_conv2d_nhwc_f32, x, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), _build.address(xs), _build.address(ws), n, h,
+            wd, c, kh, kw, o, padding, int(flip), _build.ENGINES[engine])
     _build.check(lib, err, f"{what} ({engine})")
     return (out, mv[0], mv[1]) if stats else out
 
@@ -627,17 +626,15 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
     part = out if splits == 1 else torch.empty(
         (splits, m, o), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_dw", _DW_SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = (x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr())
-        shape = (n, h, wd, c, kernel, kernel, o, padding, splits, chunk)
-        if bf16:
-            err = lib.ptt_conv_dw_nhwc_bf16(*ptrs, *shape,
-                                            _build.ENGINES[engine], stream)
-        else:
-            err = lib.ptt_conv_dw_nhwc_f32(
-                *ptrs, _build.address(xs), _build.address(gs), *shape,
-                _build.ENGINES[engine], stream)
+    ptrs = (x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr())
+    shape = (n, h, wd, c, kernel, kernel, o, padding, splits, chunk)
+    if bf16:
+        err = _build.launch(lib.ptt_conv_dw_nhwc_bf16, x, *ptrs, *shape,
+                            _build.ENGINES[engine])
+    else:
+        err = _build.launch(
+            lib.ptt_conv_dw_nhwc_f32, x, *ptrs, _build.address(xs),
+            _build.address(gs), *shape, _build.ENGINES[engine])
     _build.check(lib, err, f"conv2d_nhwc_dw ({engine})")
     return out
 

@@ -42,7 +42,7 @@ def _check(w: torch.Tensor, ids: torch.Tensor) -> None:
                          f"{tuple(w.shape)} and {tuple(ids.shape)}")
     if ids.dtype not in (torch.int64, torch.int32):
         raise TypeError(f"gather_rows takes int64 or int32 ids, got {ids.dtype}")
-    if ids.device != w.device:
+    if ids.get_device() != w.get_device():
         raise ValueError(f"gather_rows: W on {w.device}, ids on {ids.device}")
 
 
@@ -63,21 +63,19 @@ def gather_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Launches ``csrc/embedding.cu`` on CUDA tensors (W float32
     contiguous, ids contiguous); runs the plain version on CPU tensors."""
     _check(w, ids)
-    if w.device.type == "cpu":
+    if not w.is_cuda and w.device.type == "cpu":
         return gather_rows_plain(w, ids)
     _build.require_cuda("gather_rows", _build.F32, w)
     if not ids.is_contiguous():
         raise ValueError("gather_rows kernel takes contiguous ids")
     n, (v, d) = ids.shape[0], w.shape
-    out = torch.empty((n, d), dtype=w.dtype, device=w.device)
+    out = w.new_empty((n, d))
     if out.numel() == 0:
         return out
     lib = _build.load("embedding", _SIGNATURES)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.ptt_gather_rows_f32(w.data_ptr(), ids.data_ptr(),
-                                      out.data_ptr(), n, v, d,
-                                      int(ids.dtype == torch.int64), stream)
+    err = _build.launch(lib.ptt_gather_rows_f32, w, w.data_ptr(),
+                        ids.data_ptr(), out.data_ptr(), n, v, d,
+                        int(ids.dtype == torch.int64))
     _build.check(lib, err, "gather_rows")
     _count()
     return out

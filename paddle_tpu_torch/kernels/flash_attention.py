@@ -248,12 +248,11 @@ def _launch_fwd(q, k, v, causal, scale, simt=False):
     if out.numel() == 0:
         return out, lse
     lib = _build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"ptt_flash_fwd_{sfx}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, n, d, *_strides(q), *_strides(k),
-            *_strides(v), _scale(q, scale), int(causal), stream)
+    err = _build.launch(
+        getattr(lib, f"ptt_flash_fwd_{sfx}"), q, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, d,
+        *_strides(q), *_strides(k), *_strides(v), _scale(q, scale),
+        int(causal))
     _build.check(lib, err, "flash_attention_fwd")
     return out, lse
 
@@ -298,18 +297,17 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale, dlse, simt=False):
     lib = _build.load("flash_attention", _SIGNATURES)
     common = (b, h, n, d, *_strides(q), *_strides(k), *_strides(v),
               *_strides(do))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"ptt_flash_dq_{sfx}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
-            _scale(q, scale), int(causal), stream)
-        _build.check(lib, err, "flash_attention_dq")
-        err = getattr(lib, f"ptt_flash_dkv_{sfx}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *common, _scale(q, scale), int(causal), stream)
-        _build.check(lib, err, "flash_attention_dkv")
+    err = _build.launch(
+        getattr(lib, f"ptt_flash_dq_{sfx}"), q, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), *common, _scale(q, scale), int(causal))
+    _build.check(lib, err, "flash_attention_dq")
+    err = _build.launch(
+        getattr(lib, f"ptt_flash_dkv_{sfx}"), q, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *common, _scale(q, scale),
+        int(causal))
+    _build.check(lib, err, "flash_attention_dkv")
     return dq, dk, dv
 
 

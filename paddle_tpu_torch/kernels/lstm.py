@@ -296,13 +296,11 @@ def _launch_fwd(xproj, w, bias, h0, c0, rows=0, cluster=0):
         return hs, cs, gates, None
     lib = _build.load("lstm", _SIGNATURES)
     info = (ctypes.c_int * 5)()
-    with torch.cuda.device(xproj.device):
-        stream = torch.cuda.current_stream(xproj.device).cuda_stream
-        err = getattr(lib, f"ptt_lstm_seq_{_build.SUFFIX[xproj.dtype]}")(
-            xproj.data_ptr(), xproj.stride(0), xproj.stride(1), w.data_ptr(),
-            bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), gates.data_ptr(), b, t, h, rows, cluster, info,
-            stream)
+    err = _build.launch(
+        getattr(lib, f"ptt_lstm_seq_{_build.SUFFIX[xproj.dtype]}"), xproj,
+        xproj.data_ptr(), xproj.stride(0), xproj.stride(1), w.data_ptr(),
+        bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), gates.data_ptr(), b, t, h, rows, cluster, info)
     _build.check(lib, err, "lstm_seq")
     return hs, cs, gates, list(info)
 
@@ -340,13 +338,12 @@ def _launch_grid(xproj, w, bias, h0, c0):
     state = torch.empty((3, b, h), dtype=torch.float32, device=xproj.device)
     lib = _build.load("lstm", _SIGNATURES)
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(xproj.device):
-        stream = torch.cuda.current_stream(xproj.device).cuda_stream
-        err = getattr(lib, f"ptt_lstm_seq_grid_{_build.SUFFIX[xproj.dtype]}")(
-            xproj.data_ptr(), xproj.stride(0), xproj.stride(1), w.data_ptr(),
-            bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), gates.data_ptr(), state[0].data_ptr(),
-            state[2].data_ptr(), b, t, h, ctypes.byref(blocks), stream)
+    err = _build.launch(
+        getattr(lib, f"ptt_lstm_seq_grid_{_build.SUFFIX[xproj.dtype]}"),
+        xproj, xproj.data_ptr(), xproj.stride(0), xproj.stride(1),
+        w.data_ptr(), bias.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), state[0].data_ptr(),
+        state[2].data_ptr(), b, t, h, ctypes.byref(blocks))
     _build.check(lib, err, "lstm_seq (grid)")
     return hs, cs, gates, blocks.value
 
@@ -412,13 +409,11 @@ def _launch_bwd(gates, cs, c0, w, dhs=None, dcs=None, rows=0, cluster=0):
         return dgates, dh0, dc0, None
     lib = _build.load("lstm", _SIGNATURES)
     info = (ctypes.c_int * 5)()
-    with torch.cuda.device(cs.device):
-        stream = torch.cuda.current_stream(cs.device).cuda_stream
-        err = getattr(lib, f"ptt_lstm_seq_bwd_{_build.SUFFIX[cs.dtype]}")(
-            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w.data_ptr(),
-            _build.address(dhs), _build.address(dcs), dgates.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), b, t, h, rows, cluster, info,
-            stream)
+    err = _build.launch(
+        getattr(lib, f"ptt_lstm_seq_bwd_{_build.SUFFIX[cs.dtype]}"), cs,
+        gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w.data_ptr(),
+        _build.address(dhs), _build.address(dcs), dgates.data_ptr(),
+        dh0.data_ptr(), dc0.data_ptr(), b, t, h, rows, cluster, info)
     _build.check(lib, err, "lstm_seq_bwd")
     return dgates, dh0, dc0, list(info)
 

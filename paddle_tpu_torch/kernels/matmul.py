@@ -132,18 +132,16 @@ def _launch(x: torch.Tensor, y: torch.Tensor, engine: str) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _build.load("matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            err = lib.ptt_matmul_bf16(x.data_ptr(), y.data_ptr(),
-                                      out.data_ptr(), m, n, k,
-                                      _build.ENGINES[engine], stream)
-        else:
-            xs, ys = _build.split_scratch(engine, x, y)
-            err = lib.ptt_matmul_f32(x.data_ptr(), y.data_ptr(),
-                                     out.data_ptr(), _build.address(xs),
-                                     _build.address(ys), m, n, k,
-                                     _build.ENGINES[engine], stream)
+    if x.dtype == torch.bfloat16:
+        err = _build.launch(lib.ptt_matmul_bf16, x, x.data_ptr(),
+                            y.data_ptr(), out.data_ptr(), m, n, k,
+                            _build.ENGINES[engine])
+    else:
+        xs, ys = _build.split_scratch(engine, x, y)
+        err = _build.launch(lib.ptt_matmul_f32, x, x.data_ptr(), y.data_ptr(),
+                            out.data_ptr(), _build.address(xs),
+                            _build.address(ys), m, n, k,
+                            _build.ENGINES[engine])
     _build.check(lib, err, f"matmul ({engine})")
     return out
 

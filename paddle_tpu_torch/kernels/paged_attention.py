@@ -266,12 +266,11 @@ def _launch(q, k_pages, v_pages, tables, lens, scale, chunk: bool):
     if out.numel() == 0:
         return out
     lib = _build.load("paged_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ptt_paged_attention_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), lens.data_ptr(), out.data_ptr(), s, t, h, d,
-            page, p, n, int(chunk), _scale(q, scale), stream)
+    err = _build.launch(
+        lib.ptt_paged_attention_f32, q, q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), tables.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), s, t, h, d, page, p, n, int(chunk),
+        _scale(q, scale))
     _build.check(lib, err, what)
     return out
 
@@ -291,13 +290,11 @@ def _launch_chunk(q, k_pages, v_pages, tables, lens, scale):
     part = torch.empty(s * h * t * splits * (d + 2), dtype=torch.float32,
                        device=q.device)
     lib = _build.load("paged_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ptt_paged_attention_chunk_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            part.data_ptr(), s, t, h, d, page, p, n, span, _scale(q, scale),
-            stream)
+    err = _build.launch(
+        lib.ptt_paged_attention_chunk_f32, q, q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), part.data_ptr(), s, t, h, d, page,
+        p, n, span, _scale(q, scale))
     _build.check(lib, err, what)
     return out
 

@@ -22,7 +22,14 @@ recurrences, products of H terms in another order) and 1e-4 of max on
 the gradients and on each output of the backward kernel (dgates, dh0,
 dc0 and the dW product and dbias sum over them: f32 sums of 4H terms a
 step through the reverse recurrence), both kernels bit for bit across
-two calls; the gather exactly (a copy).  The bf16 instances (the
+two calls; the gather exactly (a copy).  The softmax's routes and the
+launch path (``-k "softmax or gather"``): each route at each cluster
+size against the plain version within atol 1e-6 (misaligned rows, -inf
+entries, rows all -inf), refused off its kernel's limits and, through
+``ptt_softmax_f32``, off the rule; ``softmax_plan`` equal to the
+library's; the softmax and the gather replayed from a CUDA graph equal
+to eager calls bit for bit, and launched on ``torch.cuda.stream(s)``'s
+stream.  The bf16 instances (the
 AMP slice): each bf16 output within rtol 1e-2 of the plain version (the
 kernel and the plain version each sum in f32, in other orders, and
 round once: a sum near a rounding boundary lands one bf16 ulp, at most
@@ -139,6 +146,188 @@ def test_softmax_kernel_matches_plain(dev, rows, cols):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ksoftmax.softmax_plain(x), rtol=0,
                                atol=1e-6, equal_nan=True)
+
+
+# the softmax's widths: the warp route's sub-warp, warp and 16-byte rows,
+# the staged route in one CTA (2052, 4097) and in a cluster (30000, 30001: each
+# row's parts misaligned), past one CTA's shared memory (60000: a cluster
+# of 4), past the cluster's (500000: two reads)
+SOFTMAX_COLS = [1, 2, 31, 1000, 1024, 1025, 2048, 2052, 4097, 30000, 30001,
+                60000, 500000]
+SOFTMAX_LAUNCHES = [("warp", 1), ("staged", 1), ("staged", 2),
+                    ("staged", 8), ("two-read", 1), ("two-read", 3),
+                    ("two-read", 8)]
+
+
+def _softmax_input(g, rows, cols, dev, offset=0):
+    """(rows, cols) at 4 * ``offset`` bytes past a 16-byte boundary, with
+    -inf entries in row 0 and row 1 all -inf (NaN in both versions)."""
+    buf = _randn(g, rows * cols + 4, scale=4.0, device=dev)
+    x = buf[offset:offset + rows * cols].view(rows, cols)
+    x[0, ::7] = float("-inf")
+    x[1] = float("-inf")
+    return x
+
+
+def _takes(route, cluster, cols, x, y):
+    """Whether the library's kernel on ``route`` takes the shape (the C
+    entry ``launch``'s own limits, apart from the rule)."""
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    vec = cols % 4 == 0 and x % 16 == 0 and y % 16 == 0
+    if route == "warp":
+        return cols <= ksoftmax.NARROW_COLS[vec]
+    part = (-(-cols // cluster) + 3) // 4 * 4
+    if route == "staged":
+        return (x - y) % 16 == 0 and part <= ksoftmax.STAGED_CAP
+    return True
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("cols", SOFTMAX_COLS)
+def test_softmax_rule_matches_plain(dev, cols, offset):
+    """The wrapper's route (by the rule) against the plain version, at
+    every width, from a 16-byte aligned x and from one 4 bytes past (its
+    output is aligned: x and y then differ modulo 16 bytes)."""
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    g = torch.Generator().manual_seed(cols + offset)
+    x = _softmax_input(g, 3, cols, dev, offset)
+    before = ksoftmax.launches
+    got = ksoftmax.softmax(x)
+    assert ksoftmax.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ksoftmax.softmax_plain(x), rtol=0,
+                               atol=1e-6, equal_nan=True)
+    assert torch.isnan(got[1]).all() and torch.isfinite(got[2]).all()
+    route = ksoftmax.softmax_route(3, cols, x.data_ptr(), got.data_ptr())
+    if cols > 1024 and offset:
+        assert route == "two-read"
+    elif 2048 < cols <= 8 * ksoftmax.STAGED_CAP:
+        assert route == "staged"
+
+
+@pytest.mark.parametrize("route,cluster", SOFTMAX_LAUNCHES)
+@pytest.mark.parametrize("cols", SOFTMAX_COLS)
+def test_softmax_routes_match_plain(dev, cols, route, cluster):
+    """Each route at each cluster size, off the rule, against the plain
+    version where its kernel takes the shape; refused (RuntimeError)
+    where it does not, never run on another route."""
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    g = torch.Generator().manual_seed(cols)
+    x = _softmax_input(g, 3, cols, dev)
+    y = torch.empty_like(x)
+    if not _takes(route, cluster, cols, x.data_ptr(), y.data_ptr()):
+        with pytest.raises(RuntimeError):
+            ksoftmax.softmax_variant(x, route, cluster)
+        return
+    got = ksoftmax.softmax_variant(x, route, cluster)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ksoftmax.softmax_plain(x), rtol=0,
+                               atol=1e-6, equal_nan=True)
+
+
+def test_softmax_refuses_a_route_off_the_rule(dev):
+    """``ptt_softmax_f32`` refuses every route but the rule's, with
+    cudaErrorInvalidValue: a dispatch, never a fallback."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    lib = _build.load("softmax", ksoftmax._SIGNATURES)
+    for cols in (1000, 30000, 500000):
+        x = torch.zeros(2, cols, device=dev)
+        y = torch.empty_like(x)
+        rule = ksoftmax.softmax_route(2, cols, x.data_ptr(), y.data_ptr())
+        for route, number in ksoftmax.ROUTES.items():
+            err = _build.launch(lib.ptt_softmax_f32, x, x.data_ptr(),
+                                y.data_ptr(), 2, cols, number)
+            if route == rule:
+                assert err == 0
+            else:
+                assert err != 0
+                with pytest.raises(RuntimeError):
+                    _build.check(lib, err, "softmax")
+    torch.cuda.synchronize()
+
+
+def test_softmax_plan_matches_the_library(dev):
+    """``softmax_plan`` is ``plan_of``: the same route, cluster and part at
+    every boundary and alignment, the same limits."""
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    cap = ksoftmax.STAGED_CAP
+    for cols in (1, 2, 128, 1024, 1025, 2048, 2052, 4096, 16384, 16385, 30000,
+                 30001, 65536, 8 * cap - 3, 8 * cap, 8 * cap + 1, 10 ** 6):
+        for x, y in ((0, 0), (4, 4), (0, 4), (8, 0), (4, 20)):
+            want = ksoftmax.softmax_plan(cols, x, y)
+            assert ksoftmax.c_plan(cols, x, y) == want + (
+                cap, ksoftmax.PART_COLS), (cols, x, y)
+
+
+def test_softmax_and_gather_replay_from_a_graph(dev):
+    """The softmax (warp and staged routes) and the gather captured in a
+    CUDA graph: a replay on new inputs equals eager calls on them, bit
+    for bit."""
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    g = torch.Generator().manual_seed(4)
+    xs = [_randn(g, 256, 1000, scale=4.0, device=dev),
+          _randn(g, 64, 30000, scale=4.0, device=dev)]
+    w = _randn(g, 3000, 512, device=dev)
+    ids = torch.randint(0, 3000, (700,), generator=g).to(dev)
+
+    def step():
+        return [ksoftmax.softmax(x) for x in xs] + [kemb.gather_rows(w, ids)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for t in xs + [w]:
+        t.copy_(torch.randn(t.shape, generator=g).to(dev))
+    ids.copy_(torch.randint(0, 3000, (700,), generator=g).to(dev))
+    graph.replay()
+    eager = step()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
+def test_softmax_and_gather_launch_on_the_current_stream(dev):
+    """Inside ``torch.cuda.stream(s)`` both launch on s: s first sleeps,
+    then overwrites their inputs, so a launch on any other stream would
+    read the old inputs."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    g = torch.Generator().manual_seed(5)
+    x = _randn(g, 64, 30000, scale=4.0, device=dev)
+    x_small = _randn(g, 32, 1000, scale=4.0, device=dev)
+    w = _randn(g, 3000, 512, device=dev)
+    ids = torch.randint(0, 3000, (700,), generator=g).to(dev)
+    new = [_randn(g, *t.shape, device=dev) for t in (x, x_small, w)]
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert _build.stream_of(x) == s.cuda_stream
+        torch.cuda._sleep(100_000_000)
+        for t, n in zip((x, x_small, w), new):
+            t.copy_(n)
+        outs = (ksoftmax.softmax(x), ksoftmax.softmax(x_small),
+                kemb.gather_rows(w, ids))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], ksoftmax.softmax_plain(new[0]),
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(outs[1], ksoftmax.softmax_plain(new[1]),
+                               rtol=0, atol=1e-6)
+    assert torch.equal(outs[2], kemb.gather_rows_plain(new[2], ids))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
