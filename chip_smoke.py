@@ -401,6 +401,29 @@ seconds):
     multiclass_nms with nms_top_k 400 and keep_top_k 200 on equal
     inputs); nce at V 10,000 at its own samples and sampling_id's
     chi-square; each lr schedule over 5 Momentum steps.
+15r. The ``paddle`` command line (``python -m paddle_tpu_torch.cli``),
+    each command a child process on the card with the kernels already
+    built (a child's launch counts come back through a file it writes at
+    exit, CLI_CHILD): ``version`` names the card; ``train`` of a copy of
+    the mnist_v1 demo's config with classification_error, value_printer
+    and gradient_printer evaluators, one pass of CLI_BATCHES batches:
+    every batch's line carries the evaluator and each printer prints once
+    a batch (their plans stay eager: a replayed graph would print once);
+    ``merge_model`` of its save_dir, then ``lint --optimize --json`` of
+    the export: no error; ``serve`` of the full-width ResNet-50 export
+    (``--max_batch=32``): POSTs of CLI_SERVE_SIZES images equal to the
+    in-process CPU replies within PROBS_TOL, ``stats --url`` counts them
+    in ``serving_request_seconds``, SIGTERM stops it with exit 0.  Then
+    in process: ``api.GradientMachine`` (M CLI_GM_BATCH rows: the matmul
+    on its wgmma route, the softmax head) with no place, its cost and
+    gradients against the same machine on CPUPlace() within PARITY_TOL of
+    max; ``api.ParameterOptimizer``'s seven rules, 5 steps each, against
+    CPUPlace() at rtol 1e-6; ``DataFeeder`` (128-row buckets) feeding the
+    LoD classifier 3 steps against CPUPlace(); a program of save, load,
+    print and cond run 3 times: the file's bytes equal the CPU run's, 3
+    prints, ``graph_stats`` naming the eager plan, and cond alone
+    captured.  The conv forward, matmul, softmax and gather (rows 1, 3, 4
+    and 8) each launch in the phase.
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
@@ -454,10 +477,11 @@ seconds):
     (its launch alone: its ``ms`` is the whole backward, kernel, dW
     product, dbias and casts); for the conv, matmul, softmax and BN rows
     ``by_model``: the image cells' launches at run.py's batch from phase
-    2; ``launches_by_path`` has each demo's as ``demo_<name>`` and phases
+    2; ``launches_by_path`` has each demo's as ``demo_<name>``, phases
     15k-15p's as ``while_rnn``, ``ifelse_attention_train_step``,
     ``bn_{nhwc,nchw,sequence}_step``, ``beams``,
-    ``srl_train_step`` and ``text_conv_train_step``), the
+    ``srl_train_step`` and ``text_conv_train_step``, and 15r's, the
+    command line's children and in process together, as ``cli``), the
     card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
@@ -470,6 +494,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -776,6 +801,33 @@ TEXT_FILTERS, TEXT_LR, TEXT_STEPS = 512, 1e-3, 20
 # max|CPU| (f32), integer outputs exactly; SSD300's head at B 8 over 21
 # classes (its six maps give 8,732 priors)
 OP_TAIL_TOL = 1e-4
+# 15r: the command line.  The mnist_v1 demo's one pass (512 samples in
+# batches of 64); the serve child's POSTs; GradientMachine's batch (the
+# wgmma route of the matmul needs M >= 1024) and widths;
+# ParameterOptimizer's rules (the native optimizer's seven, with momentum,
+# nesterov, decay and the linear lr policy among them)
+CLI_BATCHES = 8
+CLI_SERVE_SIZES = (1, 4, 32)
+CLI_GM_BATCH, CLI_GM_DIM, CLI_GM_HIDDEN, CLI_GM_CLASSES = 1024, 256, 512, 10
+CLI_OPT_RULES = ("type=sgd lr=0.05 momentum=0.9 nesterov=1 decay=0.01",
+                 "type=adagrad lr=0.1", "type=decayed_adagrad lr=0.1 rho=0.9",
+                 "type=adadelta lr=1.0 rho=0.95",
+                 "type=rmsprop lr=0.01 rho=0.9",
+                 "type=adam lr=0.01 lr_policy=linear lr_decay_a=0.0004 "
+                 "lr_decay_b=0.002",
+                 "type=adamax lr=0.02")
+# a child of the command line: ``python -m paddle_tpu_torch.cli`` (the
+# same module run as __main__) that writes its launch counters as JSON to
+# $CHIP_SMOKE_COUNTS when it exits
+CLI_CHILD = (
+    "import atexit, json, os, runpy\n"
+    "import chip_smoke\n"
+    "def dump():\n"
+    "    with open(os.environ['CHIP_SMOKE_COUNTS'], 'w') as f:\n"
+    "        json.dump(chip_smoke.counters(), f)\n"
+    "atexit.register(dump)\n"
+    "runpy.run_module('paddle_tpu_torch.cli', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
 SSD_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
 SSD_MIN = (30, 60, 111, 162, 213, 264)
 SSD_MAX = (60, 111, 162, 213, 264, 315)
@@ -9119,6 +9171,434 @@ def phase_op_tail(dev, smi):
     return dict(ops=errs, ssd=ssd, nce=nce)
 
 
+def cli_child(args, workdir, tag, popen=False, timeout=600):
+    """``python -m paddle_tpu_torch.cli ARGS`` in a child process from the
+    repo's root (CLI_CHILD): (exit code, stdout, stderr, launch counts)
+    once it ends, or with ``popen`` the running Popen and the path its
+    counts reach at exit."""
+    counts = os.path.join(workdir, f"{tag}_counts.json")
+    env = dict(os.environ, CHIP_SMOKE_COUNTS=counts,
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-c", CLI_CHILD, *args]
+    if popen:
+        return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True), counts
+    out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    launched = {}
+    if os.path.exists(counts):
+        with open(counts) as f:
+            launched = json.load(f)
+    return out.returncode, out.stdout, out.stderr, launched
+
+
+def _cli_check(what, rc, out, err):
+    if rc != 0:
+        fail(f"paddle {what}: exit {rc}; stdout {out[-1500:]!r}; stderr "
+             f"{err[-3000:]!r}")
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _cli_train(tmp, total):
+    """b: ``paddle train`` of the mnist_v1 config with three evaluators."""
+    src = os.path.join(HERE, "paddle_tpu_torch", "demos", "mnist_v1",
+                       "trainer_config.py")
+    with open(src) as f:
+        text = f.read()
+    text = text.replace("outputs(cost)", (
+        "classification_error_evaluator(input=predict, label=label)\n"
+        "value_printer_evaluator(input=predict, name='vp')\n"
+        "gradient_printer_evaluator(input=fc1, name='gp')\n"
+        "outputs(cost)"))
+    config = os.path.join(tmp, "trainer_config.py")
+    with open(config, "w") as f:
+        f.write(text)
+    save = os.path.join(tmp, "save")
+    t0 = time.perf_counter()
+    rc, out, err, counts = cli_child(
+        ["train", f"--config={config}", "--num_passes=1", "--log_period=1",
+         f"--save_dir={save}"], tmp, "train")
+    _cli_check("train", rc, out, err)
+    lines = out.splitlines()
+    batches = [ln for ln in lines if ln.startswith("Pass ")]
+    values = sum(ln.startswith("[print vp:") for ln in lines)
+    grads = sum(ln.startswith("[grad gp]") for ln in lines)
+    if len(batches) != CLI_BATCHES or not all(
+            "classification_error_evaluator=" in ln for ln in batches):
+        fail(f"paddle train: {len(batches)} batch lines (want "
+             f"{CLI_BATCHES}, each with classification_error_evaluator): "
+             f"{batches[:2]}")
+    if values != CLI_BATCHES or grads != CLI_BATCHES:
+        fail(f"paddle train: the value printer printed {values} times and "
+             f"the gradient printer {grads}, not once a batch "
+             f"({CLI_BATCHES}): a plan holding a printer was replayed")
+    _add_counts(total, counts)
+    log(f"15r paddle train (mnist_v1 + 3 evaluators, {CLI_BATCHES} batches) "
+        f"on the card in {time.perf_counter() - t0:.1f} s: every batch line "
+        f"has classification_error_evaluator ({batches[-1]}); value printer "
+        f"{values}, gradient printer {grads} prints; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return config, save
+
+
+def _cli_merge(tmp, config, save, total):
+    """c: ``paddle merge_model`` of the save_dir; then ``paddle lint`` of
+    the export starts (its Popen, read by ``_cli_lint``)."""
+    merged = os.path.join(tmp, "merged")
+    rc, out, err, counts = cli_child(
+        ["merge_model", f"--model_dir={save}", f"--out={merged}",
+         f"--config={config}"], tmp, "merge")
+    _cli_check("merge_model", rc, out, err)
+    _add_counts(total, counts)
+    return cli_child(["lint", os.path.join(merged, "__model__.json"),
+                      "--optimize", "--json"], tmp, "lint", popen=True)[0]
+
+
+def _cli_lint(proc):
+    out, err = proc.communicate(timeout=600)
+    _cli_check("lint", proc.returncode, out, err)
+    doc = json.loads(out)
+    errors = [d for d in doc["diagnostics"] if d["severity"] == "error"]
+    if errors:
+        fail(f"paddle lint of the merged export: {errors}")
+    report = next(iter(doc["optimize"].values()))
+    log(f"15r paddle merge_model, then paddle lint --optimize of the export: "
+        f"{len(doc['diagnostics'])} diagnostics, none an error; optimizer "
+        f"report {({k: v for k, v in report.items() if k != 'donation'})}")
+
+
+def _cli_serve(tmp, model_dir, rng, total):
+    """d: ``paddle serve`` of the ResNet-50 export."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving import ModelBundle, Replica
+
+    t0 = time.perf_counter()
+    proc, counts_path = cli_child(
+        ["serve", f"--model_dir={model_dir}", "--max_batch=32"], tmp,
+        "serve", popen=True)
+    try:
+        # the CPU replies while the child starts
+        requests = [rng.randn(n, 3, 224, 224).astype(np.float32)
+                    for n in CLI_SERVE_SIZES]
+        ref = Replica(ModelBundle(model_dir), 0, pt.CPUPlace())
+        want = [ref.run({"img": x})[0] for x in requests]
+        line = proc.stdout.readline()
+        if "listening on" not in line:
+            fail(f"paddle serve printed {line!r}; stderr "
+                 f"{proc.stderr.read()[-3000:] if proc.poll() is not None else ''}")
+        addr = line.split()[-1]
+        base = f"http://{addr}"
+        up = time.perf_counter() - t0
+        worst = 0.0
+        for x, w in zip(requests, want):
+            got = np.asarray(post(base, x)["outputs"][0], np.float32)
+            if got.shape != w.shape or not np.allclose(got, w, **PROBS_TOL):
+                fail(f"paddle serve: a batch of {len(x)} differs from the "
+                     f"CPU by {float(np.abs(got - w).max()):.3e} "
+                     f"(tolerance {PROBS_TOL})")
+            worst = max(worst, float(np.abs(got - w).max()))
+        # the server records a request after its reply: a bounded wait
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            n = _predict_count(get_json(base, "/stats"))
+            if n == len(requests):
+                break
+            time.sleep(0.05)
+        rc, out, err, _ = cli_child(["stats", f"--url={base}", "--json"],
+                                    tmp, "stats")
+        _cli_check("stats --url", rc, out, err)
+        n = _predict_count(json.loads(out))
+        if n != len(requests):
+            fail(f"paddle stats --url: serving_request_seconds counts {n} "
+                 f"/predict requests, not {len(requests)}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed"
+    if rc != 0:
+        fail(f"paddle serve: SIGTERM gave exit {rc}; stderr "
+             f"{proc.stderr.read()[-3000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    _add_counts(total, counts)
+    log(f"15r paddle serve (ResNet-50, --max_batch=32) up in {up:.1f} s; "
+        f"POSTs of {CLI_SERVE_SIZES} images equal the CPU replies (max abs "
+        f"err {worst:.3e}, tolerance {PROBS_TOL}); stats --url counts "
+        f"{n} /predict requests; SIGTERM -> exit 0; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def _predict_count(snap):
+    return sum(v["count"] for v in snap.get("serving_request_seconds", {})
+               .get("values", []) if v["labels"].get("endpoint") == "/predict")
+
+
+def _cli_gradient_machine():
+    """e: api.GradientMachine on the card (no place) against CPUPlace()."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer_config_helpers import layers as v1
+    from paddle_tpu_torch.trainer_config_helpers.activations import (
+        SoftmaxActivation, TanhActivation)
+    from paddle_tpu_torch.v2.data_type import integer_value
+
+    def conf():
+        def config():
+            x = v1.data_layer(name="x", size=CLI_GM_DIM)
+            lab = v1.data_layer(name="lab", size=CLI_GM_CLASSES)
+            hid = v1.fc_layer(input=x, size=CLI_GM_HIDDEN,
+                              act=TanhActivation())
+            pred = v1.fc_layer(input=hid, size=CLI_GM_CLASSES,
+                               act=SoftmaxActivation())
+            v1.outputs(v1.classification_cost(input=pred, label=lab))
+
+        pt.framework.reset_default_programs()
+        c = parse_config(config)
+        c.data_layers["lab"].input_type = integer_value(CLI_GM_CLASSES)
+        return c
+
+    card = api.GradientMachine.createFromConfigProto(conf())
+    if card._exe.place != pt.CUDAPlace(0):
+        fail(f"GradientMachine took {card._exe.place!r} with no place")
+    cpu = api.GradientMachine.createFromConfigProto(conf(),
+                                                   place=pt.CPUPlace())
+    for n in cpu.getParameters().keys():
+        card.getParameters().set(n, cpu.getParameters().get(n))
+    rng = np.random.RandomState(27)
+    x = rng.randn(CLI_GM_BATCH, CLI_GM_DIM).astype(np.float32)
+    lab = rng.randint(0, CLI_GM_CLASSES, (CLI_GM_BATCH, 1)).astype(np.int64)
+    outs = []
+    for gm in (cpu, card):
+        args = api.Arguments.createArguments(2)
+        args.setSlotValue(0, x)
+        args.setSlotIds(1, lab)
+        cost = gm.forwardBackward(args, api.Arguments(0))
+        outs.append((float(np.asarray(cost).reshape(-1)[0]),
+                     dict(gm._last_grads)))
+    (want_cost, want), (got_cost, got) = outs
+    if abs(got_cost - want_cost) > PARITY_TOL * abs(want_cost):
+        fail(f"GradientMachine cost {got_cost} on the card, {want_cost} on "
+             "the CPU")
+    errs = {}
+    for n, w in want.items():
+        errs[n] = float(np.abs(got[n] - w).max())
+        if errs[n] > PARITY_TOL * float(np.abs(w).max()):
+            fail(f"GradientMachine gradient {n}: max abs err {errs[n]:.3e} "
+                 f"(gate {PARITY_TOL} of max {float(np.abs(w).max()):.3e})")
+    return got_cost, want_cost, errs
+
+
+def _cli_optimizers():
+    """e: api.ParameterOptimizer's rules on the card against CPUPlace()."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import api
+
+    rng = np.random.RandomState(28)
+    w0 = rng.randn(1 << 16).astype(np.float32)
+    grads = [rng.randn(w0.size).astype(np.float32) for _ in range(5)]
+    errs = {}
+    for rule in CLI_OPT_RULES:
+        res = []
+        for place in (pt.CPUPlace(), None):
+            opt = api.ParameterOptimizer.create(rule, place=place)
+            opt.init(w0)
+            for g in grads:
+                opt.update(g)
+            res.append(opt.getWeights().copyToNumpyArray())
+        want, got = res
+        err = np.abs(got - want)
+        errs[rule.split()[0]] = float(err.max())
+        if (err > 1e-6 * np.abs(want) + 1e-6 * np.abs(want).max()).any():
+            fail(f"ParameterOptimizer {rule!r}: the card's weights differ "
+                 f"from the CPU's by {float(err.max()):.3e} (rtol 1e-6)")
+    return errs
+
+
+def _cli_data_feeder(dev):
+    """e: DataFeeder feeding the LoD classifier 3 steps, card against
+    CPU."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, _ = build_lod_program()
+    block = main_prog.global_block()
+    feeder = pt.DataFeeder([block.var("ids"), block.var("label")])
+    rng = np.random.RandomState(29)
+    batches = [[(rng.randint(0, LSTM_IDS, (rng.randint(1, LOD_MAX_LEN + 1),))
+                 .tolist(), int(rng.randint(0, 2))) for _ in range(LOD_SEQS)]
+               for _ in range(3)]
+    cpu, card = pt.Scope(), pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu)
+    card.load_numpy({n: v.numpy() for n, v in cpu.values.items()}, dev)
+    costs = []
+    for exe, scope in ((pt.Executor(pt.CPUPlace()), cpu),
+                       (pt.Executor(), card)):
+        costs.append([float(exe.run(main_prog, feed=feeder.feed(b),
+                                    fetch_list=[loss], scope=scope)[0])
+                      for b in batches])
+    want, got = costs
+    for i, (g, w) in enumerate(zip(got, want)):
+        if abs(g - w) > PARITY_TOL * abs(w):
+            fail(f"DataFeeder LoD step {i}: cost {g} on the card, {w} on "
+                 "the CPU")
+    rows = feeder.feed(batches[0])["ids"].data.shape[0]
+    return got, want, rows
+
+
+def _io_program(pt, path):
+    """x -> scale(2) -> save; load -> print; cond(c) of scale branches over
+    the loaded tensor: (main, startup, cond output)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[4, 3], append_batch_size=False)
+    c = pt.layers.data(name="c", shape=[4, 1], dtype="int64",
+                       append_batch_size=False)
+    y = pt.layers.scale(x, scale=2.0)
+    helper = LayerHelper("io")
+    helper.append_op(type="save", inputs={"X": [y]}, outputs={},
+                     attrs={"file_path": path})
+    z = helper.create_tmp_variable("float32", (4, 3))
+    helper.append_op(type="load", inputs={}, outputs={"Out": [z]},
+                     attrs={"file_path": path})
+    shown = helper.create_tmp_variable("float32", (4, 3))
+    helper.append_op(type="print", inputs={"X": [z]}, outputs={"Out": [shown]},
+                     attrs={"message": "io"})
+    out = _cond_op(pt, helper, c, shown)
+    return pt.default_main_program(), out
+
+
+def _cond_op(pt, helper, c, x):
+    out = helper.create_tmp_variable("float32", (4, 3))
+    prog = helper.main_program
+    blocks = []
+    for scale, bias in ((2.0, 1.0), (-1.0, 0.5)):
+        blocks.append(prog.create_block())
+        helper.append_op(type="scale", inputs={"X": [x]},
+                         outputs={"Out": [out]},
+                         attrs={"scale": scale, "bias": bias})
+        prog.rollback()
+    helper.append_op(type="cond", inputs={"Cond": [c], "Xs": [x]},
+                     outputs={"Outs": [out]},
+                     attrs={"true_block": blocks[0],
+                            "false_block": blocks[1]})
+    return out
+
+
+def _cli_io_program(tmp):
+    """e: save -> load -> print and cond, 3 runs on the card and on the
+    CPU; then cond alone, 3 runs on the card (captured)."""
+    import contextlib
+    import io as _io
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    rng = np.random.RandomState(30)
+    feed = {"x": rng.randn(4, 3).astype(np.float32),
+            "c": np.array([[1], [0], [1], [0]], np.int64)}
+    files, outs, prints, stats = {}, {}, {}, None
+    for where in ("cpu", "card"):
+        path = os.path.join(tmp, f"io_{where}.bin")
+        prog, out = _io_program(pt, path)
+        exe = pt.Executor(pt.CPUPlace() if where == "cpu" else None)
+        text = _io.StringIO()
+        with contextlib.redirect_stdout(text):
+            for _ in range(3):
+                (outs[where],) = exe.run(prog, feed=feed, fetch_list=[out],
+                                         scope=pt.Scope())
+        with open(path, "rb") as f:
+            files[where] = f.read()
+        prints[where] = text.getvalue().count("[print io]")
+        if where == "card":
+            stats = exe.graph_stats()
+    if files["card"] != files["cpu"]:
+        fail("the save op wrote other bytes on the card than on the CPU")
+    if prints != {"cpu": 3, "card": 3}:
+        fail(f"the print op printed {prints} times over 3 runs")
+    if not np.array_equal(outs["card"], outs["cpu"]):
+        fail("cond after load differs on the card from the CPU: "
+             f"{outs['card']} vs {outs['cpu']}")
+    eager = [why for _, why in stats["eager_plans"]]
+    if stats["graphs"] or not any("host" in why for why in eager):
+        fail(f"graph_stats of the io program: {stats}")
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[4, 3], append_batch_size=False)
+    c = pt.layers.data(name="c", shape=[4, 1], dtype="int64",
+                       append_batch_size=False)
+    out = _cond_op(pt, LayerHelper("cond"), c, x)
+    exe, scope = pt.Executor(), pt.Scope()
+    for _ in range(3):
+        (got,) = exe.run(pt.default_main_program(), feed=feed,
+                         fetch_list=[out], scope=scope)
+    cond_stats = exe.graph_stats()
+    want = np.where(feed["c"].astype(bool), 2 * feed["x"] + 1,
+                    -feed["x"] + 0.5)
+    if cond_stats["graphs"] != 1 or not np.allclose(got, want, rtol=1e-6):
+        fail(f"cond alone on the card: graphs {cond_stats}, max abs err "
+             f"{float(np.abs(got - want).max()):.3e}")
+    return stats["eager_plans"], cond_stats["graphs"]
+
+
+def phase_cli(dev, smi, model_dir, rng):
+    """15r: the command line, each command a child process on the card,
+    then the api, DataFeeder and io program in process (the module
+    docstring has the checks); rows 1, 3, 4 and 8 must launch."""
+    import torch
+
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # version and lint run beside the other children
+        version = cli_child(["version"], tmp, "version", popen=True)[0]
+        config, save = _cli_train(tmp, total)
+        lint = _cli_merge(tmp, config, save, total)
+        _cli_serve(tmp, model_dir, rng, total)
+        out, err = version.communicate(timeout=600)
+        _cli_check("version", version.returncode, out, err)
+        if torch.cuda.get_device_name(0) not in out:
+            fail(f"paddle version does not name the card: {out!r}")
+        log(f"15r paddle version: {out.strip()!r}")
+        _cli_lint(lint)
+        t1 = time.perf_counter()
+        zero_counters()
+        cost, want_cost, gm_errs = _cli_gradient_machine()
+        gm_wgmma = wgmma_counters()["matmul"]
+        if not gm_wgmma:
+            fail("GradientMachine's products at M "
+                 f"{CLI_GM_BATCH} took no wgmma launch")
+        opt_errs = _cli_optimizers()
+        lod_got, lod_want, lod_rows = _cli_data_feeder(dev)
+        eager, cond_graphs = _cli_io_program(tmp)
+        _add_counts(total, counters())
+        t_children = t1 - t0
+    log(f"15r in process ({time.perf_counter() - t1:.1f} s; the children "
+        f"{t_children:.1f} s): GradientMachine at M {CLI_GM_BATCH} cost "
+        f"{cost:.6f} (CPU {want_cost:.6f}), {gm_wgmma} matmul launches on "
+        f"wgmma, gradients' max abs err "
+        f"{gm_errs}; ParameterOptimizer 5 steps, card vs CPU max abs err "
+        f"{opt_errs}; DataFeeder ({lod_rows} rows with the 128-row bucket) "
+        f"LoD costs {lod_got} (CPU {lod_want}); save/load/print/cond: 3 "
+        f"prints, the bytes equal, eager {eager}; cond alone {cond_graphs} "
+        f"graph")
+    for k in ("conv2d_nhwc", "matmul", "softmax", "embedding"):
+        if not total.get(k):
+            fail(f"15r launched no {k} kernel: {total}")
+    launches = {k: total.get(k, 0) for k in KERNELS}
+    log(f"15r launches (children's and in process): "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return dict(launches=launches)
+
+
 def graph_pools():
     """(pools, bytes): the CUDA graphs' private memory pools the caching
     allocator still holds, after freeing what nothing references (a dead
@@ -9306,17 +9786,16 @@ def main():
     torch.cuda.synchronize()
     log(f"ResNet-50 initialised on {exe.place!r} and BN statistics set in "
         f"{time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:
-        model_dir = os.path.join(tmp, "resnet50")
-        pt.io.save_inference_model(model_dir, ["img"], [pred], exe,
-                                   main_program=main_prog, scope=scope)
-        del exe, scope
-        serve_launches, serve_wgmma = timed(phase_serving, dev, model_dir,
-                                            rng)
-        ops_launches, ops_wgmma = timed(phase_serving_ops, dev, model_dir,
-                                        rng)
-        img_per_s = timed(phase_throughput, dev, model_dir)
-        serve_graph = timed(phase_serving_graph, dev, model_dir)
+    # the export lives until phase 15r serves it through the command line
+    export_dir = tempfile.TemporaryDirectory()
+    model_dir = os.path.join(export_dir.name, "resnet50")
+    pt.io.save_inference_model(model_dir, ["img"], [pred], exe,
+                               main_program=main_prog, scope=scope)
+    del exe, scope
+    serve_launches, serve_wgmma = timed(phase_serving, dev, model_dir, rng)
+    ops_launches, ops_wgmma = timed(phase_serving_ops, dev, model_dir, rng)
+    img_per_s = timed(phase_throughput, dev, model_dir)
+    serve_graph = timed(phase_serving_graph, dev, model_dir)
 
     timed(phase_train_parity, dev, main_prog, startup, loss, params_grads)
     train = timed(phase_train_step, dev, main_prog, startup, loss,
@@ -9369,6 +9848,8 @@ def main():
     srl = timed(phase_srl, dev, smi)
     text = timed(phase_text_conv, dev, smi)
     timed(phase_op_tail, dev, smi)
+    cli = timed(phase_cli, dev, smi, model_dir, rng)
+    export_dir.cleanup()
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
     log(f"the demos' launches in all: "
@@ -9428,7 +9909,8 @@ def main():
                "bn_sequence_step": bn_layouts["sequence"],
                "beams": beams["launches"],
                "srl_train_step": srl["launches"],
-               "text_conv_train_step": text["launches"]}
+               "text_conv_train_step": text["launches"],
+               "cli": cli["launches"]}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}

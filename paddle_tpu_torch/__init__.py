@@ -18,6 +18,7 @@ from paddle_tpu_torch import (amp, clip, evaluator, framework, initializer,
                               io, layers, lr_scheduler, models, nets,
                               optimizer, param_attr, regularizer)
 from paddle_tpu_torch.backward import append_backward
+from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.executor import (Executor, Scope, global_scope,
                                        params_from_numpy, scope_guard)
 from paddle_tpu_torch.framework import (CPUPlace, CUDAPlace, Program,
@@ -26,8 +27,11 @@ from paddle_tpu_torch.framework import (CPUPlace, CUDAPlace, Program,
                                         program_guard, recompute_scope)
 from paddle_tpu_torch.param_attr import ParamAttr
 
+__version__ = "0.1.0"
+
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program", "Scope",
+    "CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "ParamAttr", "Program",
+    "Scope",
     "amp", "append_backward", "clip", "default_main_program",
     "default_startup_program", "evaluator", "framework", "global_scope",
     "initializer", "io", "layers", "lr_scheduler", "models", "nets",

@@ -54,6 +54,7 @@ import numpy as np
 
 from paddle_tpu_torch.framework import Operator, Program
 from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.ops.io_ops import RANDOM_OPS
 from paddle_tpu_torch.registry import LowerContext, OpRegistry
 from paddle_tpu_torch.analysis import dataflow
 from paddle_tpu_torch.analysis.verify import (
@@ -70,13 +71,11 @@ _M_DONATION = _metrics.gauge(
     "state inputs the donation-safety analyzer proved donatable for the "
     "most recently planned program")
 
-# The JAX package's random ops.  Random ops draw from the step's
-# generator *in program order* — removing or merging one would shift the
-# stream of every later random op, so no rewrite pass touches them.
-_RANDOM_OPS = frozenset(
-    {"uniform_random", "gaussian_random", "dropout", "sampling_id",
-     "random_crop", "nce", "segment_rng_key"}
-)
+# The Executor's random ops and ``segment_rng_key``, which draws a
+# segment's key.  Random ops draw from the step's generator *in program
+# order* — removing or merging one would shift the stream of every later
+# random op, so no rewrite pass touches them.
+_RANDOM_OPS = RANDOM_OPS | {"segment_rng_key"}
 
 # Zero-input op types safe to evaluate at optimize time.  ``load`` is
 # excluded on purpose: it reads a file the deploy host may not share.

@@ -30,8 +30,8 @@ Pieces:
                     stepper thread, admission control, token streaming)
                     that ``InferenceServer`` mounts at ``POST /generate``.
 
-The v1 ``beam_search`` adapter ``PagedSeq2SeqModel`` comes with the
-port's sequence tail.
+The v1 ``beam_search`` adapter ``PagedSeq2SeqModel`` comes with v1
+generation (ROADMAP Queue 1 item 4).
 """
 
 from paddle_tpu_torch.decode.paged_kv import (

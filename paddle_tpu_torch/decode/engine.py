@@ -58,11 +58,11 @@ class GenerationEngine:
     @classmethod
     def for_seq2seq(cls, beam_gen, parameters, **kwargs):
         """The v1 ``beam_search`` adapter (``PagedSeq2SeqModel``) needs the
-        v1 generation stack, which the port has not taken yet."""
+        v1 generation stack, which comes with ROADMAP Queue 1 item 4."""
         raise NotImplementedError(
             "GenerationEngine.for_seq2seq (PagedSeq2SeqModel over a v1 "
-            "beam_search spec) comes with slice 6 of the port, the "
-            "sequence tail; serve a make_decode_model() paged decoder LM")
+            "beam_search spec) comes with v1 generation, ROADMAP Queue 1 "
+            "item 4; serve a make_decode_model() paged decoder LM")
 
     # -- submission ---------------------------------------------------------
 

@@ -62,10 +62,27 @@ class CUDAPlace(Place):
         return hash(("CUDAPlace", self.device_id))
 
 
+#: the place ``resolve_place(None)`` gives inside ``default_place``
+_default_places: List[Place] = []
+
+
+@contextlib.contextmanager
+def default_place(place: Place):
+    """Inside this block an entry point given no place runs on ``place``:
+    how ``paddle stats --run=SCRIPT --use_gpu=0`` runs a script's
+    ``Executor()`` on the CPU."""
+    _default_places.append(place)
+    try:
+        yield
+    finally:
+        _default_places.pop()
+
+
 def resolve_place(place: Optional[Place]) -> Place:
     """The entry points' place rule: the card unless the caller asks for
     the CPU, and never a quiet fall back to the CPU."""
-    place = CUDAPlace(0) if place is None else place
+    if place is None:
+        place = _default_places[-1] if _default_places else CUDAPlace(0)
     if isinstance(place, CUDAPlace):
         if not torch.cuda.is_available():
             raise RuntimeError(

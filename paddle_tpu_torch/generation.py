@@ -1,6 +1,7 @@
 """Host-side generation helpers (``paddle_tpu/generation.py``): the beam
 bookkeeping step that the decode session's beam groups call.  The
-dense ``SequenceGenerator`` comes with the sequence tail of the port.
+dense ``SequenceGenerator`` comes with v1 generation (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations

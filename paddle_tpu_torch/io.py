@@ -16,6 +16,7 @@ import torch
 
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.executor import Scope, global_scope
+from paddle_tpu_torch.executor import _to_numpy as _tensor_to_numpy
 from paddle_tpu_torch.framework import Parameter, Program, Variable
 
 _FORMAT_VERSION = 1
@@ -36,6 +37,60 @@ def _to_numpy(value) -> np.ndarray:
             raise TypeError("numpy has no bfloat16; cast before saving")
         return value.numpy()
     return np.asarray(value)
+
+
+_TENSOR_MAGIC = b"PTPU"
+_TENSOR_VERSION = 0
+
+
+def serialize_tensor_bytes(arr) -> bytes:
+    """The single-tensor file format of the ``save`` / ``load`` ops
+    (``paddle_tpu/io.py:33-48``): magic, uint32 version, dtype name,
+    dims, raw little-endian data.  ``arr`` is numpy or a tensor (a CUDA
+    tensor is copied to the host first; bf16 goes by its ``ml_dtypes``
+    name, as the JAX package writes it)."""
+    import struct
+
+    if isinstance(arr, torch.Tensor):
+        arr = _tensor_to_numpy(arr)
+    arr = np.ascontiguousarray(np.asarray(arr))
+    dt = arr.dtype.name.encode()
+    head = _TENSOR_MAGIC + struct.pack("<I", _TENSOR_VERSION)
+    head += struct.pack("<H", len(dt)) + dt
+    head += struct.pack("<I", arr.ndim) + struct.pack(
+        f"<{arr.ndim}q", *arr.shape)
+    return head + arr.tobytes()
+
+
+def numpy_dtype(name: str) -> np.dtype:
+    """numpy's dtype of a dtype name; bfloat16 is ``ml_dtypes``'."""
+    if name == "bfloat16":
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
+
+
+def deserialize_tensor_bytes(buf: bytes) -> np.ndarray:
+    """The array ``serialize_tensor_bytes`` wrote (either package's)."""
+    import struct
+
+    if buf[:4] != _TENSOR_MAGIC:
+        raise ValueError("not a paddle_tpu tensor file")
+    off = 4
+    (version,) = struct.unpack_from("<I", buf, off)
+    off += 4
+    if version != _TENSOR_VERSION:
+        raise ValueError(f"unsupported tensor format version {version}")
+    (dtlen,) = struct.unpack_from("<H", buf, off)
+    off += 2
+    dtype = numpy_dtype(buf[off:off + dtlen].decode())
+    off += dtlen
+    (ndim,) = struct.unpack_from("<I", buf, off)
+    off += 4
+    dims = struct.unpack_from(f"<{ndim}q", buf, off)
+    off += 8 * ndim
+    return np.frombuffer(buf, dtype=dtype, offset=off).reshape(dims).copy()
 
 
 def save_vars(executor, dirname: str, main_program: Optional[Program] = None,

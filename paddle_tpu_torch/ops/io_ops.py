@@ -1,8 +1,23 @@
-"""The rematerialization ops and ``fill`` (``paddle_tpu/ops/io_ops.py``):
-``segment_rng_key`` and ``recompute_segment_grad``, which
-``framework.recompute_scope`` and ``append_backward`` emit, and ``fill``,
-which the optimizer's constant folding emits.  The rest of the JAX
-module (feed/fetch as ops, save, load, print, cond) is not ported yet.
+"""The io and structural ops (``paddle_tpu/ops/io_ops.py``): ``feed`` and
+``fetch`` (the identity), ``save`` and ``load`` (the single-tensor file
+format of ``io.serialize_tensor_bytes``), ``print``, ``grad_printer``
+and ``seq_text_printer`` (host-side printing), the legacy two-branch
+``cond``, ``fill`` (which the optimizer's constant folding emits), and
+the rematerialization ops ``segment_rng_key`` and
+``recompute_segment_grad``, which ``framework.recompute_scope`` and
+``append_backward`` emit.
+
+The JAX package runs its host-side ops through ordered ``io_callback``s
+inside the jitted step.  Here they run on the host as the plan reaches
+them, so each holds an ``OpInfo.host_sync`` reason and its plan stays
+eager: a captured CUDA graph replays no Python, and a print or a save
+would happen once, at capture.  ``grad_printer`` itself is the identity
+and captures; its grad op, which prints, does not.  ``load`` reads its
+file on every run, where the JAX package reads it once, when it traces
+the op, and keeps that value for as long as its compile cache holds the
+program (ROADMAP Queue 3).  ``cond`` runs both sub-blocks over the whole
+batch and merges their outputs row by row with ``torch.where``; it
+reads nothing on the host and captures.
 
 ``recompute_segment_grad`` replays its segment's forward from the
 segment's external inputs under ``torch.enable_grad()`` (the Executor
@@ -17,13 +32,14 @@ raises on a raw launch there.
 
 from __future__ import annotations
 
+import os
 import weakref
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.lod import rewrap, unwrap
+from paddle_tpu_torch.lod import LoDArray, rewrap, unwrap
 from paddle_tpu_torch.ops.common import torch_dtype
 from paddle_tpu_torch.registry import (LowerContext, OpRegistry,
                                        SkipInferShape, register_op)
@@ -156,3 +172,173 @@ def _fill(ctx):
                 np.asarray(raw), ctx.device).to(dtype).reshape(shape))
         out = hit[1].clone()
     ctx.set_output("Out", out)
+
+
+# ---------------------------------------------------------------------------
+# feed / fetch, save / load, cond
+# ---------------------------------------------------------------------------
+
+
+@register_op("feed", inputs=("X",), stop_gradient=True)
+def _feed(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_op("fetch", inputs=("X",), stop_gradient=True)
+def _fetch(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+def _host_array(v) -> np.ndarray:
+    """A value's data as numpy on the host (a LoD value's rows)."""
+    from paddle_tpu_torch.executor import _to_numpy
+
+    v = unwrap(v)
+    return _to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+@register_op("save", inputs=("X",), outputs=(), stop_gradient=True,
+             host_sync="writes its value to a file on the host each run")
+def _save(ctx):
+    from paddle_tpu_torch.io import serialize_tensor_bytes
+
+    path = ctx.attr("file_path")
+    if not bool(ctx.attr("overwrite", True)) and os.path.exists(path):
+        raise IOError(f"save op: {path} exists and overwrite=False")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(serialize_tensor_bytes(_host_array(ctx.input("X"))))
+
+
+@register_op("load", inputs=(), stop_gradient=True,
+             host_sync="reads its file and copies it to the device each run")
+def _load(ctx):
+    from paddle_tpu_torch.executor import tensor_from_numpy
+    from paddle_tpu_torch.io import deserialize_tensor_bytes
+
+    with open(ctx.attr("file_path"), "rb") as f:
+        arr = deserialize_tensor_bytes(f.read())
+    ctx.set_output("Out", tensor_from_numpy(arr, ctx.device))
+
+
+@register_op("cond", inputs=("Cond", "Xs"), outputs=("Outs", "IndexTensors"))
+def _cond(ctx):
+    """The legacy two-branch cond (``operators/cond_op.cc``): rows where
+    Cond holds take the true sub-block's outputs, the rest the false
+    one's.  Both sub-blocks run over the whole batch."""
+    from paddle_tpu_torch.executor import run_block
+
+    mask = unwrap(ctx.input("Cond")).to(torch.bool).reshape(-1)
+    out_names = [n for n in ctx.op.output("Outs") if n]
+
+    def run(block):
+        values = dict(ctx.values)
+        run_block(block, values, ctx.device, ctx._generator)
+        return [values[n] for n in out_names]
+
+    t_outs = run(ctx.attr("true_block"))
+    f_outs = run(ctx.attr("false_block"))
+    for n, t, f in zip(out_names, t_outs, f_outs):
+        t, f = unwrap(t), unwrap(f)
+        m = mask.reshape((-1,) + (1,) * (t.dim() - 1))
+        ctx.values[n] = torch.where(m, t, f)
+
+
+# ---------------------------------------------------------------------------
+# the printers
+# ---------------------------------------------------------------------------
+
+
+@register_op("print", inputs=("X",), stop_gradient=True,
+             host_sync="prints its value on the host each run")
+def _print(ctx):
+    """Print X on the host, in the JAX op's text, and pass it on."""
+    print(f"[print {ctx.attr('message', '')}]",
+          _host_array(ctx.input("X")), flush=True)
+    ctx.set_output("Out", ctx.input("X"))
+
+
+def _grad_printer_grad_lower(ctx):
+    """Print the incoming gradient on the host and pass it through
+    unchanged (``gserver/evaluators/Evaluator.cpp`` GradientPrinter)."""
+    gout = ctx.input("Out@GRAD")
+    message = ctx.op.attr("__fwd_attrs__", {}).get("message", "")
+    print(f"[grad {message}]", _host_array(gout), flush=True)
+    ctx.values[ctx.op.output("X@GRAD")[0]] = gout
+
+
+def _grad_printer_sync(op):
+    # the forward is the identity; its grad op prints
+    if op.type.endswith("_grad"):
+        return "prints its gradient on the host each run"
+    return None
+
+
+@register_op("grad_printer", inputs=("X",),
+             grad_lower=_grad_printer_grad_lower,
+             host_sync=_grad_printer_sync)
+def _grad_printer(ctx):
+    """The identity; its grad op prints the gradient
+    (gradient_printer_evaluator)."""
+    ctx.set_output("Out", ctx.input("X"))
+
+
+#: (weakref of the Scope, realpath) of each result file truncated in the
+#: evaluation that Scope runs
+_SEQTEXT_TRUNCATED = set()
+
+
+@register_op("seq_text_printer", inputs=("X", "Id"), stop_gradient=True,
+             host_sync="writes its rows to a text file on the host each run")
+def _seq_text_printer(ctx):
+    """Write id sequences as dictionary-translated lines ``id \\t tokens``
+    to ``result_file`` (``Evaluator.cpp`` SequenceTextPrinter): the Id
+    input where given, else the sequence's index.  A LoD X gives a line
+    a sequence, a dense (N, W) X one a row.  The file is truncated once
+    an evaluation, keyed, as in the JAX package, on the Scope active when
+    the op runs, and appended to after that."""
+    import paddle_tpu_torch.executor as executor_mod
+
+    x = ctx.input("X")
+    result_file = ctx.attr("result_file")
+    dict_file = ctx.attr("dict_file", None)
+    delimited = ctx.attr("delimited", True)
+    words = None
+    if dict_file:
+        with open(dict_file) as f:
+            words = [line.rstrip("\n") for line in f]
+    sep = " " if (delimited is None or delimited) else ""
+
+    if isinstance(x, LoDArray):
+        data = _host_array(x.data)
+        lengths = _host_array(x.seq_lens())
+    else:
+        data = _host_array(x)
+        data = data.reshape(data.shape[0], -1)
+        lengths = np.ones((data.shape[0],), np.int32)
+    ids = (_host_array(ctx.input("Id")).astype(np.int64).reshape(-1)
+           if ctx.op.input("Id") else np.zeros((0,), np.int64))
+    lines = []
+    row = 0
+    for k, n in enumerate(lengths):
+        n = int(n)
+        seq = data[row:row + n].reshape(-1).astype(np.int64).tolist()
+        row += n
+        toks = [(words[i] if words and 0 <= i < len(words) else str(i))
+                for i in seq]
+        sid = int(ids[k]) if ids.size else k
+        lines.append(f"{sid}\t" + sep.join(toks))
+
+    scope = (executor_mod._scope_stack[-1]
+             if executor_mod._scope_stack else None)
+    key = (weakref.ref(scope) if scope is not None else None,
+           os.path.realpath(result_file))
+    mode = "a" if key in _SEQTEXT_TRUNCATED else "w"
+    _SEQTEXT_TRUNCATED.add(key)
+    # keys of collected Scopes go, so the set stays bounded
+    _SEQTEXT_TRUNCATED.difference_update(
+        [k for k in _SEQTEXT_TRUNCATED
+         if k[0] is not None and k[0]() is None])
+    with open(result_file, mode) as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+    ctx.set_output("Out", x)

@@ -27,13 +27,18 @@ define ``make_decode_model()`` returning a paged decoder LM (a
 place); a ``make_draft_model()`` in it, or ``--spec_draft=ngram``,
 turns on speculative decoding.  Prints one line
 ``serving on http://HOST:PORT`` once it accepts requests, then serves
-until interrupted.
+until SIGTERM or SIGINT, and exits 0.  ``--use_gpu=0`` is ``--cpu``.
+
+``paddle serve`` (``python -m paddle_tpu_torch.cli serve``) parses the
+same flags through ``serve_parser`` and builds the same server through
+``make_server``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import threading
 
 from paddle_tpu_torch.framework import CPUPlace
@@ -54,8 +59,9 @@ def load_generator(args):
         if "make_generator" in glb:
             raise NotImplementedError(
                 f"{path} defines make_generator() -> (beam_gen, parameters),"
-                " a v1 beam_search spec: the port serves it with slice 6, "
-                "the sequence tail; define make_decode_model() instead")
+                " a v1 beam_search spec: the port serves it with v1 "
+                "generation, ROADMAP Queue 1 item 4; define "
+                "make_decode_model() instead")
         raise RuntimeError(f"{path} defines no make_decode_model() -> paged "
                            "decoder model")
     spec_draft = None
@@ -72,7 +78,8 @@ def load_generator(args):
 
 
 def tenant_spec(args):
-    """``--tenant_config``'s JSON dict, or its ``NAME:RATE...`` lines
+    """``--tenant_config``'s JSON dict, or its ``NAME:RATE...`` lines (one
+    entry a line, ``#`` lines skipped, as ``paddle serve`` reads them)
     joined as a ``--tenants`` spec; else ``--tenants``."""
     if not args.tenant_config:
         return args.tenants
@@ -85,10 +92,11 @@ def tenant_spec(args):
                         if ln.strip() and not ln.startswith("#"))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.serving")
+def serve_parser(prog: str, port: int = 8000) -> argparse.ArgumentParser:
+    """The serving flags of ``paddle serve`` and of this launcher."""
+    ap = argparse.ArgumentParser(prog=prog)
     ap.add_argument("--model_dir", default=None)
-    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--port", type=int, default=port)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--max_batch", type=int, default=8)
@@ -98,11 +106,13 @@ def main(argv=None) -> int:
     ap.add_argument("--max_inflight", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="run /predict on the CPU instead of CUDA card 0")
+    ap.add_argument("--use_gpu", type=int, default=1,
+                    help="1: CUDA card 0; 0: the CPU (as --cpu)")
     ap.add_argument("--tenants", default=None,
                     help="NAME:RATE[:BURST[:WEIGHT]],... token-bucket "
                     "quotas and fair-queue weights")
     ap.add_argument("--tenant_config", default=None,
-                    help="a JSON file of tenants (or one spec a line)")
+                    help="a JSON file of tenants, or one spec a line")
     ap.add_argument("--max_attempts", type=int, default=3)
     ap.add_argument("--replica_heartbeat_ms", type=float, default=1000.0)
     ap.add_argument("--dispatch_timeout", type=float, default=None)
@@ -110,7 +120,8 @@ def main(argv=None) -> int:
                     help="KIND[@N[:rIDX]]: die, raise or hang on the Nth "
                     "dispatch after warmup")
     ap.add_argument("--artifacts", default=None,
-                    help="AOT executables to boot from (not ported: raises)")
+                    help="AOT executables to boot from (ROADMAP Queue 1 "
+                    "item 3 step 2: raises)")
     ap.add_argument("--gen_config", default=None,
                     help="script defining make_decode_model(): mounts "
                     "POST /generate")
@@ -122,29 +133,49 @@ def main(argv=None) -> int:
     ap.add_argument("--spec_draft", choices=("ngram",), default=None)
     ap.add_argument("--spec_k", type=int, default=4)
     ap.add_argument("--beam_max", type=int, default=0)
+    return ap
+
+
+def parse_serve_args(ap: argparse.ArgumentParser, argv=None):
     args = ap.parse_args(argv)
     if args.model_dir is None and args.gen_config is None:
         ap.error("give --model_dir and/or --gen_config")
+    return args
+
+
+def make_server(args) -> InferenceServer:
+    """The server the parsed flags describe."""
     generator = load_generator(args) if args.gen_config else None
-    srv = InferenceServer(
+    cpu = args.cpu or not args.use_gpu
+    return InferenceServer(
         args.model_dir, port=args.port, host=args.host,
         request_timeout=args.request_timeout,
         max_inflight=args.max_inflight, replicas=args.replicas,
         max_batch=args.max_batch, batch_timeout_ms=args.batch_timeout_ms,
-        warmup=args.warmup, place=CPUPlace() if args.cpu else None,
+        warmup=args.warmup, place=CPUPlace() if cpu else None,
         generator=generator, tenants=tenant_spec(args),
         max_attempts=args.max_attempts,
         replica_heartbeat_ms=args.replica_heartbeat_ms,
         dispatch_timeout=args.dispatch_timeout, chaos=args.chaos,
         artifacts=args.artifacts)
-    print(f"serving on http://{srv.address}", flush=True)
-    try:
-        threading.Event().wait()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        srv.stop()
+
+
+def serve_until_signalled(srv) -> int:
+    """Serve until SIGTERM or SIGINT, then stop the server: exit code 0."""
+    done = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: done.set())
+    signal.signal(signal.SIGINT, lambda *a: done.set())
+    done.wait()
+    srv.stop()
     return 0
+
+
+def main(argv=None) -> int:
+    args = parse_serve_args(serve_parser("python -m paddle_tpu_torch.serving"),
+                            argv)
+    srv = make_server(args)
+    print(f"serving on http://{srv.address}", flush=True)
+    return serve_until_signalled(srv)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ the seq2seq cell of ``benchmark/run.py`` reaches.  A v1 config calls
 and declares ``outputs(...)``; ``paddle_tpu_torch.trainer.config_parser.
 parse_config`` runs it and returns what it declared.  The constructors
 build the lazy ``LayerOutput`` DAG of ``paddle_tpu_torch.v2.layer``, so
-a parsed config trains on the port's Program path."""
+a parsed config trains on the port's Program path; the evaluators
+(``evaluators.py``) attach metric and printer layers beside it."""
 
 from paddle_tpu_torch.trainer_config_helpers.activations import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.attrs import *  # noqa: F401,F403
@@ -14,3 +15,4 @@ from paddle_tpu_torch.trainer_config_helpers.layers_extra import *  # noqa: F401
 from paddle_tpu_torch.trainer_config_helpers.networks import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.optimizers import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.data_sources import *  # noqa: F401,F403
+from paddle_tpu_torch.trainer_config_helpers.evaluators import *  # noqa: F401,F403

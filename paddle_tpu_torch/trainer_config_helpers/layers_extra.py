@@ -16,6 +16,11 @@ def _unwrap(v):
     return v.var if isinstance(v, SeqVal) else v
 
 
+def _rewrap_like(parent_val, out):
+    return SeqVal(out, parent_val.lengths) if isinstance(parent_val, SeqVal) \
+        else out
+
+
 def _simple(name_prefix, parents, build, size=None, is_seq=False,
             type_=None, name=None, **cfg):
     lo = LayerOutput(name or _v2._uname(name_prefix), list(parents), build,

@@ -1,13 +1,15 @@
 """The paddle.v2 surface of the port (``paddle_tpu/v2/``), the part the
 v1 trainer reaches: layers build a lazy ``LayerOutput`` DAG,
 ``Topology`` traces it into a Program, ``Parameters`` holds the weights
-in a Scope, ``SGD`` appends the optimizer.  Sequences are padded
-(B, T, ...) values beside a ``<name>@len`` length vector.  The data
-feeder, ``SGD.train``, checkpoints, inference and the datasets wait for
-the v2 slice."""
+in a Scope, ``SGD`` appends the optimizer and trains, ``batch`` and
+``reader`` make the data stream.  Sequences are padded (B, T, ...)
+values beside a ``<name>@len`` length vector.  Inference, the datasets
+and the rest of the surface wait for ROADMAP Queue 1 item 3 step 3."""
 
 from paddle_tpu_torch.v2 import (activation, attr, data_type, layer,
-                                 parameters, pooling, topology, trainer)
+                                 minibatch, parameters, pooling, reader,
+                                 topology, trainer)
+from paddle_tpu_torch.v2.minibatch import batch
 
 _trainer_count = 1
 
@@ -29,5 +31,6 @@ def init(use_gpu: bool = True, trainer_count: int = 1, **kwargs):
     FLAGS.set("use_gpu", bool(use_gpu))
 
 
-__all__ = ["activation", "attr", "data_type", "init", "layer", "parameters",
-           "pooling", "topology", "trainer"]
+__all__ = ["activation", "attr", "batch", "data_type", "init", "layer",
+           "minibatch", "parameters", "pooling", "reader", "topology",
+           "trainer"]

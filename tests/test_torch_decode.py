@@ -734,14 +734,14 @@ def test_launcher_builds_the_engine_from_a_gen_config(tmp_path):
     finally:
         engine.stop()
     script.write_text("def make_generator():\n    return None, None\n")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         load_generator(Args)
     with pytest.raises(SystemExit):
         main([])
 
 
 def test_later_slices_and_the_card_default_raise(jax_base):
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         GenerationEngine.for_seq2seq(None, None)
     import paddle_tpu_torch.decode as decode
 

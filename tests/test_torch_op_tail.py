@@ -527,23 +527,23 @@ def test_lr_schedule(rng, name):
 # ---------------------------------------------------------------------------
 
 
-IO_COLLECTIVE_PIPELINE = {
-    "feed", "fetch", "save", "load", "print", "grad_printer",
-    "seq_text_printer", "cond", "all_reduce", "ncclInit", "ncclAllReduce", "ncclReduce", "ncclBcast",
+COLLECTIVE_PIPELINE = {
+    "all_reduce", "ncclInit", "ncclAllReduce", "ncclReduce", "ncclBcast",
     "broadcast", "all_gather", "reduce_scatter", "send", "recv",
     "transformer_pipeline_blocks"}
 
 
 def test_registry_and_layer_surface():
-    """The JAX package registers exactly the io, collective and pipeline
-    ops beyond the port's, every public callable of its layers is the
-    port's too, and nets.sequence_conv_pool exists."""
+    """The JAX package registers exactly the collective and pipeline ops
+    beyond the port's, every public callable of its layers is the port's
+    too, and nets.sequence_conv_pool exists."""
     # less the grad ops either registry made on demand
     jax_ops = {n for n in JaxRegistry._ops
                if not (n.endswith("_grad") and n[:-5] in JaxRegistry._ops)}
     port_ops = {n for n in OpRegistry._ops
                 if not (n.endswith("_grad") and n[:-5] in OpRegistry._ops)}
-    assert jax_ops - port_ops == IO_COLLECTIVE_PIPELINE
+    assert jax_ops - port_ops == COLLECTIVE_PIPELINE
+    assert port_ops <= jax_ops
     missing = [n for n in dir(fluid.layers) if not n.startswith("_")
                and callable(getattr(fluid.layers, n))
                and not hasattr(pt.layers, n)]
