@@ -218,7 +218,8 @@ seconds):
    under AMP.
 8. Transformer parity: the transformer LM of
    benchmark/transformer_bench.py at full width (d_model 2048, 16 heads,
-   4 layers, vocab 32768; Adam(1e-4), f32) for one step at B 1, S 128 on
+   vocab 32768; Adam(1e-4), f32), cut to 2 of its 4 layers
+   (TF_PARITY_CONFIG), for one step at B 1, S 128 on
    the card against CPUPlace(): the loss, every gradient, every
    parameter and Adam moment after the update within TF_PARITY_TOL of
    the CPU's largest magnitude; then every op on identical inputs; then
@@ -424,6 +425,25 @@ seconds):
     prints, ``graph_stats`` naming the eager plan, and cond alone
     captured.  The conv forward, matmul, softmax and gather (rows 1, 3, 4
     and 8) each launch in the phase.
+15s. AOT artifacts and the kernel tuner (``phase_aot_tune``), children on
+    the card: ``paddle tune --kernel=softmax,ragged_paged_attention
+    --budget=3`` into a database under ``build/`` (each family's default
+    and tuned device ms, every candidate held against its plain version),
+    then in process with that database one launch of each family that
+    hits it (``tuning_db_lookup_total``) within the family's tolerance;
+    ``paddle compile`` of the ResNet-50 export (``--max_batch=8``: its
+    entries, buckets and kernel libraries with their bytes); two ``paddle
+    serve --warmup`` children one after the other, plan-booted and with
+    ``--artifacts`` (``nvcc`` off its PATH, CUDA_HOME nowhere), each
+    answering AOT_SIZES images: the replies equal byte for byte, /health's
+    ``aot`` every bucket ``loaded`` and no rejection, ``boot`` "aot", 0
+    nvcc builds and every library from the artifact directory; time to
+    ready both ways (``serving_time_to_ready_seconds`` and the wall to
+    the first line), the first request's latency (it pays the capture),
+    and phase 1's nvcc seconds; then the store opened in process with the
+    tuned database: refused ``rejected_tuning_db``, and a server on it
+    answers from plans it builds (bucket 1, where the database has no
+    entry, byte for byte; bucket 8 within PROBS_TOL).
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
@@ -481,7 +501,8 @@ seconds):
     15k-15p's as ``while_rnn``, ``ifelse_attention_train_step``,
     ``bn_{nhwc,nchw,sequence}_step``, ``beams``,
     ``srl_train_step`` and ``text_conv_train_step``, and 15r's, the
-    command line's children and in process together, as ``cli``), the
+    command line's children and in process together, as ``cli``, and
+    15s's, its children and in process together, as ``aot_tune``), the
     card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
@@ -494,6 +515,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -655,6 +677,10 @@ TF_CONFIG = dict(vocab_size=32768, d_model=2048, num_heads=16, num_layers=4,
 TF_BATCH, TF_SEQ = 8, 1024
 TF_LR = 1e-4
 TF_PARITY_BATCH, TF_PARITY_SEQ = 1, 128
+# the two parity phases (8, 10a) at the full width and 2 of its 4 layers:
+# most of their time is the CPU side's step, and the script keeps inside
+# its time limit with phase 15s beside them (the B 8 steps keep 4 layers)
+TF_PARITY_CONFIG = dict(TF_CONFIG, num_layers=2)
 # the products' check on the split-TF32 engine (phase 8): B 1 at this S
 TF_ENGINE_SEQ = 1024
 # flash kernels against their plain versions: out and lse absolute; the
@@ -825,6 +851,24 @@ CLI_CHILD = (
     "def dump():\n"
     "    with open(os.environ['CHIP_SMOKE_COUNTS'], 'w') as f:\n"
     "        json.dump(chip_smoke.counters(), f)\n"
+    "atexit.register(dump)\n"
+    "runpy.run_module('paddle_tpu_torch.cli', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+# 15s: the AOT and tuner phase's requests (images a POST), the families
+# it tunes and their budget; a serve child that dumps its launch counts,
+# its nvcc builds and where each kernel library came from at exit
+AOT_SIZES = (1, 8, 8)
+AOT_TUNE_KERNELS = ("softmax", "ragged_paged_attention")
+AOT_TUNE_BUDGET = 3
+AOT_CHILD = (
+    "import atexit, json, os, runpy\n"
+    "import chip_smoke\n"
+    "def dump():\n"
+    "    from paddle_tpu_torch.kernels import _build\n"
+    "    with open(os.environ['CHIP_SMOKE_COUNTS'], 'w') as f:\n"
+    "        json.dump({'counts': chip_smoke.counters(),\n"
+    "                   'nvcc_builds': _build.nvcc_builds,\n"
+    "                   'loaded_from': _build.loaded_from()}, f)\n"
     "atexit.register(dump)\n"
     "runpy.run_module('paddle_tpu_torch.cli', run_name='__main__',\n"
     "                 alter_sys=True)\n")
@@ -4019,7 +4063,7 @@ def phase_tf_parity(dev):
     import paddle_tpu_torch as pt
 
     main_prog, startup, loss, params_grads = build_transformer_program(
-        TF_PARITY_SEQ)
+        TF_PARITY_SEQ, TF_PARITY_CONFIG)
     card = pt.Executor()
     scope = pt.Scope()
     card.run(startup, scope=scope)
@@ -4136,7 +4180,7 @@ def phase_tf_amp_parity(dev):
     the same step on CPUPlace(), end to end and op by op
     (amp_step_parity)."""
     main_prog, startup, loss, params_grads = build_transformer_program(
-        TF_PARITY_SEQ)
+        TF_PARITY_SEQ, TF_PARITY_CONFIG)
     rng = np.random.RandomState(6)
     v = TF_CONFIG["vocab_size"]
     feed = {n: rng.randint(0, v, (TF_PARITY_BATCH, TF_PARITY_SEQ, 1))
@@ -9171,15 +9215,17 @@ def phase_op_tail(dev, smi):
     return dict(ops=errs, ssd=ssd, nce=nce)
 
 
-def cli_child(args, workdir, tag, popen=False, timeout=600):
+def cli_child(args, workdir, tag, popen=False, timeout=600,
+              code=CLI_CHILD, env=None):
     """``python -m paddle_tpu_torch.cli ARGS`` in a child process from the
-    repo's root (CLI_CHILD): (exit code, stdout, stderr, launch counts)
-    once it ends, or with ``popen`` the running Popen and the path its
-    counts reach at exit."""
+    repo's root (``code``: CLI_CHILD, or AOT_CHILD), in ``env`` (this
+    process's when None): (exit code, stdout, stderr, launch counts) once
+    it ends, or with ``popen`` the running Popen and the path its counts
+    reach at exit."""
     counts = os.path.join(workdir, f"{tag}_counts.json")
-    env = dict(os.environ, CHIP_SMOKE_COUNTS=counts,
+    env = dict(os.environ if env is None else env, CHIP_SMOKE_COUNTS=counts,
                PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-c", CLI_CHILD, *args]
+    cmd = [sys.executable, "-c", code, *args]
     if popen:
         return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True), counts
@@ -9599,6 +9645,246 @@ def phase_cli(dev, smi, model_dir, rng):
     return dict(launches=launches)
 
 
+def post_raw(base, images, timeout=600):
+    """The /predict reply's bytes and the request's wall seconds."""
+    req = urllib.request.Request(
+        f"{base}/predict", data=json.dumps({"img": images.tolist()}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+    return body, time.perf_counter() - t0
+
+
+def _ttr(snap):
+    """{boot: seconds} of serving_time_to_ready_seconds in a /stats
+    snapshot."""
+    return {v["labels"].get("boot"): v["sum"] for v in snap.get(
+        "serving_time_to_ready_seconds", {}).get("values", [])}
+
+
+def _aot_serve(tmp, tag, model_dir, images, extra=(), env=None):
+    """One ``paddle serve --warmup`` child (AOT_CHILD) answering
+    ``images``: (reply bytes, seconds to its first line, the first
+    request's seconds, /health, /stats, its exit dump)."""
+    t0 = time.perf_counter()
+    proc, dump = cli_child(["serve", f"--model_dir={model_dir}",
+                            "--max_batch=8", "--warmup", *extra], tmp, tag,
+                           popen=True, code=AOT_CHILD, env=env)
+    try:
+        line = proc.stdout.readline()
+        if "listening on" not in line:
+            fail(f"paddle serve ({tag}) printed {line!r}; stderr "
+                 f"{proc.stderr.read()[-3000:] if proc.poll() is not None else ''}")
+        up = time.perf_counter() - t0
+        base = f"http://{line.split()[-1]}"
+        replies, first = [], None
+        for x in images:
+            body, dt = post_raw(base, x)
+            replies.append(body)
+            first = dt if first is None else first
+        health = get_json(base, "/health")
+        stats = get_json(base, "/stats")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed"
+    err = proc.stderr.read()
+    if rc != 0:
+        fail(f"paddle serve ({tag}): SIGTERM gave exit {rc}; stderr "
+             f"{err[-3000:]}")
+    with open(dump) as f:
+        return replies, up, first, health, stats, json.load(f), err
+
+
+def _tune_rows(out):
+    """The JSON rows ``paddle tune`` prints, one a (kernel, shape)."""
+    rows = []
+    for ln in out.splitlines():
+        if ln.startswith("{") and '"tuned_ms"' in ln:
+            rows.append(json.loads(ln))
+    return rows
+
+
+def phase_aot_tune(dev, smi, model_dir, rng, nvcc_s):
+    """15s: the tuner and AOT artifacts (the module docstring has the
+    checks)."""
+    import torch
+
+    from paddle_tpu_torch import aot
+    from paddle_tpu_torch.kernels import tuning
+    from paddle_tpu_torch.kernels.tuning import space
+    from paddle_tpu_torch.serving import InferenceServer
+
+    t0 = time.perf_counter()
+    total = {}
+    work = os.path.join(HERE, "build", "aot_tune")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    db_path = os.path.join(work, "tuning_db.json")
+    art = os.path.join(work, "resnet50_artifacts")
+    # the tuner, then the compiler, each a child on the card (one at a
+    # time: the tuner's timings are taken on an idle card)
+    tune, _ = cli_child(["tune", f"--kernel={','.join(AOT_TUNE_KERNELS)}",
+                         f"--budget={AOT_TUNE_BUDGET}", f"--output={db_path}"],
+                        work, "tune", popen=True)
+    out, err = tune.communicate(timeout=600)
+    _cli_check("tune", tune.returncode, out, err)
+    rows = _tune_rows(out)
+    want_rows = sum(len(space.SPACES[k].default_shapes)
+                    for k in AOT_TUNE_KERNELS)
+    if len(rows) != want_rows or f"round-trip {want_rows}/{want_rows}" \
+            not in out:
+        fail(f"paddle tune: {len(rows)} rows, not {want_rows}: {out[-3000:]}")
+    for r in rows:
+        log(f"15s tune {r['kernel']} {r['shape']}: default "
+            f"{r['default_ms']:.6f} ms, tuned {r['tuned_ms']:.6f} ms "
+            f"(x{r['speedup']}), config {r['config']}, {r['configs']} "
+            f"candidates, {r['measured']} timed, {r['infeasible']} "
+            f"infeasible (each held against its plain version); on {smi}")
+    comp, _ = cli_child(["compile", f"--model_dir={model_dir}", f"--out={art}",
+                         "--max_batch=8"], work, "compile", popen=True)
+    cout, cerr = comp.communicate(timeout=600)
+    _cli_check("compile", comp.returncode, cout, cerr)
+    with open(os.path.join(art, aot.MANIFEST_NAME)) as f:
+        manifest = json.load(f)
+    if manifest["buckets"] != [1, 2, 4, 8] or len(manifest["entries"]) != 4:
+        fail(f"paddle compile: buckets {manifest['buckets']}, "
+             f"{len(manifest['entries'])} entries")
+    libs = manifest["kernels"]
+    for k in ("conv", "matmul", "softmax"):
+        if k not in libs:
+            fail(f"paddle compile: no {k} library in the artifact: {libs}")
+    log("15s paddle compile (ResNet-50, --max_batch=8): " + "; ".join(
+        ln.strip() for ln in cout.splitlines()))
+
+    # tuned database in process: one launch of each family hits it (the
+    # counters zeroed before and read after each in-process part)
+    tuning.set_db(db_path)
+    try:
+        zero_counters()
+        checks = {}
+        for r in rows:
+            name = r["kernel"]
+            shape = tuple(int(d) for d in r["shape"].split("x"))
+            hits = _lookup_hits(name)
+            case = space.SPACES[name].build(shape, "float32", dev, seed=5)
+            got = case.run()
+            torch.cuda.synchronize()
+            e, limit = case.error(got)
+            if _lookup_hits(name) != hits + 1 or not e <= limit:
+                fail(f"tuned {name}{shape}: lookup hits "
+                     f"{_lookup_hits(name) - hits}, max abs err {e:.3e} "
+                     f"(limit {limit:.3e})")
+            checks[f"{name}{shape}"] = e
+        _add_counts(total, counters())
+    finally:
+        tuning.set_db(None)
+    log(f"15s the tuned database in process: each family's launch hit it, "
+        f"max abs err against the plain versions {checks}")
+
+    # serve both ways, one after the other
+    images = [rng.randn(n, 3, 224, 224).astype(np.float32)
+              for n in AOT_SIZES]
+    plan = _aot_serve(work, "serve_plan", model_dir, images)
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    env = dict(os.environ, PATH=path,
+               CUDA_HOME=os.path.join(work, "no_cuda_here"))
+    aotb = _aot_serve(work, "serve_aot", model_dir, images,
+                      extra=[f"--artifacts={art}"], env=env)
+    for i, (a, b) in enumerate(zip(plan[0], aotb[0])):
+        if a != b:
+            fail(f"15s request {i} ({AOT_SIZES[i]} images): the artifact "
+                 "child's reply differs from the plan-booted child's")
+    info = aotb[3]["aot"]
+    dump = aotb[5]
+    if (info["boot"] != "aot" or info["poisoned"] is not None
+            or info["results"].get("loaded") != 4
+            or any(k.startswith("rejected") for k in info["results"])):
+        fail(f"15s /health aot of the artifact child: {info}")
+    art_kernels = os.path.join(art, "kernels")
+    off = {n: p for n, p in dump["loaded_from"].items()
+           if os.path.dirname(p) != art_kernels}
+    if dump["nvcc_builds"] != 0 or off or not dump["loaded_from"]:
+        fail(f"15s the artifact child ran {dump['nvcc_builds']} nvcc builds; "
+             f"libraries off the artifact: {off}")
+    if plan[3]["aot"] is not None:
+        fail(f"15s the plan-booted child reports aot {plan[3]['aot']}")
+    for got in (plan[5]["counts"], dump["counts"]):
+        _add_counts(total, got)
+    ttr = {"plan": _ttr(plan[4]).get("plan"), "aot": _ttr(aotb[4]).get("aot")}
+    if None in ttr.values():
+        fail(f"15s time to ready not recorded by boot: {ttr}")
+    log(f"15s paddle serve --warmup, plan-booted and --artifacts (no nvcc "
+        f"on PATH): replies to {AOT_SIZES} images equal byte for byte; "
+        f"/health aot {info}; the artifact child loaded "
+        f"{sorted(dump['loaded_from'])} from {art_kernels}, "
+        f"{dump['nvcc_builds']} nvcc builds; time to ready (warmup of the "
+        f"ladder) plan {ttr['plan']:.3f} s, aot {ttr['aot']:.3f} s; wall to "
+        f"the first line plan {plan[1]:.2f} s, aot {aotb[1]:.2f} s; first "
+        f"request ({AOT_SIZES[0]} image, pays the capture) plan "
+        f"{plan[2] * 1e3:.1f} ms, aot {aotb[2] * 1e3:.1f} ms; the nvcc "
+        f"build of the nine libraries (phase 1, cold) {nvcc_s:.2f} s; on "
+        f"{smi}")
+
+    # drift: the store under the tuned database is refused, and a server
+    # on it answers from plans it builds
+    tuning.set_db(db_path)
+    try:
+        store = aot.ArtifactStore(art)
+        zero_counters()
+        if store.poisoned != "tuning_db":
+            fail(f"15s the store under the tuned database: poisoned "
+                 f"{store.poisoned!r}, not 'tuning_db'")
+        srv = InferenceServer(model_dir, max_batch=8, artifacts=art)
+        try:
+            base = f"http://{srv.address}"
+            drift = [post_raw(base, x)[0] for x in images[:2]]
+            drift_info = srv.aot_info()
+        finally:
+            srv.stop()
+        _add_counts(total, counters())
+    finally:
+        tuning.set_db(None)
+    if drift[0] != plan[0][0]:
+        fail("15s the drifted server's bucket-1 reply differs from the "
+             "plan-booted child's")
+    got8 = np.asarray(json.loads(drift[1])["outputs"][0], np.float32)
+    want8 = np.asarray(json.loads(plan[0][1])["outputs"][0], np.float32)
+    if not np.allclose(got8, want8, **PROBS_TOL):
+        fail(f"15s the drifted server's bucket-8 reply: max abs err "
+             f"{float(np.abs(got8 - want8).max()):.3e}")
+    if drift_info["boot"] != "plan" or set(drift_info["results"]) != {
+            "rejected_tuning_db"}:
+        fail(f"15s the drifted server: {drift_info}")
+    log(f"15s drift: the store under the tuned database refused "
+        f"(rejected_tuning_db), the server on it answered from plans it "
+        f"built: bucket 1 byte for byte, bucket 8 "
+        f"{'byte for byte' if drift[1] == plan[0][1] else 'within PROBS_TOL'}"
+        f"; aot {drift_info}")
+    for k in ("conv2d_nhwc", "matmul", "softmax", "paged_attention"):
+        if not total.get(k):
+            fail(f"15s launched no {k} kernel: {total}")
+    launches = {k: total.get(k, 0) for k in KERNELS}
+    log(f"15s launches (children's and in process): "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return dict(launches=launches, ttr=ttr, tune=rows)
+
+
+def _lookup_hits(kernel):
+    from paddle_tpu_torch.observability import metrics
+
+    return metrics.counter("tuning_db_lookup_total").value(kernel=kernel,
+                                                           result="hit")
+
+
 def graph_pools():
     """(pools, bytes): the CUDA graphs' private memory pools the caching
     allocator still holds, after freeing what nothing references (a dead
@@ -9690,7 +9976,8 @@ def main():
     log(f"nvcc: {nvcc}")
     t0 = time.perf_counter()
     built = _build.build()
-    log(f"kernels built in {time.perf_counter() - t0:.2f} s wall: " + ", ".join(
+    nvcc_s = time.perf_counter() - t0
+    log(f"kernels built in {nvcc_s:.2f} s wall: " + ", ".join(
         f"{n} {s:.2f} s" for n, (s, _) in built.items()))
     for name, (_, text) in built.items():
         entry = ""
@@ -9849,6 +10136,7 @@ def main():
     text = timed(phase_text_conv, dev, smi)
     timed(phase_op_tail, dev, smi)
     cli = timed(phase_cli, dev, smi, model_dir, rng)
+    aot_tune = timed(phase_aot_tune, dev, smi, model_dir, rng, nvcc_s)
     export_dir.cleanup()
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
@@ -9910,7 +10198,8 @@ def main():
                "beams": beams["launches"],
                "srl_train_step": srl["launches"],
                "text_conv_train_step": text["launches"],
-               "cli": cli["launches"]}
+               "cli": cli["launches"],
+               "aot_tune": aot_tune["launches"]}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}

@@ -31,13 +31,25 @@ Commands:
         [--url=http://host:port] [--trace=out.json]
       (the telemetry registry, ``paddle_tpu_torch.observability``, as a
        table or JSON)
-  compile, tune, pserver, master, coord, elastic
+  compile --model_dir=DIR --out=DIR [--max_batch=N] [--buckets=1,2,4]
+          [--no-optimize] [--cpu] [--gen_config=SCRIPT ...] | compile --smoke
+      (AOT serving artifacts, ``paddle_tpu_torch.aot``: the run plans of
+       the bucket ladder and the kernel libraries under a versioned
+       manifest, for ``serve --artifacts=DIR``; exits 2 on a usage error)
+  tune [--kernel=softmax,matmul,...] [--shapes=RxC;...] [--budget=N]
+       [--reps=N] [--dtype=float32] [--output=PATH] [--telemetry=PATH]
+       [--seed=N] [--smoke]
+      (the kernel tuner, ``paddle_tpu_torch.kernels.tuning``: time each
+       family's launch candidates on the card, held against the plain
+       versions, and merge the winners into the tuning database dispatch
+       reads; exits 2 on an unknown kernel, 1 without a card)
+  pserver, master, coord, elastic
       (not ported yet: each prints the ROADMAP step that brings it and
        exits 1)
 
-The commands that run a program (train, merge_model, serve, stats --run)
-run it on CUDAPlace(0) and raise where no card is found; ``--use_gpu=0``
-runs it on the CPU.
+The commands that run a program (train, merge_model, serve, compile,
+stats --run) run it on CUDAPlace(0) and raise where no card is found;
+``--use_gpu=0`` runs it on the CPU.
 """
 
 import os
@@ -131,10 +143,21 @@ def cmd_serve(argv):
     return serve_until_signalled(srv)
 
 
+def cmd_compile(argv):
+    """``paddle compile``: AOT serving artifacts (``aot/compile_cli.py``)."""
+    from paddle_tpu_torch.aot.compile_cli import main as compile_main
+
+    return compile_main(argv)
+
+
+def cmd_tune(argv):
+    """``paddle tune``: the kernel tuner (``kernels/tuning/tune.py``)."""
+    from paddle_tpu_torch.kernels.tuning.tune import main as tune_main
+
+    return tune_main(argv)
+
+
 _LATER = {
-    "compile": "AOT serving artifacts come with ROADMAP Queue 1 item 3 "
-               "step 2",
-    "tune": "the kernel tuner comes with ROADMAP Queue 1 item 3 step 4",
     "pserver": "the parameter server comes with ROADMAP Queue 1 item 3 "
                "step 6",
     "master": "the master service comes with ROADMAP Queue 1 item 3 step 6",
@@ -373,11 +396,11 @@ COMMANDS = {
     "train": cmd_train,
     "version": cmd_version,
     "merge_model": cmd_merge_model,
-    "compile": _not_yet("compile"),
+    "compile": cmd_compile,
     "serve": cmd_serve,
     "lint": cmd_lint,
     "stats": cmd_stats,
-    "tune": _not_yet("tune"),
+    "tune": cmd_tune,
     "pserver": _not_yet("pserver"),
     "master": _not_yet("master"),
     "coord": _not_yet("coord"),

@@ -67,12 +67,21 @@ AMP (``paddle_tpu_torch.amp``) is read once per run: the forward ops and
 the grad ops of one run see the same state, and the plan cache is keyed
 on it, as the JAX Executor's compile cache is.
 
+AOT artifacts (``paddle_tpu_torch.aot``): at a plan-cache miss the
+Executor's ``aot_store`` is asked first (``paddle_tpu/executor.py:357-380``); on a manifest match, with the
+donation mask proved again (``rejected_donation_drift`` on drift), the
+plan is built from the entry's record without the verifier and without
+classifying the block again.  Inside ``aot.capture(writer)`` every plan
+built is recorded into the writer.  ``compile_counts`` says how each miss
+was filled (``plan``: built here; ``aot``: from a store).
+
 Every run records the JAX Executor's seven metric families, with its
 names and label keys (``paddle_tpu_torch.observability``), labelled by
 ``program``, the first 12 hex digits of ``Program.fingerprint()``.  A
 plan-cache miss or hit counts with ``source="graph"`` for a plan that
 is captured and ``source="plan"`` for one that runs eagerly: the port
-builds an op plan where the JAX package traces and compiles.
+builds an op plan where the JAX package traces and compiles; a plan built
+from an artifact store counts ``source="aot"``, misses and hits.
 ``executor_compile_seconds`` holds each plan build and each capture.
 Besides the ``executor.compile`` and ``executor.step`` host events, a
 capture records ``executor.capture`` (its pool's bytes), and a plan built
@@ -87,6 +96,7 @@ first reason).
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 import weakref
@@ -119,11 +129,12 @@ _M_CACHE_MISS = _metrics.counter(
     "executor_compile_cache_miss_total",
     "Executor.run plan-cache misses, by how the plan runs (source=graph: "
     "verified, classified, captured as a CUDA graph on its second run; "
-    "source=plan: verified, classified, run op by op)")
+    "source=plan: verified, classified, run op by op; source=aot: built "
+    "from an artifact store's record)")
 _M_CACHE_HIT = _metrics.counter(
     "executor_compile_cache_hit_total",
     "Executor.run plan-cache hits (cached run plan reused), labeled by "
-    "how the plan runs (graph|plan)")
+    "how the plan runs (graph|plan) or where it came from (aot)")
 _M_COMPILE_SEC = _metrics.histogram(
     "executor_compile_seconds",
     "wall time per plan build (verify + classify) and per CUDA graph "
@@ -505,11 +516,11 @@ class _Plan:
 
     __slots__ = ("ops", "state_names", "written_names", "fetch_names",
                  "uses_rng", "donated", "donate_after", "donation",
-                 "segments", "eager_reasons", "scopes")
+                 "segments", "eager_reasons", "scopes", "source")
 
     def __init__(self, ops, state_names, written_names, fetch_names,
                  uses_rng, donated=(), donate_after=None, donation=None,
-                 segments=(), eager_reasons=()):
+                 segments=(), eager_reasons=(), source="plan"):
         self.ops = ops    # [(op, OpInfo, names to release after it)]
         self.state_names = state_names
         self.written_names = written_names
@@ -521,6 +532,7 @@ class _Plan:
         self.segments = segments
         self.eager_reasons = eager_reasons
         self.scopes = weakref.WeakKeyDictionary()   # Scope -> _ScopeRuns
+        self.source = source   # "plan": built here; "aot": from a store
 
     @property
     def capturable(self) -> bool:
@@ -621,6 +633,12 @@ class Executor:
         self._opt_cache: Dict[Any, Any] = {}  # key -> (program, OptReport)
         self._lock = threading.Lock()
         self._step = 0
+        # the artifact store consulted at plan misses (paddle_tpu_torch/
+        # aot), if any
+        self.aot_store = None
+        # how each plan miss was filled (serving labels a replica's boot
+        # by it: plan / aot / mixed)
+        self.compile_counts = {"plan": 0, "aot": 0}
 
     # -- public api ---------------------------------------------------------
 
@@ -661,9 +679,15 @@ class Executor:
         if not cache_hit:
             t_plan = time.perf_counter()
             with _EVENTS.span("executor.compile", program=prog_label):
-                self._verify(program, feed_vals, fetch_names)
-                plan = self._classify(program, feed_vals, fetch_names,
-                                      trace_ops)
+                # the artifact store gets first refusal
+                plan = self._aot_lookup(program, fp, feed_vals, fetch_names,
+                                        trace_ops)
+                if plan is None:
+                    self._verify(program, feed_vals, fetch_names)
+                    plan = self._classify(program, feed_vals, fetch_names,
+                                          trace_ops)
+                    self._aot_export(fp, feed_vals, plan)
+            self.compile_counts[plan.source] += 1
             self._cache[key] = plan
             if self.device.type == "cuda" and plan.eager_reasons:
                 where, why = plan.eager_reasons[0]
@@ -675,7 +699,8 @@ class Executor:
                                    program=prog_label)
         graphed = (self.device.type == "cuda" and plan.capturable
                    and graphs_enabled())
-        source = "graph" if graphed else "plan"
+        source = ("aot" if plan.source == "aot"
+                  else "graph" if graphed else "plan")
         if cache_hit:
             _M_CACHE_HIT.inc(program=prog_label, source=source)
         else:
@@ -952,18 +977,28 @@ class Executor:
     @staticmethod
     def _classify(program: Program, feed_vals: Dict[str, Any],
                   fetch_names: Sequence[str], trace_ops: bool = False,
-                  donate: bool = True) -> _Plan:
+                  donate: bool = True, record: Optional[dict] = None,
+                  donation: Optional[Dict[str, Any]] = None) -> _Plan:
         """Persistables an op reads before any op writes them come from
         the scope; every other input must be fed or produced earlier.
         Then the release plan, the recompute segments, the donation plan
-        and whether the plan can be captured."""
+        and whether the plan can be captured.  With an artifact entry's
+        ``record`` (and the ``donation`` mask proved for it) the state,
+        the written names, the random ops and the eager reasons are the
+        record's: the block is not walked for them."""
         block = program.global_block()
         read_state: List[str] = []
         written_state: List[str] = []
         produced: set = set(feed_vals)
         uses_rng = False
         ops = []
-        for op in block.ops:
+        if record is not None:
+            ops = [(op, OpRegistry.get(op.type)) for op in block.ops
+                   if op.type not in ("feed", "fetch")]
+            read_state = list(record["state_names"])
+            written_state = list(record["written_names"])
+            uses_rng = bool(record["uses_rng"])
+        for op in block.ops if record is None else ():
             if op.type in ("feed", "fetch"):
                 continue
             ops.append((op, OpRegistry.get(op.type)))
@@ -986,7 +1021,7 @@ class Executor:
                 var = block.find_var(n)
                 if var is not None and var.persistable and n not in written_state:
                     written_state.append(n)
-        for n in fetch_names:
+        for n in fetch_names if record is None else ():
             if n not in produced and n not in read_state:
                 var = block.find_var(n)
                 if var is not None and var.persistable:
@@ -1033,15 +1068,17 @@ class Executor:
         # donation (``paddle_tpu/executor.py:740-765``): the names the
         # analysis proves dead after their last write; nothing if it
         # raises
-        donation: Dict[str, Any] = {}
         donated: Tuple[str, ...] = ()
         donate_after: Dict[int, Tuple[str, ...]] = {}
+        if donation is None:
+            donation = {}
+            if donate and read_state:
+                try:
+                    donation = _opt.donation_mask(program, set(feed_vals),
+                                                  fetch_names)
+                except Exception:
+                    donation = {}
         if donate and read_state:
-            try:
-                donation = _opt.donation_mask(program, set(feed_vals),
-                                              fetch_names)
-            except Exception:
-                donation = {}
             donated = tuple(n for n in read_state
                             if n in donation and donation[n].eligible)
             last_write: Dict[str, int] = {}
@@ -1053,13 +1090,72 @@ class Executor:
                 donate_after.setdefault(last_write[n], ())
                 donate_after[last_write[n]] += (n,)
 
-        reasons = _eager_reasons(block, ops, feed_vals, fetch_names,
-                                 trace_ops)
+        if record is None:
+            reasons = _eager_reasons(block, ops, feed_vals, fetch_names,
+                                     trace_ops)
+        else:
+            reasons = tuple(tuple(r) for r in record["eager_reasons"])
         return _Plan([(op, info, tuple(rel))
                       for (op, info), rel in zip(ops, release)],
                      tuple(read_state), tuple(written_state),
                      tuple(fetch_names), uses_rng, donated, donate_after,
-                     donation, tuple(segments), reasons)
+                     donation, tuple(segments), reasons,
+                     "plan" if record is None else "aot")
+
+
+    # -- AOT artifacts (paddle_tpu_torch/aot) --------------------------------
+
+    def _aot_lookup(self, program, fp, feed_vals, fetch_names, trace_ops):
+        """The plan of ``aot_store``'s matching entry (source "aot"), or
+        None."""
+        store = self.aot_store
+        if store is None:
+            return None
+        from paddle_tpu_torch.aot import artifact as _art
+
+        proved = {}
+
+        def _validate(meta):
+            state = tuple(meta["state_names"])
+            try:
+                donation = (_opt.donation_mask(program, set(feed_vals),
+                                               fetch_names) if state else {})
+            except Exception:
+                donation = {}
+            have = tuple(n for n in state
+                         if n in donation and donation[n].eligible)
+            expect = tuple(meta.get("donated_names", ()))
+            if have != expect:
+                return (f"donation_drift: the manifest donates {expect}, "
+                        f"the analysis proves {have}")
+            proved["donation"] = donation
+            return None
+
+        hit = store.lookup(fp, _art.sig_json(_feed_signature(feed_vals)),
+                           fetch_names, validate=_validate)
+        if hit is None:
+            return None
+        return self._classify(program, feed_vals, fetch_names, trace_ops,
+                              record=hit[1], donation=proved["donation"])
+
+    @staticmethod
+    def _aot_export(fp, feed_vals, plan) -> None:
+        """Record ``plan`` into the active ``aot.capture`` writer, if
+        any."""
+        mod = sys.modules.get("paddle_tpu_torch.aot")
+        writer = mod.active_exporter() if mod is not None else None
+        if writer is None:
+            return
+        writer.add(
+            program_fp=fp, feed_sig=_feed_signature(feed_vals),
+            fetch_names=plan.fetch_names, state_names=plan.state_names,
+            donated_names=plan.donated,
+            held_names=tuple(n for n in plan.state_names
+                             if n not in plan.donated),
+            out_state_names=tuple(dict.fromkeys(plan.state_names
+                                                + plan.written_names)),
+            written_names=plan.written_names, uses_rng=plan.uses_rng,
+            eager_reasons=plan.eager_reasons)
 
 
 def _math(device):

@@ -7,6 +7,14 @@ the package; a library's file name carries a hash of its sources and
 flags, so an edited source never loads a stale build.  ``build()``
 starts one ``nvcc`` per missing library, all at once.
 
+An attached AOT artifact store (``paddle_tpu_torch.aot.attach``) supplies
+its libraries first, under the same hashed file name: ``load`` takes a
+library from the artifact's directory where its name matches the running
+sources' hash and its bytes the manifest's, and builds it with ``nvcc``
+otherwise (the store counts the rejection).  ``loaded_from()`` says where
+each loaded library came from and ``nvcc_builds`` how many ``nvcc``
+processes this process started.
+
 A wrapper may drop its scratch tensors as soon as it has queued a
 launch: PyTorch's caching allocator hands that memory only to work
 queued later on the same stream, and the kernels run on the caller's
@@ -22,6 +30,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from typing import Dict, Iterable, Sequence, Tuple
@@ -44,6 +53,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_origins: Dict[str, str] = {}
+
+#: ``nvcc`` processes this process started (``build``).
+nvcc_builds = 0
 
 
 def nvcc_path() -> str:
@@ -81,6 +94,7 @@ def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Tuple[float, str]]:
     """Compile every named library that is not built yet, one ``nvcc``
     process each, all started together.  Returns ``{name: (seconds,
     compiler log)}`` for the ones it built; raises on a failed build."""
+    global nvcc_builds
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -92,6 +106,7 @@ def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Tuple[float, str]]:
         procs[name] = (out, tmp, subprocess.Popen(
             nvcc_command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
+        nvcc_builds += 1
     built = {}
     failed = []
     for name, (out, tmp, proc) in procs.items():
@@ -107,11 +122,28 @@ def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Tuple[float, str]]:
     return built
 
 
+def _from_artifact(name: str, path: str):
+    """The attached artifact store's copy of library ``name`` (whose
+    running-source build is ``path``), or None."""
+    mod = sys.modules.get("paddle_tpu_torch.aot")
+    store = mod.active_store() if mod is not None else None
+    if store is None:
+        return None
+    return store.kernel_path(name, os.path.basename(path))
+
+
+def loaded_from() -> Dict[str, str]:
+    """{library: the file it was loaded from} for every loaded library."""
+    with _lock:
+        return dict(_origins)
+
+
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed.  Every entry
-    in ``signatures`` (C function name -> ctypes argtypes) returns an
-    int error code.  Once loaded, a call takes no lock, and ctypes keeps
-    each C function it has resolved as an attribute of the library."""
+    """The loaded library ``name``: the attached artifact store's copy,
+    else the build beside the package, built first if needed.  Every entry
+    in ``signatures`` (C function name -> ctypes argtypes) returns an int
+    error code.  Once loaded, a call takes no lock, and ctypes keeps each C
+    function it has resolved as an attribute of the library."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -119,9 +151,13 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path = library_path(name)
-            if not os.path.exists(path):
+            found = _from_artifact(name, path)
+            if found is not None:
+                path = found
+            elif not os.path.exists(path):
                 build([name])
             lib = ctypes.CDLL(path)
+            _origins[name] = path
             lib.ptt_error_string.argtypes = [ctypes.c_int]
             lib.ptt_error_string.restype = ctypes.c_char_p
             for fn, argtypes in signatures.items():

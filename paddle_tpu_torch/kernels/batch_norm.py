@@ -24,7 +24,10 @@ that.  Each wrapper call is two kernel launches: the statistics, whose
 last block per channel tile also adds the chunks' partials and writes
 the per-channel results, and the elementwise pass.  ``plan`` and
 ``route`` are the launch's shape as pure functions, mirrored in the C
-entries.
+entries.  A tuning database entry (``kernels/tuning``, family
+"batch_norm", shape (R, C)) may set the plan's target blocks an SM and
+least rows a thread (``launch_plan``); the C entries take any chunking
+that covers R in at most 65535 chunks.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 #: The ``route`` argument of the C entries: one channel a thread or 16
 #: bytes a thread (``route`` picks one of the two by shape and address),
@@ -122,14 +126,21 @@ class Plan(NamedTuple):
     groups: int        # groups; tiles * (groups + 1) ticket counters
 
 
+#: The most row chunks the C entries take (a grid's y).
+MAX_CHUNKS = 65535
+
+
 @functools.lru_cache(maxsize=4096)
-def plan(rows: int, cols: int, itemsize: int, route: str) -> Plan:
+def plan(rows: int, cols: int, itemsize: int, route: str,
+         blocks_per_sm: int = _BLOCKS_PER_SM,
+         min_rows: int = _MIN_ROWS) -> Plan:
     """The launch plan of a call on ``rows`` >= 1 rows of ``cols``
     channels of ``itemsize``-byte elements on ``route``, as
     ``csrc/batch_norm.cu`` computes its part of it (``ptt_bn_plan``):
     lanes are the vectors of C rounded up to a power of two, at most 32;
-    the chunks fill about _BLOCKS_PER_SM blocks an SM over the tiles,
-    with at least _MIN_ROWS rows a thread; the chunks' partials are added
+    the chunks fill about ``blocks_per_sm`` blocks an SM over the tiles
+    (_BLOCKS_PER_SM), with at least ``min_rows`` rows a thread
+    (_MIN_ROWS); the chunks' partials are added
     in groups of the least gc with gc^2 >= 2 * chunks, then the groups'
     sums, so that neither level reads more than ~sqrt(2 * chunks) rows."""
     vec = 16 // itemsize if route == "vector" else 1
@@ -137,13 +148,38 @@ def plan(rows: int, cols: int, itemsize: int, route: str) -> Plan:
     lanes = min(_MAX_LANES, 1 << (vecs - 1).bit_length())
     row_lanes = _THREADS // lanes
     tiles = math.ceil(vecs / lanes)
-    chunks = max(1, min(math.ceil(_SMS * _BLOCKS_PER_SM / tiles),
-                        rows // (row_lanes * _MIN_ROWS)))
+    chunks = max(1, min(math.ceil(_SMS * blocks_per_sm / tiles),
+                        rows // (row_lanes * min_rows)))
     per = math.ceil(rows / chunks)
     chunks = math.ceil(rows / per)
     gc = math.isqrt(2 * chunks - 1) + 1
     return Plan(rows, vec, lanes, row_lanes, tiles, chunks, per, gc,
                 math.ceil(chunks / gc))
+
+
+def plan_ok(p: Plan) -> bool:
+    """Whether the C entries take ``p``'s chunking (``check_args``): at
+    least one chunk, at most MAX_CHUNKS, covering every row."""
+    return 1 <= p.chunks <= MAX_CHUNKS and p.chunks * p.chunk_rows >= p.rows
+
+
+def launch_plan(rows: int, cols: int, dtype: torch.dtype, how: str) -> Plan:
+    """The plan a call on (rows, cols) of ``dtype`` on route ``how``
+    launches: ``plan`` with the tuning database's {"blocks_per_sm",
+    "min_rows"} where it has an entry whose plan the C entries take, else
+    ``plan``'s own targets."""
+    itemsize = _ITEMSIZE[dtype]
+    if _tuning.live:
+        cfg = _tuning.lookup("batch_norm", (rows, cols),
+                             _tuning.dtype_name(dtype))
+        if cfg:
+            b = int(cfg.get("blocks_per_sm", _BLOCKS_PER_SM))
+            r = int(cfg.get("min_rows", _MIN_ROWS))
+            if 1 <= b <= 64 and r >= 1:
+                p = plan(rows, cols, itemsize, how, b, r)
+                if plan_ok(p):
+                    return p
+    return plan(rows, cols, itemsize, how)
 
 
 def walk(p: Plan, block_y: int, row_lane: int, apply: bool = False):
@@ -236,7 +272,7 @@ def _layout(rows, cols, dtype, design, *addresses):
         chunks, per = row_chunks(rows, cols)
         return design, chunks, per, 2 * chunks * cols, 0
     how = route(cols, dtype, *addresses)
-    p = plan(rows, cols, _ITEMSIZE[dtype], how)
+    p = launch_plan(rows, cols, dtype, how)
     # the float partials (2, chunks, C), then the double group sums
     # (2, groups, C)
     return (how, p.chunks, p.chunk_rows,

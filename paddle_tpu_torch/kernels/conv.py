@@ -44,6 +44,13 @@ operations on the H100, the
 other 1 x 1 convs and the 3 x 3 conv at 56 x 56 by bytes (bf16); the f32
 kernels by operations.  ``csrc/conv.cu`` and
 ``csrc/conv_dw.cu`` say what their designs do about that.
+
+A tuning database entry (``kernels/tuning``, family "conv_dw") may set
+the filter gradient's splits (``dw_launch_plan``) where the C entries
+take them, a bf16 split of the wgmma engine at most _WG_MAX_STEPS K steps
+long.  The forward's tiles are compiled in and its engine follows the
+operands' shape, so the forward has nothing to tune (family "conv": its
+default alone).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 _SIGNATURES = {
     # x, w, out, the split scratch of x and w; N, H, W, C, KH, KW, O, pad,
@@ -587,6 +595,79 @@ def dw_splits_tf32(m: int, o: int, k: int):
                             / _PEAK_TF32_FLOPS)
 
 
+def dw_kstep(dtype: torch.dtype, engine: str) -> int:
+    """Pixels (positions, on the split-TF32 engine) of one K step of the
+    filter gradient on ``engine`` for ``dtype``: a chunk is a multiple."""
+    if engine == "wgmma":
+        return _WG_KSTEP if dtype == torch.bfloat16 else _TF32_KSTEP
+    return _KSTEP_BF16 if dtype == torch.bfloat16 else _KSTEP
+
+
+def dw_split_chunk(k: int, splits: int, kstep: int):
+    """(splits, chunk) of ``splits`` asked for over a reduction of k: the
+    chunk ceil(k / splits) rounded up to the K step, then as many splits as
+    that chunk needs (none empty)."""
+    chunk = -(-(-(-k // splits)) // kstep) * kstep
+    return -(-k // chunk), chunk
+
+
+def dw_splits_ok(k: int, splits: int, chunk: int, dtype: torch.dtype,
+                 engine: str) -> bool:
+    """Whether the C entry takes (splits, chunk) over a reduction of k
+    (``wgmma_dw_takes``, ``tf32_dw_takes``: a chunk of whole K steps, no
+    split empty) and the numerics' cap holds: a bf16 split of the wgmma
+    engine at most _WG_MAX_STEPS K steps (the tensor cores truncate the
+    float32 sums they accumulate; a longer split drifts)."""
+    kstep = dw_kstep(dtype, engine)
+    if splits < 1 or chunk < kstep or chunk % kstep or k < 1:
+        return False
+    if splits * chunk < k or (splits - 1) * chunk >= k:
+        return False
+    return not (engine == "wgmma" and dtype == torch.bfloat16
+                and chunk // kstep > _WG_MAX_STEPS)
+
+
+def dw_reduction(n: int, h: int, w: int, padding: int, dtype: torch.dtype,
+                 engine: str) -> int:
+    """The filter gradient's reduction length: n h w pixels, or the
+    split-TF32 engine's positions (``dw_pixels``)."""
+    if engine == "wgmma" and dtype == torch.float32:
+        return dw_pixels(n, h, w, padding)
+    return n * h * w
+
+
+def dw_launch_plan(n: int, h: int, w: int, c: int, o: int, kernel: int,
+                   padding: int, dtype: torch.dtype, engine: str):
+    """(splits, chunk) of a filter gradient on x (n, h, w, c) and g
+    (n, h, w, o) on ``engine``: the engine's own rule (``dw_splits_wgmma``,
+    ``dw_splits_tf32``, ``dw_splits``), or the tuning database's
+    {"splits": s} (family "conv_dw", shape (N, H, W, C, O, K)) where
+    ``dw_splits_ok`` takes it."""
+    m = kernel * kernel * c
+    k = dw_reduction(n, h, w, padding, dtype, engine)
+    if _tuning.live:
+        cfg = _tuning.lookup("conv_dw", (n, h, w, c, o, kernel),
+                             _tuning.dtype_name(dtype))
+        if (cfg and int(cfg.get("splits", 0)) >= 1
+                and cfg.get("engine", engine) == engine):
+            splits, chunk = dw_split_chunk(k, int(cfg["splits"]),
+                                           dw_kstep(dtype, engine))
+            if dw_splits_ok(k, splits, chunk, dtype, engine):
+                return splits, chunk
+    return dw_rule_plan(m, o, k, dtype, engine)
+
+
+def dw_rule_plan(m: int, o: int, k: int, dtype: torch.dtype, engine: str):
+    """(splits, chunk) of an (m, k) x (k, o) filter-gradient product on
+    ``engine`` by the engine's own rule."""
+    if engine == "wgmma":
+        return (dw_splits_wgmma(m, o, k) if dtype == torch.bfloat16
+                else dw_splits_tf32(m, o, k))
+    if dtype == torch.bfloat16:
+        return dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
+    return dw_splits(m, o, k)
+
+
 def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
                engine: str | None = None) -> torch.Tensor:
     """The filter gradient by ``csrc/conv_dw.cu``: the float32 or bf16
@@ -609,20 +690,14 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor, kernel: int, padding: int,
     if out.numel() == 0 or k == 0:
         return out.zero_()
     xs = gs = None
-    if engine == "wgmma" and bf16:
-        splits, chunk = dw_splits_wgmma(m, o, k)
-    elif engine == "wgmma":
-        pixels = dw_pixels(n, h, wd, padding)
-        splits, chunk = dw_splits_tf32(m, o, pixels)
+    splits, chunk = dw_launch_plan(n, h, wd, c, o, kernel, padding, x.dtype,
+                                   engine)
+    if engine == "wgmma" and not bf16:
         xs = torch.empty(2 * kernel * c * dw_pixels(
             n, h, wd, padding, dw_lead(wd, padding)), dtype=torch.float32,
             device=x.device)
-        gs = torch.empty(2 * o * pixels, dtype=torch.float32,
-                         device=x.device)
-    elif bf16:
-        splits, chunk = dw_splits(m, o, k, _TILE_BF16, _KSTEP_BF16)
-    else:
-        splits, chunk = dw_splits(m, o, k)
+        gs = torch.empty(2 * o * dw_pixels(n, h, wd, padding),
+                         dtype=torch.float32, device=x.device)
     part = out if splits == 1 else torch.empty(
         (splits, m, o), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_dw", _DW_SIGNATURES)

@@ -41,11 +41,17 @@ On CPU tensors the wrappers run the plain versions (``lstm_seq_plain``,
 refused or failed launch raises.  The earlier cooperative forward (a
 grid-wide barrier a step) is reachable as ``_launch_grid``, uncounted,
 so that the two designs are measured side by side.
+
+A tuning database entry (``kernels/tuning``, family "lstm", shape (T, B,
+H)) may force the forward's tile rows and cluster size (``tuned_rows_
+cluster``) where ``plan`` takes them on the card; the backward keeps its
+own plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import NamedTuple
@@ -53,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -186,6 +193,31 @@ def card_plan(b: int, h: int, backward: bool = False, rows: int = 0,
     return Plan(*out)
 
 
+@functools.lru_cache(maxsize=None)
+def card_limits(index: int):
+    """(SMs, opt-in shared memory a block) of CUDA card ``index``: what
+    ``ptt_lstm_plan`` plans with."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT))
+
+
+def tuned_rows_cluster(t: int, b: int, h: int, dtype: torch.dtype, sms: int,
+                       smem_limit: int = SMEM_LIMIT):
+    """(rows, cluster) the forward forces on a (T, B, H) call of
+    ``dtype`` on a card of ``sms`` SMs: the tuning database's {"rows",
+    "cluster"} where ``plan`` takes them, else (0, 0) (the plan's own)."""
+    cfg = _tuning.lookup("lstm", (t, b, h), _tuning.dtype_name(dtype))
+    if not cfg:
+        return 0, 0
+    rows, cluster = int(cfg.get("rows", 0)), int(cfg.get("cluster", 0))
+    try:
+        plan(b, h, sms, smem_limit=smem_limit, rows=rows, cluster=cluster)
+    except ValueError:
+        return 0, 0
+    return rows, cluster
+
+
 def _count(dtype, backward, info):
     global launches, launches_bf16, bwd_launches, bwd_launches_bf16
     global last_launch
@@ -270,11 +302,12 @@ def lstm_seq_plain(xproj, w, bias, h0, c0, acts=None, peepholes=None):
             torch.stack(gates, 1).to(dt))
 
 
-def _launch_fwd(xproj, w, bias, h0, c0, rows=0, cluster=0):
+def _launch_fwd(xproj, w, bias, h0, c0, rows=0, cluster=0, tuned=False):
     """(hs, cs, gates, launch info) from ``ptt_lstm_seq_*`` on CUDA
     tensors, uncounted (``lstm_seq`` counts; ``rows`` and ``cluster``
-    force a plan for measuring variants).  Raises on what the kernel does
-    not take and on a refused launch."""
+    force a plan for measuring variants; ``tuned`` takes them from the
+    tuning database, ``tuned_rows_cluster``).  Raises on what the kernel
+    does not take and on a refused launch."""
     _build.require_cuda("lstm_seq", _build.F32, w)
     if bias.dtype not in (torch.float32, xproj.dtype):
         raise TypeError(f"lstm_seq kernel takes a float32 bias or one of "
@@ -294,6 +327,9 @@ def _launch_fwd(xproj, w, bias, h0, c0, rows=0, cluster=0):
     gates = torch.empty((b, t, h4), dtype=xproj.dtype, device=xproj.device)
     if hs.numel() == 0:
         return hs, cs, gates, None
+    if tuned and _tuning.live:
+        rows, cluster = tuned_rows_cluster(
+            t, b, h, xproj.dtype, *card_limits(xproj.get_device()))
     lib = _build.load("lstm", _SIGNATURES)
     info = (ctypes.c_int * 5)()
     err = _build.launch(
@@ -315,7 +351,7 @@ def lstm_seq(xproj, w, bias, h0, c0):
     _check(xproj, w, bias, h0, c0)
     if xproj.device.type == "cpu":
         return lstm_seq_plain(xproj, w, bias, h0, c0)
-    hs, cs, gates, info = _launch_fwd(xproj, w, bias, h0, c0)
+    hs, cs, gates, info = _launch_fwd(xproj, w, bias, h0, c0, tuned=True)
     if info is not None:
         _count(xproj.dtype, False, info)
     return hs, cs, gates

@@ -25,6 +25,7 @@ import threading
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 _SIGNATURES = {
     # x, y, out, the split scratch of x and y; M, N, K, the engine
@@ -90,6 +91,31 @@ def bf16_engine(m: int, k: int, n: int, x: int, y: int) -> str:
     return "mma.sync"
 
 
+def tuned_min_rows(m: int, k: int, n: int, dtype: torch.dtype) -> int:
+    """The wgmma engines' least M for an (m, k) @ (k, n) product of
+    ``dtype``: the tuning database's ``wgmma_min_rows`` (family "matmul")
+    where it has an entry, else WGMMA_MIN_ROWS.  A gate below
+    WGMMA_MIN_ROWS is invalid (the C entries refuse a wgmma launch there)
+    and leaves the rule's."""
+    cfg = _tuning.lookup("matmul", (m, k, n), _tuning.dtype_name(dtype))
+    gate = int(cfg.get("wgmma_min_rows", 0)) if cfg else 0
+    return max(gate, WGMMA_MIN_ROWS)
+
+
+def engine_of(m: int, k: int, n: int, x: int, y: int,
+              dtype: torch.dtype) -> str:
+    """The engine the wrapper launches a ``dtype`` product on: the dtype's
+    rule (``f32_engine``, ``bf16_engine``), then the tuning database's
+    gate (``tuned_min_rows``), which can only send a wgmma product to the
+    tile."""
+    rule = bf16_engine if dtype == torch.bfloat16 else f32_engine
+    engine = rule(m, k, n, x, y)
+    if (engine == "wgmma" and _tuning.live
+            and m < tuned_min_rows(m, k, n, dtype)):
+        return "mma.sync" if dtype == torch.bfloat16 else "simt"
+    return engine
+
+
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"matmul: cannot multiply {tuple(x.shape)} by "
@@ -106,15 +132,15 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Launches ``csrc/matmul.cu`` on CUDA tensors (float32 or bf16, both
-    one dtype, contiguous; on the engine ``f32_engine`` or ``bf16_engine``
-    picks); runs the plain version on CPU tensors."""
+    one dtype, contiguous; on the engine ``engine_of`` picks: the dtype's
+    rule and the tuning database's gate); runs the plain version on CPU
+    tensors."""
     _check(x, y)
     if x.device.type == "cpu":
         return matmul_plain(x, y)
     _build.require_cuda("matmul", _build.F32_BF16, x, y)
-    rule = bf16_engine if x.dtype == torch.bfloat16 else f32_engine
-    engine = rule(x.shape[0], x.shape[1], y.shape[1], x.data_ptr(),
-                  y.data_ptr())
+    engine = engine_of(x.shape[0], x.shape[1], y.shape[1], x.data_ptr(),
+                       y.data_ptr(), x.dtype)
     out = _launch(x, y, engine)
     _count(x.dtype, engine)
     return out

@@ -24,6 +24,13 @@ caller attends over an empty context).  Page ids outside the pool are
 clamped into it, as the reference's gather clamps them.  The kernels
 are bound by bytes: ``csrc/paged_attention.cu`` says what their design
 does about that.
+
+A tuning database entry (``kernels/tuning``, family
+"ragged_paged_attention_chunk", shape (S, T, H, D, page, P)) may set the
+chunk's span (``launch_chunk_plan``) where the C entry takes it (1 <= span
+<= P, two ring slots beside the span's table entries).  The decode
+kernel has no launch parameter to tune (family "ragged_paged_attention":
+its default alone).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import threading
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -154,6 +162,29 @@ def chunk_plan(slots: int, t: int, num_heads: int, head_dim: int,
                -(-_CHUNK_MIN_POSITIONS // page_size))
     span = min(span, pages_per_seq, chunk_span_max(head_dim, t))
     return span, -(-pages_per_seq // span)
+
+
+def span_ok(span: int, t: int, head_dim: int, pages_per_seq: int) -> bool:
+    """Whether ``ptt_paged_attention_chunk_f32`` takes ``span``: 1 <= span
+    <= P and at least two ring slots beside its table entries."""
+    return (1 <= span <= pages_per_seq
+            and chunk_slots(head_dim, t, span) >= 2)
+
+
+def launch_chunk_plan(slots: int, t: int, num_heads: int, head_dim: int,
+                      pages_per_seq: int, page_size: int, sms: int):
+    """(span, splits) the chunk wrapper launches: the tuning database's
+    {"span"} where ``span_ok`` takes it, else ``chunk_plan``'s."""
+    if _tuning.live:
+        cfg = _tuning.lookup("ragged_paged_attention_chunk",
+                             (slots, t, num_heads, head_dim, page_size,
+                              pages_per_seq), "float32")
+        if cfg and "span" in cfg:
+            span = int(cfg["span"])
+            if span_ok(span, t, head_dim, pages_per_seq):
+                return span, -(-pages_per_seq // span)
+    return chunk_plan(slots, t, num_heads, head_dim, pages_per_seq,
+                      page_size, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,7 +317,8 @@ def _launch_chunk(q, k_pages, v_pages, tables, lens, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    span, splits = chunk_plan(s, t, h, d, p, page, _sms(q.device.index))
+    span, splits = launch_chunk_plan(s, t, h, d, p, page,
+                                     _sms(q.device.index))
     part = torch.empty(s * h * t * splits * (d + 2), dtype=torch.float32,
                        device=q.device)
     lib = _build.load("paged_attention", _SIGNATURES)
@@ -307,6 +339,12 @@ def paged_attention(q, k_pages, v_pages, tables, lens, scale=None):
     _check(q, k_pages, v_pages, tables, lens, chunk=False)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, tables, lens, scale)
+    if _tuning.live:
+        # the decode kernel has no launch parameter: its family's entries
+        # hold the default alone, and are consulted only to be counted
+        _tuning.lookup("ragged_paged_attention",
+                       (q.shape[0], tables.shape[1], *k_pages.shape[1:]),
+                       "float32")
     out = _launch(q, k_pages, v_pages, tables, lens, scale, chunk=False)
     _count("launches")
     return out

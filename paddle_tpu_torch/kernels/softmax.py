@@ -22,6 +22,7 @@ import threading
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import tuning as _tuning
 
 _SIGNATURES = {
     "ptt_softmax_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -62,6 +63,12 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"softmax takes a 2-D tensor, got {tuple(x.shape)}")
 
 
+def part_cols(cols: int, cluster: int) -> int:
+    """Columns of a CTA's part at ``cluster`` CTAs a row: ceil(cols /
+    cluster) rounded up to 4 (``csrc/softmax.cu`` ``launch``)."""
+    return (-(-cols // cluster) + 3) // 4 * 4
+
+
 def softmax_plan(cols: int, x: int, y: int):
     """(route, cluster, part) of a row of ``cols`` columns from device
     address ``x`` into ``y``: "warp" (cluster 1, the whole row) up to
@@ -74,7 +81,7 @@ def softmax_plan(cols: int, x: int, y: int):
     if cols <= NARROW_COLS[vec]:
         return "warp", 1, cols
     cluster = min(-(-cols // PART_COLS), MAX_CLUSTER)
-    part = (-(-cols // cluster) + 3) // 4 * 4
+    part = part_cols(cols, cluster)
     if (x - y) % 16 == 0 and part <= STAGED_CAP:
         return "staged", cluster, part
     return "two-read", cluster, part
@@ -86,6 +93,54 @@ def softmax_route(rows: int, cols: int, x: int, y: int) -> str:
     shape and alignment, never a fallback: ``ptt_softmax_f32`` checks the
     same rule and refuses a route it does not allow."""
     return softmax_plan(cols, x, y)[0]
+
+
+def variant_ok(route: str, cluster: int, cols: int, x: int, y: int) -> bool:
+    """Whether ``ptt_softmax_variant_f32`` takes ``route`` with a cluster
+    of ``cluster`` CTAs on rows of ``cols`` columns from device address
+    ``x`` into ``y`` (``csrc/softmax.cu`` ``launch``'s checks): "warp" up
+    to ``NARROW_COLS``, "staged" with x and y at one offset modulo 16
+    bytes and a part within ``STAGED_CAP``, "two-read" at any shape; a
+    cluster of 1-8 CTAs; x and y 4-byte aligned."""
+    if cols <= 0 or x % 4 or y % 4 or route not in ROUTES:
+        return False
+    if route == "warp":
+        vec = cols % 4 == 0 and x % 16 == 0 and y % 16 == 0
+        return cols <= NARROW_COLS[vec]
+    if not 1 <= cluster <= MAX_CLUSTER:
+        return False
+    if route == "staged":
+        return (x - y) % 16 == 0 and part_cols(cols, cluster) <= STAGED_CAP
+    return True
+
+
+def tuned(rows: int, cols: int, x: int, y: int):
+    """(route, cluster) of the tuning database's entry for a (rows, cols)
+    softmax from ``x`` into ``y`` where ``variant_ok`` allows it and it
+    differs from the rule's plan, else None (the rule's plan)."""
+    cfg = _tuning.lookup("softmax", (rows, cols), "float32")
+    if not cfg:
+        return None
+    route, cluster = cfg.get("route"), int(cfg.get("cluster", 1))
+    if route == "warp":
+        cluster = 1
+    if not variant_ok(route, cluster, cols, x, y):
+        return None
+    if (route, cluster) == softmax_plan(cols, x, y)[:2]:
+        return None
+    return route, cluster
+
+
+def launch_plan(rows: int, cols: int, x: int, y: int):
+    """(route, cluster, part) the wrapper launches for a (rows, cols)
+    softmax from ``x`` into ``y``: the tuning database's where it has a
+    valid entry (``tuned``), else ``softmax_plan``'s."""
+    hit = tuned(rows, cols, x, y) if _tuning.live else None
+    if hit is None:
+        return softmax_plan(cols, x, y)
+    route, cluster = hit
+    return route, cluster, cols if route == "warp" else part_cols(cols,
+                                                                  cluster)
 
 
 def c_plan(cols: int, x: int, y: int):
@@ -110,8 +165,8 @@ def softmax_plain(x: torch.Tensor) -> torch.Tensor:
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Launches ``csrc/softmax.cu`` on a CUDA tensor (float32,
-    contiguous) by ``softmax_route``'s route; runs the plain version on a
-    CPU tensor."""
+    contiguous) by ``softmax_route``'s route, or by the tuning database's
+    (``tuned``); runs the plain version on a CPU tensor."""
     _check(x)
     if not x.is_cuda and x.device.type == "cpu":
         return softmax_plain(x)
@@ -121,10 +176,17 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
         return out
     rows, cols = x.shape
     xp, yp = x.data_ptr(), out.data_ptr()
+    lib = _build.load("softmax", _SIGNATURES)
+    hit = tuned(rows, cols, xp, yp) if _tuning.live else None
+    if hit is not None:
+        err = _build.launch(lib.ptt_softmax_variant_f32, x, xp, yp, rows,
+                            cols, ROUTES[hit[0]], hit[1])
+        _build.check(lib, err, f"softmax ({hit[0]}, cluster {hit[1]})")
+        _count()
+        return out
     # rows of up to 1024 columns take the warp route at any alignment
     route = _WARP if cols <= NARROW_COLS[False] else ROUTES[
         softmax_route(rows, cols, xp, yp)]
-    lib = _build.load("softmax", _SIGNATURES)
     err = _build.launch(lib.ptt_softmax_f32, x, xp, yp, rows, cols, route)
     _build.check(lib, err, "softmax")
     _count()

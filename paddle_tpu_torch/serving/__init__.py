@@ -6,7 +6,8 @@ Endpoints:
   GET  /health   -> {"status": "ok" | "degraded", "reasons": [...],
                      "self_healing": {"pool", "tenants", "queue"},
                      "feeds": [...], "fetches": [...], "place": "...",
-                     "batching": {...}, "aot": null,
+                     "batching": {...}, "aot": store.info() + "boot"
+                     or null,
                      "generation": engine.info() or null}
   GET  /metrics  -> Prometheus text exposition (0.0.4) of the telemetry
                      registry: the server's request histogram, in-flight
@@ -51,8 +52,12 @@ place.  Both endpoints take a tenant id (the ``"tenant"`` key or the
 quota (``tenants``: ``"name:rate[:burst[:weight]],..."`` or a dict;
 without one every tenant is unmetered).  ``chaos`` (``"KIND[@N[:rIDX]]"``
 or a ``FaultInjector``) injects a replica fault; a spec string is armed
-after warmup.  ``artifacts`` (AOT executables) raises: the port's AOT
-waits for ``torch.export`` artifacts (ROADMAP Queue 1).
+after warmup.  ``artifacts`` (a ``paddle compile`` directory) boots the
+replicas from an AOT artifact store (``paddle_tpu_torch.aot``): each
+replica's Executor builds its plans from the store's records, and the
+store, attached process-wide while the server runs, supplies the kernel
+libraries; any mismatch falls back loudly to plans built in process
+(``aot_load_total{result=rejected_*}``), never to a wrong answer.
 
 Launch: ``python -m paddle_tpu_torch.serving --model_dir=DIR --port=N``,
 or ``--gen_config=SCRIPT`` for ``/generate``.
@@ -105,12 +110,6 @@ _M_REJECTED = _metrics.counter(
 #: The content type of a Prometheus 0.0.4 text scrape.
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-#: Where the port's AOT boot comes from (ROADMAP Queue 1).
-_AOT_ITEM = ("paddle_tpu_torch: artifacts= (booting replicas from AOT "
-             "executables) waits for AOT as torch.export artifacts, "
-             "ROADMAP Queue 1 item 3; serve without it")
-
-
 def _jsonable(o):
     """A fetch value in JSON shape; a LoD output becomes {"data": ...,
     "lod": [...]} (packed rows and offset tables)."""
@@ -139,8 +138,6 @@ class InferenceServer:
             raise ValueError("need a model_dir to predict from and/or a "
                              "generator (paddle_tpu_torch.decode."
                              "GenerationEngine) to generate with")
-        if artifacts:
-            raise NotImplementedError(_AOT_ITEM)
         self._generator = generator
         self._bundle = ModelBundle(model_dir) if model_dir else None
         self.feed_names = self._bundle.feed_names if self._bundle else []
@@ -166,6 +163,17 @@ class InferenceServer:
             shed_watermark = max(64, 8 * max_batch)
         self.fault = (FaultInjector.from_spec(chaos)
                       if isinstance(chaos, str) else chaos)
+        self._artifact_store = None
+        self._aot_attached = False
+        if artifacts:
+            # `paddle compile` output: replicas consult the store before
+            # building a plan; attached process-wide as well, since the
+            # kernel libraries load once a process
+            from paddle_tpu_torch import aot as _aot
+
+            self._artifact_store = _aot.ArtifactStore(artifacts, place=place)
+            _aot.attach(self._artifact_store)
+            self._aot_attached = True
         self._queue = RequestQueue(max_batch=max_batch,
                                    batch_timeout=batch_timeout_ms / 1000.0,
                                    tenants=self._tenants,
@@ -175,7 +183,8 @@ class InferenceServer:
                                   fault=self.fault,
                                   max_attempts=max_attempts,
                                   heartbeat=replica_heartbeat_ms / 1000.0,
-                                  dispatch_timeout=dispatch_timeout)
+                                  dispatch_timeout=dispatch_timeout,
+                                  artifact_store=self._artifact_store)
                       if self._bundle else None)
         self.place = (self._pool.replicas[0].exe.place if self._pool
                       else generator.model.place)
@@ -490,11 +499,16 @@ class InferenceServer:
             "queue": self._queue.degradation(),
         }
 
-    @staticmethod
-    def aot_info() -> Optional[dict]:
-        """The artifact store's state: None, as the JAX package's server
-        reports without ``--artifacts`` (the port has no AOT yet)."""
-        return None
+    def aot_info(self) -> Optional[dict]:
+        """The artifact store's state for /health: its root, poison
+        reason, entry count and per-outcome lookup results, and the pool's
+        boot source; None without ``artifacts``."""
+        if self._artifact_store is None:
+            return None
+        info = self._artifact_store.info()
+        info["boot"] = (self._pool.boot_source()
+                        if self._pool is not None else None)
+        return info
 
     def batching_info(self) -> dict:
         return {
@@ -577,4 +591,10 @@ class InferenceServer:
             self._pool.stop()
         if self._generator is not None:
             self._generator.stop()
+        if self._aot_attached:
+            from paddle_tpu_torch import aot as _aot
+
+            if _aot.active_store() is self._artifact_store:
+                _aot.detach()
+            self._aot_attached = False
         self._httpd.server_close()

@@ -7,6 +7,7 @@ HTTP:
         [--tenants=NAME:RATE[:BURST[:WEIGHT]],...] [--tenant_config=FILE]
         [--max_attempts=N] [--replica_heartbeat_ms=MS]
         [--dispatch_timeout=SECONDS] [--chaos=KIND[@N[:rIDX]]]
+        [--artifacts=DIR]
     python -m paddle_tpu_torch.serving --gen_config=SCRIPT [--port=N]
         [--gen_slots=N] [--gen_queue=N] [--gen_max_tokens=N]
         [--prefix_cache] [--prefix_cache_pages=N] [--spec_draft=ngram]
@@ -19,8 +20,10 @@ gives each named tenant a token-bucket quota and a fair-queue weight
 same from a JSON file (``{"A": {"rate": 100, "burst": 20, "weight":
 4}, ...}``) or from a file of one ``NAME:RATE...`` entry a line.
 ``--chaos`` arms a fault injector after warmup (``die``, ``raise`` or
-``hang`` on the Nth dispatch).  ``--artifacts`` (AOT executables)
-raises: the port has no AOT yet.
+``hang`` on the Nth dispatch).  ``--artifacts=DIR`` boots the replicas
+from a ``paddle compile`` directory (``paddle_tpu_torch.aot``): run plans
+from its records and kernel libraries from its files, a loud fallback on
+any mismatch.
 ``--gen_config`` mounts ``/generate``: SCRIPT is executed and must
 define ``make_decode_model()`` returning a paged decoder LM (a
 ``paddle_tpu_torch.decode.model.TinyDecoderLM``, which picks its own
@@ -120,8 +123,8 @@ def serve_parser(prog: str, port: int = 8000) -> argparse.ArgumentParser:
                     help="KIND[@N[:rIDX]]: die, raise or hang on the Nth "
                     "dispatch after warmup")
     ap.add_argument("--artifacts", default=None,
-                    help="AOT executables to boot from (ROADMAP Queue 1 "
-                    "item 3 step 2: raises)")
+                    help="a `paddle compile` directory to boot the "
+                    "replicas from (AOT run plans and kernel libraries)")
     ap.add_argument("--gen_config", default=None,
                     help="script defining make_decode_model(): mounts "
                     "POST /generate")

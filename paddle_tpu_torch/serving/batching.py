@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from paddle_tpu_torch.kernels.tuning import bucket as _bucket
 from paddle_tpu_torch.observability import metrics as _metrics
 _M_QUEUE_WAIT = _metrics.histogram(
     "serving_queue_wait_seconds",
@@ -226,22 +227,16 @@ class TenantRegistry:
 
 def next_bucket(rows: int) -> int:
     """Smallest power of two >= rows (rows <= 1 maps to 1): the padded
-    batch dim."""
-    if rows <= 1:
-        return 1
-    return 1 << (rows - 1).bit_length()
+    batch dim.  The kernel tuner's ladder (``kernels/tuning/bucket.py``),
+    so serving's batch buckets and the tuning database's shape buckets
+    cannot drift apart."""
+    return _bucket.bucket_dim(rows)
 
 
 def bucket_ladder(max_batch: int) -> Tuple[int, ...]:
     """The bucket shapes a server with this cap runs: 1, 2, 4 .. the
-    bucket covering max_batch."""
-    out = []
-    b = 1
-    while b < max_batch:
-        out.append(b)
-        b <<= 1
-    out.append(next_bucket(max_batch))
-    return tuple(out)
+    bucket covering max_batch (``kernels/tuning/bucket.py``)."""
+    return _bucket.bucket_ladder(max_batch)
 
 
 def propagate_shapes(program) -> None:

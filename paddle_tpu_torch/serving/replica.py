@@ -88,8 +88,9 @@ _M_LIVE = _metrics.gauge(
 _M_TTR = _metrics.histogram(
     "serving_time_to_ready_seconds",
     "warmup() wall time until every replica has run its bucket "
-    "ladder, labeled by boot source (plan: every program's run plan "
-    "built by the replica's Executor)",
+    "ladder, labeled by boot source (aot = every run plan built from the "
+    "artifact store's records, plan = every run plan built by the "
+    "replica's Executor, mixed = partial artifact coverage)",
     buckets=_metrics.COMPILE_TIME_BUCKETS)
 
 #: Errors attributed to the request (a malformed feed dict, a bad dtype,
@@ -249,14 +250,18 @@ class ModelBundle:
 
 class Replica:
     """One worker clone: private Scope + private Executor on ``place``
-    (``CUDAPlace(0)`` when None)."""
+    (``CUDAPlace(0)`` when None); with ``store`` (an AOT artifact store)
+    the Executor consults it at every plan miss."""
 
     def __init__(self, bundle: ModelBundle, index: int, place=None,
-                 fault: Optional[FaultInjector] = None):
+                 fault: Optional[FaultInjector] = None, store=None):
         self.index = index
         self.bundle = bundle
         self.fault = fault
         self.exe = Executor(place)
+        # an artifact-booted replica: its plans come from the store's
+        # records where they match (paddle_tpu_torch/aot)
+        self.exe.aot_store = store
         self.scope = Scope()
         bundle.load_params_into(self.scope, self.exe.device)
 
@@ -276,8 +281,10 @@ class ReplicaPool:
                  spec: BatchSpec, replicas: int = 1, place=None,
                  fault: Optional[FaultInjector] = None,
                  max_attempts: int = 3, heartbeat: float = 1.0,
-                 dispatch_timeout: Optional[float] = None):
+                 dispatch_timeout: Optional[float] = None,
+                 artifact_store=None):
         self.bundle = bundle
+        self.artifact_store = artifact_store
         self.queue = queue
         self.spec = spec
         self._place = place
@@ -306,7 +313,8 @@ class ReplicaPool:
         self._budget_exhausted = False
 
         for _ in range(self.configured):
-            rep = Replica(bundle, self._next_index, place, fault=fault)
+            rep = Replica(bundle, self._next_index, place, fault=fault,
+                          store=artifact_store)
             self._next_index += 1
             self._spawn_worker(rep)
         _M_LIVE.set(len(self._live))
@@ -396,12 +404,20 @@ class ReplicaPool:
         _M_TTR.observe(time.monotonic() - t0, boot=self.boot_source())
         return len(buckets) * len(reps)
 
-    @staticmethod
-    def boot_source() -> str:
-        """Where the replicas' programs came from: ``plan``, each built
-        by its Executor (the JAX package's ``aot`` / ``jit`` / ``mixed``
-        wait for AOT artifacts, ROADMAP Queue 1)."""
-        return "plan"
+    def boot_source(self) -> str:
+        """``aot`` / ``plan`` / ``mixed``: where the live replicas' run
+        plans came from (their Executors' ``compile_counts``): every one
+        from the artifact store, every one built by its Executor, or some
+        of each (``paddle_tpu/serving/replica.py:409-421``, whose ``jit``
+        is the port's ``plan``)."""
+        built = aot = 0
+        for rep in self.replicas:
+            counts = rep.exe.compile_counts
+            built += counts.get("plan", 0)
+            aot += counts.get("aot", 0)
+        if aot and not built:
+            return "aot"
+        return "mixed" if (built and aot) else "plan"
 
     # -- worker loop --------------------------------------------------------
 
@@ -553,7 +569,8 @@ class ReplicaPool:
             self._next_index += 1
             self._restarts.append(now)
         try:
-            rep = Replica(self.bundle, index, self._place, fault=self.fault)
+            rep = Replica(self.bundle, index, self._place, fault=self.fault,
+                          store=self.artifact_store)
         except Exception:
             # params/device unavailable right now: put the slot back and
             # retry next sweep with more backoff

@@ -256,8 +256,10 @@ def test_serve_parses_the_launchers_flags(tiny):
 
 def test_usage_version_and_later_commands(capsys):
     """No command: the usage and exit 2; an unknown one: exit 2;
-    version names the cards or "no CUDA device"; compile, tune, pserver,
-    master, coord and elastic exit 1 naming their ROADMAP step."""
+    version names the cards or "no CUDA device"; compile and tune answer
+    (no "not yet"), their usage errors exiting 2 as the reference's do;
+    pserver, master, coord and elastic exit 1 naming their ROADMAP
+    step."""
     import torch
 
     assert cli.main([]) == 2
@@ -272,9 +274,14 @@ def test_usage_version_and_later_commands(capsys):
     if not torch.cuda.is_available():
         assert "no CUDA device" in out
     assert set(cli.COMMANDS) == set(jcli.COMMANDS)
-    for name, step in (("compile", "step 2"), ("tune", "step 4"),
-                       ("pserver", "step 6"), ("master", "step 6"),
+    for name, step in (("pserver", "step 6"), ("master", "step 6"),
                        ("coord", "step 6"), ("elastic", "step 6")):
         assert cli.main([name, "--port=0"]) == 1
         err = capsys.readouterr().err
         assert f"ROADMAP Queue 1 item 3 {step}" in err and name in err
+    for argv in (["compile"], ["compile", "--out=x"],
+                 ["tune", "--kernel=bogus"]):
+        assert cli.main(argv) == jcli.COMMANDS[argv[0]](argv[1:]) == 2, argv
+        err = capsys.readouterr().err
+        assert "not yet" not in err and ("usage" in err
+                                         or "unknown kernel" in err)

@@ -65,7 +65,14 @@ the launch counters of N replays equal to N eager runs, a capture on a
 replica's thread, fetches with ``return_numpy=False`` kept across the
 next replay, aliases of donated state (``assign``) equal to the eager
 runs' bit for bit, a constant-folded program captured and its results
-exactly the unrewritten program's.
+exactly the unrewritten program's.  The kernel tuner and AOT (``-k
+"tuned or artifact"``): every candidate config of every family at its
+smoke shapes, dispatched through a one-entry database, within the
+family's own tolerance of the plain version (``kernels/tuning/space.py``:
+atol + rtol * max|plain|); the shipped (empty) database's launches,
+counters and outputs bit for bit those of a disabled one; a library
+loaded from an artifact directory in a fresh process, with no ``nvcc``
+run.
 """
 
 import contextlib
@@ -4022,3 +4029,125 @@ def test_graph_captures_a_folded_program(dev):
     assert exe.graph_stats()["graphs"] == 1
     for g in got:
         np.testing.assert_array_equal(g, want)
+
+
+_TUNE_CASES = [(name, shape, dtype)
+               for name, fam in sorted(__import__(
+                   "paddle_tpu_torch.kernels.tuning.space",
+                   fromlist=["SPACES"]).SPACES.items())
+               for shape in fam.smoke_shapes for dtype in fam.dtypes]
+
+
+@pytest.mark.parametrize("name,shape,dtype", _TUNE_CASES)
+def test_each_tuned_config_matches_plain(dev, name, shape, dtype):
+    """Each candidate of the family, dispatched from a one-entry
+    database, launches (the lookup hits) and stays within the family's
+    tolerance of the plain version."""
+    from paddle_tpu_torch.kernels import tuning
+    from paddle_tpu_torch.kernels.tuning import measure, space
+    from paddle_tpu_torch.observability import metrics
+
+    fam = space.SPACES[name]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    case = fam.build(shape, dtype, dev, seed=3)
+    kind = tuning.current_device_kind()
+    lookups = metrics.counter("tuning_db_lookup_total")
+    try:
+        for cfg in [None] + fam.configs(shape, dtype, sms):
+            hits = lookups.value(kernel=name, result="hit")
+            with measure.pinned(name, shape, dtype, cfg, kind):
+                out = case.run()
+            torch.cuda.synchronize()
+            err, limit = case.error(out)
+            assert err <= limit, (cfg, err, limit)
+            if cfg is not None and name != "ragged_paged_attention":
+                assert lookups.value(kernel=name, result="hit") == hits + 1
+    finally:
+        tuning.set_db(None)
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "paddle_tpu_torch.kernels.tuning.space", fromlist=["SPACES"]).SPACES))
+def test_empty_tuned_db_launches_as_before(dev, name):
+    """The shipped database (empty) against a disabled one: the same
+    launch counters and the outputs bit for bit.  The shipped one is read
+    up front, as the first lookup would read it: the conv forward's and
+    the flash forward's wrappers never look up."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import tuning
+    from paddle_tpu_torch.kernels.tuning import space
+
+    fam = space.SPACES[name]
+    shape, dtype = fam.smoke_shapes[0], fam.dtypes[0]
+    case = fam.build(shape, dtype, dev, seed=4)
+    outs, deltas = [], []
+    try:
+        for setup in (lambda: (tuning.set_db(None), tuning.get_db()),
+                      tuning.disable):
+            setup()
+            before = kernels.launch_counts()
+            out = case.run()
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            deltas.append({k: v - before[k] for k, v in after.items()
+                           if v != before[k]})
+            outs.append(case.pick(out).clone())
+            assert not tuning.live
+    finally:
+        tuning.set_db(None)
+    assert deltas[0] == deltas[1] and deltas[0]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_build_loads_a_library_from_an_artifact(dev, tmp_path):
+    """A fresh process with an artifact store attached loads the gather's
+    library from the artifact directory and runs no nvcc; the launch
+    equals the plain version."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch import aot
+    from paddle_tpu_torch.aot import artifact
+    from paddle_tpu_torch.kernels import _build
+
+    _build.build(["embedding"])
+    src = _build.library_path("embedding")
+    art = tmp_path / "art"
+    (art / "kernels").mkdir(parents=True)
+    shutil.copyfile(src, art / "kernels" / os.path.basename(src))
+    sha, nbytes = artifact._sha256_file(src)
+    doc = {"schema": aot.SCHEMA, "entries": [],
+           "env": artifact.environment_fingerprint(),
+           "tuning_db": artifact.tuning_db_digest(),
+           "flags": artifact.flags_fingerprint(),
+           "kernels": {"embedding": {
+               "file": f"kernels/{os.path.basename(src)}", "sha256": sha,
+               "nbytes": nbytes}}}
+    (art / aot.MANIFEST_NAME).write_text(json.dumps(doc))
+    probe = (
+        "import json, sys, torch\n"
+        "from paddle_tpu_torch import aot\n"
+        "from paddle_tpu_torch.kernels import _build, embedding\n"
+        "store = aot.attach(aot.ArtifactStore(sys.argv[1]))\n"
+        "w = torch.randn(50, 8, device='cuda')\n"
+        "ids = torch.randint(0, 50, (17,), device='cuda')\n"
+        "got = embedding.gather_rows(w, ids)\n"
+        "ok = torch.equal(got, embedding.gather_rows_plain(w, ids))\n"
+        "print(json.dumps({'from': _build.loaded_from(), 'ok': ok,\n"
+        "                  'nvcc': _build.nvcc_builds,\n"
+        "                  'results': store.results}))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + ":/bin",
+               CUDA_HOME=str(tmp_path / "no_cuda"))
+    out = subprocess.run([sys.executable, "-c", probe, str(art)], cwd=repo,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["ok"] and got["nvcc"] == 0
+    assert got["from"] == {"embedding": str(art / "kernels" /
+                                            os.path.basename(src))}
+    assert got["results"] == {"kernel_loaded": 1}

@@ -461,14 +461,24 @@ def test_metrics_stats_and_health_keys(tmp_path, rng):
 
 
 def test_artifacts_and_check_program_raise(tmp_path, rng):
-    """AOT artifacts raise (torch.export waits for its slice); the
-    check_program flag, which raised too, now runs the verifier over the
-    export at the replica's plan miss, which passes it."""
+    """``artifacts`` naming a directory with no manifest serves all the
+    same, from plans built in process (the store is poisoned "corrupt"
+    and every lookup counted); the check_program flag, which raised
+    once, runs the verifier over the export at the replica's plan miss,
+    which passes it."""
     from paddle_tpu_torch.flags import FLAGS
 
     d, _, _, _ = _small_export(tmp_path)
-    with pytest.raises(NotImplementedError, match="torch.export"):
-        InferenceServer(d, place=pt.CPUPlace(), artifacts=str(tmp_path))
+    srv = InferenceServer(d, place=pt.CPUPlace(), artifacts=str(tmp_path))
+    try:
+        out = _post(f"http://{srv.address}",
+                    {"x": rng.randn(2, 6).tolist()})["outputs"][0]
+        assert np.asarray(out).shape == (2, 3)
+        info = srv.aot_info()
+        assert info["poisoned"] == "corrupt" and info["boot"] == "plan"
+        assert info["results"] == {"rejected_corrupt": 1}
+    finally:
+        srv.stop()
     rep = Replica(ModelBundle(d), 0, pt.CPUPlace())
     try:
         FLAGS.set("check_program", True)
@@ -483,7 +493,8 @@ def test_artifacts_and_check_program_raise(tmp_path, rng):
 def test_launcher_takes_the_operations_flags(tmp_path, rng):
     """The launcher passes --tenant_config (JSON), --max_attempts,
     --replica_heartbeat_ms, --dispatch_timeout and --chaos through, and
-    --artifacts refuses to start."""
+    --artifacts: a directory without a manifest starts and serves from
+    plans built in process."""
     from paddle_tpu_torch.serving.__main__ import tenant_spec
 
     d, _, _, _ = _small_export(tmp_path)
@@ -533,11 +544,24 @@ def test_launcher_takes_the_operations_flags(tmp_path, rng):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch.serving",
          f"--model_dir={d}", "--port=0", "--cpu", f"--artifacts={tmp_path}"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://"), (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        base = line.split()[-1]
+        assert _request(base, "/predict", {"x": rng.randn(1, 6).tolist()})[
+            0] == 200
+        with urllib.request.urlopen(f"{base}/health", timeout=10) as r:
+            aot = json.loads(r.read())["aot"]
+        assert (aot["poisoned"], aot["boot"]) == ("corrupt", "plan")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    assert "unreadable manifest" in proc.stderr.read()
 
 
 # ---------------------------------------------------------------------------
