@@ -444,6 +444,32 @@ seconds):
     tuned database: refused ``rejected_tuning_db``, and a server on it
     answers from plans it builds (bucket 1, where the database has no
     entry, byte for byte; bucket 8 within PROBS_TOL).
+15t. The paddle.v2 surface, driven by the v2 book's two models at full
+    width through the calls a v2 user makes (``paddle.init``,
+    ``paddle.layer`` / ``paddle.networks``, ``paddle.parameters.create``,
+    ``paddle.trainer.SGD(..., update_equation=paddle.optimizer.*)
+    .train(paddle.batch(paddle.dataset.*, 128))``, ``paddle.infer``):
+    vgg_bn_drop on CIFAR-10 (``build_vgg_bn_drop``: five img_conv_groups
+    with batch norm, 64 to 512 filters, 32 x 32 down to 2 x 2) and
+    stacked_lstm_net on imdb (``build_sentiment_lstm``: emb 128, hid 512,
+    three lstmemory layers at H 128, the second reversed over each row's
+    length).  Every conv shape of the VGG's step at batch V2_BATCH
+    (forward, backward-input, filter gradient) and the LSTM kernels at
+    the sentiment net's (B 128, its ragged rows reversed in their
+    lengths) against their plain versions, timed against F.conv2d and
+    cuDNN; each model's two SGD steps at batch V2_PARITY_BATCH on the
+    card against the port's CPU path (PARITY_TOL; the VGG's dropouts 0,
+    as the two devices draw other masks); V2_ITERS SGD.train iterations
+    at batch V2_BATCH with the counters zeroed just before and read just
+    after (finite costs, every weight moved, the conv, conv_dw, matmul,
+    softmax and BN kernels launched for the VGG, the LSTM, matmul and
+    softmax for the sentiment net; ms a step, samples/s, peak memory,
+    the eager plans' reasons, one profiled step's idle share);
+    ``paddle.infer`` of V2_INFER_ROWS rows on the card against a CPU copy
+    of the scope (PARITY_TOL of max, rows summing to 1); the nested
+    recurrent_group (``build_nested_group``) at small width, card against
+    CPU.  The phase runs in a fresh process (``chip_smoke.py
+    --v2-phase``): late in a long one the profiler misses ctypes launches.
 16. One profiled step of each sequence path, of the wide_deep step and
     of the seq2seq step in a fresh process (``chip_smoke.py
     --profile-sequence-steps``; the LSTM classifier, wide_deep and
@@ -502,8 +528,10 @@ seconds):
     ``bn_{nhwc,nchw,sequence}_step``, ``beams``,
     ``srl_train_step`` and ``text_conv_train_step``, and 15r's, the
     command line's children and in process together, as ``cli``, and
-    15s's, its children and in process together, as ``aot_tune``), the
-    card's name and power limit, and the result.
+    15s's, its children and in process together, as ``aot_tune``, and
+    15t's training runs as ``v2_vgg_train`` and ``v2_sentiment_train``;
+    ``by_model`` also has the v2 book models' conv and LSTM rows from
+    15t), the card's name and power limit, and the result.
     A row's ``bound_ms`` is the sum of its launches' own bounds, each the
     larger of its operations and its bytes.
 
@@ -872,6 +900,17 @@ AOT_CHILD = (
     "atexit.register(dump)\n"
     "runpy.run_module('paddle_tpu_torch.cli', run_name='__main__',\n"
     "                 alter_sys=True)\n")
+# 15t: the paddle.v2 book models at full width: vgg_bn_drop's five conv
+# groups on CIFAR-10 (3 x 32 x 32, 10 classes) and stacked_lstm_net (emb
+# 128, hid 512, 3 layers: H 128) on imdb's 5149 words; batch, iterations
+# of SGD.train, the parity batch, the images paddle.infer takes
+VGG_GROUPS = ((64, 64), (128, 128), (256,) * 3, (512,) * 3, (512,) * 3)
+VGG_WIDTH = 512
+SENT_CONFIG = dict(vocab=5149, emb=128, hid=512, stacked=3)
+V2_BATCH = 128
+V2_ITERS = 20
+V2_PARITY_BATCH = 2
+V2_INFER_ROWS = 8
 SSD_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
 SSD_MIN = (30, 60, 111, 162, 213, 264)
 SSD_MAX = (60, 111, 162, 213, 264, 315)
@@ -888,6 +927,9 @@ PROFILE_TAIL = "--profile-tail-steps"
 #: The flag of phase 10d's child: the recompute transformer step
 #: profiled eagerly and replayed from its CUDA graph, f32 and AMP.
 PROFILE_GRAPHS = "--profile-graph-steps"
+# phase 15t runs in a fresh process: its conv rows' device windows and its
+# profiled steps need a profiler that sees every ctypes launch
+V2_PHASE = "--v2-phase"
 
 # The decoder LM that /generate serves (paddle_tpu/decode/model.py
 # TinyDecoderLM) at the widths of the transformer LM of phases 8-9
@@ -3652,14 +3694,17 @@ def pre_bn_bias_grads(block):
 
 
 def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
-                            only=None):
+                            only=None, generator_seed=None):
     """Every op of ``block`` (forward, grad ops, sums, updates) on the card
     and, on copies of the very same input values, on the CPU: each output
     within ``tol`` of the CPU output's largest magnitude (a bias gradient
     in front of a training BN: of the terms it sums, ``pre_bn_bias_grads``).
     A grad op gets the residual its forward left for it (the attention's
     logsumexp, the LSTM's gates) on both sides.  With ``only`` (a set of op types), the
-    other ops run on the card alone, to make the compared ops' inputs."""
+    other ops run on the card alone, to make the compared ops' inputs.
+    With ``generator_seed``, a random op draws from a generator of that
+    seed on each side (the two draw other streams: for ops whose output
+    the draw does not change, such as a dropout of rate 0)."""
     import torch
 
     from paddle_tpu_torch.lod import unwrap
@@ -3669,6 +3714,11 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
     from paddle_tpu_torch.sparse import SparseGrad
 
     cpu_dev = torch.device("cpu")
+
+    def gen(device):
+        return (None if generator_seed is None else
+                torch.Generator(device=device).manual_seed(generator_seed))
+
     bias_terms = pre_bn_bias_grads(block)
     values = {n: _moved(v, dev) for n, v in state.items()}
     values.update({k: _moved(v, dev) for k, v in feed.items()})
@@ -3678,15 +3728,15 @@ def ops_on_identical_inputs(dev, block, state, feed, what, tol=OP_TOL,
         for op in block.ops:
             info = OpRegistry.get(op.type)
             if only is not None and op.type not in only:
-                info.lower(LowerContext(op, values, dev))
+                info.lower(LowerContext(op, values, dev, gen(dev)))
                 continue
             names = [n for n in op.input_arg_names if n]
             names += [r(n) for n in names for r in (lse_name, gates_name)
                       if r(n) in values]
             twin = {n: _moved(values[n], cpu_dev) for n in names
                     if n in values}
-            info.lower(LowerContext(op, values, dev))
-            info.lower(LowerContext(op, twin, cpu_dev))
+            info.lower(LowerContext(op, values, dev, gen(dev)))
+            info.lower(LowerContext(op, twin, cpu_dev, gen(cpu_dev)))
             for n in op.output_arg_names:
                 if not n or n not in twin:
                     continue
@@ -9885,6 +9935,427 @@ def _lookup_hits(kernel):
                                                            result="hit")
 
 
+# ---------------------------------------------------------------------------
+# phase 15t: the paddle.v2 surface, driven by two book models
+# ---------------------------------------------------------------------------
+
+
+def build_vgg_bn_drop(paddle, groups=VGG_GROUPS, width=VGG_WIDTH, drop=0.5,
+                      classes=10):
+    """The v2 book's image classifier (chapter 03, vgg.py) with either
+    package's v2 API: five ``img_conv_group`` blocks (3 x 3 convs with
+    batch norm and relu, a 2 x 2 max pool, stride 2) over a 3072-wide
+    CIFAR image, then dropout, fc(width, linear), batch_norm(relu),
+    dropout, fc(width, relu), fc(classes, softmax) and
+    classification_cost.  (softmax output, cost)."""
+    img = paddle.layer.data(name="image",
+                            type=paddle.data_type.dense_vector(3072))
+    x = img
+    for i, filters in enumerate(groups):
+        x = paddle.networks.img_conv_group(
+            input=x, num_channels=3 if i == 0 else None, pool_size=2,
+            pool_stride=2, conv_num_filter=list(filters),
+            conv_filter_size=3, conv_act=paddle.activation.Relu(),
+            conv_with_batchnorm=True, pool_type=paddle.pooling.Max())
+    x = paddle.layer.dropout(input=x, dropout_rate=drop)
+    x = paddle.layer.fc(input=x, size=width, act=paddle.activation.Linear())
+    x = paddle.layer.batch_norm(input=x, act=paddle.activation.Relu())
+    x = paddle.layer.dropout(input=x, dropout_rate=drop)
+    x = paddle.layer.fc(input=x, size=width, act=paddle.activation.Relu())
+    out = paddle.layer.fc(input=x, size=classes,
+                          act=paddle.activation.Softmax())
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(classes))
+    return out, paddle.layer.classification_cost(input=out, label=label)
+
+
+def build_sentiment_lstm(paddle, vocab=5149, emb=128, hid=512, stacked=3,
+                         classes=2):
+    """The v2 book's stacked_lstm_net (chapter 06) with either package's
+    v2 API: an embedding, fc(hid, linear) and lstmemory, then for each
+    further layer fc([fc, lstm], hid) and lstmemory reversed on the even
+    ones (H = hid / 4), max pooling of the last fc and lstm, fc(classes,
+    softmax) and classification_cost.  (softmax output, cost)."""
+    words = paddle.layer.data(
+        "word", paddle.data_type.integer_value_sequence(vocab))
+    x = paddle.layer.embedding(input=words, size=emb)
+    fc = paddle.layer.fc(input=x, size=hid, act=paddle.activation.Linear())
+    lstm = paddle.layer.lstmemory(input=fc, act=paddle.activation.Relu())
+    for i in range(2, stacked + 1):
+        fc = paddle.layer.fc(input=[fc, lstm], size=hid,
+                             act=paddle.activation.Linear())
+        lstm = paddle.layer.lstmemory(input=fc, reverse=i % 2 == 0,
+                                      act=paddle.activation.Relu())
+    pools = [paddle.layer.pooling(input=v, pooling_type=paddle.pooling.Max())
+             for v in (fc, lstm)]
+    out = paddle.layer.fc(input=pools, size=classes,
+                          act=paddle.activation.Softmax())
+    label = paddle.layer.data("label",
+                              paddle.data_type.integer_value(classes))
+    return out, paddle.layer.classification_cost(input=out, label=label)
+
+
+def sentiment_rows(rng, n, vocab, lens=(20, 100)):
+    """``n`` (word ids, label) rows, each of a length in ``lens``."""
+    return [(rng.randint(0, vocab, int(rng.randint(lens[0], lens[1] + 1)))
+             .tolist(), int(rng.randint(2))) for _ in range(n)]
+
+
+def momentum_vgg(paddle):
+    """The book's VGG optimizer: Momentum 0.9 at 0.1 / 128 with L2
+    5e-4 x 128 (an L2 the JAX package's v2 optimizer keeps for a
+    parameter server and does not apply locally; the port follows)."""
+    return paddle.optimizer.Momentum(
+        momentum=0.9, learning_rate=0.1 / 128,
+        regularization=paddle.optimizer.L2Regularization(5e-4 * 128))
+
+
+def adam_sentiment(paddle):
+    """The book's sentiment optimizer: Adam at 2e-3 with L2 8e-4."""
+    return paddle.optimizer.Adam(
+        learning_rate=2e-3,
+        regularization=paddle.optimizer.L2Regularization(8e-4))
+
+
+def _v2_trainer(paddle, build, opt, place=None, **kw):
+    """(output, cost, Parameters, SGD) of ``build(paddle, **kw)``, its
+    parameters on ``place`` (the card unless given)."""
+    import paddle_tpu_torch as pt
+
+    pt.framework.reset_default_programs()
+    out, cost = build(paddle, **kw)
+    params = paddle.parameters.create(cost, place=place)
+    sgd = paddle.trainer.SGD(cost=cost, parameters=params,
+                             update_equation=opt(paddle))
+    return out, cost, params, sgd
+
+
+def _v2_train(paddle, sgd, reader):
+    """``sgd.train(reader)``: the EndIteration costs and their host
+    times."""
+    costs, stamps = [], []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+            stamps.append(time.perf_counter())
+
+    sgd.train(reader, event_handler=handler)
+    return costs, stamps
+
+
+def _perturbed(rows, rng):
+    """``rows`` with every float array feature scaled by 1 + PERTURB x a
+    seeded normal draw (ids and labels kept)."""
+    def move(v):
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            return (v * (1 + PERTURB * rng.randn(*v.shape))).astype(v.dtype)
+        return v
+
+    return [tuple(move(v) for v in r) for r in rows]
+
+
+def _v2_parity(what, dev, paddle, build, opt, rows, **kw):
+    """Two SGD steps at V2_PARITY_BATCH on the card against CPUPlace()
+    from the CPU's weights, end to end and, for the first step, op by op.
+
+    End to end: each cost within max(PARITY_TOL x |CPU|, FLOOR_FACTOR x
+    the spread between two CPU runs, the second on rows whose float
+    features are perturbed by PERTURB): the first step's update of a
+    randomly initialised VGG at batch 2 is ill-conditioned (its head's
+    batch norm normalises over 2 rows), and moves the second cost by
+    percents under rounding.  Op by op (``ops_on_identical_inputs``): every
+    op of the first step, forward, gradients and updates, on the card and
+    on the CPU from the very same inputs, within OP_TOL."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import executor as executor_mod
+    from paddle_tpu_torch.v2.trainer import V2DataFeeder
+
+    b = V2_PARITY_BATCH
+    runs = []
+    for place, feed_rows in ((pt.CPUPlace(), rows),
+                             (pt.CPUPlace(), _perturbed(
+                                 rows, np.random.RandomState(3))),
+                             (None, rows)):
+        _, _, params, sgd = _v2_trainer(paddle, build, opt, place, **kw)
+        if runs:
+            for n, v in init.items():
+                params.set(n, v)
+        else:
+            init = {n: params.get(n) for n in params.keys()}
+            state = {n: executor_mod._to_numpy(v)
+                     for n, v in params.scope.values.items()}
+        batches = [feed_rows[i:i + b] for i in range(0, 2 * b, b)]
+        costs, _ = _v2_train(paddle, sgd, lambda bs=batches: iter(bs))
+        runs.append((params, sgd, costs))
+    (_, _, want), (_, _, spread), (_, card_sgd, got) = runs
+    if len(got) != 2:
+        fail(f"{what}: {len(got)} parity steps")
+    for i, (g, w, p) in enumerate(zip(got, want, spread)):
+        gate = max(PARITY_TOL * abs(w), FLOOR_FACTOR * abs(p - w))
+        if not abs(g - w) <= gate:
+            fail(f"{what}: step {i} cost {g:.6f} on the card, {w:.6f} on "
+                 f"the CPU ({p:.6f} on rows perturbed by {PERTURB}; gate "
+                 f"{gate:.2e})")
+    log(f"{what}: two SGD steps at batch {b}, costs {got} on the card, "
+        f"{want} on the CPU, {spread} on the CPU from perturbed rows")
+    topo = card_sgd.topology
+    feed = V2DataFeeder(topo.feed_types).feed(rows[:b])
+    ops_on_identical_inputs(dev, topo.main_program.global_block(), state,
+                            feed, f"{what} SGD step at batch {b}",
+                            generator_seed=0)
+
+
+def _eager_reasons(since_us):
+    """(program, why) of the plans the Executors kept eager since
+    ``since_us`` on the host-event clock."""
+    from paddle_tpu_torch.observability.events import GLOBAL_EVENTS
+
+    return sorted({(e["args"]["program"], e["args"]["why"])
+                   for e in GLOBAL_EVENTS.events()
+                   if e["name"] == "executor.eager_plan"
+                   and e["ts"] >= since_us})
+
+
+def _v2_steps(what, paddle, build, opt, batches, want_kernels, smi, **kw):
+    """``paddle.trainer.SGD.train`` over V2_ITERS batches of ``batches``
+    on CUDAPlace(0), the counters zeroed just before and read just
+    after: finite costs, every weight changed, each of ``want_kernels``
+    launched; ms a step and samples/s between the first and the last
+    EndIteration, peak memory, the eager plans' reasons, one profiled
+    step's idle share.  (record, output layer, Parameters)."""
+    import itertools
+
+    import torch
+
+    from paddle_tpu_torch.observability.events import GLOBAL_EVENTS
+
+    out, _, params, sgd = _v2_trainer(paddle, build, opt, **kw)
+    before = {n: params.get(n) for n in params.keys()}
+    data = list(itertools.islice(batches(), V2_ITERS + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev0 = GLOBAL_EVENTS.now() * 1e6
+    zero_counters()
+    costs, stamps = _v2_train(paddle, sgd, lambda: iter(data[:V2_ITERS]))
+    torch.cuda.synchronize()
+    launches = counters()
+    if len(costs) != V2_ITERS or not np.isfinite(costs).all():
+        fail(f"{what}: costs {costs}")
+    moved = [n for n in params.keys()
+             if not np.array_equal(params.get(n), before[n])]
+    still = [n for n in params.keys() if n not in moved
+             and not n.endswith(".b_0")]
+    if still:
+        fail(f"{what}: weights unchanged after {V2_ITERS} steps: {still}")
+    for k in want_kernels:
+        if not launches[k]:
+            fail(f"{what}: the {V2_ITERS} steps launched no {k} kernel")
+    batch = len(data[0])
+    rec = _demo_record(f"{what} ({V2_ITERS} SGD.train iterations, batch "
+                       f"{batch})", launches, V2_ITERS - 1,
+                       batch * (V2_ITERS - 1), stamps[-1] - stamps[0], smi)
+    eager = _eager_reasons(ev0)
+    log(f"{what}: costs {costs[0]:.6f} -> {costs[-1]:.6f}; {len(moved)} of "
+        f"{len(before)} parameters moved; gather launches "
+        f"{launches['embedding']}; eager plans: "
+        + ("; ".join(f"{p}: {why}" for p, why in eager) or "none"))
+    rec["idle_share"] = profile_step(
+        lambda: sgd.train(lambda: iter(data[V2_ITERS:])),
+        f"{what} SGD step at batch {batch}")
+    rec.update(first_cost=costs[0], last_cost=costs[-1], eager=eager)
+    return rec, out, params
+
+
+def _v2_infer(what, paddle, out, card, rows, build, **kw):
+    """``paddle.infer`` of ``rows`` on the card's parameters and on a CPU
+    copy of its whole scope: within PARITY_TOL of max|CPU|, every row a
+    distribution."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import executor as executor_mod
+
+    got = paddle.infer(output_layer=out, parameters=card, input=rows)
+    pt.framework.reset_default_programs()
+    cpu_out, cost = build(paddle, **kw)
+    cpu = paddle.parameters.create(cost, place=pt.CPUPlace())
+    cpu.scope.load_numpy({n: executor_mod._to_numpy(v)
+                          for n, v in card.scope.values.items()}, "cpu")
+    want = paddle.infer(output_layer=cpu_out, parameters=cpu, input=rows)
+    err = check_scaled(f"{what} paddle.infer", torch.from_numpy(got),
+                       torch.from_numpy(want), PARITY_TOL)
+    sums = got.sum(1)
+    if not np.allclose(sums, 1.0, atol=1e-4):
+        fail(f"{what} paddle.infer: rows sum to {sums}")
+    log(f"{what}: paddle.infer on {len(rows)} rows, card against CPU max "
+        f"abs err {err:.2e}, rows sum to 1 within 1e-4")
+
+
+def build_nested_group(paddle, tch, d=8, h=16, classes=3):
+    """A document classifier over a nested sequence with either package:
+    a recurrent_group over the subsequences, each step max-pooling its
+    subsequence and mixing it with the outer memory, then the last step's
+    softmax.  (softmax output, cost)."""
+    x = paddle.layer.data(
+        name="x", type=paddle.data_type.dense_vector_sub_sequence(d))
+    y = paddle.layer.data(name="y",
+                          type=paddle.data_type.integer_value(classes))
+
+    def step(sub):
+        pooled = paddle.layer.pooling(input=sub,
+                                      pooling_type=paddle.pooling.Max())
+        mem = tch.memory(name="h", size=h)
+        return paddle.layer.fc(input=[pooled, mem], size=h, act="tanh",
+                               name="h")
+
+    seq = tch.recurrent_group(step=step, input=tch.SubsequenceInput(x))
+    out = paddle.layer.fc(input=paddle.layer.last_seq(input=seq),
+                          size=classes, act="softmax")
+    return out, paddle.layer.classification_cost(input=out, label=y)
+
+
+def _nested_on_card(dev):
+    """The nested group: two SGD steps and paddle.infer, card against
+    CPU."""
+    import paddle_tpu_torch.trainer_config_helpers as tch
+    import paddle_tpu_torch.v2 as paddle
+
+    rng = np.random.RandomState(5)
+    rows = [([rng.randn(int(rng.randint(1, 5)), 8).astype(np.float32)
+              .tolist() for _ in range(int(rng.randint(1, 4)))],
+             int(rng.randint(3))) for _ in range(2 * V2_PARITY_BATCH)]
+
+    def build(p):
+        return build_nested_group(p, tch)
+
+    _v2_parity("nested recurrent_group", dev, paddle, build,
+               lambda p: p.optimizer.Momentum(momentum=0.9,
+                                              learning_rate=0.05), rows)
+    out, _, card, _ = _v2_trainer(
+        paddle, build, lambda p: p.optimizer.Momentum(learning_rate=0.05))
+    _v2_infer("nested recurrent_group", paddle, out, card,
+              [(r[0],) for r in rows], build)
+
+
+def phase_v2(dev, smi):
+    """15t: the paddle.v2 surface, driven by the v2 book's two models at
+    full width through the calls a v2 user makes (``paddle.init``,
+    ``paddle.layer`` / ``paddle.networks``, ``paddle.parameters.create``,
+    ``paddle.trainer.SGD(update_equation=paddle.optimizer.*).train`` over
+    ``paddle.batch(paddle.dataset.*)``, ``paddle.infer``).
+
+    vgg_bn_drop on CIFAR-10: every conv shape of its step at V2_BATCH
+    (forward, backward-input, filter gradient, 32 x 32 down to 2 x 2, C 3
+    to 512) against its plain version, timed against F.conv2d; two SGD
+    steps at full width on the card against the CPU (dropout 0: the two
+    devices draw other masks); V2_ITERS iterations at V2_BATCH over
+    ``cifar.train10()``; ``paddle.infer`` of V2_INFER_ROWS images, card
+    against CPU.  stacked_lstm_net on imdb: the LSTM kernels at its shape
+    (H 128, the ragged rows of a batch reversed inside their lengths)
+    against their plain versions and cuDNN; the same parity, training
+    and inference.  The nested recurrent_group at small width, card
+    against CPU.  Returns {path: record} and {model: kernels-line rows}."""
+    import torch
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.ops.sequence_ops import _window_reverse
+
+    paddle.init(use_gpu=True, trainer_count=1)
+    gen = torch.Generator(device=dev).manual_seed(2029)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    rng = np.random.RandomState(29)
+    records, kernels = {}, {}
+
+    # vgg_bn_drop: the conv shapes, then the parity, the training, infer
+    _, _, _, sgd = _v2_trainer(paddle, build_vgg_bn_drop, momentum_vgg)
+    launches = image_conv_launches(sgd.topology.main_program, V2_BATCH)
+    del sgd
+    log(f"vgg_bn_drop at batch {V2_BATCH}: conv kernel launches a step "
+        + ", ".join(f"{k} {sum(v.values())} ({len(v)} shapes)"
+                    for k, v in launches.items()))
+    kernels["vgg_bn_drop"] = _image_model_convs("vgg_bn_drop", launches,
+                                                torch.float32, randn)
+    cifar = [r for _, r in zip(range(2 * V2_PARITY_BATCH),
+                               paddle.dataset.cifar.test10()())]
+    _v2_parity("vgg_bn_drop", dev, paddle, build_vgg_bn_drop, momentum_vgg,
+               cifar, drop=0.0)
+    rec, out, params = _v2_steps(
+        "vgg_bn_drop", paddle, build_vgg_bn_drop, momentum_vgg,
+        paddle.batch(paddle.dataset.cifar.train10(), V2_BATCH),
+        ("conv2d_nhwc", "conv_bwd_input", "conv_dw", "matmul", "softmax",
+         "batch_norm_fwd", "batch_norm_bwd"), smi)
+    records["v2_vgg_train"] = rec
+    images = [(r[0],) for _, r in zip(range(V2_INFER_ROWS),
+                                      paddle.dataset.cifar.test10()())]
+    _v2_infer("vgg_bn_drop", paddle, out, params, images, build_vgg_bn_drop)
+    del out, params
+    torch.cuda.empty_cache()
+
+    # stacked_lstm_net: the LSTM at its shape, then as above
+    h = SENT_CONFIG["hid"] // 4
+    lens = torch.from_numpy(rng.randint(20, 100, V2_BATCH)).to(dev)
+    t = -(-int(lens.max()) // 16) * 16
+    xp = _window_reverse(randn(V2_BATCH, t, 4 * h, scale=0.5), lens)
+    args = (xp.contiguous(), randn(h, 4 * h, scale=h ** -0.5),
+            randn(4 * h, scale=0.1), torch.zeros(V2_BATCH, h, device=dev),
+            torch.zeros(V2_BATCH, h, device=dev))
+    r_h, r_c = randn(V2_BATCH, t, h), randn(V2_BATCH, t, h)
+    tag = f"T{t} B{V2_BATCH} H{h}, ragged rows reversed in their lengths"
+    fwd, bwd, fx, bx = _lstm_rows(
+        tag, dev, args, r_h, r_c, t, SENT_CONFIG["stacked"],
+        lambda name, got, want: check_close(name, got, want, **LSTM_TOL))
+    kernels["stacked_lstm_net"] = {"lstm": {**fwd.result(), **fx},
+                                   "lstm_bwd": {**bwd.result(), **bx}}
+    log(f"the LSTM at the sentiment net's shape ({tag}): forward "
+        f"{klstm.last_launch}")
+    words = paddle.dataset.imdb.word_dict()
+    sent = sentiment_rows(rng, 2 * V2_PARITY_BATCH, len(words))
+    _v2_parity("stacked_lstm_net", dev, paddle, build_sentiment_lstm,
+               adam_sentiment, sent, **SENT_CONFIG)
+    rec, out, params = _v2_steps(
+        "stacked_lstm_net", paddle, build_sentiment_lstm, adam_sentiment,
+        paddle.batch(paddle.dataset.imdb.train(words), V2_BATCH),
+        ("lstm", "lstm_bwd", "matmul", "softmax"), smi, **SENT_CONFIG)
+    records["v2_sentiment_train"] = rec
+    docs = [(r[0],) for _, r in zip(range(V2_INFER_ROWS),
+                                    paddle.dataset.imdb.test(words)())]
+    _v2_infer("stacked_lstm_net", paddle, out, params, docs,
+              build_sentiment_lstm, **SENT_CONFIG)
+    del out, params
+    torch.cuda.empty_cache()
+
+    _nested_on_card(dev)
+    return records, kernels
+
+
+def v2_phase_child():
+    """Phase 15t alone (this script with V2_PHASE); its records and
+    kernel rows as the last line."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    records, kernels = timed(phase_v2, torch.device("cuda", 0), smi)
+    print(json.dumps({"records": records, "kernels": kernels},
+                     default=float), flush=True)
+
+
+def phase_v2_in_child():
+    """15t in a fresh process (``profile_in_child``): late in a long
+    process the profiler leaves out ctypes launches, so the conv rows'
+    device windows and the profiled steps read nothing there.  Returns
+    (records by path, kernel rows by model)."""
+    out = profile_in_child(V2_PHASE, "paddle.v2 phase")
+    return out["records"], out["kernels"]
+
+
 def graph_pools():
     """(pools, bytes): the CUDA graphs' private memory pools the caching
     allocator still holds, after freeing what nothing references (a dead
@@ -9957,6 +10428,9 @@ def main():
         return
     if sys.argv[1:] == [PROFILE_GRAPHS]:
         profile_graph_steps()
+        return
+    if sys.argv[1:] == [V2_PHASE]:
+        v2_phase_child()
         return
     t_start = time.perf_counter()
 
@@ -10138,6 +10612,8 @@ def main():
     cli = timed(phase_cli, dev, smi, model_dir, rng)
     aot_tune = timed(phase_aot_tune, dev, smi, model_dir, rng, nvcc_s)
     export_dir.cleanup()
+    v2_records, v2_kernels = timed(phase_v2_in_child)
+    image_kernels.update(v2_kernels)
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
     log(f"the demos' launches in all: "
@@ -10199,7 +10675,8 @@ def main():
                "srl_train_step": srl["launches"],
                "text_conv_train_step": text["launches"],
                "cli": cli["launches"],
-               "aot_tune": aot_tune["launches"]}
+               "aot_tune": aot_tune["launches"],
+               **{p: r["launches"] for p, r in v2_records.items()}}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -10278,7 +10755,8 @@ def main():
              **({"mma_sync_ms": k["mma_sync_ms"]}
                 if "mma_sync_ms" in k else {}),
              # the image cells' launches of this kernel at run.py's batch
-             # (phase 2), by model
+             # (phase 2) and the v2 book models' at theirs (phase 15t), by
+             # model
              **({"by_model": {m: r[name] for m, r in image_kernels.items()
                               if name in r}}
                 if any(name in r for r in image_kernels.values()) else {}))
@@ -10360,6 +10838,10 @@ def main():
         f"{text['ms_per_step']:.3f} ms a step, {text['samples_per_s']:.1f} "
         f"samples/s, peak {text['peak_bytes'] / 2**30:.3f} GiB, idle share "
         f"{text['idle_share']:.3f}"
+        + "; the v2 book models: " + "; ".join(
+            f"{p} {r['ms_per_step']:.3f} ms a step, {r['samples_per_s']:.1f}"
+            f" samples/s, peak {r['peak_bytes'] / 2**30:.3f} GiB, idle share "
+            f"{r['idle_share']:.3f}" for p, r in v2_records.items())
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -1,11 +1,11 @@
-"""The v1 config DSL (``paddle_tpu/trainer_config_helpers/``), the part
-the seq2seq cell of ``benchmark/run.py`` reaches.  A v1 config calls
-``settings(...)``, builds a layer graph with ``*_layer`` constructors
-and declares ``outputs(...)``; ``paddle_tpu_torch.trainer.config_parser.
+"""The v1 config DSL (``paddle_tpu/trainer_config_helpers/``).  A v1
+config calls ``settings(...)``, builds a layer graph with ``*_layer``
+constructors and declares ``outputs(...)``; ``paddle_tpu_torch.trainer.config_parser.
 parse_config`` runs it and returns what it declared.  The constructors
 build the lazy ``LayerOutput`` DAG of ``paddle_tpu_torch.v2.layer``, so
 a parsed config trains on the port's Program path; the evaluators
-(``evaluators.py``) attach metric and printer layers beside it."""
+(``evaluators.py``) attach metric and printer layers beside it, and
+``layer_math`` adds the ``+``, ``-`` and ``*`` overloads on layers."""
 
 from paddle_tpu_torch.trainer_config_helpers.activations import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.attrs import *  # noqa: F401,F403
@@ -16,3 +16,6 @@ from paddle_tpu_torch.trainer_config_helpers.networks import *  # noqa: F401,F40
 from paddle_tpu_torch.trainer_config_helpers.optimizers import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.data_sources import *  # noqa: F401,F403
 from paddle_tpu_torch.trainer_config_helpers.evaluators import *  # noqa: F401,F403
+
+# the operator overloads on LayerOutput and the layer_math namespace
+from paddle_tpu_torch.trainer_config_helpers import layer_math  # noqa: E402,F401

@@ -1,15 +1,12 @@
-"""v1 layer constructors (``paddle_tpu/trainer_config_helpers/layers.py``),
-the part the seq2seq cell of ``benchmark/run.py`` and the reference's
-v1 demos reach: the config capture, the data, fc, embedding, image conv
-and pool, grumemory, pooling, expand, addto and scaling layers,
-``mixed_layer`` with the full-matrix, identity and context projections,
-the classification, regression and CRF costs, and ``recurrent_group``
-with ``memory`` and ``StaticInput``.  Each returns the same lazy
+"""v1 layer constructors (``paddle_tpu/trainer_config_helpers/layers.py``):
+the config capture, the data, dense, image, recurrent, sequence,
+combination and math layers, ``mixed_layer`` with its projections, the
+cost layers, and ``recurrent_group`` with ``memory`` and ``StaticInput``
+(over a nested sequence too).  Each returns the same lazy
 ``LayerOutput`` the v2 layers do (``paddle_tpu_torch/v2/layer.py``);
 ``outputs()`` marks the roots, and a module-level capture (driven by
 ``trainer.config_parser``) records a LayerConfig-shaped dict a call.
-Nested sequences (``SubsequenceInput``), the other projections and cost
-layers and ``beam_search`` wait for later slices."""
+``beam_search`` (generation) waits for ROADMAP Queue 1 item 4."""
 
 from __future__ import annotations
 
@@ -23,16 +20,25 @@ from paddle_tpu_torch.trainer_config_helpers.poolings import (
     BasePoolingType, MaxPooling)
 from paddle_tpu_torch.v2 import data_type as _dt
 from paddle_tpu_torch.v2 import layer as _v2
-from paddle_tpu_torch.v2.layer import LayerOutput, SeqVal
+from paddle_tpu_torch.v2.layer import LayerOutput, SeqVal, SubSeqVal
 
 __all__ = [
     "LayerOutput", "data_layer", "fc_layer", "embedding_layer",
-    "img_conv_layer", "img_pool_layer", "grumemory", "pooling_layer",
-    "expand_layer", "addto_layer", "scaling_layer", "mixed_layer",
-    "full_matrix_projection", "identity_projection", "context_projection",
+    "img_conv_layer", "img_pool_layer", "batch_norm_layer",
+    "dropout_layer", "lstmemory", "grumemory", "recurrent_layer",
+    "pooling_layer", "last_seq", "first_seq", "concat_layer",
+    "addto_layer", "mixed_layer", "full_matrix_projection",
+    "identity_projection", "table_projection", "dotmul_projection",
+    "trans_full_matrix_projection", "context_projection",
     "classification_cost", "cross_entropy", "cross_entropy_cost",
-    "regression_cost", "mse_cost", "crf_layer", "recurrent_group",
-    "memory", "StaticInput", "outputs",
+    "regression_cost", "mse_cost", "multi_binary_label_cross_entropy",
+    "huber_regression_cost", "hinge_cost", "sum_cost", "cos_sim",
+    "crf_layer", "crf_decoding_layer", "nce_layer", "maxid_layer",
+    "warp_ctc_layer", "ctc_layer", "hsigmoid_layer", "factorization_machine",
+    "recurrent_group", "memory", "StaticInput", "get_output_layer",
+    "expand_layer", "repeat_layer", "power_layer", "scaling_layer",
+    "slope_intercept_layer", "interpolation_layer", "trans_layer",
+    "pad_layer", "outputs",
 ]
 
 # ---------------------------------------------------------------------------
@@ -95,8 +101,9 @@ def data_layer(name: str, size: int, height: Optional[int] = None,
                width: Optional[int] = None, depth: Optional[int] = None,
                **kwargs) -> LayerOutput:
     """A v1 data layer declares only its size; its type (dense, integer,
-    sequence) is ``lo.input_type``, read when the Topology builds, so the
-    caller (or a data provider) may retype it after the config ran."""
+    sequence, nested sequence) is ``lo.input_type``, read when the
+    Topology builds, so the caller (or a data provider) may retype it
+    after the config ran."""
     lo_box = []
     decl_order = _v2._DATA_DECL_COUNTER[0]
     _v2._DATA_DECL_COUNTER[0] += 1
@@ -106,10 +113,23 @@ def data_layer(name: str, size: int, height: Optional[int] = None,
 
         type = lo_box[0].input_type
         ctx.setdefault("@feeds", []).append((name, type, decl_order))
-        if type.seq_type == 2:
-            raise NotImplementedError(
-                f"paddle_tpu_torch: nested sequence input {name!r} comes "
-                "with the v2 slice")
+        if getattr(type, "seq_type", 0) == 2:
+            # (B, S, T[, dim]), the subsequences of a row @len and the
+            # steps of a subsequence @sublen
+            if type.dtype == "int64":
+                var = L.data(name=name, shape=[-1, -1], dtype="int64",
+                             append_batch_size=False)
+                var.shape = (-1, -1, -1)
+            else:
+                var = L.data(name=name, shape=[-1, -1, type.dim],
+                             dtype=type.dtype, append_batch_size=False)
+                var.shape = (-1, -1, -1, type.dim)
+            lens = L.data(name=name + "@len", shape=[-1], dtype="int32",
+                          append_batch_size=False)
+            subl = L.data(name=name + "@sublen", shape=[-1, -1],
+                          dtype="int32", append_batch_size=False)
+            subl.shape = (-1, -1)
+            return SubSeqVal(var, lens, subl)
         if type.is_seq:
             # (B, T[, dim]) and its @len lengths
             if type.dtype == "int64":
@@ -190,6 +210,17 @@ def _out_hw(h, w, k, s, p, ceil_mode=False):
     return (oh, ow) if oh > 0 and ow > 0 else (0, 0)
 
 
+def _deconv_out_hw(h, w, k, s, p):
+    """A transposed conv's output extent, (h - 1) s + k - 2 p; (0, 0)
+    where the geometry is unknown."""
+    if not h or not w:
+        return 0, 0
+    (kh, kw), (sh, sw), (ph, pw) = _pair_hw(k), _pair_hw(s), _pair_hw(p)
+    oh = (h - 1) * sh + kh - 2 * ph
+    ow = (w - 1) * sw + kw - 2 * pw
+    return (oh, ow) if oh > 0 and ow > 0 else (0, 0)
+
+
 def _parent_geom(parent, num_channels):
     """(c, h, w) of a layer read as an image: its declared geometry, else
     the square that its size over c makes."""
@@ -206,30 +237,38 @@ def img_conv_layer(input, filter_size, num_filters, num_channels=None,
                    stride=1, padding=0, act=None, param_attr=None,
                    bias_attr=None, groups=1, trans=False, name=None,
                    **kwargs):
-    """A conv2d over the parent read as an image.  The transposed conv
-    (``trans=True``) comes with ``conv2d_transpose``."""
-    if trans:
-        raise NotImplementedError(
-            "paddle_tpu_torch: img_conv_layer(trans=True) comes with "
-            "conv2d_transpose")
+    """A conv2d over the parent read as an image; with ``trans=True`` a
+    ``conv2d_transpose`` (ungrouped only, as in the JAX package)."""
 
     def build(ctx, x):
         from paddle_tpu_torch import layers as L
 
-        return L.conv2d(input=_to_image(x, input, num_channels),
-                        num_filters=num_filters, filter_size=filter_size,
-                        stride=stride, padding=padding, groups=groups,
+        x = _to_image(x, input, num_channels)
+        if trans:
+            if groups != 1:
+                raise NotImplementedError(
+                    "img_conv_layer(trans=True) does not support "
+                    "groups != 1 (conv2d_transpose has no grouped path)")
+            return L.conv2d_transpose(
+                input=x, num_filters=num_filters, filter_size=filter_size,
+                stride=stride, padding=padding,
+                act=(act.name if act else None),
+                param_attr=param_attr, bias_attr=bias_attr)
+        return L.conv2d(input=x, num_filters=num_filters,
+                        filter_size=filter_size, stride=stride,
+                        padding=padding, groups=groups,
                         act=(act.name if act else None),
                         param_attr=param_attr, bias_attr=bias_attr)
 
     _, h, w = _parent_geom(input, num_channels)
-    oh, ow = _out_hw(h, w, filter_size, stride, padding)
+    oh, ow = (_deconv_out_hw if trans else _out_hw)(
+        h, w, filter_size, stride, padding)
     lo = LayerOutput(name or _v2._uname("conv"), [input], build,
                      size=(num_filters * oh * ow) or num_filters)
     lo.num_channels = num_filters
     lo.img_shape = (None, oh, ow) if oh else None
-    return _record(lo, "exconv", num_filters=num_filters,
-                   filter_size=filter_size)
+    return _record(lo, "exconvt" if trans else "exconv",
+                   num_filters=num_filters, filter_size=filter_size)
 
 
 def img_pool_layer(input, pool_size, stride=1, padding=0, pool_type=None,
@@ -259,9 +298,33 @@ def img_pool_layer(input, pool_size, stride=1, padding=0, pool_type=None,
     return _record(lo, "pool", pool_type=ptype)
 
 
+def batch_norm_layer(input, act=None, name=None, num_channels=None,
+                     use_global_stats=None, **kwargs):
+    """Batch norm, relu unless ``act`` (the v1 default)."""
+    from paddle_tpu_torch.trainer_config_helpers.activations import \
+        ReluActivation
+
+    act = act or ReluActivation()
+    lo = _v2.batch_norm(input=input, act=act, name=name)
+    lo.num_channels = getattr(input, "num_channels", num_channels)
+    return _record(lo, "batch_norm", active_type=act.name)
+
+
+def dropout_layer(input, dropout_rate: float, name=None, **kwargs):
+    return _record(_v2.dropout(input=input, dropout_rate=dropout_rate,
+                               name=name), "dropout")
+
+
 # ---------------------------------------------------------------------------
 # recurrent and sequence layers
 # ---------------------------------------------------------------------------
+
+
+def lstmemory(input, size=None, reverse=False, act=None, name=None,
+              **kwargs):
+    return _record(_v2.lstmemory(input=input, size=size, reverse=reverse,
+                                 act=act, name=name), "lstmemory",
+                   active_type=(act.name if act else "tanh"))
 
 
 def grumemory(input, size=None, reverse=False, act=None, name=None,
@@ -274,47 +337,111 @@ def grumemory(input, size=None, reverse=False, act=None, name=None,
                    active_type=(act.name if act else "tanh"))
 
 
+def recurrent_layer(input, size=None, act=None, reverse=False, name=None,
+                    **kwargs):
+    h = size if size is not None else input.size
+    return _record(_v2.simple_rnn(input=input, size=h, act=act,
+                                  reverse=reverse, name=name), "recurrent",
+                   active_type=(act.name if act else "tanh"))
+
+
 def pooling_layer(input, pooling_type: Optional[BasePoolingType] = None,
                   agg_level=None, stride: int = -1, name=None, **kwargs):
-    """Masked pooling of a padded sequence over time.  Window pooling
-    (``stride``), MaxPooling(output_max_index=True) and nested input wait
-    for the v2 slice."""
+    """Masked pooling of a padded sequence.
+
+    - a plain sequence: over time; with ``stride`` > 0 over each window
+      of ``stride`` steps (the output a sequence);
+      ``MaxPooling(output_max_index=True)`` gives each feature's argmax
+      step.
+    - a nested sequence: ``agg_level`` TO_SEQUENCE pools each
+      subsequence (the output a plain sequence), TO_NO_SEQUENCE every
+      inner step of a row into one vector; stride and max-index pooling
+      act on the flattened sequence.
+    """
     pt = pooling_type or MaxPooling()
     ptype = pt.name
-    if (stride and stride > 0) or getattr(pt, "output_max_index", False) \
-            or agg_level == "seq":
-        raise NotImplementedError(
-            "paddle_tpu_torch: window, max-index and nested pooling come "
-            "with the v2 slice")
+    max_index = bool(getattr(pt, "output_max_index", False))
+    to_seq = agg_level == "seq"
 
     def build(ctx, v):
+        if isinstance(v, SubSeqVal):
+            if not (max_index or (stride and stride > 0)):
+                shape = ((-1, -1, input.size or 0) if to_seq
+                         else (-1, input.size or 0))
+                out = _op("padded_subseq_pool",
+                          {"X": [v.var], "Length": [v.lengths],
+                           "SubLength": [v.sub_lengths]},
+                          {"pooltype": ptype.upper(),
+                           "agg": "seq" if to_seq else "none"},
+                          shape=shape)
+                return SeqVal(out, v.lengths) if to_seq else out
+            v = _v2._flatten_subseq(v)
+            if v.var.shape is None:
+                v.var.shape = (-1, -1, input.size or 0)
         assert isinstance(v, SeqVal), "pooling expects a sequence input"
+        if max_index:
+            return _op("padded_sequence_max_index",
+                       {"X": [v.var], "Length": [v.lengths]},
+                       shape=(-1, input.size or 0))
+        if stride and stride > 0:
+            from paddle_tpu_torch.layer_helper import LayerHelper
+
+            helper = LayerHelper("v1_stride_pool")
+            out = helper.create_tmp_variable(
+                "float32", (-1, -1, input.size or 0))
+            lens = helper.create_tmp_variable("int32", (-1,))
+            helper.append_op(
+                type="padded_sequence_stride_pool",
+                inputs={"X": [v.var], "Length": [v.lengths]},
+                outputs={"Out": [out], "OutLength": [lens]},
+                attrs={"pooltype": ptype.upper(), "stride": int(stride)})
+            return SeqVal(out, lens)
         return _op("padded_sequence_pool",
                    {"X": [v.var], "Length": [v.lengths]},
                    {"pooltype": ptype.upper()},
                    shape=(-1, input.size or 0))
 
+    is_seq_out = to_seq or (stride and stride > 0 and not max_index)
     lo = LayerOutput(name or _v2._uname("seqpool"), [input], build,
-                     size=input.size, is_seq=False)
+                     size=input.size, is_seq=bool(is_seq_out))
     # the proto type is the pooling strategy (sum is "average" in sum mode)
     return _record(lo, "max" if ptype == "max" else "average")
 
 
+def last_seq(input, name=None, **kwargs):
+    return _record(_v2.last_seq(input=input, name=name), "seqlastins")
+
+
+def first_seq(input, name=None, **kwargs):
+    return _record(_v2.first_seq(input=input, name=name), "seqfirstins")
+
+
 def expand_layer(input, expand_as, expand_level="non-seq", name=None,
                  **kwargs):
-    """Per-sequence data broadcast to every step of the plain sequence
-    ``expand_as`` (a sequence input must have length-1 sequences:
-    ``expand_as_steps`` poisons the output with NaN otherwise)."""
+    """Per-sequence data broadcast over the steps of ``expand_as``.
+
+    - ``expand_as`` a plain sequence: a dense input (one row a sequence)
+      broadcast over its steps (a sequence input must have length-1
+      sequences: ``expand_as_steps`` poisons the output with NaN
+      otherwise).
+    - ``expand_as`` nested: FROM_SEQUENCE broadcasts the input's step
+      ``s`` over subsequence ``s``; FROM_NO_SEQUENCE a row over every
+      inner step.  The output has ``expand_as``'s nesting.
+    """
 
     def build(ctx, x, seq):
         if expand_level == "seq" and not isinstance(x, SeqVal):
             raise ValueError(
                 "expand_layer(expand_level=FROM_SEQUENCE) requires a "
                 "sequence input")
-        if not isinstance(seq, SeqVal):
-            raise NotImplementedError(
-                "paddle_tpu_torch: expand_layer into a nested sequence "
-                "comes with the v2 slice")
+        if isinstance(seq, SubSeqVal):
+            xv = x.var if isinstance(x, SeqVal) else x
+            level = "seq" if expand_level == "seq" else "non-seq"
+            out = _op("expand_to_subseq", {"X": [xv], "Y": [seq.var]},
+                      {"level": level},
+                      shape=(-1, -1, -1, input.size or 0))
+            return SubSeqVal(out, seq.lengths, seq.sub_lengths)
+        assert isinstance(seq, SeqVal)
         ins = {"X": [x.var if isinstance(x, SeqVal) else x],
                "Y": [seq.var]}
         if isinstance(x, SeqVal):
@@ -325,6 +452,59 @@ def expand_layer(input, expand_as, expand_level="non-seq", name=None,
     lo = LayerOutput(name or _v2._uname("expand"), [input, expand_as], build,
                      size=input.size, is_seq=True)
     return _record(lo, "expand")
+
+
+def repeat_layer(input, num_repeats: int, act=None, name=None, **kwargs):
+    """The input tiled ``num_repeats`` times along its features."""
+    def build(ctx, x):
+        out = _op("expand", {"X": [x]},
+                  attrs={"expand_times": [1, num_repeats]})
+        if act and act.name and act.name != "linear":
+            from paddle_tpu_torch import layers as L
+
+            out = getattr(L, act.name)(out)
+        return out
+
+    lo = LayerOutput(name or _v2._uname("repeat"), [input], build,
+                     size=(input.size or 0) * num_repeats)
+    return _record(lo, "featmap_expand",
+                   active_type=(act.name if act else ""))
+
+
+# ---------------------------------------------------------------------------
+# combination layers
+# ---------------------------------------------------------------------------
+
+
+def concat_layer(input: list, name=None, **kwargs):
+    """The inputs concatenated; a projection among them is evaluated in a
+    one-projection mixed layer and recorded as the reference's
+    ``concat2``, over the projections' sources."""
+    had_proj = any(not isinstance(i, LayerOutput) for i in input)
+    helper_entries = []
+    proj_sources = []
+
+    def as_layer(i):
+        if isinstance(i, LayerOutput):
+            proj_sources.append(i.name)
+            return i
+        with mixed_layer() as m:
+            m += i
+        if getattr(m._lo, "_cfg_entry", None) is not None:
+            helper_entries.append(m._lo._cfg_entry)
+        proj_sources.append(getattr(getattr(i, "input", None), "name",
+                                    m._lo.name))
+        return m._lo
+
+    lo = _v2.concat(input=[as_layer(i) for i in input], name=name)
+    if not had_proj:
+        return _record(lo, "concat")
+    # the helper mixed layers leave the capture (by entry identity)
+    if _g_capture is not None:
+        drop = {id(e) for e in helper_entries}
+        _g_capture["layers"] = [
+            e for e in _g_capture.get("layers", []) if id(e) not in drop]
+    return _record(lo, "concat2", inputs=proj_sources)
 
 
 def addto_layer(input, act=None, bias_attr=None, name=None, **kwargs):
@@ -396,15 +576,51 @@ def full_matrix_projection(input, size: int = 0, param_attr=None, **kwargs):
     return _Projection(input, build, out_size=size or None)
 
 
+def trans_full_matrix_projection(input, size: int = 0, param_attr=None,
+                                 **kwargs):
+    """A full-matrix projection (the weight's layout is the port's
+    own)."""
+    return full_matrix_projection(input, size, param_attr)
+
+
 def identity_projection(input, offset: Optional[int] = None, **kwargs):
-    """The input as it is; a slice of it (``offset``) comes with the
-    ``slice_tensor`` op."""
-    if offset:
-        raise NotImplementedError(
-            "paddle_tpu_torch: identity_projection(offset=...) comes with "
-            "the slice_tensor op")
-    return _Projection(input, lambda ctx, x, mixed_size: x,
-                       out_size=input.size)
+    """The input as it is; with ``offset``, its features ``offset`` to
+    ``offset`` + the mixed layer's size (the ``slice_tensor`` op)."""
+    def build(ctx, x, mixed_size):
+        if offset:
+            return _op("slice_tensor", {"X": [x]},
+                       attrs={"axes": [1], "starts": [offset],
+                              "ends": [offset + mixed_size]})
+        return x
+
+    return _Projection(input, build, out_size=input.size)
+
+
+def table_projection(input, size: int = 0, param_attr=None, **kwargs):
+    """A table lookup of integer ids (an embedding)."""
+    def build(ctx, ids, mixed_size):
+        from paddle_tpu_torch import layers as L
+
+        idv = ids.var if isinstance(ids, SeqVal) else ids
+        out = L.embedding(input=idv, size=[input.size, mixed_size],
+                          param_attr=param_attr)
+        return SeqVal(out, ids.lengths) if isinstance(ids, SeqVal) else out
+
+    return _Projection(input, build, out_size=size or None)
+
+
+def dotmul_projection(input, param_attr=None, **kwargs):
+    """x * w, w a learned vector of the mixed layer's size."""
+    def build(ctx, x, mixed_size):
+        from paddle_tpu_torch import layers as L
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("dotmul_proj", param_attr=param_attr)
+        w = helper.create_parameter(param_attr, shape=[mixed_size],
+                                    dtype="float32")
+        return L.elementwise_mul(x, w)
+
+    return _Projection(input, build, out_size=input.size)
 
 
 def context_projection(input, context_len: int, context_start=None,
@@ -523,6 +739,130 @@ class mixed_layer:
 
 
 # ---------------------------------------------------------------------------
+# elementwise and math layers
+# ---------------------------------------------------------------------------
+
+
+def _unary(name_prefix, op_build, parent, size=None, rec=None):
+    lo = LayerOutput(_v2._uname(name_prefix), [parent], op_build,
+                     size=size if size is not None else parent.size,
+                     is_seq=getattr(parent, "is_seq", False))
+    return _record(lo, rec or name_prefix)
+
+
+def power_layer(input, power: float = None, weight=None, name=None,
+                **kwargs):
+    """x ** power; with ``weight`` (B, 1), row b raised to w[b]."""
+    if weight is not None:
+        def buildw(ctx, w, x):
+            wv = w.var if isinstance(w, SeqVal) else w
+            xv = x.var if isinstance(x, SeqVal) else x
+            out = _op("elementwise_pow", {"X": [xv], "Y": [wv]},
+                      {"axis": 0})
+            return SeqVal(out, x.lengths) if isinstance(x, SeqVal) else out
+
+        lo = LayerOutput(name or _v2._uname("power"), [weight, input],
+                         buildw, size=input.size,
+                         is_seq=getattr(input, "is_seq", False))
+        return _record(lo, "power")
+
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        v = x.var if isinstance(x, SeqVal) else x
+        out = L.pow(v, factor=power)
+        return SeqVal(out, x.lengths) if isinstance(x, SeqVal) else out
+
+    return _unary("power", build, input)
+
+
+def slope_intercept_layer(input, slope: float = 1.0, intercept: float = 0.0,
+                          name=None, **kwargs):
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        return L.scale(x, scale=slope, bias=intercept)
+
+    return _unary("slope_intercept", build, input)
+
+
+def interpolation_layer(input, weight, name=None, **kwargs):
+    """w * x1 + (1 - w) * x2, w a (B, 1) weight a row."""
+    x1, x2 = input
+
+    def build(ctx, w, a, b):
+        from paddle_tpu_torch import layers as L
+
+        wv = w.var if isinstance(w, SeqVal) else w
+        av = a.var if isinstance(a, SeqVal) else a
+        bv = b.var if isinstance(b, SeqVal) else b
+        out = L.elementwise_add(
+            L.elementwise_mul(av, wv, axis=0),
+            L.elementwise_mul(bv, L.scale(wv, scale=-1.0, bias=1.0),
+                              axis=0))
+        return SeqVal(out, a.lengths) if isinstance(a, SeqVal) else out
+
+    lo = LayerOutput(name or _v2._uname("interp"), [weight, x1, x2], build,
+                     size=x1.size)
+    return _record(lo, "interpolation")
+
+
+def trans_layer(input, name=None, **kwargs):
+    """The (B, D) input transposed to (D, B)."""
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        out = L.transpose(x, perm=[1, 0])
+        if getattr(x, "shape", None) is not None:
+            out.shape = (x.shape[1], x.shape[0])
+        return out
+
+    return _unary("trans", build, input)
+
+
+def pad_layer(input, pad_c=None, pad_h=None, pad_w=None, name=None,
+              **kwargs):
+    """Zero padding of an NCHW image, each of ``pad_c``, ``pad_h`` and
+    ``pad_w`` a [before, after] pair; the output's geometry and size are
+    the padded ones."""
+    def build(ctx, x):
+        paddings = []
+        for dim_pad in ([0, 0], pad_c or [0, 0], pad_h or [0, 0],
+                        pad_w or [0, 0]):
+            paddings.extend(dim_pad)
+        return _op("pad", {"X": [x]}, attrs={"paddings": paddings})
+
+    lo = _unary("pad", build, input)
+    c = getattr(input, "num_channels", None)
+    geom = getattr(input, "img_shape", None)
+    if c and geom and geom[1]:
+        pc, ph, pw = (sum(pad_c or [0]), sum(pad_h or [0]),
+                      sum(pad_w or [0]))
+        oc, oh, ow = c + pc, geom[1] + ph, geom[2] + pw
+        lo.num_channels = oc
+        lo.img_shape = (None, oh, ow)
+        lo.size = oc * oh * ow
+        lo._cfg_entry["size"] = lo.size
+    return lo
+
+
+def cos_sim(a, b, scale: float = 1.0, size: int = 1, name=None, **kwargs):
+    def build(ctx, x, y):
+        from paddle_tpu_torch import layers as L
+
+        xv = x.var if isinstance(x, SeqVal) else x
+        yv = y.var if isinstance(y, SeqVal) else y
+        return L.scale(_op("cos_sim", {"X": [xv], "Y": [yv]}), scale=scale)
+
+    lo = LayerOutput(name or _v2._uname("cos_sim"), [a, b], build, size=size)
+    return _record(lo, "cos_vm" if (size or 1) > 1 else "cos")
+
+
+def maxid_layer(input, name=None, **kwargs):
+    return _record(_v2.max_id(input=input, name=name), "maxid")
+
+
+# ---------------------------------------------------------------------------
 # cost layers
 # ---------------------------------------------------------------------------
 
@@ -603,6 +943,55 @@ def regression_cost(input, label, weight=None, name=None, **kwargs):
 mse_cost = regression_cost
 
 
+def multi_binary_label_cross_entropy(input, label, name=None, **kwargs):
+    def build(ctx, pred, lab):
+        from paddle_tpu_torch import layers as L
+
+        return L.mean(_op("sigmoid_cross_entropy_with_logits",
+                          {"X": [pred], "Label": [lab]}))
+
+    lo = LayerOutput(name or _v2._uname("mbce"), [input, label], build,
+                     size=1)
+    return _record(lo, "multi_binary_label_cross_entropy")
+
+
+def huber_regression_cost(input, label, delta: float = 1.0, name=None,
+                          **kwargs):
+    def build(ctx, pred, lab):
+        from paddle_tpu_torch import layers as L
+
+        pv = pred.var if isinstance(pred, SeqVal) else pred
+        lv = lab.var if isinstance(lab, SeqVal) else lab
+        return L.mean(_op("huber_loss", {"X": [pv], "Y": [lv]},
+                          attrs={"delta": delta}, out_slot="Out"))
+
+    lo = LayerOutput(name or _v2._uname("huber"), [input, label], build,
+                     size=1)
+    return _record(lo, "huber_regression")
+
+
+def hinge_cost(input, label, name=None, **kwargs):
+    def build(ctx, pred, lab):
+        from paddle_tpu_torch import layers as L
+
+        return L.mean(_op("hinge_loss", {"Logits": [pred], "Labels": [lab]},
+                          out_slot="Loss"))
+
+    lo = LayerOutput(name or _v2._uname("hinge"), [input, label], build,
+                     size=1)
+    return _record(lo, "hinge")
+
+
+def sum_cost(input, name=None, **kwargs):
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        return L.reduce_sum(x.var if isinstance(x, SeqVal) else x)
+
+    lo = LayerOutput(name or _v2._uname("sum_cost"), [input], build, size=1)
+    return _record(lo, "sum_cost")
+
+
 def crf_layer(input, label, size=None, param_attr=None, name=None, **kwargs):
     """The mean over rows of the linear-chain CRF's negative
     log-likelihood (the ``linear_chain_crf`` op), its transition
@@ -628,6 +1017,143 @@ def crf_layer(input, label, size=None, param_attr=None, name=None, **kwargs):
 
     lo = LayerOutput(name or _v2._uname("crf"), [input, label], build, size=1)
     return _record(lo, "crf", size=d)
+
+
+def crf_decoding_layer(input, size=None, label=None, param_attr=None,
+                       name=None, **kwargs):
+    """The Viterbi path of the linear-chain CRF (``crf_decoding``), its
+    transition parameter named through ``param_attr``."""
+    d = size or input.size
+
+    def build(ctx, em, *rest):
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("crf_decoding", param_attr=param_attr)
+        em_var = em.var if isinstance(em, SeqVal) else em
+        tr = helper.create_parameter(param_attr, shape=[d + 2, d],
+                                     dtype="float32")
+        path = helper.create_tmp_variable("int64", None)
+        ins = {"Emission": [em_var], "Transition": [tr]}
+        if isinstance(em, SeqVal):
+            ins["Length"] = [em.lengths]
+        helper.append_op(type="crf_decoding", inputs=ins,
+                         outputs={"ViterbiPath": [path]})
+        return path
+
+    parents = [input] + ([label] if label is not None else [])
+    lo = LayerOutput(name or _v2._uname("crf_dec"), parents, build,
+                     size=input.size)
+    return _record(lo, "crf_decoding")
+
+
+def nce_layer(input, label, num_classes: int = None,
+              num_neg_samples: int = 10, weight=None,
+              param_attr=None, bias_attr=None, name=None, **kwargs):
+    """The mean noise-contrastive estimation cost (the ``nce`` op), the
+    classes ``label``'s size unless given; with ``weight``, each row's
+    cost weighted."""
+    if num_classes is None:
+        num_classes = label.size
+
+    def build(ctx, x, lab, *maybe_w):
+        from paddle_tpu_torch import layers as L
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("nce", param_attr=param_attr,
+                             bias_attr=bias_attr)
+        x = x.var if isinstance(x, SeqVal) else x
+        lab = lab.var if isinstance(lab, SeqVal) else lab
+        w = helper.create_parameter(param_attr,
+                                    shape=[num_classes, input.size],
+                                    dtype="float32")
+        b = helper.create_parameter(bias_attr, shape=[num_classes],
+                                    dtype="float32", is_bias=True)
+        cost = helper.create_tmp_variable("float32", None)
+        helper.append_op(
+            type="nce",
+            inputs={"Input": [x], "Label": [lab], "Weight": [w], "Bias": [b]},
+            outputs={"Cost": [cost]},
+            attrs={"num_total_classes": num_classes,
+                   "num_neg_samples": num_neg_samples})
+        if maybe_w:
+            return _weighted_mean(cost, maybe_w[0])
+        return L.mean(cost)
+
+    parents = [input, label] + ([weight] if weight is not None else [])
+    lo = LayerOutput(name or _v2._uname("nce"), parents, build, size=1)
+    return _record(lo, "nce", active_type="sigmoid")
+
+
+def warp_ctc_layer(input, label, size=None, blank=0, norm_by_times=False,
+                   name=None, **kwargs):
+    """The mean CTC cost of a sequence of per-step class scores (the
+    ``warpctc`` op); the proto size is the classes and the blank."""
+
+    def build(ctx, lg, lab):
+        from paddle_tpu_torch import layers as L
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("warp_ctc")
+        loss = helper.create_tmp_variable("float32", None)
+        ins = {"Logits": [lg.var if isinstance(lg, SeqVal) else lg],
+               "Label": [lab.var if isinstance(lab, SeqVal) else lab]}
+        if isinstance(lg, SeqVal):
+            ins["LogitsLength"] = [lg.lengths]
+        if isinstance(lab, SeqVal):
+            ins["LabelLength"] = [lab.lengths]
+        helper.append_op(type="warpctc", inputs=ins,
+                         outputs={"Loss": [loss]},
+                         attrs={"blank": int(blank),
+                                "norm_by_times": bool(norm_by_times)})
+        return L.mean(loss)
+
+    lo = LayerOutput(name or _v2._uname("warp_ctc"), [input, label], build,
+                     size=1)
+    return _record(lo, kwargs.get("_proto_type", "warp_ctc"),
+                   size=(size or (label.size + 1 if label.size
+                                  else input.size)))
+
+
+def ctc_layer(input, label, size=None, blank=0, norm_by_times=False,
+              name=None, **kwargs):
+    """``warp_ctc_layer`` under the proto type ``ctc``."""
+    return warp_ctc_layer(input, label, size=size, blank=blank,
+                          norm_by_times=norm_by_times, name=name,
+                          _proto_type="ctc", **kwargs)
+
+
+def hsigmoid_layer(input, label, num_classes, param_attr=None,
+                   bias_attr=None, name=None, **kwargs):
+    """The mean hierarchical-sigmoid cost."""
+
+    def build(ctx, x, lab):
+        from paddle_tpu_torch import layers as L
+
+        cost = L.hsigmoid(x.var if isinstance(x, SeqVal) else x,
+                          lab.var if isinstance(lab, SeqVal) else lab,
+                          num_classes, param_attr=param_attr,
+                          bias_attr=bias_attr)
+        return L.mean(cost)
+
+    lo = LayerOutput(name or _v2._uname("hsigmoid"), [input, label], build,
+                     size=1)
+    return _record(lo, "hsigmoid")
+
+
+def factorization_machine(input, factor_size, param_attr=None, name=None,
+                          **kwargs):
+    """The second-order factorization-machine interaction of the input's
+    features."""
+
+    def build(ctx, x):
+        from paddle_tpu_torch import layers as L
+
+        return L.factorization_machine(
+            x.var if isinstance(x, SeqVal) else x, factor_size,
+            param_attr=param_attr)
+
+    lo = LayerOutput(name or _v2._uname("fm"), [input], build, size=1)
+    return _record(lo, "factorization_machine")
 
 
 # ---------------------------------------------------------------------------
@@ -690,10 +1216,9 @@ def recurrent_group(step, input, reverse=False, name=None, **kwargs):
     JAX package's program has it (``paddle_tpu/trainer_config_helpers/
     layers.py:1323-1400``)."""
     inputs = list(input) if isinstance(input, (list, tuple)) else [input]
-    if any(type(i).__name__ == "SubsequenceInput" for i in inputs):
-        raise NotImplementedError(
-            "paddle_tpu_torch: nested recurrent groups come with the v2 "
-            "slice")
+    # SubsequenceInput marks a nested input: the group sees its SubSeqVal
+    inputs = [i.input if type(i).__name__ == "SubsequenceInput" else i
+              for i in inputs]
     seq_ins = [i for i in inputs if not isinstance(i, StaticInput)]
     static_ins = [i for i in inputs if isinstance(i, StaticInput)]
     if not seq_ins:
@@ -797,28 +1322,45 @@ def recurrent_group(step, input, reverse=False, name=None, **kwargs):
         seq_vals, static_vals = vals[:k], vals[k:k2]
         boot_vals = list(vals[k2:])
         lengths = next((v.lengths for v in seq_vals
-                        if isinstance(v, SeqVal)), None)
+                        if isinstance(v, (SeqVal, SubSeqVal))), None)
         # a reversed group walks each sequence backward inside its own
         # window: reverse the padded inputs there, loop forward,
-        # un-reverse the outputs
+        # un-reverse the outputs.  A nested group reverses the order of
+        # the subsequences the same way (each runs forward inside).
         win_rev = (reverse and lengths is not None
                    and all(isinstance(v, SeqVal) for v in seq_vals))
+        win_rev_nested = (reverse and lengths is not None
+                          and all(isinstance(v, SubSeqVal)
+                                  for v in seq_vals))
 
         def _wrev(var):
             return _v2.append_padded_reverse(var, lengths)
 
         if win_rev:
             seq_vals = [SeqVal(_wrev(v.var), v.lengths) for v in seq_vals]
+        elif win_rev_nested:
+            seq_vals = [SubSeqVal(_wrev(v.var), v.lengths,
+                                  _wrev(v.sub_lengths))
+                        for v in seq_vals]
+            win_rev = True
         rnn = L.StaticRNN()
         rnn._reverse = reverse and not win_rev
         with rnn.step():
             sub_ctx = {}
             first_in = None
             for ph, sv in zip(placeholders, seq_vals):
-                stv = rnn.step_input(sv.var if isinstance(sv, SeqVal)
-                                     else sv)
-                first_in = first_in if first_in is not None else stv
-                sub_ctx[id(ph)] = stv
+                if isinstance(sv, SubSeqVal):
+                    # an outer step sees one whole subsequence, a
+                    # (B, T, ...) SeqVal with its steps as lengths
+                    dstep = rnn.step_input(sv.var)
+                    lstep = rnn.step_input(sv.sub_lengths)
+                    first_in = first_in if first_in is not None else dstep
+                    sub_ctx[id(ph)] = SeqVal(dstep, lstep)
+                else:
+                    stv = rnn.step_input(sv.var if isinstance(sv, SeqVal)
+                                         else sv)
+                    first_in = first_in if first_in is not None else stv
+                    sub_ctx[id(ph)] = stv
             for ph, v in zip(static_phs, static_vals):
                 # sequence statics keep their SeqVal: in-step sequence
                 # layers (attention) see the lengths
@@ -852,6 +1394,8 @@ def recurrent_group(step, input, reverse=False, name=None, **kwargs):
                 if lv is None:
                     lv = linked.build(sub_ctx)
                 if isinstance(lv, SeqVal):
+                    # a memory of a sequence-valued step layer (a nested
+                    # group) carries the subsequence's last real step
                     lv = _v2._masked(sub_ctx, lv, "last")
                 rnn.update_memory(mv, lv)
         results = rnn()
@@ -883,3 +1427,9 @@ def recurrent_group(step, input, reverse=False, name=None, **kwargs):
         # the reference's gather_agent (its proto gives agents no inputs)
         group_outs.append(_record(lo, "gather_agent", inputs=[]))
     return group_outs[0] if len(group_outs) == 1 else group_outs
+
+
+def get_output_layer(input, arg_name=None, name=None, **kwargs):
+    """The layer itself: each port layer has one output (a step layer's
+    second output is a LayerOutput of its own)."""
+    return input

@@ -31,6 +31,21 @@ def write_npy_tar(named_arrays, f):
             tar.addfile(info, _io.BytesIO(data))
 
 
+def create(cost_or_topology, place: Optional[Place] = None) -> "Parameters":
+    """``paddle.parameters.create``: Parameters of a cost layer's
+    Topology (built once and kept on the layer, so the trainer reuses
+    it) or of a given Topology, on ``place`` (``CUDAPlace(0)`` unless
+    the caller passes another)."""
+    if isinstance(cost_or_topology, Topology):
+        topo = cost_or_topology
+    else:
+        lo = cost_or_topology
+        if lo._topology is None:
+            lo._topology = Topology(lo)
+        topo = lo._topology
+    return Parameters(topo, place)
+
+
 class Parameters:
     """The topology's startup program run into a Scope of its own on
     ``place`` (``CUDAPlace(0)`` unless the caller passes another)."""

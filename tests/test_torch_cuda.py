@@ -4151,3 +4151,103 @@ def test_build_loads_a_library_from_an_artifact(dev, tmp_path):
     assert got["from"] == {"embedding": str(art / "kernels" /
                                             os.path.basename(src))}
     assert got["results"] == {"kernel_loaded": 1}
+
+
+# the v2 book VGG's convs at its batch 128 where no other path goes: the
+# first conv's 3 channels and groups 4 and 5's 4 x 4 and 2 x 2 images at
+# C 512 (a 3 x 3 window mostly padding, a TMA box larger than the image)
+VGG_SMALL_CONV_SHAPES = [(128, 32, 32, 3, 64, 3), (128, 4, 4, 256, 512, 3),
+                         (128, 4, 4, 512, 512, 3), (128, 2, 2, 512, 512, 3)]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k", VGG_SMALL_CONV_SHAPES)
+def test_vgg_small_image_convs_match_plain(dev, n, h, w, c, o, k):
+    """Forward, backward-input and filter gradient at the VGG's shapes
+    against their plain versions, within the conv tolerances above."""
+    from paddle_tpu_torch.kernels import conv as kconv
+
+    g = torch.Generator().manual_seed(29)
+    x = _randn(g, n, h, w, c, device=dev)
+    wt = _randn(g, k, k, c, o, scale=(2.0 / (k * k * c)) ** 0.5, device=dev)
+    dy = _randn(g, n, h, w, o, device=dev)
+    before = (kconv.launches, kconv.bwd_input_launches, kconv.dw_launches)
+    got = (kconv.conv2d_nhwc(x, wt, k // 2),
+           kconv.conv2d_nhwc_bwd_input(dy, wt, k // 2),
+           kconv.conv2d_nhwc_dw(x, dy, k, k // 2))
+    assert (kconv.launches, kconv.bwd_input_launches,
+            kconv.dw_launches) == tuple(b + 1 for b in before)
+    torch.cuda.synchronize()
+    want = (kconv.conv2d_nhwc_plain(x, wt, k // 2),
+            kconv.conv2d_nhwc_bwd_input_plain(dy, wt, k // 2),
+            kconv.conv2d_nhwc_dw_plain(x, dy, k, k // 2))
+    torch.testing.assert_close(got[0], want[0], **GEMM_TOL)
+    torch.testing.assert_close(got[1], want[1], **GEMM_TOL)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4,
+                               atol=1e-4 * float(want[2].abs().max()))
+
+
+def test_reversed_ragged_lstm_at_h128_matches_plain(dev):
+    """The v2 sentiment net's reversed lstmemory (B 128, H 128, lengths
+    20-99 padded to T 112): the kernels on each row reversed inside its
+    length against the plain versions (forward, and LSTMSeq's backward
+    against autograd of the plain forward, the LSTM tolerances above);
+    then the ``lstm`` op with is_reverse and Length, forward and
+    gradients, on the card against CPUPlace() (1e-4 of max)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import lstm as klstm
+    from paddle_tpu_torch.ops.sequence_ops import _window_reverse
+
+    b, t, h = 128, 112, 128
+    g = torch.Generator().manual_seed(30)
+    lens = torch.from_numpy(np.random.RandomState(30).randint(20, 100, b))
+    xp = _window_reverse(_randn(g, b, t, 4 * h, scale=0.5, device="cpu"),
+                         lens).to(dev)
+    w = _randn(g, h, 4 * h, scale=h ** -0.5, device=dev)
+    bias = _randn(g, 4 * h, scale=0.1, device=dev)
+    h0 = c0 = torch.zeros(b, h, device=dev)
+    got = klstm.lstm_seq(xp, w, bias, h0, c0)
+    torch.cuda.synchronize()
+    for a, ref in zip(got, klstm.lstm_seq_plain(xp, w, bias, h0, c0)):
+        torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-5)
+    r_h, r_c = (_randn(g, b, t, h, device=dev) for _ in range(2))
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in (xp, w, bias, h0, c0)]
+    hs, cs = klstm.LSTMSeq.apply(*leaves)
+    ((hs * r_h).sum() + (cs * r_c).sum()).backward()
+    plain = [a.detach().clone().requires_grad_(True)
+             for a in (xp, w, bias, h0, c0)]
+    phs, pcs, _ = klstm.lstm_seq_plain(*plain)
+    ((phs * r_h).sum() + (pcs * r_c).sum()).backward()
+    for a, ref in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, ref.grad, rtol=0,
+                                   atol=1e-4 * float(ref.grad.abs().max()))
+
+    pt.framework.reset_default_programs()
+    x = pt.layers.data(name="x", shape=[b, t, 4 * h], dtype="float32",
+                       append_batch_size=False)
+    x.stop_gradient = False
+    ln = pt.layers.data(name="len", shape=[b], dtype="int32",
+                        append_batch_size=False)
+    hidden, _ = pt.layers.lstm(input=x, size=h, is_reverse=True,
+                               lengths=ln)
+    loss = pt.layers.mean(pt.layers.square(hidden))
+    grads = pt.backward.append_backward(loss)
+    fetch = [hidden.name, x.name + "@GRAD"] + [gv.name for _, gv in grads]
+    feed = {"x": xp.cpu().numpy(), "len": lens.numpy().astype(np.int32)}
+    cpu, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu.run(pt.default_startup_program(), scope=cpu_scope)
+    card_scope = pt.Scope()
+    card_scope.load_numpy({n: v.numpy() for n, v in
+                           cpu_scope.values.items()}, dev)
+    before = (klstm.launches, klstm.bwd_launches)
+    got = pt.Executor(pt.CUDAPlace(0)).run(
+        pt.default_main_program(), feed=feed, fetch_list=fetch,
+        scope=card_scope)
+    assert (klstm.launches, klstm.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = cpu.run(pt.default_main_program(), feed=feed, fetch_list=fetch,
+                   scope=cpu_scope)
+    for name, gv, wv in zip(fetch, got, want):
+        np.testing.assert_allclose(gv, wv, rtol=0,
+                                   atol=1e-4 * np.abs(wv).max(),
+                                   err_msg=name)
