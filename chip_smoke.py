@@ -885,6 +885,31 @@ CLI_CHILD = (
 # 15s: the AOT and tuner phase's requests (images a POST), the families
 # it tunes and their budget; a serve child that dumps its launch counts,
 # its nvcc builds and where each kernel library came from at exit
+# 15u: ``python -m paddle_tpu_torch.serving`` in a child that writes its
+# launch counters as JSON to $CHIP_SMOKE_COUNTS when it exits
+GEN_CHILD = (
+    "import atexit, json, os, runpy\n"
+    "import chip_smoke\n"
+    "def dump():\n"
+    "    with open(os.environ['CHIP_SMOKE_COUNTS'], 'w') as f:\n"
+    "        json.dump(chip_smoke.counters(), f)\n"
+    "atexit.register(dump)\n"
+    "runpy.run_module('paddle_tpu_torch.serving', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+# the make_generator() script the 15u server runs: the demo's spec at
+# GEN_WIDTHS over the trained tar PADDLE_GEN_PARAMS names
+GEN_SCRIPT = """\
+import os
+
+from paddle_tpu_torch.demos.seq2seq.gen_config import (TarParameters,
+                                                       make_beam_gen)
+
+
+def make_generator():
+    return (make_beam_gen(beam_size={beam}, max_length={n}, vocab={vocab},
+                          emb={emb}, hid={hid}),
+            TarParameters(os.environ["PADDLE_GEN_PARAMS"]))
+"""
 AOT_SIZES = (1, 8, 8)
 AOT_TUNE_KERNELS = ("softmax", "ragged_paged_attention")
 AOT_TUNE_BUDGET = 3
@@ -911,6 +936,34 @@ V2_BATCH = 128
 V2_ITERS = 20
 V2_PARITY_BATCH = 2
 V2_INFER_ROWS = 8
+# 15u: v1 generation at the seq2seq cell's width (benchmark/run.py:163:
+# VOCAB 30000, EMB = HID = 512) on the NMT demo's network
+# (demos/seq2seq/network.py, its parameter names), trained on the card
+# through paddle_tpu_torch.trainer on the demo's shift rule over ids 2-15
+# (sources GEN_TRAIN_LENS long, so that a reply runs past its first few
+# tokens) and served by ``python -m paddle_tpu_torch.serving --gen_config``
+# with GEN_SERVE_FLAGS; the requests' sources are GEN_SRC_LENS long.
+GEN_WIDTHS = dict(vocab=S2S_VOCAB, emb=S2S_EMB, hid=S2S_HID)
+GEN_TRAIN_SAMPLES, GEN_TRAIN_BATCH, GEN_TRAIN_PASSES = 512, 32, 3
+GEN_TRAIN_LR = 2e-3
+GEN_TRAIN_LENS = (24, 32)
+GEN_SRC_LENS = (4, 32)
+GEN_SERVE_FLAGS = ("--gen_pages=128", "--gen_page_size=8",
+                   "--gen_pages_per_seq=4", "--gen_slots=16", "--beam_max=4")
+GEN_GREEDY, GEN_BEAMS, GEN_BEAM, GEN_MAX_NEW = 64, 8, 4, 32
+GEN_CPU_CHECKS = 8
+# a served greedy token is compared with the reference's while the
+# reference's top-2 probability gap at that step exceeds GEN_PROB_TOL (the
+# card against itself, dense against paged batches, and the card against
+# the CPU order near-tied words otherwise); a beam reply's ids may differ
+# only where the reference ranked two of its k + 1 best candidates (log
+# probabilities) within GEN_LOGP_TOL at some step; beam scores within
+# GEN_SCORE_TOL (float32 log probabilities summed over up to 32 steps)
+GEN_PROB_TOL = 1e-4
+GEN_LOGP_TOL = 1e-4
+GEN_SCORE_TOL = 1e-3
+# the paged decode step profiled at GEN_DECODE_SLOTS active slots
+GEN_DECODE_SLOTS = 16
 SSD_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
 SSD_MIN = (30, 60, 111, 162, 213, 264)
 SSD_MAX = (60, 111, 162, 213, 264, 315)
@@ -930,6 +983,8 @@ PROFILE_GRAPHS = "--profile-graph-steps"
 # phase 15t runs in a fresh process: its conv rows' device windows and its
 # profiled steps need a profiler that sees every ctypes launch
 V2_PHASE = "--v2-phase"
+# and so does phase 15u (v1 generation), for its profiled decode window
+GEN_PHASE = "--gen-phase"
 
 # The decoder LM that /generate serves (paddle_tpu/decode/model.py
 # TinyDecoderLM) at the widths of the transformer LM of phases 8-9
@@ -10356,6 +10411,617 @@ def phase_v2_in_child():
     return out["records"], out["kernels"]
 
 
+# ---------------------------------------------------------------------------
+# 15u: v1 generation (beam_search, SequenceGenerator, PagedSeq2SeqModel
+# behind python -m paddle_tpu_torch.serving --gen_config)
+# ---------------------------------------------------------------------------
+
+# the kernels of the seq2seq decode step, by family, as the profiler names
+# them (the matmul below 1024 rows is the SIMT tile)
+GEN_FAMILIES = {
+    "matmul": ("matmul_f32_kernel", "wgmma_tf32_kernel"),
+    "softmax": ("softmax_warp_kernel", "softmax_staged_kernel",
+                "softmax_two_read_kernel"),
+    "embedding": ("gather_rows_kernel",)}
+
+
+def gen_train_config(tch, samples=GEN_TRAIN_SAMPLES, batch=GEN_TRAIN_BATCH,
+                     lr=GEN_TRAIN_LR, widths=GEN_WIDTHS):
+    """The demo's trainer config (demos/seq2seq/trainer_config.py) at
+    ``widths``, as a config function for parse_config: its provider the
+    demo's shift rule over ids 2-15 (demos/seq2seq/dataprovider.py), with
+    sources GEN_TRAIN_LENS long and the input types at the vocabulary."""
+    import functools
+    import types
+
+    from paddle_tpu_torch.demos.seq2seq import network
+    from paddle_tpu_torch.trainer.PyDataProvider2 import (
+        integer_value_sequence, provider)
+
+    v, e, h = widths["vocab"], widths["emb"], widths["hid"]
+    ids = integer_value_sequence(v)
+
+    @provider(input_types={"src": ids, "trg_in": ids, "trg_out": ids})
+    def process(settings, filename):
+        rng = np.random.RandomState(13)
+        for _ in range(int(filename)):
+            src = rng.randint(2, network.VOCAB, int(rng.randint(
+                GEN_TRAIN_LENS[0], GEN_TRAIN_LENS[1] + 1)))
+            trg = np.concatenate([((src - 1) % (network.VOCAB - 2)) + 2,
+                                  [network.EOS]])
+            yield {"src": src.tolist(),
+                   "trg_in": [network.BOS] + trg[:-1].tolist(),
+                   "trg_out": trg.tolist()}
+
+    def config():
+        tch.define_py_data_sources2(
+            train_list=str(samples), test_list=None,
+            module=types.SimpleNamespace(process=process), obj="process")
+        tch.settings(batch_size=batch, learning_rate=lr,
+                     learning_method=tch.AdamOptimizer())
+        src = tch.data_layer(name="src", size=v)
+        enc = network.encoder(src, emb=e, hid=h)
+        trg_in = tch.data_layer(name="trg_in", size=v)
+        trg_out = tch.data_layer(name="trg_out", size=v)
+        trg_emb = tch.embedding_layer(
+            input=trg_in, size=e, param_attr=tch.ParamAttr(name="trg_emb"))
+        probs = tch.recurrent_group(
+            step=functools.partial(network.decoder_step, vocab=v, hid=h),
+            input=[trg_emb, tch.StaticInput(enc, is_seq=True, size=h)])
+        tch.outputs(tch.classification_cost(input=probs, label=trg_out))
+
+    return config
+
+
+def gen_spec(beam=GEN_BEAM, n=GEN_MAX_NEW, widths=GEN_WIDTHS):
+    from paddle_tpu_torch.demos.seq2seq.gen_config import make_beam_gen
+
+    return make_beam_gen(beam_size=beam, max_length=n, **widths)
+
+
+def oracle_greedy(gen, src, n=GEN_MAX_NEW):
+    """``gen.generate_greedy([src])`` and the top-2 probability gap of each
+    of its steps."""
+    gaps, run = [], gen._run
+
+    def spy(feed, fetch):
+        outs = run(feed, fetch)
+        if fetch and fetch[0] is gen._probs_var:
+            top2 = np.sort(np.asarray(outs[0], np.float64).reshape(-1))[-2:]
+            gaps.append(float(top2[1] - top2[0]))
+        return outs
+
+    gen._run = spy
+    try:
+        ids = gen.generate_greedy([src], max_length=n)
+    finally:
+        del gen._run
+    return ids, gaps
+
+
+def oracle_beams(gen, src, k=GEN_BEAM, n=GEN_MAX_NEW):
+    """``gen.generate([src], beam_size=k)`` and the least margin, over its
+    steps, between adjacent ones of the k + 1 best candidates beam_select
+    ranks (the new totals and the finished beams' scores)."""
+    import paddle_tpu_torch.generation as generation
+
+    select, margins = generation.beam_select, []
+
+    def spy(probs, scores, alive, seqs, eos_id, kk):
+        logp = np.log(np.maximum(np.asarray(probs, np.float64), 1e-20))
+        total = np.where(alive[:, None], scores[:, None] + logp, -np.inf)
+        cand = np.concatenate([total.ravel(), scores[~alive]])
+        top = np.sort(cand[np.isfinite(cand)])[::-1][:kk + 1]
+        if len(top) > 1:
+            margins.append(float(np.min(top[:-1] - top[1:])))
+        return select(probs, scores, alive, seqs, eos_id, kk)
+
+    generation.beam_select = spy
+    try:
+        beams = gen.generate([src], beam_size=k, max_length=n)
+    finally:
+        generation.beam_select = select
+    return beams, min(margins, default=math.inf)
+
+
+def greedy_agrees(what, got, ref):
+    """Served ids against a reference run's: equal token for token, or
+    equal up to a step where the reference's top-2 gap is at most
+    GEN_PROB_TOL and they part.  Returns the number of tokens compared."""
+    ids, gaps = ref
+    for i, (a, b) in enumerate(zip(got, ids)):
+        if a != b:
+            if gaps[i] <= GEN_PROB_TOL:
+                return i
+            fail(f"{what}: token {i} is {a}, the reference's {b}, with a "
+                 f"top-2 gap of {gaps[i]:.3e} > {GEN_PROB_TOL}")
+    if len(got) != len(ids):
+        fail(f"{what}: {len(got)} tokens, the reference's {len(ids)}")
+    return len(ids)
+
+
+def beams_agree(what, got, ref):
+    """Served beams against a reference run's: the ids equal and the
+    scores within GEN_SCORE_TOL, or other ids where the reference ranked
+    two candidates within GEN_LOGP_TOL of each other at some step.
+    Returns whether they were equal."""
+    want, margin = ref
+    if [ids for _, ids in got] != [ids for _, ids in want]:
+        if margin <= GEN_LOGP_TOL:
+            return False
+        fail(f"{what}: beams {[ids for _, ids in got]} != the reference's "
+             f"{[ids for _, ids in want]} (least margin {margin:.3e} > "
+             f"{GEN_LOGP_TOL})")
+    err = max(abs(g - w) for (g, _), (w, _) in zip(got, want))
+    if err > GEN_SCORE_TOL:
+        fail(f"{what}: beam scores differ by {err:.3e} > {GEN_SCORE_TOL}")
+    return True
+
+
+def gen_sources(rng, n, lens=GEN_SRC_LENS):
+    return [rng.randint(2, 16, int(rng.randint(lens[0], lens[1] + 1)))
+            .tolist() for _ in range(n)]
+
+
+def _gen_train(tmp, smi):
+    """The spec's network at GEN_WIDTHS trained on the card through
+    paddle_tpu_torch.trainer, saved with ``parameters.to_tar``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.trainer_config_helpers as tch
+    from paddle_tpu_torch.trainer.config_parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import Trainer
+
+    pt.framework.reset_default_programs()
+    t = Trainer(parse_config(gen_train_config(tch)))
+    if t.parameters.place != pt.CUDAPlace(0):
+        fail(f"the trainer runs on {t.parameters.place}")
+    t0 = time.perf_counter()
+    costs = t.train(num_passes=GEN_TRAIN_PASSES, log_period=10 ** 9)
+    secs = time.perf_counter() - t0
+    if not np.isfinite(costs).all() or not costs[-1] < 0.75 * costs[0]:
+        fail(f"15u training: costs {costs[0]:.4f} -> {costs[-1]:.4f}")
+    tar = os.path.join(tmp, "params.tar")
+    with open(tar, "wb") as f:
+        t.parameters.to_tar(f)
+    log(f"15u: the NMT demo's network at VOCAB {GEN_WIDTHS['vocab']}, EMB "
+        f"{GEN_WIDTHS['emb']}, HID {GEN_WIDTHS['hid']} trained on the card "
+        f"(paddle_tpu_torch.trainer, {GEN_TRAIN_PASSES} passes of "
+        f"{GEN_TRAIN_SAMPLES} at batch {GEN_TRAIN_BATCH}, Adam "
+        f"{GEN_TRAIN_LR}): {len(costs)} steps in {secs:.1f} s, cost "
+        f"{costs[0]:.4f} -> {costs[-1]:.4f}; {os.path.getsize(tar) / 2**20:.1f}"
+        f" MiB tar; on {smi}")
+    return tar
+
+
+def _gen_burst(addr, payloads):
+    """The payloads POSTed at once: (results, seconds)."""
+    results = [None] * len(payloads)
+
+    def one(i):
+        results[i] = gen_call(addr, payloads[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def _gen_serve(tmp, tar, smi):
+    """The server child over GEN_SCRIPT; the references computed while it
+    starts; the greedy and beam bursts checked against them.  Returns the
+    record and the child's launch counts."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.demos.seq2seq.gen_config import TarParameters
+    from paddle_tpu_torch.generation import SequenceGenerator
+
+    script = os.path.join(tmp, "gen_config.py")
+    with open(script, "w") as f:
+        f.write(GEN_SCRIPT.format(beam=GEN_BEAM, n=GEN_MAX_NEW, **GEN_WIDTHS))
+    env = dict(os.environ, PADDLE_GEN_PARAMS=tar)
+    rng = np.random.RandomState(30)
+    greedy_srcs = gen_sources(rng, GEN_GREEDY)
+    beam_srcs = gen_sources(rng, GEN_BEAMS)
+    t_boot = time.perf_counter()
+    proc, counts_path = cli_child(
+        [f"--gen_config={script}", "--port=0", *GEN_SERVE_FLAGS], tmp,
+        "gen_serve", popen=True, code=GEN_CHILD, env=env)
+    try:
+        # the references while the server starts: the dense generator on
+        # the card, and on the CPU for the first GEN_CPU_CHECKS greedy and
+        # the first two beam requests
+        pt.framework.reset_default_programs()
+        card = SequenceGenerator(gen_spec(), TarParameters(tar))
+        if card.place != pt.CUDAPlace(0):
+            fail(f"SequenceGenerator took {card.place} by default")
+        t0 = time.perf_counter()
+        dense = [oracle_greedy(card, s) for s in greedy_srcs]
+        dense_beams = [oracle_beams(card, s) for s in beam_srcs]
+        dense_s = time.perf_counter() - t0
+        cpu = SequenceGenerator(gen_spec(),
+                                TarParameters(tar, pt.CPUPlace()),
+                                place=pt.CPUPlace())
+        t0 = time.perf_counter()
+        on_cpu = [oracle_greedy(cpu, s) for s in greedy_srcs[:GEN_CPU_CHECKS]]
+        cpu_beams = [oracle_beams(cpu, s) for s in beam_srcs[:2]]
+        cpu_s = time.perf_counter() - t0
+        line = proc.stdout.readline()
+        if "serving on http://" not in line:
+            fail(f"the generation server printed {line!r}; stderr "
+                 f"{proc.stderr.read()[-3000:] if proc.poll() is not None else ''}")
+        addr = line.strip().split("http://")[-1]
+        up_s = time.perf_counter() - t_boot
+        for payload in ({"src": greedy_srcs[0], "stream": False},
+                        {"src": beam_srcs[0], "beam": GEN_BEAM}):
+            code, body, _, _ = gen_call(addr, dict(
+                payload, max_new_tokens=GEN_MAX_NEW))
+            if code != 200:
+                fail(f"15u warm-up {payload}: {code} {body}")
+        greedy, greedy_s = _gen_burst(addr, [
+            {"src": s, "max_new_tokens": GEN_MAX_NEW} for s in greedy_srcs])
+        beams, beam_s = _gen_burst(addr, [
+            {"src": s, "beam": GEN_BEAM, "max_new_tokens": GEN_MAX_NEW}
+            for s in beam_srcs])
+        health = get_json(f"http://{addr}", "/health")["generation"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed"
+    if rc != 0:
+        fail(f"the generation server: SIGTERM gave exit {rc}; stderr "
+             f"{proc.stderr.read()[-3000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    for k in ("matmul", "softmax", "embedding"):
+        if not counts.get(k):
+            fail(f"the generation server launched no {k} kernel: {counts}")
+    if (health["active"], health["waiting"]) != (0, 0) or (
+            health["pages_free"] != health["pages_total"]):
+        fail(f"pages or slots held after the bursts: {health}")
+    tokens, compared, stopped, lat, ttfts = 0, 0, 0, [], []
+    cpu_compared = 0
+    for i, res in enumerate(greedy):
+        if res is None or res[0] != 200:
+            fail(f"15u greedy request {i}: {res and res[:2]}")
+        _, body, ttft, latency = res
+        final = body[-1]
+        streamed = [x["token"] for x in body[:-1]]
+        if not final.get("done") or streamed != final["ids"]:
+            fail(f"15u request {i}: streamed {streamed} != final "
+                 f"{final.get('ids')}")
+        ids = final["ids"]
+        n = greedy_agrees(f"15u greedy request {i} against the dense card "
+                          "generator", ids, dense[i])
+        compared += n
+        stopped += n < len(ids)
+        if i < GEN_CPU_CHECKS:
+            cpu_compared += greedy_agrees(
+                f"15u greedy request {i} against the CPU", ids, on_cpu[i])
+        tokens += len(ids)
+        lat.append(latency)
+        ttfts.append(ttft)
+    beam_tokens, beams_compared, beams_cpu = 0, 0, 0
+    for i, res in enumerate(beams):
+        if res is None or res[0] != 200:
+            fail(f"15u beam request {i}: {res and res[:2]}")
+        got = [(b["score"], b["ids"]) for b in res[1]["beams"]]
+        if not got or res[1]["ids"] != got[0][1] or [
+                s for s, _ in got] != sorted((s for s, _ in got),
+                                             reverse=True):
+            fail(f"15u beam request {i}: not best-first: {res[1]}")
+        beam_tokens += len(got[0][1])
+        beams_compared += beams_agree(
+            f"15u beam request {i} against the dense card generator", got,
+            dense_beams[i])
+        if i < 2:
+            beams_cpu += beams_agree(f"15u beam request {i} against the CPU",
+                                     got, cpu_beams[i])
+    if 2 * compared < tokens or 2 * beams_compared < GEN_BEAMS:
+        fail(f"15u compared only {compared} greedy tokens and "
+             f"{beams_compared} beam replies: too many near-ties")
+    pct = lambda xs, q: float(np.percentile(xs, q)) * 1e3   # noqa: E731
+    rec = dict(tokens_per_s=tokens / greedy_s, tokens=tokens,
+               burst_s=greedy_s, latency_p50_ms=pct(lat, 50),
+               latency_p99_ms=pct(lat, 99), ttft_p50_ms=pct(ttfts, 50),
+               ttft_p99_ms=pct(ttfts, 99),
+               beam_tokens_per_s=beam_tokens / beam_s, beam_s=beam_s,
+               tokens_compared=compared, cpu_tokens_compared=cpu_compared,
+               beams_compared=beams_compared, up_s=up_s)
+    log(f"15u python -m paddle_tpu_torch.serving --gen_config (VOCAB "
+        f"{GEN_WIDTHS['vocab']}, EMB = HID = {GEN_WIDTHS['hid']}, "
+        f"{' '.join(GEN_SERVE_FLAGS)}) up in {up_s:.1f} s; {GEN_GREEDY} "
+        f"greedy requests at once (sources {GEN_SRC_LENS[0]}-"
+        f"{GEN_SRC_LENS[1]} tokens, max_new_tokens {GEN_MAX_NEW}): {tokens} "
+        f"tokens in {greedy_s:.3f} s = {rec['tokens_per_s']:.1f} tokens/s, "
+        f"latency p50 {rec['latency_p50_ms']:.1f} ms p99 "
+        f"{rec['latency_p99_ms']:.1f} ms, first token p50 "
+        f"{rec['ttft_p50_ms']:.1f} ms p99 {rec['ttft_p99_ms']:.1f} ms; "
+        f"{GEN_BEAMS} beam-{GEN_BEAM} requests at once: {beam_tokens} best-"
+        f"beam tokens in {beam_s:.3f} s; against the dense SequenceGenerator "
+        f"on the card ({dense_s:.1f} s): {compared} of {tokens} greedy tokens "
+        f"compared and equal ({stopped} replies stop at a near-tie, top-2 gap "
+        f"<= {GEN_PROB_TOL}), {beams_compared} of {GEN_BEAMS} beam replies "
+        f"equal (ids; scores within {GEN_SCORE_TOL}; the rest differ where "
+        f"the reference ranked two candidates within {GEN_LOGP_TOL}); "
+        f"against CPUPlace() ({cpu_s:.1f} s): "
+        f"{cpu_compared} tokens of {GEN_CPU_CHECKS} greedy replies and "
+        f"{beams_cpu} of 2 beam replies equal; streamed tokens in order; "
+        f"every page back ({health['pages_free']} of "
+        f"{health['pages_total']} free); the server's launches "
+        f"{ {k: v for k, v in counts.items() if v} }; on {smi}")
+    return rec, counts
+
+
+def _gen_decode_window(tar, smi):
+    """The paged decode step at GEN_DECODE_SLOTS active slots (seeded
+    sources, their encoder states paged by prefill): its launches a step
+    by kernel, each family's device ms, one profiled step's idle share and
+    top kernels."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.decode import PagedSeq2SeqModel
+    from paddle_tpu_torch.demos.seq2seq.gen_config import TarParameters
+
+    pt.framework.reset_default_programs()
+    model = PagedSeq2SeqModel(gen_spec(beam=1), TarParameters(tar),
+                              num_pages=128, page_size=8, pages_per_seq=4)
+    s = GEN_DECODE_SLOTS
+    states = [np.zeros((s,) + shape, dt) for shape, dt in model.state_specs]
+    tables, lens = [], []
+    for i, src in enumerate(gen_sources(np.random.RandomState(31), s)):
+        pages = model.allocator.alloc(model.context_pages([src], 0))
+        ctx_len, rows, _ = model.prefill([src], pages)
+        tables.append(model.pool_table(pages))
+        lens.append(ctx_len)
+        for buf, row in zip(states, rows):
+            buf[i] = row
+    tables, lens = np.stack(tables), np.asarray(lens, np.int64)
+    toks = np.full((s, 1), model.bos_id, np.int64)
+
+    def step():
+        model.decode(toks, states, tables, lens)
+
+    for _ in range(3):                  # plan, capture, replay
+        step()
+    zero_counters()
+    step()
+    per_step = {k: v for k, v in counters().items() if v}
+    for k in GEN_FAMILIES:
+        if not per_step.get(k):
+            fail(f"the seq2seq decode step launched no {k}: {per_step}")
+    fam_ms = {k: 0.0 for k in GEN_FAMILIES}
+    for key, ms in device_ms(step).items():
+        for k, names in GEN_FAMILIES.items():
+            if any(n in key for n in names):
+                fam_ms[k] += ms
+    idle = profile_step(step, f"seq2seq decode step at {s} slots",
+                        split={k: list(v) for k, v in GEN_FAMILIES.items()},
+                        want={"gather_rows_kernel": per_step["embedding"]})
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    log(f"15u seq2seq decode step at {s} slots (VOCAB {GEN_WIDTHS['vocab']},"
+        f" HID {GEN_WIDTHS['hid']}, contexts {int(lens.min())}-"
+        f"{int(lens.max())} rows): launches a step "
+        + ", ".join(f"{k} {per_step[k]} ({fam_ms[k]:.4f} device ms)"
+                    for k in GEN_FAMILIES)
+        + f"; {step_ms:.3f} ms a step median over 20 (host clock, the "
+        f"probabilities on the host); idle share {idle:.3f}; on {smi}")
+    return dict(per_step=per_step, family_device_ms=fam_ms,
+                idle_share=idle, step_ms=step_ms,
+                at_shapes=_gen_step_kernels(model, s))
+
+
+def _gen_step_kernels(model, s):
+    """The decode step's vocab projection (s x HID x VOCAB), its vocab
+    softmax (s x VOCAB) and its word gather (s ids of the VOCAB x EMB
+    table) on the step's own weights: each wrapper against its plain
+    version (GEMM_TOL, SOFTMAX_ATOL, exactly) and one PyTorch call, in
+    device ms (a profiled window of 5 calls), beside its bound."""
+    import torch
+
+    from paddle_tpu_torch.kernels import embedding as kemb
+    from paddle_tpu_torch.kernels import matmul as kmatmul
+    from paddle_tpu_torch.kernels import softmax as ksoftmax
+
+    scope = model._scope
+    w_out, table = scope.get("dec_w_out"), scope.get("trg_emb")
+    h, v = w_out.shape
+    e = table.shape[1]
+    gen = torch.Generator(device=w_out.device).manual_seed(33)
+    x = torch.randn(s, h, generator=gen, device=w_out.device)
+    logits = torch.randn(s, v, generator=gen, device=w_out.device)
+    ids = torch.randint(0, v, (s,), generator=gen, device=w_out.device)
+    rows = {
+        f"matmul {s}x{h}x{v}": (
+            lambda: kmatmul.matmul(x, w_out),
+            lambda: kmatmul.matmul_plain(x, w_out),
+            lambda: torch.matmul(x, w_out), "torch.matmul",
+            bound(2 * s * h * v, 4 * (s * h + h * v + s * v)),
+            lambda got, want: check_close("15u vocab projection", got, want,
+                                          **GEMM_TOL)),
+        f"softmax {s}x{v}": (
+            lambda: ksoftmax.softmax(logits),
+            lambda: ksoftmax.softmax_plain(logits),
+            lambda: torch.softmax(logits, -1), "torch.softmax",
+            bound(5 * s * v, 8 * s * v),
+            lambda got, want: check_close("15u vocab softmax", got, want,
+                                          rtol=0, atol=SOFTMAX_ATOL)),
+        f"gather {s} of {v}x{e}": (
+            lambda: kemb.gather_rows(table, ids),
+            lambda: kemb.gather_rows_plain(table, ids),
+            lambda: torch.index_select(table, 0, ids), "index_select",
+            bound(0, 8 * s + 8 * s * e),
+            lambda got, want: torch.equal(got, want) or fail(
+                "15u word gather differs from its plain version"))}
+    out = {}
+    for what, (kernel, plain, library, lib_name, (b_ms, b_by),
+               check) in rows.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(got, want)
+        err = float((got - want).abs().max())
+        ms = {k: sum(device_ms(fn).values())
+              for k, fn in (("ms", kernel), ("plain_ms", plain),
+                            ("library_ms", library))}
+        out[what] = dict(ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         library=lib_name)
+        log(f"15u {what}: kernel {ms['ms']:.4f} device ms, plain "
+            f"{ms['plain_ms']:.4f}, {lib_name} {ms['library_ms']:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}; {b_ms / ms['ms']:.3f} of it), max abs err "
+            f"{err:.2e}")
+    return out
+
+
+def _gen_demo(smi):
+    """The demo at its own widths: gen_config.py's make_generator() (8
+    passes in process on the card), its paged replies against the dense
+    generator token for token and against the CPU; paddle.infer of its
+    beam_search output and api.SequenceGenerator on the card against the
+    CPU."""
+    import runpy
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.api as api
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.demos.seq2seq.gen_config import TarParameters
+    from paddle_tpu_torch.generation import SequenceGenerator
+
+    config = os.path.join(HERE, "paddle_tpu_torch", "demos", "seq2seq",
+                          "gen_config.py")
+    glb = runpy.run_path(config)
+    for k in ("PADDLE_GEN_PARAMS", "PADDLE_GEN_TRAIN_PASSES",
+              "PADDLE_GEN_MAXLEN"):
+        os.environ.pop(k, None)
+    pt.framework.reset_default_programs()
+    t0 = time.perf_counter()
+    beam_gen, params = glb["make_generator"]()
+    train_s = time.perf_counter() - t0
+    if params.place != pt.CUDAPlace(0):
+        fail(f"the demo's make_generator() trained on {params.place}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tar = os.path.join(tmp, "demo.tar")
+        with open(tar, "wb") as f:
+            params.to_tar(f)
+        cpu_params = TarParameters(tar, pt.CPUPlace())
+    srcs = gen_sources(np.random.RandomState(32), 12, lens=(3, 6))
+    engine = GenerationEngine.for_seq2seq(
+        beam_gen, params, num_pages=32, page_size=8, pages_per_seq=2,
+        max_slots=4, beam_max=GEN_BEAM)
+    try:
+        got = [r.result(timeout=300) for r in [engine.submit(s)
+                                               for s in srcs]]
+        beams = []
+        for src in srcs[:4]:
+            req = engine.submit_beam(src, beam_size=GEN_BEAM)
+            req.wait(300)
+            beams.append(req.beams)
+        if engine.model.allocator.pages_in_use:
+            fail("the demo engine holds pages after its requests")
+    finally:
+        engine.stop()
+    glb_make = glb["make_beam_gen"]
+    dense = SequenceGenerator(glb_make(max_length=beam_gen.max_length),
+                              params)
+    cpu = SequenceGenerator(glb_make(max_length=beam_gen.max_length),
+                            cpu_params, place=pt.CPUPlace())
+    want = [dense.generate_greedy([s]) for s in srcs]
+    if got != want:
+        fail(f"the demo's paged replies {got} != the dense generator's "
+             f"{want}")
+    cpu_n = sum(greedy_agrees(f"demo request {i} against the CPU", g,
+                              oracle_greedy(cpu, s))
+                for i, (g, s) in enumerate(zip(got, srcs)))
+    beams_n = [0, 0]
+    for src, b in zip(srcs[:4], beams):
+        beams_n[0] += beams_agree("the demo's paged beams", b,
+                                  oracle_beams(dense, src))
+        beams_n[1] += beams_agree("the demo's paged beams against the CPU",
+                                  b, oracle_beams(cpu, src))
+    rows = [[s] for s in srcs[:4]]
+    ref_gen = SequenceGenerator(glb_make(), cpu_params, place=pt.CPUPlace())
+    refs = [oracle_beams(ref_gen, r[0]) for r in rows]
+    infer_n = 0
+    for what, on_card in (
+            ("paddle.infer(beam_search(...))",
+             paddle.infer(output_layer=glb_make(), parameters=params,
+                          input=rows)),
+            ("api.SequenceGenerator",
+             [api.SequenceGenerator(glb_make(), params).generate(r)
+              for r in rows])):
+        for got_b, ref in zip(on_card, refs):
+            infer_n += beams_agree(
+                f"the demo's {what} on the card against the CPU", got_b, ref)
+    log(f"15u the demo at its widths: make_generator() trained the "
+        f"network 8 passes on the card in {train_s:.1f} s (spec max_length "
+        f"{beam_gen.max_length}); {len(srcs)} paged greedy replies equal the dense "
+        f"generator's token for token ({sum(map(len, got))} tokens) and "
+        f"{cpu_n} tokens the CPU's; of 4 paged beam-{GEN_BEAM} replies "
+        f"{beams_n[0]} equal the dense generator's and {beams_n[1]} the "
+        f"CPU's (the rest differ at a ranked margin <= {GEN_LOGP_TOL}); "
+        f"paddle.infer on a beam_search output and api.SequenceGenerator on "
+        f"the card: {infer_n} of {2 * len(rows)} rows' beams compared and "
+        f"equal the CPU's; on {smi}")
+
+
+def phase_v1_generation(dev, smi):
+    """15u: v1 generation on the card.  The NMT demo's network at the
+    seq2seq cell's width trained through paddle_tpu_torch.trainer and
+    saved as a tar; ``python -m paddle_tpu_torch.serving --gen_config``
+    (a make_generator() script over it, GEN_SERVE_FLAGS) answering
+    GEN_GREEDY greedy and GEN_BEAMS beam requests, each held to the dense
+    SequenceGenerator on the card and some to CPUPlace() under the
+    near-tie rule; every page back, tokens streamed in order; the decode
+    step's launches, device ms and idle share; the demo at its own
+    widths.  Returns ({path: record}, {path: launch counts})."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tar = _gen_train(tmp, smi)
+        serve, serve_counts = _gen_serve(tmp, tar, smi)
+        window = _gen_decode_window(tar, smi)
+    _gen_demo(smi)
+    serve.update(idle_share=window["idle_share"],
+                 decode_step_ms=window["step_ms"],
+                 decode_step_launches=window["per_step"],
+                 decode_step_device_ms=window["family_device_ms"],
+                 decode_step_kernels=window["at_shapes"])
+    return ({"v1_generation": serve},
+            {"v1_generation_serve": serve_counts,
+             "v1_generation_decode_step": window["per_step"]})
+
+
+def gen_phase_child():
+    """Phase 15u alone (this script with GEN_PHASE); its records and
+    launch counts as the last line."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    records, launches = timed(phase_v1_generation, torch.device("cuda", 0),
+                              smi)
+    print(json.dumps({"records": records, "launches": launches},
+                     default=float), flush=True)
+
+
+def phase_v1_generation_in_child():
+    """15u in a fresh process (``profile_in_child``), as 15t: its profiled
+    decode window needs a profiler that sees every ctypes launch.
+    Returns (records by path, launch counts by path)."""
+    out = profile_in_child(GEN_PHASE, "v1 generation phase")
+    return out["records"], out["launches"]
+
+
 def graph_pools():
     """(pools, bytes): the CUDA graphs' private memory pools the caching
     allocator still holds, after freeing what nothing references (a dead
@@ -10431,6 +11097,9 @@ def main():
         return
     if sys.argv[1:] == [V2_PHASE]:
         v2_phase_child()
+        return
+    if sys.argv[1:] == [GEN_PHASE]:
+        gen_phase_child()
         return
     t_start = time.perf_counter()
 
@@ -10614,6 +11283,7 @@ def main():
     export_dir.cleanup()
     v2_records, v2_kernels = timed(phase_v2_in_child)
     image_kernels.update(v2_kernels)
+    v1_records, v1_launches = timed(phase_v1_generation_in_child)
     demo_launches = {k: sum(r["launches"][k] for r in demos.values())
                      for k in KERNELS}
     log(f"the demos' launches in all: "
@@ -10676,7 +11346,9 @@ def main():
                "text_conv_train_step": text["launches"],
                "cli": cli["launches"],
                "aot_tune": aot_tune["launches"],
-               **{p: r["launches"] for p, r in v2_records.items()}}
+               **{p: r["launches"] for p, r in v2_records.items()},
+               **{p: dict(dict.fromkeys(KERNELS, 0), **c)
+                  for p, c in v1_launches.items()}}
     main_path = {n: amp_train["launches"] for n in
                  list(BF16_OF.values()) + ["conv2d_bn_stats",
                                            "conv2d_bn_stats_bf16"]}
@@ -10842,6 +11514,13 @@ def main():
             f"{p} {r['ms_per_step']:.3f} ms a step, {r['samples_per_s']:.1f}"
             f" samples/s, peak {r['peak_bytes'] / 2**30:.3f} GiB, idle share "
             f"{r['idle_share']:.3f}" for p, r in v2_records.items())
+        + "; v1 generation at VOCAB {vocab}, HID {hid}: ".format(
+            **GEN_WIDTHS) + "; ".join(
+            f"{r['tokens_per_s']:.1f} tokens/s over {GEN_GREEDY} greedy "
+            f"requests, latency p50 {r['latency_p50_ms']:.1f} ms p99 "
+            f"{r['latency_p99_ms']:.1f} ms, decode step "
+            f"{r['decode_step_ms']:.3f} ms at {GEN_DECODE_SLOTS} slots, idle "
+            f"share {r['idle_share']:.3f}" for r in v1_records.values())
         + f"; on {smi}; {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps(line))
     log(smi)

@@ -61,8 +61,8 @@ def _generator(args, rest):
 
     flags = [f"--{k}={v}" for k, v in args.items()
              if k == "gen_config" or k.startswith(("gen_", "spec_"))
-             or k in ("beam_max", "prefix_cache_pages")]
-    flags += [a for a in rest if a == "--prefix_cache"]
+             or k in ("beam_max", "prefix_cache_pages", "use_gpu")]
+    flags += [a for a in rest if a in ("--prefix_cache", "--cpu")]
     return load_generator(serve_parser("paddle compile").parse_args(flags))
 
 

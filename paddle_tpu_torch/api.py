@@ -15,7 +15,9 @@ reference's native optimizer (``paddle_tpu/native/src/optimizer.cc``:
 ``const`` / ``linear`` learning-rate policy) as PyTorch on its place,
 with the C++ casts: the hyperparameters, the learning rate and the bias
 corrections are doubles cast to float, and the updates are float.
-``SequenceGenerator`` waits for v1 generation (ROADMAP Queue 1 item 4).
+``SequenceGenerator`` decodes a v1 ``beam_search`` spec through
+``generation.SequenceGenerator``, on ``place`` (``CUDAPlace(0)`` unless
+the caller passes another).
 """
 
 from __future__ import annotations
@@ -188,12 +190,17 @@ class GradientMachine:
 
 class SequenceGenerator:
     """The reference's generation driver (``api/PaddleAPI.h:546``), over
-    the v1 ``SequenceGenerator``, which comes with v1 generation."""
+    ``generation.SequenceGenerator`` on ``place`` (``CUDAPlace(0)`` unless
+    the caller passes another; a RuntimeError where there is no card)."""
 
-    def __init__(self, beam_gen, parameters):
-        raise NotImplementedError(
-            "api.SequenceGenerator: v1 generation (generation."
-            "SequenceGenerator) comes with ROADMAP Queue 1 item 4")
+    def __init__(self, beam_gen, parameters, place=None):
+        from paddle_tpu_torch.generation import SequenceGenerator as _Gen
+
+        self._gen = _Gen(beam_gen, parameters, place=place)
+
+    def generate(self, row):
+        """One input row's beams, best first: [(score, [ids...]), ...]."""
+        return self._gen.generate(row)
 
 
 # ---------------------------------------------------------------------------

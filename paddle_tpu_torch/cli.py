@@ -16,7 +16,8 @@ Commands:
         [--max_inflight=N] [--tenants=...] [--tenant_config=FILE]
         [--max_attempts=N] [--replica_heartbeat_ms=MS]
         [--dispatch_timeout=S] [--chaos=KIND[@N[:rIDX]]] [--use_gpu=0|--cpu]
-        [--gen_config=SCRIPT --gen_slots=N --gen_queue=N --gen_max_tokens=N
+        [--gen_config=SCRIPT --gen_pages=N --gen_page_size=N
+         --gen_pages_per_seq=N --gen_slots=N --gen_queue=N --gen_max_tokens=N
          --beam_max=K --prefix_cache --prefix_cache_pages=N
          --spec_draft=ngram --spec_k=N]
       (HTTP inference over a save_inference_model export and/or a paged-KV

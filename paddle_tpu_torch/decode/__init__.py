@@ -26,12 +26,15 @@ Pieces:
                     refcounted allocator.
 - ``spec``        — speculative decoding: drafts, the greedy acceptance
                     rule, ``SpeculativeDecoder``.
+- ``seq2seq``     — ``PagedSeq2SeqModel``: a v1 ``beam_search`` spec as a
+                    paged model (static KV: the encoder's states, paged
+                    once at prefill; a fixed-shape decode step gathers
+                    each slot's context from the pool).
 - ``engine``      — ``GenerationEngine``: the serving front (background
                     stepper thread, admission control, token streaming)
-                    that ``InferenceServer`` mounts at ``POST /generate``.
-
-The v1 ``beam_search`` adapter ``PagedSeq2SeqModel`` comes with v1
-generation (ROADMAP Queue 1 item 4).
+                    that ``InferenceServer`` mounts at ``POST /generate``;
+                    ``GenerationEngine.for_seq2seq`` builds one over a
+                    ``beam_search`` spec.
 """
 
 from paddle_tpu_torch.decode.paged_kv import (
@@ -45,8 +48,10 @@ from paddle_tpu_torch.decode.session import (
     DecodeSession,
 )
 from paddle_tpu_torch.decode.engine import GenerationEngine
+from paddle_tpu_torch.decode.seq2seq import PagedSeq2SeqModel
 
 __all__ = [
     "AdmissionRefused", "DecodeRequest", "DecodeSession",
-    "GenerationEngine", "PageAllocator", "PagedPool", "PoolExhausted",
+    "GenerationEngine", "PageAllocator", "PagedPool", "PagedSeq2SeqModel",
+    "PoolExhausted",
 ]

@@ -32,6 +32,7 @@ class GenerationEngine:
     def __init__(self, model, max_slots: int = 8,
                  max_waiting: Optional[int] = 64,
                  max_new_tokens: int = 32,
+                 prompt_of: Optional[Callable] = None,
                  prefix_cache: bool = False,
                  prefix_cache_pages: Optional[int] = None,
                  spec_draft=None, spec_k: int = 4,
@@ -49,6 +50,9 @@ class GenerationEngine:
                                      spec_draft=spec_draft, spec_k=spec_k)
         self.beam_max = int(beam_max)
         self.max_new_tokens_cap = int(max_new_tokens)
+        # identity by default: most models (TinyDecoderLM) take the id
+        # list as-is; for_seq2seq wraps it as a v2 reader row
+        self._prompt_of = prompt_of or (lambda ids: ids)
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._stepper, daemon=True,
@@ -56,13 +60,27 @@ class GenerationEngine:
         self._thread.start()
 
     @classmethod
-    def for_seq2seq(cls, beam_gen, parameters, **kwargs):
-        """The v1 ``beam_search`` adapter (``PagedSeq2SeqModel``) needs the
-        v1 generation stack, which comes with ROADMAP Queue 1 item 4."""
-        raise NotImplementedError(
-            "GenerationEngine.for_seq2seq (PagedSeq2SeqModel over a v1 "
-            "beam_search spec) comes with v1 generation, ROADMAP Queue 1 "
-            "item 4; serve a make_decode_model() paged decoder LM")
+    def for_seq2seq(cls, beam_gen, parameters, *, num_pages: int = 64,
+                    page_size: int = 8, pages_per_seq: int = 2,
+                    max_slots: int = 8, max_waiting: Optional[int] = 64,
+                    max_new_tokens: Optional[int] = None,
+                    beam_max: int = 0,
+                    place=None) -> "GenerationEngine":
+        """An engine over a v1 ``beam_search`` spec
+        (``PagedSeq2SeqModel``) on ``place`` (``CUDAPlace(0)`` unless the
+        caller passes another); ``max_new_tokens`` defaults to the spec's
+        ``max_length``."""
+        from paddle_tpu_torch.decode.seq2seq import PagedSeq2SeqModel
+
+        model = PagedSeq2SeqModel(beam_gen, parameters,
+                                  num_pages=num_pages, page_size=page_size,
+                                  pages_per_seq=pages_per_seq, place=place)
+        return cls(model, max_slots=max_slots, max_waiting=max_waiting,
+                   max_new_tokens=(max_new_tokens
+                                   if max_new_tokens is not None
+                                   else beam_gen.max_length),
+                   beam_max=beam_max,
+                   prompt_of=lambda ids: [ids])
 
     # -- submission ---------------------------------------------------------
 
@@ -84,7 +102,7 @@ class GenerationEngine:
         request handle — ``wait()``/``result()`` or stream via
         ``on_token``.  ``temperature``/``top_k``/``seed`` switch the
         slot from greedy argmax to seeded sampling."""
-        req = DecodeRequest(list(src_ids),
+        req = DecodeRequest(self._prompt_of(list(src_ids)),
                             max_new_tokens=self._budget(max_new_tokens),
                             on_token=on_token, deadline=deadline,
                             temperature=temperature, top_k=top_k,
@@ -104,7 +122,7 @@ class GenerationEngine:
                 "beam_disabled" if self.beam_max == 0 else "beam_too_wide",
                 f"beam_size {beam_size} exceeds the engine cap "
                 f"({self.beam_max})")
-        req = BeamRequest(list(src_ids),
+        req = BeamRequest(self._prompt_of(list(src_ids)),
                           beam_size=beam_size,
                           max_new_tokens=self._budget(max_new_tokens),
                           deadline=deadline)

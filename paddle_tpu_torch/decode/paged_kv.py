@@ -173,20 +173,25 @@ class PagedPool:
 
     def write_rows(self, pages: Sequence[int], rows) -> None:
         """Write ``rows`` (T, *feature) into ``pages`` front-to-back,
-        zero-padding the final partial page."""
+        zero-padding the final partial page.  ``rows`` may be numpy or a
+        tensor; a tensor on the pool's device is copied there, never
+        through the host."""
         n = len(pages)
         cap = n * self.page_size
-        rows = torch.as_tensor(np.asarray(rows), dtype=self.data.dtype)
+        if not isinstance(rows, torch.Tensor):
+            rows = torch.as_tensor(np.asarray(rows))
+        rows = rows.to(device=self.data.device, dtype=self.data.dtype)
         if rows.shape[0] > cap:
             raise ValueError(
                 f"{rows.shape[0]} rows do not fit {n} pages "
                 f"({cap} row capacity)")
-        buf = torch.zeros((cap,) + self.feature_shape, dtype=self.data.dtype)
+        buf = torch.zeros((cap,) + self.feature_shape, dtype=self.data.dtype,
+                          device=self.data.device)
         buf[:rows.shape[0]] = rows
         idx = torch.as_tensor(list(pages), dtype=torch.long,
                               device=self.data.device)
         self.data.index_copy_(0, idx, buf.reshape(
-            (n, self.page_size) + self.feature_shape).to(self.data.device))
+            (n, self.page_size) + self.feature_shape))
 
     def append_row(self, pages: Sequence[int], position: int, row) -> None:
         """Write one row at logical ``position`` within the sequence's

@@ -9,6 +9,7 @@ HTTP:
         [--dispatch_timeout=SECONDS] [--chaos=KIND[@N[:rIDX]]]
         [--artifacts=DIR]
     python -m paddle_tpu_torch.serving --gen_config=SCRIPT [--port=N]
+        [--gen_pages=N] [--gen_page_size=N] [--gen_pages_per_seq=N]
         [--gen_slots=N] [--gen_queue=N] [--gen_max_tokens=N]
         [--prefix_cache] [--prefix_cache_pages=N] [--spec_draft=ngram]
         [--spec_k=K] [--beam_max=K] [--request_timeout=SECONDS]
@@ -27,8 +28,12 @@ any mismatch.
 ``--gen_config`` mounts ``/generate``: SCRIPT is executed and must
 define ``make_decode_model()`` returning a paged decoder LM (a
 ``paddle_tpu_torch.decode.model.TinyDecoderLM``, which picks its own
-place); a ``make_draft_model()`` in it, or ``--spec_draft=ngram``,
-turns on speculative decoding.  Prints one line
+place), or ``make_generator()`` returning ``(beam_gen, parameters)``, a
+v1 ``beam_search`` spec and its trained parameters (served by
+``GenerationEngine.for_seq2seq`` on the card, or on the CPU under
+``--cpu``; ``paddle_tpu_torch/demos/seq2seq/gen_config.py`` is one); a
+``make_draft_model()`` in it, or ``--spec_draft=ngram``, turns on
+speculative decoding.  Prints one line
 ``serving on http://HOST:PORT`` once it accepts requests, then serves
 until SIGTERM or SIGINT, and exits 0.  ``--use_gpu=0`` is ``--cpu``.
 
@@ -44,13 +49,22 @@ import json
 import signal
 import threading
 
-from paddle_tpu_torch.framework import CPUPlace
+from paddle_tpu_torch.framework import CPUPlace, CUDAPlace, default_place
 from paddle_tpu_torch.serving import InferenceServer
 
 
 def load_generator(args):
     """A GenerationEngine from ``--gen_config`` and the ``--gen_*``
-    flags (``paddle_tpu/cli.py`` ``_load_generator``)."""
+    flags (``paddle_tpu/cli.py`` ``_load_generator``): the script's
+    ``make_decode_model()`` (a paged decoder LM), else its
+    ``make_generator() -> (beam_gen, parameters)`` (a v1 ``beam_search``
+    spec, served by ``GenerationEngine.for_seq2seq`` over
+    ``--gen_pages`` pages of ``--gen_page_size`` rows, at most
+    ``--gen_pages_per_seq`` a sequence; without ``--gen_max_tokens`` a
+    request's budget is the spec's ``max_length``).  ``make_generator``
+    and the engine run on the card, or on the CPU under ``--cpu`` /
+    ``--use_gpu=0`` (the script's entry points that take no place follow
+    ``framework.default_place``)."""
     from paddle_tpu_torch.decode import GenerationEngine
     from paddle_tpu_torch.decode.spec import NgramDraft
 
@@ -58,26 +72,36 @@ def load_generator(args):
     glb = {"__file__": path, "__name__": "__paddle_serve_gen__"}
     with open(path) as f:
         exec(compile(f.read(), path, "exec"), glb)
-    if "make_decode_model" not in glb:
-        if "make_generator" in glb:
-            raise NotImplementedError(
-                f"{path} defines make_generator() -> (beam_gen, parameters),"
-                " a v1 beam_search spec: the port serves it with v1 "
-                "generation, ROADMAP Queue 1 item 4; define "
-                "make_decode_model() instead")
-        raise RuntimeError(f"{path} defines no make_decode_model() -> paged "
-                           "decoder model")
     spec_draft = None
     if "make_draft_model" in glb:
         spec_draft = glb["make_draft_model"]()
     elif args.spec_draft == "ngram":
         spec_draft = NgramDraft()
-    return GenerationEngine(
-        glb["make_decode_model"](), max_slots=args.gen_slots,
-        max_waiting=args.gen_queue, max_new_tokens=args.gen_max_tokens,
-        prefix_cache=args.prefix_cache,
-        prefix_cache_pages=args.prefix_cache_pages, spec_draft=spec_draft,
-        spec_k=args.spec_k, beam_max=args.beam_max)
+    if "make_decode_model" in glb:
+        return GenerationEngine(
+            glb["make_decode_model"](), max_slots=args.gen_slots,
+            max_waiting=args.gen_queue,
+            max_new_tokens=(args.gen_max_tokens
+                            if args.gen_max_tokens is not None else 32),
+            prefix_cache=args.prefix_cache,
+            prefix_cache_pages=args.prefix_cache_pages,
+            spec_draft=spec_draft, spec_k=args.spec_k,
+            beam_max=args.beam_max)
+    if "make_generator" not in glb:
+        raise RuntimeError(
+            f"{path} defines no make_generator() -> (beam_gen, parameters) "
+            "and no make_decode_model() -> paged decoder model")
+    cpu = getattr(args, "cpu", False) or not getattr(args, "use_gpu", 1)
+    place = CPUPlace() if cpu else CUDAPlace(0)
+    with default_place(place):
+        beam_gen, parameters = glb["make_generator"]()
+        return GenerationEngine.for_seq2seq(
+            beam_gen, parameters, num_pages=args.gen_pages,
+            page_size=args.gen_page_size,
+            pages_per_seq=args.gen_pages_per_seq,
+            max_slots=args.gen_slots, max_waiting=args.gen_queue,
+            max_new_tokens=args.gen_max_tokens, beam_max=args.beam_max,
+            place=place)
 
 
 def tenant_spec(args):
@@ -126,11 +150,20 @@ def serve_parser(prog: str, port: int = 8000) -> argparse.ArgumentParser:
                     help="a `paddle compile` directory to boot the "
                     "replicas from (AOT run plans and kernel libraries)")
     ap.add_argument("--gen_config", default=None,
-                    help="script defining make_decode_model(): mounts "
-                    "POST /generate")
+                    help="script defining make_decode_model() or "
+                    "make_generator(): mounts POST /generate")
+    ap.add_argument("--gen_pages", type=int, default=64,
+                    help="make_generator(): pages in the context pool")
+    ap.add_argument("--gen_page_size", type=int, default=8,
+                    help="make_generator(): rows a page")
+    ap.add_argument("--gen_pages_per_seq", type=int, default=2,
+                    help="make_generator(): pages a sequence at most")
     ap.add_argument("--gen_slots", type=int, default=8)
     ap.add_argument("--gen_queue", type=int, default=64)
-    ap.add_argument("--gen_max_tokens", type=int, default=32)
+    ap.add_argument("--gen_max_tokens", type=int, default=None,
+                    help="a request's token budget: 32 for "
+                    "make_decode_model(), the spec's max_length for "
+                    "make_generator()")
     ap.add_argument("--prefix_cache", action="store_true")
     ap.add_argument("--prefix_cache_pages", type=int, default=None)
     ap.add_argument("--spec_draft", choices=("ngram",), default=None)

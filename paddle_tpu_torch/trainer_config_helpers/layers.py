@@ -6,7 +6,9 @@ cost layers, and ``recurrent_group`` with ``memory`` and ``StaticInput``
 ``LayerOutput`` the v2 layers do (``paddle_tpu_torch/v2/layer.py``);
 ``outputs()`` marks the roots, and a module-level capture (driven by
 ``trainer.config_parser``) records a LayerConfig-shaped dict a call.
-``beam_search`` (generation) waits for ROADMAP Queue 1 item 4."""
+``beam_search`` returns the generation spec (``generation.BeamGen``) that
+``SequenceGenerator``, ``paddle.infer`` and ``paddle serve --gen_config``
+decode."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from paddle_tpu_torch.trainer_config_helpers.poolings import (
 from paddle_tpu_torch.v2 import data_type as _dt
 from paddle_tpu_torch.v2 import layer as _v2
 from paddle_tpu_torch.v2.layer import LayerOutput, SeqVal, SubSeqVal
+from paddle_tpu_torch.generation import GeneratedInput  # noqa: F401
 
 __all__ = [
     "LayerOutput", "data_layer", "fc_layer", "embedding_layer",
@@ -36,6 +39,7 @@ __all__ = [
     "crf_layer", "crf_decoding_layer", "nce_layer", "maxid_layer",
     "warp_ctc_layer", "ctc_layer", "hsigmoid_layer", "factorization_machine",
     "recurrent_group", "memory", "StaticInput", "get_output_layer",
+    "beam_search", "GeneratedInput",
     "expand_layer", "repeat_layer", "power_layer", "scaling_layer",
     "slope_intercept_layer", "interpolation_layer", "trans_layer",
     "pad_layer", "outputs",
@@ -1433,3 +1437,16 @@ def get_output_layer(input, arg_name=None, name=None, **kwargs):
     """The layer itself: each port layer has one output (a step layer's
     second output is a LayerOutput of its own)."""
     return input
+
+
+def beam_search(step, input, bos_id, eos_id, beam_size=5, max_length=30,
+                name=None, **kwargs):
+    """The generation-mode recurrent group: ``step`` over a
+    ``GeneratedInput`` (the previous word's embedding) and the
+    ``StaticInput`` contexts.  Returns the ``BeamGen`` spec that
+    ``generation.SequenceGenerator``, ``paddle.infer`` and the paged
+    decode engine decode."""
+    from paddle_tpu_torch.generation import BeamGen
+
+    return BeamGen(step, list(input), bos_id, eos_id, beam_size, max_length,
+                   name=name)

@@ -1,9 +1,9 @@
 """v1 constructors of the long tail (``paddle_tpu/trainer_config_helpers/
 layers_extra.py``), the part the recurrent groups and the nested
 sequences reach: ``gru_step_layer`` and ``lstm_step_layer`` (one step
-inside a recurrent_group), ``gated_unit_layer``, and the nested-sequence
-markers ``AggregateLevel``, ``ExpandLevel`` and ``SubsequenceInput``.
-The rest of the tail waits for ROADMAP Queue 1 item 3 step 3 part 2."""
+inside a recurrent_group), ``gated_unit_layer``, the nested-sequence
+markers ``AggregateLevel``, ``ExpandLevel`` and ``SubsequenceInput``, and
+generation's ``BaseGeneratedInput``.  The rest of the tail waits for ROADMAP Queue 1 item 3 step 3 part 2."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from paddle_tpu_torch.v2.layer import LayerOutput, SeqVal
 
 __all__ = ["gru_step_layer", "gru_step_naive_layer", "lstm_step_layer",
            "gated_unit_layer", "AggregateLevel", "ExpandLevel",
-           "SubsequenceInput"]
+           "SubsequenceInput", "BaseGeneratedInput"]
 
 
 def _unwrap(v):
@@ -159,3 +159,8 @@ class SubsequenceInput:
     @property
     def name(self):
         return self.input.name
+
+
+class BaseGeneratedInput:
+    """The base the generated inputs of a generation config derive from
+    (``generation.GeneratedInput`` is the one ``beam_search`` takes)."""

@@ -1,7 +1,9 @@
 """v2 inference (``paddle_tpu/v2/inference.py``): ``Inference`` builds
 the output layers' test Topology and runs it on the place its
-Parameters live on; ``infer`` is one call of it.  Generation (a
-``beam_search`` output) waits for ROADMAP Queue 1 item 4."""
+Parameters live on; ``infer`` is one call of it.  A ``beam_search``
+output (``generation.BeamGen``) is decoded instead, by a
+``SequenceGenerator`` on that place: ``field="value"`` gives each row's
+beams ``[(score, [ids...]), ...]``, ``field="id"`` the best beam's ids."""
 
 from __future__ import annotations
 
@@ -15,10 +17,15 @@ __all__ = ["Inference", "infer"]
 
 class Inference:
     def __init__(self, output_layer, parameters):
-        if type(output_layer).__name__ == "BeamGen":
-            raise NotImplementedError(
-                "paddle_tpu_torch: inference of a beam_search output "
-                "(generation) comes with ROADMAP Queue 1 item 4")
+        from paddle_tpu_torch.generation import BeamGen, SequenceGenerator
+
+        self._gen = None
+        if isinstance(output_layer, BeamGen):
+            self._gen = SequenceGenerator(
+                output_layer, parameters,
+                place=getattr(parameters, "place", None))
+            self.parameters = parameters
+            return
         outputs = (output_layer if isinstance(output_layer, (list, tuple))
                    else [output_layer])
         self.topology = Topology(cost=None, output_layers=list(outputs),
@@ -28,7 +35,14 @@ class Inference:
 
     def infer(self, input, feeding=None, field="value"):
         """The output layers' values on the rows of ``input`` (one batch),
-        as numpy: one array, or a list of them for several outputs."""
+        as numpy: one array, or a list of them for several outputs; of a
+        generation spec, one beam list (or, with ``field="id"``, the best
+        beam's ids) a row."""
+        if self._gen is not None:
+            beams = [self._gen.generate(row) for row in input]
+            if field == "id":
+                return [b[0][1] if b else [] for b in beams]
+            return beams
         from paddle_tpu_torch.v2.trainer import V2DataFeeder
 
         feed = V2DataFeeder(self.topology.feed_types, feeding).feed(input)

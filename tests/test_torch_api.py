@@ -142,17 +142,34 @@ def test_gradient_machine_against_the_jax_package(rng):
 
 
 def test_entry_points_take_the_card_by_default():
-    """Without a place, GradientMachine and ParameterOptimizer take
-    CUDAPlace(0) (never FLAGS.use_gpu), and raise where no card is
-    found; SequenceGenerator waits for v1 generation."""
+    """Without a place, GradientMachine, ParameterOptimizer and
+    SequenceGenerator take CUDAPlace(0) (never FLAGS.use_gpu), and raise
+    where no card is found; SequenceGenerator runs on CPUPlace() when
+    asked (its beams are held to the JAX package's in
+    tests/test_torch_generation.py)."""
+    from paddle_tpu_torch.demos.seq2seq.gen_config import make_beam_gen
+    from paddle_tpu_torch.executor import Scope
+
+    class Params:
+        scope = Scope()
+
+    pt.framework.reset_default_programs()
+    gen = api.SequenceGenerator(make_beam_gen(beam_size=2, max_length=4),
+                                Params, place=pt.CPUPlace())
+    beams = gen.generate([[4, 7, 2]])
+    assert 1 <= len(beams) <= 2
+    assert all(len(ids) <= 4 and all(0 <= t < 16 for t in ids)
+               for _, ids in beams)
+    assert [s for s, _ in beams] == sorted((s for s, _ in beams),
+                                           reverse=True)
     if torch.cuda.is_available():
         pytest.skip("this checks the refusal without a CUDA device")
     with pytest.raises(RuntimeError, match="CPUPlace"):
         api.GradientMachine.createFromConfigProto(_conf(pt))
     with pytest.raises(RuntimeError, match="CPUPlace"):
         api.ParameterOptimizer.create("type=sgd lr=0.1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        api.SequenceGenerator(None, None)
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        api.SequenceGenerator(make_beam_gen(), Params)
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,10 @@ family's own tolerance of the plain version (``kernels/tuning/space.py``:
 atol + rtol * max|plain|); the shipped (empty) database's launches,
 counters and outputs bit for bit those of a disabled one; a library
 loaded from an artifact directory in a fresh process, with no ``nvcc``
-run.
+run.  v1 generation (``-k "seq2seq_paged or generation_entry"``): the
+paged seq2seq engine's tokens equal the dense SequenceGenerator's on the
+card token for token, its beam scores within 1e-5; the generation entry
+points take the card by default.
 """
 
 import contextlib
@@ -4251,3 +4254,80 @@ def test_reversed_ragged_lstm_at_h128_matches_plain(dev):
         np.testing.assert_allclose(gv, wv, rtol=0,
                                    atol=1e-4 * np.abs(wv).max(),
                                    err_msg=name)
+
+
+SEQ2SEQ_SRCS = [[4, 7, 2], [3, 9, 5, 6], [2, 2, 11, 8, 1], [5, 5],
+                [9, 8, 7, 6, 5, 4], [1, 12, 13], [6, 3, 14, 2, 9, 10, 4]]
+
+
+def test_seq2seq_paged_equals_dense_generator_on_the_card(dev):
+    """v1 generation at the NMT demo's widths (its startup programs'
+    weights): ``GenerationEngine.for_seq2seq`` on the card answers ragged
+    requests, more than its slots, with the dense ``SequenceGenerator``'s
+    tokens on the card, token for token, and beam requests with its beams
+    (ids equal, scores within 1e-5); every page goes back."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.demos.seq2seq.gen_config import make_beam_gen
+    from paddle_tpu_torch.executor import Scope
+    from paddle_tpu_torch.generation import SequenceGenerator
+
+    class Params:
+        scope = Scope()
+
+    pt.framework.reset_default_programs()
+    oracle = SequenceGenerator(make_beam_gen(beam_size=1, max_length=7),
+                               Params)
+    engine = GenerationEngine.for_seq2seq(
+        make_beam_gen(beam_size=1, max_length=7), Params, num_pages=24,
+        page_size=8, pages_per_seq=2, max_slots=3, beam_max=3)
+    try:
+        assert engine.model.pool.data.is_cuda
+        want = [oracle.generate_greedy([s]) for s in SEQ2SEQ_SRCS]
+        reqs = [engine.submit(s) for s in SEQ2SEQ_SRCS]
+        assert [r.result(timeout=300) for r in reqs] == want
+        for k in (2, 3):
+            for src in SEQ2SEQ_SRCS[:3]:
+                ref = oracle.generate([src], beam_size=k)
+                req = engine.submit_beam(src, beam_size=k)
+                req.wait(300)
+                assert [t for _, t in req.beams] == [t for _, t in ref]
+                for (gs, _), (ws, _) in zip(req.beams, ref):
+                    assert abs(gs - ws) <= 1e-5
+        assert engine.model.allocator.pages_in_use == 0
+    finally:
+        engine.stop()
+
+
+def test_generation_entry_points_default_to_the_card(dev):
+    """SequenceGenerator, api.SequenceGenerator, paddle.infer on a
+    beam_search output and for_seq2seq run on CUDAPlace(0) when given no
+    place: the weights they initialise live on the card."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.api as api
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.decode import GenerationEngine
+    from paddle_tpu_torch.demos.seq2seq.gen_config import make_beam_gen
+    from paddle_tpu_torch.executor import Scope
+    from paddle_tpu_torch.generation import SequenceGenerator
+
+    class Params:
+        scope = Scope()
+
+    pt.framework.reset_default_programs()
+    gen = SequenceGenerator(make_beam_gen(max_length=4), Params)
+    assert gen.place == pt.CUDAPlace(0)
+    assert all(v.is_cuda for v in Params.scope.values.values())
+    assert api.SequenceGenerator(make_beam_gen(max_length=4),
+                                 Params)._gen.place == pt.CUDAPlace(0)
+    ids = paddle.infer(output_layer=make_beam_gen(max_length=4),
+                       parameters=Params, input=[[[4, 7, 2]]], field="id")
+    assert len(ids) == 1 and len(ids[0]) <= 4
+    engine = GenerationEngine.for_seq2seq(make_beam_gen(max_length=4),
+                                          Params, max_slots=2)
+    try:
+        assert engine.model.place == pt.CUDAPlace(0)
+        assert engine.model.device.type == "cuda"
+        assert len(engine.submit([4, 7, 2]).result(timeout=300)) <= 4
+    finally:
+        engine.stop()

@@ -723,6 +723,8 @@ def test_launcher_builds_the_engine_from_a_gen_config(tmp_path):
         gen_slots, gen_queue, gen_max_tokens = 3, 5, 7
         prefix_cache, prefix_cache_pages = True, 4
         spec_draft, spec_k, beam_max = "ngram", 3, 0
+        gen_pages, gen_page_size, gen_pages_per_seq = 16, 8, 2
+        cpu = True
 
     engine = load_generator(Args)
     try:
@@ -733,19 +735,54 @@ def test_launcher_builds_the_engine_from_a_gen_config(tmp_path):
         assert len(engine.submit([1, 2, 3]).result(timeout=60)) == 7
     finally:
         engine.stop()
-    script.write_text("def make_generator():\n    return None, None\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # a make_generator() script: a v1 beam_search spec on the CPU
+    script.write_text(
+        "from paddle_tpu_torch.demos.seq2seq.gen_config import "
+        "make_beam_gen\n"
+        "from paddle_tpu_torch.executor import Scope\n"
+        "class Params:\n"
+        "    scope = Scope()\n"
+        "def make_generator():\n"
+        "    return make_beam_gen(beam_size=1, max_length=5), Params()\n")
+    engine = load_generator(Args)
+    try:
+        assert type(engine.model).__name__ == "PagedSeq2SeqModel"
+        assert (engine.info()["slots"], engine.info()["max_new_tokens"],
+                engine.model.pool.num_pages) == (3, 7, 16)
+        assert 1 <= len(engine.submit([4, 7, 2]).result(timeout=60)) <= 7
+        assert engine.model.allocator.pages_in_use == 0
+    finally:
+        engine.stop()
+    script.write_text("x = 1\n")
+    with pytest.raises(RuntimeError, match="make_generator"):
         load_generator(Args)
     with pytest.raises(SystemExit):
         main([])
 
 
 def test_later_slices_and_the_card_default_raise(jax_base):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        GenerationEngine.for_seq2seq(None, None)
+    """for_seq2seq builds a PagedSeq2SeqModel engine on the place asked
+    for (its replies are held to the JAX engine's in
+    tests/test_torch_generation.py); without a place the decode models
+    take the card, and raise where there is none."""
     import paddle_tpu_torch.decode as decode
+    from paddle_tpu_torch.demos.seq2seq.gen_config import make_beam_gen
+    from paddle_tpu_torch.executor import Scope
 
-    assert not hasattr(decode, "PagedSeq2SeqModel")
+    class Params:
+        scope = Scope()
+
+    engine = GenerationEngine.for_seq2seq(
+        make_beam_gen(beam_size=1, max_length=4), Params, num_pages=8,
+        max_slots=2, place=pt.CPUPlace())
+    try:
+        assert isinstance(engine.model, decode.PagedSeq2SeqModel)
+        assert engine.info()["max_new_tokens"] == 4
+        assert engine.model.device.type == "cpu"
+    finally:
+        engine.stop()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TinyDecoderLM()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            GenerationEngine.for_seq2seq(make_beam_gen(), Params)

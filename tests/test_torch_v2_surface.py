@@ -15,8 +15,7 @@ and ``v2`` modules (the same function, given the package), then:
 
 Beside the cases: every name of the JAX package's v1 ``layers.__all__``
 and ``networks.__all__`` resolves under ``paddle_tpu_torch.v2.layer`` /
-``.networks`` (``beam_search`` and ``GeneratedInput`` wait for
-generation); ``parse_network``; the v2 optimizers (Programs, two steps,
+``.networks``; ``parse_network``; the v2 optimizers (Programs, two steps,
 ``server_config``); ``v2.op``, ``v2.evaluator``, ``config_base``,
 ``v2.fluid``, ``v2.image`` and ``v2.plot``.
 """
@@ -441,17 +440,12 @@ def test_lstmemory_ignores_act_as_the_jax_package_does():
 # names, parse_network, the optimizers and the small modules
 # ---------------------------------------------------------------------------
 
-GENERATION = {"beam_search", "GeneratedInput"}
-
-
 def test_every_v1_name_resolves_under_v2():
     import paddle_tpu.trainer_config_helpers.layers as jl
     import paddle_tpu.trainer_config_helpers.networks as jn
     import paddle_tpu_torch.v2.layer as pl
 
     for n in jl.__all__:
-        if n in GENERATION:
-            continue
         assert getattr(ppaddle.layer, pl._convert_v1_name(n)) is not None, n
     for n in jn.__all__:
         assert getattr(ppaddle.networks, n) is not None, n
@@ -575,10 +569,38 @@ def test_ploter(tmp_path):
 
 
 def test_infer_of_a_generation_output_names_its_roadmap_item():
-    """A beam_search output (the JAX package's ``BeamGen``) is generation,
-    which waits for ROADMAP Queue 1 item 4."""
-    from paddle_tpu.generation import BeamGen
+    """A beam_search output (a ``BeamGen``) is decoded by a
+    SequenceGenerator on the parameters' place: ``field="id"`` gives
+    each row's best ids, ``field="value"`` its beams, as the JAX
+    package's ``infer`` does (held to it in
+    tests/test_torch_generation.py)."""
+    from paddle_tpu_torch.executor import Scope
 
-    spec = BeamGen.__new__(BeamGen)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ppaddle.inference.Inference(spec, None)
+    class Params:
+        scope = Scope()
+        place = pt.CPUPlace()
+
+    _reset(ppaddle)
+    ctx = ppaddle.layer.data(name="c",
+                             type=ppaddle.data_type.dense_vector(6))
+
+    def step(word, c):
+        mem = ptch.memory(name="d", size=6)
+        h = ppaddle.layer.fc(input=[word, mem, c], size=6, act="tanh",
+                             name="d", bias_attr=False)
+        return ppaddle.layer.fc(input=h, size=5, act="softmax",
+                                bias_attr=False)
+
+    spec = ptch.beam_search(
+        step=step, input=[ptch.GeneratedInput(size=5, embedding_name="e",
+                                               embedding_size=4),
+                          ptch.StaticInput(ctx, size=6)],
+        bos_id=0, eos_id=1, beam_size=2, max_length=4)
+    rows = [[np.full(6, 0.5, np.float32).tolist()]]
+    # one Inference: a rebuilt step names its unnamed weights anew
+    inference = ppaddle.inference.Inference(spec, Params)
+    ids = inference.infer(rows, field="id")
+    beams = inference.infer(rows)
+    assert len(ids) == len(beams) == 1
+    assert ids[0] == beams[0][0][1]
+    assert all(0 <= t < 5 for t in ids[0]) and len(ids[0]) <= 4
